@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Quickest proof that the PyTorch port serves on an NVIDIA GPU.
+"""Quickest proof that the PyTorch port serves and trains on an NVIDIA GPU.
 
 Run from the root of a checkout, on a machine with one CUDA card:
 
@@ -8,14 +8,20 @@ Run from the root of a checkout, on a machine with one CUDA card:
 Phases (any failure exits non-zero, and no result line is printed):
 
 1. Setup: print the card's name and power limit, build the port's CUDA
-   kernels from ``ops/csrc``, load the PAMAP2 train split (chunk 512,
-   stride 128, instance normalisation) from ``data/pamap2`` onto the card.
-2. Kernels: each kernel against its plain PyTorch twin on the card, at the
-   serving shapes (packed attention: B=64, T=512, H=4, d=64; fused head:
-   M=4, P=12, H=256, C=25, B=64), including the edge cases (length 0, lengths
-   that are not multiples of 8 or of the 64-key tile, padded T, all-masked
-   and single-modality rows). Times with CUDA events: kernel, plain twin and,
-   where one PyTorch call computes the same function, that call.
+   kernels from ``ops/csrc`` (one ``nvcc`` per source, all at once), load the
+   PAMAP2 train split (chunk 512, stride 128, instance normalisation) from
+   ``data/pamap2`` onto the card.
+2. Kernels: each of the seven kernels against its plain PyTorch twin on the
+   card, at the shapes the main paths give it, including edge cases:
+   packed attention forward (B=64, T=512, H=4, d=64) and backward (B=32:
+   the real batch's lengths and 0, 1, 37, 64, 65, 511, T; padded T=72);
+   the fused head (M=4, P=12, H=256, C=25, B=64); the projection and FFW
+   residual-LayerNorm kernels, forward and backward, at N = 32*512 rows with
+   masks at keep 0.8, without masks and at keep 0, and at an N that is not a
+   multiple of the 32-row tile. Backward checks compare every output by its
+   max abs error relative to its largest magnitude. Times with CUDA events:
+   kernel, plain twin, the bound, and, where one PyTorch call computes the
+   same function, that call.
 3. Serve: ``MultimodalFusionModel.from_config(config/base.yaml)`` with seeded
    random weights at full width, ``serving.make_serving_fn`` on batch-64
    requests of real windows (all modalities; one modality missing; short
@@ -24,7 +30,16 @@ Phases (any failure exits non-zero, and no result line is printed):
    the same weights on the plain path (kernels off). Then p50 latency and
    windows/s over repeated requests, and device time by kernel family
    (torch.profiler) with the device's busy share.
-4. Print the kernel table as one JSON line, then the result line
+4. Train: ``train.Trainer`` on ``config/base.yaml`` with
+   ``training.dropout_rng=xla`` at full width takes 8 micro-steps (2 AdamW
+   updates at accumulation 4) on batch-32 real train windows with every
+   augmentation on. Every loss must be finite; the counters must read 4
+   launches per micro-step for the attention forward and backward and the
+   four LayerNorm kernels, and none for the head. One micro-step on the
+   kernel path is held against the plain path from the same weights, batch
+   and generator seed (loss and every parameter gradient). Then train-step
+   p50 and windows/s, and device time by kernel family.
+5. Print the kernel table as one JSON line, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
 The script imports torch and the port only; it needs no network.
@@ -33,6 +48,7 @@ The script imports torch and the port only; it needs no network.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -42,6 +58,7 @@ REPO = Path(__file__).resolve().parent
 PKG = "multimodal_sensor_fusion_with_attention_rajeevatla_torch"
 TPU_PKG = "multimodal_sensor_fusion_with_attention_rajeevatla_tpu"
 BATCH = 64
+TRAIN_STEPS = 8  # micro-steps on the main path: 2 updates at accumulation 4
 # f32 peaks of one H100 SXM (NVIDIA data sheet): CUDA-core FP32 and HBM3
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
@@ -50,6 +67,18 @@ PEAK_BYTES = 3.35e12
 ATTN_TOL = 1e-4
 HEAD_TOL = 1e-4
 LOGIT_TOL = 1e-3  # four encoders and the head stacked: errors add up
+# backward kernels and the LayerNorm kernels: max abs error relative to the
+# output's largest magnitude. f32 on both sides; the weight gradients are
+# sums over 16,384 rows taken in split row blocks, not in the twin's order
+GRAD_TOL = 1e-4
+# one training micro-step, kernel path against plain path, each gradient's
+# max abs error relative to its largest magnitude: the two forwards round
+# differently, and a hidden unit whose pre-activation lands on the other
+# side of zero moves one row's whole contribution in or out of dW1 (the
+# ReLU's derivative is a step), so isolated entries differ by ~1e-3
+TRAIN_TOL = 1e-2
+# ... and the gradient as a whole, ||kernel - plain|| / ||plain||
+TRAIN_NORM_TOL = 1e-3
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -176,24 +205,184 @@ def check_head(torch, fusion, ordered_pairs, head_inputs):
     }
 
 
-def profile_requests(torch, serve, batches, iters: int = 10) -> None:
-    """Device time by kernel family over ``iters`` requests (torch.profiler's
-    CUDA activity), and the device's busy share of the wall time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+def rel_err(got, want) -> float:
+    """Max abs error relative to the reference's largest magnitude (exact
+    zeros on both sides count as 0)."""
+    scale = want.abs().max().item()
+    diff = (got - want).abs().max().item()
+    return diff / scale if scale > 0 else diff
 
-    def run(n):
-        for i in range(n):
-            feats, _, lengths = batches[i % len(batches)]
-            serve(feats, None, lengths)
+
+def check_attention_bwd(torch, attn, real_lengths):
+    """Backward kernel vs its twin at the training shape; returns the row."""
+    g = torch.Generator().manual_seed(2)
+    batch, seq, heads, hd = len(real_lengths), 512, 4, 64
+    scale = hd**-0.5
+    qkv = torch.randn(batch, seq, 3 * heads * hd, generator=g).cuda()
+    dout = torch.randn(batch, seq, heads * hd, generator=g).cuda()
+    edge = real_lengths.clone().cpu()
+    edge[:8] = torch.tensor([0, 1, 37, 64, 65, 511, seq, 8], dtype=torch.int32)
+    qkv72 = torch.randn(3, 72, 3 * heads * hd, generator=g).cuda()
+    dout72 = torch.randn(3, 72, heads * hd, generator=g).cuda()
+    cases = [("real lengths", qkv, dout, real_lengths), ("edge lengths", qkv, dout, edge.cuda()),
+             ("T=72", qkv72, dout72, torch.tensor([0, 70, 72], dtype=torch.int32).cuda())]
+    err = 0.0
+    for name, x, do, lens in cases:
+        out, lse = attn.packed_attention_reference(x, lens, heads, scale)
+        got = attn.packed_attention_bwd(x, lens, out, lse, do, heads, scale)
         torch.cuda.synchronize()
+        want = attn.packed_attention_bwd_reference(x, lens, out, lse, do, heads, scale)
+        e = rel_err(got, want)
+        feat = heads * hd
+        for b, n in enumerate(lens.tolist()):
+            if n == 0 and got[b].abs().max().item() != 0.0:
+                raise AssertionError("packed attention bwd: a length-0 row has a gradient")
+            if n < x.shape[1] and got[b, n:, feat:].abs().max().item() != 0.0:
+                raise AssertionError("packed attention bwd: keys past the length have dk/dv")
+        print(f"  packed_attention_bwd {name}: rel err dqkv={e:.3e} (tol {GRAD_TOL})", flush=True)
+        err = max(err, e)
+    if err > GRAD_TOL:
+        raise AssertionError(f"packed attention bwd disagrees with its twin: {err} > {GRAD_TOL}")
+
+    lens = real_lengths
+    out, lse = attn.packed_attention_fwd(qkv, lens, heads, scale)
+    ms = time_ms(lambda: attn.packed_attention_bwd(qkv, lens, out, lse, dout, heads, scale))
+    plain_ms = time_ms(
+        lambda: attn.packed_attention_bwd_reference(qkv, lens, out, lse, dout, heads, scale))
+    # yardstick: SDPA's backward with the same key mask (timed only)
+    view = qkv.view(batch, seq, 3, heads, hd)
+    q, k, v = (view[:, :, i].transpose(1, 2).detach().requires_grad_() for i in range(3))
+    key_mask = (torch.arange(seq, device="cuda")[None, :] < lens[:, None].long())[:, None, None, :]
+    sdpa_out = torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=key_mask)
+    d_sdpa = dout.view(batch, seq, heads, hd).transpose(1, 2)
+    library_ms = time_ms(lambda: torch.autograd.grad(sdpa_out, (q, k, v), d_sdpa,
+                                                     retain_graph=True))
+    keys = float(lens.clamp(0, seq).sum().item())
+    flops = 10.0 * heads * hd * seq * keys  # the TPU kernel's five products
+    nbytes = 4.0 * (2 * qkv.numel() + 2 * dout.numel() + lse.numel() + batch)
+    bound_ms, bound_by = bound(flops, nbytes)
+    print(f"  packed_attention_bwd ms={ms:.4f} plain_ms={plain_ms:.4f} sdpa_bwd_ms={library_ms:.4f} "
+          f"bound_ms={bound_ms:.4f} ({bound_by}; {keys:.0f} valid keys, {flops / 1e9:.3f} GFLOP, "
+          f"{nbytes / 1e6:.1f} MB)", flush=True)
+    return {
+        "name": "packed_attention_bwd", "route": "cuda",
+        "source": f"{PKG}/ops/csrc/packed_attention_bwd.cu",
+        "replaces": f"{TPU_PKG}/ops/pallas_attention.py:845",
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+    }
+
+
+def _ln_case(torch, n, d, f, keep, seed):
+    """Random inputs of one LayerNorm-kernel case on the card."""
+    g = torch.Generator().manual_seed(seed)
+
+    def w(*shape, s=1.0):
+        return (torch.randn(*shape, generator=g) * s).cuda()
+
+    masks = (None, None)
+    if keep is not None:
+        masks = tuple((torch.rand(n, width, generator=g) < keep).to(torch.uint8).cuda()
+                      for width in (f, d))
+    return w, masks
+
+
+def check_ln_kernels(torch, mlp, rows):
+    """The projection and FFW residual-LN kernels, forward and backward, vs
+    their twins; returns four table rows."""
+    d, f = 256, 2048
+    out_rows = {}
+    specs = {
+        "proj_ln": (mlp.proj_ln_fwd, mlp.proj_ln_bwd, mlp.proj_ln_fwd_reference,
+                    mlp.proj_ln_bwd_reference, 921, 945, "proj_ln.cu"),
+        "ffw_ln": (mlp.ffw_ln_fwd, mlp.ffw_ln_bwd, mlp.ffw_ln_fwd_reference,
+                   mlp.ffw_ln_bwd_reference, 573, 611, "ffw_ln.cu"),
+    }
+    for family, (fwd, bwd, fwd_ref, bwd_ref, fwd_line, bwd_line, src) in specs.items():
+        errs = [0.0, 0.0]
+        timed = None
+        for n, keep in ((rows, 0.8), (rows, None), (rows, 0.0), (rows - 25, 0.8)):
+            w, (fmask, rmask) = _ln_case(torch, n, d, f, keep, seed=n + int(10 * (keep or 1)))
+            x = w(n, d)
+            if family == "proj_ln":
+                args = (x, w(n, d), w(d, d, s=d**-0.5), w(d, s=0.1), 1 + w(d, s=0.1),
+                        w(d, s=0.1), rmask)
+            else:
+                args = (x, w(d, f, s=d**-0.5), w(f, s=0.1), w(f, d, s=f**-0.5), w(d, s=0.1),
+                        1 + w(d, s=0.1), w(d, s=0.1), fmask, rmask)
+            inv_keep = mlp._inv_keep(1.0 if keep is None else keep)
+            dout = w(n, d)
+            out = fwd(*args, inv_keep, 1e-6)
+            grads = bwd(*args, dout, inv_keep, 1e-6)
+            torch.cuda.synchronize()
+            e_fwd = rel_err(out, fwd_ref(*args, inv_keep, 1e-6))
+            e_bwd = max(rel_err(got, want)
+                        for got, want in zip(grads, bwd_ref(*args, dout, inv_keep, 1e-6)))
+            print(f"  {family} N={n} keep={keep}: rel err fwd={e_fwd:.3e} bwd={e_bwd:.3e} "
+                  f"(tol {GRAD_TOL})", flush=True)
+            errs = [max(errs[0], e_fwd), max(errs[1], e_bwd)]
+            if timed is None:
+                timed = (args, dout, inv_keep)
+        if max(errs) > GRAD_TOL:
+            raise AssertionError(f"{family} kernels disagree with their twins: {errs} > {GRAD_TOL}")
+        args, dout, inv_keep = timed  # keep 0.8 at N = rows, as in training
+        n = rows
+        if family == "proj_ln":  # rows of f32 moved: x, a, out | x, a, dout, dx, da
+            weights, masks, work, f32_rows, ops = d * d + 3 * d, n * d, d * d, (3, 5), (2, 6)
+        else:  # x, out | x, dout, dx
+            weights, masks, work, f32_rows, ops = 2 * d * f + f + 3 * d, n * (d + f), d * f, \
+                (2, 3), (4, 12)
+        cost = {  # operations, bytes (weights read once; the backward writes their grads)
+            "fwd": (ops[0] * n * work, 4.0 * (f32_rows[0] * n * d + weights) + masks),
+            "bwd": (ops[1] * n * work, 4.0 * (f32_rows[1] * n * d + 2 * weights) + masks),
+        }
+        for kind, fn, ref, line in (("fwd", fwd, fwd_ref, fwd_line), ("bwd", bwd, bwd_ref, bwd_line)):
+            call = (lambda fn=fn: fn(*args, inv_keep, 1e-6)) if kind == "fwd" else \
+                (lambda fn=fn: fn(*args, dout, inv_keep, 1e-6))
+            call_ref = (lambda: ref(*args, inv_keep, 1e-6)) if kind == "fwd" else \
+                (lambda: ref(*args, dout, inv_keep, 1e-6))
+            ms = time_ms(call, iters=10)
+            plain_ms = time_ms(call_ref, iters=10)
+            flops, nbytes = cost[kind]
+            bound_ms, bound_by = bound(flops, nbytes)
+            print(f"  {family}_{kind} ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} "
+                  f"({bound_by}; {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)", flush=True)
+            out_rows[f"{family}_{kind}"] = {
+                "name": f"{family}_{kind}", "route": "cuda", "source": f"{PKG}/ops/csrc/{src}",
+                "replaces": f"{TPU_PKG}/ops/pallas_mlp.py:{line}",
+                "max_abs_err": errs[0 if kind == "fwd" else 1], "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            }
+    return [out_rows[k] for k in ("proj_ln_fwd", "proj_ln_bwd", "ffw_ln_fwd", "ffw_ln_bwd")]
+
+
+FAMILIES = (  # profiler kernel-name fragments -> family, first match wins
+    ("packed_attention_fwd", ("packed_attention_fwd",)),
+    ("packed_attention_bwd", ("dkv_kernel", "dq_kernel", "delta_kernel")),
+    ("proj_ln_fwd", ("proj_ln_fwd",)),
+    ("proj_ln_bwd", ("proj_ln_bwd",)),
+    ("ffw_ln_fwd", ("ffw_ln_fwd",)),
+    ("ffw_ln_bwd", ("ffw_ln_bwd",)),
+    ("ln_bwd_sums", ("atb_partial", "reduce_splits", "colsum_partial")),
+    ("fusion_head", ("fusion_head",)),
+    ("gemm", ("gemm", "cutlass", "sm90_xmma", "nvjet")),
+)
+
+
+def profile(torch, run, iters: int, unit: str) -> None:
+    """Device time by kernel family over ``iters`` calls of ``run(n)``
+    (torch.profiler's CUDA activity), and the device's busy share of the
+    wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as torch_profile
 
     run(3)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
         run(iters)
         wall_us = (time.perf_counter() - t) * 1e6
-    families = {"packed_attention": 0.0, "fusion_head": 0.0, "gemm": 0.0, "other": 0.0}
+    families = {name: 0.0 for name, _ in FAMILIES}
+    families["other"] = 0.0
     by_name = {}
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
@@ -201,18 +390,124 @@ def profile_requests(torch, serve, batches, iters: int = 10) -> None:
         us = e.time_range.elapsed_us()
         by_name[e.name] = by_name.get(e.name, 0.0) + us
         low = e.name.lower()
-        key = next((k for k in ("packed_attention", "fusion_head") if k in low), None)
-        if key is None:
-            key = "gemm" if any(w in low for w in ("gemm", "cutlass", "sm90_xmma", "nvjet")) else "other"
+        key = next((name for name, keys in FAMILIES if any(k in low for k in keys)), "other")
         families[key] += us
     busy = sum(families.values())
-    print(f"  profile over {iters} requests: device busy {busy / wall_us:.3f} of wall "
-          f"({busy / iters / 1e3:.3f} ms device time per request)", flush=True)
+    print(f"  profile over {iters} {unit}s: device busy {busy / wall_us:.3f} of wall "
+          f"({busy / iters / 1e3:.3f} ms device time per {unit})", flush=True)
     for key, us in families.items():
-        print(f"    {key:17s} {us / iters / 1e3:8.4f} ms/request  {us / busy:.3f} of device time",
-              flush=True)
+        if us:
+            print(f"    {key:21s} {us / iters / 1e3:8.4f} ms/{unit}  {us / busy:.3f} of device time",
+                  flush=True)
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
-        print(f"    top kernel {us / iters / 1e3:8.4f} ms/request  {name[:110]}", flush=True)
+        print(f"    top kernel {us / iters / 1e3:8.4f} ms/{unit}  {name[:110]}", flush=True)
+
+
+def train_phase(torch, kernels, split, train_idx, smi):
+    """Trainer on base.yaml + dropout_rng=xla at full width: the main path's
+    micro-steps with their launch counts, one micro-step against the plain
+    path, step time and device time by kernel family. Returns the counts."""
+    from multimodal_sensor_fusion_with_attention_rajeevatla_torch.models.module import (
+        MultimodalFusionModel,
+    )
+    from multimodal_sensor_fusion_with_attention_rajeevatla_torch.train.trainer import Trainer
+    from multimodal_sensor_fusion_with_attention_rajeevatla_torch.utils.config import load_config
+
+    overrides = ["training.dropout_rng=xla"]
+    cfg = load_config(REPO / "config" / "base.yaml", overrides)
+    seed = int(cfg.seed)
+    model = MultimodalFusionModel.from_config(
+        cfg, device="cuda", generator=torch.Generator().manual_seed(seed))
+    trainer = Trainer(cfg, model=model, device="cuda")
+    trainer.init_state(steps_per_epoch=len(train_idx))
+    step = trainer.make_train_step_fn()
+    idx = [torch.from_numpy(row).long() for row in train_idx]
+    batch = len(idx[0])
+    print(f"  {len(idx)} batches of {batch} per epoch; accumulation {trainer.accum}; "
+          f"augmentation jitter {trainer.temporal_jitter}, noise {trainer.gaussian_noise}, "
+          f"modality dropout {trainer.modality_dropout}; dropout {cfg.model.dropout}", flush=True)
+
+    # one micro-step, kernel path vs plain path: same weights, batch and seed
+    plain_cfg = load_config(REPO / "config" / "base.yaml", overrides + [
+        "model.flash_attention=false", "model.fused_mlp=false", "model.fused_mlp_ln=false"])
+    plain = Trainer(plain_cfg, model=MultimodalFusionModel.from_config(plain_cfg, device="cuda"),
+                    device="cuda")
+    plain.model.load_state_dict(model.state_dict())
+    results = []
+    for tr in (trainer, plain):
+        tr.generator.manual_seed(seed + 1)
+        feats, labels, lengths = split.gather(idx[0])
+        feats, lengths, mask = tr.augment(feats, lengths, len(split.modalities))
+        weight = torch.ones(labels.shape, device="cuda")
+        results.append(tr.loss_and_grads(feats, labels, mask, lengths, weight))
+    torch.cuda.synchronize()
+    (loss_k, _acc_k, grads_k), (loss_p, _acc_p, grads_p) = results
+    e_loss = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
+    names = [n for n, _ in model.named_parameters()]
+    # each gradient's error relative to its largest magnitude, floored at
+    # 1e-3 of the model's largest gradient: the key-projection biases get
+    # gradients that are zero up to rounding (a bias on every key shifts all
+    # of a query's scores alike), so their own scale is noise
+    floor = 1e-3 * max(g.abs().max().item() for g in grads_p)
+    e_grads = {n: (a - b).abs().max().item() / max(b.abs().max().item(), floor)
+               for n, a, b in zip(names, grads_k, grads_p)}
+    e_norms = {n: ((a - b).norm() / max(b.norm().item(), floor)).item()
+               for n, a, b in zip(names, grads_k, grads_p)}
+    worst = max(e_grads, key=e_grads.get)
+    worst_norm = max(e_norms, key=e_norms.get)
+    print(f"  one micro-step kernel vs plain path: loss {loss_k.item():.6f} vs {loss_p.item():.6f} "
+          f"(rel err {e_loss:.3e}), {len(names)} gradients, worst max-abs rel err "
+          f"{e_grads[worst]:.3e} at {worst} (tol {TRAIN_TOL}), worst norm rel err "
+          f"{e_norms[worst_norm]:.3e} at {worst_norm} (tol {TRAIN_NORM_TOL})", flush=True)
+    for n in sorted(e_grads, key=e_grads.get)[-4:]:
+        print(f"    {n}: max-abs rel {e_grads[n]:.3e}, norm rel {e_norms[n]:.3e}", flush=True)
+    if e_loss > TRAIN_NORM_TOL or e_grads[worst] > TRAIN_TOL \
+            or e_norms[worst_norm] > TRAIN_NORM_TOL:
+        raise AssertionError("training micro-step: kernel path disagrees with the plain path")
+    for p in model.parameters():
+        p.grad = None
+    del plain, results, grads_k, grads_p
+
+    # the main path: counters read just around the micro-steps
+    for fn in kernels.values():
+        fn.launches = 0
+    losses = [step(split, idx[i % len(idx)])[0] for i in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    losses = torch.stack(losses).tolist()
+    per_step = len(split.modalities)  # one layer per encoder, every encoder runs
+    want = {name: TRAIN_STEPS * per_step for name in kernels}
+    want["fused_hybrid_head"] = 0
+    print(f"  {TRAIN_STEPS} micro-steps, {trainer.optimizer.count} updates; losses "
+          f"{[round(v, 5) for v in losses]}", flush=True)
+    print(f"  launches: {launches} (want {want})", flush=True)
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"non-finite training loss: {losses}")
+    if launches != want:
+        raise AssertionError(f"training launch counts {launches} != {want}")
+    if trainer.optimizer.count != TRAIN_STEPS // trainer.accum:
+        raise AssertionError(f"{trainer.optimizer.count} optimizer updates, "
+                             f"want {TRAIN_STEPS // trainer.accum}")
+
+    lat = []
+    for i in range(20):
+        t = time.perf_counter()
+        step(split, idx[i % len(idx)])
+        torch.cuda.synchronize()
+        lat.append(time.perf_counter() - t)
+    lat = sorted(lat[4:])
+    p50 = lat[len(lat) // 2]
+    print(f"  train micro-step batch {batch}: p50 {p50 * 1e3:.3f} ms, {batch / p50:.1f} train "
+          f"windows/s on {smi}; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
+          flush=True)
+
+    def run(n):
+        for i in range(n):
+            step(split, idx[i % len(idx)])
+        torch.cuda.synchronize()
+
+    profile(torch, run, 8, "micro-step")
+    return launches
 
 
 def main() -> int:
@@ -242,7 +537,7 @@ def main() -> int:
     )
     from multimodal_sensor_fusion_with_attention_rajeevatla_torch.ops import _build
     from multimodal_sensor_fusion_with_attention_rajeevatla_torch.ops import attention as attn
-    from multimodal_sensor_fusion_with_attention_rajeevatla_torch.ops import fusion
+    from multimodal_sensor_fusion_with_attention_rajeevatla_torch.ops import fusion, mlp
     from multimodal_sensor_fusion_with_attention_rajeevatla_torch.serving import make_serving_fn
     from multimodal_sensor_fusion_with_attention_rajeevatla_torch.utils.config import load_config
 
@@ -308,6 +603,19 @@ def main() -> int:
             torch.relu(torch.nn.functional.linear(encoded[m], *params.proj[m])) for m in modalities
         ]).contiguous()
     rows.append(check_head(torch, fusion, ordered_pairs, (projected, mask0, params)))
+    train_batch = int(cfg.dataset.batch_size)
+    train_idx, _ = padded_index_matrix(split.num_windows, train_batch, shuffle=True,
+                                       seed=int(cfg.seed))
+    train_lengths = split.lengths.index_select(0, torch.from_numpy(train_idx[0]).long().cuda())
+    rows.insert(1, check_attention_bwd(torch, attn, train_lengths))
+    rows += check_ln_kernels(torch, mlp, train_batch * int(cfg.dataset.chunk_size))
+    kernels = {  # table row name -> wrapper with its launch counter
+        "packed_attention_fwd": attn.packed_attention_fwd,
+        "packed_attention_bwd": attn.packed_attention_bwd,
+        "fused_hybrid_head": fusion.fused_hybrid_head,
+        "proj_ln_fwd": mlp.proj_ln_fwd, "proj_ln_bwd": mlp.proj_ln_bwd,
+        "ffw_ln_fwd": mlp.ffw_ln_fwd, "ffw_ln_bwd": mlp.ffw_ln_bwd,
+    }
 
     # ---- 3. serve: the main path ----------------------------------------------
     print("[serve]", flush=True)
@@ -324,19 +632,19 @@ def main() -> int:
         (f"{missing} missing", {m: x for m, x in feats1.items() if m != missing}, mask1, lengths1),
         ("short lengths", feats2, None, lengths2.cuda()),
     ]
-    counters = (attn.packed_attention_fwd, fusion.fused_hybrid_head)
-    for fn in counters:
+    for fn in kernels.values():
         fn.launches = 0
     logits = []
     for _name, feats, mask, lengths in requests:
         logits.append(serve(feats, mask, lengths))
     torch.cuda.synchronize()
-    launches = [fn.launches for fn in counters]
-    want_attn = sum(len(feats) for _n, feats, _m, _l in requests)
-    print(f"  launches: packed_attention_fwd={launches[0]} (want {want_attn}), "
-          f"fused_hybrid_head={launches[1]} (want {len(requests)})", flush=True)
-    if launches != [want_attn, len(requests)]:
-        raise AssertionError(f"kernel launch counts {launches} != {[want_attn, len(requests)]}")
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    want = dict.fromkeys(kernels, 0)
+    want["packed_attention_fwd"] = sum(len(feats) for _n, feats, _m, _l in requests)
+    want["fused_hybrid_head"] = len(requests)
+    print(f"  launches: {launches} (want {want})", flush=True)
+    if launches != want:
+        raise AssertionError(f"serving launch counts {launches} != {want}")
     worst = 0.0
     for (name, feats, mask, lengths), got in zip(requests, logits):
         ref = serve_plain(feats, mask, lengths)
@@ -349,10 +657,9 @@ def main() -> int:
         worst = max(worst, e)
     if worst > LOGIT_TOL:
         raise AssertionError(f"served logits disagree with the plain path: {worst} > {LOGIT_TOL}")
-    if [fn.launches for fn in counters] != launches:
+    if {name: fn.launches for name, fn in kernels.items()} != launches:
         raise AssertionError("the plain path launched a kernel")
-    for row, n in zip(rows, launches):
-        row["launches"] = n
+    serve_launches = launches
 
     lat = []
     for i in range(40):
@@ -365,7 +672,25 @@ def main() -> int:
     p50 = lat[len(lat) // 2]
     print(f"  serve batch {BATCH}: p50 latency {p50 * 1e3:.3f} ms, "
           f"{BATCH / p50:.1f} windows/s on {smi}", flush=True)
-    profile_requests(torch, serve, batches)
+
+    def run_requests(n):
+        for i in range(n):
+            feats, _, lengths = batches[i % len(batches)]
+            serve(feats, None, lengths)
+        torch.cuda.synchronize()
+
+    profile(torch, run_requests, 10, "request")
+
+    # ---- 4. train: the second main path --------------------------------------
+    print("[train]", flush=True)
+    train_launches = train_phase(torch, kernels, split, train_idx, smi)
+    for row in rows:
+        # each kernel's launches on the path it was ported for: the eval
+        # kernels on the serve path, the training kernels on the train path
+        path = serve_launches if row["name"] in ("packed_attention_fwd", "fused_hybrid_head") \
+            else train_launches
+        row["launches"] = path[row["name"]]
+        row["train_launches"] = train_launches[row["name"]]
     print(f"[done] {time.perf_counter() - t0:.1f} s", flush=True)
 
     print(json.dumps({"kernels": rows}), flush=True)

@@ -1,4 +1,4 @@
-"""Flax variables -> ``state_dict`` of the port's ``MultimodalFusionModel``.
+"""Flax variables <-> ``state_dict`` of the port's ``MultimodalFusionModel``.
 
 The flax tree of the reference's ``MultimodalFusionModel.init`` maps as:
 
@@ -15,12 +15,14 @@ A Dense ``kernel [in, out]`` becomes ``weight [out, in]``; a LayerNorm
 ``scale`` becomes ``weight``; the stacked pair kernels ``[P, H, H]`` keep the
 reference's ``[in, out]`` layout, which is how the port stores them. Inputs
 are numpy arrays (``np.asarray`` of the jax arrays); this module needs no JAX.
+``to_flax_tree`` is the reverse: port tensors (weights or their gradients)
+as a flax-layout tree of numpy arrays, so that two trees compare leaf by leaf.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Union
 
 import numpy as np
 import torch
@@ -76,3 +78,59 @@ def from_flax_variables(variables: Mapping) -> Dict[str, torch.Tensor]:
             raise ValueError(f"unknown parameter {'/'.join(path)}")
         state[".".join(names)] = torch.from_numpy(np.array(array, dtype=np.float32))
     return state
+
+
+def _flax_path(name: str) -> list:
+    parts = name.split(".")
+    out = []
+    i = 0
+    while i < len(parts):
+        part = parts[i]
+        nxt = parts[i + 1] if i + 1 < len(parts) else None
+        if i == 0 and part == "encoders":
+            out.append(f"encoders_{nxt}")
+            i += 2
+        elif i == 0 and part == "layer_norms":
+            out.append(f"ln_{nxt}")
+            i += 2
+        elif part == "projections":
+            out.append(f"proj_{nxt}")
+            i += 2
+        elif part == "gates":
+            out.append(f"gate_{nxt}")
+            i += 2
+        elif part == "layers":
+            out.append(f"layer{nxt}")
+            i += 2
+        else:
+            out.append(part)
+            i += 1
+    return out
+
+
+def to_flax_tree(
+    source: Union[torch.nn.Module, Mapping[str, torch.Tensor]],
+) -> Dict[str, Dict]:
+    """Port tensors -> the flax ``params`` tree layout, numpy leaves.
+
+    ``source`` is a model (its ``state_dict``) or a name -> tensor mapping
+    with the same names (for example each parameter's ``.grad``). A Linear
+    ``weight [out, in]`` becomes ``kernel [in, out]``, a LayerNorm
+    ``weight`` becomes ``scale``; the stacked pair tensors stay ``[P, H, H]``.
+    """
+    items = source.state_dict() if isinstance(source, torch.nn.Module) else source
+    tree: Dict[str, Dict] = {}
+    for name, tensor in items.items():
+        *module, leaf = _flax_path(name)
+        array = tensor.detach().cpu().numpy()
+        if module and module[-1] == "pairs":
+            pass  # stacked [P, H, H] / [P, H] kept as they are
+        elif leaf == "weight" and array.ndim == 2:
+            leaf, array = "kernel", array.T
+        elif leaf == "weight":
+            leaf = "scale"
+        node = tree
+        for part in module:
+            node = node.setdefault(part, {})
+        node[leaf] = np.ascontiguousarray(array)
+    return tree

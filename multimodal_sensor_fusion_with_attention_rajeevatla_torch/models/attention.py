@@ -7,12 +7,13 @@ Ported: ``ordered_pairs`` and ``StackedPairAttention``. ``TemporalAttention``,
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 
 from ..ops.masked import masked_softmax
+from .encoders import dropout
 
 
 def ordered_pairs(names: Sequence) -> list[Tuple[int, int]]:
@@ -22,19 +23,24 @@ def ordered_pairs(names: Sequence) -> list[Tuple[int, int]]:
 
 
 class StackedPairAttention(nn.Module):
-    """All M(M-1) cross-modal pairs as stacked batched matmuls (eval mode).
+    """All M(M-1) cross-modal pairs as stacked batched matmuls.
 
     Each ordered pair owns independent Q/K/V/out projections, stored stacked
     as ``[P, H, H]`` in the reference's ``[in, out]`` layout (the converter
     copies them as they are). Inputs are the projected per-modality
     embeddings ``[M, B, H]``; outputs are the per-pair attended features
     ``[P, B, H]`` and the per-pair attention weights ``[P, B, heads, 1, 1]``
-    (pooled embeddings are length-1 sequences).
+    (pooled embeddings are length-1 sequences). In train mode the pair
+    weights take dropout, as in the reference.
     """
 
-    def __init__(self, num_modalities: int, hidden_dim: int = 256, num_heads: int = 4):
+    def __init__(
+        self, num_modalities: int, hidden_dim: int = 256, num_heads: int = 4,
+        dropout: float = 0.1,
+    ):
         super().__init__()
         self.num_modalities = num_modalities
+        self.dropout = dropout
         self.hidden_dim = hidden_dim
         self.num_heads = num_heads
         self.pairs = ordered_pairs(range(num_modalities))
@@ -51,6 +57,8 @@ class StackedPairAttention(nn.Module):
         self,
         stacked: torch.Tensor,  # [M, B, H]
         modality_mask: torch.Tensor,  # [B, M]
+        train: bool = False,
+        generator: Optional[torch.Generator] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         num_pairs = len(self.pairs)
         batch = stacked.shape[1]
@@ -73,6 +81,7 @@ class StackedPairAttention(nn.Module):
         key_mask = modality_mask.t().index_select(0, k_idx)  # [P, B]
         # softmax over a single key: weight 1 where the key is available, else 0
         weights = masked_softmax(scores[..., None], key_mask[:, :, None, None], dim=-1)
+        weights = dropout(weights, self.dropout, train, generator)
         attended = weights * v.reshape(num_pairs, batch, self.num_heads, head_dim)
         attended = attended.reshape(num_pairs, batch, self.hidden_dim)
         attended = torch.einsum("pbh,phk->pbk", attended, self.out_kernel) + self.out_bias[:, None, :]

@@ -1,19 +1,29 @@
-"""Per-modality encoders (eval mode), port of the JAX package's ``models/encoders.py``.
+"""Per-modality encoders, port of the JAX package's ``models/encoders.py``.
 
 Ported: the transformer branch of ``SequenceEncoder`` and its post-LN
-``TransformerEncoderLayer`` (dense feed-forward). The layer runs its q/k/v
-projections as one ``[H, 3H]`` matmul whose packed output feeds the
-attention kernel directly (``ops.attention.flash_mha_packed``) when
-``flash_attention`` is set and the sequence fits the packed route; otherwise
-it takes the plain masked-softmax attention. LayerNorms follow flax: eps
-1e-6 and the fast variance ``max(E[x^2] - E[x]^2, 0)``.
+``TransformerEncoderLayer`` (dense feed-forward), in eval and train mode.
+The layer runs its q/k/v projections as one ``[H, 3H]`` matmul whose packed
+output feeds the attention kernel directly (``ops.attention.flash_mha_packed``,
+forward and backward) when ``flash_attention`` is set and the sequence fits
+the packed route; otherwise it takes the plain masked-softmax attention.
+LayerNorms follow flax: eps 1e-6 and the fast variance
+``max(E[x^2] - E[x]^2, 0)``.
+
+Training: dropout keep masks are drawn from the caller's ``torch.Generator``
+outside the kernels and in a fixed order (attention-side residual
+``[B,T,H]``, hidden ``[B,T,F]``, FFW-side residual ``[B,T,H]``, then the
+pooled vector), so the kernel path and the plain path consume the same
+draws. There is no dropout on the attention probabilities. With
+``fused_mlp`` and ``fused_mlp_ln`` on, train mode runs the layer's two
+halves through ``ops.mlp.fused_proj_residual_ln`` and
+``fused_mlp_residual_ln``; eval keeps the plain path, as the reference does.
 
 Linear layers are ``nn.Linear`` (weight ``[out, in]``); ``models.module``
 initialises them like flax (lecun-normal kernels, zero biases).
 
 The LSTM, GRU and CNN branches, ``FrameEncoder`` and ``SimpleMLPEncoder``
 are not ported yet (ROADMAP queue A item 10) and raise
-``NotImplementedError``; training-mode dropout comes with the training slice.
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -27,9 +37,48 @@ from torch.nn import functional as F
 
 from ..ops.attention import flash_mha_packed, packed_route_ok
 from ..ops.masked import lengths_to_mask, masked_mean_pool, masked_softmax
+from ..ops.mlp import fused_mlp_residual_ln, fused_proj_residual_ln, ln_rows
 
 _SEQUENCE_MODALITIES = {"imu", "audio", "mocap", "accelerometer"}
 _NOT_PORTED = "is not ported yet (ROADMAP queue A item 10)"
+
+
+def resolve_dropout_rng(value, device_type: str) -> str:
+    """``training.dropout_rng`` for a training run on ``device_type``.
+
+    ``xla`` (masks as plain random draws) is what the port runs. ``kernel``,
+    and ``auto`` on the card (where the reference picks its generator
+    kernel), need the ``dropout_keep_mask`` kernel and raise until it is
+    ported; ``auto`` off the card means ``xla``, as in the reference.
+    """
+    rng = str(value or "auto").lower()
+    if rng not in ("auto", "xla", "kernel"):
+        raise ValueError(f"Unknown training.dropout_rng {value!r}; expected auto, xla or kernel")
+    if rng == "kernel" or (rng == "auto" and device_type == "cuda"):
+        raise NotImplementedError(
+            f"training.dropout_rng={rng} needs the dropout_keep_mask generator kernel, "
+            "which is not ported yet (ROADMAP queue B item 4); train with "
+            "training.dropout_rng=xla"
+        )
+    return "xla"
+
+
+def keep_mask(shape, keep_prob: float, generator: Optional[torch.Generator], device) -> torch.Tensor:
+    """Bernoulli(``keep_prob``) keep mask (bool) drawn from ``generator``."""
+    return torch.rand(shape, generator=generator, device=device) < keep_prob
+
+
+def dropout(
+    x: torch.Tensor, rate: float, train: bool, generator: Optional[torch.Generator]
+) -> torch.Tensor:
+    """flax ``nn.Dropout``: ``where(keep, x / keep_prob, 0)`` in train mode,
+    the identity otherwise or at rate 0, zeros at rate 1."""
+    if not train or rate == 0.0:
+        return x
+    keep_prob = 1.0 - rate
+    if keep_prob <= 0.0:
+        return torch.zeros_like(x)
+    return torch.where(keep_mask(x.shape, keep_prob, generator, x.device), x / keep_prob, 0.0)
 
 
 def lecun_normal_(tensor: torch.Tensor, fan_in: int, generator: torch.Generator) -> torch.Tensor:
@@ -43,10 +92,7 @@ def lecun_normal_(tensor: torch.Tensor, fan_in: int, generator: torch.Generator)
 
 def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, eps: float = 1e-6):
     """flax LayerNorm over the last dim: float32 statistics, fast variance."""
-    r = x.float()
-    mu = r.mean(dim=-1, keepdim=True)
-    var = ((r * r).mean(dim=-1, keepdim=True) - mu * mu).clamp(min=0.0)
-    return ((r - mu) * torch.rsqrt(var + eps) * weight + bias).to(x.dtype)
+    return ln_rows(x.float(), weight, bias, eps)[0].to(x.dtype)
 
 
 class LayerNorm(nn.Module):
@@ -63,8 +109,8 @@ class LayerNorm(nn.Module):
 
 
 class TransformerEncoderLayer(nn.Module):
-    """Post-LN transformer encoder layer, eval mode (reference
-    ``_TransformerEncoderLayer``, dense non-MoE path)."""
+    """Post-LN transformer encoder layer (reference ``_TransformerEncoderLayer``,
+    dense non-MoE path), eval and train mode."""
 
     def __init__(
         self,
@@ -72,6 +118,10 @@ class TransformerEncoderLayer(nn.Module):
         num_heads: int,
         dim_feedforward: int = 2048,
         use_flash: bool = False,
+        dropout: float = 0.0,
+        use_fused_mlp: bool = False,
+        use_fused_mlp_ln: bool = False,
+        dropout_rng: str = "auto",
     ):
         super().__init__()
         if hidden_dim % num_heads:
@@ -79,6 +129,10 @@ class TransformerEncoderLayer(nn.Module):
         self.hidden_dim = hidden_dim
         self.num_heads = num_heads
         self.use_flash = use_flash
+        self.dropout = dropout
+        self.use_fused_mlp = use_fused_mlp
+        self.use_fused_mlp_ln = use_fused_mlp_ln
+        self.dropout_rng = dropout_rng
         self.q_proj = nn.Linear(hidden_dim, hidden_dim)
         self.k_proj = nn.Linear(hidden_dim, hidden_dim)
         self.v_proj = nn.Linear(hidden_dim, hidden_dim)
@@ -88,11 +142,7 @@ class TransformerEncoderLayer(nn.Module):
         self.linear2 = nn.Linear(dim_feedforward, hidden_dim)
         self.norm2 = LayerNorm(hidden_dim)
 
-    def forward(
-        self,
-        x: torch.Tensor,  # [B, T, H]
-        key_padding_mask: Optional[torch.Tensor] = None,  # [B, T], 1 = valid
-    ) -> torch.Tensor:
+    def _attend(self, x, key_padding_mask):
         batch, seq_len, _ = x.shape
         head_dim = self.hidden_dim // self.num_heads
         # one [H, 3H] projection: q | k | v packed along the minor dim
@@ -106,23 +156,71 @@ class TransformerEncoderLayer(nn.Module):
                 if key_padding_mask is not None
                 else None
             )
-            attended = flash_mha_packed(qkv, lengths, num_heads=self.num_heads)
-        elif self.use_flash and x.is_cuda:
+            return flash_mha_packed(qkv, lengths, num_heads=self.num_heads)
+        if self.use_flash and x.is_cuda:
             raise NotImplementedError(
                 f"flash attention for padded T > 512 (got T={seq_len}) needs the tiled "
                 "kernel, which is not ported yet (ROADMAP queue B item 6)"
             )
-        else:
-            qkv5 = qkv.reshape(batch, seq_len, 3, self.num_heads, head_dim)
-            q, k, v = qkv5[:, :, 0], qkv5[:, :, 1], qkv5[:, :, 2]
-            scores = torch.einsum("bqhd,bkhd->bhqk", q, k) * head_dim**-0.5
-            mask = key_padding_mask[:, None, None, :] if key_padding_mask is not None else None
-            weights = masked_softmax(scores, mask)
-            attended = torch.einsum("bhqk,bkhd->bqhd", weights, v).reshape(
-                batch, seq_len, self.hidden_dim
+        qkv5 = qkv.reshape(batch, seq_len, 3, self.num_heads, head_dim)
+        q, k, v = qkv5[:, :, 0], qkv5[:, :, 1], qkv5[:, :, 2]
+        scores = torch.einsum("bqhd,bkhd->bhqk", q, k) * head_dim**-0.5
+        mask = key_padding_mask[:, None, None, :] if key_padding_mask is not None else None
+        weights = masked_softmax(scores, mask)
+        return torch.einsum("bhqk,bkhd->bqhd", weights, v).reshape(
+            batch, seq_len, self.hidden_dim
+        )
+
+    def forward(
+        self,
+        x: torch.Tensor,  # [B, T, H]
+        key_padding_mask: Optional[torch.Tensor] = None,  # [B, T], 1 = valid
+        train: bool = False,
+        generator: Optional[torch.Generator] = None,
+    ) -> torch.Tensor:
+        batch, seq_len, hidden = x.shape
+        rows = batch * seq_len
+        fused = self.use_fused_mlp and self.use_fused_mlp_ln and train
+        if train and self.use_fused_mlp and not self.use_fused_mlp_ln:
+            raise NotImplementedError(
+                "training with fused_mlp on and fused_mlp_ln off runs the fused_mlp "
+                "kernel pair, which is not ported yet (ROADMAP queue B item 7)"
             )
-        x = self.norm1(x + self.out_proj(attended))
-        ff = self.linear2(torch.relu(self.linear1(x)))
+        keep_prob = 1.0 - self.dropout
+        drop = train and self.dropout > 0.0
+        if drop:
+            resolve_dropout_rng(self.dropout_rng, x.device.type)
+
+        def draw(width):
+            return keep_mask((batch, seq_len, width), keep_prob, generator, x.device)
+
+        attended = self._attend(x, key_padding_mask)
+        att_mask = draw(hidden) if drop else None
+        if fused:
+            x = fused_proj_residual_ln(
+                x.reshape(rows, hidden), attended.reshape(rows, hidden),
+                self.out_proj.weight.t(), self.out_proj.bias, self.norm1.weight,
+                self.norm1.bias, res_mask=att_mask, keep_prob=keep_prob,
+            ).reshape(batch, seq_len, hidden)
+        else:
+            y = self.out_proj(attended)
+            if att_mask is not None:
+                y = torch.where(att_mask, y / keep_prob, 0.0)
+            x = self.norm1(x + y)
+        ffw_mask = draw(self.linear1.out_features) if drop else None
+        res_mask = draw(hidden) if drop else None
+        if fused:
+            return fused_mlp_residual_ln(
+                x.reshape(rows, hidden), self.linear1.weight.t(), self.linear1.bias,
+                self.linear2.weight.t(), self.linear2.bias, self.norm2.weight,
+                self.norm2.bias, ffw_mask=ffw_mask, res_mask=res_mask, keep_prob=keep_prob,
+            ).reshape(batch, seq_len, hidden)
+        h = torch.relu(self.linear1(x))
+        if ffw_mask is not None:
+            h = torch.where(ffw_mask, h / keep_prob, 0.0)
+        ff = self.linear2(h)
+        if res_mask is not None:
+            ff = torch.where(res_mask, ff / keep_prob, 0.0)
         return self.norm2(x + ff)
 
 
@@ -138,6 +236,10 @@ class SequenceEncoder(nn.Module):
         num_layers: int = 2,
         encoder_type: str = "lstm",
         flash_attention: bool = False,
+        dropout: float = 0.1,
+        fused_mlp: bool = False,
+        fused_mlp_ln: bool = False,
+        dropout_rng: str = "auto",
     ):
         super().__init__()
         if encoder_type not in ("lstm", "gru", "cnn", "transformer"):
@@ -145,16 +247,25 @@ class SequenceEncoder(nn.Module):
         if encoder_type != "transformer":
             raise NotImplementedError(f"SequenceEncoder encoder_type={encoder_type!r} {_NOT_PORTED}")
         self.hidden_dim = hidden_dim
+        self.dropout = dropout
         self.input_projection = nn.Linear(input_dim, hidden_dim)
         nhead = 4 if hidden_dim % 4 == 0 else 1
         self.layers = nn.ModuleList(
-            TransformerEncoderLayer(hidden_dim, nhead, use_flash=flash_attention)
+            TransformerEncoderLayer(
+                hidden_dim, nhead, use_flash=flash_attention, dropout=dropout,
+                use_fused_mlp=fused_mlp, use_fused_mlp_ln=fused_mlp_ln,
+                dropout_rng=dropout_rng,
+            )
             for _ in range(num_layers)
         )
         self.projection = nn.Linear(hidden_dim, output_dim)
 
     def forward(
-        self, sequence: torch.Tensor, lengths: Optional[torch.Tensor] = None
+        self,
+        sequence: torch.Tensor,
+        lengths: Optional[torch.Tensor] = None,
+        train: bool = False,
+        generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
         if sequence.dim() != 3:
             raise ValueError(
@@ -164,9 +275,9 @@ class SequenceEncoder(nn.Module):
         x = self.input_projection(sequence)
         valid_mask = lengths_to_mask(lengths, seq_len) if lengths is not None else None
         for layer in self.layers:
-            x = layer(x, key_padding_mask=valid_mask)
+            x = layer(x, key_padding_mask=valid_mask, train=train, generator=generator)
         pooled = masked_mean_pool(x, valid_mask, dim=1, min_denom=1.0)
-        return self.projection(pooled)
+        return self.projection(dropout(pooled, self.dropout, train, generator))
 
 
 def build_encoder(
@@ -189,7 +300,8 @@ def build_encoder(
         kind = "mlp"
     if kind != "sequence":
         raise NotImplementedError(f"{kind} encoder for modality {modality!r} {_NOT_PORTED}")
-    allowed = {"hidden_dim", "num_layers", "encoder_type", "flash_attention"}
+    allowed = {"hidden_dim", "num_layers", "encoder_type", "flash_attention", "dropout",
+               "fused_mlp", "fused_mlp_ln", "dropout_rng"}
     return SequenceEncoder(
         input_dim=input_dim,
         output_dim=output_dim,

@@ -1,8 +1,10 @@
-"""Fusion heads, port of the JAX package's ``models/fusion.py`` (eval mode).
+"""Fusion heads, port of the JAX package's ``models/fusion.py``.
 
 Ported: ``HybridFusion`` (per-modality projections, all-pairs cross-modal
 attention as one stacked product, mean aggregation, adaptive gated weighting
-with the reference's fallback math, 2-layer classifier). ``EarlyFusion``,
+with the reference's fallback math, 2-layer classifier), in eval and train
+mode (dropout on the features before each projection, after its ReLU, on
+the pair weights and on the classifier hidden). ``EarlyFusion``,
 ``LateFusion`` and ``UncertaintyFusion`` are queued (ROADMAP queue A item 10).
 """
 
@@ -15,6 +17,7 @@ from torch import nn
 
 from ..ops.masked import adaptive_gate_weights
 from .attention import StackedPairAttention, ordered_pairs
+from .encoders import dropout
 
 _FUSION_TYPES = ("early", "late", "hybrid", "uncertainty")
 
@@ -29,14 +32,16 @@ class HybridFusion(nn.Module):
         hidden_dim: int = 256,
         num_classes: int = 11,
         num_heads: int = 4,
+        dropout: float = 0.1,
     ):
         super().__init__()
         self.modality_names = tuple(modality_names)
+        self.dropout = dropout
         names = self.modality_names
         self.projections = nn.ModuleDict(
             {name: nn.Linear(int(input_dims[name]), hidden_dim) for name in names}
         )
-        self.pairs = StackedPairAttention(len(names), hidden_dim, num_heads)
+        self.pairs = StackedPairAttention(len(names), hidden_dim, num_heads, dropout)
         self.gates = nn.ModuleDict({name: nn.Linear(hidden_dim, 1) for name in names})
         self.classifier_hidden = nn.Linear(hidden_dim, hidden_dim)
         self.classifier_out = nn.Linear(hidden_dim, num_classes)
@@ -45,6 +50,8 @@ class HybridFusion(nn.Module):
         self,
         modality_features: Mapping[str, torch.Tensor],
         modality_mask: Optional[torch.Tensor] = None,
+        train: bool = False,
+        generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
         names = self.modality_names
         if not names:
@@ -68,10 +75,11 @@ class HybridFusion(nn.Module):
                     f"Missing features for modality '{name}' in HybridFusion forward pass."
                 )
             feats = modality_features[name] * modality_mask[:, idx : idx + 1]
-            projected.append(torch.relu(self.projections[name](feats)))
+            x = self.projections[name](dropout(feats, self.dropout, train, generator))
+            projected.append(dropout(torch.relu(x), self.dropout, train, generator))
         stacked = torch.stack(projected, dim=0)  # [M, B, H]
 
-        attended, _weights = self.pairs(stacked, modality_mask)
+        attended, _weights = self.pairs(stacked, modality_mask, train, generator)
         per_query: Dict[int, list] = {}
         for pair_idx, (qi, _ki) in enumerate(ordered_pairs(names)):
             per_query.setdefault(qi, []).append(pair_idx)
@@ -85,7 +93,8 @@ class HybridFusion(nn.Module):
             {name: agg[i] for i, name in enumerate(names)}, modality_mask
         )
         fused = (agg.transpose(0, 1) * fusion_weights[..., None]).sum(dim=1)
-        return self.classifier_out(torch.relu(self.classifier_hidden(fused)))
+        hidden = torch.relu(self.classifier_hidden(fused))
+        return self.classifier_out(dropout(hidden, self.dropout, train, generator))
 
     def compute_adaptive_weights(
         self,
@@ -111,6 +120,7 @@ def build_fusion_model(
     num_classes: int,
     hidden_dim: int = 256,
     num_heads: int = 4,
+    dropout: float = 0.1,
 ) -> nn.Module:
     """Factory mirroring the reference's ``build_fusion_model``;
     ``modality_dims`` keys define the modality order."""
@@ -126,4 +136,5 @@ def build_fusion_model(
         hidden_dim=hidden_dim,
         num_classes=num_classes,
         num_heads=num_heads,
+        dropout=dropout,
     )

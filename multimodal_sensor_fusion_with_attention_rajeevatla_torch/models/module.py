@@ -1,11 +1,14 @@
-"""The flagship model: per-modality encoders + fusion head (eval mode).
+"""The flagship model: per-modality encoders + fusion head.
 
 Port of the JAX package's ``models/module.py`` for the ungrouped-transformer,
 hybrid-fusion configuration that ``config/base.yaml`` builds: one
 ``SequenceEncoder`` per modality, a per-modality LayerNorm (``ln_<m>``, flax
 defaults), then ``HybridFusion``. Weights come from ``init_parameters`` (a
 seeded ``torch.Generator``, flax's initialisers) or from a converted flax
-checkpoint (``convert.from_flax_variables``).
+checkpoint (``convert.from_flax_variables``). ``train=True`` runs the
+training forward: dropout masks come from the ``generator`` passed along,
+and the transformer layers take the fused residual-LayerNorm kernels when
+``fused_mlp`` and ``fused_mlp_ln`` are on.
 """
 
 from __future__ import annotations
@@ -56,7 +59,7 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> nn.Module:
 
 
 class MultimodalFusionModel(nn.Module):
-    """Encoders + optional LayerNorm + fusion head, config-driven (eval mode)."""
+    """Encoders + optional LayerNorm + fusion head, config-driven."""
 
     def __init__(
         self,
@@ -68,6 +71,7 @@ class MultimodalFusionModel(nn.Module):
         num_heads: int = 4,
         num_classes: int = 25,
         layer_norm: bool = True,
+        dropout: float = 0.1,
     ):
         super().__init__()
         self.modalities = tuple(modalities)
@@ -97,6 +101,7 @@ class MultimodalFusionModel(nn.Module):
             num_classes,
             hidden_dim=hidden_dim,
             num_heads=num_heads,
+            dropout=dropout,
         )
 
     @staticmethod
@@ -114,6 +119,8 @@ class MultimodalFusionModel(nn.Module):
         self,
         features: Mapping[str, torch.Tensor],
         lengths: Optional[torch.Tensor] = None,
+        train: bool = False,
+        generator: Optional[torch.Generator] = None,
     ) -> Dict[str, torch.Tensor]:
         """Run every available modality through its encoder (+LayerNorm)."""
         encoded: Dict[str, torch.Tensor] = {}
@@ -129,25 +136,36 @@ class MultimodalFusionModel(nn.Module):
             mod_lengths = (
                 self._scale_lengths(lengths, ref_len, int(x.shape[1])) if x.dim() == 3 else lengths
             )
-            emb = self.encoders[name](x, lengths=mod_lengths)
+            emb = self.encoders[name](x, lengths=mod_lengths, train=train, generator=generator)
             if self.layer_norms is not None:
                 emb = self.layer_norms[name](emb)
             encoded[name] = emb
         return encoded
 
     def fuse(
-        self, encoded: Mapping[str, torch.Tensor], mask: Optional[torch.Tensor] = None
+        self,
+        encoded: Mapping[str, torch.Tensor],
+        mask: Optional[torch.Tensor] = None,
+        train: bool = False,
+        generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
         """Fusion head over pre-encoded embeddings -> logits."""
-        return self.fusion_model(encoded, mask)
+        return self.fusion_model(encoded, mask, train=train, generator=generator)
 
     def forward(
         self,
         features: Mapping[str, torch.Tensor],
         mask: Optional[torch.Tensor] = None,
         lengths: Optional[torch.Tensor] = None,
+        train: bool = False,
+        generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
-        return self.fuse(self.encode(features, lengths=lengths), mask=mask)
+        """Logits ``[B, C]``. With ``train=True`` every dropout mask is drawn
+        from ``generator`` (on the inputs' device), encoders first, in a
+        fixed order, so two runs with equally seeded generators draw the
+        same masks whichever kernels they take."""
+        encoded = self.encode(features, lengths=lengths, train=train, generator=generator)
+        return self.fuse(encoded, mask=mask, train=train, generator=generator)
 
     @classmethod
     def from_config(
@@ -159,7 +177,10 @@ class MultimodalFusionModel(nn.Module):
         """Build from the YAML config tree (same keys as the reference), with
         weights from ``generator`` (default: seeded with ``config.seed``), on
         ``device`` (default ``cuda``; raises without it unless ``"cpu"``).
-        Returns the model in eval mode."""
+        Returns the model in eval mode. ``training.dropout_rng`` other than
+        ``xla`` raises at the first training forward on the card (the
+        generator kernel is not ported), as does training with
+        ``fused_mlp`` on and ``fused_mlp_ln`` off."""
         device = resolve_device(device)
         model_cfg = config.model
         dataset_cfg = config.dataset
@@ -175,17 +196,28 @@ class MultimodalFusionModel(nn.Module):
         for key, on in unsupported.items():
             if on:
                 raise NotImplementedError(f"{key} is not ported yet (see ROADMAP.md)")
-        flash = _parse_flag(model_cfg.get("flash_attention", "auto"), "flash_attention")
+        flags = {
+            key: _parse_flag(model_cfg.get(key, "auto"), key)
+            for key in ("flash_attention", "fused_mlp", "fused_mlp_ln")
+        }
+        dropout = float(model_cfg.get("dropout", 0.1))
+        train_cfg = config.get("training", {}) or {}
+        dropout_rng = str(train_cfg.get("dropout_rng", "auto") or "auto").lower()
+        if dropout_rng not in ("auto", "xla", "kernel"):
+            raise ValueError(
+                f"Unknown training.dropout_rng {dropout_rng!r}; expected auto, xla or kernel"
+            )
         all_encoder_cfg = model_cfg.get("encoders", {}) or {}
         enc_cfgs = {}
         for name in modalities:
             raw = all_encoder_cfg.get(name, {}) or {}
             cfg = dict(raw.items())
             cfg.setdefault("hidden_dim", int(model_cfg.get("hidden_dim", 256)))
+            cfg.setdefault("dropout", dropout)
             if cfg.get("encoder_type") == "transformer":
-                cfg["flash_attention"] = _parse_flag(
-                    cfg.get("flash_attention", flash), "flash_attention"
-                )
+                for key, value in flags.items():
+                    cfg[key] = _parse_flag(cfg.get(key, value), key)
+                cfg.setdefault("dropout_rng", dropout_rng)
             enc_cfgs[name] = cfg
         model = cls(
             modalities=modalities,
@@ -196,6 +228,7 @@ class MultimodalFusionModel(nn.Module):
             num_heads=int(model_cfg.get("num_heads", 4)),
             num_classes=int(dataset_cfg.get("num_classes", 11)),
             layer_norm=bool(model_cfg.get("layer_norm", True)),
+            dropout=dropout,
         )
         if generator is None:
             generator = torch.Generator().manual_seed(int(config.get("seed", 0) or 0))

@@ -27,7 +27,10 @@ CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_ext"
 SOURCES = {
     "packed_attention": "packed_attention.cu",
+    "packed_attention_bwd": "packed_attention_bwd.cu",
     "fusion_head": "fusion_head.cu",
+    "proj_ln": "proj_ln.cu",
+    "ffw_ln": "ffw_ln.cu",
 }
 NVCC_FLAGS = [
     "-gencode=arch=compute_90a,code=sm_90a",
@@ -59,8 +62,10 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Path:
     source = CSRC_DIR / SOURCES[name]
+    # the shared headers are part of every source's content
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC_DIR.glob("*.cuh")))
     digest = hashlib.sha256(
-        source.read_bytes() + " ".join(NVCC_FLAGS).encode()
+        source.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}_{digest}.so"
 

@@ -1,15 +1,20 @@
-"""Packed multi-head self-attention forward: CUDA kernel and its plain twin.
+"""Packed multi-head self-attention, forward and backward: CUDA kernels and
+their plain twins.
 
 Counterpart of the JAX package's ``ops/pallas_attention.py::flash_mha_packed``
-(forward only; the backward comes with the training slice). The input is the
-qkv projection's natural ``[B, T, 3*H*d]`` layout (q | k | v along the minor
-dim, heads sliced inside each third) plus per-row valid key lengths; the
-output is ``[B, T, H*d]``. Key columns at or past a row's length are masked;
-a row with no valid key gives exact zeros (and ``lse = NEG_INF``).
+and its custom VJP ``_packed_core``. The input is the qkv projection's
+natural ``[B, T, 3*H*d]`` layout (q | k | v along the minor dim, heads
+sliced inside each third) plus per-row valid key lengths; the output is
+``[B, T, H*d]``. Key columns at or past a row's length are masked; a row
+with no valid key gives exact zeros (and ``lse = NEG_INF``) and zero
+gradients.
 
-``packed_attention_fwd`` is the kernel wrapper: a CUDA tensor launches
-``csrc/packed_attention.cu`` or raises, a CPU tensor takes
-``packed_attention_reference``, the plain PyTorch version of the same math.
+``packed_attention_fwd`` and ``packed_attention_bwd`` are the kernel
+wrappers: a CUDA tensor launches ``csrc/packed_attention.cu`` or
+``csrc/packed_attention_bwd.cu`` or raises, a CPU tensor takes
+``packed_attention_reference`` or ``packed_attention_bwd_reference``, the
+plain PyTorch versions of the same math. ``flash_mha_packed`` runs both
+through one ``torch.autograd.Function``.
 """
 
 from __future__ import annotations
@@ -138,6 +143,136 @@ def packed_attention_fwd(
 packed_attention_fwd.launches = 0
 
 
+def packed_attention_bwd_reference(
+    qkv: torch.Tensor,
+    lengths: torch.Tensor,
+    out: torch.Tensor,
+    lse: torch.Tensor,
+    dout: torch.Tensor,
+    num_heads: int,
+    sm_scale: float,
+) -> torch.Tensor:
+    """Plain PyTorch version of the backward kernel: packed ``dqkv [B,T,3F]``.
+
+    Mirrors the TPU kernel: p is recomputed from the saved ``lse`` with
+    sm_scale folded into q, ``delta = rowsum(dout * out)`` per head, and
+    ``ds = p * (dp - delta)``; dk uses the scaled q, dq is scaled after the
+    product. Rows whose ``lse`` is ``NEG_INF`` (no valid key) give zeros.
+    """
+    head_dim = _check_packed(qkv, lengths, num_heads)
+    batch, seq, three_f = qkv.shape
+    x = qkv.float().reshape(batch, seq, 3, num_heads, head_dim)
+    qs = (x[:, :, 0] * sm_scale).transpose(1, 2)  # [B, H, T, d]
+    k = x[:, :, 1].transpose(1, 2)
+    v = x[:, :, 2].transpose(1, 2)
+    o = out.float().reshape(batch, seq, num_heads, head_dim).transpose(1, 2)
+    do = dout.float().reshape(batch, seq, num_heads, head_dim).transpose(1, 2)
+    lse_h = lse.float().transpose(1, 2)[..., None]  # [B, H, T, 1]
+    colmask = (
+        torch.arange(seq, device=qkv.device)[None, :] < lengths.to(torch.int64)[:, None]
+    )[:, None, None, :]
+    keep = colmask & (lse_h > NEG_INF / 2)
+    p = torch.where(keep, torch.exp(qs @ k.transpose(-1, -2) - lse_h.clamp(min=NEG_INF / 2)), 0.0)
+    delta = (do * o).sum(dim=-1, keepdim=True)
+    dv = p.transpose(-1, -2) @ do
+    ds = p * (do @ v.transpose(-1, -2) - delta)
+    dk = ds.transpose(-1, -2) @ qs
+    dq = (ds @ k) * sm_scale
+    dqkv = torch.stack([dq, dk, dv], dim=2)  # [B, H, 3, T, d]
+    return dqkv.permute(0, 3, 2, 1, 4).reshape(batch, seq, three_f)
+
+
+def _bwd_kernel_fn():
+    lib = _build.library("packed_attention_bwd")
+    fn = lib.msfa_packed_attention_bwd
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib, fn
+
+
+def packed_attention_bwd(
+    qkv: torch.Tensor,
+    lengths: torch.Tensor,
+    out: torch.Tensor,
+    lse: torch.Tensor,
+    dout: torch.Tensor,
+    num_heads: int,
+    sm_scale: float,
+) -> torch.Tensor:
+    """Kernel wrapper: packed ``dqkv [B,T,3F]`` from the forward's ``out``
+    and ``lse`` and the output cotangent ``dout``.
+
+    CUDA tensors launch the hand-written backward (f32, contiguous, int32
+    lengths, head_dim in ``KERNEL_HEAD_DIMS``) or raise; CPU tensors take
+    ``packed_attention_bwd_reference``. ``packed_attention_bwd.launches``
+    counts kernel launches.
+    """
+    head_dim = _check_packed(qkv, lengths, num_heads)
+    batch, seq, three_f = qkv.shape
+    expected = {"out": (batch, seq, three_f // 3), "dout": (batch, seq, three_f // 3),
+                "lse": (batch, seq, num_heads)}
+    tensors = {"out": out, "dout": dout, "lse": lse}
+    for name, shape in expected.items():
+        if tuple(tensors[name].shape) != shape:
+            raise ValueError(f"{name} must have shape {shape}, got {tuple(tensors[name].shape)}")
+        if tensors[name].device != qkv.device:
+            raise ValueError(f"{name} is on {tensors[name].device}, qkv on {qkv.device}")
+    if qkv.device.type == "cpu":
+        return packed_attention_bwd_reference(qkv, lengths, out, lse, dout, num_heads, sm_scale)
+    if qkv.device.type != "cuda":
+        raise ValueError(f"unsupported device {qkv.device}")
+    tensors["qkv"] = qkv
+    for name, t in tensors.items():
+        if t.dtype != torch.float32:
+            raise TypeError(f"kernel takes float32 {name}, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if lengths.dtype != torch.int32 or not lengths.is_contiguous():
+        raise TypeError(f"kernel takes contiguous int32 lengths, got {lengths.dtype}")
+    if head_dim not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"kernel supports head_dim in {KERNEL_HEAD_DIMS}, got {head_dim}")
+    dqkv = torch.empty_like(qkv)
+    if batch == 0 or seq == 0:
+        return dqkv
+    delta = torch.empty((batch, seq, num_heads), device=qkv.device, dtype=torch.float32)
+    lib, fn = _bwd_kernel_fn()
+    with torch.cuda.device(qkv.device):
+        code = fn(
+            qkv.data_ptr(), lengths.data_ptr(), out.data_ptr(), lse.data_ptr(),
+            dout.data_ptr(), delta.data_ptr(), dqkv.data_ptr(),
+            batch, seq, num_heads, head_dim, float(sm_scale),
+            torch.cuda.current_stream(qkv.device).cuda_stream,
+        )
+    _build.check(lib, code, "packed_attention_bwd")
+    packed_attention_bwd.launches += 1
+    return dqkv
+
+
+packed_attention_bwd.launches = 0
+
+
+class PackedAttention(torch.autograd.Function):
+    """``out = attention(qkv)`` with the kernel pair as forward and backward
+    (counterpart of the JAX package's custom VJP ``_packed_core``). Saves
+    ``qkv, lengths, out, lse``; returns packed ``dqkv`` and no gradient for
+    the lengths."""
+
+    @staticmethod
+    def forward(ctx, qkv, lengths, num_heads: int, sm_scale: float):
+        out, lse = packed_attention_fwd(qkv, lengths, num_heads, sm_scale)
+        ctx.save_for_backward(qkv, lengths, out, lse)
+        ctx.num_heads, ctx.sm_scale = num_heads, sm_scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        qkv, lengths, out, lse = ctx.saved_tensors
+        dqkv = packed_attention_bwd(
+            qkv, lengths, out, lse, dout.float().contiguous(), ctx.num_heads, ctx.sm_scale
+        )
+        return dqkv, None, None, None
+
+
 def flash_mha_packed(
     qkv: torch.Tensor,  # [B, T, 3*H*d]
     lengths: Optional[torch.Tensor] = None,  # [B] valid key timesteps
@@ -145,7 +280,8 @@ def flash_mha_packed(
     num_heads: int,
     sm_scale: Optional[float] = None,
 ) -> torch.Tensor:
-    """Attention on the packed qkv layout -> ``[B, T, H*d]`` (forward only).
+    """Attention on the packed qkv layout -> ``[B, T, H*d]``, differentiable
+    through ``PackedAttention`` (the backward kernel gives ``dqkv``).
 
     Same contract as the reference's ``flash_mha_packed``: T is padded to a
     multiple of 8 (padded key columns are masked through ``lengths``),
@@ -161,7 +297,7 @@ def flash_mha_packed(
     pad = (-seq_len) % 8
     if pad:
         qkv = torch.nn.functional.pad(qkv, (0, 0, 0, pad))
-    out, _lse = packed_attention_fwd(
-        qkv.float().contiguous(), lengths.to(torch.int32).contiguous(), num_heads, sm_scale
+    out = PackedAttention.apply(
+        qkv.float().contiguous(), lengths.to(torch.int32).contiguous(), num_heads, float(sm_scale)
     )
     return out[:, :seq_len] if pad else out

@@ -1,0 +1,291 @@
+"""Training step: port of the JAX package's ``train/trainer.py`` (schedule,
+optimizer, augmentations and the per-batch step).
+
+- ``lr_schedule``: per-epoch cosine (``eta_min = lr / 100``), StepLR(30, 0.1)
+  or constant, read at the optimizer's inner update count.
+- ``AccumulatedAdamW``: what ``optax.MultiSteps(chain(clip_by_global_norm,
+  adamw), k)`` does, written out: gradients averaged over ``k`` micro-steps
+  (running mean, as optax), then clip and AdamW (b1 0.9, b2 0.999, eps 1e-8,
+  bias correction, decoupled decay on every parameter) on the k-th only.
+- ``apply_temporal_jitter``, ``add_gaussian_noise``,
+  ``dropout_modality_mask``: the on-device augmentations, each taking its
+  random draws as tensors so that a test can hand the same draws to both
+  frameworks.
+- ``Trainer``: builds the model and the optimizer from the config and makes
+  the train step: on-device gather, augmentation, forward in train mode,
+  label-smoothed loss, backward, optimizer. Every random draw of a step
+  comes from one ``torch.Generator`` on the device, in a fixed order.
+
+``fit``, early stopping, checkpoints and ``results.json`` are not ported yet
+(ROADMAP queue A item 6).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable, Dict, Iterable, List, Optional, Tuple
+
+import torch
+
+from ..data.device import DeviceSplit
+from ..models.module import MultimodalFusionModel
+from ..ops.metrics import cross_entropy_loss, weighted_accuracy
+from ..utils.device import resolve_device
+
+
+def lr_schedule(
+    scheduler: str, learning_rate: float, max_epochs: int, updates_per_epoch: int
+) -> Callable[[int], float]:
+    """Per-epoch learning rate as a function of the update count.
+
+    cosine: ``CosineAnnealingLR(T_max=max_epochs, eta_min=lr/100)`` at the
+    epoch index (clipped to ``max_epochs``); step: ``StepLR(30, 0.1)``;
+    anything else: constant.
+    """
+    updates_per_epoch = max(1, updates_per_epoch)
+
+    def schedule(count: int) -> float:
+        epoch = float(min(count // updates_per_epoch, max_epochs))
+        if scheduler == "cosine":
+            eta_min = learning_rate / 100.0
+            return eta_min + 0.5 * (learning_rate - eta_min) * (
+                1.0 + math.cos(math.pi * epoch / max(max_epochs, 1))
+            )
+        if scheduler == "step":
+            return learning_rate * 0.1 ** math.floor(epoch / 30.0)
+        return learning_rate
+
+    return schedule
+
+
+class AccumulatedAdamW:
+    """Clip + AdamW (or Adam with coupled L2) behind gradient accumulation.
+
+    ``step(grads)`` takes one micro-step's gradients; every ``accum``-th call
+    it clips the accumulated mean by its global norm, runs the Adam update
+    with the schedule read at the inner count (before it is incremented),
+    applies it to the parameters in place and returns True. State is plain
+    tensors on the parameters' device; nothing synchronises with the host.
+    """
+
+    def __init__(
+        self,
+        params: Iterable[torch.Tensor],
+        schedule: Callable[[int], float],
+        weight_decay: float = 0.0,
+        clip_norm: float = 0.0,
+        accum: int = 1,
+        decoupled: bool = True,
+        b1: float = 0.9,
+        b2: float = 0.999,
+        eps: float = 1e-8,
+    ):
+        self.params: List[torch.Tensor] = list(params)
+        self.schedule = schedule
+        self.weight_decay = weight_decay
+        self.clip_norm = clip_norm
+        self.accum = max(1, int(accum))
+        self.decoupled = decoupled
+        self.b1, self.b2, self.eps = b1, b2, eps
+        self.acc = [torch.zeros_like(p) for p in self.params]
+        self.mu = [torch.zeros_like(p) for p in self.params]
+        self.nu = [torch.zeros_like(p) for p in self.params]
+        self.mini_step = 0
+        self.count = 0  # inner (applied) updates
+
+    @torch.no_grad()
+    def step(self, grads: List[Optional[torch.Tensor]]) -> bool:
+        n = self.mini_step
+        for acc, p, g in zip(self.acc, self.params, grads):
+            g = torch.zeros_like(p) if g is None else g
+            acc.add_((g - acc) / (n + 1))
+        self.mini_step += 1
+        if self.mini_step < self.accum:
+            return False
+        self.mini_step = 0
+        updates = self.acc
+        if self.clip_norm > 0:
+            norm = torch.sqrt(sum(u.square().sum() for u in updates))
+            updates = [torch.where(norm < self.clip_norm, u, (u / norm) * self.clip_norm)
+                       for u in updates]
+        if not self.decoupled and self.weight_decay:
+            updates = [u + self.weight_decay * p for u, p in zip(updates, self.params)]
+        lr = self.schedule(self.count)
+        self.count += 1
+        c1 = 1.0 - self.b1**self.count
+        c2 = 1.0 - self.b2**self.count
+        for p, u, mu, nu in zip(self.params, updates, self.mu, self.nu):
+            mu.mul_(self.b1).add_((1.0 - self.b1) * u)
+            nu.mul_(self.b2).add_((1.0 - self.b2) * u * u)
+            step = (mu / c1) / (torch.sqrt(nu / c2) + self.eps)
+            if self.decoupled and self.weight_decay:
+                step = step + self.weight_decay * p
+            p.add_(step * -lr)
+        for acc in self.acc:
+            acc.zero_()
+        return True
+
+
+def build_optimizer(
+    training_cfg, params: Iterable[torch.Tensor], steps_per_epoch: int
+) -> Tuple[AccumulatedAdamW, int]:
+    """Optimizer from the ``training:`` config block -> ``(optimizer, accum)``."""
+    name = str(training_cfg.get("optimizer", "adamw"))
+    if name not in ("adamw", "adam"):
+        raise ValueError(f"Unknown optimizer: {name}")
+    accum = int(training_cfg.get("gradient_accumulation", 1) or 1)
+    schedule = lr_schedule(
+        str(training_cfg.get("scheduler", "none")),
+        float(training_cfg.get("learning_rate", 1e-3)),
+        int(training_cfg.get("max_epochs", 1)),
+        max(1, steps_per_epoch // max(1, accum)),
+    )
+    opt = AccumulatedAdamW(
+        params,
+        schedule,
+        weight_decay=float(training_cfg.get("weight_decay", 0.0)),
+        clip_norm=float(training_cfg.get("gradient_clip_norm", 0.0) or 0.0),
+        accum=accum,
+        decoupled=name == "adamw",
+    )
+    return opt, accum
+
+
+def apply_temporal_jitter(
+    features: Dict[str, torch.Tensor],
+    lengths: Optional[torch.Tensor],
+    uniform: torch.Tensor,  # [B] draws in [0, 1)
+    jitter: float,
+):
+    """Per-sample circular shift of up to ``jitter * T`` steps, each modality
+    in its own timebase, and lengths shrunk by the shift in the first
+    modality's timebase (never below 1)."""
+    first = next(iter(features.values()))
+    batch, ref_len = first.shape[0], first.shape[1]
+    if int(jitter * ref_len) <= 0:
+        return features, lengths
+    frac = uniform * jitter
+
+    def roll(x):
+        if x.dim() < 3:
+            return x
+        t = x.shape[1]
+        shift = torch.floor(frac * t).to(torch.int64)
+        idx = (torch.arange(t, device=x.device)[None, :] + shift[:, None]) % t
+        return x.gather(1, idx.view(batch, t, *[1] * (x.dim() - 2)).expand_as(x))
+
+    jittered = {m: roll(v) for m, v in features.items()}
+    if lengths is None:
+        return jittered, None
+    ref_shift = torch.floor(frac * ref_len).to(lengths.dtype)
+    return jittered, torch.clamp(lengths - ref_shift, min=1)
+
+
+def add_gaussian_noise(
+    features: Dict[str, torch.Tensor], noise: Dict[str, torch.Tensor], std: float
+) -> Dict[str, torch.Tensor]:
+    """``x + std * z`` per modality, ``z`` standard normal draws."""
+    return {m: v + std * noise[m] for m, v in features.items()}
+
+
+def dropout_modality_mask(
+    uniform: torch.Tensor,  # [B, M] draws in [0, 1)
+    revive: torch.Tensor,  # [B] int draws in [0, M)
+    rate: float,
+) -> torch.Tensor:
+    """Drop each modality with probability ``rate`` but never all of them: a
+    row that lost every modality gets back the one ``revive`` names."""
+    if rate <= 0:
+        return torch.ones_like(uniform)
+    keep = (uniform > rate).to(torch.float32)
+    revived = torch.nn.functional.one_hot(revive.long(), uniform.shape[1]).to(torch.float32)
+    dead = keep.sum(dim=1, keepdim=True) == 0
+    return torch.where(dead, revived, keep)
+
+
+class Trainer:
+    """Config-driven training step on one device (reference ``Trainer``,
+    without ``fit``).
+
+    Typical use::
+
+        trainer = Trainer(config)                      # model on the card
+        trainer.init_state(steps_per_epoch)
+        step = trainer.make_train_step_fn()
+        loss, acc = step(device_split, idx)            # one micro-step
+    """
+
+    def __init__(self, config, model: Optional[MultimodalFusionModel] = None, device=None):
+        self.config = config
+        self.device = resolve_device(device)
+        self.model = model or MultimodalFusionModel.from_config(config, device=self.device)
+        training = config.training
+        self.label_smoothing = float(training.get("label_smoothing", 0.0))
+        augmentation = training.get("augmentation", {}) or {}
+        self.modality_dropout = float(augmentation.get("modality_dropout", 0.0))
+        self.gaussian_noise = float(augmentation.get("gaussian_noise", 0.0))
+        self.temporal_jitter = float(augmentation.get("temporal_jitter", 0.0))
+        self.batch_size = int(config.dataset.get("batch_size", 32))
+        self.seed = int(config.get("seed", 42))
+        self.generator = torch.Generator(device=self.device).manual_seed(self.seed)
+        self.optimizer: Optional[AccumulatedAdamW] = None
+        self.accum = 1
+
+    def init_state(self, steps_per_epoch: int) -> AccumulatedAdamW:
+        """Build the optimizer over the model's parameters (the weights are
+        the model's own: seeded at construction or loaded)."""
+        self.optimizer, self.accum = build_optimizer(
+            self.config.training, self.model.parameters(), steps_per_epoch
+        )
+        return self.optimizer
+
+    def augment(self, features, lengths, num_mod: int):
+        """Jitter, noise and modality dropout, drawn from the trainer's
+        generator in that order -> ``(features, lengths, modality_mask)``."""
+        g = self.generator
+        first = next(iter(features.values()))
+        batch, device = first.shape[0], first.device
+        if self.temporal_jitter > 0:
+            u = torch.rand((batch,), generator=g, device=device)
+            features, lengths = apply_temporal_jitter(features, lengths, u, self.temporal_jitter)
+        if self.gaussian_noise > 0:
+            noise = {m: torch.randn(v.shape, generator=g, device=device) for m, v in features.items()}
+            features = add_gaussian_noise(features, noise, self.gaussian_noise)
+        if self.modality_dropout > 0:
+            u = torch.rand((batch, num_mod), generator=g, device=device)
+            revive = torch.randint(0, num_mod, (batch,), generator=g, device=device)
+            mask = dropout_modality_mask(u, revive, self.modality_dropout)
+        else:
+            mask = torch.ones((batch, num_mod), device=device)
+        return features, lengths, mask
+
+    def loss_and_grads(self, features, labels, mask, lengths, weight):
+        """Forward in train mode, loss, backward -> ``(loss, acc, grads)``
+        with one gradient per ``model.parameters()`` entry."""
+        params = list(self.model.parameters())
+        for p in params:
+            p.grad = None
+        logits = self.model(features, mask, lengths, train=True, generator=self.generator)
+        loss = cross_entropy_loss(logits, labels, self.label_smoothing, sample_weight=weight)
+        loss.backward()
+        acc = weighted_accuracy(logits.detach(), labels, weight)
+        return loss.detach(), acc, [p.grad for p in params]
+
+    def make_train_step_fn(self):
+        """``step(data, idx, weight=None) -> (loss, acc)``: one micro-step on
+        the batch ``idx`` of a device-resident split; the optimizer applies
+        an update every ``accum`` calls. Returns device tensors and never
+        waits on the device."""
+        if self.optimizer is None:
+            raise RuntimeError("call init_state(steps_per_epoch) before making the step")
+
+        def step(data: DeviceSplit, idx: torch.Tensor, weight: Optional[torch.Tensor] = None):
+            features, labels, lengths = data.gather(idx)
+            if weight is None:
+                weight = torch.ones(labels.shape, device=labels.device)
+            features, lengths, mask = self.augment(features, lengths, len(data.modalities))
+            loss, acc, grads = self.loss_and_grads(features, labels, mask, lengths, weight)
+            self.optimizer.step(grads)
+            return loss, acc
+
+        return step

@@ -1,5 +1,5 @@
-"""PyTorch port on the card: each CUDA kernel against its plain twin, and the
-served logits against the plain path. Skipped without a CUDA device; on a
+"""PyTorch port on the card: each CUDA kernel against its plain twin, with
+its launch counter. Skipped without a CUDA device; on a
 machine with one (which need not have JAX):
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_port_cuda.py -q
@@ -10,6 +10,7 @@ import torch
 
 from multimodal_sensor_fusion_with_attention_rajeevatla_torch.ops import attention as ta
 from multimodal_sensor_fusion_with_attention_rajeevatla_torch.ops import fusion as tf
+from multimodal_sensor_fusion_with_attention_rajeevatla_torch.ops import mlp as tm
 
 pytestmark = pytest.mark.cuda
 
@@ -71,3 +72,101 @@ def test_fused_head_kernel_matches_twin(card, batch):
     assert tf.fused_hybrid_head.launches == before + 1
     want = tf.fused_hybrid_head_reference(projected, mask, pair_params, *rest, pairs)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+def _rel_err(got, want):
+    """Max abs error relative to the reference's largest magnitude."""
+    return ((got - want).abs().max() / want.abs().max().clamp(min=1e-30)).item()
+
+
+# f32 on both sides; the kernels sum in another order (64-wide tiles, split
+# row sums for the weight gradients), so errors stay near 1e-6 relative
+GRAD_TOL = 1e-4
+
+
+@pytest.mark.parametrize("seq,hd", [(72, 64), (512, 64), (40, 16), (24, 128)])
+def test_packed_attention_bwd_kernel_matches_twin(card, seq, hd):
+    g = torch.Generator().manual_seed(100 + seq)
+    heads, batch = 4, 4
+    qkv = torch.randn(batch, seq, 3 * heads * hd, generator=g).to(card)
+    dout = torch.randn(batch, seq, heads * hd, generator=g).to(card)
+    lengths = torch.tensor([0, seq, 37 % seq, seq - 7], dtype=torch.int32, device=card)
+    out, lse = ta.packed_attention_reference(qkv, lengths, heads, hd**-0.5)
+    before = ta.packed_attention_bwd.launches
+    got = ta.packed_attention_bwd(qkv, lengths, out, lse, dout, heads, hd**-0.5)
+    torch.cuda.synchronize()
+    assert ta.packed_attention_bwd.launches == before + 1
+    want = ta.packed_attention_bwd_reference(qkv, lengths, out, lse, dout, heads, hd**-0.5)
+    assert _rel_err(got, want) < GRAD_TOL
+    assert torch.all(got[0] == 0)  # length 0: no gradient at all
+    f = heads * hd
+    assert torch.all(got[2, 37 % seq:, f:] == 0)  # keys past the length: exact zero dk, dv
+
+
+def _ln_inputs(g, n, d, f, keep, card):
+    def w(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g) * scale).to(card)
+
+    fmask = rmask = None
+    if keep is not None:
+        fmask = (torch.rand(n, f, generator=g) < keep).to(torch.uint8).to(card)
+        rmask = (torch.rand(n, d, generator=g) < keep).to(torch.uint8).to(card)
+    return w, fmask, rmask
+
+
+@pytest.mark.parametrize("n,d,keep", [(1000, 256, 0.8), (37, 256, None), (300, 64, 0.0)])
+def test_proj_ln_kernels_match_twins(card, n, d, keep):
+    g = torch.Generator().manual_seed(n + d)
+    w, _fmask, rmask = _ln_inputs(g, n, d, d, keep, card)
+    args = (w(n, d), w(n, d), w(d, d, scale=d**-0.5), w(d, scale=0.1), 1 + w(d, scale=0.1),
+            w(d, scale=0.1), rmask)
+    inv_keep = tm._inv_keep(1.0 if keep is None else keep)
+    before = (tm.proj_ln_fwd.launches, tm.proj_ln_bwd.launches)
+    out = tm.proj_ln_fwd(*args, inv_keep, 1e-6)
+    dout = w(n, d)
+    grads = tm.proj_ln_bwd(*args, dout, inv_keep, 1e-6)
+    torch.cuda.synchronize()
+    assert (tm.proj_ln_fwd.launches, tm.proj_ln_bwd.launches) == (before[0] + 1, before[1] + 1)
+    assert _rel_err(out, tm.proj_ln_fwd_reference(*args, inv_keep, 1e-6)) < GRAD_TOL
+    for got, want in zip(grads, tm.proj_ln_bwd_reference(*args, dout, inv_keep, 1e-6)):
+        if keep == 0.0 and not want.abs().max() > 0:
+            assert torch.all(got == 0)
+        else:
+            assert _rel_err(got, want) < GRAD_TOL
+
+
+@pytest.mark.parametrize("n,d,f,keep", [(300, 256, 2048, 0.8), (37, 256, 2048, None),
+                                        (100, 64, 128, 0.0)])
+def test_ffw_ln_kernels_match_twins(card, n, d, f, keep):
+    g = torch.Generator().manual_seed(n + f)
+    w, fmask, rmask = _ln_inputs(g, n, d, f, keep, card)
+    args = (w(n, d), w(d, f, scale=d**-0.5), w(f, scale=0.1), w(f, d, scale=f**-0.5),
+            w(d, scale=0.1), 1 + w(d, scale=0.1), w(d, scale=0.1), fmask, rmask)
+    inv_keep = tm._inv_keep(1.0 if keep is None else keep)
+    before = (tm.ffw_ln_fwd.launches, tm.ffw_ln_bwd.launches)
+    out = tm.ffw_ln_fwd(*args, inv_keep, 1e-6)
+    dout = w(n, d)
+    grads = tm.ffw_ln_bwd(*args, dout, inv_keep, 1e-6)
+    torch.cuda.synchronize()
+    assert (tm.ffw_ln_fwd.launches, tm.ffw_ln_bwd.launches) == (before[0] + 1, before[1] + 1)
+    assert _rel_err(out, tm.ffw_ln_fwd_reference(*args, inv_keep, 1e-6)) < GRAD_TOL
+    for got, want in zip(grads, tm.ffw_ln_bwd_reference(*args, dout, inv_keep, 1e-6)):
+        if keep == 0.0 and not want.abs().max() > 0:
+            assert torch.all(got == 0)
+        else:
+            assert _rel_err(got, want) < GRAD_TOL
+
+
+def test_ln_kernels_reject_what_they_do_not_take(card):
+    x = torch.zeros(8, 48, device=card)
+    with pytest.raises(ValueError, match="d_model"):
+        tm.proj_ln_fwd(x, x, torch.zeros(48, 48, device=card), *[torch.zeros(48, device=card)] * 3,
+                       None, 1.0, 1e-6)
+    x = torch.zeros(8, 64, device=card)
+    v = torch.zeros(64, device=card)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        tm.ffw_ln_fwd(x, torch.zeros(64, 96, device=card), torch.zeros(96, device=card),
+                      torch.zeros(96, 64, device=card), v, v, v, None, None, 1.0, 1e-6)
+    with pytest.raises(TypeError, match="uint8"):
+        tm.proj_ln_fwd(x, x, torch.zeros(64, 64, device=card), v, v, v,
+                       torch.ones(8, 64, device=card), 1.0, 1e-6)

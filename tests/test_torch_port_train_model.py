@@ -1,0 +1,167 @@
+"""PyTorch port, training forward and backward of the whole model: loss and
+every parameter gradient against ``jax.value_and_grad`` of the loss the JAX
+``Trainer`` differentiates, on the same weights and numpy inputs (hidden 32,
+T = 24, four modalities, one of them masked, dropout 0 so that no random
+draw enters). The JAX model runs its attention and fused residual-LN kernels
+in interpret mode; the port runs its kernel path (CPU twins) or its plain
+path."""
+
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from multimodal_sensor_fusion_with_attention_rajeevatla_tpu.models.module import (
+    MultimodalFusionModel as JaxModel,
+)
+from multimodal_sensor_fusion_with_attention_rajeevatla_tpu.ops.metrics import (
+    cross_entropy_loss as jax_cross_entropy_loss,
+)
+from multimodal_sensor_fusion_with_attention_rajeevatla_tpu.utils.config import (
+    load_config as jax_load_config,
+)
+from multimodal_sensor_fusion_with_attention_rajeevatla_torch.convert import (
+    from_flax_variables,
+    to_flax_tree,
+)
+from multimodal_sensor_fusion_with_attention_rajeevatla_torch.models.module import (
+    MultimodalFusionModel,
+)
+from multimodal_sensor_fusion_with_attention_rajeevatla_torch.ops.metrics import (
+    cross_entropy_loss,
+)
+from multimodal_sensor_fusion_with_attention_rajeevatla_torch.utils.config import load_config
+
+REPO = Path(__file__).resolve().parent.parent
+NAMES = ("imu_hand", "imu_chest", "imu_ankle", "heart_rate")
+DIMS = (17, 17, 17, 1)
+SMALL = ["model.hidden_dim=32", "model.output_dim=16"]
+KERNELS_ON = ["model.flash_attention=true", "model.fused_mlp=true", "model.fused_mlp_ln=true"]
+KERNELS_OFF = ["model.flash_attention=false", "model.fused_mlp=false", "model.fused_mlp_ln=false"]
+SMOOTHING = 0.05
+# f32 both sides; the gradient of each leaf to 1e-4 of its largest magnitude
+# (floored at 1e-3 of the largest gradient in the model: the key biases'
+# gradients are zero up to rounding, a bias on every key shifting all of a
+# query's scores alike)
+GRAD_TOL = 1e-4
+
+
+def _batch(seed=20):
+    rng = np.random.default_rng(seed)
+    feats = {n: rng.standard_normal((4, 24, d)).astype(np.float32) for n, d in zip(NAMES, DIMS)}
+    mask = np.ones((4, 4), np.float32)
+    mask[:, NAMES.index("imu_chest")] = 0.0
+    mask[2, :] = [0, 0, 0, 1]
+    lengths = np.array([24, 7, 0, 13], np.int32)
+    labels = rng.integers(0, 25, 4).astype(np.int32)
+    weight = np.array([1, 1, 1, 0], np.float32)  # a padded row
+    return feats, mask, lengths, labels, weight
+
+
+@pytest.fixture(scope="module")
+def jax_reference():
+    """(flax variables, loss, grads) of the JAX model in train mode."""
+    cfg = jax_load_config(REPO / "config" / "base.yaml", SMALL + ["model.dropout=0"] + KERNELS_ON)
+    jmodel = JaxModel.from_config(cfg)
+    feats, mask, lengths, labels, weight = _batch()
+    jf = {n: jnp.asarray(v) for n, v in feats.items()}
+    variables = jmodel.init(jax.random.PRNGKey(4), jf, jnp.asarray(mask), jnp.asarray(lengths))
+
+    def loss_fn(params):
+        logits = jmodel.apply(
+            {"params": params}, jf, jnp.asarray(mask), jnp.asarray(lengths), train=True,
+            rngs={"dropout": jax.random.PRNGKey(0)},
+        )
+        return jax_cross_entropy_loss(
+            logits, jnp.asarray(labels), SMOOTHING, sample_weight=jnp.asarray(weight)
+        )
+
+    loss, grads = jax.value_and_grad(loss_fn)(variables["params"])
+    to_np = lambda tree: jax.tree_util.tree_map(np.asarray, tree)  # noqa: E731
+    return to_np(variables), float(loss), to_np(grads)
+
+
+def _flat(tree, prefix=()):
+    for key, value in tree.items():
+        if isinstance(value, dict):
+            yield from _flat(value, prefix + (key,))
+        else:
+            yield "/".join(prefix + (key,)), value
+
+
+def _port_loss_and_grads(overrides, variables, generator_seed=0):
+    cfg = load_config(REPO / "config" / "base.yaml", SMALL + overrides)
+    model = MultimodalFusionModel.from_config(cfg, device="cpu")
+    if variables is not None:
+        model.load_state_dict(from_flax_variables(variables), strict=True)
+    feats, mask, lengths, labels, weight = _batch()
+    logits = model(
+        {n: torch.from_numpy(v) for n, v in feats.items()}, torch.from_numpy(mask),
+        torch.from_numpy(lengths), train=True,
+        generator=torch.Generator().manual_seed(generator_seed),
+    )
+    loss = cross_entropy_loss(logits, torch.from_numpy(labels), SMOOTHING,
+                              sample_weight=torch.from_numpy(weight))
+    loss.backward()
+    grads = {n: p.grad for n, p in model.named_parameters()}
+    return model, loss.item(), grads
+
+
+@pytest.mark.parametrize("path", ["kernels", "plain"])
+def test_train_loss_and_every_gradient_match_jax(jax_reference, path):
+    variables, want_loss, want_grads = jax_reference
+    overrides = ["model.dropout=0"] + (KERNELS_ON if path == "kernels" else KERNELS_OFF)
+    _model, loss, grads = _port_loss_and_grads(overrides, variables)
+    assert loss == pytest.approx(want_loss, rel=1e-5)
+    got = dict(_flat(to_flax_tree(grads)))
+    want = dict(_flat(want_grads["params"] if "params" in want_grads else want_grads))
+    assert sorted(got) == sorted(want)  # every parameter has its gradient
+    floor = 1e-3 * max(np.abs(w).max() for w in want.values())
+    for name, w in want.items():
+        err = np.abs(got[name] - w).max() / max(np.abs(w).max(), floor)
+        assert err < GRAD_TOL, f"{name}: rel err {err:.3e}"
+    # imu_chest is masked in every row: its embedding is zeroed before the
+    # head, so its encoder gets exactly zero gradient
+    assert np.all(got["encoders_imu_chest/projection/kernel"] == 0)
+
+
+def test_dropout_kernel_and_plain_paths_draw_the_same_masks():
+    """dropout 0.2: the kernel path (CPU twins) and the plain path consume the
+    same generator draws, so one seed gives one loss and one gradient."""
+    overrides = ["model.dropout=0.2", "training.dropout_rng=xla"]
+    model_k, loss_k, grads_k = _port_loss_and_grads(overrides + KERNELS_ON, None, 11)
+    state = {k: v.clone() for k, v in model_k.state_dict().items()}
+    cfg = load_config(REPO / "config" / "base.yaml", SMALL + overrides + KERNELS_OFF)
+    model_p = MultimodalFusionModel.from_config(cfg, device="cpu")
+    model_p.load_state_dict(state)
+    feats, mask, lengths, labels, weight = _batch()
+    logits = model_p(
+        {n: torch.from_numpy(v) for n, v in feats.items()}, torch.from_numpy(mask),
+        torch.from_numpy(lengths), train=True, generator=torch.Generator().manual_seed(11),
+    )
+    loss_p = cross_entropy_loss(logits, torch.from_numpy(labels), SMOOTHING,
+                                sample_weight=torch.from_numpy(weight))
+    loss_p.backward()
+    assert loss_k == pytest.approx(loss_p.item(), rel=1e-6)
+    for name, p in model_p.named_parameters():
+        torch.testing.assert_close(grads_k[name], p.grad, rtol=1e-4, atol=1e-6)
+    # and a different seed draws different masks
+    _, loss_other, _ = _port_loss_and_grads(overrides + KERNELS_ON, None, 12)
+    assert loss_other != loss_k
+
+
+def test_from_config_reads_training_keys():
+    cfg = load_config(REPO / "config" / "base.yaml", SMALL + ["model.dropout=0.3"])
+    model = MultimodalFusionModel.from_config(cfg, device="cpu")
+    assert not model.training
+    layer = model.encoders["imu_hand"].layers[0]
+    assert (layer.dropout, layer.use_fused_mlp, layer.use_fused_mlp_ln) == (0.3, True, True)
+    assert layer.dropout_rng == "auto"
+    assert model.fusion_model.dropout == 0.3 and model.fusion_model.pairs.dropout == 0.3
+    with pytest.raises(ValueError, match="Unknown training.dropout_rng"):
+        MultimodalFusionModel.from_config(
+            load_config(REPO / "config" / "base.yaml", SMALL + ["training.dropout_rng=nope"]),
+            device="cpu")
