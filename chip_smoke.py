@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Quickest proof that the PyTorch port serves and trains on an NVIDIA GPU.
+"""Quickest proof that the PyTorch port serves, trains, checkpoints and
+evaluates on an NVIDIA GPU.
 
 Run from the root of a checkout, on a machine with one CUDA card:
 
@@ -11,15 +12,18 @@ Phases (any failure exits non-zero, and no result line is printed):
    kernels from ``ops/csrc`` (one ``nvcc`` per source, all at once), load the
    PAMAP2 train split (chunk 512, stride 128, instance normalisation) from
    ``data/pamap2`` onto the card.
-2. Kernels: each of the seven kernels against its plain PyTorch twin on the
+2. Kernels: each of the ten kernels against its plain PyTorch twin on the
    card, at the shapes the main paths give it, including edge cases:
    packed attention forward (B=64, T=512, H=4, d=64) and backward (B=32:
    the real batch's lengths and 0, 1, 37, 64, 65, 511, T; padded T=72);
    the fused head (M=4, P=12, H=256, C=25, B=64); the projection and FFW
-   residual-LayerNorm kernels, forward and backward, at N = 32*512 rows with
-   masks at keep 0.8, without masks and at keep 0, and at an N that is not a
-   multiple of the 32-row tile. Backward checks compare every output by its
-   max abs error relative to its largest magnitude. Times with CUDA events:
+   residual-LayerNorm kernels and the feed-forward (``fused_mlp``) pair,
+   forward and backward, at N = 32*512 rows with masks at keep 0.8, without
+   masks and at keep 0, and at an N that is not a multiple of the 32-row
+   tile; the dropout-mask generator, every byte equal to its plain version,
+   at the layer's three shapes and purposes, keep 0.8 / 1 / 0 and a size that
+   is not a multiple of 4. Backward checks compare every output by its max
+   abs error relative to its largest magnitude. Times with CUDA events:
    kernel, plain twin, the bound, and, where one PyTorch call computes the
    same function, that call.
 3. Serve: ``MultimodalFusionModel.from_config(config/base.yaml)`` with seeded
@@ -30,16 +34,30 @@ Phases (any failure exits non-zero, and no result line is printed):
    the same weights on the plain path (kernels off). Then p50 latency and
    windows/s over repeated requests, and device time by kernel family
    (torch.profiler) with the device's busy share.
-4. Train: ``train.Trainer`` on ``config/base.yaml`` with
-   ``training.dropout_rng=xla`` at full width takes 8 micro-steps (2 AdamW
-   updates at accumulation 4) on batch-32 real train windows with every
-   augmentation on. Every loss must be finite; the counters must read 4
-   launches per micro-step for the attention forward and backward and the
-   four LayerNorm kernels, and none for the head. One micro-step on the
-   kernel path is held against the plain path from the same weights, batch
-   and generator seed (loss and every parameter gradient). Then train-step
-   p50 and windows/s, and device time by kernel family.
-5. Print the kernel table as one JSON line, then the result line
+4. Train: ``train.Trainer`` on the unmodified ``config/base.yaml`` (so
+   ``training.dropout_rng: auto``: masks from the generator kernel) at full
+   width takes 8 micro-steps (2 AdamW updates at accumulation 4) on batch-32
+   real train windows with every augmentation on. Every loss must be finite;
+   the counters must read 4 launches per micro-step for the attention
+   forward and backward and the four LayerNorm kernels, 12 for the mask
+   generator, and none for the head; a second run from the same seed must
+   give the same losses bit for bit. With ``training.dropout_rng=xla`` one
+   micro-step on the kernel path is held against the plain path from the
+   same weights, batch and generator seed (loss and every parameter
+   gradient), and the step is timed beside the default one. Then the same at
+   ``model.fused_mlp=true model.fused_mlp_ln=false``: 4 micro-steps must
+   launch the ``fused_mlp`` pair 4 times each and the LayerNorm kernels
+   never, and one micro-step is held against the plain path.
+5. Fit: ``Trainer.fit`` on the real train/val/test splits for 2 epochs at the
+   default config (checkpoints and ``results.json`` in a temporary
+   directory): finite history, top-k and ``last`` checkpoints on disk, the
+   mask generator launched 12 times per micro-step.
+6. Eval: the ``last`` checkpoint reloaded from its directory alone must give
+   the in-memory model's test logits bit for bit; ``evaluate_checkpoint`` on
+   the best checkpoint (missing-modality sweep, MC dropout, temperature
+   scaling) must write the three JSON files with the reference's keys and
+   finite metrics.
+7. Print the kernel table as one JSON line, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
 The script imports torch and the port only; it needs no network.
@@ -51,6 +69,7 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -59,6 +78,8 @@ PKG = "multimodal_sensor_fusion_with_attention_rajeevatla_torch"
 TPU_PKG = "multimodal_sensor_fusion_with_attention_rajeevatla_tpu"
 BATCH = 64
 TRAIN_STEPS = 8  # micro-steps on the main path: 2 updates at accumulation 4
+FUSED_MLP_STEPS = 4  # micro-steps at fused_mlp=true, fused_mlp_ln=false
+FIT_EPOCHS = 2
 # f32 peaks of one H100 SXM (NVIDIA data sheet): CUDA-core FP32 and HBM3
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
@@ -356,6 +377,113 @@ def check_ln_kernels(torch, mlp, rows):
     return [out_rows[k] for k in ("proj_ln_fwd", "proj_ln_bwd", "ffw_ln_fwd", "ffw_ln_bwd")]
 
 
+def check_fused_mlp(torch, mlp, rows):
+    """The feed-forward kernel pair vs its twins; returns two table rows."""
+    d, f = 256, 2048
+    errs = [0.0, 0.0]
+    timed = None
+    for n, keep in ((rows, 0.8), (rows, None), (rows, 0.0), (rows - 25, 0.8)):
+        w, (mask, _rmask) = _ln_case(torch, n, d, f, keep, seed=7 + n + int(10 * (keep or 1)))
+        x, w1, b1, w2, b2 = (w(n, d), w(d, f, s=d**-0.5), w(f, s=0.1), w(f, d, s=f**-0.5),
+                             w(d, s=0.1))
+        inv_keep = mlp._inv_keep(1.0 if keep is None else keep)
+        dout = w(n, d)
+        out = mlp.fused_mlp_fwd(x, w1, b1, w2, b2, mask, inv_keep)
+        grads = mlp.fused_mlp_bwd(x, w1, b1, w2, mask, dout, inv_keep)
+        torch.cuda.synchronize()
+        e_fwd = rel_err(out, mlp.fused_mlp_fwd_reference(x, w1, b1, w2, b2, mask, inv_keep))
+        e_bwd = max(rel_err(got, want) for got, want in zip(
+            grads, mlp.fused_mlp_bwd_reference(x, w1, b1, w2, mask, dout, inv_keep)))
+        if keep == 0.0 and not torch.equal(out, b2.expand_as(out)):
+            raise AssertionError("fused_mlp: keep 0 does not give an exactly zero hidden")
+        print(f"  fused_mlp N={n} keep={keep}: rel err fwd={e_fwd:.3e} bwd={e_bwd:.3e} "
+              f"(tol {GRAD_TOL})", flush=True)
+        errs = [max(errs[0], e_fwd), max(errs[1], e_bwd)]
+        if timed is None:
+            timed = (x, w1, b1, w2, b2, mask, dout, inv_keep)
+    if max(errs) > GRAD_TOL:
+        raise AssertionError(f"fused_mlp kernels disagree with their twins: {errs} > {GRAD_TOL}")
+    x, w1, b1, w2, b2, mask, dout, inv_keep = timed  # keep 0.8 at N = rows, as in training
+    n = rows
+    weights = 2 * d * f + f + d
+    calls = {  # kernel, twin, operations, bytes (x, out | x, dout, dx; weights and their grads)
+        "fwd": (lambda: mlp.fused_mlp_fwd(x, w1, b1, w2, b2, mask, inv_keep),
+                lambda: mlp.fused_mlp_fwd_reference(x, w1, b1, w2, b2, mask, inv_keep),
+                4.0 * n * d * f, 4.0 * (2 * n * d + weights) + n * f, 195),
+        "bwd": (lambda: mlp.fused_mlp_bwd(x, w1, b1, w2, mask, dout, inv_keep),
+                lambda: mlp.fused_mlp_bwd_reference(x, w1, b1, w2, mask, dout, inv_keep),
+                10.0 * n * d * f, 4.0 * (3 * n * d + 2 * weights) + n * f, 232),
+    }
+    out_rows = []
+    for kind, (call, call_ref, flops, nbytes, line) in calls.items():
+        ms = time_ms(call, iters=10)
+        plain_ms = time_ms(call_ref, iters=10)
+        bound_ms, bound_by = bound(flops, nbytes)
+        print(f"  fused_mlp_{kind} ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} "
+              f"({bound_by}; {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)", flush=True)
+        out_rows.append({
+            "name": f"fused_mlp_{kind}", "route": "cuda", "source": f"{PKG}/ops/csrc/ffw.cu",
+            "replaces": f"{TPU_PKG}/ops/pallas_mlp.py:{line}",
+            "max_abs_err": errs[0 if kind == "fwd" else 1], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+        })
+    return out_rows
+
+
+def check_dropout_mask(torch, mlp, rows):
+    """The mask generator vs its plain version, byte for byte; returns the
+    table row (timed at the hidden mask's shape, the largest of a layer)."""
+    d, f, keep = 256, 2048, 0.8
+    seed = torch.tensor([20240229, -77], dtype=torch.int32, device="cuda")
+    cases = [(rows, d, keep, mlp.RNG_P_ATT), (rows, f, keep, mlp.RNG_P_HIDDEN),
+             (rows, d, keep, mlp.RNG_P_RES), (rows, d, 1.0, mlp.RNG_P_RES),
+             (rows, d, 0.0, mlp.RNG_P_ATT), (1021, 7, keep, mlp.RNG_P_HIDDEN)]
+    mismatches = 0
+    masks = {}
+    for n, width, kp, purpose in cases:
+        got = mlp.dropout_keep_mask(seed, n, width, kp, purpose)
+        torch.cuda.synchronize()
+        want = mlp.dropout_keep_mask_reference(seed, n, width, kp, purpose)
+        differ = int((got != want).sum().item())
+        rate = got.float().mean().item()
+        sigma = (kp * (1 - kp) / got.numel()) ** 0.5
+        print(f"  dropout_keep_mask [{n}, {width}] keep={kp} purpose={purpose}: "
+              f"{differ} bytes differ from the plain version, keep rate {rate:.6f}", flush=True)
+        mismatches += differ
+        if got.dtype != torch.uint8 or abs(rate - kp) > 4 * sigma:
+            raise AssertionError(f"dropout_keep_mask: keep rate {rate} is off {kp} by more "
+                                 f"than 4 sigma ({sigma:.2e})")
+        masks[(n, width, kp, purpose)] = got
+    if mismatches:
+        raise AssertionError(f"dropout_keep_mask: {mismatches} bytes differ from the plain version")
+    att, res = masks[cases[0]], masks[cases[2]]
+    other_seed = mlp.dropout_keep_mask(seed + 1, rows, d, keep, mlp.RNG_P_ATT)
+    again = mlp.dropout_keep_mask(seed.clone(), rows, d, keep, mlp.RNG_P_ATT)
+    if torch.equal(att, res) or torch.equal(att, other_seed) or not torch.equal(att, again):
+        raise AssertionError("dropout_keep_mask: masks must differ by purpose and seed and "
+                             "repeat for the same seed")
+    timings = {}
+    for width in (f, d):
+        ms = time_ms(lambda: mlp.dropout_keep_mask(seed, rows, width, keep, mlp.RNG_P_HIDDEN))
+        plain_ms = time_ms(lambda: mlp.dropout_keep_mask_reference(
+            seed, rows, width, keep, mlp.RNG_P_HIDDEN), iters=5)
+        library_ms = time_ms(
+            lambda: (torch.rand((rows, width), device="cuda") < keep).to(torch.uint8))
+        bound_ms, bound_by = bound(0.0, float(rows * width + 8))  # bytes only: the mask, the seed
+        print(f"  dropout_keep_mask [{rows}, {width}] ms={ms:.4f} plain_ms={plain_ms:.4f} "
+              f"torch_rand_ms={library_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by}; "
+              f"{rows * width / 1e6:.2f} MB)", flush=True)
+        timings[width] = (ms, plain_ms, library_ms, bound_ms, bound_by)
+    ms, plain_ms, library_ms, bound_ms, bound_by = timings[f]
+    return {
+        "name": "dropout_keep_mask", "route": "cuda",
+        "source": f"{PKG}/ops/csrc/dropout_mask.cu",
+        "replaces": f"{TPU_PKG}/ops/pallas_mlp.py:168",
+        "max_abs_err": float(mismatches), "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+    }
+
+
 FAMILIES = (  # profiler kernel-name fragments -> family, first match wins
     ("packed_attention_fwd", ("packed_attention_fwd",)),
     ("packed_attention_bwd", ("dkv_kernel", "dq_kernel", "delta_kernel")),
@@ -363,6 +491,9 @@ FAMILIES = (  # profiler kernel-name fragments -> family, first match wins
     ("proj_ln_bwd", ("proj_ln_bwd",)),
     ("ffw_ln_fwd", ("ffw_ln_fwd",)),
     ("ffw_ln_bwd", ("ffw_ln_bwd",)),
+    ("fused_mlp_fwd", ("ffw_fwd_kernel",)),
+    ("fused_mlp_bwd", ("ffw_bwd_kernel",)),
+    ("dropout_keep_mask", ("dropout_mask_kernel",)),
     ("ln_bwd_sums", ("atb_partial", "reduce_splits", "colsum_partial")),
     ("fusion_head", ("fusion_head",)),
     ("gemm", ("gemm", "cutlass", "sm90_xmma", "nvjet")),
@@ -403,47 +534,43 @@ def profile(torch, run, iters: int, unit: str) -> None:
         print(f"    top kernel {us / iters / 1e3:8.4f} ms/{unit}  {name[:110]}", flush=True)
 
 
-def train_phase(torch, kernels, split, train_idx, smi):
-    """Trainer on base.yaml + dropout_rng=xla at full width: the main path's
-    micro-steps with their launch counts, one micro-step against the plain
-    path, step time and device time by kernel family. Returns the counts."""
+def _trainer(torch, overrides, weights=None):
+    """A Trainer on base.yaml + ``overrides`` with seeded weights (or
+    ``weights``), its optimizer built for the real epoch length."""
     from multimodal_sensor_fusion_with_attention_rajeevatla_torch.models.module import (
         MultimodalFusionModel,
     )
     from multimodal_sensor_fusion_with_attention_rajeevatla_torch.train.trainer import Trainer
     from multimodal_sensor_fusion_with_attention_rajeevatla_torch.utils.config import load_config
 
-    overrides = ["training.dropout_rng=xla"]
-    cfg = load_config(REPO / "config" / "base.yaml", overrides)
-    seed = int(cfg.seed)
+    cfg = load_config(REPO / "config" / "base.yaml", list(overrides))
     model = MultimodalFusionModel.from_config(
-        cfg, device="cuda", generator=torch.Generator().manual_seed(seed))
-    trainer = Trainer(cfg, model=model, device="cuda")
-    trainer.init_state(steps_per_epoch=len(train_idx))
-    step = trainer.make_train_step_fn()
-    idx = [torch.from_numpy(row).long() for row in train_idx]
-    batch = len(idx[0])
-    print(f"  {len(idx)} batches of {batch} per epoch; accumulation {trainer.accum}; "
-          f"augmentation jitter {trainer.temporal_jitter}, noise {trainer.gaussian_noise}, "
-          f"modality dropout {trainer.modality_dropout}; dropout {cfg.model.dropout}", flush=True)
+        cfg, device="cuda", generator=torch.Generator().manual_seed(int(cfg.seed)))
+    if weights is not None:
+        model.load_state_dict(weights)
+    return Trainer(cfg, model=model, device="cuda")
 
-    # one micro-step, kernel path vs plain path: same weights, batch and seed
-    plain_cfg = load_config(REPO / "config" / "base.yaml", overrides + [
-        "model.flash_attention=false", "model.fused_mlp=false", "model.fused_mlp_ln=false"])
-    plain = Trainer(plain_cfg, model=MultimodalFusionModel.from_config(plain_cfg, device="cuda"),
-                    device="cuda")
-    plain.model.load_state_dict(model.state_dict())
+
+PLAIN = ["model.flash_attention=false", "model.fused_mlp=false", "model.fused_mlp_ln=false"]
+
+
+def micro_step_vs_plain(torch, split, idx0, overrides, label):
+    """One micro-step at ``dropout_rng=xla`` on the kernel path against the
+    plain path: same weights, batch and generator seed, so the same masks."""
+    trainer = _trainer(torch, [*overrides, "training.dropout_rng=xla"])
+    plain = _trainer(torch, [*overrides, "training.dropout_rng=xla", *PLAIN],
+                     weights=trainer.model.state_dict())
     results = []
     for tr in (trainer, plain):
-        tr.generator.manual_seed(seed + 1)
-        feats, labels, lengths = split.gather(idx[0])
+        tr.generator.manual_seed(tr.seed + 1)
+        feats, labels, lengths = split.gather(idx0)
         feats, lengths, mask = tr.augment(feats, lengths, len(split.modalities))
         weight = torch.ones(labels.shape, device="cuda")
         results.append(tr.loss_and_grads(feats, labels, mask, lengths, weight))
     torch.cuda.synchronize()
     (loss_k, _acc_k, grads_k), (loss_p, _acc_p, grads_p) = results
     e_loss = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
-    names = [n for n, _ in model.named_parameters()]
+    names = [n for n, _ in trainer.model.named_parameters()]
     # each gradient's error relative to its largest magnitude, floored at
     # 1e-3 of the model's largest gradient: the key-projection biases get
     # gradients that are zero up to rounding (a bias on every key shifts all
@@ -455,40 +582,40 @@ def train_phase(torch, kernels, split, train_idx, smi):
                for n, a, b in zip(names, grads_k, grads_p)}
     worst = max(e_grads, key=e_grads.get)
     worst_norm = max(e_norms, key=e_norms.get)
-    print(f"  one micro-step kernel vs plain path: loss {loss_k.item():.6f} vs {loss_p.item():.6f} "
-          f"(rel err {e_loss:.3e}), {len(names)} gradients, worst max-abs rel err "
-          f"{e_grads[worst]:.3e} at {worst} (tol {TRAIN_TOL}), worst norm rel err "
+    print(f"  {label}: one micro-step kernel vs plain path: loss {loss_k.item():.6f} vs "
+          f"{loss_p.item():.6f} (rel err {e_loss:.3e}), {len(names)} gradients, worst max-abs "
+          f"rel err {e_grads[worst]:.3e} at {worst} (tol {TRAIN_TOL}), worst norm rel err "
           f"{e_norms[worst_norm]:.3e} at {worst_norm} (tol {TRAIN_NORM_TOL})", flush=True)
-    for n in sorted(e_grads, key=e_grads.get)[-4:]:
+    for n in sorted(e_grads, key=e_grads.get)[-3:]:
         print(f"    {n}: max-abs rel {e_grads[n]:.3e}, norm rel {e_norms[n]:.3e}", flush=True)
     if e_loss > TRAIN_NORM_TOL or e_grads[worst] > TRAIN_TOL \
             or e_norms[worst_norm] > TRAIN_NORM_TOL:
-        raise AssertionError("training micro-step: kernel path disagrees with the plain path")
-    for p in model.parameters():
+        raise AssertionError(f"{label}: kernel path disagrees with the plain path")
+    for p in trainer.model.parameters():
         p.grad = None
-    del plain, results, grads_k, grads_p
+    return trainer  # its weights are untouched: no optimizer step was taken
 
-    # the main path: counters read just around the micro-steps
+
+def counted_steps(torch, kernels, trainer, split, idx, steps):
+    """``steps`` micro-steps with the launch counters set to 0 just before
+    and read just after -> ``(losses, launches)``."""
+    trainer.init_state(steps_per_epoch=len(idx))
+    step = trainer.make_train_step_fn()
     for fn in kernels.values():
         fn.launches = 0
-    losses = [step(split, idx[i % len(idx)])[0] for i in range(TRAIN_STEPS)]
+    losses = [step(split, idx[i % len(idx)])[0] for i in range(steps)]
     torch.cuda.synchronize()
     launches = {name: fn.launches for name, fn in kernels.items()}
     losses = torch.stack(losses).tolist()
-    per_step = len(split.modalities)  # one layer per encoder, every encoder runs
-    want = {name: TRAIN_STEPS * per_step for name in kernels}
-    want["fused_hybrid_head"] = 0
-    print(f"  {TRAIN_STEPS} micro-steps, {trainer.optimizer.count} updates; losses "
-          f"{[round(v, 5) for v in losses]}", flush=True)
-    print(f"  launches: {launches} (want {want})", flush=True)
     if not all(math.isfinite(v) for v in losses):
         raise AssertionError(f"non-finite training loss: {losses}")
-    if launches != want:
-        raise AssertionError(f"training launch counts {launches} != {want}")
-    if trainer.optimizer.count != TRAIN_STEPS // trainer.accum:
+    if trainer.optimizer.count != steps // trainer.accum:
         raise AssertionError(f"{trainer.optimizer.count} optimizer updates, "
-                             f"want {TRAIN_STEPS // trainer.accum}")
+                             f"want {steps // trainer.accum}")
+    return step, losses, launches
 
+
+def step_p50(torch, step, split, idx, batch, label, smi):
     lat = []
     for i in range(20):
         t = time.perf_counter()
@@ -497,9 +624,52 @@ def train_phase(torch, kernels, split, train_idx, smi):
         lat.append(time.perf_counter() - t)
     lat = sorted(lat[4:])
     p50 = lat[len(lat) // 2]
-    print(f"  train micro-step batch {batch}: p50 {p50 * 1e3:.3f} ms, {batch / p50:.1f} train "
-          f"windows/s on {smi}; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
-          flush=True)
+    print(f"  train micro-step batch {batch}, {label}: p50 {p50 * 1e3:.3f} ms, {batch / p50:.1f} "
+          f"train windows/s on {smi}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+
+
+def train_phase(torch, kernels, split, train_idx, smi):
+    """Trainer on the unmodified base.yaml at full width: the main path's
+    micro-steps with their launch counts and a bit-identical rerun, one
+    micro-step against the plain path, the fused_mlp-without-LN route, step
+    times and device time by kernel family. Returns the default path's
+    counts and the fused_mlp route's."""
+    idx = [torch.from_numpy(row).long() for row in train_idx]
+    batch = len(idx[0])
+    per_step = len(split.modalities)  # one layer per encoder, every encoder runs
+    ln_kernels = ("proj_ln_fwd", "proj_ln_bwd", "ffw_ln_fwd", "ffw_ln_bwd")
+
+    # dropout_rng=xla: kernel path vs plain path on the same masks, then its step time
+    xla = micro_step_vs_plain(torch, split, idx[0], [], "default kernels, dropout_rng=xla")
+    print(f"  {len(idx)} batches of {batch} per epoch; accumulation "
+          f"{xla.config.training.gradient_accumulation}; augmentation jitter "
+          f"{xla.temporal_jitter}, noise {xla.gaussian_noise}, modality dropout "
+          f"{xla.modality_dropout}; dropout {xla.config.model.dropout}", flush=True)
+    xla_step, _losses, _launches = counted_steps(torch, kernels, xla, split, idx, 4)
+    step_p50(torch, xla_step, split, idx, batch, "dropout_rng=xla", smi)
+    del xla, xla_step
+
+    # the main path: base.yaml as it is (dropout_rng: auto -> the mask kernel)
+    trainer = _trainer(torch, [])
+    if str(trainer.config.training.dropout_rng) != "auto":
+        raise AssertionError("config/base.yaml no longer has training.dropout_rng: auto")
+    step, losses, launches = counted_steps(torch, kernels, trainer, split, idx, TRAIN_STEPS)
+    want = dict.fromkeys(kernels, 0)
+    for name in ("packed_attention_fwd", "packed_attention_bwd", *ln_kernels):
+        want[name] = TRAIN_STEPS * per_step
+    want["dropout_keep_mask"] = 3 * TRAIN_STEPS * per_step
+    print(f"  default config: {TRAIN_STEPS} micro-steps, {trainer.optimizer.count} updates; "
+          f"losses {[round(v, 5) for v in losses]}", flush=True)
+    print(f"  launches: {launches} (want {want})", flush=True)
+    if launches != want:
+        raise AssertionError(f"training launch counts {launches} != {want}")
+    _step2, losses2, _launches2 = counted_steps(
+        torch, kernels, _trainer(torch, []), split, idx, TRAIN_STEPS)
+    print(f"  same seed again: losses bit-identical: {losses2 == losses}", flush=True)
+    if losses2 != losses:
+        raise AssertionError(f"the same seed gave other losses: {losses} then {losses2}")
+    step_p50(torch, step, split, idx, batch, "dropout_rng=auto (mask kernel)", smi)
 
     def run(n):
         for i in range(n):
@@ -507,7 +677,154 @@ def train_phase(torch, kernels, split, train_idx, smi):
         torch.cuda.synchronize()
 
     profile(torch, run, 8, "micro-step")
-    return launches
+    del trainer, step
+
+    # fused_mlp without the combined LayerNorm kernel: the feed-forward pair
+    route = ["model.fused_mlp=true", "model.fused_mlp_ln=false"]
+    micro_step_vs_plain(torch, split, idx[0], route, "fused_mlp=true fused_mlp_ln=false")
+    mlp_trainer = _trainer(torch, route)
+    mlp_step, mlp_losses, mlp_launches = counted_steps(
+        torch, kernels, mlp_trainer, split, idx, FUSED_MLP_STEPS)
+    want = dict.fromkeys(kernels, 0)
+    for name in ("packed_attention_fwd", "packed_attention_bwd", "fused_mlp_fwd", "fused_mlp_bwd"):
+        want[name] = FUSED_MLP_STEPS * per_step
+    want["dropout_keep_mask"] = 3 * FUSED_MLP_STEPS * per_step
+    print(f"  fused_mlp route: {FUSED_MLP_STEPS} micro-steps; losses "
+          f"{[round(v, 5) for v in mlp_losses]}", flush=True)
+    print(f"  launches: {mlp_launches} (want {want})", flush=True)
+    if mlp_launches != want:
+        raise AssertionError(f"fused_mlp route launch counts {mlp_launches} != {want}")
+    step_p50(torch, mlp_step, split, idx, batch, "fused_mlp=true fused_mlp_ln=false", smi)
+    return launches, mlp_launches
+
+
+RESULT_KEYS = {"best_model_path", "best_val_loss", "config", "test_acc", "history",
+               "train_wall_seconds"}
+EVAL_KEYS = {"dataset", "fusion_type", "test_accuracy", "test_f1_macro", "test_loss", "ece", "mce",
+             "nll", "inference_ms_mean", "inference_ms_std", "inference_ms_amortized",
+             "per_class_accuracy", "num_test_windows"}
+UNCERTAINTY_KEYS = {"dataset", "fusion_type", "ece", "mce", "nll", "num_bins", "mc_dropout",
+                    "temperature", "ece_after_temperature_scaling",
+                    "nll_after_temperature_scaling"}
+MISSING_KEYS = {"full_modalities", "single_modalities", "all_combinations", "modality_importance"}
+
+
+def _all_finite(tree) -> bool:
+    if isinstance(tree, dict):
+        return all(_all_finite(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return all(_all_finite(v) for v in tree)
+    return not isinstance(tree, float) or math.isfinite(tree)
+
+
+def fit_and_eval_phase(torch, kernels, smi, workdir: Path):
+    """``Trainer.fit`` for FIT_EPOCHS epochs at the default config on the real
+    splits, then the checkpoints reloaded and evaluated."""
+    from multimodal_sensor_fusion_with_attention_rajeevatla_torch.data.dataset import (
+        create_datasets,
+    )
+    from multimodal_sensor_fusion_with_attention_rajeevatla_torch.data.device import DeviceSplit
+    from multimodal_sensor_fusion_with_attention_rajeevatla_torch.evaluate import (
+        dataset_kwargs, evaluate_checkpoint,
+    )
+    from multimodal_sensor_fusion_with_attention_rajeevatla_torch.models.module import (
+        MultimodalFusionModel,
+    )
+    from multimodal_sensor_fusion_with_attention_rajeevatla_torch.train.checkpoint import (
+        load_checkpoint,
+    )
+
+    print("[fit]", flush=True)
+    # the default config; only where files live and how long it trains differ
+    trainer = _trainer(torch, [
+        f"training.max_epochs={FIT_EPOCHS}", f"dataset.data_dir={REPO / 'data' / 'pamap2'}",
+        f"dataset.chunk_cache_dir={workdir / 'chunk_cache'}"])
+    cfg = trainer.config
+    train_w, val_w, test_w = create_datasets(**dataset_kwargs(cfg))
+    batch = trainer.batch_size
+    steps = FIT_EPOCHS * math.ceil(train_w.num_windows / batch)
+    print(f"  {train_w.num_windows} train / {val_w.num_windows} val / {test_w.num_windows} test "
+          f"windows; {steps} micro-steps in {FIT_EPOCHS} epochs; dropout_rng "
+          f"{cfg.training.dropout_rng}", flush=True)
+    for fn in kernels.values():
+        fn.launches = 0
+    results = trainer.fit(train_w, val_w, test_w, save_dir=workdir / "run",
+                          log_fn=lambda msg: print(f"  {msg}", flush=True))
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    print(f"  launches: {launches}", flush=True)
+    on_disk = json.loads((workdir / "run" / "results.json").read_text())
+    if set(on_disk) != RESULT_KEYS or set(results) != RESULT_KEYS:
+        raise AssertionError(f"results.json keys {sorted(on_disk)} != {sorted(RESULT_KEYS)}")
+    history = results["history"]
+    if len(history) != FIT_EPOCHS or not _all_finite(history) \
+            or not math.isfinite(results["best_val_loss"]):
+        raise AssertionError(f"fit history is not {FIT_EPOCHS} finite epochs: {history}")
+    per_step = 4  # encoders, one layer each
+    want = {"dropout_keep_mask": 3 * per_step * steps, "packed_attention_bwd": per_step * steps,
+            "proj_ln_fwd": per_step * steps, "proj_ln_bwd": per_step * steps,
+            "ffw_ln_fwd": per_step * steps, "ffw_ln_bwd": per_step * steps,
+            "fused_hybrid_head": 0, "fused_mlp_fwd": 0, "fused_mlp_bwd": 0}
+    got = {name: launches[name] for name in want}
+    if got != want or launches["packed_attention_fwd"] <= per_step * steps:
+        raise AssertionError(f"fit launch counts {launches} != {want} (+ eval attention)")
+    best = Path(results["best_model_path"])
+    last = workdir / "run" / "checkpoints" / "last"
+    for path in (best / "variables.pt", best / "meta.json", last / "variables.pt",
+                 last / "meta.json", last / "train_state.pt"):
+        if not path.is_file():
+            raise AssertionError(f"checkpoint file missing: {path}")
+    wall = results["train_wall_seconds"]
+    print(f"  {FIT_EPOCHS} epochs in {wall:.2f} s: {wall / FIT_EPOCHS:.2f} s per epoch (train, "
+          f"val, checkpoint), {FIT_EPOCHS * train_w.num_windows / wall:.1f} train windows/s on "
+          f"{smi}; best {best.name}, test acc {results['test_acc']:.4f}", flush=True)
+
+    print("[eval]", flush=True)
+    # `last` holds the weights the trainer ends with: reloaded from the
+    # directory alone they must give the in-memory model's logits exactly
+    test_data = DeviceSplit.from_windows(test_w, device="cuda")
+    weights, ckpt_cfg, meta = load_checkpoint(last)
+    reloaded = MultimodalFusionModel.from_config(ckpt_cfg, device="cuda")
+    reloaded.load_state_dict(weights)
+    same = torch.equal(torch.from_numpy(trainer.evaluate_logits(test_data)),
+                       torch.from_numpy(trainer.evaluate_logits(test_data, model=reloaded)))
+    print(f"  checkpoint 'last' (epoch {meta['epoch']}) reloaded from its directory: test logits "
+          f"bit-identical to the in-memory model: {same}", flush=True)
+    if not same:
+        raise AssertionError("a reloaded checkpoint gives other logits than the model it saved")
+    del reloaded
+    for fn in kernels.values():
+        fn.launches = 0
+    out_dir = workdir / "experiments"
+    standard = evaluate_checkpoint(
+        str(best), output_dir=str(out_dir), analysis_dir=str(workdir / "analysis"),
+        missing_modality_test=True, device="cuda", plots=False)
+    torch.cuda.synchronize()
+    eval_launches = {name: fn.launches for name, fn in kernels.items()}
+    print(f"  launches: {eval_launches}", flush=True)
+    files = {name: json.loads((out_dir / f"{name}.json").read_text())
+             for name in ("evaluation_results", "uncertainty", "missing_modality")}
+    for name, keys in (("evaluation_results", EVAL_KEYS), ("uncertainty", UNCERTAINTY_KEYS),
+                       ("missing_modality", MISSING_KEYS)):
+        if set(files[name]) != keys:
+            raise AssertionError(f"{name}.json keys {sorted(files[name])} != {sorted(keys)}")
+        if not _all_finite(files[name]):
+            raise AssertionError(f"{name}.json holds a non-finite number")
+    if len(files["missing_modality"]["all_combinations"]) != 15:
+        raise AssertionError("the missing-modality sweep does not cover 15 subsets")
+    if standard["test_accuracy"] != results["test_acc"]:
+        raise AssertionError(f"evaluation accuracy {standard['test_accuracy']} != fit's test_acc "
+                             f"{results['test_acc']} on the same checkpoint")
+    if eval_launches["dropout_keep_mask"] <= 0 or eval_launches["packed_attention_fwd"] <= 0:
+        raise AssertionError("evaluation did not go through the attention and mask kernels")
+    unc = files["uncertainty"]
+    print(f"  test acc {standard['test_accuracy']:.4f}, macro-F1 {standard['test_f1_macro']:.4f}, "
+          f"ECE {standard['ece']:.4f}, NLL {standard['nll']:.4f}; T {unc['temperature']:.3f}; "
+          f"MC-dropout mean variance {unc['mc_dropout']['mean_uncertainty']:.6f}", flush=True)
+    print(f"  latency per sample {standard['inference_ms_mean']:.4f} ms (std "
+          f"{standard['inference_ms_std']:.4f}), amortised "
+          f"{standard['inference_ms_amortized']:.4f} ms at batch {batch} on {smi}", flush=True)
+    return launches, eval_launches
 
 
 def main() -> int:
@@ -608,13 +925,18 @@ def main() -> int:
                                        seed=int(cfg.seed))
     train_lengths = split.lengths.index_select(0, torch.from_numpy(train_idx[0]).long().cuda())
     rows.insert(1, check_attention_bwd(torch, attn, train_lengths))
-    rows += check_ln_kernels(torch, mlp, train_batch * int(cfg.dataset.chunk_size))
+    train_rows = train_batch * int(cfg.dataset.chunk_size)
+    rows += check_ln_kernels(torch, mlp, train_rows)
+    rows += check_fused_mlp(torch, mlp, train_rows)
+    rows.append(check_dropout_mask(torch, mlp, train_rows))
     kernels = {  # table row name -> wrapper with its launch counter
         "packed_attention_fwd": attn.packed_attention_fwd,
         "packed_attention_bwd": attn.packed_attention_bwd,
         "fused_hybrid_head": fusion.fused_hybrid_head,
         "proj_ln_fwd": mlp.proj_ln_fwd, "proj_ln_bwd": mlp.proj_ln_bwd,
         "ffw_ln_fwd": mlp.ffw_ln_fwd, "ffw_ln_bwd": mlp.ffw_ln_bwd,
+        "fused_mlp_fwd": mlp.fused_mlp_fwd, "fused_mlp_bwd": mlp.fused_mlp_bwd,
+        "dropout_keep_mask": mlp.dropout_keep_mask,
     }
 
     # ---- 3. serve: the main path ----------------------------------------------
@@ -683,14 +1005,29 @@ def main() -> int:
 
     # ---- 4. train: the second main path --------------------------------------
     print("[train]", flush=True)
-    train_launches = train_phase(torch, kernels, split, train_idx, smi)
+    train_launches, mlp_launches = train_phase(torch, kernels, split, train_idx, smi)
+
+    # ---- 5./6. fit, checkpoint, evaluate --------------------------------------
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        fit_launches, eval_launches = fit_and_eval_phase(torch, kernels, smi, Path(tmp))
+
     for row in rows:
         # each kernel's launches on the path it was ported for: the eval
-        # kernels on the serve path, the training kernels on the train path
-        path = serve_launches if row["name"] in ("packed_attention_fwd", "fused_hybrid_head") \
-            else train_launches
-        row["launches"] = path[row["name"]]
-        row["train_launches"] = train_launches[row["name"]]
+        # kernels on the serve path, the training kernels on the default
+        # train path, the feed-forward pair on its own route
+        name = row["name"]
+        if name in ("packed_attention_fwd", "fused_hybrid_head"):
+            path = serve_launches
+        elif name in ("fused_mlp_fwd", "fused_mlp_bwd"):
+            path = mlp_launches
+        else:
+            path = train_launches
+        row["launches"] = path[name]
+        row["train_launches"] = train_launches[name]
+        row["fit_launches"] = fit_launches[name]
+        row["eval_launches"] = eval_launches[name]
+        if row["launches"] <= 0:
+            raise AssertionError(f"kernel {name} was not launched on its main path")
     print(f"[done] {time.perf_counter() - t0:.1f} s", flush=True)
 
     print(json.dumps({"kernels": rows}), flush=True)

@@ -6,11 +6,18 @@ imports it (nor JAX). The kernels the reference wrote in Pallas for the TPU
 are hand-written CUDA C++ for ``sm_90a`` here (``ops/csrc``), each with a
 plain PyTorch twin that the CPU takes.
 
-Ported so far: the serving path of the flagship hybrid-transformer model
-(``serving.make_serving_fn``). Training, the other encoders and fusion heads,
-evaluation and the parallel layouts are queued in ``ROADMAP.md``.
+Ported so far: the flagship hybrid-transformer model from training to
+evaluation: ``train.trainer.Trainer.fit`` (AdamW behind accumulation, the
+augmentations, early stopping, top-k checkpoints in ``train/checkpoint.py``),
+``evaluate.run_evaluation`` (metrics, calibration, latency, the
+missing-modality sweep, MC dropout and temperature scaling from
+``uncertainty.py``), ``serving.make_serving_fn`` and the ``train`` / ``eval``
+commands of ``python -m <package>`` (``cli.py``). The other encoders and
+fusion heads, the streaming loader and the parallel layouts are queued in
+``ROADMAP.md``.
 
 Entry points (``models.module.MultimodalFusionModel.from_config``,
+``train.trainer.Trainer``, ``evaluate.run_evaluation``,
 ``serving.make_serving_fn``, ``data.device.DeviceSplit.from_windows``) run on
 ``cuda`` unless the caller passes ``device="cpu"``.
 """

@@ -1,11 +1,13 @@
 """Windowed multimodal datasets (copy of the JAX package's ``data/dataset.py``).
 
 The port may not import the JAX package, whose ``data/__init__.py`` pulls in
-JAX, so the numpy pieces the serving path needs are copied here:
-``resolve_modality_columns``, ``WindowedSplit``, the manifest-backed
-``MultimodalDataset`` (numpy window gather only; the native
-``libfastload.so`` gather is not loaded), ``apply_instance_normalization``
-and ``padded_index_matrix``. A split is materialised once into dense numpy
+JAX, so its numpy pieces are copied here: ``resolve_modality_columns``,
+``WindowedSplit``, the manifest-backed ``MultimodalDataset`` (numpy window
+gather only; the native ``libfastload.so`` gather is not loaded),
+``SyntheticMultimodalDataset``, ``BatchLoader``, the normalisations,
+``create_datasets`` / ``create_dataloaders``, ``simulate_missing_modalities``
+and ``padded_index_matrix``. The same seeds give the same arrays as the
+reference. A split is materialised once into dense numpy
 arrays, ``features {mod: [N, T, D]}``, ``labels [N]``, ``lengths [N]``, with
 windows padded to ``chunk_size``; ``data/device.py`` puts them on the card.
 """
@@ -16,7 +18,7 @@ import hashlib
 import json
 from dataclasses import dataclass, field
 from pathlib import Path
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, Iterator, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -343,6 +345,176 @@ class MultimodalDataset:
 
 
 
+# ---------------------------------------------------------------------------
+# synthetic dataset (reference ``src/data.py:346-412``)
+# ---------------------------------------------------------------------------
+
+class SyntheticMultimodalDataset:
+    """Random multimodal data with split-dependent seeds (seed, seed+1, seed+2)."""
+
+    def __init__(
+        self,
+        num_samples: int = 10000,
+        num_classes: int = 5,
+        modality_dims: Optional[Dict[str, int]] = None,
+        sequence_length: int = 100,
+        split: str = "train",
+        seed: int = 42,
+    ):
+        if modality_dims is None:
+            modality_dims = {"sensor1": 32, "sensor2": 32, "sensor3": 32}
+        self.num_samples = num_samples
+        self.num_classes = num_classes
+        self.modality_dims = dict(modality_dims)
+        self.modalities = list(self.modality_dims.keys())
+        self.sequence_length = sequence_length
+        split_seeds = {"train": seed, "val": seed + 1, "test": seed + 2}
+        rng = np.random.default_rng(split_seeds.get(split, seed))
+        features = {
+            m: rng.standard_normal(
+                (num_samples, sequence_length, dim), dtype=np.float32
+            )
+            for m, dim in self.modality_dims.items()
+        }
+        labels = rng.integers(0, num_classes, num_samples).astype(np.int32)
+        lengths = np.full(num_samples, sequence_length, dtype=np.int32)
+        self.windows = WindowedSplit(
+            features=features, labels=labels, lengths=lengths,
+            modalities=list(self.modalities),
+        )
+
+    def __len__(self) -> int:
+        return self.num_samples
+
+    def __getitem__(self, idx: int):
+        features = {m: self.windows.features[m][idx] for m in self.modalities}
+        label = self.windows.labels[idx]
+        mask = np.ones(len(self.modalities), dtype=np.float32)
+        return features, label, mask
+
+
+# ---------------------------------------------------------------------------
+# collate + loaders
+# ---------------------------------------------------------------------------
+
+def collate_multimodal(batch: List) -> Tuple[Dict[str, np.ndarray], np.ndarray, np.ndarray]:
+    """Stack a list of ``(features, label, mask)`` samples into dense arrays."""
+    features_list, labels_list, masks_list = zip(*batch)
+    modality_names = features_list[0].keys()
+    batch_features = {
+        m: np.stack([f[m] for f in features_list]) for m in modality_names
+    }
+    return (
+        batch_features,
+        np.stack([np.asarray(l) for l in labels_list]),
+        np.stack([np.asarray(m) for m in masks_list]),
+    )
+
+
+class BatchLoader:
+    """Minimal batched iterator over a :class:`WindowedSplit`.
+
+    Yields ``(features, labels, mask, lengths, sample_weight)`` numpy batches
+    with a STATIC batch size: the final partial batch is padded (pad rows get
+    ``sample_weight 0``), so every step has the same shapes.
+    """
+
+    def __init__(
+        self,
+        windows: WindowedSplit,
+        batch_size: int,
+        shuffle: bool = False,
+        seed: int = 0,
+        modality_dropout: float = 0.0,
+        drop_last: bool = False,
+    ):
+        self.windows = windows
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.seed = seed
+        self.modality_dropout = modality_dropout
+        self.drop_last = drop_last
+        self._epoch = 0
+
+    def set_epoch(self, epoch: int) -> None:
+        self._epoch = epoch
+
+    def __len__(self) -> int:
+        n = self.windows.num_windows
+        if self.drop_last:
+            return n // self.batch_size
+        return (n + self.batch_size - 1) // self.batch_size
+
+    def batch_indices(self) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
+        """Yield ``(indices [B], weight [B])`` per step, padded to batch_size."""
+        n = self.windows.num_windows
+        order = np.arange(n)
+        if self.shuffle:
+            order = np.random.default_rng(self.seed + self._epoch).permutation(n)
+        steps = len(self)
+        for s in range(steps):
+            idx = order[s * self.batch_size : (s + 1) * self.batch_size]
+            weight = np.ones(idx.shape[0], dtype=np.float32)
+            if idx.shape[0] < self.batch_size:
+                pad = self.batch_size - idx.shape[0]
+                idx = np.concatenate([idx, np.zeros(pad, dtype=idx.dtype)])
+                weight = np.concatenate([weight, np.zeros(pad, dtype=np.float32)])
+            yield idx.astype(np.int32), weight
+
+    def __iter__(self):
+        w = self.windows
+        num_mod = len(w.modalities)
+        rng = np.random.default_rng(self.seed * 1000003 + self._epoch)
+        for idx, weight in self.batch_indices():
+            features = {m: w.features[m][idx] for m in w.modalities}
+            labels = w.labels[idx]
+            lengths = w.lengths[idx]
+            mask = np.ones((idx.shape[0], num_mod), dtype=np.float32)
+            if self.modality_dropout > 0:
+                keep = rng.random(mask.shape) > self.modality_dropout
+                mask = mask * keep
+                dead = mask.sum(axis=1) == 0
+                if dead.any():  # never drop every modality (src/data.py:337-341)
+                    revive = rng.integers(0, num_mod, int(dead.sum()))
+                    mask[np.where(dead)[0], revive] = 1.0
+            yield features, labels, mask, lengths, weight
+
+
+def compute_normalization_stats(
+    windows: WindowedSplit,
+) -> Dict[str, Tuple[np.ndarray, np.ndarray]]:
+    """Per-modality per-channel mean/std over VALID timesteps of a split."""
+    stats: Dict[str, Tuple[np.ndarray, np.ndarray]] = {}
+    seq_len = windows.window_size
+    valid = (
+        np.arange(seq_len)[None, :] < windows.lengths[:, None]
+    )[..., None]  # [N, T, 1]
+    denom = max(1, int(valid.sum()))
+    for m in windows.modalities:
+        x = windows.features[m]
+        masked = x * valid
+        mean = masked.sum(axis=(0, 1)) / denom
+        var = ((x - mean) * valid).astype(np.float64) ** 2
+        std = np.sqrt(var.sum(axis=(0, 1)) / denom)
+        std = np.where(std < 1e-6, 1.0, std)
+        stats[m] = (mean.astype(np.float32), std.astype(np.float32))
+    return stats
+
+
+def apply_normalization(
+    windows: WindowedSplit,
+    stats: Dict[str, Tuple[np.ndarray, np.ndarray]],
+) -> WindowedSplit:
+    """Z-score features in place with train-split stats; padding stays zero."""
+    seq_len = windows.window_size
+    valid = (
+        np.arange(seq_len)[None, :] < windows.lengths[:, None]
+    )[..., None].astype(np.float32)
+    for m in windows.modalities:
+        mean, std = stats[m]
+        windows.features[m] = ((windows.features[m] - mean) / std) * valid
+    return windows
+
 
 def apply_instance_normalization(windows: WindowedSplit) -> WindowedSplit:
     """Per-window per-channel z-scoring (no cross-split statistics).
@@ -365,6 +537,120 @@ def apply_instance_normalization(windows: WindowedSplit) -> WindowedSplit:
         std = np.where(std < 1e-6, 1.0, std)
         windows.features[m] = ((windows.features[m] - mean) / std) * valid
     return windows
+
+
+def create_datasets(
+    dataset_name: str,
+    data_dir: str | Path,
+    modalities: Sequence[str],
+    chunk_size: Optional[int] = None,
+    chunk_cache_dir: Optional[str | Path] = None,
+    normalize: bool = False,
+    window_stride: Optional[int] = None,
+    val_window_stride: Optional[int] = None,
+    **kwargs,
+) -> Tuple[WindowedSplit, WindowedSplit, WindowedSplit]:
+    """Materialise train/val/test :class:`WindowedSplit`s.
+
+    ``normalize`` applies per-channel z-scoring with TRAIN-split statistics to
+    all three splits. ``window_stride`` (train only) enables overlapping
+    sliding windows. ``val_window_stride`` does the same for the VAL split —
+    used by temperature-scaling calibration, where the tiny surviving-subset
+    val splits (45-89 non-overlapping windows) starve the fit; stride
+    ``chunk//4`` pools ~4x more windows from the same underlying rows.
+    """
+    if dataset_name == "synthetic":
+        def make(split, n):
+            return SyntheticMultimodalDataset(
+                num_samples=n,
+                num_classes=kwargs.get("num_classes", 5),
+                modality_dims={m: kwargs.get("modality_dim", 32) for m in modalities},
+                sequence_length=kwargs.get("sequence_length", 100),
+                split=split,
+                seed=kwargs.get("seed", 42),
+            ).windows
+
+        n_train = kwargs.get("num_samples", 10000)
+        n_eval = max(1, n_train // 5)
+        return make("train", n_train), make("val", n_eval), make("test", n_eval)
+
+    def make_real(split, stride=None):
+        return MultimodalDataset(
+            data_dir,
+            modalities,
+            split,
+            chunk_size=chunk_size,
+            chunk_cache_dir=chunk_cache_dir,
+            window_stride=stride,
+        ).windows
+
+    train_w = make_real("train", stride=window_stride)
+    val_w = make_real("val", stride=val_window_stride)
+    test_w = make_real("test")
+    mode = normalize if isinstance(normalize, str) else ("global" if normalize else "none")
+    if mode == "instance":
+        for w in (train_w, val_w, test_w):
+            apply_instance_normalization(w)
+    elif mode in ("global", "true", "zscore"):
+        stats = compute_normalization_stats(train_w)
+        train_w = apply_normalization(train_w, stats)
+        val_w = apply_normalization(val_w, stats)
+        test_w = apply_normalization(test_w, stats)
+    return train_w, val_w, test_w
+
+
+def create_dataloaders(
+    dataset_name: str,
+    data_dir: str | Path,
+    modalities: Sequence[str],
+    batch_size: int = 32,
+    modality_dropout: float = 0.0,
+    chunk_size: Optional[int] = None,
+    chunk_cache_dir: Optional[str | Path] = None,
+    seed: int = 0,
+    **kwargs,
+) -> Tuple[BatchLoader, BatchLoader, BatchLoader]:
+    """Train/val/test loaders (reference API, ``src/data.py:446-595``).
+
+    Host-process worker knobs (``num_workers``/``pin_memory``/...) do not
+    exist in this design — the data is device-resident; they are accepted and
+    ignored for config compatibility.
+    """
+    kwargs.pop("num_workers", None)
+    kwargs.pop("pin_memory", None)
+    kwargs.pop("persistent_workers", None)
+    kwargs.pop("prefetch_factor", None)
+    kwargs.pop("prefetch_shards", None)
+    train_w, val_w, test_w = create_datasets(
+        dataset_name, data_dir, modalities,
+        chunk_size=chunk_size, chunk_cache_dir=chunk_cache_dir, seed=seed, **kwargs
+    )
+    train = BatchLoader(
+        train_w, batch_size, shuffle=True, seed=seed,
+        modality_dropout=modality_dropout,
+    )
+    val = BatchLoader(val_w, batch_size, shuffle=False, seed=seed)
+    test = BatchLoader(test_w, batch_size, shuffle=False, seed=seed)
+    return train, val, test
+
+
+def simulate_missing_modalities(
+    features: Mapping[str, np.ndarray],
+    mask: np.ndarray,
+    missing_pattern: Optional[List[int]] = None,
+) -> Tuple[Dict[str, np.ndarray], np.ndarray]:
+    """Zero dropped modalities given a keep-pattern (``src/data.py:598-628``)."""
+    mask = np.array(mask, copy=True)
+    if missing_pattern is not None:
+        new_mask = np.zeros_like(mask)
+        for idx in missing_pattern:
+            new_mask[..., idx] = 1
+        mask = new_mask
+    out = dict(features)
+    for i, modality in enumerate(list(out.keys())):
+        if np.all(mask[..., i] == 0):
+            out[modality] = np.zeros_like(out[modality])
+    return out, mask
 
 
 

@@ -9,14 +9,19 @@ the packed route; otherwise it takes the plain masked-softmax attention.
 LayerNorms follow flax: eps 1e-6 and the fast variance
 ``max(E[x^2] - E[x]^2, 0)``.
 
-Training: dropout keep masks are drawn from the caller's ``torch.Generator``
-outside the kernels and in a fixed order (attention-side residual
-``[B,T,H]``, hidden ``[B,T,F]``, FFW-side residual ``[B,T,H]``, then the
-pooled vector), so the kernel path and the plain path consume the same
-draws. There is no dropout on the attention probabilities. With
+Training: dropout keep masks are made outside the compute kernels and in a
+fixed order (attention-side residual ``[B,T,H]``, hidden ``[B,T,F]``,
+FFW-side residual ``[B,T,H]``, then the pooled vector), so the kernel path
+and the plain path consume the same masks. ``training.dropout_rng`` picks
+their source (``resolve_dropout_rng``): the Philox generator kernel
+``ops.mlp.dropout_keep_mask``, seeded per layer with two words drawn from the
+caller's ``torch.Generator``, or plain ``torch.rand`` draws from that
+generator. There is no dropout on the attention probabilities. With
 ``fused_mlp`` and ``fused_mlp_ln`` on, train mode runs the layer's two
 halves through ``ops.mlp.fused_proj_residual_ln`` and
-``fused_mlp_residual_ln``; eval keeps the plain path, as the reference does.
+``fused_mlp_residual_ln``; with ``fused_mlp_ln`` off the feed-forward runs
+through ``ops.mlp.transformer_ffw``'s kernel pair; eval keeps the plain path,
+as the reference does.
 
 Linear layers are ``nn.Linear`` (weight ``[out, in]``); ``models.module``
 initialises them like flax (lecun-normal kernels, zero biases).
@@ -37,30 +42,37 @@ from torch.nn import functional as F
 
 from ..ops.attention import flash_mha_packed, packed_route_ok
 from ..ops.masked import lengths_to_mask, masked_mean_pool, masked_softmax
-from ..ops.mlp import fused_mlp_residual_ln, fused_proj_residual_ln, ln_rows
+from ..ops.mlp import (
+    RNG_P_ATT,
+    RNG_P_HIDDEN,
+    RNG_P_RES,
+    dropout_keep_mask,
+    fused_mlp_residual_ln,
+    fused_proj_residual_ln,
+    kernel_rng_seed,
+    ln_rows,
+    transformer_ffw,
+)
 
 _SEQUENCE_MODALITIES = {"imu", "audio", "mocap", "accelerometer"}
 _NOT_PORTED = "is not ported yet (ROADMAP queue A item 10)"
 
 
-def resolve_dropout_rng(value, device_type: str) -> str:
-    """``training.dropout_rng`` for a training run on ``device_type``.
+def resolve_dropout_rng(value, device_type: str, kernels_on: bool = True) -> str:
+    """Where a training layer's dropout masks come from: ``"kernel"`` (the
+    ``ops.mlp.dropout_keep_mask`` generator kernel) or ``"xla"`` (plain
+    ``torch.rand`` draws from the caller's generator).
 
-    ``xla`` (masks as plain random draws) is what the port runs. ``kernel``,
-    and ``auto`` on the card (where the reference picks its generator
-    kernel), need the ``dropout_keep_mask`` kernel and raise until it is
-    ported; ``auto`` off the card means ``xla``, as in the reference.
+    As in the reference: ``kernel`` and ``auto`` mean the generator kernel
+    when the tensors are on the card and the layer runs at least one kernel
+    path (``flash_attention`` or ``fused_mlp``); on the CPU, or with both
+    flags off, they mean plain draws. ``xla`` always means plain draws. The
+    two sources give different masks from the same generator.
     """
     rng = str(value or "auto").lower()
     if rng not in ("auto", "xla", "kernel"):
         raise ValueError(f"Unknown training.dropout_rng {value!r}; expected auto, xla or kernel")
-    if rng == "kernel" or (rng == "auto" and device_type == "cuda"):
-        raise NotImplementedError(
-            f"training.dropout_rng={rng} needs the dropout_keep_mask generator kernel, "
-            "which is not ported yet (ROADMAP queue B item 4); train with "
-            "training.dropout_rng=xla"
-        )
-    return "xla"
+    return "kernel" if rng != "xla" and device_type == "cuda" and kernels_on else "xla"
 
 
 def keep_mask(shape, keep_prob: float, generator: Optional[torch.Generator], device) -> torch.Tensor:
@@ -181,21 +193,28 @@ class TransformerEncoderLayer(nn.Module):
         batch, seq_len, hidden = x.shape
         rows = batch * seq_len
         fused = self.use_fused_mlp and self.use_fused_mlp_ln and train
-        if train and self.use_fused_mlp and not self.use_fused_mlp_ln:
-            raise NotImplementedError(
-                "training with fused_mlp on and fused_mlp_ln off runs the fused_mlp "
-                "kernel pair, which is not ported yet (ROADMAP queue B item 7)"
-            )
         keep_prob = 1.0 - self.dropout
         drop = train and self.dropout > 0.0
-        if drop:
-            resolve_dropout_rng(self.dropout_rng, x.device.type)
+        source = resolve_dropout_rng(
+            self.dropout_rng, x.device.type, self.use_flash or self.use_fused_mlp
+        )
+        if drop and source == "kernel":
+            # one two-word seed per layer, drawn once before the first mask;
+            # the three masks differ by their purpose
+            seed = kernel_rng_seed(generator, x.device)
 
-        def draw(width):
-            return keep_mask((batch, seq_len, width), keep_prob, generator, x.device)
+            def draw(width, purpose):
+                return dropout_keep_mask(seed, rows, width, keep_prob, purpose).reshape(
+                    batch, seq_len, width)
+        else:
+            def draw(width, _purpose):
+                return keep_mask((batch, seq_len, width), keep_prob, generator, x.device)
+
+        def drop_where(mask, y):
+            return torch.where(mask.bool(), y / keep_prob, 0.0)
 
         attended = self._attend(x, key_padding_mask)
-        att_mask = draw(hidden) if drop else None
+        att_mask = draw(hidden, RNG_P_ATT) if drop else None
         if fused:
             x = fused_proj_residual_ln(
                 x.reshape(rows, hidden), attended.reshape(rows, hidden),
@@ -205,22 +224,32 @@ class TransformerEncoderLayer(nn.Module):
         else:
             y = self.out_proj(attended)
             if att_mask is not None:
-                y = torch.where(att_mask, y / keep_prob, 0.0)
+                y = drop_where(att_mask, y)
             x = self.norm1(x + y)
-        ffw_mask = draw(self.linear1.out_features) if drop else None
-        res_mask = draw(hidden) if drop else None
+        ffw_mask = draw(self.linear1.out_features, RNG_P_HIDDEN) if drop else None
+        res_mask = draw(hidden, RNG_P_RES) if drop else None
         if fused:
             return fused_mlp_residual_ln(
                 x.reshape(rows, hidden), self.linear1.weight.t(), self.linear1.bias,
                 self.linear2.weight.t(), self.linear2.bias, self.norm2.weight,
                 self.norm2.bias, ffw_mask=ffw_mask, res_mask=res_mask, keep_prob=keep_prob,
             ).reshape(batch, seq_len, hidden)
-        h = torch.relu(self.linear1(x))
-        if ffw_mask is not None:
-            h = torch.where(ffw_mask, h / keep_prob, 0.0)
-        ff = self.linear2(h)
+        if self.use_fused_mlp and train:
+            # fused_mlp without the combined LayerNorm kernel: the feed-forward
+            # kernel pair, then the plain residual half (eval stays plain, the
+            # reference's measured choice)
+            ff = transformer_ffw(
+                x, {"kernel": self.linear1.weight.t(), "bias": self.linear1.bias},
+                {"kernel": self.linear2.weight.t(), "bias": self.linear2.bias},
+                keep_mask=ffw_mask, keep_prob=keep_prob, use_fused=True,
+            )
+        else:
+            h = torch.relu(self.linear1(x))
+            if ffw_mask is not None:
+                h = drop_where(ffw_mask, h)
+            ff = self.linear2(h)
         if res_mask is not None:
-            ff = torch.where(res_mask, ff / keep_prob, 0.0)
+            ff = drop_where(res_mask, ff)
         return self.norm2(x + ff)
 
 

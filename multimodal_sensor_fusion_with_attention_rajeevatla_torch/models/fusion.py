@@ -52,7 +52,11 @@ class HybridFusion(nn.Module):
         modality_mask: Optional[torch.Tensor] = None,
         train: bool = False,
         generator: Optional[torch.Generator] = None,
-    ) -> torch.Tensor:
+        return_attention: bool = False,
+    ):
+        """Logits ``[B, C]``; with ``return_attention`` also a dict of the
+        per-pair attention weights (``attention_maps``, keyed
+        ``<query>_to_<key>``) and the gate weights (``fusion_weights``)."""
         names = self.modality_names
         if not names:
             raise ValueError("No modalities configured for HybridFusion.")
@@ -79,9 +83,10 @@ class HybridFusion(nn.Module):
             projected.append(dropout(torch.relu(x), self.dropout, train, generator))
         stacked = torch.stack(projected, dim=0)  # [M, B, H]
 
-        attended, _weights = self.pairs(stacked, modality_mask, train, generator)
+        attended, pair_weights = self.pairs(stacked, modality_mask, train, generator)
+        pairs = ordered_pairs(names)
         per_query: Dict[int, list] = {}
-        for pair_idx, (qi, _ki) in enumerate(ordered_pairs(names)):
+        for pair_idx, (qi, _ki) in enumerate(pairs):
             per_query.setdefault(qi, []).append(pair_idx)
         aggregated = []
         for qi in range(len(names)):
@@ -94,7 +99,13 @@ class HybridFusion(nn.Module):
         )
         fused = (agg.transpose(0, 1) * fusion_weights[..., None]).sum(dim=1)
         hidden = torch.relu(self.classifier_hidden(fused))
-        return self.classifier_out(dropout(hidden, self.dropout, train, generator))
+        logits = self.classifier_out(dropout(hidden, self.dropout, train, generator))
+        if return_attention:
+            attention_maps = {
+                f"{names[qi]}_to_{names[ki]}": pair_weights[p] for p, (qi, ki) in enumerate(pairs)
+            }
+            return logits, {"attention_maps": attention_maps, "fusion_weights": fusion_weights}
+        return logits
 
     def compute_adaptive_weights(
         self,

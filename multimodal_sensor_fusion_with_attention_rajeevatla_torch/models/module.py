@@ -148,8 +148,16 @@ class MultimodalFusionModel(nn.Module):
         mask: Optional[torch.Tensor] = None,
         train: bool = False,
         generator: Optional[torch.Generator] = None,
-    ) -> torch.Tensor:
-        """Fusion head over pre-encoded embeddings -> logits."""
+        return_attention: bool = False,
+    ):
+        """Fusion head over pre-encoded embeddings -> logits, or
+        ``(logits, attention_info)`` with ``return_attention`` (hybrid only)."""
+        if return_attention:
+            if self.fusion_type != "hybrid":
+                raise ValueError("Attention information is only available for HybridFusion.")
+            return self.fusion_model(
+                encoded, mask, train=train, generator=generator, return_attention=True
+            )
         return self.fusion_model(encoded, mask, train=train, generator=generator)
 
     def forward(
@@ -159,13 +167,15 @@ class MultimodalFusionModel(nn.Module):
         lengths: Optional[torch.Tensor] = None,
         train: bool = False,
         generator: Optional[torch.Generator] = None,
-    ) -> torch.Tensor:
-        """Logits ``[B, C]``. With ``train=True`` every dropout mask is drawn
+        return_attention: bool = False,
+    ):
+        """Logits ``[B, C]``. With ``train=True`` every dropout mask comes
         from ``generator`` (on the inputs' device), encoders first, in a
-        fixed order, so two runs with equally seeded generators draw the
-        same masks whichever kernels they take."""
+        fixed order, so two runs with equally seeded generators make the
+        same masks whichever compute kernels they take."""
         encoded = self.encode(features, lengths=lengths, train=train, generator=generator)
-        return self.fuse(encoded, mask=mask, train=train, generator=generator)
+        return self.fuse(encoded, mask=mask, train=train, generator=generator,
+                         return_attention=return_attention)
 
     @classmethod
     def from_config(
@@ -177,10 +187,7 @@ class MultimodalFusionModel(nn.Module):
         """Build from the YAML config tree (same keys as the reference), with
         weights from ``generator`` (default: seeded with ``config.seed``), on
         ``device`` (default ``cuda``; raises without it unless ``"cpu"``).
-        Returns the model in eval mode. ``training.dropout_rng`` other than
-        ``xla`` raises at the first training forward on the card (the
-        generator kernel is not ported), as does training with
-        ``fused_mlp`` on and ``fused_mlp_ln`` off."""
+        Returns the model in eval mode."""
         device = resolve_device(device)
         model_cfg = config.model
         dataset_cfg = config.dataset

@@ -31,6 +31,8 @@ SOURCES = {
     "fusion_head": "fusion_head.cu",
     "proj_ln": "proj_ln.cu",
     "ffw_ln": "ffw_ln.cu",
+    "ffw": "ffw.cu",
+    "dropout_mask": "dropout_mask.cu",
 }
 NVCC_FLAGS = [
     "-gencode=arch=compute_90a,code=sm_90a",

@@ -20,7 +20,8 @@
 // 67 TFLOP/s f32) against ~104 MB of x, masks and output (0.03 ms); the
 // backward does 12*N*D*F = 103 GFLOP (1.54 ms).
 //
-// Design. Forward: one block of 256 threads owns 32 whole rows and keeps them
+// Design (the row-tile walk itself is in ffw_tile.cuh, shared with ffw.cu).
+// Forward: one block of 256 threads owns 32 whole rows and keeps them
 // in shared memory; it walks d_ff in 64-wide chunks: pre for the chunk (W1
 // streaming in 32-row slices), ReLU and the hidden mask, then y += h W2[chunk]
 // into a [32, D] accumulator held in registers (4 rows x D/32 columns per
@@ -37,132 +38,12 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "ffw_tile.cuh"
 #include "reduce.cuh"
 
 namespace {
 
-constexpr int kRows = 32;
-constexpr int kThreads = 256;
-constexpr int kK = 32;   // depth of one streamed weight slice
-constexpr int kFC = 64;  // d_ff chunk
-
-__host__ __device__ constexpr int cmax(int a, int b) { return a > b ? a : b; }
-
-template <int D>
-__host__ __device__ constexpr int wbuf_floats() {
-  // W1 slice [kK][kFC], W2 slice [kK][D], W2^T slice [kFC][kK+1], W1^T slice [D][kK+1]
-  return cmax(cmax(kK * kFC, kK * D), cmax(kFC * (kK + 1), D * (kK + 1)));
-}
-
-template <int D>
-constexpr int fwd_smem_floats() {
-  return kRows * D + wbuf_floats<D>() + kRows * (kFC + 1);
-}
-
-template <int D>
-constexpr int bwd_smem_floats() {
-  // Xs (reused for the per-warp partials, 8*3*D <= 32*D), Wb, Hs, DYs
-  return kRows * D + wbuf_floats<D>() + kRows * (kFC + 1) + kRows * (D + 1);
-}
-
-// pre[i][jj] = (x W1)[row warp*4+i][c0 + lane + 32 jj] for one 64-wide chunk.
-template <int D>
-__device__ __forceinline__ void chunk_pre(const float* Xs, const float* __restrict__ w1,
-                                          int F, int c0, float* Wb, float (&pre)[4][2]) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) pre[i][0] = pre[i][1] = 0.f;
-  for (int k0 = 0; k0 < D; k0 += kK) {
-    __syncthreads();
-    for (int e = tid; e < kK * kFC; e += kThreads) {
-      const int kk = e / kFC, f = e % kFC;
-      Wb[e] = w1[(long)(k0 + kk) * F + c0 + f];
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int kk = 0; kk < kK; ++kk) {
-      const float w0 = Wb[kk * kFC + lane], w1v = Wb[kk * kFC + lane + 32];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float xv = Xs[(warp * 4 + i) * D + k0 + kk];
-        pre[i][0] = fmaf(xv, w0, pre[i][0]);
-        pre[i][1] = fmaf(xv, w1v, pre[i][1]);
-      }
-    }
-  }
-}
-
-// acc[i][j] += Hs[row warp*4+i][:] W2[c0 .. c0+64][lane + 32 j]
-template <int D>
-__device__ __forceinline__ void chunk_out(const float* Hs, const float* __restrict__ w2,
-                                          int c0, float* Wb, float (&acc)[4][D / 32]) {
-  constexpr int DJ = D / 32;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  for (int kk0 = 0; kk0 < kFC; kk0 += kK) {
-    __syncthreads();
-    for (int e = tid; e < kK * D; e += kThreads) Wb[e] = w2[(long)(c0 + kk0) * D + e];
-    __syncthreads();
-#pragma unroll 8
-    for (int kk = 0; kk < kK; ++kk) {
-      float wv[DJ];
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) wv[j] = Wb[kk * D + lane + 32 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float hv = Hs[(warp * 4 + i) * (kFC + 1) + kk0 + kk];
-#pragma unroll
-        for (int j = 0; j < DJ; ++j) acc[i][j] = fmaf(hv, wv[j], acc[i][j]);
-      }
-    }
-  }
-}
-
-template <int D>
-__device__ __forceinline__ void load_rows(const float* __restrict__ x, int row0, int N, float* Xs) {
-  for (int e = threadIdx.x; e < kRows * D; e += kThreads) {
-    const int n = row0 + e / D;
-    Xs[e] = n < N ? x[(long)row0 * D + e] : 0.f;
-  }
-}
-
-// Forward of one row tile through y (before the residual); optionally keeps
-// pre and hd in scratch for the backward.
-template <int D, bool kKeep>
-__device__ __forceinline__ void ffw_tile(const float* Xs, const float* __restrict__ w1,
-                                         const float* __restrict__ b1,
-                                         const float* __restrict__ w2,
-                                         const unsigned char* __restrict__ fmask,
-                                         float* __restrict__ pre_out, float* __restrict__ hd_out,
-                                         int row0, int N, int F, float inv_keep, float* Wb,
-                                         float* Hs, float (&acc)[4][D / 32]) {
-  constexpr int DJ = D / 32;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
-  for (int c0 = 0; c0 < F; c0 += kFC) {
-    float pre[4][2];
-    chunk_pre<D>(Xs, w1, F, c0, Wb, pre);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int n = row0 + warp * 4 + i;
-#pragma unroll
-      for (int jj = 0; jj < 2; ++jj) {
-        const int f = lane + 32 * jj;
-        const float p = pre[i][jj] + b1[c0 + f];
-        float h = fmaxf(p, 0.f);
-        if (fmask) h *= (n < N ? (float)fmask[(long)n * F + c0 + f] : 0.f) * inv_keep;
-        if (kKeep && n < N) {
-          pre_out[(long)n * F + c0 + f] = p;
-          hd_out[(long)n * F + c0 + f] = h;
-        }
-        Hs[(warp * 4 + i) * (kFC + 1) + f] = h;
-      }
-    }
-    chunk_out<D>(Hs, w2, c0, Wb, acc);
-  }
-}
+using namespace msfa::ffw;  // the row-tile walk shared with ffw.cu
 
 template <int D>
 __global__ void __launch_bounds__(kThreads)
@@ -305,26 +186,7 @@ ffw_ln_bwd_kernel(const float* __restrict__ x, const float* __restrict__ w1,
   // 3. back through the FFW, chunk by chunk
   for (int c0 = 0; c0 < F; c0 += kFC) {
     float dhd[4][2];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) dhd[i][0] = dhd[i][1] = 0.f;
-    for (int o0 = 0; o0 < D; o0 += kK) {  // dhd = dy W2[chunk]^T
-      __syncthreads();
-      for (int e = tid; e < kFC * kK; e += kThreads) {
-        const int f = e / kK, oo = e % kK;
-        Wb[f * (kK + 1) + oo] = w2[(long)(c0 + f) * D + o0 + oo];
-      }
-      __syncthreads();
-#pragma unroll 8
-      for (int oo = 0; oo < kK; ++oo) {
-        const float w0 = Wb[lane * (kK + 1) + oo], w1v = Wb[(lane + 32) * (kK + 1) + oo];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float dyv = DYs[(warp * 4 + i) * (D + 1) + o0 + oo];
-          dhd[i][0] = fmaf(dyv, w0, dhd[i][0]);
-          dhd[i][1] = fmaf(dyv, w1v, dhd[i][1]);
-        }
-      }
-    }
+    chunk_dhd<D>(DYs, w2, c0, Wb, dhd);  // dhd = dy W2[chunk]^T
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int n = row0 + warp * 4 + i;
@@ -341,26 +203,7 @@ ffw_ln_bwd_kernel(const float* __restrict__ x, const float* __restrict__ w1,
         Hs[(warp * 4 + i) * (kFC + 1) + f] = dp;
       }
     }
-    for (int f0 = 0; f0 < kFC; f0 += kK) {  // dx += dpre W1[:, chunk]^T
-      __syncthreads();
-      for (int e = tid; e < D * kK; e += kThreads) {
-        const int ii = e / kK, ff = e % kK;
-        Wb[ii * (kK + 1) + ff] = w1[(long)ii * F + c0 + f0 + ff];
-      }
-      __syncthreads();
-#pragma unroll 8
-      for (int ff = 0; ff < kK; ++ff) {
-        float wv[DJ];
-#pragma unroll
-        for (int j = 0; j < DJ; ++j) wv[j] = Wb[(lane + 32 * j) * (kK + 1) + ff];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float dpv = Hs[(warp * 4 + i) * (kFC + 1) + f0 + ff];
-#pragma unroll
-          for (int j = 0; j < DJ; ++j) dxa[i][j] = fmaf(dpv, wv[j], dxa[i][j]);
-        }
-      }
-    }
+    chunk_dx<D>(Hs, w1, F, c0, Wb, dxa);  // dx += dpre W1[:, chunk]^T
   }
 #pragma unroll
   for (int i = 0; i < 4; ++i) {

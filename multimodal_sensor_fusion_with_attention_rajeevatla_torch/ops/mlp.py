@@ -1,25 +1,36 @@
-"""Fused residual-LayerNorm halves of the transformer layer: CUDA kernels,
-their plain twins and their autograd Functions.
+"""Feed-forward and residual-LayerNorm kernels of the transformer layer, and
+the dropout-mask generator: CUDA kernels, their plain twins and their
+autograd Functions.
 
-Counterpart of the fused residual-LN part of the JAX package's
-``ops/pallas_mlp.py``:
+Counterpart of the JAX package's ``ops/pallas_mlp.py``:
 
+- ``dropout_keep_mask``: a u8 Bernoulli(keep) mask from a counter-based
+  generator (Philox4x32-10) seeded with two int32 words that live on the
+  device (``kernel_rng_seed`` draws them from a ``torch.Generator``). An
+  element is kept iff its uniform 32-bit word is below
+  ``min(round(keep * 2^32), 2^32 - 1)``, compared unsigned. The stream is
+  the port's own: it depends on (seed, purpose, element index) and equals
+  neither the TPU generator's nor ``torch.rand``'s;
+- ``fused_mlp`` / ``transformer_ffw``:
+  ``dropout(relu(x @ w1 + b1)) @ w2 + b2`` with the ``[N, d_ff]`` hidden kept
+  out of device memory in the forward;
 - ``fused_proj_residual_ln``: ``LayerNorm(x + dropout(a @ wo + bo))``, the
   layer's first half after attention;
-- ``fused_mlp_residual_ln``: ``LayerNorm(x + dropout(ffw(x)))`` with
-  ``ffw(x) = dropout(relu(x @ w1 + b1)) @ w2 + b2``, the second half.
+- ``fused_mlp_residual_ln``: ``LayerNorm(x + dropout(ffw(x)))``, the second
+  half.
 
 Weights use the reference's ``[in, out]`` layout. Dropout comes as u8 keep
-masks drawn outside the kernels (the caller's generator), scaled by
-``1 / keep_prob`` inside; ``keep_prob <= 0`` scales by 0, so an all-drop
-mask gives exact zeros and no NaN. The LayerNorm is flax's: float32
-statistics, fast variance ``max(E[r^2] - E[r]^2, 0)``, eps 1e-6.
+masks made outside the compute kernels, scaled by ``1 / keep_prob`` inside;
+``keep_prob <= 0`` scales by 0, so an all-drop mask gives exact zeros and no
+NaN. The LayerNorm is flax's: float32 statistics, fast variance
+``max(E[r^2] - E[r]^2, 0)``, eps 1e-6.
 
-Each pass has a kernel wrapper (``proj_ln_fwd``, ``proj_ln_bwd``,
-``ffw_ln_fwd``, ``ffw_ln_bwd``): a CUDA tensor launches ``csrc/proj_ln.cu``
-or ``csrc/ffw_ln.cu`` or raises, a CPU tensor takes the ``*_reference`` twin
-(the TPU kernel's arithmetic in plain PyTorch). Each wrapper counts its
-launches in ``<wrapper>.launches``.
+Each pass has a kernel wrapper (``dropout_keep_mask``, ``fused_mlp_fwd``,
+``fused_mlp_bwd``, ``proj_ln_fwd``, ``proj_ln_bwd``, ``ffw_ln_fwd``,
+``ffw_ln_bwd``): a CUDA tensor launches its kernel from ``csrc/`` or raises,
+a CPU tensor takes the ``*_reference`` twin (the same arithmetic in plain
+PyTorch; the mask twin is bit-identical to its kernel). Each wrapper counts
+its launches in ``<wrapper>.launches``.
 """
 
 from __future__ import annotations
@@ -36,6 +47,14 @@ KERNEL_WIDTHS = (32, 64, 128, 256)  # d_model the kernels are instantiated for
 FFW_CHUNK = 64  # d_ff must be a multiple of the kernel's hidden chunk
 ROW_TILE = 32  # rows per block in both kernels
 _SMS = 132  # H100 SXM streaming multiprocessors: sizes the row splits of the sums
+# what a mask is for: mixed into the generator's key, so the three masks of a
+# layer differ under one seed
+RNG_P_HIDDEN = 1  # [N, d_ff] mask between ReLU and the second matmul
+RNG_P_RES = 2  # [N, d] residual-dropout mask, FFW side
+RNG_P_ATT = 3  # [N, d] residual-dropout mask, attention side
+_M32 = 0xFFFFFFFF
+_PHILOX_M0, _PHILOX_M1 = 0xD2511F53, 0xCD9E8D57
+_PHILOX_W0, _PHILOX_W1 = 0x9E3779B9, 0xBB67AE85
 
 
 def _inv_keep(keep_prob: float) -> float:
@@ -127,12 +146,90 @@ def ffw_ln_bwd_reference(x, w1, b1, w2, b2, gamma, beta, fmask, rmask, dout,
     return dx, x.t() @ dpre, dpre.sum(0), hd.t() @ dy, dy.sum(0), dgamma, dbeta
 
 
+def _keep_thr(keep_prob: float) -> int:
+    """uint32 threshold: keep an element iff its random word < thr."""
+    return min(int(round(float(keep_prob) * 2.0**32)), 2**32 - 1)
+
+
+def kernel_rng_seed(generator: Optional[torch.Generator], device) -> torch.Tensor:
+    """Two int32 seed words on ``device``, drawn from ``generator`` (what the
+    reference folds out of a layer's ``dropout`` key). One draw; the host
+    never reads the words."""
+    return torch.randint(
+        -(2**31), 2**31, (2,), generator=generator, device=device, dtype=torch.int64
+    ).to(torch.int32)
+
+
+def _mulhilo32(a: int, b: torch.Tensor):
+    """``(hi, lo)`` 32-bit halves of ``a * b`` for a constant ``a < 2^32`` and
+    an int64 tensor ``b`` of 32-bit values. The product does not fit int64,
+    so ``b`` is split into 16-bit halves whose partial products do."""
+    p0, p1 = a * (b & 0xFFFF), a * (b >> 16)
+    mid = p0 + ((p1 & 0xFFFF) << 16)
+    return (p1 >> 16) + (mid >> 32), mid & _M32
+
+
+def philox4x32_10(counter, key):
+    """Philox4x32-10 (Salmon et al., SC'11) in int64 tensor arithmetic:
+    ``counter`` is four int64 tensors of 32-bit words, ``key`` two (tensors
+    or ints); returns the four output words as int64 tensors."""
+    c0, c1, c2, c3 = counter
+    k0, k1 = key
+    for _ in range(10):
+        hi0, lo0 = _mulhilo32(_PHILOX_M0, c0)
+        hi1, lo1 = _mulhilo32(_PHILOX_M1, c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+        k0, k1 = (k0 + _PHILOX_W0) & _M32, (k1 + _PHILOX_W1) & _M32
+    return c0, c1, c2, c3
+
+
+def dropout_keep_mask_reference(rng_seed: torch.Tensor, rows: int, cols: int, keep_prob: float,
+                                purpose: int = RNG_P_HIDDEN) -> torch.Tensor:
+    """Plain version of the mask generator -> ``[rows, cols]`` uint8, the
+    kernel's bits exactly: element ``e`` takes word ``e % 4`` of the Philox
+    call with counter ``(e // 4, 0, 0)`` (64-bit index in two words) and key
+    ``(seed[0] ^ purpose * 0x9E3779B9, seed[1])``."""
+    total = rows * cols
+    if keep_prob >= 1.0:
+        return torch.ones((rows, cols), dtype=torch.uint8, device=rng_seed.device)
+    seed = rng_seed.to(torch.int64) & _M32
+    key = (seed[0] ^ ((purpose * _PHILOX_W0) & _M32), seed[1])
+    group = torch.arange((total + 3) // 4, dtype=torch.int64, device=rng_seed.device)
+    zero = torch.zeros_like(group)
+    words = torch.stack(philox4x32_10((group & _M32, group >> 32, zero, zero), key), dim=-1)
+    keep = words.reshape(-1)[:total] < _keep_thr(keep_prob)
+    return keep.to(torch.uint8).reshape(rows, cols)
+
+
+def fused_mlp_fwd_reference(x, w1, b1, w2, b2, mask, inv_keep: float):
+    """Plain version of the feed-forward kernel's forward -> ``out [N, D]``."""
+    h = torch.relu(x @ w1 + b1)
+    scale = _scale(mask, inv_keep)
+    if scale is not None:
+        h = h * scale
+    return h @ w2 + b2
+
+
+def fused_mlp_bwd_reference(x, w1, b1, w2, mask, dout, inv_keep: float):
+    """Plain version of the feed-forward kernel's backward ->
+    ``(dx, dw1, db1, dw2)``; ``db2`` is a column sum of ``dout`` taken by
+    the caller."""
+    pre = x @ w1 + b1
+    scale = _scale(mask, inv_keep)
+    hd = torch.relu(pre) if scale is None else torch.relu(pre) * scale
+    dhd = dout @ w2.t()
+    if scale is not None:
+        dhd = dhd * scale
+    dpre = torch.where(pre > 0.0, dhd, 0.0)
+    return dpre @ w1.t(), x.t() @ dpre, dpre.sum(0), hd.t() @ dout
+
+
 # ------------------------------------------------------------ kernel wrappers
 
 
 def _check(tensors: dict, shapes: dict, device: torch.device) -> None:
     for name, shape in shapes.items():
-        t = tensors[name]
+        t = tensors.get(name)
         if t is None:
             continue
         if tuple(t.shape) != tuple(shape):
@@ -181,6 +278,114 @@ def _fn(source: str, symbol: str, n_ptrs: int, n_ints: int, n_floats: int):
     )
     fn.restype = ctypes.c_int
     return lib, fn
+
+
+def dropout_keep_mask(rng_seed: torch.Tensor, rows: int, cols: int, keep_prob: float,
+                      purpose: int = RNG_P_HIDDEN) -> torch.Tensor:
+    """``[rows, cols]`` uint8 Bernoulli(``keep_prob``) keep mask, deterministic
+    per (seed, purpose, shape); ``rng_seed`` is the ``[2]`` int32 tensor of
+    ``kernel_rng_seed``, on the device the mask is made on. ``keep_prob >= 1``
+    gives all ones, ``<= 0`` all zeros."""
+    if rng_seed.dtype != torch.int32 or tuple(rng_seed.shape) != (2,):
+        raise TypeError(f"rng_seed must be a [2] int32 tensor, got {rng_seed.dtype} "
+                        f"{tuple(rng_seed.shape)}")
+    if rng_seed.device.type == "cpu":
+        return dropout_keep_mask_reference(rng_seed, rows, cols, keep_prob, purpose)
+    if rng_seed.device.type != "cuda":
+        raise ValueError(f"unsupported device {rng_seed.device}")
+    out = torch.empty((rows, cols), dtype=torch.uint8, device=rng_seed.device)
+    if out.numel() == 0:
+        return out
+    lib = _build.library("dropout_mask")
+    fn = lib.msfa_dropout_mask
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_uint,
+                   ctypes.c_uint, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    seed = rng_seed.contiguous()
+    with torch.cuda.device(out.device):
+        code = fn(seed.data_ptr(), out.data_ptr(), out.numel(), int(purpose),
+                  _keep_thr(keep_prob), int(keep_prob >= 1.0), _stream(out.device))
+    _build.check(lib, code, "dropout_keep_mask")
+    dropout_keep_mask.launches += 1
+    return out
+
+
+dropout_keep_mask.launches = 0
+
+
+def _mlp_shapes(x, d, f):
+    n = x.shape[0]
+    return {"x": (n, d), "w1": (d, f), "b1": (f,), "w2": (f, d), "b2": (d,), "mask": (n, f)}
+
+
+def fused_mlp_fwd(x, w1, b1, w2, b2, mask, inv_keep: float):
+    """Kernel wrapper for the feed-forward block's forward -> ``out [N, D]``
+    (the kernel takes ``d_out == d_in``)."""
+    d, f = x.shape[-1], w1.shape[-1]
+    tensors = {"x": x, "w1": w1, "b1": b1, "w2": w2, "b2": b2, "mask": mask}
+    _check(tensors, _mlp_shapes(x, d, f), x.device)
+    if x.device.type == "cpu":
+        return fused_mlp_fwd_reference(x, w1, b1, w2, b2, mask, inv_keep)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    _check_kernel_inputs(tensors, d)
+    _check_ffw_width(f)
+    n = x.shape[0]
+    out = torch.empty_like(x)
+    if n == 0:
+        return out
+    lib, fn = _fn("ffw", "msfa_ffw_fwd", 7, 3, 1)
+    with torch.cuda.device(x.device):
+        code = fn(x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
+                  _ptr(mask), out.data_ptr(), n, d, f, float(inv_keep), _stream(x.device))
+    _build.check(lib, code, "fused_mlp_fwd")
+    fused_mlp_fwd.launches += 1
+    return out
+
+
+fused_mlp_fwd.launches = 0
+
+
+def fused_mlp_bwd(x, w1, b1, w2, mask, dout, inv_keep: float):
+    """Kernel wrapper for the feed-forward block's backward ->
+    ``(dx, dw1, db1, dw2)``. The kernel keeps the recomputed hidden and its
+    gradient in two ``[N, d_ff]`` scratch buffers allocated here, as
+    ``ffw_ln_bwd`` does."""
+    d, f = x.shape[-1], w1.shape[-1]
+    tensors = {"x": x, "w1": w1, "b1": b1, "w2": w2, "mask": mask, "dout": dout}
+    _check(tensors, {**_mlp_shapes(x, d, f), "dout": x.shape}, x.device)
+    if x.device.type == "cpu":
+        return fused_mlp_bwd_reference(x, w1, b1, w2, mask, dout, inv_keep)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    _check_kernel_inputs(tensors, d)
+    _check_ffw_width(f)
+    n = x.shape[0]
+    dx = torch.empty_like(x)
+    dw1 = torch.empty((d, f), device=x.device)
+    db1 = torch.empty((f,), device=x.device)
+    dw2 = torch.empty((f, d), device=x.device)
+    if n == 0:
+        return dx, dw1.zero_(), db1.zero_(), dw2.zero_()
+    splits = _splits(n, _tiles(d, f))
+    col_splits = _splits(n, math.ceil(f / 256))
+    hd = torch.empty((n, f), device=x.device)
+    dpre = torch.empty((n, f), device=x.device)
+    atb_part = torch.empty((splits, d, f), device=x.device)
+    col_part = torch.empty((col_splits, f), device=x.device)
+    lib, fn = _fn("ffw", "msfa_ffw_bwd", 14, 5, 1)
+    with torch.cuda.device(x.device):
+        code = fn(x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), _ptr(mask),
+                  dout.data_ptr(), dx.data_ptr(), dw1.data_ptr(), db1.data_ptr(),
+                  dw2.data_ptr(), hd.data_ptr(), dpre.data_ptr(), atb_part.data_ptr(),
+                  col_part.data_ptr(), n, d, f, splits, col_splits, float(inv_keep),
+                  _stream(x.device))
+    _build.check(lib, code, "fused_mlp_bwd")
+    fused_mlp_bwd.launches += 1
+    return dx, dw1, db1, dw2
+
+
+fused_mlp_bwd.launches = 0
 
 
 def _proj_shapes(x, d):
@@ -389,8 +594,78 @@ class FusedMlpResidualLN(torch.autograd.Function):
         return (*grads, None, None, None, None)
 
 
+class FusedMlp(torch.autograd.Function):
+    """``dropout(relu(x @ w1 + b1)) @ w2 + b2`` with the kernel pair as
+    forward and backward (the JAX package's custom VJP ``_mlp_core``)."""
+
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2, mask, inv_keep: float):
+        out = fused_mlp_fwd(x, w1, b1, w2, b2, mask, inv_keep)
+        ctx.save_for_backward(x, w1, b1, w2, mask)
+        ctx.inv_keep = inv_keep
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        x, w1, b1, w2, mask = ctx.saved_tensors
+        dout = dout.float().contiguous()
+        dx, dw1, db1, dw2 = fused_mlp_bwd(x, w1, b1, w2, mask, dout, ctx.inv_keep)
+        return dx, dw1, db1, dw2, dout.sum(0), None, None
+
+
 def _as_mask(mask: Optional[torch.Tensor], rows: int) -> Optional[torch.Tensor]:
-    return None if mask is None else mask.reshape(rows, -1).to(torch.uint8).contiguous()
+    """A keep mask as the kernels take it: ``[rows, width]`` uint8,
+    contiguous. A u8 mask (the generator kernel's) passes through as it is
+    and a bool mask is reinterpreted, neither is copied."""
+    if mask is None:
+        return None
+    mask = mask.reshape(rows, -1).contiguous()
+    return mask.view(torch.uint8) if mask.dtype == torch.bool else mask.to(torch.uint8)
+
+
+def fused_mlp(
+    x: torch.Tensor,  # [N, d_in]
+    w1: torch.Tensor,  # [d_in, d_ff]
+    b1: torch.Tensor,  # [d_ff]
+    w2: torch.Tensor,  # [d_ff, d_in]
+    b2: torch.Tensor,  # [d_in]
+    keep_mask: Optional[torch.Tensor] = None,  # [N, d_ff] uint8/bool, 1 = keep
+    keep_prob: float = 1.0,
+) -> torch.Tensor:
+    """Fused ``relu(x @ w1 + b1) -> dropout -> @ w2 + b2``, differentiable,
+    with the signature of the reference's ``fused_mlp``. ``keep_mask`` (when
+    given) is applied between the ReLU and the second matmul as
+    ``h * mask / keep_prob``."""
+    return FusedMlp.apply(
+        x.float().contiguous(), w1.float().contiguous(), b1.float().contiguous(),
+        w2.float().contiguous(), b2.float().contiguous(), _as_mask(keep_mask, x.shape[0]),
+        _inv_keep(keep_prob),
+    )
+
+
+def transformer_ffw(
+    x: torch.Tensor,  # [B, T, d_in]
+    params1,  # {"kernel": [d_in, d_ff], "bias": [d_ff]}
+    params2,  # {"kernel": [d_ff, d_out], "bias": [d_out]}
+    keep_mask: Optional[torch.Tensor] = None,  # [B, T, d_ff], 1 = keep
+    keep_prob: float = 1.0,
+    use_fused: bool = False,
+) -> torch.Tensor:
+    """Transformer feed-forward block on the kernel or the plain path (the
+    reference's ``transformer_ffw``). Both consume the same mask, made
+    outside, so the training draws do not depend on the path."""
+    batch, seq_len, d_in = x.shape
+    w1, b1 = params1["kernel"], params1["bias"]
+    w2, b2 = params2["kernel"], params2["bias"]
+    if use_fused:
+        out = fused_mlp(x.reshape(batch * seq_len, d_in), w1, b1, w2, b2,
+                        None if keep_mask is None else keep_mask.reshape(batch * seq_len, -1),
+                        keep_prob)
+        return out.reshape(batch, seq_len, w2.shape[1]).to(x.dtype)
+    h = torch.relu(x @ w1 + b1)
+    if keep_mask is not None:
+        h = torch.where(keep_mask.bool(), h / keep_prob, 0.0)
+    return h @ w2 + b2
 
 
 def fused_proj_residual_ln(

@@ -1,5 +1,5 @@
-"""Training step: port of the JAX package's ``train/trainer.py`` (schedule,
-optimizer, augmentations and the per-batch step).
+"""Training runtime: port of the JAX package's ``train/trainer.py`` (schedule,
+optimizer, augmentations, the per-batch step and ``fit``).
 
 - ``lr_schedule``: per-epoch cosine (``eta_min = lr / 100``), StepLR(30, 0.1)
   or constant, read at the optimizer's inner update count.
@@ -15,22 +15,35 @@ optimizer, augmentations and the per-batch step).
   the train step: on-device gather, augmentation, forward in train mode,
   label-smoothed loss, backward, optimizer. Every random draw of a step
   comes from one ``torch.Generator`` on the device, in a fixed order.
+  ``fit`` trains whole epochs over a device-resident split (a Python loop
+  of micro-steps where the reference compiles a scan), early-stops on the
+  label-smoothed val loss with the reference's patience semantics, keeps
+  top-k and ``last`` checkpoints (``train/checkpoint.py``), scores the best
+  checkpoint on test and writes ``results.json`` with the reference's keys.
+  ``resume_from`` restores weights, optimizer and generator from a ``last``
+  checkpoint, so a resumed run repeats an uninterrupted one.
 
-``fit``, early stopping, checkpoints and ``results.json`` are not ported yet
-(ROADMAP queue A item 6).
+The streaming loader path (``dataset.streaming``) and the parallel layouts
+are not ported (ROADMAP queue A).
 """
 
 from __future__ import annotations
 
+import json
 import math
-from typing import Callable, Dict, Iterable, List, Optional, Tuple
+import time
+from pathlib import Path
+from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 
+import numpy as np
 import torch
 
+from ..data.dataset import WindowedSplit, padded_index_matrix
 from ..data.device import DeviceSplit
 from ..models.module import MultimodalFusionModel
 from ..ops.metrics import cross_entropy_loss, weighted_accuracy
 from ..utils.device import resolve_device
+from .checkpoint import CheckpointManager, load_checkpoint, load_train_state
 
 
 def lr_schedule(
@@ -125,6 +138,22 @@ class AccumulatedAdamW:
             acc.zero_()
         return True
 
+    def state_dict(self) -> Dict[str, Any]:
+        """Accumulator, moments and both counters (what a resume needs)."""
+        return {"acc": list(self.acc), "mu": list(self.mu), "nu": list(self.nu),
+                "mini_step": self.mini_step, "count": self.count}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: Dict[str, Any]) -> None:
+        for name in ("acc", "mu", "nu"):
+            own = getattr(self, name)
+            if len(own) != len(state[name]):
+                raise ValueError(f"optimizer state has {len(state[name])} {name} tensors, "
+                                 f"the model {len(own)} parameters")
+            for dst, src in zip(own, state[name]):
+                dst.copy_(src)
+        self.mini_step, self.count = int(state["mini_step"]), int(state["count"])
+
 
 def build_optimizer(
     training_cfg, params: Iterable[torch.Tensor], steps_per_epoch: int
@@ -204,12 +233,15 @@ def dropout_modality_mask(
 
 
 class Trainer:
-    """Config-driven training step on one device (reference ``Trainer``,
-    without ``fit``).
+    """Config-driven experiment runner on one device (reference ``Trainer``).
 
     Typical use::
 
         trainer = Trainer(config)                      # model on the card
+        results = trainer.fit(train_windows, val_windows, test_windows)
+
+    or, step by step::
+
         trainer.init_state(steps_per_epoch)
         step = trainer.make_train_step_fn()
         loss, acc = step(device_split, idx)            # one micro-step
@@ -289,3 +321,179 @@ class Trainer:
             return loss, acc
 
         return step
+
+    # -- state for a resume ------------------------------------------------
+    def train_state(self) -> Dict[str, Any]:
+        """Optimizer tensors and counters plus the generator state: with the
+        weights, everything the next epoch depends on."""
+        return {"optimizer": self.optimizer.state_dict(),
+                "generator": self.generator.get_state()}
+
+    def load_train_state(self, state: Dict[str, Any]) -> None:
+        self.optimizer.load_state_dict(state["optimizer"])
+        self.generator.set_state(state["generator"].cpu())
+
+    # -- evaluation --------------------------------------------------------
+    @torch.inference_mode()
+    def evaluate_logits(
+        self,
+        data: DeviceSplit,
+        batch_size: Optional[int] = None,
+        model: Optional[MultimodalFusionModel] = None,
+    ) -> np.ndarray:
+        """Full-split forward pass in eval mode -> ``[N, C]`` logits (host
+        numpy), with ``model`` or the trainer's own. The last batch is padded
+        by wrap-around and cut to ``N``."""
+        model = model or self.model
+        n = data.num_windows
+        idx_mat, _ = padded_index_matrix(n, int(batch_size or self.batch_size))
+        idx_dev = torch.from_numpy(idx_mat).long().to(self.device)
+        out = []
+        for idx in idx_dev:
+            features, _labels, lengths = data.gather(idx)
+            mask = torch.ones((idx.shape[0], len(data.modalities)), device=self.device)
+            out.append(model(features, mask, lengths, train=False))
+        if not out:
+            return np.zeros((0, model.num_classes), np.float32)
+        return torch.cat(out).cpu().numpy()[:n]
+
+    # -- host-side epoch orchestration ---------------------------------------
+    def fit(
+        self,
+        train_windows: WindowedSplit,
+        val_windows: WindowedSplit,
+        test_windows: Optional[WindowedSplit] = None,
+        save_dir: Optional[str | Path] = None,
+        log_fn: Optional[Callable[[str], None]] = print,
+        resume_from: Optional[str | Path] = None,
+    ) -> Dict[str, Any]:
+        """Train up to ``training.max_epochs`` epochs; returns (and writes to
+        ``<save_dir>/results.json``) ``best_model_path``, ``best_val_loss``,
+        ``config``, ``test_acc`` (with a test split), ``history`` and
+        ``train_wall_seconds``."""
+        if log_fn is print:  # flush through pipes
+            log_fn = lambda msg: print(msg, flush=True)  # noqa: E731
+        cfg = self.config
+        if bool(cfg.dataset.get("streaming", False)):
+            raise NotImplementedError("dataset.streaming is not ported yet (see ROADMAP.md)")
+        max_epochs = int(cfg.training.get("max_epochs", 1))
+        patience = int(cfg.training.get("early_stopping_patience", 10))
+        exp_cfg = cfg.get("experiment", {}) or {}
+        save_dir = Path(
+            save_dir or Path(exp_cfg.get("save_dir", "runs")) / exp_cfg.get("name", "exp")
+        )
+        save_dir.mkdir(parents=True, exist_ok=True)
+
+        batch = self.batch_size
+        train_data = DeviceSplit.from_windows(train_windows, device=self.device)
+        val_data = DeviceSplit.from_windows(val_windows, device=self.device)
+        n_train = train_windows.num_windows
+        steps_per_epoch = (n_train + batch - 1) // batch
+        self.init_state(steps_per_epoch)
+        step = self.make_train_step_fn()
+        start_epoch = 0
+        if resume_from is not None:
+            weights, _cfg, meta = load_checkpoint(resume_from)
+            self.model.load_state_dict(weights)
+            self.load_train_state(load_train_state(resume_from))
+            start_epoch = int(meta.get("epoch", -1)) + 1
+            if log_fn:
+                log_fn(f"resumed from {resume_from} at epoch {start_epoch}")
+
+        ckpt = CheckpointManager(
+            save_dir / "checkpoints",
+            config=cfg,
+            save_top_k=int(exp_cfg.get("save_top_k", 3)),
+            save_last=True,
+            # only a resumed run may adopt checkpoints already in save_dir
+            adopt_existing=resume_from is not None,
+        )
+        writer = None
+        try:
+            from tensorboardX import SummaryWriter
+
+            writer = SummaryWriter(str(save_dir / "logs"))
+        except ImportError:
+            pass
+
+        best_val = float("inf")
+        bad_epochs = 0
+        if resume_from is not None and ckpt.best_model_score is not None:
+            # restore early-stopping state so interrupted and uninterrupted
+            # runs of the same config stop at the same epoch
+            best_val = float(ckpt.best_model_score)
+            if ckpt.best_model_epoch is not None:
+                bad_epochs = max(0, start_epoch - 1 - ckpt.best_model_epoch)
+        val_labels = np.asarray(val_windows.labels)
+        history = []
+        t_start = time.perf_counter()
+        for epoch in range(start_epoch, max_epochs):
+            idx_mat, weight_mat = padded_index_matrix(n_train, batch, True, self.seed + epoch)
+            idx_dev = torch.from_numpy(idx_mat).long().to(self.device)
+            weight_dev = torch.from_numpy(weight_mat).to(self.device)
+            stats = [step(train_data, idx, weight) for idx, weight in zip(idx_dev, weight_dev)]
+            if stats:
+                # epoch means stay on the device; one fetch per epoch
+                train_loss, train_acc = torch.stack(
+                    [torch.stack(pair) for pair in stats]).mean(dim=0).tolist()
+            else:  # empty split
+                train_loss = train_acc = float("nan")
+
+            val_logits = self.evaluate_logits(val_data)
+            # same criterion as training (incl. label smoothing): early
+            # stopping and checkpoint ranking rank by the trained objective
+            val_loss = float(cross_entropy_loss(
+                torch.from_numpy(val_logits), torch.from_numpy(val_labels),
+                label_smoothing=self.label_smoothing))
+            val_acc = float((val_logits.argmax(-1) == val_labels).mean())
+            history.append({"epoch": epoch, "train/loss": train_loss, "train/acc": train_acc,
+                            "val/loss": val_loss, "val/acc": val_acc})
+            if writer is not None:
+                for key in ("train/loss", "train/acc", "val/loss", "val/acc"):
+                    writer.add_scalar(key, history[-1][key], epoch)
+            if log_fn:
+                log_fn(
+                    f"epoch {epoch}: train/loss={train_loss:.4f} train/acc={train_acc:.4f} "
+                    f"val/loss={val_loss:.4f} val/acc={val_acc:.4f}"
+                )
+
+            ckpt.save(self.model.state_dict(), epoch, val_loss, train_state=self.train_state())
+            if val_loss < best_val:
+                best_val = val_loss
+                bad_epochs = 0
+            else:
+                # stop once the counter REACHES patience, not one later
+                bad_epochs += 1
+                if bad_epochs >= patience:
+                    if log_fn:
+                        log_fn(f"early stopping at epoch {epoch} (patience {patience})")
+                    break
+
+        wall = time.perf_counter() - t_start
+        results: Dict[str, Any] = {
+            "best_model_path": ckpt.best_model_path or "",
+            "best_val_loss": float(
+                ckpt.best_model_score if ckpt.best_model_score is not None else best_val
+            ),
+            "config": cfg.to_container(resolve=True),
+        }
+        if test_windows is not None:
+            best_model = self.model
+            if ckpt.best_model_path:
+                # rebuilt from the checkpoint directory alone
+                weights, best_cfg, _meta = load_checkpoint(ckpt.best_model_path)
+                best_model = MultimodalFusionModel.from_config(best_cfg or cfg, device=self.device)
+                best_model.load_state_dict(weights)
+            test_data = DeviceSplit.from_windows(test_windows, device=self.device)
+            test_logits = self.evaluate_logits(test_data, model=best_model)
+            test_labels = np.asarray(test_windows.labels)
+            results["test_acc"] = float((test_logits.argmax(-1) == test_labels).mean())
+            if log_fn:
+                log_fn(f"test/acc={results['test_acc']:.4f}")
+
+        results["history"] = history
+        results["train_wall_seconds"] = wall
+        (save_dir / "results.json").write_text(json.dumps(results, indent=2))
+        if writer is not None:
+            writer.close()
+        return results

@@ -170,3 +170,73 @@ def test_ln_kernels_reject_what_they_do_not_take(card):
     with pytest.raises(TypeError, match="uint8"):
         tm.proj_ln_fwd(x, x, torch.zeros(64, 64, device=card), v, v, v,
                        torch.ones(8, 64, device=card), 1.0, 1e-6)
+
+
+@pytest.mark.parametrize("rows,cols,keep,purpose", [
+    (512, 256, 0.8, tm.RNG_P_ATT), (512, 2048, 0.8, tm.RNG_P_HIDDEN),
+    (37, 91, 0.8, tm.RNG_P_RES), (64, 64, 1.0, tm.RNG_P_RES), (64, 64, 0.0, tm.RNG_P_HIDDEN),
+    (3, 1, 0.5, tm.RNG_P_ATT)])
+def test_dropout_mask_kernel_equals_twin_bit_for_bit(card, rows, cols, keep, purpose):
+    seed = torch.tensor([-1234567, 2**31 - 5], dtype=torch.int32, device=card)
+    before = tm.dropout_keep_mask.launches
+    got = tm.dropout_keep_mask(seed, rows, cols, keep, purpose)
+    torch.cuda.synchronize()
+    assert tm.dropout_keep_mask.launches == before + 1
+    assert got.dtype == torch.uint8 and got.shape == (rows, cols)
+    # integer arithmetic on both sides: every byte is equal
+    assert torch.equal(got, tm.dropout_keep_mask_reference(seed, rows, cols, keep, purpose))
+    assert torch.equal(got.cpu(), tm.dropout_keep_mask(seed.cpu(), rows, cols, keep, purpose))
+    if keep in (0.0, 1.0):
+        assert torch.all(got == int(keep))
+    other = tm.dropout_keep_mask(seed + 1, rows, cols, keep, purpose)
+    if keep == 0.8 and rows * cols > 1000:
+        assert not torch.equal(got, other)
+        n = got.numel()
+        assert abs(got.float().mean().item() - keep) < 4 * (keep * (1 - keep) / n) ** 0.5
+
+
+def test_dropout_mask_kernel_rejects_a_seed_it_does_not_take(card):
+    with pytest.raises(TypeError, match="int32"):
+        tm.dropout_keep_mask(torch.zeros(2, dtype=torch.int64, device=card), 4, 4, 0.8)
+
+
+@pytest.mark.parametrize("n,d,f,keep", [(300, 256, 2048, 0.8), (37, 256, 2048, None),
+                                        (100, 64, 128, 0.0), (1000, 32, 64, 0.8)])
+def test_fused_mlp_kernels_match_twins(card, n, d, f, keep):
+    g = torch.Generator().manual_seed(n + f + 1)
+    w, mask, _rmask = _ln_inputs(g, n, d, f, keep, card)
+    x, w1, b1, w2, b2 = (w(n, d), w(d, f, scale=d**-0.5), w(f, scale=0.1),
+                         w(f, d, scale=f**-0.5), w(d, scale=0.1))
+    inv_keep = tm._inv_keep(1.0 if keep is None else keep)
+    before = (tm.fused_mlp_fwd.launches, tm.fused_mlp_bwd.launches)
+    out = tm.fused_mlp_fwd(x, w1, b1, w2, b2, mask, inv_keep)
+    dout = w(n, d)
+    grads = tm.fused_mlp_bwd(x, w1, b1, w2, mask, dout, inv_keep)
+    torch.cuda.synchronize()
+    assert (tm.fused_mlp_fwd.launches, tm.fused_mlp_bwd.launches) == (before[0] + 1, before[1] + 1)
+    assert _rel_err(out, tm.fused_mlp_fwd_reference(x, w1, b1, w2, b2, mask, inv_keep)) < GRAD_TOL
+    if keep == 0.0:
+        assert torch.equal(out, b2.expand_as(out))  # the hidden is exactly zero
+    for got, want in zip(grads, tm.fused_mlp_bwd_reference(x, w1, b1, w2, mask, dout, inv_keep)):
+        if keep == 0.0 and not want.abs().max() > 0:
+            assert torch.all(got == 0)
+        else:
+            assert _rel_err(got, want) < GRAD_TOL
+
+
+def test_fused_mlp_autograd_runs_both_kernels(card):
+    g = torch.Generator().manual_seed(9)
+    n, d, f = 200, 64, 256
+    w, mask, _rmask = _ln_inputs(g, n, d, f, 0.8, card)
+    leaves = [t.requires_grad_() for t in (w(n, d), w(d, f, scale=d**-0.5), w(f, scale=0.1),
+                                           w(f, d, scale=f**-0.5), w(d, scale=0.1))]
+    before = (tm.fused_mlp_fwd.launches, tm.fused_mlp_bwd.launches)
+    out = tm.fused_mlp(*leaves, keep_mask=mask, keep_prob=0.8)
+    dout = w(n, d)
+    got = torch.autograd.grad(out, leaves, dout)
+    assert (tm.fused_mlp_fwd.launches, tm.fused_mlp_bwd.launches) == (before[0] + 1, before[1] + 1)
+    x, w1, b1, w2, b2 = leaves
+    h = torch.relu(x @ w1 + b1) * mask.float() / 0.8
+    want = torch.autograd.grad(h @ w2 + b2, leaves, dout)
+    for a, b in zip(got, want):
+        assert _rel_err(a, b) < GRAD_TOL

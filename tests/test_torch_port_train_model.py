@@ -165,3 +165,59 @@ def test_from_config_reads_training_keys():
         MultimodalFusionModel.from_config(
             load_config(REPO / "config" / "base.yaml", SMALL + ["training.dropout_rng=nope"]),
             device="cpu")
+
+
+def test_fused_mlp_without_ln_layer_matches_jax_on_explicit_masks(monkeypatch):
+    """The layer at fused_mlp=true, fused_mlp_ln=false, dropout 0.2: both
+    frameworks are handed the same three numpy masks in place of their own
+    draws (the JAX layer through ``jax.random.bernoulli``, the port through
+    ``keep_mask``), the JAX layer runs its ``fused_mlp`` kernel pair in
+    interpret mode, and output and parameter gradients must agree."""
+    from multimodal_sensor_fusion_with_attention_rajeevatla_tpu.models import encoders as jenc
+    from multimodal_sensor_fusion_with_attention_rajeevatla_torch.models import encoders as tenc
+
+    rng = np.random.default_rng(41)
+    batch, seq, hidden, ffw = 3, 8, 32, 2048
+    x = rng.standard_normal((batch, seq, hidden)).astype(np.float32)
+    cot = rng.standard_normal((batch, seq, hidden)).astype(np.float32)
+    valid = np.ones((batch, seq), np.float32)
+    valid[1, 5:] = 0.0
+    masks = [rng.random((batch, seq, w)) < 0.8 for w in (hidden, ffw, hidden)]
+
+    jax_draws = iter(masks)
+    monkeypatch.setattr(jenc.jax.random, "bernoulli",
+                        lambda _key, _p, shape: jnp.asarray(next(jax_draws)).reshape(shape))
+    jlayer = jenc._TransformerEncoderLayer(
+        hidden_dim=hidden, num_heads=4, dropout=0.2, use_flash=False, use_fused_mlp=True,
+        use_fused_mlp_ln=False, dropout_rng="xla")
+    variables = jlayer.init(jax.random.PRNGKey(0), jnp.asarray(x), jnp.asarray(valid))
+
+    def loss_fn(params):
+        out = jlayer.apply({"params": params}, jnp.asarray(x), jnp.asarray(valid), train=True,
+                           rngs={"dropout": jax.random.PRNGKey(1)})
+        return jnp.sum(out * cot), out
+
+    (_, want_out), want_grads = jax.value_and_grad(loss_fn, has_aux=True)(variables["params"])
+
+    port_draws = iter(masks)
+    monkeypatch.setattr(tenc, "keep_mask",
+                        lambda shape, _p, _g, _d: torch.from_numpy(next(port_draws)).reshape(shape))
+    layer = tenc.TransformerEncoderLayer(
+        hidden, 4, dropout=0.2, use_flash=False, use_fused_mlp=True, use_fused_mlp_ln=False,
+        dropout_rng="xla")
+    state = from_flax_variables({"params": {"encoders_m": {"layer0": jax.tree_util.tree_map(
+        np.asarray, variables["params"])}}})
+    layer.load_state_dict({k.split("layers.0.", 1)[1]: v for k, v in state.items()})
+    out = layer(torch.from_numpy(x), torch.from_numpy(valid), train=True)
+    (out * torch.from_numpy(cot)).sum().backward()
+    # f32 both; same tolerance as the op-level comparison
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(want_out), rtol=2e-5, atol=2e-5)
+    got = dict(_flat(to_flax_tree({f"encoders.m.layers.0.{n}": p.grad
+                                   for n, p in layer.named_parameters()})))
+    want = dict(_flat(jax.tree_util.tree_map(np.asarray, want_grads)))
+    assert len(got) == len(want) == 16
+    floor = 1e-3 * max(np.abs(w).max() for w in want.values())
+    for name, w in want.items():
+        g = got[f"encoders_m/layer0/{name}"]
+        err = np.abs(g - w).max() / max(np.abs(w).max(), floor)
+        assert err < GRAD_TOL, f"{name}: rel err {err:.3e}"

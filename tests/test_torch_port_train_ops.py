@@ -1,6 +1,8 @@
-"""PyTorch port, training ops: the attention backward, the two fused
-residual-LayerNorm functions (values and every gradient) and the metrics,
-held against the JAX package on the same numpy inputs.
+"""PyTorch port, training ops: the attention backward, the fused feed-forward
+and the two fused residual-LayerNorm functions (values and every gradient)
+and the metrics, held against the JAX package on the same numpy inputs; the
+dropout-mask generator's plain version against Philox's published vectors
+and its own contract (the JAX generator needs a TPU and has other bits).
 
 The JAX side runs its Pallas kernels in interpret mode (f32), as its own
 tests do; the port's wrappers take their plain twins, and its autograd
@@ -237,3 +239,129 @@ def test_classification_and_calibration_metrics_match_jax():
     assert tmetrics.macro_f1(np.array([]), np.array([])) == 0.0
     assert tmetrics.expected_calibration_error(np.array([]), np.array([]), np.array([])) == 0.0
     assert tmetrics.maximum_calibration_error(np.array([]), np.array([]), np.array([])) == 0.0
+
+
+# ------------------------------------------------------- fused feed-forward
+
+
+@pytest.mark.parametrize("n,keep", LN_CASES, ids=LN_IDS)
+def test_fused_mlp_matches_jax(n, keep):
+    """Value and all five gradients against the JAX ``fused_mlp`` kernel pair
+    in interpret mode."""
+    d, f = 32, 64
+    rng = np.random.default_rng(200 + n)
+    f32 = np.float32
+    args = [rng.standard_normal((n, d)).astype(f32),
+            (rng.standard_normal((d, f)) * d**-0.5).astype(f32),
+            (0.1 * rng.standard_normal(f)).astype(f32),
+            (rng.standard_normal((f, d)) * f**-0.5).astype(f32),
+            (0.1 * rng.standard_normal(d)).astype(f32)]
+    cot = rng.standard_normal((n, d)).astype(f32)
+    mask = None if keep is None else _mask(rng, (n, f), keep)
+    kp = 1.0 if keep is None else keep
+    want_out, want_grads = _value_and_grads_jax(
+        lambda *a: jmlp.fused_mlp(*a, None if mask is None else jnp.asarray(mask), kp,
+                                  interpret=True), args, cot)
+    got_out, got_grads = _value_and_grads_port(
+        lambda *a: tm.fused_mlp(*a, None if mask is None else torch.from_numpy(mask), kp),
+        args, cot)
+    np.testing.assert_allclose(got_out, want_out, **TOL)
+    for name, got, want in zip(("x", "w1", "b1", "w2", "b2"), got_grads, want_grads):
+        np.testing.assert_allclose(got, want, **TOL, err_msg=name)
+    if keep == 0.0:  # all-drop: the hidden is exactly zero, the output is b2
+        np.testing.assert_array_equal(got_out, np.broadcast_to(args[4], got_out.shape))
+        assert all(np.all(g == 0) for g in got_grads[:4])
+
+
+@pytest.mark.parametrize("use_fused", [True, False], ids=["kernel", "plain"])
+def test_transformer_ffw_matches_jax(use_fused):
+    rng = np.random.default_rng(31)
+    d, f = 32, 64
+    x = rng.standard_normal((3, 8, d)).astype(np.float32)
+    p1 = {"kernel": (rng.standard_normal((d, f)) * d**-0.5).astype(np.float32),
+          "bias": (0.1 * rng.standard_normal(f)).astype(np.float32)}
+    p2 = {"kernel": (rng.standard_normal((f, d)) * f**-0.5).astype(np.float32),
+          "bias": (0.1 * rng.standard_normal(d)).astype(np.float32)}
+    mask = _mask(rng, (3, 8, f), 0.8)
+    want = jmlp.transformer_ffw(
+        jnp.asarray(x), {k: jnp.asarray(v) for k, v in p1.items()},
+        {k: jnp.asarray(v) for k, v in p2.items()}, jnp.asarray(mask), 0.8,
+        use_fused=use_fused, interpret=True)
+    got = tm.transformer_ffw(
+        _t(x), {k: _t(v) for k, v in p1.items()}, {k: _t(v) for k, v in p2.items()},
+        torch.from_numpy(mask), 0.8, use_fused=use_fused)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_as_mask_copies_no_u8_or_bool_mask():
+    u8 = torch.ones(6, 4, dtype=torch.uint8)
+    assert tm._as_mask(u8, 6).data_ptr() == u8.data_ptr()
+    assert tm._as_mask(u8.reshape(2, 3, 4), 6).data_ptr() == u8.data_ptr()
+    flags = torch.ones(6, 4, dtype=torch.bool)
+    as_u8 = tm._as_mask(flags, 6)
+    assert as_u8.dtype == torch.uint8 and as_u8.data_ptr() == flags.data_ptr()
+    assert tm._as_mask(None, 6) is None
+
+
+# --------------------------------------------------- dropout mask generator
+
+
+@pytest.mark.parametrize("counter,key,want", [
+    ((0, 0, 0, 0), (0, 0), (0x6627E8D5, 0xE169C58D, 0xBC57AC4C, 0x9B00DBD8)),
+    ((0xFFFFFFFF,) * 4, (0xFFFFFFFF,) * 2, (0x408F276D, 0x41C83B0E, 0xA20BC7C6, 0x6D5451FD)),
+    ((0x243F6A88, 0x85A308D3, 0x13198A2E, 0x03707344), (0xA4093822, 0x299F31D0),
+     (0xD16CFE09, 0x94FDCCEB, 0x5001E420, 0x24126EA1)),
+], ids=["zeros", "ones", "pi"])
+def test_philox4x32_10_known_answers(counter, key, want):
+    """The published known-answer vectors of Philox4x32-10 (Random123)."""
+    got = tm.philox4x32_10([torch.tensor([c], dtype=torch.int64) for c in counter], key)
+    assert tuple(int(w) for w in got) == want
+
+
+def test_dropout_keep_mask_plain_version_semantics():
+    seed = torch.tensor([1234, -5678], dtype=torch.int32)
+    keep, rows, cols = 0.8, 500, 64
+    masks = {p: tm.dropout_keep_mask(seed, rows, cols, keep, p)
+             for p in (tm.RNG_P_HIDDEN, tm.RNG_P_RES, tm.RNG_P_ATT)}
+    for mask in masks.values():
+        assert mask.dtype == torch.uint8 and mask.shape == (rows, cols)
+        assert set(mask.unique().tolist()) <= {0, 1}
+        # Bernoulli(0.8) over 32,000 draws: within 4 sigma
+        assert abs(mask.float().mean().item() - keep) < 4 * (keep * (1 - keep) / mask.numel()) ** 0.5
+    # deterministic per (seed, purpose, shape); differs by purpose and by either seed word
+    assert torch.equal(masks[tm.RNG_P_ATT], tm.dropout_keep_mask(seed.clone(), rows, cols, keep,
+                                                                tm.RNG_P_ATT))
+    assert not torch.equal(masks[tm.RNG_P_ATT], masks[tm.RNG_P_RES])
+    assert not torch.equal(masks[tm.RNG_P_HIDDEN], masks[tm.RNG_P_RES])
+    for other in ([1235, -5678], [1234, -5677]):
+        assert not torch.equal(masks[tm.RNG_P_HIDDEN], tm.dropout_keep_mask(
+            torch.tensor(other, dtype=torch.int32), rows, cols, keep))
+    # the stream depends on the element index alone, not on the row width
+    assert torch.equal(masks[tm.RNG_P_HIDDEN].reshape(-1),
+                       tm.dropout_keep_mask(seed, cols, rows, keep).reshape(-1))
+    # a size that is not a multiple of 4 is a prefix of the stream
+    odd = tm.dropout_keep_mask(seed, 7, 3, keep)
+    assert torch.equal(odd.reshape(-1), masks[tm.RNG_P_HIDDEN].reshape(-1)[:21])
+
+
+def test_dropout_keep_mask_edge_keeps_and_threshold():
+    seed = torch.tensor([7, 9], dtype=torch.int32)
+    assert torch.all(tm.dropout_keep_mask(seed, 33, 5, 1.0) == 1)
+    assert torch.all(tm.dropout_keep_mask(seed, 33, 5, 0.0) == 0)
+    assert tm.dropout_keep_mask(seed, 0, 5, 0.8).shape == (0, 5)
+    for keep in (0.0, 0.3, 0.8, 1.0, 1.5):
+        assert tm._keep_thr(keep) == jmlp._keep_thr(keep)
+    assert (tm.RNG_P_HIDDEN, tm.RNG_P_RES, tm.RNG_P_ATT) == (
+        jmlp._RNG_P_HIDDEN, jmlp._RNG_P_RES, jmlp._RNG_P_ATT)
+    # the compare is unsigned: at keep 0.9 the words above 2^31 mostly survive
+    assert abs(tm.dropout_keep_mask(seed, 1000, 40, 0.9).float().mean().item() - 0.9) < 0.01
+    with pytest.raises(TypeError, match="int32"):
+        tm.dropout_keep_mask(seed.long(), 4, 4, 0.8)
+
+
+def test_kernel_rng_seed_draws_two_words_from_the_generator():
+    a = tm.kernel_rng_seed(torch.Generator().manual_seed(5), "cpu")
+    b = tm.kernel_rng_seed(torch.Generator().manual_seed(5), "cpu")
+    c = tm.kernel_rng_seed(torch.Generator().manual_seed(6), "cpu")
+    assert a.dtype == torch.int32 and a.shape == (2,)
+    assert torch.equal(a, b) and not torch.equal(a, c)

@@ -154,25 +154,36 @@ def test_dropout_masks_keep_rate_within_three_sigma():
 
 
 def test_unported_training_routes_raise():
+    """The two training routes that used to raise are ported: ``dropout_rng``
+    resolves as in the reference (the generator kernel only on the card with a
+    kernel flag on, plain draws elsewhere), and ``fused_mlp`` without
+    ``fused_mlp_ln`` trains through ``transformer_ffw``. What still raises is
+    an unknown value."""
     assert te.resolve_dropout_rng("xla", "cuda") == "xla"
-    assert te.resolve_dropout_rng("auto", "cpu") == "xla"
-    for value, device in (("kernel", "cpu"), ("kernel", "cuda"), ("auto", "cuda")):
-        with pytest.raises(NotImplementedError, match="queue B item 4"):
-            te.resolve_dropout_rng(value, device)
+    for value in ("auto", "kernel", "AUTO", None):
+        assert te.resolve_dropout_rng(value, "cpu") == "xla"  # off the card: plain draws
+        assert te.resolve_dropout_rng(value, "cuda") == "kernel"
+        assert te.resolve_dropout_rng(value, "cuda", kernels_on=False) == "xla"
+    with pytest.raises(ValueError, match="Unknown training.dropout_rng"):
+        te.resolve_dropout_rng("philox", "cuda")
     rng = np.random.default_rng(4)
     feats = {n: torch.from_numpy(rng.standard_normal((2, 8, d)).astype(np.float32))
              for n, d in zip(NAMES, DIMS)}
-    cfg = load_config(REPO / "config" / "base.yaml", SMALL + ["training.dropout_rng=kernel"])
-    model = MultimodalFusionModel.from_config(cfg, device="cpu")
-    model(feats)  # eval draws no mask
-    with pytest.raises(NotImplementedError, match="queue B item 4"):
-        model(feats, train=True)
-    cfg = load_config(REPO / "config" / "base.yaml",
-                      SMALL + ["model.fused_mlp=true", "model.fused_mlp_ln=false"])
-    model = MultimodalFusionModel.from_config(cfg, device="cpu")
-    model(feats)  # eval takes the plain FFW, as in the reference
-    with pytest.raises(NotImplementedError, match="queue B item 7"):
-        model(feats, train=True)
+    outs = {}
+    for value in ("kernel", "xla"):  # on the CPU both mean the generator's plain draws
+        cfg = load_config(REPO / "config" / "base.yaml", SMALL + [f"training.dropout_rng={value}"])
+        model = MultimodalFusionModel.from_config(cfg, device="cpu")
+        model(feats)  # eval draws no mask
+        outs[value] = model(feats, train=True, generator=torch.Generator().manual_seed(1))
+    assert torch.equal(outs["kernel"], outs["xla"])
+    for ln in ("false", "true"):
+        cfg = load_config(REPO / "config" / "base.yaml",
+                          SMALL + ["model.fused_mlp=true", f"model.fused_mlp_ln={ln}"])
+        model = MultimodalFusionModel.from_config(cfg, device="cpu")
+        model(feats)  # eval takes the plain FFW, as in the reference
+        outs[ln] = model(feats, train=True, generator=torch.Generator().manual_seed(1))
+    # same weights, same draws: the split and the combined route agree (f32 rounding)
+    torch.testing.assert_close(outs["false"], outs["true"], rtol=1e-5, atol=1e-5)
 
 
 def _split(seed=5, n=16, t=24):
