@@ -12,7 +12,7 @@ Phases (any failure exits non-zero, and no result line is printed):
    kernels from ``ops/csrc`` (one ``nvcc`` per source, all at once), load the
    PAMAP2 train split (chunk 512, stride 128, instance normalisation) from
    ``data/pamap2`` onto the card.
-2. Kernels: each of the ten kernels against its plain PyTorch twin on the
+2. Kernels: each of the fifteen kernels against its plain PyTorch twin on the
    card, at the shapes the main paths give it, including edge cases:
    packed attention forward (B=64, T=512, H=4, d=64) and backward (B=32:
    the real batch's lengths and 0, 1, 37, 64, 65, 511, T; padded T=72);
@@ -57,7 +57,27 @@ Phases (any failure exits non-zero, and no result line is printed):
    the best checkpoint (missing-modality sweep, MC dropout, temperature
    scaling) must write the three JSON files with the reference's keys and
    finite metrics.
-7. Print the kernel table as one JSON line, then the result line
+   The five ``flash_self_attention`` kernels at the long windows' shapes
+   (single-key-block forward at T = 1024 and 2048, B*H = 128; tiled forward
+   at T = 4096, B*H = 256; fused backward at T = 1024 and at T = 512, B*H =
+   512; the split dk/dv and dq kernels at T = 2048), on the real batches'
+   lengths, on the edge lengths and on a padded T = 1100; the two forwards
+   against each other at T = 2048; both routes timed at T = 1024 and 2048.
+7. Long: for ``dataset.chunk_size`` 1024 and 2048, real windows of that
+   size; ``Trainer`` at batch 32 takes 8 micro-steps (launch counts: 4 per
+   micro-step of the single-key-block forward and of the fused backward, or
+   of each split backward kernel at 2048; none of the packed kernels), the
+   same seed twice bit for bit, one micro-step at ``dropout_rng=xla`` against
+   the plain path, step times and device time by family; batch-64 requests
+   served at 1024, 2048 and 4096 (the tiled forward) against the plain path;
+   one ``evaluate_model`` pass at 1024.
+8. Grouped: ``model.grouped_transformer=true`` at chunk 512: served (one
+   forward launch per request for the whole group) against the plain path
+   and against the ungrouped model carrying the same weights unstacked; 8
+   training micro-steps (1 forward, 1 fused backward, 3 mask launches each),
+   twice bit for bit, one against the plain path; one epoch of ``fit`` whose
+   checkpoint is rebuilt from its directory alone.
+9. Print the kernel table as one JSON line, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
 The script imports torch and the port only; it needs no network.
@@ -484,8 +504,237 @@ def check_dropout_mask(torch, mlp, rows):
     }
 
 
+HEADS, HEAD_DIM = 4, 64  # the flagship's attention shape
+
+
+def _flash_inputs(torch, batch, seq, seed):
+    """q, k, v, dout ``[B*H, T, d]`` on the card."""
+    g = torch.Generator().manual_seed(seed)
+    return [torch.randn(batch * HEADS, seq, HEAD_DIM, generator=g).cuda() for _ in range(4)]
+
+
+def _edge_lengths(torch, lengths, seq):
+    edge = lengths.clone().cpu()
+    edge[:8] = torch.tensor([0, 1, 37, 64, 65, seq - 1, seq, 8], dtype=torch.int32)
+    return edge.cuda()
+
+
+def _plain_forward(torch, attn, q, k, v, lengths, scale, slice_batch=8):
+    """The plain forward over slices of the batch: at T = 4096 its scores are
+    17 GB for the whole batch of 64."""
+    outs, lses = [], []
+    for b0 in range(0, len(lengths), slice_batch):
+        rows = slice(b0 * HEADS, (b0 + slice_batch) * HEADS)
+        o, l = attn.flash_attention_reference(
+            q[rows], k[rows], v[rows], lengths[b0:b0 + slice_batch], HEADS, scale)
+        outs.append(o)
+        lses.append(l)
+    return torch.cat(outs), torch.cat(lses)
+
+
+def _flash_cost(torch, lengths, seq, products, tensors):
+    """(bound_ms, bound_by, note) of a kernel that does ``products`` products
+    over the valid keys and moves ``tensors`` [B*H, T, d] arrays plus lse/delta."""
+    keys = float(lengths.clamp(0, seq).sum().item())
+    rows = len(lengths) * HEADS
+    flops = 2.0 * products * HEADS * HEAD_DIM * seq * keys
+    nbytes = 4.0 * (tensors * rows * seq * HEAD_DIM + 2 * rows * seq + len(lengths))
+    bound_ms, bound_by = bound(flops, nbytes)
+    return bound_ms, bound_by, (f"{bound_by}; {keys:.0f} valid keys, {flops / 1e9:.2f} GFLOP, "
+                                f"{nbytes / 1e6:.1f} MB")
+
+
+def _sdpa(torch, q, k, v, lengths, seq, grad=False):
+    """The library yardstick: SDPA with the same key mask, on [B, H, T, d]."""
+    batch = len(lengths)
+    shape = (batch, HEADS, seq, HEAD_DIM)
+    key_mask = (torch.arange(seq, device="cuda")[None, :] < lengths[:, None].long())[:, None, None, :]
+    leaves = [t.view(shape).detach().requires_grad_(grad) for t in (q, k, v)]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    return leaves, (lambda: sdpa(*leaves, attn_mask=key_mask))
+
+
+def check_flash_kernels(torch, attn, real_lengths):
+    """The five flash_self_attention kernels vs their plain versions at the
+    long windows' shapes; ``real_lengths[T]`` are a real batch's lengths at
+    chunk T. Returns the five table rows."""
+    scale = HEAD_DIM**-0.5
+    fwd = {"single": attn.flash_fwd_single, "tiled": attn.flash_fwd_tiled}
+    errs = dict.fromkeys(("single", "tiled", "fused", "dkv", "dq"), 0.0)
+
+    def forward_case(label, which, q, k, v, lens):
+        out, lse = fwd[which](q, k, v, lens, HEADS, scale)
+        torch.cuda.synchronize()
+        ref_out, ref_lse = _plain_forward(torch, attn, q, k, v, lens, scale)
+        valid = ref_lse > attn.NEG_INF / 2
+        if not torch.equal(valid, lse > attn.NEG_INF / 2):
+            raise AssertionError(f"flash_fwd_{which} {label}: rows without keys differ")
+        e_out = (out - ref_out).abs().max().item()
+        e_lse = (lse[valid] - ref_lse[valid]).abs().max().item()
+        for b in (lens == 0).nonzero().flatten().tolist():
+            if out[b * HEADS:(b + 1) * HEADS].abs().max().item() != 0.0:
+                raise AssertionError(f"flash_fwd_{which} {label}: a length-0 row is not zero")
+        print(f"  flash_fwd_{which} {label}: max_abs_err out={e_out:.3e} lse={e_lse:.3e} "
+              f"(tol {ATTN_TOL})", flush=True)
+        errs[which] = max(errs[which], e_out, e_lse)
+        return out, lse
+
+    def backward_case(label, route, q, k, v, dout, lens):
+        out, lse = attn.flash_attention_reference(q, k, v, lens, HEADS, scale)
+        delta = attn.flash_delta(out, dout)
+        args = (q, k, v, lens, HEADS, lse, delta, dout, scale)
+        if route == "fused":
+            got = dict(zip(("dq", "dk", "dv"), attn.flash_bwd_fused(*args)))
+        else:
+            dk, dv = attn.flash_bwd_dkv(*args)
+            got = {"dq": attn.flash_bwd_dq(*args), "dk": dk, "dv": dv}
+        torch.cuda.synchronize()
+        want = dict(zip(("dq", "dk", "dv"), attn.flash_attention_bwd_reference(
+            q, k, v, lens, HEADS, out, lse, dout, scale)))
+        e = {name: rel_err(got[name], want[name]) for name in got}
+        for b, n in enumerate(lens.tolist()):
+            rows = slice(b * HEADS, (b + 1) * HEADS)
+            if n == 0 and any(g[rows].abs().max().item() != 0.0 for g in got.values()):
+                raise AssertionError(f"flash backward ({route}) {label}: length 0 has a gradient")
+            if n < q.shape[1] and max(got["dk"][rows, n:].abs().max().item(),
+                                      got["dv"][rows, n:].abs().max().item()) != 0.0:
+                raise AssertionError(f"flash backward ({route}) {label}: keys past the length "
+                                     "have dk/dv")
+        print(f"  flash backward ({route}) {label}: rel err dq={e['dq']:.3e} dk={e['dk']:.3e} "
+              f"dv={e['dv']:.3e} (tol {GRAD_TOL})", flush=True)
+        if route == "fused":
+            errs["fused"] = max(errs["fused"], *e.values())
+        else:
+            errs["dkv"] = max(errs["dkv"], e["dk"], e["dv"])
+            errs["dq"] = max(errs["dq"], e["dq"])
+
+    data = {}
+    for seq, batch in ((1024, 32), (2048, 32), (4096, 64), (512, 128)):
+        data[seq] = (*_flash_inputs(torch, batch, seq, seed=seq),
+                     real_lengths[seq][:batch].contiguous())
+    pad = (*_flash_inputs(torch, 3, 1100, seed=11),
+           torch.tensor([0, 1100, 777], dtype=torch.int32).cuda())
+
+    # forwards: rows 3 and 4
+    for seq in (1024, 2048):
+        q, k, v, _dout, lens = data[seq]
+        forward_case(f"T={seq} real lengths", "single", q, k, v, lens)
+        forward_case(f"T={seq} edge lengths", "single", q, k, v, _edge_lengths(torch, lens, seq))
+    q, k, v, _dout, lens = data[4096]
+    forward_case("T=4096 real lengths", "tiled", q, k, v, lens)
+    forward_case("T=4096 edge lengths", "tiled", q, k, v, _edge_lengths(torch, lens, 4096))
+    for which in ("single", "tiled"):
+        forward_case("padded T=1100", which, *pad[:3], pad[4])
+    q, k, v, _dout, lens = data[2048]
+    single = forward_case("T=2048 edge (vs tiled)", "single", q, k, v,
+                          _edge_lengths(torch, lens, 2048))
+    tiled = forward_case("T=2048 edge (vs single)", "tiled", q, k, v,
+                         _edge_lengths(torch, lens, 2048))
+    e_routes = max((single[0] - tiled[0]).abs().max().item(),
+                   (single[1] - tiled[1]).abs().max().item())
+    print(f"  single-key-block vs tiled forward on the same inputs at T=2048: max abs diff "
+          f"{e_routes:.3e} (tol {ATTN_TOL})", flush=True)
+    if max(errs["single"], errs["tiled"], e_routes) > ATTN_TOL:
+        raise AssertionError(f"flash forward kernels disagree: {errs}, routes {e_routes}")
+
+    # backwards: rows 5, 6, 7
+    for seq, route in ((1024, "fused"), (512, "fused"), (2048, "split")):
+        q, k, v, dout, lens = data[seq]
+        backward_case(f"T={seq} B*H={q.shape[0]} real lengths", route, q, k, v, dout, lens)
+        backward_case(f"T={seq} B*H={q.shape[0]} edge lengths", route, q, k, v, dout,
+                      _edge_lengths(torch, lens, seq))
+    for route in ("fused", "split"):
+        backward_case("padded T=1100", route, *pad)
+    if max(errs["fused"], errs["dkv"], errs["dq"]) > GRAD_TOL:
+        raise AssertionError(f"flash backward kernels disagree with their plain versions: {errs}")
+
+    # times: each kernel at its main path's shape, and both routes at 1024 and 2048
+    def time_forward(which, seq):
+        q, k, v, _dout, lens = data[seq]
+        return time_ms(lambda: fwd[which](q, k, v, lens, HEADS, scale), iters=10)
+
+    def backward_args(seq):
+        q, k, v, dout, lens = data[seq]
+        out, lse = attn.flash_fwd_tiled(q, k, v, lens, HEADS, scale)
+        return (q, k, v, lens, HEADS, lse, attn.flash_delta(out, dout), dout, scale)
+
+    other = {}
+    for seq in (1024, 2048):
+        args = backward_args(seq)
+        other[seq] = {
+            "single": time_forward("single", seq), "tiled": time_forward("tiled", seq),
+            "fused": time_ms(lambda: attn.flash_bwd_fused(*args), iters=5),
+            "dkv": time_ms(lambda: attn.flash_bwd_dkv(*args), iters=5),
+            "dq": time_ms(lambda: attn.flash_bwd_dq(*args), iters=5),
+            "delta": time_ms(lambda: attn.flash_delta(args[-2], args[-2]), iters=10),
+        }
+        t = other[seq]
+        print(f"  routes at T={seq}, B*H=128, real lengths: forward single {t['single']:.4f} ms, "
+              f"tiled {t['tiled']:.4f} ms; backward fused {t['fused']:.4f} ms, split "
+              f"{t['dkv'] + t['dq']:.4f} ms (dkv {t['dkv']:.4f} + dq {t['dq']:.4f}); delta "
+              f"{t['delta']:.4f} ms", flush=True)
+    args512 = backward_args(512)
+    fused512 = time_ms(lambda: attn.flash_bwd_fused(*args512), iters=5)
+    single512 = time_forward("single", 512)
+    print(f"  grouped shape T=512, B*H=512: forward single {single512:.4f} ms, backward fused "
+          f"{fused512:.4f} ms", flush=True)
+    del args512
+
+    rows = []
+    specs = (  # name, kernel key, T, products, tensors moved, TPU kernel line, source, library
+        ("flash_fwd_single", "single", 1024, 2, 4, 159, "flash_attention.cu", "fwd"),
+        ("flash_fwd_tiled", "tiled", 4096, 2, 4, 89, "flash_attention.cu", "fwd"),
+        ("flash_bwd_fused", "fused", 1024, 5, 7, 444, "flash_attention_bwd.cu", "qkv"),
+        ("flash_bwd_dkv", "dkv", 2048, 4, 6, 316, "flash_attention_bwd.cu", "kv"),
+        ("flash_bwd_dq", "dq", 2048, 3, 5, 386, "flash_attention_bwd.cu", "q"),
+    )
+    for name, key, seq, products, tensors, line, src, lib in specs:
+        q, k, v, dout, lens = data[seq]
+        ms = other[seq][key] if seq in other else time_forward(key, seq)
+        leaves, call = _sdpa(torch, q, k, v, lens, seq, grad=lib != "fwd")
+        if lib == "fwd":
+            plain_ms = time_ms(lambda: _plain_forward(torch, attn, q, k, v, lens, scale), iters=3)
+            library_ms = time_ms(call, iters=10)
+        else:
+            out, lse = attn.flash_fwd_tiled(q, k, v, lens, HEADS, scale)
+            delta = attn.flash_delta(out, dout)
+            ref = {"qkv": lambda: attn.flash_attention_bwd_reference(
+                       q, k, v, lens, HEADS, out, lse, dout, scale),
+                   "kv": lambda: attn.flash_dkv_reference(
+                       q, k, v, lens, HEADS, lse, delta, dout, scale),
+                   "q": lambda: attn.flash_dq_reference(
+                       q, k, v, lens, HEADS, lse, delta, dout, scale)}[lib]
+            plain_ms = time_ms(ref, iters=3)
+            wrt = {"qkv": leaves, "kv": leaves[1:], "q": leaves[:1]}[lib]
+            sdpa_out = call()
+            d_sdpa = dout.view(sdpa_out.shape)
+            library_ms = time_ms(
+                lambda: torch.autograd.grad(sdpa_out, wrt, d_sdpa, retain_graph=True), iters=5)
+            del sdpa_out
+        bound_ms, bound_by, note = _flash_cost(torch, lens, seq, products, tensors)
+        print(f"  {name} T={seq} B*H={q.shape[0]}: ms={ms:.4f} plain_ms={plain_ms:.4f} "
+              f"sdpa_ms={library_ms:.4f} bound_ms={bound_ms:.4f} ({note})", flush=True)
+        rows.append({
+            "name": name, "route": "cuda", "source": f"{PKG}/ops/csrc/{src}",
+            "replaces": f"{TPU_PKG}/ops/pallas_attention.py:{line}",
+            "max_abs_err": errs[key], "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms, "shape": [q.shape[0], seq, HEAD_DIM],
+        })
+    rows[0]["ms_t2048"] = other[2048]["single"]
+    rows[0]["ms_t512_bh512"] = single512
+    rows[2]["ms_t512_bh512"] = fused512
+    rows[2]["ms_t2048"] = other[2048]["fused"]
+    rows[3]["ms_t1024"], rows[4]["ms_t1024"] = other[1024]["dkv"], other[1024]["dq"]
+    return rows
+
+
 FAMILIES = (  # profiler kernel-name fragments -> family, first match wins
     ("packed_attention_fwd", ("packed_attention_fwd",)),
+    ("flash_fwd_single", ("flash_fwd_single",)),
+    ("flash_fwd_tiled", ("flash_fwd_tiled",)),
+    ("flash_bwd_fused", ("flash_bwd_fused",)),
+    ("flash_bwd_split", ("flash_dkv_kernel", "flash_dq_kernel")),
+    ("flash_delta", ("flash_delta",)),
     ("packed_attention_bwd", ("dkv_kernel", "dq_kernel", "delta_kernel")),
     ("proj_ln_fwd", ("proj_ln_fwd",)),
     ("proj_ln_bwd", ("proj_ln_bwd",)),
@@ -615,14 +864,14 @@ def counted_steps(torch, kernels, trainer, split, idx, steps):
     return step, losses, launches
 
 
-def step_p50(torch, step, split, idx, batch, label, smi):
+def step_p50(torch, step, split, idx, batch, label, smi, iters=20):
     lat = []
-    for i in range(20):
+    for i in range(iters):
         t = time.perf_counter()
         step(split, idx[i % len(idx)])
         torch.cuda.synchronize()
         lat.append(time.perf_counter() - t)
-    lat = sorted(lat[4:])
+    lat = sorted(lat[iters // 5:])
     p50 = lat[len(lat) // 2]
     print(f"  train micro-step batch {batch}, {label}: p50 {p50 * 1e3:.3f} ms, {batch / p50:.1f} "
           f"train windows/s on {smi}; peak memory "
@@ -638,6 +887,7 @@ def train_phase(torch, kernels, split, train_idx, smi):
     idx = [torch.from_numpy(row).long() for row in train_idx]
     batch = len(idx[0])
     per_step = len(split.modalities)  # one layer per encoder, every encoder runs
+    torch.cuda.reset_peak_memory_stats()  # the kernel checks above held more
     ln_kernels = ("proj_ln_fwd", "proj_ln_bwd", "ffw_ln_fwd", "ffw_ln_bwd")
 
     # dropout_rng=xla: kernel path vs plain path on the same masks, then its step time
@@ -696,6 +946,244 @@ def train_phase(torch, kernels, split, train_idx, smi):
         raise AssertionError(f"fused_mlp route launch counts {mlp_launches} != {want}")
     step_p50(torch, mlp_step, split, idx, batch, "fused_mlp=true fused_mlp_ln=false", smi)
     return launches, mlp_launches
+
+
+LN_KERNELS = ("proj_ln_fwd", "proj_ln_bwd", "ffw_ln_fwd", "ffw_ln_bwd")
+LONG_STEPS = 8
+LONG_CHUNKS = (1024, 2048, 4096)  # 4096 is served only (the tiled forward)
+
+
+def load_split(torch, modalities, chunk, stride, name="train"):
+    """Real PAMAP2 windows of ``chunk`` steps at ``stride``, instance-normalised,
+    on the card."""
+    from multimodal_sensor_fusion_with_attention_rajeevatla_torch.data.dataset import (
+        MultimodalDataset, apply_instance_normalization,
+    )
+    from multimodal_sensor_fusion_with_attention_rajeevatla_torch.data.device import DeviceSplit
+
+    windows = MultimodalDataset(REPO / "data" / "pamap2", modalities, name, chunk_size=chunk,
+                                window_stride=stride).windows
+    apply_instance_normalization(windows)
+    return DeviceSplit.from_windows(windows, device="cuda")
+
+
+def index_batches(torch, split, batch, seed):
+    from multimodal_sensor_fusion_with_attention_rajeevatla_torch.data.dataset import (
+        padded_index_matrix,
+    )
+
+    matrix, _ = padded_index_matrix(split.num_windows, batch, shuffle=True, seed=seed)
+    return [torch.from_numpy(row).long() for row in matrix]
+
+
+def serve_vs_plain(torch, kernels, overrides, split, idx, label, smi, want, compare_rows=None,
+                   timed=12):
+    """Serve batch-64 requests of ``split`` at base.yaml + ``overrides`` with
+    counted launches, hold the logits against the plain path (on the first
+    ``compare_rows`` rows of the batch when the plain scores of the whole
+    batch do not fit), then time repeated requests. Returns the launches of
+    the counted request, the model and the p50."""
+    from multimodal_sensor_fusion_with_attention_rajeevatla_torch.models.module import (
+        MultimodalFusionModel,
+    )
+    from multimodal_sensor_fusion_with_attention_rajeevatla_torch.serving import make_serving_fn
+    from multimodal_sensor_fusion_with_attention_rajeevatla_torch.utils.config import load_config
+
+    cfg = load_config(REPO / "config" / "base.yaml", list(overrides))
+    model = MultimodalFusionModel.from_config(
+        cfg, device="cuda", generator=torch.Generator().manual_seed(int(cfg.seed)))
+    plain = MultimodalFusionModel.from_config(
+        load_config(REPO / "config" / "base.yaml", [*overrides, "model.flash_attention=false"]),
+        device="cuda")
+    plain.load_state_dict(model.state_dict())
+    serve = make_serving_fn(model, device="cuda")
+    feats, _labels, lengths = split.gather(idx[0])
+    short = lengths.clone()
+    short[:3] = torch.tensor([0, 37, 1], dtype=torch.int32, device="cuda")
+    for fn in kernels.values():
+        fn.launches = 0
+    got = serve(feats, None, short)
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    print(f"  {label}: launches of one request {launches}", flush=True)
+    if launches != {**dict.fromkeys(kernels, 0), **want}:
+        raise AssertionError(f"{label}: serving launch counts {launches} != {want}")
+    rows = slice(0, compare_rows or BATCH)
+    with torch.inference_mode():
+        ref = plain({m: x[rows] for m, x in feats.items()}, None, short[rows])
+    torch.cuda.synchronize()
+    if got.shape != (BATCH, model.num_classes) or not torch.isfinite(got).all():
+        raise AssertionError(f"{label}: bad logits {tuple(got.shape)}")
+    e = (got[rows] - ref).abs().max().item()
+    print(f"  {label}: logits {tuple(got.shape)} finite, max_abs_err vs plain path {e:.3e} on "
+          f"{ref.shape[0]} rows (tol {LOGIT_TOL})", flush=True)
+    if e > LOGIT_TOL:
+        raise AssertionError(f"{label}: served logits disagree with the plain path: {e}")
+    del plain, ref
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    lat = []
+    for i in range(timed):
+        feats, _labels, lengths = split.gather(idx[i % len(idx)])
+        t = time.perf_counter()
+        serve(feats, None, lengths)
+        torch.cuda.synchronize()
+        lat.append(time.perf_counter() - t)
+    lat = sorted(lat[2:])
+    p50 = lat[len(lat) // 2]
+    print(f"  {label}: serve batch {BATCH} p50 {p50 * 1e3:.3f} ms, {BATCH / p50:.1f} windows/s on "
+          f"{smi}; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    return launches, model, p50
+
+
+def train_route(torch, kernels, overrides, split, idx, label, smi, want_per_step, steps=LONG_STEPS,
+                profile_steps=4):
+    """One micro-step against the plain path, ``steps`` counted micro-steps,
+    the same seed again bit for bit, the step's p50 and device time by
+    family. Returns the counted launches."""
+    micro_step_vs_plain(torch, split, idx[0], overrides, label)
+    torch.cuda.reset_peak_memory_stats()
+    trainer = _trainer(torch, overrides)
+    step, losses, launches = counted_steps(torch, kernels, trainer, split, idx, steps)
+    want = {**dict.fromkeys(kernels, 0), **{k: v * steps for k, v in want_per_step.items()}}
+    print(f"  {label}: {steps} micro-steps, {trainer.optimizer.count} updates; losses "
+          f"{[round(v, 5) for v in losses]}", flush=True)
+    print(f"  launches: {launches} (want {want})", flush=True)
+    if launches != want:
+        raise AssertionError(f"{label}: training launch counts {launches} != {want}")
+    _step2, losses2, _launches2 = counted_steps(
+        torch, kernels, _trainer(torch, overrides), split, idx, steps)
+    print(f"  same seed again: losses bit-identical: {losses2 == losses}", flush=True)
+    if losses2 != losses:
+        raise AssertionError(f"{label}: the same seed gave other losses: {losses} then {losses2}")
+    del _step2
+    step_p50(torch, step, split, idx, len(idx[0]), label, smi, iters=10)
+
+    def run(n):
+        for i in range(n):
+            step(split, idx[i % len(idx)])
+        torch.cuda.synchronize()
+
+    profile(torch, run, profile_steps, "micro-step")
+    return launches
+
+
+def long_phase(torch, kernels, modalities, stride, seed, smi):
+    """The flagship at chunk 1024 / 2048 (train, serve, one evaluation pass)
+    and 4096 (serve). Returns launches by path and each chunk's train batch
+    lengths."""
+    from multimodal_sensor_fusion_with_attention_rajeevatla_torch.evaluate import evaluate_model
+
+    print("[long]", flush=True)
+    out = {}
+    for chunk in LONG_CHUNKS:
+        override = [f"dataset.chunk_size={chunk}"]
+        t = time.perf_counter()
+        split = load_split(torch, modalities, chunk, stride)
+        print(f"  chunk {chunk}: {split.num_windows} train windows at stride {stride} on the card "
+              f"in {time.perf_counter() - t:.1f} s; {int((split.lengths < chunk).sum())} shorter "
+              f"than the chunk", flush=True)
+        if chunk <= 2048:
+            backward = {"flash_bwd_fused": 4} if chunk <= 1024 else \
+                {"flash_bwd_dkv": 4, "flash_bwd_dq": 4}
+            want = {"flash_fwd_single": 4, **backward, **dict.fromkeys(LN_KERNELS, 4),
+                    "dropout_keep_mask": 12}
+            out[f"train{chunk}"] = train_route(
+                torch, kernels, override, split, index_batches(torch, split, 32, seed),
+                f"L{chunk}", smi, want)
+        forward = "flash_fwd_single" if chunk <= 2048 else "flash_fwd_tiled"
+        torch.cuda.reset_peak_memory_stats()
+        out[f"serve{chunk}"], model, _p50 = serve_vs_plain(
+            torch, kernels, override, split, index_batches(torch, split, BATCH, seed),
+            f"L{chunk}", smi, {forward: 4, "fused_hybrid_head": 1},
+            compare_rows=8 if chunk > 2048 else None, timed=12 if chunk <= 2048 else 6)
+        if chunk == 1024:
+            test = load_split(torch, modalities, chunk, chunk, "test")
+            for fn in kernels.values():
+                fn.launches = 0
+            metrics = evaluate_model(model, test, batch_size=32)
+            out["eval1024"] = {name: fn.launches for name, fn in kernels.items()}
+            print(f"  L1024 evaluate_model on {metrics['num_samples']} test windows (random "
+                  f"weights): accuracy {metrics['accuracy']:.4f}, loss {metrics['loss']:.4f}; "
+                  f"launches {out['eval1024']}", flush=True)
+            if not math.isfinite(metrics["loss"]) or out["eval1024"]["flash_fwd_single"] <= 0 \
+                    or out["eval1024"]["packed_attention_fwd"] != 0:
+                raise AssertionError("L1024 evaluation is not finite or missed the flash forward")
+        del model, split
+        torch.cuda.empty_cache()
+    return out
+
+
+def grouped_phase(torch, kernels, split, batches, train_idx, default_serve_p50, smi, workdir):
+    """model.grouped_transformer=true at chunk 512: serve, train, fit one
+    epoch, reload; and the grouped model against the ungrouped model on the
+    same weights unstacked."""
+    from multimodal_sensor_fusion_with_attention_rajeevatla_torch.convert import (
+        ungroup_state_dict,
+    )
+    from multimodal_sensor_fusion_with_attention_rajeevatla_torch.data.dataset import (
+        create_datasets,
+    )
+    from multimodal_sensor_fusion_with_attention_rajeevatla_torch.data.device import DeviceSplit
+    from multimodal_sensor_fusion_with_attention_rajeevatla_torch.evaluate import dataset_kwargs
+    from multimodal_sensor_fusion_with_attention_rajeevatla_torch.models.module import (
+        MultimodalFusionModel,
+    )
+    from multimodal_sensor_fusion_with_attention_rajeevatla_torch.train.checkpoint import (
+        load_checkpoint,
+    )
+    from multimodal_sensor_fusion_with_attention_rajeevatla_torch.utils.config import load_config
+
+    print("[grouped]", flush=True)
+    route = ["model.grouped_transformer=true"]
+    idx64 = [torch.from_numpy(row).long() for row in batches]
+    launches = {}
+    launches["serve"], model, p50 = serve_vs_plain(
+        torch, kernels, route, split, idx64, "G512", smi,
+        {"flash_fwd_single": 1, "fused_hybrid_head": 1})
+    print(f"  G512 serve p50 {p50 * 1e3:.3f} ms beside the ungrouped default's "
+          f"{default_serve_p50 * 1e3:.3f} ms in this run", flush=True)
+    # the same function as four encoders carrying the same weights unstacked
+    cfg = load_config(REPO / "config" / "base.yaml")
+    ungrouped = MultimodalFusionModel.from_config(cfg, device="cuda")
+    dims = {m: int(cfg.model.encoders[m].input_dim) for m in model.grouped_tf_names}
+    ungrouped.load_state_dict(ungroup_state_dict(model.state_dict(), model.grouped_tf_names, dims))
+    feats, _labels, lengths = split.gather(idx64[1])
+    with torch.inference_mode():
+        e = (model(feats, None, lengths) - ungrouped(feats, None, lengths)).abs().max().item()
+    print(f"  grouped model vs the ungrouped model on the same weights unstacked: logits "
+          f"max_abs_err {e:.3e} (tol {LOGIT_TOL})", flush=True)
+    if e > LOGIT_TOL:
+        raise AssertionError(f"the grouped model is not the ungrouped model's function: {e}")
+    del ungrouped, model
+
+    idx = [torch.from_numpy(row).long() for row in train_idx]
+    launches["train"] = train_route(
+        torch, kernels, route, split, idx, "G512", smi,
+        {"flash_fwd_single": 1, "flash_bwd_fused": 1, "dropout_keep_mask": 3})
+
+    # one epoch of fit, and the checkpoint's bundled config rebuilds the grouped model
+    trainer = _trainer(torch, [
+        *route, "training.max_epochs=1", f"dataset.data_dir={REPO / 'data' / 'pamap2'}",
+        f"dataset.chunk_cache_dir={workdir / 'chunk_cache'}"])
+    train_w, val_w, test_w = create_datasets(**dataset_kwargs(trainer.config))
+    results = trainer.fit(train_w, val_w, test_w, save_dir=workdir / "grouped_run",
+                          log_fn=lambda msg: print(f"  {msg}", flush=True))
+    last = workdir / "grouped_run" / "checkpoints" / "last"
+    weights, ckpt_cfg, meta = load_checkpoint(last)
+    reloaded = MultimodalFusionModel.from_config(ckpt_cfg, device="cuda")
+    reloaded.load_state_dict(weights)
+    test_data = DeviceSplit.from_windows(test_w, device="cuda")
+    same = torch.equal(torch.from_numpy(trainer.evaluate_logits(test_data)),
+                       torch.from_numpy(trainer.evaluate_logits(test_data, model=reloaded)))
+    wall = results["train_wall_seconds"]
+    print(f"  G512 fit: 1 epoch in {wall:.2f} s, {train_w.num_windows / wall:.1f} train windows/s "
+          f"on {smi}; test acc {results['test_acc']:.4f}; checkpoint 'last' (epoch "
+          f"{meta['epoch']}) rebuilt as a grouped model from its directory: "
+          f"{bool(reloaded.grouped_tf_names)}, test logits bit-identical: {same}", flush=True)
+    if not same or not reloaded.grouped_tf_names or not _all_finite(results["history"]):
+        raise AssertionError("the grouped checkpoint does not reload to the model it saved")
+    return launches
 
 
 RESULT_KEYS = {"best_model_path", "best_val_loss", "config", "test_acc", "history",
@@ -929,6 +1417,15 @@ def main() -> int:
     rows += check_ln_kernels(torch, mlp, train_rows)
     rows += check_fused_mlp(torch, mlp, train_rows)
     rows.append(check_dropout_mask(torch, mlp, train_rows))
+    stride = int(cfg.dataset.window_stride)
+    real_lengths = {512: train_lengths.repeat(len(modalities))}  # the group's folded batch
+    for chunk in LONG_CHUNKS:
+        lengths = load_split(torch, modalities, chunk, stride).lengths
+        pick = torch.from_numpy(padded_index_matrix(
+            len(lengths), BATCH, shuffle=True, seed=int(cfg.seed))[0][0]).long().cuda()
+        real_lengths[chunk] = lengths.index_select(0, pick)
+    rows += check_flash_kernels(torch, attn, real_lengths)
+    torch.cuda.empty_cache()
     kernels = {  # table row name -> wrapper with its launch counter
         "packed_attention_fwd": attn.packed_attention_fwd,
         "packed_attention_bwd": attn.packed_attention_bwd,
@@ -937,6 +1434,9 @@ def main() -> int:
         "ffw_ln_fwd": mlp.ffw_ln_fwd, "ffw_ln_bwd": mlp.ffw_ln_bwd,
         "fused_mlp_fwd": mlp.fused_mlp_fwd, "fused_mlp_bwd": mlp.fused_mlp_bwd,
         "dropout_keep_mask": mlp.dropout_keep_mask,
+        "flash_fwd_single": attn.flash_fwd_single, "flash_fwd_tiled": attn.flash_fwd_tiled,
+        "flash_bwd_fused": attn.flash_bwd_fused, "flash_bwd_dkv": attn.flash_bwd_dkv,
+        "flash_bwd_dq": attn.flash_bwd_dq,
     }
 
     # ---- 3. serve: the main path ----------------------------------------------
@@ -1011,6 +1511,21 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         fit_launches, eval_launches = fit_and_eval_phase(torch, kernels, smi, Path(tmp))
 
+    # ---- 7. the long windows --------------------------------------------------
+    del model, plain_model, serve
+    torch.cuda.empty_cache()
+    long_launches = long_phase(torch, kernels, modalities, stride, int(cfg.seed), smi)
+
+    # ---- 8. the grouped encoder -----------------------------------------------
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        grouped_launches = grouped_phase(torch, kernels, split, idx_matrix, train_idx, p50, smi,
+                                         Path(tmp))
+    flash_paths = {  # the path each flash kernel was ported for
+        "flash_fwd_single": long_launches["train1024"], "flash_fwd_tiled": long_launches["serve4096"],
+        "flash_bwd_fused": long_launches["train1024"], "flash_bwd_dkv": long_launches["train2048"],
+        "flash_bwd_dq": long_launches["train2048"],
+    }
+
     for row in rows:
         # each kernel's launches on the path it was ported for: the eval
         # kernels on the serve path, the training kernels on the default
@@ -1020,6 +1535,10 @@ def main() -> int:
             path = serve_launches
         elif name in ("fused_mlp_fwd", "fused_mlp_bwd"):
             path = mlp_launches
+        elif name in flash_paths:
+            path = flash_paths[name]
+            row["serve_launches"] = {c: long_launches[f"serve{c}"][name] for c in LONG_CHUNKS}
+            row["grouped_launches"] = {k: v[name] for k, v in grouped_launches.items()}
         else:
             path = train_launches
         row["launches"] = path[name]

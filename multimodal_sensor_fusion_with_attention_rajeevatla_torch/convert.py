@@ -10,6 +10,12 @@ The flax tree of the reference's ``MultimodalFusionModel.init`` maps as:
     [fusion_model/]proj_<m> | gate_<m>            -> [fusion_model.]projections.<m> | gates.<m>
     fusion_model/classifier_hidden|classifier_out -> fusion_model.<same>
     fusion_model/pairs/<x>_kernel|<x>_bias        -> fusion_model.pairs.<same>
+    grouped_transformer_enc/<p>/kernel|bias|scale -> grouped_tf_encoder.<p>_kernel|_bias|_scale
+    grouped_transformer_enc/proj_kernel|proj_bias -> grouped_tf_encoder.<same>
+
+(``<p>`` is ``input_projection``, ``{q,k,v,out}_proj_l<i>``, ``linear{1,2}_l<i>``
+or ``norm{1,2}_l<i>`` of a model built with ``model.grouped_transformer``; its
+stacked ``[G, in, out]`` kernels keep the reference's layout.)
 
 A Dense ``kernel [in, out]`` becomes ``weight [out, in]``; a LayerNorm
 ``scale`` becomes ``weight``; the stacked pair kernels ``[P, H, H]`` keep the
@@ -17,15 +23,21 @@ reference's ``[in, out]`` layout, which is how the port stores them. Inputs
 are numpy arrays (``np.asarray`` of the jax arrays); this module needs no JAX.
 ``to_flax_tree`` is the reverse: port tensors (weights or their gradients)
 as a flax-layout tree of numpy arrays, so that two trees compare leaf by leaf.
+``ungroup_state_dict`` unstacks a grouped model's weights into the per-modality
+encoders of the ungrouped model, which computes the same function.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Dict, Mapping, Union
+from typing import Dict, Mapping, Sequence, Union
 
 import numpy as np
 import torch
+
+
+GROUPED_FLAX = "grouped_transformer_enc"
+GROUPED_PORT = "grouped_tf_encoder"
 
 
 def _flatten(tree: Mapping, prefix=()) -> Dict[tuple, np.ndarray]:
@@ -62,6 +74,11 @@ def from_flax_variables(variables: Mapping) -> Dict[str, torch.Tensor]:
     state: Dict[str, torch.Tensor] = {}
     for path, array in _flatten(params).items():
         *module, leaf = path
+        if module and module[0] == GROUPED_FLAX:
+            # stacked [G, in, out] / [G, out] tensors kept as they are
+            state[".".join([GROUPED_PORT, "_".join([*module[1:], leaf])])] = torch.from_numpy(
+                np.array(array, dtype=np.float32))
+            continue
         names = _module_path(tuple(module))
         if module and module[-1] == "pairs":
             names.append(leaf)  # stacked [P, H, H] / [P, H] kept as they are
@@ -123,7 +140,12 @@ def to_flax_tree(
     for name, tensor in items.items():
         *module, leaf = _flax_path(name)
         array = tensor.detach().cpu().numpy()
-        if module and module[-1] == "pairs":
+        if module == [GROUPED_PORT]:
+            module = [GROUPED_FLAX]
+            if not leaf.startswith("proj_"):  # <p>_kernel -> <p>/kernel
+                param, _, leaf = leaf.rpartition("_")
+                module.append(param)
+        elif module and module[-1] == "pairs":
             pass  # stacked [P, H, H] / [P, H] kept as they are
         elif leaf == "weight" and array.ndim == 2:
             leaf, array = "kernel", array.T
@@ -134,3 +156,37 @@ def to_flax_tree(
             node = node.setdefault(part, {})
         node[leaf] = np.ascontiguousarray(array)
     return tree
+
+
+def ungroup_state_dict(
+    state: Mapping[str, torch.Tensor], names: Sequence[str], input_dims: Mapping[str, int]
+) -> Dict[str, torch.Tensor]:
+    """The ``state_dict`` of a model built with ``model.grouped_transformer``
+    -> that of the ungrouped model carrying the same weights: member ``g`` of
+    every stacked tensor becomes the tensor of ``encoders.<names[g]>`` (a
+    kernel ``[in, out]`` transposed to ``weight [out, in]``; the input
+    projection cut back from the group's padded width to the member's own).
+    Every other entry passes through."""
+    out: Dict[str, torch.Tensor] = {}
+    prefix = GROUPED_PORT + "."
+    for key, value in state.items():
+        if not key.startswith(prefix):
+            out[key] = value
+            continue
+        param, _, leaf = key[len(prefix):].rpartition("_")
+        if param == "input_projection":
+            target = param
+        elif param == "proj":
+            target = "projection"
+        else:
+            base, _, layer = param.rpartition("_l")
+            target = f"layers.{layer}.{base}"
+        for g, name in enumerate(names):
+            member = value[g]
+            if param == "input_projection" and leaf == "kernel":
+                member = member[: int(input_dims[name])]
+            port_leaf = "bias" if leaf == "bias" else "weight"
+            out[f"encoders.{name}.{target}.{port_leaf}"] = (
+                member.t().contiguous() if leaf == "kernel" else member.clone()
+            )
+    return out

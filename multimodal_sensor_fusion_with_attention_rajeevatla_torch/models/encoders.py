@@ -2,10 +2,15 @@
 
 Ported: the transformer branch of ``SequenceEncoder`` and its post-LN
 ``TransformerEncoderLayer`` (dense feed-forward), in eval and train mode.
-The layer runs its q/k/v projections as one ``[H, 3H]`` matmul whose packed
-output feeds the attention kernel directly (``ops.attention.flash_mha_packed``,
-forward and backward) when ``flash_attention`` is set and the sequence fits
-the packed route; otherwise it takes the plain masked-softmax attention.
+The layer runs its q/k/v projections as one ``[H, 3H]`` matmul. With
+``flash_attention`` set, a sequence that fits the packed route (padded
+T <= 512) feeds that packed output to ``ops.attention.flash_mha_packed``
+directly; a longer one is split into ``[B, H, T, d]`` q, k, v for
+``ops.attention.flash_self_attention`` (single-key-block or tiled forward,
+fused or split backward, by the padded length). The reference casts q, k, v
+to bf16 before that transpose on a TPU; the port stays f32, as all its
+kernels do. Without the flag the layer takes the plain masked-softmax
+attention.
 LayerNorms follow flax: eps 1e-6 and the fast variance
 ``max(E[x^2] - E[x]^2, 0)``.
 
@@ -40,7 +45,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from ..ops.attention import flash_mha_packed, packed_route_ok
+from ..ops.attention import flash_mha_packed, flash_self_attention, packed_route_ok
 from ..ops.masked import lengths_to_mask, masked_mean_pool, masked_softmax
 from ..ops.mlp import (
     RNG_P_ATT,
@@ -161,20 +166,19 @@ class TransformerEncoderLayer(nn.Module):
         w_qkv = torch.cat([self.q_proj.weight, self.k_proj.weight, self.v_proj.weight], 0)
         b_qkv = torch.cat([self.q_proj.bias, self.k_proj.bias, self.v_proj.bias], 0)
         qkv = F.linear(x, w_qkv, b_qkv)  # [B, T, 3H]
-        if self.use_flash and packed_route_ok(seq_len, self.num_heads, head_dim):
+        qkv5 = qkv.reshape(batch, seq_len, 3, self.num_heads, head_dim)
+        if self.use_flash:
             # suffix padding -> the valid keys are a prefix; mask == lengths
             lengths = (
                 key_padding_mask.sum(dim=-1).to(torch.int32)
                 if key_padding_mask is not None
                 else None
             )
-            return flash_mha_packed(qkv, lengths, num_heads=self.num_heads)
-        if self.use_flash and x.is_cuda:
-            raise NotImplementedError(
-                f"flash attention for padded T > 512 (got T={seq_len}) needs the tiled "
-                "kernel, which is not ported yet (ROADMAP queue B item 6)"
-            )
-        qkv5 = qkv.reshape(batch, seq_len, 3, self.num_heads, head_dim)
+            if packed_route_ok(seq_len, self.num_heads, head_dim):
+                return flash_mha_packed(qkv, lengths, num_heads=self.num_heads)
+            q, k, v = (qkv5[:, :, i].transpose(1, 2) for i in range(3))  # [B, H, T, d]
+            attended = flash_self_attention(q, k, v, lengths)
+            return attended.transpose(1, 2).reshape(batch, seq_len, self.hidden_dim)
         q, k, v = qkv5[:, :, 0], qkv5[:, :, 1], qkv5[:, :, 2]
         scores = torch.einsum("bqhd,bkhd->bhqk", q, k) * head_dim**-0.5
         mask = key_padding_mask[:, None, None, :] if key_padding_mask is not None else None

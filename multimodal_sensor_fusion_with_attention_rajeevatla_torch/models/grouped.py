@@ -1,0 +1,237 @@
+"""Grouped transformer encoder, port of the JAX package's ``models/grouped.py``.
+
+Ported: ``GroupedTransformerEncoder`` (G same-signature per-modality
+transformer stacks evaluated as one pass over a leading group axis),
+``groupable_transformer_modalities`` and ``stack_group_features``. Member
+weights are stacked ``[G, in, out]`` in the reference's layout, one
+``nn.Parameter`` per stacked tensor, so every dense layer is one G-batched
+matrix product (``torch.baddbmm``; a plain library product, as the reference
+leaves it to XLA) and, with ``flash_attention``, the whole group shares one
+``ops.attention.flash_self_attention`` launch over the folded ``[G*B]``
+batch. The function is that of G separate ``SequenceEncoder``s carrying the
+same weights unstacked: same post-LN layer math, same masked mean pooling,
+same head-count rule, no attention-probability dropout.
+
+Training: one mask ``[G, B, T, cols]`` per purpose covers the whole group,
+drawn in the layer's fixed order (attention-side residual, hidden, FFW-side
+residual), from the generator kernel ``ops.mlp.dropout_keep_mask`` when
+``dropout_rng`` is ``auto`` or ``kernel``, the tensors are on the card and
+``flash_attention`` is on, else from ``torch.rand`` on the caller's
+generator. The grouped encoder does not use the fused projection/FFW
+LayerNorm kernels; the reference does not either.
+
+``GroupedRNNEncoder`` is not ported yet (ROADMAP queue A item 10).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
+
+import torch
+from torch import nn
+
+from ..ops.attention import flash_self_attention
+from ..ops.masked import lengths_to_mask, masked_mean_pool, masked_softmax
+from ..ops.mlp import (
+    RNG_P_ATT,
+    RNG_P_HIDDEN,
+    RNG_P_RES,
+    dropout_keep_mask,
+    kernel_rng_seed,
+    ln_rows,
+)
+from .encoders import dropout, keep_mask, lecun_normal_, resolve_dropout_rng
+
+_DENSE = ("q_proj", "k_proj", "v_proj", "out_proj", "linear1", "linear2")
+
+
+def grouped_dense(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """``[G, ..., in] x [G, in, out] + [G, out] -> [G, ..., out]``: one
+    G-batched product over the flattened middle axes."""
+    groups = x.shape[0]
+    flat = x.reshape(groups, -1, x.shape[-1])
+    out = torch.baddbmm(bias[:, None, :], flat, kernel)
+    return out.reshape(*x.shape[:-1], kernel.shape[-1])
+
+
+class GroupedTransformerEncoder(nn.Module):
+    """G independent transformer encoder stacks as one pass. Input
+    ``[G, B, T, D_max]`` (features zero-padded to the group's widest member),
+    output ``[G, B, output_dim]``."""
+
+    def __init__(
+        self,
+        num_groups: int,
+        input_dim: int,
+        hidden_dim: int = 256,
+        output_dim: int = 128,
+        num_layers: int = 2,
+        dim_feedforward: int = 2048,
+        dropout: float = 0.1,
+        use_flash: bool = False,
+        dropout_rng: str = "auto",
+    ):
+        super().__init__()
+        self.num_groups = num_groups
+        self.input_dim = input_dim
+        self.hidden_dim = hidden_dim
+        self.output_dim = output_dim
+        self.num_layers = num_layers
+        self.dim_feedforward = dim_feedforward
+        self.dropout = dropout
+        self.use_flash = use_flash
+        self.dropout_rng = dropout_rng
+        self.num_heads = 4 if hidden_dim % 4 == 0 else 1
+
+        def dense(name: str, d_in: int, d_out: int) -> None:
+            self.register_parameter(f"{name}_kernel",
+                                    nn.Parameter(torch.zeros(num_groups, d_in, d_out)))
+            self.register_parameter(f"{name}_bias", nn.Parameter(torch.zeros(num_groups, d_out)))
+
+        dense("input_projection", input_dim, hidden_dim)
+        for layer in range(num_layers):
+            for name in _DENSE:
+                d_in = dim_feedforward if name == "linear2" else hidden_dim
+                d_out = dim_feedforward if name == "linear1" else hidden_dim
+                dense(f"{name}_l{layer}", d_in, d_out)
+            for name in ("norm1", "norm2"):
+                self.register_parameter(f"{name}_l{layer}_scale",
+                                        nn.Parameter(torch.ones(num_groups, hidden_dim)))
+                self.register_parameter(f"{name}_l{layer}_bias",
+                                        nn.Parameter(torch.zeros(num_groups, hidden_dim)))
+        dense("proj", hidden_dim, output_dim)
+
+    @torch.no_grad()
+    def init_parameters(self, generator: torch.Generator) -> None:
+        """The reference's ``_grouped_dense_init``: G independent lecun-normal
+        kernels (the group axis is a batch axis, so fan_in is ``d_in``), zero
+        biases, unit LayerNorm scales."""
+        for name, param in self.named_parameters():
+            if name.endswith("_kernel"):
+                lecun_normal_(param, param.shape[1], generator)
+            elif name.endswith("_scale"):
+                param.fill_(1.0)
+            else:
+                param.zero_()
+
+    def _dense(self, name: str, x: torch.Tensor) -> torch.Tensor:
+        return grouped_dense(x, getattr(self, f"{name}_kernel"), getattr(self, f"{name}_bias"))
+
+    def _norm(self, name: str, r: torch.Tensor) -> torch.Tensor:
+        scale, bias = getattr(self, f"{name}_scale"), getattr(self, f"{name}_bias")
+        return ln_rows(r.float(), scale[:, None, None, :], bias[:, None, None, :], 1e-6)[0]
+
+    def _attend(self, layer: int, x: torch.Tensor, lengths, valid_mask) -> torch.Tensor:
+        groups, batch, seq_len, hidden = x.shape
+        heads, head_dim = self.num_heads, hidden // self.num_heads
+        # one G-batched [G, H, 3H] product feeds q/k/v for every member
+        w_qkv = torch.cat([getattr(self, f"{n}_proj_l{layer}_kernel") for n in "qkv"], dim=2)
+        b_qkv = torch.cat([getattr(self, f"{n}_proj_l{layer}_bias") for n in "qkv"], dim=1)
+        qkv = grouped_dense(x, w_qkv, b_qkv).reshape(groups, batch, seq_len, 3, heads, head_dim)
+        if self.use_flash:
+            # fold the group axis into the batch: one launch for the whole group
+            q, k, v = (
+                qkv[:, :, :, i].reshape(groups * batch, seq_len, heads, head_dim).transpose(1, 2)
+                for i in range(3)
+            )
+            flat_lengths = lengths.to(torch.int32).repeat(groups) if lengths is not None else None
+            attended = flash_self_attention(q, k, v, flat_lengths)
+            return attended.transpose(1, 2).reshape(groups, batch, seq_len, hidden)
+        q, k, v = qkv[:, :, :, 0], qkv[:, :, :, 1], qkv[:, :, :, 2]
+        scores = torch.einsum("gbqhd,gbkhd->gbhqk", q, k) * head_dim**-0.5
+        mask = valid_mask[None, :, None, None, :] if valid_mask is not None else None
+        weights = masked_softmax(scores, mask)
+        return torch.einsum("gbhqk,gbkhd->gbqhd", weights, v).reshape(
+            groups, batch, seq_len, hidden)
+
+    def forward(
+        self,
+        stacked: torch.Tensor,  # [G, B, T, D_max]
+        lengths: Optional[torch.Tensor] = None,  # [B]
+        train: bool = False,
+        generator: Optional[torch.Generator] = None,
+    ) -> torch.Tensor:
+        if stacked.dim() != 4 or stacked.shape[0] != self.num_groups:
+            raise ValueError(
+                f"Expected [G={self.num_groups}, B, T, D] input, got shape {tuple(stacked.shape)}"
+            )
+        groups, batch, seq_len, _ = stacked.shape
+        keep_prob = 1.0 - self.dropout
+        drop = train and self.dropout > 0.0
+        source = resolve_dropout_rng(self.dropout_rng, stacked.device.type, self.use_flash)
+        if drop and source == "kernel":
+            seed = kernel_rng_seed(generator, stacked.device)  # one seed for the whole stack
+
+            def draw(cols, purpose):
+                return dropout_keep_mask(
+                    seed, groups * batch * seq_len, cols, keep_prob, purpose
+                ).reshape(groups, batch, seq_len, cols)
+        else:
+            def draw(cols, _purpose):
+                return keep_mask((groups, batch, seq_len, cols), keep_prob, generator,
+                                 stacked.device)
+
+        def drop_where(y, cols, purpose):
+            if not drop:
+                return y
+            return torch.where(draw(cols, purpose).bool(), y / keep_prob, 0.0)
+
+        valid_mask = lengths_to_mask(lengths, seq_len) if lengths is not None else None
+        x = self._dense("input_projection", stacked)
+        for layer in range(self.num_layers):
+            attended = self._attend(layer, x, lengths, valid_mask)
+            y = drop_where(self._dense(f"out_proj_l{layer}", attended), self.hidden_dim, RNG_P_ATT)
+            x = self._norm(f"norm1_l{layer}", x + y)
+            h = torch.relu(self._dense(f"linear1_l{layer}", x))
+            h = drop_where(h, self.dim_feedforward, RNG_P_HIDDEN)
+            ff = drop_where(self._dense(f"linear2_l{layer}", h), self.hidden_dim, RNG_P_RES)
+            x = self._norm(f"norm2_l{layer}", x + ff)
+        pooled = masked_mean_pool(
+            x, valid_mask[None] if valid_mask is not None else None, dim=2, min_denom=1.0
+        )  # [G, B, H]
+        pooled = dropout(pooled, self.dropout, train, generator)
+        return self._dense("proj", pooled)
+
+
+def groupable_transformer_modalities(
+    modalities: Sequence[str], encoder_configs: Mapping[str, Mapping[str, Any]]
+) -> Tuple[List[str], Dict[str, Any]]:
+    """Subset of modalities that one grouped transformer pass can encode:
+    sequence-typed transformer encoders sharing (hidden_dim, num_layers,
+    flash_attention, dropout_rng), none with MoE, pipeline or sequence
+    parallelism. Returns ``(names, shared_config)``; names is empty when
+    fewer than two qualify or their signatures differ."""
+    candidates = []
+    signatures = set()
+    for name in modalities:
+        cfg = dict(encoder_configs.get(name, {}) or {})
+        if cfg.get("type", "sequence") != "sequence":
+            continue
+        if cfg.get("encoder_type", "lstm") != "transformer":
+            continue
+        if int(cfg.get("moe_experts", 0) or 0) > 0:
+            continue
+        if int(cfg.get("pipeline_parallel", 1) or 1) > 1:
+            continue
+        if bool(cfg.get("sequence_parallel", False)):
+            continue
+        signatures.add((
+            cfg.get("hidden_dim"),
+            int(cfg.get("num_layers", 2)),
+            bool(cfg.get("flash_attention", False)),
+            str(cfg.get("dropout_rng", "auto")),
+        ))
+        candidates.append(name)
+    if len(candidates) >= 2 and len(signatures) == 1:
+        hidden, layers, flash, drng = next(iter(signatures))
+        return candidates, {"hidden_dim": hidden, "num_layers": layers,
+                            "flash_attention": flash, "dropout_rng": drng}
+    return [], {}
+
+
+def stack_group_features(features: Mapping[str, torch.Tensor], names: Sequence[str]) -> torch.Tensor:
+    """Zero-pad each ``[B, T, D_m]`` to the group's D_max and stack to ``[G, B, T, D]``."""
+    d_max = max(int(features[n].shape[-1]) for n in names)
+    return torch.stack([
+        nn.functional.pad(features[n], (0, d_max - features[n].shape[-1])) for n in names
+    ])

@@ -1,9 +1,11 @@
 """The flagship model: per-modality encoders + fusion head.
 
-Port of the JAX package's ``models/module.py`` for the ungrouped-transformer,
+Port of the JAX package's ``models/module.py`` for the transformer,
 hybrid-fusion configuration that ``config/base.yaml`` builds: one
-``SequenceEncoder`` per modality, a per-modality LayerNorm (``ln_<m>``, flax
-defaults), then ``HybridFusion``. Weights come from ``init_parameters`` (a
+``SequenceEncoder`` per modality, or with ``model.grouped_transformer`` one
+``GroupedTransformerEncoder`` over the same-signature transformer modalities
+and per-modality encoders for the rest; a per-modality LayerNorm (``ln_<m>``,
+flax defaults), then ``HybridFusion``. Weights come from ``init_parameters`` (a
 seeded ``torch.Generator``, flax's initialisers) or from a converted flax
 checkpoint (``convert.from_flax_variables``). ``train=True`` runs the
 training forward: dropout masks come from the ``generator`` passed along,
@@ -22,6 +24,11 @@ from ..utils.device import resolve_device
 from .attention import StackedPairAttention
 from .encoders import LayerNorm, build_encoder, lecun_normal_
 from .fusion import build_fusion_model
+from .grouped import (
+    GroupedTransformerEncoder,
+    groupable_transformer_modalities,
+    stack_group_features,
+)
 
 
 def _parse_flag(value, name: str) -> bool:
@@ -55,6 +62,8 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> nn.Module:
         elif isinstance(module, LayerNorm):
             module.weight.fill_(1.0)
             module.bias.zero_()
+        elif isinstance(module, GroupedTransformerEncoder):
+            module.init_parameters(generator)
     return model
 
 
@@ -72,6 +81,8 @@ class MultimodalFusionModel(nn.Module):
         num_classes: int = 25,
         layer_norm: bool = True,
         dropout: float = 0.1,
+        grouped_encoders: bool = True,
+        grouped_transformer: bool = False,
     ):
         super().__init__()
         self.modalities = tuple(modalities)
@@ -79,6 +90,27 @@ class MultimodalFusionModel(nn.Module):
         self.output_dim = output_dim
         self.num_classes = num_classes
         configs = {k: dict(v) for k, v in dict(encoder_configs).items()}
+        # per-modality input widths: a missing grouped modality is zero-filled
+        # at its own width, not the template's
+        self._grouped_dims = {
+            n: int(configs.get(n, {}).get("input_dim", 64) or 64) for n in self.modalities
+        }
+        self.grouped_tf_names: tuple = ()
+        self.grouped_tf_encoder = None
+        if grouped_encoders and grouped_transformer:
+            tf_names, shared = groupable_transformer_modalities(self.modalities, configs)
+            if tf_names:
+                self.grouped_tf_names = tuple(tf_names)
+                self.grouped_tf_encoder = GroupedTransformerEncoder(
+                    num_groups=len(tf_names),
+                    input_dim=max(self._grouped_dims[n] for n in tf_names),
+                    hidden_dim=int(shared.get("hidden_dim") or hidden_dim),
+                    output_dim=output_dim,
+                    num_layers=int(shared.get("num_layers") or 2),
+                    dropout=dropout,
+                    use_flash=bool(shared.get("flash_attention", False)),
+                    dropout_rng=str(shared.get("dropout_rng") or "auto"),
+                )
         self.encoders = nn.ModuleDict(
             {
                 name: build_encoder(
@@ -88,6 +120,7 @@ class MultimodalFusionModel(nn.Module):
                     encoder_config=configs.get(name, {}),
                 )
                 for name in self.modalities
+                if name not in self.grouped_tf_names
             }
         )
         self.layer_norms = (
@@ -129,8 +162,31 @@ class MultimodalFusionModel(nn.Module):
              if n in features and features[n].dim() == 3),
             None,
         )
+        present = [n for n in self.grouped_tf_names if n in features]
+        if present:
+            names_out = self.grouped_tf_names
+            if len(present) < len(names_out):
+                # some members missing: they are zero-filled at their own
+                # feature width and their outputs discarded
+                template = features[present[0]]
+                features = dict(features)
+                for n in names_out:
+                    features.setdefault(n, template.new_zeros(
+                        (*template.shape[:2], self._grouped_dims[n])))
+            stacked = stack_group_features(features, names_out)
+            # the members share one time axis
+            grp_lengths = self._scale_lengths(lengths, ref_len, int(stacked.shape[2]))
+            group_out = self.grouped_tf_encoder(
+                stacked, lengths=grp_lengths, train=train, generator=generator)
+            for i, name in enumerate(names_out):
+                if name not in present:
+                    continue
+                emb = group_out[i]
+                if self.layer_norms is not None:
+                    emb = self.layer_norms[name](emb)
+                encoded[name] = emb
         for name in self.modalities:
-            if name not in features:
+            if name not in features or name in self.grouped_tf_names:
                 continue
             x = features[name]
             mod_lengths = (
@@ -194,7 +250,6 @@ class MultimodalFusionModel(nn.Module):
         modalities = tuple(dataset_cfg.modalities)
         unsupported = {
             "mixed_precision": bool(config.get("mixed_precision", False)),
-            "model.grouped_transformer": bool(model_cfg.get("grouped_transformer", False)),
             "model.moe_experts": int(model_cfg.get("moe_experts", 0) or 0) > 0,
             "parallel.pipeline_parallel": int(
                 (config.get("parallel", {}) or {}).get("pipeline_parallel", 1) or 1
@@ -225,6 +280,9 @@ class MultimodalFusionModel(nn.Module):
                 for key, value in flags.items():
                     cfg[key] = _parse_flag(cfg.get(key, value), key)
                 cfg.setdefault("dropout_rng", dropout_rng)
+                # read by the grouping rule only: such encoders stay ungrouped
+                cfg.setdefault("sequence_parallel", bool(
+                    (config.get("parallel", {}) or {}).get("sequence_parallel", False)))
             enc_cfgs[name] = cfg
         model = cls(
             modalities=modalities,
@@ -236,6 +294,8 @@ class MultimodalFusionModel(nn.Module):
             num_classes=int(dataset_cfg.get("num_classes", 11)),
             layer_norm=bool(model_cfg.get("layer_norm", True)),
             dropout=dropout,
+            grouped_encoders=bool(model_cfg.get("grouped_encoders", True)),
+            grouped_transformer=bool(model_cfg.get("grouped_transformer", False)),
         )
         if generator is None:
             generator = torch.Generator().manual_seed(int(config.get("seed", 0) or 0))

@@ -28,6 +28,8 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_ext"
 SOURCES = {
     "packed_attention": "packed_attention.cu",
     "packed_attention_bwd": "packed_attention_bwd.cu",
+    "flash_attention": "flash_attention.cu",
+    "flash_attention_bwd": "flash_attention_bwd.cu",
     "fusion_head": "fusion_head.cu",
     "proj_ln": "proj_ln.cu",
     "ffw_ln": "ffw_ln.cu",

@@ -1,20 +1,42 @@
-"""Packed multi-head self-attention, forward and backward: CUDA kernels and
-their plain twins.
+"""Multi-head self-attention, forward and backward: CUDA kernels and their
+plain versions, on two layouts.
 
-Counterpart of the JAX package's ``ops/pallas_attention.py::flash_mha_packed``
-and its custom VJP ``_packed_core``. The input is the qkv projection's
-natural ``[B, T, 3*H*d]`` layout (q | k | v along the minor dim, heads
-sliced inside each third) plus per-row valid key lengths; the output is
-``[B, T, H*d]``. Key columns at or past a row's length are masked; a row
-with no valid key gives exact zeros (and ``lse = NEG_INF``) and zero
-gradients.
+**Packed layout** (padded T <= 512). Counterpart of the JAX package's
+``ops/pallas_attention.py::flash_mha_packed`` and its custom VJP
+``_packed_core``. The input is the qkv projection's natural ``[B, T, 3*H*d]``
+layout (q | k | v along the minor dim, heads sliced inside each third) plus
+per-row valid key lengths; the output is ``[B, T, H*d]``.
+``packed_attention_fwd`` and ``packed_attention_bwd`` are the kernel wrappers
+(``csrc/packed_attention.cu``, ``csrc/packed_attention_bwd.cu``), with
+``packed_attention_reference`` and ``packed_attention_bwd_reference`` as
+their plain PyTorch versions; ``flash_mha_packed`` runs both through one
+``torch.autograd.Function``.
 
-``packed_attention_fwd`` and ``packed_attention_bwd`` are the kernel
-wrappers: a CUDA tensor launches ``csrc/packed_attention.cu`` or
-``csrc/packed_attention_bwd.cu`` or raises, a CPU tensor takes
-``packed_attention_reference`` or ``packed_attention_bwd_reference``, the
-plain PyTorch versions of the same math. ``flash_mha_packed`` runs both
-through one ``torch.autograd.Function``.
+**Head-major layout** (any T; the long windows and the grouped encoder).
+Counterpart of ``flash_self_attention`` and its custom VJP ``_flash_core``:
+``q, k, v [B, H, T, d]`` in, ``[B, H, T, d]`` out, with the reference's
+wrapper semantics (blocks clipped to T, T padded up to a block multiple,
+routes chosen by the padded length). Five kernels, one wrapper each:
+
+* ``flash_fwd_single`` (``csrc/flash_attention.cu``): the whole key axis at
+  once, no running rescale; padded T ``<= max(block_k, SINGLE_K_MAX)``.
+* ``flash_fwd_tiled`` (same source): online softmax over key tiles; above that.
+* ``flash_bwd_fused`` (``csrc/flash_attention_bwd.cu``): dq, dk and dv from
+  one kernel; padded T ``<= max(min(block_q, block_k), FUSED_BWD_MAX)``.
+* ``flash_bwd_dkv`` and ``flash_bwd_dq`` (same source): the split pair; above
+  that. ``flash_delta`` (``rowsum(dout * out)``, plain XLA in the reference)
+  is a small kernel of that source run before either route.
+
+The reference reads its thresholds from environment variables; here they are
+the module constants ``SINGLE_K_MAX`` and ``FUSED_BWD_MAX``, which
+``flash_self_attention`` also takes as keyword arguments. The reference's
+bf16 streams on a TPU have no counterpart: every kernel of the port is f32.
+
+On both layouts key columns at or past a row's length are masked, queries are
+not; a row with no valid key gives exact zeros (and ``lse = NEG_INF``) and
+zero gradients. A CUDA tensor launches the kernel or raises, a CPU tensor
+takes the plain version; each wrapper counts its launches in
+``<wrapper>.launches``.
 """
 
 from __future__ import annotations
@@ -301,3 +323,393 @@ def flash_mha_packed(
         qkv.float().contiguous(), lengths.to(torch.int32).contiguous(), num_heads, float(sm_scale)
     )
     return out[:, :seq_len] if pad else out
+
+
+# ---------------------------------------------------------------------------
+# Head-major layout: flash_self_attention and its five kernels
+# ---------------------------------------------------------------------------
+
+# Padded length up to which the single-key-block forward and the fused
+# backward are routed (the reference's MSFA_FLASH_SINGLE_K_MAX and
+# MSFA_FLASH_FUSED_BWD_MAX defaults), and its default blocks.
+SINGLE_K_MAX = 2048
+FUSED_BWD_MAX = 1024
+BLOCK_Q = 512
+BLOCK_K = 512
+
+
+def _check_flash(q, k, v, lengths, heads: int) -> Tuple[int, int, int]:
+    """Shapes of the flattened ``[B*H, T, d]`` operands -> ``(B, T, d)``."""
+    if q.dim() != 3:
+        raise ValueError(f"q must be [B*H, T, d], got shape {tuple(q.shape)}")
+    if k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(
+            f"q, k, v must have equal shapes, got {tuple(q.shape)}, {tuple(k.shape)}, "
+            f"{tuple(v.shape)}"
+        )
+    rows, seq, head_dim = q.shape
+    if heads <= 0 or rows % heads:
+        raise ValueError(f"leading dim {rows} must be batch * heads (heads={heads})")
+    batch = rows // heads
+    if lengths.shape != (batch,):
+        raise ValueError(f"lengths must be [B] = [{batch}], got {tuple(lengths.shape)}")
+    for name, t in (("k", k), ("v", v), ("lengths", lengths)):
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+    return batch, seq, head_dim
+
+
+def _key_mask(lengths: torch.Tensor, heads: int, seq: int) -> torch.Tensor:
+    """``[B*H, 1, T]`` bool: key column below the row's length."""
+    cols = torch.arange(seq, device=lengths.device)[None, :]
+    mask = cols < lengths.to(torch.int64)[:, None]
+    return mask.repeat_interleave(heads, dim=0)[:, None, :]
+
+
+def flash_attention_reference(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lengths: torch.Tensor, heads: int,
+    sm_scale: float,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the single-key-block forward on ``[B*H, T, d]``:
+    ``(out [B*H, T, d], lse [B*H, T])``. One max, one exp, one normalise per
+    score row; masked scores ``NEG_INF``; exact zeros and ``lse = NEG_INF``
+    for rows without a valid key."""
+    _batch, seq, _d = _check_flash(q, k, v, lengths, heads)
+    colmask = _key_mask(lengths, heads, seq)
+    scores = torch.where(colmask, (q.float() @ k.float().transpose(-1, -2)) * sm_scale, NEG_INF)
+    m = scores.amax(dim=-1, keepdim=True)
+    p = torch.where(colmask, torch.exp(scores - m.clamp(min=NEG_INF / 2)), 0.0)
+    l = p.sum(dim=-1, keepdim=True)
+    safe_l = torch.where(l > 0, l, 1.0)
+    out = torch.where(l > 0, (p @ v.float()) / safe_l, 0.0)
+    lse = torch.where(l > 0, m + torch.log(safe_l), NEG_INF)
+    return out, lse[..., 0]
+
+
+def flash_attention_tiled_reference(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lengths: torch.Tensor, heads: int,
+    sm_scale: float, block_k: int = BLOCK_K,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the tiled forward: the same ``(out, lse)`` by
+    online softmax over key blocks of ``block_k`` (running max, correction,
+    rescaled accumulator), as the TPU kernel ``_flash_kernel`` merges them."""
+    _batch, seq, _d = _check_flash(q, k, v, lengths, heads)
+    q, k, v = q.float(), k.float(), v.float()
+    colmask = _key_mask(lengths, heads, seq)
+    m = torch.full(q.shape[:2] + (1,), NEG_INF, device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros_like(q)
+    for k0 in range(0, seq, block_k):
+        cols = slice(k0, min(k0 + block_k, seq))
+        valid = colmask[..., cols]
+        scores = torch.where(valid, (q @ k[:, cols].transpose(-1, -2)) * sm_scale, NEG_INF)
+        m_new = torch.maximum(m, scores.amax(dim=-1, keepdim=True))
+        p = torch.where(valid, torch.exp(scores - m_new), 0.0)
+        correction = torch.where(m <= NEG_INF, 0.0, torch.exp((m - m_new).clamp(max=0.0)))
+        l = l * correction + p.sum(dim=-1, keepdim=True)
+        acc = acc * correction + p @ v[:, cols]
+        m = m_new
+    safe_l = torch.where(l > 0, l, 1.0)
+    out = torch.where(l > 0, acc / safe_l, 0.0)
+    lse = torch.where(l > 0, m + torch.log(safe_l), NEG_INF)
+    return out, lse[..., 0]
+
+
+def _p_and_ds(q, k, v, lengths, heads, lse, delta, dout, sm_scale):
+    """``p`` and ``ds = p * (dp - delta) * sm_scale`` as the TPU backward
+    kernels recompute them from the saved ``lse``."""
+    colmask = _key_mask(lengths, heads, q.shape[1])
+    lse_col = lse.float()[..., None]
+    keep = colmask & (lse_col > NEG_INF / 2)
+    scores = (q @ k.transpose(-1, -2)) * sm_scale
+    p = torch.where(keep, torch.exp(scores - lse_col.clamp(min=NEG_INF / 2)), 0.0)
+    ds = p * (dout @ v.transpose(-1, -2) - delta.float()[..., None]) * sm_scale
+    return p, ds
+
+
+def _bwd_products(q, k, v, lengths, heads, lse, delta, dout, sm_scale, want=("dq", "dk", "dv")):
+    q, k, v, dout = q.float(), k.float(), v.float(), dout.float()
+    p, ds = _p_and_ds(q, k, v, lengths, heads, lse, delta, dout, sm_scale)
+    products = {"dq": lambda: ds @ k, "dk": lambda: ds.transpose(-1, -2) @ q,
+                "dv": lambda: p.transpose(-1, -2) @ dout}
+    return tuple(products[name]() for name in want)
+
+
+def flash_dkv_reference(q, k, v, lengths, heads: int, lse, delta, dout, sm_scale: float):
+    """Plain version of the split backward's first kernel -> ``(dk, dv)``."""
+    _check_flash(q, k, v, lengths, heads)
+    return _bwd_products(q, k, v, lengths, heads, lse, delta, dout, sm_scale, ("dk", "dv"))
+
+
+def flash_dq_reference(q, k, v, lengths, heads: int, lse, delta, dout, sm_scale: float):
+    """Plain version of the split backward's second kernel -> ``dq``."""
+    _check_flash(q, k, v, lengths, heads)
+    return _bwd_products(q, k, v, lengths, heads, lse, delta, dout, sm_scale, ("dq",))[0]
+
+
+def flash_bwd_fused_reference(q, k, v, lengths, heads: int, lse, delta, dout, sm_scale: float):
+    """Plain version of the fused backward -> ``(dq, dk, dv)``; p, dp and ds
+    are computed once, as the fused TPU kernel does."""
+    _check_flash(q, k, v, lengths, heads)
+    return _bwd_products(q, k, v, lengths, heads, lse, delta, dout, sm_scale)
+
+
+def flash_attention_bwd_reference(
+    q, k, v, lengths, heads: int, out, lse, dout, sm_scale: float
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the whole backward -> ``(dq, dk, dv)`` from
+    the forward's ``out`` and ``lse`` and the cotangent ``dout``, with
+    ``delta = rowsum(dout * out)``."""
+    delta = (dout.float() * out.float()).sum(dim=-1)
+    return flash_bwd_fused_reference(q, k, v, lengths, heads, lse, delta, dout, sm_scale)
+
+
+def _flash_kernel_call(source: str, symbol: str, tensors, outputs, lengths, heads: int,
+                       sm_scale: float, what: str):
+    """Check the kernel's inputs and launch ``symbol`` of ``source`` with the
+    argument order ``(*tensors, lengths?, *outputs, B, T, H, D, scale, stream)``
+    the C entry points share (``lengths`` follows q, k, v)."""
+    q = tensors[0]
+    batch, seq, head_dim = q.shape[0] // heads, q.shape[1], q.shape[2]
+    for i, t in enumerate(tensors):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{what}: kernel takes float32 tensors, got {t.dtype} (input {i})")
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: input {i} must be contiguous")
+        if t.device != q.device:
+            raise ValueError(f"{what}: input {i} is on {t.device}, q on {q.device}")
+    if lengths.dtype != torch.int32 or not lengths.is_contiguous():
+        raise TypeError(f"{what}: kernel takes contiguous int32 lengths, got {lengths.dtype}")
+    if head_dim not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"{what}: kernel supports head_dim in {KERNEL_HEAD_DIMS}, got {head_dim}")
+    lib = _build.library(source)
+    fn = getattr(lib, symbol)
+    n_ptrs = len(tensors) + 1 + len(outputs)
+    fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    pointers = [t.data_ptr() for t in tensors[:3]] + [lengths.data_ptr()]
+    pointers += [t.data_ptr() for t in tensors[3:]] + [t.data_ptr() for t in outputs]
+    with torch.cuda.device(q.device):
+        code = fn(*pointers, batch, seq, heads, head_dim, float(sm_scale),
+                  torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(lib, code, what)
+
+
+def _flash_fwd(kernel_symbol: str, reference, wrapper, q, k, v, lengths, heads, sm_scale):
+    _check_flash(q, k, v, lengths, heads)
+    if q.device.type == "cpu":
+        return reference()
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    out = torch.empty_like(q)
+    lse = torch.empty(q.shape[:2], device=q.device, dtype=torch.float32)
+    if q.numel():
+        _flash_kernel_call("flash_attention", kernel_symbol, (q, k, v), (out, lse), lengths,
+                           heads, sm_scale, wrapper.__name__)
+        wrapper.launches += 1
+    return out, lse
+
+
+def flash_fwd_single(q, k, v, lengths, heads: int, sm_scale: float):
+    """Kernel wrapper, single-key-block forward: ``(out [B*H,T,d], lse [B*H,T])``
+    from ``q, k, v [B*H, T, d]`` and ``lengths [B]``. CUDA tensors launch the
+    kernel (f32, contiguous, int32 lengths, head_dim in ``KERNEL_HEAD_DIMS``;
+    the launch is refused when 16 full score rows exceed a block's shared
+    memory, T above 2,944 at d = 64) or raise; CPU tensors take
+    ``flash_attention_reference``."""
+    return _flash_fwd(
+        "msfa_flash_fwd_single",
+        lambda: flash_attention_reference(q, k, v, lengths, heads, sm_scale),
+        flash_fwd_single, q, k, v, lengths, heads, sm_scale)
+
+
+flash_fwd_single.launches = 0
+
+
+def flash_fwd_tiled(q, k, v, lengths, heads: int, sm_scale: float, block_k: int = BLOCK_K):
+    """Kernel wrapper, tiled online-softmax forward: same contract as
+    ``flash_fwd_single`` for any T. CPU tensors take
+    ``flash_attention_tiled_reference`` with key blocks of ``block_k``; the
+    kernel's key tile is 64 whatever ``block_k`` is."""
+    return _flash_fwd(
+        "msfa_flash_fwd_tiled",
+        lambda: flash_attention_tiled_reference(q, k, v, lengths, heads, sm_scale, block_k),
+        flash_fwd_tiled, q, k, v, lengths, heads, sm_scale)
+
+
+flash_fwd_tiled.launches = 0
+
+
+def flash_delta(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
+    """``delta = rowsum(dout * out)`` -> ``[B*H, T]``, the softmax Jacobian's
+    row term that all three backward kernels read. A small kernel on the
+    card, a plain sum on the CPU."""
+    if out.shape != dout.shape or out.device != dout.device:
+        raise ValueError(f"out {tuple(out.shape)} on {out.device} and dout {tuple(dout.shape)} "
+                         f"on {dout.device} must match")
+    if out.device.type == "cpu":
+        return (dout.float() * out.float()).sum(dim=-1)
+    if out.device.type != "cuda":
+        raise ValueError(f"unsupported device {out.device}")
+    for name, t in (("out", out), ("dout", dout)):
+        if t.dtype != torch.float32 or not t.is_contiguous():
+            raise TypeError(f"flash_delta takes contiguous float32 {name}, got {t.dtype}")
+    delta = torch.empty(out.shape[:-1], device=out.device, dtype=torch.float32)
+    if delta.numel() == 0:
+        return delta
+    lib = _build.library("flash_attention_bwd")
+    fn = lib.msfa_flash_delta
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(out.device):
+        code = fn(out.data_ptr(), dout.data_ptr(), delta.data_ptr(), delta.numel(),
+                  out.shape[-1], torch.cuda.current_stream(out.device).cuda_stream)
+    _build.check(lib, code, "flash_delta")
+    return delta
+
+
+def _flash_bwd(symbol: str, reference, wrapper, n_out: int, q, k, v, lengths, heads, lse, delta,
+               dout, sm_scale):
+    _check_flash(q, k, v, lengths, heads)
+    for name, t, shape in (("lse", lse, q.shape[:2]), ("delta", delta, q.shape[:2]),
+                           ("dout", dout, q.shape)):
+        if t.shape != shape:
+            raise ValueError(f"{name} must have shape {tuple(shape)}, got {tuple(t.shape)}")
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+    if q.device.type == "cpu":
+        return reference(q, k, v, lengths, heads, lse, delta, dout, sm_scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    outputs = tuple(torch.empty_like(q) for _ in range(n_out))
+    if q.numel():
+        _flash_kernel_call("flash_attention_bwd", symbol, (q, k, v, lse, delta, dout), outputs,
+                           lengths, heads, sm_scale, wrapper.__name__)
+        wrapper.launches += 1
+    return outputs if n_out > 1 else outputs[0]
+
+
+def flash_bwd_fused(q, k, v, lengths, heads: int, lse, delta, dout, sm_scale: float):
+    """Kernel wrapper, fused backward: ``(dq, dk, dv)``, each ``[B*H, T, d]``,
+    from one kernel. CUDA tensors launch it or raise; CPU tensors take
+    ``flash_bwd_fused_reference``."""
+    return _flash_bwd("msfa_flash_bwd_fused", flash_bwd_fused_reference, flash_bwd_fused, 3,
+                      q, k, v, lengths, heads, lse, delta, dout, sm_scale)
+
+
+flash_bwd_fused.launches = 0
+
+
+def flash_bwd_dkv(q, k, v, lengths, heads: int, lse, delta, dout, sm_scale: float):
+    """Kernel wrapper, split backward, first kernel: ``(dk, dv)`` per key tile.
+    CUDA tensors launch it or raise; CPU tensors take ``flash_dkv_reference``."""
+    return _flash_bwd("msfa_flash_bwd_dkv", flash_dkv_reference, flash_bwd_dkv, 2,
+                      q, k, v, lengths, heads, lse, delta, dout, sm_scale)
+
+
+flash_bwd_dkv.launches = 0
+
+
+def flash_bwd_dq(q, k, v, lengths, heads: int, lse, delta, dout, sm_scale: float):
+    """Kernel wrapper, split backward, second kernel: ``dq`` per query tile
+    (recomputes the scores and dp). CUDA tensors launch it or raise; CPU
+    tensors take ``flash_dq_reference``."""
+    return _flash_bwd("msfa_flash_bwd_dq", flash_dq_reference, flash_bwd_dq, 1,
+                      q, k, v, lengths, heads, lse, delta, dout, sm_scale)
+
+
+flash_bwd_dq.launches = 0
+
+
+def flash_routes(padded_len: int, block_q: int = BLOCK_Q, block_k: int = BLOCK_K,
+                 single_k_max: int = SINGLE_K_MAX, fused_bwd_max: int = FUSED_BWD_MAX):
+    """``(forward, backward)`` route names for a padded length, as the
+    reference's ``_flash_forward`` and ``_flash_backward`` choose them:
+    ``"single"`` or ``"tiled"``, and ``"fused"`` or ``"split"``."""
+    forward = "single" if padded_len <= max(block_k, single_k_max) else "tiled"
+    backward = "fused" if padded_len <= max(min(block_q, block_k), fused_bwd_max) else "split"
+    return forward, backward
+
+
+class FlashAttention(torch.autograd.Function):
+    """``out = attention(q, k, v)`` on ``[B*H, T, d]`` with the routed kernels
+    as forward and backward (counterpart of the JAX package's custom VJP
+    ``_flash_core``). Saves ``q, k, v, lengths, out, lse``; no gradient for
+    the lengths."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, lengths, heads: int, sm_scale: float, routes, block_k: int):
+        if routes[0] == "single":
+            out, lse = flash_fwd_single(q, k, v, lengths, heads, sm_scale)
+        else:
+            out, lse = flash_fwd_tiled(q, k, v, lengths, heads, sm_scale, block_k)
+        ctx.save_for_backward(q, k, v, lengths, out, lse)
+        ctx.heads, ctx.sm_scale, ctx.route = heads, sm_scale, routes[1]
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, lengths, out, lse = ctx.saved_tensors
+        dout = dout.float().contiguous()
+        delta = flash_delta(out, dout)
+        args = (q, k, v, lengths, ctx.heads, lse, delta, dout, ctx.sm_scale)
+        if ctx.route == "fused":
+            dq, dk, dv = flash_bwd_fused(*args)
+        else:
+            dk, dv = flash_bwd_dkv(*args)
+            dq = flash_bwd_dq(*args)
+        return dq, dk, dv, None, None, None, None, None
+
+
+def flash_self_attention(
+    q: torch.Tensor,  # [B, H, T, d]
+    k: torch.Tensor,
+    v: torch.Tensor,
+    lengths: Optional[torch.Tensor] = None,  # [B] valid key timesteps
+    sm_scale: Optional[float] = None,
+    block_q: int = BLOCK_Q,
+    block_k: int = BLOCK_K,
+    *,
+    single_k_max: int = SINGLE_K_MAX,
+    fused_bwd_max: int = FUSED_BWD_MAX,
+) -> torch.Tensor:
+    """Attention on ``[B, H, T, d]`` -> ``[B, H, T, d]``; the scores never
+    reach device memory. Differentiable through ``FlashAttention``.
+
+    The reference's wrapper semantics: ``block_q`` and ``block_k`` are clipped
+    to T; a T that is not a multiple of both is padded with zeros up to a
+    multiple of the larger and the output sliced back (padded keys lie past
+    every length); ``lengths=None`` means all T keys; ``sm_scale`` defaults to
+    ``d ** -0.5``; the padded length picks the routes (``flash_routes``). The
+    kernels use their own 64-wide tiles whatever the blocks are; the blocks
+    decide padding and routing only, and on the card ``d`` must be one of
+    ``KERNEL_HEAD_DIMS`` (``ValueError`` otherwise).
+    """
+    if q.dim() != 4:
+        raise ValueError(f"q must be [B, H, T, d], got shape {tuple(q.shape)}")
+    if k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(
+            f"q, k, v must have equal shapes, got {tuple(q.shape)}, {tuple(k.shape)}, "
+            f"{tuple(v.shape)}"
+        )
+    batch, heads, seq_len, head_dim = q.shape
+    if lengths is None:
+        lengths = torch.full((batch,), seq_len, dtype=torch.int32, device=q.device)
+    if lengths.shape != (batch,):
+        raise ValueError(f"lengths must be [B] = [{batch}], got {tuple(lengths.shape)}")
+    if sm_scale is None:
+        sm_scale = head_dim**-0.5
+    block_q = min(block_q, seq_len)
+    block_k = min(block_k, seq_len)
+    pad = 0
+    if seq_len and (seq_len % block_q or seq_len % block_k):
+        target = max(block_q, block_k)
+        pad = -seq_len % target
+        q, k, v = (torch.nn.functional.pad(t, (0, 0, 0, pad)) for t in (q, k, v))
+    padded_len = seq_len + pad
+    routes = flash_routes(padded_len, block_q, block_k, single_k_max, fused_bwd_max)
+    flat = [t.float().reshape(batch * heads, padded_len, head_dim).contiguous() for t in (q, k, v)]
+    out = FlashAttention.apply(
+        *flat, lengths.to(torch.int32).contiguous(), heads, float(sm_scale), routes, block_k
+    ).reshape(batch, heads, padded_len, head_dim)
+    return out[:, :, :seq_len] if pad else out

@@ -1,7 +1,8 @@
 """Serving path: the inference function over the model's resident weights.
 
 Port of the JAX package's ``serving.py::make_serving_fn``. The encoders run
-as plain matmuls around the packed attention kernel; the 12-pair hybrid
+as plain matmuls around the attention kernels (packed up to 512 steps,
+``flash_self_attention`` beyond, or for a grouped encoder); the 12-pair hybrid
 head runs as one fused kernel (``ops/fusion.py``). AOT export bundles are
 queued (ROADMAP queue A item 9).
 """

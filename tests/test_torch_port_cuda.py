@@ -240,3 +240,92 @@ def test_fused_mlp_autograd_runs_both_kernels(card):
     want = torch.autograd.grad(h @ w2 + b2, leaves, dout)
     for a, b in zip(got, want):
         assert _rel_err(a, b) < GRAD_TOL
+
+
+# ---- flash_self_attention: the five head-major kernels ----------------------
+
+FLASH_SHAPES = [  # bh rows = batch * heads, T, head_dim: small, ragged, and the full shapes
+    (4, 2, 72, 64), (4, 2, 100, 16), (3, 1, 24, 128), (4, 2, 1100, 32), (32, 4, 1024, 64)]
+
+
+def _flash_inputs(card, batch, heads, seq, hd, seed):
+    g = torch.Generator().manual_seed(seed)
+    q, k, v, dout = (torch.randn(batch * heads, seq, hd, generator=g).to(card) for _ in range(4))
+    lengths = torch.randint(1, seq + 1, (batch,), generator=g, dtype=torch.int32)
+    lengths[:3] = torch.tensor([0, seq, 37 % seq], dtype=torch.int32)
+    return q, k, v, dout, lengths.to(card)
+
+
+@pytest.mark.parametrize("kernel", ["single", "tiled"])
+@pytest.mark.parametrize("batch,heads,seq,hd", FLASH_SHAPES + [(3, 4, 2048, 64)])
+def test_flash_forward_kernels_match_plain(card, kernel, batch, heads, seq, hd):
+    q, k, v, _dout, lengths = _flash_inputs(card, batch, heads, seq, hd, seq + hd)
+    fn = ta.flash_fwd_single if kernel == "single" else ta.flash_fwd_tiled
+    before = fn.launches
+    out, lse = fn(q, k, v, lengths, heads, hd**-0.5)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    ref_out, ref_lse = ta.flash_attention_reference(q, k, v, lengths, heads, hd**-0.5)
+    # f32 both; the kernels sum over 64-key tiles in another order
+    torch.testing.assert_close(out, ref_out, rtol=1e-5, atol=2e-5)
+    torch.testing.assert_close(lse, ref_lse, rtol=1e-5, atol=2e-5)
+    assert torch.all(out[:heads] == 0) and torch.all(lse[:heads] == ta.NEG_INF)
+
+
+@pytest.mark.parametrize("route", ["fused", "split"])
+@pytest.mark.parametrize("batch,heads,seq,hd", FLASH_SHAPES)
+def test_flash_backward_kernels_match_plain(card, route, batch, heads, seq, hd):
+    q, k, v, dout, lengths = _flash_inputs(card, batch, heads, seq, hd, 7 + seq + hd)
+    scale = hd**-0.5
+    out, lse = ta.flash_attention_reference(q, k, v, lengths, heads, scale)
+    delta = ta.flash_delta(out, dout)
+    torch.testing.assert_close(delta, (dout * out).sum(-1), rtol=1e-5, atol=1e-5)
+    args = (q, k, v, lengths, heads, lse, delta, dout, scale)
+    if route == "fused":
+        before = ta.flash_bwd_fused.launches
+        got = ta.flash_bwd_fused(*args)
+        assert ta.flash_bwd_fused.launches == before + 1
+    else:
+        before = (ta.flash_bwd_dkv.launches, ta.flash_bwd_dq.launches)
+        dk, dv = ta.flash_bwd_dkv(*args)
+        got = (ta.flash_bwd_dq(*args), dk, dv)
+        assert (ta.flash_bwd_dkv.launches, ta.flash_bwd_dq.launches) == (before[0] + 1, before[1] + 1)
+    torch.cuda.synchronize()
+    want = ta.flash_attention_bwd_reference(q, k, v, lengths, heads, out, lse, dout, scale)
+    for a, b in zip(got, want):
+        assert _rel_err(a, b) < GRAD_TOL
+        assert torch.all(a[:heads] == 0)  # length 0: no gradient at all
+    cut = 37 % seq  # batch row 2: keys past the length get exact zero dk, dv
+    assert torch.all(got[1][2 * heads:3 * heads, cut:] == 0)
+    assert torch.all(got[2][2 * heads:3 * heads, cut:] == 0)
+
+
+def test_flash_self_attention_on_the_card_routes_and_differentiates(card):
+    q, k, v, dout, lengths = _flash_inputs(card, 3, 2, 200, 64, 5)
+    leaves = [t.view(3, 2, 200, 64).clone().requires_grad_() for t in (q, k, v)]
+    counters = (ta.flash_fwd_single, ta.flash_fwd_tiled, ta.flash_bwd_fused, ta.flash_bwd_dkv,
+                ta.flash_bwd_dq, ta.packed_attention_fwd)
+    results = []
+    for kwargs, want in (({}, (1, 0, 1, 0, 0, 0)),
+                         ({"block_q": 64, "block_k": 64, "single_k_max": 0, "fused_bwd_max": 0},
+                          (0, 1, 0, 1, 1, 0))):
+        before = [fn.launches for fn in counters]
+        out = ta.flash_self_attention(*leaves, lengths, **kwargs)
+        grads = torch.autograd.grad(out, leaves, dout.view(3, 2, 200, 64))
+        assert tuple(fn.launches - b for fn, b in zip(counters, before)) == want
+        results.append((out, *grads))
+    for a, b in zip(*results):  # two routes, one function
+        assert _rel_err(a, b) < GRAD_TOL
+
+
+def test_flash_kernels_reject_what_they_do_not_take(card):
+    q = torch.zeros(4, 8, 8, device=card)  # head_dim 8
+    lengths = torch.full((2,), 8, dtype=torch.int32, device=card)
+    with pytest.raises(ValueError, match="head_dim"):
+        ta.flash_fwd_single(q, q, q, lengths, 2, 1.0)
+    q = torch.zeros(4, 8, 16, device=card)
+    with pytest.raises(TypeError, match="int32"):
+        ta.flash_fwd_tiled(q, q, q, lengths.long(), 2, 1.0)
+    with pytest.raises(RuntimeError, match="failed to launch"):  # 16 score rows of 8192 keys
+        big = torch.zeros(2, 8192, 16, device=card)
+        ta.flash_fwd_single(big, big, big, lengths[:1], 2, 1.0)

@@ -225,10 +225,18 @@ def test_port_init_is_seeded_and_flax_shaped():
 
 def test_from_config_rejects_unported_options():
     for override in ("mixed_precision=true", "model.moe_experts=4",
-                     "model.grouped_transformer=true", "parallel.pipeline_parallel=2"):
+                     "parallel.pipeline_parallel=2"):
         cfg = load_config(REPO / "config" / "base.yaml", SMALL + [override])
         with pytest.raises(NotImplementedError, match="not ported"):
             MultimodalFusionModel.from_config(cfg, device="cpu")
+    # ported since: the grouped transformer encoder and windows past the packed route
+    cfg = load_config(REPO / "config" / "base.yaml",
+                      SMALL + ["model.grouped_transformer=true", "dataset.chunk_size=1024"])
+    grouped = MultimodalFusionModel.from_config(cfg, device="cpu")
+    assert grouped.grouped_tf_names == NAMES and len(grouped.encoders) == 0
+    feats = {n: torch.zeros(1, 520, d) for n, d in zip(NAMES, DIMS)}
+    with torch.no_grad():
+        assert grouped(feats).shape == (1, 25)
     cfg = load_config(REPO / "config" / "base.yaml", SMALL + ["model.encoders.imu_hand.encoder_type=lstm"])
     with pytest.raises(NotImplementedError, match="ROADMAP queue A"):
         MultimodalFusionModel.from_config(cfg, device="cpu")
