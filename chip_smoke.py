@@ -12,7 +12,7 @@ Phases (any failure exits non-zero, and no result line is printed):
    kernels from ``ops/csrc`` (one ``nvcc`` per source, all at once), load the
    PAMAP2 train split (chunk 512, stride 128, instance normalisation) from
    ``data/pamap2`` onto the card.
-2. Kernels: each of the fifteen kernels against its plain PyTorch twin on the
+2. Kernels: each of the eighteen kernels against its plain PyTorch twin on the
    card, at the shapes the main paths give it, including edge cases:
    packed attention forward (B=64, T=512, H=4, d=64) and backward (B=32:
    the real batch's lengths and 0, 1, 37, 64, 65, 511, T; padded T=72);
@@ -63,6 +63,10 @@ Phases (any failure exits non-zero, and no result line is printed):
    512; the split dk/dv and dq kernels at T = 2048), on the real batches'
    lengths, on the edge lengths and on a padded T = 1100; the two forwards
    against each other at T = 2048; both routes timed at T = 1024 and 2048.
+   The three grouped-recurrence kernels (``ops/rnn.py``) at T = 512 and 1024,
+   G = 4, B = 64, H = 256, D = 17: a real batch's lengths, the edge lengths 0,
+   1, 37, T - 1, T, no lengths, and a B and a T that are not multiples of 8;
+   timed beside their plain loops and cuDNN (``nn.LSTM`` / ``nn.GRU``).
 7. Long: for ``dataset.chunk_size`` 1024 and 2048, real windows of that
    size; ``Trainer`` at batch 32 takes 8 micro-steps (launch counts: 4 per
    micro-step of the single-key-block forward and of the fused backward, or
@@ -77,7 +81,20 @@ Phases (any failure exits non-zero, and no result line is printed):
    training micro-steps (1 forward, 1 fused backward, 3 mask launches each),
    twice bit for bit, one against the plain path; one epoch of ``fit`` whose
    checkpoint is rebuilt from its directory alone.
-9. Print the kernel table as one JSON line, then the result line
+9. Rnn: the LSTM parity model (every encoder ``encoder_type=lstm
+   num_layers=1``: one ``GroupedRNNEncoder``, G = 4) at chunk 512 and 1024 and
+   the GRU model at 512: three batch-64 requests each (all modalities; one
+   missing; short lengths) with exactly one fused recurrence launch and one
+   head launch per request, against the same weights at
+   ``model.pallas_rnn=false`` with the plain head; p50 latency and device time
+   by family; one ``evaluate_model`` pass; the grouped model against the
+   ungrouped one on the weights unstacked; the precomputed-projection kernel's
+   path (the encoder's own x_proj product, ``grouped_lstm_forward``, the
+   projection, LayerNorms and the head kernel) against the served logits; then
+   ``Trainer`` at ``model.pallas_rnn=false`` (the plain loop: 8 micro-steps,
+   the same seed twice bit for bit, no kernel launched), and ``train=True``
+   with the kernels on must raise.
+10. Print the kernel table as one JSON line, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
 The script imports torch and the port only; it needs no network.
@@ -108,6 +125,12 @@ PEAK_BYTES = 3.35e12
 ATTN_TOL = 1e-4
 HEAD_TOL = 1e-4
 LOGIT_TOL = 1e-3  # four encoders and the head stacked: errors add up
+# the recurrences' final state: f32 on both sides, up to 1,024 dependent steps
+# whose products sum in another order; the gates squash what each step adds
+RNN_TOL = 1e-4
+# the served logits through grouped_lstm_forward on the encoder's own x_proj
+# against those through grouped_lstm_fused: one function, two kernels
+RNN_ROUTE_TOL = 1e-4
 # backward kernels and the LayerNorm kernels: max abs error relative to the
 # output's largest magnitude. f32 on both sides; the weight gradients are
 # sums over 16,384 rows taken in split row blocks, not in the twin's order
@@ -728,6 +751,124 @@ def check_flash_kernels(torch, attn, real_lengths):
     return rows
 
 
+RNN_G, RNN_H, RNN_D = 4, 256, 17  # the parity model's group: 4 modalities, hidden 256, D_max 17
+
+
+def check_rnn_kernels(torch, rnn, real_lengths):
+    """The three grouped-recurrence kernels vs their plain versions at the
+    parity model's shapes; ``real_lengths[T]`` are a real batch-64's lengths
+    at chunk T. Returns the three table rows."""
+    g = torch.Generator().manual_seed(5)
+    scale = RNN_H**-0.5
+
+    def u(*shape):
+        return ((torch.rand(*shape, generator=g) * 2 - 1) * scale).cuda()
+
+    weights = {}
+    for gates in (4, 3):
+        weights[gates] = (u(RNN_G, RNN_D, gates * RNN_H), u(RNN_G, RNN_H, gates * RNN_H),
+                          u(RNN_G, gates * RNN_H), u(RNN_G, gates * RNN_H))
+
+    def calls(name, x, lens):
+        """(kernel call, plain call) of one kernel on x [T, G, B, D]."""
+        w_ih, w_hh, b_ih, b_hh = weights[3 if name == "grouped_gru_fused" else 4]
+        if name == "grouped_lstm_forward":
+            x_proj = (torch.einsum("tgbd,gdh->tgbh", x, w_ih) + b_ih[None, :, None, :]).contiguous()
+            args = (x_proj, w_hh, b_hh, lens)
+        elif name == "grouped_lstm_fused":
+            args = (x, w_ih, w_hh, b_ih + b_hh, lens)
+        else:
+            args = (x, w_ih, w_hh, b_ih, b_hh, lens)
+        kernel, plain = getattr(rnn, name), getattr(rnn, name + "_plain")
+        return (lambda: kernel(*args)), (lambda: plain(*args))
+
+    names = ("grouped_lstm_forward", "grouped_lstm_fused", "grouped_gru_fused")
+    errs = dict.fromkeys(names, 0.0)
+    timed = {}
+    for seq in (512, 1024):
+        x = torch.randn(seq, RNN_G, BATCH, RNN_D, generator=g).cuda()
+        real = real_lengths[seq]
+        edge = real.clone().cpu()
+        edge[:6] = torch.tensor([0, 1, 37, seq - 1, seq, 8], dtype=torch.int32)
+        cases = [("real lengths", x, real), ("edge lengths", x, edge.cuda()), ("no lengths", x, None)]
+        if seq == 512:  # a B and a T that are not multiples of 8
+            cases.append(("B=13 T=509", x[:509, :, :13].contiguous(), edge[:13].cuda()))
+        for label, xc, lens in cases:
+            for name in names:
+                kernel, plain = calls(name, xc, lens)
+                got = kernel()
+                torch.cuda.synchronize()
+                want = plain()
+                e = (got - want).abs().max().item()
+                if lens is not None:
+                    for b in (lens == 0).nonzero().flatten().tolist():
+                        if got[:, b].abs().max().item() != 0.0:
+                            raise AssertionError(f"{name} {label}: a length-0 row is not zero")
+                print(f"  {name} T={xc.shape[0]} B={xc.shape[2]} {label}: max_abs_err {e:.3e} "
+                      f"(tol {RNN_TOL})", flush=True)
+                errs[name] = max(errs[name], e)
+        if max(errs.values()) > RNN_TOL:
+            raise AssertionError(f"recurrence kernels disagree with their plain versions: {errs}")
+
+        # times on the real batch's lengths; cuDNN through one module per group
+        # carrying the same weights, run over the full T for every row (its
+        # packed path refuses a length of 0, so lengths are not handled)
+        steps = float(real.clamp(0, seq).sum().item())
+        for name in names:
+            gates = 3 if name == "grouped_gru_fused" else 4
+            w_ih, w_hh, b_ih, b_hh = weights[gates]
+            kernel, plain = calls(name, x, real)
+            ms = time_ms(kernel, iters=5, warmup=2)
+            plain_ms = time_ms(plain, iters=2, warmup=1)
+            modules = []
+            for k in range(RNN_G):
+                mod = (torch.nn.GRU if gates == 3 else torch.nn.LSTM)(RNN_D, RNN_H).cuda()
+                with torch.no_grad():
+                    mod.weight_ih_l0.copy_(w_ih[k].t())
+                    mod.weight_hh_l0.copy_(w_hh[k].t())
+                    mod.bias_ih_l0.copy_(b_ih[k])
+                    mod.bias_hh_l0.copy_(b_hh[k])
+                mod.flatten_parameters()
+                modules.append(mod)
+            inputs = [x[:, k].contiguous() for k in range(RNN_G)]
+
+            @torch.inference_mode()
+            def library():
+                return [m(xi)[1] for m, xi in zip(modules, inputs)]
+
+            library_ms = time_ms(library, iters=5, warmup=2)
+            state = torch.stack([(h[0] if gates == 4 else h)[0] for h in library()])
+            full = real >= seq  # rows cuDNN ran to their true end
+            e_lib = (state[:, full] - kernel()[:, full]).abs().max().item()
+            in_cols = RNN_D if name != "grouped_lstm_forward" else 0
+            flops = 2.0 * RNN_G * RNN_H * gates * (RNN_H + in_cols) * steps
+            in_floats = RNN_G * (RNN_D if in_cols else gates * RNN_H) * steps
+            w_floats = RNN_G * gates * RNN_H * (RNN_H + in_cols + (2 if gates == 3 else 1))
+            nbytes = 4.0 * (in_floats + w_floats + BATCH + RNN_G * BATCH * RNN_H)
+            bound_ms, bound_by = bound(flops, nbytes)
+            print(f"  {name} T={seq}: ms={ms:.4f} ({ms / seq * 1e3:.3f} us per step) "
+                  f"plain_ms={plain_ms:.4f} cudnn_ms={library_ms:.4f} (4 nn.{'GRU' if gates == 3 else 'LSTM'} "
+                  f"calls over the full T, lengths not handled; max abs diff from the kernel on the "
+                  f"{int(full.sum())} full-length rows {e_lib:.3e}) bound_ms={bound_ms:.4f} ({bound_by}; "
+                  f"{steps:.0f} valid steps, {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)",
+                  flush=True)
+            timed[(name, seq)] = (ms, plain_ms, library_ms, bound_ms, bound_by)
+        del x
+    rows = []
+    for name, line in zip(names, (34, 86, 281)):
+        ms, plain_ms, library_ms, bound_ms, bound_by = timed[(name, 512)]
+        rows.append({
+            "name": name, "route": "cuda", "source": f"{PKG}/ops/csrc/rnn.cu",
+            "replaces": f"{TPU_PKG}/ops/pallas_rnn.py:{line}",
+            "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms,
+            "shape": [512, RNN_G, BATCH, RNN_D, RNN_H],
+            **{f"{key}_t1024": value for key, value in zip(
+                ("ms", "plain_ms", "library_ms", "bound_ms"), timed[(name, 1024)])},
+        })
+    return rows
+
+
 FAMILIES = (  # profiler kernel-name fragments -> family, first match wins
     ("packed_attention_fwd", ("packed_attention_fwd",)),
     ("flash_fwd_single", ("flash_fwd_single",)),
@@ -745,6 +886,8 @@ FAMILIES = (  # profiler kernel-name fragments -> family, first match wins
     ("dropout_keep_mask", ("dropout_mask_kernel",)),
     ("ln_bwd_sums", ("atb_partial", "reduce_splits", "colsum_partial")),
     ("fusion_head", ("fusion_head",)),
+    ("grouped_lstm", ("grouped_lstm",)),
+    ("grouped_gru", ("grouped_gru",)),
     ("gemm", ("gemm", "cutlass", "sm90_xmma", "nvjet")),
 )
 
@@ -1186,6 +1329,253 @@ def grouped_phase(torch, kernels, split, batches, train_idx, default_serve_p50, 
     return launches
 
 
+RNN_TRAIN_STEPS = 8
+
+
+def rnn_overrides(modalities, cell, chunk=512):
+    """base.yaml as the reference's LSTM parity model: every modality's
+    encoder ``encoder_type=<cell> num_layers=1`` (they group into one
+    ``GroupedRNNEncoder``), at ``dataset.chunk_size=<chunk>``."""
+    out = [f"dataset.chunk_size={chunk}"]
+    for m in modalities:
+        out += [f"model.encoders.{m}.encoder_type={cell}", f"model.encoders.{m}.num_layers=1"]
+    return out
+
+
+def rnn_serve(torch, kernels, cell, chunk, split, idx, smi, timed=12):
+    """Serve three batch-64 requests of the ``cell`` model at ``chunk`` with
+    exact launch counts, against the same weights at ``model.pallas_rnn=false``
+    with the plain head; then p50 and device time by family. Returns the
+    launches of the first request, the model and the first request."""
+    from multimodal_sensor_fusion_with_attention_rajeevatla_torch.models.module import (
+        MultimodalFusionModel,
+    )
+    from multimodal_sensor_fusion_with_attention_rajeevatla_torch.serving import make_serving_fn
+    from multimodal_sensor_fusion_with_attention_rajeevatla_torch.utils.config import load_config
+
+    label = f"{cell.upper()}{chunk}"
+    modalities = list(split.modalities)
+    overrides = rnn_overrides(modalities, cell, chunk)
+    cfg = load_config(REPO / "config" / "base.yaml", overrides)
+    model = MultimodalFusionModel.from_config(
+        cfg, device="cuda", generator=torch.Generator().manual_seed(int(cfg.seed)))
+    enc = model.grouped_rnn_encoder
+    if model.grouped_rnn_names != tuple(modalities) or not enc.use_pallas or enc.cell_type != cell:
+        raise AssertionError(f"{label}: the model did not group its encoders onto the kernels")
+    plain = MultimodalFusionModel.from_config(
+        load_config(REPO / "config" / "base.yaml", [*overrides, "model.pallas_rnn=false"]),
+        device="cuda")
+    plain.load_state_dict(model.state_dict())
+    serve = make_serving_fn(model, device="cuda")
+
+    @torch.inference_mode()
+    def serve_plain(feats, mask, lengths):
+        encoded = plain.encode(feats, lengths)
+        for m in modalities:
+            encoded.setdefault(m, torch.zeros((BATCH, plain.output_dim), device="cuda"))
+        return plain.fuse(encoded, mask)
+
+    # the first request also carries the split's short windows
+    short = (split.lengths < chunk).nonzero().flatten()[:8].cpu()
+    feats0, _l, lengths0 = split.gather(torch.cat([short, idx[0][: BATCH - len(short)]]))
+    feats1, _l, lengths1 = split.gather(idx[1])
+    missing = modalities[-1]  # the narrow member: zero-filled at its own width
+    mask1 = torch.ones((BATCH, len(modalities)), device="cuda")
+    mask1[:, -1] = 0.0
+    feats2, _l, _len = split.gather(idx[2])
+    lengths2 = torch.randint(1, 160, (BATCH,), generator=torch.Generator().manual_seed(7),
+                             dtype=torch.int32)
+    lengths2[:3] = torch.tensor([0, 37, 1], dtype=torch.int32)
+    requests = [
+        ("all modalities", feats0, None, lengths0),
+        (f"{missing} missing", {m: x for m, x in feats1.items() if m != missing}, mask1, lengths1),
+        ("short lengths", feats2, None, lengths2.cuda()),
+    ]
+    fused = "grouped_lstm_fused" if cell == "lstm" else "grouped_gru_fused"
+    want = {**dict.fromkeys(kernels, 0), fused: 1, "fused_hybrid_head": 1}
+    first = None
+    for name, feats, mask, lengths in requests:
+        for fn in kernels.values():
+            fn.launches = 0
+        got = serve(feats, mask, lengths)
+        torch.cuda.synchronize()
+        launches = {k: fn.launches for k, fn in kernels.items()}
+        first = first or launches
+        if launches != want:
+            raise AssertionError(f"{label} '{name}': launches {launches} != {want}")
+        ref = serve_plain(feats, mask, lengths)
+        torch.cuda.synchronize()
+        if {k: fn.launches for k, fn in kernels.items()} != launches:
+            raise AssertionError(f"{label}: the plain path launched a kernel")
+        if got.shape != (BATCH, model.num_classes) or not torch.isfinite(got).all():
+            raise AssertionError(f"{label} '{name}': bad logits {tuple(got.shape)}")
+        e = (got - ref).abs().max().item()
+        print(f"  {label} request '{name}': 1 {fused} + 1 head launch, logits {tuple(got.shape)} "
+              f"finite, max_abs_err vs plain path {e:.3e} (tol {LOGIT_TOL})", flush=True)
+        if e > LOGIT_TOL:
+            raise AssertionError(f"{label} '{name}': served logits disagree with the plain path: {e}")
+    del plain
+    torch.cuda.empty_cache()
+    lat = []
+    for i in range(timed):
+        feats, _labels, lengths = split.gather(idx[i % len(idx)])
+        t = time.perf_counter()
+        serve(feats, None, lengths)
+        torch.cuda.synchronize()
+        lat.append(time.perf_counter() - t)
+    lat = sorted(lat[2:])
+    p50 = lat[len(lat) // 2]
+    print(f"  {label}: serve batch {BATCH} p50 {p50 * 1e3:.3f} ms, {BATCH / p50:.1f} windows/s on "
+          f"{smi}", flush=True)
+
+    def run_requests(n):
+        for i in range(n):
+            feats, _labels, lengths = split.gather(idx[i % len(idx)])
+            serve(feats, None, lengths)
+        torch.cuda.synchronize()
+
+    profile(torch, run_requests, 6, "request")
+    return first, model, serve, requests[0]
+
+
+def rnn_phase(torch, kernels, split, modalities, stride, seed, smi):
+    """The recurrent model family on the card: served and evaluated through
+    the recurrence kernels, trained on the plain route. Returns launches by
+    path."""
+    from multimodal_sensor_fusion_with_attention_rajeevatla_torch.convert import (
+        ungroup_state_dict,
+    )
+    from multimodal_sensor_fusion_with_attention_rajeevatla_torch.evaluate import evaluate_model
+    from multimodal_sensor_fusion_with_attention_rajeevatla_torch.models.grouped import (
+        grouped_dense, stack_group_features,
+    )
+    from multimodal_sensor_fusion_with_attention_rajeevatla_torch.models.module import (
+        MultimodalFusionModel,
+    )
+    from multimodal_sensor_fusion_with_attention_rajeevatla_torch.ops import fusion, rnn
+    from multimodal_sensor_fusion_with_attention_rajeevatla_torch.utils.config import load_config
+
+    print("[rnn]", flush=True)
+    out = {}
+    splits = {512: split}
+    for cell, chunk in (("lstm", 512), ("lstm", 1024), ("gru", 512)):
+        label = f"{cell.upper()}{chunk}"
+        if chunk not in splits:
+            splits[chunk] = load_split(torch, modalities, chunk, stride)
+        data = splits[chunk]
+        idx = index_batches(torch, data, BATCH, seed)
+        out[f"serve_{cell}{chunk}"], model, serve, request = rnn_serve(
+            torch, kernels, cell, chunk, data, idx, smi)
+        _name, feats, _mask, lengths = request
+
+        if cell == "lstm":
+            # the precomputed-projection kernel's path: the encoder's own x_proj
+            # product, grouped_lstm_forward, projection, LayerNorms, head kernel
+            enc = model.grouped_rnn_encoder
+            params = fusion.hybrid_head_params(model.fusion_model)
+            for fn in kernels.values():
+                fn.launches = 0
+            with torch.inference_mode():
+                stacked = stack_group_features(feats, modalities)
+                x_proj = grouped_dense(stacked, enc.weight_ih_l0, enc.bias_ih_l0) \
+                    .permute(2, 0, 1, 3).contiguous()  # [T, G, B, 4H]
+                final = rnn.grouped_lstm_forward(
+                    x_proj, enc.weight_hh_l0.detach(), enc.bias_hh_l0.detach(),
+                    lengths.to(torch.int32))
+                embedded = grouped_dense(final, enc.proj_kernel, enc.proj_bias)
+                encoded = {m: model.layer_norms[m](embedded[i]) for i, m in enumerate(modalities)}
+                mask = torch.ones((BATCH, len(modalities)), device="cuda")
+                routed = fusion.hybrid_fused_inference(params, encoded, mask, modalities)
+            torch.cuda.synchronize()
+            launches = {k: fn.launches for k, fn in kernels.items()}
+            want = {**dict.fromkeys(kernels, 0), "grouped_lstm_forward": 1, "fused_hybrid_head": 1}
+            e = (routed - serve(feats, None, lengths)).abs().max().item()
+            print(f"  {label}: x_proj ({x_proj.numel() * 4 / 1e6:.0f} MB) -> grouped_lstm_forward -> "
+                  f"projection, LayerNorms, head kernel: logits max_abs_err vs the served ones "
+                  f"{e:.3e} (tol {RNN_ROUTE_TOL}); launches {launches}", flush=True)
+            if launches != want or e > RNN_ROUTE_TOL:
+                raise AssertionError(f"{label}: the grouped_lstm_forward path is off: {e}, {launches}")
+            out[f"forward_{cell}{chunk}"] = launches
+            del x_proj, stacked
+
+        if chunk == 512:
+            # the same function as four encoders carrying the same weights unstacked
+            cfg = load_config(REPO / "config" / "base.yaml",
+                              [*rnn_overrides(modalities, cell), "model.grouped_encoders=false"])
+            ungrouped = MultimodalFusionModel.from_config(cfg, device="cuda")
+            dims = {m: int(cfg.model.encoders[m].input_dim) for m in modalities}
+            ungrouped.load_state_dict(ungroup_state_dict(
+                model.state_dict(), (), dims, rnn_names=model.grouped_rnn_names))
+            with torch.inference_mode():
+                e = (model(feats, None, lengths)
+                     - ungrouped(feats, None, lengths)).abs().max().item()
+            print(f"  {label}: grouped model vs the ungrouped model on the same weights unstacked: "
+                  f"logits max_abs_err {e:.3e} (tol {LOGIT_TOL})", flush=True)
+            if e > LOGIT_TOL or ungrouped.grouped_rnn_names:
+                raise AssertionError(f"{label}: the grouped model is not the ungrouped model's "
+                                     f"function: {e}")
+            del ungrouped
+
+        if (cell, chunk) == ("lstm", 512):
+            test = load_split(torch, modalities, chunk, chunk, "test")
+            for fn in kernels.values():
+                fn.launches = 0
+            t = time.perf_counter()
+            metrics = evaluate_model(model, test, batch_size=32)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            out["eval_lstm512"] = {k: fn.launches for k, fn in kernels.items()}
+            print(f"  {label} evaluate_model on {metrics['num_samples']} test windows (random "
+                  f"weights) in {wall * 1e3:.1f} ms: accuracy {metrics['accuracy']:.4f}, loss "
+                  f"{metrics['loss']:.4f}; launches {out['eval_lstm512']}", flush=True)
+            others = {k: v for k, v in out["eval_lstm512"].items() if k != "grouped_lstm_fused"}
+            if not math.isfinite(metrics["loss"]) or out["eval_lstm512"]["grouped_lstm_fused"] <= 0 \
+                    or any(others.values()):
+                raise AssertionError("LSTM512 evaluation is not finite or left the recurrence kernel")
+            del test
+        del model, serve
+        torch.cuda.empty_cache()
+
+    # the family's training route as it stands: the plain loop under autograd
+    idx32 = index_batches(torch, split, 32, seed)
+    for cell, steps in (("lstm", RNN_TRAIN_STEPS), ("gru", RNN_TRAIN_STEPS // 2)):
+        label = f"{cell.upper()}512 model.pallas_rnn=false"
+        overrides = [*rnn_overrides(modalities, cell), "model.pallas_rnn=false"]
+        torch.cuda.reset_peak_memory_stats()
+        trainer = _trainer(torch, overrides)
+        step, losses, launches = counted_steps(torch, kernels, trainer, split, idx32, steps)
+        print(f"  {label}: {steps} micro-steps, {trainer.optimizer.count} updates; losses "
+              f"{[round(v, 5) for v in losses]}; launches {launches}", flush=True)
+        if any(launches.values()):
+            raise AssertionError(f"{label}: the plain training route launched a kernel")
+        _step2, losses2, _launches2 = counted_steps(
+            torch, kernels, _trainer(torch, overrides), split, idx32, steps)
+        print(f"  same seed again: losses bit-identical: {losses2 == losses}", flush=True)
+        if losses2 != losses:
+            raise AssertionError(f"{label}: the same seed gave other losses: {losses} then {losses2}")
+        del _step2
+        step_p50(torch, step, split, idx32, 32, label + " (the plain loop)", smi, iters=10)
+        if cell == "lstm":
+            def run(n):
+                for i in range(n):
+                    step(split, idx32[i % len(idx32)])
+                torch.cuda.synchronize()
+
+            profile(torch, run, 2, "micro-step")
+        out[f"train_{cell}512"] = launches
+        del trainer, step
+
+    kernel_trainer = _trainer(torch, rnn_overrides(modalities, "lstm"))
+    kernel_trainer.init_state(steps_per_epoch=len(idx32))
+    try:
+        kernel_trainer.make_train_step_fn()(split, idx32[0])
+    except NotImplementedError as err:
+        print(f"  train=True at model.pallas_rnn=auto raises NotImplementedError: {err}", flush=True)
+    else:
+        raise AssertionError("training through the unported recurrence kernels did not raise")
+    return out
+
+
 RESULT_KEYS = {"best_model_path", "best_val_loss", "config", "test_acc", "history",
                "train_wall_seconds"}
 EVAL_KEYS = {"dataset", "fusion_type", "test_accuracy", "test_f1_macro", "test_loss", "ece", "mce",
@@ -1342,7 +1732,7 @@ def main() -> int:
     )
     from multimodal_sensor_fusion_with_attention_rajeevatla_torch.ops import _build
     from multimodal_sensor_fusion_with_attention_rajeevatla_torch.ops import attention as attn
-    from multimodal_sensor_fusion_with_attention_rajeevatla_torch.ops import fusion, mlp
+    from multimodal_sensor_fusion_with_attention_rajeevatla_torch.ops import fusion, mlp, rnn
     from multimodal_sensor_fusion_with_attention_rajeevatla_torch.serving import make_serving_fn
     from multimodal_sensor_fusion_with_attention_rajeevatla_torch.utils.config import load_config
 
@@ -1426,6 +1816,8 @@ def main() -> int:
         real_lengths[chunk] = lengths.index_select(0, pick)
     rows += check_flash_kernels(torch, attn, real_lengths)
     torch.cuda.empty_cache()
+    rows += check_rnn_kernels(torch, rnn, {512: lengths0, 1024: real_lengths[1024]})
+    torch.cuda.empty_cache()
     kernels = {  # table row name -> wrapper with its launch counter
         "packed_attention_fwd": attn.packed_attention_fwd,
         "packed_attention_bwd": attn.packed_attention_bwd,
@@ -1437,6 +1829,9 @@ def main() -> int:
         "flash_fwd_single": attn.flash_fwd_single, "flash_fwd_tiled": attn.flash_fwd_tiled,
         "flash_bwd_fused": attn.flash_bwd_fused, "flash_bwd_dkv": attn.flash_bwd_dkv,
         "flash_bwd_dq": attn.flash_bwd_dq,
+        "grouped_lstm_forward": rnn.grouped_lstm_forward,
+        "grouped_lstm_fused": rnn.grouped_lstm_fused,
+        "grouped_gru_fused": rnn.grouped_gru_fused,
     }
 
     # ---- 3. serve: the main path ----------------------------------------------
@@ -1520,6 +1915,14 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         grouped_launches = grouped_phase(torch, kernels, split, idx_matrix, train_idx, p50, smi,
                                          Path(tmp))
+
+    # ---- 9. the recurrent model family ----------------------------------------
+    rnn_launches = rnn_phase(torch, kernels, split, modalities, stride, int(cfg.seed), smi)
+    rnn_paths = {  # the path each recurrence kernel runs on
+        "grouped_lstm_forward": rnn_launches["forward_lstm512"],
+        "grouped_lstm_fused": rnn_launches["serve_lstm512"],
+        "grouped_gru_fused": rnn_launches["serve_gru512"],
+    }
     flash_paths = {  # the path each flash kernel was ported for
         "flash_fwd_single": long_launches["train1024"], "flash_fwd_tiled": long_launches["serve4096"],
         "flash_bwd_fused": long_launches["train1024"], "flash_bwd_dkv": long_launches["train2048"],
@@ -1539,6 +1942,9 @@ def main() -> int:
             path = flash_paths[name]
             row["serve_launches"] = {c: long_launches[f"serve{c}"][name] for c in LONG_CHUNKS}
             row["grouped_launches"] = {k: v[name] for k, v in grouped_launches.items()}
+        elif name in rnn_paths:
+            path = rnn_paths[name]
+            row["rnn_launches"] = {k: v[name] for k, v in rnn_launches.items()}
         else:
             path = train_launches
         row["launches"] = path[name]

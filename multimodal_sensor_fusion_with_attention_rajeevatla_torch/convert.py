@@ -12,6 +12,12 @@ The flax tree of the reference's ``MultimodalFusionModel.init`` maps as:
     fusion_model/pairs/<x>_kernel|<x>_bias        -> fusion_model.pairs.<same>
     grouped_transformer_enc/<p>/kernel|bias|scale -> grouped_tf_encoder.<p>_kernel|_bias|_scale
     grouped_transformer_enc/proj_kernel|proj_bias -> grouped_tf_encoder.<same>
+    encoders_<m>/rnn/<w>_l<k>                     -> encoders.<m>.rnn.<same>
+    grouped_rnn/<w>_l<k>|proj_kernel|proj_bias    -> grouped_rnn_encoder.<same>
+
+(``<w>`` is ``weight_ih``, ``weight_hh``, ``bias_ih`` or ``bias_hh`` of an lstm
+or gru encoder; recurrent weights keep the reference's ``[in, gates*H]`` layout,
+stacked ``[G, in, gates*H]`` in the grouped encoder.)
 
 (``<p>`` is ``input_projection``, ``{q,k,v,out}_proj_l<i>``, ``linear{1,2}_l<i>``
 or ``norm{1,2}_l<i>`` of a model built with ``model.grouped_transformer``; its
@@ -23,8 +29,9 @@ reference's ``[in, out]`` layout, which is how the port stores them. Inputs
 are numpy arrays (``np.asarray`` of the jax arrays); this module needs no JAX.
 ``to_flax_tree`` is the reverse: port tensors (weights or their gradients)
 as a flax-layout tree of numpy arrays, so that two trees compare leaf by leaf.
-``ungroup_state_dict`` unstacks a grouped model's weights into the per-modality
-encoders of the ungrouped model, which computes the same function.
+``ungroup_state_dict`` unstacks a grouped model's weights (transformer or
+recurrent group) into the per-modality encoders of the ungrouped model, which
+computes the same function.
 """
 
 from __future__ import annotations
@@ -38,6 +45,8 @@ import torch
 
 GROUPED_FLAX = "grouped_transformer_enc"
 GROUPED_PORT = "grouped_tf_encoder"
+GROUPED_RNN_FLAX = "grouped_rnn"
+GROUPED_RNN_PORT = "grouped_rnn_encoder"
 
 
 def _flatten(tree: Mapping, prefix=()) -> Dict[tuple, np.ndarray]:
@@ -79,9 +88,12 @@ def from_flax_variables(variables: Mapping) -> Dict[str, torch.Tensor]:
             state[".".join([GROUPED_PORT, "_".join([*module[1:], leaf])])] = torch.from_numpy(
                 np.array(array, dtype=np.float32))
             continue
+        if module == [GROUPED_RNN_FLAX]:
+            module = [GROUPED_RNN_PORT]
         names = _module_path(tuple(module))
-        if module and module[-1] == "pairs":
-            names.append(leaf)  # stacked [P, H, H] / [P, H] kept as they are
+        if module and module[-1] in ("pairs", "rnn", GROUPED_RNN_PORT):
+            # stacked [P, H, H] / [P, H] and the recurrent tensors kept as they are
+            names.append(leaf)
         elif leaf == "kernel":
             if array.ndim != 2:
                 raise ValueError(f"unexpected kernel shape {array.shape} at {'/'.join(path)}")
@@ -145,8 +157,10 @@ def to_flax_tree(
             if not leaf.startswith("proj_"):  # <p>_kernel -> <p>/kernel
                 param, _, leaf = leaf.rpartition("_")
                 module.append(param)
-        elif module and module[-1] == "pairs":
-            pass  # stacked [P, H, H] / [P, H] kept as they are
+        elif module == [GROUPED_RNN_PORT]:
+            module = [GROUPED_RNN_FLAX]
+        elif module and module[-1] in ("pairs", "rnn"):
+            pass  # stacked [P, H, H] / [P, H] and the recurrent tensors kept as they are
         elif leaf == "weight" and array.ndim == 2:
             leaf, array = "kernel", array.T
         elif leaf == "weight":
@@ -159,17 +173,35 @@ def to_flax_tree(
 
 
 def ungroup_state_dict(
-    state: Mapping[str, torch.Tensor], names: Sequence[str], input_dims: Mapping[str, int]
+    state: Mapping[str, torch.Tensor],
+    names: Sequence[str],
+    input_dims: Mapping[str, int],
+    rnn_names: Sequence[str] = (),
 ) -> Dict[str, torch.Tensor]:
-    """The ``state_dict`` of a model built with ``model.grouped_transformer``
-    -> that of the ungrouped model carrying the same weights: member ``g`` of
-    every stacked tensor becomes the tensor of ``encoders.<names[g]>`` (a
-    kernel ``[in, out]`` transposed to ``weight [out, in]``; the input
-    projection cut back from the group's padded width to the member's own).
-    Every other entry passes through."""
+    """The ``state_dict`` of a grouped model -> that of the ungrouped model
+    carrying the same weights. ``names`` are the members of the transformer
+    group (``model.grouped_tf_names``), ``rnn_names`` those of the recurrent
+    group (``model.grouped_rnn_names``): member ``g`` of every stacked tensor
+    becomes the tensor of ``encoders.<member g>`` (a dense kernel ``[in, out]``
+    transposed to ``weight [out, in]``, recurrent weights as they are; the
+    first layer's input weights cut back from the group's padded width to the
+    member's own). Every other entry passes through."""
     out: Dict[str, torch.Tensor] = {}
-    prefix = GROUPED_PORT + "."
+    prefix, rnn_prefix = GROUPED_PORT + ".", GROUPED_RNN_PORT + "."
     for key, value in state.items():
+        if key.startswith(rnn_prefix):
+            param = key[len(rnn_prefix):]
+            for g, name in enumerate(rnn_names):
+                member = value[g]
+                if param == "weight_ih_l0":
+                    member = member[: int(input_dims[name])]
+                if param == "proj_kernel":
+                    out[f"encoders.{name}.projection.weight"] = member.t().contiguous()
+                elif param == "proj_bias":
+                    out[f"encoders.{name}.projection.bias"] = member.clone()
+                else:
+                    out[f"encoders.{name}.rnn.{param}"] = member.clone()
+            continue
         if not key.startswith(prefix):
             out[key] = value
             continue

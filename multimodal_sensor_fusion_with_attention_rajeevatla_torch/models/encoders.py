@@ -1,7 +1,8 @@
 """Per-modality encoders, port of the JAX package's ``models/encoders.py``.
 
 Ported: the transformer branch of ``SequenceEncoder`` and its post-LN
-``TransformerEncoderLayer`` (dense feed-forward), in eval and train mode.
+``TransformerEncoderLayer`` (dense feed-forward), and the LSTM / GRU branch
+with ``RNNStack``, in eval and train mode.
 The layer runs its q/k/v projections as one ``[H, 3H]`` matmul. With
 ``flash_attention`` set, a sequence that fits the packed route (padded
 T <= 512) feeds that packed output to ``ops.attention.flash_mha_packed``
@@ -31,9 +32,15 @@ as the reference does.
 Linear layers are ``nn.Linear`` (weight ``[out, in]``); ``models.module``
 initialises them like flax (lecun-normal kernels, zero biases).
 
-The LSTM, GRU and CNN branches, ``FrameEncoder`` and ``SimpleMLPEncoder``
-are not ported yet (ROADMAP queue A item 10) and raise
-``NotImplementedError``.
+``RNNStack`` (reference ``_RNNStack``) is the plain recurrence: one input
+projection for all steps, then a loop over time of ``ops.rnn``'s shared cell
+step with the carry frozen past each row's length. The reference runs it as
+an XLA scan and no kernel, so there is none here; the recurrence kernels
+serve the grouped encoder (``models.grouped.GroupedRNNEncoder``). Its weights
+keep the reference's ``[in, gates*H]`` layout.
+
+The CNN branch, ``FrameEncoder`` and ``SimpleMLPEncoder`` are not ported yet
+(ROADMAP queue A item 10) and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -47,6 +54,7 @@ from torch.nn import functional as F
 
 from ..ops.attention import flash_mha_packed, flash_self_attention, packed_route_ok
 from ..ops.masked import lengths_to_mask, masked_mean_pool, masked_softmax
+from ..ops.rnn import rnn_scan
 from ..ops.mlp import (
     RNG_P_ATT,
     RNG_P_HIDDEN,
@@ -257,9 +265,60 @@ class TransformerEncoderLayer(nn.Module):
         return self.norm2(x + ff)
 
 
+class RNNStack(nn.Module):
+    """Multi-layer LSTM / GRU (reference ``_RNNStack``): torch gate order,
+    every layer's per-step outputs feed the next, dropout only between
+    layers, returns the last layer's final hidden state ``[B, H]``."""
+
+    def __init__(self, input_dim: int, hidden_dim: int, num_layers: int, cell_type: str,
+                 dropout: float = 0.0):
+        super().__init__()
+        if cell_type not in ("lstm", "gru"):
+            raise ValueError(f"Unknown cell type: {cell_type}")
+        self.hidden_dim = hidden_dim
+        self.num_layers = num_layers
+        self.cell_type = cell_type
+        self.dropout = dropout
+        gates = (4 if cell_type == "lstm" else 3) * hidden_dim
+        for layer in range(num_layers):
+            in_dim = input_dim if layer == 0 else hidden_dim
+            for name, shape in (("weight_ih", (in_dim, gates)), ("weight_hh", (hidden_dim, gates)),
+                                ("bias_ih", (gates,)), ("bias_hh", (gates,))):
+                self.register_parameter(f"{name}_l{layer}", nn.Parameter(torch.zeros(shape)))
+
+    @torch.no_grad()
+    def init_parameters(self, generator: torch.Generator) -> None:
+        """torch's RNN init, as the reference: every tensor ~ U(+-H^-0.5)."""
+        scale = self.hidden_dim**-0.5
+        for param in self.parameters():
+            param.uniform_(-scale, scale, generator=generator)
+
+    def forward(
+        self,
+        sequence: torch.Tensor,  # [B, T, D]
+        lengths: Optional[torch.Tensor] = None,  # [B]
+        train: bool = False,
+        generator: Optional[torch.Generator] = None,
+    ) -> torch.Tensor:
+        layer_input = sequence
+        for layer in range(self.num_layers):
+            w_ih, w_hh, b_ih, b_hh = (
+                getattr(self, f"{name}_l{layer}")
+                for name in ("weight_ih", "weight_hh", "bias_ih", "bias_hh"))
+            # one [B*T, D] x [D, gates*H] product feeds the whole loop
+            x_proj = (layer_input @ w_ih + b_ih).transpose(0, 1)  # [T, B, gates*H]
+            last = layer == self.num_layers - 1
+            final_state, outputs = rnn_scan(
+                self.cell_type, x_proj, w_hh, b_hh, lengths, return_outputs=not last)
+            if not last:
+                layer_input = dropout(outputs.transpose(0, 1), self.dropout, train, generator)
+        return final_state
+
+
 class SequenceEncoder(nn.Module):
-    """Time series -> fixed embedding; transformer branch (reference
-    ``SequenceEncoder``), with the reference's error strings."""
+    """Time series -> fixed embedding; the transformer and lstm / gru
+    branches (reference ``SequenceEncoder``), with the reference's error
+    strings."""
 
     def __init__(
         self,
@@ -277,10 +336,15 @@ class SequenceEncoder(nn.Module):
         super().__init__()
         if encoder_type not in ("lstm", "gru", "cnn", "transformer"):
             raise ValueError(f"Unknown encoder type: {encoder_type}")
-        if encoder_type != "transformer":
+        if encoder_type == "cnn":
             raise NotImplementedError(f"SequenceEncoder encoder_type={encoder_type!r} {_NOT_PORTED}")
+        self.encoder_type = encoder_type
         self.hidden_dim = hidden_dim
         self.dropout = dropout
+        if encoder_type in ("lstm", "gru"):
+            self.rnn = RNNStack(input_dim, hidden_dim, num_layers, encoder_type, dropout)
+            self.projection = nn.Linear(hidden_dim, output_dim)
+            return
         self.input_projection = nn.Linear(input_dim, hidden_dim)
         nhead = 4 if hidden_dim % 4 == 0 else 1
         self.layers = nn.ModuleList(
@@ -304,6 +368,9 @@ class SequenceEncoder(nn.Module):
             raise ValueError(
                 f"Expected 3D input sequence, got shape {tuple(sequence.shape)}"
             )
+        if self.encoder_type in ("lstm", "gru"):
+            final_state = self.rnn(sequence, lengths=lengths, train=train, generator=generator)
+            return self.projection(dropout(final_state, self.dropout, train, generator))
         seq_len = sequence.shape[1]
         x = self.input_projection(sequence)
         valid_mask = lengths_to_mask(lengths, seq_len) if lengths is not None else None

@@ -1,6 +1,18 @@
-"""Grouped transformer encoder, port of the JAX package's ``models/grouped.py``.
+"""Grouped encoders, port of the JAX package's ``models/grouped.py``.
 
-Ported: ``GroupedTransformerEncoder`` (G same-signature per-modality
+``GroupedRNNEncoder``: G same-signature per-modality LSTM / GRU stacks
+evaluated as one recurrence over a leading group axis, with
+``groupable_modalities``. Stacked parameters keep the reference's names and
+layout (``weight_ih_l<k> [G, in, gates*H]`` ...). In eval mode with
+``use_pallas`` and one layer, the whole group is one launch of
+``ops.rnn.grouped_lstm_fused`` / ``grouped_gru_fused`` on the raw stacked
+input; otherwise the input projection is one G-batched product and the
+recurrence the plain loop ``ops.rnn.rnn_scan``, which autograd differentiates.
+Training through the recurrence kernels (the reference's
+``grouped_*_trainable``) is not ported yet (ROADMAP B8) and raises;
+``mixed_precision`` is not ported either.
+
+``GroupedTransformerEncoder`` (G same-signature per-modality
 transformer stacks evaluated as one pass over a leading group axis),
 ``groupable_transformer_modalities`` and ``stack_group_features``. Member
 weights are stacked ``[G, in, out]`` in the reference's layout, one
@@ -19,8 +31,6 @@ residual), from the generator kernel ``ops.mlp.dropout_keep_mask`` when
 ``flash_attention`` is on, else from ``torch.rand`` on the caller's
 generator. The grouped encoder does not use the fused projection/FFW
 LayerNorm kernels; the reference does not either.
-
-``GroupedRNNEncoder`` is not ported yet (ROADMAP queue A item 10).
 """
 
 from __future__ import annotations
@@ -40,6 +50,7 @@ from ..ops.mlp import (
     kernel_rng_seed,
     ln_rows,
 )
+from ..ops.rnn import grouped_gru_fused, grouped_lstm_fused, rnn_scan
 from .encoders import dropout, keep_mask, lecun_normal_, resolve_dropout_rng
 
 _DENSE = ("q_proj", "k_proj", "v_proj", "out_proj", "linear1", "linear2")
@@ -52,6 +63,106 @@ def grouped_dense(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor) -> 
     flat = x.reshape(groups, -1, x.shape[-1])
     out = torch.baddbmm(bias[:, None, :], flat, kernel)
     return out.reshape(*x.shape[:-1], kernel.shape[-1])
+
+
+class GroupedRNNEncoder(nn.Module):
+    """G independent LSTM / GRU stacks as one recurrence. Input
+    ``[G, B, T, D_max]`` (features zero-padded to the group's widest member:
+    the padded columns meet weight rows that multiply zeros), output
+    ``[G, B, output_dim]``: each member's final hidden state, dropout and
+    projection applied, what ``SequenceEncoder`` gives per modality."""
+
+    def __init__(
+        self,
+        num_groups: int,
+        input_dim: int,
+        hidden_dim: int = 256,
+        output_dim: int = 128,
+        num_layers: int = 1,
+        cell_type: str = "lstm",
+        dropout: float = 0.1,
+        use_pallas: bool = False,
+    ):
+        super().__init__()
+        if cell_type not in ("lstm", "gru"):
+            raise ValueError(f"Unknown cell type: {cell_type}")
+        self.num_groups = num_groups
+        self.input_dim = input_dim
+        self.hidden_dim = hidden_dim
+        self.output_dim = output_dim
+        self.num_layers = num_layers
+        self.cell_type = cell_type
+        self.dropout = dropout
+        self.use_pallas = use_pallas
+        gates = (4 if cell_type == "lstm" else 3) * hidden_dim
+        for layer in range(num_layers):
+            in_dim = input_dim if layer == 0 else hidden_dim
+            for name, shape in (("weight_ih", (in_dim, gates)), ("weight_hh", (hidden_dim, gates)),
+                                ("bias_ih", (gates,)), ("bias_hh", (gates,))):
+                self.register_parameter(
+                    f"{name}_l{layer}", nn.Parameter(torch.zeros(num_groups, *shape)))
+        self.proj_kernel = nn.Parameter(torch.zeros(num_groups, hidden_dim, output_dim))
+        self.proj_bias = nn.Parameter(torch.zeros(num_groups, output_dim))
+
+    @torch.no_grad()
+    def init_parameters(self, generator: torch.Generator) -> None:
+        """The reference's init: recurrent tensors ~ U(+-H^-0.5); the
+        projection G independent lecun-normal kernels (the group axis is a
+        batch axis, so fan_in is H) and zero biases."""
+        scale = self.hidden_dim**-0.5
+        for name, param in self.named_parameters():
+            if name == "proj_kernel":
+                lecun_normal_(param, param.shape[1], generator)
+            elif name == "proj_bias":
+                param.zero_()
+            else:
+                param.uniform_(-scale, scale, generator=generator)
+
+    def forward(
+        self,
+        stacked: torch.Tensor,  # [G, B, T, D_max]
+        lengths: Optional[torch.Tensor] = None,  # [B]
+        train: bool = False,
+        generator: Optional[torch.Generator] = None,
+    ) -> torch.Tensor:
+        if stacked.dim() != 4 or stacked.shape[0] != self.num_groups:
+            raise ValueError(
+                f"Expected [G={self.num_groups}, B, T, D] input, got shape {tuple(stacked.shape)}"
+            )
+        if self.use_pallas and self.num_layers == 1:
+            if train:
+                raise NotImplementedError(
+                    "training through the recurrence kernels (grouped_lstm_trainable / "
+                    "grouped_gru_trainable) is not ported yet (ROADMAP B8); train with "
+                    "model.pallas_rnn=false")
+            # the whole group, input projection included, in one launch
+            x = stacked.permute(2, 0, 1, 3).contiguous()  # [G,B,T,D] -> [T,G,B,D]
+            lens = lengths.to(torch.int32) if lengths is not None else None
+            w_ih, w_hh, b_ih, b_hh = (
+                getattr(self, f"{name}_l0").detach()
+                for name in ("weight_ih", "weight_hh", "bias_ih", "bias_hh"))
+            if self.cell_type == "lstm":
+                # the LSTM's gate biases are purely additive
+                final_state = grouped_lstm_fused(x, w_ih, w_hh, b_ih + b_hh, lens)
+            else:
+                final_state = grouped_gru_fused(x, w_ih, w_hh, b_ih, b_hh, lens)
+        else:
+            layer_input = stacked
+            for layer in range(self.num_layers):
+                w_ih, w_hh, b_ih, b_hh = (
+                    getattr(self, f"{name}_l{layer}")
+                    for name in ("weight_ih", "weight_hh", "bias_ih", "bias_hh"))
+                # one G-batched product feeds the whole loop: [G,B,T,D] x [G,D,gates*H]
+                x_proj = grouped_dense(layer_input, w_ih, b_ih).permute(2, 0, 1, 3)
+                last = layer == self.num_layers - 1
+                final_state, outputs = rnn_scan(
+                    self.cell_type, x_proj, w_hh, b_hh, lengths, return_outputs=not last)
+                if not last:
+                    # per-step outputs [T,G,B,H] feed the next layer as [G,B,T,H]
+                    layer_input = dropout(
+                        outputs.permute(1, 2, 0, 3), self.dropout, train, generator)
+        dropped = dropout(final_state, self.dropout, train, generator)
+        return grouped_dense(dropped, self.proj_kernel, self.proj_bias)
 
 
 class GroupedTransformerEncoder(nn.Module):
@@ -226,6 +337,37 @@ def groupable_transformer_modalities(
         hidden, layers, flash, drng = next(iter(signatures))
         return candidates, {"hidden_dim": hidden, "num_layers": layers,
                             "flash_attention": flash, "dropout_rng": drng}
+    return [], {}
+
+
+def groupable_modalities(
+    modalities: Sequence[str], encoder_configs: Mapping[str, Mapping[str, Any]]
+) -> Tuple[List[str], Dict[str, Any]]:
+    """Subset of modalities that one grouped recurrence can encode: sequence
+    encoders (by ``type``, or by the modality's name when it has none) with
+    an lstm or gru cell, all sharing (cell, hidden_dim, num_layers). Returns
+    ``(names, shared_config)``; names is empty when fewer than two qualify
+    or their signatures differ."""
+    candidates = []
+    signatures = set()
+    for name in modalities:
+        cfg = dict(encoder_configs.get(name, {}) or {})
+        etype = cfg.get("type")
+        if etype is None:
+            key = name.lower()
+            is_seq = key in ("imu", "audio", "mocap", "accelerometer") or key.startswith("imu_")
+        else:
+            is_seq = etype == "sequence"
+        if not is_seq:
+            continue
+        cell = cfg.get("encoder_type", "lstm")
+        if cell not in ("lstm", "gru"):
+            continue
+        signatures.add((cell, cfg.get("hidden_dim"), int(cfg.get("num_layers", 2))))
+        candidates.append(name)
+    if len(candidates) >= 2 and len(signatures) == 1:
+        cell, hidden, layers = next(iter(signatures))
+        return candidates, {"encoder_type": cell, "hidden_dim": hidden, "num_layers": layers}
     return [], {}
 
 

@@ -1,16 +1,20 @@
 """The flagship model: per-modality encoders + fusion head.
 
-Port of the JAX package's ``models/module.py`` for the transformer,
-hybrid-fusion configuration that ``config/base.yaml`` builds: one
-``SequenceEncoder`` per modality, or with ``model.grouped_transformer`` one
-``GroupedTransformerEncoder`` over the same-signature transformer modalities
-and per-modality encoders for the rest; a per-modality LayerNorm (``ln_<m>``,
-flax defaults), then ``HybridFusion``. Weights come from ``init_parameters`` (a
-seeded ``torch.Generator``, flax's initialisers) or from a converted flax
-checkpoint (``convert.from_flax_variables``). ``train=True`` runs the
-training forward: dropout masks come from the ``generator`` passed along,
-and the transformer layers take the fused residual-LayerNorm kernels when
-``fused_mlp`` and ``fused_mlp_ln`` are on.
+Port of the JAX package's ``models/module.py`` for the hybrid-fusion
+configurations that ``config/base.yaml`` builds: one ``SequenceEncoder``
+(transformer, lstm or gru) per modality; with ``model.grouped_encoders`` (the
+default) one ``GroupedRNNEncoder`` over the modalities whose lstm / gru
+encoders share a signature, its recurrence through the kernels of
+``ops/rnn.py`` when ``model.pallas_rnn`` is on; with
+``model.grouped_transformer`` one ``GroupedTransformerEncoder`` over the
+same-signature transformer modalities; per-modality encoders for the rest; a
+per-modality LayerNorm (``ln_<m>``, flax defaults), then ``HybridFusion``.
+Weights come from ``init_parameters`` (a seeded ``torch.Generator``, the
+reference's initialisers) or from a converted flax checkpoint
+(``convert.from_flax_variables``). ``train=True`` runs the training forward:
+dropout masks come from the ``generator`` passed along, and the transformer
+layers take the fused residual-LayerNorm kernels when ``fused_mlp`` and
+``fused_mlp_ln`` are on.
 """
 
 from __future__ import annotations
@@ -22,10 +26,12 @@ from torch import nn
 
 from ..utils.device import resolve_device
 from .attention import StackedPairAttention
-from .encoders import LayerNorm, build_encoder, lecun_normal_
+from .encoders import LayerNorm, RNNStack, build_encoder, lecun_normal_
 from .fusion import build_fusion_model
 from .grouped import (
+    GroupedRNNEncoder,
     GroupedTransformerEncoder,
+    groupable_modalities,
     groupable_transformer_modalities,
     stack_group_features,
 )
@@ -47,9 +53,10 @@ def _parse_flag(value, name: str) -> bool:
 
 @torch.no_grad()
 def init_parameters(model: nn.Module, generator: torch.Generator) -> nn.Module:
-    """flax initialisation: lecun-normal kernels (stacked pair kernels use
-    fan_in = P * H, as flax computes it for a ``[P, H, H]`` shape), zero
-    biases, unit LayerNorm scales. Walks modules in registration order."""
+    """The reference's initialisation: lecun-normal kernels (stacked pair
+    kernels use fan_in = P * H, as flax computes it for a ``[P, H, H]``
+    shape), zero biases, unit LayerNorm scales, uniform recurrent weights.
+    Walks modules in registration order."""
     for module in model.modules():
         if isinstance(module, nn.Linear):
             lecun_normal_(module.weight, module.in_features, generator)
@@ -62,7 +69,7 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> nn.Module:
         elif isinstance(module, LayerNorm):
             module.weight.fill_(1.0)
             module.bias.zero_()
-        elif isinstance(module, GroupedTransformerEncoder):
+        elif isinstance(module, (GroupedTransformerEncoder, GroupedRNNEncoder, RNNStack)):
             module.init_parameters(generator)
     return model
 
@@ -83,6 +90,7 @@ class MultimodalFusionModel(nn.Module):
         dropout: float = 0.1,
         grouped_encoders: bool = True,
         grouped_transformer: bool = False,
+        pallas_rnn: bool = False,
     ):
         super().__init__()
         self.modalities = tuple(modalities)
@@ -95,6 +103,22 @@ class MultimodalFusionModel(nn.Module):
         self._grouped_dims = {
             n: int(configs.get(n, {}).get("input_dim", 64) or 64) for n in self.modalities
         }
+        self.grouped_rnn_names: tuple = ()
+        self.grouped_rnn_encoder = None
+        if grouped_encoders:
+            rnn_names, shared = groupable_modalities(self.modalities, configs)
+            if rnn_names:
+                self.grouped_rnn_names = tuple(rnn_names)
+                self.grouped_rnn_encoder = GroupedRNNEncoder(
+                    num_groups=len(rnn_names),
+                    input_dim=max(self._grouped_dims[n] for n in rnn_names),
+                    hidden_dim=int(shared.get("hidden_dim") or hidden_dim),
+                    output_dim=output_dim,
+                    num_layers=int(shared.get("num_layers") or 1),
+                    cell_type=shared["encoder_type"],
+                    dropout=dropout,
+                    use_pallas=pallas_rnn,
+                )
         self.grouped_tf_names: tuple = ()
         self.grouped_tf_encoder = None
         if grouped_encoders and grouped_transformer:
@@ -120,7 +144,7 @@ class MultimodalFusionModel(nn.Module):
                     encoder_config=configs.get(name, {}),
                 )
                 for name in self.modalities
-                if name not in self.grouped_tf_names
+                if name not in self.grouped_rnn_names + self.grouped_tf_names
             }
         )
         self.layer_norms = (
@@ -162,22 +186,24 @@ class MultimodalFusionModel(nn.Module):
              if n in features and features[n].dim() == 3),
             None,
         )
-        present = [n for n in self.grouped_tf_names if n in features]
-        if present:
-            names_out = self.grouped_tf_names
+        for names_out, encoder in ((self.grouped_rnn_names, self.grouped_rnn_encoder),
+                                   (self.grouped_tf_names, self.grouped_tf_encoder)):
+            present = [n for n in names_out if n in features]
+            if not present:
+                continue
+            full = features
             if len(present) < len(names_out):
                 # some members missing: they are zero-filled at their own
                 # feature width and their outputs discarded
                 template = features[present[0]]
-                features = dict(features)
+                full = dict(features)
                 for n in names_out:
-                    features.setdefault(n, template.new_zeros(
+                    full.setdefault(n, template.new_zeros(
                         (*template.shape[:2], self._grouped_dims[n])))
-            stacked = stack_group_features(features, names_out)
+            stacked = stack_group_features(full, names_out)
             # the members share one time axis
             grp_lengths = self._scale_lengths(lengths, ref_len, int(stacked.shape[2]))
-            group_out = self.grouped_tf_encoder(
-                stacked, lengths=grp_lengths, train=train, generator=generator)
+            group_out = encoder(stacked, lengths=grp_lengths, train=train, generator=generator)
             for i, name in enumerate(names_out):
                 if name not in present:
                     continue
@@ -185,8 +211,9 @@ class MultimodalFusionModel(nn.Module):
                 if self.layer_norms is not None:
                     emb = self.layer_norms[name](emb)
                 encoded[name] = emb
+        grouped = self.grouped_rnn_names + self.grouped_tf_names
         for name in self.modalities:
-            if name not in features or name in self.grouped_tf_names:
+            if name not in features or name in grouped:
                 continue
             x = features[name]
             mod_lengths = (
@@ -262,6 +289,7 @@ class MultimodalFusionModel(nn.Module):
             key: _parse_flag(model_cfg.get(key, "auto"), key)
             for key in ("flash_attention", "fused_mlp", "fused_mlp_ln")
         }
+        pallas_rnn = _parse_flag(model_cfg.get("pallas_rnn", False), "pallas_rnn")
         dropout = float(model_cfg.get("dropout", 0.1))
         train_cfg = config.get("training", {}) or {}
         dropout_rng = str(train_cfg.get("dropout_rng", "auto") or "auto").lower()
@@ -296,6 +324,7 @@ class MultimodalFusionModel(nn.Module):
             dropout=dropout,
             grouped_encoders=bool(model_cfg.get("grouped_encoders", True)),
             grouped_transformer=bool(model_cfg.get("grouped_transformer", False)),
+            pallas_rnn=pallas_rnn,
         )
         if generator is None:
             generator = torch.Generator().manual_seed(int(config.get("seed", 0) or 0))

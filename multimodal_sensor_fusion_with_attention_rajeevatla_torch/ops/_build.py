@@ -35,6 +35,7 @@ SOURCES = {
     "ffw_ln": "ffw_ln.cu",
     "ffw": "ffw.cu",
     "dropout_mask": "dropout_mask.cu",
+    "rnn": "rnn.cu",
 }
 NVCC_FLAGS = [
     "-gencode=arch=compute_90a,code=sm_90a",

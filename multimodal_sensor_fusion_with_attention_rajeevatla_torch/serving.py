@@ -1,10 +1,12 @@
 """Serving path: the inference function over the model's resident weights.
 
-Port of the JAX package's ``serving.py::make_serving_fn``. The encoders run
-as plain matmuls around the attention kernels (packed up to 512 steps,
-``flash_self_attention`` beyond, or for a grouped encoder); the 12-pair hybrid
-head runs as one fused kernel (``ops/fusion.py``). AOT export bundles are
-queued (ROADMAP queue A item 9).
+Port of the JAX package's ``serving.py::make_serving_fn``. Transformer
+encoders run as plain matmuls around the attention kernels (packed up to 512
+steps, ``flash_self_attention`` beyond, or for a grouped encoder); grouped
+lstm / gru encoders run their whole recurrence as one kernel launch
+(``ops/rnn.py``, with ``model.pallas_rnn`` on); the 12-pair hybrid head runs as
+one fused kernel (``ops/fusion.py``). AOT export bundles are queued (ROADMAP
+queue A item 9).
 """
 
 from __future__ import annotations

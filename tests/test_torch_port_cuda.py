@@ -11,6 +11,7 @@ import torch
 from multimodal_sensor_fusion_with_attention_rajeevatla_torch.ops import attention as ta
 from multimodal_sensor_fusion_with_attention_rajeevatla_torch.ops import fusion as tf
 from multimodal_sensor_fusion_with_attention_rajeevatla_torch.ops import mlp as tm
+from multimodal_sensor_fusion_with_attention_rajeevatla_torch.ops import rnn as tr
 
 pytestmark = pytest.mark.cuda
 
@@ -329,3 +330,74 @@ def test_flash_kernels_reject_what_they_do_not_take(card):
     with pytest.raises(RuntimeError, match="failed to launch"):  # 16 score rows of 8192 keys
         big = torch.zeros(2, 8192, 16, device=card)
         ta.flash_fwd_single(big, big, big, lengths[:1], 2, 1.0)
+
+
+# ---- grouped recurrences: the three inference kernels ------------------------
+
+RNN_SHAPES = [  # T, G, B, D, H: small and ragged (B, T not multiples of 8, H not of 32), full width
+    (22, 2, 5, 3, 16), (37, 3, 13, 8, 48), (24, 1, 8, 1, 300), (512, 4, 64, 17, 256)]
+
+
+def _rnn_inputs(card, steps, groups, batch, feat, hidden, gates, seed):
+    g = torch.Generator().manual_seed(seed)
+    scale = hidden**-0.5
+
+    def u(*shape):
+        return ((torch.rand(*shape, generator=g) * 2 - 1) * scale).to(card)
+
+    x = torch.randn(steps, groups, batch, feat, generator=g).to(card)
+    lengths = torch.randint(1, steps + 1, (batch,), generator=g, dtype=torch.int32)
+    lengths[:5] = torch.tensor([0, 1, steps, steps - 1, 37 % steps], dtype=torch.int32)
+    return (x, u(groups, feat, gates * hidden), u(groups, hidden, gates * hidden),
+            u(groups, gates * hidden), u(groups, gates * hidden), lengths.to(card))
+
+
+@pytest.mark.parametrize("with_lengths", [True, False], ids=["lengths", "full"])
+@pytest.mark.parametrize("steps,groups,batch,feat,hidden", RNN_SHAPES)
+@pytest.mark.parametrize("fn", ["lstm_forward", "lstm_fused", "gru_fused"])
+def test_grouped_recurrence_kernels_match_plain(card, fn, steps, groups, batch, feat, hidden,
+                                                with_lengths):
+    gates = 3 if fn == "gru_fused" else 4
+    x, w_ih, w_hh, b_ih, b_hh, lengths = _rnn_inputs(
+        card, steps, groups, batch, feat, hidden, gates, steps + hidden)
+    lens = lengths if with_lengths else None
+    if fn == "lstm_forward":
+        x_proj = (torch.einsum("tgbd,gdh->tgbh", x, w_ih) + b_ih[None, :, None, :]).contiguous()
+        kernel, plain, args = tr.grouped_lstm_forward, tr.grouped_lstm_forward_plain, \
+            (x_proj, w_hh, b_hh, lens)
+    elif fn == "lstm_fused":
+        kernel, plain, args = tr.grouped_lstm_fused, tr.grouped_lstm_fused_plain, \
+            (x, w_ih, w_hh, b_ih + b_hh, lens)
+    else:
+        kernel, plain, args = tr.grouped_gru_fused, tr.grouped_gru_fused_plain, \
+            (x, w_ih, w_hh, b_ih, b_hh, lens)
+    before = kernel.launches
+    got = kernel(*args)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    want = plain(*args)
+    assert got.shape == (groups, batch, hidden)
+    # f32 both; up to 512 dependent steps whose products sum in another order
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    if with_lengths:
+        assert torch.all(got[:, 0] == 0)  # length 0: the zero state, exactly
+
+
+def test_grouped_recurrence_kernels_reject_what_they_do_not_take(card):
+    x = torch.zeros(4, 2, 3, 5, device=card)
+    w_ih, w_hh = torch.zeros(2, 5, 64, device=card), torch.zeros(2, 16, 64, device=card)
+    bias = torch.zeros(2, 64, device=card)
+    with pytest.raises(ValueError, match="contiguous"):
+        tr.grouped_lstm_fused(x.permute(0, 1, 3, 2).contiguous().permute(0, 1, 3, 2), w_ih, w_hh,
+                              bias)
+    with pytest.raises(TypeError, match="int32"):
+        tr.grouped_lstm_fused(x, w_ih, w_hh, bias, torch.zeros(3, dtype=torch.int64, device=card))
+    with pytest.raises(ValueError, match="lengths is on"):
+        tr.grouped_lstm_fused(x, w_ih, w_hh, bias, torch.zeros(3, dtype=torch.int32))
+    with pytest.raises(RuntimeError, match="failed to launch"):  # h and c of 8 rows: 384 KB
+        big = torch.zeros(2, 4096, 4 * 4096, device=card)
+        tr.grouped_lstm_forward(torch.zeros(1, 2, 3, 4 * 4096, device=card), big,
+                                torch.zeros(2, 4 * 4096, device=card))
+    w3, b3 = torch.zeros(2, 5, 48, device=card), torch.zeros(2, 48, device=card)
+    empty = tr.grouped_gru_fused(x[:, :, :0], w3, torch.zeros(2, 16, 48, device=card), b3, b3)
+    assert empty.shape == (2, 0, 16)  # an empty batch launches nothing

@@ -96,9 +96,13 @@ def test_sequence_encoder_matches_jax(use_flash, with_lengths):
 def test_sequence_encoder_errors_keep_reference_strings():
     with pytest.raises(ValueError, match=re.escape("Unknown encoder type: rnn")):
         te.SequenceEncoder(4, encoder_type="rnn")
-    for kind in ("lstm", "gru", "cnn"):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue A"):
-            te.SequenceEncoder(4, encoder_type=kind)
+    with pytest.raises(NotImplementedError, match="ROADMAP queue A"):
+        te.SequenceEncoder(4, encoder_type="cnn")
+    for kind in ("lstm", "gru"):  # ported since: the recurrent branch
+        enc = te.SequenceEncoder(4, hidden_dim=8, output_dim=4, num_layers=1, encoder_type=kind)
+        assert isinstance(enc.rnn, te.RNNStack) and enc.rnn.cell_type == kind
+        with pytest.raises(ValueError, match=re.escape("Expected 3D input sequence, got shape (2, 5)")):
+            enc(torch.zeros(2, 5))
     enc = te.SequenceEncoder(4, hidden_dim=8, output_dim=4, num_layers=1, encoder_type="transformer")
     with pytest.raises(ValueError, match=re.escape("Expected 3D input sequence, got shape (2, 5)")):
         enc(torch.zeros(2, 5))
@@ -237,7 +241,13 @@ def test_from_config_rejects_unported_options():
     feats = {n: torch.zeros(1, 520, d) for n, d in zip(NAMES, DIMS)}
     with torch.no_grad():
         assert grouped(feats).shape == (1, 25)
+    # ported since: the lstm / gru encoders (one alone stays ungrouped)
     cfg = load_config(REPO / "config" / "base.yaml", SMALL + ["model.encoders.imu_hand.encoder_type=lstm"])
+    mixed = MultimodalFusionModel.from_config(cfg, device="cpu")
+    assert mixed.grouped_rnn_encoder is None and mixed.encoders["imu_hand"].encoder_type == "lstm"
+    with torch.no_grad():
+        assert mixed({n: x[:, :24] for n, x in feats.items()}).shape == (1, 25)
+    cfg = load_config(REPO / "config" / "base.yaml", SMALL + ["model.encoders.imu_hand.encoder_type=cnn"])
     with pytest.raises(NotImplementedError, match="ROADMAP queue A"):
         MultimodalFusionModel.from_config(cfg, device="cpu")
 
