@@ -12,7 +12,7 @@ Phases (any failure exits non-zero, and no result line is printed):
    kernels from ``ops/csrc`` (one ``nvcc`` per source, all at once), load the
    PAMAP2 train split (chunk 512, stride 128, instance normalisation) from
    ``data/pamap2`` onto the card.
-2. Kernels: each of the eighteen kernels against its plain PyTorch twin on the
+2. Kernels: each of the twenty-two kernels against its plain PyTorch twin on the
    card, at the shapes the main paths give it, including edge cases:
    packed attention forward (B=64, T=512, H=4, d=64) and backward (B=32:
    the real batch's lengths and 0, 1, 37, 64, 65, 511, T; padded T=72);
@@ -67,6 +67,14 @@ Phases (any failure exits non-zero, and no result line is printed):
    G = 4, B = 64, H = 256, D = 17: a real batch's lengths, the edge lengths 0,
    1, 37, T - 1, T, no lengths, and a B and a T that are not multiples of 8;
    timed beside their plain loops and cuDNN (``nn.LSTM`` / ``nn.GRU``).
+   The four recurrence training kernels (forward with residuals, reverse-time
+   backward; LSTM and GRU) at T = 512 and 1024, G = 4, B = 32, H = 256: a
+   real batch's lengths, the edge lengths, no lengths, and B = 13 / T = 509;
+   the forward within 1e-4 abs of its twin in every output, the backward
+   within 1e-4 of its largest magnitude on the twin's residuals, both exactly
+   zero past each length; timed beside their plain loops and cuDNN (forward
+   in training mode, backward alone, and both), with the x_proj copy and the
+   dW_hh product the wrapper adds timed apart.
 7. Long: for ``dataset.chunk_size`` 1024 and 2048, real windows of that
    size; ``Trainer`` at batch 32 takes 8 micro-steps (launch counts: 4 per
    micro-step of the single-key-block forward and of the fused backward, or
@@ -91,9 +99,15 @@ Phases (any failure exits non-zero, and no result line is printed):
    ungrouped one on the weights unstacked; the precomputed-projection kernel's
    path (the encoder's own x_proj product, ``grouped_lstm_forward``, the
    projection, LayerNorms and the head kernel) against the served logits; then
-   ``Trainer`` at ``model.pallas_rnn=false`` (the plain loop: 8 micro-steps,
-   the same seed twice bit for bit, no kernel launched), and ``train=True``
-   with the kernels on must raise.
+   ``Trainer`` at base.yaml's ``pallas_rnn: auto`` for LSTM512 (8 micro-steps)
+   and GRU512 (4): exactly one training forward and one training backward
+   launch per micro-step and none of any other kernel, the same seed twice
+   bit for bit, one micro-step against ``model.pallas_rnn=false`` on the same
+   weights and seed, p50 and device time by family, and the plain loop's p50
+   beside it (no kernel launched); LSTM1024's micro-step p50; one epoch of
+   ``Trainer.fit`` for LSTM512, its ``last`` checkpoint reloaded from its
+   directory, and ``evaluate_checkpoint`` on it, whose MC-dropout pass
+   launches the training forward kernel.
 10. Print the kernel table as one JSON line, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
@@ -869,6 +883,165 @@ def check_rnn_kernels(torch, rnn, real_lengths):
     return rows
 
 
+RNN_TRAIN_B = 32  # the recurrent family's train batch
+
+
+def _cudnn_train(torch, cell, x, weights):
+    """The library yardstick of the training pair: four ``nn.LSTM`` /
+    ``nn.GRU`` modules (one per group) carrying the same weights, over raw
+    ``x [T, G, B, D]`` for the full T (cuDNN's packed path refuses a length
+    of 0, so lengths are not handled; it also does the input projection).
+    Returns ``(forward ms, forward + backward ms, backward alone ms)``; timed
+    only, never called by the port."""
+    w_ih, w_hh, b_ih, b_hh = weights
+    modules = []
+    for k in range(RNN_G):
+        mod = (torch.nn.GRU if cell == "gru" else torch.nn.LSTM)(RNN_D, RNN_H).cuda()
+        with torch.no_grad():
+            mod.weight_ih_l0.copy_(w_ih[k].t())
+            mod.weight_hh_l0.copy_(w_hh[k].t())
+            mod.bias_ih_l0.copy_(b_ih[k])
+            mod.bias_hh_l0.copy_(b_hh[k])
+        mod.flatten_parameters()
+        modules.append(mod)
+    inputs = [x[:, k].contiguous() for k in range(RNN_G)]
+    params = [p for m in modules for p in m.parameters()]
+
+    def forward():
+        out = [m(xi)[1] for m, xi in zip(modules, inputs)]
+        return [h[0] if cell == "lstm" else h for h in out]
+
+    grads = [torch.ones_like(h) for h in forward()]
+
+    def forward_backward():
+        torch.autograd.grad(forward(), params, grads)
+
+    fwd_ms = time_ms(forward, iters=5, warmup=2)
+    fwd_bwd_ms = time_ms(forward_backward, iters=5, warmup=2)
+    states = forward()
+    bwd_ms = time_ms(lambda: torch.autograd.grad(states, params, grads, retain_graph=True),
+                     iters=5, warmup=2)
+    return fwd_ms, fwd_bwd_ms, bwd_ms
+
+
+def check_rnn_train_kernels(torch, rnn, real_lengths):
+    """The four recurrence training kernels vs their plain versions at the
+    LSTM / GRU models' training shapes (G 4, B 32, H 256); ``real_lengths[T]``
+    are a real batch-32's lengths at chunk T. The backward kernels take the
+    twin's residuals, so both sides get the same inputs. Returns the four
+    table rows."""
+    g = torch.Generator().manual_seed(6)
+    scale = RNN_H**-0.5
+
+    def u(*shape):
+        return ((torch.rand(*shape, generator=g) * 2 - 1) * scale).cuda()
+
+    pairs = {"lstm": ("lstm_train_fwd", "lstm_train_bwd"), "gru": ("gru_train_fwd", "gru_train_bwd")}
+    errs = {name: 0.0 for pair in pairs.values() for name in pair}
+    timed = {}
+    for seq in (512, 1024):
+        real = real_lengths[seq]
+        edge = real.clone().cpu()
+        edge[:6] = torch.tensor([0, 1, 37, seq - 1, seq, 8], dtype=torch.int32)
+        for cell, (fwd_name, bwd_name) in pairs.items():
+            gates = 4 if cell == "lstm" else 3
+            fwd, bwd = getattr(rnn, fwd_name), getattr(rnn, bwd_name)
+            fwd_plain, bwd_plain = getattr(rnn, fwd_name + "_plain"), getattr(rnn, bwd_name + "_plain")
+            x_proj = torch.randn(seq, RNN_G, RNN_TRAIN_B, gates * RNN_H, generator=g).cuda()
+            w_hh, b_hh = u(RNN_G, RNN_H, gates * RNN_H), u(RNN_G, gates * RNN_H)
+            dh = torch.randn(RNN_G, RNN_TRAIN_B, RNN_H, generator=g).cuda()
+            cases = [("real lengths", x_proj, real, dh), ("edge lengths", x_proj, edge.cuda(), dh),
+                     ("no lengths", x_proj, None, dh)]
+            if seq == 512:  # a B and a T that are not multiples of 8
+                cases.append(("B=13 T=509", x_proj[:509, :, :13].contiguous(), edge[:13].cuda(),
+                              dh[:, :13].contiguous()))
+            for label, xp, lens, dhc in cases:
+                got = fwd(xp, w_hh, b_hh, lens)
+                torch.cuda.synchronize()
+                want = fwd_plain(xp, w_hh, b_hh, lens)
+                e_fwd = max((a - b).abs().max().item() for a, b in zip(got, want))
+                dx = bwd(*want[1:], w_hh, lens, dhc)
+                torch.cuda.synchronize()
+                e_bwd = rel_err(dx, bwd_plain(*want[1:], w_hh, lens, dhc))
+                if lens is not None:  # residuals and cotangent exactly zero past each length
+                    past = torch.arange(xp.shape[0], device="cuda")[:, None] >= lens[None, :]
+                    for t in (*got[1:], dx):
+                        if (t.permute(0, 2, 1, 3)[past] != 0).any().item():
+                            raise AssertionError(f"{cell} {label}: nonzero past a row's length")
+                    if (got[0][:, lens == 0] != 0).any().item():
+                        raise AssertionError(f"{fwd_name} {label}: a length-0 row is not zero")
+                print(f"  {fwd_name} T={xp.shape[0]} B={xp.shape[2]} {label}: max_abs_err {e_fwd:.3e} "
+                      f"(tol {RNN_TOL}); {bwd_name}: rel err {e_bwd:.3e} (tol {GRAD_TOL})",
+                      flush=True)
+                errs[fwd_name] = max(errs[fwd_name], e_fwd)
+                errs[bwd_name] = max(errs[bwd_name], e_bwd)
+            if errs[fwd_name] > RNN_TOL or errs[bwd_name] > GRAD_TOL:
+                raise AssertionError(f"recurrence training kernels disagree with their twins: {errs}")
+
+            # times on the real lengths
+            steps = float(real.clamp(0, seq).sum().item())
+            res = fwd_plain(x_proj, w_hh, b_hh, real)[1:]
+            fwd_ms = time_ms(lambda: fwd(x_proj, w_hh, b_hh, real), iters=5, warmup=2)
+            bwd_ms = time_ms(lambda: bwd(*res, w_hh, real, dh), iters=5, warmup=2)
+            fwd_plain_ms = time_ms(lambda: fwd_plain(x_proj, w_hh, b_hh, real), iters=2, warmup=1)
+            bwd_plain_ms = time_ms(lambda: bwd_plain(*res, w_hh, real, dh), iters=2, warmup=1)
+            x = torch.randn(seq, RNN_G, RNN_TRAIN_B, RNN_D, generator=g).cuda()
+            weights = (u(RNN_G, RNN_D, gates * RNN_H), w_hh, u(RNN_G, gates * RNN_H), b_hh)
+            lib_fwd, lib_fwd_bwd, lib_bwd = _cudnn_train(torch, cell, x, weights)
+            # what the Function does around the kernels: the x_proj copy from
+            # the projection's [G, B, T, cols] layout, and dW_hh as one product
+            src = x_proj.permute(1, 2, 0, 3).contiguous()
+            copy_ms = time_ms(lambda: src.permute(2, 0, 1, 3).contiguous(), iters=5, warmup=2)
+            dz = bwd(*res, w_hh, real, dh)
+            dw_ms = time_ms(lambda: torch.einsum("tgbh,tgbk->ghk", res[1], dz), iters=5, warmup=2)
+            del src, x
+            # each kernel's own work on this run's lengths: the recurrent
+            # product at every valid row-step; every input read once and every
+            # output written once, at the valid steps
+            flops = 2.0 * RNN_G * RNN_H * gates * RNN_H * steps
+            w_floats = RNN_G * gates * RNN_H * (RNN_H + 1)
+            # forward: x_proj in; gates, h_{t-1}, c_{t-1} / hn out
+            fwd_bytes = 4.0 * (RNN_G * steps * (gates * RNN_H * 2 + 2 * RNN_H) + w_floats
+                               + RNN_TRAIN_B + RNN_G * RNN_TRAIN_B * RNN_H)
+            # backward: gates and c_{t-1} (LSTM) or gates, h_{t-1}, hn (GRU) in; dz out
+            res_cols = gates * RNN_H + (RNN_H if cell == "lstm" else 2 * RNN_H)
+            bwd_bytes = 4.0 * (RNN_G * steps * (res_cols + gates * RNN_H) + w_floats
+                               + RNN_TRAIN_B + RNN_G * RNN_TRAIN_B * RNN_H)
+            tag = "GRU" if cell == "gru" else "LSTM"
+            for name, ms, plain_ms, lib, nbytes in (
+                    (fwd_name, fwd_ms, fwd_plain_ms, lib_fwd, fwd_bytes),
+                    (bwd_name, bwd_ms, bwd_plain_ms, lib_bwd, bwd_bytes)):
+                bound_ms, bound_by = bound(flops, nbytes)
+                print(f"  {name} T={seq} B={RNN_TRAIN_B}: ms={ms:.4f} ({ms / seq * 1e3:.3f} us per "
+                      f"step) plain_ms={plain_ms:.4f} cudnn_ms={lib:.4f} (4 nn.{tag} calls over the "
+                      f"full T, {'forward in training mode' if name == fwd_name else 'backward alone'};"
+                      f" forward + backward {lib_fwd_bwd:.4f}) bound_ms={bound_ms:.4f} ({bound_by}; "
+                      f"{steps:.0f} valid steps, {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)",
+                      flush=True)
+                timed[(name, seq)] = (ms, plain_ms, lib, bound_ms, bound_by, lib_fwd_bwd)
+            print(f"  {tag} T={seq} around the kernels: x_proj copy {copy_ms:.4f} ms "
+                  f"({x_proj.numel() * 4 / 1e6:.0f} MB), dW_hh product {dw_ms:.4f} ms", flush=True)
+            timed[(cell, seq)] = (copy_ms, dw_ms)
+            del x_proj, res, dz
+            torch.cuda.empty_cache()
+    rows = []
+    for name, line in zip(("lstm_train_fwd", "lstm_train_bwd", "gru_train_fwd", "gru_train_bwd"),
+                          (34, 90, 343, 399)):
+        ms, plain_ms, lib, bound_ms, bound_by, lib_fwd_bwd = timed[(name, 512)]
+        cell = name.split("_")[0]
+        rows.append({
+            "name": name, "route": "cuda", "source": f"{PKG}/ops/csrc/rnn_train.cu",
+            "replaces": f"{TPU_PKG}/ops/pallas_rnn_train.py:{line}",
+            "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": lib, "library_fwd_bwd_ms": lib_fwd_bwd,
+            "shape": [512, RNN_G, RNN_TRAIN_B, RNN_H],
+            "x_proj_copy_ms": timed[(cell, 512)][0], "dw_hh_ms": timed[(cell, 512)][1],
+            **{f"{key}_t1024": value for key, value in zip(
+                ("ms", "plain_ms", "library_ms", "bound_ms"), timed[(name, 1024)])},
+        })
+    return rows
+
+
 FAMILIES = (  # profiler kernel-name fragments -> family, first match wins
     ("packed_attention_fwd", ("packed_attention_fwd",)),
     ("flash_fwd_single", ("flash_fwd_single",)),
@@ -886,9 +1059,13 @@ FAMILIES = (  # profiler kernel-name fragments -> family, first match wins
     ("dropout_keep_mask", ("dropout_mask_kernel",)),
     ("ln_bwd_sums", ("atb_partial", "reduce_splits", "colsum_partial")),
     ("fusion_head", ("fusion_head",)),
+    ("rnn_train_fwd", ("lstm_train_fwd", "gru_train_fwd")),
+    ("rnn_train_bwd", ("lstm_train_bwd", "gru_train_bwd")),
     ("grouped_lstm", ("grouped_lstm",)),
     ("grouped_gru", ("grouped_gru",)),
     ("gemm", ("gemm", "cutlass", "sm90_xmma", "nvjet")),
+    ("copy", ("direct_copy",)),
+    ("fill", ("fillfunctor",)),
 )
 
 
@@ -946,11 +1123,12 @@ def _trainer(torch, overrides, weights=None):
 PLAIN = ["model.flash_attention=false", "model.fused_mlp=false", "model.fused_mlp_ln=false"]
 
 
-def micro_step_vs_plain(torch, split, idx0, overrides, label):
+def micro_step_vs_plain(torch, split, idx0, overrides, label, plain_overrides=PLAIN):
     """One micro-step at ``dropout_rng=xla`` on the kernel path against the
-    plain path: same weights, batch and generator seed, so the same masks."""
+    plain path (``plain_overrides``): same weights, batch and generator seed,
+    so the same masks."""
     trainer = _trainer(torch, [*overrides, "training.dropout_rng=xla"])
-    plain = _trainer(torch, [*overrides, "training.dropout_rng=xla", *PLAIN],
+    plain = _trainer(torch, [*overrides, "training.dropout_rng=xla", *plain_overrides],
                      weights=trainer.model.state_dict())
     results = []
     for tr in (trainer, plain):
@@ -1438,10 +1616,10 @@ def rnn_serve(torch, kernels, cell, chunk, split, idx, smi, timed=12):
     return first, model, serve, requests[0]
 
 
-def rnn_phase(torch, kernels, split, modalities, stride, seed, smi):
+def rnn_phase(torch, kernels, split, modalities, stride, seed, smi, workdir: Path):
     """The recurrent model family on the card: served and evaluated through
-    the recurrence kernels, trained on the plain route. Returns launches by
-    path."""
+    the inference recurrence kernels, trained, fitted and MC-dropout evaluated
+    through the training kernels. Returns launches by path."""
     from multimodal_sensor_fusion_with_attention_rajeevatla_torch.convert import (
         ungroup_state_dict,
     )
@@ -1536,44 +1714,136 @@ def rnn_phase(torch, kernels, split, modalities, stride, seed, smi):
         del model, serve
         torch.cuda.empty_cache()
 
-    # the family's training route as it stands: the plain loop under autograd
-    idx32 = index_batches(torch, split, 32, seed)
+    # the family's training route: base.yaml's pallas_rnn: auto trains through
+    # the training kernels; the plain loop (pallas_rnn=false) is the yardstick
+    idx32 = index_batches(torch, split, RNN_TRAIN_B, seed)
     for cell, steps in (("lstm", RNN_TRAIN_STEPS), ("gru", RNN_TRAIN_STEPS // 2)):
-        label = f"{cell.upper()}512 model.pallas_rnn=false"
-        overrides = [*rnn_overrides(modalities, cell), "model.pallas_rnn=false"]
+        label = f"{cell.upper()}512"
+        overrides = rnn_overrides(modalities, cell)
+        micro_step_vs_plain(torch, split, idx32[0], overrides,
+                            f"{label} training kernels vs model.pallas_rnn=false",
+                            plain_overrides=["model.pallas_rnn=false"])
         torch.cuda.reset_peak_memory_stats()
         trainer = _trainer(torch, overrides)
+        if not trainer.model.grouped_rnn_encoder.use_pallas:
+            raise AssertionError(f"{label}: base.yaml's pallas_rnn no longer turns the kernels on")
         step, losses, launches = counted_steps(torch, kernels, trainer, split, idx32, steps)
+        want = {**dict.fromkeys(kernels, 0), f"{cell}_train_fwd": steps, f"{cell}_train_bwd": steps}
         print(f"  {label}: {steps} micro-steps, {trainer.optimizer.count} updates; losses "
-              f"{[round(v, 5) for v in losses]}; launches {launches}", flush=True)
-        if any(launches.values()):
-            raise AssertionError(f"{label}: the plain training route launched a kernel")
+              f"{[round(v, 5) for v in losses]}; launches {launches} (want {want})", flush=True)
+        if launches != want:
+            raise AssertionError(f"{label}: training launch counts {launches} != {want}")
         _step2, losses2, _launches2 = counted_steps(
             torch, kernels, _trainer(torch, overrides), split, idx32, steps)
         print(f"  same seed again: losses bit-identical: {losses2 == losses}", flush=True)
         if losses2 != losses:
             raise AssertionError(f"{label}: the same seed gave other losses: {losses} then {losses2}")
         del _step2
-        step_p50(torch, step, split, idx32, 32, label + " (the plain loop)", smi, iters=10)
-        if cell == "lstm":
-            def run(n):
-                for i in range(n):
-                    step(split, idx32[i % len(idx32)])
-                torch.cuda.synchronize()
+        step_p50(torch, step, split, idx32, RNN_TRAIN_B, label + " (training kernels)", smi,
+                 iters=10)
 
-            profile(torch, run, 2, "micro-step")
+        def run(n):
+            for i in range(n):
+                step(split, idx32[i % len(idx32)])
+            torch.cuda.synchronize()
+
+        profile(torch, run, 4, "micro-step")
         out[f"train_{cell}512"] = launches
         del trainer, step
 
-    kernel_trainer = _trainer(torch, rnn_overrides(modalities, "lstm"))
-    kernel_trainer.init_state(steps_per_epoch=len(idx32))
-    try:
-        kernel_trainer.make_train_step_fn()(split, idx32[0])
-    except NotImplementedError as err:
-        print(f"  train=True at model.pallas_rnn=auto raises NotImplementedError: {err}", flush=True)
-    else:
-        raise AssertionError("training through the unported recurrence kernels did not raise")
+        plain = _trainer(torch, [*overrides, "model.pallas_rnn=false"])
+        plain_step, _losses, plain_launches = counted_steps(torch, kernels, plain, split, idx32, 2)
+        if any(plain_launches.values()):
+            raise AssertionError(f"{label}: the plain training route launched a kernel")
+        step_p50(torch, plain_step, split, idx32, RNN_TRAIN_B,
+                 label + " model.pallas_rnn=false (the plain loop)", smi, iters=4)
+        del plain, plain_step
+
+    data = splits[1024]
+    idx1024 = index_batches(torch, data, RNN_TRAIN_B, seed)
+    trainer = _trainer(torch, rnn_overrides(modalities, "lstm", 1024))
+    step, losses, launches = counted_steps(torch, kernels, trainer, data, idx1024, 4)
+    want = {**dict.fromkeys(kernels, 0), "lstm_train_fwd": 4, "lstm_train_bwd": 4}
+    print(f"  LSTM1024: 4 micro-steps; losses {[round(v, 5) for v in losses]}; launches "
+          f"{launches}", flush=True)
+    if launches != want:
+        raise AssertionError(f"LSTM1024: training launch counts {launches} != {want}")
+    step_p50(torch, step, data, idx1024, RNN_TRAIN_B, "LSTM1024 (training kernels)", smi, iters=8)
+    out["train_lstm1024"] = launches
+    del trainer, step, data, splits
+    torch.cuda.empty_cache()
+    out.update(rnn_fit_phase(torch, kernels, modalities, smi, workdir))
     return out
+
+
+def rnn_fit_phase(torch, kernels, modalities, smi, workdir: Path):
+    """One epoch of ``Trainer.fit`` for LSTM512 through the training kernels,
+    the ``last`` checkpoint reloaded from its directory, and
+    ``evaluate_checkpoint`` on it, whose MC-dropout pass runs training-mode
+    forwards through the training forward kernel."""
+    from multimodal_sensor_fusion_with_attention_rajeevatla_torch.data.dataset import (
+        create_datasets,
+    )
+    from multimodal_sensor_fusion_with_attention_rajeevatla_torch.data.device import DeviceSplit
+    from multimodal_sensor_fusion_with_attention_rajeevatla_torch.evaluate import (
+        dataset_kwargs, evaluate_checkpoint,
+    )
+    from multimodal_sensor_fusion_with_attention_rajeevatla_torch.models.module import (
+        MultimodalFusionModel,
+    )
+    from multimodal_sensor_fusion_with_attention_rajeevatla_torch.train.checkpoint import (
+        load_checkpoint,
+    )
+
+    trainer = _trainer(torch, [
+        *rnn_overrides(modalities, "lstm"), "training.max_epochs=1",
+        f"dataset.data_dir={REPO / 'data' / 'pamap2'}",
+        f"dataset.chunk_cache_dir={workdir / 'chunk_cache'}"])
+    train_w, val_w, test_w = create_datasets(**dataset_kwargs(trainer.config))
+    steps = math.ceil(train_w.num_windows / trainer.batch_size)
+    for fn in kernels.values():
+        fn.launches = 0
+    results = trainer.fit(train_w, val_w, test_w, save_dir=workdir / "lstm_run",
+                          log_fn=lambda msg: print(f"  {msg}", flush=True))
+    torch.cuda.synchronize()
+    fit_launches = {name: fn.launches for name, fn in kernels.items()}
+    wall = results["train_wall_seconds"]
+    print(f"  LSTM512 fit: 1 epoch ({steps} micro-steps) in {wall:.2f} s, "
+          f"{train_w.num_windows / wall:.1f} train windows/s on {smi}; test acc "
+          f"{results['test_acc']:.4f}; launches {fit_launches}", flush=True)
+    if fit_launches["lstm_train_fwd"] != steps or fit_launches["lstm_train_bwd"] != steps \
+            or fit_launches["grouped_lstm_fused"] <= 0 or not _all_finite(results["history"]):
+        raise AssertionError(f"LSTM512 fit did not train and evaluate through the kernels: "
+                             f"{fit_launches}")
+
+    last = workdir / "lstm_run" / "checkpoints" / "last"
+    weights, ckpt_cfg, meta = load_checkpoint(last)
+    reloaded = MultimodalFusionModel.from_config(ckpt_cfg, device="cuda")
+    reloaded.load_state_dict(weights)
+    test_data = DeviceSplit.from_windows(test_w, device="cuda")
+    same = torch.equal(torch.from_numpy(trainer.evaluate_logits(test_data)),
+                       torch.from_numpy(trainer.evaluate_logits(test_data, model=reloaded)))
+    print(f"  LSTM512 checkpoint 'last' (epoch {meta['epoch']}) reloaded from its directory: "
+          f"grouped onto the kernels {bool(reloaded.grouped_rnn_encoder.use_pallas)}, test "
+          f"logits bit-identical: {same}", flush=True)
+    if not same or not reloaded.grouped_rnn_encoder.use_pallas:
+        raise AssertionError("the LSTM checkpoint does not reload to the model it saved")
+    del reloaded, trainer
+    for fn in kernels.values():
+        fn.launches = 0
+    out_dir = workdir / "lstm_experiments"
+    evaluate_checkpoint(str(last), output_dir=str(out_dir), analysis_dir=str(workdir / "analysis"),
+                        device="cuda", plots=False)
+    torch.cuda.synchronize()
+    eval_launches = {name: fn.launches for name, fn in kernels.items()}
+    unc = json.loads((out_dir / "uncertainty.json").read_text())
+    print(f"  LSTM512 evaluate_checkpoint: MC dropout over {unc['mc_dropout']['num_windows']} "
+          f"windows x {unc['mc_dropout']['num_samples']}, mean variance "
+          f"{unc['mc_dropout']['mean_uncertainty']:.6f}; launches {eval_launches}", flush=True)
+    if eval_launches["lstm_train_fwd"] <= 0 or eval_launches["lstm_train_bwd"] != 0 \
+            or eval_launches["grouped_lstm_fused"] <= 0 or not _all_finite(unc):
+        raise AssertionError(f"LSTM512 evaluation missed the kernels: {eval_launches}")
+    return {"fit_lstm512": fit_launches, "eval_ckpt_lstm512": eval_launches}
 
 
 RESULT_KEYS = {"best_model_path", "best_val_loss", "config", "test_acc", "history",
@@ -1818,6 +2088,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     rows += check_rnn_kernels(torch, rnn, {512: lengths0, 1024: real_lengths[1024]})
     torch.cuda.empty_cache()
+    rows += check_rnn_train_kernels(
+        torch, rnn, {512: train_lengths, 1024: real_lengths[1024][:RNN_TRAIN_B]})
+    torch.cuda.empty_cache()
     kernels = {  # table row name -> wrapper with its launch counter
         "packed_attention_fwd": attn.packed_attention_fwd,
         "packed_attention_bwd": attn.packed_attention_bwd,
@@ -1832,6 +2105,8 @@ def main() -> int:
         "grouped_lstm_forward": rnn.grouped_lstm_forward,
         "grouped_lstm_fused": rnn.grouped_lstm_fused,
         "grouped_gru_fused": rnn.grouped_gru_fused,
+        "lstm_train_fwd": rnn.lstm_train_fwd, "lstm_train_bwd": rnn.lstm_train_bwd,
+        "gru_train_fwd": rnn.gru_train_fwd, "gru_train_bwd": rnn.gru_train_bwd,
     }
 
     # ---- 3. serve: the main path ----------------------------------------------
@@ -1917,11 +2192,17 @@ def main() -> int:
                                          Path(tmp))
 
     # ---- 9. the recurrent model family ----------------------------------------
-    rnn_launches = rnn_phase(torch, kernels, split, modalities, stride, int(cfg.seed), smi)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        rnn_launches = rnn_phase(torch, kernels, split, modalities, stride, int(cfg.seed), smi,
+                                 Path(tmp))
     rnn_paths = {  # the path each recurrence kernel runs on
         "grouped_lstm_forward": rnn_launches["forward_lstm512"],
         "grouped_lstm_fused": rnn_launches["serve_lstm512"],
         "grouped_gru_fused": rnn_launches["serve_gru512"],
+        "lstm_train_fwd": rnn_launches["train_lstm512"],
+        "lstm_train_bwd": rnn_launches["train_lstm512"],
+        "gru_train_fwd": rnn_launches["train_gru512"],
+        "gru_train_bwd": rnn_launches["train_gru512"],
     }
     flash_paths = {  # the path each flash kernel was ported for
         "flash_fwd_single": long_launches["train1024"], "flash_fwd_tiled": long_launches["serve4096"],

@@ -40,7 +40,9 @@ serve the grouped encoder (``models.grouped.GroupedRNNEncoder``). Its weights
 keep the reference's ``[in, gates*H]`` layout.
 
 The CNN branch, ``FrameEncoder`` and ``SimpleMLPEncoder`` are not ported yet
-(ROADMAP queue A item 10) and raise ``NotImplementedError``.
+(ROADMAP queue A item 10) and raise ``NotImplementedError``, as does
+``build_encoder`` for a per-encoder key of the reference that the port does
+not run (``_UNPORTED_KEYS``) set to anything but its default.
 """
 
 from __future__ import annotations
@@ -69,6 +71,14 @@ from ..ops.mlp import (
 
 _SEQUENCE_MODALITIES = {"imu", "audio", "mocap", "accelerometer"}
 _NOT_PORTED = "is not ported yet (ROADMAP queue A item 10)"
+# per-encoder keys the reference's build_encoder passes on and the port does
+# not run yet: key -> (is the value a non-default, ROADMAP queue A item)
+_UNPORTED_KEYS = {
+    "moe_experts": (lambda v: int(v or 0) > 0, 8),
+    "pipeline_parallel": (lambda v: int(v or 1) > 1, 11),
+    "sequence_parallel": (bool, 11),
+    "dtype": (lambda v: v is not None and str(v).lower() not in ("float32", "torch.float32"), 7),
+}
 
 
 def resolve_dropout_rng(value, device_type: str, kernels_on: bool = True) -> str:
@@ -336,6 +346,8 @@ class SequenceEncoder(nn.Module):
         super().__init__()
         if encoder_type not in ("lstm", "gru", "cnn", "transformer"):
             raise ValueError(f"Unknown encoder type: {encoder_type}")
+        if str(dropout_rng or "auto").lower() not in ("auto", "xla", "kernel"):
+            raise ValueError(f"Unknown dropout_rng {dropout_rng!r}; expected auto, xla or kernel")
         if encoder_type == "cnn":
             raise NotImplementedError(f"SequenceEncoder encoder_type={encoder_type!r} {_NOT_PORTED}")
         self.encoder_type = encoder_type
@@ -400,6 +412,11 @@ def build_encoder(
         kind = "mlp"
     if kind != "sequence":
         raise NotImplementedError(f"{kind} encoder for modality {modality!r} {_NOT_PORTED}")
+    for key, (non_default, item) in _UNPORTED_KEYS.items():
+        if non_default(config.get(key)):
+            raise NotImplementedError(
+                f"model.encoders.{modality}.{key}={config[key]!r} is not ported yet "
+                f"(ROADMAP queue A item {item})")
     allowed = {"hidden_dim", "num_layers", "encoder_type", "flash_attention", "dropout",
                "fused_mlp", "fused_mlp_ln", "dropout_rng"}
     return SequenceEncoder(

@@ -3,14 +3,16 @@
 ``GroupedRNNEncoder``: G same-signature per-modality LSTM / GRU stacks
 evaluated as one recurrence over a leading group axis, with
 ``groupable_modalities``. Stacked parameters keep the reference's names and
-layout (``weight_ih_l<k> [G, in, gates*H]`` ...). In eval mode with
-``use_pallas`` and one layer, the whole group is one launch of
-``ops.rnn.grouped_lstm_fused`` / ``grouped_gru_fused`` on the raw stacked
-input; otherwise the input projection is one G-batched product and the
-recurrence the plain loop ``ops.rnn.rnn_scan``, which autograd differentiates.
-Training through the recurrence kernels (the reference's
-``grouped_*_trainable``) is not ported yet (ROADMAP B8) and raises;
-``mixed_precision`` is not ported either.
+layout (``weight_ih_l<k> [G, in, gates*H]`` ...). With ``use_pallas`` and one
+layer, eval is one launch of ``ops.rnn.grouped_lstm_fused`` /
+``grouped_gru_fused`` on the raw stacked input, and training runs the input
+projection as one G-batched product whose ``x_proj [T, G, B, gates*H]`` feeds
+``ops.rnn.grouped_lstm_trainable`` / ``grouped_gru_trainable`` (one forward
+and one backward kernel launch for the group); otherwise the recurrence is the
+plain loop ``ops.rnn.rnn_scan``, which autograd differentiates. Dropout sits
+on the final state on every route and draws from the caller's generator in
+the same order, so the kernel and plain routes get the same masks.
+``mixed_precision`` is not ported.
 
 ``GroupedTransformerEncoder`` (G same-signature per-modality
 transformer stacks evaluated as one pass over a leading group axis),
@@ -50,7 +52,13 @@ from ..ops.mlp import (
     kernel_rng_seed,
     ln_rows,
 )
-from ..ops.rnn import grouped_gru_fused, grouped_lstm_fused, rnn_scan
+from ..ops.rnn import (
+    grouped_gru_fused,
+    grouped_gru_trainable,
+    grouped_lstm_fused,
+    grouped_lstm_trainable,
+    rnn_scan,
+)
 from .encoders import dropout, keep_mask, lecun_normal_, resolve_dropout_rng
 
 _DENSE = ("q_proj", "k_proj", "v_proj", "out_proj", "linear1", "linear2")
@@ -130,22 +138,25 @@ class GroupedRNNEncoder(nn.Module):
                 f"Expected [G={self.num_groups}, B, T, D] input, got shape {tuple(stacked.shape)}"
             )
         if self.use_pallas and self.num_layers == 1:
-            if train:
-                raise NotImplementedError(
-                    "training through the recurrence kernels (grouped_lstm_trainable / "
-                    "grouped_gru_trainable) is not ported yet (ROADMAP B8); train with "
-                    "model.pallas_rnn=false")
-            # the whole group, input projection included, in one launch
-            x = stacked.permute(2, 0, 1, 3).contiguous()  # [G,B,T,D] -> [T,G,B,D]
-            lens = lengths.to(torch.int32) if lengths is not None else None
             w_ih, w_hh, b_ih, b_hh = (
-                getattr(self, f"{name}_l0").detach()
+                getattr(self, f"{name}_l0")
                 for name in ("weight_ih", "weight_hh", "bias_ih", "bias_hh"))
-            if self.cell_type == "lstm":
-                # the LSTM's gate biases are purely additive
-                final_state = grouped_lstm_fused(x, w_ih, w_hh, b_ih + b_hh, lens)
+            lens = lengths.to(torch.int32) if lengths is not None else None
+            if train:
+                # one G-batched product feeds the differentiable recurrence kernels
+                x_proj = grouped_dense(stacked, w_ih, b_ih).permute(2, 0, 1, 3).contiguous()
+                trainable = (grouped_lstm_trainable if self.cell_type == "lstm"
+                             else grouped_gru_trainable)
+                final_state = trainable(x_proj, w_hh, b_hh, lens)
             else:
-                final_state = grouped_gru_fused(x, w_ih, w_hh, b_ih, b_hh, lens)
+                # the whole group, input projection included, in one launch
+                x = stacked.permute(2, 0, 1, 3).contiguous()  # [G,B,T,D] -> [T,G,B,D]
+                w_ih, w_hh, b_ih, b_hh = (w.detach() for w in (w_ih, w_hh, b_ih, b_hh))
+                if self.cell_type == "lstm":
+                    # the LSTM's gate biases are purely additive
+                    final_state = grouped_lstm_fused(x, w_ih, w_hh, b_ih + b_hh, lens)
+                else:
+                    final_state = grouped_gru_fused(x, w_ih, w_hh, b_ih, b_hh, lens)
         else:
             layer_input = stacked
             for layer in range(self.num_layers):

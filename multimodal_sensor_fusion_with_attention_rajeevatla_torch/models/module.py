@@ -5,7 +5,8 @@ configurations that ``config/base.yaml`` builds: one ``SequenceEncoder``
 (transformer, lstm or gru) per modality; with ``model.grouped_encoders`` (the
 default) one ``GroupedRNNEncoder`` over the modalities whose lstm / gru
 encoders share a signature, its recurrence through the kernels of
-``ops/rnn.py`` when ``model.pallas_rnn`` is on; with
+``ops/rnn.py`` in eval and in training when ``model.pallas_rnn`` is on (absent
+means off, as in the reference; ``auto`` means on); with
 ``model.grouped_transformer`` one ``GroupedTransformerEncoder`` over the
 same-signature transformer modalities; per-modality encoders for the rest; a
 per-modality LayerNorm (``ln_<m>``, flax defaults), then ``HybridFusion``.

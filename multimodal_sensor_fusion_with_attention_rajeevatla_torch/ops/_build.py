@@ -36,6 +36,7 @@ SOURCES = {
     "ffw": "ffw.cu",
     "dropout_mask": "dropout_mask.cu",
     "rnn": "rnn.cu",
+    "rnn_train": "rnn_train.cu",
 }
 NVCC_FLAGS = [
     "-gencode=arch=compute_90a,code=sm_90a",

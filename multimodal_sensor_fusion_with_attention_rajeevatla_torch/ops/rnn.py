@@ -1,10 +1,11 @@
 """Grouped LSTM / GRU recurrences: CUDA kernels and their plain versions.
 
 Counterpart of the JAX package's ``ops/pallas_rnn.py`` (inference: the final
-hidden state of G independent recurrences run as one call). Layouts are the
-reference's: raw inputs ``x [T, G, B, D]``, precomputed input projections
-``x_proj [T, G, B, gates*H]``, weights ``[G, in, gates*H]``, biases
-``[G, gates*H]``, int32 ``lengths [B]`` shared by the groups, result
+hidden state of G independent recurrences run as one call) and
+``ops/pallas_rnn_train.py`` (the same recurrences, differentiable). Layouts
+are the reference's: raw inputs ``x [T, G, B, D]``, precomputed input
+projections ``x_proj [T, G, B, gates*H]``, weights ``[G, in, gates*H]``,
+biases ``[G, gates*H]``, int32 ``lengths [B]`` shared by the groups, result
 ``[G, B, H]``. Gate order is torch's: LSTM (i, f, g, o), GRU (r, z, n) with the
 hidden bias of the candidate gate inside the reset gate,
 ``n = tanh(x W_in + b_in + r * (h W_hn + b_hn))``. A row's carry freezes at
@@ -14,12 +15,25 @@ returns exact zeros.
 
 ``lstm_step`` and ``gru_step`` are the one cell update everything here and
 ``models.encoders.RNNStack`` / ``models.grouped.GroupedRNNEncoder`` share;
-``rnn_scan`` loops them over time. ``grouped_lstm_forward``,
-``grouped_lstm_fused`` and ``grouped_gru_fused`` are the kernel wrappers: CUDA
-tensors launch ``csrc/rnn.cu`` (one launch for the whole sequence and every
-group; forward only, the result carries no gradient) or raise, CPU tensors
-take the ``*_plain`` version. The reference's TPU tiling arguments
-(``block_t``, ``interpret``) have no counterpart.
+``rnn_scan`` loops them over time, and under autograd it is the plain version
+of the trainable functions too. Every kernel wrapper launches its kernel for
+CUDA tensors (one launch for the whole sequence and every group) or raises,
+and takes its ``*_plain`` version for CPU tensors; each counts its launches in
+``.launches``:
+
+- inference, ``csrc/rnn.cu``: ``grouped_lstm_forward``, ``grouped_lstm_fused``
+  and ``grouped_gru_fused`` (forward only, the result carries no gradient);
+- training, ``csrc/rnn_train.cu``: ``lstm_train_fwd`` / ``gru_train_fwd`` (the
+  final state plus the per-step residuals: post-activation gates, ``h_{t-1}``,
+  and ``c_{t-1}`` or ``hn = h_{t-1} W_hn + b_hn``; zero past each row's
+  length) and ``lstm_train_bwd`` / ``gru_train_bwd`` (reverse time -> the
+  ``x_proj`` cotangent, exactly zero past each length).
+
+``grouped_lstm_trainable`` and ``grouped_gru_trainable`` are
+``torch.autograd.Function``s over the training pair; their backward takes
+``dW_hh`` and ``db_hh`` as one product and one sum over that cotangent, as the
+reference's custom VJP does. The reference's TPU tiling (``block_t``, padding
+of T and B, ``interpret``) has no counterpart.
 """
 
 from __future__ import annotations
@@ -61,6 +75,14 @@ def gru_step(xp, h, w_hh, b_hh, keep=None) -> torch.Tensor:
     return h_new
 
 
+def _valid_steps(steps: int, lengths: Optional[torch.Tensor], device) -> Optional[torch.Tensor]:
+    """``[T, B, 1]`` bool, ``t < length``; None without lengths."""
+    if lengths is None:
+        return None
+    return (torch.arange(steps, device=device)[:, None]
+            < lengths[None, :].to(torch.int32))[..., None]
+
+
 def rnn_scan(cell, x_proj, w_hh, b_hh, lengths=None, return_outputs: bool = False):
     """The recurrence as a loop over time: ``x_proj [T, ..., B, gates*H]`` ->
     ``(final hidden [..., B, H], per-step hidden [T, ..., B, H] or None)``.
@@ -71,10 +93,9 @@ def rnn_scan(cell, x_proj, w_hh, b_hh, lengths=None, return_outputs: bool = Fals
     hidden = w_hh.shape[-2]
     h = x_proj.new_zeros((*x_proj.shape[1:-1], hidden))
     c = torch.zeros_like(h)
-    valid = None
-    if lengths is not None:
-        valid = (torch.arange(steps, device=x_proj.device)[:, None]
-                 < lengths[None, :].to(torch.int32)).to(x_proj.dtype)[..., None]  # [T, B, 1]
+    valid = _valid_steps(steps, lengths, x_proj.device)
+    if valid is not None:
+        valid = valid.to(x_proj.dtype)
     outputs = []
     for t in range(steps):
         keep = valid[t] if valid is not None else None
@@ -131,30 +152,39 @@ def _check(tensors: dict, shapes: dict, lengths: Optional[torch.Tensor], batch: 
                 raise ValueError(f"{name} must be contiguous")
 
 
-def _kernel_fn(name: str, pointers: int, ints: int):
-    lib = _build.library("rnn")
+def _kernel_fn(library: str, name: str, args: int, ints: int):
+    lib = _build.library(library)
     fn = getattr(lib, name)
-    fn.argtypes = [ctypes.c_void_p] * pointers + [ctypes.c_int] * ints + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * args + [ctypes.c_int] * ints + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib, fn
 
 
+def _run(wrapper, library: str, entry: str, tensors, dims) -> None:
+    """Launch ``entry`` of kernel library ``library`` on the tensors' device
+    and current stream; raise if it was refused."""
+    device = tensors[0].device
+    lib, fn = _kernel_fn(library, entry, len(tensors), len(dims))
+    with torch.cuda.device(device):
+        code = fn(*(t.data_ptr() for t in tensors), *dims,
+                  torch.cuda.current_stream(device).cuda_stream)
+    _build.check(lib, code, wrapper.__name__)
+    wrapper.launches += 1
+
+
+def _all_steps(lengths: Optional[torch.Tensor], steps: int, batch: int, device) -> torch.Tensor:
+    if lengths is None:
+        return torch.full((batch,), steps, dtype=torch.int32, device=device)
+    return lengths.contiguous()
+
+
 def _launch(wrapper, entry: str, tensors, lengths, out, dims) -> torch.Tensor:
-    """Launch ``entry`` on the tensors' device and stream; ``out [G, B, H]``."""
-    device = out.device
+    """Launch an inference kernel of ``csrc/rnn.cu``; ``out [G, B, H]``."""
     steps, batch = dims[0], dims[2]
     if batch == 0:
         return out
-    if lengths is None:
-        lengths = torch.full((batch,), steps, dtype=torch.int32, device=device)
-    lib, fn = _kernel_fn(entry, len(tensors) + 2, len(dims))
-    with torch.cuda.device(device):
-        code = fn(
-            *(t.data_ptr() for t in tensors), lengths.contiguous().data_ptr(), out.data_ptr(),
-            *dims, torch.cuda.current_stream(device).cuda_stream,
-        )
-    _build.check(lib, code, wrapper.__name__)
-    wrapper.launches += 1
+    _run(wrapper, "rnn", entry, [*tensors, _all_steps(lengths, steps, batch, out.device), out],
+         dims)
     return out
 
 
@@ -241,3 +271,279 @@ def grouped_gru_fused(
 
 
 grouped_gru_fused.launches = 0
+
+
+# ---- training: forward with residuals, reverse-time backward -----------------
+
+
+def _stack(items, like: torch.Tensor, cols: int) -> torch.Tensor:
+    """``[T, G, B, cols]`` from T per-step tensors (T may be 0)."""
+    return torch.stack(items) if items else like.new_zeros((0, *like.shape[1:-1], cols))
+
+
+def lstm_train_fwd_plain(x_proj, w_hh, b_hh, lengths=None):
+    """Plain PyTorch version of ``lstm_train_fwd``: ``rnn_scan``'s loop
+    keeping what the backward reads -> ``(h_T, gates, hprev, cprev)``."""
+    steps, hidden = x_proj.shape[0], w_hh.shape[-2]
+    valid = _valid_steps(steps, lengths, x_proj.device)
+    h = x_proj.new_zeros((*x_proj.shape[1:-1], hidden))
+    c = torch.zeros_like(h)
+    gates, hprev, cprev = [], [], []
+    for t in range(steps):
+        z = x_proj[t] + torch.matmul(h, w_hh) + b_hh.unsqueeze(-2)
+        i, f, g, o = z.chunk(4, dim=-1)
+        act = torch.cat([torch.sigmoid(i), torch.sigmoid(f), torch.tanh(g), torch.sigmoid(o)], -1)
+        i, f, g, o = act.chunk(4, dim=-1)
+        c_new = f * c + i * g
+        h_new = o * torch.tanh(c_new)
+        if valid is not None:  # residuals past the length are zero, the carry frozen
+            act, h_in, c_in = (torch.where(valid[t], v, 0.0) for v in (act, h, c))
+            h_new, c_new = torch.where(valid[t], h_new, h), torch.where(valid[t], c_new, c)
+        else:
+            h_in, c_in = h, c
+        gates.append(act)
+        hprev.append(h_in)
+        cprev.append(c_in)
+        h, c = h_new, c_new
+    return (h, _stack(gates, x_proj, 4 * hidden), _stack(hprev, x_proj, hidden),
+            _stack(cprev, x_proj, hidden))
+
+
+def lstm_train_bwd_plain(gates, hprev, cprev, w_hh, lengths, dh_out) -> torch.Tensor:
+    """Plain PyTorch version of ``lstm_train_bwd`` (the reference's
+    ``_bwd_kernel``): reverse time from ``dh_out [G, B, H]``, c_t recomputed
+    from the residuals, each cotangent split into the updated lane and the
+    frozen lane -> ``dz [T, G, B, 4H]``, zero past each length. ``hprev`` is
+    not read (the kernel takes it to match the reference's signature)."""
+    del hprev
+    steps = gates.shape[0]
+    valid = _valid_steps(steps, lengths, gates.device)
+    dh, dc = dh_out, torch.zeros_like(dh_out)
+    w_t = w_hh.transpose(-1, -2)
+    dz = []
+    for t in reversed(range(steps)):
+        keep = valid[t].to(gates.dtype) if valid is not None else 1.0
+        i, f, g, o = gates[t].chunk(4, dim=-1)
+        c_prev = cprev[t]
+        tanh_c = torch.tanh(f * c_prev + i * g)
+        dh_t, dh_skip, dc_t, dc_skip = keep * dh, (1 - keep) * dh, keep * dc, (1 - keep) * dc
+        do = dh_t * tanh_c
+        dc_t = dc_t + dh_t * o * (1 - tanh_c * tanh_c)
+        step = torch.cat([dc_t * g * i * (1 - i), dc_t * c_prev * f * (1 - f),
+                          dc_t * i * (1 - g * g), do * o * (1 - o)], -1)
+        dz.append(step)
+        dh = torch.matmul(step, w_t) + dh_skip
+        dc = dc_t * f + dc_skip
+    return _stack(dz[::-1], gates, gates.shape[-1])
+
+
+def gru_train_fwd_plain(x_proj, w_hh, b_hh, lengths=None):
+    """Plain PyTorch version of ``gru_train_fwd`` -> ``(h_T, gates (r, z, n),
+    hprev, hn)`` with ``hn = h_{t-1} W_hn + b_hn``."""
+    steps, hidden = x_proj.shape[0], w_hh.shape[-2]
+    valid = _valid_steps(steps, lengths, x_proj.device)
+    h = x_proj.new_zeros((*x_proj.shape[1:-1], hidden))
+    gates, hprev, hns = [], [], []
+    for t in range(steps):
+        hp = torch.matmul(h, w_hh) + b_hh.unsqueeze(-2)
+        xr, xz, xn = x_proj[t].chunk(3, dim=-1)
+        hr, hz, hn = hp.chunk(3, dim=-1)
+        r = torch.sigmoid(xr + hr)
+        z = torch.sigmoid(xz + hz)
+        n = torch.tanh(xn + r * hn)
+        h_new = (1 - z) * n + z * h
+        act = torch.cat([r, z, n], -1)
+        if valid is not None:
+            act, h_in, hn = (torch.where(valid[t], v, 0.0) for v in (act, h, hn))
+            h_new = torch.where(valid[t], h_new, h)
+        else:
+            h_in = h
+        gates.append(act)
+        hprev.append(h_in)
+        hns.append(hn)
+        h = h_new
+    return (h, _stack(gates, x_proj, 3 * hidden), _stack(hprev, x_proj, hidden),
+            _stack(hns, x_proj, hidden))
+
+
+def gru_train_bwd_plain(gates, hprev, hn, w_hh, lengths, dh_out) -> torch.Tensor:
+    """Plain PyTorch version of ``gru_train_bwd`` (the reference's
+    ``_gru_bwd_kernel``) -> the ``x_proj`` cotangent ``(dr_pre, dz_pre,
+    dn_pre) [T, G, B, 3H]``; the hidden path carries ``dn_pre * r`` in the
+    candidate slot."""
+    steps = gates.shape[0]
+    valid = _valid_steps(steps, lengths, gates.device)
+    dh = dh_out
+    w_t = w_hh.transpose(-1, -2)
+    dx = []
+    for t in reversed(range(steps)):
+        keep = valid[t].to(gates.dtype) if valid is not None else 1.0
+        r, z, n = gates[t].chunk(3, dim=-1)
+        dh_t, dh_skip = keep * dh, (1 - keep) * dh
+        dn_pre = dh_t * (1 - z) * (1 - n * n)
+        dr_pre = dn_pre * hn[t] * r * (1 - r)
+        dz_pre = dh_t * (hprev[t] - n) * z * (1 - z)
+        dx.append(torch.cat([dr_pre, dz_pre, dn_pre], -1))
+        dhp = torch.cat([dr_pre, dz_pre, dn_pre * r], -1)
+        dh = dh_t * z + torch.matmul(dhp, w_t) + dh_skip
+    return _stack(dx[::-1], gates, gates.shape[-1])
+
+
+def _train_dims(x, w_hh, gates: int, name: str):
+    if x.dim() != 4 or w_hh.dim() != 3:
+        raise ValueError(f"expected {name} [T, G, B, {gates}H] and w_hh [G, H, {gates}H], got "
+                         f"{tuple(x.shape)} and {tuple(w_hh.shape)}")
+    steps, groups, batch, _ = x.shape
+    return steps, groups, batch, w_hh.shape[1]
+
+
+def _train_fwd(wrapper, entry, gates, x_proj, w_hh, b_hh, lengths):
+    steps, groups, batch, hidden = _train_dims(x_proj, w_hh, gates, "x_proj")
+    _check({"x_proj": x_proj, "w_hh": w_hh, "b_hh": b_hh},
+           {"x_proj": (steps, groups, batch, gates * hidden),
+            "w_hh": (groups, hidden, gates * hidden), "b_hh": (groups, gates * hidden)},
+           lengths, batch)
+    if x_proj.device.type == "cpu":
+        plain = lstm_train_fwd_plain if gates == 4 else gru_train_fwd_plain
+        return plain(x_proj, w_hh, b_hh, lengths)
+    device = x_proj.device
+    out = torch.empty((groups, batch, hidden), device=device, dtype=torch.float32)
+    # zero-filled: the kernel stores the residuals at valid steps only
+    res = [torch.zeros((steps, groups, batch, cols), device=device, dtype=torch.float32)
+           for cols in (gates * hidden, hidden, hidden)]
+    if batch > 0:
+        _run(wrapper, "rnn_train", entry,
+             [x_proj, w_hh, b_hh, _all_steps(lengths, steps, batch, device), out, *res],
+             (steps, groups, batch, hidden))
+    return (out, *res)
+
+
+def _train_bwd(wrapper, entry, gates, res, w_hh, lengths, dh_out):
+    g_res, hprev, aux = res
+    steps, groups, batch, hidden = _train_dims(g_res, w_hh, gates, "gates")
+    aux_name = "cprev" if gates == 4 else "hn"
+    _check({"gates": g_res, "hprev": hprev, aux_name: aux, "w_hh": w_hh, "dh_out": dh_out},
+           {"gates": (steps, groups, batch, gates * hidden),
+            "hprev": (steps, groups, batch, hidden), aux_name: (steps, groups, batch, hidden),
+            "w_hh": (groups, hidden, gates * hidden), "dh_out": (groups, batch, hidden)},
+           lengths, batch)
+    if g_res.device.type == "cpu":
+        plain = lstm_train_bwd_plain if gates == 4 else gru_train_bwd_plain
+        return plain(g_res, hprev, aux, w_hh, lengths, dh_out)
+    device = g_res.device
+    # [G, gates*H, H]: the kernel's reduction then reads unit-consecutive words
+    w_t = w_hh.transpose(1, 2).contiguous()
+    dx = torch.zeros_like(g_res)  # the kernel writes valid steps only
+    if batch > 0:
+        inputs = [g_res, aux] if gates == 4 else [g_res, hprev, aux]
+        _run(wrapper, "rnn_train", entry,
+             [*inputs, w_t, _all_steps(lengths, steps, batch, device), dh_out, dx],
+             (steps, groups, batch, hidden))
+    return dx
+
+
+def lstm_train_fwd(
+    x_proj: torch.Tensor,  # [T, G, B, 4H] input projections (with b_ih)
+    w_hh: torch.Tensor,  # [G, H, 4H]
+    b_hh: torch.Tensor,  # [G, 4H]
+    lengths: Optional[torch.Tensor] = None,  # [B] int32; None = T
+):
+    """Grouped LSTM forward for training -> ``(h_T [G, B, H], gates
+    [T, G, B, 4H] (i, f, g, o after their activations), hprev, cprev
+    [T, G, B, H])``, residuals zero past each length.
+    ``lstm_train_fwd.launches`` counts launches."""
+    return _train_fwd(lstm_train_fwd, "msfa_lstm_train_fwd", 4, x_proj, w_hh, b_hh, lengths)
+
+
+lstm_train_fwd.launches = 0
+
+
+def lstm_train_bwd(gates, hprev, cprev, w_hh, lengths, dh_out) -> torch.Tensor:
+    """Grouped LSTM backward over ``lstm_train_fwd``'s residuals and the
+    cotangent of ``h_T`` ``dh_out [G, B, H]`` -> ``dz [T, G, B, 4H]``, the
+    ``x_proj`` cotangent. ``lstm_train_bwd.launches`` counts launches."""
+    return _train_bwd(lstm_train_bwd, "msfa_lstm_train_bwd", 4, (gates, hprev, cprev), w_hh,
+                      lengths, dh_out)
+
+
+lstm_train_bwd.launches = 0
+
+
+def gru_train_fwd(
+    x_proj: torch.Tensor,  # [T, G, B, 3H] input projections (with b_ih)
+    w_hh: torch.Tensor,  # [G, H, 3H]
+    b_hh: torch.Tensor,  # [G, 3H], kept on the hidden path
+    lengths: Optional[torch.Tensor] = None,  # [B] int32; None = T
+):
+    """Grouped GRU forward for training -> ``(h_T, gates [T, G, B, 3H]
+    (r, z, n), hprev, hn [T, G, B, H])``, residuals zero past each length.
+    ``gru_train_fwd.launches`` counts launches."""
+    return _train_fwd(gru_train_fwd, "msfa_gru_train_fwd", 3, x_proj, w_hh, b_hh, lengths)
+
+
+gru_train_fwd.launches = 0
+
+
+def gru_train_bwd(gates, hprev, hn, w_hh, lengths, dh_out) -> torch.Tensor:
+    """Grouped GRU backward -> the ``x_proj`` cotangent ``dx [T, G, B, 3H]``.
+    ``gru_train_bwd.launches`` counts launches."""
+    return _train_bwd(gru_train_bwd, "msfa_gru_train_bwd", 3, (gates, hprev, hn), w_hh,
+                      lengths, dh_out)
+
+
+gru_train_bwd.launches = 0
+
+
+class _LSTMTrainable(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x_proj, w_hh, b_hh, lengths):
+        h_t, gates, hprev, cprev = lstm_train_fwd(x_proj, w_hh, b_hh, lengths)
+        ctx.save_for_backward(gates, hprev, cprev, w_hh, lengths)
+        return h_t
+
+    @staticmethod
+    def backward(ctx, dh_out):
+        gates, hprev, cprev, w_hh, lengths = ctx.saved_tensors
+        dz = lstm_train_bwd(gates, hprev, cprev, w_hh, lengths, dh_out.contiguous())
+        # dz is zero past each length, so every step may enter the sums
+        return dz, torch.einsum("tgbh,tgbk->ghk", hprev, dz), dz.sum((0, 2)), None
+
+
+class _GRUTrainable(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x_proj, w_hh, b_hh, lengths):
+        h_t, gates, hprev, hn = gru_train_fwd(x_proj, w_hh, b_hh, lengths)
+        ctx.save_for_backward(gates, hprev, hn, w_hh, lengths)
+        return h_t
+
+    @staticmethod
+    def backward(ctx, dh_out):
+        gates, hprev, hn, w_hh, lengths = ctx.saved_tensors
+        dx = gru_train_bwd(gates, hprev, hn, w_hh, lengths, dh_out.contiguous())
+        # the hidden path's cotangent: the candidate slot carries the reset gate
+        hidden = hn.shape[-1]
+        dhp = torch.cat([dx[..., :2 * hidden], dx[..., 2 * hidden:] * gates[..., :hidden]], -1)
+        return dx, torch.einsum("tgbh,tgbk->ghk", hprev, dhp), dhp.sum((0, 2)), None
+
+
+def grouped_lstm_trainable(
+    x_proj: torch.Tensor,  # [T, G, B, 4H] (with b_ih)
+    w_hh: torch.Tensor,  # [G, H, 4H]
+    b_hh: torch.Tensor,  # [G, 4H]
+    lengths: Optional[torch.Tensor] = None,  # [B] int32; None = T
+) -> torch.Tensor:
+    """Differentiable grouped LSTM recurrence -> final hidden ``[G, B, H]``,
+    with gradients for ``x_proj``, ``w_hh`` and ``b_hh`` (reference
+    ``grouped_lstm_trainable``)."""
+    return _LSTMTrainable.apply(x_proj, w_hh, b_hh, lengths)
+
+
+def grouped_gru_trainable(
+    x_proj: torch.Tensor,  # [T, G, B, 3H] (with b_ih)
+    w_hh: torch.Tensor,  # [G, H, 3H]
+    b_hh: torch.Tensor,  # [G, 3H], kept on the hidden path
+    lengths: Optional[torch.Tensor] = None,  # [B] int32; None = T
+) -> torch.Tensor:
+    """Differentiable grouped GRU recurrence -> final hidden ``[G, B, H]``
+    (reference ``grouped_gru_trainable``)."""
+    return _GRUTrainable.apply(x_proj, w_hh, b_hh, lengths)

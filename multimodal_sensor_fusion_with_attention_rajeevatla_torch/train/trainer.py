@@ -23,8 +23,10 @@ optimizer, augmentations, the per-batch step and ``fit``).
   ``resume_from`` restores weights, optimizer and generator from a ``last``
   checkpoint, so a resumed run repeats an uninterrupted one.
 
-The streaming loader path (``dataset.streaming``) and the parallel layouts
-are not ported (ROADMAP queue A).
+The streaming loader path (``dataset.streaming``), the parallel layouts and
+``training.remat`` are not ported (ROADMAP queue A): ``check_layout`` keeps
+the reference's ``ValueError``s for an inconsistent ``parallel`` block and
+raises ``NotImplementedError`` for any layout other than one card.
 """
 
 from __future__ import annotations
@@ -232,6 +234,51 @@ def dropout_modality_mask(
     return torch.where(dead, revived, keep)
 
 
+def check_layout(config) -> None:
+    """The reference trainer's checks of ``parallel.*`` with its messages,
+    then ``NotImplementedError`` for what the port does not run: more than one
+    device (``num_devices`` above 1; ``auto`` and null are the one card here)
+    and so every mesh axis and ZeRO (ROADMAP A11), and ``training.remat``
+    (A9). Every default of ``config/base.yaml`` passes."""
+    par = config.get("parallel", {}) or {}
+    model_parallel = int(par.get("model_parallel", 1) or 1)
+    pipeline_parallel = int(par.get("pipeline_parallel", 1) or 1)
+    dcn_slices = int(par.get("dcn_slices", 1) or 1)
+    zero_optimizer = bool(par.get("zero_optimizer", False))
+    sequence_parallel = bool(par.get("sequence_parallel", False))
+    if pipeline_parallel > 1 and model_parallel > 1:
+        raise ValueError(
+            "parallel.pipeline_parallel cannot be combined with parallel.model_parallel (the "
+            "pipelined stack's shard_map is manual over 'pipe' only)")
+    if sequence_parallel and model_parallel <= 1:
+        raise ValueError(
+            "parallel.sequence_parallel requires parallel.model_parallel > 1 (it shards "
+            "activations across the tensor-parallel group)")
+    moe_experts = int(config.model.get("moe_experts", 0) or 0)
+    if moe_experts and model_parallel > 1 and moe_experts % model_parallel:
+        raise ValueError(
+            f"model.moe_experts ({moe_experts}) must divide evenly over parallel.model_parallel "
+            f"({model_parallel}) for expert parallelism")
+    requested = par.get("num_devices", 1)
+    devices = 1 if requested in (None, "auto") else int(requested)
+    layout = {"num_devices": devices, "model_parallel": model_parallel,
+              "dcn_slices": dcn_slices, "pipeline_parallel": pipeline_parallel,
+              "zero_optimizer": zero_optimizer, "sequence_parallel": sequence_parallel}
+    defaults = {"num_devices": 1, "model_parallel": 1, "dcn_slices": 1, "pipeline_parallel": 1,
+                "zero_optimizer": False, "sequence_parallel": False}
+    if devices <= 1:
+        if model_parallel > 1 or dcn_slices > 1 or pipeline_parallel > 1 or zero_optimizer:
+            raise ValueError(
+                "parallel.model_parallel / parallel.dcn_slices / parallel.pipeline_parallel / "
+                "parallel.zero_optimizer require parallel.num_devices > 1")
+    else:
+        keys = ", ".join(f"parallel.{k}={v}" for k, v in layout.items() if v != defaults[k])
+        raise NotImplementedError(
+            f"{keys} is not ported yet (ROADMAP queue A item 11): the port trains on one card")
+    if bool(config.training.get("remat", False)):
+        raise NotImplementedError("training.remat is not ported yet (ROADMAP queue A item 9)")
+
+
 class Trainer:
     """Config-driven experiment runner on one device (reference ``Trainer``).
 
@@ -248,6 +295,7 @@ class Trainer:
     """
 
     def __init__(self, config, model: Optional[MultimodalFusionModel] = None, device=None):
+        check_layout(config)
         self.config = config
         self.device = resolve_device(device)
         self.model = model or MultimodalFusionModel.from_config(config, device=self.device)

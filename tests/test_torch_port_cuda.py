@@ -401,3 +401,94 @@ def test_grouped_recurrence_kernels_reject_what_they_do_not_take(card):
     w3, b3 = torch.zeros(2, 5, 48, device=card), torch.zeros(2, 48, device=card)
     empty = tr.grouped_gru_fused(x[:, :, :0], w3, torch.zeros(2, 16, 48, device=card), b3, b3)
     assert empty.shape == (2, 0, 16)  # an empty batch launches nothing
+
+
+# ---- the recurrences' training kernels ---------------------------------------
+
+RNN_TRAIN_SHAPES = [  # T, G, B, H: small and ragged, 3H not a multiple of 4, H over one pass,
+    (22, 2, 5, 16), (9, 1, 3, 15), (24, 1, 8, 300), (509, 4, 13, 256)]  # B 13 / T 509
+
+
+def _rnn_train_inputs(card, steps, groups, batch, hidden, gates, seed):
+    g = torch.Generator().manual_seed(seed)
+    scale = hidden**-0.5
+    x_proj = torch.randn(steps, groups, batch, gates * hidden, generator=g).to(card)
+    w_hh = ((torch.rand(groups, hidden, gates * hidden, generator=g) * 2 - 1) * scale).to(card)
+    b_hh = ((torch.rand(groups, gates * hidden, generator=g) * 2 - 1) * scale).to(card)
+    dh = torch.randn(groups, batch, hidden, generator=g).to(card)
+    lengths = torch.randint(1, steps + 1, (batch,), generator=g, dtype=torch.int32)
+    lengths[:3] = torch.tensor([0, 1, steps], dtype=torch.int32)
+    return x_proj, w_hh, b_hh, dh, lengths.to(card)
+
+
+@pytest.mark.parametrize("with_lengths", [True, False], ids=["lengths", "full"])
+@pytest.mark.parametrize("steps,groups,batch,hidden", RNN_TRAIN_SHAPES)
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+def test_rnn_training_kernels_match_plain(card, cell, steps, groups, batch, hidden,
+                                          with_lengths):
+    """Forward (final state and every residual) and backward (the ``x_proj``
+    cotangent from the same residuals) against their twins, one launch each;
+    past each length the residuals and the cotangent are exactly zero."""
+    gates = 4 if cell == "lstm" else 3
+    x_proj, w_hh, b_hh, dh, lengths = _rnn_train_inputs(
+        card, steps, groups, batch, hidden, gates, steps + hidden)
+    lens = lengths if with_lengths else None
+    fwd, bwd = (tr.lstm_train_fwd, tr.lstm_train_bwd) if cell == "lstm" else \
+        (tr.gru_train_fwd, tr.gru_train_bwd)
+    fwd_plain, bwd_plain = (tr.lstm_train_fwd_plain, tr.lstm_train_bwd_plain) if cell == "lstm" \
+        else (tr.gru_train_fwd_plain, tr.gru_train_bwd_plain)
+    before = fwd.launches, bwd.launches
+    got = fwd(x_proj, w_hh, b_hh, lens)
+    want = fwd_plain(x_proj, w_hh, b_hh, lens)
+    dx = bwd(*want[1:], w_hh, lens, dh)
+    torch.cuda.synchronize()
+    assert (fwd.launches, bwd.launches) == (before[0] + 1, before[1] + 1)
+    for a, b in zip(got, want):  # f32 both; up to 509 dependent steps
+        assert a.shape == b.shape
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+    want_dx = bwd_plain(*want[1:], w_hh, lens, dh)
+    assert _rel_err(dx, want_dx) < 1e-4
+    if with_lengths:
+        past = (torch.arange(steps, device=card)[:, None] >= lengths[None, :])  # [T, B]
+        assert torch.all(got[0][:, 0] == 0)  # length 0: the zero state, exactly
+        for t in (*got[1:], dx):
+            assert torch.all(t.permute(0, 2, 1, 3)[past] == 0)
+
+
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+def test_trainable_recurrence_on_the_card_matches_autograd_of_the_loop(card, cell):
+    gates = 4 if cell == "lstm" else 3
+    x_proj, w_hh, b_hh, dh, lengths = _rnn_train_inputs(card, 64, 4, 13, 256, gates, 5)
+    tensors = [t.requires_grad_() for t in (x_proj, w_hh, b_hh)]
+    fn = tr.grouped_lstm_trainable if cell == "lstm" else tr.grouped_gru_trainable
+    got = fn(*tensors, lengths)
+    grads = torch.autograd.grad(got, tensors, dh)
+    want = tr.rnn_scan(cell, *tensors, lengths)[0]
+    want_grads = torch.autograd.grad(want, tensors, dh)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    for a, b in zip(grads, want_grads):
+        assert _rel_err(a, b) < 1e-4
+    with torch.inference_mode():  # MC dropout: the forward kernel, no graph
+        before = tr.lstm_train_fwd.launches + tr.gru_train_fwd.launches
+        out = fn(x_proj, w_hh, b_hh, lengths)
+        assert tr.lstm_train_fwd.launches + tr.gru_train_fwd.launches == before + 1
+    assert not out.requires_grad
+
+
+def test_rnn_training_kernels_reject_what_they_do_not_take(card):
+    x_proj = torch.zeros(4, 2, 3, 64, device=card)
+    w_hh, b_hh = torch.zeros(2, 16, 64, device=card), torch.zeros(2, 64, device=card)
+    with pytest.raises(ValueError, match="contiguous"):
+        tr.lstm_train_fwd(x_proj.transpose(1, 2).contiguous().transpose(1, 2), w_hh, b_hh)
+    with pytest.raises(TypeError, match="int32"):
+        tr.gru_train_fwd(x_proj[..., :48].contiguous(), w_hh[..., :48].contiguous(),
+                         b_hh[:, :48].contiguous(), torch.zeros(3, dtype=torch.int64, device=card))
+    with pytest.raises(ValueError, match="lengths is on"):
+        tr.lstm_train_fwd(x_proj, w_hh, b_hh, torch.zeros(3, dtype=torch.int32))
+    _h, g_res, hprev, cprev = tr.lstm_train_fwd(x_proj, w_hh, b_hh)
+    with pytest.raises(ValueError, match="dh_out is on"):
+        tr.lstm_train_bwd(g_res, hprev, cprev, w_hh, None, torch.zeros(2, 3, 16))
+    with pytest.raises(RuntimeError, match="failed to launch"):  # the staged x_proj: 1 MB
+        big = torch.zeros(2, 4096, 4 * 4096, device=card)
+        tr.lstm_train_fwd(torch.zeros(1, 2, 3, 4 * 4096, device=card), big,
+                          torch.zeros(2, 4 * 4096, device=card))

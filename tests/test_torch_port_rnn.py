@@ -266,15 +266,30 @@ def test_grouped_rnn_equals_ungrouped_encoders_on_unstacked_weights(cell, layers
             torch.testing.assert_close(grouped[g], alone, rtol=1e-5, atol=1e-5)
 
 
-def test_grouped_rnn_training_route():
-    """``use_pallas`` with one layer has no training route yet; the scan
-    route trains, with a mask on the final state."""
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+def test_grouped_rnn_training_route(cell):
+    """``use_pallas`` with one layer trains through ``grouped_*_trainable``
+    (on the CPU their plain twins): the same output, dropout mask and
+    gradients as the scan route from one seed. The scan route trains, with a
+    mask on the final state."""
     members, lengths = _group_inputs()
     stacked = tg.stack_group_features({n: torch.from_numpy(v) for n, v in members.items()},
                                       list(members))
-    kernel = tg.GroupedRNNEncoder(G, 6, hidden_dim=H, output_dim=OUT, use_pallas=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP B8"):
-        kernel(stacked, torch.from_numpy(lengths), train=True)
+    routes = {}
+    for use_pallas in (True, False):
+        enc = tg.GroupedRNNEncoder(G, 6, hidden_dim=H, output_dim=OUT, cell_type=cell,
+                                   dropout=0.3, use_pallas=use_pallas)
+        enc.init_parameters(torch.Generator().manual_seed(0))
+        out = enc(stacked, torch.from_numpy(lengths), train=True,
+                  generator=torch.Generator().manual_seed(1))
+        out.square().sum().backward()
+        routes[use_pallas] = (out, {n: p.grad for n, p in enc.named_parameters()})
+    (got, got_grads), (want, want_grads) = routes[True], routes[False]
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    assert sorted(got_grads) == sorted(want_grads)
+    for name, w in want_grads.items():
+        assert torch.isfinite(got_grads[name]).all()
+        assert (got_grads[name] - w).abs().max() <= 1e-4 * w.abs().max(), name
     two = tg.GroupedRNNEncoder(G, 6, hidden_dim=H, output_dim=OUT, num_layers=2, use_pallas=True)
     two.init_parameters(torch.Generator().manual_seed(0))
     out = two(stacked, torch.from_numpy(lengths), train=True,

@@ -2,7 +2,7 @@
 built by ``from_config`` (hidden 32, one layer per modality, grouped into one
 ``GroupedRNNEncoder``) against the JAX model on converted weights: eval logits
 (all modalities, a masked one, a missing group member), one training step at
-``model.pallas_rnn=false``, the converter's round trip of the grouped and the
+``model.pallas_rnn`` off and on, the converter's round trip of the grouped and the
 ungrouped tree, the grouped model against the ungrouped one, serving, the
 trainer, and a checkpoint. The JAX side runs its recurrence kernels in
 interpret mode; the port runs on the CPU."""
@@ -158,21 +158,46 @@ def test_rnn_model_with_a_missing_member_matches_jax(rnn_model_pair):
 
 
 def test_rnn_model_training_raises_until_the_training_kernels_are_ported(rnn_model_pair):
-    _cell, _jmodel, _variables, _tree, model = rnn_model_pair
-    feats, lengths, _ = _batch()
-    with pytest.raises(NotImplementedError, match="model.pallas_rnn=false"):
-        model({n: torch.from_numpy(v) for n, v in feats.items()}, None,
-              torch.from_numpy(lengths), train=True)
+    """The model at ``pallas_rnn=true`` trains (through ``grouped_*_trainable``,
+    whose plain twins run on the CPU): every gradient is finite, and loss and
+    gradients equal those of the ``pallas_rnn=false`` route on the same
+    weights and seed."""
+    cell, _jmodel, _variables, tree, model = rnn_model_pair
+    feats, lengths, labels = _batch()
+    plain = MultimodalFusionModel.from_config(
+        load_config(REPO / "config" / "base.yaml", rnn_overrides(cell, pallas="false")),
+        device="cpu")
+    plain.load_state_dict(from_flax_variables({"params": tree}), strict=True)
+    assert model.grouped_rnn_encoder.use_pallas and not plain.grouped_rnn_encoder.use_pallas
+    routes = []
+    for m in (model, plain):
+        m.zero_grad()
+        logits = m({n: torch.from_numpy(v) for n, v in feats.items()}, None,
+                   torch.from_numpy(lengths), train=True,
+                   generator=torch.Generator().manual_seed(4))
+        loss = cross_entropy_loss(logits, torch.from_numpy(labels), SMOOTHING)
+        loss.backward()
+        routes.append((loss.item(), {n: p.grad.clone() for n, p in m.named_parameters()}))
+        m.zero_grad()
+    (got_loss, got), (want_loss, want) = routes
+    assert np.isfinite(got_loss) and got_loss == pytest.approx(want_loss, rel=1e-6)
+    assert sorted(got) == sorted(want)
+    for name, w in want.items():
+        assert torch.isfinite(got[name]).all(), name
+        assert (got[name] - w).abs().max() <= GRAD_TOL * max(w.abs().max(), 1e-30), name
 
 
-@pytest.mark.parametrize("cell,layers,grouped", [("lstm", 1, True), ("gru", 1, True),
-                                                 ("lstm", 2, False)])
-def test_rnn_train_loss_and_every_gradient_match_jax(cell, layers, grouped):
-    """One training step at ``model.pallas_rnn=false``, dropout 0: the loss the
-    JAX ``Trainer`` differentiates and every parameter's gradient, compared
-    through ``to_flax_tree``; grouped and (two layers) per-modality encoders."""
+@pytest.mark.parametrize("cell,layers,grouped,pallas", [
+    ("lstm", 1, True, "false"), ("gru", 1, True, "false"), ("lstm", 2, False, "false"),
+    ("lstm", 1, True, "true"), ("gru", 1, True, "true")])
+def test_rnn_train_loss_and_every_gradient_match_jax(cell, layers, grouped, pallas):
+    """One training step, dropout 0: the loss the JAX ``Trainer``
+    differentiates and every parameter's gradient, compared through
+    ``to_flax_tree``; grouped and (two layers) per-modality encoders. At
+    ``model.pallas_rnn=true`` both sides train the grouped recurrence through
+    ``grouped_*_trainable`` (JAX: its Pallas kernels in interpret mode)."""
     extra = () if grouped else ("model.grouped_encoders=false",)
-    overrides = rnn_overrides(cell, layers, pallas="false", extra=extra)
+    overrides = rnn_overrides(cell, layers, pallas=pallas, extra=extra)
     jmodel = JaxModel.from_config(jax_load_config(REPO / "config" / "base.yaml", overrides))
     feats, lengths, labels = _batch(seed=11)
     mask = np.ones((B, 4), np.float32)
@@ -308,7 +333,9 @@ def _split(seed=5, n=16, t=T):
 @pytest.mark.parametrize("cell", ["lstm", "gru"])
 def test_trainer_takes_steps_on_the_rnn_family_at_pallas_rnn_false(cell):
     """8 micro-steps (2 updates) with dropout and every augmentation on: the
-    same seed twice gives the same losses; ``pallas_rnn`` on raises."""
+    same seed twice gives the same losses; at ``pallas_rnn`` on (the training
+    kernels' route) the trainer takes the first update's 4 micro-steps to the
+    same losses."""
     split = _split()
     overrides = [o for o in rnn_overrides(cell, pallas="false") if o != "model.dropout=0"]
     runs = []
@@ -324,8 +351,12 @@ def test_trainer_takes_steps_on_the_rnn_family_at_pallas_rnn_false(cell):
         assert all(not torch.equal(a, p) for a, p in zip(before, encoder.parameters()))
         runs.append(losses)
     assert runs[0] == runs[1]
-    kernel = tt.Trainer(load_config(REPO / "config" / "base.yaml", rnn_overrides(cell)),
+    kernel = tt.Trainer(load_config(REPO / "config" / "base.yaml",
+                                    [o for o in rnn_overrides(cell) if o != "model.dropout=0"]),
                         device="cpu")
+    assert kernel.model.grouped_rnn_encoder.use_pallas
     kernel.init_state(steps_per_epoch=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP B8"):
-        kernel.make_train_step_fn()(split, torch.arange(8))
+    step = kernel.make_train_step_fn()
+    losses = [step(split, torch.arange(8) + 8 * (i % 2))[0].item() for i in range(4)]
+    assert kernel.optimizer.count == 1
+    np.testing.assert_allclose(losses, runs[0][:4], rtol=1e-5)

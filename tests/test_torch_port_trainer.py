@@ -158,8 +158,8 @@ def test_unported_training_routes_raise():
     resolves as in the reference (the generator kernel only on the card with a
     kernel flag on, plain draws elsewhere), and ``fused_mlp`` without
     ``fused_mlp_ln`` trains through ``transformer_ffw``. What still raises is
-    an unknown value, and training an lstm / gru model through the recurrence
-    kernels (``model.pallas_rnn`` on), whose training pair is not ported."""
+    an unknown value. An lstm model trains at ``model.pallas_rnn`` on (the
+    training kernels' route) and off (the plain loop) to the same output."""
     assert te.resolve_dropout_rng("xla", "cuda") == "xla"
     for value in ("auto", "kernel", "AUTO", None):
         assert te.resolve_dropout_rng(value, "cpu") == "xla"  # off the card: plain draws
@@ -186,15 +186,14 @@ def test_unported_training_routes_raise():
     # same weights, same draws: the split and the combined route agree (f32 rounding)
     torch.testing.assert_close(outs["false"], outs["true"], rtol=1e-5, atol=1e-5)
     lstm = [f"model.encoders.{n}.{k}" for n in NAMES for k in ("encoder_type=lstm", "num_layers=1")]
+    trained = {}
     for flag in ("true", "false"):
         cfg = load_config(REPO / "config" / "base.yaml", SMALL + lstm + [f"model.pallas_rnn={flag}"])
         model = MultimodalFusionModel.from_config(cfg, device="cpu")
         assert model(feats).shape == (2, 25)  # eval runs either way
-        if flag == "true":
-            with pytest.raises(NotImplementedError, match="ROADMAP B8"):
-                model(feats, train=True, generator=torch.Generator().manual_seed(1))
-        else:
-            assert model(feats, train=True, generator=torch.Generator().manual_seed(1)).requires_grad
+        trained[flag] = model(feats, train=True, generator=torch.Generator().manual_seed(1))
+        assert trained[flag].requires_grad  # and so does training: kernels' twins or the loop
+    torch.testing.assert_close(trained["true"], trained["false"], rtol=1e-5, atol=1e-6)
 
 
 def _split(seed=5, n=16, t=24):
