@@ -25,7 +25,11 @@ Phases (any failure exits non-zero, and no result line is printed):
    is not a multiple of 4. Backward checks compare every output by its max
    abs error relative to its largest magnitude. Times with CUDA events:
    kernel, plain twin, the bound, and, where one PyTorch call computes the
-   same function, that call.
+   same function, that call. The two kernels whose products run as 3xTF32 on
+   the tensor cores (``flash_fwd_single``, ``packed_attention_bwd``) carry
+   both bounds, a third of the TF32 peak (the unit they run on) and the CUDA
+   cores' f32 peak, with their share of the first; ``nvcc -Xptxas -v``'s
+   registers and spills for them are printed at setup.
 3. Serve: ``MultimodalFusionModel.from_config(config/base.yaml)`` with seeded
    random weights at full width, ``serving.make_serving_fn`` on batch-64
    requests of real windows (all modalities; one modality missing; short
@@ -62,7 +66,8 @@ Phases (any failure exits non-zero, and no result line is printed):
    at T = 4096, B*H = 256; fused backward at T = 1024 and at T = 512, B*H =
    512; the split dk/dv and dq kernels at T = 2048), on the real batches'
    lengths, on the edge lengths and on a padded T = 1100; the two forwards
-   against each other at T = 2048; both routes timed at T = 1024 and 2048.
+   against each other at T = 2048; both routes timed at T = 1024 and 2048,
+   SDPA (forward, or backward) beside every shape a flash row reports.
    The three grouped-recurrence kernels (``ops/rnn.py``) at T = 512 and 1024,
    G = 4, B = 64, H = 256, D = 17: a real batch's lengths, the edge lengths 0,
    1, 37, T - 1, T, no lengths, and a B and a T that are not multiples of 8;
@@ -131,9 +136,17 @@ BATCH = 64
 TRAIN_STEPS = 8  # micro-steps on the main path: 2 updates at accumulation 4
 FUSED_MLP_STEPS = 4  # micro-steps at fused_mlp=true, fused_mlp_ln=false
 FIT_EPOCHS = 2
-# f32 peaks of one H100 SXM (NVIDIA data sheet): CUDA-core FP32 and HBM3
+# peaks of one H100 SXM (NVIDIA data sheet): CUDA-core FP32, dense TF32 on
+# the tensor cores, HBM3. A kernel that takes each f32 product as three TF32
+# products (3xTF32: flash_fwd_single, packed_attention_bwd) is bounded by a
+# third of the TF32 rate for the same f32 operation count
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
+PEAK_3XTF32_FLOPS = PEAK_TF32_FLOPS / 3
 PEAK_BYTES = 3.35e12
+# the kernels whose products run as 3xTF32 on the tensor cores
+TENSOR_CORE_KERNELS = {"flash_fwd_single": "flash_fwd_single_kernel",
+                       "packed_attention_bwd": "bwd_kernel"}
 # stated tolerances: f32 on both sides; the kernels sum in another order
 # (online softmax across 64-key tiles, per-thread dot products)
 ATTN_TOL = 1e-4
@@ -174,9 +187,52 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(flops: float, nbytes: float):
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+def bound(flops: float, nbytes: float, peak: float = PEAK_F32_FLOPS):
+    """(ms, "operations" or "bytes"): the larger of flops over the peak of the
+    unit the kernel runs on and bytes over the memory rate."""
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def tensor_core_bounds(row, flops, nbytes, suffix=""):
+    """Both bounds of a 3xTF32 kernel's row at one shape: ``bound_ms`` on the
+    unit it runs on (a third of the TF32 tensor-core peak) and
+    ``bound_ms_f32`` on the CUDA cores, and the share of the first."""
+    b3, by = bound(flops, nbytes, PEAK_3XTF32_FLOPS)
+    b32, _ = bound(flops, nbytes)
+    row[f"bound_ms{suffix}"], row[f"bound_ms_f32{suffix}"] = b3, b32
+    row[f"bound_share{suffix}"] = b3 / row[f"ms{suffix}"]
+    if not suffix:
+        row["bound_by"], row["unit"] = by, "3xTF32 tensor cores"
+    return (f"bound_ms={b3:.4f} on 3xTF32 (f32 CUDA cores {b32:.4f}), "
+            f"share {100 * b3 / row[f'ms{suffix}']:.1f}%")
+
+
+def ptxas_report(build):
+    """Start ``nvcc -Xptxas -v`` on the tensor-core kernels' sources beside
+    the build; the returned function waits and prints registers and spills."""
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_ptxas_")
+    sources = ("flash_attention", "packed_attention_bwd")
+    procs = [subprocess.Popen(
+        [build._nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-o", f"{tmp.name}/{name}.so",
+         str(build.CSRC_DIR / f"{name}.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for name in sources]
+
+    def finish():
+        for proc in procs:
+            output, _ = proc.communicate()
+            if proc.returncode:
+                raise RuntimeError(f"nvcc -Xptxas -v failed:\n{output}")
+            kernel = None
+            for line in output.splitlines():
+                if "Compiling entry function" in line:
+                    name = line.split("'")[1]
+                    kernel = next((k for k in TENSOR_CORE_KERNELS.values() if k in name), None)
+                    dim = name.split("ILi")[1].split("E")[0] if kernel and "ILi" in name else ""
+                elif kernel and ("spill" in line or "registers" in line):
+                    print(f"  ptxas {kernel}<{dim}>: {line.strip()}", flush=True)
+        tmp.cleanup()
+    return finish
 
 
 def check_attention(torch, attn, real_lengths):
@@ -304,14 +360,19 @@ def check_attention_bwd(torch, attn, real_lengths):
     dout72 = torch.randn(3, 72, heads * hd, generator=g).cuda()
     cases = [("real lengths", qkv, dout, real_lengths), ("edge lengths", qkv, dout, edge.cuda()),
              ("T=72", qkv72, dout72, torch.tensor([0, 70, 72], dtype=torch.int32).cuda())]
+    for d in (16, 32, 128):  # every head dim the kernel takes, on the edge lengths
+        cases.append((f"d={d} edge lengths",
+                      torch.randn(8, seq, 3 * heads * d, generator=g).cuda(),
+                      torch.randn(8, seq, heads * d, generator=g).cuda(), edge[:8].cuda()))
     err = 0.0
     for name, x, do, lens in cases:
-        out, lse = attn.packed_attention_reference(x, lens, heads, scale)
-        got = attn.packed_attention_bwd(x, lens, out, lse, do, heads, scale)
+        d = x.shape[-1] // (3 * heads)
+        out, lse = attn.packed_attention_reference(x, lens, heads, d**-0.5)
+        got = attn.packed_attention_bwd(x, lens, out, lse, do, heads, d**-0.5)
         torch.cuda.synchronize()
-        want = attn.packed_attention_bwd_reference(x, lens, out, lse, do, heads, scale)
+        want = attn.packed_attention_bwd_reference(x, lens, out, lse, do, heads, d**-0.5)
         e = rel_err(got, want)
-        feat = heads * hd
+        feat = heads * d
         for b, n in enumerate(lens.tolist()):
             if n == 0 and got[b].abs().max().item() != 0.0:
                 raise AssertionError("packed attention bwd: a length-0 row has a gradient")
@@ -338,17 +399,17 @@ def check_attention_bwd(torch, attn, real_lengths):
     keys = float(lens.clamp(0, seq).sum().item())
     flops = 10.0 * heads * hd * seq * keys  # the TPU kernel's five products
     nbytes = 4.0 * (2 * qkv.numel() + 2 * dout.numel() + lse.numel() + batch)
-    bound_ms, bound_by = bound(flops, nbytes)
-    print(f"  packed_attention_bwd ms={ms:.4f} plain_ms={plain_ms:.4f} sdpa_bwd_ms={library_ms:.4f} "
-          f"bound_ms={bound_ms:.4f} ({bound_by}; {keys:.0f} valid keys, {flops / 1e9:.3f} GFLOP, "
-          f"{nbytes / 1e6:.1f} MB)", flush=True)
-    return {
+    row = {
         "name": "packed_attention_bwd", "route": "cuda",
         "source": f"{PKG}/ops/csrc/packed_attention_bwd.cu",
         "replaces": f"{TPU_PKG}/ops/pallas_attention.py:845",
-        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
     }
+    note = tensor_core_bounds(row, flops, nbytes)
+    print(f"  packed_attention_bwd ms={ms:.4f} plain_ms={plain_ms:.4f} sdpa_bwd_ms={library_ms:.4f} "
+          f"{note} ({row['bound_by']}; {keys:.0f} valid keys, {flops / 1e9:.3f} GFLOP, "
+          f"{nbytes / 1e6:.1f} MB)", flush=True)
+    return row
 
 
 def _ln_case(torch, n, d, f, keep, seed):
@@ -569,16 +630,14 @@ def _plain_forward(torch, attn, q, k, v, lengths, scale, slice_batch=8):
     return torch.cat(outs), torch.cat(lses)
 
 
-def _flash_cost(torch, lengths, seq, products, tensors):
-    """(bound_ms, bound_by, note) of a kernel that does ``products`` products
-    over the valid keys and moves ``tensors`` [B*H, T, d] arrays plus lse/delta."""
+def _flash_work(torch, lengths, seq, products, tensors):
+    """(flops, bytes, note) of a kernel that does ``products`` products over
+    the valid keys and moves ``tensors`` [B*H, T, d] arrays plus lse/delta."""
     keys = float(lengths.clamp(0, seq).sum().item())
     rows = len(lengths) * HEADS
     flops = 2.0 * products * HEADS * HEAD_DIM * seq * keys
     nbytes = 4.0 * (tensors * rows * seq * HEAD_DIM + 2 * rows * seq + len(lengths))
-    bound_ms, bound_by = bound(flops, nbytes)
-    return bound_ms, bound_by, (f"{bound_by}; {keys:.0f} valid keys, {flops / 1e9:.2f} GFLOP, "
-                                f"{nbytes / 1e6:.1f} MB")
+    return flops, nbytes, f"{keys:.0f} valid keys, {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB"
 
 
 def _sdpa(torch, q, k, v, lengths, seq, grad=False):
@@ -653,10 +712,25 @@ def check_flash_kernels(torch, attn, real_lengths):
            torch.tensor([0, 1100, 777], dtype=torch.int32).cuda())
 
     # forwards: rows 3 and 4
-    for seq in (1024, 2048):
+    for seq in (1024, 2048, 512):
         q, k, v, _dout, lens = data[seq]
-        forward_case(f"T={seq} real lengths", "single", q, k, v, lens)
-        forward_case(f"T={seq} edge lengths", "single", q, k, v, _edge_lengths(torch, lens, seq))
+        forward_case(f"T={seq} B*H={q.shape[0]} real lengths", "single", q, k, v, lens)
+        forward_case(f"T={seq} B*H={q.shape[0]} edge lengths", "single", q, k, v,
+                     _edge_lengths(torch, lens, seq))
+    g = torch.Generator().manual_seed(16)
+    for d in (16, 32, 128):  # every head dim the single-key-block kernel takes
+        q, k, v = (torch.randn(8 * HEADS, 300, d, generator=g).cuda() for _ in range(3))
+        lens = torch.tensor([0, 1, 37, 64, 65, 299, 300, 150], dtype=torch.int32).cuda()
+        out, lse = attn.flash_fwd_single(q, k, v, lens, HEADS, d**-0.5)
+        torch.cuda.synchronize()
+        ref_out, ref_lse = attn.flash_attention_reference(q, k, v, lens, HEADS, d**-0.5)
+        valid = ref_lse > attn.NEG_INF / 2
+        e = max((out - ref_out).abs().max().item(), (lse[valid] - ref_lse[valid]).abs().max().item())
+        if out[:HEADS].abs().max().item() != 0.0 or not torch.equal(valid, lse > attn.NEG_INF / 2):
+            raise AssertionError(f"flash_fwd_single d={d}: rows without keys differ")
+        print(f"  flash_fwd_single d={d} T=300 edge lengths: max_abs_err {e:.3e} (tol {ATTN_TOL})",
+              flush=True)
+        errs["single"] = max(errs["single"], e)
     q, k, v, _dout, lens = data[4096]
     forward_case("T=4096 real lengths", "tiled", q, k, v, lens)
     forward_case("T=4096 edge lengths", "tiled", q, k, v, _edge_lengths(torch, lens, 4096))
@@ -717,6 +791,18 @@ def check_flash_kernels(torch, attn, real_lengths):
           f"{fused512:.4f} ms", flush=True)
     del args512
 
+    def sdpa_ms(seq, wrt=None):
+        """SDPA's time on the inputs at T = seq: forward, or its backward with
+        respect to ``wrt`` ("qkv", "kv" or "q")."""
+        q, k, v, dout, lens = data[seq]
+        leaves, call = _sdpa(torch, q, k, v, lens, seq, grad=wrt is not None)
+        if wrt is None:
+            return time_ms(call, iters=10)
+        out = call()
+        grads = {"qkv": leaves, "kv": leaves[1:], "q": leaves[:1]}[wrt]
+        return time_ms(lambda: torch.autograd.grad(out, grads, dout.view(out.shape),
+                                                   retain_graph=True), iters=5)
+
     rows = []
     specs = (  # name, kernel key, T, products, tensors moved, TPU kernel line, source, library
         ("flash_fwd_single", "single", 1024, 2, 4, 159, "flash_attention.cu", "fwd"),
@@ -728,10 +814,9 @@ def check_flash_kernels(torch, attn, real_lengths):
     for name, key, seq, products, tensors, line, src, lib in specs:
         q, k, v, dout, lens = data[seq]
         ms = other[seq][key] if seq in other else time_forward(key, seq)
-        leaves, call = _sdpa(torch, q, k, v, lens, seq, grad=lib != "fwd")
+        library_ms = sdpa_ms(seq, None if lib == "fwd" else lib)
         if lib == "fwd":
             plain_ms = time_ms(lambda: _plain_forward(torch, attn, q, k, v, lens, scale), iters=3)
-            library_ms = time_ms(call, iters=10)
         else:
             out, lse = attn.flash_fwd_tiled(q, k, v, lens, HEADS, scale)
             delta = attn.flash_delta(out, dout)
@@ -742,26 +827,40 @@ def check_flash_kernels(torch, attn, real_lengths):
                    "q": lambda: attn.flash_dq_reference(
                        q, k, v, lens, HEADS, lse, delta, dout, scale)}[lib]
             plain_ms = time_ms(ref, iters=3)
-            wrt = {"qkv": leaves, "kv": leaves[1:], "q": leaves[:1]}[lib]
-            sdpa_out = call()
-            d_sdpa = dout.view(sdpa_out.shape)
-            library_ms = time_ms(
-                lambda: torch.autograd.grad(sdpa_out, wrt, d_sdpa, retain_graph=True), iters=5)
-            del sdpa_out
-        bound_ms, bound_by, note = _flash_cost(torch, lens, seq, products, tensors)
-        print(f"  {name} T={seq} B*H={q.shape[0]}: ms={ms:.4f} plain_ms={plain_ms:.4f} "
-              f"sdpa_ms={library_ms:.4f} bound_ms={bound_ms:.4f} ({note})", flush=True)
-        rows.append({
+        flops, nbytes, note = _flash_work(torch, lens, seq, products, tensors)
+        row = {
             "name": name, "route": "cuda", "source": f"{PKG}/ops/csrc/{src}",
             "replaces": f"{TPU_PKG}/ops/pallas_attention.py:{line}",
-            "max_abs_err": errs[key], "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": library_ms, "shape": [q.shape[0], seq, HEAD_DIM],
-        })
-    rows[0]["ms_t2048"] = other[2048]["single"]
-    rows[0]["ms_t512_bh512"] = single512
-    rows[2]["ms_t512_bh512"] = fused512
-    rows[2]["ms_t2048"] = other[2048]["fused"]
+            "max_abs_err": errs[key], "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "shape": [q.shape[0], seq, HEAD_DIM],
+        }
+        if name in TENSOR_CORE_KERNELS:
+            bounds = tensor_core_bounds(row, flops, nbytes)
+        else:
+            row["bound_ms"], row["bound_by"] = bound(flops, nbytes)
+            bounds = f"bound_ms={row['bound_ms']:.4f}"
+        print(f"  {name} T={seq} B*H={q.shape[0]}: ms={ms:.4f} plain_ms={plain_ms:.4f} "
+              f"sdpa_ms={library_ms:.4f} {bounds} ({row['bound_by']}; {note})", flush=True)
+        rows.append(row)
+    # the other shapes each row reports, with SDPA timed beside every one
+    single, tiled, fused = rows[0], rows[1], rows[2]
+    single["ms_t2048"], single["library_ms_t2048"] = other[2048]["single"], sdpa_ms(2048)
+    single["ms_t512_bh512"], single["library_ms_t512_bh512"] = single512, sdpa_ms(512)
+    for suffix, seq in (("_t2048", 2048), ("_t512_bh512", 512)):
+        flops, nbytes, _ = _flash_work(torch, data[seq][4], seq, 2, 4)
+        print(f"  flash_fwd_single T={seq} B*H={data[seq][0].shape[0]}: ms={single['ms' + suffix]:.4f} "
+              f"sdpa_ms={single['library_ms' + suffix]:.4f} "
+              f"{tensor_core_bounds(single, flops, nbytes, suffix)}", flush=True)
+    tiled["ms_t1024"], tiled["library_ms_t1024"] = other[1024]["tiled"], rows[0]["library_ms"]
+    tiled["ms_t2048"], tiled["library_ms_t2048"] = other[2048]["tiled"], single["library_ms_t2048"]
+    fused["ms_t512_bh512"], fused["library_ms_t512_bh512"] = fused512, sdpa_ms(512, "qkv")
+    fused["ms_t2048"], fused["library_ms_t2048"] = other[2048]["fused"], sdpa_ms(2048, "qkv")
     rows[3]["ms_t1024"], rows[4]["ms_t1024"] = other[1024]["dkv"], other[1024]["dq"]
+    print(f"  SDPA beside the other shapes: forward T=1024 {rows[0]['library_ms']:.4f}, "
+          f"T=2048 {single['library_ms_t2048']:.4f}, [512, 512, 64] "
+          f"{single['library_ms_t512_bh512']:.4f} ms; backward [512, 512, 64] "
+          f"{fused['library_ms_t512_bh512']:.4f}, T=2048 {fused['library_ms_t2048']:.4f} ms",
+          flush=True)
     return rows
 
 
@@ -1049,7 +1148,7 @@ FAMILIES = (  # profiler kernel-name fragments -> family, first match wins
     ("flash_bwd_fused", ("flash_bwd_fused",)),
     ("flash_bwd_split", ("flash_dkv_kernel", "flash_dq_kernel")),
     ("flash_delta", ("flash_delta",)),
-    ("packed_attention_bwd", ("dkv_kernel", "dq_kernel", "delta_kernel")),
+    ("packed_attention_bwd", ("::bwd_kernel<", "::dq_reduce_kernel", "::delta_kernel<")),
     ("proj_ln_fwd", ("proj_ln_fwd",)),
     ("proj_ln_bwd", ("proj_ln_bwd",)),
     ("ffw_ln_fwd", ("ffw_ln_fwd",)),
@@ -2017,8 +2116,10 @@ def main() -> int:
 
     # ---- 1. setup: kernels and data --------------------------------------
     t = time.perf_counter()
+    ptxas = ptxas_report(_build)
     _build.build_all()
     print(f"[setup] kernels built in {time.perf_counter() - t:.1f} s", flush=True)
+    ptxas()
     cfg = load_config(REPO / "config" / "base.yaml")
     modalities = list(cfg.dataset.modalities)
     t = time.perf_counter()

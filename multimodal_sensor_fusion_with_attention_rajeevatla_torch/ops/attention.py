@@ -18,8 +18,10 @@ Counterpart of ``flash_self_attention`` and its custom VJP ``_flash_core``:
 wrapper semantics (blocks clipped to T, T padded up to a block multiple,
 routes chosen by the padded length). Five kernels, one wrapper each:
 
-* ``flash_fwd_single`` (``csrc/flash_attention.cu``): the whole key axis at
-  once, no running rescale; padded T ``<= max(block_k, SINGLE_K_MAX)``.
+* ``flash_fwd_single`` (``csrc/flash_attention.cu``): the route of the
+  reference's single-key-block kernel (the whole key axis at once, no running
+  rescale); padded T ``<= max(block_k, SINGLE_K_MAX)``. On the card it is an
+  online softmax over 64-key tiles on the tensor cores.
 * ``flash_fwd_tiled`` (same source): online softmax over key tiles; above that.
 * ``flash_bwd_fused`` (``csrc/flash_attention_bwd.cu``): dq, dk and dv from
   one kernel; padded T ``<= max(min(block_q, block_k), FUSED_BWD_MAX)``.
@@ -30,7 +32,10 @@ routes chosen by the padded length). Five kernels, one wrapper each:
 The reference reads its thresholds from environment variables; here they are
 the module constants ``SINGLE_K_MAX`` and ``FUSED_BWD_MAX``, which
 ``flash_self_attention`` also takes as keyword arguments. The reference's
-bf16 streams on a TPU have no counterpart: every kernel of the port is f32.
+bf16 streams on a TPU have no counterpart: every kernel of the port takes and
+gives f32, and ``flash_fwd_single`` and ``packed_attention_bwd`` take each f32
+product as three TF32 tensor-core products (``csrc/tf32_mma.cuh``), which
+keeps f32's accuracy.
 
 On both layouts key columns at or past a row's length are masked, queries are
 not; a row with no valid key gives exact zeros (and ``lse = NEG_INF``) and
@@ -209,7 +214,10 @@ def _bwd_kernel_fn():
     fn = lib.msfa_packed_attention_bwd
     fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    return lib, fn
+    scratch = lib.msfa_packed_attention_bwd_scratch
+    scratch.argtypes = [ctypes.c_int] * 4
+    scratch.restype = ctypes.c_longlong
+    return lib, fn, scratch
 
 
 def packed_attention_bwd(
@@ -256,12 +264,14 @@ def packed_attention_bwd(
     dqkv = torch.empty_like(qkv)
     if batch == 0 or seq == 0:
         return dqkv
-    delta = torch.empty((batch, seq, num_heads), device=qkv.device, dtype=torch.float32)
-    lib, fn = _bwd_kernel_fn()
+    lib, fn, scratch_floats = _bwd_kernel_fn()
+    # delta [B, T, H] and the per-key-tile dq partials the kernel sums in order
+    scratch = torch.empty(scratch_floats(batch, seq, num_heads, head_dim), device=qkv.device,
+                          dtype=torch.float32)
     with torch.cuda.device(qkv.device):
         code = fn(
             qkv.data_ptr(), lengths.data_ptr(), out.data_ptr(), lse.data_ptr(),
-            dout.data_ptr(), delta.data_ptr(), dqkv.data_ptr(),
+            dout.data_ptr(), scratch.data_ptr(), dqkv.data_ptr(),
             batch, seq, num_heads, head_dim, float(sm_scale),
             torch.cuda.current_stream(qkv.device).cuda_stream,
         )
@@ -513,10 +523,8 @@ def _flash_fwd(kernel_symbol: str, reference, wrapper, q, k, v, lengths, heads, 
 def flash_fwd_single(q, k, v, lengths, heads: int, sm_scale: float):
     """Kernel wrapper, single-key-block forward: ``(out [B*H,T,d], lse [B*H,T])``
     from ``q, k, v [B*H, T, d]`` and ``lengths [B]``. CUDA tensors launch the
-    kernel (f32, contiguous, int32 lengths, head_dim in ``KERNEL_HEAD_DIMS``;
-    the launch is refused when 16 full score rows exceed a block's shared
-    memory, T above 2,944 at d = 64) or raise; CPU tensors take
-    ``flash_attention_reference``."""
+    kernel (f32, contiguous, int32 lengths, head_dim in ``KERNEL_HEAD_DIMS``,
+    any T) or raise; CPU tensors take ``flash_attention_reference``."""
     return _flash_fwd(
         "msfa_flash_fwd_single",
         lambda: flash_attention_reference(q, k, v, lengths, heads, sm_scale),

@@ -16,215 +16,237 @@
 //
 // What bounds them on the H100: arithmetic. With sum_len valid keys over the
 // batch one launch does 4*H*D*T*sum_len operations (34.4 GFLOP at B=32, H=4,
-// D=64, T=1024 with every key valid: 0.51 ms at 67 TFLOP/s f32 on the CUDA
-// cores) against 4 * 4*B*H*T*D bytes (134 MB, 0.04 ms at 3.35 TB/s). The TPU
-// kernels fed bf16 to the matrix unit; these first versions stay in f32
-// throughout. wgmma on bf16 tiles with TMA loads is later work.
+// D=64, T=1024 with every key valid) against 4 * 4*B*H*T*D bytes (134 MB,
+// 0.04 ms at 3.35 TB/s). The TPU kernels fed bf16 to the matrix unit; the
+// port's limits are f32's (1e-4), which bf16 and one TF32 product miss.
 //
-// flash_fwd_single_kernel keeps what the TPU kernel is about: the whole key
-// axis is visible at once, so there is one max, one exp and one normalise per
-// score row and no running rescale. The TPU kernel holds a [block_q, T] score
-// tile in VMEM; a block here has at most 227 KB of shared memory, so one
-// block owns R = 32 query rows (R = 16 when 32 full score rows do not fit:
-// above T = 1408 at D = 64) and their R x T scores live in shared memory
-// while K, then V, stream through a 128-key tile buffer: pass 1 writes the
-// scores and tracks the row max, the exp pass rewrites them as p and sums the
-// row, pass 2 is P.V. A score row belongs to one warp and each lane meets
-// only scores it wrote itself before P.V, so the block synchronises once
-// between the exp pass and P.V. The scores take most of the SM's shared
-// memory, so one block of 8 warps runs per SM: that, not the arithmetic, is
-// what holds this kernel back.
+// flash_fwd_single_kernel runs both products on the TF32 tensor cores at f32
+// accuracy, three mma.sync TF32 products per f32 product (tf32_mma.cuh):
+// 0.21 ms for that shape at 495/3 = 165 TFLOP/s, against 0.51 ms at 67
+// TFLOP/s on the CUDA cores. The TPU kernel sees the whole key axis at once
+// and skips the running rescale because VMEM holds [block_q, T] scores; in
+// a block's shared memory those scores would leave one block per SM and cap
+// T. So it is an online softmax over 64-key tiles with one rescale per tile,
+// in registers: one block of 4 warps per 64 query rows, each warp owning 16
+// rows; q is scaled once and held in registers; K and V tiles arrive by
+// cp.async into a two-stage ring (the next tile's copies fly while this one
+// is multiplied); P goes from the score accumulators to the P.V operand
+// without leaving registers. 68 KB of shared memory at D = 64; registers
+// hold an SM to two blocks. Any T.
 //
-// flash_fwd_tiled_kernel is the online softmax: one block per 64-query tile,
-// running max and sum in registers, the accumulator rescaled per 64-key tile;
-// the score matrix never exists beyond one 64 x 64 tile.
+// flash_fwd_tiled_kernel is the online softmax on the CUDA cores: one block
+// per 64-query tile, running max and sum in registers, the accumulator
+// rescaled per 64-key tile; the score matrix never exists beyond one 64 x 64
+// tile.
 //
-// Both: 256 threads, key tiles at or past the row's length skipped, every
-// processed tile holds at least one valid key. Offsets into q/k/v/out are
-// 64-bit: [256, 4096, 64] is 67 M elements per tensor.
+// Both: key tiles at or past the row's length skipped, every processed tile
+// holds at least one valid key. Offsets into q/k/v/out are 64-bit: [256,
+// 4096, 64] is 67 M elements per tensor.
 
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "tf32_mma.cuh"
 
 namespace {
 
 constexpr int kBlockK = 64;
 constexpr int kThreads = 256;
 constexpr float kNegInf = -1e30f;
-constexpr size_t kMaxSmem = 232448;  // 227 KB: the most a block may ask for
 
 // ---------------------------------------------------------------- single ----
 
-constexpr int kSingleK = 128;  // keys per streamed tile of the single-key-block kernel
+constexpr int kSingleQ = 64;        // query rows per block: 4 warps x 16
+constexpr int kSingleK = 64;        // keys per staged tile
+constexpr int kSingleThreads = 128;
+constexpr int kSingleStages = 2;    // K and V tiles in flight: this one and the next
 
-template <int D, int R>
-size_t single_smem_bytes(int T) {
-  const int key_tiles = (T + kSingleK - 1) / kSingleK;
-  // Qs [R][D], KVs [TK][D+1], Ss [R][key_tiles * TK]
-  return sizeof(float) *
-         ((size_t)R * D + kSingleK * (D + 1) + (size_t)R * key_tiles * kSingleK);
+template <int D>
+constexpr size_t single_smem_bytes() {
+  // kSingleStages x (K tile, V tile), each [kSingleK][D + kPad]
+  return sizeof(float) * kSingleStages * 2 * kSingleK * (D + msfa_tc::kPad);
 }
 
-// 256 threads as 8 warps x 32 lanes: warp ty owns R/8 query rows, lane tx owns
-// keys tx + 32j of the tile (scores) and output columns tx + 32j (P.V).
-template <int D, int R>
-__global__ void __launch_bounds__(kThreads)
+// Warp w owns query rows q0 + 16w .. q0 + 16w + 15 and all D output columns;
+// lane (g, t) holds rows g and g + 8 of every fragment.
+template <int D>
+__global__ void __launch_bounds__(kSingleThreads)
 flash_fwd_single_kernel(const float* __restrict__ q, const float* __restrict__ k,
                         const float* __restrict__ v, const int* __restrict__ lengths,
                         float* __restrict__ out, float* __restrict__ lse, int T, int H,
                         int q_tiles, float sm_scale) {
-  constexpr int kRQ = R / 8;          // query rows per warp
-  constexpr int kKJ = kSingleK / 32;  // keys per lane and tile
-  constexpr int kDJ = (D + 31) / 32;  // output columns per lane
-  extern __shared__ float smem[];
-  const int stride = (T + kSingleK - 1) / kSingleK * kSingleK;
-  float* Qs = smem;
-  float* KVs = Qs + R * D;
-  float* Ss = KVs + kSingleK * (D + 1);
+  using namespace msfa_tc;
+  constexpr int kSteps = D / 8;  // k-steps of Q.K^T, output column tiles of P.V
+  constexpr int kLd = D + kPad;
+  constexpr int kTileFloats = kSingleK * kLd;
+  extern __shared__ __align__(16) float single_smem[];
 
   const long bh = blockIdx.x / q_tiles;
-  const int q0 = (int)(blockIdx.x % q_tiles) * R;
+  const int q0 = (int)(blockIdx.x % q_tiles) * kSingleQ;
   const int tid = threadIdx.x;
-  const int tx = tid & 31;
-  const int ty = tid >> 5;
-  const float* qb = q + bh * T * D;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
   const float* kb = k + bh * T * D;
   const float* vb = v + bh * T * D;
 
   int len = lengths[bh / H];
   len = len < 0 ? 0 : (len > T ? T : len);
-  const int n_tiles = (len + kSingleK - 1) / kSingleK;
+  const int n_tiles = (len + kSingleK - 1) / kSingleK;  // tiles at or past the length: skipped
 
-  for (int i = tid; i < R * D; i += kThreads) {
-    const int t = q0 + i / D;
-    Qs[i] = t < T ? qb[(long)t * D + i % D] * sm_scale : 0.f;
+  if (n_tiles > 0) {  // the first K and V tiles fly while Q is read
+    stage_rows<D>(single_smem, kb, D, kSingleK, T, kb, tid, kSingleThreads);
+    cp_async_commit();
+    stage_rows<D>(single_smem + kTileFloats, vb, D, kSingleK, T, vb, tid, kSingleThreads);
+    cp_async_commit();
   }
 
-  // pass 1: scores into shared memory, row max in registers
-  float m[kRQ];
+  // this warp's 16 query rows, scaled, as A fragments (k along the row)
+  const int row0 = q0 + warp * 16 + g, row1 = row0 + 8;
+  const float* qa = q + (bh * T + row0) * D;
+  const float* qb = qa + 8 * D;
+  float qf[kSteps][4];
 #pragma unroll
-  for (int i = 0; i < kRQ; ++i) m[i] = -INFINITY;
+  for (int kk = 0; kk < kSteps; ++kk) {
+    const int c = 8 * kk + t;
+    qf[kk][0] = row0 < T ? qa[c] * sm_scale : 0.f;
+    qf[kk][1] = row1 < T ? qb[c] * sm_scale : 0.f;
+    qf[kk][2] = row0 < T ? qa[c + 4] * sm_scale : 0.f;
+    qf[kk][3] = row1 < T ? qb[c + 4] * sm_scale : 0.f;
+  }
+
+  // running max and sum of rows g (index 0) and g + 8 (index 1); each lane
+  // sums its own columns, the quad's four lanes are added at the end
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.f, 0.f};
+  float o[kSteps][4];
+#pragma unroll
+  for (int nd = 0; nd < kSteps; ++nd)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[nd][e] = 0.f;
+
   for (int kt = 0; kt < n_tiles; ++kt) {
+    const float* Ks = single_smem + (kt & 1) * 2 * kTileFloats;
+    const float* Vs = Ks + kTileFloats;
+    cp_async_wait<1>();  // in flight: K[kt], V[kt] -> K[kt] has landed
+    __syncthreads();     // ... for every thread; and tile kt-1's stage is free
+    if (kt + 1 < n_tiles) {
+      float* next = single_smem + ((kt + 1) & 1) * 2 * kTileFloats;
+      const int k1 = (kt + 1) * kSingleK;
+      stage_rows<D>(next, kb + (long)k1 * D, D, kSingleK, T - k1, kb, tid, kSingleThreads);
+      cp_async_commit();
+      stage_rows<D>(next + kTileFloats, vb + (long)k1 * D, D, kSingleK, T - k1, vb, tid,
+                    kSingleThreads);
+      cp_async_commit();
+    }
+
+    // S = (q * scale) K^T: 16 rows x 64 keys per warp, 8 column tiles
+    float s[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < kSteps; ++kk) {
+      const FragA a = split_a(qf[kk][0], qf[kk][1], qf[kk][2], qf[kk][3]);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) mma3(s[j], a, load_b_rowk(Ks, kLd, 8 * j, 8 * kk, g, t));
+    }
+
+    // online softmax: one rescale per tile; the tile holds a valid key, so the new max is finite
     const int k0 = kt * kSingleK;
-    __syncthreads();  // Qs is loaded; the previous tile's reads of KVs are done
-    for (int i = tid; i < kSingleK * D; i += kThreads) {
-      const int r = i / D, c = i % D, t = k0 + r;
-      KVs[r * (D + 1) + c] = t < T ? kb[(long)t * D + c] : 0.f;
+    float tile_max[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (k0 + 8 * j + 2 * t + (e & 1) >= len) s[j][e] = -INFINITY;
+        tile_max[e >> 1] = fmaxf(tile_max[e >> 1], s[j][e]);
+      }
+    float rescale[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = tile_max[r];
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[r], mx);
+      rescale[r] = expf(m[r] - m_new);  // 0 on the first tile
+      m[r] = m_new;
+      l[r] *= rescale[r];
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = expf(s[j][e] - m[e >> 1]);  // masked: exp(-inf) = 0
+        s[j][e] = p;
+        l[e >> 1] += p;
+      }
+
+    if (kt + 1 < n_tiles) {
+      cp_async_wait<2>();  // in flight: V[kt], K[kt+1], V[kt+1] -> V[kt] has landed
+    } else {
+      cp_async_wait<0>();
     }
     __syncthreads();
-    float s[kRQ][kKJ];
-#pragma unroll
-    for (int i = 0; i < kRQ; ++i)
-#pragma unroll
-      for (int j = 0; j < kKJ; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int c = 0; c < D; ++c) {
-      float a[kRQ], kk[kKJ];
-#pragma unroll
-      for (int i = 0; i < kRQ; ++i) a[i] = Qs[(ty * kRQ + i) * D + c];
-#pragma unroll
-      for (int j = 0; j < kKJ; ++j) kk[j] = KVs[(tx + 32 * j) * (D + 1) + c];
-#pragma unroll
-      for (int i = 0; i < kRQ; ++i)
-#pragma unroll
-        for (int j = 0; j < kKJ; ++j) s[i][j] = fmaf(a[i], kk[j], s[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < kRQ; ++i)
-#pragma unroll
-      for (int j = 0; j < kKJ; ++j) {
-        const int col = k0 + tx + 32 * j;
-        const float sv = col < len ? s[i][j] : -INFINITY;
-        Ss[(ty * kRQ + i) * stride + col] = sv;
-        m[i] = fmaxf(m[i], sv);
-      }
-  }
 
-  // one max, one exp, one sum per row; a row belongs to one warp, and each
-  // lane meets again only the scores it wrote itself
-  float l[kRQ];
+    // O = O * rescale + P V: P straight from the score accumulators, V k down
+    // the column. Each two 8-key steps' products go into a fresh accumulator
+    // that is then added to O in FP32: the tensor core cuts the sums it
+    // accumulates toward zero, and over a whole row of keys those cuts add up
+    // (out off by ~5e-6 at T = 1024 with O accumulated in it, enough to move
+    // gradients that rest on the softmax's cancelling rows), where the FP32
+    // add rounds to nearest.
 #pragma unroll
-  for (int i = 0; i < kRQ; ++i) {
+    for (int nd = 0; nd < kSteps; ++nd)
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      m[i] = fmaxf(m[i], __shfl_xor_sync(0xffffffffu, m[i], off));
-    float* row = Ss + (ty * kRQ + i) * stride;
-    float sum = 0.f;
-    for (int col = tx; col < n_tiles * kSingleK; col += 32) {
-      const float p = col < len ? expf(row[col] - m[i]) : 0.f;
-      row[col] = p;
-      sum += p;
-    }
+      for (int e = 0; e < 4; ++e) o[nd][e] *= rescale[e >> 1];
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
-    l[i] = sum;
-  }
-
-  // pass 2: P.V
-  float acc[kRQ][kDJ];
+    for (int j = 0; j < 8; j += 2) {
+      const FragA a0 = acc_as_a(s[j]);
+      const FragA a1 = acc_as_a(s[j + 1]);
 #pragma unroll
-  for (int i = 0; i < kRQ; ++i)
+      for (int nd = 0; nd < kSteps; ++nd) {
+        float part[4];
+        mma3_zero(part, a0, load_b_colk(Vs, kLd, 8 * j, 8 * nd, g, t));
+        mma3(part, a1, load_b_colk(Vs, kLd, 8 * j + 8, 8 * nd, g, t));
 #pragma unroll
-    for (int j = 0; j < kDJ; ++j) acc[i][j] = 0.f;
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * kSingleK;
-    __syncthreads();  // the previous tile's reads of KVs are done
-    for (int i = tid; i < kSingleK * D; i += kThreads) {
-      const int r = i / D, c = i % D, t = k0 + r;
-      KVs[r * D + c] = t < T ? vb[(long)t * D + c] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int kk = 0; kk < kSingleK; ++kk) {
-      float vv[kDJ];
-#pragma unroll
-      for (int j = 0; j < kDJ; ++j) vv[j] = tx + 32 * j < D ? KVs[kk * D + tx + 32 * j] : 0.f;
-#pragma unroll
-      for (int i = 0; i < kRQ; ++i) {
-        const float p = Ss[(ty * kRQ + i) * stride + k0 + kk];
-#pragma unroll
-        for (int j = 0; j < kDJ; ++j) acc[i][j] = fmaf(p, vv[j], acc[i][j]);
+        for (int e = 0; e < 4; ++e) o[nd][e] += part[e];
       }
     }
   }
 
 #pragma unroll
-  for (int i = 0; i < kRQ; ++i) {
-    const int t = q0 + ty * kRQ + i;
-    if (t >= T) continue;
-    float* orow = out + (bh * T + t) * D;
-    const bool any = l[i] > 0.f;
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    const int row = r == 0 ? row0 : row1;
+    if (row >= T) continue;
+    const bool any = l[r] > 0.f;  // no valid key: exact zeros, lse = NEG_INF
+    const float inv = any ? 1.f / l[r] : 0.f;
+    float* orow = out + (bh * T + row) * D;
 #pragma unroll
-    for (int j = 0; j < kDJ; ++j)
-      if (tx + 32 * j < D) orow[tx + 32 * j] = any ? acc[i][j] / l[i] : 0.f;
-    if (tx == 0) lse[bh * T + t] = any ? m[i] + logf(l[i]) : kNegInf;
+    for (int nd = 0; nd < kSteps; ++nd) {
+      const float2 val = any ? make_float2(o[nd][2 * r] * inv, o[nd][2 * r + 1] * inv)
+                             : make_float2(0.f, 0.f);
+      *reinterpret_cast<float2*>(orow + 8 * nd + 2 * t) = val;
+    }
+    if (t == 0) lse[bh * T + row] = any ? m[r] + logf(l[r]) : kNegInf;
   }
-}
-
-template <int D, int R>
-int launch_single_rows(const float* q, const float* k, const float* v, const int* lengths,
-                       float* out, float* lse, long BH, int T, int H, float sm_scale,
-                       cudaStream_t stream) {
-  const size_t smem = single_smem_bytes<D, R>(T);
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_single_kernel<D, R>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int q_tiles = (T + R - 1) / R;
-  const long blocks = BH * q_tiles;
-  if (blocks > 0x7fffffffL) return (int)cudaErrorInvalidValue;
-  flash_fwd_single_kernel<D, R><<<(unsigned)blocks, kThreads, smem, stream>>>(
-      q, k, v, lengths, out, lse, T, H, q_tiles, sm_scale);
-  return (int)cudaGetLastError();
 }
 
 template <int D>
 int launch_single(const float* q, const float* k, const float* v, const int* lengths, float* out,
                   float* lse, long BH, int T, int H, float sm_scale, cudaStream_t stream) {
-  // 32 query rows per block while their full score rows fit, else 16; a T
-  // whose 16 rows do not fit either is refused by the launch (an error code)
-  if (single_smem_bytes<D, 32>(T) <= kMaxSmem)
-    return launch_single_rows<D, 32>(q, k, v, lengths, out, lse, BH, T, H, sm_scale, stream);
-  return launch_single_rows<D, 16>(q, k, v, lengths, out, lse, BH, T, H, sm_scale, stream);
+  const size_t smem = single_smem_bytes<D>();
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_single_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int q_tiles = (T + kSingleQ - 1) / kSingleQ;
+  const long blocks = BH * q_tiles;
+  if (blocks > 0x7fffffffL) return (int)cudaErrorInvalidValue;
+  flash_fwd_single_kernel<D><<<(unsigned)blocks, kSingleThreads, smem, stream>>>(
+      q, k, v, lengths, out, lse, T, H, q_tiles, sm_scale);
+  return (int)cudaGetLastError();
 }
 
 // ----------------------------------------------------------------- tiled ----

@@ -327,9 +327,56 @@ def test_flash_kernels_reject_what_they_do_not_take(card):
     q = torch.zeros(4, 8, 16, device=card)
     with pytest.raises(TypeError, match="int32"):
         ta.flash_fwd_tiled(q, q, q, lengths.long(), 2, 1.0)
-    with pytest.raises(RuntimeError, match="failed to launch"):  # 16 score rows of 8192 keys
-        big = torch.zeros(2, 8192, 16, device=card)
-        ta.flash_fwd_single(big, big, big, lengths[:1], 2, 1.0)
+
+
+def test_flash_fwd_single_takes_any_length(card):
+    # no score rows in shared memory, so no cap on T: 8192 keys run and match
+    g = torch.Generator().manual_seed(8192)
+    q, k, v = (torch.randn(2, 8192, 16, generator=g).to(card) for _ in range(3))
+    for lens in ([8192], [5000]):
+        lengths = torch.tensor(lens, dtype=torch.int32, device=card)
+        out, lse = ta.flash_fwd_single(q, k, v, lengths, 2, 16**-0.5)
+        torch.cuda.synchronize()
+        ref_out, ref_lse = ta.flash_attention_reference(q, k, v, lengths, 2, 16**-0.5)
+        torch.testing.assert_close(out, ref_out, rtol=1e-5, atol=2e-5)
+        torch.testing.assert_close(lse, ref_lse, rtol=1e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("all_zero", [True, False], ids=["every-row", "one-row"])
+def test_tensor_core_attention_kernels_give_zeros_for_length_0(card, all_zero):
+    g = torch.Generator().manual_seed(17)
+    heads, hd, batch = 4, 64, 2
+    lengths = torch.tensor([0, 0] if all_zero else [0, 700], dtype=torch.int32, device=card)
+    q, k, v = (torch.randn(batch * heads, 1024, hd, generator=g).to(card) for _ in range(3))
+    out, lse = ta.flash_fwd_single(q, k, v, lengths, heads, hd**-0.5)
+    torch.cuda.synchronize()
+    assert torch.all(out[:heads] == 0) and torch.all(lse[:heads] == ta.NEG_INF)
+    ref_out, _ = ta.flash_attention_reference(q, k, v, lengths, heads, hd**-0.5)
+    torch.testing.assert_close(out, ref_out, rtol=1e-5, atol=2e-5)
+    qkv = torch.randn(batch, 512, 3 * heads * hd, generator=g).to(card)
+    dout = torch.randn(batch, 512, heads * hd, generator=g).to(card)
+    lens = lengths.clamp(max=512)
+    out, lse = ta.packed_attention_reference(qkv, lens, heads, hd**-0.5)
+    got = ta.packed_attention_bwd(qkv, lens, out, lse, dout, heads, hd**-0.5)
+    torch.cuda.synchronize()
+    assert torch.all(got[0] == 0)  # length 0: no gradient at all, dq included
+    want = ta.packed_attention_bwd_reference(qkv, lens, out, lse, dout, heads, hd**-0.5)
+    assert _rel_err(got, want) < GRAD_TOL  # every row 0: both exact zeros
+
+
+def test_packed_attention_bwd_kernel_repeats_bit_for_bit(card):
+    # dq from per-key-tile partials summed in order: no atomics, so the same
+    # inputs give the same bits
+    g = torch.Generator().manual_seed(23)
+    heads, hd, batch, seq = 4, 64, 8, 512
+    qkv = torch.randn(batch, seq, 3 * heads * hd, generator=g).to(card)
+    dout = torch.randn(batch, seq, heads * hd, generator=g).to(card)
+    lengths = torch.tensor([512, 1, 0, 37, 64, 65, 511, 300], dtype=torch.int32, device=card)
+    out, lse = ta.packed_attention_fwd(qkv, lengths, heads, hd**-0.5)
+    first = ta.packed_attention_bwd(qkv, lengths, out, lse, dout, heads, hd**-0.5)
+    second = ta.packed_attention_bwd(qkv, lengths, out, lse, dout, heads, hd**-0.5)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 # ---- grouped recurrences: the three inference kernels ------------------------
