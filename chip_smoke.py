@@ -14,8 +14,9 @@ Phases (any failure exits non-zero, and no result line is printed):
    ``data/pamap2`` onto the card.
 2. Kernels: each of the twenty-two kernels against its plain PyTorch twin on the
    card, at the shapes the main paths give it, including edge cases:
-   packed attention forward (B=64, T=512, H=4, d=64) and backward (B=32:
-   the real batch's lengths and 0, 1, 37, 64, 65, 511, T; padded T=72);
+   packed attention forward (B=64, T=512, H=4, d=64; d 16/32/128 at T=72
+   and 512 on the edge lengths) and backward (B=32: the real batch's lengths
+   and 0, 1, 37, 64, 65, 511, T; padded T=72);
    the fused head (M=4, P=12, H=256, C=25, B=64); the projection and FFW
    residual-LayerNorm kernels and the feed-forward (``fused_mlp``) pair,
    forward and backward, at N = 32*512 rows with masks at keep 0.8, without
@@ -25,11 +26,12 @@ Phases (any failure exits non-zero, and no result line is printed):
    is not a multiple of 4. Backward checks compare every output by its max
    abs error relative to its largest magnitude. Times with CUDA events:
    kernel, plain twin, the bound, and, where one PyTorch call computes the
-   same function, that call. The two kernels whose products run as 3xTF32 on
-   the tensor cores (``flash_fwd_single``, ``packed_attention_bwd``) carry
-   both bounds, a third of the TF32 peak (the unit they run on) and the CUDA
-   cores' f32 peak, with their share of the first; ``nvcc -Xptxas -v``'s
-   registers and spills for them are printed at setup.
+   same function, that call. The four kernels whose products run as 3xTF32
+   on the tensor cores (``packed_attention_fwd``, ``packed_attention_bwd``,
+   ``flash_fwd_single``, ``flash_bwd_fused``) carry both bounds, a third of
+   the TF32 peak (the unit they run on) and the CUDA cores' f32 peak, with
+   their share of the first; ``nvcc -Xptxas -v``'s registers and spills for
+   them are printed at setup.
 3. Serve: ``MultimodalFusionModel.from_config(config/base.yaml)`` with seeded
    random weights at full width, ``serving.make_serving_fn`` on batch-64
    requests of real windows (all modalities; one modality missing; short
@@ -65,7 +67,8 @@ Phases (any failure exits non-zero, and no result line is printed):
    (single-key-block forward at T = 1024 and 2048, B*H = 128; tiled forward
    at T = 4096, B*H = 256; fused backward at T = 1024 and at T = 512, B*H =
    512; the split dk/dv and dq kernels at T = 2048), on the real batches'
-   lengths, on the edge lengths and on a padded T = 1100; the two forwards
+   lengths, on the edge lengths and on a padded T = 1100; the fused backward
+   twice on the same inputs, bit for bit; the two forwards
    against each other at T = 2048; both routes timed at T = 1024 and 2048,
    SDPA (forward, or backward) beside every shape a flash row reports.
    The three grouped-recurrence kernels (``ops/rnn.py``) at T = 512 and 1024,
@@ -138,15 +141,18 @@ FUSED_MLP_STEPS = 4  # micro-steps at fused_mlp=true, fused_mlp_ln=false
 FIT_EPOCHS = 2
 # peaks of one H100 SXM (NVIDIA data sheet): CUDA-core FP32, dense TF32 on
 # the tensor cores, HBM3. A kernel that takes each f32 product as three TF32
-# products (3xTF32: flash_fwd_single, packed_attention_bwd) is bounded by a
-# third of the TF32 rate for the same f32 operation count
+# products (3xTF32: the packed and the single-key-block forwards, the packed
+# and the fused backwards) is bounded by a third of the TF32 rate for the
+# same f32 operation count
 PEAK_F32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
 PEAK_3XTF32_FLOPS = PEAK_TF32_FLOPS / 3
 PEAK_BYTES = 3.35e12
 # the kernels whose products run as 3xTF32 on the tensor cores
 TENSOR_CORE_KERNELS = {"flash_fwd_single": "flash_fwd_single_kernel",
-                       "packed_attention_bwd": "bwd_kernel"}
+                       "packed_attention_bwd": "bwd_kernel",
+                       "packed_attention_fwd": "packed_attention_fwd_kernel",
+                       "flash_bwd_fused": "flash_bwd_fused_kernel"}
 # stated tolerances: f32 on both sides; the kernels sum in another order
 # (online softmax across 64-key tiles, per-thread dot products)
 ATTN_TOL = 1e-4
@@ -212,7 +218,8 @@ def ptxas_report(build):
     """Start ``nvcc -Xptxas -v`` on the tensor-core kernels' sources beside
     the build; the returned function waits and prints registers and spills."""
     tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_ptxas_")
-    sources = ("flash_attention", "packed_attention_bwd")
+    sources = ("flash_attention", "packed_attention_bwd", "packed_attention",
+               "flash_attention_bwd")
     procs = [subprocess.Popen(
         [build._nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-o", f"{tmp.name}/{name}.so",
          str(build.CSRC_DIR / f"{name}.cu")],
@@ -248,10 +255,16 @@ def check_attention(torch, attn, real_lengths):
     # padded T (not a multiple of the 64-row tile) with a length past the valid keys
     qkv72 = torch.randn(3, 72, 3 * heads * hd, generator=g).cuda()
     cases.append((qkv72, torch.tensor([0, 70, 72], dtype=torch.int32).cuda()))
+    for d in (16, 32, 128):  # every head dim the kernel takes, on the edge lengths, T = 72 and 512
+        for t_len in (72, 512):
+            lens = torch.tensor([0, 1, 37, 64, 65, t_len - 1, t_len, t_len // 2],
+                                dtype=torch.int32).cuda()
+            cases.append((torch.randn(8, t_len, 3 * heads * d, generator=g).cuda(), lens))
     for x, lens in cases:
-        out, lse = attn.packed_attention_fwd(x, lens, heads, scale)
+        d = x.shape[-1] // (3 * heads)
+        out, lse = attn.packed_attention_fwd(x, lens, heads, d**-0.5)
         torch.cuda.synchronize()
-        ref_out, ref_lse = attn.packed_attention_reference(x, lens, heads, scale)
+        ref_out, ref_lse = attn.packed_attention_reference(x, lens, heads, d**-0.5)
         e_out = (out - ref_out).abs().max().item()
         valid = ref_lse > attn.NEG_INF / 2
         if not torch.equal(valid, lse > attn.NEG_INF / 2):
@@ -260,8 +273,8 @@ def check_attention(torch, attn, real_lengths):
         zero_rows = (lens == 0).nonzero().flatten().tolist()
         if any(out[b].abs().max().item() != 0.0 for b in zero_rows):
             raise AssertionError("packed attention: a length-0 row is not exactly zero")
-        print(f"  packed_attention T={x.shape[1]} max_abs_err out={e_out:.3e} lse={e_lse:.3e} "
-              f"(tol {ATTN_TOL})", flush=True)
+        print(f"  packed_attention T={x.shape[1]} d={d} max_abs_err out={e_out:.3e} "
+              f"lse={e_lse:.3e} (tol {ATTN_TOL})", flush=True)
         err = max(err, e_out, e_lse)
     if err > ATTN_TOL:
         raise AssertionError(f"packed attention disagrees with its twin: {err} > {ATTN_TOL}")
@@ -280,17 +293,17 @@ def check_attention(torch, attn, real_lengths):
     keys = float(lens.clamp(0, seq).sum().item())
     flops = 4.0 * heads * hd * seq * keys  # QK^T and PV over the valid keys
     nbytes = 4.0 * (qkv.numel() + batch + batch * seq * heads * hd + batch * seq * heads)
-    bound_ms, bound_by = bound(flops, nbytes)
-    print(f"  packed_attention ms={ms:.4f} plain_ms={plain_ms:.4f} sdpa_ms={library_ms:.4f} "
-          f"bound_ms={bound_ms:.4f} ({bound_by}; {keys:.0f} valid keys, {flops / 1e9:.3f} GFLOP, "
-          f"{nbytes / 1e6:.1f} MB)", flush=True)
-    return {
+    row = {
         "name": "packed_attention_fwd", "route": "cuda",
         "source": f"{PKG}/ops/csrc/packed_attention.cu",
         "replaces": f"{TPU_PKG}/ops/pallas_attention.py:793",
-        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
     }
+    note = tensor_core_bounds(row, flops, nbytes)
+    print(f"  packed_attention ms={ms:.4f} plain_ms={plain_ms:.4f} sdpa_ms={library_ms:.4f} "
+          f"{note} ({row['bound_by']}; {keys:.0f} valid keys, {flops / 1e9:.3f} GFLOP, "
+          f"{nbytes / 1e6:.1f} MB)", flush=True)
+    return row
 
 
 def check_head(torch, fusion, ordered_pairs, head_inputs):
@@ -756,6 +769,17 @@ def check_flash_kernels(torch, attn, real_lengths):
                       _edge_lengths(torch, lens, seq))
     for route in ("fused", "split"):
         backward_case("padded T=1100", route, *pad)
+    # dq from per-key-tile partials summed in key order, no atomics: bit for bit
+    q, k, v, dout, lens = data[1024]
+    lens = _edge_lengths(torch, lens, 1024)
+    out, lse = attn.flash_fwd_single(q, k, v, lens, HEADS, scale)
+    args = (q, k, v, lens, HEADS, lse, attn.flash_delta(out, dout), dout, scale)
+    first, second = attn.flash_bwd_fused(*args), attn.flash_bwd_fused(*args)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(first, second)):
+        raise AssertionError("flash_bwd_fused: two runs on the same inputs differ")
+    print("  flash backward (fused) T=1024 edge lengths: two runs equal bit for bit", flush=True)
+    del first, second, args
     if max(errs["fused"], errs["dkv"], errs["dq"]) > GRAD_TOL:
         raise AssertionError(f"flash backward kernels disagree with their plain versions: {errs}")
 
@@ -855,6 +879,11 @@ def check_flash_kernels(torch, attn, real_lengths):
     tiled["ms_t2048"], tiled["library_ms_t2048"] = other[2048]["tiled"], single["library_ms_t2048"]
     fused["ms_t512_bh512"], fused["library_ms_t512_bh512"] = fused512, sdpa_ms(512, "qkv")
     fused["ms_t2048"], fused["library_ms_t2048"] = other[2048]["fused"], sdpa_ms(2048, "qkv")
+    for suffix, seq in (("_t512_bh512", 512), ("_t2048", 2048)):
+        flops, nbytes, _ = _flash_work(torch, data[seq][4], seq, 5, 7)
+        print(f"  flash_bwd_fused T={seq} B*H={data[seq][0].shape[0]}: ms={fused['ms' + suffix]:.4f} "
+              f"sdpa_ms={fused['library_ms' + suffix]:.4f} "
+              f"{tensor_core_bounds(fused, flops, nbytes, suffix)}", flush=True)
     rows[3]["ms_t1024"], rows[4]["ms_t1024"] = other[1024]["dkv"], other[1024]["dq"]
     print(f"  SDPA beside the other shapes: forward T=1024 {rows[0]['library_ms']:.4f}, "
           f"T=2048 {single['library_ms_t2048']:.4f}, [512, 512, 64] "
@@ -1149,6 +1178,7 @@ FAMILIES = (  # profiler kernel-name fragments -> family, first match wins
     ("flash_bwd_split", ("flash_dkv_kernel", "flash_dq_kernel")),
     ("flash_delta", ("flash_delta",)),
     ("packed_attention_bwd", ("::bwd_kernel<", "::dq_reduce_kernel", "::delta_kernel<")),
+    # flash_bwd_fused above also takes flash_bwd_fused_dq_reduce, its ordered dq sum
     ("proj_ln_fwd", ("proj_ln_fwd",)),
     ("proj_ln_bwd", ("proj_ln_bwd",)),
     ("ffw_ln_fwd", ("ffw_ln_fwd",)),

@@ -24,7 +24,8 @@ routes chosen by the padded length). Five kernels, one wrapper each:
   online softmax over 64-key tiles on the tensor cores.
 * ``flash_fwd_tiled`` (same source): online softmax over key tiles; above that.
 * ``flash_bwd_fused`` (``csrc/flash_attention_bwd.cu``): dq, dk and dv from
-  one kernel; padded T ``<= max(min(block_q, block_k), FUSED_BWD_MAX)``.
+  one kernel, each score computed once (dq summed from ordered per-key-tile
+  partials); padded T ``<= max(min(block_q, block_k), FUSED_BWD_MAX)``.
 * ``flash_bwd_dkv`` and ``flash_bwd_dq`` (same source): the split pair; above
   that. ``flash_delta`` (``rowsum(dout * out)``, plain XLA in the reference)
   is a small kernel of that source run before either route.
@@ -33,9 +34,12 @@ The reference reads its thresholds from environment variables; here they are
 the module constants ``SINGLE_K_MAX`` and ``FUSED_BWD_MAX``, which
 ``flash_self_attention`` also takes as keyword arguments. The reference's
 bf16 streams on a TPU have no counterpart: every kernel of the port takes and
-gives f32, and ``flash_fwd_single`` and ``packed_attention_bwd`` take each f32
-product as three TF32 tensor-core products (``csrc/tf32_mma.cuh``), which
-keeps f32's accuracy.
+gives f32, and ``packed_attention_fwd``, ``packed_attention_bwd``,
+``flash_fwd_single`` and ``flash_bwd_fused`` take each f32 product as three
+TF32 tensor-core products (``csrc/tf32_mma.cuh``), which keeps f32's
+accuracy. The packed and the single-key-block forward share one kernel body
+(``csrc/attention_fwd.cuh``), the packed and the fused backward another
+(``csrc/attention_bwd.cuh``).
 
 On both layouts key columns at or past a row's length are masked, queries are
 not; a row with no valid key gives exact zeros (and ``lse = NEG_INF``) and
@@ -577,7 +581,7 @@ def flash_delta(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
 
 
 def _flash_bwd(symbol: str, reference, wrapper, n_out: int, q, k, v, lengths, heads, lse, delta,
-               dout, sm_scale):
+               dout, sm_scale, scratch: bool = False):
     _check_flash(q, k, v, lengths, heads)
     for name, t, shape in (("lse", lse, q.shape[:2]), ("delta", delta, q.shape[:2]),
                            ("dout", dout, q.shape)):
@@ -591,18 +595,28 @@ def _flash_bwd(symbol: str, reference, wrapper, n_out: int, q, k, v, lengths, he
         raise ValueError(f"unsupported device {q.device}")
     outputs = tuple(torch.empty_like(q) for _ in range(n_out))
     if q.numel():
-        _flash_kernel_call("flash_attention_bwd", symbol, (q, k, v, lse, delta, dout), outputs,
-                           lengths, heads, sm_scale, wrapper.__name__)
+        extra = ()
+        if scratch:  # the kernel's per-key-tile dq partials, summed in order by its second launch
+            query = getattr(_build.library("flash_attention_bwd"), symbol + "_scratch")
+            query.argtypes = [ctypes.c_int] * 4
+            query.restype = ctypes.c_longlong
+            rows, seq, head_dim = q.shape
+            extra = (torch.empty(query(rows // heads, seq, heads, head_dim), device=q.device,
+                                 dtype=torch.float32),)
+        _flash_kernel_call("flash_attention_bwd", symbol, (q, k, v, lse, delta, dout),
+                           outputs + extra, lengths, heads, sm_scale, wrapper.__name__)
         wrapper.launches += 1
     return outputs if n_out > 1 else outputs[0]
 
 
 def flash_bwd_fused(q, k, v, lengths, heads: int, lse, delta, dout, sm_scale: float):
-    """Kernel wrapper, fused backward: ``(dq, dk, dv)``, each ``[B*H, T, d]``,
-    from one kernel. CUDA tensors launch it or raise; CPU tensors take
-    ``flash_bwd_fused_reference``."""
+    """Kernel wrapper, fused backward: ``(dq, dk, dv)``, each ``[B*H, T, d]``:
+    one kernel computes dk, dv and a dq partial per 64-key tile (into a
+    ``[B*H, ceil(T/64), T, d]`` scratch), a second launch of the same entry
+    point sums the partials in key-tile order. CUDA tensors launch it or
+    raise; CPU tensors take ``flash_bwd_fused_reference``."""
     return _flash_bwd("msfa_flash_bwd_fused", flash_bwd_fused_reference, flash_bwd_fused, 3,
-                      q, k, v, lengths, heads, lse, delta, dout, sm_scale)
+                      q, k, v, lengths, heads, lse, delta, dout, sm_scale, scratch=True)
 
 
 flash_bwd_fused.launches = 0

@@ -21,18 +21,15 @@
 // port's limits are f32's (1e-4), which bf16 and one TF32 product miss.
 //
 // flash_fwd_single_kernel runs both products on the TF32 tensor cores at f32
-// accuracy, three mma.sync TF32 products per f32 product (tf32_mma.cuh):
+// accuracy, three mma.sync TF32 products per f32 product (3xTF32):
 // 0.21 ms for that shape at 495/3 = 165 TFLOP/s, against 0.51 ms at 67
 // TFLOP/s on the CUDA cores. The TPU kernel sees the whole key axis at once
 // and skips the running rescale because VMEM holds [block_q, T] scores; in
 // a block's shared memory those scores would leave one block per SM and cap
 // T. So it is an online softmax over 64-key tiles with one rescale per tile,
-// in registers: one block of 4 warps per 64 query rows, each warp owning 16
-// rows; q is scaled once and held in registers; K and V tiles arrive by
-// cp.async into a two-stage ring (the next tile's copies fly while this one
-// is multiplied); P goes from the score accumulators to the P.V operand
-// without leaving registers. 68 KB of shared memory at D = 64; registers
-// hold an SM to two blocks. Any T.
+// in registers, one block of 4 warps per 64 query rows: the body in
+// attention_fwd.cuh, which packed_attention_fwd_kernel shares on the packed
+// layout. Any T.
 //
 // flash_fwd_tiled_kernel is the online softmax on the CUDA cores: one block
 // per 64-query tile, running max and sum in registers, the accumulator
@@ -46,7 +43,7 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
-#include "tf32_mma.cuh"
+#include "attention_fwd.cuh"
 
 namespace {
 
@@ -56,195 +53,34 @@ constexpr float kNegInf = -1e30f;
 
 // ---------------------------------------------------------------- single ----
 
-constexpr int kSingleQ = 64;        // query rows per block: 4 warps x 16
-constexpr int kSingleK = 64;        // keys per staged tile
-constexpr int kSingleThreads = 128;
-constexpr int kSingleStages = 2;    // K and V tiles in flight: this one and the next
-
+// One block per (64-query tile, row bh); the body is attention_fwd.cuh's.
 template <int D>
-constexpr size_t single_smem_bytes() {
-  // kSingleStages x (K tile, V tile), each [kSingleK][D + kPad]
-  return sizeof(float) * kSingleStages * 2 * kSingleK * (D + msfa_tc::kPad);
-}
-
-// Warp w owns query rows q0 + 16w .. q0 + 16w + 15 and all D output columns;
-// lane (g, t) holds rows g and g + 8 of every fragment.
-template <int D>
-__global__ void __launch_bounds__(kSingleThreads)
+__global__ void __launch_bounds__(msfa_tc::kFwdThreads)
 flash_fwd_single_kernel(const float* __restrict__ q, const float* __restrict__ k,
                         const float* __restrict__ v, const int* __restrict__ lengths,
                         float* __restrict__ out, float* __restrict__ lse, int T, int H,
                         int q_tiles, float sm_scale) {
-  using namespace msfa_tc;
-  constexpr int kSteps = D / 8;  // k-steps of Q.K^T, output column tiles of P.V
-  constexpr int kLd = D + kPad;
-  constexpr int kTileFloats = kSingleK * kLd;
   extern __shared__ __align__(16) float single_smem[];
-
   const long bh = blockIdx.x / q_tiles;
-  const int q0 = (int)(blockIdx.x % q_tiles) * kSingleQ;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const float* kb = k + bh * T * D;
-  const float* vb = v + bh * T * D;
-
+  const int q0 = (int)(blockIdx.x % q_tiles) * msfa_tc::kFwdTileQ;
+  const long at = bh * T * D;
   int len = lengths[bh / H];
   len = len < 0 ? 0 : (len > T ? T : len);
-  const int n_tiles = (len + kSingleK - 1) / kSingleK;  // tiles at or past the length: skipped
-
-  if (n_tiles > 0) {  // the first K and V tiles fly while Q is read
-    stage_rows<D>(single_smem, kb, D, kSingleK, T, kb, tid, kSingleThreads);
-    cp_async_commit();
-    stage_rows<D>(single_smem + kTileFloats, vb, D, kSingleK, T, vb, tid, kSingleThreads);
-    cp_async_commit();
-  }
-
-  // this warp's 16 query rows, scaled, as A fragments (k along the row)
-  const int row0 = q0 + warp * 16 + g, row1 = row0 + 8;
-  const float* qa = q + (bh * T + row0) * D;
-  const float* qb = qa + 8 * D;
-  float qf[kSteps][4];
-#pragma unroll
-  for (int kk = 0; kk < kSteps; ++kk) {
-    const int c = 8 * kk + t;
-    qf[kk][0] = row0 < T ? qa[c] * sm_scale : 0.f;
-    qf[kk][1] = row1 < T ? qb[c] * sm_scale : 0.f;
-    qf[kk][2] = row0 < T ? qa[c + 4] * sm_scale : 0.f;
-    qf[kk][3] = row1 < T ? qb[c + 4] * sm_scale : 0.f;
-  }
-
-  // running max and sum of rows g (index 0) and g + 8 (index 1); each lane
-  // sums its own columns, the quad's four lanes are added at the end
-  float m[2] = {-INFINITY, -INFINITY};
-  float l[2] = {0.f, 0.f};
-  float o[kSteps][4];
-#pragma unroll
-  for (int nd = 0; nd < kSteps; ++nd)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[nd][e] = 0.f;
-
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const float* Ks = single_smem + (kt & 1) * 2 * kTileFloats;
-    const float* Vs = Ks + kTileFloats;
-    cp_async_wait<1>();  // in flight: K[kt], V[kt] -> K[kt] has landed
-    __syncthreads();     // ... for every thread; and tile kt-1's stage is free
-    if (kt + 1 < n_tiles) {
-      float* next = single_smem + ((kt + 1) & 1) * 2 * kTileFloats;
-      const int k1 = (kt + 1) * kSingleK;
-      stage_rows<D>(next, kb + (long)k1 * D, D, kSingleK, T - k1, kb, tid, kSingleThreads);
-      cp_async_commit();
-      stage_rows<D>(next + kTileFloats, vb + (long)k1 * D, D, kSingleK, T - k1, vb, tid,
-                    kSingleThreads);
-      cp_async_commit();
-    }
-
-    // S = (q * scale) K^T: 16 rows x 64 keys per warp, 8 column tiles
-    float s[8][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < kSteps; ++kk) {
-      const FragA a = split_a(qf[kk][0], qf[kk][1], qf[kk][2], qf[kk][3]);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) mma3(s[j], a, load_b_rowk(Ks, kLd, 8 * j, 8 * kk, g, t));
-    }
-
-    // online softmax: one rescale per tile; the tile holds a valid key, so the new max is finite
-    const int k0 = kt * kSingleK;
-    float tile_max[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        if (k0 + 8 * j + 2 * t + (e & 1) >= len) s[j][e] = -INFINITY;
-        tile_max[e >> 1] = fmaxf(tile_max[e >> 1], s[j][e]);
-      }
-    float rescale[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      float mx = tile_max[r];
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_new = fmaxf(m[r], mx);
-      rescale[r] = expf(m[r] - m_new);  // 0 on the first tile
-      m[r] = m_new;
-      l[r] *= rescale[r];
-    }
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = expf(s[j][e] - m[e >> 1]);  // masked: exp(-inf) = 0
-        s[j][e] = p;
-        l[e >> 1] += p;
-      }
-
-    if (kt + 1 < n_tiles) {
-      cp_async_wait<2>();  // in flight: V[kt], K[kt+1], V[kt+1] -> V[kt] has landed
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-
-    // O = O * rescale + P V: P straight from the score accumulators, V k down
-    // the column. Each two 8-key steps' products go into a fresh accumulator
-    // that is then added to O in FP32: the tensor core cuts the sums it
-    // accumulates toward zero, and over a whole row of keys those cuts add up
-    // (out off by ~5e-6 at T = 1024 with O accumulated in it, enough to move
-    // gradients that rest on the softmax's cancelling rows), where the FP32
-    // add rounds to nearest.
-#pragma unroll
-    for (int nd = 0; nd < kSteps; ++nd)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) o[nd][e] *= rescale[e >> 1];
-#pragma unroll
-    for (int j = 0; j < 8; j += 2) {
-      const FragA a0 = acc_as_a(s[j]);
-      const FragA a1 = acc_as_a(s[j + 1]);
-#pragma unroll
-      for (int nd = 0; nd < kSteps; ++nd) {
-        float part[4];
-        mma3_zero(part, a0, load_b_colk(Vs, kLd, 8 * j, 8 * nd, g, t));
-        mma3(part, a1, load_b_colk(Vs, kLd, 8 * j + 8, 8 * nd, g, t));
-#pragma unroll
-        for (int e = 0; e < 4; ++e) o[nd][e] += part[e];
-      }
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-    const int row = r == 0 ? row0 : row1;
-    if (row >= T) continue;
-    const bool any = l[r] > 0.f;  // no valid key: exact zeros, lse = NEG_INF
-    const float inv = any ? 1.f / l[r] : 0.f;
-    float* orow = out + (bh * T + row) * D;
-#pragma unroll
-    for (int nd = 0; nd < kSteps; ++nd) {
-      const float2 val = any ? make_float2(o[nd][2 * r] * inv, o[nd][2 * r + 1] * inv)
-                             : make_float2(0.f, 0.f);
-      *reinterpret_cast<float2*>(orow + 8 * nd + 2 * t) = val;
-    }
-    if (t == 0) lse[bh * T + row] = any ? m[r] + logf(l[r]) : kNegInf;
-  }
+  const msfa_tc::FwdRow row{q + at, k + at, v + at, D, out + at, D, lse + bh * T, 1};
+  msfa_tc::attention_fwd_tile<D>(row, T, len, q0, sm_scale, single_smem);
 }
 
 template <int D>
 int launch_single(const float* q, const float* k, const float* v, const int* lengths, float* out,
                   float* lse, long BH, int T, int H, float sm_scale, cudaStream_t stream) {
-  const size_t smem = single_smem_bytes<D>();
+  const size_t smem = msfa_tc::fwd_smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(flash_fwd_single_kernel<D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const int q_tiles = (T + kSingleQ - 1) / kSingleQ;
+  const int q_tiles = (T + msfa_tc::kFwdTileQ - 1) / msfa_tc::kFwdTileQ;
   const long blocks = BH * q_tiles;
   if (blocks > 0x7fffffffL) return (int)cudaErrorInvalidValue;
-  flash_fwd_single_kernel<D><<<(unsigned)blocks, kSingleThreads, smem, stream>>>(
+  flash_fwd_single_kernel<D><<<(unsigned)blocks, msfa_tc::kFwdThreads, smem, stream>>>(
       q, k, v, lengths, out, lse, T, H, q_tiles, sm_scale);
   return (int)cudaGetLastError();
 }

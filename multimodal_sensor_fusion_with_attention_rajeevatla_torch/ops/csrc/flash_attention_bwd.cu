@@ -1,5 +1,6 @@
 // Self-attention backward on the [B*H, T, D] layout, f32, for Hopper (sm_90a):
-// the fused one-kernel backward, the split dk/dv and dq kernels, and delta.
+// the fused backward (one kernel and the ordered sum of its dq partials), the
+// split dk/dv and dq kernels, and delta.
 //
 // Replaces: multimodal_sensor_fusion_with_attention_rajeevatla_tpu/ops/pallas_attention.py
 //   _bwd_fused_kernel (flash_bwd_fused_kernel below), _dkv_kernel
@@ -23,31 +24,33 @@
 //
 // What bounds them on the H100: arithmetic. With sum_len valid keys over the
 // batch the function's five products cost 10*H*D*T*sum_len operations (85.9
-// GFLOP at B=32, H=4, D=64, T=1024 with every key valid: 1.28 ms at 67
-// TFLOP/s f32) against 8 tensors of 4*B*H*T*D bytes (0.08 ms at 3.35 TB/s).
-// f32 on the CUDA cores throughout; tensor cores are later work.
+// GFLOP at B=32, H=4, D=64, T=1024 with every key valid: 0.52 ms at 495/3 =
+// 165 TFLOP/s on 3xTF32, 1.28 ms at 67 TFLOP/s f32 on the CUDA cores)
+// against 8 tensors of 4*B*H*T*D bytes (0.08 ms at 3.35 TB/s).
 //
-// flash_bwd_fused_kernel keeps what the TPU kernel is about: one kernel
-// writes dq, dk and dv, and the scores, p, dp and ds of every (query, key)
-// pair are computed once (five products, not the split pair's seven). The TPU
-// kernel holds whole [T, T] f32 tiles in VMEM (4 MB at T = 1024); a block
-// here has 227 KB, so one block owns one (b, h) row and walks it in 64 x 64
-// tiles: outer loop over key tiles (K and V stay in shared memory, dk and dv
-// accumulate in registers and are written once), inner loop over query
-// tiles, whose dq contribution is added into global memory by the same
-// thread for the same elements on every pass: plain loads and stores, no
-// atomic adds, so the result does not depend on scheduling. The first key tile
-// stores dq instead of adding, so nothing is zeroed beforehand. The grid is
-// only B*H blocks (128 at B=32, H=4: one wave on 132 SMs).
+// flash_bwd_fused_kernel keeps what the TPU kernel is about: the scores, p,
+// dp and ds of every (query, key) pair are computed once (five products, not
+// the split pair's seven). The TPU kernel holds whole [T, T] f32 tiles in
+// VMEM (4 MB at T = 1024); here one block of 4 warps owns one (64-key tile,
+// row bh), 16 x 128 = 2,048 blocks at [128, 1024, 64], and runs the products
+// on the TF32 tensor cores at f32 accuracy (3xTF32 mma.sync): the body in
+// attention_bwd.cuh, which the packed backward shares on its layout. Each
+// block writes its keys' dk and dv and a dq partial over its 64 keys; a
+// second launch, flash_bwd_fused_dq_reduce, sums the partials of the tiles
+// below the length in key-tile order, with no atomic adds, so the result
+// does not depend on scheduling. The partials take B*H*ceil(T/64)*T*D floats
+// of scratch (537 MB at [128, 1024, 64]), written once and read once.
 //
 // flash_dkv_kernel: one block per (64-key tile, row); K and V stay in shared
 // memory while the block walks every query tile. flash_dq_kernel: one block
 // per (64-query tile, row) walks the key tiles below the length and
-// recomputes the scores and dp. All kernels: 256 threads as a 16 x 16 grid,
-// 4 x 4 score micro-tiles, 4 x D/16 output micro-tiles.
+// recomputes the scores and dp. Both on the CUDA cores: 256 threads as a
+// 16 x 16 grid, 4 x 4 score micro-tiles, 4 x D/16 output micro-tiles.
 
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "attention_bwd.cuh"
 
 namespace {
 
@@ -235,88 +238,41 @@ __device__ __forceinline__ RowPointers row_pointers(const float* q, const float*
   return r;
 }
 
+// One block per (64-key tile, row bh), the key tile fastest; the body is
+// attention_bwd.cuh's. The tile's dq partial goes to dq_part [B*H,
+// ceil(T/64), T, D].
 template <int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(msfa_tc::kBwdThreads)
 flash_bwd_fused_kernel(const float* __restrict__ q, const float* __restrict__ k,
                        const float* __restrict__ v, const int* __restrict__ lengths,
                        const float* __restrict__ lse, const float* __restrict__ delta,
-                       const float* __restrict__ dout, float* dq, float* __restrict__ dk,
-                       float* __restrict__ dv, int T, int H, float sm_scale) {
-  constexpr int kDJ = D / 16;
-  extern __shared__ float smem[];
-  float* Ks = smem;
-  float* Vs = Ks + kBlockK * (D + 1);
-  float* Qs = Vs + kBlockK * (D + 1);
-  float* dOs = Qs + kBlockQ * D;
-  float* Ps = dOs + kBlockQ * D;
-  float* dSs = Ps + kBlockQ * (kBlockK + 1);
-  float* Ls = dSs + kBlockQ * (kBlockK + 1);
-  float* Ds = Ls + kBlockQ;
+                       const float* __restrict__ dout, float* __restrict__ dk,
+                       float* __restrict__ dv, float* __restrict__ dq_part, int T, int H,
+                       int n_kt, float sm_scale) {
+  extern __shared__ __align__(16) float fused_smem[];
+  const long bh = blockIdx.x / n_kt;
+  const int kt = (int)(blockIdx.x % n_kt);
+  const long at = bh * T * D;
+  int len = lengths[bh / H];
+  len = len < 0 ? 0 : (len > T ? T : len);
+  const msfa_tc::BwdRow row{
+      q + at, k + at, v + at, D,                       // q, k, v
+      dout + at, D,                                    // dout
+      lse + bh * T, delta + bh * T, 1,                 // lse, delta
+      dk + at, dv + at, D,                             // dk, dv
+      dq_part + (bh * n_kt + kt) * T * D, D};          // this tile's dq partial
+  msfa_tc::attention_bwd_tile<D>(row, T, len, kt * msfa_tc::kBwdTile, sm_scale, fused_smem);
+}
 
-  const long bh = blockIdx.x;
-  const int tx = threadIdx.x & 15;  // output column group
-  const int ty = threadIdx.x >> 4;  // keys (dk, dv) or queries (dq) ty*4 .. ty*4+3
-  const RowPointers row = row_pointers(q, k, v, dout, lse, delta, lengths, bh, T, H, D);
-  float* dq_row = dq + bh * T * D;
-  float* dk_row = dk + bh * T * D;
-  float* dv_row = dv + bh * T * D;
-
-  if (row.len == 0) {  // block-uniform: no key is valid, all three are zero
-    for (long i = threadIdx.x; i < (long)T * D; i += kThreads)
-      dq_row[i] = dk_row[i] = dv_row[i] = 0.f;
-    return;
-  }
-
-  for (int k0 = 0; k0 < T; k0 += kBlockK) {
-    float dk_acc[4][kDJ], dv_acc[4][kDJ];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < kDJ; ++j) dk_acc[i][j] = dv_acc[i][j] = 0.f;
-
-    if (k0 < row.len) {  // block-uniform: a tile at or past the length writes zeros
-      __syncthreads();   // the previous key tile's reads of Ks/Vs are done
-      load_key_tile<D>(row.k, row.v, k0, T, Ks, Vs);
-      for (int q0 = 0; q0 < T; q0 += kBlockQ) {
-        __syncthreads();  // previous tile's reads of Qs/dOs/Ps/dSs are done
-        load_query_tile<D>(row.q, row.dout, row.lse, row.delta, q0, T, sm_scale, Qs, dOs, Ls,
-                           Ds);
-        __syncthreads();
-        p_and_ds<D>(Qs, dOs, Ks, Vs, Ls, Ds, k0, row.len, Ps, dSs);
-        __syncthreads();
-        accumulate_dkv<D>(Qs, dOs, Ps, dSs, dk_acc, dv_acc);
-        float dq_acc[4][kDJ];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < kDJ; ++j) dq_acc[i][j] = 0.f;
-        accumulate_dq<D>(Ks, dSs, dq_acc);
-        // this thread owns these dq elements on every key tile: the first
-        // tile stores, the later ones add to what the thread itself wrote
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int t = q0 + ty * 4 + i;
-          if (t >= T) continue;
-          float* at = dq_row + (long)t * D + tx;
-#pragma unroll
-          for (int j = 0; j < kDJ; ++j) {
-            const float add = dq_acc[i][j] * sm_scale;
-            at[16 * j] = k0 == 0 ? add : at[16 * j] + add;
-          }
-        }
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int t = k0 + ty * 4 + i;
-      if (t >= T) continue;
-#pragma unroll
-      for (int j = 0; j < kDJ; ++j) {
-        dk_row[(long)t * D + tx + 16 * j] = dk_acc[i][j];
-        dv_row[(long)t * D + tx + 16 * j] = dv_acc[i][j];
-      }
-    }
-  }
+// dq[bh, t, f] = sm_scale * sum over key tiles kt < ceil(len / 64) of
+// dq_part[bh, kt, t, f], in order; four floats per thread.
+__global__ void flash_bwd_fused_dq_reduce(const float* __restrict__ dq_part,
+                                          const int* __restrict__ lengths, float* __restrict__ dq,
+                                          int T, int H, int D, int n_kt, float sm_scale,
+                                          long quads) {
+  const long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= quads) return;
+  msfa_tc::dq_reduce(dq_part, lengths, dq, T, D, n_kt, H, D, sm_scale, i);
 }
 
 template <int D>
@@ -428,16 +384,28 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
+long fused_scratch_floats(long BH, int T, int D) {
+  return BH * ((T + msfa_tc::kBwdTile - 1) / msfa_tc::kBwdTile) * T * D;
+}
+
 template <int D>
 int launch_fused(const float* q, const float* k, const float* v, const int* lengths,
                  const float* lse, const float* delta, const float* dout, float* dq, float* dk,
-                 float* dv, long BH, int T, int H, float sm_scale, cudaStream_t stream) {
-  const size_t smem = dkv_smem_bytes<D>();
+                 float* dv, float* dq_part, long BH, int T, int H, float sm_scale,
+                 cudaStream_t stream) {
+  const size_t smem = msfa_tc::BwdLayout<D>::kBytes;
   cudaError_t err = allow_smem(flash_bwd_fused_kernel<D>, smem);
   if (err != cudaSuccess) return (int)err;
-  if (BH > 0x7fffffffL) return (int)cudaErrorInvalidValue;
-  flash_bwd_fused_kernel<D><<<(unsigned)BH, kThreads, smem, stream>>>(
-      q, k, v, lengths, lse, delta, dout, dq, dk, dv, T, H, sm_scale);
+  const int n_kt = (T + msfa_tc::kBwdTile - 1) / msfa_tc::kBwdTile;
+  const long quads = BH * T * (D / 4);
+  if (BH * n_kt > 0x7fffffffL || (quads + 255) / 256 > 0x7fffffffL)
+    return (int)cudaErrorInvalidValue;
+  flash_bwd_fused_kernel<D><<<(unsigned)(BH * n_kt), msfa_tc::kBwdThreads, smem, stream>>>(
+      q, k, v, lengths, lse, delta, dout, dk, dv, dq_part, T, H, n_kt, sm_scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  flash_bwd_fused_dq_reduce<<<(unsigned)((quads + 255) / 256), 256, 0, stream>>>(
+      dq_part, lengths, dq, T, H, D, n_kt, sm_scale, quads);
   return (int)cudaGetLastError();
 }
 
@@ -497,14 +465,22 @@ int msfa_flash_delta(const float* out, const float* dout, float* delta, long lon
   return (int)cudaGetLastError();
 }
 
+// Floats of scratch the wrapper allocates for msfa_flash_bwd_fused: the dq
+// partials [B*H, ceil(T / 64), T, D].
+long long msfa_flash_bwd_fused_scratch(int B, int T, int H, int D) {
+  return fused_scratch_floats((long)B * H, T, D);
+}
+
+// Two launches: the kernel (dk, dv and the dq partials), then their ordered sum.
 int msfa_flash_bwd_fused(const float* q, const float* k, const float* v, const int* lengths,
                          const float* lse, const float* delta, const float* dout, float* dq,
-                         float* dk, float* dv, int B, int T, int H, int D, float sm_scale,
-                         void* stream) {
+                         float* dk, float* dv, float* scratch, int B, int T, int H, int D,
+                         float sm_scale, void* stream) {
   if (B <= 0 || T <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long BH = (long)B * H;
-#define CALL(d) launch_fused<d>(q, k, v, lengths, lse, delta, dout, dq, dk, dv, BH, T, H, sm_scale, s)
+#define CALL(d) \
+  launch_fused<d>(q, k, v, lengths, lse, delta, dout, dq, dk, dv, scratch, BH, T, H, sm_scale, s)
   MSFA_DISPATCH_D(CALL)
 #undef CALL
 }

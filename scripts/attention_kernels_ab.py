@@ -1,0 +1,136 @@
+#!/usr/bin/env python3
+"""Time the PyTorch port's attention kernels in one or more checkouts, in
+turns, on one CUDA card: an A/B of two trees in the same process order.
+
+    python3 scripts/attention_kernels_ab.py                      # this checkout
+    python3 scripts/attention_kernels_ab.py --tree old --tree . --tree . --tree old
+
+Each ``--tree`` runs in its own process, which imports the port from that
+checkout, builds its kernels from its ``ops/csrc`` and times, with CUDA
+events, the seven attention kernels of the kernel table at the shapes
+``chip_smoke.py`` reports them: the packed forward (B 64, T 512, H 4, d 64)
+and backward (B 32), the single-key-block forward and the fused backward at
+``[B*H, T, d]`` = ``[128, 1024, 64]``, ``[512, 512, 64]`` and ``[128, 2048,
+64]``, the split dk/dv and dq kernels at ``[128, 2048, 64]``; every key
+valid, inputs from a fixed seed. ``scaled_dot_product_attention`` (forward,
+or its backward) is timed beside each shape. Prints the card's name and
+power limit, one JSON line per tree, then the table of all runs. Needs a
+CUDA card; imports torch and the port only.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+HEADS, HEAD_DIM = 4, 64
+
+
+def _time_ms(torch, fn, iters: int) -> float:
+    for _ in range(3):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def _measure(tree: Path) -> dict:
+    sys.path.insert(0, str(tree))
+    import torch
+    from multimodal_sensor_fusion_with_attention_rajeevatla_torch.ops import attention as ta
+
+    g = torch.Generator().manual_seed(0)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    scale = HEAD_DIM**-0.5
+    times = {}
+
+    def packed(batch, seq=512):
+        qkv = torch.randn(batch, seq, 3 * HEADS * HEAD_DIM, generator=g).cuda()
+        lengths = torch.full((batch,), seq, dtype=torch.int32, device="cuda")
+        q, k, v = (qkv.view(batch, seq, 3, HEADS, HEAD_DIM)[:, :, i].transpose(1, 2)
+                   for i in range(3))
+        return qkv, lengths, (q, k, v)
+
+    qkv, lengths, qkv_views = packed(64)
+    times["packed_attention_fwd"] = _time_ms(
+        torch, lambda: ta.packed_attention_fwd(qkv, lengths, HEADS, scale), 20)
+    times["sdpa_fwd_packed"] = _time_ms(torch, lambda: sdpa(*qkv_views), 20)
+    qkv, lengths, qkv_views = packed(32)
+    dout = torch.randn(32, 512, HEADS * HEAD_DIM, generator=g).cuda()
+    out, lse = ta.packed_attention_fwd(qkv, lengths, HEADS, scale)
+    times["packed_attention_bwd"] = _time_ms(
+        torch, lambda: ta.packed_attention_bwd(qkv, lengths, out, lse, dout, HEADS, scale), 20)
+    leaves = [t.detach().requires_grad_() for t in qkv_views]
+    sdpa_out = sdpa(*leaves)
+    d_sdpa = dout.view(32, 512, HEADS, HEAD_DIM).transpose(1, 2)
+    times["sdpa_bwd_packed"] = _time_ms(
+        torch, lambda: torch.autograd.grad(sdpa_out, leaves, d_sdpa, retain_graph=True), 20)
+    del qkv, dout, out, lse, leaves, sdpa_out
+
+    for rows, seq in ((128, 1024), (512, 512), (128, 2048)):
+        tag = f"{rows}x{seq}"
+        q, k, v, dout = (torch.randn(rows, seq, HEAD_DIM, generator=g).cuda() for _ in range(4))
+        lengths = torch.full((rows // HEADS,), seq, dtype=torch.int32, device="cuda")
+        out, lse = ta.flash_fwd_single(q, k, v, lengths, HEADS, scale)
+        delta = ta.flash_delta(out, dout)
+        args = (q, k, v, lengths, HEADS, lse, delta, dout, scale)
+        times[f"flash_fwd_single_{tag}"] = _time_ms(
+            torch, lambda: ta.flash_fwd_single(q, k, v, lengths, HEADS, scale), 10)
+        times[f"flash_bwd_fused_{tag}"] = _time_ms(torch, lambda: ta.flash_bwd_fused(*args), 5)
+        if seq == 2048:
+            times[f"flash_bwd_dkv_{tag}"] = _time_ms(torch, lambda: ta.flash_bwd_dkv(*args), 5)
+            times[f"flash_bwd_dq_{tag}"] = _time_ms(torch, lambda: ta.flash_bwd_dq(*args), 5)
+        shape = (rows // HEADS, HEADS, seq, HEAD_DIM)
+        leaves = [t.view(shape).detach().requires_grad_() for t in (q, k, v)]
+        times[f"sdpa_fwd_{tag}"] = _time_ms(torch, lambda: sdpa(*leaves), 10)
+        sdpa_out = sdpa(*leaves)
+        times[f"sdpa_bwd_{tag}"] = _time_ms(
+            torch, lambda: torch.autograd.grad(sdpa_out, leaves, dout.view(shape),
+                                               retain_graph=True), 5)
+        del q, k, v, dout, out, lse, delta, args, leaves, sdpa_out
+    return {"tree": str(tree), "device": torch.cuda.get_device_name(0), "ms": times}
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--tree", action="append", help="checkout to time (repeatable, in order)")
+    parser.add_argument("--one", help=argparse.SUPPRESS)  # child process: time this tree
+    args = parser.parse_args()
+    import torch
+
+    if not torch.cuda.is_available():
+        print("attention_kernels_ab: CUDA is not available; this runs on the card only",
+              file=sys.stderr)
+        return 2
+    if args.one:
+        print(json.dumps(_measure(Path(args.one).resolve())), flush=True)
+        return 0
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True)
+    print(smi.stdout.strip(), flush=True)
+    runs = []
+    for tree in args.tree or [str(Path(__file__).resolve().parents[1])]:
+        proc = subprocess.run([sys.executable, __file__, "--one", tree], capture_output=True,
+                              text=True)
+        if proc.returncode:
+            print(proc.stdout + proc.stderr, file=sys.stderr)
+            return proc.returncode
+        line = proc.stdout.strip().splitlines()[-1]
+        print(line, flush=True)
+        runs.append(json.loads(line))
+    names = list(runs[0]["ms"])
+    print(f"{'kernel (ms)':34s}" + "".join(f"{Path(r['tree']).name or '.':>14s}" for r in runs))
+    for name in names:
+        print(f"{name:34s}" + "".join(f"{r['ms'].get(name, float('nan')):14.4f}" for r in runs))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

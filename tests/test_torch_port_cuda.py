@@ -41,6 +41,22 @@ def test_packed_attention_kernel_matches_twin(card, seq, hd):
     assert torch.all(out[0] == 0) and torch.all(lse[0] == ta.NEG_INF)
 
 
+@pytest.mark.parametrize("hd", [16, 32, 128])
+def test_packed_attention_kernel_takes_every_head_dim_at_edge_lengths(card, hd):
+    # padded T = 72 (not a multiple of the 64-row tile), lengths on every tile edge
+    seq, heads = 72, 4
+    g = torch.Generator().manual_seed(hd)
+    lens = [0, 1, 37, 64, 65, seq - 1, seq]
+    qkv = torch.randn(len(lens), seq, 3 * heads * hd, generator=g).to(card)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=card)
+    out, lse = ta.packed_attention_fwd(qkv, lengths, heads, hd**-0.5)
+    torch.cuda.synchronize()
+    ref_out, ref_lse = ta.packed_attention_reference(qkv, lengths, heads, hd**-0.5)
+    torch.testing.assert_close(out, ref_out, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(lse, ref_lse, rtol=1e-5, atol=1e-5)
+    assert torch.all(out[0] == 0) and torch.all(lse[0] == ta.NEG_INF)
+
+
 def test_packed_attention_kernel_rejects_what_it_does_not_take(card):
     qkv = torch.zeros(2, 8, 3 * 4 * 8, device=card)  # head_dim 8
     lengths = torch.full((2,), 8, dtype=torch.int32, device=card)
@@ -351,16 +367,28 @@ def test_tensor_core_attention_kernels_give_zeros_for_length_0(card, all_zero):
     out, lse = ta.flash_fwd_single(q, k, v, lengths, heads, hd**-0.5)
     torch.cuda.synchronize()
     assert torch.all(out[:heads] == 0) and torch.all(lse[:heads] == ta.NEG_INF)
-    ref_out, _ = ta.flash_attention_reference(q, k, v, lengths, heads, hd**-0.5)
+    ref_out, ref_lse = ta.flash_attention_reference(q, k, v, lengths, heads, hd**-0.5)
     torch.testing.assert_close(out, ref_out, rtol=1e-5, atol=2e-5)
+    dout = torch.randn(batch * heads, 1024, hd, generator=g).to(card)
+    delta = ta.flash_delta(ref_out, dout)
+    got = ta.flash_bwd_fused(q, k, v, lengths, heads, ref_lse, delta, dout, hd**-0.5)
+    torch.cuda.synchronize()
+    assert all(torch.all(t[:heads] == 0) for t in got)  # dq, dk, dv of length 0
+    want = ta.flash_attention_bwd_reference(q, k, v, lengths, heads, ref_out, ref_lse, dout,
+                                            hd**-0.5)
+    assert all(_rel_err(a, b) < GRAD_TOL for a, b in zip(got, want))
     qkv = torch.randn(batch, 512, 3 * heads * hd, generator=g).to(card)
     dout = torch.randn(batch, 512, heads * hd, generator=g).to(card)
     lens = lengths.clamp(max=512)
-    out, lse = ta.packed_attention_reference(qkv, lens, heads, hd**-0.5)
-    got = ta.packed_attention_bwd(qkv, lens, out, lse, dout, heads, hd**-0.5)
+    out, lse = ta.packed_attention_fwd(qkv, lens, heads, hd**-0.5)
+    torch.cuda.synchronize()
+    assert torch.all(out[0] == 0) and torch.all(lse[0] == ta.NEG_INF)
+    ref_out, ref_lse = ta.packed_attention_reference(qkv, lens, heads, hd**-0.5)
+    torch.testing.assert_close(out, ref_out, rtol=1e-5, atol=1e-5)
+    got = ta.packed_attention_bwd(qkv, lens, ref_out, ref_lse, dout, heads, hd**-0.5)
     torch.cuda.synchronize()
     assert torch.all(got[0] == 0)  # length 0: no gradient at all, dq included
-    want = ta.packed_attention_bwd_reference(qkv, lens, out, lse, dout, heads, hd**-0.5)
+    want = ta.packed_attention_bwd_reference(qkv, lens, ref_out, ref_lse, dout, heads, hd**-0.5)
     assert _rel_err(got, want) < GRAD_TOL  # every row 0: both exact zeros
 
 
@@ -377,6 +405,20 @@ def test_packed_attention_bwd_kernel_repeats_bit_for_bit(card):
     second = ta.packed_attention_bwd(qkv, lengths, out, lse, dout, heads, hd**-0.5)
     torch.cuda.synchronize()
     assert torch.equal(first, second)
+
+
+def test_flash_bwd_fused_kernel_repeats_bit_for_bit(card):
+    # dq from per-key-tile partials summed in order: no atomics, so the same
+    # inputs give the same bits
+    q, k, v, dout, lengths = _flash_inputs(card, 8, 4, 1024, 64, 29)
+    lengths[3:8] = torch.tensor([1, 64, 65, 1023, 613], dtype=torch.int32, device=card)
+    out, lse = ta.flash_fwd_single(q, k, v, lengths, 4, 64**-0.5)
+    delta = ta.flash_delta(out, dout)
+    args = (q, k, v, lengths, 4, lse, delta, dout, 64**-0.5)
+    first = ta.flash_bwd_fused(*args)
+    second = ta.flash_bwd_fused(*args)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 # ---- grouped recurrences: the three inference kernels ------------------------
