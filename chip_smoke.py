@@ -26,12 +26,14 @@ Phases (any failure exits non-zero, and no result line is printed):
    is not a multiple of 4. Backward checks compare every output by its max
    abs error relative to its largest magnitude. Times with CUDA events:
    kernel, plain twin, the bound, and, where one PyTorch call computes the
-   same function, that call. The four kernels whose products run as 3xTF32
+   same function, that call. The six kernels whose products run as 3xTF32
    on the tensor cores (``packed_attention_fwd``, ``packed_attention_bwd``,
-   ``flash_fwd_single``, ``flash_bwd_fused``) carry both bounds, a third of
-   the TF32 peak (the unit they run on) and the CUDA cores' f32 peak, with
-   their share of the first; ``nvcc -Xptxas -v``'s registers and spills for
-   them are printed at setup.
+   ``flash_fwd_single``, ``flash_fwd_tiled``, ``flash_bwd_fused``,
+   ``ffw_ln_bwd``) carry both bounds, a third of the TF32 peak (the unit they
+   run on) and the CUDA cores' f32 peak, with their share of the first;
+   ``nvcc -Xptxas -v``'s registers, shared memory and spills for them are
+   printed at setup. The FFW residual-LN backward runs twice on the same
+   inputs, bit for bit.
 3. Serve: ``MultimodalFusionModel.from_config(config/base.yaml)`` with seeded
    random weights at full width, ``serving.make_serving_fn`` on batch-64
    requests of real windows (all modalities; one modality missing; short
@@ -69,7 +71,7 @@ Phases (any failure exits non-zero, and no result line is printed):
    512; the split dk/dv and dq kernels at T = 2048), on the real batches'
    lengths, on the edge lengths and on a padded T = 1100; the fused backward
    twice on the same inputs, bit for bit; the two forwards
-   against each other at T = 2048; both routes timed at T = 1024 and 2048,
+   against each other at T = 2048, bit for bit (one body); both routes timed at T = 1024 and 2048,
    SDPA (forward, or backward) beside every shape a flash row reports.
    The three grouped-recurrence kernels (``ops/rnn.py``) at T = 512 and 1024,
    G = 4, B = 64, H = 256, D = 17: a real batch's lengths, the edge lengths 0,
@@ -124,6 +126,7 @@ The script imports torch and the port only; it needs no network.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import math
 import subprocess
@@ -141,18 +144,21 @@ FUSED_MLP_STEPS = 4  # micro-steps at fused_mlp=true, fused_mlp_ln=false
 FIT_EPOCHS = 2
 # peaks of one H100 SXM (NVIDIA data sheet): CUDA-core FP32, dense TF32 on
 # the tensor cores, HBM3. A kernel that takes each f32 product as three TF32
-# products (3xTF32: the packed and the single-key-block forwards, the packed
-# and the fused backwards) is bounded by a third of the TF32 rate for the
+# products (3xTF32: the packed and both flash forwards, the packed and the
+# fused attention backwards, the FFW residual-LN backward) is bounded by a third of the TF32 rate for the
 # same f32 operation count
 PEAK_F32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
 PEAK_3XTF32_FLOPS = PEAK_TF32_FLOPS / 3
 PEAK_BYTES = 3.35e12
 # the kernels whose products run as 3xTF32 on the tensor cores
+# (table row -> a fragment of its kernels' names, for the ptxas report)
 TENSOR_CORE_KERNELS = {"flash_fwd_single": "flash_fwd_single_kernel",
+                       "flash_fwd_tiled": "flash_fwd_tiled_kernel",
                        "packed_attention_bwd": "bwd_kernel",
                        "packed_attention_fwd": "packed_attention_fwd_kernel",
-                       "flash_bwd_fused": "flash_bwd_fused_kernel"}
+                       "flash_bwd_fused": "flash_bwd_fused_kernel",
+                       "ffw_ln_bwd": "ffw_ln_bwd"}
 # stated tolerances: f32 on both sides; the kernels sum in another order
 # (online softmax across 64-key tiles, per-thread dot products)
 ATTN_TOL = 1e-4
@@ -214,12 +220,26 @@ def tensor_core_bounds(row, flops, nbytes, suffix=""):
             f"share {100 * b3 / row[f'ms{suffix}']:.1f}%")
 
 
+def _source_name(mangled: str) -> str:
+    """A kernel's own name in its mangled symbol: the last source name of
+    the (nested) name, before template arguments and parameters."""
+    names, i = [], 3 if mangled.startswith("_ZN") else 2
+    while i < len(mangled) and mangled[i].isdigit():
+        j = i
+        while mangled[j].isdigit():
+            j += 1
+        names.append(mangled[j:j + int(mangled[i:j])])
+        i = j + int(mangled[i:j])
+    return names[-1] if names else mangled
+
+
 def ptxas_report(build):
     """Start ``nvcc -Xptxas -v`` on the tensor-core kernels' sources beside
-    the build; the returned function waits and prints registers and spills."""
+    the build; the returned function waits and prints registers, shared
+    memory and spills."""
     tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_ptxas_")
     sources = ("flash_attention", "packed_attention_bwd", "packed_attention",
-               "flash_attention_bwd")
+               "flash_attention_bwd", "ffw_ln")
     procs = [subprocess.Popen(
         [build._nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-o", f"{tmp.name}/{name}.so",
          str(build.CSRC_DIR / f"{name}.cu")],
@@ -234,11 +254,23 @@ def ptxas_report(build):
             for line in output.splitlines():
                 if "Compiling entry function" in line:
                     name = line.split("'")[1]
-                    kernel = next((k for k in TENSOR_CORE_KERNELS.values() if k in name), None)
+                    kernel = next((_source_name(name) for k in TENSOR_CORE_KERNELS.values()
+                                   if k in name), None)
                     dim = name.split("ILi")[1].split("E")[0] if kernel and "ILi" in name else ""
                 elif kernel and ("spill" in line or "registers" in line):
-                    print(f"  ptxas {kernel}<{dim}>: {line.strip()}", flush=True)
+                    print(f"  ptxas {kernel}{f'<{dim}>' if dim else ''}: {line.strip()}",
+                          flush=True)
         tmp.cleanup()
+        # dynamic shared memory, which ptxas does not see, of the newest entries
+        sizes = (ctypes.c_int * 5)()
+        if build.library("ffw_ln").msfa_ffw_ln_bwd_smem_bytes(256, sizes):
+            raise RuntimeError("msfa_ffw_ln_bwd_smem_bytes failed")
+        names = ("hidden", "ln", "dpre", "dx", "dw")
+        print("  shared memory per block, ffw_ln_bwd_*_kernel at D=256: " + ", ".join(
+            f"{n} {b} bytes" for n, b in zip(names, sizes)), flush=True)
+        print(f"  shared memory per block, flash_fwd_single_kernel and flash_fwd_tiled_kernel at "
+              f"d=64: {build.library('flash_attention').msfa_flash_fwd_smem_bytes(64)} bytes",
+              flush=True)
     return finish
 
 
@@ -478,6 +510,13 @@ def check_ln_kernels(torch, mlp, rows):
         if max(errs) > GRAD_TOL:
             raise AssertionError(f"{family} kernels disagree with their twins: {errs} > {GRAD_TOL}")
         args, dout, inv_keep = timed  # keep 0.8 at N = rows, as in training
+        if family == "ffw_ln":  # every sum over rows in a fixed order, no atomics
+            first, second = bwd(*args, dout, inv_keep, 1e-6), bwd(*args, dout, inv_keep, 1e-6)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(first, second)):
+                raise AssertionError("ffw_ln_bwd: two runs on the same inputs differ")
+            print(f"  ffw_ln_bwd N={rows} keep=0.8: two runs equal bit for bit", flush=True)
+            del first, second
         n = rows
         if family == "proj_ln":  # rows of f32 moved: x, a, out | x, a, dout, dx, da
             weights, masks, work, f32_rows, ops = d * d + 3 * d, n * d, d * d, (3, 5), (2, 6)
@@ -496,15 +535,25 @@ def check_ln_kernels(torch, mlp, rows):
             ms = time_ms(call, iters=10)
             plain_ms = time_ms(call_ref, iters=10)
             flops, nbytes = cost[kind]
-            bound_ms, bound_by = bound(flops, nbytes)
-            print(f"  {family}_{kind} ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} "
-                  f"({bound_by}; {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)", flush=True)
-            out_rows[f"{family}_{kind}"] = {
-                "name": f"{family}_{kind}", "route": "cuda", "source": f"{PKG}/ops/csrc/{src}",
+            name = f"{family}_{kind}"
+            row = {
+                "name": name, "route": "cuda", "source": f"{PKG}/ops/csrc/{src}",
                 "replaces": f"{TPU_PKG}/ops/pallas_mlp.py:{line}",
                 "max_abs_err": errs[0 if kind == "fwd" else 1], "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+                "library_ms": None,
             }
+            if name in TENSOR_CORE_KERNELS:
+                bounds = tensor_core_bounds(row, flops, nbytes)
+            else:
+                row["bound_ms"], row["bound_by"] = bound(flops, nbytes)
+                bounds = f"bound_ms={row['bound_ms']:.4f}"
+            print(f"  {name} ms={ms:.4f} plain_ms={plain_ms:.4f} {bounds} ({row['bound_by']}; "
+                  f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)", flush=True)
+            out_rows[name] = row
+            if name == "ffw_ln_bwd":  # its chain of kernels, one by one
+                row["ms_by_kernel"] = kernel_times(torch, call, 5)
+                print("  ffw_ln_bwd by kernel: " + ", ".join(
+                    f"{k} {v:.4f} ms" for k, v in row["ms_by_kernel"].items()), flush=True)
     return [out_rows[k] for k in ("proj_ln_fwd", "proj_ln_bwd", "ffw_ln_fwd", "ffw_ln_bwd")]
 
 
@@ -756,10 +805,13 @@ def check_flash_kernels(torch, attn, real_lengths):
                          _edge_lengths(torch, lens, 2048))
     e_routes = max((single[0] - tiled[0]).abs().max().item(),
                    (single[1] - tiled[1]).abs().max().item())
+    same_bits = torch.equal(single[0], tiled[0]) and torch.equal(single[1], tiled[1])
     print(f"  single-key-block vs tiled forward on the same inputs at T=2048: max abs diff "
-          f"{e_routes:.3e} (tol {ATTN_TOL})", flush=True)
+          f"{e_routes:.3e} (tol {ATTN_TOL}), bit for bit: {same_bits}", flush=True)
     if max(errs["single"], errs["tiled"], e_routes) > ATTN_TOL:
         raise AssertionError(f"flash forward kernels disagree: {errs}, routes {e_routes}")
+    if not same_bits:  # one body, two entries
+        raise AssertionError("flash forward kernels differ in bits on the same inputs")
 
     # backwards: rows 5, 6, 7
     for seq, route in ((1024, "fused"), (512, "fused"), (2048, "split")):
@@ -877,6 +929,11 @@ def check_flash_kernels(torch, attn, real_lengths):
               f"{tensor_core_bounds(single, flops, nbytes, suffix)}", flush=True)
     tiled["ms_t1024"], tiled["library_ms_t1024"] = other[1024]["tiled"], rows[0]["library_ms"]
     tiled["ms_t2048"], tiled["library_ms_t2048"] = other[2048]["tiled"], single["library_ms_t2048"]
+    for suffix, seq in (("_t1024", 1024), ("_t2048", 2048)):
+        flops, nbytes, _ = _flash_work(torch, data[seq][4], seq, 2, 4)
+        print(f"  flash_fwd_tiled T={seq} B*H={data[seq][0].shape[0]}: ms={tiled['ms' + suffix]:.4f} "
+              f"sdpa_ms={tiled['library_ms' + suffix]:.4f} "
+              f"{tensor_core_bounds(tiled, flops, nbytes, suffix)}", flush=True)
     fused["ms_t512_bh512"], fused["library_ms_t512_bh512"] = fused512, sdpa_ms(512, "qkv")
     fused["ms_t2048"], fused["library_ms_t2048"] = other[2048]["fused"], sdpa_ms(2048, "qkv")
     for suffix, seq in (("_t512_bh512", 512), ("_t2048", 2048)):
@@ -1196,6 +1253,27 @@ FAMILIES = (  # profiler kernel-name fragments -> family, first match wins
     ("copy", ("direct_copy",)),
     ("fill", ("fillfunctor",)),
 )
+
+
+def kernel_times(torch, call, iters: int) -> dict:
+    """Device ms per call of each kernel that ``call`` launches
+    (torch.profiler's CUDA activity), by the kernel's own name."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    call()
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            call()
+        torch.cuda.synchronize()
+    times = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            name = e.name.replace("(anonymous namespace)::", "").split("(")[0]
+            name = name.split("<")[0].split("::")[-1].split()[-1]
+            times[name] = times.get(name, 0.0) + e.time_range.elapsed_us() / iters / 1e3
+    return dict(sorted(times.items(), key=lambda kv: -kv[1]))
 
 
 def profile(torch, run, iters: int, unit: str) -> None:

@@ -45,7 +45,13 @@ from . import _build
 
 KERNEL_WIDTHS = (32, 64, 128, 256)  # d_model the kernels are instantiated for
 FFW_CHUNK = 64  # d_ff must be a multiple of the kernel's hidden chunk
-ROW_TILE = 32  # rows per block in both kernels
+ROW_TILE = 32  # rows per block of the CUDA-core kernels
+# the FFW residual-LN backward's tensor-core products (csrc/ffw_ln.cu): rows
+# per block of the [N, d_ff] and the [N, d] products, and the weight
+# gradients' [d_ff, d] tile
+BWD_ROWS_F = 128
+BWD_ROWS_D = 64
+BWD_GRAD_TILE = (128, 64)
 _SMS = 132  # H100 SXM streaming multiprocessors: sizes the row splits of the sums
 # what a mask is for: mixed into the generator's key, so the three masks of a
 # layer differ under one seed
@@ -259,6 +265,12 @@ def _splits(rows: int, tiles: int) -> int:
     """Row splits of a cross-block sum: enough blocks for two waves over the
     SMs, at least 256 rows per split."""
     return max(1, min(math.ceil(2 * _SMS / max(tiles, 1)), math.ceil(rows / 256)))
+
+
+def _grad_splits(rows: int, tiles: int) -> int:
+    """Row splits of the backward's weight gradients: at most the blocks that
+    fill the SMs twice over (two blocks fit on one), at least 256 rows each."""
+    return max(1, min(2 * _SMS // max(tiles, 1), math.ceil(rows / 256)))
 
 
 def _tiles(i: int, o: int) -> int:
@@ -504,9 +516,12 @@ ffw_ln_fwd.launches = 0
 def ffw_ln_bwd(x, w1, b1, w2, b2, gamma, beta, fmask, rmask, dout, inv_keep: float,
                eps: float):
     """Kernel wrapper for the FFW half's backward ->
-    ``(dx, dw1, db1, dw2, db2, dgamma, dbeta)``. The kernel keeps the
+    ``(dx, dw1, db1, dw2, db2, dgamma, dbeta)``. The kernels keep the
     recomputed hidden and its gradient in two ``[N, d_ff]`` scratch buffers
-    allocated here (134 MB each at N = 16384, d_ff = 2048)."""
+    allocated here (134 MB each at N = 16384, d_ff = 2048), with dy, the
+    per-block and per-split partials of the sums over rows, and the norms of
+    x's rows and W1's columns that bound where the kernel takes a hidden
+    unit's ReLU branch by the forward kernel's arithmetic."""
     d, f = x.shape[-1], w1.shape[-1]
     tensors = {"x": x, "w1": w1, "b1": b1, "w2": w2, "b2": b2, "gamma": gamma,
                "beta": beta, "fmask": fmask, "rmask": rmask, "dout": dout}
@@ -527,21 +542,21 @@ def ffw_ln_bwd(x, w1, b1, w2, b2, gamma, beta, fmask, rmask, dout, inv_keep: flo
     if n == 0:
         dgamma, dbeta, db2 = sums.zero_().unbind(0)
         return dx, dw1.zero_(), db1.zero_(), dw2.zero_(), db2, dgamma, dbeta
-    splits = _splits(n, _tiles(d, f))
-    col_splits = _splits(n, math.ceil(f / 256))
+    splits = _grad_splits(n, math.ceil(f / BWD_GRAD_TILE[0]) * math.ceil(d / BWD_GRAD_TILE[1]))
     hd = torch.empty((n, f), device=x.device)
     dpre = torch.empty((n, f), device=x.device)
     dy = torch.empty_like(x)
-    partial = torch.empty((math.ceil(n / ROW_TILE), 3, d), device=x.device)
-    atb_part = torch.empty((splits, d, f), device=x.device)
-    col_part = torch.empty((col_splits, f), device=x.device)
-    lib, fn = _fn("ffw_ln", "msfa_ffw_ln_bwd", 20, 5, 2)
+    ln_part = torch.empty((math.ceil(n / BWD_ROWS_D), 3, d), device=x.device)
+    db1_part = torch.empty((math.ceil(n / BWD_ROWS_F), f), device=x.device)
+    dw_part = torch.empty((splits, d * f), device=x.device)
+    norms = torch.empty((n + f,), device=x.device)
+    lib, fn = _fn("ffw_ln", "msfa_ffw_ln_bwd", 21, 4, 2)
     with torch.cuda.device(x.device):
         code = fn(x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
                   gamma.data_ptr(), _ptr(fmask), _ptr(rmask), dout.data_ptr(), dx.data_ptr(),
                   dw1.data_ptr(), db1.data_ptr(), dw2.data_ptr(), sums.data_ptr(),
-                  hd.data_ptr(), dpre.data_ptr(), dy.data_ptr(), partial.data_ptr(),
-                  atb_part.data_ptr(), col_part.data_ptr(), n, d, f, splits, col_splits,
+                  hd.data_ptr(), dpre.data_ptr(), dy.data_ptr(), ln_part.data_ptr(),
+                  db1_part.data_ptr(), dw_part.data_ptr(), norms.data_ptr(), n, d, f, splits,
                   float(inv_keep), float(eps), _stream(x.device))
     _build.check(lib, code, "ffw_ln_bwd")
     ffw_ln_bwd.launches += 1

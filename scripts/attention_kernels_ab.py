@@ -1,19 +1,24 @@
 #!/usr/bin/env python3
-"""Time the PyTorch port's attention kernels in one or more checkouts, in
-turns, on one CUDA card: an A/B of two trees in the same process order.
+"""Time the PyTorch port's attention, residual-LN and feed-forward kernels in
+one or more checkouts, in turns, on one CUDA card: an A/B of two trees in the
+same process order.
 
     python3 scripts/attention_kernels_ab.py                      # this checkout
     python3 scripts/attention_kernels_ab.py --tree old --tree . --tree . --tree old
 
 Each ``--tree`` runs in its own process, which imports the port from that
 checkout, builds its kernels from its ``ops/csrc`` and times, with CUDA
-events, the seven attention kernels of the kernel table at the shapes
+events, rows 1-7 and 10-15 of the kernel table at the shapes
 ``chip_smoke.py`` reports them: the packed forward (B 64, T 512, H 4, d 64)
 and backward (B 32), the single-key-block forward and the fused backward at
 ``[B*H, T, d]`` = ``[128, 1024, 64]``, ``[512, 512, 64]`` and ``[128, 2048,
-64]``, the split dk/dv and dq kernels at ``[128, 2048, 64]``; every key
-valid, inputs from a fixed seed. ``scaled_dot_product_attention`` (forward,
-or its backward) is timed beside each shape. Prints the card's name and
+64]``, the split dk/dv and dq kernels at ``[128, 2048, 64]``, the tiled
+forward at ``[256, 4096, 64]``, ``[128, 1024, 64]`` and ``[128, 2048, 64]``
+(every key valid), and the feed-forward pair and the projection and FFW
+residual-LayerNorm kernels, forward and backward, at N = 16,384 rows, d 256,
+d_ff 2048, keep 0.8; inputs from a fixed seed.
+``scaled_dot_product_attention`` (forward, or its backward) is timed beside
+each attention shape. Prints the card's name and
 power limit, one JSON line per tree, then the table of all runs. Needs a
 CUDA card; imports torch and the port only.
 """
@@ -95,7 +100,47 @@ def _measure(tree: Path) -> dict:
             torch, lambda: torch.autograd.grad(sdpa_out, leaves, dout.view(shape),
                                                retain_graph=True), 5)
         del q, k, v, dout, out, lse, delta, args, leaves, sdpa_out
+
+    for rows, seq in ((256, 4096), (128, 1024), (128, 2048)):
+        q, k, v = (torch.randn(rows, seq, HEAD_DIM, generator=g).cuda() for _ in range(3))
+        lengths = torch.full((rows // HEADS,), seq, dtype=torch.int32, device="cuda")
+        times[f"flash_fwd_tiled_{rows}x{seq}"] = _time_ms(
+            torch, lambda: ta.flash_fwd_tiled(q, k, v, lengths, HEADS, scale), 10)
+        if seq == 4096:
+            leaves = [t.view(rows // HEADS, HEADS, seq, HEAD_DIM) for t in (q, k, v)]
+            times[f"sdpa_fwd_{rows}x{seq}"] = _time_ms(torch, lambda: sdpa(*leaves), 10)
+        del q, k, v
+    times.update(_measure_mlp(torch, g))
     return {"tree": str(tree), "device": torch.cuda.get_device_name(0), "ms": times}
+
+
+def _measure_mlp(torch, g) -> dict:
+    """Rows 10-15: the feed-forward pair and the two residual-LN pairs at the
+    training shape, keep 0.8."""
+    from multimodal_sensor_fusion_with_attention_rajeevatla_torch.ops import mlp as tm
+
+    n, d, f, keep = 16384, 256, 2048, 0.8
+
+    def w(*shape, s=1.0):
+        return (torch.randn(*shape, generator=g) * s).cuda()
+
+    fmask, rmask = ((torch.rand(n, width, generator=g) < keep).to(torch.uint8).cuda()
+                    for width in (f, d))
+    inv_keep, eps = tm._inv_keep(keep), 1e-6
+    x, dout, a = w(n, d), w(n, d), w(n, d)
+    ffw = (x, w(d, f, s=d**-0.5), w(f, s=0.1), w(f, d, s=f**-0.5), w(d, s=0.1),
+           1 + w(d, s=0.1), w(d, s=0.1), fmask, rmask)
+    proj = (x, a, w(d, d, s=d**-0.5), w(d, s=0.1), 1 + w(d, s=0.1), w(d, s=0.1), rmask)
+    x_, w1, b1, w2, b2 = ffw[:5]
+    calls = {
+        "fused_mlp_fwd": lambda: tm.fused_mlp_fwd(x_, w1, b1, w2, b2, fmask, inv_keep),
+        "fused_mlp_bwd": lambda: tm.fused_mlp_bwd(x_, w1, b1, w2, fmask, dout, inv_keep),
+        "ffw_ln_fwd": lambda: tm.ffw_ln_fwd(*ffw, inv_keep, eps),
+        "ffw_ln_bwd": lambda: tm.ffw_ln_bwd(*ffw, dout, inv_keep, eps),
+        "proj_ln_fwd": lambda: tm.proj_ln_fwd(*proj, inv_keep, eps),
+        "proj_ln_bwd": lambda: tm.proj_ln_bwd(*proj, dout, inv_keep, eps),
+    }
+    return {name: _time_ms(torch, call, 10) for name, call in calls.items()}
 
 
 def main() -> int:

@@ -174,6 +174,20 @@ def test_ffw_ln_kernels_match_twins(card, n, d, f, keep):
             assert _rel_err(got, want) < GRAD_TOL
 
 
+def test_ffw_ln_bwd_kernel_repeats_bit_for_bit(card):
+    # every sum over rows is per-block or per-split partials added in order:
+    # no atomics, so the same inputs give the same bits
+    n, d, f = 1000, 256, 2048
+    g = torch.Generator().manual_seed(41)
+    w, fmask, rmask = _ln_inputs(g, n, d, f, 0.8, card)
+    args = (w(n, d), w(d, f, scale=d**-0.5), w(f, scale=0.1), w(f, d, scale=f**-0.5),
+            w(d, scale=0.1), 1 + w(d, scale=0.1), w(d, scale=0.1), fmask, rmask, w(n, d))
+    first = tm.ffw_ln_bwd(*args, 1.25, 1e-6)
+    second = tm.ffw_ln_bwd(*args, 1.25, 1e-6)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
 def test_ln_kernels_reject_what_they_do_not_take(card):
     x = torch.zeros(8, 48, device=card)
     with pytest.raises(ValueError, match="d_model"):
@@ -345,6 +359,16 @@ def test_flash_kernels_reject_what_they_do_not_take(card):
         ta.flash_fwd_tiled(q, q, q, lengths.long(), 2, 1.0)
 
 
+@pytest.mark.parametrize("seq", [1024, 2100])
+def test_flash_fwd_tiled_equals_single_bit_for_bit(card, seq):
+    # the two forward kernels are two entries on one body (attention_fwd.cuh)
+    q, k, v, _dout, lengths = _flash_inputs(card, 4, 4, seq, 64, 31 + seq)
+    single = ta.flash_fwd_single(q, k, v, lengths, 4, 64**-0.5)
+    tiled = ta.flash_fwd_tiled(q, k, v, lengths, 4, 64**-0.5)
+    torch.cuda.synchronize()
+    assert torch.equal(single[0], tiled[0]) and torch.equal(single[1], tiled[1])
+
+
 def test_flash_fwd_single_takes_any_length(card):
     # no score rows in shared memory, so no cap on T: 8192 keys run and match
     g = torch.Generator().manual_seed(8192)
@@ -364,11 +388,12 @@ def test_tensor_core_attention_kernels_give_zeros_for_length_0(card, all_zero):
     heads, hd, batch = 4, 64, 2
     lengths = torch.tensor([0, 0] if all_zero else [0, 700], dtype=torch.int32, device=card)
     q, k, v = (torch.randn(batch * heads, 1024, hd, generator=g).to(card) for _ in range(3))
-    out, lse = ta.flash_fwd_single(q, k, v, lengths, heads, hd**-0.5)
-    torch.cuda.synchronize()
-    assert torch.all(out[:heads] == 0) and torch.all(lse[:heads] == ta.NEG_INF)
     ref_out, ref_lse = ta.flash_attention_reference(q, k, v, lengths, heads, hd**-0.5)
-    torch.testing.assert_close(out, ref_out, rtol=1e-5, atol=2e-5)
+    for forward in (ta.flash_fwd_single, ta.flash_fwd_tiled):
+        out, lse = forward(q, k, v, lengths, heads, hd**-0.5)
+        torch.cuda.synchronize()
+        assert torch.all(out[:heads] == 0) and torch.all(lse[:heads] == ta.NEG_INF)
+        torch.testing.assert_close(out, ref_out, rtol=1e-5, atol=2e-5)
     dout = torch.randn(batch * heads, 1024, hd, generator=g).to(card)
     delta = ta.flash_delta(ref_out, dout)
     got = ta.flash_bwd_fused(q, k, v, lengths, heads, ref_lse, delta, dout, hd**-0.5)
