@@ -26,14 +26,18 @@ Phases (any failure exits non-zero, and no result line is printed):
    is not a multiple of 4. Backward checks compare every output by its max
    abs error relative to its largest magnitude. Times with CUDA events:
    kernel, plain twin, the bound, and, where one PyTorch call computes the
-   same function, that call. The six kernels whose products run as 3xTF32
+   same function, that call. The eight kernels whose products run as 3xTF32
    on the tensor cores (``packed_attention_fwd``, ``packed_attention_bwd``,
    ``flash_fwd_single``, ``flash_fwd_tiled``, ``flash_bwd_fused``,
-   ``ffw_ln_bwd``) carry both bounds, a third of the TF32 peak (the unit they
-   run on) and the CUDA cores' f32 peak, with their share of the first;
-   ``nvcc -Xptxas -v``'s registers, shared memory and spills for them are
-   printed at setup. The FFW residual-LN backward runs twice on the same
-   inputs, bit for bit.
+   ``ffw_ln_fwd``, ``ffw_ln_bwd``, ``proj_ln_bwd``) carry both bounds, a
+   third of the TF32 peak (the unit they run on) and the CUDA cores' f32
+   peak, with their share of the first; ``nvcc -Xptxas -v``'s registers,
+   shared memory and spills for them are printed at setup. The two
+   residual-LN backwards run twice on the same inputs, bit for bit; the FFW
+   forward's hidden equals the backward's bit for bit (one kernel), and the
+   FFW backward is held to its twin on the forward kernel's ReLU branches,
+   each branch that differs from the twin's own lying within rounding of
+   zero.
 3. Serve: ``MultimodalFusionModel.from_config(config/base.yaml)`` with seeded
    random weights at full width, ``serving.make_serving_fn`` on batch-64
    requests of real windows (all modalities; one modality missing; short
@@ -145,20 +149,24 @@ FIT_EPOCHS = 2
 # peaks of one H100 SXM (NVIDIA data sheet): CUDA-core FP32, dense TF32 on
 # the tensor cores, HBM3. A kernel that takes each f32 product as three TF32
 # products (3xTF32: the packed and both flash forwards, the packed and the
-# fused attention backwards, the FFW residual-LN backward) is bounded by a third of the TF32 rate for the
-# same f32 operation count
+# fused attention backwards, the FFW residual-LN pair and the projection
+# residual-LN backward) is bounded by a third of the TF32 rate for the same
+# f32 operation count
 PEAK_F32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
 PEAK_3XTF32_FLOPS = PEAK_TF32_FLOPS / 3
 PEAK_BYTES = 3.35e12
 # the kernels whose products run as 3xTF32 on the tensor cores
-# (table row -> a fragment of its kernels' names, for the ptxas report)
-TENSOR_CORE_KERNELS = {"flash_fwd_single": "flash_fwd_single_kernel",
-                       "flash_fwd_tiled": "flash_fwd_tiled_kernel",
-                       "packed_attention_bwd": "bwd_kernel",
-                       "packed_attention_fwd": "packed_attention_fwd_kernel",
-                       "flash_bwd_fused": "flash_bwd_fused_kernel",
-                       "ffw_ln_bwd": "ffw_ln_bwd"}
+# (table row -> fragments of its kernels' names, for the ptxas report; the
+# FFW pair shares ffw_ln_hidden_kernel)
+TENSOR_CORE_KERNELS = {"flash_fwd_single": ("flash_fwd_single_kernel",),
+                       "flash_fwd_tiled": ("flash_fwd_tiled_kernel",),
+                       "packed_attention_bwd": ("bwd_kernel",),
+                       "packed_attention_fwd": ("packed_attention_fwd_kernel",),
+                       "flash_bwd_fused": ("flash_bwd_fused_kernel",),
+                       "ffw_ln_fwd": ("ffw_ln_hidden_kernel", "ffw_ln_fwd_kernel"),
+                       "ffw_ln_bwd": ("ffw_ln_bwd",),
+                       "proj_ln_bwd": ("proj_ln_bwd",)}
 # stated tolerances: f32 on both sides; the kernels sum in another order
 # (online softmax across 64-key tiles, per-thread dot products)
 ATTN_TOL = 1e-4
@@ -239,7 +247,7 @@ def ptxas_report(build):
     memory and spills."""
     tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_ptxas_")
     sources = ("flash_attention", "packed_attention_bwd", "packed_attention",
-               "flash_attention_bwd", "ffw_ln")
+               "flash_attention_bwd", "ffw_ln", "proj_ln")
     procs = [subprocess.Popen(
         [build._nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-o", f"{tmp.name}/{name}.so",
          str(build.CSRC_DIR / f"{name}.cu")],
@@ -254,20 +262,23 @@ def ptxas_report(build):
             for line in output.splitlines():
                 if "Compiling entry function" in line:
                     name = line.split("'")[1]
-                    kernel = next((_source_name(name) for k in TENSOR_CORE_KERNELS.values()
-                                   if k in name), None)
+                    kernel = next((_source_name(name) for ks in TENSOR_CORE_KERNELS.values()
+                                   for k in ks if k in name), None)
                     dim = name.split("ILi")[1].split("E")[0] if kernel and "ILi" in name else ""
                 elif kernel and ("spill" in line or "registers" in line):
                     print(f"  ptxas {kernel}{f'<{dim}>' if dim else ''}: {line.strip()}",
                           flush=True)
         tmp.cleanup()
         # dynamic shared memory, which ptxas does not see, of the newest entries
-        sizes = (ctypes.c_int * 5)()
-        if build.library("ffw_ln").msfa_ffw_ln_bwd_smem_bytes(256, sizes):
-            raise RuntimeError("msfa_ffw_ln_bwd_smem_bytes failed")
-        names = ("hidden", "ln", "dpre", "dx", "dw")
-        print("  shared memory per block, ffw_ln_bwd_*_kernel at D=256: " + ", ".join(
-            f"{n} {b} bytes" for n, b in zip(names, sizes)), flush=True)
+        for lib, names in (("ffw_ln", ("hidden", "fwd", "bwd_ln", "bwd_dpre", "bwd_dx",
+                                       "bwd_dw")),
+                           ("proj_ln", ("bwd_ln", "bwd_da", "bwd_dw"))):
+            sizes = (ctypes.c_int * len(names))()
+            symbol = "msfa_ffw_ln_smem_bytes" if lib == "ffw_ln" else "msfa_proj_ln_bwd_smem_bytes"
+            if getattr(build.library(lib), symbol)(256, sizes):
+                raise RuntimeError(f"{symbol} failed")
+            print(f"  shared memory per block, {lib}_*_kernel at D=256: " + ", ".join(
+                f"{n} {b} bytes" for n, b in zip(names, sizes)), flush=True)
         print(f"  shared memory per block, flash_fwd_single_kernel and flash_fwd_tiled_kernel at "
               f"d=64: {build.library('flash_attention').msfa_flash_fwd_smem_bytes(64)} bytes",
               flush=True)
@@ -471,6 +482,41 @@ def _ln_case(torch, n, d, f, keep, seed):
     return w, masks
 
 
+def _ffw_ln_bwd_check(torch, mlp, args, dout, inv_keep):
+    """``ffw_ln_bwd`` against its twin on the forward kernel's ReLU branches
+    -> (rel err, branches that differ from the twin's own, rel err against
+    the twin on its own branches). Both directions launch one hidden kernel,
+    so the kernel's backward takes the branch of the kernel's forward, which
+    rounds pre = x W1 + b1 otherwise than the twin's f32 product: each branch
+    that differs must lie within (D + 64) 2^-23 |x_n| |W1[:, f]| of zero in the
+    twin's pre (a bound on the gap between two f32-accurate sums), and the
+    gradients must match the twin's taken on the kernel's branches."""
+    x, w1, b1, w2, b2, gamma, beta, fmask, rmask = args
+    _out, fwd_hd = mlp._ffw_ln_fwd_launch(*args, inv_keep, 1e-6)
+    grads, bwd_hd = mlp._ffw_ln_bwd_launch(*args, dout, inv_keep, 1e-6)
+    torch.cuda.synchronize()
+    if not torch.equal(fwd_hd, bwd_hd):
+        raise AssertionError("ffw_ln: the forward's hidden and the backward's differ")
+    del fwd_hd
+    pre = x @ w1 + b1
+    kept = torch.full_like(pre, inv_keep != 0.0, dtype=torch.bool)
+    if fmask is not None:
+        kept &= fmask.bool()
+    live = torch.where(kept, bwd_hd > 0, pre > 0)
+    del bwd_hd
+    off = live != (pre > 0)
+    band = (x.shape[1] + 64) * 2.0**-23 * x.norm(dim=1)[:, None] * w1.norm(dim=0)[None, :]
+    if torch.any(off & (pre.abs() >= band)):
+        raise AssertionError("ffw_ln: a hidden unit's ReLU branch differs from the twin's "
+                             "outside rounding of zero")
+    flips = int(off.sum().item())
+    on_branch = max(rel_err(g, w) for g, w in zip(grads, mlp._ffw_ln_bwd_plain(
+        x, w1, pre, live, w2, b2, gamma, fmask, rmask, dout, inv_keep, 1e-6)))
+    own = max(rel_err(g, w) for g, w in zip(grads, mlp.ffw_ln_bwd_reference(
+        *args, dout, inv_keep, 1e-6)))
+    return on_branch, flips, own
+
+
 def check_ln_kernels(torch, mlp, rows):
     """The projection and FFW residual-LN kernels, forward and backward, vs
     their twins; returns four table rows."""
@@ -497,26 +543,34 @@ def check_ln_kernels(torch, mlp, rows):
             inv_keep = mlp._inv_keep(1.0 if keep is None else keep)
             dout = w(n, d)
             out = fwd(*args, inv_keep, 1e-6)
-            grads = bwd(*args, dout, inv_keep, 1e-6)
             torch.cuda.synchronize()
             e_fwd = rel_err(out, fwd_ref(*args, inv_keep, 1e-6))
-            e_bwd = max(rel_err(got, want)
-                        for got, want in zip(grads, bwd_ref(*args, dout, inv_keep, 1e-6)))
+            if family == "ffw_ln":
+                e_bwd, flips, own = _ffw_ln_bwd_check(torch, mlp, args, dout, inv_keep)
+                note = (f" (forward's hidden = backward's bit for bit; {flips} ReLU branches "
+                        f"off the twin's, within rounding of zero; on the twin's own branches "
+                        f"{own:.3e})")
+            else:
+                grads = bwd(*args, dout, inv_keep, 1e-6)
+                torch.cuda.synchronize()
+                e_bwd = max(rel_err(got, want)
+                            for got, want in zip(grads, bwd_ref(*args, dout, inv_keep, 1e-6)))
+                note = ""
             print(f"  {family} N={n} keep={keep}: rel err fwd={e_fwd:.3e} bwd={e_bwd:.3e} "
-                  f"(tol {GRAD_TOL})", flush=True)
+                  f"(tol {GRAD_TOL}){note}", flush=True)
             errs = [max(errs[0], e_fwd), max(errs[1], e_bwd)]
             if timed is None:
                 timed = (args, dout, inv_keep)
         if max(errs) > GRAD_TOL:
             raise AssertionError(f"{family} kernels disagree with their twins: {errs} > {GRAD_TOL}")
         args, dout, inv_keep = timed  # keep 0.8 at N = rows, as in training
-        if family == "ffw_ln":  # every sum over rows in a fixed order, no atomics
-            first, second = bwd(*args, dout, inv_keep, 1e-6), bwd(*args, dout, inv_keep, 1e-6)
-            torch.cuda.synchronize()
-            if not all(torch.equal(a, b) for a, b in zip(first, second)):
-                raise AssertionError("ffw_ln_bwd: two runs on the same inputs differ")
-            print(f"  ffw_ln_bwd N={rows} keep=0.8: two runs equal bit for bit", flush=True)
-            del first, second
+        # every sum over rows in a fixed order, no atomics
+        first, second = bwd(*args, dout, inv_keep, 1e-6), bwd(*args, dout, inv_keep, 1e-6)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(first, second)):
+            raise AssertionError(f"{family}_bwd: two runs on the same inputs differ")
+        print(f"  {family}_bwd N={rows} keep=0.8: two runs equal bit for bit", flush=True)
+        del first, second
         n = rows
         if family == "proj_ln":  # rows of f32 moved: x, a, out | x, a, dout, dx, da
             weights, masks, work, f32_rows, ops = d * d + 3 * d, n * d, d * d, (3, 5), (2, 6)
@@ -550,9 +604,9 @@ def check_ln_kernels(torch, mlp, rows):
             print(f"  {name} ms={ms:.4f} plain_ms={plain_ms:.4f} {bounds} ({row['bound_by']}; "
                   f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)", flush=True)
             out_rows[name] = row
-            if name == "ffw_ln_bwd":  # its chain of kernels, one by one
+            if name in TENSOR_CORE_KERNELS:  # its chain of kernels, one by one
                 row["ms_by_kernel"] = kernel_times(torch, call, 5)
-                print("  ffw_ln_bwd by kernel: " + ", ".join(
+                print(f"  {name} by kernel: " + ", ".join(
                     f"{k} {v:.4f} ms" for k, v in row["ms_by_kernel"].items()), flush=True)
     return [out_rows[k] for k in ("proj_ln_fwd", "proj_ln_bwd", "ffw_ln_fwd", "ffw_ln_bwd")]
 
@@ -1238,12 +1292,13 @@ FAMILIES = (  # profiler kernel-name fragments -> family, first match wins
     # flash_bwd_fused above also takes flash_bwd_fused_dq_reduce, its ordered dq sum
     ("proj_ln_fwd", ("proj_ln_fwd",)),
     ("proj_ln_bwd", ("proj_ln_bwd",)),
+    ("ffw_ln_hidden", ("ffw_ln_hidden",)),  # launched by ffw_ln_fwd and ffw_ln_bwd
     ("ffw_ln_fwd", ("ffw_ln_fwd",)),
     ("ffw_ln_bwd", ("ffw_ln_bwd",)),
     ("fused_mlp_fwd", ("ffw_fwd_kernel",)),
     ("fused_mlp_bwd", ("ffw_bwd_kernel",)),
     ("dropout_keep_mask", ("dropout_mask_kernel",)),
-    ("ln_bwd_sums", ("atb_partial", "reduce_splits", "colsum_partial")),
+    ("fused_mlp_bwd_sums", ("atb_partial", "reduce_splits", "colsum_partial")),
     ("fusion_head", ("fusion_head",)),
     ("rnn_train_fwd", ("lstm_train_fwd", "gru_train_fwd")),
     ("rnn_train_bwd", ("lstm_train_bwd", "gru_train_bwd")),

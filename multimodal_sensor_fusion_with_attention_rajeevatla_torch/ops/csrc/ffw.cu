@@ -20,7 +20,7 @@
 // 67 TFLOP/s f32) against ~71 MB of x, mask and output (0.02 ms); the
 // backward does 10*N*D*F = 85.9 GFLOP (1.28 ms).
 //
-// Design. The row-tile walk of ffw_tile.cuh, shared with ffw_ln.cu: a block
+// Design. The row-tile walk of ffw_tile.cuh: a block
 // of 256 threads owns 32 whole rows and walks d_ff in 64-wide chunks, so the
 // [N, F] hidden never reaches device memory in the forward (as on the TPU).
 // The backward makes one pass over the chunks: pre and hd of the chunk, dhd

@@ -1,4 +1,4 @@
-// Row-tile building blocks of the feed-forward kernels (ffw.cu, ffw_ln.cu).
+// Row-tile building blocks of the feed-forward kernels (ffw.cu).
 //
 // One block of 256 threads owns 32 whole rows of x [N, D] in shared memory
 // and walks d_ff in 64-wide chunks; the weights W1 [D, F] and W2 [F, D]
@@ -11,8 +11,8 @@
 //   chunk_dhd  dhd  = dy W2[chunk, :]^T           (backward)
 //   chunk_dx   dx  += dpre W1[:, chunk]^T         (backward)
 //
-// f32 on the CUDA cores, every sum in a fixed order: both kernels that
-// include this header give the same bits for the same inputs.
+// f32 on the CUDA cores, every sum in a fixed order: the forward and the
+// backward's recomputation give the same bits for the same inputs.
 
 #pragma once
 

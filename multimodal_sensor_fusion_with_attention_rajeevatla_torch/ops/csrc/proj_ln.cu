@@ -16,23 +16,33 @@
 //
 // What bounds it on the H100: at the training shape (N = 16384, D = 256) the
 // forward does 2*N*D*D = 2.1 GFLOP against 50 MB (x, a, mask in, out back),
-// the backward 6*N*D*D = 6.4 GFLOP against ~100 MB; in f32 on the CUDA cores
-// (67 TFLOP/s) both are operation-bound (0.03 ms and 0.10 ms) by a small
-// margin over the bytes (0.015 ms and 0.03 ms).
+// the backward 6*N*D*D = 6.4 GFLOP against ~100 MB: operations, 0.03 ms and
+// 0.10 ms on the CUDA cores (67 TFLOP/s), the backward 0.04 ms as 3xTF32 on
+// the tensor cores (165 TFLOP/s), over the bytes (0.015 ms and 0.03 ms).
 //
-// Design: one block of 256 threads owns 32 whole rows (8 warps x 4 rows), so
-// the LayerNorm is an epilogue: each warp holds its 4 rows' D columns (lane
-// + 32 j) in registers and takes the row sums with shuffles. Wo streams
-// through shared memory in 32-row slices. The TPU kernel carried dWo, dbo,
-// dgamma and dbeta across its sequential grid; here the backward writes per-
-// block column partials and dy, and a second pass sums them (reduce.cuh):
+// Forward, on the CUDA cores: one block of 256 threads owns 32 whole rows (8
+// warps x 4 rows), so the LayerNorm is an epilogue: each warp holds its 4
+// rows' D columns (lane + 32 j) in registers and takes the row sums with
+// shuffles. Wo streams through shared memory in 32-row slices.
+//
+// Backward: three products on the TF32 tensor cores at f32 accuracy
+// (3xTF32), each a tile of tc_product.cuh's template, on the bodies that
+// residual_ln.cuh shares with ffw_ln.cu's:
+//   ln:   y = a Wo + bo on 64 whole rows; its epilogue is the LayerNorm
+//         backward: dx = dr, dy, and per-block partials of dgamma, dbeta
+//         and dbo (ln_bwd_tile)
+//   da:   da = dy Wo^T on 64 whole rows (dx_tile)
+//   dw:   dWo = a^T dy per split of the rows (grad_tile)
+//   sum:  the splits and the per-block partials, added in order
+// The TPU kernel carried dWo, dbo, dgamma and dbeta across its sequential
+// grid; here every sum across blocks is partials added in a fixed order:
 // deterministic, no atomics. A row past N (the last block's tail) loads
 // zeros, is never written and adds nothing to any sum.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
-#include "reduce.cuh"
+#include "residual_ln.cuh"
 
 namespace {
 
@@ -43,12 +53,6 @@ constexpr int kK = 32;  // depth of one streamed weight slice
 template <int D>
 constexpr int fwd_smem_floats() {
   return kRows * kK + D * (kK + 1);
-}
-
-template <int D>
-constexpr int bwd_smem_floats() {
-  // As, Ws (forward slices [kK][D] or transposed [D][kK+1]), DYs, per-warp partials
-  return kRows * kK + D * (kK + 1) + kRows * (D + 1) + 8 * 3 * D;
 }
 
 // acc[i][j] = (a Wo)[row0 + warp*4 + i][lane + 32 j], a [N, D], Wo [D, D].
@@ -115,8 +119,8 @@ proj_ln_fwd_kernel(const float* __restrict__ x, const float* __restrict__ a,
       s1 += r[j];
       s2 += r[j] * r[j];
     }
-    const float mu = msfa::warp_sum(s1) / D;
-    const float var = fmaxf(msfa::warp_sum(s2) / D - mu * mu, 0.f);
+    const float mu = msfa_ln::warp_sum(s1) / D;
+    const float var = fmaxf(msfa_ln::warp_sum(s2) / D - mu * mu, 0.f);
     const float inv = 1.f / sqrtf(var + eps);
 #pragma unroll
     for (int j = 0; j < DJ; ++j) {
@@ -126,127 +130,49 @@ proj_ln_fwd_kernel(const float* __restrict__ x, const float* __restrict__ a,
   }
 }
 
+// y = a Wo + bo for 64 whole rows, then the LayerNorm backward: dx = dr, dy,
+// and the block's sums over its rows of dout * xhat | dout | dy
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-proj_ln_bwd_kernel(const float* __restrict__ x, const float* __restrict__ a,
-                   const float* __restrict__ wo, const float* __restrict__ bo,
-                   const float* __restrict__ gamma, const float* __restrict__ beta,
-                   const unsigned char* __restrict__ rmask,
-                   const float* __restrict__ dout, float* __restrict__ dx,
-                   float* __restrict__ da, float* __restrict__ dy_out,
-                   float* __restrict__ partial, int N, float inv_keep, float eps) {
-  constexpr int DJ = D / 32;
-  extern __shared__ float smem[];
-  float* As = smem;
-  float* Ws = As + kRows * kK;
-  float* DYs = Ws + D * (kK + 1);
-  float* Red = DYs + kRows * (D + 1);
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int row0 = blockIdx.x * kRows;
-  (void)beta;  // the LayerNorm backward does not read beta
+__global__ void __launch_bounds__(msfa_ln::LnProduct<D>::kThreads)
+proj_ln_bwd_ln_kernel(const float* __restrict__ a, const float* __restrict__ wo,
+                      const float* __restrict__ bo, const float* __restrict__ x,
+                      const float* __restrict__ gamma, const unsigned char* __restrict__ rmask,
+                      const float* __restrict__ dout, float* __restrict__ dx,
+                      float* __restrict__ dy, float* __restrict__ part, int N, float inv_keep,
+                      float eps) {
+  extern __shared__ __align__(16) float smem[];
+  msfa_ln::ln_bwd_tile<D>(a, D, wo, bo, x, gamma, rmask, dout, dx, dy, part, N, inv_keep, eps,
+                          smem);
+}
 
-  float acc[4][DJ];
-  tile_product<D>(a, wo, row0, N, As, Ws, acc);
+// da = dy Wo^T for 64 whole rows
+template <int D>
+__global__ void __launch_bounds__(msfa_ln::DxProduct<D>::kThreads)
+proj_ln_bwd_da_kernel(const float* __restrict__ dy, const float* __restrict__ wo,
+                      float* __restrict__ da, int N) {
+  extern __shared__ __align__(16) float smem[];
+  msfa_ln::dx_tile<D, false>(dy, D, wo, da, N, smem);  // (Wo^T)(o, i) = Wo[i][o]
+}
 
-  float pg[DJ], pb[DJ], po[DJ];
-#pragma unroll
-  for (int j = 0; j < DJ; ++j) pg[j] = pb[j] = po[j] = 0.f;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = warp * 4 + i, n = row0 + row;
-    if (n >= N) {
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) DYs[row * (D + 1) + lane + 32 * j] = 0.f;
-      continue;
-    }
-    float r[DJ], rs[DJ], s1 = 0.f, s2 = 0.f;
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) {
-      const int c = lane + 32 * j;
-      float y = acc[i][j] + bo[c];
-      rs[j] = rmask ? (float)rmask[(long)n * D + c] * inv_keep : 1.f;
-      if (rmask) y *= rs[j];
-      r[j] = x[(long)n * D + c] + y;
-      s1 += r[j];
-      s2 += r[j] * r[j];
-    }
-    const float mu = msfa::warp_sum(s1) / D;
-    const float var = fmaxf(msfa::warp_sum(s2) / D - mu * mu, 0.f);
-    const float inv = 1.f / sqrtf(var + eps);
-    float xh[DJ], gd[DJ], g[DJ], sg = 0.f, sgx = 0.f;
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) {
-      const int c = lane + 32 * j;
-      xh[j] = (r[j] - mu) * inv;
-      g[j] = dout[(long)n * D + c];
-      gd[j] = g[j] * gamma[c];
-      sg += gd[j];
-      sgx += gd[j] * xh[j];
-    }
-    const float mean_g = msfa::warp_sum(sg) / D;
-    const float mean_gx = msfa::warp_sum(sgx) / D;
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) {
-      const int c = lane + 32 * j;
-      const float dr = (gd[j] - mean_g - xh[j] * mean_gx) * inv;
-      const float dy = rmask ? dr * rs[j] : dr;
-      dx[(long)n * D + c] = dr;
-      dy_out[(long)n * D + c] = dy;
-      DYs[row * (D + 1) + c] = dy;
-      pg[j] += g[j] * xh[j];
-      pb[j] += g[j];
-      po[j] += dy;
-    }
-  }
-  // column partials of this block: dgamma | dbeta | dbo
-#pragma unroll
-  for (int j = 0; j < DJ; ++j) {
-    const int c = lane + 32 * j;
-    Red[(warp * 3 + 0) * D + c] = pg[j];
-    Red[(warp * 3 + 1) * D + c] = pb[j];
-    Red[(warp * 3 + 2) * D + c] = po[j];
-  }
-  __syncthreads();
-  for (int e = tid; e < 3 * D; e += kThreads) {
-    float s = 0.f;
-#pragma unroll
-    for (int w = 0; w < 8; ++w) s += Red[w * 3 * D + e];
-    partial[(long)blockIdx.x * 3 * D + e] = s;
-  }
+// part[split] = a[rows of split]^T dy[rows of split] for a 128 x 64 tile of dWo
+__global__ void __launch_bounds__(msfa_ln::GradProduct::kThreads, 2)
+proj_ln_bwd_dw_kernel(const float* __restrict__ a, const float* __restrict__ dy,
+                      float* __restrict__ part, int N, int D, int rows_per_split) {
+  extern __shared__ __align__(16) float smem[];
+  msfa_ln::grad_tile(a, D, dy, D, part, N, rows_per_split, smem);
+}
 
-  // da = dy Wo^T: Wo streams as transposed 32-column slices
-  float dacc[4][DJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) dacc[i][j] = 0.f;
-  for (int o0 = 0; o0 < D; o0 += kK) {
-    __syncthreads();
-    for (int e = tid; e < D * kK; e += kThreads) {
-      const int ii = e / kK, oo = e % kK;
-      Ws[ii * (kK + 1) + oo] = wo[(long)ii * D + o0 + oo];
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int oo = 0; oo < kK; ++oo) {
-      float wv[DJ];
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) wv[j] = Ws[(lane + 32 * j) * (kK + 1) + oo];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float dyv = DYs[(warp * 4 + i) * (D + 1) + o0 + oo];
-#pragma unroll
-        for (int j = 0; j < DJ; ++j) dacc[i][j] = fmaf(dyv, wv[j], dacc[i][j]);
-      }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int n = row0 + warp * 4 + i;
-    if (n >= N) continue;
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) da[(long)n * D + lane + 32 * j] = dacc[i][j];
-  }
+// out[e] = sum over s of part[s][e], s in order
+__global__ void __launch_bounds__(256)
+proj_ln_bwd_sum_kernel(const float* __restrict__ part, float* __restrict__ out, int splits,
+                       long width) {
+  msfa_ln::ordered_sum(part, out, splits, width);
+}
+
+cudaError_t sum_splits(const float* part, float* out, int splits, long width, cudaStream_t s) {
+  proj_ln_bwd_sum_kernel<<<(unsigned)((width + 255) / 256), 256, 0, s>>>(part, out, splits,
+                                                                          width);
+  return cudaGetLastError();
 }
 
 template <int D>
@@ -264,23 +190,29 @@ int launch_fwd(const float* x, const float* a, const float* wo, const float* bo,
 
 template <int D>
 int launch_bwd(const float* x, const float* a, const float* wo, const float* bo,
-               const float* gamma, const float* beta, const unsigned char* rmask,
-               const float* dout, float* dx, float* da, float* dwo, float* sums,
-               float* dy, float* partial, float* atb_part, int N, int splits,
-               float inv_keep, float eps, cudaStream_t s) {
-  const int smem = bwd_smem_floats<D>() * (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      proj_ln_bwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  const int blocks = (N + kRows - 1) / kRows;
-  proj_ln_bwd_kernel<D><<<blocks, kThreads, smem, s>>>(
-      x, a, wo, bo, gamma, beta, rmask, dout, dx, da, dy, partial, N, inv_keep, eps);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  msfa::reduce_splits_kernel<<<(3 * D + 255) / 256, 256, 0, s>>>(partial, sums, blocks, 3L * D);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  return (int)msfa::atb(a, dy, dwo, atb_part, N, D, D, splits, s);
+               const float* gamma, const unsigned char* rmask, const float* dout, float* dx,
+               float* da, float* dwo, float* sums, float* dy, float* ln_part, float* dw_part,
+               int N, int splits, float inv_keep, float eps, cudaStream_t s) {
+  using namespace msfa_ln;
+  constexpr int kLnFloats = ln_smem_floats<D>();
+  MSFA_TRY(allow_smem(proj_ln_bwd_ln_kernel<D>, kLnFloats));
+  MSFA_TRY(allow_smem(proj_ln_bwd_da_kernel<D>, DxProduct<D>::kSmemFloats));
+  MSFA_TRY(allow_smem(proj_ln_bwd_dw_kernel, GradProduct::kSmemFloats));
+  const int row_tiles = (N + kRowsD - 1) / kRowsD;
+  const int fb = (int)sizeof(float);
+  proj_ln_bwd_ln_kernel<D><<<row_tiles, LnProduct<D>::kThreads, kLnFloats * fb, s>>>(
+      a, wo, bo, x, gamma, rmask, dout, dx, dy, ln_part, N, inv_keep, eps);
+  MSFA_TRY(cudaGetLastError());
+  proj_ln_bwd_da_kernel<D><<<row_tiles, DxProduct<D>::kThreads,
+                             DxProduct<D>::kSmemFloats * fb, s>>>(dy, wo, da, N);
+  MSFA_TRY(cudaGetLastError());
+  const dim3 grid((D + kGradM - 1) / kGradM, (D + kGradO - 1) / kGradO, splits);
+  proj_ln_bwd_dw_kernel<<<grid, GradProduct::kThreads, GradProduct::kSmemFloats * fb, s>>>(
+      a, dy, dw_part, N, D, rows_per_split(N, splits));
+  MSFA_TRY(cudaGetLastError());
+  MSFA_TRY(sum_splits(dw_part, dwo, splits, (long)D * D, s));
+  MSFA_TRY(sum_splits(ln_part, sums, row_tiles, 3L * D, s));
+  return 0;
 }
 
 }  // namespace
@@ -302,18 +234,18 @@ int msfa_proj_ln_fwd(const float* x, const float* a, const float* wo, const floa
   }
 }
 
-// sums [3, D] receives dgamma | dbeta | dbo; dy [N, D], partial [ceil(N/32), 3, D]
-// and atb_part [splits, D, D] are scratch.
+// sums [3, D] receives dgamma | dbeta | dbo. Scratch: dy [N, D],
+// ln_part [ceil(N/64), 3, D], dw_part [splits, D * D].
 int msfa_proj_ln_bwd(const float* x, const float* a, const float* wo, const float* bo,
-                     const float* gamma, const float* beta, const unsigned char* rmask,
-                     const float* dout, float* dx, float* da, float* dwo, float* sums,
-                     float* dy, float* partial, float* atb_part, int N, int D, int splits,
-                     float inv_keep, float eps, void* stream) {
+                     const float* gamma, const unsigned char* rmask, const float* dout,
+                     float* dx, float* da, float* dwo, float* sums, float* dy, float* ln_part,
+                     float* dw_part, int N, int D, int splits, float inv_keep, float eps,
+                     void* stream) {
   if (N <= 0 || splits <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define MSFA_PROJ_BWD(W)                                                                   \
-  launch_bwd<W>(x, a, wo, bo, gamma, beta, rmask, dout, dx, da, dwo, sums, dy, partial,   \
-                atb_part, N, splits, inv_keep, eps, s)
+#define MSFA_PROJ_BWD(W)                                                                 \
+  launch_bwd<W>(x, a, wo, bo, gamma, rmask, dout, dx, da, dwo, sums, dy, ln_part, dw_part, \
+                N, splits, inv_keep, eps, s)
   switch (D) {
     case 32: return MSFA_PROJ_BWD(32);
     case 64: return MSFA_PROJ_BWD(64);
@@ -322,6 +254,27 @@ int msfa_proj_ln_bwd(const float* x, const float* a, const float* wo, const floa
     default: return (int)cudaErrorInvalidValue;
   }
 #undef MSFA_PROJ_BWD
+}
+
+// Dynamic shared memory per block of the backward's three product kernels
+// (ln, da, dw) at width D, into bytes[0..2].
+int msfa_proj_ln_bwd_smem_bytes(int D, int* bytes) {
+  using namespace msfa_ln;
+  const int fb = (int)sizeof(float);
+  bytes[2] = GradProduct::kSmemFloats * fb;
+  switch (D) {
+#define MSFA_PROJ_SMEM(W)                                 \
+  case W:                                                 \
+    bytes[0] = ln_smem_floats<W>() * fb;                  \
+    bytes[1] = DxProduct<W>::kSmemFloats * fb;            \
+    return 0;
+    MSFA_PROJ_SMEM(32)
+    MSFA_PROJ_SMEM(64)
+    MSFA_PROJ_SMEM(128)
+    MSFA_PROJ_SMEM(256)
+#undef MSFA_PROJ_SMEM
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 const char* msfa_cuda_error_string(int code) {

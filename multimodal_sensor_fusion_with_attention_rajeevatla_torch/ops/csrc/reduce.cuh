@@ -1,12 +1,13 @@
-// Cross-block reductions shared by the training kernels (proj_ln.cu, ffw_ln.cu).
+// Cross-block reductions of the feed-forward backward (ffw.cu, the
+// fused_mlp route).
 //
-// The TPU backward kernels carry their weight-gradient sums (dW, db, dgamma,
-// dbeta) in VMEM output blocks across a grid that runs in order on one core.
-// Blocks on Hopper run in parallel and in no order, so the port takes those
-// sums in a second pass, deterministically and without atomics:
+// The TPU backward kernel carries its weight-gradient sums (dW1, dW2, db1) in
+// VMEM output blocks across a grid that runs in order on one core. Blocks on
+// Hopper run in parallel and in no order, so the port takes those sums in a
+// second pass, deterministically and without atomics:
 //
 //   atb_partial_kernel   C_s = A[rows of split s]^T . B[rows of split s]
-//                        (a weight gradient such as dWo = a^T dy), one
+//                        (a weight gradient such as dW2 = hd^T dout), one
 //                        [I, O] partial per split of the N rows;
 //   colsum_partial_kernel one [O] partial column sum per split of the rows
 //                        (db1 = sum over rows of dpre);
@@ -18,7 +19,9 @@
 // operations. Each block owns a 64 x 64 output tile in registers (4 x 4 per
 // thread) and streams 16-row slices of A and B through shared memory; the
 // row splits put 4 to 16 blocks on each output tile so that the grid fills
-// the 132 SMs. f32 throughout, no tensor cores: right first, fast later.
+// the 132 SMs. f32 on the CUDA cores, as the rest of ffw.cu; the
+// residual-LayerNorm kernels take their sums on the tensor cores
+// (residual_ln.cuh).
 
 #pragma once
 
@@ -131,12 +134,6 @@ inline cudaError_t colsum(const float* B, float* out, float* part, int N, int O,
   if (err != cudaSuccess) return err;
   reduce_splits_kernel<<<(O + 255) / 256, 256, 0, stream>>>(part, out, splits, O);
   return cudaGetLastError();
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
 }
 
 }  // namespace msfa

@@ -1,6 +1,7 @@
 // One block's tile of a matrix product on the TF32 tensor cores at f32
 // accuracy (3xTF32, tf32_mma.cuh), for Hopper (sm_90a): the template every
-// product of the FFW residual-LN backward (ffw_ln.cu) is built from.
+// product of the residual-LN kernels (ffw_ln.cu, proj_ln.cu's backward,
+// residual_ln.cuh) is built from.
 //
 //   acc[m][n] = sum over k < k_len of A(m, k) B(k, n)
 //

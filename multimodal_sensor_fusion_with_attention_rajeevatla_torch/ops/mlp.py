@@ -45,13 +45,12 @@ from . import _build
 
 KERNEL_WIDTHS = (32, 64, 128, 256)  # d_model the kernels are instantiated for
 FFW_CHUNK = 64  # d_ff must be a multiple of the kernel's hidden chunk
-ROW_TILE = 32  # rows per block of the CUDA-core kernels
-# the FFW residual-LN backward's tensor-core products (csrc/ffw_ln.cu): rows
-# per block of the [N, d_ff] and the [N, d] products, and the weight
-# gradients' [d_ff, d] tile
-BWD_ROWS_F = 128
-BWD_ROWS_D = 64
-BWD_GRAD_TILE = (128, 64)
+# the residual-LN kernels' tensor-core products (csrc/ffw_ln.cu, the
+# projection's backward in csrc/proj_ln.cu): rows per block of the [N, d_ff]
+# and the [N, d] products, and the weight gradients' [in, out] tile
+ROWS_F = 128
+ROWS_D = 64
+GRAD_TILE = (128, 64)
 _SMS = 132  # H100 SXM streaming multiprocessors: sizes the row splits of the sums
 # what a mask is for: mixed into the generator's key, so the three masks of a
 # layer differ under one seed
@@ -135,19 +134,32 @@ def ffw_ln_bwd_reference(x, w1, b1, w2, b2, gamma, beta, fmask, rmask, dout,
     """Plain version of the FFW kernel's backward ->
     ``(dx, dw1, db1, dw2, db2, dgamma, dbeta)``."""
     pre = x @ w1 + b1
+    return _ffw_ln_bwd_plain(x, w1, pre, pre > 0.0, w2, b2, gamma, fmask, rmask, dout,
+                             inv_keep, eps)
+
+
+def _ffw_ln_bwd_plain(x, w1, pre, live, w2, b2, gamma, fmask, rmask, dout, inv_keep: float,
+                      eps: float):
+    """The plain FFW backward at the pre-activations ``pre`` [N, d_ff], taking
+    the ReLU branch ``live`` (bool [N, d_ff]; ``pre > 0`` for the plain
+    forward's own). A backward follows the branches of the forward it
+    differentiates, which another forward's arithmetic can round otherwise
+    where ``pre`` lies within rounding of zero."""
     fscale = _scale(fmask, inv_keep)
-    hd = torch.relu(pre) if fscale is None else torch.relu(pre) * fscale
+    hd = torch.where(live, pre, 0.0)
+    if fscale is not None:
+        hd = hd * fscale
     y = hd @ w2 + b2
     rscale = _scale(rmask, inv_keep)
     if rscale is not None:
         y = y * rscale
-    _out, xhat, inv = ln_rows(x + y, gamma, beta, eps)
+    _out, xhat, inv = ln_rows(x + y, gamma, torch.zeros_like(gamma), eps)
     dr, dgamma, dbeta = _ln_backward(dout, xhat, inv, gamma)
     dy = dr * rscale if rscale is not None else dr
     dhd = dy @ w2.t()
     if fscale is not None:
         dhd = dhd * fscale
-    dpre = torch.where(pre > 0.0, dhd, 0.0)
+    dpre = torch.where(live, dhd, 0.0)
     dx = dr + dpre @ w1.t()
     return dx, x.t() @ dpre, dpre.sum(0), hd.t() @ dy, dy.sum(0), dgamma, dbeta
 
@@ -275,6 +287,11 @@ def _grad_splits(rows: int, tiles: int) -> int:
 
 def _tiles(i: int, o: int) -> int:
     return math.ceil(i / 64) * math.ceil(o / 64)
+
+
+def _grad_tiles(i: int, o: int) -> int:
+    """Blocks of one split of an ``[i, o]`` weight gradient on the tensor cores."""
+    return math.ceil(i / GRAD_TILE[0]) * math.ceil(o / GRAD_TILE[1])
 
 
 def _stream(device):
@@ -453,17 +470,16 @@ def proj_ln_bwd(x, a, wo, bo, gamma, beta, rmask, dout, inv_keep: float, eps: fl
     if n == 0:
         dgamma, dbeta, dbo = sums.zero_().unbind(0)
         return dx, da, dwo.zero_(), dbo, dgamma, dbeta
-    splits = _splits(n, _tiles(d, d))
+    splits = _grad_splits(n, _grad_tiles(d, d))
     dy = torch.empty_like(x)
-    partial = torch.empty((math.ceil(n / ROW_TILE), 3, d), device=x.device)
-    atb_part = torch.empty((splits, d, d), device=x.device)
-    lib, fn = _fn("proj_ln", "msfa_proj_ln_bwd", 15, 3, 2)
+    ln_part = torch.empty((math.ceil(n / ROWS_D), 3, d), device=x.device)
+    dw_part = torch.empty((splits, d * d), device=x.device)
+    lib, fn = _fn("proj_ln", "msfa_proj_ln_bwd", 14, 3, 2)
     with torch.cuda.device(x.device):
         code = fn(x.data_ptr(), a.data_ptr(), wo.data_ptr(), bo.data_ptr(), gamma.data_ptr(),
-                  beta.data_ptr(), _ptr(rmask), dout.data_ptr(), dx.data_ptr(), da.data_ptr(),
-                  dwo.data_ptr(), sums.data_ptr(), dy.data_ptr(), partial.data_ptr(),
-                  atb_part.data_ptr(), n, d, splits, float(inv_keep), float(eps),
-                  _stream(x.device))
+                  _ptr(rmask), dout.data_ptr(), dx.data_ptr(), da.data_ptr(), dwo.data_ptr(),
+                  sums.data_ptr(), dy.data_ptr(), ln_part.data_ptr(), dw_part.data_ptr(), n, d,
+                  splits, float(inv_keep), float(eps), _stream(x.device))
     _build.check(lib, code, "proj_ln_bwd")
     proj_ln_bwd.launches += 1
     dgamma, dbeta, dbo = sums.unbind(0)
@@ -496,18 +512,28 @@ def ffw_ln_fwd(x, w1, b1, w2, b2, gamma, beta, fmask, rmask, inv_keep: float, ep
         raise ValueError(f"unsupported device {x.device}")
     _check_kernel_inputs(tensors, d)
     _check_ffw_width(f)
-    n = x.shape[0]
+    if x.shape[0] == 0:
+        return torch.empty_like(x)
+    return _ffw_ln_fwd_launch(x, w1, b1, w2, b2, gamma, beta, fmask, rmask, inv_keep, eps)[0]
+
+
+def _ffw_ln_fwd_launch(x, w1, b1, w2, b2, gamma, beta, fmask, rmask, inv_keep: float,
+                       eps: float):
+    """``ffw_ln_fwd``'s kernels on checked CUDA inputs with N > 0 ->
+    ``(out, hd)``: the hidden ``relu(x @ w1 + b1) * fmask / keep`` lives in
+    an ``[N, d_ff]`` scratch buffer allocated here (134 MB at N = 16384,
+    d_ff = 2048) between the two launches."""
+    (n, d), f = x.shape, w1.shape[-1]
     out = torch.empty_like(x)
-    if n == 0:
-        return out
-    lib, fn = _fn("ffw_ln", "msfa_ffw_ln_fwd", 10, 3, 2)
+    hd = torch.empty((n, f), device=x.device)
+    lib, fn = _fn("ffw_ln", "msfa_ffw_ln_fwd", 11, 3, 2)
     with torch.cuda.device(x.device):
         code = fn(x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
                   gamma.data_ptr(), beta.data_ptr(), _ptr(fmask), _ptr(rmask), out.data_ptr(),
-                  n, d, f, float(inv_keep), float(eps), _stream(x.device))
+                  hd.data_ptr(), n, d, f, float(inv_keep), float(eps), _stream(x.device))
     _build.check(lib, code, "ffw_ln_fwd")
     ffw_ln_fwd.launches += 1
-    return out
+    return out, hd
 
 
 ffw_ln_fwd.launches = 0
@@ -516,12 +542,7 @@ ffw_ln_fwd.launches = 0
 def ffw_ln_bwd(x, w1, b1, w2, b2, gamma, beta, fmask, rmask, dout, inv_keep: float,
                eps: float):
     """Kernel wrapper for the FFW half's backward ->
-    ``(dx, dw1, db1, dw2, db2, dgamma, dbeta)``. The kernels keep the
-    recomputed hidden and its gradient in two ``[N, d_ff]`` scratch buffers
-    allocated here (134 MB each at N = 16384, d_ff = 2048), with dy, the
-    per-block and per-split partials of the sums over rows, and the norms of
-    x's rows and W1's columns that bound where the kernel takes a hidden
-    unit's ReLU branch by the forward kernel's arithmetic."""
+    ``(dx, dw1, db1, dw2, db2, dgamma, dbeta)``."""
     d, f = x.shape[-1], w1.shape[-1]
     tensors = {"x": x, "w1": w1, "b1": b1, "w2": w2, "b2": b2, "gamma": gamma,
                "beta": beta, "fmask": fmask, "rmask": rmask, "dout": dout}
@@ -533,35 +554,47 @@ def ffw_ln_bwd(x, w1, b1, w2, b2, gamma, beta, fmask, rmask, dout, inv_keep: flo
         raise ValueError(f"unsupported device {x.device}")
     _check_kernel_inputs(tensors, d)
     _check_ffw_width(f)
-    n = x.shape[0]
+    if x.shape[0] == 0:
+        dgamma, dbeta, db2 = torch.zeros((3, d), device=x.device).unbind(0)
+        return (torch.empty_like(x), torch.zeros((d, f), device=x.device),
+                torch.zeros((f,), device=x.device), torch.zeros((f, d), device=x.device), db2,
+                dgamma, dbeta)
+    return _ffw_ln_bwd_launch(x, w1, b1, w2, b2, gamma, beta, fmask, rmask, dout, inv_keep,
+                              eps)[0]
+
+
+def _ffw_ln_bwd_launch(x, w1, b1, w2, b2, gamma, beta, fmask, rmask, dout, inv_keep: float,
+                       eps: float):
+    """``ffw_ln_bwd``'s kernels on checked CUDA inputs with N > 0 ->
+    ``(grads, hd)``. The kernels keep the recomputed hidden ``hd`` (the
+    forward's kernel, the same bits) and its gradient in two ``[N, d_ff]``
+    scratch buffers allocated here (134 MB each at N = 16384, d_ff = 2048),
+    with dy and the per-block and per-split partials of the sums over rows."""
+    (n, d), f = x.shape, w1.shape[-1]
     dx = torch.empty_like(x)
     dw1 = torch.empty((d, f), device=x.device)
     db1 = torch.empty((f,), device=x.device)
     dw2 = torch.empty((f, d), device=x.device)
     sums = torch.empty((3, d), device=x.device)
-    if n == 0:
-        dgamma, dbeta, db2 = sums.zero_().unbind(0)
-        return dx, dw1.zero_(), db1.zero_(), dw2.zero_(), db2, dgamma, dbeta
-    splits = _grad_splits(n, math.ceil(f / BWD_GRAD_TILE[0]) * math.ceil(d / BWD_GRAD_TILE[1]))
+    splits = _grad_splits(n, _grad_tiles(f, d))
     hd = torch.empty((n, f), device=x.device)
     dpre = torch.empty((n, f), device=x.device)
     dy = torch.empty_like(x)
-    ln_part = torch.empty((math.ceil(n / BWD_ROWS_D), 3, d), device=x.device)
-    db1_part = torch.empty((math.ceil(n / BWD_ROWS_F), f), device=x.device)
+    ln_part = torch.empty((math.ceil(n / ROWS_D), 3, d), device=x.device)
+    db1_part = torch.empty((math.ceil(n / ROWS_F), f), device=x.device)
     dw_part = torch.empty((splits, d * f), device=x.device)
-    norms = torch.empty((n + f,), device=x.device)
-    lib, fn = _fn("ffw_ln", "msfa_ffw_ln_bwd", 21, 4, 2)
+    lib, fn = _fn("ffw_ln", "msfa_ffw_ln_bwd", 20, 4, 2)
     with torch.cuda.device(x.device):
         code = fn(x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
                   gamma.data_ptr(), _ptr(fmask), _ptr(rmask), dout.data_ptr(), dx.data_ptr(),
                   dw1.data_ptr(), db1.data_ptr(), dw2.data_ptr(), sums.data_ptr(),
                   hd.data_ptr(), dpre.data_ptr(), dy.data_ptr(), ln_part.data_ptr(),
-                  db1_part.data_ptr(), dw_part.data_ptr(), norms.data_ptr(), n, d, f, splits,
+                  db1_part.data_ptr(), dw_part.data_ptr(), n, d, f, splits,
                   float(inv_keep), float(eps), _stream(x.device))
     _build.check(lib, code, "ffw_ln_bwd")
     ffw_ln_bwd.launches += 1
     dgamma, dbeta, db2 = sums.unbind(0)
-    return dx, dw1, db1, dw2, db2, dgamma, dbeta
+    return (dx, dw1, db1, dw2, db2, dgamma, dbeta), hd
 
 
 ffw_ln_bwd.launches = 0
@@ -718,8 +751,9 @@ def fused_mlp_residual_ln(
     eps: float = 1e-6,
 ) -> torch.Tensor:
     """``LayerNorm(x + dropout(ffw(x)))``, differentiable, with the
-    signature of the reference's ``fused_mlp_residual_ln``. The ``[N, d_ff]``
-    hidden never reaches device memory in the forward kernel."""
+    signature of the reference's ``fused_mlp_residual_ln``. The forward
+    keeps the ``[N, d_ff]`` hidden in a scratch buffer between its two
+    launches; the backward recomputes it."""
     rows = x.shape[0]
     return FusedMlpResidualLN.apply(
         x.float().contiguous(), w1.float().contiguous(), b1.float().contiguous(),

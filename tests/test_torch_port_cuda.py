@@ -188,6 +188,37 @@ def test_ffw_ln_bwd_kernel_repeats_bit_for_bit(card):
     assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
+@pytest.mark.parametrize("keep", [0.8, None], ids=["keep0.8", "nomask"])
+def test_ffw_ln_forward_hidden_equals_the_backwards_bit_for_bit(card, keep):
+    # both directions launch one hidden kernel with the same arguments, so the
+    # backward takes every ReLU branch the forward took
+    n, d, f = 1000, 256, 2048
+    g = torch.Generator().manual_seed(43)
+    w, fmask, rmask = _ln_inputs(g, n, d, f, keep, card)
+    x, w1, b1, w2, b2 = (w(n, d), w(d, f, scale=d**-0.5), w(f, scale=0.1),
+                         w(f, d, scale=f**-0.5), w(d, scale=0.1))
+    gamma, beta = 1 + w(d, scale=0.1), w(d, scale=0.1)
+    inv_keep = tm._inv_keep(1.0 if keep is None else keep)
+    _out, fwd_hd = tm._ffw_ln_fwd_launch(x, w1, b1, w2, b2, gamma, beta, fmask, rmask,
+                                         inv_keep, 1e-6)
+    _grads, bwd_hd = tm._ffw_ln_bwd_launch(x, w1, b1, w2, b2, gamma, beta, fmask, rmask,
+                                           w(n, d), inv_keep, 1e-6)
+    torch.cuda.synchronize()
+    assert torch.equal(fwd_hd, bwd_hd)
+
+
+def test_proj_ln_bwd_kernel_repeats_bit_for_bit(card):
+    n, d = 1000, 256
+    g = torch.Generator().manual_seed(47)
+    w, _fmask, rmask = _ln_inputs(g, n, d, d, 0.8, card)
+    args = (w(n, d), w(n, d), w(d, d, scale=d**-0.5), w(d, scale=0.1), 1 + w(d, scale=0.1),
+            w(d, scale=0.1), rmask, w(n, d))
+    first = tm.proj_ln_bwd(*args, 1.25, 1e-6)
+    second = tm.proj_ln_bwd(*args, 1.25, 1e-6)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
 def test_ln_kernels_reject_what_they_do_not_take(card):
     x = torch.zeros(8, 48, device=card)
     with pytest.raises(ValueError, match="d_model"):

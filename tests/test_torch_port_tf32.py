@@ -1,8 +1,8 @@
 """The precision scheme of the port's tensor-core kernels, emulated on the CPU.
 
 ``flash_fwd_single``, ``flash_fwd_tiled``, ``packed_attention_fwd``,
-``packed_attention_bwd``, ``flash_bwd_fused`` and ``ffw_ln_bwd`` take each f32
-product as three TF32 tensor-core products
+``packed_attention_bwd``, ``flash_bwd_fused``, ``ffw_ln_fwd``, ``ffw_ln_bwd``
+and ``proj_ln_bwd`` take each f32 product as three TF32 tensor-core products
 (``ops/csrc/tf32_mma.cuh``): x = hi + lo, with
 hi = x rounded to TF32 (half a TF32 ulp added to the bits, the low 13 bits
 cleared) and lo = x - hi, of which the tensor core reads the top 19 bits; then
@@ -10,11 +10,13 @@ a*b = lo*hi' + hi*lo' + hi*hi' with f32 accumulation. TF32 values multiply
 exactly in f32, so bit masks on int32 views and f32 products emulate the
 scheme. The kernels' arithmetic, emulated so, stays within the limits
 ``chip_smoke.py`` holds the kernels to on the card against the plain versions:
-1e-4 max abs for the forward, 1e-4 of the largest magnitude for the backward.
-One TF32 product per f32 product is printed beside it; it misses them. The
-fused backward's emulation is also held against the JAX package's fused
-backward route (``flash_self_attention``'s VJP in interpret mode), and the
-FFW residual-LN backward's against ``fused_mlp_residual_ln``'s VJP there.
+1e-4 max abs for the attention forwards, 1e-4 of the largest magnitude for the
+backwards and the residual-LN kernels. One TF32 product per f32 product is
+printed beside it; it misses them. The fused attention backward's emulation is
+also held against the JAX package's fused backward route
+(``flash_self_attention``'s VJP in interpret mode), and the residual-LN
+kernels' against ``fused_mlp_residual_ln`` and ``fused_proj_residual_ln``
+there.
 """
 
 import math
@@ -34,9 +36,9 @@ ATTN_TOL = 1e-4  # forward: max abs error
 GRAD_TOL = 1e-4  # backward: max abs error over the largest magnitude
 LOW_BITS = ~0x1FFF  # clears the 13 mantissa bits TF32 does not keep
 TILE = 64  # the kernels' key tile
-CHUNK_K = 32  # the FFW backward's products: depth of one fresh accumulator
+CHUNK_K = 32  # the residual-LN kernels' products: depth of one fresh accumulator
 # f32 on both sides, products and sums in another order: the tolerance of the
-# port's FFW residual-LN tests against the JAX package
+# port's residual-LN tests against the JAX package
 JAX_TOL = dict(rtol=2e-5, atol=2e-5)
 
 
@@ -290,8 +292,8 @@ def test_tiled_forward_route_takes_the_single_route_body():
 
 
 def _mm_chunked(a, b, mm):
-    """a @ b as the backward's products take it: each 32-deep chunk of k in a
-    fresh accumulator, the chunks added in order in f32."""
+    """a @ b as the residual-LN kernels' products take it: each 32-deep chunk
+    of k in a fresh accumulator, the chunks added in order in f32."""
     out = torch.zeros(a.shape[0], b.shape[1])
     for k0 in range(0, a.shape[1], CHUNK_K):
         out = out + mm(a[:, k0:k0 + CHUNK_K], b[k0:k0 + CHUNK_K])
@@ -310,53 +312,74 @@ def _block_sums(x, rows):
     return _in_order([x[r0:r0 + rows].sum(0) for r0 in range(0, x.shape[0], rows)])
 
 
-def _forward_chain(x, w):
-    """Rows of x dotted with rows of w as the forward kernel sums them: one
-    f32 FMA chain over k in order (each step exact in f64, then rounded)."""
-    s = torch.zeros(x.shape[0])
-    for k in range(x.shape[1]):
-        s = (s.double() + x[:, k].double() * w[:, k].double()).float()
-    return s
+def _split_grad(a, b, tiles, mm):
+    """a^T b as the weight-gradient kernel takes it: per split of the rows
+    (whole 32-row chunks, ``_grad_splits`` of them), the splits added in
+    order."""
+    n = a.shape[0]
+    per_split = math.ceil(math.ceil(n / tm._grad_splits(n, tiles)) / CHUNK_K) * CHUNK_K
+    return _in_order([_mm_chunked(a[r0:r0 + per_split].t(), b[r0:r0 + per_split], mm)
+                      for r0 in range(0, n, per_split)])
 
 
-def _hidden_pre(x, w1, b1, mm, settle=True):
-    """The backward's pre = x W1 + b1: the product through ``mm``; with
-    ``settle``, units within the band (D + 64) 2^-23 |x_n| |W1[:, f]| of zero
-    taken again by the forward kernel's chain, as the hidden kernel does."""
-    pre = _mm_chunked(x, w1, mm) + b1
-    if settle:
-        band = (x.shape[1] + 64) * 2.0**-23 * x.norm(dim=1)[:, None] * w1.norm(dim=0)[None, :]
-        rows, cols = (pre.abs() < band).nonzero(as_tuple=True)
-        pre[rows, cols] = _forward_chain(x[rows], w1[:, cols].t()) + b1[cols]
-    return pre
+def _scales(fmask, rmask, inv_keep):
+    return tuple(1.0 if m is None else m.float() * inv_keep for m in (fmask, rmask))
+
+
+def _hidden(x, w1, b1, fscale, mm):
+    """``ffw_ln_hidden_kernel``'s arithmetic, which both directions launch:
+    hd = relu(x W1 + b1) * fmask * inv_keep, the product through ``mm``."""
+    return torch.relu(_mm_chunked(x, w1, mm) + b1) * fscale
+
+
+def _ffw_ln_fwd(x, w1, b1, w2, b2, gamma, beta, fmask, rmask, inv_keep, eps, mm):
+    """``ffw_ln_fwd``'s arithmetic -> ``(out, hd)``: the hidden, then
+    y = hd W2 + b2 on 64 whole rows with the residual and the LayerNorm as its
+    epilogue."""
+    fscale, rscale = _scales(fmask, rmask, inv_keep)
+    hd = _hidden(x, w1, b1, fscale, mm)
+    y = (_mm_chunked(hd, w2, mm) + b2) * rscale
+    return tm.ln_rows(x + y, gamma, beta, eps)[0], hd
 
 
 def _ffw_ln_bwd(x, w1, b1, w2, b2, gamma, fmask, rmask, dout, inv_keep, eps, mm):
-    """``ffw_ln_bwd``'s arithmetic: the six products through ``mm`` in
-    32-deep fresh accumulators, pre's sign settled by the forward's chain
-    near zero; dW1 and dW2 per split of the rows (whole 32-row chunks), the
-    splits added in order; db1 from 128-row blocks, db2, dgamma, dbeta from
-    64-row blocks, the partials added in order."""
-    n, d = x.shape
-    f = w1.shape[1]
-    fscale = 1.0 if fmask is None else fmask.float() * inv_keep
-    rscale = 1.0 if rmask is None else rmask.float() * inv_keep
-    hd = torch.relu(_hidden_pre(x, w1, b1, mm)) * fscale
+    """``ffw_ln_bwd``'s arithmetic -> ``(grads, hd)``: the forward's hidden
+    (one kernel), then the five other products through ``mm`` in 32-deep
+    fresh accumulators; dW1 and dW2 per split of the rows, the splits added
+    in order; db1 from 128-row blocks, db2, dgamma, dbeta from 64-row blocks,
+    the partials added in order."""
+    d, f = w1.shape
+    fscale, rscale = _scales(fmask, rmask, inv_keep)
+    hd = _hidden(x, w1, b1, fscale, mm)
     y = (_mm_chunked(hd, w2, mm) + b2) * rscale
     _out, xhat, inv = tm.ln_rows(x + y, gamma, torch.zeros_like(gamma), eps)
     dr, _dgamma, _dbeta = tm._ln_backward(dout, xhat, inv, gamma)
     dy = dr * rscale
     dpre = torch.where(hd > 0, _mm_chunked(dy, w2.t(), mm) * fscale, 0.0)
     dx = dr + _mm_chunked(dpre, w1.t(), mm)
-    tiles = math.ceil(f / tm.BWD_GRAD_TILE[0]) * math.ceil(d / tm.BWD_GRAD_TILE[1])
-    splits = tm._grad_splits(n, tiles)
-    per_split = math.ceil(math.ceil(n / splits) / CHUNK_K) * CHUNK_K
-    cuts = [slice(r0, r0 + per_split) for r0 in range(0, n, per_split)]
-    dw1 = _in_order([_mm_chunked(x[c].t(), dpre[c], mm) for c in cuts])
-    dw2 = _in_order([_mm_chunked(hd[c].t(), dy[c], mm) for c in cuts])
-    db1 = _block_sums(dpre, tm.BWD_ROWS_F)
-    db2, dgamma, dbeta = (_block_sums(t, tm.BWD_ROWS_D) for t in (dy, dout * xhat, dout))
-    return dx, dw1, db1, dw2, db2, dgamma, dbeta
+    dw1 = _split_grad(x, dpre, tm._grad_tiles(d, f), mm)
+    dw2 = _split_grad(hd, dy, tm._grad_tiles(f, d), mm)
+    db1 = _block_sums(dpre, tm.ROWS_F)
+    db2, dgamma, dbeta = (_block_sums(t, tm.ROWS_D) for t in (dy, dout * xhat, dout))
+    return (dx, dw1, db1, dw2, db2, dgamma, dbeta), hd
+
+
+def _proj_ln_bwd(x, a, wo, bo, gamma, rmask, dout, inv_keep, eps, mm):
+    """``proj_ln_bwd``'s arithmetic: y = a Wo + bo on 64 whole rows with the
+    LayerNorm backward as its epilogue (dx = dr, dy), da = dy Wo^T, dWo per
+    split of the rows, dbo, dgamma, dbeta from 64-row blocks, the partials
+    added in order; the products through ``mm`` in 32-deep fresh
+    accumulators."""
+    d = x.shape[1]
+    _fscale, rscale = _scales(None, rmask, inv_keep)
+    y = (_mm_chunked(a, wo, mm) + bo) * rscale
+    _out, xhat, inv = tm.ln_rows(x + y, gamma, torch.zeros_like(gamma), eps)
+    dr, _dgamma, _dbeta = tm._ln_backward(dout, xhat, inv, gamma)
+    dy = dr * rscale
+    da = _mm_chunked(dy, wo.t(), mm)
+    dwo = _split_grad(a, dy, tm._grad_tiles(d, d), mm)
+    dbo, dgamma, dbeta = (_block_sums(t, tm.ROWS_D) for t in (dy, dout * xhat, dout))
+    return dr, da, dwo, dbo, dgamma, dbeta
 
 
 def _ffw_case(rng, n, d, f, keep):
@@ -374,23 +397,67 @@ def _ffw_case(rng, n, d, f, keep):
     return arrays, masks, dout
 
 
+def _proj_case(rng, n, d, keep):
+    f32 = np.float32
+    arrays = [rng.standard_normal((n, d)).astype(f32), rng.standard_normal((n, d)).astype(f32),
+              (rng.standard_normal((d, d)) * d**-0.5).astype(f32),
+              (0.1 * rng.standard_normal(d)).astype(f32),
+              (1 + 0.1 * rng.standard_normal(d)).astype(f32),
+              (0.1 * rng.standard_normal(d)).astype(f32)]
+    rmask = None if keep is None else (rng.random((n, d)) < keep).astype(np.uint8)
+    return arrays, rmask, rng.standard_normal((n, d)).astype(f32)
+
+
+def _torch(arrays):
+    return [None if a is None else torch.from_numpy(a) for a in arrays]
+
+
+def _rel_errs(got, want, names):
+    return {k: ((g - w).abs().max() / w.abs().max()).item() for k, g, w in zip(names, got, want)}
+
+
 FFW_NAMES = ("dx", "dw1", "db1", "dw2", "db2", "dgamma", "dbeta")
+PROJ_NAMES = ("dx", "da", "dwo", "dbo", "dgamma", "dbeta")
+LN_CASES = dict(argnames="n,keep", argvalues=[(100, 0.8), (300, None)],
+                ids=["N100-keep0.8", "N300-nomask"])
 
 
-@pytest.mark.parametrize("n,keep", [(100, 0.8), (300, None)], ids=["N100-keep0.8", "N300-nomask"])
+@pytest.mark.parametrize(**LN_CASES)
+def test_ffw_ln_forward_3xtf32_holds_the_f32_limit(n, keep):
+    d, f = 32, 128
+    arrays, masks, _dout = _ffw_case(np.random.default_rng(17 + n), n, d, f, keep)
+    args = (*_torch(arrays), *_torch(masks), tm._inv_keep(1.0 if keep is None else keep), 1e-6)
+    want = tm.ffw_ln_fwd_reference(*args)
+    errs = {name: ((_ffw_ln_fwd(*args, mm)[0] - want).abs().max() / want.abs().max()).item()
+            for name, mm in (("3xTF32", _mm3), ("1xTF32", _mm1))}
+    print(f"FFW residual-LN forward, N={n} D={d} F={f} keep={keep}, max abs err over the "
+          f"largest magnitude: 3xTF32 {errs['3xTF32']:.3e}, 1xTF32 {errs['1xTF32']:.3e} "
+          f"(limit {GRAD_TOL})")
+    assert errs["3xTF32"] < GRAD_TOL
+    assert errs["3xTF32"] * 10 < errs["1xTF32"]
+
+
+def test_ffw_ln_forward_3xtf32_matches_the_jax_kernel():
+    n, d, f, keep = 100, 32, 128, 0.8
+    arrays, masks, _dout = _ffw_case(np.random.default_rng(18), n, d, f, keep)
+    want = jmlp.fused_mlp_residual_ln(*(jnp.asarray(a) for a in arrays),
+                                      *(jnp.asarray(m) for m in masks), keep, interpret=True)
+    got, _hd = _ffw_ln_fwd(*_torch(arrays), *_torch(masks), tm._inv_keep(keep), 1e-6, _mm3)
+    print(f"emulated ffw_ln_fwd vs the JAX kernel, max abs err "
+          f"{np.abs(got.numpy() - np.asarray(want)).max():.3e}")
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **JAX_TOL)
+
+
+@pytest.mark.parametrize(**LN_CASES)
 def test_ffw_ln_backward_3xtf32_holds_the_f32_limit(n, keep):
     d, f = 32, 128
     arrays, masks, dout = _ffw_case(np.random.default_rng(7 + n), n, d, f, keep)
-    t = [torch.from_numpy(a) for a in arrays]
-    tmask = [None if m is None else torch.from_numpy(m) for m in masks]
+    t, tmask = _torch(arrays), _torch(masks)
     inv_keep = tm._inv_keep(1.0 if keep is None else keep)
     want = tm.ffw_ln_bwd_reference(*t, *tmask, torch.from_numpy(dout), inv_keep, 1e-6)
     args = (*t[:6], *tmask, torch.from_numpy(dout), inv_keep, 1e-6)
-    errs = {}
-    for name, mm in (("3xTF32", _mm3), ("1xTF32", _mm1)):
-        got = _ffw_ln_bwd(*args, mm)
-        errs[name] = {k: ((g - w).abs().max() / w.abs().max()).item()
-                      for k, g, w in zip(FFW_NAMES, got, want)}
+    errs = {name: _rel_errs(_ffw_ln_bwd(*args, mm)[0], want, FFW_NAMES)
+            for name, mm in (("3xTF32", _mm3), ("1xTF32", _mm1))}
     worst = {name: max(e.values()) for name, e in errs.items()}
     print(f"FFW residual-LN backward, N={n} D={d} F={f} keep={keep}, max abs err over the "
           f"largest magnitude: 3xTF32 {worst['3xTF32']:.3e}, 1xTF32 {worst['1xTF32']:.3e} "
@@ -399,24 +466,48 @@ def test_ffw_ln_backward_3xtf32_holds_the_f32_limit(n, keep):
     assert worst["3xTF32"] * 10 < worst["1xTF32"]
 
 
-def test_ffw_ln_backward_takes_the_forward_relu_branch():
-    # biases that put row 0's every hidden unit, and row 1's half of them,
-    # within rounding of zero under the forward kernel's own arithmetic
+def _fma_chain(x, w):
+    """Rows of x dotted with rows of w as one f32 FMA chain over k in order
+    (each step exact in f64, then rounded): what a backward that settled
+    near-zero units by such a chain would take."""
+    s = torch.zeros(x.shape[0])
+    for k in range(x.shape[1]):
+        s = (s.double() + x[:, k].double() * w[:, k].double()).float()
+    return s
+
+
+def test_ffw_ln_directions_share_one_hidden_and_its_relu_branch():
+    # biases that put half of row 0's hidden units and the other half of row
+    # 1's exactly at zero under the hidden kernel's own 3xTF32 arithmetic
     rng = np.random.default_rng(9)
     n, d, f = 40, 256, 128
-    x = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32))
-    w1 = torch.from_numpy((rng.standard_normal((d, f)) * d**-0.5).astype(np.float32))
-    b1 = -_forward_chain(x[:1].expand(f, d), w1.t())
-    b1[::2] = -_forward_chain(x[1:2].expand(f, d), w1.t())[::2]
-    forward = (_forward_chain(x.repeat_interleave(f, 0), w1.t().repeat(n, 1)).view(n, f)
-               + b1) > 0
-    settled = _hidden_pre(x, w1, b1, _mm3) > 0
-    unsettled = _hidden_pre(x, w1, b1, _mm3, settle=False) > 0
-    print(f"hidden units whose ReLU branch differs from the forward's: "
-          f"{(settled != forward).sum().item()} settled, {(unsettled != forward).sum().item()} "
-          f"with the 3xTF32 pre alone, of {n * f}")
-    assert torch.equal(settled, forward)
-    assert not torch.equal(unsettled, forward)
+    arrays, masks, dout = _ffw_case(rng, n, d, f, 0.8)
+    x, w1, _b1, w2, b2, gamma, beta = _torch(arrays)
+    fmask, rmask = _torch(masks)
+    fmask[:2] = 1  # the units built at zero are all kept
+    pre3 = _mm_chunked(x, w1, _mm3)
+    b1 = -pre3[0].clone()
+    b1[::2] = -pre3[1, ::2]
+    inv_keep = tm._inv_keep(0.8)
+    _out, fwd_hd = _ffw_ln_fwd(x, w1, b1, w2, b2, gamma, beta, fmask, rmask, inv_keep, 1e-6,
+                               _mm3)
+    _grads, bwd_hd = _ffw_ln_bwd(x, w1, b1, w2, b2, gamma, fmask, rmask,
+                                 torch.from_numpy(dout), inv_keep, 1e-6, _mm3)
+    assert torch.equal(fwd_hd, bwd_hd)  # one kernel: the same bits, so the same branches
+    # the rule that went: units within (D + 64) 2^-23 |x_n| |W1[:, f]| of zero
+    # taken again by an f32 FMA chain; against this forward it flips branches
+    pre = pre3 + b1
+    band = (d + 64) * 2.0**-23 * x.norm(dim=1)[:, None] * w1.norm(dim=0)[None, :]
+    rows, cols = (pre.abs() < band).nonzero(as_tuple=True)
+    settled = pre.clone()
+    settled[rows, cols] = _fma_chain(x[rows], w1[:, cols].t()) + b1[cols]
+    kept = fmask.bool()
+    forward_on = (fwd_hd > 0) & kept
+    flips = ((settled > 0) & kept) != forward_on
+    print(f"{f} hidden units built at zero: the backward's branch differs from the "
+          f"forward's on 0 units, with an FMA-chain settle on {flips.sum().item()} of the "
+          f"{len(rows)} it would settle")
+    assert flips.any()
 
 
 def test_ffw_ln_backward_3xtf32_matches_the_jax_kernel():
@@ -427,11 +518,48 @@ def test_ffw_ln_backward_3xtf32_matches_the_jax_kernel():
                                               interpret=True),
         *(jnp.asarray(a) for a in arrays))
     want = vjp(jnp.asarray(dout))
-    t = [torch.from_numpy(a) for a in arrays]
-    got = _ffw_ln_bwd(*t[:6], *(torch.from_numpy(m) for m in masks), torch.from_numpy(dout),
-                      tm._inv_keep(keep), 1e-6, _mm3)
+    t = _torch(arrays)
+    got, _hd = _ffw_ln_bwd(*t[:6], *_torch(masks), torch.from_numpy(dout), tm._inv_keep(keep),
+                           1e-6, _mm3)
     for name, g, w in zip(FFW_NAMES, got, want):
         w = np.asarray(w)
         print(f"{name}: emulated ffw_ln_bwd vs the JAX kernel's VJP, max abs err "
+              f"{np.abs(g.numpy() - w).max():.3e}")
+        np.testing.assert_allclose(g.numpy(), w, **JAX_TOL, err_msg=name)
+
+
+@pytest.mark.parametrize(**LN_CASES)
+def test_proj_ln_backward_3xtf32_holds_the_f32_limit(n, keep):
+    d = 64
+    arrays, rmask, dout = _proj_case(np.random.default_rng(27 + n), n, d, keep)
+    x, a, wo, bo, gamma, beta = _torch(arrays)
+    rmask, dout = _torch([rmask, dout])
+    inv_keep = tm._inv_keep(1.0 if keep is None else keep)
+    want = tm.proj_ln_bwd_reference(x, a, wo, bo, gamma, beta, rmask, dout, inv_keep, 1e-6)
+    errs = {name: _rel_errs(_proj_ln_bwd(x, a, wo, bo, gamma, rmask, dout, inv_keep, 1e-6, mm),
+                            want, PROJ_NAMES)
+            for name, mm in (("3xTF32", _mm3), ("1xTF32", _mm1))}
+    worst = {name: max(e.values()) for name, e in errs.items()}
+    print(f"projection residual-LN backward, N={n} D={d} keep={keep}, max abs err over the "
+          f"largest magnitude: 3xTF32 {worst['3xTF32']:.3e}, 1xTF32 {worst['1xTF32']:.3e} "
+          f"(limit {GRAD_TOL})")
+    assert all(e < GRAD_TOL for e in errs["3xTF32"].values()), errs["3xTF32"]
+    assert worst["3xTF32"] * 10 < worst["1xTF32"]
+
+
+def test_proj_ln_backward_3xtf32_matches_the_jax_kernel():
+    n, d, keep = 100, 64, 0.8
+    arrays, rmask, dout = _proj_case(np.random.default_rng(28), n, d, keep)
+    _out, vjp = jax.vjp(
+        lambda *args: jmlp.fused_proj_residual_ln(*args, jnp.asarray(rmask), keep,
+                                                  interpret=True),
+        *(jnp.asarray(v) for v in arrays))
+    want = vjp(jnp.asarray(dout))
+    x, a, wo, bo, gamma, _beta = _torch(arrays)
+    got = _proj_ln_bwd(x, a, wo, bo, gamma, torch.from_numpy(rmask), torch.from_numpy(dout),
+                       tm._inv_keep(keep), 1e-6, _mm3)
+    for name, g, w in zip(PROJ_NAMES, got, want):
+        w = np.asarray(w)
+        print(f"{name}: emulated proj_ln_bwd vs the JAX kernel's VJP, max abs err "
               f"{np.abs(g.numpy() - w).max():.3e}")
         np.testing.assert_allclose(g.numpy(), w, **JAX_TOL, err_msg=name)
