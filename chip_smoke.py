@@ -26,10 +26,11 @@ Phases (any failure exits non-zero, and no result line is printed):
    is not a multiple of 4. Backward checks compare every output by its max
    abs error relative to its largest magnitude. Times with CUDA events:
    kernel, plain twin, the bound, and, where one PyTorch call computes the
-   same function, that call. The eight kernels whose products run as 3xTF32
+   same function, that call. The ten kernels whose products run as 3xTF32
    on the tensor cores (``packed_attention_fwd``, ``packed_attention_bwd``,
    ``flash_fwd_single``, ``flash_fwd_tiled``, ``flash_bwd_fused``,
-   ``ffw_ln_fwd``, ``ffw_ln_bwd``, ``proj_ln_bwd``) carry both bounds, a
+   ``flash_bwd_dkv``, ``flash_bwd_dq``, ``ffw_ln_fwd``, ``ffw_ln_bwd``,
+   ``proj_ln_bwd``) carry both bounds, a
    third of the TF32 peak (the unit they run on) and the CUDA cores' f32
    peak, with their share of the first; ``nvcc -Xptxas -v``'s registers,
    shared memory and spills for them are printed at setup. The two
@@ -73,10 +74,15 @@ Phases (any failure exits non-zero, and no result line is printed):
    (single-key-block forward at T = 1024 and 2048, B*H = 128; tiled forward
    at T = 4096, B*H = 256; fused backward at T = 1024 and at T = 512, B*H =
    512; the split dk/dv and dq kernels at T = 2048), on the real batches'
-   lengths, on the edge lengths and on a padded T = 1100; the fused backward
-   twice on the same inputs, bit for bit; the two forwards
-   against each other at T = 2048, bit for bit (one body); both routes timed at T = 1024 and 2048,
-   SDPA (forward, or backward) beside every shape a flash row reports.
+   lengths, on the edge lengths and on a padded T = 1100; the split pair at
+   d 16/32/128 on the edge lengths; the fused backward and each split kernel
+   twice on the same inputs, bit for bit; the two forwards against each other
+   at T = 2048, and the split dk/dv against the fused backward's at T = 1024
+   and 2048, bit for bit (one body each), with the split dq's difference from
+   the fused dq printed; both routes timed at T = 1024 and 2048, kernels
+   alone and through ``flash_self_attention`` (forward and backward, the
+   backward route pinned by ``fused_bwd_max``), SDPA (forward, or backward)
+   beside every shape a flash row reports.
    The three grouped-recurrence kernels (``ops/rnn.py``) at T = 512 and 1024,
    G = 4, B = 64, H = 256, D = 17: a real batch's lengths, the edge lengths 0,
    1, 37, T - 1, T, no lengths, and a B and a T that are not multiples of 8;
@@ -148,10 +154,10 @@ FUSED_MLP_STEPS = 4  # micro-steps at fused_mlp=true, fused_mlp_ln=false
 FIT_EPOCHS = 2
 # peaks of one H100 SXM (NVIDIA data sheet): CUDA-core FP32, dense TF32 on
 # the tensor cores, HBM3. A kernel that takes each f32 product as three TF32
-# products (3xTF32: the packed and both flash forwards, the packed and the
-# fused attention backwards, the FFW residual-LN pair and the projection
-# residual-LN backward) is bounded by a third of the TF32 rate for the same
-# f32 operation count
+# products (3xTF32: the packed and both flash forwards, the packed, the fused
+# and the split attention backwards, the FFW residual-LN pair and the
+# projection residual-LN backward) is bounded by a third of the TF32 rate for
+# the same f32 operation count
 PEAK_F32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
 PEAK_3XTF32_FLOPS = PEAK_TF32_FLOPS / 3
@@ -164,6 +170,8 @@ TENSOR_CORE_KERNELS = {"flash_fwd_single": ("flash_fwd_single_kernel",),
                        "packed_attention_bwd": ("bwd_kernel",),
                        "packed_attention_fwd": ("packed_attention_fwd_kernel",),
                        "flash_bwd_fused": ("flash_bwd_fused_kernel",),
+                       "flash_bwd_dkv": ("flash_dkv_kernel",),
+                       "flash_bwd_dq": ("flash_dq_kernel",),
                        "ffw_ln_fwd": ("ffw_ln_hidden_kernel", "ffw_ln_fwd_kernel"),
                        "ffw_ln_bwd": ("ffw_ln_bwd",),
                        "proj_ln_bwd": ("proj_ln_bwd",)}
@@ -875,17 +883,53 @@ def check_flash_kernels(torch, attn, real_lengths):
                       _edge_lengths(torch, lens, seq))
     for route in ("fused", "split"):
         backward_case("padded T=1100", route, *pad)
-    # dq from per-key-tile partials summed in key order, no atomics: bit for bit
-    q, k, v, dout, lens = data[1024]
-    lens = _edge_lengths(torch, lens, 1024)
-    out, lse = attn.flash_fwd_single(q, k, v, lens, HEADS, scale)
-    args = (q, k, v, lens, HEADS, lse, attn.flash_delta(out, dout), dout, scale)
-    first, second = attn.flash_bwd_fused(*args), attn.flash_bwd_fused(*args)
-    torch.cuda.synchronize()
-    if not all(torch.equal(a, b) for a, b in zip(first, second)):
-        raise AssertionError("flash_bwd_fused: two runs on the same inputs differ")
-    print("  flash backward (fused) T=1024 edge lengths: two runs equal bit for bit", flush=True)
-    del first, second, args
+    g = torch.Generator().manual_seed(17)
+    for d in (16, 32, 128):  # every head dim the split pair takes
+        q, k, v, dout = (torch.randn(8 * HEADS, 300, d, generator=g).cuda() for _ in range(4))
+        lens = torch.tensor([0, 1, 37, 64, 65, 299, 300, 150], dtype=torch.int32).cuda()
+        out, lse = attn.flash_attention_reference(q, k, v, lens, HEADS, d**-0.5)
+        args = (q, k, v, lens, HEADS, lse, attn.flash_delta(out, dout), dout, d**-0.5)
+        dk, dv = attn.flash_bwd_dkv(*args)
+        got = {"dq": attn.flash_bwd_dq(*args), "dk": dk, "dv": dv}
+        torch.cuda.synchronize()
+        want = dict(zip(("dq", "dk", "dv"), attn.flash_bwd_fused_reference(*args)))
+        e = {name: rel_err(got[name], want[name]) for name in got}
+        for b, n in enumerate(lens.tolist()):
+            rows = slice(b * HEADS, (b + 1) * HEADS)
+            if n == 0 and any(t[rows].abs().max().item() != 0.0 for t in got.values()):
+                raise AssertionError(f"flash backward (split) d={d}: length 0 has a gradient")
+            if n < 300 and max(dk[rows, n:].abs().max().item(),
+                               dv[rows, n:].abs().max().item()) != 0.0:
+                raise AssertionError(f"flash backward (split) d={d}: keys past the length have "
+                                     "dk/dv")
+        print(f"  flash backward (split) d={d} T=300 edge lengths: rel err dq={e['dq']:.3e} "
+              f"dk={e['dk']:.3e} dv={e['dv']:.3e} (tol {GRAD_TOL})", flush=True)
+        errs["dkv"] = max(errs["dkv"], e["dk"], e["dv"])
+        errs["dq"] = max(errs["dq"], e["dq"])
+    # no atomics: each backward kernel twice on the same inputs, bit for bit;
+    # the split dk/dv is the fused body without its dq: the fused dk, dv bits
+    for seq in (1024, 2048):
+        q, k, v, dout, lens = data[seq]
+        lens = _edge_lengths(torch, lens, seq)
+        out, lse = attn.flash_fwd_single(q, k, v, lens, HEADS, scale)
+        args = (q, k, v, lens, HEADS, lse, attn.flash_delta(out, dout), dout, scale)
+        runs = {"fused": (attn.flash_bwd_fused(*args), attn.flash_bwd_fused(*args)),
+                "dkv": (attn.flash_bwd_dkv(*args), attn.flash_bwd_dkv(*args)),
+                "dq": ((attn.flash_bwd_dq(*args),), (attn.flash_bwd_dq(*args),))}
+        torch.cuda.synchronize()
+        for name, (first, second) in runs.items():
+            if not all(torch.equal(a, b) for a, b in zip(first, second)):
+                raise AssertionError(f"flash backward ({name}) T={seq}: two runs differ")
+        fused_dq, fused_dk, fused_dv = runs["fused"][0]
+        split_dk, split_dv = runs["dkv"][0]
+        if not (torch.equal(split_dk, fused_dk) and torch.equal(split_dv, fused_dv)):
+            raise AssertionError(f"flash_bwd_dkv T={seq}: dk/dv differ from the fused kernel's "
+                                 "in bits")
+        dq_diff = (runs["dq"][0][0] - fused_dq).abs().max().item()
+        print(f"  flash backward T={seq} edge lengths: fused, dkv and dq each twice, bit for "
+              f"bit; split dk, dv = fused dk, dv bit for bit; split dq vs fused dq max abs diff "
+              f"{dq_diff:.3e} (rel {dq_diff / fused_dq.abs().max().item():.3e})", flush=True)
+        del runs, args, fused_dq, fused_dk, fused_dv, split_dk, split_dv
     if max(errs["fused"], errs["dkv"], errs["dq"]) > GRAD_TOL:
         raise AssertionError(f"flash backward kernels disagree with their plain versions: {errs}")
 
@@ -899,6 +943,29 @@ def check_flash_kernels(torch, attn, real_lengths):
         out, lse = attn.flash_fwd_tiled(q, k, v, lens, HEADS, scale)
         return (q, k, v, lens, HEADS, lse, attn.flash_delta(out, dout), dout, scale)
 
+    def route_ms(seq, route):
+        """Forward and backward through ``flash_self_attention`` at the
+        default blocks, the backward route pinned by ``fused_bwd_max``; the
+        launch counters must show that route alone."""
+        q, k, v, dout, lens = data[seq]
+        shape = (len(lens), HEADS, seq, HEAD_DIM)
+        leaves = [t.view(shape).detach().requires_grad_() for t in (q, k, v)]
+        pin = seq if route == "fused" else 0
+        if attn.flash_routes(seq, fused_bwd_max=pin)[1] != route:
+            raise AssertionError(f"fused_bwd_max={pin} does not pin the {route} route at T={seq}")
+
+        def step():
+            out = attn.flash_self_attention(*leaves, lens, fused_bwd_max=pin)
+            torch.autograd.grad(out, leaves, dout.view(shape))
+
+        counters = (attn.flash_bwd_fused, attn.flash_bwd_dkv, attn.flash_bwd_dq)
+        before = [fn.launches for fn in counters]
+        ms = time_ms(step, iters=5)
+        moved = [fn.launches - b for fn, b in zip(counters, before)]
+        if moved != ([8, 0, 0] if route == "fused" else [0, 8, 8]):
+            raise AssertionError(f"flash_self_attention {route} route at T={seq}: launches {moved}")
+        return ms
+
     other = {}
     for seq in (1024, 2048):
         args = backward_args(seq)
@@ -910,10 +977,13 @@ def check_flash_kernels(torch, attn, real_lengths):
             "delta": time_ms(lambda: attn.flash_delta(args[-2], args[-2]), iters=10),
         }
         t = other[seq]
+        t["route_fused"], t["route_split"] = (route_ms(seq, "fused"), route_ms(seq, "split"))
         print(f"  routes at T={seq}, B*H=128, real lengths: forward single {t['single']:.4f} ms, "
               f"tiled {t['tiled']:.4f} ms; backward fused {t['fused']:.4f} ms, split "
               f"{t['dkv'] + t['dq']:.4f} ms (dkv {t['dkv']:.4f} + dq {t['dq']:.4f}); delta "
-              f"{t['delta']:.4f} ms", flush=True)
+              f"{t['delta']:.4f} ms; flash_self_attention forward + backward, backward route "
+              f"pinned: fused {t['route_fused']:.4f} ms, split {t['route_split']:.4f} ms",
+              flush=True)
     args512 = backward_args(512)
     fused512 = time_ms(lambda: attn.flash_bwd_fused(*args512), iters=5)
     single512 = time_forward("single", 512)
@@ -995,7 +1065,16 @@ def check_flash_kernels(torch, attn, real_lengths):
         print(f"  flash_bwd_fused T={seq} B*H={data[seq][0].shape[0]}: ms={fused['ms' + suffix]:.4f} "
               f"sdpa_ms={fused['library_ms' + suffix]:.4f} "
               f"{tensor_core_bounds(fused, flops, nbytes, suffix)}", flush=True)
-    rows[3]["ms_t1024"], rows[4]["ms_t1024"] = other[1024]["dkv"], other[1024]["dq"]
+    fused["routes_fwd_bwd_ms"] = {
+        f"t{seq}": {"fused": other[seq]["route_fused"], "split": other[seq]["route_split"]}
+        for seq in (1024, 2048)}
+    for row, key, products, tensors, wrt in ((rows[3], "dkv", 4, 6, "kv"),
+                                             (rows[4], "dq", 3, 5, "q")):
+        row["ms_t1024"], row["library_ms_t1024"] = other[1024][key], sdpa_ms(1024, wrt)
+        flops, nbytes, _ = _flash_work(torch, data[1024][4], 1024, products, tensors)
+        print(f"  {row['name']} T=1024 B*H={data[1024][0].shape[0]}: ms={row['ms_t1024']:.4f} "
+              f"sdpa_ms={row['library_ms_t1024']:.4f} "
+              f"{tensor_core_bounds(row, flops, nbytes, '_t1024')}", flush=True)
     print(f"  SDPA beside the other shapes: forward T=1024 {rows[0]['library_ms']:.4f}, "
           f"T=2048 {single['library_ms_t2048']:.4f}, [512, 512, 64] "
           f"{single['library_ms_t512_bh512']:.4f} ms; backward [512, 512, 64] "

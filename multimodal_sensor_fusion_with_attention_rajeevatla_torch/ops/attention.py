@@ -25,21 +25,36 @@ routes chosen by the padded length). Five kernels, one wrapper each:
 * ``flash_fwd_tiled`` (same source): online softmax over key tiles; above that.
 * ``flash_bwd_fused`` (``csrc/flash_attention_bwd.cu``): dq, dk and dv from
   one kernel, each score computed once (dq summed from ordered per-key-tile
-  partials); padded T ``<= max(min(block_q, block_k), FUSED_BWD_MAX)``.
-* ``flash_bwd_dkv`` and ``flash_bwd_dq`` (same source): the split pair; above
-  that. ``flash_delta`` (``rowsum(dout * out)``, plain XLA in the reference)
-  is a small kernel of that source run before either route.
+  partials in a ``[B*H, ceil(T/64), T, d]`` scratch); padded T
+  ``<= max(min(block_q, block_k), FUSED_BWD_MAX)``.
+* ``flash_bwd_dkv`` and ``flash_bwd_dq`` (same source): the split pair, no
+  scratch; above that. The dk/dv kernel is the fused kernel's body without
+  its dq (the same bits for dk and dv); the dq kernel walks one 64-row query
+  tile over the key tiles below the length, its ds kept in registers.
+  ``flash_delta`` (``rowsum(dout * out)``, plain XLA in the reference) is a
+  small kernel of that source run before either route.
 
-The reference reads its thresholds from environment variables; here they are
-the module constants ``SINGLE_K_MAX`` and ``FUSED_BWD_MAX``, which
-``flash_self_attention`` also takes as keyword arguments. The reference's
-bf16 streams on a TPU have no counterpart: every kernel of the port takes and
-gives f32, and ``packed_attention_fwd``, ``packed_attention_bwd``,
-``flash_fwd_single`` and ``flash_bwd_fused`` take each f32 product as three
-TF32 tensor-core products (``csrc/tf32_mma.cuh``), which keeps f32's
-accuracy. The packed and the single-key-block forward share one kernel body
-(``csrc/attention_fwd.cuh``), the packed and the fused backward another
-(``csrc/attention_bwd.cuh``).
+Every kernel of the port takes and gives f32; the reference's bf16 streams
+on a TPU have no counterpart. All seven attention kernels take each f32
+product as three TF32 tensor-core products (``csrc/tf32_mma.cuh``), which
+keeps f32's accuracy, on tiles staged by ``cp.async``: one body for the
+packed and both flash forwards (``csrc/attention_fwd.cuh``), one for the
+packed, the fused and the split dk/dv backward, beside the split dq's
+(``csrc/attention_bwd.cuh``). The split pair does seven products where the
+fused route does five: on the H100 its bound is 1.67 + 1.25 ms at ``[128,
+2048, 64]`` against the fused route's 2.08 (165 TFLOP/s, a third of the
+TF32 peak).
+
+Routing is by arguments only. The reference also reads five environment
+variables: ``MSFA_FLASH_PACKED`` (0 turns the packed route off),
+``MSFA_FLASH_PACKED_MAX``, ``MSFA_FLASH_SINGLE_K_MAX``,
+``MSFA_FLASH_SINGLE_K_BQ`` and ``MSFA_FLASH_FUSED_BWD_MAX``. The port reads
+none of them: its thresholds are the module constants ``PACKED_MAX_LEN``,
+``SINGLE_K_MAX`` and ``FUSED_BWD_MAX`` (the reference's defaults), and a
+sweep that sets those variables measures the default routes. A caller pins a
+route with ``flash_self_attention(..., single_k_max=, fused_bwd_max=)``
+(``chip_smoke.py`` times both backward routes so); ``flash_routes`` names
+the routes without running anything. The routes compute one function.
 
 On both layouts key columns at or past a row's length are masked, queries are
 not; a row with no valid key gives exact zeros (and ``lse = NEG_INF``) and
@@ -623,8 +638,9 @@ flash_bwd_fused.launches = 0
 
 
 def flash_bwd_dkv(q, k, v, lengths, heads: int, lse, delta, dout, sm_scale: float):
-    """Kernel wrapper, split backward, first kernel: ``(dk, dv)`` per key tile.
-    CUDA tensors launch it or raise; CPU tensors take ``flash_dkv_reference``."""
+    """Kernel wrapper, split backward, first kernel: ``(dk, dv)`` per key tile,
+    the fused kernel's dk and dv bit for bit. CUDA tensors launch it or
+    raise; CPU tensors take ``flash_dkv_reference``."""
     return _flash_bwd("msfa_flash_bwd_dkv", flash_dkv_reference, flash_bwd_dkv, 2,
                       q, k, v, lengths, heads, lse, delta, dout, sm_scale)
 
@@ -634,8 +650,9 @@ flash_bwd_dkv.launches = 0
 
 def flash_bwd_dq(q, k, v, lengths, heads: int, lse, delta, dout, sm_scale: float):
     """Kernel wrapper, split backward, second kernel: ``dq`` per query tile
-    (recomputes the scores and dp). CUDA tensors launch it or raise; CPU
-    tensors take ``flash_dq_reference``."""
+    (recomputes the scores and dp; each key tile's ``ds k`` added in key-tile
+    order). CUDA tensors launch it or raise; CPU tensors take
+    ``flash_dq_reference``."""
     return _flash_bwd("msfa_flash_bwd_dq", flash_dq_reference, flash_bwd_dq, 1,
                       q, k, v, lengths, heads, lse, delta, dout, sm_scale)
 

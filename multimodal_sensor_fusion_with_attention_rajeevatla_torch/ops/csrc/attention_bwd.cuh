@@ -1,11 +1,13 @@
 // One 64-key tile of the softmax-attention backward on the TF32 tensor cores
-// at f32 accuracy (3xTF32, tf32_mma.cuh), for Hopper (sm_90a), and the ordered
-// sum of its dq partials. The body of bwd_kernel (packed_attention_bwd.cu, the
-// packed [B, T, 3F] layout) and of flash_bwd_fused_kernel
-// (flash_attention_bwd.cu, the [B*H, T, D] layout): each is a thin __global__
-// entry point that finds its (b, h) row's strided views and calls
-// attention_bwd_tile; likewise dq_reduce_kernel and flash_bwd_fused_dq_reduce
-// call dq_reduce.
+// at f32 accuracy (3xTF32, tf32_mma.cuh), for Hopper (sm_90a), the ordered
+// sum of its dq partials, and one 64-query tile of dq alone. The body of
+// bwd_kernel (packed_attention_bwd.cu, the packed [B, T, 3F] layout) and of
+// flash_bwd_fused_kernel and flash_dkv_kernel (flash_attention_bwd.cu, the
+// [B*H, T, D] layout): each is a thin __global__ entry point that finds its
+// (b, h) row's strided views and calls attention_bwd_tile (the dkv entry
+// with kWithDq = false); likewise dq_reduce_kernel and
+// flash_bwd_fused_dq_reduce call dq_reduce, and flash_dq_kernel calls
+// attention_dq_tile.
 //
 // For keys k0 .. k0 + 63 of one (b, h) row with `len` valid keys, from the
 // forward's lse, delta = rowsum(dout * out) and the cotangent dout:
@@ -32,9 +34,23 @@
 // zero, and over 16 query tiles (T = 1024) those cuts add up, where the FP32
 // add rounds to nearest. dS^T goes to shared memory once (over the q rows
 // the tile has used), where warp w reads it back as the rows of its 16
-// queries for dq_part = dS K over the tile's 64 keys. No atomics: a run
-// repeats bit for bit. 105 KB of shared memory per block at D = 64, so two
-// blocks fit on an SM.
+// queries for dq_part = dS K over the tile's 64 keys. With kWithDq = false
+// (the split route's dk/dv) that store, its two barriers and the dq_part
+// product are compiled out; dk and dv are the same instructions, so the
+// same bits. No atomics: a run repeats bit for bit. 105 KB of shared memory
+// per block at D = 64, so two blocks fit on an SM.
+//
+// attention_dq_tile (the split route's dq): the mirror image for one 64-row
+// query tile. q, dout, lse and delta are staged once; K and V of the key
+// tiles below the length arrive by cp.async, one tile at a time. Warp
+// w owns queries q0 + 16w .. q0 + 16w + 15 and computes S = q K^T and dP =
+// dout V^T, P and dS in registers, and dq += dS K with the dS accumulator
+// as the A operand, so dS never goes through shared memory. Each key tile's
+// product goes into a fresh accumulator added to dq in FP32, in key-tile
+// order, and sm_scale goes on last: dq_reduce's order. One stage: 70 KB of
+// shared memory at D = 64, so three blocks fit on an SM and the other
+// blocks' products cover each block's copies; a two-stage ring (105 KB, two
+// blocks) gave the same bits 5-6% slower on the H100. 136 KB at D = 128.
 
 #pragma once
 
@@ -101,7 +117,17 @@ __device__ __forceinline__ void stage_query_tile(float* stage, const BwdRow& row
             ok);
 }
 
+// The rows of key tile k0; rows past T are zeros.
 template <int D>
+__device__ __forceinline__ void stage_key_tile(float* Ks, float* Vs, const BwdRow& row, int k0,
+                                               int T, int tid) {
+  stage_rows<D>(Ks, row.k + (long)k0 * row.ld_in, row.ld_in, kBwdTile, T - k0, row.k, tid,
+                kBwdThreads);
+  stage_rows<D>(Vs, row.v + (long)k0 * row.ld_in, row.ld_in, kBwdTile, T - k0, row.v, tid,
+                kBwdThreads);
+}
+
+template <int D, bool kWithDq = true>
 __device__ __forceinline__ void attention_bwd_tile(const BwdRow& row, int T, int len, int k0,
                                                    float sm_scale, float* smem) {
   using L = BwdLayout<D>;
@@ -123,10 +149,7 @@ __device__ __forceinline__ void attention_bwd_tile(const BwdRow& row, int T, int
     for (int e = 0; e < 4; ++e) dk[nd][e] = dv[nd][e] = 0.f;
 
   if (k0 < len) {  // block-uniform: a tile at or past the length writes zeros
-    stage_rows<D>(Ks, row.k + (long)k0 * row.ld_in, row.ld_in, kBwdTile, T - k0, row.k, tid,
-                  kBwdThreads);
-    stage_rows<D>(Vs, row.v + (long)k0 * row.ld_in, row.ld_in, kBwdTile, T - k0, row.v, tid,
-                  kBwdThreads);
+    stage_key_tile<D>(Ks, Vs, row, k0, T, tid);
     stage_query_tile<D>(stages, row, 0, T, tid);
     cp_async_commit();
     const int n_q = (T + kBwdTile - 1) / kBwdTile;
@@ -212,39 +235,41 @@ __device__ __forceinline__ void attention_bwd_tile(const BwdRow& row, int T, int
 #pragma unroll
         for (int e = 0; e < 4; ++e) dk[nd][e] += part[nd][e];
 
-      __syncthreads();  // every warp is done with this stage's q rows
-      float* dSs = Qs;  // dS^T [key][query] over the q slot
+      if constexpr (kWithDq) {
+        __syncthreads();  // every warp is done with this stage's q rows
+        float* dSs = Qs;  // dS^T [key][query] over the q slot
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        float* at = dSs + (warp * 16 + g) * kLdS + 8 * j + 2 * t;
-        *reinterpret_cast<float2*>(at) = make_float2(dpt[j][0], dpt[j][1]);
-        *reinterpret_cast<float2*>(at + 8 * kLdS) = make_float2(dpt[j][2], dpt[j][3]);
-      }
-      __syncthreads();
+        for (int j = 0; j < 8; ++j) {
+          float* at = dSs + (warp * 16 + g) * kLdS + 8 * j + 2 * t;
+          *reinterpret_cast<float2*>(at) = make_float2(dpt[j][0], dpt[j][1]);
+          *reinterpret_cast<float2*>(at + 8 * kLdS) = make_float2(dpt[j][2], dpt[j][3]);
+        }
+        __syncthreads();
 
-      // dq_part = dS K for queries q0 + 16w .. q0 + 16w + 15 over the tile's keys
+        // dq_part = dS K for queries q0 + 16w .. q0 + 16w + 15 over the tile's keys
 #pragma unroll
-      for (int kk = 0; kk < 8; ++kk) {
-        const FragA a = load_a_colk(dSs, kLdS, warp * 16, 8 * kk, g, t);
+        for (int kk = 0; kk < 8; ++kk) {
+          const FragA a = load_a_colk(dSs, kLdS, warp * 16, 8 * kk, g, t);
 #pragma unroll
-        for (int nd = 0; nd < kSteps; ++nd) {
-          const FragB b = load_b_colk(Ks, kLd, 8 * kk, 8 * nd, g, t);
-          if (kk == 0) {
-            mma3_zero(part[nd], a, b);
-          } else {
-            mma3(part[nd], a, b);
+          for (int nd = 0; nd < kSteps; ++nd) {
+            const FragB b = load_b_colk(Ks, kLd, 8 * kk, 8 * nd, g, t);
+            if (kk == 0) {
+              mma3_zero(part[nd], a, b);
+            } else {
+              mma3(part[nd], a, b);
+            }
           }
         }
-      }
 #pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int q = q0 + warp * 16 + g + 8 * r;
-        if (q >= T) continue;
-        float* dst = row.dq_part + (long)q * row.ld_part + 2 * t;
+        for (int r = 0; r < 2; ++r) {
+          const int q = q0 + warp * 16 + g + 8 * r;
+          if (q >= T) continue;
+          float* dst = row.dq_part + (long)q * row.ld_part + 2 * t;
 #pragma unroll
-        for (int nd = 0; nd < kSteps; ++nd)
-          *reinterpret_cast<float2*>(dst + 8 * nd) =
-              make_float2(part[nd][2 * r], part[nd][2 * r + 1]);
+          for (int nd = 0; nd < kSteps; ++nd)
+            *reinterpret_cast<float2*>(dst + 8 * nd) =
+                make_float2(part[nd][2 * r], part[nd][2 * r + 1]);
+        }
       }
     }
   }
@@ -261,6 +286,126 @@ __device__ __forceinline__ void attention_bwd_tile(const BwdRow& row, int T, int
       *reinterpret_cast<float2*>(row.dv + at + 8 * nd) =
           make_float2(dv[nd][2 * r], dv[nd][2 * r + 1]);
     }
+  }
+}
+
+// attention_dq_tile's shared layout in floats: one BwdLayout stage for the
+// query tile (q, dout, lse, delta, as stage_query_tile writes it), then one
+// key tile, Ks, Vs [kBwdTile][D + kPad].
+template <int D>
+struct DqLayout {
+  static constexpr size_t kBytes = sizeof(float) * (BwdLayout<D>::kStage + 2 * BwdLayout<D>::kKV);
+};
+
+// dq of queries q0 .. q0 + 63 of one (b, h) row with `len` valid keys: the
+// split route's dq, written at dq + t * ld_dq for t < T.
+template <int D>
+__device__ __forceinline__ void attention_dq_tile(const BwdRow& row, float* dq, long ld_dq, int T,
+                                                  int len, int q0, float sm_scale, float* smem) {
+  using L = BwdLayout<D>;
+  constexpr int kSteps = D / 8;
+  constexpr int kLd = L::kLd;
+  const float* Qs = smem;
+  const float* dOs = Qs + L::kQSlot;
+  const float* Ls = dOs + L::kKV;
+  const float* Ds = Ls + kBwdTile;
+  float* Ks = smem + L::kStage;
+  float* Vs = Ks + L::kKV;
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = warp * 16 + g;  // this lane's two query rows of the tile: r0, r0 + 8
+
+  float acc[kSteps][4];
+#pragma unroll
+  for (int nd = 0; nd < kSteps; ++nd)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nd][e] = 0.f;
+
+  const int n_kt = (len + kBwdTile - 1) / kBwdTile;  // the key tiles below the length
+  if (n_kt > 0) {  // block-uniform: a length-0 row writes zeros
+    stage_query_tile<D>(smem, row, q0, T, tid);
+    stage_key_tile<D>(Ks, Vs, row, 0, T, tid);
+    cp_async_commit();
+    for (int kt = 0; kt < n_kt; ++kt) {
+      const int k0 = kt * kBwdTile;
+      cp_async_wait<0>();  // this key tile (and, at kt = 0, the query tile) has landed
+      __syncthreads();     // ... for every thread
+
+      // S = q K^T and dP = dout V^T: 16 queries x 64 keys per warp
+      float s[8][4], ds[8][4];
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = ds[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < kSteps; ++kk) {
+        const FragA aq = load_a_rowk(Qs, kLd, warp * 16, 8 * kk, g, t);
+        const FragA ao = load_a_rowk(dOs, kLd, warp * 16, 8 * kk, g, t);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          mma3(s[j], aq, load_b_rowk(Ks, kLd, 8 * j, 8 * kk, g, t));
+          mma3(ds[j], ao, load_b_rowk(Vs, kLd, 8 * j, 8 * kk, g, t));
+        }
+      }
+
+      // P and dS in place: row r0 (e < 2) or r0 + 8, column key k0 + 8j + 2t + (e & 1)
+      float l[2], dl[2];
+      bool row_ok[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        l[r] = Ls[r0 + 8 * r];
+        dl[r] = Ds[r0 + 8 * r];
+        row_ok[r] = q0 + r0 + 8 * r < T && l[r] > kBwdNegInf / 2;
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          const bool keep = row_ok[r] && k0 + 8 * j + 2 * t + (e & 1) < len;
+          const float p = keep ? expf(s[j][e] * sm_scale - l[r]) : 0.f;
+          ds[j][e] = p * (ds[j][e] - dl[r]);
+        }
+
+      // dq += dS K (sm_scale goes on at the end), the tile's product in a
+      // fresh accumulator added in FP32
+      float part[kSteps][4];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const FragA a = acc_as_a(ds[j]);
+#pragma unroll
+        for (int nd = 0; nd < kSteps; ++nd) {
+          const FragB b = load_b_colk(Ks, kLd, 8 * j, 8 * nd, g, t);
+          if (j == 0) {
+            mma3_zero(part[nd], a, b);
+          } else {
+            mma3(part[nd], a, b);
+          }
+        }
+      }
+#pragma unroll
+      for (int nd = 0; nd < kSteps; ++nd)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[nd][e] += part[nd][e];
+      if (kt + 1 < n_kt) {
+        __syncthreads();  // every warp is done with this key tile
+        stage_key_tile<D>(Ks, Vs, row, k0 + kBwdTile, T, tid);
+        cp_async_commit();
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int q = q0 + r0 + 8 * r;
+    if (q >= T) continue;
+    float* dst = dq + (long)q * ld_dq + 2 * t;
+#pragma unroll
+    for (int nd = 0; nd < kSteps; ++nd)
+      *reinterpret_cast<float2*>(dst + 8 * nd) =
+          make_float2(acc[nd][2 * r] * sm_scale, acc[nd][2 * r + 1] * sm_scale);
   }
 }
 

@@ -15,37 +15,48 @@
 //                                          rows with lse = -1e30 -> 0
 //   ds = p * (dout v^T - delta)
 //   dv = p^T dout,  dk = ds^T (q * sm_scale),  dq = (ds k) * sm_scale
-// sm_scale is folded into q (dk uses the scaled q) and applied to dq after the
-// product, which is the TPU kernels' ds * sm_scale up to rounding. Query rows
-// are not masked (t >= length still gets dq); key tiles at or past the length
-// get exact-zero dk and dv, written; a length-0 row gets three exact zeros
-// and never evaluates an exp. T is any positive length: the kernels mask the
-// ragged last tile themselves. Offsets are 64-bit.
+// sm_scale is folded into the scores and applied to dk and dq after the
+// product, which is the TPU kernels' scaled q and ds * sm_scale up to
+// rounding. Query rows are not masked (t >= length still gets dq); key tiles
+// at or past the length get exact-zero dk and dv, written; a length-0 row
+// gets three exact zeros and never evaluates an exp. T is any positive
+// length: the kernels mask the ragged last tile themselves. Offsets are
+// 64-bit.
 //
 // What bounds them on the H100: arithmetic. With sum_len valid keys over the
-// batch the function's five products cost 10*H*D*T*sum_len operations (85.9
-// GFLOP at B=32, H=4, D=64, T=1024 with every key valid: 0.52 ms at 495/3 =
-// 165 TFLOP/s on 3xTF32, 1.28 ms at 67 TFLOP/s f32 on the CUDA cores)
-// against 8 tensors of 4*B*H*T*D bytes (0.08 ms at 3.35 TB/s).
+// batch the fused route's five products cost 10*H*D*T*sum_len operations
+// (343.6 GFLOP at B=32, H=4, D=64, T=2048 with every key valid: 2.08 ms at
+// 495/3 = 165 TFLOP/s on 3xTF32, 5.13 ms at 67 TFLOP/s f32 on the CUDA
+// cores). The split route recomputes the scores and dp in both kernels,
+// seven products in all: dk/dv 8*H*D*T*sum_len (274.9 GFLOP there, 1.67 ms on
+// 3xTF32, 4.10 on the CUDA cores), dq 6*H*D*T*sum_len (206.2 GFLOP, 1.25 ms,
+// 3.08). The bytes are 7, 6 and 5 tensors of 4*B*H*T*D (0.07 ms apiece at
+// 3.35 TB/s).
+//
+// All three run on the TF32 tensor cores at f32 accuracy (3xTF32 mma.sync,
+// tf32_mma.cuh) on tiles staged by cp.async, the bodies in attention_bwd.cuh:
 //
 // flash_bwd_fused_kernel keeps what the TPU kernel is about: the scores, p,
 // dp and ds of every (query, key) pair are computed once (five products, not
 // the split pair's seven). The TPU kernel holds whole [T, T] f32 tiles in
 // VMEM (4 MB at T = 1024); here one block of 4 warps owns one (64-key tile,
-// row bh), 16 x 128 = 2,048 blocks at [128, 1024, 64], and runs the products
-// on the TF32 tensor cores at f32 accuracy (3xTF32 mma.sync): the body in
-// attention_bwd.cuh, which the packed backward shares on its layout. Each
-// block writes its keys' dk and dv and a dq partial over its 64 keys; a
-// second launch, flash_bwd_fused_dq_reduce, sums the partials of the tiles
-// below the length in key-tile order, with no atomic adds, so the result
-// does not depend on scheduling. The partials take B*H*ceil(T/64)*T*D floats
-// of scratch (537 MB at [128, 1024, 64]), written once and read once.
+// row bh), 16 x 128 = 2,048 blocks at [128, 1024, 64], and runs the body the
+// packed backward shares on its layout. Each block writes its keys' dk and
+// dv and a dq partial over its 64 keys; a second launch,
+// flash_bwd_fused_dq_reduce, sums the partials of the tiles below the length
+// in key-tile order, with no atomic adds, so the result does not depend on
+// scheduling. The partials take B*H*ceil(T/64)*T*D floats of scratch (537 MB
+// at [128, 1024, 64], 2.1 GB at T = 2048), written once and read once.
 //
-// flash_dkv_kernel: one block per (64-key tile, row); K and V stay in shared
-// memory while the block walks every query tile. flash_dq_kernel: one block
-// per (64-query tile, row) walks the key tiles below the length and
-// recomputes the scores and dp. Both on the CUDA cores: 256 threads as a
-// 16 x 16 grid, 4 x 4 score micro-tiles, 4 x D/16 output micro-tiles.
+// The split route needs no scratch. flash_dkv_kernel is the fused kernel's
+// body without its dq (attention_bwd_tile<D, false>): one block per (64-key
+// tile, row), dk and dv the same instructions, so the fused kernel's bits.
+// flash_dq_kernel is one block of 4 warps per (64-query tile, row) on
+// attention_dq_tile: the query tile staged once, K and V of the key tiles
+// below the length staged one at a time (three blocks on an SM at D = 64),
+// dS kept in registers as the A operand of dq += dS K, each key tile's
+// product added in FP32 in key-tile order. Neither uses atomics: a run
+// repeats bit for bit.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -53,11 +64,6 @@
 #include "attention_bwd.cuh"
 
 namespace {
-
-constexpr int kBlockQ = 64;
-constexpr int kBlockK = 64;
-constexpr int kThreads = 256;
-constexpr float kNegInf = -1e30f;
 
 __global__ void flash_delta_kernel(const float* __restrict__ out, const float* __restrict__ dout,
                                    float* __restrict__ delta, long rows, int D) {
@@ -70,172 +76,10 @@ __global__ void flash_delta_kernel(const float* __restrict__ out, const float* _
   delta[r] = s;
 }
 
-template <int D>
-constexpr size_t dkv_smem_bytes() {
-  // Ks, Vs [BK][D+1]; Qs, dOs [BQ][D]; Ps, dSs [BQ][BK+1]; lse, delta [BQ]
-  return sizeof(float) * (2 * kBlockK * (D + 1) + 2 * kBlockQ * D +
-                          2 * kBlockQ * (kBlockK + 1) + 2 * kBlockQ);
-}
-
-template <int D>
-constexpr size_t dq_smem_bytes() {
-  // Qs, dOs [BQ][D]; Ks, Vs [BK][D+1]; dSs [BQ][BK+1]; lse, delta [BQ]
-  return sizeof(float) * (2 * kBlockQ * D + 2 * kBlockK * (D + 1) +
-                          kBlockQ * (kBlockK + 1) + 2 * kBlockQ);
-}
-
-// Loads one query tile (q pre-scaled, dout, lse, delta) of one row's [T, D]
-// arrays; rows past T are zeros with lse = NEG_INF, so they add nothing.
-template <int D>
-__device__ __forceinline__ void load_query_tile(const float* qb, const float* dob,
-                                                const float* lse_row, const float* delta_row,
-                                                int q0, int T, float sm_scale, float* Qs,
-                                                float* dOs, float* Ls, float* Ds) {
-  const int tid = threadIdx.x;
-  for (int i = tid; i < kBlockQ * D; i += kThreads) {
-    const int t = q0 + i / D;
-    const bool ok = t < T;
-    const long at = (long)t * D + i % D;
-    Qs[i] = ok ? qb[at] * sm_scale : 0.f;
-    dOs[i] = ok ? dob[at] : 0.f;
-  }
-  for (int r = tid; r < kBlockQ; r += kThreads) {
-    const int t = q0 + r;
-    Ls[r] = t < T ? lse_row[t] : kNegInf;
-    Ds[r] = t < T ? delta_row[t] : 0.f;
-  }
-}
-
-template <int D>
-__device__ __forceinline__ void load_key_tile(const float* kb, const float* vb, int k0, int T,
-                                              float* Ks, float* Vs) {
-  for (int i = threadIdx.x; i < kBlockK * D; i += kThreads) {
-    const int r = i / D, c = i % D, t = k0 + r;
-    const bool ok = t < T;
-    Ks[r * (D + 1) + c] = ok ? kb[(long)t * D + c] : 0.f;
-    Vs[r * (D + 1) + c] = ok ? vb[(long)t * D + c] : 0.f;
-  }
-}
-
-// p and ds for the 4 x 4 micro-tile (query ty*4+i, key tx+16j) of one
-// (query tile, key tile) pair, stored to Ps (if given) and dSs.
-template <int D>
-__device__ __forceinline__ void p_and_ds(const float* Qs, const float* dOs, const float* Ks,
-                                         const float* Vs, const float* Ls, const float* Ds,
-                                         int k0, int len, float* Ps, float* dSs) {
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  float s[4][4], dp[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 8
-  for (int c = 0; c < D; ++c) {
-    float a[4], g[4], k[4], v[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      a[i] = Qs[(ty * 4 + i) * D + c];
-      g[i] = dOs[(ty * 4 + i) * D + c];
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      k[j] = Ks[(tx + 16 * j) * (D + 1) + c];
-      v[j] = Vs[(tx + 16 * j) * (D + 1) + c];
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = fmaf(a[i], k[j], s[i][j]);
-        dp[i][j] = fmaf(g[i], v[j], dp[i][j]);
-      }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qr = ty * 4 + i;
-    const float l = Ls[qr];
-    const bool row_ok = l > kNegInf / 2;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int kk = tx + 16 * j;
-      const float p = (row_ok && k0 + kk < len) ? expf(s[i][j] - l) : 0.f;
-      if (Ps) Ps[qr * (kBlockK + 1) + kk] = p;
-      dSs[qr * (kBlockK + 1) + kk] = p * (dp[i][j] - Ds[qr]);
-    }
-  }
-}
-
-// dk += dS^T Q and dv += P^T dO for the thread's 4 keys x D/16 columns.
-template <int D>
-__device__ __forceinline__ void accumulate_dkv(const float* Qs, const float* dOs, const float* Ps,
-                                               const float* dSs, float (&dk)[4][D / 16],
-                                               float (&dv)[4][D / 16]) {
-  constexpr int kDJ = D / 16;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-#pragma unroll 4
-  for (int qr = 0; qr < kBlockQ; ++qr) {
-    float pk[4], dsk[4], go[kDJ], qv[kDJ];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      pk[i] = Ps[qr * (kBlockK + 1) + ty * 4 + i];
-      dsk[i] = dSs[qr * (kBlockK + 1) + ty * 4 + i];
-    }
-#pragma unroll
-    for (int j = 0; j < kDJ; ++j) {
-      go[j] = dOs[qr * D + tx + 16 * j];
-      qv[j] = Qs[qr * D + tx + 16 * j];
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < kDJ; ++j) {
-        dv[i][j] = fmaf(pk[i], go[j], dv[i][j]);
-        dk[i][j] = fmaf(dsk[i], qv[j], dk[i][j]);
-      }
-  }
-}
-
-// dq += dS K for the thread's 4 queries x D/16 columns.
-template <int D>
-__device__ __forceinline__ void accumulate_dq(const float* Ks, const float* dSs,
-                                              float (&dq)[4][D / 16]) {
-  constexpr int kDJ = D / 16;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-#pragma unroll 4
-  for (int kk = 0; kk < kBlockK; ++kk) {
-    float kv[kDJ];
-#pragma unroll
-    for (int j = 0; j < kDJ; ++j) kv[j] = Ks[kk * (D + 1) + tx + 16 * j];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float ds = dSs[(ty * 4 + i) * (kBlockK + 1) + kk];
-#pragma unroll
-      for (int j = 0; j < kDJ; ++j) dq[i][j] = fmaf(ds, kv[j], dq[i][j]);
-    }
-  }
-}
-
-struct RowPointers {
-  const float *q, *k, *v, *dout, *lse, *delta;
-  int len;
-};
-
-__device__ __forceinline__ RowPointers row_pointers(const float* q, const float* k,
-                                                    const float* v, const float* dout,
-                                                    const float* lse, const float* delta,
-                                                    const int* lengths, long bh, int T, int H,
-                                                    int D) {
-  RowPointers r;
-  const long at = bh * T * D;
-  r.q = q + at;
-  r.k = k + at;
-  r.v = v + at;
-  r.dout = dout + at;
-  r.lse = lse + bh * T;
-  r.delta = delta + bh * T;
+// lengths[bh / H] clamped to [0, T].
+__device__ __forceinline__ int row_length(const int* lengths, long bh, int H, int T) {
   const int len = lengths[bh / H];
-  r.len = len < 0 ? 0 : (len > T ? T : len);
-  return r;
+  return len < 0 ? 0 : (len > T ? T : len);
 }
 
 // One block per (64-key tile, row bh), the key tile fastest; the body is
@@ -253,15 +97,14 @@ flash_bwd_fused_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const long bh = blockIdx.x / n_kt;
   const int kt = (int)(blockIdx.x % n_kt);
   const long at = bh * T * D;
-  int len = lengths[bh / H];
-  len = len < 0 ? 0 : (len > T ? T : len);
   const msfa_tc::BwdRow row{
       q + at, k + at, v + at, D,                       // q, k, v
       dout + at, D,                                    // dout
       lse + bh * T, delta + bh * T, 1,                 // lse, delta
       dk + at, dv + at, D,                             // dk, dv
       dq_part + (bh * n_kt + kt) * T * D, D};          // this tile's dq partial
-  msfa_tc::attention_bwd_tile<D>(row, T, len, kt * msfa_tc::kBwdTile, sm_scale, fused_smem);
+  msfa_tc::attention_bwd_tile<D>(row, T, row_length(lengths, bh, H, T), kt * msfa_tc::kBwdTile,
+                                 sm_scale, fused_smem);
 }
 
 // dq[bh, t, f] = sm_scale * sum over key tiles kt < ceil(len / 64) of
@@ -275,108 +118,49 @@ __global__ void flash_bwd_fused_dq_reduce(const float* __restrict__ dq_part,
   msfa_tc::dq_reduce(dq_part, lengths, dq, T, D, n_kt, H, D, sm_scale, i);
 }
 
+// The fused kernel's body without its dq: one block per (64-key tile, row
+// bh), the key tile fastest, writing the tile's dk and dv.
 template <int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(msfa_tc::kBwdThreads)
 flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, const int* __restrict__ lengths,
                  const float* __restrict__ lse, const float* __restrict__ delta,
                  const float* __restrict__ dout, float* __restrict__ dk, float* __restrict__ dv,
-                 int T, int H, int tiles, float sm_scale) {
-  constexpr int kDJ = D / 16;
-  extern __shared__ float smem[];
-  float* Ks = smem;
-  float* Vs = Ks + kBlockK * (D + 1);
-  float* Qs = Vs + kBlockK * (D + 1);
-  float* dOs = Qs + kBlockQ * D;
-  float* Ps = dOs + kBlockQ * D;
-  float* dSs = Ps + kBlockQ * (kBlockK + 1);
-  float* Ls = dSs + kBlockQ * (kBlockK + 1);
-  float* Ds = Ls + kBlockQ;
-
-  const long bh = blockIdx.x / tiles;
-  const int k0 = (int)(blockIdx.x % tiles) * kBlockK;
-  const int tx = threadIdx.x & 15;  // output column group
-  const int ty = threadIdx.x >> 4;  // keys ty*4 .. ty*4+3
-  const RowPointers row = row_pointers(q, k, v, dout, lse, delta, lengths, bh, T, H, D);
-
-  float dk_acc[4][kDJ], dv_acc[4][kDJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < kDJ; ++j) dk_acc[i][j] = dv_acc[i][j] = 0.f;
-
-  if (k0 < row.len) {  // block-uniform: a tile at or past the length writes zeros
-    load_key_tile<D>(row.k, row.v, k0, T, Ks, Vs);
-    for (int q0 = 0; q0 < T; q0 += kBlockQ) {
-      __syncthreads();  // previous tile's reads of Qs/dOs/Ps/dSs are done
-      load_query_tile<D>(row.q, row.dout, row.lse, row.delta, q0, T, sm_scale, Qs, dOs, Ls, Ds);
-      __syncthreads();
-      p_and_ds<D>(Qs, dOs, Ks, Vs, Ls, Ds, k0, row.len, Ps, dSs);
-      __syncthreads();
-      accumulate_dkv<D>(Qs, dOs, Ps, dSs, dk_acc, dv_acc);
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int t = k0 + ty * 4 + i;
-    if (t >= T) continue;
-    const long at = (bh * T + t) * D + tx;
-#pragma unroll
-    for (int j = 0; j < kDJ; ++j) {
-      dk[at + 16 * j] = dk_acc[i][j];
-      dv[at + 16 * j] = dv_acc[i][j];
-    }
-  }
+                 int T, int H, int n_kt, float sm_scale) {
+  extern __shared__ __align__(16) float dkv_smem[];
+  const long bh = blockIdx.x / n_kt;
+  const int kt = (int)(blockIdx.x % n_kt);
+  const long at = bh * T * D;
+  const msfa_tc::BwdRow row{
+      q + at, k + at, v + at, D,                       // q, k, v
+      dout + at, D,                                    // dout
+      lse + bh * T, delta + bh * T, 1,                 // lse, delta
+      dk + at, dv + at, D,                             // dk, dv
+      nullptr, 0};                                     // no dq partial
+  msfa_tc::attention_bwd_tile<D, false>(row, T, row_length(lengths, bh, H, T),
+                                        kt * msfa_tc::kBwdTile, sm_scale, dkv_smem);
 }
 
+// One block per (64-query tile, row bh), the query tile fastest, writing the
+// tile's dq.
 template <int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(msfa_tc::kBwdThreads)
 flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                 const float* __restrict__ v, const int* __restrict__ lengths,
                 const float* __restrict__ lse, const float* __restrict__ delta,
-                const float* __restrict__ dout, float* __restrict__ dq, int T, int H, int tiles,
+                const float* __restrict__ dout, float* __restrict__ dq, int T, int H, int n_qt,
                 float sm_scale) {
-  constexpr int kDJ = D / 16;
-  extern __shared__ float smem[];
-  float* Qs = smem;
-  float* dOs = Qs + kBlockQ * D;
-  float* Ks = dOs + kBlockQ * D;
-  float* Vs = Ks + kBlockK * (D + 1);
-  float* dSs = Vs + kBlockK * (D + 1);
-  float* Ls = dSs + kBlockQ * (kBlockK + 1);
-  float* Ds = Ls + kBlockQ;
-
-  const long bh = blockIdx.x / tiles;
-  const int q0 = (int)(blockIdx.x % tiles) * kBlockQ;
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;  // queries ty*4 .. ty*4+3
-  const RowPointers row = row_pointers(q, k, v, dout, lse, delta, lengths, bh, T, H, D);
-
-  load_query_tile<D>(row.q, row.dout, row.lse, row.delta, q0, T, sm_scale, Qs, dOs, Ls, Ds);
-  float dq_acc[4][kDJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < kDJ; ++j) dq_acc[i][j] = 0.f;
-
-  const int n_tiles = (row.len + kBlockK - 1) / kBlockK;
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * kBlockK;
-    __syncthreads();  // previous tile's reads of Ks/Vs/dSs are done
-    load_key_tile<D>(row.k, row.v, k0, T, Ks, Vs);
-    __syncthreads();
-    p_and_ds<D>(Qs, dOs, Ks, Vs, Ls, Ds, k0, row.len, nullptr, dSs);
-    __syncthreads();
-    accumulate_dq<D>(Ks, dSs, dq_acc);
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int t = q0 + ty * 4 + i;
-    if (t >= T) continue;
-    const long at = (bh * T + t) * D + tx;
-#pragma unroll
-    for (int j = 0; j < kDJ; ++j) dq[at + 16 * j] = dq_acc[i][j] * sm_scale;
-  }
+  extern __shared__ __align__(16) float dq_smem[];
+  const long bh = blockIdx.x / n_qt;
+  const int qt = (int)(blockIdx.x % n_qt);
+  const long at = bh * T * D;
+  const msfa_tc::BwdRow row{
+      q + at, k + at, v + at, D,                       // q, k, v
+      dout + at, D,                                    // dout
+      lse + bh * T, delta + bh * T, 1,                 // lse, delta
+      nullptr, nullptr, 0, nullptr, 0};                // dq is written below
+  msfa_tc::attention_dq_tile<D>(row, dq + at, D, T, row_length(lengths, bh, H, T),
+                                qt * msfa_tc::kBwdTile, sm_scale, dq_smem);
 }
 
 template <typename Kernel>
@@ -413,13 +197,13 @@ template <int D>
 int launch_dkv(const float* q, const float* k, const float* v, const int* lengths,
                const float* lse, const float* delta, const float* dout, float* dk, float* dv,
                long BH, int T, int H, float sm_scale, cudaStream_t stream) {
-  const size_t smem = dkv_smem_bytes<D>();
+  const size_t smem = msfa_tc::BwdLayout<D>::kBytes;
   cudaError_t err = allow_smem(flash_dkv_kernel<D>, smem);
   if (err != cudaSuccess) return (int)err;
-  const int tiles = (T + kBlockK - 1) / kBlockK;
-  if (BH * tiles > 0x7fffffffL) return (int)cudaErrorInvalidValue;
-  flash_dkv_kernel<D><<<(unsigned)(BH * tiles), kThreads, smem, stream>>>(
-      q, k, v, lengths, lse, delta, dout, dk, dv, T, H, tiles, sm_scale);
+  const int n_kt = (T + msfa_tc::kBwdTile - 1) / msfa_tc::kBwdTile;
+  if (BH * n_kt > 0x7fffffffL) return (int)cudaErrorInvalidValue;
+  flash_dkv_kernel<D><<<(unsigned)(BH * n_kt), msfa_tc::kBwdThreads, smem, stream>>>(
+      q, k, v, lengths, lse, delta, dout, dk, dv, T, H, n_kt, sm_scale);
   return (int)cudaGetLastError();
 }
 
@@ -427,13 +211,13 @@ template <int D>
 int launch_dq(const float* q, const float* k, const float* v, const int* lengths,
               const float* lse, const float* delta, const float* dout, float* dq, long BH, int T,
               int H, float sm_scale, cudaStream_t stream) {
-  const size_t smem = dq_smem_bytes<D>();
+  const size_t smem = msfa_tc::DqLayout<D>::kBytes;
   cudaError_t err = allow_smem(flash_dq_kernel<D>, smem);
   if (err != cudaSuccess) return (int)err;
-  const int tiles = (T + kBlockQ - 1) / kBlockQ;
-  if (BH * tiles > 0x7fffffffL) return (int)cudaErrorInvalidValue;
-  flash_dq_kernel<D><<<(unsigned)(BH * tiles), kThreads, smem, stream>>>(
-      q, k, v, lengths, lse, delta, dout, dq, T, H, tiles, sm_scale);
+  const int n_qt = (T + msfa_tc::kBwdTile - 1) / msfa_tc::kBwdTile;
+  if (BH * n_qt > 0x7fffffffL) return (int)cudaErrorInvalidValue;
+  flash_dq_kernel<D><<<(unsigned)(BH * n_qt), msfa_tc::kBwdThreads, smem, stream>>>(
+      q, k, v, lengths, lse, delta, dout, dq, T, H, n_qt, sm_scale);
   return (int)cudaGetLastError();
 }
 

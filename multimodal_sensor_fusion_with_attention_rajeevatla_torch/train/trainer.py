@@ -26,7 +26,8 @@ optimizer, augmentations, the per-batch step and ``fit``).
 The streaming loader path (``dataset.streaming``), the parallel layouts and
 ``training.remat`` are not ported (ROADMAP queue A): ``check_layout`` keeps
 the reference's ``ValueError``s for an inconsistent ``parallel`` block and
-raises ``NotImplementedError`` for any layout other than one card.
+an unknown ``training.prng_impl``, and raises ``NotImplementedError`` for
+any layout other than one card.
 """
 
 from __future__ import annotations
@@ -234,12 +235,27 @@ def dropout_modality_mask(
     return torch.where(dead, revived, keep)
 
 
+# the reference's training.prng_impl values (JAX train/trainer.py)
+PRNG_IMPLS = ("threefry", "rbg", "unsafe_rbg")
+
+
 def check_layout(config) -> None:
     """The reference trainer's checks of ``parallel.*`` with its messages,
     then ``NotImplementedError`` for what the port does not run: more than one
     device (``num_devices`` above 1; ``auto`` and null are the one card here)
     and so every mesh axis and ZeRO (ROADMAP A11), and ``training.remat``
-    (A9). Every default of ``config/base.yaml`` passes."""
+    (A9). Every default of ``config/base.yaml`` passes.
+
+    ``training.prng_impl`` keeps the reference's ``ValueError`` for a value
+    other than ``threefry``, ``rbg`` or ``unsafe_rbg``. The three known
+    values are accepted and change nothing: they pick the TPU's random-bit
+    generator, and the port's dropout masks come from the Philox kernel, or
+    from torch's generator at ``dropout_rng: xla``, whatever the key says
+    (the same caveat as ``dropout_rng: auto``)."""
+    prng_impl = str(config.training.get("prng_impl", "")).lower() or "threefry"
+    if prng_impl not in PRNG_IMPLS:
+        raise ValueError(
+            f"Unknown training.prng_impl {prng_impl!r}; expected threefry or rbg")
     par = config.get("parallel", {}) or {}
     model_parallel = int(par.get("model_parallel", 1) or 1)
     pipeline_parallel = int(par.get("pipeline_parallel", 1) or 1)

@@ -12,13 +12,16 @@ events, rows 1-7 and 10-15 of the kernel table at the shapes
 ``chip_smoke.py`` reports them: the packed forward (B 64, T 512, H 4, d 64)
 and backward (B 32), the single-key-block forward and the fused backward at
 ``[B*H, T, d]`` = ``[128, 1024, 64]``, ``[512, 512, 64]`` and ``[128, 2048,
-64]``, the split dk/dv and dq kernels at ``[128, 2048, 64]``, the tiled
+64]``, the split dk/dv and dq kernels at ``[128, 1024, 64]`` and ``[128,
+2048, 64]``, the tiled
 forward at ``[256, 4096, 64]``, ``[128, 1024, 64]`` and ``[128, 2048, 64]``
 (every key valid), and the feed-forward pair and the projection and FFW
 residual-LayerNorm kernels, forward and backward, at N = 16,384 rows, d 256,
 d_ff 2048, keep 0.8; inputs from a fixed seed.
 ``scaled_dot_product_attention`` (forward, or its backward) is timed beside
-each attention shape. Prints the card's name and
+each attention shape. The backward kernels' outputs are hashed on ragged
+lengths (0, 1, 37, 64, 65, T - 1, T, T / 2), so that the table also says
+which kernels give the same bits in every tree. Prints the card's name and
 power limit, one JSON line per tree, then the table of all runs. Needs a
 CUDA card; imports torch and the port only.
 """
@@ -26,6 +29,7 @@ CUDA card; imports torch and the port only.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import subprocess
 import sys
@@ -46,6 +50,20 @@ def _time_ms(torch, fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _digest(tensors) -> str:
+    """sha256 of the tensors' bytes, in order: equal digests, equal bits."""
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def _ragged(torch, batch, seq):
+    lengths = torch.full((batch,), seq, dtype=torch.int32)
+    lengths[:8] = torch.tensor([0, 1, 37, 64, 65, seq - 1, seq, seq // 2], dtype=torch.int32)
+    return lengths.cuda()
+
+
 def _measure(tree: Path) -> dict:
     sys.path.insert(0, str(tree))
     import torch
@@ -54,7 +72,7 @@ def _measure(tree: Path) -> dict:
     g = torch.Generator().manual_seed(0)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     scale = HEAD_DIM**-0.5
-    times = {}
+    times, bits = {}, {}
 
     def packed(batch, seq=512):
         qkv = torch.randn(batch, seq, 3 * HEADS * HEAD_DIM, generator=g).cuda()
@@ -72,6 +90,11 @@ def _measure(tree: Path) -> dict:
     out, lse = ta.packed_attention_fwd(qkv, lengths, HEADS, scale)
     times["packed_attention_bwd"] = _time_ms(
         torch, lambda: ta.packed_attention_bwd(qkv, lengths, out, lse, dout, HEADS, scale), 20)
+    ragged = _ragged(torch, 32, 512)
+    out_r, lse_r = ta.packed_attention_fwd(qkv, ragged, HEADS, scale)
+    bits["packed_attention_bwd"] = _digest(
+        [ta.packed_attention_bwd(qkv, ragged, out_r, lse_r, dout, HEADS, scale)])
+    del out_r, lse_r
     leaves = [t.detach().requires_grad_() for t in qkv_views]
     sdpa_out = sdpa(*leaves)
     d_sdpa = dout.view(32, 512, HEADS, HEAD_DIM).transpose(1, 2)
@@ -89,9 +112,17 @@ def _measure(tree: Path) -> dict:
         times[f"flash_fwd_single_{tag}"] = _time_ms(
             torch, lambda: ta.flash_fwd_single(q, k, v, lengths, HEADS, scale), 10)
         times[f"flash_bwd_fused_{tag}"] = _time_ms(torch, lambda: ta.flash_bwd_fused(*args), 5)
-        if seq == 2048:
+        if rows == 128:
             times[f"flash_bwd_dkv_{tag}"] = _time_ms(torch, lambda: ta.flash_bwd_dkv(*args), 5)
             times[f"flash_bwd_dq_{tag}"] = _time_ms(torch, lambda: ta.flash_bwd_dq(*args), 5)
+            ragged = _ragged(torch, rows // HEADS, seq)
+            out_r, lse_r = ta.flash_fwd_single(q, k, v, ragged, HEADS, scale)
+            args_r = (q, k, v, ragged, HEADS, lse_r, ta.flash_delta(out_r, dout), dout, scale)
+            for name, fn in (("flash_bwd_fused", ta.flash_bwd_fused),
+                             ("flash_bwd_dkv", ta.flash_bwd_dkv), ("flash_bwd_dq", ta.flash_bwd_dq)):
+                got = fn(*args_r)
+                bits[f"{name}_{tag}"] = _digest(got if isinstance(got, tuple) else [got])
+            del out_r, lse_r, args_r, got
         shape = (rows // HEADS, HEADS, seq, HEAD_DIM)
         leaves = [t.view(shape).detach().requires_grad_() for t in (q, k, v)]
         times[f"sdpa_fwd_{tag}"] = _time_ms(torch, lambda: sdpa(*leaves), 10)
@@ -111,7 +142,8 @@ def _measure(tree: Path) -> dict:
             times[f"sdpa_fwd_{rows}x{seq}"] = _time_ms(torch, lambda: sdpa(*leaves), 10)
         del q, k, v
     times.update(_measure_mlp(torch, g))
-    return {"tree": str(tree), "device": torch.cuda.get_device_name(0), "ms": times}
+    return {"tree": str(tree), "device": torch.cuda.get_device_name(0), "ms": times,
+            "bits": bits}
 
 
 def _measure_mlp(torch, g) -> dict:
@@ -174,6 +206,11 @@ def main() -> int:
     print(f"{'kernel (ms)':34s}" + "".join(f"{Path(r['tree']).name or '.':>14s}" for r in runs))
     for name in names:
         print(f"{name:34s}" + "".join(f"{r['ms'].get(name, float('nan')):14.4f}" for r in runs))
+    print(f"{'output bits (sha256 prefix)':34s}" + "".join(f"{'':>14s}" for _ in runs))
+    for name in runs[0]["bits"]:
+        digests = [r["bits"].get(name, "-") for r in runs]
+        same = "same in every tree" if len(set(digests)) == 1 else "differ"
+        print(f"{name:34s}" + "".join(f"{d[:12]:>14s}" for d in digests) + f"  {same}")
     return 0
 
 

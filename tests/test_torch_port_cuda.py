@@ -477,6 +477,23 @@ def test_flash_bwd_fused_kernel_repeats_bit_for_bit(card):
     assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
+@pytest.mark.parametrize("seq,hd", [(1024, 64), (300, 16), (1100, 32), (200, 128)])
+def test_flash_split_kernels_repeat_and_share_the_fused_dk_dv_bits(card, seq, hd):
+    # the dk/dv kernel is the fused kernel's body without its dq: the same
+    # instructions, so the same bits; neither split kernel uses atomics
+    q, k, v, dout, lengths = _flash_inputs(card, 8, 4, seq, hd, 41 + seq)
+    lengths[3:8] = torch.tensor([1, 64, 65, seq - 1, seq // 2], dtype=torch.int32, device=card)
+    out, lse = ta.flash_fwd_single(q, k, v, lengths, 4, hd**-0.5)
+    args = (q, k, v, lengths, 4, lse, ta.flash_delta(out, dout), dout, hd**-0.5)
+    _dq, fused_dk, fused_dv = ta.flash_bwd_fused(*args)
+    first, second = ta.flash_bwd_dkv(*args), ta.flash_bwd_dkv(*args)
+    dq_first, dq_second = ta.flash_bwd_dq(*args), ta.flash_bwd_dq(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(first[0], fused_dk) and torch.equal(first[1], fused_dv)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    assert torch.equal(dq_first, dq_second)
+
+
 # ---- grouped recurrences: the three inference kernels ------------------------
 
 RNN_SHAPES = [  # T, G, B, D, H: small and ragged (B, T not multiples of 8, H not of 32), full width

@@ -137,6 +137,35 @@ def test_flash_routes_follow_the_reference_thresholds(monkeypatch, padded, block
     assert (ta.SINGLE_K_MAX, ta.FUSED_BWD_MAX) == (pa._single_k_max(), pa._fused_bwd_max())
 
 
+# the reference's five routing variables: a value that moves its route, and
+# the reference's reading of it
+REFERENCE_KNOBS = {
+    "MSFA_FLASH_PACKED": ("0", lambda: not pa.packed_route_ok(512, 4, 64)),
+    "MSFA_FLASH_PACKED_MAX": ("256", lambda: not pa.packed_route_ok(512, 4, 64)),
+    "MSFA_FLASH_SINGLE_K_MAX": ("0", lambda: pa._single_k_max() == 0),
+    "MSFA_FLASH_SINGLE_K_BQ": ("128", lambda: pa._env_int("MSFA_FLASH_SINGLE_K_BQ", 512) == 128),
+    "MSFA_FLASH_FUSED_BWD_MAX": ("4096", lambda: pa._fused_bwd_max() == 4096),
+}
+
+
+@pytest.mark.parametrize("name", sorted(REFERENCE_KNOBS))
+def test_flash_routes_ignore_the_reference_environment_variables(monkeypatch, name):
+    # the port reads none of them (ops/attention.py's docstring): a sweep that
+    # sets one moves the reference's route and leaves the port's where it was
+    for knob in REFERENCE_KNOBS:
+        monkeypatch.delenv(knob, raising=False)
+
+    def port_routes():
+        return ([ta.flash_routes(n) for n in (512, 1024, 1536, 2048, 4096)],
+                [ta.packed_route_ok(n, 4, 64) for n in (256, 512, 520)])
+
+    before = port_routes()
+    value, reference_moved = REFERENCE_KNOBS[name]
+    monkeypatch.setenv(name, value)
+    assert reference_moved()
+    assert port_routes() == before
+
+
 @pytest.mark.parametrize("route", ["single", "tiled"])
 @pytest.mark.parametrize("seq,heads,hd", [(24, 2, 16), (100, 4, 8), (512, 2, 16)])
 def test_flash_self_attention_equals_the_packed_layout(route, seq, heads, hd):

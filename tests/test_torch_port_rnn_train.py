@@ -235,6 +235,8 @@ def test_build_encoder_refuses_unported_per_encoder_keys(key, value, item):
     (["parallel.zero_optimizer=true"], ValueError, "require parallel.num_devices > 1"),
     (["parallel.num_devices=4", "parallel.model_parallel=3", "model.moe_experts=4"], ValueError,
      r"model.moe_experts \(4\) must divide evenly"),
+    (["training.prng_impl=threefy"], ValueError,
+     "Unknown training.prng_impl 'threefy'; expected threefry or rbg"),
 ])
 def test_trainer_refuses_unported_layouts(overrides, error, match):
     small = ["model.hidden_dim=16", "model.output_dim=8"]
@@ -244,3 +246,12 @@ def test_trainer_refuses_unported_layouts(overrides, error, match):
     for ok in ([], ["parallel.num_devices=auto"], ["parallel.num_devices=null"],
                ["parallel.num_devices=1", "training.remat=false"]):
         tt.check_layout(load_config(REPO / "config" / "base.yaml", small + ok))
+
+
+@pytest.mark.parametrize("impl", ["threefry", "rbg", "unsafe_rbg"])
+def test_trainer_takes_the_reference_prng_impls(impl):
+    # the reference's three generators build a Trainer; in the port the key
+    # picks nothing (check_layout's docstring)
+    small = ["model.hidden_dim=16", "model.output_dim=8", f"training.prng_impl={impl}"]
+    trainer = tt.Trainer(load_config(REPO / "config" / "base.yaml", small), device="cpu")
+    assert trainer.config.training.prng_impl == impl

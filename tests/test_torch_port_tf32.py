@@ -1,8 +1,9 @@
 """The precision scheme of the port's tensor-core kernels, emulated on the CPU.
 
 ``flash_fwd_single``, ``flash_fwd_tiled``, ``packed_attention_fwd``,
-``packed_attention_bwd``, ``flash_bwd_fused``, ``ffw_ln_fwd``, ``ffw_ln_bwd``
-and ``proj_ln_bwd`` take each f32 product as three TF32 tensor-core products
+``packed_attention_bwd``, ``flash_bwd_fused``, ``flash_bwd_dkv``,
+``flash_bwd_dq``, ``ffw_ln_fwd``, ``ffw_ln_bwd`` and ``proj_ln_bwd`` take
+each f32 product as three TF32 tensor-core products
 (``ops/csrc/tf32_mma.cuh``): x = hi + lo, with
 hi = x rounded to TF32 (half a TF32 ulp added to the bits, the low 13 bits
 cleared) and lo = x - hi, of which the tensor core reads the top 19 bits; then
@@ -12,9 +13,9 @@ scheme. The kernels' arithmetic, emulated so, stays within the limits
 ``chip_smoke.py`` holds the kernels to on the card against the plain versions:
 1e-4 max abs for the attention forwards, 1e-4 of the largest magnitude for the
 backwards and the residual-LN kernels. One TF32 product per f32 product is
-printed beside it; it misses them. The fused attention backward's emulation is
-also held against the JAX package's fused backward route
-(``flash_self_attention``'s VJP in interpret mode), and the residual-LN
+printed beside it; it misses them. The fused and the split attention
+backwards' emulations are also held against the JAX package's routes of the
+same name (``flash_self_attention``'s VJP in interpret mode), and the residual-LN
 kernels' against ``fused_mlp_residual_ln`` and ``fused_proj_residual_ln``
 there.
 """
@@ -125,6 +126,30 @@ def _flash_bwd_fused(q, k, v, lengths, heads, lse, delta, dout, scale, mm):
         dk = dk + mm(dst[:, :, tile], q[:, tile])
         dq = dq + mm(dst[:, tile].transpose(1, 2), k[:, tile])  # key tile t0's partial
     return dq * scale, dk * scale, dv
+
+
+def _flash_bwd_split(q, k, v, lengths, heads, lse, delta, dout, scale, mm):
+    """The split route's arithmetic -> ``(dq, dk, dv)``. dq is
+    ``flash_bwd_dq``'s: per 64-row query tile (each query row's sums stand
+    alone, so all tiles at once), S = q k^T and dP = dout v^T, p and ds from
+    them, then each 64-key tile's ds k taken alone (the kernel's fresh
+    accumulator) and added in f32 in key-tile order, sm_scale last; all
+    products through ``mm``. dk and dv are ``_flash_bwd_fused``'s by
+    construction: ``flash_bwd_dkv`` runs the fused kernel's body with its dq
+    compiled out, the same instructions for dk and dv."""
+    seq = q.shape[1]
+    lens = lengths.long().repeat_interleave(heads)
+    key_ok = (torch.arange(seq)[None, :] < lens[:, None])[:, None, :]  # [BH, 1, Tk]
+    lse_q = lse[:, :, None]  # [BH, Tq, 1]
+    keep = key_ok & (lse_q > ta.NEG_INF / 2)
+    p = torch.where(keep, torch.exp(mm(q, k.transpose(1, 2)) * scale - lse_q), 0.0)
+    ds = p * (mm(dout, v.transpose(1, 2)) - delta[:, :, None])
+    dq = torch.zeros_like(q)
+    for k0 in range(0, seq, TILE):
+        keys = slice(k0, k0 + TILE)
+        dq = dq + mm(ds[:, :, keys], k[:, keys])  # key tile k0's product
+    _dq, dk, dv = _flash_bwd_fused(q, k, v, lengths, heads, lse, delta, dout, scale, mm)
+    return dq * scale, dk, dv
 
 
 def _packed_bwd(qkv, lengths, out, lse, dout, heads, scale, mm):
@@ -265,6 +290,53 @@ def test_flash_fused_backward_3xtf32_matches_the_jax_fused_route(monkeypatch):
         w = np.asarray(w).reshape(batch * heads, seq, d)
         err = np.abs(g.numpy() - w).max() / np.abs(w).max()
         print(f"d{name}: emulated flash_bwd_fused vs the JAX fused route, rel err {err:.3e}")
+        assert err < GRAD_TOL, f"d{name}"
+
+
+def test_flash_split_backward_dq_3xtf32_holds_the_f32_limit():
+    rng = np.random.default_rng(10)
+    heads, seq, d = 1, 1024, 64
+    q, k, v, dout = _flash_case(rng, 2, seq, d)
+    lengths = torch.tensor([1024, 613], dtype=torch.int32)
+    scale = d**-0.5
+    out, lse = ta.flash_attention_reference(q, k, v, lengths, heads, scale)
+    delta = (dout * out).sum(-1)
+    want = ta.flash_dq_reference(q, k, v, lengths, heads, lse, delta, dout, scale)
+    errs = {}
+    for name, mm in (("3xTF32", _mm3), ("1xTF32", _mm1)):
+        got = _flash_bwd_split(q, k, v, lengths, heads, lse, delta, dout, scale, mm)[0]
+        errs[name] = ((got - want).abs().max() / want.abs().max()).item()
+    print(f"flash split backward dq, BH=2 T=1024 d=64, max abs err over the largest magnitude: "
+          f"3xTF32 {errs['3xTF32']:.3e}, 1xTF32 {errs['1xTF32']:.3e} (limit {GRAD_TOL})")
+    assert errs["3xTF32"] < GRAD_TOL
+    assert errs["3xTF32"] * 10 < errs["1xTF32"]
+
+
+def test_flash_split_backward_3xtf32_matches_the_jax_split_route(monkeypatch):
+    # the reference's split pair (_dkv_kernel, _dq_kernel), pinned through its
+    # environment knob with blocks smaller than T; the port's router agrees
+    monkeypatch.setenv("MSFA_FLASH_FUSED_BWD_MAX", "0")
+    batch, heads, seq, d, block = 2, 1, 256, 64, 128
+    assert ta.flash_routes(seq, block, block, fused_bwd_max=0)[1] == "split"
+    assert not seq <= max(block, pa._fused_bwd_max())  # the reference's condition
+    rng = np.random.default_rng(11)
+    q, k, v, dout = (a.numpy().reshape(batch, heads, seq, d) for a in _flash_case(rng, 2, seq, d))
+    lens = np.array([256, 150], np.int32)
+    _out, vjp = jax.vjp(
+        lambda a, b, c: pa.flash_self_attention(a, b, c, jnp.asarray(lens), block_q=block,
+                                                block_k=block, interpret=True),
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    want = vjp(jnp.asarray(dout))
+    flat = [torch.from_numpy(a.reshape(batch * heads, seq, d)) for a in (q, k, v, dout)]
+    lengths = torch.from_numpy(lens)
+    scale = d**-0.5
+    out, lse = _flash_fwd(*flat[:3], lengths, heads, scale, _mm3, pv_keys=16)
+    delta = (flat[3] * out).sum(-1)
+    got = _flash_bwd_split(*flat[:3], lengths, heads, lse, delta, flat[3], scale, _mm3)
+    for name, g, w in zip("qkv", got, want):
+        w = np.asarray(w).reshape(batch * heads, seq, d)
+        err = np.abs(g.numpy() - w).max() / np.abs(w).max()
+        print(f"d{name}: emulated split backward vs the JAX split route, rel err {err:.3e}")
         assert err < GRAD_TOL, f"d{name}"
 
 
