@@ -26,19 +26,20 @@ Phases (any failure exits non-zero, and no result line is printed):
    is not a multiple of 4. Backward checks compare every output by its max
    abs error relative to its largest magnitude. Times with CUDA events:
    kernel, plain twin, the bound, and, where one PyTorch call computes the
-   same function, that call. The ten kernels whose products run as 3xTF32
+   same function, that call. The twelve kernels whose products run as 3xTF32
    on the tensor cores (``packed_attention_fwd``, ``packed_attention_bwd``,
    ``flash_fwd_single``, ``flash_fwd_tiled``, ``flash_bwd_fused``,
    ``flash_bwd_dkv``, ``flash_bwd_dq``, ``ffw_ln_fwd``, ``ffw_ln_bwd``,
-   ``proj_ln_bwd``) carry both bounds, a
+   ``proj_ln_bwd``, ``fused_mlp_fwd``, ``fused_mlp_bwd``) carry both bounds, a
    third of the TF32 peak (the unit they run on) and the CUDA cores' f32
    peak, with their share of the first; ``nvcc -Xptxas -v``'s registers,
    shared memory and spills for them are printed at setup. The two
-   residual-LN backwards run twice on the same inputs, bit for bit; the FFW
-   forward's hidden equals the backward's bit for bit (one kernel), and the
-   FFW backward is held to its twin on the forward kernel's ReLU branches,
-   each branch that differs from the twin's own lying within rounding of
-   zero.
+   residual-LN backwards and the ``fused_mlp`` backward run twice on the same
+   inputs, bit for bit; the hidden of both FFW residual-LN directions and of
+   both ``fused_mlp`` directions is one body's bits on the same inputs, and
+   both FFW backwards are held to their twins on the forward kernel's ReLU
+   branches, each branch that differs from the twin's own lying within
+   rounding of zero.
 3. Serve: ``MultimodalFusionModel.from_config(config/base.yaml)`` with seeded
    random weights at full width, ``serving.make_serving_fn`` on batch-64
    requests of real windows (all modalities; one modality missing; short
@@ -60,7 +61,8 @@ Phases (any failure exits non-zero, and no result line is printed):
    gradient), and the step is timed beside the default one. Then the same at
    ``model.fused_mlp=true model.fused_mlp_ln=false``: 4 micro-steps must
    launch the ``fused_mlp`` pair 4 times each and the LayerNorm kernels
-   never, and one micro-step is held against the plain path.
+   never, and one micro-step is held against the plain path; that route's
+   step time and device time by kernel family.
 5. Fit: ``Trainer.fit`` on the real train/val/test splits for 2 epochs at the
    default config (checkpoints and ``results.json`` in a temporary
    directory): finite history, top-k and ``last`` checkpoints on disk, the
@@ -155,16 +157,16 @@ FIT_EPOCHS = 2
 # peaks of one H100 SXM (NVIDIA data sheet): CUDA-core FP32, dense TF32 on
 # the tensor cores, HBM3. A kernel that takes each f32 product as three TF32
 # products (3xTF32: the packed and both flash forwards, the packed, the fused
-# and the split attention backwards, the FFW residual-LN pair and the
-# projection residual-LN backward) is bounded by a third of the TF32 rate for
-# the same f32 operation count
+# and the split attention backwards, the FFW residual-LN pair, the
+# projection residual-LN backward and the feed-forward pair) is bounded by a
+# third of the TF32 rate for the same f32 operation count
 PEAK_F32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
 PEAK_3XTF32_FLOPS = PEAK_TF32_FLOPS / 3
 PEAK_BYTES = 3.35e12
 # the kernels whose products run as 3xTF32 on the tensor cores
-# (table row -> fragments of its kernels' names, for the ptxas report; the
-# FFW pair shares ffw_ln_hidden_kernel)
+# (table row -> fragments of its kernels' names, for the ptxas report; each
+# FFW pair's directions share its hidden kernel)
 TENSOR_CORE_KERNELS = {"flash_fwd_single": ("flash_fwd_single_kernel",),
                        "flash_fwd_tiled": ("flash_fwd_tiled_kernel",),
                        "packed_attention_bwd": ("bwd_kernel",),
@@ -174,7 +176,9 @@ TENSOR_CORE_KERNELS = {"flash_fwd_single": ("flash_fwd_single_kernel",),
                        "flash_bwd_dq": ("flash_dq_kernel",),
                        "ffw_ln_fwd": ("ffw_ln_hidden_kernel", "ffw_ln_fwd_kernel"),
                        "ffw_ln_bwd": ("ffw_ln_bwd",),
-                       "proj_ln_bwd": ("proj_ln_bwd",)}
+                       "proj_ln_bwd": ("proj_ln_bwd",),
+                       "fused_mlp_fwd": ("fused_mlp_hidden_kernel", "fused_mlp_fwd_kernel"),
+                       "fused_mlp_bwd": ("fused_mlp_bwd",)}
 # stated tolerances: f32 on both sides; the kernels sum in another order
 # (online softmax across 64-key tiles, per-thread dot products)
 ATTN_TOL = 1e-4
@@ -255,7 +259,7 @@ def ptxas_report(build):
     memory and spills."""
     tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_ptxas_")
     sources = ("flash_attention", "packed_attention_bwd", "packed_attention",
-               "flash_attention_bwd", "ffw_ln", "proj_ln")
+               "flash_attention_bwd", "ffw_ln", "proj_ln", "ffw")
     procs = [subprocess.Popen(
         [build._nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-o", f"{tmp.name}/{name}.so",
          str(build.CSRC_DIR / f"{name}.cu")],
@@ -278,12 +282,14 @@ def ptxas_report(build):
                           flush=True)
         tmp.cleanup()
         # dynamic shared memory, which ptxas does not see, of the newest entries
-        for lib, names in (("ffw_ln", ("hidden", "fwd", "bwd_ln", "bwd_dpre", "bwd_dx",
-                                       "bwd_dw")),
-                           ("proj_ln", ("bwd_ln", "bwd_da", "bwd_dw"))):
+        for lib, symbol, names in (
+                ("ffw_ln", "msfa_ffw_ln_smem_bytes",
+                 ("hidden", "fwd", "bwd_ln", "bwd_dpre", "bwd_dx", "bwd_dw")),
+                ("proj_ln", "msfa_proj_ln_bwd_smem_bytes", ("bwd_ln", "bwd_da", "bwd_dw")),
+                ("fused_mlp", "msfa_ffw_smem_bytes",
+                 ("hidden", "fwd", "bwd_dpre", "bwd_dx", "bwd_dw"))):
             sizes = (ctypes.c_int * len(names))()
-            symbol = "msfa_ffw_ln_smem_bytes" if lib == "ffw_ln" else "msfa_proj_ln_bwd_smem_bytes"
-            if getattr(build.library(lib), symbol)(256, sizes):
+            if getattr(build.library("ffw" if lib == "fused_mlp" else lib), symbol)(256, sizes):
                 raise RuntimeError(f"{symbol} failed")
             print(f"  shared memory per block, {lib}_*_kernel at D=256: " + ", ".join(
                 f"{n} {b} bytes" for n, b in zip(names, sizes)), flush=True)
@@ -490,14 +496,31 @@ def _ln_case(torch, n, d, f, keep, seed):
     return w, masks
 
 
+def _forward_branches(torch, family, x, w1, b1, mask, inv_keep, hd):
+    """The twin's pre = x W1 + b1 and the ReLU branches the kernel's forward
+    took (``hd > 0`` where the mask keeps the unit) -> (pre, live, branches
+    that differ from the twin's own). The kernel rounds pre otherwise than the
+    twin's f32 product, so each branch that differs must lie within (D + 64)
+    2^-23 |x_n| |W1[:, f]| of zero in the twin's pre (a bound on the gap
+    between two f32-accurate sums)."""
+    pre = x @ w1 + b1
+    kept = torch.full_like(pre, inv_keep != 0.0, dtype=torch.bool)
+    if mask is not None:
+        kept &= mask.bool()
+    live = torch.where(kept, hd > 0, pre > 0)
+    off = live != (pre > 0)
+    band = (x.shape[1] + 64) * 2.0**-23 * x.norm(dim=1)[:, None] * w1.norm(dim=0)[None, :]
+    if torch.any(off & (pre.abs() >= band)):
+        raise AssertionError(f"{family}: a hidden unit's ReLU branch differs from the twin's "
+                             "outside rounding of zero")
+    return pre, live, int(off.sum().item())
+
+
 def _ffw_ln_bwd_check(torch, mlp, args, dout, inv_keep):
     """``ffw_ln_bwd`` against its twin on the forward kernel's ReLU branches
     -> (rel err, branches that differ from the twin's own, rel err against
     the twin on its own branches). Both directions launch one hidden kernel,
-    so the kernel's backward takes the branch of the kernel's forward, which
-    rounds pre = x W1 + b1 otherwise than the twin's f32 product: each branch
-    that differs must lie within (D + 64) 2^-23 |x_n| |W1[:, f]| of zero in the
-    twin's pre (a bound on the gap between two f32-accurate sums), and the
+    so the kernel's backward takes the branch of the kernel's forward; the
     gradients must match the twin's taken on the kernel's branches."""
     x, w1, b1, w2, b2, gamma, beta, fmask, rmask = args
     _out, fwd_hd = mlp._ffw_ln_fwd_launch(*args, inv_keep, 1e-6)
@@ -506,23 +529,23 @@ def _ffw_ln_bwd_check(torch, mlp, args, dout, inv_keep):
     if not torch.equal(fwd_hd, bwd_hd):
         raise AssertionError("ffw_ln: the forward's hidden and the backward's differ")
     del fwd_hd
-    pre = x @ w1 + b1
-    kept = torch.full_like(pre, inv_keep != 0.0, dtype=torch.bool)
-    if fmask is not None:
-        kept &= fmask.bool()
-    live = torch.where(kept, bwd_hd > 0, pre > 0)
+    pre, live, flips = _forward_branches(torch, "ffw_ln", x, w1, b1, fmask, inv_keep, bwd_hd)
     del bwd_hd
-    off = live != (pre > 0)
-    band = (x.shape[1] + 64) * 2.0**-23 * x.norm(dim=1)[:, None] * w1.norm(dim=0)[None, :]
-    if torch.any(off & (pre.abs() >= band)):
-        raise AssertionError("ffw_ln: a hidden unit's ReLU branch differs from the twin's "
-                             "outside rounding of zero")
-    flips = int(off.sum().item())
     on_branch = max(rel_err(g, w) for g, w in zip(grads, mlp._ffw_ln_bwd_plain(
         x, w1, pre, live, w2, b2, gamma, fmask, rmask, dout, inv_keep, 1e-6)))
     own = max(rel_err(g, w) for g, w in zip(grads, mlp.ffw_ln_bwd_reference(
         *args, dout, inv_keep, 1e-6)))
     return on_branch, flips, own
+
+
+def _digest(tensors) -> str:
+    """sha256 prefix of the tensors' bytes, in order: equal digests, equal bits."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()[:16]
 
 
 def check_ln_kernels(torch, mlp, rows):
@@ -577,7 +600,8 @@ def check_ln_kernels(torch, mlp, rows):
         torch.cuda.synchronize()
         if not all(torch.equal(a, b) for a, b in zip(first, second)):
             raise AssertionError(f"{family}_bwd: two runs on the same inputs differ")
-        print(f"  {family}_bwd N={rows} keep=0.8: two runs equal bit for bit", flush=True)
+        print(f"  {family}_bwd N={rows} keep=0.8: two runs equal bit for bit; output digests "
+              f"fwd {_digest([fwd(*args, inv_keep, 1e-6)])} bwd {_digest(first)}", flush=True)
         del first, second
         n = rows
         if family == "proj_ln":  # rows of f32 moved: x, a, out | x, a, dout, dx, da
@@ -619,38 +643,79 @@ def check_ln_kernels(torch, mlp, rows):
     return [out_rows[k] for k in ("proj_ln_fwd", "proj_ln_bwd", "ffw_ln_fwd", "ffw_ln_bwd")]
 
 
+def _fused_mlp_bwd_check(torch, mlp, args, dout, inv_keep):
+    """``fused_mlp_bwd`` against its twin on the forward kernel's ReLU
+    branches, as ``_ffw_ln_bwd_check`` -> (rel err, branches that differ from
+    the twin's own, rel err against the twin on its own branches, the
+    hidden)."""
+    x, w1, b1, w2, _b2, mask = args
+    _out, fwd_hd = mlp._fused_mlp_fwd_launch(*args, inv_keep)
+    grads, bwd_hd = mlp._fused_mlp_bwd_launch(x, w1, b1, w2, mask, dout, inv_keep)
+    torch.cuda.synchronize()
+    if not torch.equal(fwd_hd, bwd_hd):
+        raise AssertionError("fused_mlp: the forward's hidden and the backward's differ")
+    del fwd_hd
+    pre, live, flips = _forward_branches(torch, "fused_mlp", x, w1, b1, mask, inv_keep, bwd_hd)
+    on_branch = max(rel_err(g, w) for g, w in zip(grads, mlp._fused_mlp_bwd_plain(
+        x, w1, pre, live, w2, mask, dout, inv_keep)))
+    own = max(rel_err(g, w) for g, w in zip(grads, mlp.fused_mlp_bwd_reference(
+        x, w1, b1, w2, mask, dout, inv_keep)))
+    return on_branch, flips, own, bwd_hd
+
+
 def check_fused_mlp(torch, mlp, rows):
-    """The feed-forward kernel pair vs its twins; returns two table rows."""
+    """The feed-forward kernel pair vs its twins (the backward on the forward
+    kernel's ReLU branches), its hidden against the FFW residual-LN kernels'
+    and its backward twice; returns two table rows."""
     d, f = 256, 2048
     errs = [0.0, 0.0]
     timed = None
     for n, keep in ((rows, 0.8), (rows, None), (rows, 0.0), (rows - 25, 0.8)):
-        w, (mask, _rmask) = _ln_case(torch, n, d, f, keep, seed=7 + n + int(10 * (keep or 1)))
+        w, (mask, rmask) = _ln_case(torch, n, d, f, keep, seed=7 + n + int(10 * (keep or 1)))
         x, w1, b1, w2, b2 = (w(n, d), w(d, f, s=d**-0.5), w(f, s=0.1), w(f, d, s=f**-0.5),
                              w(d, s=0.1))
+        args = (x, w1, b1, w2, b2, mask)
         inv_keep = mlp._inv_keep(1.0 if keep is None else keep)
         dout = w(n, d)
-        out = mlp.fused_mlp_fwd(x, w1, b1, w2, b2, mask, inv_keep)
-        grads = mlp.fused_mlp_bwd(x, w1, b1, w2, mask, dout, inv_keep)
+        out = mlp.fused_mlp_fwd(*args, inv_keep)
         torch.cuda.synchronize()
-        e_fwd = rel_err(out, mlp.fused_mlp_fwd_reference(x, w1, b1, w2, b2, mask, inv_keep))
-        e_bwd = max(rel_err(got, want) for got, want in zip(
-            grads, mlp.fused_mlp_bwd_reference(x, w1, b1, w2, mask, dout, inv_keep)))
+        e_fwd = rel_err(out, mlp.fused_mlp_fwd_reference(*args, inv_keep))
         if keep == 0.0 and not torch.equal(out, b2.expand_as(out)):
             raise AssertionError("fused_mlp: keep 0 does not give an exactly zero hidden")
+        e_bwd, flips, own, hd = _fused_mlp_bwd_check(torch, mlp, args, dout, inv_keep)
+        note = ""
+        if timed is None:  # one hidden body in all four launches
+            _out, ln_hd = mlp._ffw_ln_fwd_launch(x, w1, b1, w2, b2, 1 + w(d, s=0.1), w(d, s=0.1),
+                                                 mask, rmask, inv_keep, 1e-6)
+            torch.cuda.synchronize()
+            if not torch.equal(hd, ln_hd):
+                raise AssertionError("fused_mlp's hidden and ffw_ln's differ")
+            note = "; = ffw_ln_fwd's hidden bit for bit"
+            del ln_hd
+            timed = (args, dout, inv_keep)
+        del hd
         print(f"  fused_mlp N={n} keep={keep}: rel err fwd={e_fwd:.3e} bwd={e_bwd:.3e} "
-              f"(tol {GRAD_TOL})", flush=True)
+              f"(tol {GRAD_TOL}) (forward's hidden = backward's bit for bit{note}; {flips} ReLU "
+              f"branches off the twin's, within rounding of zero; on the twin's own branches "
+              f"{own:.3e})", flush=True)
         errs = [max(errs[0], e_fwd), max(errs[1], e_bwd)]
-        if timed is None:
-            timed = (x, w1, b1, w2, b2, mask, dout, inv_keep)
     if max(errs) > GRAD_TOL:
         raise AssertionError(f"fused_mlp kernels disagree with their twins: {errs} > {GRAD_TOL}")
-    x, w1, b1, w2, b2, mask, dout, inv_keep = timed  # keep 0.8 at N = rows, as in training
+    args, dout, inv_keep = timed  # keep 0.8 at N = rows, as in training
+    x, w1, b1, w2, b2, mask = args
+    first = mlp.fused_mlp_bwd(x, w1, b1, w2, mask, dout, inv_keep)
+    second = mlp.fused_mlp_bwd(x, w1, b1, w2, mask, dout, inv_keep)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(first, second)):
+        raise AssertionError("fused_mlp_bwd: two runs on the same inputs differ")
+    print(f"  fused_mlp_bwd N={rows} keep=0.8: two runs equal bit for bit; output digests fwd "
+          f"{_digest([mlp.fused_mlp_fwd(*args, inv_keep)])} bwd {_digest(first)}", flush=True)
+    del first, second
     n = rows
     weights = 2 * d * f + f + d
     calls = {  # kernel, twin, operations, bytes (x, out | x, dout, dx; weights and their grads)
-        "fwd": (lambda: mlp.fused_mlp_fwd(x, w1, b1, w2, b2, mask, inv_keep),
-                lambda: mlp.fused_mlp_fwd_reference(x, w1, b1, w2, b2, mask, inv_keep),
+        "fwd": (lambda: mlp.fused_mlp_fwd(*args, inv_keep),
+                lambda: mlp.fused_mlp_fwd_reference(*args, inv_keep),
                 4.0 * n * d * f, 4.0 * (2 * n * d + weights) + n * f, 195),
         "bwd": (lambda: mlp.fused_mlp_bwd(x, w1, b1, w2, mask, dout, inv_keep),
                 lambda: mlp.fused_mlp_bwd_reference(x, w1, b1, w2, mask, dout, inv_keep),
@@ -660,15 +725,19 @@ def check_fused_mlp(torch, mlp, rows):
     for kind, (call, call_ref, flops, nbytes, line) in calls.items():
         ms = time_ms(call, iters=10)
         plain_ms = time_ms(call_ref, iters=10)
-        bound_ms, bound_by = bound(flops, nbytes)
-        print(f"  fused_mlp_{kind} ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} "
-              f"({bound_by}; {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)", flush=True)
-        out_rows.append({
+        row = {
             "name": f"fused_mlp_{kind}", "route": "cuda", "source": f"{PKG}/ops/csrc/ffw.cu",
             "replaces": f"{TPU_PKG}/ops/pallas_mlp.py:{line}",
             "max_abs_err": errs[0 if kind == "fwd" else 1], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-        })
+            "library_ms": None,
+        }
+        note = tensor_core_bounds(row, flops, nbytes)
+        print(f"  fused_mlp_{kind} ms={ms:.4f} plain_ms={plain_ms:.4f} {note} "
+              f"({row['bound_by']}; {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)", flush=True)
+        row["ms_by_kernel"] = kernel_times(torch, call, 5)
+        print(f"  fused_mlp_{kind} by kernel: " + ", ".join(
+            f"{k} {v:.4f} ms" for k, v in row["ms_by_kernel"].items()), flush=True)
+        out_rows.append(row)
     return out_rows
 
 
@@ -1374,10 +1443,10 @@ FAMILIES = (  # profiler kernel-name fragments -> family, first match wins
     ("ffw_ln_hidden", ("ffw_ln_hidden",)),  # launched by ffw_ln_fwd and ffw_ln_bwd
     ("ffw_ln_fwd", ("ffw_ln_fwd",)),
     ("ffw_ln_bwd", ("ffw_ln_bwd",)),
-    ("fused_mlp_fwd", ("ffw_fwd_kernel",)),
-    ("fused_mlp_bwd", ("ffw_bwd_kernel",)),
+    ("fused_mlp_hidden", ("fused_mlp_hidden",)),  # launched by fused_mlp_fwd and fused_mlp_bwd
+    ("fused_mlp_fwd", ("fused_mlp_fwd",)),
+    ("fused_mlp_bwd", ("fused_mlp_bwd",)),
     ("dropout_keep_mask", ("dropout_mask_kernel",)),
-    ("fused_mlp_bwd_sums", ("atb_partial", "reduce_splits", "colsum_partial")),
     ("fusion_head", ("fusion_head",)),
     ("rnn_train_fwd", ("lstm_train_fwd", "gru_train_fwd")),
     ("rnn_train_bwd", ("lstm_train_bwd", "gru_train_bwd")),
@@ -1410,10 +1479,11 @@ def kernel_times(torch, call, iters: int) -> dict:
     return dict(sorted(times.items(), key=lambda kv: -kv[1]))
 
 
-def profile(torch, run, iters: int, unit: str) -> None:
+def profile(torch, run, iters: int, unit: str) -> dict:
     """Device time by kernel family over ``iters`` calls of ``run(n)``
     (torch.profiler's CUDA activity), and the device's busy share of the
-    wall time."""
+    wall time; returns the families' ms per call of ``run`` with the device
+    total (``device``) and the busy share (``busy``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
@@ -1442,6 +1512,20 @@ def profile(torch, run, iters: int, unit: str) -> None:
                   flush=True)
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
         print(f"    top kernel {us / iters / 1e3:8.4f} ms/{unit}  {name[:110]}", flush=True)
+    return {**{k: us / iters / 1e3 for k, us in families.items() if us},
+            "device": busy / iters / 1e3, "busy": busy / wall_us}
+
+
+def profile_micro_steps(torch, step, split, idx, iters: int) -> dict:
+    """``profile`` over ``iters`` training micro-steps of ``step`` on the
+    batches ``idx`` in turn."""
+
+    def run(n):
+        for i in range(n):
+            step(split, idx[i % len(idx)])
+        torch.cuda.synchronize()
+
+    return profile(torch, run, iters, "micro-step")
 
 
 def _trainer(torch, overrides, weights=None):
@@ -1583,12 +1667,7 @@ def train_phase(torch, kernels, split, train_idx, smi):
         raise AssertionError(f"the same seed gave other losses: {losses} then {losses2}")
     step_p50(torch, step, split, idx, batch, "dropout_rng=auto (mask kernel)", smi)
 
-    def run(n):
-        for i in range(n):
-            step(split, idx[i % len(idx)])
-        torch.cuda.synchronize()
-
-    profile(torch, run, 8, "micro-step")
+    profile_micro_steps(torch, step, split, idx, 8)
     del trainer, step
 
     # fused_mlp without the combined LayerNorm kernel: the feed-forward pair
@@ -1607,6 +1686,7 @@ def train_phase(torch, kernels, split, train_idx, smi):
     if mlp_launches != want:
         raise AssertionError(f"fused_mlp route launch counts {mlp_launches} != {want}")
     step_p50(torch, mlp_step, split, idx, batch, "fused_mlp=true fused_mlp_ln=false", smi)
+    profile_micro_steps(torch, mlp_step, split, idx, 8)
     return launches, mlp_launches
 
 
@@ -1720,13 +1800,7 @@ def train_route(torch, kernels, overrides, split, idx, label, smi, want_per_step
         raise AssertionError(f"{label}: the same seed gave other losses: {losses} then {losses2}")
     del _step2
     step_p50(torch, step, split, idx, len(idx[0]), label, smi, iters=10)
-
-    def run(n):
-        for i in range(n):
-            step(split, idx[i % len(idx)])
-        torch.cuda.synchronize()
-
-    profile(torch, run, profile_steps, "micro-step")
+    profile_micro_steps(torch, step, split, idx, profile_steps)
     return launches
 
 
@@ -2082,13 +2156,7 @@ def rnn_phase(torch, kernels, split, modalities, stride, seed, smi, workdir: Pat
         del _step2
         step_p50(torch, step, split, idx32, RNN_TRAIN_B, label + " (training kernels)", smi,
                  iters=10)
-
-        def run(n):
-            for i in range(n):
-                step(split, idx32[i % len(idx32)])
-            torch.cuda.synchronize()
-
-        profile(torch, run, 4, "micro-step")
+        profile_micro_steps(torch, step, split, idx32, 4)
         out[f"train_{cell}512"] = launches
         del trainer, step
 

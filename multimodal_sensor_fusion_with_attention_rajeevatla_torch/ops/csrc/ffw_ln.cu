@@ -23,12 +23,14 @@
 //
 // Both directions are chains of products on the TF32 tensor cores at f32
 // accuracy (3xTF32), each a tile of tc_product.cuh's template with its own
-// epilogue; residual_ln.cuh holds the bodies shared with proj_ln.cu. The
+// epilogue; residual_ln.cuh holds the bodies shared with proj_ln.cu,
+// ffw_products.cuh those shared with the feed-forward pair (ffw.cu). The
 // hidden is an [N, F] operand in device memory (scratch the wrapper
 // allocates): the forward writes it once and reads it once (268 MB at the
 // training shape, ~0.08 ms), where the TPU kernel kept it on chip.
 //   hidden:   hd = relu(x W1 + b1) * fmask * inv_keep, 128-row x 64-column
-//             tiles: ffw_ln_hidden_kernel, launched by both directions
+//             tiles: ffw_ln_hidden_kernel, launched by both directions (the
+//             body of ffw.cu's hidden kernel too: the same bits)
 // Forward:
 //   fwd:      y = hd W2 + b2 on 64 whole rows; its epilogue is the residual
 //             and the LayerNorm (ln_fwd_tile)
@@ -50,57 +52,21 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "ffw_products.cuh"
 #include "residual_ln.cuh"
-#include "tc_product.cuh"
 
 namespace {
 
-namespace tc = msfa_tc;
+using namespace msfa_ffw;
 using namespace msfa_ln;
-
-// [N, F] products over k = D (hidden, dpre): 128 x 64 tiles, 8 warps
-using HiddenProduct = tc::TcProduct<128, 64, 4, 2, false, true>;  // x [n][d] . W1 [d][f]
-using DhdProduct = tc::TcProduct<128, 64, 4, 2, false, false>;    // dy [n][d] . (W2 [f][d])^T
-
-constexpr int kRowsF = 128;  // rows of a block in the [N, F] products
-constexpr int kColsF = 64;   // hidden columns of a block in the [N, F] products
-
-// the dropout scale of two neighbouring elements: mask * inv_keep, or 1 without a mask
-__device__ __forceinline__ float2 keep_scale2(const unsigned char* __restrict__ mask, long at,
-                                              float inv_keep) {
-  if (!mask) return make_float2(1.f, 1.f);
-  const uchar2 m = *reinterpret_cast<const uchar2*>(mask + at);
-  return make_float2((float)m.x * inv_keep, (float)m.y * inv_keep);
-}
 
 // hd = relu(x W1 + b1) * fmask * inv_keep for a 128-row x 64-column tile
 __global__ void __launch_bounds__(HiddenProduct::kThreads, 2)
 ffw_ln_hidden_kernel(const float* __restrict__ x, const float* __restrict__ w1,
                      const float* __restrict__ b1, const unsigned char* __restrict__ fmask,
                      float* __restrict__ hd, int N, int D, int F, float inv_keep) {
-  using P = HiddenProduct;
   extern __shared__ __align__(16) float smem[];
-  const int f0 = blockIdx.x * kColsF, n0 = blockIdx.y * kRowsF;
-  const P::A a{x + (long)n0 * D, D, N - n0, D};
-  const P::B b{w1 + f0, F, F - f0, D};
-  P::Acc acc;
-  P::run(a, b, D, smem, acc);
-#pragma unroll
-  for (int i = 0; i < P::kMT; ++i)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {  // rows g and g + 8 of the m16 tile
-      const int n = n0 + P::row(i, 2 * h);
-      if (n >= N) continue;
-#pragma unroll
-      for (int j = 0; j < P::kNT; ++j) {
-        const int f = f0 + P::col(j, 0);
-        const long at = (long)n * F + f;
-        const float2 fs = keep_scale2(fmask, at, inv_keep);
-        const float p0 = acc[i][j][2 * h] + b1[f], p1 = acc[i][j][2 * h + 1] + b1[f + 1];
-        *reinterpret_cast<float2*>(hd + at) =
-            make_float2(fmaxf(p0, 0.f) * fs.x, fmaxf(p1, 0.f) * fs.y);
-      }
-    }
+  hidden_tile(x, w1, b1, fmask, hd, N, D, F, inv_keep, smem);
 }
 
 // out = LayerNorm(x + (hd W2 + b2) * rmask * inv_keep) for 64 whole rows
@@ -137,57 +103,8 @@ ffw_ln_bwd_dpre_kernel(const float* __restrict__ dy, const float* __restrict__ w
                        const float* __restrict__ hd, const unsigned char* __restrict__ fmask,
                        float* __restrict__ dpre, float* __restrict__ part, int N, int D, int F,
                        float inv_keep) {
-  using P = DhdProduct;
   extern __shared__ __align__(16) float smem[];
-  const int f0 = blockIdx.x * kColsF, n0 = blockIdx.y * kRowsF;
-  const P::A a{dy + (long)n0 * D, D, N - n0, D};
-  const P::B b{w2 + (long)f0 * D, D, F - f0, D};  // (W2^T)(d, f) = W2[f][d]
-  P::Acc acc;
-  P::run(a, b, D, smem, acc);
-  float cs[P::kNT][2];
-#pragma unroll
-  for (int j = 0; j < P::kNT; ++j) cs[j][0] = cs[j][1] = 0.f;
-#pragma unroll
-  for (int i = 0; i < P::kMT; ++i)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int n = n0 + P::row(i, 2 * h);
-      if (n >= N) continue;
-#pragma unroll
-      for (int j = 0; j < P::kNT; ++j) {
-        const long at = (long)n * F + f0 + P::col(j, 0);
-        const float2 fs = keep_scale2(fmask, at, inv_keep);
-        const float2 h2 = *reinterpret_cast<const float2*>(hd + at);
-        const float d0 = h2.x > 0.f ? acc[i][j][2 * h] * fs.x : 0.f;
-        const float d1 = h2.y > 0.f ? acc[i][j][2 * h + 1] * fs.y : 0.f;
-        *reinterpret_cast<float2*>(dpre + at) = make_float2(d0, d1);
-        cs[j][0] += d0;
-        cs[j][1] += d1;
-      }
-    }
-  // over the warp's rows (lanes of one t), then over the 4 warps of a column, in order
-#pragma unroll
-  for (int j = 0; j < P::kNT; ++j)
-#pragma unroll
-    for (int e = 0; e < 2; ++e)
-#pragma unroll
-      for (int off = 4; off < 32; off <<= 1)
-        cs[j][e] += __shfl_xor_sync(0xffffffffu, cs[j][e], off);
-  float* Red = smem;  // [4][64]
-  if ((threadIdx.x & 31) < 4) {
-#pragma unroll
-    for (int j = 0; j < P::kNT; ++j)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) Red[P::warp_row0() / 32 * kColsF + P::col(j, e)] = cs[j][e];
-  }
-  __syncthreads();
-  const int c = threadIdx.x;
-  if (c < kColsF && f0 + c < F) {
-    float s = 0.f;
-#pragma unroll
-    for (int w = 0; w < kRowsF / 32; ++w) s += Red[w * kColsF + c];
-    part[(long)blockIdx.y * F + f0 + c] = s;
-  }
+  dpre_tile(dy, w2, hd, fmask, dpre, part, N, D, F, inv_keep, smem);
 }
 
 // dx = dr + dpre W1^T for 64 whole rows (dx holds dr on entry)

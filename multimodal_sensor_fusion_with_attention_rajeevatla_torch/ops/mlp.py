@@ -12,8 +12,9 @@ Counterpart of the JAX package's ``ops/pallas_mlp.py``:
   the port's own: it depends on (seed, purpose, element index) and equals
   neither the TPU generator's nor ``torch.rand``'s;
 - ``fused_mlp`` / ``transformer_ffw``:
-  ``dropout(relu(x @ w1 + b1)) @ w2 + b2`` with the ``[N, d_ff]`` hidden kept
-  out of device memory in the forward;
+  ``dropout(relu(x @ w1 + b1)) @ w2 + b2``; its two directions launch the
+  hidden kernel of ``fused_mlp_residual_ln`` (the same bits) and the
+  product kernels of its backward;
 - ``fused_proj_residual_ln``: ``LayerNorm(x + dropout(a @ wo + bo))``, the
   layer's first half after attention;
 - ``fused_mlp_residual_ln``: ``LayerNorm(x + dropout(ffw(x)))``, the second
@@ -44,10 +45,11 @@ import torch
 from . import _build
 
 KERNEL_WIDTHS = (32, 64, 128, 256)  # d_model the kernels are instantiated for
-FFW_CHUNK = 64  # d_ff must be a multiple of the kernel's hidden chunk
-# the residual-LN kernels' tensor-core products (csrc/ffw_ln.cu, the
-# projection's backward in csrc/proj_ln.cu): rows per block of the [N, d_ff]
-# and the [N, d] products, and the weight gradients' [in, out] tile
+FFW_CHUNK = 64  # d_ff must be a multiple of the hidden kernel's column tile
+# the feed-forward and residual-LN kernels' tensor-core products (csrc/ffw.cu,
+# csrc/ffw_ln.cu, the projection's backward in csrc/proj_ln.cu): rows per
+# block of the [N, d_ff] and the [N, d] products, and the weight gradients'
+# [in, out] tile
 ROWS_F = 128
 ROWS_D = 64
 GRAD_TILE = (128, 64)
@@ -233,12 +235,21 @@ def fused_mlp_bwd_reference(x, w1, b1, w2, mask, dout, inv_keep: float):
     ``(dx, dw1, db1, dw2)``; ``db2`` is a column sum of ``dout`` taken by
     the caller."""
     pre = x @ w1 + b1
+    return _fused_mlp_bwd_plain(x, w1, pre, pre > 0.0, w2, mask, dout, inv_keep)
+
+
+def _fused_mlp_bwd_plain(x, w1, pre, live, w2, mask, dout, inv_keep: float):
+    """The plain feed-forward backward at the pre-activations ``pre``
+    [N, d_ff], taking the ReLU branch ``live`` (``pre > 0`` for the plain
+    forward's own; see ``_ffw_ln_bwd_plain``)."""
     scale = _scale(mask, inv_keep)
-    hd = torch.relu(pre) if scale is None else torch.relu(pre) * scale
+    hd = torch.where(live, pre, 0.0)
+    if scale is not None:
+        hd = hd * scale
     dhd = dout @ w2.t()
     if scale is not None:
         dhd = dhd * scale
-    dpre = torch.where(pre > 0.0, dhd, 0.0)
+    dpre = torch.where(live, dhd, 0.0)
     return dpre @ w1.t(), x.t() @ dpre, dpre.sum(0), hd.t() @ dout
 
 
@@ -273,20 +284,10 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
-def _splits(rows: int, tiles: int) -> int:
-    """Row splits of a cross-block sum: enough blocks for two waves over the
-    SMs, at least 256 rows per split."""
-    return max(1, min(math.ceil(2 * _SMS / max(tiles, 1)), math.ceil(rows / 256)))
-
-
 def _grad_splits(rows: int, tiles: int) -> int:
     """Row splits of the backward's weight gradients: at most the blocks that
     fill the SMs twice over (two blocks fit on one), at least 256 rows each."""
     return max(1, min(2 * _SMS // max(tiles, 1), math.ceil(rows / 256)))
-
-
-def _tiles(i: int, o: int) -> int:
-    return math.ceil(i / 64) * math.ceil(o / 64)
 
 
 def _grad_tiles(i: int, o: int) -> int:
@@ -359,17 +360,26 @@ def fused_mlp_fwd(x, w1, b1, w2, b2, mask, inv_keep: float):
         raise ValueError(f"unsupported device {x.device}")
     _check_kernel_inputs(tensors, d)
     _check_ffw_width(f)
-    n = x.shape[0]
+    if x.shape[0] == 0:
+        return torch.empty_like(x)
+    return _fused_mlp_fwd_launch(x, w1, b1, w2, b2, mask, inv_keep)[0]
+
+
+def _fused_mlp_fwd_launch(x, w1, b1, w2, b2, mask, inv_keep: float):
+    """``fused_mlp_fwd``'s kernels on checked CUDA inputs with N > 0 ->
+    ``(out, hd)``: the hidden ``relu(x @ w1 + b1) * mask / keep`` lives in an
+    ``[N, d_ff]`` scratch buffer allocated here between the two launches."""
+    (n, d), f = x.shape, w1.shape[-1]
     out = torch.empty_like(x)
-    if n == 0:
-        return out
-    lib, fn = _fn("ffw", "msfa_ffw_fwd", 7, 3, 1)
+    hd = torch.empty((n, f), device=x.device)
+    lib, fn = _fn("ffw", "msfa_ffw_fwd", 8, 3, 1)
     with torch.cuda.device(x.device):
         code = fn(x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-                  _ptr(mask), out.data_ptr(), n, d, f, float(inv_keep), _stream(x.device))
+                  _ptr(mask), out.data_ptr(), hd.data_ptr(), n, d, f, float(inv_keep),
+                  _stream(x.device))
     _build.check(lib, code, "fused_mlp_fwd")
     fused_mlp_fwd.launches += 1
-    return out
+    return out, hd
 
 
 fused_mlp_fwd.launches = 0
@@ -377,9 +387,7 @@ fused_mlp_fwd.launches = 0
 
 def fused_mlp_bwd(x, w1, b1, w2, mask, dout, inv_keep: float):
     """Kernel wrapper for the feed-forward block's backward ->
-    ``(dx, dw1, db1, dw2)``. The kernel keeps the recomputed hidden and its
-    gradient in two ``[N, d_ff]`` scratch buffers allocated here, as
-    ``ffw_ln_bwd`` does."""
+    ``(dx, dw1, db1, dw2)``."""
     d, f = x.shape[-1], w1.shape[-1]
     tensors = {"x": x, "w1": w1, "b1": b1, "w2": w2, "mask": mask, "dout": dout}
     _check(tensors, {**_mlp_shapes(x, d, f), "dout": x.shape}, x.device)
@@ -389,29 +397,37 @@ def fused_mlp_bwd(x, w1, b1, w2, mask, dout, inv_keep: float):
         raise ValueError(f"unsupported device {x.device}")
     _check_kernel_inputs(tensors, d)
     _check_ffw_width(f)
-    n = x.shape[0]
+    if x.shape[0] == 0:
+        return (torch.empty_like(x), torch.zeros((d, f), device=x.device),
+                torch.zeros((f,), device=x.device), torch.zeros((f, d), device=x.device))
+    return _fused_mlp_bwd_launch(x, w1, b1, w2, mask, dout, inv_keep)[0]
+
+
+def _fused_mlp_bwd_launch(x, w1, b1, w2, mask, dout, inv_keep: float):
+    """``fused_mlp_bwd``'s kernels on checked CUDA inputs with N > 0 ->
+    ``(grads, hd)``. The kernels keep the recomputed hidden ``hd`` (the
+    forward's kernel, the same bits) and its gradient in two ``[N, d_ff]``
+    scratch buffers allocated here, with the per-block partials of db1 and
+    the per-split partials of the weight gradients, as ``ffw_ln_bwd`` does."""
+    (n, d), f = x.shape, w1.shape[-1]
     dx = torch.empty_like(x)
     dw1 = torch.empty((d, f), device=x.device)
     db1 = torch.empty((f,), device=x.device)
     dw2 = torch.empty((f, d), device=x.device)
-    if n == 0:
-        return dx, dw1.zero_(), db1.zero_(), dw2.zero_()
-    splits = _splits(n, _tiles(d, f))
-    col_splits = _splits(n, math.ceil(f / 256))
+    splits = _grad_splits(n, _grad_tiles(f, d))
     hd = torch.empty((n, f), device=x.device)
     dpre = torch.empty((n, f), device=x.device)
-    atb_part = torch.empty((splits, d, f), device=x.device)
-    col_part = torch.empty((col_splits, f), device=x.device)
-    lib, fn = _fn("ffw", "msfa_ffw_bwd", 14, 5, 1)
+    db1_part = torch.empty((math.ceil(n / ROWS_F), f), device=x.device)
+    dw_part = torch.empty((splits, d * f), device=x.device)
+    lib, fn = _fn("ffw", "msfa_ffw_bwd", 14, 4, 1)
     with torch.cuda.device(x.device):
         code = fn(x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), _ptr(mask),
                   dout.data_ptr(), dx.data_ptr(), dw1.data_ptr(), db1.data_ptr(),
-                  dw2.data_ptr(), hd.data_ptr(), dpre.data_ptr(), atb_part.data_ptr(),
-                  col_part.data_ptr(), n, d, f, splits, col_splits, float(inv_keep),
-                  _stream(x.device))
+                  dw2.data_ptr(), hd.data_ptr(), dpre.data_ptr(), db1_part.data_ptr(),
+                  dw_part.data_ptr(), n, d, f, splits, float(inv_keep), _stream(x.device))
     _build.check(lib, code, "fused_mlp_bwd")
     fused_mlp_bwd.launches += 1
-    return dx, dw1, db1, dw2
+    return (dx, dw1, db1, dw2), hd
 
 
 fused_mlp_bwd.launches = 0

@@ -19,9 +19,10 @@ forward at ``[256, 4096, 64]``, ``[128, 1024, 64]`` and ``[128, 2048, 64]``
 residual-LayerNorm kernels, forward and backward, at N = 16,384 rows, d 256,
 d_ff 2048, keep 0.8; inputs from a fixed seed.
 ``scaled_dot_product_attention`` (forward, or its backward) is timed beside
-each attention shape. The backward kernels' outputs are hashed on ragged
-lengths (0, 1, 37, 64, 65, T - 1, T, T / 2), so that the table also says
-which kernels give the same bits in every tree. Prints the card's name and
+each attention shape. The attention backward kernels' outputs are hashed on
+ragged lengths (0, 1, 37, 64, 65, T - 1, T, T / 2), and the feed-forward and
+residual-LN kernels' outputs on their timed inputs, so that the table also
+says which kernels give the same bits in every tree. Prints the card's name and
 power limit, one JSON line per tree, then the table of all runs. Needs a
 CUDA card; imports torch and the port only.
 """
@@ -141,14 +142,16 @@ def _measure(tree: Path) -> dict:
             leaves = [t.view(rows // HEADS, HEADS, seq, HEAD_DIM) for t in (q, k, v)]
             times[f"sdpa_fwd_{rows}x{seq}"] = _time_ms(torch, lambda: sdpa(*leaves), 10)
         del q, k, v
-    times.update(_measure_mlp(torch, g))
+    mlp_times, mlp_bits = _measure_mlp(torch, g)
+    times.update(mlp_times)
+    bits.update(mlp_bits)
     return {"tree": str(tree), "device": torch.cuda.get_device_name(0), "ms": times,
             "bits": bits}
 
 
 def _measure_mlp(torch, g) -> dict:
     """Rows 10-15: the feed-forward pair and the two residual-LN pairs at the
-    training shape, keep 0.8."""
+    training shape, keep 0.8 -> (ms, output digests)."""
     from multimodal_sensor_fusion_with_attention_rajeevatla_torch.ops import mlp as tm
 
     n, d, f, keep = 16384, 256, 2048, 0.8
@@ -172,7 +175,11 @@ def _measure_mlp(torch, g) -> dict:
         "proj_ln_fwd": lambda: tm.proj_ln_fwd(*proj, inv_keep, eps),
         "proj_ln_bwd": lambda: tm.proj_ln_bwd(*proj, dout, inv_keep, eps),
     }
-    return {name: _time_ms(torch, call, 10) for name, call in calls.items()}
+    bits = {}
+    for name, call in calls.items():
+        out = call()
+        bits[name] = _digest(out if isinstance(out, tuple) else [out])
+    return {name: _time_ms(torch, call, 10) for name, call in calls.items()}, bits
 
 
 def main() -> int:

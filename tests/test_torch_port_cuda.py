@@ -262,6 +262,22 @@ def test_dropout_mask_kernel_rejects_a_seed_it_does_not_take(card):
         tm.dropout_keep_mask(torch.zeros(2, dtype=torch.int64, device=card), 4, 4, 0.8)
 
 
+def _forward_branches(x, w1, b1, mask, inv_keep, hd):
+    """The twin's ``pre`` and the ReLU branches the kernel's forward took
+    (``hd > 0`` where the mask keeps the unit). Each branch that differs from
+    the twin's own must lie within (D + 64) 2^-23 |x_n| |W1[:, f]| of zero in
+    the twin's pre: two f32-accurate sums of the same products (the kernel's
+    3xTF32, the twin's cuBLAS f32) differ by no more."""
+    pre = x @ w1 + b1
+    kept = torch.full_like(pre, inv_keep != 0.0, dtype=torch.bool)
+    if mask is not None:
+        kept &= mask.bool()
+    live = torch.where(kept, hd > 0, pre > 0)
+    band = (x.shape[1] + 64) * 2.0**-23 * x.norm(dim=1)[:, None] * w1.norm(dim=0)[None, :]
+    assert not torch.any((live != (pre > 0)) & (pre.abs() >= band))
+    return pre, live
+
+
 @pytest.mark.parametrize("n,d,f,keep", [(300, 256, 2048, 0.8), (37, 256, 2048, None),
                                         (100, 64, 128, 0.0), (1000, 32, 64, 0.8)])
 def test_fused_mlp_kernels_match_twins(card, n, d, f, keep):
@@ -273,17 +289,42 @@ def test_fused_mlp_kernels_match_twins(card, n, d, f, keep):
     before = (tm.fused_mlp_fwd.launches, tm.fused_mlp_bwd.launches)
     out = tm.fused_mlp_fwd(x, w1, b1, w2, b2, mask, inv_keep)
     dout = w(n, d)
-    grads = tm.fused_mlp_bwd(x, w1, b1, w2, mask, dout, inv_keep)
+    grads, hd = tm._fused_mlp_bwd_launch(x, w1, b1, w2, mask, dout, inv_keep)
     torch.cuda.synchronize()
     assert (tm.fused_mlp_fwd.launches, tm.fused_mlp_bwd.launches) == (before[0] + 1, before[1] + 1)
     assert _rel_err(out, tm.fused_mlp_fwd_reference(x, w1, b1, w2, b2, mask, inv_keep)) < GRAD_TOL
     if keep == 0.0:
         assert torch.equal(out, b2.expand_as(out))  # the hidden is exactly zero
-    for got, want in zip(grads, tm.fused_mlp_bwd_reference(x, w1, b1, w2, mask, dout, inv_keep)):
+    # the backward against its twin on the branches the kernel's forward took
+    pre, live = _forward_branches(x, w1, b1, mask, inv_keep, hd)
+    for got, want in zip(grads, tm._fused_mlp_bwd_plain(x, w1, pre, live, w2, mask, dout,
+                                                        inv_keep)):
         if keep == 0.0 and not want.abs().max() > 0:
             assert torch.all(got == 0)
         else:
             assert _rel_err(got, want) < GRAD_TOL
+
+
+@pytest.mark.parametrize("keep", [0.8, None], ids=["keep0.8", "nomask"])
+def test_fused_mlp_hidden_is_ffw_lns_and_the_backward_repeats(card, keep):
+    # both fused_mlp directions and both ffw_ln directions launch one hidden
+    # body with the same arguments: the same bits, so the same ReLU branches;
+    # every sum over rows is partials added in order, so a rerun repeats
+    n, d, f = 1000, 256, 2048
+    g = torch.Generator().manual_seed(53)
+    w, fmask, rmask = _ln_inputs(g, n, d, f, keep, card)
+    x, w1, b1, w2, b2 = (w(n, d), w(d, f, scale=d**-0.5), w(f, scale=0.1),
+                         w(f, d, scale=f**-0.5), w(d, scale=0.1))
+    gamma, beta, dout = 1 + w(d, scale=0.1), w(d, scale=0.1), w(n, d)
+    inv_keep = tm._inv_keep(1.0 if keep is None else keep)
+    _out, fwd_hd = tm._fused_mlp_fwd_launch(x, w1, b1, w2, b2, fmask, inv_keep)
+    first, bwd_hd = tm._fused_mlp_bwd_launch(x, w1, b1, w2, fmask, dout, inv_keep)
+    second, _hd = tm._fused_mlp_bwd_launch(x, w1, b1, w2, fmask, dout, inv_keep)
+    _out, ln_hd = tm._ffw_ln_fwd_launch(x, w1, b1, w2, b2, gamma, beta, fmask, rmask, inv_keep,
+                                        1e-6)
+    torch.cuda.synchronize()
+    assert torch.equal(fwd_hd, bwd_hd) and torch.equal(fwd_hd, ln_hd)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 def test_fused_mlp_autograd_runs_both_kernels(card):

@@ -2,8 +2,9 @@
 
 ``flash_fwd_single``, ``flash_fwd_tiled``, ``packed_attention_fwd``,
 ``packed_attention_bwd``, ``flash_bwd_fused``, ``flash_bwd_dkv``,
-``flash_bwd_dq``, ``ffw_ln_fwd``, ``ffw_ln_bwd`` and ``proj_ln_bwd`` take
-each f32 product as three TF32 tensor-core products
+``flash_bwd_dq``, ``ffw_ln_fwd``, ``ffw_ln_bwd``, ``proj_ln_bwd``,
+``fused_mlp_fwd`` and ``fused_mlp_bwd`` take each f32 product as three TF32
+tensor-core products
 (``ops/csrc/tf32_mma.cuh``): x = hi + lo, with
 hi = x rounded to TF32 (half a TF32 ulp added to the bits, the low 13 bits
 cleared) and lo = x - hi, of which the tensor core reads the top 19 bits; then
@@ -16,8 +17,8 @@ backwards and the residual-LN kernels. One TF32 product per f32 product is
 printed beside it; it misses them. The fused and the split attention
 backwards' emulations are also held against the JAX package's routes of the
 same name (``flash_self_attention``'s VJP in interpret mode), and the residual-LN
-kernels' against ``fused_mlp_residual_ln`` and ``fused_proj_residual_ln``
-there.
+and feed-forward kernels' against ``fused_mlp_residual_ln``,
+``fused_proj_residual_ln`` and ``fused_mlp`` there.
 """
 
 import math
@@ -436,6 +437,31 @@ def _ffw_ln_bwd(x, w1, b1, w2, b2, gamma, fmask, rmask, dout, inv_keep, eps, mm)
     return (dx, dw1, db1, dw2, db2, dgamma, dbeta), hd
 
 
+def _fused_mlp_fwd(x, w1, b1, w2, b2, mask, inv_keep, mm):
+    """``fused_mlp_fwd``'s arithmetic -> ``(out, hd)``: the hidden (the body
+    ``ffw_ln`` launches too), then out = hd W2 + b2 on 64 whole rows."""
+    fscale, _rscale = _scales(mask, None, inv_keep)
+    hd = _hidden(x, w1, b1, fscale, mm)
+    return _mm_chunked(hd, w2, mm) + b2, hd
+
+
+def _fused_mlp_bwd(x, w1, b1, w2, mask, dout, inv_keep, mm):
+    """``fused_mlp_bwd``'s arithmetic -> ``((dx, dw1, db1, dw2), hd)``: the
+    forward's hidden (one body), then dpre from dout, dx = dpre W1^T and the
+    weight gradients through ``mm`` in 32-deep fresh accumulators; dW1 and
+    dW2 per split of the rows (one split count for both, as the wrapper
+    passes), the splits added in order; db1 from 128-row blocks."""
+    d, f = w1.shape
+    fscale, _rscale = _scales(mask, None, inv_keep)
+    hd = _hidden(x, w1, b1, fscale, mm)
+    dpre = torch.where(hd > 0, _mm_chunked(dout, w2.t(), mm) * fscale, 0.0)
+    dx = _mm_chunked(dpre, w1.t(), mm)
+    tiles = tm._grad_tiles(f, d)
+    dw1 = _split_grad(x, dpre, tiles, mm)
+    dw2 = _split_grad(hd, dout, tiles, mm)
+    return (dx, dw1, _block_sums(dpre, tm.ROWS_F), dw2), hd
+
+
 def _proj_ln_bwd(x, a, wo, bo, gamma, rmask, dout, inv_keep, eps, mm):
     """``proj_ln_bwd``'s arithmetic: y = a Wo + bo on 64 whole rows with the
     LayerNorm backward as its epilogue (dx = dr, dy), da = dy Wo^T, dWo per
@@ -635,3 +661,102 @@ def test_proj_ln_backward_3xtf32_matches_the_jax_kernel():
         print(f"{name}: emulated proj_ln_bwd vs the JAX kernel's VJP, max abs err "
               f"{np.abs(g.numpy() - w).max():.3e}")
         np.testing.assert_allclose(g.numpy(), w, **JAX_TOL, err_msg=name)
+
+
+MLP_NAMES = ("dx", "dw1", "db1", "dw2")
+
+
+def _mlp_case(seed, n, keep, d=32, f=128):
+    """x, w1, b1, w2, b2, mask (or None) and dout of one feed-forward case, as tensors."""
+    arrays, masks, dout = _ffw_case(np.random.default_rng(seed), n, d, f, keep)
+    return (*_torch(arrays[:5]), _torch(masks)[0], torch.from_numpy(dout))
+
+
+@pytest.mark.parametrize(**LN_CASES)
+def test_fused_mlp_forward_3xtf32_holds_the_f32_limit(n, keep):
+    x, w1, b1, w2, b2, mask, _dout = _mlp_case(37 + n, n, keep)
+    inv_keep = tm._inv_keep(1.0 if keep is None else keep)
+    want = tm.fused_mlp_fwd_reference(x, w1, b1, w2, b2, mask, inv_keep)
+    errs = {name: ((_fused_mlp_fwd(x, w1, b1, w2, b2, mask, inv_keep, mm)[0] - want).abs().max()
+                   / want.abs().max()).item()
+            for name, mm in (("3xTF32", _mm3), ("1xTF32", _mm1))}
+    print(f"fused_mlp forward, N={n} keep={keep}, max abs err over the largest magnitude: "
+          f"3xTF32 {errs['3xTF32']:.3e}, 1xTF32 {errs['1xTF32']:.3e} (limit {GRAD_TOL})")
+    assert errs["3xTF32"] < GRAD_TOL
+    assert errs["3xTF32"] * 10 < errs["1xTF32"]
+
+
+@pytest.mark.parametrize(**LN_CASES)
+def test_fused_mlp_backward_3xtf32_holds_the_f32_limit(n, keep):
+    x, w1, b1, w2, _b2, mask, dout = _mlp_case(47 + n, n, keep)
+    inv_keep = tm._inv_keep(1.0 if keep is None else keep)
+    want = tm.fused_mlp_bwd_reference(x, w1, b1, w2, mask, dout, inv_keep)
+    errs = {name: _rel_errs(_fused_mlp_bwd(x, w1, b1, w2, mask, dout, inv_keep, mm)[0], want,
+                            MLP_NAMES)
+            for name, mm in (("3xTF32", _mm3), ("1xTF32", _mm1))}
+    worst = {name: max(e.values()) for name, e in errs.items()}
+    print(f"fused_mlp backward, N={n} keep={keep}, max abs err over the largest magnitude: "
+          f"3xTF32 {worst['3xTF32']:.3e}, 1xTF32 {worst['1xTF32']:.3e} (limit {GRAD_TOL})")
+    assert all(e < GRAD_TOL for e in errs["3xTF32"].values()), errs["3xTF32"]
+    assert worst["3xTF32"] * 10 < worst["1xTF32"]
+
+
+def test_fused_mlp_forward_3xtf32_matches_the_jax_kernel():
+    keep = 0.8
+    args = _mlp_case(48, 100, keep)
+    x, w1, b1, w2, b2, mask, _dout = args
+    want = jmlp.fused_mlp(*(jnp.asarray(t.numpy()) for t in args[:6]), keep, interpret=True)
+    got, _hd = _fused_mlp_fwd(x, w1, b1, w2, b2, mask, tm._inv_keep(keep), _mm3)
+    print(f"emulated fused_mlp_fwd vs the JAX kernel, max abs err "
+          f"{np.abs(got.numpy() - np.asarray(want)).max():.3e}")
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **JAX_TOL)
+
+
+def test_fused_mlp_backward_3xtf32_matches_the_jax_kernel():
+    keep = 0.8
+    x, w1, b1, w2, b2, mask, dout = _mlp_case(49, 100, keep)
+    _out, vjp = jax.vjp(
+        lambda *a: jmlp.fused_mlp(*a, jnp.asarray(mask.numpy()), keep, interpret=True),
+        *(jnp.asarray(t.numpy()) for t in (x, w1, b1, w2, b2)))
+    want = vjp(jnp.asarray(dout.numpy()))
+    grads, _hd = _fused_mlp_bwd(x, w1, b1, w2, mask, dout, tm._inv_keep(keep), _mm3)
+    for name, g, w in zip((*MLP_NAMES, "db2"), (*grads, dout.sum(0)), want):
+        w = np.asarray(w)
+        print(f"{name}: emulated fused_mlp_bwd vs the JAX kernel's VJP, max abs err "
+              f"{np.abs(g.numpy() - w).max():.3e}")
+        np.testing.assert_allclose(g.numpy(), w, **JAX_TOL, err_msg=name)
+
+
+def test_fused_mlp_and_ffw_ln_share_one_hidden_and_its_relu_branch():
+    # biases that put half of row 0's hidden units and the other half of row
+    # 1's exactly at zero under the hidden body's own 3xTF32 arithmetic
+    n, d, f, keep = 40, 256, 128, 0.8
+    arrays, masks, dout = _ffw_case(np.random.default_rng(11), n, d, f, keep)
+    x, w1, _b1, w2, b2, gamma, beta = _torch(arrays)
+    mask, rmask = _torch(masks)
+    mask[:2] = 1  # the units built at zero are all kept
+    dout = torch.from_numpy(dout)
+    pre3 = _mm_chunked(x, w1, _mm3)
+    b1 = -pre3[0].clone()
+    b1[::2] = -pre3[1, ::2]
+    inv_keep = tm._inv_keep(keep)
+    _out, fwd_hd = _fused_mlp_fwd(x, w1, b1, w2, b2, mask, inv_keep, _mm3)
+    grads, bwd_hd = _fused_mlp_bwd(x, w1, b1, w2, mask, dout, inv_keep, _mm3)
+    _out, ln_hd = _ffw_ln_fwd(x, w1, b1, w2, b2, gamma, beta, mask, rmask, inv_keep, 1e-6, _mm3)
+    # one body: the same bits in both directions of both pairs
+    assert torch.equal(fwd_hd, bwd_hd) and torch.equal(fwd_hd, ln_hd)
+    # the plain twin rounds pre otherwise and takes other branches near zero;
+    # on the forward's branches it holds the f32 limit, as chip_smoke.py checks
+    pre = x @ w1 + b1
+    live = torch.where(mask.bool(), fwd_hd > 0, pre > 0)
+    off = live != (pre > 0)
+    band = (d + 64) * 2.0**-23 * x.norm(dim=1)[:, None] * w1.norm(dim=0)[None, :]
+    on_branch = _rel_errs(grads, tm._fused_mlp_bwd_plain(x, w1, pre, live, w2, mask, dout,
+                                                         inv_keep), MLP_NAMES)
+    own = _rel_errs(grads, tm.fused_mlp_bwd_reference(x, w1, b1, w2, mask, dout, inv_keep),
+                    MLP_NAMES)
+    print(f"{f} hidden units built at zero: {off.sum().item()} branches off the twin's, all "
+          f"within rounding of zero; on the forward's branches {max(on_branch.values()):.3e}, "
+          f"on the twin's own {max(own.values()):.3e}")
+    assert off.any() and not torch.any(off & (pre.abs() >= band))
+    assert all(e < GRAD_TOL for e in on_branch.values()), on_branch
