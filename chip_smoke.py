@@ -17,7 +17,9 @@ Phases (any failure exits non-zero, and no result line is printed):
    packed attention forward (B=64, T=512, H=4, d=64; d 16/32/128 at T=72
    and 512 on the edge lengths) and backward (B=32: the real batch's lengths
    and 0, 1, 37, 64, 65, 511, T; padded T=72);
-   the fused head (M=4, P=12, H=256, C=25, B=64); the projection and FFW
+   the fused head (M=4, P=12, H=256, C=25, B=64; edge masks; B=5), twice
+   bit for bit, each call timed alone with the card kept ahead of the host,
+   L2-warm and L2-cold (a 128 MB write between calls); the projection and FFW
    residual-LayerNorm kernels and the feed-forward (``fused_mlp``) pair,
    forward and backward, at N = 32*512 rows with masks at keep 0.8, without
    masks and at keep 0, and at an N that is not a multiple of the 32-row
@@ -26,16 +28,18 @@ Phases (any failure exits non-zero, and no result line is printed):
    is not a multiple of 4. Backward checks compare every output by its max
    abs error relative to its largest magnitude. Times with CUDA events:
    kernel, plain twin, the bound, and, where one PyTorch call computes the
-   same function, that call. The twelve kernels whose products run as 3xTF32
+   same function, that call. The fourteen kernels whose products run as 3xTF32
    on the tensor cores (``packed_attention_fwd``, ``packed_attention_bwd``,
    ``flash_fwd_single``, ``flash_fwd_tiled``, ``flash_bwd_fused``,
-   ``flash_bwd_dkv``, ``flash_bwd_dq``, ``ffw_ln_fwd``, ``ffw_ln_bwd``,
-   ``proj_ln_bwd``, ``fused_mlp_fwd``, ``fused_mlp_bwd``) carry both bounds, a
+   ``flash_bwd_dkv``, ``flash_bwd_dq``, ``fused_hybrid_head``, ``ffw_ln_fwd``,
+   ``ffw_ln_bwd``, ``proj_ln_fwd``, ``proj_ln_bwd``, ``fused_mlp_fwd``,
+   ``fused_mlp_bwd``) carry both bounds, a
    third of the TF32 peak (the unit they run on) and the CUDA cores' f32
    peak, with their share of the first; ``nvcc -Xptxas -v``'s registers,
    shared memory and spills for them are printed at setup. The two
-   residual-LN backwards and the ``fused_mlp`` backward run twice on the same
-   inputs, bit for bit; the hidden of both FFW residual-LN directions and of
+   residual-LN kernels of each direction and the ``fused_mlp`` backward run
+   twice on the same inputs, bit for bit; ``proj_ln_fwd`` is timed L2-warm and
+   L2-cold as the head is; the hidden of both FFW residual-LN directions and of
    both ``fused_mlp`` directions is one body's bits on the same inputs, and
    both FFW backwards are held to their twins on the forward kernel's ReLU
    branches, each branch that differs from the twin's own lying within
@@ -47,7 +51,7 @@ Phases (any failure exits non-zero, and no result line is printed):
    head going through the kernels; the logits must be finite and agree with
    the same weights on the plain path (kernels off). Then p50 latency and
    windows/s over repeated requests, and device time by kernel family
-   (torch.profiler) with the device's busy share.
+   (torch.profiler) with the device's busy share, the head's own printed.
 4. Train: ``train.Trainer`` on the unmodified ``config/base.yaml`` (so
    ``training.dropout_rng: auto``: masks from the generator kernel) at full
    width takes 8 micro-steps (2 AdamW updates at accumulation 4) on batch-32
@@ -157,9 +161,9 @@ FIT_EPOCHS = 2
 # peaks of one H100 SXM (NVIDIA data sheet): CUDA-core FP32, dense TF32 on
 # the tensor cores, HBM3. A kernel that takes each f32 product as three TF32
 # products (3xTF32: the packed and both flash forwards, the packed, the fused
-# and the split attention backwards, the FFW residual-LN pair, the
-# projection residual-LN backward and the feed-forward pair) is bounded by a
-# third of the TF32 rate for the same f32 operation count
+# and the split attention backwards, the fused head, both residual-LN pairs
+# and the feed-forward pair) is bounded by a third of the TF32 rate for the
+# same f32 operation count
 PEAK_F32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
 PEAK_3XTF32_FLOPS = PEAK_TF32_FLOPS / 3
@@ -174,8 +178,10 @@ TENSOR_CORE_KERNELS = {"flash_fwd_single": ("flash_fwd_single_kernel",),
                        "flash_bwd_fused": ("flash_bwd_fused_kernel",),
                        "flash_bwd_dkv": ("flash_dkv_kernel",),
                        "flash_bwd_dq": ("flash_dq_kernel",),
+                       "fused_hybrid_head": ("fusion_head",),
                        "ffw_ln_fwd": ("ffw_ln_hidden_kernel", "ffw_ln_fwd_kernel"),
                        "ffw_ln_bwd": ("ffw_ln_bwd",),
+                       "proj_ln_fwd": ("proj_ln_fwd",),
                        "proj_ln_bwd": ("proj_ln_bwd",),
                        "fused_mlp_fwd": ("fused_mlp_hidden_kernel", "fused_mlp_fwd_kernel"),
                        "fused_mlp_bwd": ("fused_mlp_bwd",)}
@@ -219,6 +225,51 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+SLEEP_CYCLES = 2_000_000  # ~1 ms of the card's clock: more than a call takes to enqueue
+FLUSH_FLOATS = 32 << 20  # 128 MB: a write of it evicts the 50 MB L2
+
+
+def device_ms(fn, iters: int = 20, flush=None) -> float:
+    """Device ms of one ``fn()`` call, the median over ``iters`` calls each
+    timed alone: CUDA events around the call, the card held busy
+    (``torch.cuda._sleep``) while the host enqueues it, so neither the host's
+    launch overhead nor a gap before the call is timed. With ``flush`` (a
+    buffer of at least 64 MB), a write of it before each call evicts the
+    call's inputs from the L2 (cold); without it the previous call left them
+    there (warm)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    events = []
+    for _ in range(iters):
+        if flush is not None:
+            flush.zero_()
+        torch.cuda._sleep(SLEEP_CYCLES)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    times = sorted(start.elapsed_time(end) for start, end in events)
+    return times[len(times) // 2]
+
+
+def warm_cold(torch, row, call, label):
+    """``row["ms"]`` L2-warm and ``row["ms_cold"]`` L2-cold by ``device_ms``,
+    and ``row["ms_back_to_back"]`` by ``time_ms`` (launches queued back to
+    back: the host's own time per call where it exceeds the card's)."""
+    flush = torch.empty(FLUSH_FLOATS, device="cuda")
+    row["ms"] = device_ms(call)
+    row["ms_cold"] = device_ms(call, flush=flush)
+    row["ms_back_to_back"] = time_ms(call)
+    del flush
+    print(f"  {label} ms={row['ms']:.4f} L2-warm, {row['ms_cold']:.4f} L2-cold (each call "
+          f"alone), {row['ms_back_to_back']:.4f} back to back", flush=True)
+
+
 def bound(flops: float, nbytes: float, peak: float = PEAK_F32_FLOPS):
     """(ms, "operations" or "bytes"): the larger of flops over the peak of the
     unit the kernel runs on and bytes over the memory rate."""
@@ -259,7 +310,7 @@ def ptxas_report(build):
     memory and spills."""
     tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_ptxas_")
     sources = ("flash_attention", "packed_attention_bwd", "packed_attention",
-               "flash_attention_bwd", "ffw_ln", "proj_ln", "ffw")
+               "flash_attention_bwd", "ffw_ln", "proj_ln", "ffw", "fusion_head")
     procs = [subprocess.Popen(
         [build._nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-o", f"{tmp.name}/{name}.so",
          str(build.CSRC_DIR / f"{name}.cu")],
@@ -382,31 +433,50 @@ def check_head(torch, fusion, ordered_pairs, head_inputs):
         e = (out - ref).abs().max().item()
         print(f"  fused_hybrid_head max_abs_err={e:.3e} (tol {HEAD_TOL})", flush=True)
         err = max(err, e)
-    # a batch that is not a multiple of the kernel's 4-row tile
+    # a batch that is not a multiple of the kernels' 64-row or 4-row tiles
     out = fusion.fused_hybrid_head(projected[:, :5].contiguous(), edge[:5].contiguous(), *args)
     ref = fusion.fused_hybrid_head_reference(projected[:, :5], edge[:5], *args)
     err = max(err, (out - ref).abs().max().item())
     if err > HEAD_TOL:
         raise AssertionError(f"fused head disagrees with its twin: {err} > {HEAD_TOL}")
-    ms = time_ms(lambda: fusion.fused_hybrid_head(projected, mask, *args))
+    # every sum in a fixed order, no atomics
+    first = fusion.fused_hybrid_head(projected, edge, *args)
+    second = fusion.fused_hybrid_head(projected, edge, *args)
+    torch.cuda.synchronize()
+    if not torch.equal(first, second):
+        raise AssertionError("fused head: two runs on the same inputs differ")
+    print(f"  fused_hybrid_head: two runs equal bit for bit; output digest {_digest([first])}",
+          flush=True)
+
+    def call():
+        return fusion.fused_hybrid_head(projected, mask, *args)
+
+    row = {
+        "name": "fused_hybrid_head", "route": "cuda",
+        "source": f"{PKG}/ops/csrc/fusion_head.cu",
+        "replaces": f"{TPU_PKG}/ops/pallas_fusion.py:37",
+        "max_abs_err": err, "library_ms": None,
+    }
+    warm_cold(torch, row, call, "fused_hybrid_head")
     plain_ms = time_ms(lambda: fusion.fused_hybrid_head_reference(projected, mask, *args))
+    row["plain_ms"] = plain_ms
     num_pairs, num_classes = len(pairs), params.w2.shape[1]
     flops = 2.0 * batch * (2 * num_pairs * hidden * hidden + num_mod * hidden
                            + hidden * hidden + hidden * num_classes)
     weights = (2 * num_pairs * hidden * (hidden + 1) + num_mod * (hidden + 1)
                + hidden * (hidden + 1) + (hidden + 1) * num_classes)
     nbytes = 4.0 * (projected.numel() + mask.numel() + weights + batch * num_classes)
-    bound_ms, bound_by = bound(flops, nbytes)
-    print(f"  fused_hybrid_head ms={ms:.4f} plain_ms={plain_ms:.4f} "
-          f"bound_ms={bound_ms:.4f} ({bound_by}; {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB)",
+    note = tensor_core_bounds(row, flops, nbytes)
+    cold = tensor_core_bounds(row, flops, nbytes, suffix="_cold")
+    print(f"  fused_hybrid_head ms={row['ms']:.4f} plain_ms={plain_ms:.4f} {note}; L2-cold "
+          f"{cold} ({row['bound_by']}; {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB)",
           flush=True)
-    return {
-        "name": "fused_hybrid_head", "route": "cuda",
-        "source": f"{PKG}/ops/csrc/fusion_head.cu",
-        "replaces": f"{TPU_PKG}/ops/pallas_fusion.py:37",
-        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-    }
+    row["ms_by_kernel"] = kernel_times(torch, call, 10)
+    # each kernel's span in the profile; the head's dependent launches overlap,
+    # so the spans add up to more than a call
+    print("  fused_hybrid_head by kernel (back to back, overlapping spans): " + ", ".join(
+        f"{k} {v:.4f} ms" for k, v in row["ms_by_kernel"].items()), flush=True)
+    return row
 
 
 def rel_err(got, want) -> float:
@@ -597,12 +667,15 @@ def check_ln_kernels(torch, mlp, rows):
         args, dout, inv_keep = timed  # keep 0.8 at N = rows, as in training
         # every sum over rows in a fixed order, no atomics
         first, second = bwd(*args, dout, inv_keep, 1e-6), bwd(*args, dout, inv_keep, 1e-6)
+        out, again = fwd(*args, inv_keep, 1e-6), fwd(*args, inv_keep, 1e-6)
         torch.cuda.synchronize()
         if not all(torch.equal(a, b) for a, b in zip(first, second)):
             raise AssertionError(f"{family}_bwd: two runs on the same inputs differ")
-        print(f"  {family}_bwd N={rows} keep=0.8: two runs equal bit for bit; output digests "
-              f"fwd {_digest([fwd(*args, inv_keep, 1e-6)])} bwd {_digest(first)}", flush=True)
-        del first, second
+        if not torch.equal(out, again):
+            raise AssertionError(f"{family}_fwd: two runs on the same inputs differ")
+        print(f"  {family}_fwd and {family}_bwd N={rows} keep=0.8: two runs of each equal bit "
+              f"for bit; output digests fwd {_digest([out])} bwd {_digest(first)}", flush=True)
+        del first, second, out, again
         n = rows
         if family == "proj_ln":  # rows of f32 moved: x, a, out | x, a, dout, dx, da
             weights, masks, work, f32_rows, ops = d * d + 3 * d, n * d, d * d, (3, 5), (2, 6)
@@ -618,23 +691,28 @@ def check_ln_kernels(torch, mlp, rows):
                 (lambda fn=fn: fn(*args, dout, inv_keep, 1e-6))
             call_ref = (lambda: ref(*args, inv_keep, 1e-6)) if kind == "fwd" else \
                 (lambda: ref(*args, dout, inv_keep, 1e-6))
-            ms = time_ms(call, iters=10)
-            plain_ms = time_ms(call_ref, iters=10)
             flops, nbytes = cost[kind]
             name = f"{family}_{kind}"
             row = {
                 "name": name, "route": "cuda", "source": f"{PKG}/ops/csrc/{src}",
                 "replaces": f"{TPU_PKG}/ops/pallas_mlp.py:{line}",
-                "max_abs_err": errs[0 if kind == "fwd" else 1], "ms": ms, "plain_ms": plain_ms,
-                "library_ms": None,
+                "max_abs_err": errs[0 if kind == "fwd" else 1],
+                "plain_ms": time_ms(call_ref, iters=10), "library_ms": None,
             }
+            if name == "proj_ln_fwd":  # short enough for the host to lag back to back
+                warm_cold(torch, row, call, name)
+            else:
+                row["ms"] = time_ms(call, iters=10)
             if name in TENSOR_CORE_KERNELS:
                 bounds = tensor_core_bounds(row, flops, nbytes)
+                if "ms_cold" in row:
+                    bounds += "; L2-cold " + tensor_core_bounds(row, flops, nbytes, "_cold")
             else:
                 row["bound_ms"], row["bound_by"] = bound(flops, nbytes)
                 bounds = f"bound_ms={row['bound_ms']:.4f}"
-            print(f"  {name} ms={ms:.4f} plain_ms={plain_ms:.4f} {bounds} ({row['bound_by']}; "
-                  f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)", flush=True)
+            print(f"  {name} ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} {bounds} "
+                  f"({row['bound_by']}; {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)",
+                  flush=True)
             out_rows[name] = row
             if name in TENSOR_CORE_KERNELS:  # its chain of kernels, one by one
                 row["ms_by_kernel"] = kernel_times(torch, call, 5)
@@ -2582,7 +2660,10 @@ def main() -> int:
             serve(feats, None, lengths)
         torch.cuda.synchronize()
 
-    profile(torch, run_requests, 10, "request")
+    served = profile(torch, run_requests, 10, "request")
+    print(f"  the head in a served chunk-512 request: {served.get('fusion_head', 0.0):.4f} ms "
+          f"of {served['device']:.4f} ms device time, share "
+          f"{served.get('fusion_head', 0.0) / served['device']:.4f}", flush=True)
 
     # ---- 4. train: the second main path --------------------------------------
     print("[train]", flush=True)

@@ -13,202 +13,407 @@
 //   logits = relu((sum_q w_q agg_q) W1 + b1) W2 + b2
 // Every product is computed here; no library call.
 //
-// What bounds it on the H100: at batch 64 the 2P pair matrices (P=12,
-// H=256) are 6.3 MB against 0.21 GFLOP, ~32 operations per byte: in f32 on
-// the CUDA cores that is ~3 us of arithmetic against ~2 us of HBM traffic,
-// so the work is tiny and what bounds a real launch is how much of the card
-// it can keep busy. The TPU kept all weights resident in VMEM; an SM holds
-// 227 KB, so here the weights stream. Each block owns a tile of
-// 4 batch rows and 256 threads; thread n owns output column n of every
-// product, so each weight element is read by exactly one thread, coalesced
-// across the warp, straight into registers and used for the block's 4 rows
-// (nothing to gain from a shared-memory copy that no other thread reads).
-// The activations of the block's rows (e, the per-pair v, agg, fused,
-// hidden) live in shared memory and are read as broadcasts. At batch 64
-// this is 16 blocks on 132 SMs, each streaming the whole 6.3 MB through a
-// chain of dependent loads: the launch is bound by load latency on a few
-// SMs, two orders of magnitude above the card's bound. Spreading the pairs
-// and the columns over more blocks (a second pass for the gate) and bf16
-// weights are later work.
+// What bounds it on the H100: at batch 64 the 2P pair matrices (P = 12,
+// H = 256), the other weights and the inputs are 6.9 MB against 0.21 GFLOP.
+// As 3xTF32 on the tensor cores (165 TFLOP/s) the operations take 1.3 us and
+// the bytes 2.1 us at 3.35 TB/s: bytes bound it. The TPU kept all weights
+// resident in VMEM; an SM holds 227 KB, so here the weights are spread over
+// many blocks. What a launch then costs is latency, not the card's rates:
+// each launch costs microseconds of its own, one SM takes in its operands
+// from the L2 far slower than the card as a whole does, and a warp's chain of
+// dependent mma.sync products waits on each product. So:
+//   - every product is a tile of 64 (pairs) or 32 (hidden) rows x 32 columns,
+//     a warp per 16 x 16 piece: each pair weight element is read once per
+//     64-row batch tile, and no SM takes in more than ~100 KB. The block
+//     stages all of its operands (K = H) into shared memory at once by
+//     cp.async, weights first, then multiplies with no barrier between
+//     chunks, two 32-deep chunks at a time (independent accumulator chains);
+//   - each launch after the first is a programmatic dependent launch: every
+//     kernel lets the next one start as soon as all its blocks run, and the
+//     next stages what does not depend on its predecessor (the weights, the
+//     masks, the embeddings) before it waits (griddepcontrol.wait) for the
+//     predecessor's output, so the launches and the weight loads overlap;
+//   - the gate takes a batch row a block, every warp staging, and the biases
+//     and masks of an epilogue are read before the product.
 //
-// Rows of the last tile beyond the batch are loaded as zeros with mask 1
-// and never written, so padding cannot leak into real rows.
+// Five launches on one stream:
+//   pairs:   v_p = e_k Wv_p + bv_p for every pair, into scratch [P, B, H];
+//            blocks (pair, column tile, batch tile): 96 at batch 64
+//   att:     att_p = v_p Wo_p + bo_p, the key mask selecting bo_p per row in
+//            the epilogue, into scratch [P, B, H]; the same blocks
+//   gate:    agg_q = (e_q + the att_p of q's pairs in query-major order) / M
+//            * mask_q, the gate scores (a warp per modality), the adaptive
+//            gate weights and fused = sum_q w_q agg_q, a row a block, into
+//            scratch [B, H]
+//   hidden:  relu(fused W1 + b1), blocks (column tile, batch tile), into
+//            scratch [B, H]
+//   logits:  hidden W2 + b2, a thread per (row, class), 4 rows a block
+// Every product takes each f32 product as three TF32 products (tf32_mma.cuh),
+// a fresh accumulator per 32-deep chunk of K added in order in f32, as the
+// tiles of tc_product.cuh do. Each element of every sum is added in a fixed
+// order, no atomics: the head repeats bit for bit. Rows of the last batch
+// tile beyond B load zeros and are never written, so padding cannot leak
+// into real rows.
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+#include "residual_ln.cuh"
 
 namespace {
 
-constexpr int kRows = 4;  // batch rows per block
-constexpr int kThreads = 256;
+namespace tc = msfa_tc;
 
-size_t smem_bytes(int M, int H) {
-  // e [M][R][H], agg [M][R][H], v / fused / hidden [R][H], mask + weights [R][M]
-  return sizeof(float) *
-         ((size_t)2 * M * kRows * H + (size_t)3 * kRows * H + (size_t)2 * kRows * M);
+constexpr int kCols = 32;         // columns of a product block, two warps of 16 wide
+constexpr int kPairRows = 64;     // batch rows of a pair product block: 8 warps
+constexpr int kHiddenRows = 32;   // batch rows of a hidden product block: 4 warps
+constexpr int kRowsL = 4;         // rows of a logits block
+constexpr int kThreadsG = 256;
+
+// The next kernel on the stream may launch (programmatic dependent launch).
+__device__ __forceinline__ void launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
 }
 
-// y[r][n] = sum_j x[r][j] * W[j][n] for the block's rows, n owned by this thread
-__device__ __forceinline__ void row_tile_matvec(const float* x, const float* __restrict__ W,
-                                                int K, int N, int n, float acc[kRows]) {
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) acc[r] = 0.f;
-#pragma unroll 4
-  for (int j = 0; j < K; ++j) {
-    const float w = __ldg(W + (long)j * N + n);
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) acc[r] = fmaf(x[r * K + j], w, acc[r]);
-  }
+// Wait until the kernel before this one on the stream has finished and its
+// writes are visible; returns at once for a launch without the attribute.
+__device__ __forceinline__ void wait_for_predecessor() {
+  asm volatile("griddepcontrol.wait;" ::: "memory");
 }
 
-__global__ void __launch_bounds__(kThreads)
-fusion_head_kernel(const float* __restrict__ projected, const float* __restrict__ mask,
-                   const float* __restrict__ wv, const float* __restrict__ bv,
-                   const float* __restrict__ wo, const float* __restrict__ bo,
-                   const float* __restrict__ wg, const float* __restrict__ bg,
-                   const float* __restrict__ w1, const float* __restrict__ b1,
-                   const float* __restrict__ w2, const float* __restrict__ b2,
-                   float* __restrict__ logits, int M, int B, int H, int C) {
-  extern __shared__ float smem[];
-  float* e = smem;                      // [M][R][H]
-  float* agg = e + M * kRows * H;       // [M][R][H]
-  float* v = agg + M * kRows * H;       // [R][H]
-  float* fused = v + kRows * H;         // [R][H]
-  float* hidden = fused + kRows * H;    // [R][H]
-  float* msk = hidden + kRows * H;      // [R][M]
-  float* gate = msk + kRows * M;        // [R][M] scores, then weights
+// K = H rounded up to an even number of 32-deep chunks (zeros past H): the
+// product takes its chunks two at a time
+__host__ __device__ inline int padded_k(int H) {
+  constexpr int kPair = 2 * tc::kProdK;
+  return (H + kPair - 1) / kPair * kPair;
+}
 
-  const int r0 = blockIdx.x * kRows;
-  const int tid = threadIdx.x;
-  const long HH = (long)H * H;
+// A product block's shared memory: A [rows][Kp + 8] (k along the row), W
+// [Kp][kCols + 4] (k down the column)
+__host__ __device__ inline int product_smem_floats(int rows, int H) {
+  return rows * (padded_k(H) + tc::kRowKPad) + padded_k(H) * (kCols + tc::kPad);
+}
 
-  for (int i = tid; i < M * kRows * H; i += blockDim.x) {
-    const int m = i / (kRows * H), r = (i / H) % kRows, n = i % H;
-    e[i] = r0 + r < B ? projected[((long)m * B + r0 + r) * H + n] : 0.f;
-  }
-  for (int i = tid; i < kRows * M; i += blockDim.x) {
-    const int r = i / M, m = i % M;
-    msk[i] = r0 + r < B ? mask[(long)(r0 + r) * M + m] : 1.f;
-  }
-  __syncthreads();
+__host__ __device__ constexpr int product_threads(int rows) { return rows / 16 * 2 * 32; }
 
-  float acc[kRows];
-  for (int q = 0; q < M; ++q) {
-    float* agg_q = agg + q * kRows * H;
-    for (int n = tid; n < H; n += blockDim.x)
+// The key of query-major ordered pair p (query p / (M - 1)).
+__device__ __forceinline__ int key_of(int p, int M) {
+  const int q = p / (M - 1), kk = p % (M - 1);
+  return kk < q ? kk : kk + 1;
+}
+
+// One warp's 16 x 16 piece of one 32-deep chunk, from a zero accumulator.
+__device__ __forceinline__ void chunk_product(const float* As, int lda, const float* Ws,
+                                              int m0, int n0, int k0, int g, int t,
+                                              float (&part)[2][4]) {
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) agg_q[r * H + n] = e[(q * kRows + r) * H + n];
-    for (int kk = 0; kk < M - 1; ++kk) {
-      const int k = kk < q ? kk : kk + 1;
-      const int p = q * (M - 1) + kk;  // query-major ordered pairs
-      __syncthreads();                 // v of the previous pair fully consumed
-      for (int n = tid; n < H; n += blockDim.x) {
-        row_tile_matvec(e + k * kRows * H, wv + p * HH, H, H, n, acc);
-        const float bias = bv[(long)p * H + n];
+  for (int kk = 0; kk < tc::kProdK; kk += 8) {
+    const tc::FragA fa = tc::load_a<false>(As, lda, m0, k0 + kk, g, t);
 #pragma unroll
-        for (int r = 0; r < kRows; ++r) v[r * H + n] = acc[r] + bias;
-      }
-      __syncthreads();
-      for (int n = tid; n < H; n += blockDim.x) {
-        row_tile_matvec(v, wo + p * HH, H, H, n, acc);
-        const float bias = bo[(long)p * H + n];
-#pragma unroll
-        for (int r = 0; r < kRows; ++r) {
-          // a masked key has attention weight 0: the out-projection sees
-          // zeros and leaves its bias
-          const float att = msk[r * M + k] > 0.f ? acc[r] + bias : bias;
-          agg_q[r * H + n] += att;
-        }
+    for (int j = 0; j < 2; ++j) {
+      const tc::FragB fb = tc::load_b<true>(Ws, kCols + tc::kPad, n0 + 8 * j, k0 + kk, g, t);
+      if (kk == 0) {
+        tc::mma3_zero(part[j], fa, fb);
+      } else {
+        tc::mma3(part[j], fa, fb);
       }
     }
-    // agg_q columns are owned by the same thread throughout: no barrier needed
-    for (int n = tid; n < H; n += blockDim.x)
-#pragma unroll
-      for (int r = 0; r < kRows; ++r)
-        agg_q[r * H + n] = agg_q[r * H + n] / (float)M * msk[r * M + q];
   }
-  __syncthreads();
+}
 
-  // gate scores: one warp per (row, modality), lanes stride over H
-  const int warp = tid >> 5, lane = tid & 31, n_warps = blockDim.x >> 5;
-  for (int i = warp; i < kRows * M; i += n_warps) {
-    const int r = i / M, m = i % M;
+// out = A W + bias (relu'd with kRelu) for the block's kRows x 32 tile at
+// batch row b0 and column n0, a warp per 16 x 16 piece: A rows of a [B, H]
+// matrix, W an [H, H] weight in [in, out] layout. With key_mask [B, M], a row
+// whose key column `key` is masked gets the bias alone (attention weight 0:
+// the out-projection sees zeros and leaves its bias). W, the bias and the
+// mask are read before the wait for the predecessor; A, which it may have
+// written, after.
+template <int kRows, bool kRelu>
+__device__ __forceinline__ void product_tile(const float* __restrict__ A,
+                                             const float* __restrict__ W,
+                                             const float* __restrict__ bias,
+                                             const float* __restrict__ key_mask, int key, int M,
+                                             float* __restrict__ out, int B, int H, int b0,
+                                             int n0, float* smem) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  constexpr int kThreads = product_threads(kRows);
+  const int Kp = padded_k(H), lda = Kp + tc::kRowKPad, ldw = kCols + tc::kPad;
+  float* As = smem;
+  float* Ws = smem + kRows * lda;
+  constexpr int kQuads = kCols / 4;
+  for (int i = tid; i < Kp * kQuads; i += kThreads) {
+    const int k = i / kQuads, c = i % kQuads * 4;
+    const bool ok = k < H && n0 + c < H;
+    tc::cp_async16(Ws + k * ldw + c, ok ? W + (long)k * H + n0 + c : W, ok);
+  }
+  tc::cp_async_commit();
+  // this thread's rows 16 (w / 2) + g, + 8 and columns 16 (w % 2) + 8 j + 2 t, + 1
+  const int m0 = warp / 2 * 16, c0 = warp % 2 * 16;
+  float bv[2][2];
+  bool kept[2];
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int n = n0 + c0 + 8 * j + 2 * t + e;
+      bv[j][e] = n < H ? bias[n] : 0.f;
+    }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int b = b0 + m0 + g + 8 * h;
+    kept[h] = !key_mask || (b < B && key_mask[(long)b * M + key] > 0.f);
+  }
+  wait_for_predecessor();
+  const int quads = Kp / 4;
+  for (int i = tid; i < kRows * quads; i += kThreads) {
+    const int r = i / quads, k = i % quads * 4;
+    const bool ok = b0 + r < B && k < H;
+    tc::cp_async16(As + r * lda + k, ok ? A + (long)(b0 + r) * H + k : A, ok);
+  }
+  tc::cp_async_commit();
+  tc::cp_async_wait<0>();
+  __syncthreads();
+  float acc[2][4] = {};
+  for (int k0 = 0; k0 < Kp; k0 += 2 * tc::kProdK) {  // two independent chains
+    float p0[2][4], p1[2][4];
+    chunk_product(As, lda, Ws, m0, c0, k0, g, t, p0);
+    chunk_product(As, lda, Ws, m0, c0, k0 + tc::kProdK, g, t, p1);
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] = acc[j][e] + p0[j][e] + p1[j][e];
+  }
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {  // accumulator layout: rows g, g + 8; columns 2t, 2t + 1
+      const int b = b0 + m0 + g + 8 * (e >> 1), n = n0 + c0 + 8 * j + 2 * t + (e & 1);
+      if (b >= B || n >= H) continue;
+      const float bias_n = bv[j][e & 1];
+      const float y = kept[e >> 1] ? acc[j][e] + bias_n : bias_n;
+      out[(long)b * H + n] = kRelu ? fmaxf(y, 0.f) : y;
+    }
+}
+
+// v_p = e_k(p) Wv_p + bv_p; blockIdx = (pair, column tile, batch tile)
+__global__ void __launch_bounds__(product_threads(kPairRows))
+fusion_head_pairs_kernel(const float* __restrict__ e, const float* __restrict__ wv,
+                         const float* __restrict__ bv, float* __restrict__ v, int M, int B,
+                         int H) {
+  extern __shared__ __align__(16) float smem[];
+  launch_dependents();
+  const long p = blockIdx.x;
+  product_tile<kPairRows, false>(e + (long)key_of(p, M) * B * H, wv + p * H * H, bv + p * H,
+                                 nullptr, 0, M, v + p * B * H, B, H, blockIdx.z * kPairRows,
+                                 blockIdx.y * kCols, smem);
+}
+
+// att_p = v_p Wo_p + bo_p, or bo_p where key k(p) is masked
+__global__ void __launch_bounds__(product_threads(kPairRows))
+fusion_head_att_kernel(const float* __restrict__ v, const float* __restrict__ mask,
+                       const float* __restrict__ wo, const float* __restrict__ bo,
+                       float* __restrict__ att, int M, int B, int H) {
+  extern __shared__ __align__(16) float smem[];
+  launch_dependents();
+  const long p = blockIdx.x;
+  product_tile<kPairRows, false>(v + p * B * H, wo + p * H * H, bo + p * H, mask, key_of(p, M),
+                                 M, att + p * B * H, B, H, blockIdx.z * kPairRows,
+                                 blockIdx.y * kCols, smem);
+}
+
+int gate_smem_floats(int M, int H) {
+  // e and att rows [M + P][H] (M + P = M^2), wg [M][H], mask and gate [M]
+  return (M * M + M) * H + 2 * M;
+}
+
+// For batch row b = blockIdx.x: agg_q = (e_q + the att_p of q's pairs, in
+// query-major order) / M * mask_q; the gate scores agg_q . wg_q + bg_q; the
+// adaptive gate weights w; fused = sum_q w_q agg_q. A row a block, so that
+// each SM has little to take in; every operand staged into shared memory by
+// cp.async first, the embeddings, wg and the mask before the wait for the att
+// kernel.
+__global__ void __launch_bounds__(kThreadsG)
+fusion_head_gate_kernel(const float* __restrict__ e, const float* __restrict__ att,
+                        const float* __restrict__ mask, const float* __restrict__ wg,
+                        const float* __restrict__ bg, float* __restrict__ fused, int M,
+                        int B, int H) {
+  extern __shared__ __align__(16) float smem[];
+  launch_dependents();
+  const int P = M * (M - 1), b = blockIdx.x;
+  float* x = smem;                // [M + P][H]: e rows, then att rows
+  float* wgs = x + (M + P) * H;   // [M][H]
+  float* msk = wgs + M * H;       // [M]
+  float* gate = msk + M;          // [M]: scores, then weights
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, n_warps = blockDim.x >> 5;
+  // rows t in [t_begin, t_end) of x: a warp per row, 16 bytes a lane
+  auto stage_rows = [&](int t_begin, int t_end, const float* src) {
+    for (int t = t_begin + warp; t < t_end; t += n_warps)
+      for (int c = 4 * lane; c < H; c += 128)
+        tc::cp_async16(x + t * H + c, src + ((long)(t - t_begin) * B + b) * H + c, true);
+  };
+  stage_rows(0, M, e);
+  for (int i = tid; i < M * H; i += kThreadsG) tc::cp_async4(wgs + i, wg + i, true);
+  if (tid < M) tc::cp_async4(msk + tid, mask + (long)b * M + tid, true);
+  tc::cp_async_commit();
+  wait_for_predecessor();
+  stage_rows(M, M + P, att);
+  tc::cp_async_commit();
+  tc::cp_async_wait<0>();
+  __syncthreads();
+  for (int n = tid; n < H; n += kThreadsG)
+    for (int q = 0; q < M; ++q) {
+      float total = x[q * H + n];
+      for (int kk = 0; kk < M - 1; ++kk) total += x[(M + q * (M - 1) + kk) * H + n];
+      x[q * H + n] = total / (float)M * msk[q];
+    }
+  __syncthreads();
+  for (int m = warp; m < M; m += n_warps) {  // warp-uniform
     float s = 0.f;
-    for (int n = lane; n < H; n += 32) s = fmaf(agg[(m * kRows + r) * H + n], wg[(long)m * H + n], s);
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
-    if (lane == 0) gate[r * M + m] = s + bg[m];
+    for (int n = lane; n < H; n += 32) s = fmaf(x[m * H + n], wgs[m * H + n], s);
+    s = msfa_ln::warp_sum(s);
+    if (lane == 0) gate[m] = s + bg[m];
   }
   __syncthreads();
-
-  // adaptive_gate_weights, one thread per row (M is small)
-  if (tid < kRows) {
-    float* g = gate + tid * M;
-    const float* mk = msk + tid * M;
+  if (tid == 0) {  // adaptive_gate_weights (M is small)
     float row_max = -INFINITY;
-    for (int m = 0; m < M; ++m) row_max = fmaxf(row_max, mk[m] > 0.f ? g[m] : -INFINITY);
+    for (int m = 0; m < M; ++m) row_max = fmaxf(row_max, msk[m] > 0.f ? gate[m] : -INFINITY);
     const float safe_max = isfinite(row_max) ? row_max : 0.f;
     float denom = 0.f;
     for (int m = 0; m < M; ++m) {
-      const float s = mk[m] > 0.f ? g[m] : -INFINITY;
-      g[m] = isfinite(s) ? expf(s - safe_max) : 0.f;
-      denom += g[m];
+      const float s = msk[m] > 0.f ? gate[m] : -INFINITY;
+      gate[m] = isfinite(s) ? expf(s - safe_max) : 0.f;
+      denom += gate[m];
     }
     float sums = 0.f, mask_sum = 0.f;
     for (int m = 0; m < M; ++m) {
-      g[m] = (denom > 0.f ? g[m] / denom : 0.f) * mk[m];
-      sums += g[m];
-      mask_sum += mk[m];
+      gate[m] = (denom > 0.f ? gate[m] / denom : 0.f) * msk[m];
+      sums += gate[m];
+      mask_sum += msk[m];
     }
     for (int m = 0; m < M; ++m) {
-      const float fallback = mask_sum > 0.f ? mk[m] / (mask_sum + 1e-8f) : 1.f / (float)M;
-      g[m] = sums > 0.f ? g[m] / (sums + 1e-8f) : fallback;
+      const float fallback = mask_sum > 0.f ? msk[m] / (mask_sum + 1e-8f) : 1.f / (float)M;
+      gate[m] = sums > 0.f ? gate[m] / (sums + 1e-8f) : fallback;
     }
   }
   __syncthreads();
-
-  for (int n = tid; n < H; n += blockDim.x)
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      float f = agg[r * H + n] * gate[r * M];
-      for (int m = 1; m < M; ++m) f += agg[(m * kRows + r) * H + n] * gate[r * M + m];
-      fused[r * H + n] = f;
-    }
-  __syncthreads();
-
-  for (int n = tid; n < H; n += blockDim.x) {
-    row_tile_matvec(fused, w1, H, H, n, acc);
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) hidden[r * H + n] = fmaxf(acc[r] + b1[n], 0.f);
+  for (int n = tid; n < H; n += kThreadsG) {
+    float f = x[n] * gate[0];
+    for (int m = 1; m < M; ++m) f += x[m * H + n] * gate[m];
+    fused[(long)b * H + n] = f;
   }
-  __syncthreads();
+}
 
-  for (int c = tid; c < C; c += blockDim.x) {
-    row_tile_matvec(hidden, w2, H, C, c, acc);
-#pragma unroll
-    for (int r = 0; r < kRows; ++r)
-      if (r0 + r < B) logits[(long)(r0 + r) * C + c] = acc[r] + b2[c];
+// hidden = relu(fused W1 + b1); blockIdx = (column tile, batch tile)
+__global__ void __launch_bounds__(product_threads(kHiddenRows))
+fusion_head_hidden_kernel(const float* __restrict__ fused, const float* __restrict__ w1,
+                          const float* __restrict__ b1, float* __restrict__ hidden, int B,
+                          int H) {
+  extern __shared__ __align__(16) float smem[];
+  launch_dependents();
+  product_tile<kHiddenRows, true>(fused, w1, b1, nullptr, 0, 0, hidden, B, H,
+                                  blockIdx.y * kHiddenRows, blockIdx.x * kCols, smem);
+}
+
+int logits_smem_floats(int H, int C) { return kRowsL * H + H * C; }
+
+// logits = hidden W2 + b2 for the block's kRowsL rows, a thread per (row,
+// class), from W2 and the rows staged into shared memory by cp.async (W2
+// before the wait for the hidden kernel)
+__global__ void __launch_bounds__(kThreadsG)
+fusion_head_logits_kernel(const float* __restrict__ hidden, const float* __restrict__ w2,
+                          const float* __restrict__ b2, float* __restrict__ logits, int B,
+                          int H, int C) {
+  extern __shared__ __align__(16) float smem[];
+  float* h = smem;            // [kRowsL][H]
+  float* w = h + kRowsL * H;  // [H][C]
+  const int r0 = blockIdx.x * kRowsL, rows = min(kRowsL, B - r0), tid = threadIdx.x;
+  for (int i = tid; i < H * C; i += kThreadsG) tc::cp_async4(w + i, w2 + i, true);
+  tc::cp_async_commit();
+  wait_for_predecessor();
+  for (int i = 4 * tid; i < rows * H; i += 4 * kThreadsG)
+    tc::cp_async16(h + i, hidden + (long)r0 * H + i, true);
+  tc::cp_async_commit();
+  tc::cp_async_wait<0>();
+  __syncthreads();
+  for (int i = tid; i < rows * C; i += kThreadsG) {
+    const int r = i / C, c = i % C;
+    float s = 0.f;
+    for (int n = 0; n < H; ++n) s = fmaf(h[r * H + n], w[n * C + c], s);
+    logits[(long)(r0 + r) * C + c] = s + b2[c];
   }
+}
+
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+// Launch kernel on s; `dependent`: as a programmatic dependent launch, which
+// may start before its predecessor on the stream ends (the kernel waits for
+// it with griddepcontrol.wait before it reads what the predecessor wrote).
+template <class... Params, class... Args>
+cudaError_t launch(void (*kernel)(Params...), dim3 grid, int threads, int smem_floats,
+                   cudaStream_t s, bool dependent, Args... args) {
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = grid;
+  config.blockDim = dim3(threads);
+  config.dynamicSmemBytes = (size_t)smem_floats * sizeof(float);
+  config.stream = s;
+  config.attrs = attr;
+  config.numAttrs = dependent ? 1 : 0;
+  const cudaError_t err = msfa_ln::allow_smem(kernel, smem_floats);
+  if (err != cudaSuccess) return err;
+  return cudaLaunchKernelEx(&config, kernel, static_cast<Params>(args)...);
 }
 
 }  // namespace
 
 extern "C" {
 
+// scratch: (2P + 2) * B * H floats (v and att [P, B, H], fused and hidden
+// [B, H]). H must be a multiple of 4, at most 576 (a pair product block's
+// operands fit in shared memory: a larger H is refused by the launch), and
+// the operands the kernels copy 16 bytes at a time (projected, the pair
+// weights, W1, scratch) 16-byte aligned.
 int msfa_fusion_head(const float* projected, const float* mask, const float* wv,
                      const float* bv, const float* wo, const float* bo,
                      const float* wg, const float* bg, const float* w1,
                      const float* b1, const float* w2, const float* b2,
-                     float* logits, int M, int B, int H, int C, void* stream) {
-  if (M <= 0 || B <= 0 || H <= 0 || C <= 0) return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(M, H);
-  cudaError_t err = cudaFuncSetAttribute(
-      fusion_head_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((B + kRows - 1) / kRows);
-  fusion_head_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      projected, mask, wv, bv, wo, bo, wg, bg, w1, b1, w2, b2, logits, M, B, H, C);
-  return (int)cudaGetLastError();
+                     float* logits, float* scratch, int M, int B, int H, int C,
+                     void* stream) {
+  if (M <= 0 || B <= 0 || H <= 0 || C <= 0 || H % 4) return (int)cudaErrorInvalidValue;
+  if (!aligned16(projected) || !aligned16(wv) || !aligned16(wo) || !aligned16(w1) ||
+      !aligned16(scratch))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int P = M * (M - 1);
+  float* v = scratch;
+  float* att = v + (long)P * B * H;
+  float* fused = att + (long)P * B * H;
+  float* hidden = fused + (long)B * H;
+  const int pair_smem = product_smem_floats(kPairRows, H);
+  const int hidden_smem = product_smem_floats(kHiddenRows, H);
+  const int tiles = (H + kCols - 1) / kCols, logit_blocks = (B + kRowsL - 1) / kRowsL;
+  const dim3 pair_grid(P, tiles, (B + kPairRows - 1) / kPairRows);
+  const dim3 hidden_grid(tiles, (B + kHiddenRows - 1) / kHiddenRows);
+  // the first launch waits for the stream as any launch does
+  bool dependent = false;
+  if (P > 0) {
+    MSFA_TRY(launch(fusion_head_pairs_kernel, pair_grid, product_threads(kPairRows), pair_smem,
+                    s, false, projected, wv, bv, v, M, B, H));
+    MSFA_TRY(launch(fusion_head_att_kernel, pair_grid, product_threads(kPairRows), pair_smem, s,
+                    true, v, mask, wo, bo, att, M, B, H));
+    dependent = true;
+  }
+  MSFA_TRY(launch(fusion_head_gate_kernel, dim3(B), kThreadsG, gate_smem_floats(M, H), s,
+                  dependent, projected, att, mask, wg, bg, fused, M, B, H));
+  MSFA_TRY(launch(fusion_head_hidden_kernel, hidden_grid, product_threads(kHiddenRows),
+                  hidden_smem, s, true, fused, w1, b1, hidden, B, H));
+  MSFA_TRY(launch(fusion_head_logits_kernel, dim3(logit_blocks), kThreadsG,
+                  logits_smem_floats(H, C), s, true, hidden, w2, b2, logits, B, H, C));
+  return 0;
 }
 
 const char* msfa_cuda_error_string(int code) {

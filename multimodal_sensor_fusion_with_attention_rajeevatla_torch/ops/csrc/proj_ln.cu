@@ -15,19 +15,18 @@
 //   dWo = a^T dy, dbo = sum dy, dgamma = sum dout * xhat, dbeta = sum dout.
 //
 // What bounds it on the H100: at the training shape (N = 16384, D = 256) the
-// forward does 2*N*D*D = 2.1 GFLOP against 50 MB (x, a, mask in, out back),
-// the backward 6*N*D*D = 6.4 GFLOP against ~100 MB: operations, 0.03 ms and
-// 0.10 ms on the CUDA cores (67 TFLOP/s), the backward 0.04 ms as 3xTF32 on
-// the tensor cores (165 TFLOP/s), over the bytes (0.015 ms and 0.03 ms).
+// forward does 2*N*D*D = 2.1 GFLOP against 55 MB (x, a, out, the u8 mask, Wo),
+// the backward 6*N*D*D = 6.4 GFLOP against ~100 MB. As 3xTF32 on the tensor
+// cores (165 TFLOP/s) the forward's operations take 0.013 ms and its bytes
+// 0.016 ms: bytes bound it; the backward's operations, 0.04 ms.
 //
-// Forward, on the CUDA cores: one block of 256 threads owns 32 whole rows (8
-// warps x 4 rows), so the LayerNorm is an epilogue: each warp holds its 4
-// rows' D columns (lane + 32 j) in registers and takes the row sums with
-// shuffles. Wo streams through shared memory in 32-row slices.
+// Forward: y = a Wo + bo on 64 whole rows, on the TF32 tensor cores at f32
+// accuracy (3xTF32), a tile of tc_product.cuh's template; its epilogue is the
+// residual and the LayerNorm (residual_ln.cuh's ln_fwd_tile, the body of
+// ffw_ln.cu's LN-forward product at K = D).
 //
-// Backward: three products on the TF32 tensor cores at f32 accuracy
-// (3xTF32), each a tile of tc_product.cuh's template, on the bodies that
-// residual_ln.cuh shares with ffw_ln.cu's:
+// Backward: three products, each a tile of the same template, on the bodies
+// that residual_ln.cuh shares with ffw_ln.cu's:
 //   ln:   y = a Wo + bo on 64 whole rows; its epilogue is the LayerNorm
 //         backward: dx = dr, dy, and per-block partials of dgamma, dbeta
 //         and dbo (ln_bwd_tile)
@@ -46,88 +45,16 @@
 
 namespace {
 
-constexpr int kRows = 32;
-constexpr int kThreads = 256;
-constexpr int kK = 32;  // depth of one streamed weight slice
-
+// out = LayerNorm(x + (a Wo + bo) * rmask * inv_keep) for 64 whole rows
 template <int D>
-constexpr int fwd_smem_floats() {
-  return kRows * kK + D * (kK + 1);
-}
-
-// acc[i][j] = (a Wo)[row0 + warp*4 + i][lane + 32 j], a [N, D], Wo [D, D].
-template <int D>
-__device__ __forceinline__ void tile_product(const float* __restrict__ a,
-                                             const float* __restrict__ wo,
-                                             int row0, int N, float* As, float* Ws,
-                                             float (&acc)[4][D / 32]) {
-  constexpr int DJ = D / 32;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
-  for (int k0 = 0; k0 < D; k0 += kK) {
-    __syncthreads();
-    for (int e = tid; e < kRows * kK; e += kThreads) {
-      const int r = e / kK, c = e % kK, n = row0 + r;
-      As[e] = n < N ? a[(long)n * D + k0 + c] : 0.f;
-    }
-    for (int e = tid; e < kK * D; e += kThreads) Ws[e] = wo[(long)k0 * D + e];
-    __syncthreads();
-#pragma unroll 8
-    for (int kk = 0; kk < kK; ++kk) {
-      float wv[DJ];
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) wv[j] = Ws[kk * D + lane + 32 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float av = As[(warp * 4 + i) * kK + kk];
-#pragma unroll
-        for (int j = 0; j < DJ; ++j) acc[i][j] = fmaf(av, wv[j], acc[i][j]);
-      }
-    }
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(msfa_ln::LnProduct<D>::kThreads)
 proj_ln_fwd_kernel(const float* __restrict__ x, const float* __restrict__ a,
                    const float* __restrict__ wo, const float* __restrict__ bo,
                    const float* __restrict__ gamma, const float* __restrict__ beta,
                    const unsigned char* __restrict__ rmask, float* __restrict__ out,
                    int N, float inv_keep, float eps) {
-  constexpr int DJ = D / 32;
-  extern __shared__ float smem[];
-  float* As = smem;
-  float* Ws = As + kRows * kK;
-  const int row0 = blockIdx.x * kRows;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  float acc[4][DJ];
-  tile_product<D>(a, wo, row0, N, As, Ws, acc);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int n = row0 + warp * 4 + i;
-    if (n >= N) continue;  // warp-uniform
-    float r[DJ], s1 = 0.f, s2 = 0.f;
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) {
-      const int c = lane + 32 * j;
-      float y = acc[i][j] + bo[c];
-      if (rmask) y *= (float)rmask[(long)n * D + c] * inv_keep;
-      r[j] = x[(long)n * D + c] + y;
-      s1 += r[j];
-      s2 += r[j] * r[j];
-    }
-    const float mu = msfa_ln::warp_sum(s1) / D;
-    const float var = fmaxf(msfa_ln::warp_sum(s2) / D - mu * mu, 0.f);
-    const float inv = 1.f / sqrtf(var + eps);
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) {
-      const int c = lane + 32 * j;
-      out[(long)n * D + c] = (r[j] - mu) * inv * gamma[c] + beta[c];
-    }
-  }
+  extern __shared__ __align__(16) float smem[];
+  msfa_ln::ln_fwd_tile<D>(a, D, wo, bo, x, gamma, beta, rmask, out, N, inv_keep, eps, smem);
 }
 
 // y = a Wo + bo for 64 whole rows, then the LayerNorm backward: dx = dr, dy,
@@ -179,12 +106,12 @@ template <int D>
 int launch_fwd(const float* x, const float* a, const float* wo, const float* bo,
                const float* gamma, const float* beta, const unsigned char* rmask,
                float* out, int N, float inv_keep, float eps, cudaStream_t s) {
-  const int smem = fwd_smem_floats<D>() * (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      proj_ln_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  proj_ln_fwd_kernel<D><<<(N + kRows - 1) / kRows, kThreads, smem, s>>>(
-      x, a, wo, bo, gamma, beta, rmask, out, N, inv_keep, eps);
+  using namespace msfa_ln;
+  constexpr int kFloats = ln_smem_floats<D>();
+  MSFA_TRY(allow_smem(proj_ln_fwd_kernel<D>, kFloats));
+  proj_ln_fwd_kernel<D><<<(N + kRowsD - 1) / kRowsD, LnProduct<D>::kThreads,
+                          kFloats * (int)sizeof(float), s>>>(x, a, wo, bo, gamma, beta, rmask,
+                                                             out, N, inv_keep, eps);
   return (int)cudaGetLastError();
 }
 

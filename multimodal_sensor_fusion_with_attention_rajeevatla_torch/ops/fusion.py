@@ -10,9 +10,12 @@ Counterpart of the JAX package's ``ops/pallas_fusion.py``. On pooled
     logits = relu((sum_q w_q agg_q) W1 + b1) W2 + b2
 
 ``fused_hybrid_head`` is the kernel wrapper: a CUDA tensor launches
-``csrc/fusion_head.cu`` (one launch for the whole head) or raises, a CPU
-tensor takes ``fused_hybrid_head_reference``. Weights use the reference's
-``[in, out]`` layout; pair weights stay stacked ``[P, H, H]``.
+``csrc/fusion_head.cu`` (five kernels on one stream: the pair values, their
+out-projections, the aggregation and gate, the hidden and the logits; the
+products 3xTF32 on the tensor cores, the intermediates in one scratch tensor
+the wrapper allocates) or raises, a CPU tensor takes ``fused_hybrid_head_reference``.
+Weights use the reference's ``[in, out]`` layout; pair weights stay stacked
+``[P, H, H]``.
 """
 
 from __future__ import annotations
@@ -79,7 +82,7 @@ def fused_hybrid_head_reference(
 def _kernel_fn():
     lib = _build.library("fusion_head")
     fn = lib.msfa_fusion_head
-    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib, fn
 
@@ -98,9 +101,11 @@ def fused_hybrid_head(
 ) -> torch.Tensor:
     """Run the fused head -> logits ``[B, C]``.
 
-    CUDA tensors launch the kernel (float32, contiguous, query-major ordered
-    pairs) or raise; CPU tensors take ``fused_hybrid_head_reference``.
-    ``fused_hybrid_head.launches`` counts kernel launches.
+    CUDA tensors launch the kernels (float32, contiguous, query-major ordered
+    pairs; ``hidden`` a multiple of 4 and the products' operands 16-byte
+    aligned, or the launch is refused) or raise; CPU tensors take
+    ``fused_hybrid_head_reference``. ``fused_hybrid_head.launches`` counts
+    calls that launched the head.
     """
     num_mod, batch, hidden = projected.shape
     num_classes = w2.shape[-1]
@@ -145,13 +150,17 @@ def fused_hybrid_head(
     logits = torch.empty((batch, num_classes), device=projected.device, dtype=torch.float32)
     if batch == 0:
         return logits
+    # v and att [P, B, H], fused and hidden [B, H]
+    scratch = torch.empty(
+        (2 * num_pairs + 2) * batch * hidden, device=projected.device, dtype=torch.float32
+    )
     lib, fn = _kernel_fn()
     with torch.cuda.device(projected.device):
         code = fn(
             projected.data_ptr(), modality_mask.data_ptr(), wv.data_ptr(), bv.data_ptr(),
             wo.data_ptr(), bo.data_ptr(), gate_kernels.data_ptr(), gate_biases.data_ptr(),
             w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), logits.data_ptr(),
-            num_mod, batch, hidden, num_classes,
+            scratch.data_ptr(), num_mod, batch, hidden, num_classes,
             torch.cuda.current_stream(projected.device).cuda_stream,
         )
     _build.check(lib, code, "fused_hybrid_head")

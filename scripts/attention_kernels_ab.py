@@ -8,34 +8,40 @@ same process order.
 
 Each ``--tree`` runs in its own process, which imports the port from that
 checkout, builds its kernels from its ``ops/csrc`` and times, with CUDA
-events, rows 1-7 and 10-15 of the kernel table at the shapes
+events, rows 1-8 and 10-15 of the kernel table at the shapes
 ``chip_smoke.py`` reports them: the packed forward (B 64, T 512, H 4, d 64)
 and backward (B 32), the single-key-block forward and the fused backward at
 ``[B*H, T, d]`` = ``[128, 1024, 64]``, ``[512, 512, 64]`` and ``[128, 2048,
 64]``, the split dk/dv and dq kernels at ``[128, 1024, 64]`` and ``[128,
 2048, 64]``, the tiled
 forward at ``[256, 4096, 64]``, ``[128, 1024, 64]`` and ``[128, 2048, 64]``
-(every key valid), and the feed-forward pair and the projection and FFW
+(every key valid), the feed-forward pair and the projection and FFW
 residual-LayerNorm kernels, forward and backward, at N = 16,384 rows, d 256,
-d_ff 2048, keep 0.8; inputs from a fixed seed.
+d_ff 2048, keep 0.8, and the fused head at batch 64 (M 4, H 256, C 25, a
+random mask); inputs from a fixed seed. Launches are timed back to back; the
+head and the projection's forward are also timed each call alone, the card
+kept ahead of the host, L2-warm and L2-cold (a 128 MB write before each
+call).
 ``scaled_dot_product_attention`` (forward, or its backward) is timed beside
 each attention shape. The attention backward kernels' outputs are hashed on
-ragged lengths (0, 1, 37, 64, 65, T - 1, T, T / 2), and the feed-forward and
-residual-LN kernels' outputs on their timed inputs, so that the table also
-says which kernels give the same bits in every tree. Prints the card's name and
-power limit, one JSON line per tree, then the table of all runs. Needs a
-CUDA card; imports torch and the port only.
+ragged lengths (0, 1, 37, 64, 65, T - 1, T, T / 2), and the feed-forward,
+residual-LN and head kernels' outputs on their timed inputs, so that the table
+also says which kernels give the same bits in every tree. Prints the card's
+name and power limit, one JSON line per tree, then the table of all runs.
+Needs a CUDA card; imports torch and the port only.
 """
 
 from __future__ import annotations
 
 import argparse
 import hashlib
+import importlib.util
 import json
 import subprocess
 import sys
 from pathlib import Path
 
+REPO = Path(__file__).resolve().parents[1]
 HEADS, HEAD_DIM = 4, 64
 
 
@@ -49,6 +55,16 @@ def _time_ms(torch, fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _warm_cold(times, name, fn, flush) -> None:
+    """Each call timed alone, L2-warm and L2-cold, as ``chip_smoke.py`` times
+    rows 8 and 14 (its ``device_ms``, loaded from this checkout)."""
+    spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    times[f"{name}_alone_warm"] = smoke.device_ms(fn)
+    times[f"{name}_alone_cold"] = smoke.device_ms(fn, flush=flush)
 
 
 def _digest(tensors) -> str:
@@ -142,14 +158,18 @@ def _measure(tree: Path) -> dict:
             leaves = [t.view(rows // HEADS, HEADS, seq, HEAD_DIM) for t in (q, k, v)]
             times[f"sdpa_fwd_{rows}x{seq}"] = _time_ms(torch, lambda: sdpa(*leaves), 10)
         del q, k, v
-    mlp_times, mlp_bits = _measure_mlp(torch, g)
+    flush = torch.empty(32 << 20, device="cuda")  # 128 MB: more than the 50 MB L2
+    mlp_times, mlp_bits = _measure_mlp(torch, g, flush)
     times.update(mlp_times)
     bits.update(mlp_bits)
+    head_times, head_bits = _measure_head(torch, g, flush)
+    times.update(head_times)
+    bits.update(head_bits)
     return {"tree": str(tree), "device": torch.cuda.get_device_name(0), "ms": times,
             "bits": bits}
 
 
-def _measure_mlp(torch, g) -> dict:
+def _measure_mlp(torch, g, flush) -> dict:
     """Rows 10-15: the feed-forward pair and the two residual-LN pairs at the
     training shape, keep 0.8 -> (ms, output digests)."""
     from multimodal_sensor_fusion_with_attention_rajeevatla_torch.ops import mlp as tm
@@ -179,7 +199,34 @@ def _measure_mlp(torch, g) -> dict:
     for name, call in calls.items():
         out = call()
         bits[name] = _digest(out if isinstance(out, tuple) else [out])
-    return {name: _time_ms(torch, call, 10) for name, call in calls.items()}, bits
+    times = {name: _time_ms(torch, call, 10) for name, call in calls.items()}
+    _warm_cold(times, "proj_ln_fwd", calls["proj_ln_fwd"], flush)
+    return times, bits
+
+
+def _measure_head(torch, g, flush) -> dict:
+    """Row 8: the fused head at batch 64, full width -> (ms, output digest)."""
+    from multimodal_sensor_fusion_with_attention_rajeevatla_torch.ops import fusion as tf
+
+    num_mod, batch, hidden, ncls = 4, 64, 256, 25
+    pairs = [(q, k) for q in range(num_mod) for k in range(num_mod) if q != k]
+
+    def w(*shape, s=0.06):
+        return (torch.randn(*shape, generator=g) * s).cuda()
+
+    projected = torch.relu(w(num_mod, batch, hidden, s=1.0))
+    mask = (torch.rand(batch, num_mod, generator=g) > 0.3).float().cuda()
+    p = len(pairs)
+    pair_params = {"value_kernel": w(p, hidden, hidden), "value_bias": w(p, hidden),
+                   "out_kernel": w(p, hidden, hidden), "out_bias": w(p, hidden)}
+    rest = (w(num_mod, hidden), w(num_mod), w(hidden, hidden), w(hidden), w(hidden, ncls), w(ncls))
+
+    def call():
+        return tf.fused_hybrid_head(projected, mask, pair_params, *rest, pairs)
+
+    times = {"fused_hybrid_head": _time_ms(torch, call, 20)}
+    _warm_cold(times, "fused_hybrid_head", call, flush)
+    return times, {"fused_hybrid_head": _digest([call()])}
 
 
 def main() -> int:
@@ -200,7 +247,7 @@ def main() -> int:
                          capture_output=True, text=True, check=True)
     print(smi.stdout.strip(), flush=True)
     runs = []
-    for tree in args.tree or [str(Path(__file__).resolve().parents[1])]:
+    for tree in args.tree or [str(REPO)]:
         proc = subprocess.run([sys.executable, __file__, "--one", tree], capture_output=True,
                               text=True)
         if proc.returncode:

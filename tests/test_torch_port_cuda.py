@@ -66,8 +66,10 @@ def test_packed_attention_kernel_rejects_what_it_does_not_take(card):
         ta.packed_attention_fwd(torch.zeros(2, 8, 3 * 64, device=card), lengths.long(), 1, 1.0)
 
 
-@pytest.mark.parametrize("batch", [1, 5, 64])
-def test_fused_head_kernel_matches_twin(card, batch):
+def _head_case(card, batch):
+    """Head inputs at full width (M = 4, P = 12, H = 256, C = 25) on the card,
+    the first rows' masks at the edges: no modality (the uniform fallback),
+    one, two."""
     g = torch.Generator().manual_seed(batch)
     num_mod, hidden, ncls = 4, 256, 25
     pairs = [(q, k) for q in range(num_mod) for k in range(num_mod) if q != k]
@@ -77,18 +79,36 @@ def test_fused_head_kernel_matches_twin(card, batch):
         return (torch.randn(*shape, generator=g) * scale).to(card)
 
     projected = torch.relu(w(num_mod, batch, hidden, scale=1.0))
-    mask = (torch.rand(batch, num_mod, generator=g) > 0.4).float().to(card)
-    mask[0] = 0.0
+    mask = (torch.rand(batch, num_mod, generator=g) > 0.4).float()
+    edges = torch.tensor([[0.0, 0.0, 0.0, 0.0], [0.0, 0.0, 0.0, 1.0], [1.0, 0.0, 1.0, 0.0]])
+    mask[:3] = edges[:batch]
     pair_params = {"value_kernel": w(p, hidden, hidden), "value_bias": w(p, hidden),
                    "out_kernel": w(p, hidden, hidden), "out_bias": w(p, hidden)}
     rest = (w(num_mod, hidden), w(num_mod), w(hidden, hidden), w(hidden),
             w(hidden, ncls), w(ncls))
+    return projected, mask.to(card), pair_params, rest, pairs
+
+
+@pytest.mark.parametrize("batch", [1, 5, 64, 130])
+def test_fused_head_kernel_matches_twin(card, batch):
+    # 130: three 64-row tiles, the last one ragged
+    projected, mask, pair_params, rest, pairs = _head_case(card, batch)
     before = tf.fused_hybrid_head.launches
     got = tf.fused_hybrid_head(projected, mask, pair_params, *rest, pairs)
     torch.cuda.synchronize()
     assert tf.fused_hybrid_head.launches == before + 1
     want = tf.fused_hybrid_head_reference(projected, mask, pair_params, *rest, pairs)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("batch", [5, 64])
+def test_fused_head_kernel_repeats_bit_for_bit(card, batch):
+    # every sum in a fixed order, no atomics
+    projected, mask, pair_params, rest, pairs = _head_case(card, batch)
+    first = tf.fused_hybrid_head(projected, mask, pair_params, *rest, pairs)
+    second = tf.fused_hybrid_head(projected, mask, pair_params, *rest, pairs)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 def _rel_err(got, want):
@@ -217,6 +237,19 @@ def test_proj_ln_bwd_kernel_repeats_bit_for_bit(card):
     second = tm.proj_ln_bwd(*args, 1.25, 1e-6)
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_proj_ln_fwd_kernel_repeats_bit_for_bit(card):
+    n, d = 16384, 256  # the training shape
+    g = torch.Generator().manual_seed(53)
+    w, _fmask, rmask = _ln_inputs(g, n, d, d, 0.8, card)
+    args = (w(n, d), w(n, d), w(d, d, scale=d**-0.5), w(d, scale=0.1), 1 + w(d, scale=0.1),
+            w(d, scale=0.1), rmask)
+    first = tm.proj_ln_fwd(*args, 1.25, 1e-6)
+    second = tm.proj_ln_fwd(*args, 1.25, 1e-6)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    assert _rel_err(first, tm.proj_ln_fwd_reference(*args, 1.25, 1e-6)) < GRAD_TOL
 
 
 def test_ln_kernels_reject_what_they_do_not_take(card):

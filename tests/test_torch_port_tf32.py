@@ -2,23 +2,24 @@
 
 ``flash_fwd_single``, ``flash_fwd_tiled``, ``packed_attention_fwd``,
 ``packed_attention_bwd``, ``flash_bwd_fused``, ``flash_bwd_dkv``,
-``flash_bwd_dq``, ``ffw_ln_fwd``, ``ffw_ln_bwd``, ``proj_ln_bwd``,
-``fused_mlp_fwd`` and ``fused_mlp_bwd`` take each f32 product as three TF32
-tensor-core products
-(``ops/csrc/tf32_mma.cuh``): x = hi + lo, with
+``flash_bwd_dq``, ``ffw_ln_fwd``, ``ffw_ln_bwd``, ``proj_ln_fwd``,
+``proj_ln_bwd``, ``fused_mlp_fwd``, ``fused_mlp_bwd`` and
+``fused_hybrid_head`` take each f32 product as three TF32 tensor-core
+products (``ops/csrc/tf32_mma.cuh``): x = hi + lo, with
 hi = x rounded to TF32 (half a TF32 ulp added to the bits, the low 13 bits
 cleared) and lo = x - hi, of which the tensor core reads the top 19 bits; then
 a*b = lo*hi' + hi*lo' + hi*hi' with f32 accumulation. TF32 values multiply
 exactly in f32, so bit masks on int32 views and f32 products emulate the
 scheme. The kernels' arithmetic, emulated so, stays within the limits
 ``chip_smoke.py`` holds the kernels to on the card against the plain versions:
-1e-4 max abs for the attention forwards, 1e-4 of the largest magnitude for the
-backwards and the residual-LN kernels. One TF32 product per f32 product is
+1e-4 max abs for the attention forwards and the fused head, 1e-4 of the
+largest magnitude for the backwards and the residual-LN kernels. One TF32 product per f32 product is
 printed beside it; it misses them. The fused and the split attention
 backwards' emulations are also held against the JAX package's routes of the
 same name (``flash_self_attention``'s VJP in interpret mode), and the residual-LN
 and feed-forward kernels' against ``fused_mlp_residual_ln``,
-``fused_proj_residual_ln`` and ``fused_mlp`` there.
+``fused_proj_residual_ln`` and ``fused_mlp`` there, and the fused head's
+against ``fused_hybrid_head``.
 """
 
 import math
@@ -31,8 +32,16 @@ import torch
 
 from multimodal_sensor_fusion_with_attention_rajeevatla_tpu.ops import pallas_attention as pa
 from multimodal_sensor_fusion_with_attention_rajeevatla_tpu.ops import pallas_mlp as jmlp
+from multimodal_sensor_fusion_with_attention_rajeevatla_tpu.ops.pallas_fusion import (
+    fused_hybrid_head as jax_fused_hybrid_head,
+)
 from multimodal_sensor_fusion_with_attention_rajeevatla_torch.ops import attention as ta
+from multimodal_sensor_fusion_with_attention_rajeevatla_torch.ops import fusion as tf
 from multimodal_sensor_fusion_with_attention_rajeevatla_torch.ops import mlp as tm
+from multimodal_sensor_fusion_with_attention_rajeevatla_torch.ops.masked import (
+    adaptive_gate_weights,
+)
+from test_torch_port_ops import HEAD_TOL, MASKS
 
 ATTN_TOL = 1e-4  # forward: max abs error
 GRAD_TOL = 1e-4  # backward: max abs error over the largest magnitude
@@ -462,6 +471,22 @@ def _fused_mlp_bwd(x, w1, b1, w2, mask, dout, inv_keep, mm):
     return (dx, dw1, _block_sums(dpre, tm.ROWS_F), dw2), hd
 
 
+def _proj_residual(x, a, wo, bo, rmask, inv_keep, mm):
+    """The LN product of both projection kernels -> ``(r, rscale)``:
+    r = x + (a Wo + bo) * rmask * inv_keep, the product through ``mm`` in
+    32-deep fresh accumulators."""
+    _fscale, rscale = _scales(None, rmask, inv_keep)
+    return x + (_mm_chunked(a, wo, mm) + bo) * rscale, rscale
+
+
+def _proj_ln_fwd(x, a, wo, bo, gamma, beta, rmask, inv_keep, eps, mm):
+    """``proj_ln_fwd``'s arithmetic: y = a Wo + bo on 64 whole rows with the
+    residual and the LayerNorm as its epilogue (``ffw_ln_fwd``'s LN product
+    at K = D)."""
+    r, _rscale = _proj_residual(x, a, wo, bo, rmask, inv_keep, mm)
+    return tm.ln_rows(r, gamma, beta, eps)[0]
+
+
 def _proj_ln_bwd(x, a, wo, bo, gamma, rmask, dout, inv_keep, eps, mm):
     """``proj_ln_bwd``'s arithmetic: y = a Wo + bo on 64 whole rows with the
     LayerNorm backward as its epilogue (dx = dr, dy), da = dy Wo^T, dWo per
@@ -469,9 +494,8 @@ def _proj_ln_bwd(x, a, wo, bo, gamma, rmask, dout, inv_keep, eps, mm):
     added in order; the products through ``mm`` in 32-deep fresh
     accumulators."""
     d = x.shape[1]
-    _fscale, rscale = _scales(None, rmask, inv_keep)
-    y = (_mm_chunked(a, wo, mm) + bo) * rscale
-    _out, xhat, inv = tm.ln_rows(x + y, gamma, torch.zeros_like(gamma), eps)
+    r, rscale = _proj_residual(x, a, wo, bo, rmask, inv_keep, mm)
+    _out, xhat, inv = tm.ln_rows(r, gamma, torch.zeros_like(gamma), eps)
     dr, _dgamma, _dbeta = tm._ln_backward(dout, xhat, inv, gamma)
     dy = dr * rscale
     da = _mm_chunked(dy, wo.t(), mm)
@@ -627,6 +651,32 @@ def test_ffw_ln_backward_3xtf32_matches_the_jax_kernel():
 
 
 @pytest.mark.parametrize(**LN_CASES)
+def test_proj_ln_forward_3xtf32_holds_the_f32_limit(n, keep):
+    d = 64
+    arrays, rmask, _dout = _proj_case(np.random.default_rng(25 + n), n, d, keep)
+    args = (*_torch(arrays), *_torch([rmask]), tm._inv_keep(1.0 if keep is None else keep), 1e-6)
+    want = tm.proj_ln_fwd_reference(*args)
+    errs = {name: ((_proj_ln_fwd(*args, mm) - want).abs().max() / want.abs().max()).item()
+            for name, mm in (("3xTF32", _mm3), ("1xTF32", _mm1))}
+    print(f"projection residual-LN forward, N={n} D={d} keep={keep}, max abs err over the "
+          f"largest magnitude: 3xTF32 {errs['3xTF32']:.3e}, 1xTF32 {errs['1xTF32']:.3e} "
+          f"(limit {GRAD_TOL})")
+    assert errs["3xTF32"] < GRAD_TOL
+    assert errs["3xTF32"] * 10 < errs["1xTF32"]
+
+
+def test_proj_ln_forward_3xtf32_matches_the_jax_kernel():
+    n, d, keep = 100, 64, 0.8
+    arrays, rmask, _dout = _proj_case(np.random.default_rng(26), n, d, keep)
+    want = jmlp.fused_proj_residual_ln(*(jnp.asarray(a) for a in arrays), jnp.asarray(rmask),
+                                       keep, interpret=True)
+    got = _proj_ln_fwd(*_torch(arrays), torch.from_numpy(rmask), tm._inv_keep(keep), 1e-6, _mm3)
+    print(f"emulated proj_ln_fwd vs the JAX kernel, max abs err "
+          f"{np.abs(got.numpy() - np.asarray(want)).max():.3e}")
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **JAX_TOL)
+
+
+@pytest.mark.parametrize(**LN_CASES)
 def test_proj_ln_backward_3xtf32_holds_the_f32_limit(n, keep):
     d = 64
     arrays, rmask, dout = _proj_case(np.random.default_rng(27 + n), n, d, keep)
@@ -760,3 +810,95 @@ def test_fused_mlp_and_ffw_ln_share_one_hidden_and_its_relu_branch():
           f"on the twin's own {max(own.values()):.3e}")
     assert off.any() and not torch.any(off & (pre.abs() >= band))
     assert all(e < GRAD_TOL for e in on_branch.values()), on_branch
+
+
+# ------------------------------------------------------------- fused head
+
+HEAD_PAIRS = [(q, k) for q in range(4) for k in range(4) if q != k]
+HEAD_MAX_ABS = 1e-4  # chip_smoke.py's limit for the head against its twin
+PAIR_KEYS = ("value_kernel", "value_bias", "out_kernel", "out_bias")
+HEAD_REST = ("gate_kernels", "gate_biases", "w1", "b1", "w2", "b2")
+
+
+def _head_case(batch, mask_name, num_mod=4, hidden=32, classes=5):
+    """Inputs of one head case as numpy arrays: M = 4, H = 32, C = 5, a
+    batch that is not a multiple of the kernels' 64-row tile, and the mask
+    rows of ``MASKS[mask_name]`` repeated down the batch."""
+    rng = np.random.default_rng(batch + len(mask_name))
+    p = len(HEAD_PAIRS)
+
+    def w(*shape, scale=0.2):
+        return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+    arrays = {
+        "projected": np.maximum(w(num_mod, batch, hidden, scale=1.0), 0.0),
+        "value_kernel": w(p, hidden, hidden), "value_bias": w(p, hidden),
+        "out_kernel": w(p, hidden, hidden), "out_bias": w(p, hidden),
+        "gate_kernels": w(num_mod, hidden), "gate_biases": w(num_mod),
+        "w1": w(hidden, hidden), "b1": w(hidden), "w2": w(hidden, classes), "b2": w(classes),
+    }
+    return arrays, np.resize(MASKS[mask_name], (batch, num_mod))
+
+
+def _head(projected, mask, pair_params, gate_kernels, gate_biases, w1, b1, w2, b2, mm):
+    """``fused_hybrid_head``'s arithmetic (``csrc/fusion_head.cu``): the pair
+    values v_p = e_k Wv_p + bv_p, their out-projections and the hidden through
+    ``mm`` in 32-deep fresh accumulators; the key mask selects bo_p per row
+    after the product, the pairs of a query added in query-major order; the
+    gate, the weighted sum and the logits in f32."""
+    num_mod = projected.shape[0]
+    wv, bv = pair_params["value_kernel"], pair_params["value_bias"]
+    wo, bo = pair_params["out_kernel"], pair_params["out_bias"]
+    aggs = []
+    for q in range(num_mod):
+        total = projected[q]
+        for p, (pq, pk) in enumerate(HEAD_PAIRS):
+            if pq == q:
+                v = _mm_chunked(projected[pk], wv[p], mm) + bv[p]
+                att = _mm_chunked(v, wo[p], mm) + bo[p]
+                total = total + torch.where(mask[:, pk:pk + 1] > 0, att, bo[p])
+        aggs.append(total / num_mod * mask[:, q:q + 1])
+    score = torch.stack([(aggs[m] * gate_kernels[m]).sum(-1) + gate_biases[m]
+                         for m in range(num_mod)], dim=-1)
+    weights = adaptive_gate_weights(score, mask, num_mod)
+    fused = aggs[0] * weights[:, :1]
+    for m in range(1, num_mod):
+        fused = fused + aggs[m] * weights[:, m:m + 1]
+    hidden = torch.relu(_mm_chunked(fused, w1, mm) + b1)
+    return hidden @ w2 + b2
+
+
+def _head_args(arrays, mask, as_tensor):
+    return (as_tensor(arrays["projected"]), as_tensor(mask),
+            {k: as_tensor(arrays[k]) for k in PAIR_KEYS},
+            *(as_tensor(arrays[k]) for k in HEAD_REST))
+
+
+@pytest.mark.parametrize("batch", [5, 70])
+@pytest.mark.parametrize("mask_name", list(MASKS))
+def test_fused_head_3xtf32_holds_the_f32_limit(batch, mask_name):
+    arrays, mask = _head_case(batch, mask_name)
+    args = _head_args(arrays, mask, torch.from_numpy)
+    want = tf.fused_hybrid_head_reference(*args, HEAD_PAIRS)
+    errs = {name: (_head(*args, mm) - want).abs().max().item()
+            for name, mm in (("3xTF32", _mm3), ("1xTF32", _mm1))}
+    print(f"fused head, B={batch} mask {mask_name}, max abs err: 3xTF32 {errs['3xTF32']:.3e}, "
+          f"1xTF32 {errs['1xTF32']:.3e} (limit {HEAD_MAX_ABS})")
+    assert errs["3xTF32"] < HEAD_MAX_ABS
+    if mask_name == "none":  # every agg is 0: the products multiply zeros, exactly
+        assert errs["3xTF32"] == errs["1xTF32"] == 0.0
+    else:
+        assert errs["3xTF32"] * 10 < errs["1xTF32"]
+
+
+@pytest.mark.parametrize("batch", [5, 70])
+@pytest.mark.parametrize("mask_name", list(MASKS))
+def test_fused_head_3xtf32_matches_the_jax_kernel(batch, mask_name):
+    arrays, mask = _head_case(batch, mask_name)
+    projected, jmask, pair_params, *rest = _head_args(arrays, mask, jnp.asarray)
+    want = np.asarray(jax_fused_hybrid_head(projected, jmask, pair_params, *rest, HEAD_PAIRS,
+                                            interpret=True))
+    got = _head(*_head_args(arrays, mask, torch.from_numpy), _mm3).numpy()
+    print(f"emulated fused head vs the JAX kernel, B={batch} mask {mask_name}, max abs err "
+          f"{np.abs(got - want).max():.3e}")
+    np.testing.assert_allclose(got, want, **HEAD_TOL)
