@@ -25,16 +25,18 @@ Phases (any failure exits non-zero, and no result line is printed):
    masks and at keep 0, and at an N that is not a multiple of the 32-row
    tile; the dropout-mask generator, every byte equal to its plain version,
    at the layer's three shapes and purposes, keep 0.8 / 1 / 0 and a size that
-   is not a multiple of 4. Backward checks compare every output by its max
-   abs error relative to its largest magnitude. Times with CUDA events:
+   is not a multiple of 4, its ``[N, 256]`` shape also timed each call
+   alone (L2-warm and L2-cold) beside ``torch.rand < keep``. Backward checks
+   compare every output by its max abs error relative to its largest
+   magnitude. Times with CUDA events:
    kernel, plain twin, the bound, and, where one PyTorch call computes the
-   same function, that call. The fourteen kernels whose products run as 3xTF32
+   same function, that call. The sixteen kernels whose products run as 3xTF32
    on the tensor cores (``packed_attention_fwd``, ``packed_attention_bwd``,
    ``flash_fwd_single``, ``flash_fwd_tiled``, ``flash_bwd_fused``,
    ``flash_bwd_dkv``, ``flash_bwd_dq``, ``fused_hybrid_head``, ``ffw_ln_fwd``,
    ``ffw_ln_bwd``, ``proj_ln_fwd``, ``proj_ln_bwd``, ``fused_mlp_fwd``,
-   ``fused_mlp_bwd``) carry both bounds, a
-   third of the TF32 peak (the unit they run on) and the CUDA cores' f32
+   ``fused_mlp_bwd``, ``lstm_train_fwd``, ``lstm_train_bwd``) carry both
+   bounds, a third of the TF32 peak (the unit they run on) and the CUDA cores' f32
    peak, with their share of the first; ``nvcc -Xptxas -v``'s registers,
    shared memory and spills for them are printed at setup. The two
    residual-LN kernels of each direction and the ``fused_mlp`` backward run
@@ -98,9 +100,13 @@ Phases (any failure exits non-zero, and no result line is printed):
    real batch's lengths, the edge lengths, no lengths, and B = 13 / T = 509;
    the forward within 1e-4 abs of its twin in every output, the backward
    within 1e-4 of its largest magnitude on the twin's residuals, both exactly
-   zero past each length; timed beside their plain loops and cuDNN (forward
-   in training mode, backward alone, and both), with the x_proj copy and the
-   dW_hh product the wrapper adds timed apart.
+   zero past each length; each LSTM kernel (its cluster body at H = 256:
+   the route, the CTAs and rows per cluster, shared memory and the clusters
+   that fit on the card are printed) launched twice on every case, bit for
+   bit; timed beside their plain loops and cuDNN (forward in training mode,
+   backward alone, and both), µs per step beside the bounds (the LSTM pair's
+   on 3xTF32 and on the CUDA cores), with the x_proj copy and the dW_hh
+   product the wrapper adds timed apart.
 7. Long: for ``dataset.chunk_size`` 1024 and 2048, real windows of that
    size; ``Trainer`` at batch 32 takes 8 micro-steps (launch counts: 4 per
    micro-step of the single-key-block forward and of the fused backward, or
@@ -130,8 +136,9 @@ Phases (any failure exits non-zero, and no result line is printed):
    launch per micro-step and none of any other kernel, the same seed twice
    bit for bit, one micro-step against ``model.pallas_rnn=false`` on the same
    weights and seed, p50 and device time by family, and the plain loop's p50
-   beside it (no kernel launched); LSTM1024's micro-step p50; one epoch of
-   ``Trainer.fit`` for LSTM512, its ``last`` checkpoint reloaded from its
+   beside it (no kernel launched); LSTM1024's micro-step p50 and device time
+   by family; one epoch of ``Trainer.fit`` for LSTM512, its ``last``
+   checkpoint reloaded from its
    directory, and ``evaluate_checkpoint`` on it, whose MC-dropout pass
    launches the training forward kernel.
 10. Print the kernel table as one JSON line, then the result line
@@ -161,9 +168,9 @@ FIT_EPOCHS = 2
 # peaks of one H100 SXM (NVIDIA data sheet): CUDA-core FP32, dense TF32 on
 # the tensor cores, HBM3. A kernel that takes each f32 product as three TF32
 # products (3xTF32: the packed and both flash forwards, the packed, the fused
-# and the split attention backwards, the fused head, both residual-LN pairs
-# and the feed-forward pair) is bounded by a third of the TF32 rate for the
-# same f32 operation count
+# and the split attention backwards, the fused head, both residual-LN pairs,
+# the feed-forward pair and the LSTM training pair on its cluster body) is
+# bounded by a third of the TF32 rate for the same f32 operation count
 PEAK_F32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
 PEAK_3XTF32_FLOPS = PEAK_TF32_FLOPS / 3
@@ -184,7 +191,9 @@ TENSOR_CORE_KERNELS = {"flash_fwd_single": ("flash_fwd_single_kernel",),
                        "proj_ln_fwd": ("proj_ln_fwd",),
                        "proj_ln_bwd": ("proj_ln_bwd",),
                        "fused_mlp_fwd": ("fused_mlp_hidden_kernel", "fused_mlp_fwd_kernel"),
-                       "fused_mlp_bwd": ("fused_mlp_bwd",)}
+                       "fused_mlp_bwd": ("fused_mlp_bwd",),
+                       "lstm_train_fwd": ("lstm_train_fwd_cluster_kernel",),
+                       "lstm_train_bwd": ("lstm_train_bwd_cluster_kernel",)}
 # stated tolerances: f32 on both sides; the kernels sum in another order
 # (online softmax across 64-key tiles, per-thread dot products)
 ATTN_TOL = 1e-4
@@ -310,7 +319,7 @@ def ptxas_report(build):
     memory and spills."""
     tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_ptxas_")
     sources = ("flash_attention", "packed_attention_bwd", "packed_attention",
-               "flash_attention_bwd", "ffw_ln", "proj_ln", "ffw", "fusion_head")
+               "flash_attention_bwd", "ffw_ln", "proj_ln", "ffw", "fusion_head", "rnn_train")
     procs = [subprocess.Popen(
         [build._nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-o", f"{tmp.name}/{name}.so",
          str(build.CSRC_DIR / f"{name}.cu")],
@@ -863,6 +872,22 @@ def check_dropout_mask(torch, mlp, rows):
               f"torch_rand_ms={library_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by}; "
               f"{rows * width / 1e6:.2f} MB)", flush=True)
         timings[width] = (ms, plain_ms, library_ms, bound_ms, bound_by)
+    # the residual and attention masks' shape, 8 of a micro-step's 12 launches:
+    # short enough for the host to set a back-to-back pace, so each call is
+    # also timed alone, L2-warm and L2-cold, beside the library call
+    narrow = {}
+    warm_cold(torch, narrow, lambda: mlp.dropout_keep_mask(seed, rows, d, keep, mlp.RNG_P_RES),
+              f"dropout_keep_mask [{rows}, {d}]")
+    flush = torch.empty(FLUSH_FLOATS, device="cuda")
+
+    def lib_call():
+        return (torch.rand((rows, d), device="cuda") < keep).to(torch.uint8)
+
+    narrow["library_ms"], narrow["library_ms_cold"] = device_ms(lib_call), device_ms(lib_call,
+                                                                                      flush=flush)
+    del flush
+    print(f"  torch.rand < keep [{rows}, {d}] ms={narrow['library_ms']:.4f} L2-warm, "
+          f"{narrow['library_ms_cold']:.4f} L2-cold (each call alone)", flush=True)
     ms, plain_ms, library_ms, bound_ms, bound_by = timings[f]
     return {
         "name": "dropout_keep_mask", "route": "cuda",
@@ -870,6 +895,10 @@ def check_dropout_mask(torch, mlp, rows):
         "replaces": f"{TPU_PKG}/ops/pallas_mlp.py:168",
         "max_abs_err": float(mismatches), "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+        f"n{d}": {"shape": [rows, d], "ms_alone": narrow["ms"], "ms_alone_cold": narrow["ms_cold"],
+                  "ms_back_to_back": narrow["ms_back_to_back"], "plain_ms": timings[d][1],
+                  "library_ms": narrow["library_ms"], "library_ms_cold": narrow["library_ms_cold"],
+                  "library_ms_back_to_back": timings[d][2], "bound_ms": timings[d][3]},
     }
 
 
@@ -1393,14 +1422,20 @@ def check_rnn_train_kernels(torch, rnn, real_lengths):
     """The four recurrence training kernels vs their plain versions at the
     LSTM / GRU models' training shapes (G 4, B 32, H 256); ``real_lengths[T]``
     are a real batch-32's lengths at chunk T. The backward kernels take the
-    twin's residuals, so both sides get the same inputs. Returns the four
-    table rows."""
+    twin's residuals, so both sides get the same inputs; each LSTM kernel is
+    launched twice on every case and must repeat its bits (its cluster body
+    sums its partials in a fixed order). Returns the four table rows."""
     g = torch.Generator().manual_seed(6)
     scale = RNN_H**-0.5
 
     def u(*shape):
         return ((torch.rand(*shape, generator=g) * 2 - 1) * scale).cuda()
 
+    info = rnn.lstm_train_cluster_info(RNN_H, RNN_TRAIN_B, RNN_G)
+    print(f"  lstm_train_fwd / lstm_train_bwd at H={RNN_H} B={RNN_TRAIN_B} G={RNN_G}: route "
+          f"{rnn.lstm_train_route(RNN_H)}, {info}", flush=True)
+    if rnn.lstm_train_route(RNN_H) != "cluster":
+        raise AssertionError("the LSTM training kernels must run their cluster body at H 256")
     pairs = {"lstm": ("lstm_train_fwd", "lstm_train_bwd"), "gru": ("gru_train_fwd", "gru_train_bwd")}
     errs = {name: 0.0 for pair in pairs.values() for name in pair}
     timed = {}
@@ -1435,8 +1470,16 @@ def check_rnn_train_kernels(torch, rnn, real_lengths):
                             raise AssertionError(f"{cell} {label}: nonzero past a row's length")
                     if (got[0][:, lens == 0] != 0).any().item():
                         raise AssertionError(f"{fwd_name} {label}: a length-0 row is not zero")
+                rerun = ""
+                if cell == "lstm":  # the same inputs again: the same bits
+                    same_fwd = all(torch.equal(a, b) for a, b in zip(got, fwd(xp, w_hh, b_hh, lens)))
+                    same_bwd = torch.equal(dx, bwd(*want[1:], w_hh, lens, dhc))
+                    if not (same_fwd and same_bwd):
+                        raise AssertionError(f"{cell} {label}: a second launch gave other bits "
+                                             f"(forward {same_fwd}, backward {same_bwd})")
+                    rerun = "; both repeat bit for bit"
                 print(f"  {fwd_name} T={xp.shape[0]} B={xp.shape[2]} {label}: max_abs_err {e_fwd:.3e} "
-                      f"(tol {RNN_TOL}); {bwd_name}: rel err {e_bwd:.3e} (tol {GRAD_TOL})",
+                      f"(tol {RNN_TOL}); {bwd_name}: rel err {e_bwd:.3e} (tol {GRAD_TOL}){rerun}",
                       flush=True)
                 errs[fwd_name] = max(errs[fwd_name], e_fwd)
                 errs[bwd_name] = max(errs[bwd_name], e_bwd)
@@ -1476,14 +1519,19 @@ def check_rnn_train_kernels(torch, rnn, real_lengths):
             for name, ms, plain_ms, lib, nbytes in (
                     (fwd_name, fwd_ms, fwd_plain_ms, lib_fwd, fwd_bytes),
                     (bwd_name, bwd_ms, bwd_plain_ms, lib_bwd, bwd_bytes)):
+                # the LSTM pair runs 3xTF32 on the tensor cores (both bounds),
+                # the GRU pair on the CUDA cores
                 bound_ms, bound_by = bound(flops, nbytes)
+                bound_tc = bound(flops, nbytes, PEAK_3XTF32_FLOPS) if cell == "lstm" else None
+                bounds = (f"bound_ms={bound_tc[0]:.4f} on 3xTF32 ({bound_tc[1]}), share "
+                          f"{100 * bound_tc[0] / ms:.1f}%; f32 CUDA cores {bound_ms:.4f} ({bound_by})"
+                          if bound_tc else f"bound_ms={bound_ms:.4f} ({bound_by})")
                 print(f"  {name} T={seq} B={RNN_TRAIN_B}: ms={ms:.4f} ({ms / seq * 1e3:.3f} us per "
                       f"step) plain_ms={plain_ms:.4f} cudnn_ms={lib:.4f} (4 nn.{tag} calls over the "
                       f"full T, {'forward in training mode' if name == fwd_name else 'backward alone'};"
-                      f" forward + backward {lib_fwd_bwd:.4f}) bound_ms={bound_ms:.4f} ({bound_by}; "
-                      f"{steps:.0f} valid steps, {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)",
-                      flush=True)
-                timed[(name, seq)] = (ms, plain_ms, lib, bound_ms, bound_by, lib_fwd_bwd)
+                      f" forward + backward {lib_fwd_bwd:.4f}) {bounds}; {steps:.0f} valid steps, "
+                      f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB", flush=True)
+                timed[(name, seq)] = (ms, plain_ms, lib, bound_ms, bound_by, lib_fwd_bwd, bound_tc)
             print(f"  {tag} T={seq} around the kernels: x_proj copy {copy_ms:.4f} ms "
                   f"({x_proj.numel() * 4 / 1e6:.0f} MB), dW_hh product {dw_ms:.4f} ms", flush=True)
             timed[(cell, seq)] = (copy_ms, dw_ms)
@@ -1492,9 +1540,9 @@ def check_rnn_train_kernels(torch, rnn, real_lengths):
     rows = []
     for name, line in zip(("lstm_train_fwd", "lstm_train_bwd", "gru_train_fwd", "gru_train_bwd"),
                           (34, 90, 343, 399)):
-        ms, plain_ms, lib, bound_ms, bound_by, lib_fwd_bwd = timed[(name, 512)]
+        ms, plain_ms, lib, bound_ms, bound_by, lib_fwd_bwd, bound_tc = timed[(name, 512)]
         cell = name.split("_")[0]
-        rows.append({
+        row = {
             "name": name, "route": "cuda", "source": f"{PKG}/ops/csrc/rnn_train.cu",
             "replaces": f"{TPU_PKG}/ops/pallas_rnn_train.py:{line}",
             "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
@@ -1503,7 +1551,17 @@ def check_rnn_train_kernels(torch, rnn, real_lengths):
             "x_proj_copy_ms": timed[(cell, 512)][0], "dw_hh_ms": timed[(cell, 512)][1],
             **{f"{key}_t1024": value for key, value in zip(
                 ("ms", "plain_ms", "library_ms", "bound_ms"), timed[(name, 1024)])},
-        })
+        }
+        if bound_tc:  # on the tensor cores: their bound first, the CUDA cores' beside it
+            row["body"] = f"{PKG}/ops/csrc/rnn_cluster.cuh"
+            row["bound_ms_f32"], row["bound_ms_f32_t1024"] = bound_ms, timed[(name, 1024)][3]
+            row["bound_ms"], row["bound_by"] = bound_tc
+            row["bound_ms_t1024"] = timed[(name, 1024)][6][0]
+            row["bound_share"] = bound_tc[0] / ms
+            row["unit"] = "3xTF32 tensor cores"
+            row["us_per_step"] = ms / 512 * 1e3
+            row["cluster"] = info
+        rows.append(row)
     return rows
 
 
@@ -2256,6 +2314,7 @@ def rnn_phase(torch, kernels, split, modalities, stride, seed, smi, workdir: Pat
     if launches != want:
         raise AssertionError(f"LSTM1024: training launch counts {launches} != {want}")
     step_p50(torch, step, data, idx1024, RNN_TRAIN_B, "LSTM1024 (training kernels)", smi, iters=8)
+    profile_micro_steps(torch, step, data, idx1024, 4)
     out["train_lstm1024"] = launches
     del trainer, step, data, splits
     torch.cuda.empty_cache()

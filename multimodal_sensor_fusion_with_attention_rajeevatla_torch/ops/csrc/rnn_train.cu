@@ -19,42 +19,57 @@
 // past its length is frozen: its residuals stay zero, its dz is exactly zero,
 // and dh passes through to the step before unchanged.
 //
-// What bounds it on the H100: operations. At T 512, G 4, B 32, H 256 a
-// direction is 2 G H 4H per valid row-step, 34.4 GFLOP over Sum(len) = 16.4 k,
-// 0.51 ms at the f32 peak, against 0.68 GB of x_proj and residuals (0.20 ms);
-// the GRU does three quarters of it. The T steps depend on each other, and
-// what a step costs is the weight stream, as in rnn.cu: 1 MB of W_hh per
-// block per step from L2 (16.6 us a step forward, 19.4 backward for the LSTM,
-// 12.1 and 15.3 for the GRU, 16-20x the bound; chip_smoke.py on an H100 80GB
-// HBM3 at 700 W).
+// What bounds them on the H100: at T 512, G 4, B 32, H 256 a direction is
+// 2 G H 4H per valid row-step, 34.4 GFLOP over Sum(len) = 16.4 k: 0.21 ms on
+// the 3xTF32 tensor cores (165 TFLOP/s), 0.51 on the CUDA cores, against
+// 0.60-0.68 GB of x_proj and residuals (0.18-0.20 ms). Neither is what sets
+// the time: the T steps depend on each other, and each step is a chain of a
+// product, an exchange and a barrier.
 //
-// The forward is rnn_cell.cuh's recurrence (rnn.cu's precomputed-projection
-// path) with the residual stores added: the thread that finishes unit j of a
-// row holds that unit's gates and carries, so each store is its own, and unit
-// j's columns lie side by side across the warp. Stores are made for valid
-// steps only; the wrapper allocates the residuals (and dz) with torch.zeros,
-// so the steps past a tile's longest length, which no block walks, hold zeros
-// and the product dW_hh = h_prev^T dz never meets uninitialised memory.
+// The LSTM kernels (lstm_train_fwd, lstm_train_bwd) run rnn_cluster.cuh's
+// body where H is a multiple of 64 up to 256: one cluster of 8 CTAs per
+// (group, 16 batch rows), each CTA holding its units' slice of W_hh (128 KB
+// at H 256) in shared memory for the whole sequence and running the step
+// products as 3xTF32 mma.sync; h (forward) and the partials of dh (backward)
+// cross the cluster through distributed shared memory, one cluster barrier a
+// step. So a step costs one CTA's product (16 x 128 x 256, 3.1 MFLOP of TF32
+// mma.sync), the exchange and the barrier, and not the 1 MB weight stream a
+// block of the SIMT body pulls from L2 at every step (16.6 us a step forward,
+// 19.4 backward on it at H 256; chip_smoke.py on an H100 80GB HBM3 at 700 W).
+// At B 32 that is 64 CTAs (32 blocks on the SIMT body), and a step takes
+// 5.4-5.7 us: the product ~2.3-3.1, the exchange ~0.9 (16 KB out of each
+// CTA), a bare step with its cell, staging and barrier ~1.8-2.1
+// (scripts/lstm_cluster_variants.py, same card). The wrapper routes
+// any other H (the slice and buffers past one CTA's shared memory) to the
+// SIMT body below: two hand-written kernels, one count.
 //
-// The backward gives a block the same tile (kRows batch rows of one group,
-// all steps) and walks t from the tile's longest length - 1 down to 0, with
-// dh and dc of the tile in shared memory ([unit][row]). Per step, (1) thread
-// (u, s) computes the 4 (3) gate cotangents of unit u for the rows of half s
-// from the residuals (read from device memory), writes them to dz and to
-// shared memory ([column][row]), and keeps the element-wise part of dh_{t-1}
-// (the GRU's dh z; the frozen lane's dh); (2) after a barrier,
-// dh_{t-1} += dz W_hh^T: thread (u, s) sums unit u's row of W_hh over half s
-// of the 4H (3H) columns for all kRows rows, and the halves swap partial sums
-// as in the forward. W_hh read in place would give each thread a row strided
-// by 4H across the warp, so the wrapper transposes it once per call into
-// [G, NG*H, H] and this reduction reads unit-consecutive words, coalesced,
-// like the forward's. Both directions load the weights of a batch of rows
-// (16 forward, 32 backward) into registers before their FMAs: left to
-// `#pragma unroll`, ptxas kept one load in flight and the LSTM forward took
-// 59.6 us a step, the GRU backward 34.8. Two barriers per step. 64-bit
-// offsets; expf / tanhf, no fast math.
+// The SIMT body (the GRU kernels, and the LSTM's other H) is rnn_cell.cuh's
+// recurrence (rnn.cu's precomputed-projection path) with the residual stores
+// added: the thread that finishes unit j of a row holds that unit's gates and
+// carries, so each store is its own, and unit j's columns lie side by side
+// across the warp. Stores are made for valid steps only; the wrapper
+// allocates the residuals (and dz) with torch.zeros, so the steps past a
+// tile's longest length, which no block walks, hold zeros and the product
+// dW_hh = h_prev^T dz never meets uninitialised memory. Its backward gives a
+// block the same tile (kRows batch rows of one group, all steps) and walks t
+// from the tile's longest length - 1 down to 0, with dh and dc of the tile in
+// shared memory ([unit][row]). Per step, (1) thread (u, s) computes the 4 (3)
+// gate cotangents of unit u for the rows of half s from the residuals (read
+// from device memory), writes them to dz and to shared memory ([column][row]),
+// and keeps the element-wise part of dh_{t-1} (the GRU's dh z; the frozen
+// lane's dh); (2) after a barrier, dh_{t-1} += dz W_hh^T: thread (u, s) sums
+// unit u's row of W_hh over half s of the 4H (3H) columns for all kRows rows,
+// and the halves swap partial sums as in the forward. W_hh read in place
+// would give each thread a row strided by 4H across the warp, so the wrapper
+// transposes it once per call into [G, NG*H, H] and this reduction reads
+// unit-consecutive words, coalesced, like the forward's. Both directions load
+// the weights of a batch of rows (16 forward, 32 backward) into registers
+// before their FMAs: left to `#pragma unroll`, ptxas kept one load in flight
+// and the LSTM forward took 59.6 us a step, the GRU backward 34.8. Two
+// barriers per step. 64-bit offsets; expf / tanhf, no fast math.
 
 #include "rnn_cell.cuh"
+#include "rnn_cluster.cuh"
 
 using namespace msfa_rnn;
 
@@ -242,6 +257,21 @@ size_t smem_bwd_bytes(int H, int NG) {
   return sizeof(float) * ((size_t)(2 + NG) * H * kRows + 2 * kHalf * kUnits);
 }
 
+void cluster_config(cudaLaunchConfig_t& config, cudaLaunchAttribute (&attr)[1], size_t smem,
+                    int B, int G, int H, void* stream) {
+  using namespace msfa_cluster;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kCluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  config.gridDim = dim3(kCluster, (B + kTileRows - 1) / kTileRows, G);
+  config.blockDim = dim3(cluster_threads(H));
+  config.dynamicSmemBytes = smem;
+  config.stream = static_cast<cudaStream_t>(stream);
+  config.attrs = attr;
+  config.numAttrs = 1;
+}
+
 template <typename Kernel, typename... Args>
 int launch(Kernel kernel, size_t smem, int B, int G, void* stream, Args... args) {
   cudaError_t err = allow_smem(kernel, smem);
@@ -251,13 +281,78 @@ int launch(Kernel kernel, size_t smem, int B, int G, void* stream, Args... args)
   return (int)cudaGetLastError();
 }
 
+// one cluster of kCluster CTAs per (tile of kTileRows rows, group)
+template <class... Params, class... Args>
+int launch_cluster(void (*kernel)(Params...), size_t smem, int B, int G, int H, void* stream,
+                   Args... args) {
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t config = {};
+  cudaLaunchAttribute attr[1];
+  cluster_config(config, attr, smem, B, G, H, stream);
+  err = cudaLaunchKernelEx(&config, kernel, static_cast<Params>(args)...);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
+// The LSTM pair on the cluster body (rnn_cluster.cuh); an H it does not take
+// (H a multiple of 64 up to 256; ops/rnn.py's lstm_train_route) is refused.
 int msfa_lstm_train_fwd(const float* x_proj, const float* w_hh, const float* b_hh,
                         const int* lengths, float* out, float* gates, float* hprev, float* cprev,
                         int T, int G, int B, int H, void* stream) {
+  if (bad_shape(T, G, B, 0, H) || !msfa_cluster::supported(H)) return (int)cudaErrorInvalidValue;
+  return launch_cluster(msfa_cluster::lstm_train_fwd_cluster_kernel,
+                        msfa_cluster::fwd_smem_bytes(H), B, G, H, stream, x_proj, w_hh, b_hh,
+                        lengths, out, gates, hprev, cprev, T, G, B, H);
+}
+
+int msfa_lstm_train_bwd(const float* gates, const float* cprev, const float* w_hh,
+                        const int* lengths, const float* dh_out, float* dx, int T, int G, int B,
+                        int H, void* stream) {
+  if (bad_shape(T, G, B, 0, H) || !msfa_cluster::supported(H)) return (int)cudaErrorInvalidValue;
+  return launch_cluster(msfa_cluster::lstm_train_bwd_cluster_kernel,
+                        msfa_cluster::bwd_smem_bytes(H), B, G, H, stream, gates, cprev, w_hh,
+                        lengths, dh_out, dx, T, G, B, H);
+}
+
+// The cluster body's launch at hidden H, batch B and G groups: info[0] CTAs
+// per cluster, info[1] batch rows per cluster, info[2] threads per CTA,
+// info[3] / info[4] dynamic shared memory of the forward / backward (bytes),
+// info[5] / info[6] the clusters of each that fit on the card at once
+// (cudaOccupancyMaxActiveClusters), info[7] the clusters one launch runs.
+int msfa_lstm_train_cluster_info(int H, int B, int G, int* info) {
+  using namespace msfa_cluster;
+  if (!supported(H) || B <= 0 || G <= 0) return (int)cudaErrorInvalidValue;
+  const size_t smem[2] = {fwd_smem_bytes(H), bwd_smem_bytes(H)};
+  const void* kernels[2] = {(const void*)lstm_train_fwd_cluster_kernel,
+                            (const void*)lstm_train_bwd_cluster_kernel};
+  info[0] = kCluster;
+  info[1] = kTileRows;
+  info[2] = cluster_threads(H);
+  for (int d = 0; d < 2; ++d) {
+    info[3 + d] = (int)smem[d];
+    cudaError_t err = cudaFuncSetAttribute(kernels[d], cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)smem[d]);
+    if (err != cudaSuccess) return (int)err;
+    cudaLaunchConfig_t config = {};
+    cudaLaunchAttribute attr[1];
+    cluster_config(config, attr, smem[d], B, G, H, nullptr);
+    err = cudaOccupancyMaxActiveClusters(&info[5 + d], kernels[d], &config);
+    if (err != cudaSuccess) return (int)err;
+  }
+  info[7] = G * ((B + kTileRows - 1) / kTileRows);
+  return 0;
+}
+
+// The LSTM pair on the SIMT body, for the H the cluster body does not take
+// (the backward reads W_hh transposed, [G, 4H, H]).
+int msfa_lstm_train_fwd_simt(const float* x_proj, const float* w_hh, const float* b_hh,
+                             const int* lengths, float* out, float* gates, float* hprev,
+                             float* cprev, int T, int G, int B, int H, void* stream) {
   if (bad_shape(T, G, B, 0, H)) return (int)cudaErrorInvalidValue;
   return launch(lstm_train_fwd_kernel, smem_bytes(H, (size_t)kRows * 4 * H), B, G, stream,
                 x_proj, w_hh, b_hh, lengths, out, gates, hprev, cprev, T, G, B, H);
@@ -271,9 +366,9 @@ int msfa_gru_train_fwd(const float* x_proj, const float* w_hh, const float* b_hh
                 x_proj, w_hh, b_hh, lengths, out, gates, hprev, hn, T, G, B, H);
 }
 
-int msfa_lstm_train_bwd(const float* gates, const float* cprev, const float* w_t,
-                        const int* lengths, const float* dh_out, float* dx, int T, int G, int B,
-                        int H, void* stream) {
+int msfa_lstm_train_bwd_simt(const float* gates, const float* cprev, const float* w_t,
+                             const int* lengths, const float* dh_out, float* dx, int T, int G,
+                             int B, int H, void* stream) {
   if (bad_shape(T, G, B, 0, H)) return (int)cudaErrorInvalidValue;
   return launch(lstm_train_bwd_kernel, smem_bwd_bytes(H, 4), B, G, stream,
                 gates, cprev, w_t, lengths, dh_out, dx, T, G, B, H);

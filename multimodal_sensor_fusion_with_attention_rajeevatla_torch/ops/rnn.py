@@ -27,7 +27,10 @@ and takes its ``*_plain`` version for CPU tensors; each counts its launches in
   final state plus the per-step residuals: post-activation gates, ``h_{t-1}``,
   and ``c_{t-1}`` or ``hn = h_{t-1} W_hn + b_hn``; zero past each row's
   length) and ``lstm_train_bwd`` / ``gru_train_bwd`` (reverse time -> the
-  ``x_proj`` cotangent, exactly zero past each length).
+  ``x_proj`` cotangent, exactly zero past each length). The LSTM pair runs
+  on a thread-block cluster with 3xTF32 step products
+  (``csrc/rnn_cluster.cuh``) at the hidden sizes ``lstm_train_route`` names,
+  on the GRU pair's SIMT body at the others.
 
 ``grouped_lstm_trainable`` and ``grouped_gru_trainable`` are
 ``torch.autograd.Function``s over the training pair; their backward takes
@@ -397,6 +400,41 @@ def _train_dims(x, w_hh, gates: int, name: str):
     return steps, groups, batch, w_hh.shape[1]
 
 
+# csrc/rnn_cluster.cuh: the largest hidden size whose W_hh slice, h and
+# exchange buffers one CTA of a cluster of 8 holds in shared memory
+CLUSTER_MAX_HIDDEN = 256
+
+
+def lstm_train_route(hidden: int) -> str:
+    """The body ``lstm_train_fwd`` and ``lstm_train_bwd`` run on the card at
+    ``hidden`` units: ``"cluster"`` (``csrc/rnn_cluster.cuh``: W_hh held in a
+    thread-block cluster's shared memory for the whole sequence, h and dh
+    exchanged through distributed shared memory, 3xTF32 step products) where
+    ``hidden`` is a multiple of 64 up to ``CLUSTER_MAX_HIDDEN``, else
+    ``"simt"`` (the body the GRU kernels run). Both are hand-written kernels
+    and count in the same ``.launches``; a refused launch raises on either."""
+    return "cluster" if hidden % 64 == 0 and 0 < hidden <= CLUSTER_MAX_HIDDEN else "simt"
+
+
+_CLUSTER_INFO_KEYS = ("ctas_per_cluster", "tile_rows", "threads", "smem_fwd_bytes",
+                      "smem_bwd_bytes", "active_clusters_fwd", "active_clusters_bwd",
+                      "clusters_per_launch")
+
+
+def lstm_train_cluster_info(hidden: int, batch: int, groups: int) -> dict:
+    """The cluster body's launch at these sizes, read on the card: CTAs per
+    cluster, batch rows per cluster, threads per CTA, each direction's
+    dynamic shared memory, the clusters of each that fit on the card at once
+    (``cudaOccupancyMaxActiveClusters``) and the clusters one launch runs."""
+    lib = _build.library("rnn_train")
+    fn = lib.msfa_lstm_train_cluster_info
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    info = (ctypes.c_int * len(_CLUSTER_INFO_KEYS))()
+    _build.check(lib, fn(hidden, batch, groups, ctypes.addressof(info)), "lstm_train_cluster_info")
+    return dict(zip(_CLUSTER_INFO_KEYS, info))
+
+
 def _train_fwd(wrapper, entry, gates, x_proj, w_hh, b_hh, lengths):
     steps, groups, batch, hidden = _train_dims(x_proj, w_hh, gates, "x_proj")
     _check({"x_proj": x_proj, "w_hh": w_hh, "b_hh": b_hh},
@@ -406,6 +444,8 @@ def _train_fwd(wrapper, entry, gates, x_proj, w_hh, b_hh, lengths):
     if x_proj.device.type == "cpu":
         plain = lstm_train_fwd_plain if gates == 4 else gru_train_fwd_plain
         return plain(x_proj, w_hh, b_hh, lengths)
+    if gates == 4 and lstm_train_route(hidden) == "simt":
+        entry += "_simt"
     device = x_proj.device
     out = torch.empty((groups, batch, hidden), device=device, dtype=torch.float32)
     # zero-filled: the kernel stores the residuals at valid steps only
@@ -431,13 +471,17 @@ def _train_bwd(wrapper, entry, gates, res, w_hh, lengths, dh_out):
         plain = lstm_train_bwd_plain if gates == 4 else gru_train_bwd_plain
         return plain(g_res, hprev, aux, w_hh, lengths, dh_out)
     device = g_res.device
-    # [G, gates*H, H]: the kernel's reduction then reads unit-consecutive words
-    w_t = w_hh.transpose(1, 2).contiguous()
+    if gates == 4 and lstm_train_route(hidden) == "cluster":
+        weights = w_hh  # each CTA reads its slice of W_hh as the forward does
+    else:
+        # [G, gates*H, H]: the SIMT reduction then reads unit-consecutive words
+        weights = w_hh.transpose(1, 2).contiguous()
+        entry += "_simt" if gates == 4 else ""
     dx = torch.zeros_like(g_res)  # the kernel writes valid steps only
     if batch > 0:
         inputs = [g_res, aux] if gates == 4 else [g_res, hprev, aux]
         _run(wrapper, "rnn_train", entry,
-             [*inputs, w_t, _all_steps(lengths, steps, batch, device), dh_out, dx],
+             [*inputs, weights, _all_steps(lengths, steps, batch, device), dh_out, dx],
              (steps, groups, batch, hidden))
     return dx
 
@@ -450,8 +494,9 @@ def lstm_train_fwd(
 ):
     """Grouped LSTM forward for training -> ``(h_T [G, B, H], gates
     [T, G, B, 4H] (i, f, g, o after their activations), hprev, cprev
-    [T, G, B, H])``, residuals zero past each length.
-    ``lstm_train_fwd.launches`` counts launches."""
+    [T, G, B, H])``, residuals zero past each length. On the card it runs the
+    body ``lstm_train_route(H)`` names. ``lstm_train_fwd.launches`` counts
+    launches."""
     return _train_fwd(lstm_train_fwd, "msfa_lstm_train_fwd", 4, x_proj, w_hh, b_hh, lengths)
 
 
@@ -461,7 +506,8 @@ lstm_train_fwd.launches = 0
 def lstm_train_bwd(gates, hprev, cprev, w_hh, lengths, dh_out) -> torch.Tensor:
     """Grouped LSTM backward over ``lstm_train_fwd``'s residuals and the
     cotangent of ``h_T`` ``dh_out [G, B, H]`` -> ``dz [T, G, B, 4H]``, the
-    ``x_proj`` cotangent. ``lstm_train_bwd.launches`` counts launches."""
+    ``x_proj`` cotangent, on the body ``lstm_train_route(H)`` names.
+    ``lstm_train_bwd.launches`` counts launches."""
     return _train_bwd(lstm_train_bwd, "msfa_lstm_train_bwd", 4, (gates, hprev, cprev), w_hh,
                       lengths, dh_out)
 

@@ -1,14 +1,14 @@
 #!/usr/bin/env python3
-"""Time the PyTorch port's attention, residual-LN and feed-forward kernels in
-one or more checkouts, in turns, on one CUDA card: an A/B of two trees in the
-same process order.
+"""Time the PyTorch port's attention, residual-LN, feed-forward, head and
+recurrence training kernels in one or more checkouts, in turns, on one CUDA
+card: an A/B of two trees in the same process order.
 
     python3 scripts/attention_kernels_ab.py                      # this checkout
     python3 scripts/attention_kernels_ab.py --tree old --tree . --tree . --tree old
 
 Each ``--tree`` runs in its own process, which imports the port from that
 checkout, builds its kernels from its ``ops/csrc`` and times, with CUDA
-events, rows 1-8 and 10-15 of the kernel table at the shapes
+events, rows 1-8, 10-15 and 19-22 of the kernel table at the shapes
 ``chip_smoke.py`` reports them: the packed forward (B 64, T 512, H 4, d 64)
 and backward (B 32), the single-key-block forward and the fused backward at
 ``[B*H, T, d]`` = ``[128, 1024, 64]``, ``[512, 512, 64]`` and ``[128, 2048,
@@ -17,16 +17,18 @@ and backward (B 32), the single-key-block forward and the fused backward at
 forward at ``[256, 4096, 64]``, ``[128, 1024, 64]`` and ``[128, 2048, 64]``
 (every key valid), the feed-forward pair and the projection and FFW
 residual-LayerNorm kernels, forward and backward, at N = 16,384 rows, d 256,
-d_ff 2048, keep 0.8, and the fused head at batch 64 (M 4, H 256, C 25, a
-random mask); inputs from a fixed seed. Launches are timed back to back; the
+d_ff 2048, keep 0.8, the fused head at batch 64 (M 4, H 256, C 25, a
+random mask), and the LSTM and GRU training kernels at T 512 and 1024, G 4,
+B 32, H 256 on ragged lengths like a real batch's (each backward on its
+twin's residuals); inputs from a fixed seed. Launches are timed back to back; the
 head and the projection's forward are also timed each call alone, the card
 kept ahead of the host, L2-warm and L2-cold (a 128 MB write before each
 call).
 ``scaled_dot_product_attention`` (forward, or its backward) is timed beside
 each attention shape. The attention backward kernels' outputs are hashed on
 ragged lengths (0, 1, 37, 64, 65, T - 1, T, T / 2), and the feed-forward,
-residual-LN and head kernels' outputs on their timed inputs, so that the table
-also says which kernels give the same bits in every tree. Prints the card's
+residual-LN, head and recurrence kernels' outputs on their timed inputs, so
+that the table also says which kernels give the same bits in every tree. Prints the card's
 name and power limit, one JSON line per tree, then the table of all runs.
 Needs a CUDA card; imports torch and the port only.
 """
@@ -165,6 +167,9 @@ def _measure(tree: Path) -> dict:
     head_times, head_bits = _measure_head(torch, g, flush)
     times.update(head_times)
     bits.update(head_bits)
+    rnn_times, rnn_bits = _measure_rnn_train(torch, g)
+    times.update(rnn_times)
+    bits.update(rnn_bits)
     return {"tree": str(tree), "device": torch.cuda.get_device_name(0), "ms": times,
             "bits": bits}
 
@@ -227,6 +232,39 @@ def _measure_head(torch, g, flush) -> dict:
     times = {"fused_hybrid_head": _time_ms(torch, call, 20)}
     _warm_cold(times, "fused_hybrid_head", call, flush)
     return times, {"fused_hybrid_head": _digest([call()])}
+
+
+def _measure_rnn_train(torch, g) -> dict:
+    """Rows 19-22: the recurrences' training kernels at the LSTM / GRU
+    models' training shape (T 512 and 1024, G 4, B 32, H 256) on ragged
+    lengths like a real batch's (24 rows whole, 8 between 64 and T), each
+    backward on its twin's residuals -> (ms, output digests)."""
+    from multimodal_sensor_fusion_with_attention_rajeevatla_torch.ops import rnn as tr
+
+    groups, batch, hidden = 4, 32, 256
+    scale = hidden**-0.5
+    times, bits = {}, {}
+    for seq in (512, 1024):
+        tag = "" if seq == 512 else f"_t{seq}"
+        lengths = torch.full((batch,), seq, dtype=torch.int32)
+        lengths[24:] = torch.randint(64, seq, (8,), generator=g, dtype=torch.int32)
+        lengths = lengths.cuda()
+        for cell, gates in (("lstm", 4), ("gru", 3)):
+            fwd, bwd = getattr(tr, f"{cell}_train_fwd"), getattr(tr, f"{cell}_train_bwd")
+            x_proj = torch.randn(seq, groups, batch, gates * hidden, generator=g).cuda()
+            w_hh = ((torch.rand(groups, hidden, gates * hidden, generator=g) * 2 - 1)
+                    * scale).cuda()
+            b_hh = ((torch.rand(groups, gates * hidden, generator=g) * 2 - 1) * scale).cuda()
+            dh = torch.randn(groups, batch, hidden, generator=g).cuda()
+            res = getattr(tr, f"{cell}_train_fwd_plain")(x_proj, w_hh, b_hh, lengths)[1:]
+            bits[f"{cell}_train_fwd{tag}"] = _digest(fwd(x_proj, w_hh, b_hh, lengths))
+            bits[f"{cell}_train_bwd{tag}"] = _digest([bwd(*res, w_hh, lengths, dh)])
+            times[f"{cell}_train_fwd{tag}"] = _time_ms(
+                torch, lambda: fwd(x_proj, w_hh, b_hh, lengths), 5)
+            times[f"{cell}_train_bwd{tag}"] = _time_ms(torch, lambda: bwd(*res, w_hh, lengths, dh),
+                                                       5)
+            del x_proj, res
+    return times, bits
 
 
 def main() -> int:

@@ -9,9 +9,11 @@ same process order.
 Each ``--tree`` runs in its own process, which imports the port from that
 checkout and builds its kernels from its ``ops/csrc``; the measuring code is
 ``chip_smoke.py``'s [train] phase of this checkout. In each process,
-``config/base.yaml`` at full width and seeded weights on real PAMAP2 chunk-512
-train windows (batch 32, every augmentation on), for the default route and
-for ``model.fused_mlp=true model.fused_mlp_ln=false``: 4 micro-steps, then 8
+``config/base.yaml`` at full width and seeded weights on real PAMAP2 train
+windows (batch 32, every augmentation on), for the default route and
+``model.fused_mlp=true model.fused_mlp_ln=false`` at chunk 512, and for the
+LSTM parity model (every encoder one LSTM layer, one grouped recurrence,
+``chip_smoke.rnn_overrides``) at chunk 512 and 1024: 4 micro-steps, then 8
 under ``torch.profiler`` (device ms per micro-step by kernel family,
 ``chip_smoke.FAMILIES``; the device total and its busy share of the wall
 time), then the p50 of 20 micro-steps on the host clock. Prints the card's
@@ -30,7 +32,11 @@ import time
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[1]
-ROUTES = {"default": [], "fused_mlp": ["model.fused_mlp=true", "model.fused_mlp_ln=false"]}
+# route -> (overrides, chunk); None: chip_smoke.rnn_overrides' LSTM parity
+# model (every encoder one LSTM layer, grouped) at that chunk
+ROUTES = {"default": ([], 512),
+          "fused_mlp": (["model.fused_mlp=true", "model.fused_mlp_ln=false"], 512),
+          "lstm512": (None, 512), "lstm1024": (None, 1024)}
 # the feed-forward pair's kernels before their 3xTF32 redesign (the SIMT row
 # walk and its second pass), so that an older tree's step splits the same way
 OLD_FAMILIES = (("fused_mlp_fwd", ("ffw_fwd_kernel",)),
@@ -53,11 +59,16 @@ def _measure(tree: Path) -> dict:
     torch.backends.cudnn.allow_tf32 = False
     _build.build_all()
     cfg = load_config(REPO / "config" / "base.yaml")
-    split = smoke.load_split(torch, list(cfg.dataset.modalities), int(cfg.dataset.chunk_size),
-                             int(cfg.dataset.window_stride))
-    idx = smoke.index_batches(torch, split, int(cfg.dataset.batch_size), int(cfg.seed))
-    routes = {}
-    for label, overrides in ROUTES.items():
+    modalities = list(cfg.dataset.modalities)
+    routes, data = {}, {}
+    for label, (overrides, chunk) in ROUTES.items():
+        if chunk not in data:
+            split = smoke.load_split(torch, modalities, chunk, int(cfg.dataset.window_stride))
+            data[chunk] = (split, smoke.index_batches(torch, split, int(cfg.dataset.batch_size),
+                                                      int(cfg.seed)))
+        split, idx = data[chunk]
+        if overrides is None:
+            overrides = smoke.rnn_overrides(modalities, "lstm", chunk)
         trainer = smoke._trainer(torch, overrides)
         step, _losses, _launches = smoke.counted_steps(torch, {}, trainer, split, idx, 4)
         families = smoke.profile_micro_steps(torch, step, split, idx, 8)

@@ -653,7 +653,7 @@ def _rnn_train_inputs(card, steps, groups, batch, hidden, gates, seed):
     b_hh = ((torch.rand(groups, gates * hidden, generator=g) * 2 - 1) * scale).to(card)
     dh = torch.randn(groups, batch, hidden, generator=g).to(card)
     lengths = torch.randint(1, steps + 1, (batch,), generator=g, dtype=torch.int32)
-    lengths[:3] = torch.tensor([0, 1, steps], dtype=torch.int32)
+    lengths[:3] = torch.tensor([0, 1, steps], dtype=torch.int32)[:batch]
     return x_proj, w_hh, b_hh, dh, lengths.to(card)
 
 
@@ -689,6 +689,45 @@ def test_rnn_training_kernels_match_plain(card, cell, steps, groups, batch, hidd
         assert torch.all(got[0][:, 0] == 0)  # length 0: the zero state, exactly
         for t in (*got[1:], dx):
             assert torch.all(t.permute(0, 2, 1, 3)[past] == 0)
+
+
+LSTM_TRAIN_SHAPES = [  # T, G, B, H: the cluster body at B 1, 13, 32, 64 and T 1, 509, 512, at
+    # each H it takes below 256 (B and T not multiples of its 16-row tile), and
+    # H 384 on the SIMT body
+    (1, 4, 32, 256), (509, 4, 13, 256), (512, 4, 32, 256), (512, 4, 64, 256), (512, 1, 1, 256),
+    (40, 2, 20, 64), (33, 3, 17, 128), (40, 2, 5, 192), (30, 2, 5, 384)]
+
+
+@pytest.mark.parametrize("steps,groups,batch,hidden", LSTM_TRAIN_SHAPES)
+def test_lstm_training_kernels_on_both_bodies_match_plain_and_repeat(card, steps, groups, batch,
+                                                                     hidden):
+    """Both LSTM training kernels on the body ``lstm_train_route`` names,
+    against their twins on the edge lengths T, 0, 1, T - 1: every output
+    within the f32 limits, exactly zero past each length, and a second launch
+    on the same inputs gives the same bits (no atomics)."""
+    want_route = "cluster" if hidden in (64, 128, 192, 256) else "simt"
+    assert tr.lstm_train_route(hidden) == want_route
+    x_proj, w_hh, b_hh, dh, lengths = _rnn_train_inputs(card, steps, groups, batch, hidden, 4,
+                                                        steps + batch + hidden)
+    edge = torch.tensor([steps, 0, 1, steps - 1], dtype=torch.int32)[:batch]
+    lengths[:len(edge)] = edge.to(card)
+    before = tr.lstm_train_fwd.launches, tr.lstm_train_bwd.launches
+    got = tr.lstm_train_fwd(x_proj, w_hh, b_hh, lengths)
+    want = tr.lstm_train_fwd_plain(x_proj, w_hh, b_hh, lengths)
+    dz = tr.lstm_train_bwd(*want[1:], w_hh, lengths, dh)
+    again = tr.lstm_train_fwd(x_proj, w_hh, b_hh, lengths)
+    dz_again = tr.lstm_train_bwd(*want[1:], w_hh, lengths, dh)
+    torch.cuda.synchronize()
+    assert (tr.lstm_train_fwd.launches, tr.lstm_train_bwd.launches) == (before[0] + 2,
+                                                                       before[1] + 2)
+    for a, b in zip(got, want):  # f32 both; up to 512 dependent steps
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+    assert _rel_err(dz, tr.lstm_train_bwd_plain(*want[1:], w_hh, lengths, dh)) < 1e-4
+    assert all(torch.equal(a, b) for a, b in zip(got, again)) and torch.equal(dz, dz_again)
+    past = torch.arange(steps, device=card)[:, None] >= lengths[None, :]  # [T, B]
+    assert torch.all(got[0][:, lengths == 0] == 0)  # length 0: the zero state, exactly
+    for t in (*got[1:], dz):
+        assert torch.all(t.permute(0, 2, 1, 3)[past] == 0)
 
 
 @pytest.mark.parametrize("cell", ["lstm", "gru"])

@@ -3,9 +3,9 @@
 ``flash_fwd_single``, ``flash_fwd_tiled``, ``packed_attention_fwd``,
 ``packed_attention_bwd``, ``flash_bwd_fused``, ``flash_bwd_dkv``,
 ``flash_bwd_dq``, ``ffw_ln_fwd``, ``ffw_ln_bwd``, ``proj_ln_fwd``,
-``proj_ln_bwd``, ``fused_mlp_fwd``, ``fused_mlp_bwd`` and
-``fused_hybrid_head`` take each f32 product as three TF32 tensor-core
-products (``ops/csrc/tf32_mma.cuh``): x = hi + lo, with
+``proj_ln_bwd``, ``fused_mlp_fwd``, ``fused_mlp_bwd``, ``fused_hybrid_head``,
+``lstm_train_fwd`` and ``lstm_train_bwd`` take each f32 product as three TF32
+tensor-core products (``ops/csrc/tf32_mma.cuh``): x = hi + lo, with
 hi = x rounded to TF32 (half a TF32 ulp added to the bits, the low 13 bits
 cleared) and lo = x - hi, of which the tensor core reads the top 19 bits; then
 a*b = lo*hi' + hi*lo' + hi*hi' with f32 accumulation. TF32 values multiply
@@ -19,7 +19,13 @@ backwards' emulations are also held against the JAX package's routes of the
 same name (``flash_self_attention``'s VJP in interpret mode), and the residual-LN
 and feed-forward kernels' against ``fused_mlp_residual_ln``,
 ``fused_proj_residual_ln`` and ``fused_mlp`` there, and the fused head's
-against ``fused_hybrid_head``.
+against ``fused_hybrid_head``. The LSTM training recurrences' emulation (a
+cluster of CTAs, each holding its units' gate columns of W_hh; h exchanged
+whole every step; the backward's per-CTA partials of dh summed in rank order)
+is held to ``lstm_train_fwd_plain`` / ``lstm_train_bwd_plain`` at the f32
+limits of ``test_torch_port_rnn_train.py`` and against the JAX package's
+``grouped_lstm_trainable`` (its Pallas kernels in interpret mode) for h_T and
+the three gradients.
 """
 
 import math
@@ -32,12 +38,14 @@ import torch
 
 from multimodal_sensor_fusion_with_attention_rajeevatla_tpu.ops import pallas_attention as pa
 from multimodal_sensor_fusion_with_attention_rajeevatla_tpu.ops import pallas_mlp as jmlp
+from multimodal_sensor_fusion_with_attention_rajeevatla_tpu.ops import pallas_rnn_train as jrt
 from multimodal_sensor_fusion_with_attention_rajeevatla_tpu.ops.pallas_fusion import (
     fused_hybrid_head as jax_fused_hybrid_head,
 )
 from multimodal_sensor_fusion_with_attention_rajeevatla_torch.ops import attention as ta
 from multimodal_sensor_fusion_with_attention_rajeevatla_torch.ops import fusion as tf
 from multimodal_sensor_fusion_with_attention_rajeevatla_torch.ops import mlp as tm
+from multimodal_sensor_fusion_with_attention_rajeevatla_torch.ops import rnn as trnn
 from multimodal_sensor_fusion_with_attention_rajeevatla_torch.ops.masked import (
     adaptive_gate_weights,
 )
@@ -902,3 +910,155 @@ def test_fused_head_3xtf32_matches_the_jax_kernel(batch, mask_name):
     print(f"emulated fused head vs the JAX kernel, B={batch} mask {mask_name}, max abs err "
           f"{np.abs(got - want).max():.3e}")
     np.testing.assert_allclose(got, want, **HEAD_TOL)
+
+
+# ------------------------------------------------ LSTM training recurrences
+
+CLUSTER = 4  # CTAs per cluster in the emulation (the kernels take 8 at H = 256)
+# f32 both sides, up to 64 dependent steps: test_torch_port_rnn_train.py's limits
+RNN_VALUE_TOL = dict(rtol=2e-5, atol=2e-5)
+RNN_CASES = dict(argnames="steps,batch,hidden", argvalues=[(22, 5, 32), (64, 20, 64)],
+                 ids=["T22-B5-H32", "T64-B20-H64"])
+RNN_GROUPS = 3
+
+
+def _local_columns(hidden, cluster):
+    """Each CTA's gate columns of W_hh in the kernels' local order
+    (``rnn_cluster.cuh`` ``local_col``): local column n is in n-tile n // 8 of
+    warp n // 16, whose first tile holds gates i, f and second g, o; its
+    columns 2t and 2t + 1 are those two gates of the warp's unit 4 w + t."""
+    units = hidden // cluster
+    order = []
+    for n in range(4 * units):
+        tile, col = divmod(n, 8)
+        warp, second = divmod(tile, 2)
+        order.append((2 * second + col % 2, 4 * warp + col // 2))
+    return [[q * hidden + rank * units + u for q, u in order] for rank in range(cluster)]
+
+
+def _lstm_cluster_fwd(x_proj, w_hh, b_hh, lengths, mm):
+    """``lstm_train_fwd``'s arithmetic on the cluster body: per step every
+    CTA's z = h_{t-1} W_hh slice through ``mm`` in 32-deep fresh accumulators
+    (a gate column's sum is the same whichever CTA owns it), then (z + x_proj)
+    + b_hh, the cell, the carry frozen past each length, and h exchanged whole
+    for the next step -> ``(h_T, gates, hprev, cprev)``, residuals zero past
+    each length."""
+    steps, groups, batch, _cols = x_proj.shape
+    hidden = w_hh.shape[1]
+    valid = trnn._valid_steps(steps, lengths, "cpu")
+    h = torch.zeros(groups, batch, hidden)
+    c = torch.zeros_like(h)
+    gates, hprev, cprev = [], [], []
+    for t in range(steps):
+        keep = valid[t] if valid is not None else torch.ones(batch, 1, dtype=torch.bool)
+        z = torch.stack([_mm_chunked(h[g], w_hh[g], mm) for g in range(groups)])
+        z = z + x_proj[t] + b_hh[:, None, :]
+        i, f, gg, o = z.chunk(4, dim=-1)
+        act = torch.cat([torch.sigmoid(i), torch.sigmoid(f), torch.tanh(gg), torch.sigmoid(o)], -1)
+        i, f, gg, o = act.chunk(4, dim=-1)
+        c_new = f * c + i * gg
+        h_new = o * torch.tanh(c_new)
+        gates.append(torch.where(keep, act, 0.0))
+        hprev.append(torch.where(keep, h, 0.0))
+        cprev.append(torch.where(keep, c, 0.0))
+        h, c = torch.where(keep, h_new, h), torch.where(keep, c_new, c)
+    return h, torch.stack(gates), torch.stack(hprev), torch.stack(cprev)
+
+
+def _lstm_cluster_bwd(gates, cprev, w_hh, lengths, dh_out, mm, cluster=CLUSTER):
+    """``lstm_train_bwd``'s arithmetic on the cluster body: reverse time, dz
+    from the residuals; each CTA's partial of dh_{t-1}, its dz columns in local
+    order times its W_hh slice transposed through ``mm`` in 32-deep fresh
+    accumulators; the partials summed in rank order, then the frozen rows' dh
+    added -> dz, zero past each length."""
+    steps, groups, batch, cols = gates.shape
+    local = _local_columns(cols // 4, cluster)
+    valid = trnn._valid_steps(steps, lengths, "cpu")
+    dh, dc = dh_out.clone(), torch.zeros_like(dh_out)
+    dz = []
+    for t in reversed(range(steps)):
+        keep = valid[t] if valid is not None else torch.ones(batch, 1, dtype=torch.bool)
+        i, f, g, o = gates[t].chunk(4, dim=-1)
+        c_prev = cprev[t]
+        tc = torch.tanh(f * c_prev + i * g)
+        dct = dc + dh * o * (1 - tc * tc)
+        step = torch.cat([dct * g * i * (1 - i), dct * c_prev * f * (1 - f),
+                          dct * i * (1 - g * g), dh * tc * o * (1 - o)], -1)
+        step = torch.where(keep, step, 0.0)
+        dc = torch.where(keep, dct * f, dc)
+        skip = torch.where(keep, 0.0, dh)
+        dz.append(step)
+        total = None
+        for cols_c in local:  # rank order
+            part = torch.stack([_mm_chunked(step[k][:, cols_c], w_hh[k][:, cols_c].t(), mm)
+                                for k in range(groups)])
+            total = part if total is None else total + part
+        dh = total + skip
+    return torch.stack(dz[::-1])
+
+
+def _rnn_case(steps, batch, hidden, kind):
+    rng = np.random.default_rng(steps + batch + hidden + len(kind))
+    scale = hidden**-0.5
+    x_proj = rng.standard_normal((steps, RNN_GROUPS, batch, 4 * hidden)).astype(np.float32)
+    w_hh = rng.uniform(-scale, scale, (RNN_GROUPS, hidden, 4 * hidden)).astype(np.float32)
+    b_hh = rng.uniform(-scale, scale, (RNN_GROUPS, 4 * hidden)).astype(np.float32)
+    dh = rng.standard_normal((RNN_GROUPS, batch, hidden)).astype(np.float32)
+    lengths = {"full": np.full((batch,), steps, np.int32), "none": None,
+               "ragged": rng.integers(0, steps + 1, batch).astype(np.int32)}[kind]
+    if kind == "ragged":
+        lengths[:4] = [0, 1, steps - 1, steps]
+    return x_proj, w_hh, b_hh, dh, lengths
+
+
+@pytest.mark.parametrize("kind", ["full", "ragged", "none"])
+@pytest.mark.parametrize(**RNN_CASES)
+def test_lstm_cluster_recurrences_3xtf32_hold_the_f32_limit(steps, batch, hidden, kind):
+    x_proj, w_hh, b_hh, dh, lengths = (None if a is None else torch.from_numpy(a)
+                                       for a in _rnn_case(steps, batch, hidden, kind))
+    want = trnn.lstm_train_fwd_plain(x_proj, w_hh, b_hh, lengths)
+    want_dz = trnn.lstm_train_bwd_plain(*want[1:], w_hh, lengths, dh)
+    errs, rel = {}, {}
+    for name, mm in (("3xTF32", _mm3), ("1xTF32", _mm1)):
+        got = _lstm_cluster_fwd(x_proj, w_hh, b_hh, lengths, mm)
+        errs[name] = max((g - w).abs().max().item() for g, w in zip(got, want))
+        dz = _lstm_cluster_bwd(want[1], want[3], w_hh, lengths, dh, mm)
+        rel[name] = ((dz - want_dz).abs().max() / want_dz.abs().max()).item()
+        if name == "3xTF32":
+            for g, w in zip(got, want):
+                np.testing.assert_allclose(g.numpy(), w.numpy(), **RNN_VALUE_TOL)
+            if lengths is not None:  # nothing past a row's length, exactly
+                past = torch.arange(steps)[:, None] >= lengths[None, :]
+                for r in (*got[1:], dz):
+                    assert torch.all(r.permute(0, 2, 1, 3)[past] == 0)
+    print(f"LSTM cluster recurrences, T={steps} G={RNN_GROUPS} B={batch} H={hidden} C={CLUSTER} "
+          f"lengths {kind}: forward max abs err 3xTF32 {errs['3xTF32']:.3e}, 1xTF32 "
+          f"{errs['1xTF32']:.3e}; backward over the largest magnitude 3xTF32 {rel['3xTF32']:.3e}, "
+          f"1xTF32 {rel['1xTF32']:.3e} (limits {RNN_VALUE_TOL}, {GRAD_TOL})")
+    assert rel["3xTF32"] < GRAD_TOL
+    assert errs["3xTF32"] * 10 < errs["1xTF32"] and rel["3xTF32"] * 10 < rel["1xTF32"]
+
+
+@pytest.mark.parametrize("kind", ["full", "ragged", "none"])
+@pytest.mark.parametrize(**RNN_CASES)
+def test_lstm_cluster_recurrences_3xtf32_match_the_jax_kernels(steps, batch, hidden, kind):
+    x_proj, w_hh, b_hh, dh, lengths = _rnn_case(steps, batch, hidden, kind)
+    jl = None if lengths is None else jnp.asarray(lengths)
+    want, vjp = jax.vjp(lambda x, w, b: jrt.grouped_lstm_trainable(x, w, b, jl),
+                        *map(jnp.asarray, (x_proj, w_hh, b_hh)))
+    want_grads = vjp(jnp.asarray(dh))
+    tl = None if lengths is None else torch.from_numpy(lengths)
+    h_t, gates, hprev, cprev = _lstm_cluster_fwd(*map(torch.from_numpy, (x_proj, w_hh, b_hh)),
+                                                 tl, _mm3)
+    dz = _lstm_cluster_bwd(gates, cprev, torch.from_numpy(w_hh), tl, torch.from_numpy(dh), _mm3)
+    # what _LSTMTrainable.backward adds around the kernel: one product, one sum
+    grads = (dz, torch.einsum("tgbh,tgbk->ghk", hprev, dz), dz.sum((0, 2)))
+    err = np.abs(h_t.numpy() - np.asarray(want)).max()
+    print(f"emulated cluster LSTM vs the JAX kernels, T={steps} B={batch} H={hidden} lengths "
+          f"{kind}: h_T max abs err {err:.3e}")
+    np.testing.assert_allclose(h_t.numpy(), np.asarray(want), **RNN_VALUE_TOL)
+    for name, g, w in zip(("x_proj", "w_hh", "b_hh"), grads, want_grads):
+        w = np.asarray(w)
+        e = np.abs(g.numpy() - w).max() / np.abs(w).max()
+        print(f"  d{name}: rel err {e:.3e} (limit {GRAD_TOL})")
+        assert e < GRAD_TOL, name
