@@ -30,12 +30,13 @@ Phases (any failure exits non-zero, and no result line is printed):
    compare every output by its max abs error relative to its largest
    magnitude. Times with CUDA events:
    kernel, plain twin, the bound, and, where one PyTorch call computes the
-   same function, that call. The sixteen kernels whose products run as 3xTF32
+   same function, that call. The eighteen kernels whose products run as 3xTF32
    on the tensor cores (``packed_attention_fwd``, ``packed_attention_bwd``,
    ``flash_fwd_single``, ``flash_fwd_tiled``, ``flash_bwd_fused``,
    ``flash_bwd_dkv``, ``flash_bwd_dq``, ``fused_hybrid_head``, ``ffw_ln_fwd``,
    ``ffw_ln_bwd``, ``proj_ln_fwd``, ``proj_ln_bwd``, ``fused_mlp_fwd``,
-   ``fused_mlp_bwd``, ``lstm_train_fwd``, ``lstm_train_bwd``) carry both
+   ``fused_mlp_bwd``, ``lstm_train_fwd``, ``lstm_train_bwd``,
+   ``grouped_lstm_fused``, ``grouped_gru_fused``) carry both
    bounds, a third of the TF32 peak (the unit they run on) and the CUDA cores' f32
    peak, with their share of the first; ``nvcc -Xptxas -v``'s registers,
    shared memory and spills for them are printed at setup. The two
@@ -94,7 +95,14 @@ Phases (any failure exits non-zero, and no result line is printed):
    The three grouped-recurrence kernels (``ops/rnn.py``) at T = 512 and 1024,
    G = 4, B = 64, H = 256, D = 17: a real batch's lengths, the edge lengths 0,
    1, 37, T - 1, T, no lengths, and a B and a T that are not multiples of 8;
-   timed beside their plain loops and cuDNN (``nn.LSTM`` / ``nn.GRU``).
+   timed beside their plain loops and cuDNN (``nn.LSTM`` / ``nn.GRU``). The
+   two fused ones run their cluster body there: its route, CTAs and rows a
+   cluster, threads, shared memory, the clusters that fit on the card at
+   once, the clusters a launch runs and its waves are printed for both
+   tilings (16 and 32 rows a cluster) at B 32 and 64, and the serving batch
+   must run in one wave; each case launches them twice, bit for bit; both
+   tilings are held to the plain versions and timed at B 32 and 64, and
+   their rows carry both bounds and µs per step.
    The four recurrence training kernels (forward with residuals, reverse-time
    backward; LSTM and GRU) at T = 512 and 1024, G = 4, B = 32, H = 256: a
    real batch's lengths, the edge lengths, no lengths, and B = 13 / T = 509;
@@ -169,7 +177,8 @@ FIT_EPOCHS = 2
 # the tensor cores, HBM3. A kernel that takes each f32 product as three TF32
 # products (3xTF32: the packed and both flash forwards, the packed, the fused
 # and the split attention backwards, the fused head, both residual-LN pairs,
-# the feed-forward pair and the LSTM training pair on its cluster body) is
+# the feed-forward pair, the LSTM training pair and the two fused serving
+# recurrences on their cluster bodies) is
 # bounded by a third of the TF32 rate for the same f32 operation count
 PEAK_F32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
@@ -193,7 +202,9 @@ TENSOR_CORE_KERNELS = {"flash_fwd_single": ("flash_fwd_single_kernel",),
                        "fused_mlp_fwd": ("fused_mlp_hidden_kernel", "fused_mlp_fwd_kernel"),
                        "fused_mlp_bwd": ("fused_mlp_bwd",),
                        "lstm_train_fwd": ("lstm_train_fwd_cluster_kernel",),
-                       "lstm_train_bwd": ("lstm_train_bwd_cluster_kernel",)}
+                       "lstm_train_bwd": ("lstm_train_bwd_cluster_kernel",),
+                       "grouped_lstm_fused": ("grouped_lstm_fused_cluster_kernel",),
+                       "grouped_gru_fused": ("grouped_gru_fused_cluster_kernel",)}
 # stated tolerances: f32 on both sides; the kernels sum in another order
 # (online softmax across 64-key tiles, per-thread dot products)
 ATTN_TOL = 1e-4
@@ -319,13 +330,15 @@ def ptxas_report(build):
     memory and spills."""
     tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_ptxas_")
     sources = ("flash_attention", "packed_attention_bwd", "packed_attention",
-               "flash_attention_bwd", "ffw_ln", "proj_ln", "ffw", "fusion_head", "rnn_train")
+               "flash_attention_bwd", "ffw_ln", "proj_ln", "ffw", "fusion_head", "rnn_train",
+               "rnn")
     procs = [subprocess.Popen(
         [build._nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-o", f"{tmp.name}/{name}.so",
          str(build.CSRC_DIR / f"{name}.cu")],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for name in sources]
 
     def finish():
+        seen = set()  # rnn.cu also compiles rnn_cluster.cuh's training kernels
         for proc in procs:
             output, _ = proc.communicate()
             if proc.returncode:
@@ -337,6 +350,9 @@ def ptxas_report(build):
                     kernel = next((_source_name(name) for ks in TENSOR_CORE_KERNELS.values()
                                    for k in ks if k in name), None)
                     dim = name.split("ILi")[1].split("E")[0] if kernel and "ILi" in name else ""
+                    if (kernel, dim) in seen:
+                        kernel = None
+                    seen.add((kernel, dim))
                 elif kernel and ("spill" in line or "registers" in line):
                     print(f"  ptxas {kernel}{f'<{dim}>' if dim else ''}: {line.strip()}",
                           flush=True)
@@ -1262,10 +1278,45 @@ def check_flash_kernels(torch, attn, real_lengths):
 RNN_G, RNN_H, RNN_D = 4, 256, 17  # the parity model's group: 4 modalities, hidden 256, D_max 17
 
 
+FUSED = ("grouped_lstm_fused", "grouped_gru_fused")  # rows 17-18: the cluster body at H 256
+
+
+def rnn_cluster_geometry(rnn):
+    """Print the serving cluster body's launch for rows 17-18 at the
+    evaluation (32) and serving (64) batch; fail unless they take the
+    cluster body and the serving batch runs in one wave. Returns the info
+    by (kernel, batch)."""
+    out = {}
+    for name in FUSED:
+        cell = name.split("_")[1]
+        route = rnn.grouped_fused_route(RNN_H, RNN_D)
+        if route != "cluster":
+            raise AssertionError(f"{name} must run its cluster body at H {RNN_H}, D {RNN_D}")
+        for batch in (32, BATCH):
+            info = rnn.grouped_fused_cluster_info(cell, RNN_H, RNN_D, batch, RNN_G)
+            picked = info[f"rows{info['rows']}"]
+            tilings = "; ".join(
+                f"{rows} rows: {t['threads']} threads, {t['smem_bytes']} bytes of shared "
+                f"memory, {t['active_clusters']} active clusters, {t['clusters_per_launch']} "
+                f"clusters per launch, {t['waves']} waves"
+                for rows, t in ((r, info[f"rows{r}"]) for r in rnn.CLUSTER_ROWS))
+            print(f"  {name} at H={RNN_H} D={RNN_D} G={RNN_G} B={batch}: route {route}, "
+                  f"{info['ctas_per_cluster']} CTAs a cluster, {info['rows']} rows a cluster "
+                  f"picked ({picked['clusters_per_launch']} clusters, {picked['waves']} wave(s)); "
+                  f"{tilings}", flush=True)
+            if picked["waves"] != 1:
+                raise AssertionError(f"{name} at B {batch}: {picked['waves']} waves of clusters")
+            out[(name, batch)] = info
+    return out
+
+
 def check_rnn_kernels(torch, rnn, real_lengths):
     """The three grouped-recurrence kernels vs their plain versions at the
     parity model's shapes; ``real_lengths[T]`` are a real batch-64's lengths
-    at chunk T. Returns the three table rows."""
+    at chunk T. Rows 17-18 (their cluster body) also launch twice on every
+    case, bit for bit, and run both tilings (16 and 32 rows a cluster) at
+    B 32 and 64, each held to its plain version and timed. Returns the three
+    table rows."""
     g = torch.Generator().manual_seed(5)
     scale = RNN_H**-0.5
 
@@ -1276,8 +1327,9 @@ def check_rnn_kernels(torch, rnn, real_lengths):
     for gates in (4, 3):
         weights[gates] = (u(RNN_G, RNN_D, gates * RNN_H), u(RNN_G, RNN_H, gates * RNN_H),
                           u(RNN_G, gates * RNN_H), u(RNN_G, gates * RNN_H))
+    geometry = rnn_cluster_geometry(rnn)
 
-    def calls(name, x, lens):
+    def calls(name, x, lens, **kw):
         """(kernel call, plain call) of one kernel on x [T, G, B, D]."""
         w_ih, w_hh, b_ih, b_hh = weights[3 if name == "grouped_gru_fused" else 4]
         if name == "grouped_lstm_forward":
@@ -1288,11 +1340,11 @@ def check_rnn_kernels(torch, rnn, real_lengths):
         else:
             args = (x, w_ih, w_hh, b_ih, b_hh, lens)
         kernel, plain = getattr(rnn, name), getattr(rnn, name + "_plain")
-        return (lambda: kernel(*args)), (lambda: plain(*args))
+        return (lambda: kernel(*args, **kw)), (lambda: plain(*args))
 
     names = ("grouped_lstm_forward", "grouped_lstm_fused", "grouped_gru_fused")
     errs = dict.fromkeys(names, 0.0)
-    timed = {}
+    timed, tilings = {}, {}
     for seq in (512, 1024):
         x = torch.randn(seq, RNN_G, BATCH, RNN_D, generator=g).cuda()
         real = real_lengths[seq]
@@ -1305,6 +1357,7 @@ def check_rnn_kernels(torch, rnn, real_lengths):
             for name in names:
                 kernel, plain = calls(name, xc, lens)
                 got = kernel()
+                again = kernel() if name in FUSED else got
                 torch.cuda.synchronize()
                 want = plain()
                 e = (got - want).abs().max().item()
@@ -1312,9 +1365,29 @@ def check_rnn_kernels(torch, rnn, real_lengths):
                     for b in (lens == 0).nonzero().flatten().tolist():
                         if got[:, b].abs().max().item() != 0.0:
                             raise AssertionError(f"{name} {label}: a length-0 row is not zero")
+                if not torch.equal(got, again):
+                    raise AssertionError(f"{name} {label}: a second launch gave other bits")
                 print(f"  {name} T={xc.shape[0]} B={xc.shape[2]} {label}: max_abs_err {e:.3e} "
-                      f"(tol {RNN_TOL})", flush=True)
+                      f"(tol {RNN_TOL}){'; repeats bit for bit' if name in FUSED else ''}",
+                      flush=True)
                 errs[name] = max(errs[name], e)
+        # rows 17-18 at both tilings, the evaluation and the serving batch
+        for name in FUSED:
+            for batch in (32, BATCH):
+                xb = x[:, :, :batch].contiguous()
+                for rows in rnn.CLUSTER_ROWS:
+                    kernel, plain = calls(name, xb, real[:batch], cluster_rows=rows)
+                    got = kernel()
+                    torch.cuda.synchronize()
+                    e = (got - plain()).abs().max().item()
+                    errs[name] = max(errs[name], e)
+                    ms = time_ms(kernel, iters=5, warmup=2)
+                    tilings[(name, seq, batch, rows)] = ms
+                    info = geometry[(name, batch)][f"rows{rows}"]
+                    print(f"  {name} T={seq} B={batch} at {rows} rows a cluster "
+                          f"({info['clusters_per_launch']} clusters, {info['waves']} wave(s)): "
+                          f"max_abs_err {e:.3e}, ms={ms:.4f} ({ms / seq * 1e3:.3f} us per step)",
+                          flush=True)
         if max(errs.values()) > RNN_TOL:
             raise AssertionError(f"recurrence kernels disagree with their plain versions: {errs}")
 
@@ -1354,18 +1427,24 @@ def check_rnn_kernels(torch, rnn, real_lengths):
             w_floats = RNN_G * gates * RNN_H * (RNN_H + in_cols + (2 if gates == 3 else 1))
             nbytes = 4.0 * (in_floats + w_floats + BATCH + RNN_G * BATCH * RNN_H)
             bound_ms, bound_by = bound(flops, nbytes)
+            if name in FUSED:  # on the tensor cores: their bound first, the CUDA cores' beside it
+                b3, _ = bound(flops, nbytes, PEAK_3XTF32_FLOPS)
+                bounds = (f"bound_ms={b3:.4f} on 3xTF32, share {100 * b3 / ms:.1f}% (f32 CUDA "
+                          f"cores {bound_ms:.4f}; {bound_by})")
+            else:
+                b3, bounds = None, f"bound_ms={bound_ms:.4f} ({bound_by})"
             print(f"  {name} T={seq}: ms={ms:.4f} ({ms / seq * 1e3:.3f} us per step) "
                   f"plain_ms={plain_ms:.4f} cudnn_ms={library_ms:.4f} (4 nn.{'GRU' if gates == 3 else 'LSTM'} "
                   f"calls over the full T, lengths not handled; max abs diff from the kernel on the "
-                  f"{int(full.sum())} full-length rows {e_lib:.3e}) bound_ms={bound_ms:.4f} ({bound_by}; "
-                  f"{steps:.0f} valid steps, {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)",
+                  f"{int(full.sum())} full-length rows {e_lib:.3e}) {bounds}; "
+                  f"{steps:.0f} valid steps, {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB",
                   flush=True)
-            timed[(name, seq)] = (ms, plain_ms, library_ms, bound_ms, bound_by)
+            timed[(name, seq)] = (ms, plain_ms, library_ms, bound_ms, bound_by, b3)
         del x
     rows = []
     for name, line in zip(names, (34, 86, 281)):
-        ms, plain_ms, library_ms, bound_ms, bound_by = timed[(name, 512)]
-        rows.append({
+        ms, plain_ms, library_ms, bound_ms, bound_by, b3 = timed[(name, 512)]
+        row = {
             "name": name, "route": "cuda", "source": f"{PKG}/ops/csrc/rnn.cu",
             "replaces": f"{TPU_PKG}/ops/pallas_rnn.py:{line}",
             "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
@@ -1373,7 +1452,19 @@ def check_rnn_kernels(torch, rnn, real_lengths):
             "shape": [512, RNN_G, BATCH, RNN_D, RNN_H],
             **{f"{key}_t1024": value for key, value in zip(
                 ("ms", "plain_ms", "library_ms", "bound_ms"), timed[(name, 1024)])},
-        })
+        }
+        if b3 is not None:  # rows 17-18: the 3xTF32 bound, the CUDA cores' beside it
+            row["body"] = f"{PKG}/ops/csrc/rnn_cluster_fused.cuh"
+            row["bound_ms_f32"], row["bound_ms_f32_t1024"] = bound_ms, timed[(name, 1024)][3]
+            row["bound_ms"], row["bound_ms_t1024"] = b3, timed[(name, 1024)][5]
+            row["bound_share"] = b3 / ms
+            row["unit"] = "3xTF32 tensor cores"
+            row["us_per_step"] = ms / 512 * 1e3
+            row["cluster"] = geometry[(name, BATCH)]
+            row["cluster_b32"] = geometry[(name, 32)]
+            row["tilings_ms"] = {f"t{seq}_b{batch}_rows{r}": v
+                                 for (n, seq, batch, r), v in tilings.items() if n == name}
+        rows.append(row)
     return rows
 
 
@@ -2221,7 +2312,8 @@ def rnn_phase(torch, kernels, split, modalities, stride, seed, smi, workdir: Pat
             e = (routed - serve(feats, None, lengths)).abs().max().item()
             print(f"  {label}: x_proj ({x_proj.numel() * 4 / 1e6:.0f} MB) -> grouped_lstm_forward -> "
                   f"projection, LayerNorms, head kernel: logits max_abs_err vs the served ones "
-                  f"{e:.3e} (tol {RNN_ROUTE_TOL}); launches {launches}", flush=True)
+                  f"(SIMT body vs cluster body) {e:.3e} (tol {RNN_ROUTE_TOL}); launches "
+                  f"{launches}", flush=True)
             if launches != want or e > RNN_ROUTE_TOL:
                 raise AssertionError(f"{label}: the grouped_lstm_forward path is off: {e}, {launches}")
             out[f"forward_{cell}{chunk}"] = launches

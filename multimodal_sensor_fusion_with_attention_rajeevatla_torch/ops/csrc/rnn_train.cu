@@ -43,9 +43,14 @@
 // any other H (the slice and buffers past one CTA's shared memory) to the
 // SIMT body below: two hand-written kernels, one count.
 //
+// rnn.cu's serving kernels (grouped_lstm_fused, grouped_gru_fused) run the
+// same design with the input projection inside (rnn_cluster_fused.cuh, on
+// this body's helpers); this file's cluster kernels are not shared with them.
+//
 // The SIMT body (the GRU kernels, and the LSTM's other H) is rnn_cell.cuh's
-// recurrence (rnn.cu's precomputed-projection path) with the residual stores
-// added: the thread that finishes unit j of a row holds that unit's gates and
+// recurrence (rnn.cu's precomputed-projection path, row 16, and the fused
+// serving kernels' fallback for the H and D their cluster body does not take)
+// with the residual stores added: the thread that finishes unit j of a row holds that unit's gates and
 // carries, so each store is its own, and unit j's columns lie side by side
 // across the warp. Stores are made for valid steps only; the wrapper
 // allocates the residuals (and dz) with torch.zeros, so the steps past a

@@ -22,7 +22,12 @@ and takes its ``*_plain`` version for CPU tensors; each counts its launches in
 ``.launches``:
 
 - inference, ``csrc/rnn.cu``: ``grouped_lstm_forward``, ``grouped_lstm_fused``
-  and ``grouped_gru_fused`` (forward only, the result carries no gradient);
+  and ``grouped_gru_fused`` (forward only, the result carries no gradient).
+  The two fused ones run on a thread-block cluster with W_hh and W_ih held
+  on chip, the input projection inside and 3xTF32 step products
+  (``csrc/rnn_cluster_fused.cuh``) at the sizes ``grouped_fused_route``
+  names, on the SIMT body (``csrc/rnn_cell.cuh``) at the others;
+  ``grouped_lstm_forward`` runs the SIMT body;
 - training, ``csrc/rnn_train.cu``: ``lstm_train_fwd`` / ``gru_train_fwd`` (the
   final state plus the per-step residuals: post-activation gates, ``h_{t-1}``,
   and ``c_{t-1}`` or ``hn = h_{t-1} W_hn + b_hn``; zero past each row's
@@ -191,6 +196,93 @@ def _launch(wrapper, entry: str, tensors, lengths, out, dims) -> torch.Tensor:
     return out
 
 
+# csrc/rnn_cluster_fused.cuh: the widest input whose W_ih slice and x ring one
+# CTA of the serving body holds beside its W_hh slice (kFusedMaxD)
+CLUSTER_MAX_FEAT = 64
+CLUSTER_ROWS = (16, 32)  # batch rows a cluster: one or two m16 tiles a CTA
+
+
+def grouped_fused_route(hidden: int, feat: int) -> str:
+    """The body ``grouped_lstm_fused`` and ``grouped_gru_fused`` run on the
+    card at ``hidden`` units and ``feat`` input features: ``"cluster"``
+    (``csrc/rnn_cluster_fused.cuh``: W_hh and W_ih slices held in a
+    thread-block cluster's shared memory for the whole sequence, the input
+    projection computed inside, h exchanged through distributed shared
+    memory, 3xTF32 step products) where ``hidden`` is a multiple of 64 up to
+    ``CLUSTER_MAX_HIDDEN`` and ``feat`` at most ``CLUSTER_MAX_FEAT``, else
+    ``"simt"`` (``csrc/rnn_cell.cuh``). Both are hand-written kernels and
+    count in the same ``.launches``; a refused launch raises on either."""
+    fits = lstm_train_route(hidden) == "cluster" and 0 < feat <= CLUSTER_MAX_FEAT
+    return "cluster" if fits else "simt"
+
+
+_FUSED_INFO_KEYS = ("threads", "smem_bytes", "active_clusters", "clusters_per_launch")
+_FUSED_GEOMETRY = {}  # (cell, H, D, B, G, device) -> grouped_fused_cluster_info
+
+
+def pick_cluster_rows(tilings: dict) -> int:
+    """The rows a cluster that runs a launch in the fewest waves of clusters,
+    16 on a tie: ``tilings`` maps rows to ``{"waves": ceil(clusters per
+    launch / active clusters)}``, None where the tiling fits no CTA."""
+    fitting = [rows for rows in CLUSTER_ROWS if tilings[rows]["waves"] is not None]
+    if not fitting:
+        raise RuntimeError(f"the cluster body fits no CTA at these sizes: {tilings}")
+    return min(fitting, key=lambda rows: tilings[rows]["waves"])
+
+
+def grouped_fused_cluster_info(cell: str, hidden: int, feat: int, batch: int, groups: int,
+                               device=None) -> dict:
+    """The serving cluster body's launch at these sizes, read on the card:
+    CTAs per cluster, then for 16 and 32 batch rows a cluster (``"rows16"``,
+    ``"rows32"``) the threads per CTA, the dynamic shared memory, the
+    clusters that fit on the card at once (``cudaOccupancyMaxActiveClusters``),
+    the clusters one launch runs and its waves; ``"rows"`` is the tiling
+    the wrappers take (``pick_cluster_rows``)."""
+    if cell not in ("lstm", "gru"):
+        raise ValueError(f"Unknown cell type: {cell}")
+    device = torch.device("cuda") if device is None else torch.device(device)
+    index = torch.cuda.current_device() if device.index is None else device.index
+    key = (cell, hidden, feat, batch, groups, index)
+    if key not in _FUSED_GEOMETRY:
+        lib = _build.library("rnn")
+        fn = lib.msfa_grouped_fused_cluster_info
+        fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        raw = (ctypes.c_int * (1 + 4 * len(CLUSTER_ROWS)))()
+        with torch.cuda.device(index):
+            code = fn(int(cell == "gru"), hidden, feat, batch, groups, ctypes.addressof(raw))
+        _build.check(lib, code, "grouped_fused_cluster_info")
+        info = {"ctas_per_cluster": raw[0]}
+        for i, rows in enumerate(CLUSTER_ROWS):
+            tiling = dict(zip(_FUSED_INFO_KEYS, raw[1 + 4 * i:5 + 4 * i]))
+            active = tiling["active_clusters"]
+            tiling["waves"] = -(-tiling["clusters_per_launch"] // active) if active else None
+            info[f"rows{rows}"] = tiling
+        info["rows"] = pick_cluster_rows({rows: info[f"rows{rows}"] for rows in CLUSTER_ROWS})
+        _FUSED_GEOMETRY[key] = info
+    return _FUSED_GEOMETRY[key]
+
+
+def _launch_fused(wrapper, cell: str, tensors, lengths, out, dims, cluster_rows) -> torch.Tensor:
+    """Launch ``grouped_{cell}_fused`` on the body ``grouped_fused_route``
+    names; on the cluster body at ``cluster_rows`` rows a cluster (None: the
+    tiling ``grouped_fused_cluster_info`` picks)."""
+    steps, groups, batch, feat, hidden = dims
+    entry = f"msfa_grouped_{cell}_fused"
+    if grouped_fused_route(hidden, feat) == "simt":
+        if cluster_rows is not None:
+            raise ValueError(f"cluster_rows given, but H={hidden}, D={feat} run the SIMT body")
+        return _launch(wrapper, entry + "_simt", tensors, lengths, out, dims)
+    if batch == 0:
+        return out
+    if cluster_rows is None:
+        cluster_rows = grouped_fused_cluster_info(cell, hidden, feat, batch, groups,
+                                                  out.device)["rows"]
+    elif cluster_rows not in CLUSTER_ROWS:
+        raise ValueError(f"cluster_rows must be one of {CLUSTER_ROWS}, got {cluster_rows}")
+    return _launch(wrapper, entry, tensors, lengths, out, (*dims, cluster_rows))
+
+
 def grouped_lstm_forward(
     x_proj: torch.Tensor,  # [T, G, B, 4H] input projections (with b_ih)
     w_hh: torch.Tensor,  # [G, H, 4H]
@@ -224,9 +316,11 @@ def grouped_lstm_fused(
     w_hh: torch.Tensor,  # [G, H, 4H]
     bias: torch.Tensor,  # [G, 4H] b_ih + b_hh
     lengths: Optional[torch.Tensor] = None,  # [B] int32; None = T
+    cluster_rows: Optional[int] = None,  # 16 or 32 on the cluster body; None = picked
 ) -> torch.Tensor:
     """Grouped LSTM with the input projection inside the kernel -> final
-    hidden ``[G, B, H]``. ``grouped_lstm_fused.launches`` counts launches."""
+    hidden ``[G, B, H]``, on the card on the body ``grouped_fused_route(H, D)``
+    names. ``grouped_lstm_fused.launches`` counts launches."""
     if x.dim() != 4 or w_hh.dim() != 3:
         raise ValueError(f"expected x [T, G, B, D] and w_hh [G, H, 4H], got "
                          f"{tuple(x.shape)} and {tuple(w_hh.shape)}")
@@ -239,8 +333,8 @@ def grouped_lstm_fused(
     if x.device.type == "cpu":
         return grouped_lstm_fused_plain(x, w_ih, w_hh, bias, lengths)
     out = torch.empty((groups, batch, hidden), device=x.device, dtype=torch.float32)
-    return _launch(grouped_lstm_fused, "msfa_grouped_lstm_fused", list(tensors.values()),
-                   lengths, out, (steps, groups, batch, feat, hidden))
+    return _launch_fused(grouped_lstm_fused, "lstm", list(tensors.values()), lengths, out,
+                         (steps, groups, batch, feat, hidden), cluster_rows)
 
 
 grouped_lstm_fused.launches = 0
@@ -253,9 +347,11 @@ def grouped_gru_fused(
     b_ih: torch.Tensor,  # [G, 3H]
     b_hh: torch.Tensor,  # [G, 3H], kept on the hidden path
     lengths: Optional[torch.Tensor] = None,  # [B] int32; None = T
+    cluster_rows: Optional[int] = None,  # 16 or 32 on the cluster body; None = picked
 ) -> torch.Tensor:
     """Grouped GRU with the input projection inside the kernel -> final
-    hidden ``[G, B, H]``. ``grouped_gru_fused.launches`` counts launches."""
+    hidden ``[G, B, H]``, on the body ``grouped_fused_route(H, D)`` names.
+    ``grouped_gru_fused.launches`` counts launches."""
     if x.dim() != 4 or w_hh.dim() != 3:
         raise ValueError(f"expected x [T, G, B, D] and w_hh [G, H, 3H], got "
                          f"{tuple(x.shape)} and {tuple(w_hh.shape)}")
@@ -269,8 +365,8 @@ def grouped_gru_fused(
     if x.device.type == "cpu":
         return grouped_gru_fused_plain(x, w_ih, w_hh, b_ih, b_hh, lengths)
     out = torch.empty((groups, batch, hidden), device=x.device, dtype=torch.float32)
-    return _launch(grouped_gru_fused, "msfa_grouped_gru_fused", list(tensors.values()),
-                   lengths, out, (steps, groups, batch, feat, hidden))
+    return _launch_fused(grouped_gru_fused, "gru", list(tensors.values()), lengths, out,
+                         (steps, groups, batch, feat, hidden), cluster_rows)
 
 
 grouped_gru_fused.launches = 0

@@ -1,14 +1,14 @@
 #!/usr/bin/env python3
 """Time the PyTorch port's attention, residual-LN, feed-forward, head and
-recurrence training kernels in one or more checkouts, in turns, on one CUDA
-card: an A/B of two trees in the same process order.
+recurrence kernels in one or more checkouts, in turns, on one CUDA card: an
+A/B of two trees in the same process order.
 
     python3 scripts/attention_kernels_ab.py                      # this checkout
     python3 scripts/attention_kernels_ab.py --tree old --tree . --tree . --tree old
 
 Each ``--tree`` runs in its own process, which imports the port from that
 checkout, builds its kernels from its ``ops/csrc`` and times, with CUDA
-events, rows 1-8, 10-15 and 19-22 of the kernel table at the shapes
+events, rows 1-8 and 10-22 of the kernel table at the shapes
 ``chip_smoke.py`` reports them: the packed forward (B 64, T 512, H 4, d 64)
 and backward (B 32), the single-key-block forward and the fused backward at
 ``[B*H, T, d]`` = ``[128, 1024, 64]``, ``[512, 512, 64]`` and ``[128, 2048,
@@ -18,9 +18,16 @@ forward at ``[256, 4096, 64]``, ``[128, 1024, 64]`` and ``[128, 2048, 64]``
 (every key valid), the feed-forward pair and the projection and FFW
 residual-LayerNorm kernels, forward and backward, at N = 16,384 rows, d 256,
 d_ff 2048, keep 0.8, the fused head at batch 64 (M 4, H 256, C 25, a
-random mask), and the LSTM and GRU training kernels at T 512 and 1024, G 4,
+random mask), the LSTM and GRU training kernels at T 512 and 1024, G 4,
 B 32, H 256 on ragged lengths like a real batch's (each backward on its
-twin's residuals); inputs from a fixed seed. Launches are timed back to back; the
+twin's residuals), and the three inference recurrences (rows 16-18) at T 512
+and 1024, G 4, B 32 and 64, H 256, D 17 on a real PAMAP2 batch's lengths
+(the fused two on the body and tiling their wrappers pick); inputs from a
+fixed seed. Then, per tree, the serve p50 of batch-64 requests and their
+device time by kernel family (``chip_smoke.profile``) for the LSTM parity
+model at chunk 512 and 1024 and the GRU model at 512
+(``chip_smoke.rnn_overrides``, seeded weights, real windows). Launches are
+timed back to back; the
 head and the projection's forward are also timed each call alone, the card
 kept ahead of the host, L2-warm and L2-cold (a 128 MB write before each
 call).
@@ -41,6 +48,7 @@ import importlib.util
 import json
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[1]
@@ -59,12 +67,18 @@ def _time_ms(torch, fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _warm_cold(times, name, fn, flush) -> None:
-    """Each call timed alone, L2-warm and L2-cold, as ``chip_smoke.py`` times
-    rows 8 and 14 (its ``device_ms``, loaded from this checkout)."""
+def _smoke():
+    """``chip_smoke.py`` of this checkout, as a module."""
     spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
+    return smoke
+
+
+def _warm_cold(times, name, fn, flush) -> None:
+    """Each call timed alone, L2-warm and L2-cold, as ``chip_smoke.py`` times
+    rows 8 and 14 (its ``device_ms``)."""
+    smoke = _smoke()
     times[f"{name}_alone_warm"] = smoke.device_ms(fn)
     times[f"{name}_alone_cold"] = smoke.device_ms(fn, flush=flush)
 
@@ -170,6 +184,9 @@ def _measure(tree: Path) -> dict:
     rnn_times, rnn_bits = _measure_rnn_train(torch, g)
     times.update(rnn_times)
     bits.update(rnn_bits)
+    rnn_times, rnn_bits = _measure_rnn_serve(torch, g)
+    times.update(rnn_times)
+    bits.update(rnn_bits)
     return {"tree": str(tree), "device": torch.cuda.get_device_name(0), "ms": times,
             "bits": bits}
 
@@ -264,6 +281,81 @@ def _measure_rnn_train(torch, g) -> dict:
             times[f"{cell}_train_bwd{tag}"] = _time_ms(torch, lambda: bwd(*res, w_hh, lengths, dh),
                                                        5)
             del x_proj, res
+    return times, bits
+
+
+def _measure_rnn_serve(torch, g) -> dict:
+    """Rows 16-18 at T 512 and 1024, G 4, H 256, D 17, B 32 and 64 on a real
+    batch's lengths, and the recurrent models' served requests -> (ms,
+    output digests)."""
+    from multimodal_sensor_fusion_with_attention_rajeevatla_torch.models.module import (
+        MultimodalFusionModel,
+    )
+    from multimodal_sensor_fusion_with_attention_rajeevatla_torch.ops import rnn as tr
+    from multimodal_sensor_fusion_with_attention_rajeevatla_torch.serving import make_serving_fn
+    from multimodal_sensor_fusion_with_attention_rajeevatla_torch.utils.config import load_config
+
+    smoke = _smoke()
+    cfg = load_config(REPO / "config" / "base.yaml")
+    modalities, seed = list(cfg.dataset.modalities), int(cfg.seed)
+    groups, hidden, feat, batch_max = 4, 256, 17, 64
+    scale = hidden**-0.5
+
+    def u(*shape):
+        return ((torch.rand(*shape, generator=g) * 2 - 1) * scale).cuda()
+
+    times, bits = {}, {}
+    for seq in (512, 1024):
+        split = smoke.load_split(torch, modalities, seq, int(cfg.dataset.window_stride))
+        idx = smoke.index_batches(torch, split, batch_max, seed)
+        real = split.lengths.index_select(0, idx[0].cuda())
+        x = torch.randn(seq, groups, batch_max, feat, generator=g).cuda()
+        w = {gates: (u(groups, feat, gates * hidden), u(groups, hidden, gates * hidden),
+                     u(groups, gates * hidden), u(groups, gates * hidden)) for gates in (4, 3)}
+        w_ih, w_hh, b_ih, b_hh = w[4]
+        x_proj = (torch.einsum("tgbd,gdh->tgbh", x, w_ih) + b_ih[None, :, None, :]).contiguous()
+        for batch in (32, batch_max):
+            xb, xpb = x[:, :, :batch].contiguous(), x_proj[:, :, :batch].contiguous()
+            lens = real[:batch].contiguous()
+            calls = {"grouped_lstm_forward": lambda: tr.grouped_lstm_forward(xpb, w_hh, b_hh, lens),
+                     "grouped_lstm_fused": lambda: tr.grouped_lstm_fused(xb, w_ih, w_hh,
+                                                                         b_ih + b_hh, lens),
+                     "grouped_gru_fused": lambda: tr.grouped_gru_fused(xb, *w[3], lens)}
+            for name, call in calls.items():
+                tag = f"{name}_t{seq}_b{batch}"
+                bits[tag] = _digest([call()])
+                times[tag] = _time_ms(torch, call, 5)
+        del x, x_proj
+        for cell in ("lstm", "gru") if seq == 512 else ("lstm",):
+            label = f"serve_{cell}{seq}"
+            model = MultimodalFusionModel.from_config(
+                load_config(REPO / "config" / "base.yaml", smoke.rnn_overrides(modalities, cell, seq)),
+                device="cuda", generator=torch.Generator().manual_seed(seed))
+            serve = make_serving_fn(model, device="cuda")
+            requests = [split.gather(i) for i in idx[:4]]
+            lat = []
+            for i in range(20):
+                feats, _labels, lengths = requests[i % len(requests)]
+                t = time.perf_counter()
+                serve(feats, None, lengths)
+                torch.cuda.synchronize()
+                lat.append(time.perf_counter() - t)
+            lat = sorted(lat[4:])
+
+            def run(n):
+                for i in range(n):
+                    feats, _labels, lengths = requests[i % len(requests)]
+                    serve(feats, None, lengths)
+                torch.cuda.synchronize()
+
+            families = smoke.profile(torch, run, 6, "request")
+            times[f"{label}_p50"] = lat[len(lat) // 2] * 1e3
+            times[f"{label}_device"] = families["device"]
+            times[f"{label}_recurrence"] = families.get(f"grouped_{cell}", 0.0)
+            times[f"{label}_busy"] = families["busy"]
+            del model, serve, requests
+        del split
+        torch.cuda.empty_cache()
     return times, bits
 
 

@@ -639,6 +639,73 @@ def test_grouped_recurrence_kernels_reject_what_they_do_not_take(card):
     assert empty.shape == (2, 0, 16)  # an empty batch launches nothing
 
 
+FUSED_SHAPES = [  # T, G, B, D, H: the cluster body at B 1, 13, 32, 64, 70, T 1, 509, 512 and
+    # D 1 and 17, at each H it takes below 256 (B and T not multiples of its
+    # 16-row tile), and H 384 on the SIMT body
+    (1, 4, 32, 17, 256), (509, 4, 13, 17, 256), (512, 4, 32, 17, 256), (512, 4, 64, 17, 256),
+    (512, 4, 70, 1, 256), (512, 1, 1, 17, 256), (40, 2, 20, 1, 64), (33, 3, 17, 17, 128),
+    (40, 2, 5, 17, 192), (30, 2, 5, 17, 384)]
+
+
+@pytest.mark.parametrize("steps,groups,batch,feat,hidden", FUSED_SHAPES)
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+def test_fused_recurrences_on_both_bodies_match_plain_and_repeat(card, cell, steps, groups, batch,
+                                                                 feat, hidden):
+    """``grouped_lstm_fused`` / ``grouped_gru_fused`` on the body
+    ``grouped_fused_route`` names (the cluster body at the tiling the wrapper
+    picks and at both tilings forced), against their plain versions on the
+    edge lengths T, 0, 1, T - 1: within the f32 limit, a row of length 0
+    exactly zero, and a second launch on the same inputs the same bits."""
+    want_route = "cluster" if hidden in (64, 128, 192, 256) else "simt"
+    assert tr.grouped_fused_route(hidden, feat) == want_route
+    gates = 4 if cell == "lstm" else 3
+    g = torch.Generator().manual_seed(steps + batch + hidden + feat)
+    scale = hidden**-0.5
+
+    def u(*shape):
+        return ((torch.rand(*shape, generator=g) * 2 - 1) * scale).to(card)
+
+    x = torch.randn(steps, groups, batch, feat, generator=g).to(card)
+    w_ih, w_hh = u(groups, feat, gates * hidden), u(groups, hidden, gates * hidden)
+    b_ih, b_hh = u(groups, gates * hidden), u(groups, gates * hidden)
+    lengths = torch.randint(1, steps + 1, (batch,), generator=g, dtype=torch.int32)
+    edge = torch.tensor([steps, 0, 1, steps - 1, 37 % steps], dtype=torch.int32)[:batch]
+    lengths[:len(edge)] = edge
+    lengths = lengths.to(card)
+    if cell == "lstm":
+        kernel, plain, args = tr.grouped_lstm_fused, tr.grouped_lstm_fused_plain, \
+            (x, w_ih, w_hh, b_ih + b_hh, lengths)
+    else:
+        kernel, plain, args = tr.grouped_gru_fused, tr.grouped_gru_fused_plain, \
+            (x, w_ih, w_hh, b_ih, b_hh, lengths)
+    want = plain(*args)
+    for rows in (None, 16, 32) if want_route == "cluster" else (None,):
+        before = kernel.launches
+        got, again = kernel(*args, cluster_rows=rows), kernel(*args, cluster_rows=rows)
+        torch.cuda.synchronize()
+        assert kernel.launches == before + 2
+        # f32 both; up to 512 dependent steps whose products sum in another order
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+        assert torch.all(got[:, lengths == 0] == 0)  # length 0: the zero state, exactly
+        assert torch.equal(got, again), rows
+
+
+def test_fused_recurrences_cluster_geometry_runs_the_serving_batch_in_one_wave(card):
+    """At the LSTM / GRU models' serving shape (G 4, B 64, H 256, D 17) 16
+    rows a cluster would ask for more clusters than fit on the card at once;
+    the wrapper's tiling runs the launch in one wave."""
+    for cell in ("lstm", "gru"):
+        info = tr.grouped_fused_cluster_info(cell, 256, 17, 64, 4)
+        picked = info[f"rows{info['rows']}"]
+        assert info["ctas_per_cluster"] == 8 and info["rows16"]["threads"] == 256
+        assert picked["waves"] == 1, info
+        assert tr.grouped_fused_cluster_info(cell, 256, 17, 32, 4)["rows"] == 16
+    with pytest.raises(ValueError, match="SIMT body"):
+        tr.grouped_lstm_fused(torch.zeros(2, 1, 3, 5, device=card),
+                              torch.zeros(1, 5, 64, device=card), torch.zeros(1, 16, 64, device=card),
+                              torch.zeros(1, 64, device=card), cluster_rows=16)
+
+
 # ---- the recurrences' training kernels ---------------------------------------
 
 RNN_TRAIN_SHAPES = [  # T, G, B, H: small and ragged, 3H not a multiple of 4, H over one pass,

@@ -124,6 +124,32 @@ def test_recurrence_wrappers_reject_what_they_do_not_take():
         trnn.rnn_scan("rnn", x, w_hh, bias)
 
 
+def test_fused_recurrences_route_by_hidden_and_input_width():
+    # the serving cluster body holds a CTA's W_hh and W_ih slices in shared
+    # memory: H a multiple of 64 up to 256 and D up to 64; the rest, H of the
+    # tests above included, runs the SIMT body
+    assert [trnn.grouped_fused_route(h, 17) for h in (64, 128, 192, 256)] == ["cluster"] * 4
+    assert [trnn.grouped_fused_route(256, d) for d in (1, 17, 64)] == ["cluster"] * 3
+    assert [trnn.grouped_fused_route(h, 17) for h in (H, 16, 32, 96, 300, 320, 384, 512)] == \
+        ["simt"] * 8
+    assert [trnn.grouped_fused_route(256, d) for d in (0, 65, 128)] == ["simt"] * 3
+    assert (trnn.CLUSTER_MAX_HIDDEN, trnn.CLUSTER_MAX_FEAT) == (256, 64)
+
+
+def test_cluster_rows_run_a_launch_in_the_fewest_waves():
+    def tilings(waves16, waves32):
+        return {16: {"waves": waves16}, 32: {"waves": waves32}}
+
+    # B 64, G 4 with 15 clusters on the card at once: 16 clusters of 16 rows
+    # are two waves, 8 of 32 one
+    assert trnn.pick_cluster_rows(tilings(2, 1)) == 32
+    assert trnn.pick_cluster_rows(tilings(1, 1)) == 16  # B 32: one wave either way
+    assert trnn.pick_cluster_rows(tilings(2, None)) == 16  # 32 rows fit no CTA
+    assert trnn.pick_cluster_rows(tilings(None, 3)) == 32
+    with pytest.raises(RuntimeError, match="fits no CTA"):
+        trnn.pick_cluster_rows(tilings(None, None))
+
+
 def _seq(batch, steps, feat, seed):
     return np.random.default_rng(seed).standard_normal((batch, steps, feat)).astype(np.float32)
 

@@ -4,7 +4,8 @@
 ``packed_attention_bwd``, ``flash_bwd_fused``, ``flash_bwd_dkv``,
 ``flash_bwd_dq``, ``ffw_ln_fwd``, ``ffw_ln_bwd``, ``proj_ln_fwd``,
 ``proj_ln_bwd``, ``fused_mlp_fwd``, ``fused_mlp_bwd``, ``fused_hybrid_head``,
-``lstm_train_fwd`` and ``lstm_train_bwd`` take each f32 product as three TF32
+``lstm_train_fwd``, ``lstm_train_bwd``, ``grouped_lstm_fused`` and
+``grouped_gru_fused`` (their cluster body) take each f32 product as three TF32
 tensor-core products (``ops/csrc/tf32_mma.cuh``): x = hi + lo, with
 hi = x rounded to TF32 (half a TF32 ulp added to the bits, the low 13 bits
 cleared) and lo = x - hi, of which the tensor core reads the top 19 bits; then
@@ -25,9 +26,15 @@ whole every step; the backward's per-CTA partials of dh summed in rank order)
 is held to ``lstm_train_fwd_plain`` / ``lstm_train_bwd_plain`` at the f32
 limits of ``test_torch_port_rnn_train.py`` and against the JAX package's
 ``grouped_lstm_trainable`` (its Pallas kernels in interpret mode) for h_T and
-the three gradients.
+the three gradients. The serving recurrences' emulation (each CTA's gate slots
+of W_hh and of W_ih, the GRU's candidate gate split into an h slot and an x
+slot beside zero columns, the x part over the input width padded to a
+multiple of 8) is held to ``grouped_lstm_fused_plain`` /
+``grouped_gru_fused_plain`` at the same limits and against the JAX package's
+``grouped_lstm_fused`` / ``grouped_gru_fused`` in interpret mode.
 """
 
+import contextlib
 import math
 
 import jax
@@ -38,6 +45,7 @@ import torch
 
 from multimodal_sensor_fusion_with_attention_rajeevatla_tpu.ops import pallas_attention as pa
 from multimodal_sensor_fusion_with_attention_rajeevatla_tpu.ops import pallas_mlp as jmlp
+from multimodal_sensor_fusion_with_attention_rajeevatla_tpu.ops import pallas_rnn as jrnn
 from multimodal_sensor_fusion_with_attention_rajeevatla_tpu.ops import pallas_rnn_train as jrt
 from multimodal_sensor_fusion_with_attention_rajeevatla_tpu.ops.pallas_fusion import (
     fused_hybrid_head as jax_fused_hybrid_head,
@@ -922,6 +930,20 @@ RNN_CASES = dict(argnames="steps,batch,hidden", argvalues=[(22, 5, 32), (64, 20,
 RNN_GROUPS = 3
 
 
+@contextlib.contextmanager
+def _one_thread():
+    """The recurrences' emulations are thousands of tiny tensor ops a call:
+    on torch's intra-op thread pool each pays a parallel region (25x the
+    time on one thread here, more beside other test workers), so they run on
+    one thread, the pool's size restored after."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
+
+
 def _local_columns(hidden, cluster):
     """Each CTA's gate columns of W_hh in the kernels' local order
     (``rnn_cluster.cuh`` ``local_col``): local column n is in n-tile n // 8 of
@@ -936,6 +958,7 @@ def _local_columns(hidden, cluster):
     return [[q * hidden + rank * units + u for q, u in order] for rank in range(cluster)]
 
 
+@_one_thread()
 def _lstm_cluster_fwd(x_proj, w_hh, b_hh, lengths, mm):
     """``lstm_train_fwd``'s arithmetic on the cluster body: per step every
     CTA's z = h_{t-1} W_hh slice through ``mm`` in 32-deep fresh accumulators
@@ -965,6 +988,7 @@ def _lstm_cluster_fwd(x_proj, w_hh, b_hh, lengths, mm):
     return h, torch.stack(gates), torch.stack(hprev), torch.stack(cprev)
 
 
+@_one_thread()
 def _lstm_cluster_bwd(gates, cprev, w_hh, lengths, dh_out, mm, cluster=CLUSTER):
     """``lstm_train_bwd``'s arithmetic on the cluster body: reverse time, dz
     from the residuals; each CTA's partial of dh_{t-1}, its dz columns in local
@@ -1062,3 +1086,139 @@ def test_lstm_cluster_recurrences_3xtf32_match_the_jax_kernels(steps, batch, hid
         e = np.abs(g.numpy() - w).max() / np.abs(w).max()
         print(f"  d{name}: rel err {e:.3e} (limit {GRAD_TOL})")
         assert e < GRAD_TOL, name
+
+
+# ------------------------------------------------ serving recurrences
+
+FUSED_CASES = dict(argnames="steps,batch,hidden", argvalues=[(22, 5, 32), (64, 20, 64)],
+                   ids=["T22-B5-H32", "T64-B20-H64"])
+FUSED_FEATS = [1, 17]  # the heart-rate group's raw width, and the IMUs'
+
+
+def _fused_slots(cell, w_ih, w_hh, b_a, b_b):
+    """The cluster body's four gate slots of each unit (``rnn_cluster_fused.cuh``):
+    the LSTM's gates; the GRU's (r, z, n_h, n_x), W_hn in slot 2 of W_hh and
+    W_in in slot 3 of W_ih, zero columns beside them; the biases as the
+    kernel keeps them -> ``(W_hh [G, H, 4H], W_ih [G, D, 4H], bias [G, 4H])``."""
+    if cell == "lstm":
+        return w_hh, w_ih, b_a
+    hidden = w_hh.shape[1]
+    zero_h = torch.zeros(*w_hh.shape[:2], hidden)
+    zero_x = torch.zeros(*w_ih.shape[:2], hidden)
+    return (torch.cat([w_hh, zero_h], -1),
+            torch.cat([w_ih[..., :2 * hidden], zero_x, w_ih[..., 2 * hidden:]], -1),
+            torch.cat([b_a[:, :2 * hidden] + b_b[:, :2 * hidden], b_b[:, 2 * hidden:],
+                       b_a[:, 2 * hidden:]], -1))
+
+
+def _bmm_chunked(a, b, mm):
+    """``a [..., M, K] @ b [..., K, N]`` through ``mm`` in 32-deep fresh
+    accumulators, added in order in f32."""
+    out = None
+    for k0 in range(0, a.shape[-1], CHUNK_K):
+        part = mm(a[..., k0:k0 + CHUNK_K], b[..., k0:k0 + CHUNK_K, :])
+        out = part if out is None else out + part
+    return out
+
+
+@_one_thread()
+def _fused_cluster(cell, x, w_ih, w_hh, b_a, b_b, lengths, mm, cluster=CLUSTER):
+    """``grouped_lstm_fused`` / ``grouped_gru_fused`` on the cluster body: each
+    CTA's slot columns (``_local_columns``, side by side in one product) of
+    z = h_{t-1} W_hh through ``mm`` in 32-deep fresh accumulators, plus the x
+    part x_t W_ih over the depth padded with zeros to a multiple of 8 the
+    same way (it does not depend on h, so every step's at once), then + the
+    bias; the cell on the slots, the carry frozen past each length -> h_T."""
+    steps, groups, batch, feat = x.shape
+    hidden = w_hh.shape[1]
+    whh, wih, bias = _fused_slots(cell, w_ih, w_hh, b_a, b_b)
+    depth = -(-feat // 8) * 8
+    wih = torch.cat([wih, torch.zeros(groups, depth - feat, 4 * hidden)], 1)
+    x = torch.cat([x, torch.zeros(steps, groups, batch, depth - feat)], -1)
+    local = torch.tensor([col for cols in _local_columns(hidden, cluster) for col in cols])
+    back = torch.argsort(local)
+    whh, wih = whh[..., local], wih[..., local]
+    x_part = _bmm_chunked(x, wih, mm)
+    valid = trnn._valid_steps(steps, lengths, "cpu")
+    h = torch.zeros(groups, batch, hidden)
+    c = torch.zeros_like(h)
+    for t in range(steps):
+        keep = valid[t] if valid is not None else torch.ones(batch, 1, dtype=torch.bool)
+        z = (_bmm_chunked(h, whh, mm) + x_part[t])[..., back]
+        s0, s1, s2, s3 = (z + bias[:, None, :]).chunk(4, dim=-1)
+        if cell == "lstm":
+            c_new = torch.sigmoid(s1) * c + torch.sigmoid(s0) * torch.tanh(s2)
+            h_new = torch.sigmoid(s3) * torch.tanh(c_new)
+            c = torch.where(keep, c_new, c)
+        else:  # s2 = h W_hn + b_hn, s3 = x W_in + b_in
+            r, u = torch.sigmoid(s0), torch.sigmoid(s1)
+            h_new = (1 - u) * torch.tanh(s3 + r * s2) + u * h
+        h = torch.where(keep, h_new, h)
+    return h
+
+
+def _fused_case(cell, steps, batch, hidden, feat, kind):
+    rng = np.random.default_rng(steps + batch + hidden + feat + len(kind) + len(cell))
+    gates = 4 if cell == "lstm" else 3
+    scale = hidden**-0.5
+    u = lambda *shape: rng.uniform(-scale, scale, shape).astype(np.float32)  # noqa: E731
+    x = rng.standard_normal((steps, RNN_GROUPS, batch, feat)).astype(np.float32)
+    w_ih, w_hh = u(RNN_GROUPS, feat, gates * hidden), u(RNN_GROUPS, hidden, gates * hidden)
+    b_ih, b_hh = u(RNN_GROUPS, gates * hidden), u(RNN_GROUPS, gates * hidden)
+    lengths = {"full": np.full((batch,), steps, np.int32), "none": None,
+               "ragged": rng.integers(0, steps + 1, batch).astype(np.int32)}[kind]
+    if kind == "ragged":
+        lengths[:4] = [0, 1, steps - 1, steps]
+    # the LSTM kernels take one bias, b_ih + b_hh; the GRU's both
+    biases = (b_ih + b_hh, None) if cell == "lstm" else (b_ih, b_hh)
+    return x, w_ih, w_hh, biases, lengths
+
+
+def _fused_plain(cell, x, w_ih, w_hh, biases, lengths):
+    if cell == "lstm":
+        return trnn.grouped_lstm_fused_plain(x, w_ih, w_hh, biases[0], lengths)
+    return trnn.grouped_gru_fused_plain(x, w_ih, w_hh, *biases, lengths)
+
+
+@pytest.mark.parametrize("kind", ["full", "ragged", "none"])
+@pytest.mark.parametrize("feat", FUSED_FEATS)
+@pytest.mark.parametrize(**FUSED_CASES)
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+def test_fused_cluster_recurrences_3xtf32_hold_the_f32_limit(cell, steps, batch, hidden, feat,
+                                                             kind):
+    x, w_ih, w_hh, biases, lengths = _fused_case(cell, steps, batch, hidden, feat, kind)
+    args = [torch.from_numpy(a) for a in (x, w_ih, w_hh)]
+    biases = [None if b is None else torch.from_numpy(b) for b in biases]
+    tl = None if lengths is None else torch.from_numpy(lengths)
+    want = _fused_plain(cell, *args, biases, tl)
+    errs = {}
+    for name, mm in (("3xTF32", _mm3), ("1xTF32", _mm1)):
+        got = _fused_cluster(cell, *args, *biases, tl, mm)
+        errs[name] = (got - want).abs().max().item()
+        if name == "3xTF32":
+            np.testing.assert_allclose(got.numpy(), want.numpy(), **RNN_VALUE_TOL)
+            if lengths is not None:  # a row of length 0 never leaves the zero state
+                assert torch.all(got[:, tl == 0] == 0)
+    print(f"{cell} serving cluster body, T={steps} G={RNN_GROUPS} B={batch} H={hidden} D={feat} "
+          f"C={CLUSTER} lengths {kind}: max abs err 3xTF32 {errs['3xTF32']:.3e}, 1xTF32 "
+          f"{errs['1xTF32']:.3e} (limit {RNN_VALUE_TOL})")
+    assert errs["3xTF32"] * 10 < errs["1xTF32"]
+
+
+@pytest.mark.parametrize("kind", ["full", "ragged", "none"])
+@pytest.mark.parametrize("feat", FUSED_FEATS)
+@pytest.mark.parametrize(**FUSED_CASES)
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+def test_fused_cluster_recurrences_3xtf32_match_the_jax_kernels(cell, steps, batch, hidden, feat,
+                                                                kind):
+    x, w_ih, w_hh, biases, lengths = _fused_case(cell, steps, batch, hidden, feat, kind)
+    jl = None if lengths is None else jnp.asarray(lengths)
+    jbiases = [jnp.asarray(b) for b in biases if b is not None]
+    jfn = jrnn.grouped_lstm_fused if cell == "lstm" else jrnn.grouped_gru_fused
+    want = np.asarray(jfn(*map(jnp.asarray, (x, w_ih, w_hh)), *jbiases, jl, interpret=True))
+    tbiases = [None if b is None else torch.from_numpy(b) for b in biases]
+    got = _fused_cluster(cell, *map(torch.from_numpy, (x, w_ih, w_hh)), *tbiases,
+                         None if lengths is None else torch.from_numpy(lengths), _mm3).numpy()
+    print(f"emulated {cell} serving cluster body vs the JAX kernel, T={steps} B={batch} "
+          f"H={hidden} D={feat} lengths {kind}: max abs err {np.abs(got - want).max():.3e}")
+    np.testing.assert_allclose(got, want, **RNN_VALUE_TOL)
