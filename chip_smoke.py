@@ -30,13 +30,14 @@ Phases (any failure exits non-zero, and no result line is printed):
    compare every output by its max abs error relative to its largest
    magnitude. Times with CUDA events:
    kernel, plain twin, the bound, and, where one PyTorch call computes the
-   same function, that call. The eighteen kernels whose products run as 3xTF32
+   same function, that call. The twenty kernels whose products run as 3xTF32
    on the tensor cores (``packed_attention_fwd``, ``packed_attention_bwd``,
    ``flash_fwd_single``, ``flash_fwd_tiled``, ``flash_bwd_fused``,
    ``flash_bwd_dkv``, ``flash_bwd_dq``, ``fused_hybrid_head``, ``ffw_ln_fwd``,
    ``ffw_ln_bwd``, ``proj_ln_fwd``, ``proj_ln_bwd``, ``fused_mlp_fwd``,
    ``fused_mlp_bwd``, ``lstm_train_fwd``, ``lstm_train_bwd``,
-   ``grouped_lstm_fused``, ``grouped_gru_fused``) carry both
+   ``gru_train_fwd``, ``gru_train_bwd``, ``grouped_lstm_fused``,
+   ``grouped_gru_fused``) carry both
    bounds, a third of the TF32 peak (the unit they run on) and the CUDA cores' f32
    peak, with their share of the first; ``nvcc -Xptxas -v``'s registers,
    shared memory and spills for them are printed at setup. The two
@@ -108,13 +109,14 @@ Phases (any failure exits non-zero, and no result line is printed):
    real batch's lengths, the edge lengths, no lengths, and B = 13 / T = 509;
    the forward within 1e-4 abs of its twin in every output, the backward
    within 1e-4 of its largest magnitude on the twin's residuals, both exactly
-   zero past each length; each LSTM kernel (its cluster body at H = 256:
-   the route, the CTAs and rows per cluster, shared memory and the clusters
-   that fit on the card are printed) launched twice on every case, bit for
-   bit; timed beside their plain loops and cuDNN (forward in training mode,
-   backward alone, and both), µs per step beside the bounds (the LSTM pair's
-   on 3xTF32 and on the CUDA cores), with the x_proj copy and the dW_hh
-   product the wrapper adds timed apart.
+   zero past each length; each kernel (both cells run their cluster body at
+   H = 256: the route, the CTAs and rows per cluster, threads, shared memory,
+   the clusters that fit on the card and the waves of a launch are printed
+   for each cell) launched twice on every case, bit for bit; timed beside
+   their plain loops and cuDNN (forward in training mode, backward alone,
+   and both), µs per step beside the bounds (on 3xTF32 and on the CUDA
+   cores), with the x_proj copy and the dW_hh product the wrapper adds timed
+   apart.
 7. Long: for ``dataset.chunk_size`` 1024 and 2048, real windows of that
    size; ``Trainer`` at batch 32 takes 8 micro-steps (launch counts: 4 per
    micro-step of the single-key-block forward and of the fused backward, or
@@ -149,7 +151,15 @@ Phases (any failure exits non-zero, and no result line is printed):
    checkpoint reloaded from its
    directory, and ``evaluate_checkpoint`` on it, whose MC-dropout pass
    launches the training forward kernel.
-10. Print the kernel table as one JSON line, then the result line
+10. C5: ``config/base.yaml`` at ``model.hidden_dim`` 192 and 640, widths the
+   kernels are not built for: the route each kernel family takes there is
+   printed (attention at head_dim 48 padded to 64 and at 160 plain; both
+   residual-LN halves at 192 on the kernels at 256, the LayerNorm over 192,
+   and plain at 640; the head kernel at both, K in slabs at 640); batch-64 requests
+   served against the plain path and 4 training micro-steps (one against
+   the plain path, the same seed twice bit for bit), each with exactly the
+   launches those routes name.
+11. Print the kernel table as one JSON line, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
 The script imports torch and the port only; it needs no network.
@@ -177,7 +187,7 @@ FIT_EPOCHS = 2
 # the tensor cores, HBM3. A kernel that takes each f32 product as three TF32
 # products (3xTF32: the packed and both flash forwards, the packed, the fused
 # and the split attention backwards, the fused head, both residual-LN pairs,
-# the feed-forward pair, the LSTM training pair and the two fused serving
+# the feed-forward pair, both training pairs and the two fused serving
 # recurrences on their cluster bodies) is
 # bounded by a third of the TF32 rate for the same f32 operation count
 PEAK_F32_FLOPS = 67e12
@@ -203,6 +213,8 @@ TENSOR_CORE_KERNELS = {"flash_fwd_single": ("flash_fwd_single_kernel",),
                        "fused_mlp_bwd": ("fused_mlp_bwd",),
                        "lstm_train_fwd": ("lstm_train_fwd_cluster_kernel",),
                        "lstm_train_bwd": ("lstm_train_bwd_cluster_kernel",),
+                       "gru_train_fwd": ("gru_train_fwd_cluster_kernel",),
+                       "gru_train_bwd": ("gru_train_bwd_cluster_kernel",),
                        "grouped_lstm_fused": ("grouped_lstm_fused_cluster_kernel",),
                        "grouped_gru_fused": ("grouped_gru_fused_cluster_kernel",)}
 # stated tolerances: f32 on both sides; the kernels sum in another order
@@ -611,15 +623,16 @@ def _forward_branches(torch, family, x, w1, b1, mask, inv_keep, hd):
     return pre, live, int(off.sum().item())
 
 
-def _ffw_ln_bwd_check(torch, mlp, args, dout, inv_keep):
+def _ffw_ln_bwd_check(torch, mlp, args, dout, inv_keep, d_valid=None):
     """``ffw_ln_bwd`` against its twin on the forward kernel's ReLU branches
     -> (rel err, branches that differ from the twin's own, rel err against
     the twin on its own branches). Both directions launch one hidden kernel,
     so the kernel's backward takes the branch of the kernel's forward; the
-    gradients must match the twin's taken on the kernel's branches."""
+    gradients must match the twin's taken on the kernel's branches. With
+    ``d_valid``, the LayerNorm over its first columns."""
     x, w1, b1, w2, b2, gamma, beta, fmask, rmask = args
-    _out, fwd_hd = mlp._ffw_ln_fwd_launch(*args, inv_keep, 1e-6)
-    grads, bwd_hd = mlp._ffw_ln_bwd_launch(*args, dout, inv_keep, 1e-6)
+    _out, fwd_hd = mlp._ffw_ln_fwd_launch(*args, inv_keep, 1e-6, d_valid)
+    grads, bwd_hd = mlp._ffw_ln_bwd_launch(*args, dout, inv_keep, 1e-6, d_valid)
     torch.cuda.synchronize()
     if not torch.equal(fwd_hd, bwd_hd):
         raise AssertionError("ffw_ln: the forward's hidden and the backward's differ")
@@ -627,9 +640,11 @@ def _ffw_ln_bwd_check(torch, mlp, args, dout, inv_keep):
     pre, live, flips = _forward_branches(torch, "ffw_ln", x, w1, b1, fmask, inv_keep, bwd_hd)
     del bwd_hd
     on_branch = max(rel_err(g, w) for g, w in zip(grads, mlp._ffw_ln_bwd_plain(
-        x, w1, pre, live, w2, b2, gamma, fmask, rmask, dout, inv_keep, 1e-6)))
+        x, w1, pre, live, w2, b2, gamma, fmask, rmask, dout, inv_keep, 1e-6, d_valid)))
     own = max(rel_err(g, w) for g, w in zip(grads, mlp.ffw_ln_bwd_reference(
-        *args, dout, inv_keep, 1e-6)))
+        *args, dout, inv_keep, 1e-6, d_valid)))
+    if d_valid is not None and not torch.all(grads[0][:, d_valid:] == 0):
+        raise AssertionError("ffw_ln_bwd: dx past the valid columns")
     return on_branch, flips, own
 
 
@@ -1471,13 +1486,17 @@ def check_rnn_kernels(torch, rnn, real_lengths):
 RNN_TRAIN_B = 32  # the recurrent family's train batch
 
 
+LIB_REPEATS = 5  # readings of each cuDNN training yardstick
+
+
 def _cudnn_train(torch, cell, x, weights):
     """The library yardstick of the training pair: four ``nn.LSTM`` /
     ``nn.GRU`` modules (one per group) carrying the same weights, over raw
     ``x [T, G, B, D]`` for the full T (cuDNN's packed path refuses a length
     of 0, so lengths are not handled; it also does the input projection).
-    Returns ``(forward ms, forward + backward ms, backward alone ms)``; timed
-    only, never called by the port."""
+    Returns ``(forward ms, forward + backward ms, backward alone ms)``, each
+    the median of ``LIB_REPEATS`` readings, and their ``(min, max)``: the
+    yardstick's spread within the run; timed only, never called by the port."""
     w_ih, w_hh, b_ih, b_hh = weights
     modules = []
     for k in range(RNN_G):
@@ -1501,12 +1520,15 @@ def _cudnn_train(torch, cell, x, weights):
     def forward_backward():
         torch.autograd.grad(forward(), params, grads)
 
-    fwd_ms = time_ms(forward, iters=5, warmup=2)
-    fwd_bwd_ms = time_ms(forward_backward, iters=5, warmup=2)
+    def readings(fn):
+        got = sorted(time_ms(fn, iters=5, warmup=2 if i == 0 else 0) for i in range(LIB_REPEATS))
+        return got[len(got) // 2], (got[0], got[-1])
+
+    fwd_ms = readings(forward)
+    fwd_bwd_ms = readings(forward_backward)
     states = forward()
-    bwd_ms = time_ms(lambda: torch.autograd.grad(states, params, grads, retain_graph=True),
-                     iters=5, warmup=2)
-    return fwd_ms, fwd_bwd_ms, bwd_ms
+    bwd_ms = readings(lambda: torch.autograd.grad(states, params, grads, retain_graph=True))
+    return (fwd_ms[0], fwd_bwd_ms[0], bwd_ms[0]), (fwd_ms[1], fwd_bwd_ms[1], bwd_ms[1])
 
 
 def check_rnn_train_kernels(torch, rnn, real_lengths):
@@ -1522,11 +1544,21 @@ def check_rnn_train_kernels(torch, rnn, real_lengths):
     def u(*shape):
         return ((torch.rand(*shape, generator=g) * 2 - 1) * scale).cuda()
 
-    info = rnn.lstm_train_cluster_info(RNN_H, RNN_TRAIN_B, RNN_G)
-    print(f"  lstm_train_fwd / lstm_train_bwd at H={RNN_H} B={RNN_TRAIN_B} G={RNN_G}: route "
-          f"{rnn.lstm_train_route(RNN_H)}, {info}", flush=True)
-    if rnn.lstm_train_route(RNN_H) != "cluster":
-        raise AssertionError("the LSTM training kernels must run their cluster body at H 256")
+    route = rnn.rnn_train_route(RNN_H)
+    if route != "cluster":
+        raise AssertionError("the training kernels of both cells must run their cluster body at "
+                             f"H {RNN_H}, not {route}")
+    info = {}
+    for cell in ("lstm", "gru"):
+        info[cell] = rnn.rnn_train_cluster_info(cell, RNN_H, RNN_TRAIN_B, RNN_G)
+        c = info[cell]
+        waves = [-(-c["clusters_per_launch"] // c[f"active_clusters_{d}"]) for d in ("fwd", "bwd")]
+        print(f"  {cell}_train_fwd / {cell}_train_bwd at H={RNN_H} B={RNN_TRAIN_B} G={RNN_G}: "
+              f"route {route}, {c['ctas_per_cluster']} CTAs and {c['tile_rows']} rows a cluster, "
+              f"{c['threads']} threads, {c['smem_fwd_bytes']} / {c['smem_bwd_bytes']} bytes of "
+              f"shared memory, {c['active_clusters_fwd']} / {c['active_clusters_bwd']} active "
+              f"clusters, {c['clusters_per_launch']} clusters per launch, {waves[0]} / {waves[1]} "
+              f"wave(s) (forward / backward)", flush=True)
     pairs = {"lstm": ("lstm_train_fwd", "lstm_train_bwd"), "gru": ("gru_train_fwd", "gru_train_bwd")}
     errs = {name: 0.0 for pair in pairs.values() for name in pair}
     timed = {}
@@ -1561,17 +1593,15 @@ def check_rnn_train_kernels(torch, rnn, real_lengths):
                             raise AssertionError(f"{cell} {label}: nonzero past a row's length")
                     if (got[0][:, lens == 0] != 0).any().item():
                         raise AssertionError(f"{fwd_name} {label}: a length-0 row is not zero")
-                rerun = ""
-                if cell == "lstm":  # the same inputs again: the same bits
-                    same_fwd = all(torch.equal(a, b) for a, b in zip(got, fwd(xp, w_hh, b_hh, lens)))
-                    same_bwd = torch.equal(dx, bwd(*want[1:], w_hh, lens, dhc))
-                    if not (same_fwd and same_bwd):
-                        raise AssertionError(f"{cell} {label}: a second launch gave other bits "
-                                             f"(forward {same_fwd}, backward {same_bwd})")
-                    rerun = "; both repeat bit for bit"
+                # the same inputs again: the same bits
+                same_fwd = all(torch.equal(a, b) for a, b in zip(got, fwd(xp, w_hh, b_hh, lens)))
+                same_bwd = torch.equal(dx, bwd(*want[1:], w_hh, lens, dhc))
+                if not (same_fwd and same_bwd):
+                    raise AssertionError(f"{cell} {label}: a second launch gave other bits "
+                                         f"(forward {same_fwd}, backward {same_bwd})")
                 print(f"  {fwd_name} T={xp.shape[0]} B={xp.shape[2]} {label}: max_abs_err {e_fwd:.3e} "
-                      f"(tol {RNN_TOL}); {bwd_name}: rel err {e_bwd:.3e} (tol {GRAD_TOL}){rerun}",
-                      flush=True)
+                      f"(tol {RNN_TOL}); {bwd_name}: rel err {e_bwd:.3e} (tol {GRAD_TOL}); both "
+                      f"repeat bit for bit", flush=True)
                 errs[fwd_name] = max(errs[fwd_name], e_fwd)
                 errs[bwd_name] = max(errs[bwd_name], e_bwd)
             if errs[fwd_name] > RNN_TOL or errs[bwd_name] > GRAD_TOL:
@@ -1586,7 +1616,7 @@ def check_rnn_train_kernels(torch, rnn, real_lengths):
             bwd_plain_ms = time_ms(lambda: bwd_plain(*res, w_hh, real, dh), iters=2, warmup=1)
             x = torch.randn(seq, RNN_G, RNN_TRAIN_B, RNN_D, generator=g).cuda()
             weights = (u(RNN_G, RNN_D, gates * RNN_H), w_hh, u(RNN_G, gates * RNN_H), b_hh)
-            lib_fwd, lib_fwd_bwd, lib_bwd = _cudnn_train(torch, cell, x, weights)
+            (lib_fwd, lib_fwd_bwd, lib_bwd), lib_spread = _cudnn_train(torch, cell, x, weights)
             # what the Function does around the kernels: the x_proj copy from
             # the projection's [G, B, T, cols] layout, and dW_hh as one product
             src = x_proj.permute(1, 2, 0, 3).contiguous()
@@ -1607,22 +1637,23 @@ def check_rnn_train_kernels(torch, rnn, real_lengths):
             bwd_bytes = 4.0 * (RNN_G * steps * (res_cols + gates * RNN_H) + w_floats
                                + RNN_TRAIN_B + RNN_G * RNN_TRAIN_B * RNN_H)
             tag = "GRU" if cell == "gru" else "LSTM"
-            for name, ms, plain_ms, lib, nbytes in (
-                    (fwd_name, fwd_ms, fwd_plain_ms, lib_fwd, fwd_bytes),
-                    (bwd_name, bwd_ms, bwd_plain_ms, lib_bwd, bwd_bytes)):
-                # the LSTM pair runs 3xTF32 on the tensor cores (both bounds),
-                # the GRU pair on the CUDA cores
+            for name, ms, plain_ms, lib, spread, nbytes in (
+                    (fwd_name, fwd_ms, fwd_plain_ms, lib_fwd, lib_spread[0], fwd_bytes),
+                    (bwd_name, bwd_ms, bwd_plain_ms, lib_bwd, lib_spread[2], bwd_bytes)):
+                # both pairs run 3xTF32 on the tensor cores: both bounds
                 bound_ms, bound_by = bound(flops, nbytes)
-                bound_tc = bound(flops, nbytes, PEAK_3XTF32_FLOPS) if cell == "lstm" else None
+                bound_tc = bound(flops, nbytes, PEAK_3XTF32_FLOPS)
                 bounds = (f"bound_ms={bound_tc[0]:.4f} on 3xTF32 ({bound_tc[1]}), share "
-                          f"{100 * bound_tc[0] / ms:.1f}%; f32 CUDA cores {bound_ms:.4f} ({bound_by})"
-                          if bound_tc else f"bound_ms={bound_ms:.4f} ({bound_by})")
+                          f"{100 * bound_tc[0] / ms:.1f}%; f32 CUDA cores {bound_ms:.4f} ({bound_by})")
                 print(f"  {name} T={seq} B={RNN_TRAIN_B}: ms={ms:.4f} ({ms / seq * 1e3:.3f} us per "
-                      f"step) plain_ms={plain_ms:.4f} cudnn_ms={lib:.4f} (4 nn.{tag} calls over the "
-                      f"full T, {'forward in training mode' if name == fwd_name else 'backward alone'};"
-                      f" forward + backward {lib_fwd_bwd:.4f}) {bounds}; {steps:.0f} valid steps, "
+                      f"step) plain_ms={plain_ms:.4f} cudnn_ms={lib:.4f} (median of {LIB_REPEATS}, "
+                      f"{spread[0]:.4f}-{spread[1]:.4f}; 4 nn.{tag} calls over the full T, "
+                      f"{'forward in training mode' if name == fwd_name else 'backward alone'};"
+                      f" forward + backward {lib_fwd_bwd:.4f}, {lib_spread[1][0]:.4f}-"
+                      f"{lib_spread[1][1]:.4f}) {bounds}; {steps:.0f} valid steps, "
                       f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB", flush=True)
-                timed[(name, seq)] = (ms, plain_ms, lib, bound_ms, bound_by, lib_fwd_bwd, bound_tc)
+                timed[(name, seq)] = (ms, plain_ms, lib, bound_ms, bound_by, lib_fwd_bwd, bound_tc,
+                                      spread)
             print(f"  {tag} T={seq} around the kernels: x_proj copy {copy_ms:.4f} ms "
                   f"({x_proj.numel() * 4 / 1e6:.0f} MB), dW_hh product {dw_ms:.4f} ms", flush=True)
             timed[(cell, seq)] = (copy_ms, dw_ms)
@@ -1631,27 +1662,28 @@ def check_rnn_train_kernels(torch, rnn, real_lengths):
     rows = []
     for name, line in zip(("lstm_train_fwd", "lstm_train_bwd", "gru_train_fwd", "gru_train_bwd"),
                           (34, 90, 343, 399)):
-        ms, plain_ms, lib, bound_ms, bound_by, lib_fwd_bwd, bound_tc = timed[(name, 512)]
+        ms, plain_ms, lib, bound_ms, bound_by, lib_fwd_bwd, bound_tc, spread = timed[(name, 512)]
         cell = name.split("_")[0]
         row = {
             "name": name, "route": "cuda", "source": f"{PKG}/ops/csrc/rnn_train.cu",
             "replaces": f"{TPU_PKG}/ops/pallas_rnn_train.py:{line}",
             "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": lib, "library_fwd_bwd_ms": lib_fwd_bwd,
+            "bound_by": bound_by, "library_ms": lib, "library_ms_spread": list(spread),
+            "library_fwd_bwd_ms": lib_fwd_bwd,
             "shape": [512, RNN_G, RNN_TRAIN_B, RNN_H],
             "x_proj_copy_ms": timed[(cell, 512)][0], "dw_hh_ms": timed[(cell, 512)][1],
             **{f"{key}_t1024": value for key, value in zip(
                 ("ms", "plain_ms", "library_ms", "bound_ms"), timed[(name, 1024)])},
         }
-        if bound_tc:  # on the tensor cores: their bound first, the CUDA cores' beside it
-            row["body"] = f"{PKG}/ops/csrc/rnn_cluster.cuh"
-            row["bound_ms_f32"], row["bound_ms_f32_t1024"] = bound_ms, timed[(name, 1024)][3]
-            row["bound_ms"], row["bound_by"] = bound_tc
-            row["bound_ms_t1024"] = timed[(name, 1024)][6][0]
-            row["bound_share"] = bound_tc[0] / ms
-            row["unit"] = "3xTF32 tensor cores"
-            row["us_per_step"] = ms / 512 * 1e3
-            row["cluster"] = info
+        # on the tensor cores: their bound first, the CUDA cores' beside it
+        row["body"] = f"{PKG}/ops/csrc/rnn_cluster.cuh"
+        row["bound_ms_f32"], row["bound_ms_f32_t1024"] = bound_ms, timed[(name, 1024)][3]
+        row["bound_ms"], row["bound_by"] = bound_tc
+        row["bound_ms_t1024"] = timed[(name, 1024)][6][0]
+        row["bound_share"] = bound_tc[0] / ms
+        row["unit"] = "3xTF32 tensor cores"
+        row["us_per_step"] = ms / 512 * 1e3
+        row["cluster"] = info[cell]
         rows.append(row)
     return rows
 
@@ -2147,6 +2179,126 @@ def grouped_phase(torch, kernels, split, batches, train_idx, default_serve_p50, 
     if not same or not reloaded.grouped_tf_names or not _all_finite(results["history"]):
         raise AssertionError("the grouped checkpoint does not reload to the model it saved")
     return launches
+
+
+# C5: model widths the kernels are not built for -> (the launches of one
+# served request, of one training micro-step) on the routes their widths
+# name. 192: head_dim 48 padded to 64, both residual-LN halves at d_model 256
+# (192 padded, the LayerNorm over 192), the head's H 192; 640: the head at H
+# 640 (K in slabs of 576), head_dim 160 and d_model 640 above the
+# attention's and the layer kernels' widest (plain, with the mask generator)
+C5_WIDTHS = {
+    192: ({"packed_attention_fwd": 4, "fused_hybrid_head": 1},
+          {"packed_attention_fwd": 4, "packed_attention_bwd": 4, "proj_ln_fwd": 4,
+           "proj_ln_bwd": 4, "ffw_ln_fwd": 4, "ffw_ln_bwd": 4, "dropout_keep_mask": 12}),
+    640: ({"fused_hybrid_head": 1}, {"dropout_keep_mask": 12}),
+}
+C5_STEPS = 4  # one optimizer update at accumulation 4
+
+
+C5_LN = (16384, 256, 192, 2048)  # rows, built width, model width, d_ff: hidden 192's micro-step
+C5_HEAD = (4, 64, 640, 25)  # M, B, H, C: hidden 640's served head, K in two slabs
+
+
+def check_c5_kernels(torch):
+    """The kernels the [c5] paths run at widths they are not built for,
+    against their plain versions on the same inputs: both residual-LN pairs
+    at d_model 192 on the width-256 kernels (inputs zero past 192, the
+    LayerNorm over 192, nothing written past it), N 16,384, keep 0.8; the head
+    at H 640 (K in slabs of 576), batch 64, twice bit for bit."""
+    from multimodal_sensor_fusion_with_attention_rajeevatla_torch.ops import fusion, mlp
+
+    n, d, dv, f = C5_LN
+    w, (fmask, rmask) = _ln_case(torch, n, d, f, 0.8, seed=dv)
+    cut = (torch.arange(d) < dv).float().cuda()
+
+    def v(*shape, s=1.0):  # zero past dv along every axis of width d
+        t = w(*shape, s=s)
+        for axis, size in enumerate(shape):
+            if size == d:
+                t = t * cut.reshape([-1 if i == axis else 1 for i in range(len(shape))])
+        return t.contiguous()
+
+    x, dout = v(n, d), v(n, d)
+    gamma, beta = ((1 + w(d, s=0.1)) * cut).contiguous(), v(d, s=0.1)
+    inv_keep = mlp._inv_keep(0.8)
+    proj = (x, v(n, d), v(d, d, s=dv**-0.5), v(d, s=0.1), gamma, beta, rmask)
+    out = mlp.proj_ln_fwd(*proj, inv_keep, 1e-6, d_valid=dv)
+    grads = mlp.proj_ln_bwd(*proj, dout, inv_keep, 1e-6, d_valid=dv)
+    torch.cuda.synchronize()
+    errs = {"proj_ln_fwd": rel_err(out, mlp.proj_ln_fwd_reference(*proj, inv_keep, 1e-6, dv)),
+            "proj_ln_bwd": max(rel_err(g, r) for g, r in zip(
+                grads, mlp.proj_ln_bwd_reference(*proj, dout, inv_keep, 1e-6, dv)))}
+    past = [out[:, dv:], grads[0][:, dv:]]
+    ffw = (x, v(d, f, s=dv**-0.5), w(f, s=0.1), v(f, d, s=f**-0.5), v(d, s=0.1), gamma, beta,
+           fmask, rmask)
+    out = mlp.ffw_ln_fwd(*ffw, inv_keep, 1e-6, d_valid=dv)
+    torch.cuda.synchronize()
+    errs["ffw_ln_fwd"] = rel_err(out, mlp.ffw_ln_fwd_reference(*ffw, inv_keep, 1e-6, dv))
+    errs["ffw_ln_bwd"], flips, _own = _ffw_ln_bwd_check(torch, mlp, ffw, dout, inv_keep, dv)
+    past.append(out[:, dv:])
+    print(f"  residual-LN kernels at d_model {dv} on width {d}, N={n} keep=0.8: rel err "
+          + ", ".join(f"{k} {e:.3e}" for k, e in errs.items())
+          + f" (tol {GRAD_TOL}; {flips} ReLU branches off the twin's, within rounding of zero); "
+          f"zero past column {dv}: {all(bool(torch.all(t == 0)) for t in past)}", flush=True)
+    if max(errs.values()) > GRAD_TOL or not all(bool(torch.all(t == 0)) for t in past):
+        raise AssertionError(f"residual-LN kernels at a padded width: {errs}")
+    num_mod, batch, hidden, classes = C5_HEAD
+    g = torch.Generator().manual_seed(hidden)
+
+    def h(*shape, s=0.06):
+        return (torch.randn(*shape, generator=g) * s).cuda()
+
+    pairs = [(q, k) for q in range(num_mod) for k in range(num_mod) if q != k]
+    projected = torch.relu(h(num_mod, batch, hidden, s=1.0))
+    mask = (torch.rand(batch, num_mod, generator=g) > 0.4).float().cuda()
+    mask[0] = 0.0
+    args = ({"value_kernel": h(len(pairs), hidden, hidden), "value_bias": h(len(pairs), hidden),
+             "out_kernel": h(len(pairs), hidden, hidden), "out_bias": h(len(pairs), hidden)},
+            h(num_mod, hidden), h(num_mod), h(hidden, hidden), h(hidden), h(hidden, classes),
+            h(classes), pairs)
+    first = fusion.fused_hybrid_head(projected, mask, *args)
+    second = fusion.fused_hybrid_head(projected, mask, *args)
+    torch.cuda.synchronize()
+    err = (first - fusion.fused_hybrid_head_reference(projected, mask, *args)).abs().max().item()
+    print(f"  fused_hybrid_head at H {hidden} (K in slabs), B={batch}: max_abs_err={err:.3e} "
+          f"(tol {HEAD_TOL}); two runs equal bit for bit: {torch.equal(first, second)}",
+          flush=True)
+    if err > HEAD_TOL or not torch.equal(first, second):
+        raise AssertionError(f"fused head at H {hidden}: {err} > {HEAD_TOL} or not repeated")
+
+
+def c5_phase(torch, kernels, split, batches, train_idx, smi):
+    """base.yaml at ``model.hidden_dim`` 192 and 640 on the card: the route
+    each kernel family takes at those widths (printed), batch-64 requests
+    served against the plain path and 4 training micro-steps (one against
+    the plain path, the same seed twice bit for bit), each with the launch
+    counts its routes name. Returns the launches by path."""
+    from multimodal_sensor_fusion_with_attention_rajeevatla_torch.ops import attention as attn
+    from multimodal_sensor_fusion_with_attention_rajeevatla_torch.ops import mlp
+
+    print("[c5]", flush=True)
+    check_c5_kernels(torch)
+    idx64 = [torch.from_numpy(row).long() for row in batches]
+    idx32 = [torch.from_numpy(row).long() for row in train_idx]
+    out = {}
+    for hidden, (serve_want, step_want) in C5_WIDTHS.items():
+        label = f"hidden_dim={hidden}"
+        head_dim = hidden // 4  # base.yaml's 4 heads
+        print(f"  {label}: attention at head_dim {head_dim}: {attn.attention_route(head_dim)} "
+              f"(kernel head_dim {attn.kernel_head_dim(head_dim)}); residual-LN halves and "
+              f"fused_mlp at d_model {hidden}: {mlp.mlp_route(hidden)} (kernel width "
+              f"{mlp.kernel_width(hidden)}, LayerNorm over {hidden}, d_ff "
+              f"{mlp.ffw_width(2048)}); head at H {hidden}: kernel", flush=True)
+        overrides = [f"model.hidden_dim={hidden}"]
+        out[f"serve{hidden}"], model, _p50 = serve_vs_plain(
+            torch, kernels, overrides, split, idx64, label, smi, serve_want, timed=6)
+        del model
+        out[f"train{hidden}"] = train_route(
+            torch, kernels, overrides, split, idx32, label, smi,
+            step_want, steps=C5_STEPS, profile_steps=2)
+        torch.cuda.empty_cache()
+    return out
 
 
 RNN_TRAIN_STEPS = 8
@@ -2838,6 +2990,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         rnn_launches = rnn_phase(torch, kernels, split, modalities, stride, int(cfg.seed), smi,
                                  Path(tmp))
+    # ---- 10. model widths the kernels are not built for (C5) -------------------
+    c5_launches = c5_phase(torch, kernels, split, idx_matrix, train_idx, smi)
     rnn_paths = {  # the path each recurrence kernel runs on
         "grouped_lstm_forward": rnn_launches["forward_lstm512"],
         "grouped_lstm_fused": rnn_launches["serve_lstm512"],
@@ -2875,6 +3029,7 @@ def main() -> int:
         row["train_launches"] = train_launches[name]
         row["fit_launches"] = fit_launches[name]
         row["eval_launches"] = eval_launches[name]
+        row["c5_launches"] = {k: v[name] for k, v in c5_launches.items()}
         if row["launches"] <= 0:
             raise AssertionError(f"kernel {name} was not launched on its main path")
     print(f"[done] {time.perf_counter() - t0:.1f} s", flush=True)

@@ -27,7 +27,12 @@ generator. There is no dropout on the attention probabilities. With
 halves through ``ops.mlp.fused_proj_residual_ln`` and
 ``fused_mlp_residual_ln``; with ``fused_mlp_ln`` off the feed-forward runs
 through ``ops.mlp.transformer_ffw``'s kernel pair; eval keeps the plain path,
-as the reference does.
+as the reference does. Each kernel family is taken where its route names it
+at the layer's widths (``ops.attention.attention_route`` on head_dim,
+``ops.mlp.mlp_route`` on d_model); a width between the built ones runs on
+the kernels padded with zero columns, and a head_dim above 128 or a d_model
+above 256 (wider than a block of those kernels holds) takes the plain path.
+The reference's kernels take any width; the routes keep the same function.
 
 Linear layers are ``nn.Linear`` (weight ``[out, in]``); ``models.module``
 initialises them like flax (lecun-normal kernels, zero biases).
@@ -54,7 +59,12 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from ..ops.attention import flash_mha_packed, flash_self_attention, packed_route_ok
+from ..ops.attention import (
+    attention_route,
+    flash_mha_packed,
+    flash_self_attention,
+    packed_route_ok,
+)
 from ..ops.masked import lengths_to_mask, masked_mean_pool, masked_softmax
 from ..ops.rnn import rnn_scan
 from ..ops.mlp import (
@@ -66,6 +76,7 @@ from ..ops.mlp import (
     fused_proj_residual_ln,
     kernel_rng_seed,
     ln_rows,
+    mlp_route,
     transformer_ffw,
 )
 
@@ -185,7 +196,7 @@ class TransformerEncoderLayer(nn.Module):
         b_qkv = torch.cat([self.q_proj.bias, self.k_proj.bias, self.v_proj.bias], 0)
         qkv = F.linear(x, w_qkv, b_qkv)  # [B, T, 3H]
         qkv5 = qkv.reshape(batch, seq_len, 3, self.num_heads, head_dim)
-        if self.use_flash:
+        if self.use_flash and attention_route(head_dim) == "kernel":
             # suffix padding -> the valid keys are a prefix; mask == lengths
             lengths = (
                 key_padding_mask.sum(dim=-1).to(torch.int32)
@@ -214,7 +225,8 @@ class TransformerEncoderLayer(nn.Module):
     ) -> torch.Tensor:
         batch, seq_len, hidden = x.shape
         rows = batch * seq_len
-        fused = self.use_fused_mlp and self.use_fused_mlp_ln and train
+        kernels = self.use_fused_mlp and train and mlp_route(hidden) == "kernel"
+        fused = kernels and self.use_fused_mlp_ln
         keep_prob = 1.0 - self.dropout
         drop = train and self.dropout > 0.0
         source = resolve_dropout_rng(
@@ -256,10 +268,10 @@ class TransformerEncoderLayer(nn.Module):
                 self.linear2.weight.t(), self.linear2.bias, self.norm2.weight,
                 self.norm2.bias, ffw_mask=ffw_mask, res_mask=res_mask, keep_prob=keep_prob,
             ).reshape(batch, seq_len, hidden)
-        if self.use_fused_mlp and train:
-            # fused_mlp without the combined LayerNorm kernel: the feed-forward
-            # kernel pair, then the plain residual half (eval stays plain, the
-            # reference's measured choice)
+        if kernels:
+            # fused_mlp without the combined LayerNorm kernel: the
+            # feed-forward kernel pair, then the plain residual half (eval
+            # stays plain, the reference's measured choice)
             ff = transformer_ffw(
                 x, {"kernel": self.linear1.weight.t(), "bias": self.linear1.bias},
                 {"kernel": self.linear2.weight.t(), "bias": self.linear2.bias},

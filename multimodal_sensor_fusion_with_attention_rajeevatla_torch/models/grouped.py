@@ -42,7 +42,7 @@ from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
-from ..ops.attention import flash_self_attention
+from ..ops.attention import attention_route, flash_self_attention
 from ..ops.masked import lengths_to_mask, masked_mean_pool, masked_softmax
 from ..ops.mlp import (
     RNG_P_ATT,
@@ -250,7 +250,7 @@ class GroupedTransformerEncoder(nn.Module):
         w_qkv = torch.cat([getattr(self, f"{n}_proj_l{layer}_kernel") for n in "qkv"], dim=2)
         b_qkv = torch.cat([getattr(self, f"{n}_proj_l{layer}_bias") for n in "qkv"], dim=1)
         qkv = grouped_dense(x, w_qkv, b_qkv).reshape(groups, batch, seq_len, 3, heads, head_dim)
-        if self.use_flash:
+        if self.use_flash and attention_route(head_dim) == "kernel":
             # fold the group axis into the batch: one launch for the whole group
             q, k, v = (
                 qkv[:, :, :, i].reshape(groups * batch, seq_len, heads, head_dim).transpose(1, 2)

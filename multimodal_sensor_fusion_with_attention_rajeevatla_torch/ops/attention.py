@@ -81,11 +81,36 @@ PACKED_MAX_LEN = 512
 KERNEL_HEAD_DIMS = (16, 32, 64, 128)
 
 
+def kernel_head_dim(head_dim: int) -> Optional[int]:
+    """The head_dim the attention kernels compute ``head_dim`` at: the least
+    of ``KERNEL_HEAD_DIMS`` not below it, or None above the largest.
+    ``flash_mha_packed`` and ``flash_self_attention`` pad q, k and v with zero
+    columns up to it and drop the extra output columns: a zero column adds an
+    exact zero to every score and every other output column, and the softmax
+    scale stays the true head_dim's, so the function is the same."""
+    return next((d for d in KERNEL_HEAD_DIMS if d >= head_dim), None) if head_dim > 0 else None
+
+
+def attention_route(head_dim: int) -> str:
+    """The path a layer's attention takes at ``head_dim`` with the attention
+    kernels on: ``"kernel"`` (the packed or flash kernels, at
+    ``kernel_head_dim``) or ``"plain"`` (the layer's own softmax: a head_dim
+    above the kernels' largest). A plain function of the width, decided
+    before any launch."""
+    return "plain" if kernel_head_dim(head_dim) is None else "kernel"
+
+
 def packed_route_ok(seq_len: int, num_heads: int, head_dim: int) -> bool:
-    """True when the packed kernel takes this shape (padded T <= 512)."""
+    """True when the packed kernel takes this shape (padded T <= 512; any
+    head_dim ``attention_route`` sends to the kernels)."""
     del num_heads, head_dim  # the route depends on the sequence length only
     padded = ((seq_len + 7) // 8) * 8
     return padded <= PACKED_MAX_LEN
+
+
+def _pad_head_dim(x: torch.Tensor, head_dim: int, width: int) -> torch.Tensor:
+    """``[..., head_dim]`` -> ``[..., width]`` with zero columns."""
+    return torch.nn.functional.pad(x, (0, width - head_dim)) if width != head_dim else x
 
 
 def _check_packed(qkv: torch.Tensor, lengths: torch.Tensor, num_heads: int) -> int:
@@ -337,7 +362,9 @@ def flash_mha_packed(
     Same contract as the reference's ``flash_mha_packed``: T is padded to a
     multiple of 8 (padded key columns are masked through ``lengths``),
     ``lengths=None`` means every key is valid, and ``sm_scale`` defaults to
-    ``head_dim ** -0.5``.
+    ``head_dim ** -0.5``. A head_dim the kernels are not built for is padded
+    with zero columns up to ``kernel_head_dim`` (the same function); one above
+    ``KERNEL_HEAD_DIMS``' largest raises on the card.
     """
     batch, seq_len = qkv.shape[:2]
     if lengths is None:
@@ -345,13 +372,21 @@ def flash_mha_packed(
     head_dim = _check_packed(qkv, lengths, num_heads)
     if sm_scale is None:
         sm_scale = head_dim**-0.5
+    width = kernel_head_dim(head_dim) or head_dim
+    if width != head_dim:  # zero columns up to the kernels' next head_dim
+        qkv = _pad_head_dim(qkv.reshape(batch, seq_len, 3, num_heads, head_dim), head_dim,
+                            width).reshape(batch, seq_len, 3 * num_heads * width)
     pad = (-seq_len) % 8
     if pad:
         qkv = torch.nn.functional.pad(qkv, (0, 0, 0, pad))
     out = PackedAttention.apply(
         qkv.float().contiguous(), lengths.to(torch.int32).contiguous(), num_heads, float(sm_scale)
     )
-    return out[:, :seq_len] if pad else out
+    out = out[:, :seq_len] if pad else out
+    if width != head_dim:
+        out = out.reshape(batch, seq_len, num_heads, width)[..., :head_dim].reshape(
+            batch, seq_len, num_heads * head_dim)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -721,8 +756,9 @@ def flash_self_attention(
     every length); ``lengths=None`` means all T keys; ``sm_scale`` defaults to
     ``d ** -0.5``; the padded length picks the routes (``flash_routes``). The
     kernels use their own 64-wide tiles whatever the blocks are; the blocks
-    decide padding and routing only, and on the card ``d`` must be one of
-    ``KERNEL_HEAD_DIMS`` (``ValueError`` otherwise).
+    decide padding and routing only. A ``d`` the kernels are not built for is
+    padded with zero columns up to ``kernel_head_dim`` (the same function);
+    one above ``KERNEL_HEAD_DIMS``' largest raises ``ValueError`` on the card.
     """
     if q.dim() != 4:
         raise ValueError(f"q must be [B, H, T, d], got shape {tuple(q.shape)}")
@@ -747,8 +783,11 @@ def flash_self_attention(
         q, k, v = (torch.nn.functional.pad(t, (0, 0, 0, pad)) for t in (q, k, v))
     padded_len = seq_len + pad
     routes = flash_routes(padded_len, block_q, block_k, single_k_max, fused_bwd_max)
-    flat = [t.float().reshape(batch * heads, padded_len, head_dim).contiguous() for t in (q, k, v)]
+    width = kernel_head_dim(head_dim) or head_dim  # zero columns up to the kernels' next
+    flat = [_pad_head_dim(t.float(), head_dim, width).reshape(batch * heads, padded_len, width)
+            .contiguous() for t in (q, k, v)]
     out = FlashAttention.apply(
         *flat, lengths.to(torch.int32).contiguous(), heads, float(sm_scale), routes, block_k
-    ).reshape(batch, heads, padded_len, head_dim)
-    return out[:, :, :seq_len] if pad else out
+    ).reshape(batch, heads, padded_len, width)
+    out = out[:, :, :seq_len] if pad else out
+    return out[..., :head_dim] if width != head_dim else out

@@ -76,9 +76,9 @@ ffw_ln_fwd_kernel(const float* __restrict__ hd, const float* __restrict__ w2,
                   const float* __restrict__ b2, const float* __restrict__ x,
                   const float* __restrict__ gamma, const float* __restrict__ beta,
                   const unsigned char* __restrict__ rmask, float* __restrict__ out, int N, int F,
-                  float inv_keep, float eps) {
+                  int Dv, float inv_keep, float eps) {
   extern __shared__ __align__(16) float smem[];
-  ln_fwd_tile<D>(hd, F, w2, b2, x, gamma, beta, rmask, out, N, inv_keep, eps, smem);
+  ln_fwd_tile<D>(hd, F, w2, b2, x, gamma, beta, rmask, out, N, inv_keep, eps, Dv, smem);
 }
 
 // y = hd W2 + b2 for 64 whole rows, then the LayerNorm backward: dr (into
@@ -90,10 +90,10 @@ ffw_ln_bwd_ln_kernel(const float* __restrict__ hd, const float* __restrict__ w2,
                      const float* __restrict__ gamma, const unsigned char* __restrict__ rmask,
                      const float* __restrict__ dout, float* __restrict__ dr_out,
                      float* __restrict__ dy_out, float* __restrict__ part, int N, int F,
-                     float inv_keep, float eps) {
+                     int Dv, float inv_keep, float eps) {
   extern __shared__ __align__(16) float smem[];
   ln_bwd_tile<D>(hd, F, w2, b2, x, gamma, rmask, dout, dr_out, dy_out, part, N, inv_keep, eps,
-                 smem);
+                 Dv, smem);
 }
 
 // dpre = (hd > 0) * (dy W2^T) * fmask * inv_keep for a 128-row x 64-column
@@ -154,13 +154,13 @@ template <int D>
 int launch_fwd(const float* x, const float* w1, const float* b1, const float* w2,
                const float* b2, const float* gamma, const float* beta,
                const unsigned char* fmask, const unsigned char* rmask, float* out, float* hd,
-               int N, int F, float inv_keep, float eps, cudaStream_t s) {
+               int N, int Dv, int F, float inv_keep, float eps, cudaStream_t s) {
   constexpr int kLnFloats = ln_smem_floats<D>();
   MSFA_TRY(allow_smem(ffw_ln_fwd_kernel<D>, kLnFloats));
   MSFA_TRY(launch_hidden(x, w1, b1, fmask, hd, N, D, F, inv_keep, s));
   ffw_ln_fwd_kernel<D><<<(N + kRowsD - 1) / kRowsD, LnProduct<D>::kThreads,
                          kLnFloats * (int)sizeof(float), s>>>(
-      hd, w2, b2, x, gamma, beta, rmask, out, N, F, inv_keep, eps);
+      hd, w2, b2, x, gamma, beta, rmask, out, N, F, Dv, inv_keep, eps);
   MSFA_TRY(cudaGetLastError());
   return 0;
 }
@@ -170,8 +170,8 @@ int launch_bwd(const float* x, const float* w1, const float* b1, const float* w2
                const float* b2, const float* gamma, const unsigned char* fmask,
                const unsigned char* rmask, const float* dout, float* dx, float* dw1,
                float* db1, float* dw2, float* sums, float* hd, float* dpre, float* dy,
-               float* ln_part, float* db1_part, float* dw_part, int N, int F, int splits,
-               float inv_keep, float eps, cudaStream_t s) {
+               float* ln_part, float* db1_part, float* dw_part, int N, int Dv, int F,
+               int splits, float inv_keep, float eps, cudaStream_t s) {
   constexpr int kLnFloats = ln_smem_floats<D>();
   MSFA_TRY(allow_smem(ffw_ln_bwd_ln_kernel<D>, kLnFloats));
   MSFA_TRY(allow_smem(ffw_ln_bwd_dpre_kernel, DhdProduct::kSmemFloats));
@@ -183,7 +183,7 @@ int launch_bwd(const float* x, const float* w1, const float* b1, const float* w2
 
   MSFA_TRY(launch_hidden(x, w1, b1, fmask, hd, N, D, F, inv_keep, s));
   ffw_ln_bwd_ln_kernel<D><<<row_tiles_d, LnProduct<D>::kThreads, kLnFloats * fb, s>>>(
-      hd, w2, b2, x, gamma, rmask, dout, dx, dy, ln_part, N, F, inv_keep, eps);
+      hd, w2, b2, x, gamma, rmask, dout, dx, dy, ln_part, N, F, Dv, inv_keep, eps);
   MSFA_TRY(cudaGetLastError());
   ffw_ln_bwd_dpre_kernel<<<grid_f, DhdProduct::kThreads, DhdProduct::kSmemFloats * fb, s>>>(
       dy, w2, hd, fmask, dpre, db1_part, N, D, F, inv_keep);
@@ -213,17 +213,20 @@ int launch_bwd(const float* x, const float* w1, const float* b1, const float* w2
 
 extern "C" {
 
-// Widths the kernels are instantiated for (D); F must be a multiple of 64.
-// The wrapper checks both before calling. Scratch: hd [N, F], which holds the
-// hidden on return.
+// Widths the kernels are instantiated for (D); the LayerNorm's statistics
+// over the first Dv columns (0 < Dv <= D; x, w1's rows, w2's columns, b2,
+// gamma and beta zero past Dv); F must be a multiple of 64. The wrapper
+// checks before calling. Scratch: hd [N, F], which holds the hidden on return.
 int msfa_ffw_ln_fwd(const float* x, const float* w1, const float* b1, const float* w2,
                     const float* b2, const float* gamma, const float* beta,
                     const unsigned char* fmask, const unsigned char* rmask, float* out,
-                    float* hd, int N, int D, int F, float inv_keep, float eps, void* stream) {
-  if (N <= 0 || F <= 0 || F % kColsF != 0) return (int)cudaErrorInvalidValue;
+                    float* hd, int N, int D, int Dv, int F, float inv_keep, float eps,
+                    void* stream) {
+  if (N <= 0 || F <= 0 || F % kColsF != 0 || Dv <= 0 || Dv > D)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define MSFA_FFW_FWD(W) \
-  launch_fwd<W>(x, w1, b1, w2, b2, gamma, beta, fmask, rmask, out, hd, N, F, inv_keep, eps, s)
+  launch_fwd<W>(x, w1, b1, w2, b2, gamma, beta, fmask, rmask, out, hd, N, Dv, F, inv_keep, eps, s)
   switch (D) {
     case 32: return MSFA_FFW_FWD(32);
     case 64: return MSFA_FFW_FWD(64);
@@ -234,20 +237,21 @@ int msfa_ffw_ln_fwd(const float* x, const float* w1, const float* b1, const floa
 #undef MSFA_FFW_FWD
 }
 
-// sums [3, D] receives dgamma | dbeta | db2. Scratch: hd, dpre [N, F], dy [N, D],
-// ln_part [ceil(N/64), 3, D], db1_part [ceil(N/128), F], dw_part [splits, D * F];
-// hd holds the hidden on return.
+// sums [3, D] receives dgamma | dbeta | db2; dx is 0 past Dv. Scratch: hd,
+// dpre [N, F], dy [N, D], ln_part [ceil(N/64), 3, D], db1_part [ceil(N/128), F],
+// dw_part [splits, D * F]; hd holds the hidden on return.
 int msfa_ffw_ln_bwd(const float* x, const float* w1, const float* b1, const float* w2,
                     const float* b2, const float* gamma, const unsigned char* fmask,
                     const unsigned char* rmask, const float* dout, float* dx, float* dw1,
                     float* db1, float* dw2, float* sums, float* hd, float* dpre, float* dy,
-                    float* ln_part, float* db1_part, float* dw_part, int N, int D, int F,
-                    int splits, float inv_keep, float eps, void* stream) {
-  if (N <= 0 || F <= 0 || F % kColsF != 0 || splits <= 0) return (int)cudaErrorInvalidValue;
+                    float* ln_part, float* db1_part, float* dw_part, int N, int D, int Dv,
+                    int F, int splits, float inv_keep, float eps, void* stream) {
+  if (N <= 0 || F <= 0 || F % kColsF != 0 || splits <= 0 || Dv <= 0 || Dv > D)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define MSFA_FFW_BWD(W)                                                                  \
   launch_bwd<W>(x, w1, b1, w2, b2, gamma, fmask, rmask, dout, dx, dw1, db1, dw2, sums,  \
-                hd, dpre, dy, ln_part, db1_part, dw_part, N, F, splits, inv_keep, eps, s)
+                hd, dpre, dy, ln_part, db1_part, dw_part, N, Dv, F, splits, inv_keep, eps, s)
   switch (D) {
     case 32: return MSFA_FFW_BWD(32);
     case 64: return MSFA_FFW_BWD(64);

@@ -27,14 +27,21 @@
 //     64-row batch tile, and no SM takes in more than ~100 KB. The block
 //     stages all of its operands (K = H) into shared memory at once by
 //     cp.async, weights first, then multiplies with no barrier between
-//     chunks, two 32-deep chunks at a time (independent accumulator chains);
+//     chunks, two 32-deep chunks at a time (independent accumulator chains).
+//     Above H = 576 (what one block's shared memory holds) K comes in slabs
+//     of 576, a barrier between slabs; the chunks are added in the same
+//     order either way;
 //   - each launch after the first is a programmatic dependent launch: every
 //     kernel lets the next one start as soon as all its blocks run, and the
 //     next stages what does not depend on its predecessor (the weights, the
 //     masks, the embeddings) before it waits (griddepcontrol.wait) for the
 //     predecessor's output, so the launches and the weight loads overlap;
 //   - the gate takes a batch row a block, every warp staging, and the biases
-//     and masks of an epilogue are read before the product.
+//     and masks of an epilogue are read before the product. Where a gate
+//     row's operands ((M^2 + M) H floats) or the logits block's (4 H + H C)
+//     exceed a block's shared memory, that kernel reads them from device
+//     memory instead, in the same order: the head takes any M >= 2, H (a
+//     multiple of 4) and C.
 //
 // Five launches on one stream:
 //   pairs:   v_p = e_k Wv_p + bv_p for every pair, into scratch [P, B, H];
@@ -70,6 +77,8 @@ constexpr int kPairRows = 64;     // batch rows of a pair product block: 8 warps
 constexpr int kHiddenRows = 32;   // batch rows of a hidden product block: 4 warps
 constexpr int kRowsL = 4;         // rows of a logits block
 constexpr int kThreadsG = 256;
+constexpr int kSmemFloats = 227 * 1024 / 4;  // a block's shared memory on the H100
+constexpr int kSlabK = 576;  // K of a pair product block's staged slab: fills kSmemFloats
 
 // The next kernel on the stream may launch (programmatic dependent launch).
 __device__ __forceinline__ void launch_dependents() {
@@ -89,10 +98,13 @@ __host__ __device__ inline int padded_k(int H) {
   return (H + kPair - 1) / kPair * kPair;
 }
 
-// A product block's shared memory: A [rows][Kp + 8] (k along the row), W
-// [Kp][kCols + 4] (k down the column)
+// K of one staged slab: all of Kp up to kSlabK
+__host__ __device__ inline int slab_k(int H) { return min(padded_k(H), kSlabK); }
+
+// A product block's shared memory: A [rows][slab + 8] (k along the row), W
+// [slab][kCols + 4] (k down the column)
 __host__ __device__ inline int product_smem_floats(int rows, int H) {
-  return rows * (padded_k(H) + tc::kRowKPad) + padded_k(H) * (kCols + tc::kPad);
+  return rows * (slab_k(H) + tc::kRowKPad) + slab_k(H) * (kCols + tc::kPad);
 }
 
 __host__ __device__ constexpr int product_threads(int rows) { return rows / 16 * 2 * 32; }
@@ -128,8 +140,9 @@ __device__ __forceinline__ void chunk_product(const float* As, int lda, const fl
 // whose key column `key` is masked gets the bias alone (attention weight 0:
 // the out-projection sees zeros and leaves its bias). W, the bias and the
 // mask are read before the wait for the predecessor; A, which it may have
-// written, after.
-template <int kRows, bool kRelu>
+// written, after. kSlabs (H above kSlabK): K staged in slabs of kSlabK, a
+// separate instantiation so that the one-slab product keeps its registers.
+template <int kRows, bool kRelu, bool kSlabs>
 __device__ __forceinline__ void product_tile(const float* __restrict__ A,
                                              const float* __restrict__ W,
                                              const float* __restrict__ bias,
@@ -139,16 +152,30 @@ __device__ __forceinline__ void product_tile(const float* __restrict__ A,
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
   constexpr int kThreads = product_threads(kRows);
-  const int Kp = padded_k(H), lda = Kp + tc::kRowKPad, ldw = kCols + tc::kPad;
+  const int Kp = padded_k(H), Ks = kSlabs ? kSlabK : Kp;  // slab_k(H)
+  const int lda = Ks + tc::kRowKPad, ldw = kCols + tc::kPad;
   float* As = smem;
   float* Ws = smem + kRows * lda;
   constexpr int kQuads = kCols / 4;
-  for (int i = tid; i < Kp * kQuads; i += kThreads) {
-    const int k = i / kQuads, c = i % kQuads * 4;
-    const bool ok = k < H && n0 + c < H;
-    tc::cp_async16(Ws + k * ldw + c, ok ? W + (long)k * H + n0 + c : W, ok);
-  }
-  tc::cp_async_commit();
+  // rows [s0, s0 + Ks) of W into Ws, and of A's columns into As
+  auto stage_w = [&](int s0) {
+    for (int i = tid; i < Ks * kQuads; i += kThreads) {
+      const int k = s0 + i / kQuads, c = i % kQuads * 4;
+      const bool ok = k < H && n0 + c < H;
+      tc::cp_async16(Ws + (k - s0) * ldw + c, ok ? W + (long)k * H + n0 + c : W, ok);
+    }
+    tc::cp_async_commit();
+  };
+  auto stage_a = [&](int s0) {
+    const int quads = Ks / 4;
+    for (int i = tid; i < kRows * quads; i += kThreads) {
+      const int r = i / quads, k = s0 + i % quads * 4;
+      const bool ok = b0 + r < B && k < H;
+      tc::cp_async16(As + r * lda + k - s0, ok ? A + (long)(b0 + r) * H + k : A, ok);
+    }
+    tc::cp_async_commit();
+  };
+  stage_w(0);
   // this thread's rows 16 (w / 2) + g, + 8 and columns 16 (w % 2) + 8 j + 2 t, + 1
   const int m0 = warp / 2 * 16, c0 = warp % 2 * 16;
   float bv[2][2];
@@ -166,24 +193,31 @@ __device__ __forceinline__ void product_tile(const float* __restrict__ A,
     kept[h] = !key_mask || (b < B && key_mask[(long)b * M + key] > 0.f);
   }
   wait_for_predecessor();
-  const int quads = Kp / 4;
-  for (int i = tid; i < kRows * quads; i += kThreads) {
-    const int r = i / quads, k = i % quads * 4;
-    const bool ok = b0 + r < B && k < H;
-    tc::cp_async16(As + r * lda + k, ok ? A + (long)(b0 + r) * H + k : A, ok);
-  }
-  tc::cp_async_commit();
+  stage_a(0);
   tc::cp_async_wait<0>();
   __syncthreads();
   float acc[2][4] = {};
-  for (int k0 = 0; k0 < Kp; k0 += 2 * tc::kProdK) {  // two independent chains
-    float p0[2][4], p1[2][4];
-    chunk_product(As, lda, Ws, m0, c0, k0, g, t, p0);
-    chunk_product(As, lda, Ws, m0, c0, k0 + tc::kProdK, g, t, p1);
+  auto multiply = [&](int k_len) {  // the staged slab's first k_len
+    for (int k0 = 0; k0 < k_len; k0 += 2 * tc::kProdK) {  // two independent chains
+      float p0[2][4], p1[2][4];
+      chunk_product(As, lda, Ws, m0, c0, k0, g, t, p0);
+      chunk_product(As, lda, Ws, m0, c0, k0 + tc::kProdK, g, t, p1);
 #pragma unroll
-    for (int j = 0; j < 2; ++j)
+      for (int j = 0; j < 2; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[j][e] = acc[j][e] + p0[j][e] + p1[j][e];
+        for (int e = 0; e < 4; ++e) acc[j][e] = acc[j][e] + p0[j][e] + p1[j][e];
+    }
+  };
+  multiply(Ks);
+  if constexpr (kSlabs) {
+    for (int s0 = Ks; s0 < Kp; s0 += Ks) {
+      __syncthreads();  // every warp is done with the last slab
+      stage_w(s0);
+      stage_a(s0);
+      tc::cp_async_wait<0>();
+      __syncthreads();
+      multiply(min(Ks, Kp - s0));
+    }
   }
 #pragma unroll
   for (int j = 0; j < 2; ++j)
@@ -198,6 +232,7 @@ __device__ __forceinline__ void product_tile(const float* __restrict__ A,
 }
 
 // v_p = e_k(p) Wv_p + bv_p; blockIdx = (pair, column tile, batch tile)
+template <bool kSlabs>
 __global__ void __launch_bounds__(product_threads(kPairRows))
 fusion_head_pairs_kernel(const float* __restrict__ e, const float* __restrict__ wv,
                          const float* __restrict__ bv, float* __restrict__ v, int M, int B,
@@ -205,12 +240,13 @@ fusion_head_pairs_kernel(const float* __restrict__ e, const float* __restrict__ 
   extern __shared__ __align__(16) float smem[];
   launch_dependents();
   const long p = blockIdx.x;
-  product_tile<kPairRows, false>(e + (long)key_of(p, M) * B * H, wv + p * H * H, bv + p * H,
-                                 nullptr, 0, M, v + p * B * H, B, H, blockIdx.z * kPairRows,
-                                 blockIdx.y * kCols, smem);
+  product_tile<kPairRows, false, kSlabs>(e + (long)key_of(p, M) * B * H, wv + p * H * H,
+                                         bv + p * H, nullptr, 0, M, v + p * B * H, B, H,
+                                         blockIdx.z * kPairRows, blockIdx.y * kCols, smem);
 }
 
 // att_p = v_p Wo_p + bo_p, or bo_p where key k(p) is masked
+template <bool kSlabs>
 __global__ void __launch_bounds__(product_threads(kPairRows))
 fusion_head_att_kernel(const float* __restrict__ v, const float* __restrict__ mask,
                        const float* __restrict__ wo, const float* __restrict__ bo,
@@ -218,9 +254,9 @@ fusion_head_att_kernel(const float* __restrict__ v, const float* __restrict__ ma
   extern __shared__ __align__(16) float smem[];
   launch_dependents();
   const long p = blockIdx.x;
-  product_tile<kPairRows, false>(v + p * B * H, wo + p * H * H, bo + p * H, mask, key_of(p, M),
-                                 M, att + p * B * H, B, H, blockIdx.z * kPairRows,
-                                 blockIdx.y * kCols, smem);
+  product_tile<kPairRows, false, kSlabs>(v + p * B * H, wo + p * H * H, bo + p * H, mask,
+                                         key_of(p, M), M, att + p * B * H, B, H,
+                                         blockIdx.z * kPairRows, blockIdx.y * kCols, smem);
 }
 
 int gate_smem_floats(int M, int H) {
@@ -231,9 +267,12 @@ int gate_smem_floats(int M, int H) {
 // For batch row b = blockIdx.x: agg_q = (e_q + the att_p of q's pairs, in
 // query-major order) / M * mask_q; the gate scores agg_q . wg_q + bg_q; the
 // adaptive gate weights w; fused = sum_q w_q agg_q. A row a block, so that
-// each SM has little to take in; every operand staged into shared memory by
-// cp.async first, the embeddings, wg and the mask before the wait for the att
-// kernel.
+// each SM has little to take in. kStaged: every operand staged into shared
+// memory by cp.async first, the embeddings, wg and the mask before the wait
+// for the att kernel, and agg computed in place; else (a row's operands
+// exceed a block's shared memory) only the mask and the gate there, and agg
+// recomputed from device memory where it is read, in the same order.
+template <bool kStaged>
 __global__ void __launch_bounds__(kThreadsG)
 fusion_head_gate_kernel(const float* __restrict__ e, const float* __restrict__ att,
                         const float* __restrict__ mask, const float* __restrict__ wg,
@@ -242,10 +281,10 @@ fusion_head_gate_kernel(const float* __restrict__ e, const float* __restrict__ a
   extern __shared__ __align__(16) float smem[];
   launch_dependents();
   const int P = M * (M - 1), b = blockIdx.x;
-  float* x = smem;                // [M + P][H]: e rows, then att rows
-  float* wgs = x + (M + P) * H;   // [M][H]
-  float* msk = wgs + M * H;       // [M]
-  float* gate = msk + M;          // [M]: scores, then weights
+  float* x = smem;                                 // [M + P][H]: e rows, then att rows
+  float* wgs = x + (kStaged ? (M + P) * H : 0);    // [M][H]
+  float* msk = wgs + (kStaged ? M * H : 0);        // [M]
+  float* gate = msk + M;                           // [M]: scores, then weights
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, n_warps = blockDim.x >> 5;
   // rows t in [t_begin, t_end) of x: a warp per row, 16 bytes a lane
   auto stage_rows = [&](int t_begin, int t_end, const float* src) {
@@ -253,25 +292,40 @@ fusion_head_gate_kernel(const float* __restrict__ e, const float* __restrict__ a
       for (int c = 4 * lane; c < H; c += 128)
         tc::cp_async16(x + t * H + c, src + ((long)(t - t_begin) * B + b) * H + c, true);
   };
-  stage_rows(0, M, e);
-  for (int i = tid; i < M * H; i += kThreadsG) tc::cp_async4(wgs + i, wg + i, true);
-  if (tid < M) tc::cp_async4(msk + tid, mask + (long)b * M + tid, true);
+  // agg_q at column n from device memory (not kStaged)
+  auto agg = [&](int q, int n) {
+    float total = e[((long)q * B + b) * H + n];
+    for (int kk = 0; kk < M - 1; ++kk) total += att[((long)(q * (M - 1) + kk) * B + b) * H + n];
+    return total / (float)M * msk[q];
+  };
+  if constexpr (kStaged) {
+    stage_rows(0, M, e);
+    for (int i = tid; i < M * H; i += kThreadsG) tc::cp_async4(wgs + i, wg + i, true);
+  }
+  for (int i = tid; i < M; i += kThreadsG) tc::cp_async4(msk + i, mask + (long)b * M + i, true);
   tc::cp_async_commit();
   wait_for_predecessor();
-  stage_rows(M, M + P, att);
-  tc::cp_async_commit();
+  if constexpr (kStaged) {
+    stage_rows(M, M + P, att);
+    tc::cp_async_commit();
+  }
   tc::cp_async_wait<0>();
   __syncthreads();
-  for (int n = tid; n < H; n += kThreadsG)
-    for (int q = 0; q < M; ++q) {
-      float total = x[q * H + n];
-      for (int kk = 0; kk < M - 1; ++kk) total += x[(M + q * (M - 1) + kk) * H + n];
-      x[q * H + n] = total / (float)M * msk[q];
-    }
-  __syncthreads();
+  if constexpr (kStaged) {
+    for (int n = tid; n < H; n += kThreadsG)
+      for (int q = 0; q < M; ++q) {
+        float total = x[q * H + n];
+        for (int kk = 0; kk < M - 1; ++kk) total += x[(M + q * (M - 1) + kk) * H + n];
+        x[q * H + n] = total / (float)M * msk[q];
+      }
+    __syncthreads();
+  }
+  // agg_q at column n, and wg_q's
+  auto agg_at = [&](int q, int n) { return kStaged ? x[q * H + n] : agg(q, n); };
+  auto wg_at = [&](int q, int n) { return kStaged ? wgs[q * H + n] : wg[q * H + n]; };
   for (int m = warp; m < M; m += n_warps) {  // warp-uniform
     float s = 0.f;
-    for (int n = lane; n < H; n += 32) s = fmaf(x[m * H + n], wgs[m * H + n], s);
+    for (int n = lane; n < H; n += 32) s = fmaf(agg_at(m, n), wg_at(m, n), s);
     s = msfa_ln::warp_sum(s);
     if (lane == 0) gate[m] = s + bg[m];
   }
@@ -299,44 +353,55 @@ fusion_head_gate_kernel(const float* __restrict__ e, const float* __restrict__ a
   }
   __syncthreads();
   for (int n = tid; n < H; n += kThreadsG) {
-    float f = x[n] * gate[0];
-    for (int m = 1; m < M; ++m) f += x[m * H + n] * gate[m];
+    float f = agg_at(0, n) * gate[0];
+    for (int m = 1; m < M; ++m) f += agg_at(m, n) * gate[m];
     fused[(long)b * H + n] = f;
   }
 }
 
 // hidden = relu(fused W1 + b1); blockIdx = (column tile, batch tile)
+template <bool kSlabs>
 __global__ void __launch_bounds__(product_threads(kHiddenRows))
 fusion_head_hidden_kernel(const float* __restrict__ fused, const float* __restrict__ w1,
                           const float* __restrict__ b1, float* __restrict__ hidden, int B,
                           int H) {
   extern __shared__ __align__(16) float smem[];
   launch_dependents();
-  product_tile<kHiddenRows, true>(fused, w1, b1, nullptr, 0, 0, hidden, B, H,
-                                  blockIdx.y * kHiddenRows, blockIdx.x * kCols, smem);
+  product_tile<kHiddenRows, true, kSlabs>(fused, w1, b1, nullptr, 0, 0, hidden, B, H,
+                                          blockIdx.y * kHiddenRows, blockIdx.x * kCols, smem);
 }
 
 int logits_smem_floats(int H, int C) { return kRowsL * H + H * C; }
 
 // logits = hidden W2 + b2 for the block's kRowsL rows, a thread per (row,
-// class), from W2 and the rows staged into shared memory by cp.async (W2
-// before the wait for the hidden kernel)
+// class). kStaged: from W2 and the rows staged into shared memory by
+// cp.async (W2 before the wait for the hidden kernel); else (they exceed a
+// block's shared memory) from device memory, in the same order.
+template <bool kStaged>
 __global__ void __launch_bounds__(kThreadsG)
 fusion_head_logits_kernel(const float* __restrict__ hidden, const float* __restrict__ w2,
                           const float* __restrict__ b2, float* __restrict__ logits, int B,
                           int H, int C) {
   extern __shared__ __align__(16) float smem[];
-  float* h = smem;            // [kRowsL][H]
-  float* w = h + kRowsL * H;  // [H][C]
   const int r0 = blockIdx.x * kRowsL, rows = min(kRowsL, B - r0), tid = threadIdx.x;
-  for (int i = tid; i < H * C; i += kThreadsG) tc::cp_async4(w + i, w2 + i, true);
-  tc::cp_async_commit();
-  wait_for_predecessor();
-  for (int i = 4 * tid; i < rows * H; i += 4 * kThreadsG)
-    tc::cp_async16(h + i, hidden + (long)r0 * H + i, true);
-  tc::cp_async_commit();
-  tc::cp_async_wait<0>();
-  __syncthreads();
+  const float* h = hidden + (long)r0 * H;  // [kRowsL][H]
+  const float* w = w2;                     // [H][C]
+  if constexpr (kStaged) {
+    float* hs = smem;
+    float* ws = hs + kRowsL * H;
+    for (int i = tid; i < H * C; i += kThreadsG) tc::cp_async4(ws + i, w2 + i, true);
+    tc::cp_async_commit();
+    wait_for_predecessor();
+    for (int i = 4 * tid; i < rows * H; i += 4 * kThreadsG)
+      tc::cp_async16(hs + i, hidden + (long)r0 * H + i, true);
+    tc::cp_async_commit();
+    tc::cp_async_wait<0>();
+    __syncthreads();
+    h = hs;
+    w = ws;
+  } else {
+    wait_for_predecessor();
+  }
   for (int i = tid; i < rows * C; i += kThreadsG) {
     const int r = i / C, c = i % C;
     float s = 0.f;
@@ -373,17 +438,19 @@ cudaError_t launch(void (*kernel)(Params...), dim3 grid, int threads, int smem_f
 extern "C" {
 
 // scratch: (2P + 2) * B * H floats (v and att [P, B, H], fused and hidden
-// [B, H]). H must be a multiple of 4, at most 576 (a pair product block's
-// operands fit in shared memory: a larger H is refused by the launch), and
-// the operands the kernels copy 16 bytes at a time (projected, the pair
-// weights, W1, scratch) 16-byte aligned.
+// [B, H]). M >= 2 and H a multiple of 4 (any M, H and C: the products stage
+// K in slabs, and the gate and logits kernels read device memory where
+// their operands exceed shared memory); the operands the kernels copy 16
+// bytes at a time (projected, the pair weights, W1, scratch) 16-byte
+// aligned.
 int msfa_fusion_head(const float* projected, const float* mask, const float* wv,
                      const float* bv, const float* wo, const float* bo,
                      const float* wg, const float* bg, const float* w1,
                      const float* b1, const float* w2, const float* b2,
                      float* logits, float* scratch, int M, int B, int H, int C,
                      void* stream) {
-  if (M <= 0 || B <= 0 || H <= 0 || C <= 0 || H % 4) return (int)cudaErrorInvalidValue;
+  if (M <= 0 || B <= 0 || H <= 0 || C <= 0 || H % 4 || 2 * M > kSmemFloats)
+    return (int)cudaErrorInvalidValue;
   if (!aligned16(projected) || !aligned16(wv) || !aligned16(wo) || !aligned16(w1) ||
       !aligned16(scratch))
     return (int)cudaErrorInvalidValue;
@@ -400,19 +467,28 @@ int msfa_fusion_head(const float* projected, const float* mask, const float* wv,
   const dim3 hidden_grid(tiles, (B + kHiddenRows - 1) / kHiddenRows);
   // the first launch waits for the stream as any launch does
   bool dependent = false;
+  const bool slabs = padded_k(H) > kSlabK;
   if (P > 0) {
-    MSFA_TRY(launch(fusion_head_pairs_kernel, pair_grid, product_threads(kPairRows), pair_smem,
-                    s, false, projected, wv, bv, v, M, B, H));
-    MSFA_TRY(launch(fusion_head_att_kernel, pair_grid, product_threads(kPairRows), pair_smem, s,
-                    true, v, mask, wo, bo, att, M, B, H));
+    MSFA_TRY(launch(slabs ? fusion_head_pairs_kernel<true> : fusion_head_pairs_kernel<false>,
+                    pair_grid, product_threads(kPairRows), pair_smem, s, false, projected, wv, bv,
+                    v, M, B, H));
+    MSFA_TRY(launch(slabs ? fusion_head_att_kernel<true> : fusion_head_att_kernel<false>,
+                    pair_grid, product_threads(kPairRows), pair_smem, s, true, v, mask, wo, bo,
+                    att, M, B, H));
     dependent = true;
   }
-  MSFA_TRY(launch(fusion_head_gate_kernel, dim3(B), kThreadsG, gate_smem_floats(M, H), s,
+  const bool gate_staged = gate_smem_floats(M, H) <= kSmemFloats;
+  MSFA_TRY(launch(gate_staged ? fusion_head_gate_kernel<true> : fusion_head_gate_kernel<false>,
+                  dim3(B), kThreadsG, gate_staged ? gate_smem_floats(M, H) : 2 * M, s,
                   dependent, projected, att, mask, wg, bg, fused, M, B, H));
-  MSFA_TRY(launch(fusion_head_hidden_kernel, hidden_grid, product_threads(kHiddenRows),
-                  hidden_smem, s, true, fused, w1, b1, hidden, B, H));
-  MSFA_TRY(launch(fusion_head_logits_kernel, dim3(logit_blocks), kThreadsG,
-                  logits_smem_floats(H, C), s, true, hidden, w2, b2, logits, B, H, C));
+  MSFA_TRY(launch(slabs ? fusion_head_hidden_kernel<true> : fusion_head_hidden_kernel<false>,
+                  hidden_grid, product_threads(kHiddenRows), hidden_smem, s, true, fused, w1, b1,
+                  hidden, B, H));
+  const bool logits_staged = logits_smem_floats(H, C) <= kSmemFloats;
+  MSFA_TRY(launch(logits_staged ? fusion_head_logits_kernel<true>
+                                : fusion_head_logits_kernel<false>,
+                  dim3(logit_blocks), kThreadsG, logits_staged ? logits_smem_floats(H, C) : 0, s,
+                  true, hidden, w2, b2, logits, B, H, C));
   return 0;
 }
 

@@ -52,9 +52,9 @@ proj_ln_fwd_kernel(const float* __restrict__ x, const float* __restrict__ a,
                    const float* __restrict__ wo, const float* __restrict__ bo,
                    const float* __restrict__ gamma, const float* __restrict__ beta,
                    const unsigned char* __restrict__ rmask, float* __restrict__ out,
-                   int N, float inv_keep, float eps) {
+                   int N, int Dv, float inv_keep, float eps) {
   extern __shared__ __align__(16) float smem[];
-  msfa_ln::ln_fwd_tile<D>(a, D, wo, bo, x, gamma, beta, rmask, out, N, inv_keep, eps, smem);
+  msfa_ln::ln_fwd_tile<D>(a, D, wo, bo, x, gamma, beta, rmask, out, N, inv_keep, eps, Dv, smem);
 }
 
 // y = a Wo + bo for 64 whole rows, then the LayerNorm backward: dx = dr, dy,
@@ -65,11 +65,11 @@ proj_ln_bwd_ln_kernel(const float* __restrict__ a, const float* __restrict__ wo,
                       const float* __restrict__ bo, const float* __restrict__ x,
                       const float* __restrict__ gamma, const unsigned char* __restrict__ rmask,
                       const float* __restrict__ dout, float* __restrict__ dx,
-                      float* __restrict__ dy, float* __restrict__ part, int N, float inv_keep,
-                      float eps) {
+                      float* __restrict__ dy, float* __restrict__ part, int N, int Dv,
+                      float inv_keep, float eps) {
   extern __shared__ __align__(16) float smem[];
   msfa_ln::ln_bwd_tile<D>(a, D, wo, bo, x, gamma, rmask, dout, dx, dy, part, N, inv_keep, eps,
-                          smem);
+                          Dv, smem);
 }
 
 // da = dy Wo^T for 64 whole rows
@@ -105,13 +105,13 @@ cudaError_t sum_splits(const float* part, float* out, int splits, long width, cu
 template <int D>
 int launch_fwd(const float* x, const float* a, const float* wo, const float* bo,
                const float* gamma, const float* beta, const unsigned char* rmask,
-               float* out, int N, float inv_keep, float eps, cudaStream_t s) {
+               float* out, int N, int Dv, float inv_keep, float eps, cudaStream_t s) {
   using namespace msfa_ln;
   constexpr int kFloats = ln_smem_floats<D>();
   MSFA_TRY(allow_smem(proj_ln_fwd_kernel<D>, kFloats));
   proj_ln_fwd_kernel<D><<<(N + kRowsD - 1) / kRowsD, LnProduct<D>::kThreads,
                           kFloats * (int)sizeof(float), s>>>(x, a, wo, bo, gamma, beta, rmask,
-                                                             out, N, inv_keep, eps);
+                                                             out, N, Dv, inv_keep, eps);
   return (int)cudaGetLastError();
 }
 
@@ -119,7 +119,7 @@ template <int D>
 int launch_bwd(const float* x, const float* a, const float* wo, const float* bo,
                const float* gamma, const unsigned char* rmask, const float* dout, float* dx,
                float* da, float* dwo, float* sums, float* dy, float* ln_part, float* dw_part,
-               int N, int splits, float inv_keep, float eps, cudaStream_t s) {
+               int N, int Dv, int splits, float inv_keep, float eps, cudaStream_t s) {
   using namespace msfa_ln;
   constexpr int kLnFloats = ln_smem_floats<D>();
   MSFA_TRY(allow_smem(proj_ln_bwd_ln_kernel<D>, kLnFloats));
@@ -128,7 +128,7 @@ int launch_bwd(const float* x, const float* a, const float* wo, const float* bo,
   const int row_tiles = (N + kRowsD - 1) / kRowsD;
   const int fb = (int)sizeof(float);
   proj_ln_bwd_ln_kernel<D><<<row_tiles, LnProduct<D>::kThreads, kLnFloats * fb, s>>>(
-      a, wo, bo, x, gamma, rmask, dout, dx, dy, ln_part, N, inv_keep, eps);
+      a, wo, bo, x, gamma, rmask, dout, dx, dy, ln_part, N, Dv, inv_keep, eps);
   MSFA_TRY(cudaGetLastError());
   proj_ln_bwd_da_kernel<D><<<row_tiles, DxProduct<D>::kThreads,
                              DxProduct<D>::kSmemFloats * fb, s>>>(dy, wo, da, N);
@@ -146,33 +146,39 @@ int launch_bwd(const float* x, const float* a, const float* wo, const float* bo,
 
 extern "C" {
 
-// Widths the kernels are instantiated for; the wrapper checks before calling.
+// Widths the kernels are instantiated for (D); the LayerNorm's statistics
+// over the first Dv columns (0 < Dv <= D; x, a, wo, bo, gamma and beta zero
+// past Dv). The wrapper checks before calling.
 int msfa_proj_ln_fwd(const float* x, const float* a, const float* wo, const float* bo,
                      const float* gamma, const float* beta, const unsigned char* rmask,
-                     float* out, int N, int D, float inv_keep, float eps, void* stream) {
-  if (N <= 0) return (int)cudaErrorInvalidValue;
+                     float* out, int N, int D, int Dv, float inv_keep, float eps,
+                     void* stream) {
+  if (N <= 0 || Dv <= 0 || Dv > D) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define MSFA_PROJ_FWD(W) \
+  launch_fwd<W>(x, a, wo, bo, gamma, beta, rmask, out, N, Dv, inv_keep, eps, s)
   switch (D) {
-    case 32: return launch_fwd<32>(x, a, wo, bo, gamma, beta, rmask, out, N, inv_keep, eps, s);
-    case 64: return launch_fwd<64>(x, a, wo, bo, gamma, beta, rmask, out, N, inv_keep, eps, s);
-    case 128: return launch_fwd<128>(x, a, wo, bo, gamma, beta, rmask, out, N, inv_keep, eps, s);
-    case 256: return launch_fwd<256>(x, a, wo, bo, gamma, beta, rmask, out, N, inv_keep, eps, s);
+    case 32: return MSFA_PROJ_FWD(32);
+    case 64: return MSFA_PROJ_FWD(64);
+    case 128: return MSFA_PROJ_FWD(128);
+    case 256: return MSFA_PROJ_FWD(256);
     default: return (int)cudaErrorInvalidValue;
   }
+#undef MSFA_PROJ_FWD
 }
 
-// sums [3, D] receives dgamma | dbeta | dbo. Scratch: dy [N, D],
+// sums [3, D] receives dgamma | dbeta | dbo; dx is 0 past Dv. Scratch: dy [N, D],
 // ln_part [ceil(N/64), 3, D], dw_part [splits, D * D].
 int msfa_proj_ln_bwd(const float* x, const float* a, const float* wo, const float* bo,
                      const float* gamma, const unsigned char* rmask, const float* dout,
                      float* dx, float* da, float* dwo, float* sums, float* dy, float* ln_part,
-                     float* dw_part, int N, int D, int splits, float inv_keep, float eps,
-                     void* stream) {
-  if (N <= 0 || splits <= 0) return (int)cudaErrorInvalidValue;
+                     float* dw_part, int N, int D, int Dv, int splits, float inv_keep,
+                     float eps, void* stream) {
+  if (N <= 0 || splits <= 0 || Dv <= 0 || Dv > D) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define MSFA_PROJ_BWD(W)                                                                 \
   launch_bwd<W>(x, a, wo, bo, gamma, rmask, dout, dx, da, dwo, sums, dy, ln_part, dw_part, \
-                N, splits, inv_keep, eps, s)
+                N, Dv, splits, inv_keep, eps, s)
   switch (D) {
     case 32: return MSFA_PROJ_BWD(32);
     case 64: return MSFA_PROJ_BWD(64);

@@ -7,6 +7,7 @@
 //   ln_fwd_tile   y = A B for 64 whole rows (B [K, D], K = d_ff or D); its
 //                 epilogue is the residual and the LayerNorm:
 //                 out = LayerNorm(x + (y + bias) * rmask * inv_keep)
+//                 over the first Dv <= D columns
 //   ln_bwd_tile   the same product, recomputing y and the row statistics; its
 //                 epilogue is the LayerNorm backward: dr, dy = dr * rmask *
 //                 inv_keep, and the block's sums over its rows of
@@ -20,6 +21,13 @@
 // blocks (the weight gradients, dgamma, dbeta, the biases) is per-block or
 // per-split partials added in a fixed order by ordered_sum: deterministic, no
 // atomics. Rows past N load zeros, are never written and add nothing.
+//
+// A model width Dv that is not one of the instantiated D runs at the next D
+// with zero columns past Dv in x, B, the bias, gamma and beta (the caller
+// pads): those columns of the residual are exact zeros, so the row sums are
+// the Dv columns' sums, and the LayerNorm scales them by 1 / Dv (at Dv = D,
+// a power of two, the same bits as the constant). The backward writes dr = 0
+// past Dv, so no padded column carries a cotangent.
 
 #pragma once
 
@@ -88,13 +96,15 @@ __device__ __forceinline__ void product_rows(const float* __restrict__ A, int K,
 
 // One row's residual and statistics, a warp per row, lane + 32 j its columns:
 // r = x + (y + bias) * rmask * inv_keep, mu, inv = 1 / sqrt(var + eps) (flax's
-// fast variance), and each column's dropout scale rs.
+// fast variance over the Dv valid columns; r is zero past them), and each
+// column's dropout scale rs.
 template <int D>
 __device__ __forceinline__ void residual_row(const float* Yrow, const float* __restrict__ bias,
                                              const float* __restrict__ x,
                                              const unsigned char* __restrict__ rmask, long n,
-                                             float inv_keep, float eps, float (&r)[D / 32],
-                                             float (&rs)[D / 32], float& mu, float& inv) {
+                                             float inv_keep, float eps, int Dv,
+                                             float (&r)[D / 32], float (&rs)[D / 32], float& mu,
+                                             float& inv) {
   const int lane = threadIdx.x & 31;
   float s1 = 0.f, s2 = 0.f;
 #pragma unroll
@@ -107,12 +117,14 @@ __device__ __forceinline__ void residual_row(const float* Yrow, const float* __r
     s1 += r[j];
     s2 += r[j] * r[j];
   }
-  mu = warp_sum(s1) / D;
-  const float var = fmaxf(warp_sum(s2) / D - mu * mu, 0.f);
+  const float inv_d = 1.f / (float)Dv;
+  mu = warp_sum(s1) * inv_d;
+  const float var = fmaxf(warp_sum(s2) * inv_d - mu * mu, 0.f);
   inv = 1.f / sqrtf(var + eps);
 }
 
-// out = LayerNorm(x + (A B + bias) * rmask * inv_keep) for the block's 64 rows
+// out = LayerNorm(x + (A B + bias) * rmask * inv_keep) for the block's 64
+// rows, its statistics over the first Dv columns
 template <int D>
 __device__ __forceinline__ void ln_fwd_tile(const float* __restrict__ A, int K,
                                             const float* __restrict__ B,
@@ -122,7 +134,7 @@ __device__ __forceinline__ void ln_fwd_tile(const float* __restrict__ A, int K,
                                             const float* __restrict__ beta,
                                             const unsigned char* __restrict__ rmask,
                                             float* __restrict__ out, int N, float inv_keep,
-                                            float eps, float* smem) {
+                                            float eps, int Dv, float* smem) {
   constexpr int DJ = D / 32, kWarps = LnProduct<D>::kThreads / 32, kLdY = D + tc::kPad;
   product_rows<D>(A, K, B, N, smem);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -131,7 +143,7 @@ __device__ __forceinline__ void ln_fwd_tile(const float* __restrict__ A, int K,
     const long n = n0 + row;
     if (n >= N) break;
     float r[DJ], rs[DJ], mu, inv;
-    residual_row<D>(smem + row * kLdY, bias, x, rmask, n, inv_keep, eps, r, rs, mu, inv);
+    residual_row<D>(smem + row * kLdY, bias, x, rmask, n, inv_keep, eps, Dv, r, rs, mu, inv);
 #pragma unroll
     for (int j = 0; j < DJ; ++j) {
       const int c = lane + 32 * j;
@@ -140,9 +152,9 @@ __device__ __forceinline__ void ln_fwd_tile(const float* __restrict__ A, int K,
   }
 }
 
-// The same product, then the LayerNorm backward: dr (into dr_out), dy, and
-// the block's sums over its rows of dout * xhat | dout | dy into part
-// [blocks][3][D]
+// The same product, then the LayerNorm backward: dr (into dr_out; 0 past
+// Dv), dy, and the block's sums over its rows of dout * xhat | dout | dy into
+// part [blocks][3][D]
 template <int D>
 __device__ __forceinline__ void ln_bwd_tile(const float* __restrict__ A, int K,
                                             const float* __restrict__ B,
@@ -153,7 +165,8 @@ __device__ __forceinline__ void ln_bwd_tile(const float* __restrict__ A, int K,
                                             const float* __restrict__ dout,
                                             float* __restrict__ dr_out,
                                             float* __restrict__ dy_out, float* __restrict__ part,
-                                            int N, float inv_keep, float eps, float* smem) {
+                                            int N, float inv_keep, float eps, int Dv,
+                                            float* smem) {
   constexpr int DJ = D / 32, kThreads = LnProduct<D>::kThreads, kWarps = kThreads / 32;
   constexpr int kLdY = D + tc::kPad;
   product_rows<D>(A, K, B, N, smem);
@@ -167,7 +180,7 @@ __device__ __forceinline__ void ln_bwd_tile(const float* __restrict__ A, int K,
     const long n = n0 + row;
     if (n >= N) break;
     float r[DJ], rs[DJ], mu, inv;
-    residual_row<D>(smem + row * kLdY, bias, x, rmask, n, inv_keep, eps, r, rs, mu, inv);
+    residual_row<D>(smem + row * kLdY, bias, x, rmask, n, inv_keep, eps, Dv, r, rs, mu, inv);
     float xh[DJ], gd[DJ], g[DJ], sg = 0.f, sgx = 0.f;
 #pragma unroll
     for (int j = 0; j < DJ; ++j) {
@@ -178,12 +191,13 @@ __device__ __forceinline__ void ln_bwd_tile(const float* __restrict__ A, int K,
       sg += gd[j];
       sgx += gd[j] * xh[j];
     }
-    const float mean_g = warp_sum(sg) / D;
-    const float mean_gx = warp_sum(sgx) / D;
+    const float inv_d = 1.f / (float)Dv;  // gd is 0 past Dv (gamma is)
+    const float mean_g = warp_sum(sg) * inv_d;
+    const float mean_gx = warp_sum(sgx) * inv_d;
 #pragma unroll
     for (int j = 0; j < DJ; ++j) {
       const int c = lane + 32 * j;
-      const float dr = (gd[j] - mean_g - xh[j] * mean_gx) * inv;
+      const float dr = c < Dv ? (gd[j] - mean_g - xh[j] * mean_gx) * inv : 0.f;
       const float dy = rmask ? dr * rs[j] : dr;
       dr_out[n * D + c] = dr;
       dy_out[n * D + c] = dy;

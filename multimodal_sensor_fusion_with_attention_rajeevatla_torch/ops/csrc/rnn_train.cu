@@ -20,34 +20,39 @@
 // and dh passes through to the step before unchanged.
 //
 // What bounds them on the H100: at T 512, G 4, B 32, H 256 a direction is
-// 2 G H 4H per valid row-step, 34.4 GFLOP over Sum(len) = 16.4 k: 0.21 ms on
-// the 3xTF32 tensor cores (165 TFLOP/s), 0.51 on the CUDA cores, against
-// 0.60-0.68 GB of x_proj and residuals (0.18-0.20 ms). Neither is what sets
-// the time: the T steps depend on each other, and each step is a chain of a
-// product, an exchange and a barrier.
+// 2 G H NG H per valid row-step (NG = 4 gates for the LSTM, 3 for the GRU),
+// 34.4 / 25.8 GFLOP over Sum(len) = 16.4 k: 0.21 / 0.16 ms on the 3xTF32
+// tensor cores (165 TFLOP/s), 0.51 / 0.38 on the CUDA cores, against 0.5-0.7
+// GB of x_proj and residuals (0.15-0.20 ms). Neither is what sets the time:
+// the T steps depend on each other, and each step is a chain of a product,
+// an exchange and a barrier.
 //
-// The LSTM kernels (lstm_train_fwd, lstm_train_bwd) run rnn_cluster.cuh's
-// body where H is a multiple of 64 up to 256: one cluster of 8 CTAs per
-// (group, 16 batch rows), each CTA holding its units' slice of W_hh (128 KB
-// at H 256) in shared memory for the whole sequence and running the step
-// products as 3xTF32 mma.sync; h (forward) and the partials of dh (backward)
-// cross the cluster through distributed shared memory, one cluster barrier a
-// step. So a step costs one CTA's product (16 x 128 x 256, 3.1 MFLOP of TF32
-// mma.sync), the exchange and the barrier, and not the 1 MB weight stream a
-// block of the SIMT body pulls from L2 at every step (16.6 us a step forward,
-// 19.4 backward on it at H 256; chip_smoke.py on an H100 80GB HBM3 at 700 W).
-// At B 32 that is 64 CTAs (32 blocks on the SIMT body), and a step takes
-// 5.4-5.7 us: the product ~2.3-3.1, the exchange ~0.9 (16 KB out of each
-// CTA), a bare step with its cell, staging and barrier ~1.8-2.1
-// (scripts/lstm_cluster_variants.py, same card). The wrapper routes
-// any other H (the slice and buffers past one CTA's shared memory) to the
-// SIMT body below: two hand-written kernels, one count.
+// All four kernels run rnn_cluster.cuh's body where H is a multiple of 64 up
+// to 256: one cluster of 8 CTAs per (group, 16 batch rows), each CTA holding
+// its units' slice of W_hh (four gate slots a unit, the GRU's fourth a zero
+// column: 128 KB at H 256) in shared memory for the whole sequence and
+// running the step products as 3xTF32 mma.sync; h (forward) and the partials
+// of dh (backward) cross the cluster through distributed shared memory, one
+// cluster barrier a step. So a step costs one CTA's product (16 x 128 x 256,
+// 3.1 MFLOP of TF32 mma.sync), the exchange and the barrier, and not the
+// 0.75-1 MB weight stream a block of the SIMT body pulls from L2 at every
+// step (16.6 us a step forward, 19.4 backward on it at H 256 for the LSTM,
+// 12.1 and 15.3 for the GRU; chip_smoke.py on an H100 80GB HBM3 at 700 W).
+// At B 32 that is 64 CTAs (32 blocks on the SIMT body), and an LSTM step
+// takes 5.4-5.7 us: the product ~2.3-3.1, the exchange ~0.9 (16 KB out of
+// each CTA), a bare step with its cell, staging and barrier ~1.8-2.1
+// (scripts/lstm_cluster_variants.py, same card). The GRU's forward keeps the
+// zero column (its lane then holds r, z and h W_hn of its unit and runs the
+// cell with no shuffle); its backward's product takes depth 3U, with no
+// zero column (6% faster on the card than 4U). The wrapper routes any other H (the
+// slice and buffers past one CTA's shared memory) to the SIMT body below:
+// two hand-written kernels a direction, one count.
 //
 // rnn.cu's serving kernels (grouped_lstm_fused, grouped_gru_fused) run the
 // same design with the input projection inside (rnn_cluster_fused.cuh, on
 // this body's helpers); this file's cluster kernels are not shared with them.
 //
-// The SIMT body (the GRU kernels, and the LSTM's other H) is rnn_cell.cuh's
+// The SIMT body (both pairs at the other H) is rnn_cell.cuh's
 // recurrence (rnn.cu's precomputed-projection path, row 16, and the fused
 // serving kernels' fallback for the H and D their cluster body does not take)
 // with the residual stores added: the thread that finishes unit j of a row holds that unit's gates and
@@ -304,37 +309,58 @@ int launch_cluster(void (*kernel)(Params...), size_t smem, int B, int G, int H, 
 
 extern "C" {
 
-// The LSTM pair on the cluster body (rnn_cluster.cuh); an H it does not take
-// (H a multiple of 64 up to 256; ops/rnn.py's lstm_train_route) is refused.
+// The training pairs on the cluster body (rnn_cluster.cuh); an H it does not
+// take (H a multiple of 64 up to 256; ops/rnn.py's rnn_train_route) is refused.
 int msfa_lstm_train_fwd(const float* x_proj, const float* w_hh, const float* b_hh,
                         const int* lengths, float* out, float* gates, float* hprev, float* cprev,
                         int T, int G, int B, int H, void* stream) {
-  if (bad_shape(T, G, B, 0, H) || !msfa_cluster::supported(H)) return (int)cudaErrorInvalidValue;
-  return launch_cluster(msfa_cluster::lstm_train_fwd_cluster_kernel,
-                        msfa_cluster::fwd_smem_bytes(H), B, G, H, stream, x_proj, w_hh, b_hh,
-                        lengths, out, gates, hprev, cprev, T, G, B, H);
+  using namespace msfa_cluster;
+  if (bad_shape(T, G, B, 0, H) || !supported(H)) return (int)cudaErrorInvalidValue;
+  return launch_cluster(lstm_train_fwd_cluster_kernel, fwd_smem_bytes<kLstm>(H), B, G, H, stream,
+                        x_proj, w_hh, b_hh, lengths, out, gates, hprev, cprev, T, G, B, H);
 }
 
 int msfa_lstm_train_bwd(const float* gates, const float* cprev, const float* w_hh,
                         const int* lengths, const float* dh_out, float* dx, int T, int G, int B,
                         int H, void* stream) {
-  if (bad_shape(T, G, B, 0, H) || !msfa_cluster::supported(H)) return (int)cudaErrorInvalidValue;
-  return launch_cluster(msfa_cluster::lstm_train_bwd_cluster_kernel,
-                        msfa_cluster::bwd_smem_bytes(H), B, G, H, stream, gates, cprev, w_hh,
-                        lengths, dh_out, dx, T, G, B, H);
+  using namespace msfa_cluster;
+  if (bad_shape(T, G, B, 0, H) || !supported(H)) return (int)cudaErrorInvalidValue;
+  return launch_cluster(lstm_train_bwd_cluster_kernel, bwd_smem_bytes<kLstm>(H), B, G, H,
+                        stream, gates, cprev, w_hh, lengths, dh_out, dx, T, G, B, H);
 }
 
-// The cluster body's launch at hidden H, batch B and G groups: info[0] CTAs
-// per cluster, info[1] batch rows per cluster, info[2] threads per CTA,
-// info[3] / info[4] dynamic shared memory of the forward / backward (bytes),
-// info[5] / info[6] the clusters of each that fit on the card at once
-// (cudaOccupancyMaxActiveClusters), info[7] the clusters one launch runs.
-int msfa_lstm_train_cluster_info(int H, int B, int G, int* info) {
+int msfa_gru_train_fwd(const float* x_proj, const float* w_hh, const float* b_hh,
+                       const int* lengths, float* out, float* gates, float* hprev, float* hn,
+                       int T, int G, int B, int H, void* stream) {
+  using namespace msfa_cluster;
+  if (bad_shape(T, G, B, 0, H) || !supported(H)) return (int)cudaErrorInvalidValue;
+  return launch_cluster(gru_train_fwd_cluster_kernel, fwd_smem_bytes<kGru>(H), B, G, H, stream,
+                        x_proj, w_hh, b_hh, lengths, out, gates, hprev, hn, T, G, B, H);
+}
+
+int msfa_gru_train_bwd(const float* gates, const float* hprev, const float* hn, const float* w_hh,
+                       const int* lengths, const float* dh_out, float* dx, int T, int G, int B,
+                       int H, void* stream) {
+  using namespace msfa_cluster;
+  if (bad_shape(T, G, B, 0, H) || !supported(H)) return (int)cudaErrorInvalidValue;
+  return launch_cluster(gru_train_bwd_cluster_kernel, bwd_smem_bytes<kGru>(H), B,
+                        G, H, stream, gates, hprev, hn, w_hh, lengths, dh_out, dx, T, G, B, H);
+}
+
+// The cluster body's launch for cell `gru` (0 LSTM, 1 GRU) at hidden H, batch
+// B and G groups: info[0] CTAs per cluster, info[1] batch rows per cluster,
+// info[2] threads per CTA, info[3] / info[4] dynamic shared memory of the
+// forward / backward (bytes), info[5] / info[6] the clusters of each that fit
+// on the card at once (cudaOccupancyMaxActiveClusters), info[7] the clusters
+// one launch runs.
+int msfa_rnn_train_cluster_info(int gru, int H, int B, int G, int* info) {
   using namespace msfa_cluster;
   if (!supported(H) || B <= 0 || G <= 0) return (int)cudaErrorInvalidValue;
-  const size_t smem[2] = {fwd_smem_bytes(H), bwd_smem_bytes(H)};
-  const void* kernels[2] = {(const void*)lstm_train_fwd_cluster_kernel,
-                            (const void*)lstm_train_bwd_cluster_kernel};
+  const size_t smem[2] = {gru ? fwd_smem_bytes<kGru>(H) : fwd_smem_bytes<kLstm>(H),
+                          gru ? bwd_smem_bytes<kGru>(H) : bwd_smem_bytes<kLstm>(H)};
+  const void* kernels[2] = {
+      gru ? (const void*)gru_train_fwd_cluster_kernel : (const void*)lstm_train_fwd_cluster_kernel,
+      gru ? (const void*)gru_train_bwd_cluster_kernel : (const void*)lstm_train_bwd_cluster_kernel};
   info[0] = kCluster;
   info[1] = kTileRows;
   info[2] = cluster_threads(H);
@@ -353,8 +379,8 @@ int msfa_lstm_train_cluster_info(int H, int B, int G, int* info) {
   return 0;
 }
 
-// The LSTM pair on the SIMT body, for the H the cluster body does not take
-// (the backward reads W_hh transposed, [G, 4H, H]).
+// Both pairs on the SIMT body, for the H the cluster body does not take (the
+// backward reads W_hh transposed, [G, NG H, H]).
 int msfa_lstm_train_fwd_simt(const float* x_proj, const float* w_hh, const float* b_hh,
                              const int* lengths, float* out, float* gates, float* hprev,
                              float* cprev, int T, int G, int B, int H, void* stream) {
@@ -363,9 +389,9 @@ int msfa_lstm_train_fwd_simt(const float* x_proj, const float* w_hh, const float
                 x_proj, w_hh, b_hh, lengths, out, gates, hprev, cprev, T, G, B, H);
 }
 
-int msfa_gru_train_fwd(const float* x_proj, const float* w_hh, const float* b_hh,
-                       const int* lengths, float* out, float* gates, float* hprev, float* hn,
-                       int T, int G, int B, int H, void* stream) {
+int msfa_gru_train_fwd_simt(const float* x_proj, const float* w_hh, const float* b_hh,
+                            const int* lengths, float* out, float* gates, float* hprev, float* hn,
+                            int T, int G, int B, int H, void* stream) {
   if (bad_shape(T, G, B, 0, H)) return (int)cudaErrorInvalidValue;
   return launch(gru_train_fwd_kernel, smem_bytes(H, (size_t)kRows * 3 * H), B, G, stream,
                 x_proj, w_hh, b_hh, lengths, out, gates, hprev, hn, T, G, B, H);
@@ -379,9 +405,9 @@ int msfa_lstm_train_bwd_simt(const float* gates, const float* cprev, const float
                 gates, cprev, w_t, lengths, dh_out, dx, T, G, B, H);
 }
 
-int msfa_gru_train_bwd(const float* gates, const float* hprev, const float* hn, const float* w_t,
-                       const int* lengths, const float* dh_out, float* dx, int T, int G, int B,
-                       int H, void* stream) {
+int msfa_gru_train_bwd_simt(const float* gates, const float* hprev, const float* hn,
+                            const float* w_t, const int* lengths, const float* dh_out, float* dx,
+                            int T, int G, int B, int H, void* stream) {
   if (bad_shape(T, G, B, 0, H)) return (int)cudaErrorInvalidValue;
   return launch(gru_train_bwd_kernel, smem_bwd_bytes(H, 3), B, G, stream,
                 gates, hprev, hn, w_t, lengths, dh_out, dx, T, G, B, H);

@@ -42,6 +42,11 @@ class HeadParams(NamedTuple):
     proj: Dict[str, Tuple[torch.Tensor, torch.Tensor]]  # name -> (weight [H, D], bias)
 
 
+# csrc/fusion_head.cu copies H 16 bytes at a time: hybrid_head_params pads H
+# to a multiple of 4 (the kernels take any M >= 2, H and C)
+HEAD_HIDDEN_MULTIPLE = 4
+
+
 def _canonical_pairs(num_mod: int) -> List[Tuple[int, int]]:
     return [(q, k) for q in range(num_mod) for k in range(num_mod) if q != k]
 
@@ -177,25 +182,41 @@ def hybrid_head_params(fusion) -> HeadParams:
 
     Counterpart of the reference's ``hybrid_head_params_from_variables``;
     the linear layers' ``[out, in]`` weights are transposed to ``[in, out]``
-    once here, so a server builds them once and not per request.
+    once here, so a server builds them once and not per request. An H that
+    is not a multiple of ``HEAD_HIDDEN_MULTIPLE`` is padded with zeros: the
+    projections' extra output units are zero, and every weight's extra rows
+    and columns too, so the extra columns of every intermediate stay zero and
+    the logits are the same.
     """
     names = list(fusion.modality_names)
     pairs = fusion.pairs
+    hidden = fusion.classifier_hidden.in_features
+    extra = -hidden % HEAD_HIDDEN_MULTIPLE
+
+    def pad(t, dims):  # zeros after the last `dims` axes' H entries
+        t = t.detach()
+        if extra:
+            t = torch.nn.functional.pad(t, [0, extra] * dims)
+        return t.contiguous()
+
+    def pad_rows(t):  # [H, n] -> [H + extra, n]
+        return pad(t.t(), 1).t().contiguous()
+
     return HeadParams(
         pair_params={
-            "value_kernel": pairs.value_kernel.detach().contiguous(),
-            "value_bias": pairs.value_bias.detach().contiguous(),
-            "out_kernel": pairs.out_kernel.detach().contiguous(),
-            "out_bias": pairs.out_bias.detach().contiguous(),
+            "value_kernel": pad(pairs.value_kernel, 2),
+            "value_bias": pad(pairs.value_bias, 1),
+            "out_kernel": pad(pairs.out_kernel, 2),
+            "out_bias": pad(pairs.out_bias, 1),
         },
-        gate_kernels=torch.stack([fusion.gates[m].weight[0] for m in names]).contiguous(),
-        gate_biases=torch.stack([fusion.gates[m].bias[0] for m in names]).contiguous(),
-        w1=fusion.classifier_hidden.weight.t().contiguous(),
-        b1=fusion.classifier_hidden.bias.detach().contiguous(),
-        w2=fusion.classifier_out.weight.t().contiguous(),
+        gate_kernels=pad(torch.stack([fusion.gates[m].weight[0] for m in names]), 1),
+        gate_biases=torch.stack([fusion.gates[m].bias[0] for m in names]).detach().contiguous(),
+        w1=pad(fusion.classifier_hidden.weight.t(), 2),
+        b1=pad(fusion.classifier_hidden.bias, 1),
+        w2=pad_rows(fusion.classifier_out.weight.t()),
         b2=fusion.classifier_out.bias.detach().contiguous(),
         proj={
-            m: (fusion.projections[m].weight.detach(), fusion.projections[m].bias.detach())
+            m: (pad_rows(fusion.projections[m].weight), pad(fusion.projections[m].bias, 1))
             for m in names
         },
     )

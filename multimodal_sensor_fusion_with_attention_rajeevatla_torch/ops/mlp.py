@@ -64,6 +64,51 @@ _PHILOX_M0, _PHILOX_M1 = 0xD2511F53, 0xCD9E8D57
 _PHILOX_W0, _PHILOX_W1 = 0x9E3779B9, 0xBB67AE85
 
 
+def kernel_width(d_model: int) -> Optional[int]:
+    """The d_model ``fused_mlp`` computes ``d_model`` at: the least of
+    ``KERNEL_WIDTHS`` not below it, or None above the largest."""
+    return next((w for w in KERNEL_WIDTHS if w >= d_model), None) if d_model > 0 else None
+
+
+def ffw_width(d_ff: int) -> int:
+    """The d_ff the feed-forward kernels compute ``d_ff`` at: a multiple of
+    ``FFW_CHUNK``."""
+    return -(-d_ff // FFW_CHUNK) * FFW_CHUNK
+
+
+def mlp_route(d_model: int) -> str:
+    """The path of a layer's second half with ``fused_mlp`` on (the
+    ``fused_mlp`` pair, or with ``fused_mlp_ln`` the two residual-LayerNorm
+    halves): ``"kernel"`` up to the widest of ``KERNEL_WIDTHS``, else
+    ``"plain"`` (a block of these kernels holds 64 whole rows of d_model
+    columns, 2 d_model threads). The kernels run at ``kernel_width`` and
+    ``ffw_width`` with zero columns past the true widths: a zero input column
+    meets a zero row of a weight, a zero hidden unit a zero row of ``w2``, the
+    residual is zero past d_model, the LayerNorm divides its row sums by the
+    true d_model (``d_valid``), and the extra output columns are dropped, so
+    the function is the same. A plain function of the widths, decided before
+    any launch."""
+    return "plain" if kernel_width(d_model) is None else "kernel"
+
+
+def _pad_cols(t: Optional[torch.Tensor], width: int) -> Optional[torch.Tensor]:
+    """The last dim of ``t`` padded with zeros up to ``width``."""
+    if t is None or t.shape[-1] == width:
+        return t
+    return torch.nn.functional.pad(t, (0, width - t.shape[-1]))
+
+
+def _pad_ffw(w1, b1, w2, mask, d_ff: int):
+    """The feed-forward weights and keep mask at ``ffw_width(d_ff)`` hidden
+    units: the extra units are zero columns of ``w1`` and ``b1`` and zero
+    rows of ``w2``, so their hidden is relu(0) = 0 and adds nothing."""
+    width = ffw_width(d_ff)
+    if width == d_ff:
+        return w1, b1, w2, mask
+    return (_pad_cols(w1, width), _pad_cols(b1, width), _pad_cols(w2.t(), width).t(),
+            _pad_cols(mask, width))
+
+
 def _inv_keep(keep_prob: float) -> float:
     """``1/keep_prob``, and 0.0 at ``keep_prob <= 0``: the mask is then
     all-drop and the output exactly zero, not NaN (``Dropout(p=1)``)."""
@@ -92,34 +137,59 @@ def _ln_backward(dout, xhat, inv, gamma):
     return dr, (dout * xhat).sum(0), dout.sum(0)
 
 
+def _ln_valid(r, gamma, beta, eps: float, d_valid: Optional[int]):
+    """``ln_rows`` over the first ``d_valid`` columns (all with None), as
+    the kernels take a padded row: ``(out, xhat, inv)``, out zero past them
+    (the caller pads gamma and beta with zeros)."""
+    width = r.shape[-1]
+    if d_valid is None or d_valid == width:
+        return ln_rows(r, gamma, beta, eps)
+    out, xhat, inv = ln_rows(r[:, :d_valid], gamma[:d_valid], beta[:d_valid], eps)
+    return _pad_cols(out, width), xhat, inv
+
+
+def _ln_backward_valid(dout, xhat, inv, gamma, d_valid: Optional[int]):
+    """``_ln_backward`` over the first ``d_valid`` columns: dr, dgamma and
+    dbeta zero past them."""
+    width = dout.shape[-1]
+    if d_valid is None or d_valid == width:
+        return _ln_backward(dout, xhat, inv, gamma)
+    grads = _ln_backward(dout[:, :d_valid], xhat, inv, gamma[:d_valid])
+    return tuple(_pad_cols(g, width) for g in grads)
+
+
 # ------------------------------------------------------------ plain twins
 
 
-def proj_ln_fwd_reference(x, a, wo, bo, gamma, beta, rmask, inv_keep: float, eps: float):
-    """Plain version of the projection kernel's forward -> ``out [N, D]``."""
+def proj_ln_fwd_reference(x, a, wo, bo, gamma, beta, rmask, inv_keep: float, eps: float,
+                          d_valid: Optional[int] = None):
+    """Plain version of the projection kernel's forward -> ``out [N, D]``,
+    the LayerNorm over the first ``d_valid`` columns (all with None)."""
     y = a @ wo + bo
     rscale = _scale(rmask, inv_keep)
     if rscale is not None:
         y = y * rscale
-    return ln_rows(x + y, gamma, beta, eps)[0]
+    return _ln_valid(x + y, gamma, beta, eps, d_valid)[0]
 
 
-def proj_ln_bwd_reference(x, a, wo, bo, gamma, beta, rmask, dout, inv_keep: float, eps: float):
+def proj_ln_bwd_reference(x, a, wo, bo, gamma, beta, rmask, dout, inv_keep: float, eps: float,
+                          d_valid: Optional[int] = None):
     """Plain version of the projection kernel's backward ->
     ``(dx, da, dwo, dbo, dgamma, dbeta)``."""
     y = a @ wo + bo
     rscale = _scale(rmask, inv_keep)
     if rscale is not None:
         y = y * rscale
-    _out, xhat, inv = ln_rows(x + y, gamma, beta, eps)
-    dr, dgamma, dbeta = _ln_backward(dout, xhat, inv, gamma)
+    _out, xhat, inv = _ln_valid(x + y, gamma, beta, eps, d_valid)
+    dr, dgamma, dbeta = _ln_backward_valid(dout, xhat, inv, gamma, d_valid)
     dy = dr * rscale if rscale is not None else dr
     return dr, dy @ wo.t(), a.t() @ dy, dy.sum(0), dgamma, dbeta
 
 
 def ffw_ln_fwd_reference(x, w1, b1, w2, b2, gamma, beta, fmask, rmask, inv_keep: float,
-                         eps: float):
-    """Plain version of the FFW kernel's forward -> ``out [N, D]``."""
+                         eps: float, d_valid: Optional[int] = None):
+    """Plain version of the FFW kernel's forward -> ``out [N, D]``, the
+    LayerNorm over the first ``d_valid`` columns (all with None)."""
     h = torch.relu(x @ w1 + b1)
     fscale = _scale(fmask, inv_keep)
     if fscale is not None:
@@ -128,20 +198,20 @@ def ffw_ln_fwd_reference(x, w1, b1, w2, b2, gamma, beta, fmask, rmask, inv_keep:
     rscale = _scale(rmask, inv_keep)
     if rscale is not None:
         y = y * rscale
-    return ln_rows(x + y, gamma, beta, eps)[0]
+    return _ln_valid(x + y, gamma, beta, eps, d_valid)[0]
 
 
 def ffw_ln_bwd_reference(x, w1, b1, w2, b2, gamma, beta, fmask, rmask, dout,
-                         inv_keep: float, eps: float):
+                         inv_keep: float, eps: float, d_valid: Optional[int] = None):
     """Plain version of the FFW kernel's backward ->
     ``(dx, dw1, db1, dw2, db2, dgamma, dbeta)``."""
     pre = x @ w1 + b1
     return _ffw_ln_bwd_plain(x, w1, pre, pre > 0.0, w2, b2, gamma, fmask, rmask, dout,
-                             inv_keep, eps)
+                             inv_keep, eps, d_valid)
 
 
 def _ffw_ln_bwd_plain(x, w1, pre, live, w2, b2, gamma, fmask, rmask, dout, inv_keep: float,
-                      eps: float):
+                      eps: float, d_valid: Optional[int] = None):
     """The plain FFW backward at the pre-activations ``pre`` [N, d_ff], taking
     the ReLU branch ``live`` (bool [N, d_ff]; ``pre > 0`` for the plain
     forward's own). A backward follows the branches of the forward it
@@ -155,8 +225,8 @@ def _ffw_ln_bwd_plain(x, w1, pre, live, w2, b2, gamma, fmask, rmask, dout, inv_k
     rscale = _scale(rmask, inv_keep)
     if rscale is not None:
         y = y * rscale
-    _out, xhat, inv = ln_rows(x + y, gamma, torch.zeros_like(gamma), eps)
-    dr, dgamma, dbeta = _ln_backward(dout, xhat, inv, gamma)
+    _out, xhat, inv = _ln_valid(x + y, gamma, torch.zeros_like(gamma), eps, d_valid)
+    dr, dgamma, dbeta = _ln_backward_valid(dout, xhat, inv, gamma, d_valid)
     dy = dr * rscale if rscale is not None else dr
     dhd = dy @ w2.t()
     if fscale is not None:
@@ -265,6 +335,16 @@ def _check(tensors: dict, shapes: dict, device: torch.device) -> None:
             raise ValueError(f"{name} must have shape {tuple(shape)}, got {tuple(t.shape)}")
         if t.device != device:
             raise ValueError(f"{name} is on {t.device}, x on {device}")
+
+
+def _d_valid(d_valid: Optional[int], width: int) -> int:
+    """The LayerNorm's columns: ``width`` with None, else ``d_valid`` in
+    ``[1, width]``."""
+    if d_valid is None:
+        return width
+    if not 0 < d_valid <= width:
+        raise ValueError(f"d_valid must be in [1, {width}], got {d_valid}")
+    return d_valid
 
 
 def _check_kernel_inputs(tensors: dict, width: int) -> None:
@@ -439,14 +519,18 @@ def _proj_shapes(x, d):
             "beta": (d,), "rmask": (n, d)}
 
 
-def proj_ln_fwd(x, a, wo, bo, gamma, beta, rmask, inv_keep: float, eps: float):
-    """Kernel wrapper for the projection half's forward -> ``out [N, D]``."""
+def proj_ln_fwd(x, a, wo, bo, gamma, beta, rmask, inv_keep: float, eps: float,
+                d_valid: Optional[int] = None):
+    """Kernel wrapper for the projection half's forward -> ``out [N, D]``;
+    the LayerNorm over the first ``d_valid`` columns (all with None; the
+    inputs zero past them)."""
     d = x.shape[-1]
     tensors = {"x": x, "a": a, "wo": wo, "bo": bo, "gamma": gamma, "beta": beta,
                "rmask": rmask}
     _check(tensors, _proj_shapes(x, d), x.device)
+    d_valid = _d_valid(d_valid, d)
     if x.device.type == "cpu":
-        return proj_ln_fwd_reference(x, a, wo, bo, gamma, beta, rmask, inv_keep, eps)
+        return proj_ln_fwd_reference(x, a, wo, bo, gamma, beta, rmask, inv_keep, eps, d_valid)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     _check_kernel_inputs(tensors, d)
@@ -454,11 +538,11 @@ def proj_ln_fwd(x, a, wo, bo, gamma, beta, rmask, inv_keep: float, eps: float):
     out = torch.empty_like(x)
     if n == 0:
         return out
-    lib, fn = _fn("proj_ln", "msfa_proj_ln_fwd", 8, 2, 2)
+    lib, fn = _fn("proj_ln", "msfa_proj_ln_fwd", 8, 3, 2)
     with torch.cuda.device(x.device):
         code = fn(x.data_ptr(), a.data_ptr(), wo.data_ptr(), bo.data_ptr(), gamma.data_ptr(),
-                  beta.data_ptr(), _ptr(rmask), out.data_ptr(), n, d, float(inv_keep),
-                  float(eps), _stream(x.device))
+                  beta.data_ptr(), _ptr(rmask), out.data_ptr(), n, d, d_valid,
+                  float(inv_keep), float(eps), _stream(x.device))
     _build.check(lib, code, "proj_ln_fwd")
     proj_ln_fwd.launches += 1
     return out
@@ -467,15 +551,18 @@ def proj_ln_fwd(x, a, wo, bo, gamma, beta, rmask, inv_keep: float, eps: float):
 proj_ln_fwd.launches = 0
 
 
-def proj_ln_bwd(x, a, wo, bo, gamma, beta, rmask, dout, inv_keep: float, eps: float):
+def proj_ln_bwd(x, a, wo, bo, gamma, beta, rmask, dout, inv_keep: float, eps: float,
+                d_valid: Optional[int] = None):
     """Kernel wrapper for the projection half's backward ->
     ``(dx, da, dwo, dbo, dgamma, dbeta)``."""
     d = x.shape[-1]
     tensors = {"x": x, "a": a, "wo": wo, "bo": bo, "gamma": gamma, "beta": beta,
                "rmask": rmask, "dout": dout}
     _check(tensors, {**_proj_shapes(x, d), "dout": x.shape}, x.device)
+    d_valid = _d_valid(d_valid, d)
     if x.device.type == "cpu":
-        return proj_ln_bwd_reference(x, a, wo, bo, gamma, beta, rmask, dout, inv_keep, eps)
+        return proj_ln_bwd_reference(x, a, wo, bo, gamma, beta, rmask, dout, inv_keep, eps,
+                                     d_valid)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     _check_kernel_inputs(tensors, d)
@@ -490,12 +577,12 @@ def proj_ln_bwd(x, a, wo, bo, gamma, beta, rmask, dout, inv_keep: float, eps: fl
     dy = torch.empty_like(x)
     ln_part = torch.empty((math.ceil(n / ROWS_D), 3, d), device=x.device)
     dw_part = torch.empty((splits, d * d), device=x.device)
-    lib, fn = _fn("proj_ln", "msfa_proj_ln_bwd", 14, 3, 2)
+    lib, fn = _fn("proj_ln", "msfa_proj_ln_bwd", 14, 4, 2)
     with torch.cuda.device(x.device):
         code = fn(x.data_ptr(), a.data_ptr(), wo.data_ptr(), bo.data_ptr(), gamma.data_ptr(),
                   _ptr(rmask), dout.data_ptr(), dx.data_ptr(), da.data_ptr(), dwo.data_ptr(),
                   sums.data_ptr(), dy.data_ptr(), ln_part.data_ptr(), dw_part.data_ptr(), n, d,
-                  splits, float(inv_keep), float(eps), _stream(x.device))
+                  d_valid, splits, float(inv_keep), float(eps), _stream(x.device))
     _build.check(lib, code, "proj_ln_bwd")
     proj_ln_bwd.launches += 1
     dgamma, dbeta, dbo = sums.unbind(0)
@@ -516,25 +603,31 @@ def _check_ffw_width(f: int) -> None:
         raise ValueError(f"kernel takes d_ff a multiple of {FFW_CHUNK}, got {f}")
 
 
-def ffw_ln_fwd(x, w1, b1, w2, b2, gamma, beta, fmask, rmask, inv_keep: float, eps: float):
-    """Kernel wrapper for the FFW half's forward -> ``out [N, D]``."""
+def ffw_ln_fwd(x, w1, b1, w2, b2, gamma, beta, fmask, rmask, inv_keep: float, eps: float,
+               d_valid: Optional[int] = None):
+    """Kernel wrapper for the FFW half's forward -> ``out [N, D]``; the
+    LayerNorm over the first ``d_valid`` columns (all with None; the inputs
+    zero past them)."""
     d, f = x.shape[-1], w1.shape[-1]
     tensors = {"x": x, "w1": w1, "b1": b1, "w2": w2, "b2": b2, "gamma": gamma,
                "beta": beta, "fmask": fmask, "rmask": rmask}
     _check(tensors, _ffw_shapes(x, d, f), x.device)
+    d_valid = _d_valid(d_valid, d)
     if x.device.type == "cpu":
-        return ffw_ln_fwd_reference(x, w1, b1, w2, b2, gamma, beta, fmask, rmask, inv_keep, eps)
+        return ffw_ln_fwd_reference(x, w1, b1, w2, b2, gamma, beta, fmask, rmask, inv_keep, eps,
+                                    d_valid)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     _check_kernel_inputs(tensors, d)
     _check_ffw_width(f)
     if x.shape[0] == 0:
         return torch.empty_like(x)
-    return _ffw_ln_fwd_launch(x, w1, b1, w2, b2, gamma, beta, fmask, rmask, inv_keep, eps)[0]
+    return _ffw_ln_fwd_launch(x, w1, b1, w2, b2, gamma, beta, fmask, rmask, inv_keep, eps,
+                              d_valid)[0]
 
 
 def _ffw_ln_fwd_launch(x, w1, b1, w2, b2, gamma, beta, fmask, rmask, inv_keep: float,
-                       eps: float):
+                       eps: float, d_valid: Optional[int] = None):
     """``ffw_ln_fwd``'s kernels on checked CUDA inputs with N > 0 ->
     ``(out, hd)``: the hidden ``relu(x @ w1 + b1) * fmask / keep`` lives in
     an ``[N, d_ff]`` scratch buffer allocated here (134 MB at N = 16384,
@@ -542,11 +635,12 @@ def _ffw_ln_fwd_launch(x, w1, b1, w2, b2, gamma, beta, fmask, rmask, inv_keep: f
     (n, d), f = x.shape, w1.shape[-1]
     out = torch.empty_like(x)
     hd = torch.empty((n, f), device=x.device)
-    lib, fn = _fn("ffw_ln", "msfa_ffw_ln_fwd", 11, 3, 2)
+    lib, fn = _fn("ffw_ln", "msfa_ffw_ln_fwd", 11, 4, 2)
     with torch.cuda.device(x.device):
         code = fn(x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
                   gamma.data_ptr(), beta.data_ptr(), _ptr(fmask), _ptr(rmask), out.data_ptr(),
-                  hd.data_ptr(), n, d, f, float(inv_keep), float(eps), _stream(x.device))
+                  hd.data_ptr(), n, d, _d_valid(d_valid, d), f, float(inv_keep), float(eps),
+                  _stream(x.device))
     _build.check(lib, code, "ffw_ln_fwd")
     ffw_ln_fwd.launches += 1
     return out, hd
@@ -556,16 +650,17 @@ ffw_ln_fwd.launches = 0
 
 
 def ffw_ln_bwd(x, w1, b1, w2, b2, gamma, beta, fmask, rmask, dout, inv_keep: float,
-               eps: float):
+               eps: float, d_valid: Optional[int] = None):
     """Kernel wrapper for the FFW half's backward ->
     ``(dx, dw1, db1, dw2, db2, dgamma, dbeta)``."""
     d, f = x.shape[-1], w1.shape[-1]
     tensors = {"x": x, "w1": w1, "b1": b1, "w2": w2, "b2": b2, "gamma": gamma,
                "beta": beta, "fmask": fmask, "rmask": rmask, "dout": dout}
     _check(tensors, {**_ffw_shapes(x, d, f), "dout": x.shape}, x.device)
+    d_valid = _d_valid(d_valid, d)
     if x.device.type == "cpu":
         return ffw_ln_bwd_reference(x, w1, b1, w2, b2, gamma, beta, fmask, rmask, dout,
-                                    inv_keep, eps)
+                                    inv_keep, eps, d_valid)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     _check_kernel_inputs(tensors, d)
@@ -576,11 +671,11 @@ def ffw_ln_bwd(x, w1, b1, w2, b2, gamma, beta, fmask, rmask, dout, inv_keep: flo
                 torch.zeros((f,), device=x.device), torch.zeros((f, d), device=x.device), db2,
                 dgamma, dbeta)
     return _ffw_ln_bwd_launch(x, w1, b1, w2, b2, gamma, beta, fmask, rmask, dout, inv_keep,
-                              eps)[0]
+                              eps, d_valid)[0]
 
 
 def _ffw_ln_bwd_launch(x, w1, b1, w2, b2, gamma, beta, fmask, rmask, dout, inv_keep: float,
-                       eps: float):
+                       eps: float, d_valid: Optional[int] = None):
     """``ffw_ln_bwd``'s kernels on checked CUDA inputs with N > 0 ->
     ``(grads, hd)``. The kernels keep the recomputed hidden ``hd`` (the
     forward's kernel, the same bits) and its gradient in two ``[N, d_ff]``
@@ -599,14 +694,14 @@ def _ffw_ln_bwd_launch(x, w1, b1, w2, b2, gamma, beta, fmask, rmask, dout, inv_k
     ln_part = torch.empty((math.ceil(n / ROWS_D), 3, d), device=x.device)
     db1_part = torch.empty((math.ceil(n / ROWS_F), f), device=x.device)
     dw_part = torch.empty((splits, d * f), device=x.device)
-    lib, fn = _fn("ffw_ln", "msfa_ffw_ln_bwd", 20, 4, 2)
+    lib, fn = _fn("ffw_ln", "msfa_ffw_ln_bwd", 20, 5, 2)
     with torch.cuda.device(x.device):
         code = fn(x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
                   gamma.data_ptr(), _ptr(fmask), _ptr(rmask), dout.data_ptr(), dx.data_ptr(),
                   dw1.data_ptr(), db1.data_ptr(), dw2.data_ptr(), sums.data_ptr(),
                   hd.data_ptr(), dpre.data_ptr(), dy.data_ptr(), ln_part.data_ptr(),
-                  db1_part.data_ptr(), dw_part.data_ptr(), n, d, f, splits,
-                  float(inv_keep), float(eps), _stream(x.device))
+                  db1_part.data_ptr(), dw_part.data_ptr(), n, d, _d_valid(d_valid, d), f,
+                  splits, float(inv_keep), float(eps), _stream(x.device))
     _build.check(lib, code, "ffw_ln_bwd")
     ffw_ln_bwd.launches += 1
     dgamma, dbeta, db2 = sums.unbind(0)
@@ -624,18 +719,19 @@ class FusedProjResidualLN(torch.autograd.Function):
     and backward (the JAX package's custom VJP ``_proj_ln_core``)."""
 
     @staticmethod
-    def forward(ctx, x, a, wo, bo, gamma, beta, rmask, inv_keep: float, eps: float):
-        out = proj_ln_fwd(x, a, wo, bo, gamma, beta, rmask, inv_keep, eps)
+    def forward(ctx, x, a, wo, bo, gamma, beta, rmask, inv_keep: float, eps: float,
+                d_valid: int):
+        out = proj_ln_fwd(x, a, wo, bo, gamma, beta, rmask, inv_keep, eps, d_valid)
         ctx.save_for_backward(x, a, wo, bo, gamma, beta, rmask)
-        ctx.inv_keep, ctx.eps = inv_keep, eps
+        ctx.inv_keep, ctx.eps, ctx.d_valid = inv_keep, eps, d_valid
         return out
 
     @staticmethod
     def backward(ctx, dout):
         x, a, wo, bo, gamma, beta, rmask = ctx.saved_tensors
         grads = proj_ln_bwd(x, a, wo, bo, gamma, beta, rmask, dout.float().contiguous(),
-                            ctx.inv_keep, ctx.eps)
-        return (*grads, None, None, None)
+                            ctx.inv_keep, ctx.eps, ctx.d_valid)
+        return (*grads, None, None, None, None)
 
 
 class FusedMlpResidualLN(torch.autograd.Function):
@@ -644,18 +740,18 @@ class FusedMlpResidualLN(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, w1, b1, w2, b2, gamma, beta, fmask, rmask, inv_keep: float,
-                eps: float):
-        out = ffw_ln_fwd(x, w1, b1, w2, b2, gamma, beta, fmask, rmask, inv_keep, eps)
+                eps: float, d_valid: int):
+        out = ffw_ln_fwd(x, w1, b1, w2, b2, gamma, beta, fmask, rmask, inv_keep, eps, d_valid)
         ctx.save_for_backward(x, w1, b1, w2, b2, gamma, beta, fmask, rmask)
-        ctx.inv_keep, ctx.eps = inv_keep, eps
+        ctx.inv_keep, ctx.eps, ctx.d_valid = inv_keep, eps, d_valid
         return out
 
     @staticmethod
     def backward(ctx, dout):
         x, w1, b1, w2, b2, gamma, beta, fmask, rmask = ctx.saved_tensors
         grads = ffw_ln_bwd(x, w1, b1, w2, b2, gamma, beta, fmask, rmask,
-                           dout.float().contiguous(), ctx.inv_keep, ctx.eps)
-        return (*grads, None, None, None, None)
+                           dout.float().contiguous(), ctx.inv_keep, ctx.eps, ctx.d_valid)
+        return (*grads, None, None, None, None, None)
 
 
 class FusedMlp(torch.autograd.Function):
@@ -699,12 +795,20 @@ def fused_mlp(
     """Fused ``relu(x @ w1 + b1) -> dropout -> @ w2 + b2``, differentiable,
     with the signature of the reference's ``fused_mlp``. ``keep_mask`` (when
     given) is applied between the ReLU and the second matmul as
-    ``h * mask / keep_prob``."""
-    return FusedMlp.apply(
-        x.float().contiguous(), w1.float().contiguous(), b1.float().contiguous(),
-        w2.float().contiguous(), b2.float().contiguous(), _as_mask(keep_mask, x.shape[0]),
-        _inv_keep(keep_prob),
+    ``h * mask / keep_prob``. Widths the kernels are not built for are padded
+    with zeros up to ``kernel_width`` and ``ffw_width`` (``mlp_route``: the
+    same function); a d_in above ``KERNEL_WIDTHS``' largest raises on the
+    card."""
+    d_in = x.shape[-1]
+    width = kernel_width(d_in) or d_in  # d_in padded: zero rows of w1, zero columns of w2
+    w1, b1, w2, mask = _pad_ffw(w1.float(), b1.float(), w2.float(),
+                                _as_mask(keep_mask, x.shape[0]), w1.shape[-1])
+    out = FusedMlp.apply(
+        _pad_cols(x.float(), width).contiguous(), _pad_cols(w1.t(), width).t().contiguous(),
+        b1.contiguous(), _pad_cols(w2, width).contiguous(),
+        _pad_cols(b2.float(), width).contiguous(), mask, _inv_keep(keep_prob),
     )
+    return out[:, :d_in] if width != d_in else out
 
 
 def transformer_ffw(
@@ -744,13 +848,22 @@ def fused_proj_residual_ln(
     eps: float = 1e-6,
 ) -> torch.Tensor:
     """``LayerNorm(x + dropout(attended @ wo + bo))``, differentiable, with
-    the signature of the reference's ``fused_proj_residual_ln``."""
-    rows = x.shape[0]
-    return FusedProjResidualLN.apply(
-        x.float().contiguous(), attended.float().contiguous(), wo.float().contiguous(),
-        bo.float().contiguous(), gamma.float().contiguous(), beta.float().contiguous(),
-        _as_mask(res_mask, rows), _inv_keep(keep_prob), float(eps),
+    the signature of the reference's ``fused_proj_residual_ln``. A d the
+    kernels are not built for runs at ``kernel_width`` with zero columns past
+    it (``mlp_route``: the same function); one above ``KERNEL_WIDTHS``'
+    largest raises on the card."""
+    rows, d = x.shape
+    width = kernel_width(d) or d
+
+    def cols(t):  # zero columns up to the kernels' width
+        return _pad_cols(t.float(), width).contiguous()
+
+    out = FusedProjResidualLN.apply(
+        cols(x), cols(attended), cols(cols(wo).t()).t().contiguous(), cols(bo), cols(gamma),
+        cols(beta), _pad_cols(_as_mask(res_mask, rows), width), _inv_keep(keep_prob),
+        float(eps), d,
     )
+    return out[:, :d] if width != d else out
 
 
 def fused_mlp_residual_ln(
@@ -769,12 +882,22 @@ def fused_mlp_residual_ln(
     """``LayerNorm(x + dropout(ffw(x)))``, differentiable, with the
     signature of the reference's ``fused_mlp_residual_ln``. The forward
     keeps the ``[N, d_ff]`` hidden in a scratch buffer between its two
-    launches; the backward recomputes it."""
-    rows = x.shape[0]
-    return FusedMlpResidualLN.apply(
-        x.float().contiguous(), w1.float().contiguous(), b1.float().contiguous(),
-        w2.float().contiguous(), b2.float().contiguous(), gamma.float().contiguous(),
-        beta.float().contiguous(), _as_mask(ffw_mask, rows), _as_mask(res_mask, rows),
-        _inv_keep(keep_prob), float(eps),
+    launches; the backward recomputes it. Widths the kernels are not built
+    for run at ``kernel_width`` and ``ffw_width`` with zero columns past them
+    (``mlp_route``: the same function); a d_in above ``KERNEL_WIDTHS``'
+    largest raises on the card."""
+    rows, d_in = x.shape
+    width = kernel_width(d_in) or d_in
+    w1, b1, w2, ffw_mask = _pad_ffw(w1.float(), b1.float(), w2.float(),
+                                    _as_mask(ffw_mask, rows), w1.shape[-1])
+
+    def cols(t):  # zero columns up to the kernels' width
+        return _pad_cols(t.float(), width).contiguous()
+
+    out = FusedMlpResidualLN.apply(
+        cols(x), cols(w1.t()).t().contiguous(), b1.contiguous(), cols(w2), cols(b2),
+        cols(gamma), cols(beta), ffw_mask, _pad_cols(_as_mask(res_mask, rows), width),
+        _inv_keep(keep_prob), float(eps), d_in,
     )
+    return out[:, :d_in] if width != d_in else out
 

@@ -32,10 +32,10 @@ and takes its ``*_plain`` version for CPU tensors; each counts its launches in
   final state plus the per-step residuals: post-activation gates, ``h_{t-1}``,
   and ``c_{t-1}`` or ``hn = h_{t-1} W_hn + b_hn``; zero past each row's
   length) and ``lstm_train_bwd`` / ``gru_train_bwd`` (reverse time -> the
-  ``x_proj`` cotangent, exactly zero past each length). The LSTM pair runs
-  on a thread-block cluster with 3xTF32 step products
-  (``csrc/rnn_cluster.cuh``) at the hidden sizes ``lstm_train_route`` names,
-  on the GRU pair's SIMT body at the others.
+  ``x_proj`` cotangent, exactly zero past each length). Both pairs run on a
+  thread-block cluster with 3xTF32 step products (``csrc/rnn_cluster.cuh``)
+  at the hidden sizes ``rnn_train_route`` names, on the SIMT body
+  (``csrc/rnn_cell.cuh``) at the others.
 
 ``grouped_lstm_trainable`` and ``grouped_gru_trainable`` are
 ``torch.autograd.Function``s over the training pair; their backward takes
@@ -212,7 +212,7 @@ def grouped_fused_route(hidden: int, feat: int) -> str:
     ``CLUSTER_MAX_HIDDEN`` and ``feat`` at most ``CLUSTER_MAX_FEAT``, else
     ``"simt"`` (``csrc/rnn_cell.cuh``). Both are hand-written kernels and
     count in the same ``.launches``; a refused launch raises on either."""
-    fits = lstm_train_route(hidden) == "cluster" and 0 < feat <= CLUSTER_MAX_FEAT
+    fits = rnn_train_route(hidden) == "cluster" and 0 < feat <= CLUSTER_MAX_FEAT
     return "cluster" if fits else "simt"
 
 
@@ -501,14 +501,15 @@ def _train_dims(x, w_hh, gates: int, name: str):
 CLUSTER_MAX_HIDDEN = 256
 
 
-def lstm_train_route(hidden: int) -> str:
-    """The body ``lstm_train_fwd`` and ``lstm_train_bwd`` run on the card at
-    ``hidden`` units: ``"cluster"`` (``csrc/rnn_cluster.cuh``: W_hh held in a
+def rnn_train_route(hidden: int) -> str:
+    """The body the training kernels of either cell (``lstm_train_fwd`` /
+    ``_bwd``, ``gru_train_fwd`` / ``_bwd``) run on the card at ``hidden``
+    units: ``"cluster"`` (``csrc/rnn_cluster.cuh``: W_hh held in a
     thread-block cluster's shared memory for the whole sequence, h and dh
     exchanged through distributed shared memory, 3xTF32 step products) where
     ``hidden`` is a multiple of 64 up to ``CLUSTER_MAX_HIDDEN``, else
-    ``"simt"`` (the body the GRU kernels run). Both are hand-written kernels
-    and count in the same ``.launches``; a refused launch raises on either."""
+    ``"simt"`` (``csrc/rnn_cell.cuh``). Both are hand-written kernels and
+    count in the same ``.launches``; a refused launch raises on either."""
     return "cluster" if hidden % 64 == 0 and 0 < hidden <= CLUSTER_MAX_HIDDEN else "simt"
 
 
@@ -517,17 +518,21 @@ _CLUSTER_INFO_KEYS = ("ctas_per_cluster", "tile_rows", "threads", "smem_fwd_byte
                       "clusters_per_launch")
 
 
-def lstm_train_cluster_info(hidden: int, batch: int, groups: int) -> dict:
-    """The cluster body's launch at these sizes, read on the card: CTAs per
-    cluster, batch rows per cluster, threads per CTA, each direction's
-    dynamic shared memory, the clusters of each that fit on the card at once
-    (``cudaOccupancyMaxActiveClusters``) and the clusters one launch runs."""
+def rnn_train_cluster_info(cell: str, hidden: int, batch: int, groups: int) -> dict:
+    """The ``cell`` training pair's cluster body at these sizes, read on the
+    card: CTAs per cluster, batch rows per cluster, threads per CTA, each
+    direction's dynamic shared memory, the clusters of each that fit on the
+    card at once (``cudaOccupancyMaxActiveClusters``) and the clusters one
+    launch runs."""
+    if cell not in ("lstm", "gru"):
+        raise ValueError(f"Unknown cell type: {cell}")
     lib = _build.library("rnn_train")
-    fn = lib.msfa_lstm_train_cluster_info
-    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn = lib.msfa_rnn_train_cluster_info
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     info = (ctypes.c_int * len(_CLUSTER_INFO_KEYS))()
-    _build.check(lib, fn(hidden, batch, groups, ctypes.addressof(info)), "lstm_train_cluster_info")
+    code = fn(int(cell == "gru"), hidden, batch, groups, ctypes.addressof(info))
+    _build.check(lib, code, "rnn_train_cluster_info")
     return dict(zip(_CLUSTER_INFO_KEYS, info))
 
 
@@ -540,7 +545,7 @@ def _train_fwd(wrapper, entry, gates, x_proj, w_hh, b_hh, lengths):
     if x_proj.device.type == "cpu":
         plain = lstm_train_fwd_plain if gates == 4 else gru_train_fwd_plain
         return plain(x_proj, w_hh, b_hh, lengths)
-    if gates == 4 and lstm_train_route(hidden) == "simt":
+    if rnn_train_route(hidden) == "simt":
         entry += "_simt"
     device = x_proj.device
     out = torch.empty((groups, batch, hidden), device=device, dtype=torch.float32)
@@ -567,12 +572,12 @@ def _train_bwd(wrapper, entry, gates, res, w_hh, lengths, dh_out):
         plain = lstm_train_bwd_plain if gates == 4 else gru_train_bwd_plain
         return plain(g_res, hprev, aux, w_hh, lengths, dh_out)
     device = g_res.device
-    if gates == 4 and lstm_train_route(hidden) == "cluster":
+    if rnn_train_route(hidden) == "cluster":
         weights = w_hh  # each CTA reads its slice of W_hh as the forward does
     else:
         # [G, gates*H, H]: the SIMT reduction then reads unit-consecutive words
         weights = w_hh.transpose(1, 2).contiguous()
-        entry += "_simt" if gates == 4 else ""
+        entry += "_simt"
     dx = torch.zeros_like(g_res)  # the kernel writes valid steps only
     if batch > 0:
         inputs = [g_res, aux] if gates == 4 else [g_res, hprev, aux]
@@ -591,7 +596,7 @@ def lstm_train_fwd(
     """Grouped LSTM forward for training -> ``(h_T [G, B, H], gates
     [T, G, B, 4H] (i, f, g, o after their activations), hprev, cprev
     [T, G, B, H])``, residuals zero past each length. On the card it runs the
-    body ``lstm_train_route(H)`` names. ``lstm_train_fwd.launches`` counts
+    body ``rnn_train_route(H)`` names. ``lstm_train_fwd.launches`` counts
     launches."""
     return _train_fwd(lstm_train_fwd, "msfa_lstm_train_fwd", 4, x_proj, w_hh, b_hh, lengths)
 
@@ -602,7 +607,7 @@ lstm_train_fwd.launches = 0
 def lstm_train_bwd(gates, hprev, cprev, w_hh, lengths, dh_out) -> torch.Tensor:
     """Grouped LSTM backward over ``lstm_train_fwd``'s residuals and the
     cotangent of ``h_T`` ``dh_out [G, B, H]`` -> ``dz [T, G, B, 4H]``, the
-    ``x_proj`` cotangent, on the body ``lstm_train_route(H)`` names.
+    ``x_proj`` cotangent, on the body ``rnn_train_route(H)`` names.
     ``lstm_train_bwd.launches`` counts launches."""
     return _train_bwd(lstm_train_bwd, "msfa_lstm_train_bwd", 4, (gates, hprev, cprev), w_hh,
                       lengths, dh_out)
@@ -618,8 +623,9 @@ def gru_train_fwd(
     lengths: Optional[torch.Tensor] = None,  # [B] int32; None = T
 ):
     """Grouped GRU forward for training -> ``(h_T, gates [T, G, B, 3H]
-    (r, z, n), hprev, hn [T, G, B, H])``, residuals zero past each length.
-    ``gru_train_fwd.launches`` counts launches."""
+    (r, z, n), hprev, hn [T, G, B, H])``, residuals zero past each length,
+    on the body ``rnn_train_route(H)`` names. ``gru_train_fwd.launches``
+    counts launches."""
     return _train_fwd(gru_train_fwd, "msfa_gru_train_fwd", 3, x_proj, w_hh, b_hh, lengths)
 
 
@@ -627,8 +633,9 @@ gru_train_fwd.launches = 0
 
 
 def gru_train_bwd(gates, hprev, hn, w_hh, lengths, dh_out) -> torch.Tensor:
-    """Grouped GRU backward -> the ``x_proj`` cotangent ``dx [T, G, B, 3H]``.
-    ``gru_train_bwd.launches`` counts launches."""
+    """Grouped GRU backward -> the ``x_proj`` cotangent ``dx [T, G, B, 3H]``,
+    on the body ``rnn_train_route(H)`` names. ``gru_train_bwd.launches``
+    counts launches."""
     return _train_bwd(gru_train_bwd, "msfa_gru_train_bwd", 3, (gates, hprev, hn), w_hh,
                       lengths, dh_out)
 

@@ -1,20 +1,24 @@
 #!/usr/bin/env python3
-"""Where a step of the cluster LSTM training kernels goes, on one CUDA card.
+"""Where a step of the cluster training kernels (LSTM and GRU) goes, on one
+CUDA card.
 
     python3 scripts/lstm_cluster_variants.py
 
 Builds variants of ``ops/csrc/rnn_train.cu`` from text edits of a copy of
 ``ops/csrc`` (under ``build/lstm_variants/``, one ``nvcc`` each, all at
-once): the kernels as they are; their chunk loops unrolled 1 or 4 deep
-instead of 2; the step product, the exchange through distributed shared
+once): the kernels as they are (the forward's chunk loop unrolled 4 deep,
+the backward's 1); both loops unrolled 1, 2 or 4 deep; the step
+product, the exchange through distributed shared
 memory or the stores to device memory compiled out, one at a time and all
 three (the cell, the staging and the cluster barrier left); clusters of 16
-CTAs (a non-portable size: 16 units a CTA, 128 CTAs at B 32); and the 3xTF32
+CTAs (a non-portable size: 16 units a CTA, 128 CTAs at B 32); the 3xTF32
 split with the hi part left to the tensor core's truncation (two operations
-per element instead of three). Each variant's ``lstm_train_fwd`` and
-``lstm_train_bwd`` run on the same inputs at T 512, G 4, B 32, H 256, every
-row whole; prints ms, µs per step and the error against the plain twins (a
-variant with a part compiled out computes something else). Then times the
+per element instead of three). Both cells share the body, so each edit moves
+both. Each
+variant's ``lstm_train_fwd`` / ``_bwd`` and ``gru_train_fwd`` / ``_bwd`` run
+on the same inputs at T 512, G 4, B 32, H 256, every row whole; prints ms,
+µs per step and the error against the plain twins (a variant with a part
+compiled out computes something else). Then times the
 exchange of one step alone: 8 CTAs of a cluster, 256 threads, each CTA
 sending 16 KB (16 rows of its 32 units of h to all 8), four ways: remote
 16-byte stores and a cluster barrier (the kernels' way), remote loads after
@@ -36,27 +40,27 @@ OUT = REPO / "build" / "lstm_variants"
 T, G, B, H = 512, 4, 32, 256
 
 FWD_LOOP = "for (int k0 = 0; k0 < H; k0 += 8 * kChunkSteps) {"
-BWD_LOOP = "for (int k0 = 0; k0 < 4 * U; k0 += 8 * kChunkSteps) {"
-FWD_UNROLL = "#pragma unroll 2  // independent chunks in flight\n"
-BWD_UNROLL = "#pragma unroll 2\n      " + BWD_LOOP
+BWD_LOOP = "for (int k0 = 0; k0 < depth; k0 += 8 * kChunkSteps) {"
+FWD_UNROLL = "#pragma unroll 4\n    " + FWD_LOOP
+BWD_UNROLL = "#pragma unroll 1\n      " + BWD_LOOP
 
 
 def _unroll(depth):
-    return [(FWD_UNROLL, f"#pragma unroll {depth}\n"),
+    return [(FWD_UNROLL, f"#pragma unroll {depth}\n    " + FWD_LOOP),
             (BWD_UNROLL, f"#pragma unroll {depth}\n      " + BWD_LOOP)]
 
 
 NO_PRODUCT = [(FWD_LOOP, FWD_LOOP.replace("k0 < H", "k0 < 0")),
-              (BWD_LOOP, BWD_LOOP.replace("k0 < 4 * U", "k0 < 0"))]
+              (BWD_LOOP, BWD_LOOP.replace("k0 < depth", "k0 < 0"))]
 NO_EXCHANGE = [("        st_peer4(", "        if (H < 0) st_peer4("),
                ("        st_peer2(peer(slot + gr", "        if (H < 0) st_peer2(peer(slot + gr"),
                ("        st_peer2(peer(slot + (gr", "        if (H < 0) st_peer2(peer(slot + (gr")]
-NO_STORES = [("        for (int q = 0; q < 4; ++q) gates[row * cols",
-              "        if (H < 0) for (int q = 0; q < 4; ++q) gates[row * cols"),
+NO_STORES = [("        for (int q = 0; q < NG; ++q) gates[row * cols",
+              "        if (H < 0) for (int q = 0; q < NG; ++q) gates[row * cols"),
              ("        hprev[row * H + j]", "        if (H < 0) hprev[row * H + j]"),
-             ("        cprev[row * H + j]", "        if (H < 0) cprev[row * H + j]"),
-             ("        for (int q = 0; q < 4; ++q) dx[row",
-              "        if (H < 0) for (int q = 0; q < 4; ++q) dx[row")]
+             ("        aux[row * H + j]", "        if (H < 0) aux[row * H + j]"),
+             ("        for (int q = 0; q < NG; ++q) dx[row",
+              "        if (H < 0) for (int q = 0; q < NG; ++q) dx[row")]
 TRUNCATED_HI = [("tf32_mma.cuh",
                  "  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;\n"
                  "  lo = __float_as_uint(x - __uint_as_float(hi));",
@@ -70,6 +74,7 @@ VARIANTS = {
     "kept": [],
     "cluster of 16": CLUSTER_16,
     "unroll 1": _unroll(1),
+    "unroll 2": _unroll(2),
     "unroll 4": _unroll(4),
     "no product": NO_PRODUCT,
     "no exchange": NO_EXCHANGE,
@@ -243,41 +248,47 @@ def main() -> int:
          str(OUT / "exchange.cu")], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
     g = torch.Generator().manual_seed(0)
-    x = torch.randn(T, G, B, 4 * H, generator=g).cuda()
-    w = ((torch.rand(G, H, 4 * H, generator=g) * 2 - 1) * H**-0.5).cuda()
-    b = ((torch.rand(G, 4 * H, generator=g) * 2 - 1) * H**-0.5).cuda()
-    dh = torch.randn(G, B, H, generator=g).cuda()
     lengths = torch.full((B,), T, dtype=torch.int32, device="cuda")
-    want = rnn.lstm_train_fwd_plain(x, w, b, lengths)
-    want_dz = rnn.lstm_train_bwd_plain(*want[1:], w, lengths, dh)
     stream = torch.cuda.current_stream().cuda_stream
-    print(f"lstm_train_fwd / lstm_train_bwd at T={T} G={G} B={B} H={H}:", flush=True)
+    cases = {}  # cell -> (x_proj, w_hh, b_hh, dh, the twins' forward, their backward)
+    for cell, gates in (("lstm", 4), ("gru", 3)):
+        x = torch.randn(T, G, B, gates * H, generator=g).cuda()
+        w = ((torch.rand(G, H, gates * H, generator=g) * 2 - 1) * H**-0.5).cuda()
+        b = ((torch.rand(G, gates * H, generator=g) * 2 - 1) * H**-0.5).cuda()
+        dh = torch.randn(G, B, H, generator=g).cuda()
+        want = getattr(rnn, f"{cell}_train_fwd_plain")(x, w, b, lengths)
+        cases[cell] = (x, w, b, dh, want,
+                       getattr(rnn, f"{cell}_train_bwd_plain")(*want[1:], w, lengths, dh))
+    print(f"{{lstm,gru}}_train_fwd / _bwd at T={T} G={G} B={B} H={H}:", flush=True)
     for name, (d, proc) in procs.items():
         output, _ = proc.communicate()
         if proc.returncode:
             raise RuntimeError(f"variant '{name}' does not build:\n{output}")
         lib = ctypes.CDLL(str(d / "lib.so"))
-        fwd, bwd = lib.msfa_lstm_train_fwd, lib.msfa_lstm_train_bwd
-        fwd.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-        bwd.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-        out = torch.empty(G, B, H, device="cuda")
-        res = [torch.zeros(T, G, B, c, device="cuda") for c in (4 * H, H, H)]
-        dz = torch.zeros_like(res[0])
-        fwd_args = [t.data_ptr() for t in (x, w, b, lengths, out, *res)] + [T, G, B, H, stream]
-        bwd_args = [t.data_ptr() for t in (want[1], want[3], w, lengths, dh, dz)] + [T, G, B, H,
-                                                                                   stream]
-        codes = fwd(*fwd_args), bwd(*bwd_args)
-        if any(codes):
-            print(f"  {name:28s} refused to launch (CUDA errors {codes})", flush=True)
-            continue
-        torch.cuda.synchronize()
-        err_fwd = (out - want[0]).abs().max().item()
-        err_bwd = ((dz - want_dz).abs().max() / want_dz.abs().max()).item()
-        f_ms = _time_ms(torch, lambda: fwd(*fwd_args))
-        b_ms = _time_ms(torch, lambda: bwd(*bwd_args))
-        print(f"  {name:28s} forward {f_ms:.4f} ms ({f_ms / T * 1e3:.3f} us a step), backward "
-              f"{b_ms:.4f} ms ({b_ms / T * 1e3:.3f}); h_T max abs err {err_fwd:.2e}, dz rel err "
-              f"{err_bwd:.2e}", flush=True)
+        for cell, (x, w, b, dh, want, want_dz) in cases.items():
+            fwd, bwd = getattr(lib, f"msfa_{cell}_train_fwd"), getattr(lib, f"msfa_{cell}_train_bwd")
+            # the backward reads the gates and c_{t-1} (LSTM) or h_{t-1} and hn (GRU)
+            res_in = (want[1], want[3]) if cell == "lstm" else want[1:]
+            fwd.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+            bwd.argtypes = [ctypes.c_void_p] * (4 + len(res_in)) + [ctypes.c_int] * 4 + \
+                [ctypes.c_void_p]
+            out = torch.empty(G, B, H, device="cuda")
+            res = [torch.zeros(T, G, B, c, device="cuda") for c in (x.shape[-1], H, H)]
+            dz = torch.zeros_like(res[0])
+            fwd_args = [t.data_ptr() for t in (x, w, b, lengths, out, *res)] + [T, G, B, H, stream]
+            bwd_args = [t.data_ptr() for t in (*res_in, w, lengths, dh, dz)] + [T, G, B, H, stream]
+            codes = fwd(*fwd_args), bwd(*bwd_args)
+            if any(codes):
+                print(f"  {name:28s} {cell} refused to launch (CUDA errors {codes})", flush=True)
+                continue
+            torch.cuda.synchronize()
+            err_fwd = (out - want[0]).abs().max().item()
+            err_bwd = ((dz - want_dz).abs().max() / want_dz.abs().max()).item()
+            f_ms = _time_ms(torch, lambda: fwd(*fwd_args))
+            b_ms = _time_ms(torch, lambda: bwd(*bwd_args))
+            print(f"  {name:28s} {cell:4s} forward {f_ms:.4f} ms ({f_ms / T * 1e3:.3f} us a step), "
+                  f"backward {b_ms:.4f} ms ({b_ms / T * 1e3:.3f}); h_T max abs err {err_fwd:.2e}, "
+                  f"dz rel err {err_bwd:.2e}", flush=True)
     output, _ = exchange.communicate()
     if exchange.returncode:
         raise RuntimeError(f"the exchange benchmark does not build:\n{output}")

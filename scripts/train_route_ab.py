@@ -11,9 +11,10 @@ checkout and builds its kernels from its ``ops/csrc``; the measuring code is
 ``chip_smoke.py``'s [train] phase of this checkout. In each process,
 ``config/base.yaml`` at full width and seeded weights on real PAMAP2 train
 windows (batch 32, every augmentation on), for the default route and
-``model.fused_mlp=true model.fused_mlp_ln=false`` at chunk 512, and for the
+``model.fused_mlp=true model.fused_mlp_ln=false`` at chunk 512, for the
 LSTM parity model (every encoder one LSTM layer, one grouped recurrence,
-``chip_smoke.rnn_overrides``) at chunk 512 and 1024: 4 micro-steps, then 8
+``chip_smoke.rnn_overrides``) at chunk 512 and 1024, and for the GRU model at
+512: 4 micro-steps, then 8
 under ``torch.profiler`` (device ms per micro-step by kernel family,
 ``chip_smoke.FAMILIES``; the device total and its busy share of the wall
 time), then the p50 of 20 micro-steps on the host clock. Prints the card's
@@ -32,11 +33,11 @@ import time
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[1]
-# route -> (overrides, chunk); None: chip_smoke.rnn_overrides' LSTM parity
-# model (every encoder one LSTM layer, grouped) at that chunk
+# route -> (overrides, chunk); a cell name: chip_smoke.rnn_overrides' parity
+# model of that cell (every encoder one layer, grouped) at that chunk
 ROUTES = {"default": ([], 512),
           "fused_mlp": (["model.fused_mlp=true", "model.fused_mlp_ln=false"], 512),
-          "lstm512": (None, 512), "lstm1024": (None, 1024)}
+          "lstm512": ("lstm", 512), "lstm1024": ("lstm", 1024), "gru512": ("gru", 512)}
 # the feed-forward pair's kernels before their 3xTF32 redesign (the SIMT row
 # walk and its second pass), so that an older tree's step splits the same way
 OLD_FAMILIES = (("fused_mlp_fwd", ("ffw_fwd_kernel",)),
@@ -67,8 +68,8 @@ def _measure(tree: Path) -> dict:
             data[chunk] = (split, smoke.index_batches(torch, split, int(cfg.dataset.batch_size),
                                                       int(cfg.seed)))
         split, idx = data[chunk]
-        if overrides is None:
-            overrides = smoke.rnn_overrides(modalities, "lstm", chunk)
+        if isinstance(overrides, str):
+            overrides = smoke.rnn_overrides(modalities, overrides, chunk)
         trainer = smoke._trainer(torch, overrides)
         step, _losses, _launches = smoke.counted_steps(torch, {}, trainer, split, idx, 4)
         families = smoke.profile_micro_steps(torch, step, split, idx, 8)

@@ -5,6 +5,8 @@ machine with one (which need not have JAX):
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_port_cuda.py -q
 """
 
+from pathlib import Path
+
 import pytest
 import torch
 
@@ -66,12 +68,11 @@ def test_packed_attention_kernel_rejects_what_it_does_not_take(card):
         ta.packed_attention_fwd(torch.zeros(2, 8, 3 * 64, device=card), lengths.long(), 1, 1.0)
 
 
-def _head_case(card, batch):
-    """Head inputs at full width (M = 4, P = 12, H = 256, C = 25) on the card,
-    the first rows' masks at the edges: no modality (the uniform fallback),
-    one, two."""
+def _head_case(card, batch, num_mod=4, hidden=256, ncls=25):
+    """Head inputs (by default at full width: M = 4, P = 12, H = 256, C = 25)
+    on the card, the first rows' masks at the edges: no modality (the uniform
+    fallback), one, two."""
     g = torch.Generator().manual_seed(batch)
-    num_mod, hidden, ncls = 4, 256, 25
     pairs = [(q, k) for q in range(num_mod) for k in range(num_mod) if q != k]
     p = len(pairs)
 
@@ -80,7 +81,8 @@ def _head_case(card, batch):
 
     projected = torch.relu(w(num_mod, batch, hidden, scale=1.0))
     mask = (torch.rand(batch, num_mod, generator=g) > 0.4).float()
-    edges = torch.tensor([[0.0, 0.0, 0.0, 0.0], [0.0, 0.0, 0.0, 1.0], [1.0, 0.0, 1.0, 0.0]])
+    edges = torch.zeros(3, num_mod)
+    edges[1, -1] = edges[2, 0] = edges[2, 2] = 1.0
     mask[:3] = edges[:batch]
     pair_params = {"value_kernel": w(p, hidden, hidden), "value_bias": w(p, hidden),
                    "out_kernel": w(p, hidden, hidden), "out_bias": w(p, hidden)}
@@ -99,6 +101,20 @@ def test_fused_head_kernel_matches_twin(card, batch):
     assert tf.fused_hybrid_head.launches == before + 1
     want = tf.fused_hybrid_head_reference(projected, mask, pair_params, *rest, pairs)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("num_mod,hidden,ncls", [(4, 640, 25), (3, 256, 300), (6, 1500, 7)])
+def test_fused_head_kernel_takes_any_width_class_count_and_modality_count(card, num_mod, hidden,
+                                                                          ncls):
+    # H 640 and 1500: K in slabs of 576; C 300: the logits read W2 from device
+    # memory; M 6 at H 1500: the gate reads its operands from device memory
+    projected, mask, pair_params, rest, pairs = _head_case(card, 33, num_mod, hidden, ncls)
+    got = tf.fused_hybrid_head(projected, mask, pair_params, *rest, pairs)
+    again = tf.fused_hybrid_head(projected, mask, pair_params, *rest, pairs)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    want = tf.fused_hybrid_head_reference(projected, mask, pair_params, *rest, pairs)
+    assert _rel_err(got, want) < 1e-5
 
 
 @pytest.mark.parametrize("batch", [5, 64])
@@ -192,6 +208,42 @@ def test_ffw_ln_kernels_match_twins(card, n, d, f, keep):
             assert torch.all(got == 0)
         else:
             assert _rel_err(got, want) < GRAD_TOL
+
+
+@pytest.mark.parametrize("n,d,dv,keep", [(300, 256, 192, 0.8), (37, 64, 48, None)])
+def test_ln_kernels_at_a_padded_width_match_twins(card, n, d, dv, keep):
+    # the model width dv run at the built width d: inputs zero past dv, the
+    # LayerNorm over dv, and nothing written past dv
+    g = torch.Generator().manual_seed(n + dv)
+    w, fmask, rmask = _ln_inputs(g, n, d, 128, keep, card)
+    cut = torch.ones(d, device=card)
+    cut[dv:] = 0.0
+
+    def v(*shape, scale=1.0):  # zero past dv in every axis of width d
+        t = w(*shape, scale=scale)
+        for axis, size in enumerate(shape):
+            if size == d:
+                t = t * cut.reshape([-1 if i == axis else 1 for i in range(len(shape))])
+        return t.contiguous()
+
+    x, dout = v(n, d), v(n, d)
+    gamma, beta = (1 + w(d, scale=0.1)) * cut, v(d, scale=0.1)
+    proj = (x, v(n, d), v(d, d, scale=dv**-0.5), v(d, scale=0.1), gamma, beta, rmask)
+    ffw = (x, v(d, 128, scale=dv**-0.5), w(128, scale=0.1), v(128, d, scale=128**-0.5),
+           v(d, scale=0.1), gamma, beta, fmask, rmask)
+    inv_keep = tm._inv_keep(1.0 if keep is None else keep)
+    for fwd, bwd, args in ((tm.proj_ln_fwd, tm.proj_ln_bwd, proj),
+                           (tm.ffw_ln_fwd, tm.ffw_ln_bwd, ffw)):
+        out = fwd(*args, inv_keep, 1e-6, d_valid=dv)
+        grads = bwd(*args, dout, inv_keep, 1e-6, d_valid=dv)
+        torch.cuda.synchronize()
+        want = fwd(*[a.cpu() if a is not None else None for a in args], inv_keep, 1e-6,
+                   d_valid=dv)
+        assert torch.all(out[:, dv:] == 0) and torch.all(grads[0][:, dv:] == 0)
+        assert _rel_err(out.cpu(), want) < GRAD_TOL
+        cpu = [a.cpu() if a is not None else None for a in (*args, dout)]
+        for got, ref in zip(grads, bwd(*cpu, inv_keep, 1e-6, d_valid=dv)):
+            assert _rel_err(got.cpu(), ref) < GRAD_TOL
 
 
 def test_ffw_ln_bwd_kernel_repeats_bit_for_bit(card):
@@ -766,30 +818,32 @@ LSTM_TRAIN_SHAPES = [  # T, G, B, H: the cluster body at B 1, 13, 32, 64 and T 1
 
 
 @pytest.mark.parametrize("steps,groups,batch,hidden", LSTM_TRAIN_SHAPES)
-def test_lstm_training_kernels_on_both_bodies_match_plain_and_repeat(card, steps, groups, batch,
-                                                                     hidden):
-    """Both LSTM training kernels on the body ``lstm_train_route`` names,
-    against their twins on the edge lengths T, 0, 1, T - 1: every output
-    within the f32 limits, exactly zero past each length, and a second launch
-    on the same inputs gives the same bits (no atomics)."""
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+def test_lstm_training_kernels_on_both_bodies_match_plain_and_repeat(card, cell, steps, groups,
+                                                                     batch, hidden):
+    """Both training kernels of each cell on the body ``rnn_train_route``
+    names, against their twins on the edge lengths T, 0, 1, T - 1: every
+    output within the f32 limits, exactly zero past each length, and a second
+    launch on the same inputs gives the same bits (no atomics)."""
     want_route = "cluster" if hidden in (64, 128, 192, 256) else "simt"
-    assert tr.lstm_train_route(hidden) == want_route
-    x_proj, w_hh, b_hh, dh, lengths = _rnn_train_inputs(card, steps, groups, batch, hidden, 4,
-                                                        steps + batch + hidden)
+    assert tr.rnn_train_route(hidden) == want_route
+    fwd, bwd = getattr(tr, f"{cell}_train_fwd"), getattr(tr, f"{cell}_train_bwd")
+    fwd_plain, bwd_plain = getattr(tr, f"{cell}_train_fwd_plain"), getattr(tr, f"{cell}_train_bwd_plain")
+    x_proj, w_hh, b_hh, dh, lengths = _rnn_train_inputs(
+        card, steps, groups, batch, hidden, 4 if cell == "lstm" else 3, steps + batch + hidden)
     edge = torch.tensor([steps, 0, 1, steps - 1], dtype=torch.int32)[:batch]
     lengths[:len(edge)] = edge.to(card)
-    before = tr.lstm_train_fwd.launches, tr.lstm_train_bwd.launches
-    got = tr.lstm_train_fwd(x_proj, w_hh, b_hh, lengths)
-    want = tr.lstm_train_fwd_plain(x_proj, w_hh, b_hh, lengths)
-    dz = tr.lstm_train_bwd(*want[1:], w_hh, lengths, dh)
-    again = tr.lstm_train_fwd(x_proj, w_hh, b_hh, lengths)
-    dz_again = tr.lstm_train_bwd(*want[1:], w_hh, lengths, dh)
+    before = fwd.launches, bwd.launches
+    got = fwd(x_proj, w_hh, b_hh, lengths)
+    want = fwd_plain(x_proj, w_hh, b_hh, lengths)
+    dz = bwd(*want[1:], w_hh, lengths, dh)
+    again = fwd(x_proj, w_hh, b_hh, lengths)
+    dz_again = bwd(*want[1:], w_hh, lengths, dh)
     torch.cuda.synchronize()
-    assert (tr.lstm_train_fwd.launches, tr.lstm_train_bwd.launches) == (before[0] + 2,
-                                                                       before[1] + 2)
+    assert (fwd.launches, bwd.launches) == (before[0] + 2, before[1] + 2)
     for a, b in zip(got, want):  # f32 both; up to 512 dependent steps
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
-    assert _rel_err(dz, tr.lstm_train_bwd_plain(*want[1:], w_hh, lengths, dh)) < 1e-4
+    assert _rel_err(dz, bwd_plain(*want[1:], w_hh, lengths, dh)) < 1e-4
     assert all(torch.equal(a, b) for a, b in zip(got, again)) and torch.equal(dz, dz_again)
     past = torch.arange(steps, device=card)[:, None] >= lengths[None, :]  # [T, B]
     assert torch.all(got[0][:, lengths == 0] == 0)  # length 0: the zero state, exactly
@@ -834,3 +888,97 @@ def test_rnn_training_kernels_reject_what_they_do_not_take(card):
         big = torch.zeros(2, 4096, 4 * 4096, device=card)
         tr.lstm_train_fwd(torch.zeros(1, 2, 3, 4 * 4096, device=card), big,
                           torch.zeros(2, 4 * 4096, device=card))
+
+
+# ---- C5: every model width the reference takes, on the card ------------------
+
+C5_NAMES = ("imu_hand", "imu_chest", "imu_ankle", "heart_rate")
+C5_DIMS = (17, 17, 17, 1)
+C5_OFF = ["model.flash_attention=false", "model.fused_mlp=false", "model.fused_mlp_ln=false"]
+
+
+def _c5_model(card, hidden, overrides=()):
+    from multimodal_sensor_fusion_with_attention_rajeevatla_torch.models.module import (
+        MultimodalFusionModel,
+    )
+    from multimodal_sensor_fusion_with_attention_rajeevatla_torch.utils.config import load_config
+
+    base = Path(__file__).resolve().parent.parent / "config" / "base.yaml"
+    cfg = load_config(base, [f"model.hidden_dim={hidden}", "training.dropout_rng=xla", *overrides])
+    return MultimodalFusionModel.from_config(cfg, device=card,
+                                             generator=torch.Generator().manual_seed(hidden))
+
+
+def _c5_batch(card, batch=8, seq=64):
+    g = torch.Generator().manual_seed(batch + seq)
+    feats = {n: torch.randn(batch, seq, d, generator=g).to(card) for n, d in zip(C5_NAMES, C5_DIMS)}
+    lengths = torch.tensor([seq, 1, 37, 0, seq - 1, 8, seq, 20][:batch], dtype=torch.int32)
+    return feats, lengths.to(card), torch.randint(0, 25, (batch,), generator=g).to(card)
+
+
+def _counted(fn):
+    kernels = (ta.packed_attention_fwd, ta.packed_attention_bwd, tm.proj_ln_fwd, tm.proj_ln_bwd,
+               tm.ffw_ln_fwd, tm.ffw_ln_bwd, tm.fused_mlp_fwd, tm.fused_mlp_bwd,
+               tf.fused_hybrid_head)
+    for k in kernels:
+        k.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k.__name__: k.launches for k in kernels if k.launches}
+
+
+# hidden -> launches of one request and of one training micro-step (4
+# encoders of one layer): at 192 the attention runs at head_dim 64 (48 padded)
+# and both residual-LN halves at d_model 256 (192 padded, the LayerNorm over
+# 192); at 640 the head runs (H above one slab: K in slabs), and head_dim 160
+# and d_model 640 are above the attention's and the layer kernels' widest
+C5_LAUNCHES = {
+    192: ({"packed_attention_fwd": 4, "fused_hybrid_head": 1},
+          {"packed_attention_fwd": 4, "packed_attention_bwd": 4, "proj_ln_fwd": 4,
+           "proj_ln_bwd": 4, "ffw_ln_fwd": 4, "ffw_ln_bwd": 4}),
+    640: ({"fused_hybrid_head": 1}, {}),
+}
+
+
+@pytest.mark.parametrize("hidden", sorted(C5_LAUNCHES))
+def test_model_widths_the_kernels_are_not_built_for_serve_and_train_on_the_card(card, hidden):
+    """``model.hidden_dim`` 192 (head_dim 48) and 640 (head_dim 160, the head's
+    H above one staged slab) serve and take one training micro-step on the card through
+    the routes their widths name, against the same weights with every kernel
+    flag off, at chip_smoke.py's limits (PERF.md section 2)."""
+    from multimodal_sensor_fusion_with_attention_rajeevatla_torch.ops.metrics import (
+        cross_entropy_loss,
+    )
+    from multimodal_sensor_fusion_with_attention_rajeevatla_torch.serving import make_serving_fn
+
+    model = _c5_model(card, hidden)
+    plain = _c5_model(card, hidden, C5_OFF)
+    plain.load_state_dict(model.state_dict())
+    feats, lengths, labels = _c5_batch(card)
+    serve = make_serving_fn(model, device=card)
+    got, launches = _counted(lambda: serve(feats, None, lengths))
+    assert launches == C5_LAUNCHES[hidden][0]
+    with torch.inference_mode():
+        want = plain.eval()(feats, None, lengths)
+    assert torch.isfinite(got).all() and (got - want).abs().max().item() < 1e-3
+
+    results = []
+    for m in (model, plain):
+        m.train()
+
+        def step(m=m):
+            logits = m(feats, None, lengths, train=True,
+                       generator=torch.Generator(device=card).manual_seed(7))
+            loss = cross_entropy_loss(logits, labels, 0.05)
+            return loss, torch.autograd.grad(loss, list(m.parameters()), allow_unused=True)
+
+        (loss, grads), launches = _counted(step)
+        results.append((loss, grads, launches))
+    (loss_k, grads_k, launches_k), (loss_p, grads_p, launches_p) = results
+    assert launches_k == C5_LAUNCHES[hidden][1] and launches_p == {}
+    assert abs(loss_k.item() - loss_p.item()) <= 1e-3 * abs(loss_p.item())
+    pairs = [(a, b) for a, b in zip(grads_k, grads_p) if b is not None]
+    floor = 1e-3 * max(b.abs().max().item() for _a, b in pairs)
+    for a, b in pairs:  # each gradient max-abs (floored), and norm-wise
+        assert (a - b).abs().max().item() / max(b.abs().max().item(), floor) < 1e-2
+        assert (a - b).norm().item() / max(b.norm().item(), floor) < 1e-3

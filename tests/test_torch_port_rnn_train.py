@@ -156,11 +156,14 @@ def test_trainable_wrappers_reject_what_they_do_not_take_and_run_without_a_graph
 
 def test_lstm_training_route_takes_the_cluster_body_where_it_fits():
     # the cluster body holds a CTA's W_hh slice in shared memory up to H 256
-    # and takes 32-deep chunks of its 4H / 8 gate columns; the rest, H of the
-    # tests above included, runs the SIMT body
-    assert [trnn.lstm_train_route(h) for h in (64, 128, 192, 256)] == ["cluster"] * 4
-    assert [trnn.lstm_train_route(h) for h in (H, 16, 32, 96, 300, 320, 384, 512)] == ["simt"] * 8
+    # and takes 32-deep chunks of its 4H / 8 gate slots (the GRU's fourth a
+    # zero column); the rest, H of the tests above included, runs the SIMT
+    # body. One route names the body of both cells' training pairs.
+    assert [trnn.rnn_train_route(h) for h in (64, 128, 192, 256)] == ["cluster"] * 4
+    assert [trnn.rnn_train_route(h) for h in (H, 16, 32, 96, 300, 320, 384, 512)] == ["simt"] * 8
     assert trnn.CLUSTER_MAX_HIDDEN == 256
+    with pytest.raises(ValueError, match="Unknown cell type"):
+        trnn.rnn_train_cluster_info("rnn", 256, 32, 4)
 
 
 NAMES = ("imu_hand", "imu_chest", "imu_ankle", "heart_rate")

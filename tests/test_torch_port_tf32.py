@@ -4,8 +4,9 @@
 ``packed_attention_bwd``, ``flash_bwd_fused``, ``flash_bwd_dkv``,
 ``flash_bwd_dq``, ``ffw_ln_fwd``, ``ffw_ln_bwd``, ``proj_ln_fwd``,
 ``proj_ln_bwd``, ``fused_mlp_fwd``, ``fused_mlp_bwd``, ``fused_hybrid_head``,
-``lstm_train_fwd``, ``lstm_train_bwd``, ``grouped_lstm_fused`` and
-``grouped_gru_fused`` (their cluster body) take each f32 product as three TF32
+``lstm_train_fwd``, ``lstm_train_bwd``, ``gru_train_fwd``, ``gru_train_bwd``,
+``grouped_lstm_fused`` and ``grouped_gru_fused`` (their cluster bodies) take
+each f32 product as three TF32
 tensor-core products (``ops/csrc/tf32_mma.cuh``): x = hi + lo, with
 hi = x rounded to TF32 (half a TF32 ulp added to the bits, the low 13 bits
 cleared) and lo = x - hi, of which the tensor core reads the top 19 bits; then
@@ -26,7 +27,11 @@ whole every step; the backward's per-CTA partials of dh summed in rank order)
 is held to ``lstm_train_fwd_plain`` / ``lstm_train_bwd_plain`` at the f32
 limits of ``test_torch_port_rnn_train.py`` and against the JAX package's
 ``grouped_lstm_trainable`` (its Pallas kernels in interpret mode) for h_T and
-the three gradients. The serving recurrences' emulation (each CTA's gate slots
+the three gradients; the GRU pair's the same way (r, z and h W_hn beside a
+zero column in the forward, b_hn inside the reset gate; the backward's
+per-CTA partials of dh at a 3U depth, and at 4U beside it) against
+``gru_train_fwd_plain`` / ``gru_train_bwd_plain`` and the JAX package's
+``grouped_gru_trainable``. The serving recurrences' emulation (each CTA's gate slots
 of W_hh and of W_ih, the GRU's candidate gate split into an h slot and an x
 slot beside zero columns, the x part over the input width padded to a
 multiple of 8) is held to ``grouped_lstm_fused_plain`` /
@@ -1021,12 +1026,12 @@ def _lstm_cluster_bwd(gates, cprev, w_hh, lengths, dh_out, mm, cluster=CLUSTER):
     return torch.stack(dz[::-1])
 
 
-def _rnn_case(steps, batch, hidden, kind):
-    rng = np.random.default_rng(steps + batch + hidden + len(kind))
+def _rnn_case(steps, batch, hidden, kind, gates=4):
+    rng = np.random.default_rng(steps + batch + hidden + len(kind) + (gates != 4))
     scale = hidden**-0.5
-    x_proj = rng.standard_normal((steps, RNN_GROUPS, batch, 4 * hidden)).astype(np.float32)
-    w_hh = rng.uniform(-scale, scale, (RNN_GROUPS, hidden, 4 * hidden)).astype(np.float32)
-    b_hh = rng.uniform(-scale, scale, (RNN_GROUPS, 4 * hidden)).astype(np.float32)
+    x_proj = rng.standard_normal((steps, RNN_GROUPS, batch, gates * hidden)).astype(np.float32)
+    w_hh = rng.uniform(-scale, scale, (RNN_GROUPS, hidden, gates * hidden)).astype(np.float32)
+    b_hh = rng.uniform(-scale, scale, (RNN_GROUPS, gates * hidden)).astype(np.float32)
     dh = rng.standard_normal((RNN_GROUPS, batch, hidden)).astype(np.float32)
     lengths = {"full": np.full((batch,), steps, np.int32), "none": None,
                "ragged": rng.integers(0, steps + 1, batch).astype(np.int32)}[kind]
@@ -1079,6 +1084,135 @@ def test_lstm_cluster_recurrences_3xtf32_match_the_jax_kernels(steps, batch, hid
     grads = (dz, torch.einsum("tgbh,tgbk->ghk", hprev, dz), dz.sum((0, 2)))
     err = np.abs(h_t.numpy() - np.asarray(want)).max()
     print(f"emulated cluster LSTM vs the JAX kernels, T={steps} B={batch} H={hidden} lengths "
+          f"{kind}: h_T max abs err {err:.3e}")
+    np.testing.assert_allclose(h_t.numpy(), np.asarray(want), **RNN_VALUE_TOL)
+    for name, g, w in zip(("x_proj", "w_hh", "b_hh"), grads, want_grads):
+        w = np.asarray(w)
+        e = np.abs(g.numpy() - w).max() / np.abs(w).max()
+        print(f"  d{name}: rel err {e:.3e} (limit {GRAD_TOL})")
+        assert e < GRAD_TOL, name
+
+
+# ------------------------------------------------ GRU training recurrences
+
+def _gru_bwd_columns(hidden, cluster):
+    """Each CTA's columns of the GRU backward's product, in the kernel's
+    order, as indices into (r, z, n) ``[3H]``: gate q of unit u at column
+    q U + u (``csrc/rnn_cluster.cuh`` ``bwd_slots``: 3, no zero column)."""
+    units = hidden // cluster
+    return [[q * hidden + rank * units + u for q in range(3) for u in range(units)]
+            for rank in range(cluster)]
+
+
+@_one_thread()
+def _gru_cluster_fwd(x_proj, w_hh, b_hh, lengths, mm):
+    """``gru_train_fwd``'s arithmetic on the cluster body: per step every
+    CTA's slots (r, z, h W_hn, a zero column) of h_{t-1} W_hh through ``mm``
+    in 32-deep fresh accumulators (a column's sum is the same whichever CTA
+    owns it), r and z from (that + x_proj) + b_hh, hn = h W_hn + b_hn inside
+    the reset gate, the carry frozen past each length -> ``(h_T, gates,
+    hprev, hn)``, residuals zero past each length."""
+    steps, groups, batch, _cols = x_proj.shape
+    hidden = w_hh.shape[1]
+    valid = trnn._valid_steps(steps, lengths, "cpu")
+    h = torch.zeros(groups, batch, hidden)
+    gates, hprev, hns = [], [], []
+    for t in range(steps):
+        keep = valid[t] if valid is not None else torch.ones(batch, 1, dtype=torch.bool)
+        hr, hz, hh = torch.stack([_mm_chunked(h[g], w_hh[g], mm) for g in range(groups)]).chunk(3, -1)
+        xr, xz, xn = x_proj[t].chunk(3, dim=-1)
+        br, bz, bn = b_hh[:, None, :].chunk(3, dim=-1)
+        r, z = torch.sigmoid(hr + xr + br), torch.sigmoid(hz + xz + bz)
+        hn = hh + bn
+        n = torch.tanh(xn + r * hn)
+        h_new = (1 - z) * n + z * h
+        gates.append(torch.where(keep, torch.cat([r, z, n], -1), 0.0))
+        hprev.append(torch.where(keep, h, 0.0))
+        hns.append(torch.where(keep, hn, 0.0))
+        h = torch.where(keep, h_new, h)
+    return h, torch.stack(gates), torch.stack(hprev), torch.stack(hns)
+
+
+@_one_thread()
+def _gru_cluster_bwd(gates, hprev, hn, w_hh, lengths, dh_out, mm, cluster=CLUSTER):
+    """``gru_train_bwd``'s arithmetic on the cluster body: reverse time, (dr,
+    dz, dn) from the residuals; each CTA's partial of dh_{t-1}, the hidden
+    path's cotangent (dr, dz, dn r) in its columns (``_gru_bwd_columns``)
+    times its W_hh slice transposed through ``mm`` in 32-deep fresh
+    accumulators; the partials summed in rank order, then dh z (or a frozen
+    row's dh) added -> dx, zero past each length."""
+    steps, groups, batch, cols = gates.shape
+    hidden = cols // 3
+    local = _gru_bwd_columns(hidden, cluster)
+    valid = trnn._valid_steps(steps, lengths, "cpu")
+    dh = dh_out.clone()
+    dx = []
+    for t in reversed(range(steps)):
+        keep = valid[t] if valid is not None else torch.ones(batch, 1, dtype=torch.bool)
+        r, z, n = gates[t].chunk(3, dim=-1)
+        dn = dh * (1 - z) * (1 - n * n)
+        dr = dn * hn[t] * r * (1 - r)
+        dz = dh * (hprev[t] - n) * z * (1 - z)
+        dx.append(torch.where(keep, torch.cat([dr, dz, dn], -1), 0.0))
+        hid = torch.where(keep, torch.cat([dr, dz, dn * r], -1), 0.0)
+        skip = torch.where(keep, dh * z, dh)
+        total = None
+        for cols_c in local:  # rank order
+            part = torch.stack([_mm_chunked(hid[k][:, cols_c], w_hh[k][:, cols_c].t(), mm)
+                                for k in range(groups)])
+            total = part if total is None else total + part
+        dh = total + skip
+    return torch.stack(dx[::-1])
+
+
+@pytest.mark.parametrize("kind", ["full", "ragged", "none"])
+@pytest.mark.parametrize(**RNN_CASES)
+def test_gru_cluster_recurrences_3xtf32_hold_the_f32_limit(steps, batch, hidden, kind):
+    x_proj, w_hh, b_hh, dh, lengths = (None if a is None else torch.from_numpy(a)
+                                       for a in _rnn_case(steps, batch, hidden, kind, gates=3))
+    want = trnn.gru_train_fwd_plain(x_proj, w_hh, b_hh, lengths)
+    want_dx = trnn.gru_train_bwd_plain(*want[1:], w_hh, lengths, dh)
+    errs, rel = {}, {}
+    for name, mm in (("3xTF32", _mm3), ("1xTF32", _mm1)):
+        got = _gru_cluster_fwd(x_proj, w_hh, b_hh, lengths, mm)
+        errs[name] = max((g - w).abs().max().item() for g, w in zip(got, want))
+        dx = _gru_cluster_bwd(*want[1:], w_hh, lengths, dh, mm)
+        rel[name] = ((dx - want_dx).abs().max() / want_dx.abs().max()).item()
+        if name == "3xTF32":
+            for g, w in zip(got, want):
+                np.testing.assert_allclose(g.numpy(), w.numpy(), **RNN_VALUE_TOL)
+            if lengths is not None:  # nothing past a row's length, exactly
+                past = torch.arange(steps)[:, None] >= lengths[None, :]
+                for r in (*got[1:], dx):
+                    assert torch.all(r.permute(0, 2, 1, 3)[past] == 0)
+                assert torch.all(got[0][:, lengths == 0] == 0)
+    print(f"GRU cluster recurrences, T={steps} G={RNN_GROUPS} B={batch} H={hidden} C={CLUSTER} "
+          f"lengths {kind}: forward max abs err 3xTF32 {errs['3xTF32']:.3e}, 1xTF32 "
+          f"{errs['1xTF32']:.3e}; backward over the largest magnitude 3xTF32 {rel['3xTF32']:.3e}, "
+          f"1xTF32 {rel['1xTF32']:.3e} (limits {RNN_VALUE_TOL}, {GRAD_TOL})")
+    assert rel["3xTF32"] < GRAD_TOL
+    assert errs["3xTF32"] * 10 < errs["1xTF32"] and rel["3xTF32"] * 10 < rel["1xTF32"]
+
+
+@pytest.mark.parametrize("kind", ["full", "ragged", "none"])
+@pytest.mark.parametrize(**RNN_CASES)
+def test_gru_cluster_recurrences_3xtf32_match_the_jax_kernels(steps, batch, hidden, kind):
+    x_proj, w_hh, b_hh, dh, lengths = _rnn_case(steps, batch, hidden, kind, gates=3)
+    jl = None if lengths is None else jnp.asarray(lengths)
+    want, vjp = jax.vjp(lambda x, w, b: jrt.grouped_gru_trainable(x, w, b, jl),
+                        *map(jnp.asarray, (x_proj, w_hh, b_hh)))
+    want_grads = vjp(jnp.asarray(dh))
+    tl = None if lengths is None else torch.from_numpy(lengths)
+    h_t, gates, hprev, hn = _gru_cluster_fwd(*map(torch.from_numpy, (x_proj, w_hh, b_hh)), tl,
+                                             _mm3)
+    dx = _gru_cluster_bwd(gates, hprev, hn, torch.from_numpy(w_hh), tl, torch.from_numpy(dh),
+                          _mm3)
+    # what _GRUTrainable.backward adds around the kernel: the hidden path's
+    # cotangent (the candidate slot times r), one product, one sum
+    dhp = torch.cat([dx[..., :2 * hidden], dx[..., 2 * hidden:] * gates[..., :hidden]], -1)
+    grads = (dx, torch.einsum("tgbh,tgbk->ghk", hprev, dhp), dhp.sum((0, 2)))
+    err = np.abs(h_t.numpy() - np.asarray(want)).max()
+    print(f"emulated cluster GRU vs the JAX kernels, T={steps} B={batch} H={hidden} lengths "
           f"{kind}: h_T max abs err {err:.3e}")
     np.testing.assert_allclose(h_t.numpy(), np.asarray(want), **RNN_VALUE_TOL)
     for name, g, w in zip(("x_proj", "w_hh", "b_hh"), grads, want_grads):
