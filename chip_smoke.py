@@ -25,21 +25,25 @@ Phases (any failure exits non-zero, and no result line is printed):
    masks and at keep 0, and at an N that is not a multiple of the 32-row
    tile; the dropout-mask generator, every byte equal to its plain version,
    at the layer's three shapes and purposes, keep 0.8 / 1 / 0 and a size that
-   is not a multiple of 4, its ``[N, 256]`` shape also timed each call
-   alone (L2-warm and L2-cold) beside ``torch.rand < keep``. Backward checks
+   is not a multiple of 4, one mask a launch and the layer's three in one
+   launch (``dropout_keep_masks``), its ``[N, 256]`` and ``[N, 2048]``
+   shapes and the three-mask launch also timed each call alone (L2-warm and
+   L2-cold) beside ``torch.rand < keep``; its SASS (``cuobjdump``) read for
+   instructions per Philox call, and its bound the larger of the integer
+   bound worked from them and the bytes bound. Backward checks
    compare every output by its max abs error relative to its largest
    magnitude. Times with CUDA events:
    kernel, plain twin, the bound, and, where one PyTorch call computes the
-   same function, that call. The twenty kernels whose products run as 3xTF32
-   on the tensor cores (``packed_attention_fwd``, ``packed_attention_bwd``,
-   ``flash_fwd_single``, ``flash_fwd_tiled``, ``flash_bwd_fused``,
-   ``flash_bwd_dkv``, ``flash_bwd_dq``, ``fused_hybrid_head``, ``ffw_ln_fwd``,
-   ``ffw_ln_bwd``, ``proj_ln_fwd``, ``proj_ln_bwd``, ``fused_mlp_fwd``,
-   ``fused_mlp_bwd``, ``lstm_train_fwd``, ``lstm_train_bwd``,
-   ``gru_train_fwd``, ``gru_train_bwd``, ``grouped_lstm_fused``,
-   ``grouped_gru_fused``) carry both
-   bounds, a third of the TF32 peak (the unit they run on) and the CUDA cores' f32
-   peak, with their share of the first; ``nvcc -Xptxas -v``'s registers,
+   same function, that call. The twenty-one kernels whose products run as
+   3xTF32 on the tensor cores (``packed_attention_fwd``,
+   ``packed_attention_bwd``, ``flash_fwd_single``, ``flash_fwd_tiled``,
+   ``flash_bwd_fused``, ``flash_bwd_dkv``, ``flash_bwd_dq``,
+   ``fused_hybrid_head``, ``ffw_ln_fwd``, ``ffw_ln_bwd``, ``proj_ln_fwd``,
+   ``proj_ln_bwd``, ``fused_mlp_fwd``, ``fused_mlp_bwd``, ``lstm_train_fwd``,
+   ``lstm_train_bwd``, ``gru_train_fwd``, ``gru_train_bwd``,
+   ``grouped_lstm_forward``, ``grouped_lstm_fused``, ``grouped_gru_fused``)
+   carry both bounds, a third of the TF32 peak (the unit they run on) and the
+   CUDA cores' f32 peak, with their share of the first; ``nvcc -Xptxas -v``'s registers,
    shared memory and spills for them are printed at setup. The two
    residual-LN kernels of each direction and the ``fused_mlp`` backward run
    twice on the same inputs, bit for bit; ``proj_ln_fwd`` is timed L2-warm and
@@ -61,12 +65,13 @@ Phases (any failure exits non-zero, and no result line is printed):
    width takes 8 micro-steps (2 AdamW updates at accumulation 4) on batch-32
    real train windows with every augmentation on. Every loss must be finite;
    the counters must read 4 launches per micro-step for the attention
-   forward and backward and the four LayerNorm kernels, 12 for the mask
-   generator, and none for the head; a second run from the same seed must
-   give the same losses bit for bit. With ``training.dropout_rng=xla`` one
-   micro-step on the kernel path is held against the plain path from the
-   same weights, batch and generator seed (loss and every parameter
-   gradient), and the step is timed beside the default one. Then the same at
+   forward and backward and the four LayerNorm kernels, 4 for the mask
+   generator (a layer's three masks in one launch), and none for the head;
+   a second run from the same seed must give the same losses bit for bit.
+   With ``training.dropout_rng=xla`` one micro-step on the kernel path is
+   held against the plain path from the same weights, batch and generator
+   seed (loss and every parameter gradient), and the step is timed beside
+   the default one. Then the same at
    ``model.fused_mlp=true model.fused_mlp_ln=false``: 4 micro-steps must
    launch the ``fused_mlp`` pair 4 times each and the LayerNorm kernels
    never, and one micro-step is held against the plain path; that route's
@@ -74,7 +79,7 @@ Phases (any failure exits non-zero, and no result line is printed):
 5. Fit: ``Trainer.fit`` on the real train/val/test splits for 2 epochs at the
    default config (checkpoints and ``results.json`` in a temporary
    directory): finite history, top-k and ``last`` checkpoints on disk, the
-   mask generator launched 12 times per micro-step.
+   mask generator launched 4 times per micro-step.
 6. Eval: the ``last`` checkpoint reloaded from its directory alone must give
    the in-memory model's test logits bit for bit; ``evaluate_checkpoint`` on
    the best checkpoint (missing-modality sweep, MC dropout, temperature
@@ -96,8 +101,8 @@ Phases (any failure exits non-zero, and no result line is printed):
    The three grouped-recurrence kernels (``ops/rnn.py``) at T = 512 and 1024,
    G = 4, B = 64, H = 256, D = 17: a real batch's lengths, the edge lengths 0,
    1, 37, T - 1, T, no lengths, and a B and a T that are not multiples of 8;
-   timed beside their plain loops and cuDNN (``nn.LSTM`` / ``nn.GRU``). The
-   two fused ones run their cluster body there: its route, CTAs and rows a
+   timed beside their plain loops and cuDNN (``nn.LSTM`` / ``nn.GRU``). All
+   three run their cluster body there: its route, CTAs and rows a
    cluster, threads, shared memory, the clusters that fit on the card at
    once, the clusters a launch runs and its waves are printed for both
    tilings (16 and 32 rows a cluster) at B 32 and 64, and the serving batch
@@ -128,7 +133,7 @@ Phases (any failure exits non-zero, and no result line is printed):
 8. Grouped: ``model.grouped_transformer=true`` at chunk 512: served (one
    forward launch per request for the whole group) against the plain path
    and against the ungrouped model carrying the same weights unstacked; 8
-   training micro-steps (1 forward, 1 fused backward, 3 mask launches each),
+   training micro-steps (1 forward, 1 fused backward, 1 mask launch each),
    twice bit for bit, one against the plain path; one epoch of ``fit`` whose
    checkpoint is rebuilt from its directory alone.
 9. Rnn: the LSTM parity model (every encoder ``encoder_type=lstm
@@ -187,7 +192,7 @@ FIT_EPOCHS = 2
 # the tensor cores, HBM3. A kernel that takes each f32 product as three TF32
 # products (3xTF32: the packed and both flash forwards, the packed, the fused
 # and the split attention backwards, the fused head, both residual-LN pairs,
-# the feed-forward pair, both training pairs and the two fused serving
+# the feed-forward pair, both training pairs and the three serving
 # recurrences on their cluster bodies) is
 # bounded by a third of the TF32 rate for the same f32 operation count
 PEAK_F32_FLOPS = 67e12
@@ -215,6 +220,7 @@ TENSOR_CORE_KERNELS = {"flash_fwd_single": ("flash_fwd_single_kernel",),
                        "lstm_train_bwd": ("lstm_train_bwd_cluster_kernel",),
                        "gru_train_fwd": ("gru_train_fwd_cluster_kernel",),
                        "gru_train_bwd": ("gru_train_bwd_cluster_kernel",),
+                       "grouped_lstm_forward": ("grouped_lstm_forward_cluster_kernel",),
                        "grouped_lstm_fused": ("grouped_lstm_fused_cluster_kernel",),
                        "grouped_gru_fused": ("grouped_gru_fused_cluster_kernel",)}
 # stated tolerances: f32 on both sides; the kernels sum in another order
@@ -859,9 +865,54 @@ def check_fused_mlp(torch, mlp, rows):
     return out_rows
 
 
+# the function's integer work a Philox4x32-10 call (ops/csrc/dropout_mask.cu),
+# counter words c2 = c3 = 0: 10 rounds of two 32x32->64-bit products, less
+# the first round's product of c2 = 0, and of two XORs; then four compares
+# with the threshold
+PHILOX_WIDE_PRODUCTS = 2 * 10 - 1
+PHILOX_ALU_OPS = 2 * 10 + 4
+# integer throughput of one SM of an H100 (CUDA C++ Programming Guide, compute
+# capability 9.0): 64 32-bit results a clock on the integer multiply (IMAD)
+# pipe, a 32x32->64-bit product two of them; 64 on the ALU pipe (logic,
+# compare)
+INT_LANES_PER_SM = 64
+
+
+def mask_int_bound(calls: float, sms: int, clock_hz: float) -> float:
+    """ms the card needs for ``calls`` Philox calls: the busier of the IMAD
+    pipe (two 32-bit results a wide product) and the ALU pipe, over ``sms``
+    SMs at ``clock_hz``."""
+    lanes = max(2 * PHILOX_WIDE_PRODUCTS, PHILOX_ALU_OPS)
+    return calls * lanes / (sms * INT_LANES_PER_SM * clock_hz) * 1e3
+
+
+def sass_opcodes(build, library: Path, kernel: str) -> dict:
+    """Opcode counts (with their modifiers, most first) of ``kernel``'s SASS
+    in the shared library at ``library`` (``cuobjdump -sass``, beside
+    ``nvcc``): a diagnostic printed beside a bound, not a bound."""
+    import collections
+    import re
+
+    tool = Path(build._nvcc()).parent / "cuobjdump"
+    out = subprocess.run([str(tool), "-sass", str(library)], capture_output=True, text=True,
+                         check=True).stdout
+    body = next((f for f in re.split(r"\n\s*Function : ", out)[1:]
+                 if kernel in f.split("\n", 1)[0]), None)
+    if body is None:
+        raise RuntimeError(f"{kernel} not found in the SASS of {library}")
+    return dict(collections.Counter(re.findall(
+        r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)", body)).most_common())
+
+
 def check_dropout_mask(torch, mlp, rows):
-    """The mask generator vs its plain version, byte for byte; returns the
-    table row (timed at the hidden mask's shape, the largest of a layer)."""
+    """The mask generator vs its plain version, byte for byte, one mask a
+    launch and a layer's three in one launch; the integer bound worked from
+    the Philox calls the masks need beside the bytes bound, the kernel's SASS
+    opcodes beside them; returns the table row (timed at the hidden mask's
+    shape, the largest of a layer, and the layer's three masks in one
+    launch)."""
+    from multimodal_sensor_fusion_with_attention_rajeevatla_torch.ops import _build
+
     d, f, keep = 256, 2048, 0.8
     seed = torch.tensor([20240229, -77], dtype=torch.int32, device="cuda")
     cases = [(rows, d, keep, mlp.RNG_P_ATT), (rows, f, keep, mlp.RNG_P_HIDDEN),
@@ -883,6 +934,22 @@ def check_dropout_mask(torch, mlp, rows):
             raise AssertionError(f"dropout_keep_mask: keep rate {rate} is off {kp} by more "
                                  f"than 4 sigma ({sigma:.2e})")
         masks[(n, width, kp, purpose)] = got
+    # a layer's three masks in one launch: the same bytes as one launch each
+    layer = ((d, mlp.RNG_P_ATT), (f, mlp.RNG_P_HIDDEN), (d, mlp.RNG_P_RES))
+    ragged = ((7, mlp.RNG_P_HIDDEN), (7, mlp.RNG_P_RES), (3, mlp.RNG_P_ATT))
+    for n, specs, kp in ((rows, layer, keep), (rows, layer, 1.0), (rows, layer, 0.0),
+                         (1021, ragged, keep)):
+        before = mlp.dropout_keep_mask.launches
+        got = mlp.dropout_keep_masks(seed, n, specs, kp)
+        torch.cuda.synchronize()
+        launches = mlp.dropout_keep_mask.launches - before
+        differ = sum(int((m != mlp.dropout_keep_mask_reference(seed, n, c, kp, p)).sum().item())
+                     for m, (c, p) in zip(got, specs))
+        print(f"  dropout_keep_masks [{n}, {'/'.join(str(c) for c, _ in specs)}] keep={kp}: "
+              f"{launches} launch, {differ} bytes differ from the plain version", flush=True)
+        mismatches += differ
+        if launches != 1:
+            raise AssertionError(f"dropout_keep_masks: {launches} launches for one layer")
     if mismatches:
         raise AssertionError(f"dropout_keep_mask: {mismatches} bytes differ from the plain version")
     att, res = masks[cases[0]], masks[cases[2]]
@@ -891,45 +958,112 @@ def check_dropout_mask(torch, mlp, rows):
     if torch.equal(att, res) or torch.equal(att, other_seed) or not torch.equal(att, again):
         raise AssertionError("dropout_keep_mask: masks must differ by purpose and seed and "
                              "repeat for the same seed")
-    timings = {}
-    for width in (f, d):
-        ms = time_ms(lambda: mlp.dropout_keep_mask(seed, rows, width, keep, mlp.RNG_P_HIDDEN))
-        plain_ms = time_ms(lambda: mlp.dropout_keep_mask_reference(
-            seed, rows, width, keep, mlp.RNG_P_HIDDEN), iters=5)
-        library_ms = time_ms(
-            lambda: (torch.rand((rows, width), device="cuda") < keep).to(torch.uint8))
-        bound_ms, bound_by = bound(0.0, float(rows * width + 8))  # bytes only: the mask, the seed
-        print(f"  dropout_keep_mask [{rows}, {width}] ms={ms:.4f} plain_ms={plain_ms:.4f} "
-              f"torch_rand_ms={library_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by}; "
-              f"{rows * width / 1e6:.2f} MB)", flush=True)
-        timings[width] = (ms, plain_ms, library_ms, bound_ms, bound_by)
-    # the residual and attention masks' shape, 8 of a micro-step's 12 launches:
-    # short enough for the host to set a back-to-back pace, so each call is
-    # also timed alone, L2-warm and L2-cold, beside the library call
-    narrow = {}
-    warm_cold(torch, narrow, lambda: mlp.dropout_keep_mask(seed, rows, d, keep, mlp.RNG_P_RES),
-              f"dropout_keep_mask [{rows}, {d}]")
+
+    # the integer bound, worked from the function: elements / 4 Philox calls
+    # at the card's integer rate and maximum SM clock
+    info = (ctypes.c_int * 3)()
+    if _build.library("dropout_mask").msfa_dropout_mask_info(info):
+        raise RuntimeError("msfa_dropout_mask_info failed")
+    threads, calls_per_iter, resident = info[0], info[1], info[2]
+    opcodes = sass_opcodes(_build, _build._target("dropout_mask"), "dropout_mask_kernel")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clock_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.split()[0])
+    print(f"  integer work a Philox call: {PHILOX_WIDE_PRODUCTS} wide products "
+          f"({2 * PHILOX_WIDE_PRODUCTS} IMAD-pipe results), {PHILOX_ALU_OPS} ALU operations; "
+          f"{sms} SMs at {clock_mhz:.0f} MHz (clocks.max.sm), {INT_LANES_PER_SM} lanes a clock "
+          f"per pipe and SM; the kernel: {threads} threads a block, {resident} blocks resident, "
+          f"{calls_per_iter} Philox calls a pass of its loop; its SASS (diagnostic, "
+          f"{sum(opcodes.values())} instructions): {list(opcodes.items())[:12]}", flush=True)
+
+    def bounds(elements, label):
+        """(bound ms, by, bytes bound ms, integer bound ms) of ``elements``
+        mask bytes: the mask and the seed moved; elements / 4 Philox calls."""
+        b_bytes, _ = bound(0.0, float(elements + 8))
+        b_int = mask_int_bound(elements / 4, sms, clock_mhz * 1e6)
+        print(f"  {label}: bound_ms={max(b_bytes, b_int):.4f} (integer operations "
+              f"{b_int:.4f}: {elements / 4 / 1e6:.2f} M Philox calls; bytes {b_bytes:.4f}: "
+              f"{elements / 1e6:.2f} MB)", flush=True)
+        return (max(b_bytes, b_int), "operations" if b_int >= b_bytes else "bytes", b_bytes,
+                b_int)
+
+    # each shape's call alone, L2-warm and L2-cold, and back to back (at the
+    # residual and attention masks' shape the host sets the back-to-back
+    # pace), beside the plain version and the library call
     flush = torch.empty(FLUSH_FLOATS, device="cuda")
+    timed = {}
+    for width in (f, d):
+        row = timed[width] = {}
+        warm_cold(torch, row, lambda: mlp.dropout_keep_mask(seed, rows, width, keep,
+                                                            mlp.RNG_P_HIDDEN),
+                  f"dropout_keep_mask [{rows}, {width}]")
 
-    def lib_call():
-        return (torch.rand((rows, d), device="cuda") < keep).to(torch.uint8)
+        def lib_call():
+            return (torch.rand((rows, width), device="cuda") < keep).to(torch.uint8)
 
-    narrow["library_ms"], narrow["library_ms_cold"] = device_ms(lib_call), device_ms(lib_call,
-                                                                                      flush=flush)
+        row["plain_ms"] = time_ms(lambda: mlp.dropout_keep_mask_reference(
+            seed, rows, width, keep, mlp.RNG_P_HIDDEN), iters=5)
+        row["library_ms"], row["library_ms_cold"] = device_ms(lib_call), device_ms(lib_call,
+                                                                                    flush=flush)
+        row["library_ms_back_to_back"] = time_ms(lib_call)
+        row["bound_ms"], row["bound_by"], row["bound_ms_bytes"], row["bound_ms_int"] = bounds(
+            rows * width, f"[{rows}, {width}]")
+        print(f"  [{rows}, {width}] plain_ms={row['plain_ms']:.4f}; torch.rand < keep "
+              f"{row['library_ms']:.4f} L2-warm, {row['library_ms_cold']:.4f} L2-cold (each call "
+              f"alone), {row['library_ms_back_to_back']:.4f} back to back", flush=True)
+    # a layer's three masks: one launch, against one launch a mask and three
+    # library calls; back to back and each call alone
+    trio = {}
+    warm_cold(torch, trio, lambda: mlp.dropout_keep_masks(seed, rows, layer, keep),
+              f"dropout_keep_masks [{rows}, {d}/{f}/{d}] (one launch)")
+
+    def one_each():
+        return [mlp.dropout_keep_mask(seed, rows, c, keep, p) for c, p in layer]
+
+    def lib_each():
+        return [(torch.rand((rows, c), device="cuda") < keep).to(torch.uint8) for c, _ in layer]
+
+    trio["one_each_ms"], trio["one_each_ms_alone"] = time_ms(one_each), device_ms(one_each)
+    trio["library_ms"], trio["library_ms_alone"] = time_ms(lib_each), device_ms(lib_each)
     del flush
-    print(f"  torch.rand < keep [{rows}, {d}] ms={narrow['library_ms']:.4f} L2-warm, "
-          f"{narrow['library_ms_cold']:.4f} L2-cold (each call alone)", flush=True)
-    ms, plain_ms, library_ms, bound_ms, bound_by = timings[f]
+    trio_bound = bounds(rows * (2 * d + f), f"the layer's three masks, [{rows}, {d}/{f}/{d}]")
+    wide, narrow = timed[f], timed[d]
+    print(f"  one launch a mask: {trio['one_each_ms']:.4f} ms back to back, "
+          f"{trio['one_each_ms_alone']:.4f} alone; torch.rand < keep x3 "
+          f"{trio['library_ms']:.4f} back to back, {trio['library_ms_alone']:.4f} alone; the "
+          f"three-mask launch alone is {trio['ms'] / wide['ms']:.3f}x the wide mask alone",
+          flush=True)
+    # the row: the wide mask, `ms` back to back (as every other row's `ms`)
+    # and `ms_alone` its call alone
     return {
         "name": "dropout_keep_mask", "route": "cuda",
         "source": f"{PKG}/ops/csrc/dropout_mask.cu",
         "replaces": f"{TPU_PKG}/ops/pallas_mlp.py:168",
-        "max_abs_err": float(mismatches), "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+        "max_abs_err": float(mismatches), "ms": wide["ms_back_to_back"],
+        "plain_ms": wide["plain_ms"], "bound_ms": wide["bound_ms"], "bound_by": wide["bound_by"],
+        "library_ms": wide["library_ms_back_to_back"], "bound_ms_bytes": wide["bound_ms_bytes"],
+        "bound_ms_int": wide["bound_ms_int"],
+        "bound_share": wide["bound_ms"] / wide["ms_back_to_back"],
+        "ms_alone": wide["ms"], "ms_alone_cold": wide["ms_cold"],
+        "bound_share_alone": wide["bound_ms"] / wide["ms"],
+        "library_ms_alone": wide["library_ms"], "library_ms_alone_cold": wide["library_ms_cold"],
+        "int_work": {"wide_products_a_call": PHILOX_WIDE_PRODUCTS,
+                     "alu_ops_a_call": PHILOX_ALU_OPS, "sms": sms, "clock_mhz": clock_mhz,
+                     "resident_blocks": resident, "sass_opcodes": opcodes},
         f"n{d}": {"shape": [rows, d], "ms_alone": narrow["ms"], "ms_alone_cold": narrow["ms_cold"],
-                  "ms_back_to_back": narrow["ms_back_to_back"], "plain_ms": timings[d][1],
+                  "ms_back_to_back": narrow["ms_back_to_back"], "plain_ms": narrow["plain_ms"],
                   "library_ms": narrow["library_ms"], "library_ms_cold": narrow["library_ms_cold"],
-                  "library_ms_back_to_back": timings[d][2], "bound_ms": timings[d][3]},
+                  "library_ms_back_to_back": narrow["library_ms_back_to_back"],
+                  "bound_ms": narrow["bound_ms"], "bound_ms_bytes": narrow["bound_ms_bytes"],
+                  "bound_ms_int": narrow["bound_ms_int"]},
+        "layer": {"shape": [rows, [d, f, d]], "ms": trio["ms_back_to_back"],
+                  "ms_alone": trio["ms"], "ms_alone_cold": trio["ms_cold"],
+                  "one_launch_a_mask_ms": trio["one_each_ms"],
+                  "one_launch_a_mask_ms_alone": trio["one_each_ms_alone"],
+                  "library_ms": trio["library_ms"], "library_ms_alone": trio["library_ms_alone"],
+                  "bound_ms": trio_bound[0], "bound_ms_bytes": trio_bound[2],
+                  "bound_ms_int": trio_bound[3]},
     }
 
 
@@ -1293,22 +1427,26 @@ def check_flash_kernels(torch, attn, real_lengths):
 RNN_G, RNN_H, RNN_D = 4, 256, 17  # the parity model's group: 4 modalities, hidden 256, D_max 17
 
 
-FUSED = ("grouped_lstm_fused", "grouped_gru_fused")  # rows 17-18: the cluster body at H 256
+# rows 16-18: the serving cluster body at H 256 (row 16 over the precomputed x_proj)
+CLUSTER_SERVING = ("grouped_lstm_forward", "grouped_lstm_fused", "grouped_gru_fused")
 
 
 def rnn_cluster_geometry(rnn):
-    """Print the serving cluster body's launch for rows 17-18 at the
+    """Print the serving cluster body's launch for rows 16-18 at the
     evaluation (32) and serving (64) batch; fail unless they take the
     cluster body and the serving batch runs in one wave. Returns the info
     by (kernel, batch)."""
     out = {}
-    for name in FUSED:
+    for name in CLUSTER_SERVING:
         cell = name.split("_")[1]
-        route = rnn.grouped_fused_route(RNN_H, RNN_D)
+        proj = name == "grouped_lstm_forward"
+        route = rnn.grouped_lstm_forward_route(RNN_H) if proj else \
+            rnn.grouped_fused_route(RNN_H, RNN_D)
         if route != "cluster":
             raise AssertionError(f"{name} must run its cluster body at H {RNN_H}, D {RNN_D}")
         for batch in (32, BATCH):
-            info = rnn.grouped_fused_cluster_info(cell, RNN_H, RNN_D, batch, RNN_G)
+            info = rnn.grouped_lstm_forward_cluster_info(RNN_H, batch, RNN_G) if proj else \
+                rnn.grouped_fused_cluster_info(cell, RNN_H, RNN_D, batch, RNN_G)
             picked = info[f"rows{info['rows']}"]
             tilings = "; ".join(
                 f"{rows} rows: {t['threads']} threads, {t['smem_bytes']} bytes of shared "
@@ -1328,7 +1466,7 @@ def rnn_cluster_geometry(rnn):
 def check_rnn_kernels(torch, rnn, real_lengths):
     """The three grouped-recurrence kernels vs their plain versions at the
     parity model's shapes; ``real_lengths[T]`` are a real batch-64's lengths
-    at chunk T. Rows 17-18 (their cluster body) also launch twice on every
+    at chunk T. All three (their cluster body) also launch twice on every
     case, bit for bit, and run both tilings (16 and 32 rows a cluster) at
     B 32 and 64, each held to its plain version and timed. Returns the three
     table rows."""
@@ -1372,7 +1510,7 @@ def check_rnn_kernels(torch, rnn, real_lengths):
             for name in names:
                 kernel, plain = calls(name, xc, lens)
                 got = kernel()
-                again = kernel() if name in FUSED else got
+                again = kernel()
                 torch.cuda.synchronize()
                 want = plain()
                 e = (got - want).abs().max().item()
@@ -1383,11 +1521,10 @@ def check_rnn_kernels(torch, rnn, real_lengths):
                 if not torch.equal(got, again):
                     raise AssertionError(f"{name} {label}: a second launch gave other bits")
                 print(f"  {name} T={xc.shape[0]} B={xc.shape[2]} {label}: max_abs_err {e:.3e} "
-                      f"(tol {RNN_TOL}){'; repeats bit for bit' if name in FUSED else ''}",
-                      flush=True)
+                      f"(tol {RNN_TOL}); repeats bit for bit", flush=True)
                 errs[name] = max(errs[name], e)
-        # rows 17-18 at both tilings, the evaluation and the serving batch
-        for name in FUSED:
+        # rows 16-18 at both tilings, the evaluation and the serving batch
+        for name in CLUSTER_SERVING:
             for batch in (32, BATCH):
                 xb = x[:, :, :batch].contiguous()
                 for rows in rnn.CLUSTER_ROWS:
@@ -1442,7 +1579,7 @@ def check_rnn_kernels(torch, rnn, real_lengths):
             w_floats = RNN_G * gates * RNN_H * (RNN_H + in_cols + (2 if gates == 3 else 1))
             nbytes = 4.0 * (in_floats + w_floats + BATCH + RNN_G * BATCH * RNN_H)
             bound_ms, bound_by = bound(flops, nbytes)
-            if name in FUSED:  # on the tensor cores: their bound first, the CUDA cores' beside it
+            if name in CLUSTER_SERVING:  # 3xTF32: their bound first, the CUDA cores' beside it
                 b3, _ = bound(flops, nbytes, PEAK_3XTF32_FLOPS)
                 bounds = (f"bound_ms={b3:.4f} on 3xTF32, share {100 * b3 / ms:.1f}% (f32 CUDA "
                           f"cores {bound_ms:.4f}; {bound_by})")
@@ -1468,7 +1605,7 @@ def check_rnn_kernels(torch, rnn, real_lengths):
             **{f"{key}_t1024": value for key, value in zip(
                 ("ms", "plain_ms", "library_ms", "bound_ms"), timed[(name, 1024)])},
         }
-        if b3 is not None:  # rows 17-18: the 3xTF32 bound, the CUDA cores' beside it
+        if b3 is not None:  # rows 16-18: the 3xTF32 bound, the CUDA cores' beside it
             row["body"] = f"{PKG}/ops/csrc/rnn_cluster_fused.cuh"
             row["bound_ms_f32"], row["bound_ms_f32_t1024"] = bound_ms, timed[(name, 1024)][3]
             row["bound_ms"], row["bound_ms_t1024"] = b3, timed[(name, 1024)][5]
@@ -1913,7 +2050,7 @@ def train_phase(torch, kernels, split, train_idx, smi):
     want = dict.fromkeys(kernels, 0)
     for name in ("packed_attention_fwd", "packed_attention_bwd", *ln_kernels):
         want[name] = TRAIN_STEPS * per_step
-    want["dropout_keep_mask"] = 3 * TRAIN_STEPS * per_step
+    want["dropout_keep_mask"] = TRAIN_STEPS * per_step  # a layer's three masks: one launch
     print(f"  default config: {TRAIN_STEPS} micro-steps, {trainer.optimizer.count} updates; "
           f"losses {[round(v, 5) for v in losses]}", flush=True)
     print(f"  launches: {launches} (want {want})", flush=True)
@@ -1938,7 +2075,7 @@ def train_phase(torch, kernels, split, train_idx, smi):
     want = dict.fromkeys(kernels, 0)
     for name in ("packed_attention_fwd", "packed_attention_bwd", "fused_mlp_fwd", "fused_mlp_bwd"):
         want[name] = FUSED_MLP_STEPS * per_step
-    want["dropout_keep_mask"] = 3 * FUSED_MLP_STEPS * per_step
+    want["dropout_keep_mask"] = FUSED_MLP_STEPS * per_step
     print(f"  fused_mlp route: {FUSED_MLP_STEPS} micro-steps; losses "
           f"{[round(v, 5) for v in mlp_losses]}", flush=True)
     print(f"  launches: {mlp_launches} (want {want})", flush=True)
@@ -2082,7 +2219,7 @@ def long_phase(torch, kernels, modalities, stride, seed, smi):
             backward = {"flash_bwd_fused": 4} if chunk <= 1024 else \
                 {"flash_bwd_dkv": 4, "flash_bwd_dq": 4}
             want = {"flash_fwd_single": 4, **backward, **dict.fromkeys(LN_KERNELS, 4),
-                    "dropout_keep_mask": 12}
+                    "dropout_keep_mask": 4}
             out[f"train{chunk}"] = train_route(
                 torch, kernels, override, split, index_batches(torch, split, 32, seed),
                 f"L{chunk}", smi, want)
@@ -2155,7 +2292,7 @@ def grouped_phase(torch, kernels, split, batches, train_idx, default_serve_p50, 
     idx = [torch.from_numpy(row).long() for row in train_idx]
     launches["train"] = train_route(
         torch, kernels, route, split, idx, "G512", smi,
-        {"flash_fwd_single": 1, "flash_bwd_fused": 1, "dropout_keep_mask": 3})
+        {"flash_fwd_single": 1, "flash_bwd_fused": 1, "dropout_keep_mask": 1})
 
     # one epoch of fit, and the checkpoint's bundled config rebuilds the grouped model
     trainer = _trainer(torch, [
@@ -2190,8 +2327,8 @@ def grouped_phase(torch, kernels, split, batches, train_idx, default_serve_p50, 
 C5_WIDTHS = {
     192: ({"packed_attention_fwd": 4, "fused_hybrid_head": 1},
           {"packed_attention_fwd": 4, "packed_attention_bwd": 4, "proj_ln_fwd": 4,
-           "proj_ln_bwd": 4, "ffw_ln_fwd": 4, "ffw_ln_bwd": 4, "dropout_keep_mask": 12}),
-    640: ({"fused_hybrid_head": 1}, {"dropout_keep_mask": 12}),
+           "proj_ln_bwd": 4, "ffw_ln_fwd": 4, "ffw_ln_bwd": 4, "dropout_keep_mask": 4}),
+    640: ({"fused_hybrid_head": 1}, {"dropout_keep_mask": 4}),
 }
 C5_STEPS = 4  # one optimizer update at accumulation 4
 
@@ -2462,12 +2599,18 @@ def rnn_phase(torch, kernels, split, modalities, stride, seed, smi, workdir: Pat
             launches = {k: fn.launches for k, fn in kernels.items()}
             want = {**dict.fromkeys(kernels, 0), "grouped_lstm_forward": 1, "fused_hybrid_head": 1}
             e = (routed - serve(feats, None, lengths)).abs().max().item()
-            print(f"  {label}: x_proj ({x_proj.numel() * 4 / 1e6:.0f} MB) -> grouped_lstm_forward -> "
-                  f"projection, LayerNorms, head kernel: logits max_abs_err vs the served ones "
-                  f"(SIMT body vs cluster body) {e:.3e} (tol {RNN_ROUTE_TOL}); launches "
-                  f"{launches}", flush=True)
-            if launches != want or e > RNN_ROUTE_TOL:
-                raise AssertionError(f"{label}: the grouped_lstm_forward path is off: {e}, {launches}")
+            with torch.inference_mode():  # a second launch on the same inputs
+                again = torch.equal(final, rnn.grouped_lstm_forward(
+                    x_proj, enc.weight_hh_l0.detach(), enc.bias_hh_l0.detach(),
+                    lengths.to(torch.int32)))
+            print(f"  {label}: x_proj ({x_proj.numel() * 4 / 1e6:.0f} MB) -> grouped_lstm_forward "
+                  f"(route {rnn.grouped_lstm_forward_route(enc.hidden_dim)}) -> projection, "
+                  f"LayerNorms, head kernel: logits max_abs_err vs the served ones (x_proj read "
+                  f"vs x W_ih computed in the kernel) {e:.3e} (tol {RNN_ROUTE_TOL}); a second "
+                  f"launch bit for bit: {again}; launches {launches}", flush=True)
+            if launches != want or e > RNN_ROUTE_TOL or not again:
+                raise AssertionError(f"{label}: the grouped_lstm_forward path is off: {e}, "
+                                     f"{launches}, repeats: {again}")
             out[f"forward_{cell}{chunk}"] = launches
             del x_proj, stacked
 
@@ -2699,7 +2842,7 @@ def fit_and_eval_phase(torch, kernels, smi, workdir: Path):
             or not math.isfinite(results["best_val_loss"]):
         raise AssertionError(f"fit history is not {FIT_EPOCHS} finite epochs: {history}")
     per_step = 4  # encoders, one layer each
-    want = {"dropout_keep_mask": 3 * per_step * steps, "packed_attention_bwd": per_step * steps,
+    want = {"dropout_keep_mask": per_step * steps, "packed_attention_bwd": per_step * steps,
             "proj_ln_fwd": per_step * steps, "proj_ln_bwd": per_step * steps,
             "ffw_ln_fwd": per_step * steps, "ffw_ln_bwd": per_step * steps,
             "fused_hybrid_head": 0, "fused_mlp_fwd": 0, "fused_mlp_bwd": 0}

@@ -21,7 +21,8 @@ FFW-side residual ``[B,T,H]``, then the pooled vector), so the kernel path
 and the plain path consume the same masks. ``training.dropout_rng`` picks
 their source (``resolve_dropout_rng``): the Philox generator kernel
 ``ops.mlp.dropout_keep_mask``, seeded per layer with two words drawn from the
-caller's ``torch.Generator``, or plain ``torch.rand`` draws from that
+caller's ``torch.Generator`` (a layer's three masks in one launch,
+``ops.mlp.dropout_keep_masks``), or plain ``torch.rand`` draws from that
 generator. There is no dropout on the attention probabilities. With
 ``fused_mlp`` and ``fused_mlp_ln`` on, train mode runs the layer's two
 halves through ``ops.mlp.fused_proj_residual_ln`` and
@@ -71,7 +72,7 @@ from ..ops.mlp import (
     RNG_P_ATT,
     RNG_P_HIDDEN,
     RNG_P_RES,
-    dropout_keep_mask,
+    dropout_keep_masks,
     fused_mlp_residual_ln,
     fused_proj_residual_ln,
     kernel_rng_seed,
@@ -232,23 +233,24 @@ class TransformerEncoderLayer(nn.Module):
         source = resolve_dropout_rng(
             self.dropout_rng, x.device.type, self.use_flash or self.use_fused_mlp
         )
-        if drop and source == "kernel":
-            # one two-word seed per layer, drawn once before the first mask;
-            # the three masks differ by their purpose
-            seed = kernel_rng_seed(generator, x.device)
-
-            def draw(width, purpose):
-                return dropout_keep_mask(seed, rows, width, keep_prob, purpose).reshape(
-                    batch, seq_len, width)
-        else:
-            def draw(width, _purpose):
-                return keep_mask((batch, seq_len, width), keep_prob, generator, x.device)
-
         def drop_where(mask, y):
             return torch.where(mask.bool(), y / keep_prob, 0.0)
 
         attended = self._attend(x, key_padding_mask)
-        att_mask = draw(hidden, RNG_P_ATT) if drop else None
+        att_mask = ffw_mask = res_mask = None
+        if drop:
+            specs = ((hidden, RNG_P_ATT), (self.linear1.out_features, RNG_P_HIDDEN),
+                     (hidden, RNG_P_RES))
+            if source == "kernel":
+                # one two-word seed per layer; the three masks differ by their
+                # purpose and come from one launch
+                seed = kernel_rng_seed(generator, x.device)
+                masks = [m.reshape(batch, seq_len, width) for m, (width, _) in
+                         zip(dropout_keep_masks(seed, rows, specs, keep_prob), specs)]
+            else:
+                masks = [keep_mask((batch, seq_len, width), keep_prob, generator, x.device)
+                         for width, _ in specs]
+            att_mask, ffw_mask, res_mask = masks
         if fused:
             x = fused_proj_residual_ln(
                 x.reshape(rows, hidden), attended.reshape(rows, hidden),
@@ -260,8 +262,6 @@ class TransformerEncoderLayer(nn.Module):
             if att_mask is not None:
                 y = drop_where(att_mask, y)
             x = self.norm1(x + y)
-        ffw_mask = draw(self.linear1.out_features, RNG_P_HIDDEN) if drop else None
-        res_mask = draw(hidden, RNG_P_RES) if drop else None
         if fused:
             return fused_mlp_residual_ln(
                 x.reshape(rows, hidden), self.linear1.weight.t(), self.linear1.bias,

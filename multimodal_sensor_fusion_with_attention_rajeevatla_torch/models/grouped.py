@@ -28,11 +28,12 @@ same head-count rule, no attention-probability dropout.
 
 Training: one mask ``[G, B, T, cols]`` per purpose covers the whole group,
 drawn in the layer's fixed order (attention-side residual, hidden, FFW-side
-residual), from the generator kernel ``ops.mlp.dropout_keep_mask`` when
-``dropout_rng`` is ``auto`` or ``kernel``, the tensors are on the card and
-``flash_attention`` is on, else from ``torch.rand`` on the caller's
-generator. The grouped encoder does not use the fused projection/FFW
-LayerNorm kernels; the reference does not either.
+residual), from the generator kernel when ``dropout_rng`` is ``auto`` or
+``kernel``, the tensors are on the card and ``flash_attention`` is on (a
+layer's three masks in one launch, ``ops.mlp.dropout_keep_masks``), else
+from ``torch.rand`` on the caller's generator. The grouped encoder does
+not use the fused projection/FFW LayerNorm kernels; the reference does not
+either.
 """
 
 from __future__ import annotations
@@ -48,7 +49,7 @@ from ..ops.mlp import (
     RNG_P_ATT,
     RNG_P_HIDDEN,
     RNG_P_RES,
-    dropout_keep_mask,
+    dropout_keep_masks,
     kernel_rng_seed,
     ln_rows,
 )
@@ -281,32 +282,39 @@ class GroupedTransformerEncoder(nn.Module):
         keep_prob = 1.0 - self.dropout
         drop = train and self.dropout > 0.0
         source = resolve_dropout_rng(self.dropout_rng, stacked.device.type, self.use_flash)
-        if drop and source == "kernel":
+        kernel_masks = drop and source == "kernel"
+        if kernel_masks:
             seed = kernel_rng_seed(generator, stacked.device)  # one seed for the whole stack
+            specs = ((self.hidden_dim, RNG_P_ATT), (self.dim_feedforward, RNG_P_HIDDEN),
+                     (self.hidden_dim, RNG_P_RES))
 
-            def draw(cols, purpose):
-                return dropout_keep_mask(
-                    seed, groups * batch * seq_len, cols, keep_prob, purpose
-                ).reshape(groups, batch, seq_len, cols)
-        else:
-            def draw(cols, _purpose):
-                return keep_mask((groups, batch, seq_len, cols), keep_prob, generator,
-                                 stacked.device)
+        def layer_masks():
+            """A layer's three masks by purpose, one launch; None: drawn one
+            by one from ``torch.rand`` where they are used."""
+            if not kernel_masks:
+                return None
+            masks = dropout_keep_masks(seed, groups * batch * seq_len, specs, keep_prob)
+            return {p: m.reshape(groups, batch, seq_len, cols)
+                    for (cols, p), m in zip(specs, masks)}
 
-        def drop_where(y, cols, purpose):
+        def drop_where(y, cols, purpose, masks):
             if not drop:
                 return y
-            return torch.where(draw(cols, purpose).bool(), y / keep_prob, 0.0)
+            mask = masks[purpose] if masks is not None else keep_mask(
+                (groups, batch, seq_len, cols), keep_prob, generator, stacked.device)
+            return torch.where(mask.bool(), y / keep_prob, 0.0)
 
         valid_mask = lengths_to_mask(lengths, seq_len) if lengths is not None else None
         x = self._dense("input_projection", stacked)
         for layer in range(self.num_layers):
             attended = self._attend(layer, x, lengths, valid_mask)
-            y = drop_where(self._dense(f"out_proj_l{layer}", attended), self.hidden_dim, RNG_P_ATT)
+            masks = layer_masks()
+            y = drop_where(self._dense(f"out_proj_l{layer}", attended), self.hidden_dim, RNG_P_ATT,
+                           masks)
             x = self._norm(f"norm1_l{layer}", x + y)
             h = torch.relu(self._dense(f"linear1_l{layer}", x))
-            h = drop_where(h, self.dim_feedforward, RNG_P_HIDDEN)
-            ff = drop_where(self._dense(f"linear2_l{layer}", h), self.hidden_dim, RNG_P_RES)
+            h = drop_where(h, self.dim_feedforward, RNG_P_HIDDEN, masks)
+            ff = drop_where(self._dense(f"linear2_l{layer}", h), self.hidden_dim, RNG_P_RES, masks)
             x = self._norm(f"norm2_l{layer}", x + ff)
         pooled = masked_mean_pool(
             x, valid_mask[None] if valid_mask is not None else None, dim=2, min_denom=1.0

@@ -17,16 +17,18 @@
 // 2 G B H (4H + 4D) = 0.14 GFLOP at G 4, B 64, H 256, D 17; at T 512 and a
 // real batch's lengths the LSTM's whole call is 70.95 GFLOP (row 17 of
 // PERF.md's kernel table), 0.43 ms on the 3xTF32 tensor cores, 1.06 on the
-// CUDA cores, against a few KB of input per step; and the T steps depend on
+// CUDA cores, against a few KB of input per step (row 16 over x_proj: 66.53
+// GFLOP, 0.40 ms, against 537 MB of x_proj, 0.16 ms); and the T steps depend on
 // each other, so the sequence cannot be spread over time. What sets the time
 // is a step's chain: its product, the exchange of h and a barrier.
 //
-// grouped_lstm_fused and grouped_gru_fused run rnn_cluster_fused.cuh's body
-// where H is a multiple of 64 up to 256 and D at most 64 (ops/rnn.py's
-// grouped_fused_route): one cluster of 8 CTAs per (group, tile of 16 or 32
-// batch rows), each CTA holding its units' slices of W_hh and W_ih in shared
-// memory for the whole sequence, computing the input projection itself from
-// raw x (no x_proj in device memory, as in the reference), running the step
+// All three run rnn_cluster_fused.cuh's body where H is a multiple of 64 up
+// to 256 (and, for the two fused ones, D at most 64; ops/rnn.py's
+// grouped_fused_route and grouped_lstm_forward_route): one cluster of 8 CTAs
+// per (group, tile of 16 or 32 batch rows), each CTA holding its units'
+// slices of W_hh and W_ih in shared memory for the whole sequence, computing
+// the input projection itself from raw x (no x_proj in device memory, as in
+// the reference), running the step
 // products as 3xTF32 mma.sync and exchanging the new h through distributed
 // shared memory, one cluster barrier a step; the x part of the next step
 // runs while a CTA waits at that barrier. A step then costs one CTA's
@@ -42,10 +44,15 @@
 // does not hide, barrier, cell and staging ~1.4), at 32 rows 8.2 (product
 // ~4.4, exchange ~1.2); the LSTM at T 512, B 64 4.21 ms against the SIMT
 // body's 10.48 (scripts/attention_kernels_ab.py, the same call).
+// grouped_lstm_forward (row 16) is the same body with the x part read from
+// the precomputed x_proj (rnn_cluster_fused.cuh's kXProj): no W_ih slice and
+// no x product, each lane's 16 x_proj values loaded into registers one step
+// ahead during the barrier wait: 4.1 ms (8.0 us a step) at T 512, B 64,
+// where the SIMT body below took 7.4 ms (14.6 us), streaming W_hh from the
+// L2 (scripts/attention_kernels_ab.py, the same call).
 //
-// The SIMT body (rnn_cell.cuh), kept for grouped_lstm_forward (row 16: the
-// recurrence over a precomputed x_proj) and for the H and D the cluster body
-// does not take (the *_simt entries of the two fused kernels): the TPU
+// The SIMT body (rnn_cell.cuh), kept for the H and D the cluster body does
+// not take (the *_simt entries of the three kernels): the TPU
 // kernel keeps W_hh [G, H, 4H] (1 MB per group) and the carries in VMEM for
 // the whole sequence and walks a sequential grid of time blocks. An SM has
 // 227 KB of shared memory, so there the weights stream: they are read again
@@ -124,6 +131,16 @@ grouped_gru_fused_kernel(const float* __restrict__ x, const float* __restrict__ 
 // the cluster body (rnn_cluster_fused.cuh), MT m16 tiles of batch rows a CTA
 template <int MT>
 __global__ void __launch_bounds__(msfa_cluster::fused_max_threads(MT), 1)
+grouped_lstm_forward_cluster_kernel(const float* __restrict__ x_proj,
+                                    const float* __restrict__ w_hh, const float* __restrict__ b_hh,
+                                    const int* __restrict__ lengths, float* __restrict__ out,
+                                    int T, int G, int B, int H) {
+  msfa_cluster::fused_cluster_body<kLstm, MT, msfa_cluster::kXProj>(
+      x_proj, nullptr, w_hh, b_hh, nullptr, lengths, out, T, G, B, 0, H);
+}
+
+template <int MT>
+__global__ void __launch_bounds__(msfa_cluster::fused_max_threads(MT), 1)
 grouped_lstm_fused_cluster_kernel(const float* __restrict__ x, const float* __restrict__ w_ih,
                                   const float* __restrict__ w_hh, const float* __restrict__ bias,
                                   const int* __restrict__ lengths, float* __restrict__ out, int T,
@@ -158,8 +175,10 @@ int launch_cluster(void (*kernel)(Params...), int rows, int B, int G, int D, int
   return (int)cudaGetLastError();
 }
 
+// a shape the cluster body does not take; D = 0: the x_proj entry
 bool bad_cluster_shape(int T, int G, int B, int D, int H, int rows) {
-  return bad_shape(T, G, B, D, H) || !msfa_cluster::fused_supported(H, D) ||
+  const bool fits = D == 0 ? msfa_cluster::supported(H) : msfa_cluster::fused_supported(H, D);
+  return bad_shape(T, G, B, D, H) || !fits ||
          (rows != msfa_cluster::kTileRows && rows != 2 * msfa_cluster::kTileRows);
 }
 
@@ -167,9 +186,25 @@ bool bad_cluster_shape(int T, int G, int B, int D, int H, int rows) {
 
 extern "C" {
 
+// grouped_lstm_forward on the cluster body at `rows` (16 or 32) batch rows a
+// cluster; an H it does not take (ops/rnn.py's grouped_lstm_forward_route)
+// is refused.
 int msfa_grouped_lstm_forward(const float* x_proj, const float* w_hh, const float* b_hh,
                               const int* lengths, float* out, int T, int G, int B, int H,
-                              void* stream) {
+                              int rows, void* stream) {
+  if (bad_cluster_shape(T, G, B, 0, H, rows)) return (int)cudaErrorInvalidValue;
+  if (rows == msfa_cluster::kTileRows)
+    return launch_cluster(grouped_lstm_forward_cluster_kernel<1>, rows, B, G, 0, H, stream,
+                          x_proj, w_hh, b_hh, lengths, out, T, G, B, H);
+  return launch_cluster(grouped_lstm_forward_cluster_kernel<2>, rows, B, G, 0, H, stream, x_proj,
+                        w_hh, b_hh, lengths, out, T, G, B, H);
+}
+
+// The SIMT body (rnn_cell.cuh) of grouped_lstm_forward, for the H the
+// cluster body does not take.
+int msfa_grouped_lstm_forward_simt(const float* x_proj, const float* w_hh, const float* b_hh,
+                                   const int* lengths, float* out, int T, int G, int B, int H,
+                                   void* stream) {
   if (bad_shape(T, G, B, 0, H)) return (int)cudaErrorInvalidValue;
   const size_t smem = smem_bytes(H, (size_t)kRows * 4 * H);
   cudaError_t err = allow_smem(grouped_lstm_forward_kernel, smem);
@@ -205,21 +240,24 @@ int msfa_grouped_gru_fused(const float* x, const float* w_ih, const float* w_hh,
                         w_hh, b_ih, b_hh, lengths, out, T, G, B, D, H);
 }
 
-// The cluster body's launch of the LSTM (gru 0) or the GRU (gru 1) at hidden
-// H, input width D, batch B and G groups, for 16 and for 32 rows a cluster:
-// info[0] CTAs per cluster; then per tiling (16 rows at info[1..4], 32 at
-// info[5..8]) the threads per CTA, the dynamic shared memory (bytes), the
-// clusters that fit on the card at once (cudaOccupancyMaxActiveClusters; 0
-// where the shared memory does not fit a CTA) and the clusters one launch
-// runs.
-int msfa_grouped_fused_cluster_info(int gru, int H, int D, int B, int G, int* info) {
+// The cluster body's launch of grouped_lstm_fused (kind 0), grouped_gru_fused
+// (kind 1) or grouped_lstm_forward (kind 2, D = 0) at hidden H, input width
+// D, batch B and G groups, for 16 and for 32 rows a cluster: info[0] CTAs per
+// cluster; then per tiling (16 rows at info[1..4], 32 at info[5..8]) the
+// threads per CTA, the dynamic shared memory (bytes), the clusters that fit
+// on the card at once (cudaOccupancyMaxActiveClusters; 0 where the shared
+// memory does not fit a CTA) and the clusters one launch runs.
+int msfa_grouped_fused_cluster_info(int kind, int H, int D, int B, int G, int* info) {
   using namespace msfa_cluster;
-  if (!fused_supported(H, D) || B <= 0 || G <= 0) return (int)cudaErrorInvalidValue;
-  const void* kernels[2][2] = {
+  const bool fits = kind == 2 ? D == 0 && supported(H) : fused_supported(H, D);
+  if (kind < 0 || kind > 2 || !fits || B <= 0 || G <= 0) return (int)cudaErrorInvalidValue;
+  const void* kernels[3][2] = {
       {(const void*)grouped_lstm_fused_cluster_kernel<1>,
        (const void*)grouped_lstm_fused_cluster_kernel<2>},
       {(const void*)grouped_gru_fused_cluster_kernel<1>,
-       (const void*)grouped_gru_fused_cluster_kernel<2>}};
+       (const void*)grouped_gru_fused_cluster_kernel<2>},
+      {(const void*)grouped_lstm_forward_cluster_kernel<1>,
+       (const void*)grouped_lstm_forward_cluster_kernel<2>}};
   info[0] = kCluster;
   for (int mt = 1; mt <= 2; ++mt) {
     const int rows = kTileRows * mt;
@@ -229,7 +267,7 @@ int msfa_grouped_fused_cluster_info(int gru, int H, int D, int B, int G, int* in
     slot[1] = (int)smem;
     slot[2] = 0;
     slot[3] = G * ((B + rows - 1) / rows);
-    const void* kernel = kernels[gru != 0][mt - 1];
+    const void* kernel = kernels[kind][mt - 1];
     if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem) !=
         cudaSuccess) {
       cudaGetLastError();  // more than a CTA may hold: this tiling does not run

@@ -1,7 +1,7 @@
-// The serving recurrences (grouped_lstm_fused, grouped_gru_fused) on a
-// thread-block cluster, the input projection inside, their products as
-// 3xTF32 on the tensor cores, for Hopper (sm_90a). What bounds them and what
-// was measured: rnn.cu's header note.
+// The serving recurrences (grouped_lstm_fused, grouped_gru_fused, and
+// grouped_lstm_forward over a precomputed projection) on a thread-block
+// cluster, their products as 3xTF32 on the tensor cores, for Hopper
+// (sm_90a). What bounds them and what was measured: rnn.cu's header note.
 //
 // rnn_cluster.cuh's forward (the LSTM training forward, lstm_train_fwd) with
 // three changes; that kernel itself is left as it is, so its bits do not
@@ -49,6 +49,21 @@
 // nothing; a row of length 0 returns exact zeros. Any B, T and D up to
 // kFusedMaxD; 64-bit offsets; expf / tanhf, no fast math; no atomics, so a
 // second launch repeats bit for bit.
+//
+// The x source is a template parameter. kXRaw is the above. kXProj
+// (grouped_lstm_forward, the LSTM only) reads the step's x part from a
+// precomputed x_proj [T, G, B, 4H] (b_ih inside) instead: no W_ih slice, no
+// x ring and no x product; its bias is b_hh. Each lane loads its unit's four
+// gate columns q H + j for its 2 WT rows (16 floats at WT = 2; the four lanes
+// of a quad read 16 contiguous bytes of a gate and row) straight into the
+// registers the x product would have filled, in the accumulator's slot
+// order, one step ahead: step t + 1's loads start in step t's barrier wait
+// and land before step t + 1's cell, behind the exchange and the product.
+// The W_hh slice and h then take 195 KB at H 256 and 32 rows, where a ring
+// of staged x_proj steps would not fit beside them. One 17 KB stage does,
+// copied at the top of the step behind the product, at the price of a CTA
+// barrier between the product and the cell: 9% slower at T 512, B 64 on an
+// H100 80GB HBM3 (scripts/rnn_fused_variants.py).
 
 #pragma once
 
@@ -61,6 +76,8 @@ namespace msfa_cluster {
 constexpr int kXStages = 4;     // x_t buffers: staged three steps ahead
 constexpr int kFusedMaxD = 64;  // input widths the serving body takes (ops/rnn.py CLUSTER_MAX_FEAT)
 constexpr int kWarpTiles = 2;   // m16 tiles one warp runs; MT / kWarpTiles warps per 4 units
+constexpr int kXRaw = 0;        // x source: raw x and the W_ih slice, x_t W_ih in the kernel
+constexpr int kXProj = 1;       // x source: the precomputed x_proj (b_ih inside)
 
 // the m16 tiles one warp runs at MT tiles a CTA, and the CTA's threads
 __host__ __device__ constexpr int warp_tiles(int MT) { return MT < kWarpTiles ? MT : kWarpTiles; }
@@ -73,10 +90,12 @@ __host__ __device__ inline int pad8(int d) { return (d + 7) / 8 * 8; }
 
 inline bool fused_supported(int H, int D) { return supported(H) && D > 0 && D <= kFusedMaxD; }
 
-// the W_hh and W_ih slices, h (two buffers) and the x ring of one CTA
+// the W_hh and W_ih slices, h (two buffers) and the x ring of one CTA; with
+// the precomputed projection (D = 0) the W_hh slice and h alone
 inline size_t fused_smem_bytes(int H, int D, int MT) {
   const size_t U = H / kCluster, ld = H + kPad, ldx = pad8(D) + kPad, rows = kTileRows * MT;
-  return sizeof(float) * (4 * U * ld + 2 * rows * ld + 4 * U * ldx + kXStages * rows * ldx);
+  const size_t x_side = D > 0 ? 4 * U * ldx + kXStages * rows * ldx : 0;
+  return sizeof(float) * (4 * U * ld + 2 * rows * ld + x_side);
 }
 
 // one cluster of kCluster CTAs per (tile of `rows` batch rows, group)
@@ -171,25 +190,49 @@ __device__ __forceinline__ void x_part(const float* xs, const float* wx, int ldx
   }
 }
 
-// x [T, G, B, D], w_ih [G, D, NG H], w_hh [G, H, NG H]; LSTM: bias_a = b_ih +
-// b_hh [G, 4H], bias_b unused; GRU: bias_a = b_ih, bias_b = b_hh [G, 3H] ->
-// out h_T [G, B, H]. Grid (kCluster, tiles of 16 MT rows, G), clusters of
-// kCluster along x; fused_threads(H, MT) threads: warp w runs the units
-// 4 wu .. 4 wu + 3 (wu = w % (U / 4)) of the WT m tiles from m0 = WT (w /
-// (U / 4)).
-template <int CELL, int MT>
+// xacc = x_proj [T, G, B, 4H] at step t for this lane's rows gr + 8 rr + 16
+// (m0 + m) of the tile from b0 and unit j, slot q at xacc[m][q / 2][2 rr +
+// (q & 1)] (the accumulator's order); rows past the batch read zeros
+template <int WT>
+__device__ __forceinline__ void load_x_proj(const float* __restrict__ x_proj, int t, int grp,
+                                            int b0, int m0, int gr, int j, int G, int B, int H,
+                                            float (&xacc)[WT][2][4]) {
+  const size_t base = ((size_t)t * G + grp) * B;
+#pragma unroll
+  for (int m = 0; m < WT; ++m)
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int b = b0 + 16 * (m0 + m) + 8 * rr + gr;
+      const float* row = x_proj + (base + min(b, B - 1)) * 4 * H + j;  // in bounds: no branch
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const float v = __ldg(row + q * H);
+        xacc[m][q / 2][2 * rr + (q & 1)] = b < B ? v : 0.f;
+      }
+    }
+}
+
+// kXRaw: x [T, G, B, D], w_ih [G, D, NG H], w_hh [G, H, NG H]; LSTM: bias_a =
+// b_ih + b_hh [G, 4H], bias_b unused; GRU: bias_a = b_ih, bias_b = b_hh [G,
+// 3H]. kXProj (LSTM): x = x_proj [T, G, B, 4H], w_ih unused, bias_a = b_hh,
+// D = 0 -> out h_T [G, B, H]. Grid (kCluster, tiles of 16 MT rows, G),
+// clusters of kCluster along x; fused_threads(H, MT) threads: warp w runs
+// the units 4 wu .. 4 wu + 3 (wu = w % (U / 4)) of the WT m tiles from m0 =
+// WT (w / (U / 4)).
+template <int CELL, int MT, int XSRC = kXRaw>
 __device__ __forceinline__ void fused_cluster_body(
     const float* __restrict__ x, const float* __restrict__ w_ih, const float* __restrict__ w_hh,
     const float* __restrict__ bias_a, const float* __restrict__ bias_b,
     const int* __restrict__ lengths, float* __restrict__ out, int T, int G, int B, int D, int H) {
   constexpr int NG = CELL == msfa_rnn::kLstm ? 4 : 3;
   constexpr int kRows = kTileRows * MT, WT = warp_tiles(MT);
+  static_assert(XSRC == kXRaw || CELL == msfa_rnn::kLstm, "x_proj is read by the LSTM only");
   extern __shared__ float4 smem4[];
   const int U = H / kCluster, ld = H + kPad, Dp = pad8(D), ldx = Dp + kPad, cols = NG * H;
   float* ws = reinterpret_cast<float*>(smem4);  // [4U][ld] the W_hh slice
   float* h_s = ws + 4 * U * ld;                 // [2][kRows][ld] h_{t-1}, h_t
-  float* wx = h_s + 2 * kRows * ld;             // [4U][ldx] the W_ih slice
-  float* x_s = wx + 4 * U * ldx;                // [kXStages][kRows][ldx] x_t
+  float* wx = h_s + 2 * kRows * ld;             // [4U][ldx] the W_ih slice (kXRaw)
+  float* x_s = wx + 4 * U * ldx;                // [kXStages][kRows][ldx] x_t (kXRaw)
   const int sx = kRows * ldx;
   __shared__ int len_s[kRows];
 
@@ -202,12 +245,15 @@ __device__ __forceinline__ void fused_cluster_body(
     len_s[r] = b < B ? min(max(lengths[b], 0), T) : 0;
   }
   load_fused_slice<CELL, false>(w_hh + (size_t)grp * H * cols, ws, H, H, ld, H, U, c0);
-  load_fused_slice<CELL, true>(w_ih + (size_t)grp * D * cols, wx, D, Dp, ldx, H, U, c0);
+  if constexpr (XSRC == kXRaw)
+    load_fused_slice<CELL, true>(w_ih + (size_t)grp * D * cols, wx, D, Dp, ldx, H, U, c0);
   for (int i = threadIdx.x; i < kRows * ld; i += blockDim.x) h_s[i] = 0.f;  // h_0
-  // the x buffers' columns past D, which no copy writes
-  for (int i = threadIdx.x; i < kXStages * kRows * (ldx - D); i += blockDim.x) {
-    const int r = i / (ldx - D);
-    x_s[r * ldx + D + (i - r * (ldx - D))] = 0.f;
+  if constexpr (XSRC == kXRaw) {
+    // the x buffers' columns past D, which no copy writes
+    for (int i = threadIdx.x; i < kXStages * kRows * (ldx - D); i += blockDim.x) {
+      const int r = i / (ldx - D);
+      x_s[r * ldx + D + (i - r * (ldx - D))] = 0.f;
+    }
   }
   __syncthreads();
   int t_end = 0;
@@ -230,24 +276,31 @@ __device__ __forceinline__ void fused_cluster_body(
     bias[2] = __ldg(bh + 2 * H);
     bias[3] = __ldg(bi + 2 * H);
   }
-  for (int s = 0; s < kXStages - 1; ++s) {  // x_0, x_1, x_2 in flight
-    if (s < t_end) stage_x(x, x_s + s * sx, s, grp, b0, G, B, D, kRows, ldx);
-    else cp_async_commit();
+  if constexpr (XSRC == kXRaw) {
+    for (int s = 0; s < kXStages - 1; ++s) {  // x_0, x_1, x_2 in flight
+      if (s < t_end) stage_x(x, x_s + s * sx, s, grp, b0, G, B, D, kRows, ldx);
+      else cp_async_commit();
+    }
+    cp_async_wait<kXStages - 3>();  // x_0's and x_1's
   }
-  cp_async_wait<kXStages - 3>();  // x_0's and x_1's
   cluster_arrive();  // every CTA of the cluster runs and holds h_0 before any peer writes
   cluster_wait();
 
   float xacc[WT][2][4], h[WT][2] = {}, c[WT][2] = {};
-  if (t_end > 0) x_part<WT>(x_s, wx, ldx, Dp, wu, m0, gr, tq, xacc);
+  if (t_end > 0) {
+    if constexpr (XSRC == kXRaw) x_part<WT>(x_s, wx, ldx, Dp, wu, m0, gr, tq, xacc);
+    else load_x_proj<WT>(x, 0, grp, b0, m0, gr, j, G, B, H, xacc);
+  }
   for (int t = 0; t < t_end; ++t) {
     const float* h_cur = h_s + (t & 1) * kRows * ld;
     float* h_nxt = h_s + ((t + 1) & 1) * kRows * ld;
-    if (t + kXStages - 1 < t_end)  // into the buffer step t - 2's window read
-      stage_x(x, x_s + (t + kXStages - 1) % kXStages * sx, t + kXStages - 1, grp, b0, G, B, D,
-              kRows, ldx);
-    else
-      cp_async_commit();
+    if constexpr (XSRC == kXRaw) {
+      if (t + kXStages - 1 < t_end)  // into the buffer step t - 2's window read
+        stage_x(x, x_s + (t + kXStages - 1) % kXStages * sx, t + kXStages - 1, grp, b0, G, B, D,
+                kRows, ldx);
+      else
+        cp_async_commit();
+    }
     // z = h_{t-1} . ws on n-tiles 2 wu, 2 wu + 1
     float acc[WT][2][4] = {};
 #pragma unroll 2  // independent chunks in flight
@@ -321,15 +374,20 @@ __device__ __forceinline__ void fused_cluster_body(
         for (int rr = 0; rr < 2; ++rr)
           st_peer4(peer(h_nxt + (16 * (m0 + m) + 8 * rr + gr) * ld + c0 + 4 * wu, tq + 4 * i),
                    v[m][rr][0], v[m][rr][1], v[m][rr][2], v[m][rr][3]);
-    cp_async_wait<kXStages - 3>();  // this thread's copies of x_{t+2}
+    if constexpr (XSRC == kXRaw) cp_async_wait<kXStages - 3>();  // this thread's x_{t+2}
     cluster_arrive();  // (the barrier also makes every thread's copies visible)
 #pragma unroll
     for (int m = 0; m < WT; ++m)
 #pragma unroll
       for (int rr = 0; rr < 2; ++rr) h[m][rr] = h_new[m][rr];
-    // the x part of step t + 1 while the peers finish their step
-    if (t + 1 < t_end)
-      x_part<WT>(x_s + (t + 1) % kXStages * sx, wx, ldx, Dp, wu, m0, gr, tq, xacc);
+    // the x part of step t + 1 while the peers finish their step (x_proj:
+    // its loads, which land behind the exchange and the next product)
+    if (t + 1 < t_end) {
+      if constexpr (XSRC == kXRaw)
+        x_part<WT>(x_s + (t + 1) % kXStages * sx, wx, ldx, Dp, wu, m0, gr, tq, xacc);
+      else
+        load_x_proj<WT>(x, t + 1, grp, b0, m0, gr, j, G, B, H, xacc);
+    }
     cluster_wait();  // h_t in place in every CTA
   }
 #pragma unroll

@@ -10,7 +10,9 @@ Counterpart of the JAX package's ``ops/pallas_mlp.py``:
   element is kept iff its uniform 32-bit word is below
   ``min(round(keep * 2^32), 2^32 - 1)``, compared unsigned. The stream is
   the port's own: it depends on (seed, purpose, element index) and equals
-  neither the TPU generator's nor ``torch.rand``'s;
+  neither the TPU generator's nor ``torch.rand``'s. ``dropout_keep_masks``
+  writes up to three masks of one seed (a layer's) in one launch of the
+  same kernel;
 - ``fused_mlp`` / ``transformer_ffw``:
   ``dropout(relu(x @ w1 + b1)) @ w2 + b2``; its two directions launch the
   hidden kernel of ``fused_mlp_residual_ln`` (the same bits) and the
@@ -390,37 +392,84 @@ def _fn(source: str, symbol: str, n_ptrs: int, n_ints: int, n_floats: int):
     return lib, fn
 
 
+MAX_MASKS = 3  # masks one launch writes (csrc/dropout_mask.cu kMaxMasks): a layer's three
+
+
+def _check_seed(rng_seed: torch.Tensor) -> None:
+    if rng_seed.dtype != torch.int32 or tuple(rng_seed.shape) != (2,):
+        raise TypeError(f"rng_seed must be a [2] int32 tensor, got {rng_seed.dtype} "
+                        f"{tuple(rng_seed.shape)}")
+    if rng_seed.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {rng_seed.device}")
+
+
+def _launch_masks(rng_seed: torch.Tensor, masks, keep_prob: float, purposes) -> None:
+    """One launch of the mask kernel writing every non-empty ``[rows, cols]``
+    uint8 tensor of ``masks``, each with its purpose; counted in
+    ``dropout_keep_mask.launches``."""
+    args = []
+    for mask, purpose in zip(masks, purposes):
+        if mask.numel() > 0:
+            args += [mask.data_ptr(), mask.numel(), int(purpose)]
+    if not args:
+        return
+    lib = _build.library("dropout_mask")
+    fn = lib.msfa_dropout_masks
+    if fn.argtypes is None:  # set once: a layer's draw launches it every micro-step
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_int] + [
+            ctypes.c_void_p, ctypes.c_longlong, ctypes.c_uint] * MAX_MASKS + [
+            ctypes.c_uint, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    count = len(args) // 3
+    device = rng_seed.device
+    with torch.cuda.device(device):
+        code = fn(rng_seed.contiguous().data_ptr(), count, *args,
+                  *[None, 0, 0] * (MAX_MASKS - count), _keep_thr(keep_prob),
+                  int(keep_prob >= 1.0), _stream(device))
+    _build.check(lib, code, "dropout_keep_mask")
+    dropout_keep_mask.launches += 1
+
+
 def dropout_keep_mask(rng_seed: torch.Tensor, rows: int, cols: int, keep_prob: float,
                       purpose: int = RNG_P_HIDDEN) -> torch.Tensor:
     """``[rows, cols]`` uint8 Bernoulli(``keep_prob``) keep mask, deterministic
     per (seed, purpose, shape); ``rng_seed`` is the ``[2]`` int32 tensor of
     ``kernel_rng_seed``, on the device the mask is made on. ``keep_prob >= 1``
     gives all ones, ``<= 0`` all zeros."""
-    if rng_seed.dtype != torch.int32 or tuple(rng_seed.shape) != (2,):
-        raise TypeError(f"rng_seed must be a [2] int32 tensor, got {rng_seed.dtype} "
-                        f"{tuple(rng_seed.shape)}")
+    _check_seed(rng_seed)
     if rng_seed.device.type == "cpu":
         return dropout_keep_mask_reference(rng_seed, rows, cols, keep_prob, purpose)
-    if rng_seed.device.type != "cuda":
-        raise ValueError(f"unsupported device {rng_seed.device}")
     out = torch.empty((rows, cols), dtype=torch.uint8, device=rng_seed.device)
-    if out.numel() == 0:
-        return out
-    lib = _build.library("dropout_mask")
-    fn = lib.msfa_dropout_mask
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_uint,
-                   ctypes.c_uint, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    seed = rng_seed.contiguous()
-    with torch.cuda.device(out.device):
-        code = fn(seed.data_ptr(), out.data_ptr(), out.numel(), int(purpose),
-                  _keep_thr(keep_prob), int(keep_prob >= 1.0), _stream(out.device))
-    _build.check(lib, code, "dropout_keep_mask")
-    dropout_keep_mask.launches += 1
+    _launch_masks(rng_seed, [out], keep_prob, [purpose])
     return out
 
 
 dropout_keep_mask.launches = 0
+
+
+def dropout_keep_masks_reference(rng_seed: torch.Tensor, rows: int, specs, keep_prob: float):
+    """Plain version of ``dropout_keep_masks``: one
+    ``dropout_keep_mask_reference`` call per ``(cols, purpose)``."""
+    return [dropout_keep_mask_reference(rng_seed, rows, cols, keep_prob, purpose)
+            for cols, purpose in specs]
+
+
+def dropout_keep_masks(rng_seed: torch.Tensor, rows: int, specs, keep_prob: float):
+    """Up to ``MAX_MASKS`` keep masks of one seed in one launch: ``specs`` is
+    a sequence of ``(cols, purpose)``, the result the list of ``[rows, cols]``
+    uint8 masks, each byte for byte ``dropout_keep_mask(rng_seed, rows, cols,
+    keep_prob, purpose)``. A transformer layer draws its three masks so.
+    The launch is row 9's kernel and counts in ``dropout_keep_mask.launches``."""
+    _check_seed(rng_seed)
+    specs = [(int(cols), int(purpose)) for cols, purpose in specs]
+    if not 0 < len(specs) <= MAX_MASKS:
+        raise ValueError(f"between 1 and {MAX_MASKS} masks in one launch, got {len(specs)}")
+    if rng_seed.device.type == "cpu":
+        return dropout_keep_masks_reference(rng_seed, rows, specs, keep_prob)
+    outs = [torch.empty((rows, cols), dtype=torch.uint8, device=rng_seed.device)
+            for cols, _ in specs]
+    _launch_masks(rng_seed, outs, keep_prob, [purpose for _, purpose in specs])
+    return outs
 
 
 def _mlp_shapes(x, d, f):

@@ -23,11 +23,12 @@ and takes its ``*_plain`` version for CPU tensors; each counts its launches in
 
 - inference, ``csrc/rnn.cu``: ``grouped_lstm_forward``, ``grouped_lstm_fused``
   and ``grouped_gru_fused`` (forward only, the result carries no gradient).
-  The two fused ones run on a thread-block cluster with W_hh and W_ih held
-  on chip, the input projection inside and 3xTF32 step products
-  (``csrc/rnn_cluster_fused.cuh``) at the sizes ``grouped_fused_route``
-  names, on the SIMT body (``csrc/rnn_cell.cuh``) at the others;
-  ``grouped_lstm_forward`` runs the SIMT body;
+  All three run on a thread-block cluster with W_hh held on chip and 3xTF32
+  step products (``csrc/rnn_cluster_fused.cuh``; the two fused ones hold
+  W_ih too and compute the input projection inside, ``grouped_lstm_forward``
+  reads the precomputed one) at the sizes ``grouped_fused_route`` /
+  ``grouped_lstm_forward_route`` name, on the SIMT body
+  (``csrc/rnn_cell.cuh``) at the others;
 - training, ``csrc/rnn_train.cu``: ``lstm_train_fwd`` / ``gru_train_fwd`` (the
   final state plus the per-step residuals: post-activation gates, ``h_{t-1}``,
   and ``c_{t-1}`` or ``hn = h_{t-1} W_hn + b_hn``; zero past each row's
@@ -216,8 +217,23 @@ def grouped_fused_route(hidden: int, feat: int) -> str:
     return "cluster" if fits else "simt"
 
 
+def grouped_lstm_forward_route(hidden: int) -> str:
+    """The body ``grouped_lstm_forward`` runs on the card at ``hidden``
+    units: ``"cluster"`` (the serving cluster body of ``grouped_lstm_fused``
+    with the x part read from the precomputed ``x_proj``: W_hh slices held
+    in a thread-block cluster's shared memory for the whole sequence, h
+    exchanged through distributed shared memory, 3xTF32 step products) where
+    ``hidden`` is a multiple of 64 up to ``CLUSTER_MAX_HIDDEN``, else
+    ``"simt"`` (``csrc/rnn_cell.cuh``). Both are hand-written kernels and
+    count in the same ``.launches``; a refused launch raises on either."""
+    return rnn_train_route(hidden)
+
+
 _FUSED_INFO_KEYS = ("threads", "smem_bytes", "active_clusters", "clusters_per_launch")
-_FUSED_GEOMETRY = {}  # (cell, H, D, B, G, device) -> grouped_fused_cluster_info
+_FUSED_GEOMETRY = {}  # (kind, H, D, B, G, device) -> the cluster geometry
+# kind -> the cluster body's C entry; the order is msfa_grouped_fused_cluster_info's kind
+_CLUSTER_ENTRIES = {"lstm": "msfa_grouped_lstm_fused", "gru": "msfa_grouped_gru_fused",
+                    "lstm_proj": "msfa_grouped_lstm_forward"}
 
 
 def pick_cluster_rows(tilings: dict) -> int:
@@ -230,19 +246,12 @@ def pick_cluster_rows(tilings: dict) -> int:
     return min(fitting, key=lambda rows: tilings[rows]["waves"])
 
 
-def grouped_fused_cluster_info(cell: str, hidden: int, feat: int, batch: int, groups: int,
-                               device=None) -> dict:
-    """The serving cluster body's launch at these sizes, read on the card:
-    CTAs per cluster, then for 16 and 32 batch rows a cluster (``"rows16"``,
-    ``"rows32"``) the threads per CTA, the dynamic shared memory, the
-    clusters that fit on the card at once (``cudaOccupancyMaxActiveClusters``),
-    the clusters one launch runs and its waves; ``"rows"`` is the tiling
-    the wrappers take (``pick_cluster_rows``)."""
-    if cell not in ("lstm", "gru"):
-        raise ValueError(f"Unknown cell type: {cell}")
+def _cluster_info(kind: str, hidden: int, feat: int, batch: int, groups: int, device) -> dict:
+    """``grouped_fused_cluster_info`` of the kernel ``kind`` (a key of
+    ``_CLUSTER_ENTRIES``; ``"lstm_proj"``: ``grouped_lstm_forward``, feat 0)."""
     device = torch.device("cuda") if device is None else torch.device(device)
     index = torch.cuda.current_device() if device.index is None else device.index
-    key = (cell, hidden, feat, batch, groups, index)
+    key = (kind, hidden, feat, batch, groups, index)
     if key not in _FUSED_GEOMETRY:
         lib = _build.library("rnn")
         fn = lib.msfa_grouped_fused_cluster_info
@@ -250,7 +259,8 @@ def grouped_fused_cluster_info(cell: str, hidden: int, feat: int, batch: int, gr
         fn.restype = ctypes.c_int
         raw = (ctypes.c_int * (1 + 4 * len(CLUSTER_ROWS)))()
         with torch.cuda.device(index):
-            code = fn(int(cell == "gru"), hidden, feat, batch, groups, ctypes.addressof(raw))
+            code = fn(list(_CLUSTER_ENTRIES).index(kind), hidden, feat, batch, groups,
+                      ctypes.addressof(raw))
         _build.check(lib, code, "grouped_fused_cluster_info")
         info = {"ctas_per_cluster": raw[0]}
         for i, rows in enumerate(CLUSTER_ROWS):
@@ -263,21 +273,41 @@ def grouped_fused_cluster_info(cell: str, hidden: int, feat: int, batch: int, gr
     return _FUSED_GEOMETRY[key]
 
 
-def _launch_fused(wrapper, cell: str, tensors, lengths, out, dims, cluster_rows) -> torch.Tensor:
-    """Launch ``grouped_{cell}_fused`` on the body ``grouped_fused_route``
-    names; on the cluster body at ``cluster_rows`` rows a cluster (None: the
-    tiling ``grouped_fused_cluster_info`` picks)."""
-    steps, groups, batch, feat, hidden = dims
-    entry = f"msfa_grouped_{cell}_fused"
-    if grouped_fused_route(hidden, feat) == "simt":
+def grouped_fused_cluster_info(cell: str, hidden: int, feat: int, batch: int, groups: int,
+                               device=None) -> dict:
+    """The serving cluster body's launch of ``grouped_{cell}_fused`` at these
+    sizes, read on the card: CTAs per cluster, then for 16 and 32 batch rows
+    a cluster (``"rows16"``, ``"rows32"``) the threads per CTA, the dynamic
+    shared memory, the clusters that fit on the card at once
+    (``cudaOccupancyMaxActiveClusters``), the clusters one launch runs and its
+    waves; ``"rows"`` is the tiling the wrappers take (``pick_cluster_rows``)."""
+    if cell not in ("lstm", "gru"):
+        raise ValueError(f"Unknown cell type: {cell}")
+    return _cluster_info(cell, hidden, feat, batch, groups, device)
+
+
+def grouped_lstm_forward_cluster_info(hidden: int, batch: int, groups: int, device=None) -> dict:
+    """``grouped_fused_cluster_info`` for ``grouped_lstm_forward``'s cluster
+    body (no W_ih slice, no x ring: less shared memory a CTA)."""
+    return _cluster_info("lstm_proj", hidden, 0, batch, groups, device)
+
+
+def _launch_cluster(wrapper, kind: str, route: str, tensors, lengths, out, dims, feat,
+                    cluster_rows) -> torch.Tensor:
+    """Launch ``wrapper``'s entry (``_CLUSTER_ENTRIES[kind]``) on the body
+    ``route`` names: on the cluster body at ``cluster_rows`` rows a cluster
+    (None: the tiling ``_cluster_info`` picks), else its ``_simt`` entry.
+    ``dims`` are the entry's (T, G, B, [D,] H)."""
+    steps, groups, batch, hidden = dims[0], dims[1], dims[2], dims[-1]
+    entry = _CLUSTER_ENTRIES[kind]
+    if route == "simt":
         if cluster_rows is not None:
             raise ValueError(f"cluster_rows given, but H={hidden}, D={feat} run the SIMT body")
         return _launch(wrapper, entry + "_simt", tensors, lengths, out, dims)
     if batch == 0:
         return out
     if cluster_rows is None:
-        cluster_rows = grouped_fused_cluster_info(cell, hidden, feat, batch, groups,
-                                                  out.device)["rows"]
+        cluster_rows = _cluster_info(kind, hidden, feat, batch, groups, out.device)["rows"]
     elif cluster_rows not in CLUSTER_ROWS:
         raise ValueError(f"cluster_rows must be one of {CLUSTER_ROWS}, got {cluster_rows}")
     return _launch(wrapper, entry, tensors, lengths, out, (*dims, cluster_rows))
@@ -288,9 +318,12 @@ def grouped_lstm_forward(
     w_hh: torch.Tensor,  # [G, H, 4H]
     b_hh: torch.Tensor,  # [G, 4H]
     lengths: Optional[torch.Tensor] = None,  # [B] int32; None = T
+    cluster_rows: Optional[int] = None,  # 16 or 32 on the cluster body; None = picked
 ) -> torch.Tensor:
     """Grouped LSTM recurrence over precomputed input projections -> final
-    hidden ``[G, B, H]``. ``grouped_lstm_forward.launches`` counts launches."""
+    hidden ``[G, B, H]``, on the card on the body
+    ``grouped_lstm_forward_route(H)`` names. ``grouped_lstm_forward.launches``
+    counts launches."""
     if x_proj.dim() != 4 or w_hh.dim() != 3:
         raise ValueError(f"expected x_proj [T, G, B, 4H] and w_hh [G, H, 4H], got "
                          f"{tuple(x_proj.shape)} and {tuple(w_hh.shape)}")
@@ -303,8 +336,9 @@ def grouped_lstm_forward(
     if x_proj.device.type == "cpu":
         return grouped_lstm_forward_plain(x_proj, w_hh, b_hh, lengths)
     out = torch.empty((groups, batch, hidden), device=x_proj.device, dtype=torch.float32)
-    return _launch(grouped_lstm_forward, "msfa_grouped_lstm_forward", list(tensors.values()),
-                   lengths, out, (steps, groups, batch, hidden))
+    return _launch_cluster(grouped_lstm_forward, "lstm_proj", grouped_lstm_forward_route(hidden),
+                           list(tensors.values()), lengths, out, (steps, groups, batch, hidden),
+                           0, cluster_rows)
 
 
 grouped_lstm_forward.launches = 0
@@ -333,8 +367,9 @@ def grouped_lstm_fused(
     if x.device.type == "cpu":
         return grouped_lstm_fused_plain(x, w_ih, w_hh, bias, lengths)
     out = torch.empty((groups, batch, hidden), device=x.device, dtype=torch.float32)
-    return _launch_fused(grouped_lstm_fused, "lstm", list(tensors.values()), lengths, out,
-                         (steps, groups, batch, feat, hidden), cluster_rows)
+    return _launch_cluster(grouped_lstm_fused, "lstm", grouped_fused_route(hidden, feat),
+                           list(tensors.values()), lengths, out,
+                           (steps, groups, batch, feat, hidden), feat, cluster_rows)
 
 
 grouped_lstm_fused.launches = 0
@@ -365,8 +400,9 @@ def grouped_gru_fused(
     if x.device.type == "cpu":
         return grouped_gru_fused_plain(x, w_ih, w_hh, b_ih, b_hh, lengths)
     out = torch.empty((groups, batch, hidden), device=x.device, dtype=torch.float32)
-    return _launch_fused(grouped_gru_fused, "gru", list(tensors.values()), lengths, out,
-                         (steps, groups, batch, feat, hidden), cluster_rows)
+    return _launch_cluster(grouped_gru_fused, "gru", grouped_fused_route(hidden, feat),
+                           list(tensors.values()), lengths, out,
+                           (steps, groups, batch, feat, hidden), feat, cluster_rows)
 
 
 grouped_gru_fused.launches = 0

@@ -1,14 +1,14 @@
 #!/usr/bin/env python3
-"""Time the PyTorch port's attention, residual-LN, feed-forward, head and
-recurrence kernels in one or more checkouts, in turns, on one CUDA card: an
-A/B of two trees in the same process order.
+"""Time the PyTorch port's attention, residual-LN, feed-forward, head,
+recurrence and mask-generator kernels in one or more checkouts, in turns, on
+one CUDA card: an A/B of two trees in the same process order.
 
     python3 scripts/attention_kernels_ab.py                      # this checkout
     python3 scripts/attention_kernels_ab.py --tree old --tree . --tree . --tree old
 
 Each ``--tree`` runs in its own process, which imports the port from that
 checkout, builds its kernels from its ``ops/csrc`` and times, with CUDA
-events, rows 1-8 and 10-22 of the kernel table at the shapes
+events, rows 1-22 of the kernel table at the shapes
 ``chip_smoke.py`` reports them: the packed forward (B 64, T 512, H 4, d 64)
 and backward (B 32), the single-key-block forward and the fused backward at
 ``[B*H, T, d]`` = ``[128, 1024, 64]``, ``[512, 512, 64]`` and ``[128, 2048,
@@ -22,19 +22,21 @@ random mask), the LSTM and GRU training kernels at T 512 and 1024, G 4,
 B 32, H 256 on ragged lengths like a real batch's (each backward on its
 twin's residuals), and the three inference recurrences (rows 16-18) at T 512
 and 1024, G 4, B 32 and 64, H 256, D 17 on a real PAMAP2 batch's lengths
-(the fused two on the body and tiling their wrappers pick); inputs from a
-fixed seed. Then, per tree, the serve p50 of batch-64 requests and their
+(each on the body and tiling its wrapper picks), and the mask generator
+(row 9) at ``[16384, 2048]`` and ``[16384, 256]`` and a layer's three masks
+(one launch where the tree has ``dropout_keep_masks``, else one a mask),
+keep 0.8; inputs from a fixed seed. Then, per tree, the serve p50 of batch-64 requests and their
 device time by kernel family (``chip_smoke.profile``) for the LSTM parity
 model at chunk 512 and 1024 and the GRU model at 512
 (``chip_smoke.rnn_overrides``, seeded weights, real windows). Launches are
 timed back to back; the
-head and the projection's forward are also timed each call alone, the card
-kept ahead of the host, L2-warm and L2-cold (a 128 MB write before each
-call).
+head, the projection's forward and the masks are also timed each call
+alone, the card kept ahead of the host, L2-warm and L2-cold (a 128 MB write
+before each call).
 ``scaled_dot_product_attention`` (forward, or its backward) is timed beside
 each attention shape. The attention backward kernels' outputs are hashed on
 ragged lengths (0, 1, 37, 64, 65, T - 1, T, T / 2), and the feed-forward,
-residual-LN, head and recurrence kernels' outputs on their timed inputs, so
+residual-LN, head, recurrence and mask kernels' outputs on their timed inputs, so
 that the table also says which kernels give the same bits in every tree. Prints the card's
 name and power limit, one JSON line per tree, then the table of all runs.
 Needs a CUDA card; imports torch and the port only.
@@ -181,6 +183,9 @@ def _measure(tree: Path) -> dict:
     head_times, head_bits = _measure_head(torch, g, flush)
     times.update(head_times)
     bits.update(head_bits)
+    mask_times, mask_bits = _measure_masks(torch, flush)
+    times.update(mask_times)
+    bits.update(mask_bits)
     rnn_times, rnn_bits = _measure_rnn_train(torch, g)
     times.update(rnn_times)
     bits.update(rnn_bits)
@@ -249,6 +254,31 @@ def _measure_head(torch, g, flush) -> dict:
     times = {"fused_hybrid_head": _time_ms(torch, call, 20)}
     _warm_cold(times, "fused_hybrid_head", call, flush)
     return times, {"fused_hybrid_head": _digest([call()])}
+
+
+def _measure_masks(torch, flush) -> dict:
+    """Row 9: the mask generator at the training shape (N = 16,384, keep 0.8)
+    -> (ms, output digests)."""
+    from multimodal_sensor_fusion_with_attention_rajeevatla_torch.ops import mlp as tm
+
+    n, d, f, keep = 16384, 256, 2048, 0.8
+    seed = torch.tensor([20240229, -77], dtype=torch.int32, device="cuda")
+    layer = ((d, tm.RNG_P_ATT), (f, tm.RNG_P_HIDDEN), (d, tm.RNG_P_RES))
+
+    def masks():
+        if hasattr(tm, "dropout_keep_masks"):  # one launch for the layer
+            return tm.dropout_keep_masks(seed, n, layer, keep)
+        return [tm.dropout_keep_mask(seed, n, c, keep, p) for c, p in layer]
+
+    calls = {"dropout_keep_mask_n2048": lambda: tm.dropout_keep_mask(seed, n, f, keep,
+                                                                     tm.RNG_P_HIDDEN),
+             "dropout_keep_mask_n256": lambda: tm.dropout_keep_mask(seed, n, d, keep,
+                                                                    tm.RNG_P_RES),
+             "dropout_layer_masks": masks}
+    times = {name: _time_ms(torch, call, 20) for name, call in calls.items()}
+    for name, call in calls.items():
+        _warm_cold(times, name, call, flush)
+    return times, {"dropout_layer_masks": _digest(masks())}
 
 
 def _measure_rnn_train(torch, g) -> dict:

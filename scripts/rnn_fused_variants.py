@@ -9,15 +9,20 @@ once): the kernels as they are; one m16 tile a warp at 32 rows a cluster
 (512 threads a CTA) instead of two (256 threads, each B fragment split once
 for both tiles); the x part (x_t . W_ih slice) by f32 FMAs on the CUDA
 cores instead of 3xTF32; the x part on the step's chain (at the top of the
-step) instead of in the cluster barrier's wait; and the step product, the
-exchange through distributed shared memory or the x part compiled out, one
-at a time and all three (the cell, the staging and the cluster barrier
-left). Each variant's ``grouped_lstm_fused`` and ``grouped_gru_fused`` run
-on the same inputs at T 512, G 4, H 256, D 17, every row whole: B 32 at 16
-rows a cluster (one wave), B 64 at 32 rows (one wave) and at 16 (two waves);
-prints ms, us per step and the error against the plain versions (a variant
-with a part compiled out computes something else). Prints the card's name
-and power limit first. Needs a CUDA card; imports torch and the port only.
+step) instead of in the cluster barrier's wait; the precomputed projection
+(``grouped_lstm_forward``) staged through shared memory (one stage of the
+CTA's 4U columns, copied by cp.async at the top of the step behind the
+product, a CTA barrier before the cell) instead of loaded into registers
+one step ahead in the barrier's wait; and the step product, the exchange
+through distributed shared memory or the x part (x_proj's loads) compiled
+out, one at a time and all three (the cell, the staging and the cluster
+barrier left). Each variant's ``grouped_lstm_fused``, ``grouped_gru_fused``
+and ``grouped_lstm_forward`` run on the same inputs at T 512, G 4, H 256, D
+17, every row whole: B 32 at 16 rows a cluster (one wave), B 64 at 32 rows
+(one wave) and at 16 (two waves); prints ms, us per step and the error
+against the plain versions (a variant with a part compiled out computes
+something else). Prints the card's name and power limit first. Needs a CUDA
+card; imports torch and the port only.
 """
 
 from __future__ import annotations
@@ -66,28 +71,79 @@ __device__ __forceinline__ void x_part_fma(const float* xs, const float* wx, int
   }
 }
 
-// x [T, G, B, D], w_ih'''
-PROLOGUE_X = "  if (t_end > 0) x_part<WT>(x_s, wx, ldx, Dp, wu, m0, gr, tq, xacc);\n"
-WINDOW_X = ("    if (t + 1 < t_end)\n"
-            "      x_part<WT>(x_s + (t + 1) % kXStages * sx, wx, ldx, Dp, wu, m0, gr, tq, xacc);\n")
+// kXRaw: x [T, G, B, D]'''
+PROLOGUE_X = "    if constexpr (XSRC == kXRaw) x_part<WT>(x_s, wx, ldx, Dp, wu, m0, gr, tq, xacc);\n"
+WINDOW_X = ("      if constexpr (XSRC == kXRaw)\n"
+            "        x_part<WT>(x_s + (t + 1) % kXStages * sx, wx, ldx, Dp, wu, m0, gr, tq, xacc);\n")
+PROLOGUE_PROJ = "    else load_x_proj<WT>(x, 0, grp, b0, m0, gr, j, G, B, H, xacc);\n"
+WINDOW_PROJ = ("      else\n"
+               "        load_x_proj<WT>(x, t + 1, grp, b0, m0, gr, j, G, B, H, xacc);\n")
+WINDOW = "    if (t + 1 < t_end) {\n" + WINDOW_X + WINDOW_PROJ + "    }\n"
 PRODUCT = "    // z = h_{t-1} . ws on n-tiles 2 wu, 2 wu + 1\n"
+CELL = "    // the cell of unit j for rows gr + 8 rr + 16 (m0 + m): acc[m][0] holds\n"
 LOOP = "for (int k0 = 0; k0 < H; k0 += 8 * kChunkSteps) {"
+STAGE_PROJ = r'''
+// x_proj [T, G, B, 4H] at step t, the CTA's 4U gate columns of the tile's
+// rows -> dst[row][gate][unit] (row stride 4U + kPad): 16-byte cp.async
+// copies, zero-filled past the batch; one commit group
+__device__ __forceinline__ void stage_x_proj(const float* __restrict__ x_proj, float* dst, int t,
+                                             int grp, int b0, int c0, int G, int B, int H, int U,
+                                             int rows) {
+  const int quads = U / 4, per_row = 4 * quads;
+  const size_t base = ((size_t)t * G + grp) * B;
+  for (int i = threadIdx.x; i < rows * per_row; i += blockDim.x) {
+    const int r = i / per_row, k = i - r * per_row, q = k / quads, u = 4 * (k - q * quads);
+    const int b = b0 + r;
+    cp_async16(dst + r * (4 * U + kPad) + q * U + u,
+               b < B ? x_proj + (base + b) * 4 * H + q * H + c0 + u : x_proj, b < B);
+  }
+  cp_async_commit();
+}
+
+// kXRaw: x [T, G, B, D]'''
+READ_STAGE = r'''    if constexpr (XSRC == kXProj) {  // every thread's copies of step t, in place
+      cp_async_wait<0>();
+      __syncthreads();
+      const float* xs = h_s + 2 * kRows * ld;
+#pragma unroll
+      for (int m = 0; m < WT; ++m)
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr)
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            xacc[m][q / 2][2 * rr + (q & 1)] =
+                xs[(16 * (m0 + m) + 8 * rr + gr) * (4 * U + kPad) + q * U + 4 * wu + tq];
+    }
+'''
 
 ONE_TILE = [("constexpr int kWarpTiles = 2;", "constexpr int kWarpTiles = 1;")]
-FMA = [("\n// x [T, G, B, D], w_ih", X_PART_FMA),
+FMA = [("\n// kXRaw: x [T, G, B, D]", X_PART_FMA),
        (PROLOGUE_X, PROLOGUE_X.replace("x_part<WT>", "x_part_fma<WT>").replace("Dp,", "D,")),
        (WINDOW_X, WINDOW_X.replace("x_part<WT>", "x_part_fma<WT>").replace("Dp,", "D,"))]
-ON_CHAIN = [(WINDOW_X, ""),
-            (PRODUCT, "    x_part<WT>(x_s + t % kXStages * sx, wx, ldx, Dp, wu, m0, gr, tq, xacc);\n"
+ON_CHAIN = [(WINDOW_X, "      if constexpr (XSRC == kXRaw) {\n      }\n"),
+            (PRODUCT, "    if constexpr (XSRC == kXRaw)\n"
+                      "      x_part<WT>(x_s + t % kXStages * sx, wx, ldx, Dp, wu, m0, gr, tq, xacc);\n"
                       + PRODUCT)]
+# row 16's x_proj through one shared-memory stage (all that fits beside W_hh
+# and h at 32 rows), staged at the top of the step behind the product
+X_PROJ_STAGED = [
+    ("  const size_t x_side = D > 0 ? 4 * U * ldx + kXStages * rows * ldx : 0;",
+     "  const size_t x_side = D > 0 ? 4 * U * ldx + kXStages * rows * ldx : rows * (4 * U + kPad);"),
+    ("\n// kXRaw: x [T, G, B, D]", STAGE_PROJ),
+    (PROLOGUE_PROJ, ""), (WINDOW_PROJ, ""),
+    (PRODUCT, "    if constexpr (XSRC == kXProj)  // step t's x_proj, behind the product\n"
+              "      stage_x_proj(x, h_s + 2 * kRows * ld, t, grp, b0, c0, G, B, H, U, kRows);\n"
+              + PRODUCT),
+    (CELL, READ_STAGE + CELL)]
 NO_PRODUCT = [(LOOP, LOOP.replace("k0 < H", "k0 < 0"))]
 NO_EXCHANGE = [("          st_peer4(", "          if (H < 0) st_peer4(")]
-NO_X = [(WINDOW_X, "")]
+NO_X = [(WINDOW, "")]
 VARIANTS = {
     "kept": [],
     "one m16 tile a warp": ONE_TILE,
     "x part by FMA": FMA,
     "x part on the chain": ON_CHAIN,
+    "x_proj staged in smem": X_PROJ_STAGED,
     "no product": NO_PRODUCT,
     "no exchange": NO_EXCHANGE,
     "no x part after step 0": NO_X,
@@ -139,7 +195,7 @@ def main() -> int:
     scale = H**-0.5
     stream = torch.cuda.current_stream().cuda_stream
     cells = {}
-    for cell, gates in (("lstm", 4), ("gru", 3)):
+    for cell, gates in (("lstm", 4), ("gru", 3), ("lstm_proj", 4)):
         def u(*shape):
             return ((torch.rand(*shape, generator=g) * 2 - 1) * scale).cuda()
 
@@ -151,25 +207,32 @@ def main() -> int:
         for batch, rows in CASES:
             xb = x[:, :, :batch].contiguous()
             lengths = torch.full((batch,), T, dtype=torch.int32, device="cuda")
-            plain = getattr(rnn, f"grouped_{cell}_fused_plain")
-            cases.append((batch, rows, xb, lengths, plain(xb, w_ih, w_hh, *biases, lengths)))
-        cells[cell] = (w_ih, w_hh, biases, cases)
-    print(f"grouped_lstm_fused / grouped_gru_fused at T={T} G={G} H={H} D={D}, every row whole:",
-          flush=True)
+            if cell == "lstm_proj":  # x_proj [T, G, B, 4H] (b_ih inside), W_hh, b_hh
+                inputs = ((torch.einsum("tgbd,gdh->tgbh", xb, w_ih)
+                           + b_ih[None, :, None, :]).contiguous(), w_hh, b_hh)
+                want = rnn.grouped_lstm_forward_plain(*inputs, lengths)
+            else:
+                inputs = (xb, w_ih, w_hh, *biases)
+                want = getattr(rnn, f"grouped_{cell}_fused_plain")(*inputs, lengths)
+            cases.append((batch, rows, inputs, lengths, want))
+        cells[cell] = cases
+    print(f"grouped_lstm_fused / grouped_gru_fused / grouped_lstm_forward (lstm_proj) at T={T} "
+          f"G={G} H={H} D={D}, every row whole:", flush=True)
     for name, (d, proc) in procs.items():
         output, _ = proc.communicate()
         if proc.returncode:
             raise RuntimeError(f"variant '{name}' does not build:\n{output}")
         lib = ctypes.CDLL(str(d / "lib.so"))
         parts = []
-        for cell, (w_ih, w_hh, biases, cases) in cells.items():
-            fn = getattr(lib, f"msfa_grouped_{cell}_fused")
-            fn.argtypes = [ctypes.c_void_p] * (5 + len(biases)) + [ctypes.c_int] * 6 \
-                + [ctypes.c_void_p]
-            for batch, rows, xb, lengths, want in cases:
+        for cell, cases in cells.items():
+            proj = cell == "lstm_proj"
+            fn = getattr(lib, "msfa_grouped_lstm_forward" if proj else f"msfa_grouped_{cell}_fused")
+            for batch, rows, inputs, lengths, want in cases:
+                fn.argtypes = [ctypes.c_void_p] * (len(inputs) + 2) + \
+                    [ctypes.c_int] * (5 if proj else 6) + [ctypes.c_void_p]
                 out = torch.empty(G, batch, H, device="cuda")
-                args = [t.data_ptr() for t in (xb, w_ih, w_hh, *biases, lengths, out)] + [
-                    T, G, batch, D, H, rows, stream]
+                dims = [T, G, batch, H, rows] if proj else [T, G, batch, D, H, rows]
+                args = [t.data_ptr() for t in (*inputs, lengths, out)] + dims + [stream]
                 code = fn(*args)
                 if code:
                     parts.append(f"{cell} B{batch}/{rows} refused ({code})")

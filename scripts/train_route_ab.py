@@ -14,8 +14,8 @@ windows (batch 32, every augmentation on), for the default route and
 ``model.fused_mlp=true model.fused_mlp_ln=false`` at chunk 512, for the
 LSTM parity model (every encoder one LSTM layer, one grouped recurrence,
 ``chip_smoke.rnn_overrides``) at chunk 512 and 1024, and for the GRU model at
-512: 4 micro-steps, then 8
-under ``torch.profiler`` (device ms per micro-step by kernel family,
+512: 8 micro-steps (their losses kept: the table says whether they are the
+same bits in every tree), then 8 under ``torch.profiler`` (device ms per micro-step by kernel family,
 ``chip_smoke.FAMILIES``; the device total and its busy share of the wall
 time), then the p50 of 20 micro-steps on the host clock. Prints the card's
 name and power limit, one JSON line per tree, then the table of all runs.
@@ -71,8 +71,9 @@ def _measure(tree: Path) -> dict:
         if isinstance(overrides, str):
             overrides = smoke.rnn_overrides(modalities, overrides, chunk)
         trainer = smoke._trainer(torch, overrides)
-        step, _losses, _launches = smoke.counted_steps(torch, {}, trainer, split, idx, 4)
+        step, losses, _launches = smoke.counted_steps(torch, {}, trainer, split, idx, 8)
         families = smoke.profile_micro_steps(torch, step, split, idx, 8)
+        families["losses"] = losses
         lat = []
         for i in range(20):
             t = time.perf_counter()
@@ -116,10 +117,14 @@ def main() -> int:
     for label in ROUTES:
         print(f"{label} route, ms per micro-step" + "".join(
             f"{Path(r['tree']).name or '.':>14s}" for r in runs))
-        names = list(dict.fromkeys(k for r in runs for k in r["routes"][label]))
+        names = list(dict.fromkeys(k for r in runs for k in r["routes"][label] if k != "losses"))
         for name in names:
             print(f"  {name:32s}" + "".join(
                 f"{r['routes'][label].get(name, 0.0):14.4f}" for r in runs))
+        losses = [r["routes"][label]["losses"] for r in runs]
+        same = all(loss == losses[0] for loss in losses)
+        print(f"  losses of 8 micro-steps: {'bit-identical in every tree' if same else 'differ'} "
+              f"{losses[0]}" + ("" if same else f" / {losses[1:]}"))
     return 0
 
 

@@ -342,6 +342,30 @@ def test_dropout_mask_kernel_equals_twin_bit_for_bit(card, rows, cols, keep, pur
         assert abs(got.float().mean().item() - keep) < 4 * (keep * (1 - keep) / n) ** 0.5
 
 
+@pytest.mark.parametrize("rows,specs", [
+    (32 * 512, [(256, tm.RNG_P_ATT), (2048, tm.RNG_P_HIDDEN), (256, tm.RNG_P_RES)]),
+    (1021, [(7, tm.RNG_P_HIDDEN), (7, tm.RNG_P_RES), (3, tm.RNG_P_ATT)]),
+    (4 * 32 * 512, [(256, tm.RNG_P_ATT), (2048, tm.RNG_P_HIDDEN), (256, tm.RNG_P_RES)]),
+], ids=["layer", "ragged", "grouped-layer"])
+@pytest.mark.parametrize("keep", [0.8, 1.0, 0.0])
+def test_dropout_masks_one_launch_equals_twin_bit_for_bit(card, rows, specs, keep):
+    """A layer's three masks in one launch: every byte equal to the twin's,
+    and to the single-mask launches of the same (seed, purpose)."""
+    seed = torch.tensor([424242, -31337], dtype=torch.int32, device=card)
+    before = tm.dropout_keep_mask.launches
+    got = tm.dropout_keep_masks(seed, rows, specs, keep)
+    torch.cuda.synchronize()
+    assert tm.dropout_keep_mask.launches == before + 1
+    for mask, (cols, purpose) in zip(got, specs):
+        assert mask.dtype == torch.uint8 and mask.shape == (rows, cols)
+        assert torch.equal(mask, tm.dropout_keep_mask_reference(seed, rows, cols, keep, purpose))
+        assert torch.equal(mask, tm.dropout_keep_mask(seed, rows, cols, keep, purpose))
+    if keep == 0.8 and rows > 2000:
+        rate = torch.cat([m.reshape(-1) for m in got]).float().mean().item()
+        n = sum(m.numel() for m in got)
+        assert abs(rate - keep) < 4 * (keep * (1 - keep) / n) ** 0.5
+
+
 def test_dropout_mask_kernel_rejects_a_seed_it_does_not_take(card):
     with pytest.raises(TypeError, match="int32"):
         tm.dropout_keep_mask(torch.zeros(2, dtype=torch.int64, device=card), 4, 4, 0.8)
@@ -622,8 +646,11 @@ def test_flash_split_kernels_repeat_and_share_the_fused_dk_dv_bits(card, seq, hd
 
 # ---- grouped recurrences: the three inference kernels ------------------------
 
-RNN_SHAPES = [  # T, G, B, D, H: small and ragged (B, T not multiples of 8, H not of 32), full width
-    (22, 2, 5, 3, 16), (37, 3, 13, 8, 48), (24, 1, 8, 1, 300), (512, 4, 64, 17, 256)]
+# T, G, B, D, H: small and ragged (B, T not multiples of 8, H not of 32), H 64 and 192 (the
+# cluster bodies below the full width), full width
+RNN_SHAPES = [
+    (22, 2, 5, 3, 16), (37, 3, 13, 8, 48), (24, 1, 8, 1, 300), (40, 2, 21, 5, 64),
+    (33, 3, 40, 9, 192), (512, 4, 64, 17, 256)]
 
 
 def _rnn_inputs(card, steps, groups, batch, feat, hidden, gates, seed):
@@ -642,14 +669,27 @@ def _rnn_inputs(card, steps, groups, batch, feat, hidden, gates, seed):
 
 @pytest.mark.parametrize("with_lengths", [True, False], ids=["lengths", "full"])
 @pytest.mark.parametrize("steps,groups,batch,feat,hidden", RNN_SHAPES)
-@pytest.mark.parametrize("fn", ["lstm_forward", "lstm_fused", "gru_fused"])
+@pytest.mark.parametrize("fn", ["lstm_forward", "lstm_fused", "gru_fused", "lstm_forward_rows16",
+                                "lstm_forward_rows32"])
 def test_grouped_recurrence_kernels_match_plain(card, fn, steps, groups, batch, feat, hidden,
                                                 with_lengths):
+    """Each inference kernel on the body its route names (``_rowsN``:
+    ``grouped_lstm_forward`` with its cluster tiling forced, refused where
+    the SIMT body runs) against its plain version: within the f32 limit, a
+    row of length 0 exactly zero, a second launch the same bits."""
     gates = 3 if fn == "gru_fused" else 4
     x, w_ih, w_hh, b_ih, b_hh, lengths = _rnn_inputs(
         card, steps, groups, batch, feat, hidden, gates, steps + hidden)
     lens = lengths if with_lengths else None
-    if fn == "lstm_forward":
+    kw = {}
+    if fn.startswith("lstm_forward_rows"):
+        kw["cluster_rows"] = int(fn[len("lstm_forward_rows"):])
+        if tr.grouped_lstm_forward_route(hidden) == "simt":
+            with pytest.raises(ValueError, match="SIMT body"):
+                tr.grouped_lstm_forward(torch.zeros(steps, groups, batch, 4 * hidden,
+                                                    device=card), w_hh, b_hh, lens, **kw)
+            return
+    if fn.startswith("lstm_forward"):
         x_proj = (torch.einsum("tgbd,gdh->tgbh", x, w_ih) + b_ih[None, :, None, :]).contiguous()
         kernel, plain, args = tr.grouped_lstm_forward, tr.grouped_lstm_forward_plain, \
             (x_proj, w_hh, b_hh, lens)
@@ -660,15 +700,19 @@ def test_grouped_recurrence_kernels_match_plain(card, fn, steps, groups, batch, 
         kernel, plain, args = tr.grouped_gru_fused, tr.grouped_gru_fused_plain, \
             (x, w_ih, w_hh, b_ih, b_hh, lens)
     before = kernel.launches
-    got = kernel(*args)
+    got = kernel(*args, **kw)
     torch.cuda.synchronize()
     assert kernel.launches == before + 1
     want = plain(*args)
     assert got.shape == (groups, batch, hidden)
     # f32 both; up to 512 dependent steps whose products sum in another order
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    assert torch.equal(kernel(*args, **kw), got)  # no atomics: a second launch, the same bits
     if with_lengths:
         assert torch.all(got[:, 0] == 0)  # length 0: the zero state, exactly
+        if kw:  # every row of length 0: the zero state, exactly
+            zero = torch.zeros_like(lengths)
+            assert torch.all(kernel(*args[:-1], zero, **kw) == 0)
 
 
 def test_grouped_recurrence_kernels_reject_what_they_do_not_take(card):

@@ -136,6 +136,15 @@ def test_fused_recurrences_route_by_hidden_and_input_width():
     assert (trnn.CLUSTER_MAX_HIDDEN, trnn.CLUSTER_MAX_FEAT) == (256, 64)
 
 
+@pytest.mark.parametrize("hidden,route", [(32, "simt"), (64, "cluster"), (192, "cluster"),
+                                          (256, "cluster"), (320, "simt")])
+def test_precomputed_projection_recurrence_routes_by_hidden(hidden, route):
+    # grouped_lstm_forward's cluster body holds a CTA's W_hh slice and h (no
+    # W_ih slice, no x ring): H a multiple of 64 up to 256, any D upstream
+    assert trnn.grouped_lstm_forward_route(hidden) == route
+    assert trnn.grouped_lstm_forward_route(hidden) == trnn.rnn_train_route(hidden)
+
+
 def test_cluster_rows_run_a_launch_in_the_fewest_waves():
     def tilings(waves16, waves32):
         return {16: {"waves": waves16}, 32: {"waves": waves32}}

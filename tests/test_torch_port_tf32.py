@@ -36,7 +36,11 @@ of W_hh and of W_ih, the GRU's candidate gate split into an h slot and an x
 slot beside zero columns, the x part over the input width padded to a
 multiple of 8) is held to ``grouped_lstm_fused_plain`` /
 ``grouped_gru_fused_plain`` at the same limits and against the JAX package's
-``grouped_lstm_fused`` / ``grouped_gru_fused`` in interpret mode.
+``grouped_lstm_fused`` / ``grouped_gru_fused`` in interpret mode; the same
+body over a precomputed projection (``grouped_lstm_forward``: x_proj added in
+the slots' local column order, no x product, at 16 and 32 rows a cluster)
+against ``grouped_lstm_forward_plain`` and the JAX package's
+``grouped_lstm_forward``.
 """
 
 import contextlib
@@ -1291,9 +1295,44 @@ def _fused_cluster(cell, x, w_ih, w_hh, b_a, b_b, lengths, mm, cluster=CLUSTER):
     return h
 
 
+@_one_thread()
+def _proj_cluster(x_proj, w_hh, b_hh, lengths, mm, rows, cluster=CLUSTER):
+    """``grouped_lstm_forward`` on the cluster body (``kXProj``): per tile of
+    ``rows`` batch rows (one cluster), to the tile's longest length, each
+    CTA's slot columns of z = h_{t-1} W_hh through ``mm`` in 32-deep fresh
+    accumulators, + x_proj taken in the same local column order (the
+    registers each lane loads), then + b_hh; the cell, the carry frozen past
+    each length -> h_T."""
+    steps, groups, batch, _ = x_proj.shape
+    hidden = w_hh.shape[1]
+    local = torch.tensor([col for cols in _local_columns(hidden, cluster) for col in cols])
+    back = torch.argsort(local)
+    whh, xp = w_hh[..., local], x_proj[..., local]
+    lens = (lengths if lengths is not None else torch.full((batch,), steps)).clamp(0, steps)
+    out = torch.zeros(groups, batch, hidden)
+    for b0 in range(0, batch, rows):
+        tile = slice(b0, min(b0 + rows, batch))
+        h = torch.zeros(groups, tile.stop - b0, hidden)
+        c = torch.zeros_like(h)
+        for t in range(int(lens[tile].max())):
+            keep = (t < lens[tile])[:, None]
+            z = (_bmm_chunked(h, whh, mm) + xp[t, :, tile])[..., back] + b_hh[:, None, :]
+            s0, s1, s2, s3 = z.chunk(4, dim=-1)
+            c_new = torch.sigmoid(s1) * c + torch.sigmoid(s0) * torch.tanh(s2)
+            h = torch.where(keep, torch.sigmoid(s3) * torch.tanh(c_new), h)
+            c = torch.where(keep, c_new, c)
+        out[:, tile] = h
+    return out
+
+
+def _x_proj(x, w_ih, b_ih):
+    """The precomputed projection ``grouped_lstm_forward`` reads, f32."""
+    return torch.einsum("tgbd,gdh->tgbh", x, w_ih) + b_ih[None, :, None, :]
+
+
 def _fused_case(cell, steps, batch, hidden, feat, kind):
     rng = np.random.default_rng(steps + batch + hidden + feat + len(kind) + len(cell))
-    gates = 4 if cell == "lstm" else 3
+    gates = 3 if cell == "gru" else 4
     scale = hidden**-0.5
     u = lambda *shape: rng.uniform(-scale, scale, shape).astype(np.float32)  # noqa: E731
     x = rng.standard_normal((steps, RNN_GROUPS, batch, feat)).astype(np.float32)
@@ -1303,21 +1342,33 @@ def _fused_case(cell, steps, batch, hidden, feat, kind):
                "ragged": rng.integers(0, steps + 1, batch).astype(np.int32)}[kind]
     if kind == "ragged":
         lengths[:4] = [0, 1, steps - 1, steps]
-    # the LSTM kernels take one bias, b_ih + b_hh; the GRU's both
+    # the fused LSTM kernel takes one bias, b_ih + b_hh; the GRU's both, and
+    # the precomputed projection b_ih with b_hh apart
     biases = (b_ih + b_hh, None) if cell == "lstm" else (b_ih, b_hh)
     return x, w_ih, w_hh, biases, lengths
 
 
 def _fused_plain(cell, x, w_ih, w_hh, biases, lengths):
+    if cell == "lstm_proj":
+        return trnn.grouped_lstm_forward_plain(_x_proj(x, w_ih, biases[0]), w_hh, biases[1],
+                                               lengths)
     if cell == "lstm":
         return trnn.grouped_lstm_fused_plain(x, w_ih, w_hh, biases[0], lengths)
     return trnn.grouped_gru_fused_plain(x, w_ih, w_hh, *biases, lengths)
 
 
+def _cluster_emulation(cell, x, w_ih, w_hh, biases, lengths, mm, rows=16):
+    """The cluster body's arithmetic for ``cell`` (``"lstm_proj"``:
+    ``grouped_lstm_forward`` over ``x W_ih + b_ih``, at ``rows`` a cluster)."""
+    if cell == "lstm_proj":
+        return _proj_cluster(_x_proj(x, w_ih, biases[0]), w_hh, biases[1], lengths, mm, rows)
+    return _fused_cluster(cell, x, w_ih, w_hh, *biases, lengths, mm)
+
+
 @pytest.mark.parametrize("kind", ["full", "ragged", "none"])
 @pytest.mark.parametrize("feat", FUSED_FEATS)
 @pytest.mark.parametrize(**FUSED_CASES)
-@pytest.mark.parametrize("cell", ["lstm", "gru"])
+@pytest.mark.parametrize("cell", ["lstm", "gru", "lstm_proj"])
 def test_fused_cluster_recurrences_3xtf32_hold_the_f32_limit(cell, steps, batch, hidden, feat,
                                                              kind):
     x, w_ih, w_hh, biases, lengths = _fused_case(cell, steps, batch, hidden, feat, kind)
@@ -1325,9 +1376,12 @@ def test_fused_cluster_recurrences_3xtf32_hold_the_f32_limit(cell, steps, batch,
     biases = [None if b is None else torch.from_numpy(b) for b in biases]
     tl = None if lengths is None else torch.from_numpy(lengths)
     want = _fused_plain(cell, *args, biases, tl)
+    if cell == "lstm_proj":  # both tilings: a row's arithmetic does not depend on its cluster
+        assert torch.equal(_cluster_emulation(cell, *args, biases, tl, _mm3, 16),
+                           _cluster_emulation(cell, *args, biases, tl, _mm3, 32))
     errs = {}
     for name, mm in (("3xTF32", _mm3), ("1xTF32", _mm1)):
-        got = _fused_cluster(cell, *args, *biases, tl, mm)
+        got = _cluster_emulation(cell, *args, biases, tl, mm)
         errs[name] = (got - want).abs().max().item()
         if name == "3xTF32":
             np.testing.assert_allclose(got.numpy(), want.numpy(), **RNN_VALUE_TOL)
@@ -1342,17 +1396,23 @@ def test_fused_cluster_recurrences_3xtf32_hold_the_f32_limit(cell, steps, batch,
 @pytest.mark.parametrize("kind", ["full", "ragged", "none"])
 @pytest.mark.parametrize("feat", FUSED_FEATS)
 @pytest.mark.parametrize(**FUSED_CASES)
-@pytest.mark.parametrize("cell", ["lstm", "gru"])
+@pytest.mark.parametrize("cell", ["lstm", "gru", "lstm_proj"])
 def test_fused_cluster_recurrences_3xtf32_match_the_jax_kernels(cell, steps, batch, hidden, feat,
                                                                 kind):
     x, w_ih, w_hh, biases, lengths = _fused_case(cell, steps, batch, hidden, feat, kind)
     jl = None if lengths is None else jnp.asarray(lengths)
-    jbiases = [jnp.asarray(b) for b in biases if b is not None]
-    jfn = jrnn.grouped_lstm_fused if cell == "lstm" else jrnn.grouped_gru_fused
-    want = np.asarray(jfn(*map(jnp.asarray, (x, w_ih, w_hh)), *jbiases, jl, interpret=True))
     tbiases = [None if b is None else torch.from_numpy(b) for b in biases]
-    got = _fused_cluster(cell, *map(torch.from_numpy, (x, w_ih, w_hh)), *tbiases,
-                         None if lengths is None else torch.from_numpy(lengths), _mm3).numpy()
+    targs = list(map(torch.from_numpy, (x, w_ih, w_hh)))
+    if cell == "lstm_proj":
+        x_proj = _x_proj(targs[0], targs[1], tbiases[0]).numpy()
+        want = np.asarray(jrnn.grouped_lstm_forward(
+            jnp.asarray(x_proj), jnp.asarray(w_hh), jnp.asarray(biases[1]), jl, interpret=True))
+    else:
+        jbiases = [jnp.asarray(b) for b in biases if b is not None]
+        jfn = jrnn.grouped_lstm_fused if cell == "lstm" else jrnn.grouped_gru_fused
+        want = np.asarray(jfn(*map(jnp.asarray, (x, w_ih, w_hh)), *jbiases, jl, interpret=True))
+    got = _cluster_emulation(cell, *targs, tbiases,
+                             None if lengths is None else torch.from_numpy(lengths), _mm3).numpy()
     print(f"emulated {cell} serving cluster body vs the JAX kernel, T={steps} B={batch} "
           f"H={hidden} D={feat} lengths {kind}: max abs err {np.abs(got - want).max():.3e}")
     np.testing.assert_allclose(got, want, **RNN_VALUE_TOL)

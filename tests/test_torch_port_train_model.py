@@ -221,3 +221,57 @@ def test_fused_mlp_without_ln_layer_matches_jax_on_explicit_masks(monkeypatch):
         g = got[f"encoders_m/layer0/{name}"]
         err = np.abs(g - w).max() / max(np.abs(w).max(), floor)
         assert err < GRAD_TOL, f"{name}: rel err {err:.3e}"
+
+
+@pytest.mark.parametrize("encoder", ["layer", "grouped"])
+def test_kernel_source_layer_draws_its_masks_in_one_call(monkeypatch, encoder):
+    """Dropout on the generator kernel's source (pinned on the CPU, where the
+    masks come from the kernel's twin): a transformer layer, ungrouped or
+    grouped, draws its three masks of one seed with one
+    ``dropout_keep_masks`` call, and its training output is bit for bit the
+    one the same layer gives when it is handed, in its fixed draw order, the
+    three masks one ``dropout_keep_mask_reference`` call per purpose makes
+    from that seed (what it drew before the masks shared a launch)."""
+    from multimodal_sensor_fusion_with_attention_rajeevatla_torch.models import encoders as tenc
+    from multimodal_sensor_fusion_with_attention_rajeevatla_torch.models import grouped as tgr
+    from multimodal_sensor_fusion_with_attention_rajeevatla_torch.ops import mlp as tm
+
+    module = tenc if encoder == "layer" else tgr
+    rng = np.random.default_rng(5)
+    hidden, ffw = 32, 64
+    if encoder == "layer":
+        net = tenc.TransformerEncoderLayer(hidden, 4, dim_feedforward=ffw, use_flash=True,
+                                           dropout=0.2, use_fused_mlp=True,
+                                           use_fused_mlp_ln=True, dropout_rng="kernel")
+        x = torch.from_numpy(rng.standard_normal((3, 8, hidden)).astype(np.float32))
+        layers, rows = 1, 3 * 8
+    else:
+        net = tgr.GroupedTransformerEncoder(3, 5, hidden_dim=hidden, output_dim=16, num_layers=2,
+                                            dim_feedforward=ffw, dropout=0.2, use_flash=True,
+                                            dropout_rng="kernel")
+        net.init_parameters(torch.Generator().manual_seed(1))
+        x = torch.from_numpy(rng.standard_normal((3, 4, 8, 5)).astype(np.float32))
+        layers, rows = 2, 3 * 4 * 8
+    calls = []
+    one_launch = module.dropout_keep_masks
+
+    def counted(*args):
+        calls.append(len(args[2]))
+        return one_launch(*args)
+
+    monkeypatch.setattr(module, "resolve_dropout_rng", lambda *_args: "kernel")
+    monkeypatch.setattr(module, "dropout_keep_masks", counted)
+    got = net(x, None, train=True, generator=torch.Generator().manual_seed(3))
+    assert calls == [3] * layers  # one call a layer, its three masks
+
+    # the same seed's masks, one reference call per purpose, handed to the
+    # layer in its draw order (attention side, hidden, FFW side) each layer
+    generator = torch.Generator().manual_seed(3)
+    seed = tm.kernel_rng_seed(generator, "cpu")  # the layer's one draw from the generator
+    order = [tm.dropout_keep_mask_reference(seed, rows, cols, 0.8, purpose) for cols, purpose in
+             ((hidden, tm.RNG_P_ATT), (ffw, tm.RNG_P_HIDDEN), (hidden, tm.RNG_P_RES))]
+    handed = iter(order * layers)
+    monkeypatch.setattr(module, "resolve_dropout_rng", lambda *_args: "xla")
+    monkeypatch.setattr(module, "keep_mask", lambda shape, *_args: next(handed).reshape(shape))
+    assert torch.equal(got, net(x, None, train=True, generator=generator))
+    assert next(handed, None) is None

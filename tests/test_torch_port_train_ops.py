@@ -365,3 +365,34 @@ def test_kernel_rng_seed_draws_two_words_from_the_generator():
     c = tm.kernel_rng_seed(torch.Generator().manual_seed(6), "cpu")
     assert a.dtype == torch.int32 and a.shape == (2,)
     assert torch.equal(a, b) and not torch.equal(a, c)
+
+
+@pytest.mark.parametrize("rows,specs,keep", [
+    (96, [(32, tm.RNG_P_ATT), (2048, tm.RNG_P_HIDDEN), (32, tm.RNG_P_RES)], 0.8),
+    (1021, [(7, tm.RNG_P_HIDDEN), (3, tm.RNG_P_RES), (5, tm.RNG_P_ATT)], 0.8),
+    (33, [(5, tm.RNG_P_RES), (64, tm.RNG_P_ATT)], 1.0),
+    (33, [(9, tm.RNG_P_HIDDEN)], 0.0),
+    (0, [(32, tm.RNG_P_ATT), (64, tm.RNG_P_HIDDEN), (32, tm.RNG_P_RES)], 0.8),
+], ids=["layer", "ragged", "keep1", "keep0", "empty"])
+def test_dropout_keep_masks_equal_one_call_per_mask(rows, specs, keep):
+    """A layer's masks in one launch are, byte for byte, the masks one
+    ``dropout_keep_mask_reference`` call per purpose gives."""
+    seed = torch.tensor([-99, 2**31 - 1], dtype=torch.int32)
+    got = tm.dropout_keep_masks(seed, rows, specs, keep)
+    assert len(got) == len(specs)
+    for mask, (cols, purpose) in zip(got, specs):
+        want = tm.dropout_keep_mask_reference(seed, rows, cols, keep, purpose)
+        assert mask.dtype == torch.uint8 and mask.shape == (rows, cols)
+        assert torch.equal(mask, want)
+    assert all(torch.equal(a, b) for a, b in zip(
+        got, tm.dropout_keep_masks_reference(seed, rows, specs, keep)))
+
+
+def test_dropout_keep_masks_rejects_what_it_does_not_take():
+    seed = torch.tensor([7, 9], dtype=torch.int32)
+    with pytest.raises(ValueError, match="between 1 and 3 masks"):
+        tm.dropout_keep_masks(seed, 4, [(4, tm.RNG_P_ATT)] * 4, 0.8)
+    with pytest.raises(ValueError, match="between 1 and 3 masks"):
+        tm.dropout_keep_masks(seed, 4, [], 0.8)
+    with pytest.raises(TypeError, match="int32"):
+        tm.dropout_keep_masks(seed.long(), 4, [(4, tm.RNG_P_ATT)], 0.8)
