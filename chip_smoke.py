@@ -164,7 +164,24 @@ Phases (any failure exits non-zero, and no result line is printed):
    served against the plain path and 4 training micro-steps (one against
    the plain path, the same seed twice bit for bit), each with exactly the
    launches those routes name.
-11. Print the kernel table as one JSON line, then the result line
+11. Fusion: ``early_fusion``, ``late_fusion`` and ``uncertainty_fusion`` of
+   ``config/fusion_strategies.yaml`` over base.yaml (seed 42, real chunk-512
+   windows): batch-64 requests served against the plain path (4 attention
+   forwards and no head kernel a request: these heads are plain layers) and
+   timed over 20 calls; one training micro-step against the plain path, 8
+   counted micro-steps (the default route's launches: 4 of each attention
+   and residual-LN kernel, 4 mask launches), the same seed twice bit for
+   bit, p50 and device time by family; a checkpoint rebuilt from its
+   directory gives the test logits bit for bit. On the uncertainty preset,
+   ``mc_dropout_uncertainty_fusion`` on one batch (weights sum to 1 on every
+   row, zero off its modalities; the same seed twice bit for bit).
+12. CNN: every stream's encoder ``encoder_type=cnn`` (two convolutions, masked
+   BatchNorm), the hybrid head: served against the plain head (1 head
+   kernel and no attention a request), trained as [fusion] is (no kernel
+   launched); the BatchNorm buffers move with training, are left as they
+   were by an MC-dropout call, and come back from a checkpoint with
+   bit-identical test logits.
+13. Print the kernel table as one JSON line, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
 The script imports torch and the port only; it needs no network.
@@ -1924,16 +1941,26 @@ def profile_micro_steps(torch, step, split, idx, iters: int) -> dict:
     return profile(torch, run, iters, "micro-step")
 
 
+def load_cfg(overrides):
+    """base.yaml + ``overrides``; with a ``preset=<name>`` among them, that
+    preset of config/fusion_strategies.yaml over base.yaml."""
+    from multimodal_sensor_fusion_with_attention_rajeevatla_torch.utils.config import load_config
+
+    overrides = list(overrides)
+    presets = any(o.startswith("preset=") for o in overrides)
+    return load_config(REPO / "config" / ("fusion_strategies.yaml" if presets else "base.yaml"),
+                       overrides)
+
+
 def _trainer(torch, overrides, weights=None):
-    """A Trainer on base.yaml + ``overrides`` with seeded weights (or
-    ``weights``), its optimizer built for the real epoch length."""
+    """A Trainer on base.yaml + ``overrides`` (``load_cfg``) with seeded
+    weights (or ``weights``), its optimizer built for the real epoch length."""
     from multimodal_sensor_fusion_with_attention_rajeevatla_torch.models.module import (
         MultimodalFusionModel,
     )
     from multimodal_sensor_fusion_with_attention_rajeevatla_torch.train.trainer import Trainer
-    from multimodal_sensor_fusion_with_attention_rajeevatla_torch.utils.config import load_config
 
-    cfg = load_config(REPO / "config" / "base.yaml", list(overrides))
+    cfg = load_cfg(overrides)
     model = MultimodalFusionModel.from_config(
         cfg, device="cuda", generator=torch.Generator().manual_seed(int(cfg.seed)))
     if weights is not None:
@@ -2116,23 +2143,21 @@ def index_batches(torch, split, batch, seed):
 
 def serve_vs_plain(torch, kernels, overrides, split, idx, label, smi, want, compare_rows=None,
                    timed=12):
-    """Serve batch-64 requests of ``split`` at base.yaml + ``overrides`` with
-    counted launches, hold the logits against the plain path (on the first
-    ``compare_rows`` rows of the batch when the plain scores of the whole
-    batch do not fit), then time repeated requests. Returns the launches of
-    the counted request, the model and the p50."""
+    """Serve batch-64 requests of ``split`` at base.yaml + ``overrides``
+    (``load_cfg``) with counted launches, hold the logits against the plain
+    path (on the first ``compare_rows`` rows of the batch when the plain
+    scores of the whole batch do not fit), then time repeated requests.
+    Returns the launches of the counted request, the model and the p50."""
     from multimodal_sensor_fusion_with_attention_rajeevatla_torch.models.module import (
         MultimodalFusionModel,
     )
     from multimodal_sensor_fusion_with_attention_rajeevatla_torch.serving import make_serving_fn
-    from multimodal_sensor_fusion_with_attention_rajeevatla_torch.utils.config import load_config
 
-    cfg = load_config(REPO / "config" / "base.yaml", list(overrides))
+    cfg = load_cfg(overrides)
     model = MultimodalFusionModel.from_config(
         cfg, device="cuda", generator=torch.Generator().manual_seed(int(cfg.seed)))
     plain = MultimodalFusionModel.from_config(
-        load_config(REPO / "config" / "base.yaml", [*overrides, "model.flash_attention=false"]),
-        device="cuda")
+        load_cfg([*overrides, "model.flash_attention=false"]), device="cuda")
     plain.load_state_dict(model.state_dict())
     serve = make_serving_fn(model, device="cuda")
     feats, _labels, lengths = split.gather(idx[0])
@@ -2178,7 +2203,8 @@ def train_route(torch, kernels, overrides, split, idx, label, smi, want_per_step
                 profile_steps=4):
     """One micro-step against the plain path, ``steps`` counted micro-steps,
     the same seed again bit for bit, the step's p50 and device time by
-    family. Returns the counted launches."""
+    family. Returns the counted launches and the trainer of the counted
+    steps."""
     micro_step_vs_plain(torch, split, idx[0], overrides, label)
     torch.cuda.reset_peak_memory_stats()
     trainer = _trainer(torch, overrides)
@@ -2197,7 +2223,7 @@ def train_route(torch, kernels, overrides, split, idx, label, smi, want_per_step
     del _step2
     step_p50(torch, step, split, idx, len(idx[0]), label, smi, iters=10)
     profile_micro_steps(torch, step, split, idx, profile_steps)
-    return launches
+    return launches, trainer
 
 
 def long_phase(torch, kernels, modalities, stride, seed, smi):
@@ -2222,7 +2248,7 @@ def long_phase(torch, kernels, modalities, stride, seed, smi):
                     "dropout_keep_mask": 4}
             out[f"train{chunk}"] = train_route(
                 torch, kernels, override, split, index_batches(torch, split, 32, seed),
-                f"L{chunk}", smi, want)
+                f"L{chunk}", smi, want)[0]
         forward = "flash_fwd_single" if chunk <= 2048 else "flash_fwd_tiled"
         torch.cuda.reset_peak_memory_stats()
         out[f"serve{chunk}"], model, _p50 = serve_vs_plain(
@@ -2292,7 +2318,7 @@ def grouped_phase(torch, kernels, split, batches, train_idx, default_serve_p50, 
     idx = [torch.from_numpy(row).long() for row in train_idx]
     launches["train"] = train_route(
         torch, kernels, route, split, idx, "G512", smi,
-        {"flash_fwd_single": 1, "flash_bwd_fused": 1, "dropout_keep_mask": 1})
+        {"flash_fwd_single": 1, "flash_bwd_fused": 1, "dropout_keep_mask": 1})[0]
 
     # one epoch of fit, and the checkpoint's bundled config rebuilds the grouped model
     trainer = _trainer(torch, [
@@ -2433,8 +2459,226 @@ def c5_phase(torch, kernels, split, batches, train_idx, smi):
         del model
         out[f"train{hidden}"] = train_route(
             torch, kernels, overrides, split, idx32, label, smi,
-            step_want, steps=C5_STEPS, profile_steps=2)
+            step_want, steps=C5_STEPS, profile_steps=2)[0]
         torch.cuda.empty_cache()
+    return out
+
+
+# the presets of config/fusion_strategies.yaml whose heads are not hybrid: the
+# heads run as the model's own nn.Linear layers, so a request launches the
+# encoders' attention and no head kernel, and a micro-step the default
+# route's encoder kernels
+FUSION_PRESETS = ("early_fusion", "late_fusion", "uncertainty_fusion")
+FUSION_SERVE_CALLS = 20
+FUSION_STEPS = 8
+ENCODER_KERNELS = ("packed_attention_fwd", "packed_attention_bwd", *LN_KERNELS,
+                   "dropout_keep_mask")  # one launch each per encoder layer a micro-step
+# every PAMAP2 stream on the CNN encoder, the hybrid head: the head kernel and
+# no attention a request, no kernel a micro-step
+CNN_STREAMS = ("imu_hand", "imu_chest", "imu_ankle", "heart_rate")
+
+
+def serve_profile(torch, model, split, idx, label):
+    """Device time by kernel family of ``model``'s served batch-64 requests
+    (``profile``) and the head kernel's share of it."""
+    from multimodal_sensor_fusion_with_attention_rajeevatla_torch.serving import make_serving_fn
+
+    serve = make_serving_fn(model, device="cuda")
+
+    def run_requests(n):
+        for i in range(n):
+            feats, _labels, lengths = split.gather(idx[i % len(idx)])
+            serve(feats, None, lengths)
+        torch.cuda.synchronize()
+
+    print(f"  {label}: served requests", flush=True)
+    return profile(torch, run_requests, 10, "request")
+
+
+def checkpoint_round_trip(torch, trainer, test, workdir: Path, label):
+    """The trainer's model saved as a checkpoint, rebuilt from its directory
+    alone: its weights and buffers equal, and its logits on the test split
+    bit-identical to the in-memory model's."""
+    from multimodal_sensor_fusion_with_attention_rajeevatla_torch.models.module import (
+        MultimodalFusionModel,
+    )
+    from multimodal_sensor_fusion_with_attention_rajeevatla_torch.train.checkpoint import (
+        CheckpointManager, load_checkpoint,
+    )
+
+    saved = CheckpointManager(workdir / label, config=trainer.config, save_top_k=1).save(
+        trainer.model.state_dict(), epoch=0, score=1.0)
+    weights, cfg, _meta = load_checkpoint(saved)
+    reloaded = MultimodalFusionModel.from_config(cfg, device="cuda")
+    reloaded.load_state_dict(weights)
+    state = trainer.model.state_dict()
+    tensors = all(torch.equal(v, reloaded.state_dict()[k]) for k, v in state.items())
+    same = torch.equal(torch.from_numpy(trainer.evaluate_logits(test)),
+                       torch.from_numpy(trainer.evaluate_logits(test, model=reloaded)))
+    print(f"  {label}: checkpoint rebuilt from its directory ({cfg.model.fusion_type} head, "
+          f"{len(state)} tensors, {sum(1 for k in state if 'running_' in k)} BatchNorm "
+          f"buffers) equal: {tensors}; logits on {test.num_windows} test windows bit-identical: "
+          f"{same}", flush=True)
+    if not (tensors and same):
+        raise AssertionError(f"{label}: the checkpoint does not reload to the model it saved")
+
+
+def fusion_phase(torch, kernels, split, batches, train_idx, test, smi, workdir: Path):
+    """early_fusion, late_fusion and uncertainty_fusion of
+    config/fusion_strategies.yaml over base.yaml: served (4 attention
+    forwards, no head kernel a request) against the plain path, trained
+    (one micro-step against the plain path, 8 counted micro-steps, the same
+    seed twice bit for bit), a checkpoint reloaded; MC-dropout uncertainty
+    fusion on the uncertainty preset. Returns the launches by path."""
+    from multimodal_sensor_fusion_with_attention_rajeevatla_torch.uncertainty import (
+        mc_dropout_uncertainty_fusion,
+    )
+
+    print("[fusion]", flush=True)
+    idx64 = [torch.from_numpy(row).long() for row in batches]
+    idx32 = [torch.from_numpy(row).long() for row in train_idx]
+    per_step = len(split.modalities)
+    out = {}
+    for preset in FUSION_PRESETS:
+        overrides = [f"preset={preset}"]
+        out[f"serve_{preset}"], model, _p50 = serve_vs_plain(
+            torch, kernels, overrides, split, idx64, preset, smi,
+            {"packed_attention_fwd": per_step}, timed=FUSION_SERVE_CALLS)
+        serve_profile(torch, model, split, idx64, preset)
+        del model
+        out[f"train_{preset}"], trainer = train_route(
+            torch, kernels, overrides, split, idx32, preset, smi,
+            dict.fromkeys(ENCODER_KERNELS, per_step), steps=FUSION_STEPS)
+        checkpoint_round_trip(torch, trainer, test, workdir, preset)
+        if preset == "uncertainty_fusion":
+            feats, _labels, lengths = split.gather(idx64[0])
+            mask = torch.ones((BATCH, per_step), device="cuda")
+            mask[:8, 1] = 0.0
+            mask[8:12] = 0.0
+            mask[8:12, 3] = 1.0
+            num = int(trainer.config.uncertainty.num_mc_samples)
+            for fn in kernels.values():
+                fn.launches = 0
+            logits, weights = mc_dropout_uncertainty_fusion(
+                trainer.model, feats, mask, lengths, num_samples=num, seed=int(trainer.seed))
+            torch.cuda.synchronize()
+            out["mc_uncertainty_fusion"] = {name: fn.launches for name, fn in kernels.items()}
+            again = mc_dropout_uncertainty_fusion(
+                trainer.model, feats, mask, lengths, num_samples=num, seed=int(trainer.seed))
+            sums = weights.sum(dim=1)
+            e = (sums - 1.0).abs().max().item()
+            repeat = torch.equal(logits, again[0]) and torch.equal(weights, again[1])
+            print(f"  mc_dropout_uncertainty_fusion: {num} samples of batch {BATCH}, logits "
+                  f"{tuple(logits.shape)} finite: {bool(torch.isfinite(logits).all())}; weights "
+                  f"sum to 1 on every row within {e:.2e}, zero off each row's modalities: "
+                  f"{bool(torch.all(weights[mask == 0] == 0))}; same seed bit for bit: {repeat}; "
+                  f"launches {out['mc_uncertainty_fusion']}", flush=True)
+            # each sample: a train-mode forward of the four encoders (attention,
+            # residual-LN forwards, one mask launch a layer), no head kernel
+            want = {**dict.fromkeys(kernels, 0), **dict.fromkeys(
+                ("packed_attention_fwd", "ffw_ln_fwd", "proj_ln_fwd", "dropout_keep_mask"),
+                num * per_step)}
+            if not torch.isfinite(logits).all() or e > 1e-5 or not repeat \
+                    or not torch.all(weights[mask == 0] == 0) \
+                    or out["mc_uncertainty_fusion"] != want:
+                raise AssertionError("mc_dropout_uncertainty_fusion: weights, repeat or launches "
+                                     f"(want {want})")
+        del trainer
+        torch.cuda.empty_cache()
+    return out
+
+
+CNN_CPU_TOL = 1e-5  # f32 both sides, the sums in another order; TF32 convolutions miss it
+
+
+def cnn_vs_cpu(torch, model, overrides, split, idx, rows=8):
+    """The CNN encoders' embeddings of ``rows`` real windows (two cut short)
+    on the card against the same weights on the CPU, in eval mode: each
+    stream's largest error over its largest magnitude within CNN_CPU_TOL.
+    The same with TF32 convolutions allowed is printed beside it."""
+    from multimodal_sensor_fusion_with_attention_rajeevatla_torch.models.module import (
+        MultimodalFusionModel,
+    )
+    from multimodal_sensor_fusion_with_attention_rajeevatla_torch.utils.device import pin_float32
+
+    cpu = MultimodalFusionModel.from_config(load_cfg(overrides), device="cpu")
+    cpu.load_state_dict(model.state_dict())
+    feats, _labels, lengths = split.gather(idx[0])
+    feats = {m: x[:rows] for m, x in feats.items()}
+    lengths = lengths[:rows].clone()
+    lengths[:2] = torch.tensor([37, 1], dtype=lengths.dtype, device=lengths.device)
+    model.eval()
+    with torch.inference_mode():
+        want = cpu.eval().encode({m: x.cpu() for m, x in feats.items()}, lengths.cpu())
+
+        def err():
+            got = model.encode(feats, lengths)
+            return max((got[m].cpu() - w).abs().max().item() / w.abs().max().item()
+                       for m, w in want.items())
+
+        e_f32 = err()
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            e_tf32 = err()
+        finally:
+            pin_float32()
+    print(f"  cnn: encoders on the card vs the CPU on {rows} windows: max rel err {e_f32:.3e} "
+          f"(tol {CNN_CPU_TOL}); with TF32 convolutions {e_tf32:.3e}", flush=True)
+    if not e_f32 < CNN_CPU_TOL:
+        raise AssertionError(f"cnn: the card's CNN encoders disagree with the CPU: {e_f32}")
+
+
+def cnn_phase(torch, kernels, split, batches, train_idx, test, smi, workdir: Path):
+    """Every PAMAP2 stream on the CNN encoder (two convolutions, masked
+    BatchNorm), the hybrid head: built with TF32 turned on first (resolving
+    the card must pin full f32), served (the head kernel, no attention)
+    against the plain head, its encoders against the CPU (``cnn_vs_cpu``),
+    trained (no kernel) against the plain path and twice bit for bit; the
+    BatchNorm buffers move with training, stay as they were through MC
+    dropout, and come back from a checkpoint. Returns the launches by path."""
+    from multimodal_sensor_fusion_with_attention_rajeevatla_torch.uncertainty import (
+        MCDropoutUncertainty,
+    )
+
+    print("[cnn]", flush=True)
+    overrides = [f"model.encoders.{m}.encoder_type=cnn" for m in CNN_STREAMS]
+    idx64 = [torch.from_numpy(row).long() for row in batches]
+    idx32 = [torch.from_numpy(row).long() for row in train_idx]
+    out = {}
+    # TF32 and cuDNN's free choice of algorithm on: building the model
+    # resolves the card, which must pin full float32 and deterministic cuDNN
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cudnn.deterministic = False
+    out["serve"], model, _p50 = serve_vs_plain(
+        torch, kernels, overrides, split, idx64, "cnn", smi, {"fused_hybrid_head": 1},
+        timed=FUSION_SERVE_CALLS)
+    pinned = not (torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32) \
+        and torch.backends.cudnn.deterministic
+    print(f"  cnn: from_config on the card pinned TF32 off and cuDNN deterministic: {pinned}",
+          flush=True)
+    if not pinned:
+        raise AssertionError("cnn: resolving the card did not pin full float32")
+    cnn_vs_cpu(torch, model, overrides, split, idx64)
+    fresh = {k: v.clone() for k, v in model.named_buffers()}
+    serve_profile(torch, model, split, idx64, "cnn")
+    del model
+    out["train"], trainer = train_route(
+        torch, kernels, overrides, split, idx32, "cnn", smi, {}, steps=FUSION_STEPS)
+    trained = {k: v.clone() for k, v in trainer.model.named_buffers()}
+    moved = sum(not torch.equal(v, fresh[k]) for k, v in trained.items())
+    feats, _labels, lengths = split.gather(idx64[1])
+    MCDropoutUncertainty(trainer.model, num_samples=4, seed=1)(feats, None, lengths)
+    torch.cuda.synchronize()
+    kept = all(torch.equal(v, trained[k]) for k, v in trainer.model.named_buffers())
+    print(f"  cnn: {len(trained)} BatchNorm buffers, {moved} moved by {FUSION_STEPS} training "
+          f"micro-steps; unchanged by an MC-dropout call: {kept}", flush=True)
+    if moved != len(trained) or not kept:
+        raise AssertionError("cnn: the BatchNorm buffers did not move with training, or MC "
+                             "dropout wrote them")
+    checkpoint_round_trip(torch, trainer, test, workdir, "cnn")
+    del trainer
+    torch.cuda.empty_cache()
     return out
 
 
@@ -3135,6 +3379,14 @@ def main() -> int:
                                  Path(tmp))
     # ---- 10. model widths the kernels are not built for (C5) -------------------
     c5_launches = c5_phase(torch, kernels, split, idx_matrix, train_idx, smi)
+    # ---- 11./12. the other fusion heads, and the CNN encoder ---------------------
+    test = load_split(torch, modalities, int(cfg.dataset.chunk_size),
+                      int(cfg.dataset.chunk_size), "test")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        fusion_launches = fusion_phase(torch, kernels, split, idx_matrix, train_idx, test, smi,
+                                       Path(tmp))
+        cnn_launches = cnn_phase(torch, kernels, split, idx_matrix, train_idx, test, smi,
+                                 Path(tmp))
     rnn_paths = {  # the path each recurrence kernel runs on
         "grouped_lstm_forward": rnn_launches["forward_lstm512"],
         "grouped_lstm_fused": rnn_launches["serve_lstm512"],
@@ -3173,6 +3425,8 @@ def main() -> int:
         row["fit_launches"] = fit_launches[name]
         row["eval_launches"] = eval_launches[name]
         row["c5_launches"] = {k: v[name] for k, v in c5_launches.items()}
+        row["fusion_launches"] = {k: v[name] for k, v in fusion_launches.items()}
+        row["cnn_launches"] = {k: v[name] for k, v in cnn_launches.items()}
         if row["launches"] <= 0:
             raise AssertionError(f"kernel {name} was not launched on its main path")
     print(f"[done] {time.perf_counter() - t0:.1f} s", flush=True)

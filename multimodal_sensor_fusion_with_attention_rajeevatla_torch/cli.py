@@ -7,18 +7,20 @@ surface:
         --checkpoint runs/<exp>/checkpoints/<name> [--missing_modality_test] [--device cuda]
 
 ``train`` takes Hydra-style dotted overrides; ``eval`` the reference's
-argparse flags. Both run on the card unless ``--device cpu`` is given. The
-analysis and preprocess entry points are not ported yet (ROADMAP queue A).
+argparse flags. Both run on the card unless ``--device cpu`` is given.
+``aggregate_fusion_comparison`` rebuilds ``fusion_comparison.json`` from the
+per-strategy evaluation files. The analysis and preprocess entry points are
+not ported yet (ROADMAP queue A10, A12).
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 from pathlib import Path
 from typing import List, Optional
 
 import numpy as np
-import torch
 
 from .utils.config import ConfigNode, load_config
 
@@ -26,11 +28,10 @@ _REPO_ROOT = Path(__file__).resolve().parent.parent
 
 
 def _apply_runtime_config(config: ConfigNode) -> None:
-    """Seed numpy, and keep float32 products in full float32 (no TF32): the
-    port is held to the reference in f32."""
+    """Seed numpy. The card's float32 pins (no TF32, deterministic cuDNN) are
+    set where every entry point resolves its device
+    (``utils.device.pin_float32``)."""
     np.random.seed(int(config.get("seed", 42)))
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
 
 
 def _resolve_config_arg(argv: List[str]):
@@ -128,6 +129,27 @@ def eval_main(argv: Optional[List[str]] = None) -> dict:
         missing_modality_test=args.missing_modality_test,
         device=args.device,
     )
+
+
+def aggregate_fusion_comparison(
+    experiments_dir: str | Path = "experiments",
+    output_path: Optional[str | Path] = None,
+) -> dict:
+    """Rebuild ``fusion_comparison.json`` from the ``evaluation_results.json``
+    of each experiment directory under ``experiments_dir`` (keyed by the
+    directory's name, in sorted order), as the reference CI's merge job does;
+    written to ``output_path`` (default ``<experiments_dir>/fusion_comparison.json``)."""
+    base = Path(experiments_dir)
+    results = {"results": {}}
+    if base.exists():
+        for fusion_dir in sorted(p for p in base.iterdir() if p.is_dir()):
+            eval_file = fusion_dir / "evaluation_results.json"
+            if eval_file.exists():
+                results["results"][fusion_dir.name] = json.loads(eval_file.read_text())
+    output_path = Path(output_path or base / "fusion_comparison.json")
+    output_path.parent.mkdir(parents=True, exist_ok=True)
+    output_path.write_text(json.dumps(results, indent=2))
+    return results
 
 
 def main(argv: Optional[List[str]] = None) -> int:

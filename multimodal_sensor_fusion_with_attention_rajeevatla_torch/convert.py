@@ -6,10 +6,16 @@ The flax tree of the reference's ``MultimodalFusionModel.init`` maps as:
     encoders_<m>/layer<i>/<q|k|v|out>_proj        -> encoders.<m>.layers.<i>.<same>
     encoders_<m>/layer<i>/linear1|linear2         -> encoders.<m>.layers.<i>.<same>
     encoders_<m>/layer<i>/norm1|norm2             -> encoders.<m>.layers.<i>.<same>
+    encoders_<m>/conv<i>|bn<i>                    -> encoders.<m>.<same> (cnn)
+    encoders_<m>/frame_processor|attention|proj_hidden|proj_out -> encoders.<m>.<same>
+    encoders_<m>/dense<i>|bn<i>|out               -> encoders.<m>.<same> (mlp)
     ln_<m>                                        -> layer_norms.<m>
     [fusion_model/]proj_<m> | gate_<m>            -> [fusion_model.]projections.<m> | gates.<m>
     fusion_model/classifier_hidden|classifier_out -> fusion_model.<same>
     fusion_model/pairs/<x>_kernel|<x>_bias        -> fusion_model.pairs.<same>
+    fusion_model/fc0|fc1|head                     -> fusion_model.<same> (early)
+    fusion_model/cls_<m>_fc|cls_<m>_head|unc_<m>_head -> fusion_model.<same> (late, uncertainty)
+    fusion_model/weight_logits                    -> fusion_model.weight_logits (late)
     grouped_transformer_enc/<p>/kernel|bias|scale -> grouped_tf_encoder.<p>_kernel|_bias|_scale
     grouped_transformer_enc/proj_kernel|proj_bias -> grouped_tf_encoder.<same>
     encoders_<m>/rnn/<w>_l<k>                     -> encoders.<m>.rnn.<same>
@@ -23,12 +29,17 @@ stacked ``[G, in, gates*H]`` in the grouped encoder.)
 or ``norm{1,2}_l<i>`` of a model built with ``model.grouped_transformer``; its
 stacked ``[G, in, out]`` kernels keep the reference's layout.)
 
-A Dense ``kernel [in, out]`` becomes ``weight [out, in]``; a LayerNorm
-``scale`` becomes ``weight``; the stacked pair kernels ``[P, H, H]`` keep the
-reference's ``[in, out]`` layout, which is how the port stores them. Inputs
+A Dense ``kernel [in, out]`` becomes ``weight [out, in]``, a Conv ``kernel
+[width, in, out]`` the ``Conv1d`` ``weight [out, in, width]``; a LayerNorm or
+BatchNorm ``scale`` becomes ``weight``; the stacked pair kernels ``[P, H, H]``
+keep the reference's ``[in, out]`` layout, which is how the port stores them.
+The ``batch_stats`` collection's ``<path>/mean`` and ``<path>/var`` become the
+BatchNorm buffers ``<path>.running_mean`` and ``<path>.running_var``. Inputs
 are numpy arrays (``np.asarray`` of the jax arrays); this module needs no JAX.
-``to_flax_tree`` is the reverse: port tensors (weights or their gradients)
-as a flax-layout tree of numpy arrays, so that two trees compare leaf by leaf.
+``to_flax_tree`` is the reverse for the ``params`` collection: port tensors
+(weights or their gradients) as a flax-layout tree of numpy arrays, so that
+two trees compare leaf by leaf; ``to_flax_variables`` gives a model's
+``params`` and, where it has BatchNorms, its ``batch_stats``.
 ``ungroup_state_dict`` unstacks a grouped model's weights (transformer or
 recurrent group) into the per-modality encoders of the ungrouped model, which
 computes the same function.
@@ -59,16 +70,23 @@ def _flatten(tree: Mapping, prefix=()) -> Dict[tuple, np.ndarray]:
     return flat
 
 
+# batch_stats leaf -> BatchNorm buffer
+_STATS = {"mean": "running_mean", "var": "running_var"}
+
+
 def _module_path(path: tuple) -> list:
     out = []
+    # the hybrid head's proj_<m> / gate_<m>; an encoder's own names (the
+    # frame encoder's proj_hidden, proj_out) stay as they are
+    in_encoder = bool(path) and path[0].startswith("encoders_")
     for i, part in enumerate(path):
         if i == 0 and part.startswith("encoders_"):
             out += ["encoders", part[len("encoders_"):]]
         elif i == 0 and part.startswith("ln_"):
             out += ["layer_norms", part[len("ln_"):]]
-        elif part.startswith("proj_"):
+        elif part.startswith("proj_") and not in_encoder:
             out += ["projections", part[len("proj_"):]]
-        elif part.startswith("gate_"):
+        elif part.startswith("gate_") and not in_encoder:
             out += ["gates", part[len("gate_"):]]
         elif re.fullmatch(r"layer\d+", part):
             out += ["layers", part[len("layer"):]]
@@ -78,9 +96,16 @@ def _module_path(path: tuple) -> list:
 
 
 def from_flax_variables(variables: Mapping) -> Dict[str, torch.Tensor]:
-    """Convert a flax ``{"params": ...}`` tree (numpy leaves) to a state_dict."""
+    """Convert a flax ``{"params": ..., ["batch_stats": ...]}`` tree (numpy
+    leaves) to a state_dict."""
     params = variables["params"] if "params" in variables else variables
     state: Dict[str, torch.Tensor] = {}
+    for path, array in _flatten(variables.get("batch_stats", {})).items():
+        *module, leaf = path
+        if leaf not in _STATS:
+            raise ValueError(f"unknown batch statistic {'/'.join(path)}")
+        state[".".join([*_module_path(tuple(module)), _STATS[leaf]])] = torch.from_numpy(
+            np.array(array, dtype=np.float32))
     for path, array in _flatten(params).items():
         *module, leaf = path
         if module and module[0] == GROUPED_FLAX:
@@ -95,14 +120,14 @@ def from_flax_variables(variables: Mapping) -> Dict[str, torch.Tensor]:
             # stacked [P, H, H] / [P, H] and the recurrent tensors kept as they are
             names.append(leaf)
         elif leaf == "kernel":
-            if array.ndim != 2:
+            if array.ndim not in (2, 3):
                 raise ValueError(f"unexpected kernel shape {array.shape} at {'/'.join(path)}")
             names.append("weight")
-            array = array.T
+            array = array.T  # [in, out] -> [out, in]; a conv's [w, in, out] -> [out, in, w]
         elif leaf == "scale":
             names.append("weight")
-        elif leaf == "bias":
-            names.append("bias")
+        elif leaf in ("bias", "weight_logits"):
+            names.append(leaf)
         else:
             raise ValueError(f"unknown parameter {'/'.join(path)}")
         state[".".join(names)] = torch.from_numpy(np.array(array, dtype=np.float32))
@@ -142,15 +167,19 @@ def to_flax_tree(
 ) -> Dict[str, Dict]:
     """Port tensors -> the flax ``params`` tree layout, numpy leaves.
 
-    ``source`` is a model (its ``state_dict``) or a name -> tensor mapping
-    with the same names (for example each parameter's ``.grad``). A Linear
-    ``weight [out, in]`` becomes ``kernel [in, out]``, a LayerNorm
+    ``source`` is a model (its parameters) or a name -> tensor mapping with
+    the same names (for example each parameter's ``.grad``). A Linear
+    ``weight [out, in]`` becomes ``kernel [in, out]``, a ``Conv1d`` ``weight
+    [out, in, w]`` ``kernel [w, in, out]``, a LayerNorm or BatchNorm
     ``weight`` becomes ``scale``; the stacked pair tensors stay ``[P, H, H]``.
+    BatchNorm buffers belong to ``batch_stats`` (``to_flax_variables``).
     """
-    items = source.state_dict() if isinstance(source, torch.nn.Module) else source
+    items = dict(source.named_parameters()) if isinstance(source, torch.nn.Module) else source
     tree: Dict[str, Dict] = {}
     for name, tensor in items.items():
         *module, leaf = _flax_path(name)
+        if leaf in _STATS.values():
+            continue
         array = tensor.detach().cpu().numpy()
         if module == [GROUPED_PORT]:
             module = [GROUPED_FLAX]
@@ -161,7 +190,7 @@ def to_flax_tree(
             module = [GROUPED_RNN_FLAX]
         elif module and module[-1] in ("pairs", "rnn"):
             pass  # stacked [P, H, H] / [P, H] and the recurrent tensors kept as they are
-        elif leaf == "weight" and array.ndim == 2:
+        elif leaf == "weight" and array.ndim in (2, 3):
             leaf, array = "kernel", array.T
         elif leaf == "weight":
             leaf = "scale"
@@ -170,6 +199,21 @@ def to_flax_tree(
             node = node.setdefault(part, {})
         node[leaf] = np.ascontiguousarray(array)
     return tree
+
+
+def to_flax_variables(model: torch.nn.Module) -> Dict[str, Dict]:
+    """A model's ``{"params": ...}`` tree and, where it has BatchNorms, its
+    ``{"batch_stats": {<path>: {"mean", "var"}}}``, numpy leaves."""
+    variables = {"params": to_flax_tree(model)}
+    names = {buffer: stat for stat, buffer in _STATS.items()}
+    for name, tensor in model.named_buffers():
+        *module, leaf = _flax_path(name)
+        if leaf in names:
+            node = variables.setdefault("batch_stats", {})
+            for part in module:
+                node = node.setdefault(part, {})
+            node[names[leaf]] = tensor.detach().cpu().numpy().copy()
+    return variables
 
 
 def ungroup_state_dict(

@@ -1,7 +1,7 @@
 """Shard loading (copy of the JAX package's ``data/preprocess.py::load_shard``).
 
 The raw ``.dat`` ETL and its native parser are not needed to serve from the
-committed shards and are not copied (ROADMAP queue A item 5).
+committed shards and are not copied (ROADMAP queue A12).
 """
 
 from __future__ import annotations

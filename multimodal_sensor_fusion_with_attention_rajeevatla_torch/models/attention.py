@@ -1,8 +1,8 @@
 """Cross-modal pair attention, port of the JAX package's ``models/attention.py``.
 
-Ported: ``ordered_pairs`` and ``StackedPairAttention``. ``TemporalAttention``,
-``PairwiseModalityAttention`` and ``visualize_attention`` are queued
-(ROADMAP queue A item 10).
+Ported: ``ordered_pairs`` and ``StackedPairAttention``. ``CrossModalAttention``,
+``TemporalAttention``, ``PairwiseModalityAttention`` and ``visualize_attention``
+are queued (ROADMAP queue A5); no model route calls them.
 """
 
 from __future__ import annotations

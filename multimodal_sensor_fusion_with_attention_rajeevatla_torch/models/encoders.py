@@ -1,8 +1,10 @@
 """Per-modality encoders, port of the JAX package's ``models/encoders.py``.
 
-Ported: the transformer branch of ``SequenceEncoder`` and its post-LN
-``TransformerEncoderLayer`` (dense feed-forward), and the LSTM / GRU branch
-with ``RNNStack``, in eval and train mode.
+Ported, in eval and train mode: the transformer branch of ``SequenceEncoder``
+and its post-LN ``TransformerEncoderLayer`` (dense feed-forward), the LSTM /
+GRU branch with ``RNNStack``, the CNN branch with ``MaskedBatchNorm``,
+``FrameEncoder`` and ``SimpleMLPEncoder``, and every route of
+``build_encoder``.
 The layer runs its q/k/v projections as one ``[H, 3H]`` matmul. With
 ``flash_attention`` set, a sequence that fits the packed route (padded
 T <= 512) feeds that packed output to ``ops.attention.flash_mha_packed``
@@ -45,10 +47,21 @@ an XLA scan and no kernel, so there is none here; the recurrence kernels
 serve the grouped encoder (``models.grouped.GroupedRNNEncoder``). Its weights
 keep the reference's ``[in, gates*H]`` layout.
 
-The CNN branch, ``FrameEncoder`` and ``SimpleMLPEncoder`` are not ported yet
-(ROADMAP queue A item 10) and raise ``NotImplementedError``, as does
-``build_encoder`` for a per-encoder key of the reference that the port does
-not run (``_UNPORTED_KEYS``) set to anything but its default.
+The CNN branch (two 3-wide SAME convolutions, each followed by batch
+statistics over the valid steps only, ReLU and the padded tail re-zeroed, then
+a masked mean pool) and ``SimpleMLPEncoder`` normalise with
+``MaskedBatchNorm``: the reference's running statistics (``0.9 * running +
+0.1 * batch``, the biased variance, eps 1e-5, f32), kept as buffers so that
+the ``state_dict`` carries them. They move only on a training forward that
+records gradients; a train-mode forward under ``torch.no_grad`` or
+``torch.inference_mode`` (MC dropout) normalises by the batch's statistics
+and leaves them as they were, as the reference discards its
+``mutable=["batch_stats"]`` update there. The convolutions are plain
+``conv1d`` (XLA's in the reference, no kernel there either).
+
+``build_encoder`` raises ``NotImplementedError`` for a per-encoder key of the
+reference that the port does not run (``_UNPORTED_KEYS``) set to anything but
+its default.
 """
 
 from __future__ import annotations
@@ -66,7 +79,7 @@ from ..ops.attention import (
     flash_self_attention,
     packed_route_ok,
 )
-from ..ops.masked import lengths_to_mask, masked_mean_pool, masked_softmax
+from ..ops.masked import lengths_to_mask, masked_mean_pool, masked_softmax, nan_to_num
 from ..ops.rnn import rnn_scan
 from ..ops.mlp import (
     RNG_P_ATT,
@@ -82,7 +95,6 @@ from ..ops.mlp import (
 )
 
 _SEQUENCE_MODALITIES = {"imu", "audio", "mocap", "accelerometer"}
-_NOT_PORTED = "is not ported yet (ROADMAP queue A item 10)"
 # per-encoder keys the reference's build_encoder passes on and the port does
 # not run yet: key -> (is the value a non-default, ROADMAP queue A item)
 _UNPORTED_KEYS = {
@@ -153,6 +165,56 @@ class LayerNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return layer_norm(x, self.weight, self.bias, self.eps)
+
+
+class MaskedBatchNorm(nn.Module):
+    """BatchNorm over the channel axis ``channel_dim`` (the last by default)
+    whose batch statistics weight only the valid positions (``mask``, the
+    shape of the other axes, 1 = valid): the reference's
+    ``_MaskedBatchNorm`` and, with ``fast_variance`` and no mask,
+    ``flax.linen.BatchNorm`` (variance ``max(E[x^2] - E[x]^2, 0)``).
+    Statistics in f32; running statistics ``momentum * running + (1 -
+    momentum) * batch`` with the biased variance, updated only on a training
+    forward that records gradients (module docstring)."""
+
+    def __init__(self, num_features: int, momentum: float = 0.9, eps: float = 1e-5,
+                 fast_variance: bool = False, channel_dim: int = -1):
+        super().__init__()
+        self.momentum = momentum
+        self.eps = eps
+        self.fast_variance = fast_variance
+        self.channel_dim = channel_dim
+        self.weight = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+        self.register_buffer("running_mean", torch.zeros(num_features))
+        self.register_buffer("running_var", torch.ones(num_features))
+
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                train: bool = False) -> torch.Tensor:
+        xf = x.float()
+        c = self.channel_dim % xf.dim()
+        shape = [-1 if a == c else 1 for a in range(xf.dim())]  # a [C] vector over x
+        if not train:
+            mean, var = self.running_mean, self.running_var
+        else:
+            axes = tuple(a for a in range(xf.dim()) if a != c)
+            if mask is None:
+                mean = xf.mean(dim=axes)
+                if self.fast_variance:
+                    var = torch.clamp((xf * xf).mean(dim=axes) - mean * mean, min=0.0)
+                else:
+                    var = (xf - mean.view(shape)).square().mean(dim=axes)
+            else:
+                w = mask.float().unsqueeze(c)
+                denom = w.sum().clamp(min=1.0)
+                mean = (xf * w).sum(dim=axes) / denom
+                var = (w * (xf - mean.view(shape)).square()).sum(dim=axes) / denom
+            if torch.is_grad_enabled():
+                with torch.no_grad():
+                    self.running_mean.mul_(self.momentum).add_((1.0 - self.momentum) * mean)
+                    self.running_var.mul_(self.momentum).add_((1.0 - self.momentum) * var)
+        y = (xf - mean.view(shape)) * torch.rsqrt(var.view(shape) + self.eps)
+        return (y * self.weight.float().view(shape) + self.bias.float().view(shape)).to(x.dtype)
 
 
 class TransformerEncoderLayer(nn.Module):
@@ -338,7 +400,7 @@ class RNNStack(nn.Module):
 
 
 class SequenceEncoder(nn.Module):
-    """Time series -> fixed embedding; the transformer and lstm / gru
+    """Time series -> fixed embedding; the transformer, lstm / gru and cnn
     branches (reference ``SequenceEncoder``), with the reference's error
     strings."""
 
@@ -360,13 +422,18 @@ class SequenceEncoder(nn.Module):
             raise ValueError(f"Unknown encoder type: {encoder_type}")
         if str(dropout_rng or "auto").lower() not in ("auto", "xla", "kernel"):
             raise ValueError(f"Unknown dropout_rng {dropout_rng!r}; expected auto, xla or kernel")
-        if encoder_type == "cnn":
-            raise NotImplementedError(f"SequenceEncoder encoder_type={encoder_type!r} {_NOT_PORTED}")
         self.encoder_type = encoder_type
         self.hidden_dim = hidden_dim
         self.dropout = dropout
         if encoder_type in ("lstm", "gru"):
             self.rnn = RNNStack(input_dim, hidden_dim, num_layers, encoder_type, dropout)
+            self.projection = nn.Linear(hidden_dim, output_dim)
+            return
+        if encoder_type == "cnn":  # two conv blocks whatever num_layers says, as the reference
+            self.conv0 = nn.Conv1d(input_dim, hidden_dim, 3, padding=1)
+            self.bn0 = MaskedBatchNorm(hidden_dim, channel_dim=1)  # on [B, C, T]
+            self.conv1 = nn.Conv1d(hidden_dim, hidden_dim, 3, padding=1)
+            self.bn1 = MaskedBatchNorm(hidden_dim, channel_dim=1)
             self.projection = nn.Linear(hidden_dim, output_dim)
             return
         self.input_projection = nn.Linear(input_dim, hidden_dim)
@@ -396,6 +463,22 @@ class SequenceEncoder(nn.Module):
             final_state = self.rnn(sequence, lengths=lengths, train=train, generator=generator)
             return self.projection(dropout(final_state, self.dropout, train, generator))
         seq_len = sequence.shape[1]
+        if self.encoder_type == "cnn":
+            mask = lengths_to_mask(lengths, seq_len) if lengths is not None else None
+            x = sequence.transpose(1, 2)  # [B, C, T] through both blocks
+            if mask is not None:
+                # the 3-wide SAME conv reads one step past each boundary:
+                # zero the padded tail first
+                x = x * mask[:, None, :]
+            for conv, norm in ((self.conv0, self.bn0), (self.conv1, self.bn1)):
+                x = torch.relu(norm(conv(x), mask, train))
+                if mask is not None:
+                    x = x * mask[:, None, :]
+            if mask is None:
+                pooled = x.mean(dim=2)
+            else:  # the tail is zero: the masked mean is the sum over the valid steps
+                pooled = x.sum(dim=2) / mask.sum(dim=1, keepdim=True).clamp(min=1.0)
+            return self.projection(dropout(pooled, self.dropout, train, generator))
         x = self.input_projection(sequence)
         valid_mask = lengths_to_mask(lengths, seq_len) if lengths is not None else None
         for layer in self.layers:
@@ -404,13 +487,99 @@ class SequenceEncoder(nn.Module):
         return self.projection(dropout(pooled, self.dropout, train, generator))
 
 
+class FrameEncoder(nn.Module):
+    """Frame features ``[B, T, D]`` -> clip embedding by masked temporal
+    pooling (reference ``FrameEncoder``): attention pooling (an all-masked
+    row gets zero weights), the masked average, or the masked max (``-inf``
+    then ``nan_to_num``)."""
+
+    def __init__(self, input_dim: int, hidden_dim: int = 256, output_dim: int = 128,
+                 temporal_pooling: str = "attention", dropout: float = 0.1):
+        super().__init__()
+        if temporal_pooling not in ("attention", "average", "max"):
+            raise ValueError(f"Unknown pooling: {temporal_pooling}")
+        self.temporal_pooling = temporal_pooling
+        self.dropout = dropout
+        self.frame_processor = nn.Linear(input_dim, hidden_dim)
+        if temporal_pooling == "attention":
+            self.attention = nn.Linear(hidden_dim, 1)
+        self.proj_hidden = nn.Linear(hidden_dim, hidden_dim)
+        self.proj_out = nn.Linear(hidden_dim, output_dim)
+
+    def forward(
+        self,
+        frames: torch.Tensor,
+        mask: Optional[torch.Tensor] = None,  # [B, T], 1 = valid
+        train: bool = False,
+        generator: Optional[torch.Generator] = None,
+    ) -> torch.Tensor:
+        if frames.dim() != 3:
+            raise ValueError(f"Expected 3D frame tensor, got shape {tuple(frames.shape)}")
+        processed = dropout(torch.relu(self.frame_processor(frames)), self.dropout, train,
+                            generator)
+        if mask is not None:
+            mask = mask.to(processed.dtype)
+        if self.temporal_pooling == "attention":
+            scores = self.attention(processed)  # [B, T, 1]
+            weights = masked_softmax(scores, mask[..., None] if mask is not None else None, dim=1)
+            pooled = (weights * processed).sum(dim=1)
+        elif self.temporal_pooling == "average":
+            pooled = masked_mean_pool(processed, mask, dim=1, min_denom=1e-8)
+        elif mask is None:
+            pooled = processed.amax(dim=1)
+        else:
+            pooled = nan_to_num(torch.where(mask[..., None] == 0, float("-inf"),
+                                            processed).amax(dim=1))
+        x = dropout(torch.relu(self.proj_hidden(pooled)), self.dropout, train, generator)
+        return self.proj_out(x)
+
+
+class SimpleMLPEncoder(nn.Module):
+    """MLP over pre-extracted ``[B, D]`` features (reference
+    ``SimpleMLPEncoder``): ``num_layers`` of Dense, BatchNorm (flax's:
+    momentum 0.9, eps 1e-5, the fast variance), ReLU, dropout; then Dense."""
+
+    def __init__(self, input_dim: int, hidden_dim: int = 256, output_dim: int = 128,
+                 num_layers: int = 2, dropout: float = 0.1, batch_norm: bool = True):
+        super().__init__()
+        self.num_layers = num_layers
+        self.dropout = dropout
+        self.batch_norm = batch_norm
+        for idx in range(num_layers):
+            self.add_module(f"dense{idx}", nn.Linear(input_dim if idx == 0 else hidden_dim,
+                                                     hidden_dim))
+            if batch_norm:
+                self.add_module(f"bn{idx}", MaskedBatchNorm(hidden_dim, fast_variance=True))
+        self.out = nn.Linear(hidden_dim, output_dim)
+
+    def forward(
+        self,
+        features: torch.Tensor,
+        train: bool = False,
+        generator: Optional[torch.Generator] = None,
+    ) -> torch.Tensor:
+        if features.dim() != 2:
+            raise ValueError(f"Expected 2D feature tensor, got shape {tuple(features.shape)}")
+        x = features
+        for idx in range(self.num_layers):
+            x = getattr(self, f"dense{idx}")(x)
+            if self.batch_norm:
+                x = getattr(self, f"bn{idx}")(x, train=train)
+            x = dropout(torch.relu(x), self.dropout, train, generator)
+        return self.out(x)
+
+
 def build_encoder(
     modality: str,
     input_dim: int,
     output_dim: int,
     encoder_config: Optional[Dict[str, Any]] = None,
 ) -> nn.Module:
-    """Factory with the reference's routing rules (``build_encoder``)."""
+    """Factory with the reference's routing rules (``build_encoder``): a
+    ``type`` of ``frame``, ``sequence`` or ``mlp`` wins; else ``video`` /
+    ``frames`` take a ``FrameEncoder``, the sequence modalities (and
+    ``imu_*``) a ``SequenceEncoder``, the rest a ``SimpleMLPEncoder``. Each
+    takes only its own keys from ``encoder_config``."""
     config: Dict[str, Any] = dict(encoder_config) if encoder_config else {}
     override_type = config.pop("type", None)
     modality_key = modality.lower()
@@ -422,17 +591,21 @@ def build_encoder(
         kind = "sequence"
     else:
         kind = "mlp"
-    if kind != "sequence":
-        raise NotImplementedError(f"{kind} encoder for modality {modality!r} {_NOT_PORTED}")
+    cls, allowed = {
+        "frame": (FrameEncoder, {"hidden_dim", "temporal_pooling", "dropout", "dtype"}),
+        "sequence": (SequenceEncoder, {
+            "hidden_dim", "num_layers", "encoder_type", "flash_attention", "dropout",
+            "fused_mlp", "fused_mlp_ln", "dropout_rng", "sequence_parallel", "moe_experts",
+            "pipeline_parallel", "dtype"}),
+        "mlp": (SimpleMLPEncoder, {"hidden_dim", "num_layers", "dropout", "batch_norm", "dtype"}),
+    }[kind]
     for key, (non_default, item) in _UNPORTED_KEYS.items():
-        if non_default(config.get(key)):
+        if key in allowed and non_default(config.get(key)):
             raise NotImplementedError(
                 f"model.encoders.{modality}.{key}={config[key]!r} is not ported yet "
                 f"(ROADMAP queue A item {item})")
-    allowed = {"hidden_dim", "num_layers", "encoder_type", "flash_attention", "dropout",
-               "fused_mlp", "fused_mlp_ln", "dropout_rng"}
-    return SequenceEncoder(
+    return cls(
         input_dim=input_dim,
         output_dim=output_dim,
-        **{k: v for k, v in config.items() if k in allowed},
+        **{k: v for k, v in config.items() if k in allowed and k not in _UNPORTED_KEYS},
     )

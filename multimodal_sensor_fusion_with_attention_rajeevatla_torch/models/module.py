@@ -1,15 +1,20 @@
 """The flagship model: per-modality encoders + fusion head.
 
-Port of the JAX package's ``models/module.py`` for the hybrid-fusion
-configurations that ``config/base.yaml`` builds: one ``SequenceEncoder``
-(transformer, lstm or gru) per modality; with ``model.grouped_encoders`` (the
-default) one ``GroupedRNNEncoder`` over the modalities whose lstm / gru
-encoders share a signature, its recurrence through the kernels of
+Port of the JAX package's ``models/module.py``: one encoder per modality
+(``SequenceEncoder``: transformer, lstm, gru or cnn; ``FrameEncoder``, which
+takes the lengths as a frame mask; ``SimpleMLPEncoder``, by
+``build_encoder``'s routes); with ``model.grouped_encoders`` (the default)
+one ``GroupedRNNEncoder`` over the modalities whose lstm / gru encoders
+share a signature, its recurrence through the kernels of
 ``ops/rnn.py`` in eval and in training when ``model.pallas_rnn`` is on (absent
 means off, as in the reference; ``auto`` means on); with
 ``model.grouped_transformer`` one ``GroupedTransformerEncoder`` over the
 same-signature transformer modalities; per-modality encoders for the rest; a
-per-modality LayerNorm (``ln_<m>``, flax defaults), then ``HybridFusion``.
+per-modality LayerNorm (``ln_<m>``, flax defaults), then the fusion head of
+``model.fusion_type`` (early, late, hybrid or uncertainty). ``fuse`` and
+``forward`` return the logits alone: the late and uncertainty heads'
+``(logits, per_modality_logits)`` is cut to its first item, as the reference
+does.
 Weights come from ``init_parameters`` (a seeded ``torch.Generator``, the
 reference's initialisers) or from a converted flax checkpoint
 (``convert.from_flax_variables``). ``train=True`` runs the training forward:
@@ -27,7 +32,16 @@ from torch import nn
 
 from ..utils.device import resolve_device
 from .attention import StackedPairAttention
-from .encoders import LayerNorm, RNNStack, build_encoder, lecun_normal_
+from ..ops.masked import lengths_to_mask
+from .encoders import (
+    FrameEncoder,
+    LayerNorm,
+    MaskedBatchNorm,
+    RNNStack,
+    SimpleMLPEncoder,
+    build_encoder,
+    lecun_normal_,
+)
 from .fusion import build_fusion_model
 from .grouped import (
     GroupedRNNEncoder,
@@ -56,12 +70,21 @@ def _parse_flag(value, name: str) -> bool:
 def init_parameters(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """The reference's initialisation: lecun-normal kernels (stacked pair
     kernels use fan_in = P * H, as flax computes it for a ``[P, H, H]``
-    shape), zero biases, unit LayerNorm scales, uniform recurrent weights.
-    Walks modules in registration order."""
+    shape, convolutions in * width), zero biases, unit LayerNorm and
+    BatchNorm scales, BatchNorm running statistics 0 and 1, uniform recurrent
+    weights. Walks modules in registration order."""
     for module in model.modules():
         if isinstance(module, nn.Linear):
             lecun_normal_(module.weight, module.in_features, generator)
             module.bias.zero_()
+        elif isinstance(module, nn.Conv1d):
+            lecun_normal_(module.weight, module.in_channels * module.kernel_size[0], generator)
+            module.bias.zero_()
+        elif isinstance(module, MaskedBatchNorm):
+            module.weight.fill_(1.0)
+            module.bias.zero_()
+            module.running_mean.zero_()
+            module.running_var.fill_(1.0)
         elif isinstance(module, StackedPairAttention):
             for name in ("query", "key", "value", "out"):
                 kernel = getattr(module, f"{name}_kernel")
@@ -220,7 +243,15 @@ class MultimodalFusionModel(nn.Module):
             mod_lengths = (
                 self._scale_lengths(lengths, ref_len, int(x.shape[1])) if x.dim() == 3 else lengths
             )
-            emb = self.encoders[name](x, lengths=mod_lengths, train=train, generator=generator)
+            encoder = self.encoders[name]
+            if isinstance(encoder, FrameEncoder):
+                frame_mask = (lengths_to_mask(mod_lengths, x.shape[1])
+                              if mod_lengths is not None else None)
+                emb = encoder(x, mask=frame_mask, train=train, generator=generator)
+            elif isinstance(encoder, SimpleMLPEncoder):
+                emb = encoder(x, train=train, generator=generator)
+            else:
+                emb = encoder(x, lengths=mod_lengths, train=train, generator=generator)
             if self.layer_norms is not None:
                 emb = self.layer_norms[name](emb)
             encoded[name] = emb
@@ -235,14 +266,16 @@ class MultimodalFusionModel(nn.Module):
         return_attention: bool = False,
     ):
         """Fusion head over pre-encoded embeddings -> logits, or
-        ``(logits, attention_info)`` with ``return_attention`` (hybrid only)."""
+        ``(logits, attention_info)`` with ``return_attention`` (hybrid only).
+        A head's tuple output (late, uncertainty) gives its logits."""
         if return_attention:
             if self.fusion_type != "hybrid":
                 raise ValueError("Attention information is only available for HybridFusion.")
             return self.fusion_model(
                 encoded, mask, train=train, generator=generator, return_attention=True
             )
-        return self.fusion_model(encoded, mask, train=train, generator=generator)
+        output = self.fusion_model(encoded, mask, train=train, generator=generator)
+        return output[0] if isinstance(output, tuple) else output
 
     def forward(
         self,

@@ -5,8 +5,9 @@ encoders run as plain matmuls around the attention kernels (packed up to 512
 steps, ``flash_self_attention`` beyond, or for a grouped encoder); grouped
 lstm / gru encoders run their whole recurrence as one kernel launch
 (``ops/rnn.py``, with ``model.pallas_rnn`` on); the 12-pair hybrid head runs as
-one fused kernel (``ops/fusion.py``). AOT export bundles are queued (ROADMAP
-queue A item 9).
+one fused kernel (``ops/fusion.py``); the early, late and uncertainty heads
+run as the model's own ``nn.Linear`` layers, as in the reference. AOT export
+bundles are queued (ROADMAP queue A4).
 """
 
 from __future__ import annotations

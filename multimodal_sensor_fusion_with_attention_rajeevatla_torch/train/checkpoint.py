@@ -4,7 +4,8 @@ JAX package's ``train/checkpoint.py``.
 A checkpoint is a directory:
 
     <dir>/epoch=<N>-val_loss=<X.XXXX>/   one of the best ``save_top_k`` by val loss
-        variables.pt                     the model's ``state_dict`` (CPU tensors)
+        variables.pt                     the model's ``state_dict`` (CPU tensors: the
+                                         weights and any BatchNorm running statistics)
         meta.json                        epoch, val_loss and the resolved config
     <dir>/last/                          the newest epoch, whatever its score
         variables.pt, meta.json

@@ -12,7 +12,9 @@ optimizer, augmentations, the per-batch step and ``fit``).
   random draws as tensors so that a test can hand the same draws to both
   frameworks.
 - ``Trainer``: builds the model and the optimizer from the config and makes
-  the train step: on-device gather, augmentation, forward in train mode,
+  the train step: on-device gather, augmentation, forward in train mode
+  (BatchNorm running statistics, where the model has them, move on every
+  micro-step, as the reference's ``mutable=["batch_stats"]`` does),
   label-smoothed loss, backward, optimizer. Every random draw of a step
   comes from one ``torch.Generator`` on the device, in a fixed order.
   ``fit`` trains whole epochs over a device-resident split (a Python loop

@@ -8,23 +8,27 @@ Port of the JAX package's ``uncertainty.py``.
   epistemic uncertainty from stochastic forward passes. Where the reference
   maps over dropout keys inside one compiled program, the port loops over
   samples, each with its own ``torch.Generator`` seeded ``seed + sample``,
-  so sample ``s`` draws the same masks for every batch size.
+  so sample ``s`` draws the same masks for every batch size. The passes run
+  in train mode under ``torch.inference_mode``: a model with BatchNorms
+  normalises by the batch's statistics and leaves its running statistics as
+  they were (``models.encoders.MaskedBatchNorm``), as the reference discards
+  its ``mutable=["batch_stats"]`` update.
 - ``uncertainty_weighted_fusion`` / ``UncertaintyWeightedFusion``:
   inverse-uncertainty weights with the masked renormalisation and the
   uniform fallback.
+- ``mc_dropout_uncertainty_fusion``: the per-modality logits of a late or
+  uncertainty fusion model sampled under MC dropout, each modality weighted
+  by the inverse of its predictive variance.
+- ``EnsembleUncertainty``: mean and variance of the members' probabilities.
 - ``TemperatureScaling``: one temperature minimising val NLL (scipy L-BFGS-B
   on ``log T`` over a torch value-and-grad), and the ECE-guarded variant.
 - ``compute_calibration_metrics``: sweep helper.
-
-``mc_dropout_uncertainty_fusion`` and ``EnsembleUncertainty`` need the
-LateFusion head and the ensemble runner, which are not ported yet (ROADMAP
-queue A item 10).
 """
 
 from __future__ import annotations
 
 from pathlib import Path
-from typing import Callable, Dict, List, Mapping, Optional, Tuple
+from typing import Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -217,6 +221,49 @@ class UncertaintyWeightedFusion:
         )
 
 
+def mc_dropout_uncertainty_fusion(
+    model,
+    features: Mapping[str, torch.Tensor],
+    modality_mask: Optional[torch.Tensor] = None,
+    lengths: Optional[torch.Tensor] = None,
+    num_samples: int = 10,
+    seed: int = 0,
+    epsilon: float = 1e-6,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Uncertainty-aware fusion: ``num_samples`` MC-dropout passes of a late
+    or uncertainty fusion ``model`` (encoders and head in train mode, sample
+    ``s`` drawing from a generator seeded ``seed + s``), each modality's
+    per-modality logits averaged over the samples and its predictive variance
+    (the variance of the softmax over samples, averaged over classes) taken
+    as its uncertainty, combined by :func:`uncertainty_weighted_fusion`.
+    Returns ``(fused_logits, fusion_weights)``."""
+    if getattr(model, "fusion_type", None) not in ("late", "uncertainty"):
+        raise ValueError(
+            "mc_dropout_uncertainty_fusion requires a LateFusion or "
+            "UncertaintyFusion model (per-modality heads provide the "
+            "per-modality predictions)."
+        )
+    names = list(model.modalities)
+    first = next(iter(features.values()))
+    device = first.device
+    if modality_mask is None:
+        modality_mask = torch.ones((first.shape[0], len(names)), device=device)
+    samples = []
+    with torch.inference_mode():
+        for sample in range(num_samples):
+            generator = torch.Generator(device=device).manual_seed(seed + sample)
+            encoded = model.encode(features, lengths, train=True, generator=generator)
+            _fused, per_modality = model.fusion_model(encoded, modality_mask, train=True,
+                                                      generator=generator)
+            samples.append(torch.stack([per_modality[n] for n in names]))  # [M, B, C]
+        mean_logits, variance = _mean_and_variance(torch.stack(samples))  # [M, B, C], [M, B]
+        return uncertainty_weighted_fusion(
+            {n: mean_logits[i] for i, n in enumerate(names)},
+            {n: variance[i] for i, n in enumerate(names)},
+            modality_mask, epsilon,
+        )
+
+
 class TemperatureScaling:
     """Single-temperature post-hoc calibration (Guo et al., 2017).
 
@@ -355,6 +402,29 @@ class TemperatureScaling:
                 best_t, best_ece = float(t), e
         self.temperature = best_t
         return self.temperature
+
+
+class EnsembleUncertainty:
+    """Uncertainty from an ensemble of models: each member called as
+    ``model(*args, train=False)`` (a tuple output gives its logits)."""
+
+    def __init__(self, models: Sequence[Callable[..., torch.Tensor]]):
+        self.models = list(models)
+        self.num_models = len(self.models)
+
+    @torch.inference_mode()
+    def predict_with_uncertainty(self, *args) -> Tuple[torch.Tensor, torch.Tensor]:
+        """-> ``(mean probabilities [B, C], mean class variance [B])``."""
+        if self.num_models == 0:
+            raise ValueError("Ensemble must contain at least one model.")
+        probs = []
+        for model in self.models:
+            logits = model(*args, train=False)
+            if isinstance(logits, tuple):
+                logits = logits[0]
+            probs.append(torch.softmax(logits, dim=-1))
+        tensor = torch.stack(probs)  # [E, B, C]
+        return tensor.mean(dim=0), tensor.var(dim=0, unbiased=False).mean(dim=-1)
 
 
 def compute_calibration_metrics(

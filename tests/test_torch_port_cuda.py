@@ -14,6 +14,7 @@ from multimodal_sensor_fusion_with_attention_rajeevatla_torch.ops import attenti
 from multimodal_sensor_fusion_with_attention_rajeevatla_torch.ops import fusion as tf
 from multimodal_sensor_fusion_with_attention_rajeevatla_torch.ops import mlp as tm
 from multimodal_sensor_fusion_with_attention_rajeevatla_torch.ops import rnn as tr
+from multimodal_sensor_fusion_with_attention_rajeevatla_torch.utils.device import pin_float32
 
 pytestmark = pytest.mark.cuda
 
@@ -22,7 +23,7 @@ pytestmark = pytest.mark.cuda
 def card():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU or interpret mode")
-    torch.backends.cuda.matmul.allow_tf32 = False
+    pin_float32()  # no TF32 in products or convolutions: the plain twins in full f32
     return torch.device("cuda")
 
 
@@ -1026,3 +1027,106 @@ def test_model_widths_the_kernels_are_not_built_for_serve_and_train_on_the_card(
     for a, b in pairs:  # each gradient max-abs (floored), and norm-wise
         assert (a - b).abs().max().item() / max(b.abs().max().item(), floor) < 1e-2
         assert (a - b).norm().item() / max(b.norm().item(), floor) < 1e-3
+
+
+_ENCODER_STEP = {"packed_attention_fwd": 4, "packed_attention_bwd": 4, "proj_ln_fwd": 4,
+                 "proj_ln_bwd": 4, "ffw_ln_fwd": 4, "ffw_ln_bwd": 4}
+# case -> (overrides of base.yaml, launches of one request, of one training
+# micro-step): the early, late and uncertainty heads are plain layers (no head
+# kernel); every stream on the CNN encoder launches the head kernel alone
+ZOO_CASES = {
+    "early": (["model.fusion_type=early"], {"packed_attention_fwd": 4}, _ENCODER_STEP),
+    "late": (["model.fusion_type=late"], {"packed_attention_fwd": 4}, _ENCODER_STEP),
+    "uncertainty": (["model.fusion_type=uncertainty"], {"packed_attention_fwd": 4},
+                    _ENCODER_STEP),
+    "cnn": ([f"model.encoders.{n}.encoder_type=cnn" for n in C5_NAMES],
+            {"fused_hybrid_head": 1}, {}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ZOO_CASES))
+def test_fusion_heads_and_the_cnn_model_serve_and_train_on_the_card(card, case):
+    """base.yaml with the early, late or uncertainty head, or every stream on
+    the CNN encoder, at full width: served and one training micro-step on the
+    card with the launches their routes name, against the same weights with
+    every kernel flag off, at chip_smoke.py's limits (PERF.md section 2); the
+    CNN's BatchNorm buffers move with the training step only."""
+    from multimodal_sensor_fusion_with_attention_rajeevatla_torch.ops.metrics import (
+        cross_entropy_loss,
+    )
+    from multimodal_sensor_fusion_with_attention_rajeevatla_torch.serving import make_serving_fn
+
+    overrides, serve_want, step_want = ZOO_CASES[case]
+    model = _c5_model(card, 256, overrides)
+    plain = _c5_model(card, 256, [*overrides, *C5_OFF])
+    plain.load_state_dict(model.state_dict())
+    feats, lengths, labels = _c5_batch(card)
+    serve = make_serving_fn(model, device=card)
+    got, launches = _counted(lambda: serve(feats, None, lengths))
+    assert launches == serve_want
+    with torch.inference_mode():
+        want = plain.eval()(feats, None, lengths)
+    assert got.shape == (8, 25) and torch.isfinite(got).all()
+    assert (got - want).abs().max().item() < 1e-3
+    buffers = {k: v.clone() for k, v in model.named_buffers()}
+    assert len(buffers) == (16 if case == "cnn" else 0)
+
+    results = []
+    for m in (model, plain):
+        def step(m=m):
+            logits = m(feats, None, lengths, train=True,
+                       generator=torch.Generator(device=card).manual_seed(7))
+            loss = cross_entropy_loss(logits, labels, 0.05)
+            return loss, torch.autograd.grad(loss, list(m.parameters()), allow_unused=True)
+
+        (loss, grads), launches = _counted(step)
+        results.append((loss, grads, launches))
+    (loss_k, grads_k, launches_k), (loss_p, grads_p, launches_p) = results
+    assert launches_k == step_want and launches_p == {}
+    assert abs(loss_k.item() - loss_p.item()) <= 1e-3 * abs(loss_p.item())
+    pairs = [(a, b) for a, b in zip(grads_k, grads_p) if b is not None]
+    floor = 1e-3 * max(b.abs().max().item() for _a, b in pairs)
+    for a, b in pairs:  # each gradient max-abs (floored), and norm-wise
+        assert (a - b).abs().max().item() / max(b.abs().max().item(), floor) < 1e-2
+        assert (a - b).norm().item() / max(b.norm().item(), floor) < 1e-3
+    assert all(not torch.equal(v, buffers[k]) for k, v in model.named_buffers())
+
+
+# the CNN encoders' embeddings on the card against the CPU, each stream's
+# largest error over its largest magnitude: f32 on both sides, the sums in
+# another order; TF32 convolutions (10-bit mantissa) miss it
+CNN_CPU_TOL = 1e-5
+
+
+def test_cnn_encoders_on_the_card_match_the_cpu_in_float32(card):
+    """Every stream on the CNN encoder at base.yaml's width and chunk 512,
+    with TF32 and cuDNN's free choice of algorithm turned on first: building
+    the model resolves the card, which pins full float32 and deterministic
+    cuDNN, and the card's embeddings then match the same weights on the CPU.
+    The same comparison with TF32 convolutions allowed misses the limit."""
+    overrides = ZOO_CASES["cnn"][0]
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cudnn.deterministic = False
+    model = _c5_model(card, 256, overrides).eval()
+    assert not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32
+    assert torch.backends.cudnn.deterministic and not torch.backends.cudnn.benchmark
+    cpu = _c5_model(torch.device("cpu"), 256, overrides).eval()
+    cpu.load_state_dict(model.state_dict())
+    feats, lengths, _labels = _c5_batch(card, seq=512)
+    with torch.inference_mode():
+        want = cpu.encode({n: x.cpu() for n, x in feats.items()}, lengths.cpu())
+
+        def err():
+            got = model.encode(feats, lengths)
+            return max((got[n].cpu() - w).abs().max().item() / w.abs().max().item()
+                       for n, w in want.items())
+
+        e_f32 = err()
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            e_tf32 = err()
+        finally:
+            pin_float32()
+    print(f"cnn encoders, card vs cpu: f32 {e_f32:.3e}, tf32 convolutions {e_tf32:.3e}")
+    assert e_f32 < CNN_CPU_TOL < e_tf32

@@ -29,7 +29,10 @@ from multimodal_sensor_fusion_with_attention_rajeevatla_tpu.utils.config import 
 from multimodal_sensor_fusion_with_attention_rajeevatla_torch.convert import from_flax_variables
 from multimodal_sensor_fusion_with_attention_rajeevatla_torch.models import encoders as te
 from multimodal_sensor_fusion_with_attention_rajeevatla_torch.models.fusion import (
+    EarlyFusion,
     HybridFusion,
+    LateFusion,
+    UncertaintyFusion,
     build_fusion_model,
 )
 from multimodal_sensor_fusion_with_attention_rajeevatla_torch.models.module import (
@@ -96,8 +99,11 @@ def test_sequence_encoder_matches_jax(use_flash, with_lengths):
 def test_sequence_encoder_errors_keep_reference_strings():
     with pytest.raises(ValueError, match=re.escape("Unknown encoder type: rnn")):
         te.SequenceEncoder(4, encoder_type="rnn")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A"):
-        te.SequenceEncoder(4, encoder_type="cnn")
+    # ported since: the cnn branch
+    enc = te.SequenceEncoder(4, hidden_dim=8, output_dim=4, encoder_type="cnn")
+    assert isinstance(enc.bn0, te.MaskedBatchNorm) and enc.conv1.in_channels == 8
+    with pytest.raises(ValueError, match=re.escape("Expected 3D input sequence, got shape (2, 5)")):
+        enc(torch.zeros(2, 5))
     for kind in ("lstm", "gru"):  # ported since: the recurrent branch
         enc = te.SequenceEncoder(4, hidden_dim=8, output_dim=4, num_layers=1, encoder_type=kind)
         assert isinstance(enc.rnn, te.RNNStack) and enc.rnn.cell_type == kind
@@ -106,10 +112,17 @@ def test_sequence_encoder_errors_keep_reference_strings():
     enc = te.SequenceEncoder(4, hidden_dim=8, output_dim=4, num_layers=1, encoder_type="transformer")
     with pytest.raises(ValueError, match=re.escape("Expected 3D input sequence, got shape (2, 5)")):
         enc(torch.zeros(2, 5))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A"):
-        te.build_encoder("video", 512, 16)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A"):
-        te.build_encoder("heart_rate", 1, 16)  # routes to the MLP encoder without type: sequence
+    # ported since: the frame and mlp routes, with the reference's strings
+    video = te.build_encoder("video", 512, 16, {"temporal_pooling": "max"})
+    assert isinstance(video, te.FrameEncoder) and video.temporal_pooling == "max"
+    with pytest.raises(ValueError, match=re.escape("Expected 3D frame tensor, got shape (2, 512)")):
+        video(torch.zeros(2, 512))
+    with pytest.raises(ValueError, match=re.escape("Unknown pooling: sum")):
+        te.build_encoder("video", 512, 16, {"temporal_pooling": "sum"})
+    heart = te.build_encoder("heart_rate", 1, 16)  # the MLP encoder without type: sequence
+    assert isinstance(heart, te.SimpleMLPEncoder)
+    with pytest.raises(ValueError, match=re.escape("Expected 2D feature tensor, got shape (2, 5, 1)")):
+        heart(torch.zeros(2, 5, 1))
     assert isinstance(
         te.build_encoder("heart_rate", 1, 16, {"type": "sequence", "encoder_type": "transformer"}),
         te.SequenceEncoder,
@@ -140,9 +153,16 @@ def test_hybrid_fusion_matches_jax(mask_rows):
 def test_build_fusion_model_routes():
     with pytest.raises(ValueError, match="Unknown fusion type: nope"):
         build_fusion_model("nope", {"a": 4}, 3)
-    for kind in ("early", "late", "uncertainty"):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue A"):
-            build_fusion_model(kind, {"a": 4}, 3)
+    feats = {"a": torch.ones(2, 4), "b": torch.ones(2, 6)}
+    # ported since: every fusion type of the reference
+    for kind, cls in (("early", EarlyFusion), ("late", LateFusion), ("hybrid", HybridFusion),
+                      ("uncertainty", UncertaintyFusion)):
+        head = build_fusion_model(kind, {"a": 4, "b": 6}, 3, hidden_dim=8)
+        assert type(head) is cls
+        with torch.no_grad():
+            out = head(feats)
+        logits = out[0] if kind in ("late", "uncertainty") else out
+        assert logits.shape == (2, 3) and torch.isfinite(logits).all()
 
 
 @pytest.fixture(scope="module")
@@ -247,9 +267,13 @@ def test_from_config_rejects_unported_options():
     assert mixed.grouped_rnn_encoder is None and mixed.encoders["imu_hand"].encoder_type == "lstm"
     with torch.no_grad():
         assert mixed({n: x[:, :24] for n, x in feats.items()}).shape == (1, 25)
+    # ported since: the cnn encoder
     cfg = load_config(REPO / "config" / "base.yaml", SMALL + ["model.encoders.imu_hand.encoder_type=cnn"])
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A"):
-        MultimodalFusionModel.from_config(cfg, device="cpu")
+    cnn = MultimodalFusionModel.from_config(cfg, device="cpu")
+    assert cnn.encoders["imu_hand"].encoder_type == "cnn"
+    assert "encoders.imu_hand.bn1.running_var" in cnn.state_dict()
+    with torch.no_grad():
+        assert cnn({n: x[:, :24] for n, x in feats.items()}).shape == (1, 25)
 
 
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
