@@ -181,7 +181,23 @@ Phases (any failure exits non-zero, and no result line is printed):
    launched); the BatchNorm buffers move with training, are left as they
    were by an MC-dropout call, and come back from a checkpoint with
    bit-identical test logits.
-13. Print the kernel table as one JSON line, then the result line
+13. bf16: ``mixed_precision=true`` over base.yaml (the flagship in bf16; rows
+   1, 2 and 12-15 through their bf16-operand entries). In [kernels] the six
+   entries against their twins at the main path's shapes (B 64, T 512
+   served; N = 32*512 rows trained; the packed pair also on the edge
+   lengths and at d 16/32/128, and against the f32 entries on f32 copies of
+   the same inputs), twice bit for bit, timed beside the twin, the f32 entry
+   and, for the packed pair, SDPA in bf16. Then batch-64 requests served
+   against the bf16 plain path (4 bf16 packed forwards and 1 head a request,
+   no f32 attention entry); one micro-step against the plain path and one
+   at dropout 0 against the same weights on the CPU (the twins); 8 counted
+   micro-steps (4 of each bf16 entry and 4 mask launches each), the same
+   seed twice bit for bit; ``Trainer.fit`` for 2 epochs, the ``last``
+   checkpoint reloaded to bit-identical test logits, ``evaluate_checkpoint``
+   (missing-modality sweep, calibration, MC dropout on the bf16 training
+   forward); p50 and device time of a request and a micro-step beside the
+   f32 path's of the same run.
+14. Print the kernel table as one JSON line, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
 The script imports torch and the port only; it needs no network.
@@ -263,6 +279,61 @@ GRAD_TOL = 1e-4
 TRAIN_TOL = 1e-2
 # ... and the gradient as a whole, ||kernel - plain|| / ||plain||
 TRAIN_NORM_TOL = 1e-3
+# bf16 (mixed_precision): the six bf16-operand entries of rows 1, 2 and 12-15
+# and their bound, by the kind of each product's operands. Two bf16 operands:
+# the bf16 tensor-core peak. One bf16 and one f32 operand: two TF32 passes
+# (the bf16 side is exact in TF32 and has no low part), half the TF32 rate.
+# Two f32 operands: 3xTF32, a third of it
+PEAK_BF16_FLOPS = 989e12
+PEAK_2XTF32_FLOPS = PEAK_TF32_FLOPS / 2
+BF16_KERNELS = ("packed_attention_fwd_bf16", "packed_attention_bwd_bf16", "proj_ln_fwd_bf16",
+                "proj_ln_bwd_bf16", "ffw_ln_fwd_bf16", "ffw_ln_bwd_bf16")
+# a bf16 entry against its twin, max abs error over the largest magnitude: an
+# output rounded to bf16 (2^-8 of unit roundoff) can round the other way where
+# the kernel's f32 sum and the twin's straddle a rounding boundary: one bf16
+# ulp, at most 2^-7 of the largest magnitude, plus the f32 sums' own order
+BF16_TOL = 1e-2
+# served logits, bf16 kernel path against the bf16 plain path, norm-wise: the
+# two round at other points (the kernels take the attention in f32 on bf16
+# q, k, v and keep the FFW products in f32; the plain path rounds scores,
+# weights and products to bf16), as the reference's two paths do: their gap
+# is bf16's own, a few units of its 2^-8 roundoff through four encoders and
+# the head
+BF16_LOGIT_TOL = 2e-2
+# one bf16 micro-step, kernel path against plain path: loss relative; the
+# whole gradient norm-wise (bf16's rounding points differ between the paths
+# and the backward carries every difference through its rounded products:
+# gradients that rest on cancelling sums, the gates', differ most)
+BF16_PLAIN_LOSS_TOL = 1e-3
+BF16_PLAIN_GRAD_TOL = 0.2
+# ... and each gradient's max abs error over its largest magnitude, floored
+# as the f32 path floors it: a leaf that had lost a term or its sign would
+# read 1 or more; the paths' other rounding points move the gates' biases,
+# whose gradients rest on sums that cancel over the batch, most (0.284 in
+# the first runs on an H100)
+BF16_PLAIN_LEAF_TOL = 0.5
+# one bf16 micro-step at dropout 0, the card's kernels against the same model
+# on the CPU (the twins, the function the CPU tests hold to the JAX package):
+# the loss relative; the whole gradient's difference norm-wise at most
+# BF16_CPU_GAP_SHARE of bf16's own effect, the same reading of the CPU's f32
+# model against its bf16 one on the same weights and windows. That f32 model
+# is the control the gate must refuse: a card that left out the reference's
+# bf16 roundings would read about as far from the CPU as it does. One
+# function, its sums in another order: once one bf16 rounding breaks the
+# other way the two sides' later roundings part, and the gradients differ by
+# bf16 noise, a third of bf16's own effect on an H100 (2.03e-2 against
+# 6.12e-2 norm-wise)
+BF16_CPU_LOSS_TOL = 1e-3
+BF16_CPU_GAP_SHARE = 0.5
+# ... and each gradient's max abs error over its largest magnitude, floored
+# (bf16_step_vs_cpu): a leaf that had lost a term or its sign would read 1
+# or more. The fusion head's projections, fed by four encoders' bf16 noise
+# on 4 windows, read as far from the CPU as the f32 control does (0.215 on
+# an H100), so this gate catches a wrong gradient, not a left-out rounding:
+# the whole-gradient gate above and the card test of the FFW entries'
+# rounding points (tests/test_torch_port_cuda.py) hold those
+BF16_CPU_LEAF_TOL = 0.5
+BF16_CPU_ROWS = 4  # windows of the card-vs-CPU micro-step
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -385,6 +456,8 @@ def ptxas_report(build):
                     kernel = next((_source_name(name) for ks in TENSOR_CORE_KERNELS.values()
                                    for k in ks if k in name), None)
                     dim = name.split("ILi")[1].split("E")[0] if kernel and "ILi" in name else ""
+                    if "bfloat16" in name:  # a bf16 entry's instantiation
+                        dim = f"{dim},bf16" if dim else "bf16"
                     if (kernel, dim) in seen:
                         kernel = None
                     seen.add((kernel, dim))
@@ -397,6 +470,11 @@ def ptxas_report(build):
                 ("ffw_ln", "msfa_ffw_ln_smem_bytes",
                  ("hidden", "fwd", "bwd_ln", "bwd_dpre", "bwd_dx", "bwd_dw")),
                 ("proj_ln", "msfa_proj_ln_bwd_smem_bytes", ("bwd_ln", "bwd_da", "bwd_dw")),
+                ("ffw_ln", "msfa_ffw_ln_bf16_smem_bytes",
+                 ("bf16 hidden", "bf16 fwd", "bf16 bwd_ln", "bf16 bwd_dpre", "bf16 bwd_dx",
+                  "bf16 bwd_dw")),
+                ("proj_ln", "msfa_proj_ln_bf16_bwd_smem_bytes",
+                 ("bf16 bwd_ln", "bf16 bwd_da", "bf16 bwd_dw")),
                 ("fused_mlp", "msfa_ffw_smem_bytes",
                  ("hidden", "fwd", "bwd_dpre", "bwd_dx", "bwd_dw"))):
             sizes = (ctypes.c_int * len(names))()
@@ -675,9 +753,12 @@ def _digest(tensors) -> str:
     """sha256 prefix of the tensors' bytes, in order: equal digests, equal bits."""
     import hashlib
 
+    import torch
+
     h = hashlib.sha256()
     for t in tensors:
-        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+        t = t.detach().cpu().contiguous()
+        h.update((t.view(torch.int16) if t.dtype == torch.bfloat16 else t).numpy().tobytes())
     return h.hexdigest()[:16]
 
 
@@ -1971,10 +2052,12 @@ def _trainer(torch, overrides, weights=None):
 PLAIN = ["model.flash_attention=false", "model.fused_mlp=false", "model.fused_mlp_ln=false"]
 
 
-def micro_step_vs_plain(torch, split, idx0, overrides, label, plain_overrides=PLAIN):
+def micro_step_vs_plain(torch, split, idx0, overrides, label, plain_overrides=PLAIN, bf16=False):
     """One micro-step at ``dropout_rng=xla`` on the kernel path against the
     plain path (``plain_overrides``): same weights, batch and generator seed,
-    so the same masks."""
+    so the same masks. With ``bf16`` (a mixed_precision config) the gates are
+    the loss and the whole gradient norm-wise at the bf16 limits, the two
+    paths rounding at other points; each gradient's errors are printed."""
     trainer = _trainer(torch, [*overrides, "training.dropout_rng=xla"])
     plain = _trainer(torch, [*overrides, "training.dropout_rng=xla", *plain_overrides],
                      weights=trainer.model.state_dict())
@@ -2000,13 +2083,23 @@ def micro_step_vs_plain(torch, split, idx0, overrides, label, plain_overrides=PL
                for n, a, b in zip(names, grads_k, grads_p)}
     worst = max(e_grads, key=e_grads.get)
     worst_norm = max(e_norms, key=e_norms.get)
+    leaf_tol = BF16_PLAIN_LEAF_TOL if bf16 else TRAIN_TOL
     print(f"  {label}: one micro-step kernel vs plain path: loss {loss_k.item():.6f} vs "
           f"{loss_p.item():.6f} (rel err {e_loss:.3e}), {len(names)} gradients, worst max-abs "
-          f"rel err {e_grads[worst]:.3e} at {worst} (tol {TRAIN_TOL}), worst norm rel err "
-          f"{e_norms[worst_norm]:.3e} at {worst_norm} (tol {TRAIN_NORM_TOL})", flush=True)
+          f"rel err {e_grads[worst]:.3e} at {worst} (tol {leaf_tol}), worst norm rel err "
+          f"{e_norms[worst_norm]:.3e} at {worst_norm}"
+          + ("" if bf16 else f" (tol {TRAIN_NORM_TOL})"), flush=True)
     for n in sorted(e_grads, key=e_grads.get)[-3:]:
         print(f"    {n}: max-abs rel {e_grads[n]:.3e}, norm rel {e_norms[n]:.3e}", flush=True)
-    if e_loss > TRAIN_NORM_TOL or e_grads[worst] > TRAIN_TOL \
+    if bf16:
+        whole = (torch.cat([(a - b).flatten() for a, b in zip(grads_k, grads_p)]).norm()
+                 / torch.cat([b.flatten() for b in grads_p]).norm()).item()
+        print(f"  {label}: the whole gradient norm-wise {whole:.3e} (tol {BF16_PLAIN_GRAD_TOL}), "
+              f"loss rel err {e_loss:.3e} (tol {BF16_PLAIN_LOSS_TOL})", flush=True)
+        if e_loss > BF16_PLAIN_LOSS_TOL or whole > BF16_PLAIN_GRAD_TOL \
+                or e_grads[worst] > BF16_PLAIN_LEAF_TOL:
+            raise AssertionError(f"{label}: kernel path disagrees with the plain path")
+    elif e_loss > TRAIN_NORM_TOL or e_grads[worst] > TRAIN_TOL \
             or e_norms[worst_norm] > TRAIN_NORM_TOL:
         raise AssertionError(f"{label}: kernel path disagrees with the plain path")
     for p in trainer.model.parameters():
@@ -2045,6 +2138,7 @@ def step_p50(torch, step, split, idx, batch, label, smi, iters=20):
     print(f"  train micro-step batch {batch}, {label}: p50 {p50 * 1e3:.3f} ms, {batch / p50:.1f} "
           f"train windows/s on {smi}; peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    return p50
 
 
 def train_phase(torch, kernels, split, train_idx, smi):
@@ -2052,7 +2146,8 @@ def train_phase(torch, kernels, split, train_idx, smi):
     micro-steps with their launch counts and a bit-identical rerun, one
     micro-step against the plain path, the fused_mlp-without-LN route, step
     times and device time by kernel family. Returns the default path's
-    counts and the fused_mlp route's."""
+    counts, the fused_mlp route's and the default step's p50 and device
+    time."""
     idx = [torch.from_numpy(row).long() for row in train_idx]
     batch = len(idx[0])
     per_step = len(split.modalities)  # one layer per encoder, every encoder runs
@@ -2088,9 +2183,9 @@ def train_phase(torch, kernels, split, train_idx, smi):
     print(f"  same seed again: losses bit-identical: {losses2 == losses}", flush=True)
     if losses2 != losses:
         raise AssertionError(f"the same seed gave other losses: {losses} then {losses2}")
-    step_p50(torch, step, split, idx, batch, "dropout_rng=auto (mask kernel)", smi)
-
-    profile_micro_steps(torch, step, split, idx, 8)
+    times = {"train_p50": step_p50(torch, step, split, idx, batch,
+                                   "dropout_rng=auto (mask kernel)", smi),
+             "train_device": profile_micro_steps(torch, step, split, idx, 8)["device"]}
     del trainer, step
 
     # fused_mlp without the combined LayerNorm kernel: the feed-forward pair
@@ -2110,7 +2205,7 @@ def train_phase(torch, kernels, split, train_idx, smi):
         raise AssertionError(f"fused_mlp route launch counts {mlp_launches} != {want}")
     step_p50(torch, mlp_step, split, idx, batch, "fused_mlp=true fused_mlp_ln=false", smi)
     profile_micro_steps(torch, mlp_step, split, idx, 8)
-    return launches, mlp_launches
+    return launches, mlp_launches, times
 
 
 LN_KERNELS = ("proj_ln_fwd", "proj_ln_bwd", "ffw_ln_fwd", "ffw_ln_bwd")
@@ -2142,12 +2237,13 @@ def index_batches(torch, split, batch, seed):
 
 
 def serve_vs_plain(torch, kernels, overrides, split, idx, label, smi, want, compare_rows=None,
-                   timed=12):
+                   timed=12, bf16=False):
     """Serve batch-64 requests of ``split`` at base.yaml + ``overrides``
     (``load_cfg``) with counted launches, hold the logits against the plain
     path (on the first ``compare_rows`` rows of the batch when the plain
-    scores of the whole batch do not fit), then time repeated requests.
-    Returns the launches of the counted request, the model and the p50."""
+    scores of the whole batch do not fit; with ``bf16``, norm-wise at
+    BF16_LOGIT_TOL), then time repeated requests. Returns the launches of
+    the counted request, the model and the p50."""
     from multimodal_sensor_fusion_with_attention_rajeevatla_torch.models.module import (
         MultimodalFusionModel,
     )
@@ -2178,10 +2274,18 @@ def serve_vs_plain(torch, kernels, overrides, split, idx, label, smi, want, comp
     if got.shape != (BATCH, model.num_classes) or not torch.isfinite(got).all():
         raise AssertionError(f"{label}: bad logits {tuple(got.shape)}")
     e = (got[rows] - ref).abs().max().item()
-    print(f"  {label}: logits {tuple(got.shape)} finite, max_abs_err vs plain path {e:.3e} on "
-          f"{ref.shape[0]} rows (tol {LOGIT_TOL})", flush=True)
-    if e > LOGIT_TOL:
-        raise AssertionError(f"{label}: served logits disagree with the plain path: {e}")
+    if bf16:
+        e_norm = ((got[rows] - ref).norm() / ref.norm()).item()
+        print(f"  {label}: logits {tuple(got.shape)} finite, vs the bf16 plain path norm-wise "
+              f"{e_norm:.3e} (tol {BF16_LOGIT_TOL}), max_abs_err {e:.3e} on {ref.shape[0]} "
+              f"rows", flush=True)
+        if e_norm > BF16_LOGIT_TOL:
+            raise AssertionError(f"{label}: served logits disagree with the plain path: {e_norm}")
+    else:
+        print(f"  {label}: logits {tuple(got.shape)} finite, max_abs_err vs plain path {e:.3e} on "
+              f"{ref.shape[0]} rows (tol {LOGIT_TOL})", flush=True)
+        if e > LOGIT_TOL:
+            raise AssertionError(f"{label}: served logits disagree with the plain path: {e}")
     del plain, ref
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -3042,9 +3146,11 @@ def _all_finite(tree) -> bool:
     return not isinstance(tree, float) or math.isfinite(tree)
 
 
-def fit_and_eval_phase(torch, kernels, smi, workdir: Path):
+def fit_and_eval_phase(torch, kernels, smi, workdir: Path, bf16=False):
     """``Trainer.fit`` for FIT_EPOCHS epochs at the default config on the real
-    splits, then the checkpoints reloaded and evaluated."""
+    splits, then the checkpoints reloaded and evaluated. With ``bf16``, the
+    same at ``mixed_precision=true``: the bf16 entries launched where the
+    f32 ones were, and no f32 attention or residual-LN entry."""
     from multimodal_sensor_fusion_with_attention_rajeevatla_torch.data.dataset import (
         create_datasets,
     )
@@ -3059,11 +3165,13 @@ def fit_and_eval_phase(torch, kernels, smi, workdir: Path):
         load_checkpoint,
     )
 
-    print("[fit]", flush=True)
+    tag, sfx = ("[bf16] ", "_bf16") if bf16 else ("", "")
+    print(f"{tag}[fit]", flush=True)
     # the default config; only where files live and how long it trains differ
     trainer = _trainer(torch, [
         f"training.max_epochs={FIT_EPOCHS}", f"dataset.data_dir={REPO / 'data' / 'pamap2'}",
-        f"dataset.chunk_cache_dir={workdir / 'chunk_cache'}"])
+        f"dataset.chunk_cache_dir={workdir / 'chunk_cache'}",
+        *(["mixed_precision=true"] if bf16 else [])])
     cfg = trainer.config
     train_w, val_w, test_w = create_datasets(**dataset_kwargs(cfg))
     batch = trainer.batch_size
@@ -3086,12 +3194,13 @@ def fit_and_eval_phase(torch, kernels, smi, workdir: Path):
             or not math.isfinite(results["best_val_loss"]):
         raise AssertionError(f"fit history is not {FIT_EPOCHS} finite epochs: {history}")
     per_step = 4  # encoders, one layer each
-    want = {"dropout_keep_mask": per_step * steps, "packed_attention_bwd": per_step * steps,
-            "proj_ln_fwd": per_step * steps, "proj_ln_bwd": per_step * steps,
-            "ffw_ln_fwd": per_step * steps, "ffw_ln_bwd": per_step * steps,
+    want = {"dropout_keep_mask": per_step * steps, f"packed_attention_bwd{sfx}": per_step * steps,
+            **{f"{name}{sfx}": per_step * steps for name in LN_KERNELS},
             "fused_hybrid_head": 0, "fused_mlp_fwd": 0, "fused_mlp_bwd": 0}
+    if bf16:  # none of the f32 entries of the same rows
+        want.update(dict.fromkeys(("packed_attention_fwd", "packed_attention_bwd", *LN_KERNELS), 0))
     got = {name: launches[name] for name in want}
-    if got != want or launches["packed_attention_fwd"] <= per_step * steps:
+    if got != want or launches[f"packed_attention_fwd{sfx}"] <= per_step * steps:
         raise AssertionError(f"fit launch counts {launches} != {want} (+ eval attention)")
     best = Path(results["best_model_path"])
     last = workdir / "run" / "checkpoints" / "last"
@@ -3104,7 +3213,7 @@ def fit_and_eval_phase(torch, kernels, smi, workdir: Path):
           f"val, checkpoint), {FIT_EPOCHS * train_w.num_windows / wall:.1f} train windows/s on "
           f"{smi}; best {best.name}, test acc {results['test_acc']:.4f}", flush=True)
 
-    print("[eval]", flush=True)
+    print(f"{tag}[eval]", flush=True)
     # `last` holds the weights the trainer ends with: reloaded from the
     # directory alone they must give the in-memory model's logits exactly
     test_data = DeviceSplit.from_windows(test_w, device="cuda")
@@ -3140,8 +3249,10 @@ def fit_and_eval_phase(torch, kernels, smi, workdir: Path):
     if standard["test_accuracy"] != results["test_acc"]:
         raise AssertionError(f"evaluation accuracy {standard['test_accuracy']} != fit's test_acc "
                              f"{results['test_acc']} on the same checkpoint")
-    if eval_launches["dropout_keep_mask"] <= 0 or eval_launches["packed_attention_fwd"] <= 0:
+    if eval_launches["dropout_keep_mask"] <= 0 or eval_launches[f"packed_attention_fwd{sfx}"] <= 0:
         raise AssertionError("evaluation did not go through the attention and mask kernels")
+    if bf16 and any(eval_launches[n] for n in ("packed_attention_fwd", *LN_KERNELS)):
+        raise AssertionError("the bf16 evaluation launched an f32 entry")
     unc = files["uncertainty"]
     print(f"  test acc {standard['test_accuracy']:.4f}, macro-F1 {standard['test_f1_macro']:.4f}, "
           f"ECE {standard['ece']:.4f}, NLL {standard['nll']:.4f}; T {unc['temperature']:.3f}; "
@@ -3150,6 +3261,376 @@ def fit_and_eval_phase(torch, kernels, smi, workdir: Path):
           f"{standard['inference_ms_std']:.4f}), amortised "
           f"{standard['inference_ms_amortized']:.4f} ms at batch {batch} on {smi}", flush=True)
     return launches, eval_launches
+
+
+def _bf16_bound(flops, nbytes):
+    """(ms, "operations" or "bytes") of a bf16 entry. ``flops`` counts its
+    products by operand kind: (bf16 x bf16, f32 x bf16, f32 x f32), each at
+    its own rate, against its bytes."""
+    peaks = (PEAK_BF16_FLOPS, PEAK_2XTF32_FLOPS, PEAK_3XTF32_FLOPS)
+    t_ops = sum(n / peak for n, peak in zip(flops, peaks)) * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def _bf16_row(name, source, line, err, ms, plain_ms, f32_ms, library_ms, flops, nbytes, **extra):
+    bound_ms, bound_by = _bf16_bound(flops, nbytes)
+    row = {"name": name, "route": "cuda", "source": f"{PKG}/ops/csrc/{source}",
+           "replaces": f"{TPU_PKG}/ops/{line}", "max_abs_err": err, "ms": ms,
+           "plain_ms": plain_ms, "f32_ms": f32_ms, "library_ms": library_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by, "bound_share": bound_ms / ms,
+           "unit": "bf16 tensor-core products (one TF32 pass for two bf16 operands, two "
+                   "for an f32 and a bf16 one, three for two f32 ones)",
+           "gflop_by_operands": {"bf16 x bf16": flops[0] / 1e9, "f32 x bf16": flops[1] / 1e9,
+                                 "f32 x f32": flops[2] / 1e9}, **extra}
+    lib = "none" if library_ms is None else f"{library_ms:.4f}"
+    print(f"  {name} ms={ms:.4f} plain_ms={plain_ms:.4f} f32 entry ms={f32_ms:.4f} "
+          f"library_ms={lib} bound_ms={bound_ms:.4f} ({bound_by}; GFLOP bf16 x bf16 "
+          f"{flops[0] / 1e9:.2f}, f32 x bf16 {flops[1] / 1e9:.2f}, f32 x f32 "
+          f"{flops[2] / 1e9:.2f}; {nbytes / 1e6:.1f} MB), share {100 * bound_ms / ms:.1f}%",
+          flush=True)
+    return row
+
+
+def check_bf16_attention(torch, attn, serve_lengths, train_lengths):
+    """The packed pair's bf16 entries against their twins and against the f32
+    entries on f32 copies of the same inputs (one function: the same sums,
+    the bits equal where sm_scale is a power of two); returns two rows."""
+    bf = torch.bfloat16
+    g = torch.Generator().manual_seed(19)
+    heads, hd, seq = 4, 64, 512
+
+    def qkv_of(batch, t_len, d):
+        return torch.randn(batch, t_len, 3 * heads * d, generator=g).to(bf).cuda()
+
+    serve_qkv = qkv_of(BATCH, seq, hd)
+    cases = [("serve lengths", serve_qkv, serve_lengths)]
+    edge = torch.tensor([0, 1, 37, 64, 65, 511, seq, 8], dtype=torch.int32).cuda()
+    cases.append(("edge lengths", qkv_of(8, seq, hd), edge))
+    for d in (16, 32, 128):  # every head dim, padded T = 72 on the tile edges
+        cases.append((f"d={d} T=72", qkv_of(7, 72, d),
+                      torch.tensor([0, 1, 37, 64, 65, 71, 72], dtype=torch.int32).cuda()))
+    err_f, err_b, same_f, same_b = 0.0, 0.0, True, True
+    for name, x, lens in cases:
+        d = x.shape[-1] // (3 * heads)
+        scale = d**-0.5
+        out, lse = attn.packed_attention_fwd_bf16(x, lens, heads, scale)
+        ref_out, ref_lse = attn.packed_attention_bf16_reference(x, lens, heads, scale)
+        f_out, f_lse = attn.packed_attention_fwd(x.float(), lens, heads, scale)
+        torch.cuda.synchronize()
+        valid = ref_lse > attn.NEG_INF / 2
+        e = max((out - ref_out).abs().max().item(), (lse[valid] - ref_lse[valid]).abs().max().item())
+        e_f32 = max((out - f_out).abs().max().item(), (lse - f_lse).abs().max().item())
+        bits = torch.equal(out, f_out) and torch.equal(lse, f_lse)
+        dout = torch.randn(out.shape, generator=g).to(bf).float().cuda()  # a bf16 cotangent
+        got = attn.packed_attention_bwd_bf16(x, lens, ref_out, ref_lse, dout, heads, scale)
+        want = attn.packed_attention_bwd_bf16_reference(x, lens, ref_out, ref_lse, dout, heads,
+                                                        scale)
+        f_got = attn.packed_attention_bwd(x.float(), lens, ref_out, ref_lse, dout, heads,
+                                          scale).to(bf)
+        torch.cuda.synchronize()
+        e_b = rel_err(got.float(), want.float())
+        e_bf32 = rel_err(got.float(), f_got.float())
+        bits_b = torch.equal(got, f_got)
+        print(f"  packed_attention bf16 {name}: fwd max_abs_err {e:.3e} vs twin (tol {ATTN_TOL}), "
+              f"{e_f32:.3e} vs the f32 entry on f32 copies (bits equal: {bits}); bwd rel err "
+              f"{e_b:.3e} vs twin, {e_bf32:.3e} vs the f32 entry (tol {BF16_TOL}; bits equal: "
+              f"{bits_b})", flush=True)
+        err_f, err_b = max(err_f, e, e_f32), max(err_b, e_b, e_bf32)
+        same_f, same_b = same_f and (bits or d in (32, 128)), same_b and bits_b
+    if err_f > ATTN_TOL or err_b > BF16_TOL:
+        raise AssertionError(f"packed attention bf16 entries: {err_f} > {ATTN_TOL} or "
+                             f"{err_b} > {BF16_TOL}")
+    print(f"  packed_attention bf16 entries = the f32 entries on f32 copies bit for bit: "
+          f"forward at d = 16 and 64 (sm_scale a power of two) {same_f}, backward at every d "
+          f"{same_b}", flush=True)
+    # twice on one input, bit for bit
+    x, lens = serve_qkv, serve_lengths
+    a, b = (attn.packed_attention_fwd_bf16(x, lens, heads, hd**-0.5) for _ in range(2))
+    tq = qkv_of(len(train_lengths), seq, hd)
+    t_out, t_lse = attn.packed_attention_bf16_reference(tq, train_lengths, heads, hd**-0.5)
+    t_dout = torch.randn(t_out.shape, generator=g).to(bf).float().cuda()
+    c, d_ = (attn.packed_attention_bwd_bf16(tq, train_lengths, t_out, t_lse, t_dout, heads,
+                                            hd**-0.5) for _ in range(2))
+    torch.cuda.synchronize()
+    if not (torch.equal(a[0], b[0]) and torch.equal(c, d_)):
+        raise AssertionError("packed attention bf16 entries: two runs differ")
+    print(f"  packed_attention bf16 entries: two runs of each equal bit for bit; digests fwd "
+          f"{_digest([a[0], a[1]])} bwd {_digest([c])}", flush=True)
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows = []
+    for kind, x, lens in (("fwd", serve_qkv, serve_lengths), ("bwd", tq, train_lengths)):
+        batch = x.shape[0]
+        scale = hd**-0.5
+        view = x.view(batch, seq, 3, heads, hd)
+        q, k, v = (view[:, :, i].transpose(1, 2) for i in range(3))
+        key_mask = (torch.arange(seq, device="cuda")[None, :] < lens[:, None].long())[
+            :, None, None, :]
+        keys = float(lens.clamp(0, seq).sum().item())
+        # one product over the valid keys. Forward: Q.K^T bf16 x bf16, P.V f32 x
+        # bf16. Backward: K.Q^T bf16 x bf16; V.dO^T, dS.K and dS^T.Q f32 x bf16;
+        # P^T.dO f32 x f32 (dO is the f32 cotangent)
+        unit = 2.0 * heads * hd * seq * keys
+        xf = x.float()
+        if kind == "fwd":
+            ms = time_ms(lambda: attn.packed_attention_fwd_bf16(x, lens, heads, scale))
+            plain_ms = time_ms(lambda: attn.packed_attention_bf16_reference(x, lens, heads, scale))
+            f32_ms = time_ms(lambda: attn.packed_attention_fwd(xf, lens, heads, scale))
+            library_ms = time_ms(lambda: sdpa(q, k, v, attn_mask=key_mask))
+            nbytes = 2.0 * x.numel() + 4.0 * (batch * seq * heads * hd + batch * seq * heads
+                                              + batch)
+            rows.append(_bf16_row("packed_attention_fwd_bf16", "packed_attention.cu",
+                                  "pallas_attention.py:793", err_f, ms, plain_ms, f32_ms,
+                                  library_ms, (unit, unit, 0.0), nbytes, body=f"{PKG}/ops/"
+                                  "csrc/attention_fwd.cuh", bits_equal_f32=same_f))
+        else:
+            ms = time_ms(lambda: attn.packed_attention_bwd_bf16(x, lens, t_out, t_lse, t_dout,
+                                                                heads, scale))
+            plain_ms = time_ms(lambda: attn.packed_attention_bwd_bf16_reference(
+                x, lens, t_out, t_lse, t_dout, heads, scale))
+            f32_ms = time_ms(lambda: attn.packed_attention_bwd(xf, lens, t_out, t_lse, t_dout,
+                                                               heads, scale))
+            qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+            o = sdpa(qg, kg, vg, attn_mask=key_mask)
+            do = t_dout.to(bf).view(batch, seq, heads, hd).transpose(1, 2)
+            library_ms = time_ms(lambda: torch.autograd.grad(o, (qg, kg, vg), do,
+                                                             retain_graph=True))
+            nbytes = 2.0 * 2 * x.numel() + 4.0 * (2 * t_out.numel() + t_lse.numel() + batch)
+            rows.append(_bf16_row("packed_attention_bwd_bf16", "packed_attention_bwd.cu",
+                                  "pallas_attention.py:845", err_b, ms, plain_ms, f32_ms,
+                                  library_ms, (unit, 3 * unit, unit), nbytes,
+                                  body=f"{PKG}/ops/csrc/attention_bwd.cuh",
+                                  bits_equal_f32=same_b))
+    return rows
+
+
+def check_bf16_ln(torch, mlp, rows_n):
+    """Both residual-LN pairs' bf16 entries against their twins (the FFW
+    backward on the forward kernel's ReLU branches, as in f32), twice bit for
+    bit, timed beside the f32 entries on f32 copies; returns four rows."""
+    bf = torch.bfloat16
+    d, f = 256, 2048
+    out_rows = {}
+    for family, line_f, line_b in (("proj_ln", 921, 945), ("ffw_ln", 573, 611)):
+        errs = [0.0, 0.0]
+        timed = None
+        for n, keep in ((rows_n, 0.8), (rows_n, None), (rows_n, 0.0), (rows_n - 25, 0.8)):
+            w, (fmask, rmask) = _ln_case(torch, n, d, f, keep, seed=n + int(10 * (keep or 1)) + 3)
+            x = w(n, d).to(bf)
+            if family == "proj_ln":
+                args = (x, w(n, d).to(bf), w(d, d, s=d**-0.5).to(bf), w(d, s=0.1),
+                        1 + w(d, s=0.1), w(d, s=0.1), rmask)
+            else:
+                args = (x, w(d, f, s=d**-0.5).to(bf), w(f, s=0.1), w(f, d, s=f**-0.5).to(bf),
+                        w(d, s=0.1), 1 + w(d, s=0.1), w(d, s=0.1), fmask, rmask)
+            inv_keep = mlp._inv_keep(1.0 if keep is None else keep)
+            dout = w(n, d).to(bf)
+            fwd = getattr(mlp, f"{family}_fwd_bf16")
+            out = fwd(*args, inv_keep, 1e-6)
+            torch.cuda.synchronize()
+            e_fwd = rel_err(out.float(), getattr(mlp, f"{family}_fwd_bf16_reference")(
+                *args, inv_keep, 1e-6).float())
+            if family == "ffw_ln":
+                _o, fwd_hd = mlp._ffw_ln_fwd_launch(*args, inv_keep, 1e-6)
+                grads, bwd_hd = mlp._ffw_ln_bwd_launch(*args, dout, inv_keep, 1e-6)
+                torch.cuda.synchronize()
+                if not torch.equal(fwd_hd, bwd_hd):
+                    raise AssertionError("ffw_ln bf16: the forward's hidden and the backward's "
+                                         "differ")
+                xf, w1f = x.float(), args[1].float()
+                pre, live, flips = _forward_branches(torch, "ffw_ln bf16", xf, w1f, args[2],
+                                                     fmask, inv_keep, bwd_hd.float())
+                want = mlp._ffw_ln_bwd_bf16_plain(xf, w1f, pre, live, args[3].float(), args[4],
+                                                  args[5], fmask, rmask, dout.float(), inv_keep,
+                                                  1e-6)
+                own = max(rel_err(a.float(), b.float()) for a, b in zip(
+                    grads, mlp.ffw_ln_bwd_bf16_reference(*args, dout, inv_keep, 1e-6)))
+                note = (f" (forward's hidden = backward's bit for bit; {flips} ReLU branches off "
+                        f"the twin's, within rounding of zero; on the twin's own {own:.3e})")
+            else:
+                grads = mlp.proj_ln_bwd_bf16(*args, dout, inv_keep, 1e-6)
+                want = mlp.proj_ln_bwd_bf16_reference(*args, dout, inv_keep, 1e-6)
+                note = ""
+            torch.cuda.synchronize()
+            e_bwd = max(rel_err(a.float(), b.float()) for a, b in zip(grads, want))
+            print(f"  {family} bf16 N={n} keep={keep}: rel err fwd={e_fwd:.3e} bwd={e_bwd:.3e} "
+                  f"(tol {BF16_TOL}){note}", flush=True)
+            errs = [max(errs[0], e_fwd), max(errs[1], e_bwd)]
+            if timed is None:
+                timed = (args, dout, inv_keep)
+        if max(errs) > BF16_TOL:
+            raise AssertionError(f"{family} bf16 entries disagree with their twins: {errs}")
+        args, dout, inv_keep = timed
+        fwd, bwd = getattr(mlp, f"{family}_fwd_bf16"), getattr(mlp, f"{family}_bwd_bf16")
+        first, second = bwd(*args, dout, inv_keep, 1e-6), bwd(*args, dout, inv_keep, 1e-6)
+        out, again = fwd(*args, inv_keep, 1e-6), fwd(*args, inv_keep, 1e-6)
+        torch.cuda.synchronize()
+        if not (all(torch.equal(a, b) for a, b in zip(first, second)) and torch.equal(out, again)):
+            raise AssertionError(f"{family} bf16 entries: two runs on the same inputs differ")
+        print(f"  {family}_fwd_bf16 and {family}_bwd_bf16 N={rows_n} keep=0.8: two runs of each "
+              f"equal bit for bit; digests fwd {_digest([out])} bwd {_digest(first)}", flush=True)
+        del first, second, out, again
+        f32_args = tuple(a.float() if a is not None and a.dtype == bf else a for a in args)
+        n = rows_n
+        if family == "proj_ln":  # x, a, out | x, a, dout, dx, da: bf16; masks u8; weights
+            work, ops, acts = d * d, (2, 6), (3, 5)
+            wbytes, masks = 2.0 * d * d + 4.0 * 3 * d, n * d
+        else:  # x, out | x, dout, dx
+            work, ops, acts = d * f, (4, 12), (2, 3)
+            wbytes, masks = 2.0 * 2 * d * f + 4.0 * (f + 3 * d), n * (d + f)
+        for kind, line in (("fwd", line_f), ("bwd", line_b)):
+            name = f"{family}_{kind}_bf16"
+            if kind == "fwd":
+                call = lambda: fwd(*args, inv_keep, 1e-6)  # noqa: E731
+                call_ref = lambda: getattr(mlp, f"{family}_fwd_bf16_reference")(  # noqa: E731
+                    *args, inv_keep, 1e-6)
+                call_f32 = lambda: getattr(mlp, f"{family}_fwd")(  # noqa: E731
+                    *f32_args, inv_keep, 1e-6)
+            else:
+                call = lambda: bwd(*args, dout, inv_keep, 1e-6)  # noqa: E731
+                call_ref = lambda: getattr(mlp, f"{family}_bwd_bf16_reference")(  # noqa: E731
+                    *args, dout, inv_keep, 1e-6)
+                call_f32 = lambda: getattr(mlp, f"{family}_bwd")(  # noqa: E731
+                    *f32_args, dout.float(), inv_keep, 1e-6)
+            k = 0 if kind == "fwd" else 1
+            nbytes = 2.0 * acts[k] * n * d + wbytes * (1 + k) + masks
+            extra = {}
+            if name == "proj_ln_fwd_bf16":  # short: each call alone, L2-warm and L2-cold
+                warm_cold(torch, extra, call, name)
+                ms = extra.pop("ms")
+            else:
+                ms = time_ms(call, iters=10)
+            out_rows[name] = _bf16_row(
+                name, f"{family}.cu", f"pallas_mlp.py:{line}", errs[k], ms,
+                time_ms(call_ref, iters=10), time_ms(call_f32, iters=10), None,
+                (ops[k] * n * work, 0.0, 0.0), nbytes, **extra)
+            out_rows[name]["ms_by_kernel"] = kernel_times(torch, call, 5)
+            print(f"  {name} by kernel: " + ", ".join(
+                f"{k_} {v:.4f} ms" for k_, v in out_rows[name]["ms_by_kernel"].items()),
+                flush=True)
+    return [out_rows[k] for k in BF16_KERNELS[2:]]
+
+
+def bf16_step_vs_cpu(torch, split, idx0):
+    """One micro-step of the bf16 model at dropout 0 on BF16_CPU_ROWS real
+    windows: the card's kernels against the same weights on the CPU (the
+    twins), loss and every gradient, beside the CPU's f32 model: bf16's own
+    effect, the control that the whole-gradient gate, a share of it, must
+    refuse."""
+    from multimodal_sensor_fusion_with_attention_rajeevatla_torch.models.module import (
+        MultimodalFusionModel,
+    )
+    from multimodal_sensor_fusion_with_attention_rajeevatla_torch.ops.metrics import (
+        cross_entropy_loss,
+    )
+
+    cfg = load_cfg(["mixed_precision=true", "model.dropout=0"])
+    card = MultimodalFusionModel.from_config(
+        cfg, device="cuda", generator=torch.Generator().manual_seed(int(cfg.seed)))
+    state = {k: v.cpu() for k, v in card.state_dict().items()}
+    cpu = MultimodalFusionModel.from_config(cfg, device="cpu")
+    cpu32 = MultimodalFusionModel.from_config(load_cfg(["model.dropout=0"]), device="cpu")
+    cpu.load_state_dict(state)
+    cpu32.load_state_dict(state)
+    feats, labels, lengths = split.gather(idx0[:BF16_CPU_ROWS])
+    smoothing = float(cfg.training.get("label_smoothing", 0.0) or 0.0)
+    results = []
+    for model, dev in ((card, "cuda"), (cpu, "cpu"), (cpu32, "cpu")):
+        logits = model({m: x.to(dev) for m, x in feats.items()}, None, lengths.to(dev),
+                       train=True, generator=torch.Generator(device=dev).manual_seed(0))
+        loss = cross_entropy_loss(logits, labels.to(dev), smoothing)
+        loss.backward()
+        results.append((loss.item(), torch.cat([p.grad.cpu().flatten()
+                                                for p in model.parameters()])))
+    torch.cuda.synchronize()
+    (loss_k, grad_k), (loss_c, grad_c), (loss_32, grad_32) = results
+    e_loss = abs(loss_k - loss_c) / abs(loss_c)
+    names = [n for n, _ in card.named_parameters()]
+    sizes = [p.numel() for p in card.parameters()]
+    # each gradient's max abs error over its largest magnitude, floored at
+    # 1e-2 of the model's largest gradient as the CPU tests against the JAX
+    # package floor it in bf16: the key biases' gradients are zero up to
+    # rounding, and bf16's rounding is 2^16 times f32's
+    floor = 1e-2 * grad_c.abs().max().item()
+
+    def readings(grad):
+        whole = ((grad - grad_c).norm() / grad_c.norm()).item()
+        leaves = {n: (a - b).abs().max().item() / max(b.abs().max().item(), floor)
+                  for n, a, b in zip(names, grad.split(sizes), grad_c.split(sizes))}
+        return whole, leaves
+
+    (diff, leaves_k), (gap, leaves_32) = readings(grad_k), readings(grad_32)
+    worst_k = max(leaves_k, key=leaves_k.get)
+    worst_32 = max(leaves_32, key=leaves_32.get)
+    limit_whole = BF16_CPU_GAP_SHARE * gap
+    print(f"  bf16 micro-step at dropout 0 on {BF16_CPU_ROWS} windows, card kernels vs the CPU "
+          f"(twins): loss {loss_k:.6f} vs {loss_c:.6f} (rel err {e_loss:.3e}, tol "
+          f"{BF16_CPU_LOSS_TOL}; f32 {loss_32:.6f}); the whole gradient norm-wise {diff:.3e} "
+          f"(tol {limit_whole:.3e}, {BF16_CPU_GAP_SHARE} of the f32 control's {gap:.3e}); worst "
+          f"gradient {worst_k} max-abs rel {leaves_k[worst_k]:.3e} (tol {BF16_CPU_LEAF_TOL}; "
+          f"the f32 control's worst {worst_32} {leaves_32[worst_32]:.3e})", flush=True)
+    for n in sorted(leaves_k, key=leaves_k.get)[-3:]:
+        print(f"    {n}: card {leaves_k[n]:.3e}, f32 control {leaves_32[n]:.3e}", flush=True)
+    print(f"  the CPU's f32 model as a card that left out bf16's roundings: refused by the "
+          f"whole-gradient gate {gap > limit_whole}", flush=True)
+    if e_loss > BF16_CPU_LOSS_TOL or diff > limit_whole or leaves_k[worst_k] > BF16_CPU_LEAF_TOL:
+        raise AssertionError("bf16 micro-step: the card disagrees with the CPU")
+    if not gap > limit_whole:
+        raise AssertionError("bf16 micro-step: the gate does not refuse the f32 control")
+
+
+def bf16_phase(torch, kernels, split, batches, train_idx, smi, workdir: Path, f32_times):
+    """config/base.yaml at mixed_precision=true (the bf16 entries of rows 1,
+    2 and 12-15): served against the bf16 plain path (4 bf16 packed forwards
+    and 1 head a request, no f32 attention entry), trained (one micro-step
+    against the plain path and one against the CPU, 8 counted micro-steps,
+    the same seed twice bit for bit), fit for FIT_EPOCHS epochs, the
+    checkpoint reloaded bit for bit and evaluated; every time beside the f32
+    path's of this run (``f32_times``). Returns the launches by path."""
+    print("[bf16]", flush=True)
+    overrides = ["mixed_precision=true"]
+    idx64 = [torch.from_numpy(row).long() for row in batches]
+    idx32 = [torch.from_numpy(row).long() for row in train_idx]
+    per_step = len(split.modalities)
+    out = {}
+    out["serve"], model, p50 = serve_vs_plain(
+        torch, kernels, overrides, split, idx64, "bf16", smi,
+        {"packed_attention_fwd_bf16": per_step, "fused_hybrid_head": 1}, timed=20, bf16=True)
+    served = serve_profile(torch, model, split, idx64, "bf16")
+    print(f"  bf16 request: p50 {p50 * 1e3:.3f} ms, {served['device']:.4f} ms device time; f32 "
+          f"in this run: p50 {f32_times['serve_p50'] * 1e3:.3f} ms, "
+          f"{f32_times['serve_device']:.4f} ms on {smi}", flush=True)
+    del model
+    micro_step_vs_plain(torch, split, idx32[0], overrides, "bf16", bf16=True)
+    bf16_step_vs_cpu(torch, split, idx32[0])
+    torch.cuda.reset_peak_memory_stats()
+    trainer = _trainer(torch, overrides)
+    step, losses, launches = counted_steps(torch, kernels, trainer, split, idx32, TRAIN_STEPS)
+    want = {**dict.fromkeys(kernels, 0), "dropout_keep_mask": TRAIN_STEPS * per_step,
+            **{f"{k}_bf16": TRAIN_STEPS * per_step for k in ENCODER_KERNELS
+               if k != "dropout_keep_mask"}}
+    print(f"  bf16: {TRAIN_STEPS} micro-steps, {trainer.optimizer.count} updates; losses "
+          f"{[round(v, 5) for v in losses]}", flush=True)
+    print(f"  launches: {launches} (want {want})", flush=True)
+    if launches != want:
+        raise AssertionError(f"bf16 training launch counts {launches} != {want}")
+    out["train"] = launches
+    _step2, losses2, _l2 = counted_steps(torch, kernels, _trainer(torch, overrides), split, idx32,
+                                         TRAIN_STEPS)
+    print(f"  same seed again: losses bit-identical: {losses2 == losses}", flush=True)
+    if losses2 != losses:
+        raise AssertionError(f"bf16: the same seed gave other losses: {losses} then {losses2}")
+    del _step2
+    p50 = step_p50(torch, step, split, idx32, len(idx32[0]), "bf16", smi)
+    device = profile_micro_steps(torch, step, split, idx32, 8)["device"]
+    print(f"  bf16 micro-step: p50 {p50 * 1e3:.3f} ms, {device:.4f} ms device time; f32 in this "
+          f"run: p50 {f32_times['train_p50'] * 1e3:.3f} ms, {f32_times['train_device']:.4f} ms "
+          f"on {smi}", flush=True)
+    del trainer, step
+    torch.cuda.empty_cache()
+    out["fit"], out["eval"] = fit_and_eval_phase(torch, kernels, smi, workdir, bf16=True)
+    return out
 
 
 def main() -> int:
@@ -3254,6 +3735,9 @@ def main() -> int:
     rows.insert(1, check_attention_bwd(torch, attn, train_lengths))
     train_rows = train_batch * int(cfg.dataset.chunk_size)
     rows += check_ln_kernels(torch, mlp, train_rows)
+    rows += check_bf16_attention(torch, attn, lengths0, train_lengths)
+    rows += check_bf16_ln(torch, mlp, train_rows)
+    torch.cuda.empty_cache()
     rows += check_fused_mlp(torch, mlp, train_rows)
     rows.append(check_dropout_mask(torch, mlp, train_rows))
     stride = int(cfg.dataset.window_stride)
@@ -3286,6 +3770,8 @@ def main() -> int:
         "grouped_gru_fused": rnn.grouped_gru_fused,
         "lstm_train_fwd": rnn.lstm_train_fwd, "lstm_train_bwd": rnn.lstm_train_bwd,
         "gru_train_fwd": rnn.gru_train_fwd, "gru_train_bwd": rnn.gru_train_bwd,
+        **{name: getattr(attn if name.startswith("packed") else mlp, name)
+           for name in BF16_KERNELS},
     }
 
     # ---- 3. serve: the main path ----------------------------------------------
@@ -3357,7 +3843,8 @@ def main() -> int:
 
     # ---- 4. train: the second main path --------------------------------------
     print("[train]", flush=True)
-    train_launches, mlp_launches = train_phase(torch, kernels, split, train_idx, smi)
+    train_launches, mlp_launches, f32_times = train_phase(torch, kernels, split, train_idx, smi)
+    f32_times.update(serve_p50=p50, serve_device=served["device"])
 
     # ---- 5./6. fit, checkpoint, evaluate --------------------------------------
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -3387,6 +3874,10 @@ def main() -> int:
                                        Path(tmp))
         cnn_launches = cnn_phase(torch, kernels, split, idx_matrix, train_idx, test, smi,
                                  Path(tmp))
+    # ---- 13. bf16: mixed_precision through the bf16 entries ----------------------
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        bf16_launches = bf16_phase(torch, kernels, split, idx_matrix, train_idx, smi, Path(tmp),
+                                   f32_times)
     rnn_paths = {  # the path each recurrence kernel runs on
         "grouped_lstm_forward": rnn_launches["forward_lstm512"],
         "grouped_lstm_fused": rnn_launches["serve_lstm512"],
@@ -3409,6 +3900,8 @@ def main() -> int:
         name = row["name"]
         if name in ("packed_attention_fwd", "fused_hybrid_head"):
             path = serve_launches
+        elif name in BF16_KERNELS:
+            path = bf16_launches["serve" if name == "packed_attention_fwd_bf16" else "train"]
         elif name in ("fused_mlp_fwd", "fused_mlp_bwd"):
             path = mlp_launches
         elif name in flash_paths:
@@ -3427,6 +3920,7 @@ def main() -> int:
         row["c5_launches"] = {k: v[name] for k, v in c5_launches.items()}
         row["fusion_launches"] = {k: v[name] for k, v in fusion_launches.items()}
         row["cnn_launches"] = {k: v[name] for k, v in cnn_launches.items()}
+        row["bf16_launches"] = {k: v[name] for k, v in bf16_launches.items()}
         if row["launches"] <= 0:
             raise AssertionError(f"kernel {name} was not launched on its main path")
     print(f"[done] {time.perf_counter() - t0:.1f} s", flush=True)

@@ -31,14 +31,18 @@ class StackedPairAttention(nn.Module):
     embeddings ``[M, B, H]``; outputs are the per-pair attended features
     ``[P, B, H]`` and the per-pair attention weights ``[P, B, heads, 1, 1]``
     (pooled embeddings are length-1 sequences). In train mode the pair
-    weights take dropout, as in the reference.
+    weights take dropout, as in the reference. With ``dtype`` bfloat16 the
+    stacked weights and the input are cast to bf16 and every product,
+    bias and score is rounded to bf16, as the reference computes them; the
+    softmax runs in f32.
     """
 
     def __init__(
         self, num_modalities: int, hidden_dim: int = 256, num_heads: int = 4,
-        dropout: float = 0.1,
+        dropout: float = 0.1, dtype: Optional[torch.dtype] = None,
     ):
         super().__init__()
+        self.dtype = dtype
         self.num_modalities = num_modalities
         self.dropout = dropout
         self.hidden_dim = hidden_dim
@@ -68,13 +72,21 @@ class StackedPairAttention(nn.Module):
                 stacked.new_zeros((0, batch, self.hidden_dim)),
                 stacked.new_zeros((0, batch, self.num_heads, 1, 1)),
             )
+        params = {name: (getattr(self, f"{name}_kernel"), getattr(self, f"{name}_bias"))
+                  for name in ("query", "key", "value", "out")}
+        if self.dtype is not None:  # params stored f32, computed in bf16
+            params = {n: (w.to(self.dtype), b.to(self.dtype)) for n, (w, b) in params.items()}
+            stacked = stacked.to(self.dtype)
+
+        def project(x, name):
+            w, b = params[name]
+            return torch.einsum("pbh,phk->pbk", x, w) + b[:, None, :]
+
         q_idx = torch.tensor([p[0] for p in self.pairs], device=stacked.device)
         k_idx = torch.tensor([p[1] for p in self.pairs], device=stacked.device)
         q_in = stacked.index_select(0, q_idx)  # [P, B, H]
         k_in = stacked.index_select(0, k_idx)
-        q = torch.einsum("pbh,phk->pbk", q_in, self.query_kernel) + self.query_bias[:, None, :]
-        k = torch.einsum("pbh,phk->pbk", k_in, self.key_kernel) + self.key_bias[:, None, :]
-        v = torch.einsum("pbh,phk->pbk", k_in, self.value_kernel) + self.value_bias[:, None, :]
+        q, k, v = project(q_in, "query"), project(k_in, "key"), project(k_in, "value")
         qh = q.reshape(num_pairs, batch, self.num_heads, head_dim)
         kh = k.reshape(num_pairs, batch, self.num_heads, head_dim)
         scores = (qh * kh).sum(-1) * head_dim**-0.5  # [P, B, heads]
@@ -83,6 +95,5 @@ class StackedPairAttention(nn.Module):
         weights = masked_softmax(scores[..., None], key_mask[:, :, None, None], dim=-1)
         weights = dropout(weights, self.dropout, train, generator)
         attended = weights * v.reshape(num_pairs, batch, self.num_heads, head_dim)
-        attended = attended.reshape(num_pairs, batch, self.hidden_dim)
-        attended = torch.einsum("pbh,phk->pbk", attended, self.out_kernel) + self.out_bias[:, None, :]
+        attended = project(attended.reshape(num_pairs, batch, self.hidden_dim), "out")
         return attended, weights[..., None]

@@ -59,6 +59,20 @@ and leaves them as they were, as the reference discards its
 ``mutable=["batch_stats"]`` update there. The convolutions are plain
 ``conv1d`` (XLA's in the reference, no kernel there either).
 
+Every encoder but the recurrent ones takes the reference's ``dtype``
+(``mixed_precision`` sets bfloat16 on each; ``resolve_dtype``): parameters
+stay f32 and are cast where they are used, and the reference's roundings
+are kept one product at a time. A dense layer in bf16 (``dense``) rounds its
+product to bf16 and then adds the bf16 bias, rounding again, as flax's
+``nn.Dense`` does; the transformer layer's out-projection and feed-forward
+products round to bf16 and go on in f32 (residuals and LayerNorm statistics
+f32, each half's output rounded to bf16); on the kernel routes the bf16
+entries of ``ops.attention`` and ``ops.mlp`` take the same roundings (each
+op picks its entries by its operands' type; the flash routes take f32 copies
+of bf16 q, k and v). BatchNorm statistics
+stay f32. ``RNNStack`` and its projection ignore ``dtype``, as the
+reference's ``_RNNStack`` does.
+
 ``build_encoder`` raises ``NotImplementedError`` for a per-encoder key of the
 reference that the port does not run (``_UNPORTED_KEYS``) set to anything but
 its default.
@@ -101,8 +115,38 @@ _UNPORTED_KEYS = {
     "moe_experts": (lambda v: int(v or 0) > 0, 8),
     "pipeline_parallel": (lambda v: int(v or 1) > 1, 11),
     "sequence_parallel": (bool, 11),
-    "dtype": (lambda v: v is not None and str(v).lower() not in ("float32", "torch.float32"), 7),
 }
+
+
+def resolve_dtype(value) -> Optional[torch.dtype]:
+    """An encoder's or head's compute type from its config value: None for
+    float32 (the default: full f32, the layers themselves), bfloat16 for
+    ``bfloat16``; anything else raises."""
+    if value is None or value == torch.float32 or str(value).lower() in ("float32",
+                                                                         "torch.float32"):
+        return None
+    if value == torch.bfloat16 or str(value).lower() in ("bfloat16", "torch.bfloat16"):
+        return torch.bfloat16
+    raise ValueError(f"Unknown compute dtype {value!r}; expected float32 or bfloat16")
+
+
+def dense(layer: nn.Linear, x: torch.Tensor, dtype: Optional[torch.dtype]) -> torch.Tensor:
+    """flax ``nn.Dense(dtype=...)``: the layer itself in f32 (``dtype``
+    None); in bf16 the input, weight and bias cast to bf16, the product
+    rounded to bf16, then the bias added in bf16, a second rounding, as the
+    reference computes it (``F.linear`` with a bias would round once)."""
+    if dtype is None:
+        return layer(x)
+    return torch.matmul(x.to(dtype), layer.weight.to(dtype).t()) + layer.bias.to(dtype)
+
+
+def product_f32(layer: nn.Linear, x: torch.Tensor, dtype: Optional[torch.dtype]) -> torch.Tensor:
+    """The transformer layer's ``einsum(x.astype(cd), w.astype(cd)).astype(f32)
+    + b``: the layer itself in f32 (``dtype`` None); in bf16 the product of
+    the bf16 input and weight rounded to bf16, then the f32 bias added in f32."""
+    if dtype is None:
+        return layer(x)
+    return torch.matmul(x.to(dtype), layer.weight.to(dtype).t()).float() + layer.bias
 
 
 def resolve_dropout_rng(value, device_type: str, kernels_on: bool = True) -> str:
@@ -149,13 +193,10 @@ def lecun_normal_(tensor: torch.Tensor, fan_in: int, generator: torch.Generator)
         )
 
 
-def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, eps: float = 1e-6):
-    """flax LayerNorm over the last dim: float32 statistics, fast variance."""
-    return ln_rows(x.float(), weight, bias, eps)[0].to(x.dtype)
-
-
 class LayerNorm(nn.Module):
-    """``flax.linen.LayerNorm`` defaults (eps 1e-6, fast variance)."""
+    """``flax.linen.LayerNorm`` defaults (eps 1e-6, fast variance); its
+    output takes the wider of the input's and the parameters' types (f32 on
+    a bf16 input), as flax promotes them."""
 
     def __init__(self, dim: int, eps: float = 1e-6):
         super().__init__()
@@ -164,7 +205,8 @@ class LayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(dim))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return layer_norm(x, self.weight, self.bias, self.eps)
+        out_dtype = torch.promote_types(x.dtype, self.weight.dtype)
+        return ln_rows(x.float(), self.weight, self.bias, self.eps)[0].to(out_dtype)
 
 
 class MaskedBatchNorm(nn.Module):
@@ -219,7 +261,8 @@ class MaskedBatchNorm(nn.Module):
 
 class TransformerEncoderLayer(nn.Module):
     """Post-LN transformer encoder layer (reference ``_TransformerEncoderLayer``,
-    dense non-MoE path), eval and train mode."""
+    dense non-MoE path), eval and train mode; in bf16 with ``dtype``
+    (module docstring)."""
 
     def __init__(
         self,
@@ -231,8 +274,10 @@ class TransformerEncoderLayer(nn.Module):
         use_fused_mlp: bool = False,
         use_fused_mlp_ln: bool = False,
         dropout_rng: str = "auto",
+        dtype: Optional[torch.dtype] = None,
     ):
         super().__init__()
+        self.dtype = dtype
         if hidden_dim % num_heads:
             raise ValueError(f"hidden_dim {hidden_dim} not divisible by num_heads {num_heads}")
         self.hidden_dim = hidden_dim
@@ -257,7 +302,10 @@ class TransformerEncoderLayer(nn.Module):
         # one [H, 3H] projection: q | k | v packed along the minor dim
         w_qkv = torch.cat([self.q_proj.weight, self.k_proj.weight, self.v_proj.weight], 0)
         b_qkv = torch.cat([self.q_proj.bias, self.k_proj.bias, self.v_proj.bias], 0)
-        qkv = F.linear(x, w_qkv, b_qkv)  # [B, T, 3H]
+        if self.dtype is None:
+            qkv = F.linear(x, w_qkv, b_qkv)  # [B, T, 3H]
+        else:  # the product rounded to bf16, then the bias added in bf16
+            qkv = torch.matmul(x, w_qkv.to(self.dtype).t()) + b_qkv.to(self.dtype)
         qkv5 = qkv.reshape(batch, seq_len, 3, self.num_heads, head_dim)
         if self.use_flash and attention_route(head_dim) == "kernel":
             # suffix padding -> the valid keys are a prefix; mask == lengths
@@ -266,10 +314,12 @@ class TransformerEncoderLayer(nn.Module):
                 if key_padding_mask is not None
                 else None
             )
+            # f32 out either way (bf16 on the packed route reads bf16 qkv,
+            # the flash routes f32 copies), rounded to the layer's type
             if packed_route_ok(seq_len, self.num_heads, head_dim):
-                return flash_mha_packed(qkv, lengths, num_heads=self.num_heads)
+                return flash_mha_packed(qkv, lengths, num_heads=self.num_heads).to(x.dtype)
             q, k, v = (qkv5[:, :, i].transpose(1, 2) for i in range(3))  # [B, H, T, d]
-            attended = flash_self_attention(q, k, v, lengths)
+            attended = flash_self_attention(q, k, v, lengths).to(x.dtype)
             return attended.transpose(1, 2).reshape(batch, seq_len, self.hidden_dim)
         q, k, v = qkv5[:, :, 0], qkv5[:, :, 1], qkv5[:, :, 2]
         scores = torch.einsum("bqhd,bkhd->bhqk", q, k) * head_dim**-0.5
@@ -288,8 +338,16 @@ class TransformerEncoderLayer(nn.Module):
     ) -> torch.Tensor:
         batch, seq_len, hidden = x.shape
         rows = batch * seq_len
+        dt = self.dtype
         kernels = self.use_fused_mlp and train and mlp_route(hidden) == "kernel"
         fused = kernels and self.use_fused_mlp_ln
+        if kernels and dt is not None and not self.use_fused_mlp_ln:
+            # before any launch: the reference rounds the hidden to bf16
+            # inside the fused_mlp pair (pallas_mlp.py _fwd_kernel,
+            # _bwd_kernel), so its f32 entries would compute another function
+            raise NotImplementedError(
+                "mixed_precision on the fused_mlp pair (fused_mlp=true, fused_mlp_ln=false) is "
+                "not ported yet (ROADMAP queue A item 7b)")
         keep_prob = 1.0 - self.dropout
         drop = train and self.dropout > 0.0
         source = resolve_dropout_rng(
@@ -319,11 +377,11 @@ class TransformerEncoderLayer(nn.Module):
                 self.out_proj.weight.t(), self.out_proj.bias, self.norm1.weight,
                 self.norm1.bias, res_mask=att_mask, keep_prob=keep_prob,
             ).reshape(batch, seq_len, hidden)
-        else:
-            y = self.out_proj(attended)
+        else:  # in bf16 the product rounded, the bias, dropout and LayerNorm in f32
+            y = product_f32(self.out_proj, attended, dt)
             if att_mask is not None:
                 y = drop_where(att_mask, y)
-            x = self.norm1(x + y)
+            x = self.norm1(x.float() + y).to(x.dtype)
         if fused:
             return fused_mlp_residual_ln(
                 x.reshape(rows, hidden), self.linear1.weight.t(), self.linear1.bias,
@@ -339,14 +397,14 @@ class TransformerEncoderLayer(nn.Module):
                 {"kernel": self.linear2.weight.t(), "bias": self.linear2.bias},
                 keep_mask=ffw_mask, keep_prob=keep_prob, use_fused=True,
             )
-        else:
-            h = torch.relu(self.linear1(x))
+        else:  # the reference's XLA branch: in bf16 each product rounded, the output too
+            h = torch.relu(product_f32(self.linear1, x, dt))
             if ffw_mask is not None:
                 h = drop_where(ffw_mask, h)
-            ff = self.linear2(h)
+            ff = product_f32(self.linear2, h, dt).to(x.dtype)
         if res_mask is not None:
             ff = drop_where(res_mask, ff)
-        return self.norm2(x + ff)
+        return self.norm2(x.float() + ff.float()).to(x.dtype)
 
 
 class RNNStack(nn.Module):
@@ -416,6 +474,7 @@ class SequenceEncoder(nn.Module):
         fused_mlp: bool = False,
         fused_mlp_ln: bool = False,
         dropout_rng: str = "auto",
+        dtype=None,
     ):
         super().__init__()
         if encoder_type not in ("lstm", "gru", "cnn", "transformer"):
@@ -425,6 +484,8 @@ class SequenceEncoder(nn.Module):
         self.encoder_type = encoder_type
         self.hidden_dim = hidden_dim
         self.dropout = dropout
+        # the recurrent branch ignores it, as the reference's _RNNStack does
+        self.dtype = resolve_dtype(dtype) if encoder_type in ("cnn", "transformer") else None
         if encoder_type in ("lstm", "gru"):
             self.rnn = RNNStack(input_dim, hidden_dim, num_layers, encoder_type, dropout)
             self.projection = nn.Linear(hidden_dim, output_dim)
@@ -442,7 +503,7 @@ class SequenceEncoder(nn.Module):
             TransformerEncoderLayer(
                 hidden_dim, nhead, use_flash=flash_attention, dropout=dropout,
                 use_fused_mlp=fused_mlp, use_fused_mlp_ln=fused_mlp_ln,
-                dropout_rng=dropout_rng,
+                dropout_rng=dropout_rng, dtype=self.dtype,
             )
             for _ in range(num_layers)
         )
@@ -463,6 +524,7 @@ class SequenceEncoder(nn.Module):
             final_state = self.rnn(sequence, lengths=lengths, train=train, generator=generator)
             return self.projection(dropout(final_state, self.dropout, train, generator))
         seq_len = sequence.shape[1]
+        dt = self.dtype
         if self.encoder_type == "cnn":
             mask = lengths_to_mask(lengths, seq_len) if lengths is not None else None
             x = sequence.transpose(1, 2)  # [B, C, T] through both blocks
@@ -471,20 +533,25 @@ class SequenceEncoder(nn.Module):
                 # zero the padded tail first
                 x = x * mask[:, None, :]
             for conv, norm in ((self.conv0, self.bn0), (self.conv1, self.bn1)):
-                x = torch.relu(norm(conv(x), mask, train))
+                if dt is None:
+                    y = conv(x)
+                else:  # the convolution rounded to bf16, then the bias added in bf16
+                    y = F.conv1d(x.to(dt), conv.weight.to(dt), padding=1)
+                    y = y + conv.bias.to(dt)[:, None]
+                x = torch.relu(norm(y, mask, train))
                 if mask is not None:
-                    x = x * mask[:, None, :]
+                    x = x * mask[:, None, :].to(x.dtype)
             if mask is None:
                 pooled = x.mean(dim=2)
             else:  # the tail is zero: the masked mean is the sum over the valid steps
-                pooled = x.sum(dim=2) / mask.sum(dim=1, keepdim=True).clamp(min=1.0)
-            return self.projection(dropout(pooled, self.dropout, train, generator))
-        x = self.input_projection(sequence)
+                pooled = x.sum(dim=2) / mask.to(x.dtype).sum(dim=1, keepdim=True).clamp(min=1.0)
+            return dense(self.projection, dropout(pooled, self.dropout, train, generator), dt)
+        x = dense(self.input_projection, sequence, dt)
         valid_mask = lengths_to_mask(lengths, seq_len) if lengths is not None else None
         for layer in self.layers:
             x = layer(x, key_padding_mask=valid_mask, train=train, generator=generator)
         pooled = masked_mean_pool(x, valid_mask, dim=1, min_denom=1.0)
-        return self.projection(dropout(pooled, self.dropout, train, generator))
+        return dense(self.projection, dropout(pooled, self.dropout, train, generator), dt)
 
 
 class FrameEncoder(nn.Module):
@@ -494,10 +561,11 @@ class FrameEncoder(nn.Module):
     then ``nan_to_num``)."""
 
     def __init__(self, input_dim: int, hidden_dim: int = 256, output_dim: int = 128,
-                 temporal_pooling: str = "attention", dropout: float = 0.1):
+                 temporal_pooling: str = "attention", dropout: float = 0.1, dtype=None):
         super().__init__()
         if temporal_pooling not in ("attention", "average", "max"):
             raise ValueError(f"Unknown pooling: {temporal_pooling}")
+        self.dtype = resolve_dtype(dtype)
         self.temporal_pooling = temporal_pooling
         self.dropout = dropout
         self.frame_processor = nn.Linear(input_dim, hidden_dim)
@@ -515,12 +583,13 @@ class FrameEncoder(nn.Module):
     ) -> torch.Tensor:
         if frames.dim() != 3:
             raise ValueError(f"Expected 3D frame tensor, got shape {tuple(frames.shape)}")
-        processed = dropout(torch.relu(self.frame_processor(frames)), self.dropout, train,
-                            generator)
+        dt = self.dtype
+        processed = dropout(torch.relu(dense(self.frame_processor, frames, dt)), self.dropout,
+                            train, generator)
         if mask is not None:
             mask = mask.to(processed.dtype)
         if self.temporal_pooling == "attention":
-            scores = self.attention(processed)  # [B, T, 1]
+            scores = dense(self.attention, processed, dt)  # [B, T, 1]
             weights = masked_softmax(scores, mask[..., None] if mask is not None else None, dim=1)
             pooled = (weights * processed).sum(dim=1)
         elif self.temporal_pooling == "average":
@@ -530,8 +599,9 @@ class FrameEncoder(nn.Module):
         else:
             pooled = nan_to_num(torch.where(mask[..., None] == 0, float("-inf"),
                                             processed).amax(dim=1))
-        x = dropout(torch.relu(self.proj_hidden(pooled)), self.dropout, train, generator)
-        return self.proj_out(x)
+        x = dropout(torch.relu(dense(self.proj_hidden, pooled, dt)), self.dropout, train,
+                    generator)
+        return dense(self.proj_out, x, dt)
 
 
 class SimpleMLPEncoder(nn.Module):
@@ -540,8 +610,10 @@ class SimpleMLPEncoder(nn.Module):
     momentum 0.9, eps 1e-5, the fast variance), ReLU, dropout; then Dense."""
 
     def __init__(self, input_dim: int, hidden_dim: int = 256, output_dim: int = 128,
-                 num_layers: int = 2, dropout: float = 0.1, batch_norm: bool = True):
+                 num_layers: int = 2, dropout: float = 0.1, batch_norm: bool = True,
+                 dtype=None):
         super().__init__()
+        self.dtype = resolve_dtype(dtype)
         self.num_layers = num_layers
         self.dropout = dropout
         self.batch_norm = batch_norm
@@ -562,11 +634,11 @@ class SimpleMLPEncoder(nn.Module):
             raise ValueError(f"Expected 2D feature tensor, got shape {tuple(features.shape)}")
         x = features
         for idx in range(self.num_layers):
-            x = getattr(self, f"dense{idx}")(x)
+            x = dense(getattr(self, f"dense{idx}"), x, self.dtype)
             if self.batch_norm:
                 x = getattr(self, f"bn{idx}")(x, train=train)
             x = dropout(torch.relu(x), self.dropout, train, generator)
-        return self.out(x)
+        return dense(self.out, x, self.dtype)
 
 
 def build_encoder(

@@ -20,7 +20,11 @@ train mode, with the reference's error strings:
 
 The reference computes the early, late and uncertainty heads with plain
 Dense layers outside any kernel; here they are ``nn.Linear``. Serving runs
-the fused head kernel for ``HybridFusion`` only (``serving.py``).
+the fused head kernel for ``HybridFusion`` only (``serving.py``). Each head
+takes the reference's ``dtype`` (bfloat16 under ``mixed_precision``): its
+dense layers round as flax's bf16 ``nn.Dense`` (``encoders.dense``), the
+masks keep the features' f32, and bf16 meets f32 where the reference's
+type promotion takes it to f32; the model casts the logits to f32.
 """
 
 from __future__ import annotations
@@ -32,7 +36,7 @@ from torch import nn
 
 from ..ops.masked import adaptive_gate_weights, mask_renormalize
 from .attention import StackedPairAttention, ordered_pairs
-from .encoders import dropout
+from .encoders import dense, dropout
 
 _FUSION_TYPES = ("early", "late", "hybrid", "uncertainty")
 
@@ -64,10 +68,12 @@ class EarlyFusion(nn.Module):
         hidden_dim: int = 256,
         num_classes: int = 11,
         dropout: float = 0.1,
+        dtype: Optional[torch.dtype] = None,
     ):
         super().__init__()
         self.modality_names = tuple(modality_names)
         self.dropout = dropout
+        self.dtype = dtype
         self.fc0 = nn.Linear(sum(int(input_dims[n]) for n in self.modality_names), hidden_dim)
         self.fc1 = nn.Linear(hidden_dim, hidden_dim)
         self.head = nn.Linear(hidden_dim, num_classes)
@@ -83,18 +89,19 @@ class EarlyFusion(nn.Module):
         mask = _checked_mask("EarlyFusion", names, modality_features, modality_mask, two_d=True)
         x = torch.cat([modality_features[n] * mask[:, i : i + 1] for i, n in enumerate(names)],
                       dim=1)
-        x = dropout(torch.relu(self.fc0(x)), self.dropout, train, generator)
-        x = dropout(torch.relu(self.fc1(x)), self.dropout, train, generator)
-        return self.head(x)
+        x = dropout(torch.relu(dense(self.fc0, x, self.dtype)), self.dropout, train, generator)
+        x = dropout(torch.relu(dense(self.fc1, x, self.dtype)), self.dropout, train, generator)
+        return dense(self.head, x, self.dtype)
 
 
 class _PerModalityClassifiers(nn.Module):
     """The classifier per modality that late and uncertainty fusion share."""
 
-    def __init__(self, modality_names, input_dims, hidden_dim, num_classes, dropout):
+    def __init__(self, modality_names, input_dims, hidden_dim, num_classes, dropout, dtype):
         super().__init__()
         self.modality_names = tuple(modality_names)
         self.dropout = dropout
+        self.dtype = dtype
         for name in self.modality_names:
             self.add_module(f"cls_{name}_fc", nn.Linear(int(input_dims[name]), hidden_dim))
             self.add_module(f"cls_{name}_head", nn.Linear(hidden_dim, num_classes))
@@ -106,10 +113,10 @@ class _PerModalityClassifiers(nn.Module):
         logits, hidden = {}, {}
         for idx, name in enumerate(self.modality_names):
             masked = features[name] * mask[:, idx : idx + 1]
-            h = torch.relu(getattr(self, f"cls_{name}_fc")(
-                dropout(masked, self.dropout, train, generator)))
-            logits[name] = getattr(self, f"cls_{name}_head")(
-                dropout(h, self.dropout, train, generator))
+            h = torch.relu(dense(getattr(self, f"cls_{name}_fc"),
+                                 dropout(masked, self.dropout, train, generator), self.dtype))
+            logits[name] = dense(getattr(self, f"cls_{name}_head"),
+                                 dropout(h, self.dropout, train, generator), self.dtype)
             hidden[name] = h
         return mask, logits, hidden
 
@@ -124,8 +131,9 @@ class LateFusion(_PerModalityClassifiers):
         hidden_dim: int = 256,
         num_classes: int = 11,
         dropout: float = 0.1,
+        dtype: Optional[torch.dtype] = None,
     ):
-        super().__init__(modality_names, input_dims, hidden_dim, num_classes, dropout)
+        super().__init__(modality_names, input_dims, hidden_dim, num_classes, dropout, dtype)
         self.weight_logits = nn.Parameter(torch.zeros(len(self.modality_names)))
 
     def forward(
@@ -154,8 +162,9 @@ class UncertaintyFusion(_PerModalityClassifiers):
         hidden_dim: int = 256,
         num_classes: int = 11,
         dropout: float = 0.1,
+        dtype: Optional[torch.dtype] = None,
     ):
-        super().__init__(modality_names, input_dims, hidden_dim, num_classes, dropout)
+        super().__init__(modality_names, input_dims, hidden_dim, num_classes, dropout, dtype)
         for name in self.modality_names:
             self.add_module(f"unc_{name}_head", nn.Linear(hidden_dim, 1))
 
@@ -172,7 +181,8 @@ class UncertaintyFusion(_PerModalityClassifiers):
         stacked = torch.stack([per_modality[n] for n in names], dim=1)  # [B, M, C]
         # a bounded log-variance keeps exp(-log_var) finite
         log_var = torch.stack([
-            getattr(self, f"unc_{n}_head")(hidden[n])[:, 0].clamp(-6.0, 6.0) for n in names
+            dense(getattr(self, f"unc_{n}_head"), hidden[n], self.dtype)[:, 0].clamp(-6.0, 6.0)
+            for n in names
         ], dim=1)
         weights = mask_renormalize(torch.exp(-log_var) * mask, mask, len(names),
                                    fallback="proportional", dim=1)
@@ -190,15 +200,17 @@ class HybridFusion(nn.Module):
         num_classes: int = 11,
         num_heads: int = 4,
         dropout: float = 0.1,
+        dtype: Optional[torch.dtype] = None,
     ):
         super().__init__()
         self.modality_names = tuple(modality_names)
         self.dropout = dropout
+        self.dtype = dtype
         names = self.modality_names
         self.projections = nn.ModuleDict(
             {name: nn.Linear(int(input_dims[name]), hidden_dim) for name in names}
         )
-        self.pairs = StackedPairAttention(len(names), hidden_dim, num_heads, dropout)
+        self.pairs = StackedPairAttention(len(names), hidden_dim, num_heads, dropout, dtype)
         self.gates = nn.ModuleDict({name: nn.Linear(hidden_dim, 1) for name in names})
         self.classifier_hidden = nn.Linear(hidden_dim, hidden_dim)
         self.classifier_out = nn.Linear(hidden_dim, num_classes)
@@ -219,7 +231,8 @@ class HybridFusion(nn.Module):
         projected = []
         for idx, name in enumerate(names):
             feats = modality_features[name] * modality_mask[:, idx : idx + 1]
-            x = self.projections[name](dropout(feats, self.dropout, train, generator))
+            x = dense(self.projections[name], dropout(feats, self.dropout, train, generator),
+                      self.dtype)
             projected.append(dropout(torch.relu(x), self.dropout, train, generator))
         stacked = torch.stack(projected, dim=0)  # [M, B, H]
 
@@ -238,8 +251,9 @@ class HybridFusion(nn.Module):
             {name: agg[i] for i, name in enumerate(names)}, modality_mask
         )
         fused = (agg.transpose(0, 1) * fusion_weights[..., None]).sum(dim=1)
-        hidden = torch.relu(self.classifier_hidden(fused))
-        logits = self.classifier_out(dropout(hidden, self.dropout, train, generator))
+        hidden = torch.relu(dense(self.classifier_hidden, fused, self.dtype))
+        logits = dense(self.classifier_out, dropout(hidden, self.dropout, train, generator),
+                       self.dtype)
         if return_attention:
             attention_maps = {
                 f"{names[qi]}_to_{names[ki]}": pair_weights[p] for p, (qi, ki) in enumerate(pairs)
@@ -259,7 +273,7 @@ class HybridFusion(nn.Module):
         for name in self.modality_names:
             if name not in modality_features:
                 raise KeyError(f"Missing aggregated features for modality '{name}'.")
-            scores.append(self.gates[name](modality_features[name]))
+            scores.append(dense(self.gates[name], modality_features[name], self.dtype))
         score_tensor = torch.cat(scores, dim=1)  # [B, M]
         mask = modality_mask.to(score_tensor.dtype)
         return adaptive_gate_weights(score_tensor, mask, len(self.modality_names), dim=1)
@@ -272,14 +286,16 @@ def build_fusion_model(
     hidden_dim: int = 256,
     num_heads: int = 4,
     dropout: float = 0.1,
+    dtype: Optional[torch.dtype] = None,
 ) -> nn.Module:
     """Factory mirroring the reference's ``build_fusion_model``;
     ``modality_dims`` keys define the modality order; ``num_heads`` is the
-    hybrid head's only."""
+    hybrid head's only; ``dtype`` the compute type (None: f32)."""
     if fusion_type not in _FUSION_TYPES:
         raise ValueError(f"Unknown fusion type: {fusion_type}")
     names = tuple(modality_dims.keys())
     if fusion_type == "hybrid":
-        return HybridFusion(names, modality_dims, hidden_dim, num_classes, num_heads, dropout)
+        return HybridFusion(names, modality_dims, hidden_dim, num_classes, num_heads, dropout,
+                            dtype)
     head = {"early": EarlyFusion, "late": LateFusion, "uncertainty": UncertaintyFusion}
-    return head[fusion_type](names, modality_dims, hidden_dim, num_classes, dropout)
+    return head[fusion_type](names, modality_dims, hidden_dim, num_classes, dropout, dtype)

@@ -11,8 +11,11 @@ projection as one G-batched product whose ``x_proj [T, G, B, gates*H]`` feeds
 and one backward kernel launch for the group); otherwise the recurrence is the
 plain loop ``ops.rnn.rnn_scan``, which autograd differentiates. Dropout sits
 on the final state on every route and draws from the caller's generator in
-the same order, so the kernel and plain routes get the same masks.
-``mixed_precision`` is not ported.
+the same order, so the kernel and plain routes get the same masks. Under
+``mixed_precision`` it runs in f32: the reference switches its recurrence
+to bf16 only on a TPU backend, so its function off the TPU, which the tests
+hold the port to, is the f32 one; the TPU branch is queued (ROADMAP queue A
+item 7b).
 
 ``GroupedTransformerEncoder`` (G same-signature per-modality
 transformer stacks evaluated as one pass over a leading group axis),

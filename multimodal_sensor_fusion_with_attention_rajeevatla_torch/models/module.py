@@ -15,6 +15,11 @@ per-modality LayerNorm (``ln_<m>``, flax defaults), then the fusion head of
 ``forward`` return the logits alone: the late and uncertainty heads'
 ``(logits, per_modality_logits)`` is cut to its first item, as the reference
 does.
+With ``mixed_precision`` (the reference's end-to-end bf16) every encoder
+takes ``dtype: bfloat16`` unless its config sets its own, the fusion head
+computes in bf16 and the logits come back in f32; parameters stay f32.
+The recurrent encoders run in f32 as the reference's do off the TPU, and a
+grouped transformer under bf16 is not ported (ROADMAP queue A item 7b).
 Weights come from ``init_parameters`` (a seeded ``torch.Generator``, the
 reference's initialisers) or from a converted flax checkpoint
 (``convert.from_flax_variables``). ``train=True`` runs the training forward:
@@ -115,13 +120,19 @@ class MultimodalFusionModel(nn.Module):
         grouped_encoders: bool = True,
         grouped_transformer: bool = False,
         pallas_rnn: bool = False,
+        mixed_precision: bool = False,
     ):
         super().__init__()
         self.modalities = tuple(modalities)
         self.fusion_type = fusion_type
         self.output_dim = output_dim
         self.num_classes = num_classes
+        self.mixed_precision = mixed_precision
+        compute_dtype = torch.bfloat16 if mixed_precision else None
         configs = {k: dict(v) for k, v in dict(encoder_configs).items()}
+        if mixed_precision:
+            for cfg in configs.values():
+                cfg.setdefault("dtype", "bfloat16")
         # per-modality input widths: a missing grouped modality is zero-filled
         # at its own width, not the template's
         self._grouped_dims = {
@@ -147,6 +158,10 @@ class MultimodalFusionModel(nn.Module):
         self.grouped_tf_encoder = None
         if grouped_encoders and grouped_transformer:
             tf_names, shared = groupable_transformer_modalities(self.modalities, configs)
+            if tf_names and mixed_precision:
+                raise NotImplementedError(
+                    "model.grouped_transformer under mixed_precision is not ported yet "
+                    "(ROADMAP queue A item 7b)")
             if tf_names:
                 self.grouped_tf_names = tuple(tf_names)
                 self.grouped_tf_encoder = GroupedTransformerEncoder(
@@ -183,6 +198,7 @@ class MultimodalFusionModel(nn.Module):
             hidden_dim=hidden_dim,
             num_heads=num_heads,
             dropout=dropout,
+            dtype=compute_dtype,
         )
 
     @staticmethod
@@ -267,15 +283,18 @@ class MultimodalFusionModel(nn.Module):
     ):
         """Fusion head over pre-encoded embeddings -> logits, or
         ``(logits, attention_info)`` with ``return_attention`` (hybrid only).
-        A head's tuple output (late, uncertainty) gives its logits."""
+        A head's tuple output (late, uncertainty) gives its logits; under
+        ``mixed_precision`` they come back in f32, as losses and metrics
+        take them."""
         if return_attention:
             if self.fusion_type != "hybrid":
                 raise ValueError("Attention information is only available for HybridFusion.")
-            return self.fusion_model(
+            logits, info = self.fusion_model(
                 encoded, mask, train=train, generator=generator, return_attention=True
             )
+            return logits.float(), info
         output = self.fusion_model(encoded, mask, train=train, generator=generator)
-        return output[0] if isinstance(output, tuple) else output
+        return (output[0] if isinstance(output, tuple) else output).float()
 
     def forward(
         self,
@@ -310,7 +329,6 @@ class MultimodalFusionModel(nn.Module):
         dataset_cfg = config.dataset
         modalities = tuple(dataset_cfg.modalities)
         unsupported = {
-            "mixed_precision": bool(config.get("mixed_precision", False)),
             "model.moe_experts": int(model_cfg.get("moe_experts", 0) or 0) > 0,
             "parallel.pipeline_parallel": int(
                 (config.get("parallel", {}) or {}).get("pipeline_parallel", 1) or 1
@@ -359,6 +377,7 @@ class MultimodalFusionModel(nn.Module):
             grouped_encoders=bool(model_cfg.get("grouped_encoders", True)),
             grouped_transformer=bool(model_cfg.get("grouped_transformer", False)),
             pallas_rnn=pallas_rnn,
+            mixed_precision=bool(config.get("mixed_precision", False)),
         )
         if generator is None:
             generator = torch.Generator().manual_seed(int(config.get("seed", 0) or 0))

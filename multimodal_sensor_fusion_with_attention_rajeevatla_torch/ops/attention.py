@@ -34,13 +34,26 @@ routes chosen by the padded length). Five kernels, one wrapper each:
   ``flash_delta`` (``rowsum(dout * out)``, plain XLA in the reference) is a
   small kernel of that source run before either route.
 
-Every kernel of the port takes and gives f32; the reference's bf16 streams
-on a TPU have no counterpart. All seven attention kernels take each f32
-product as three TF32 tensor-core products (``csrc/tf32_mma.cuh``), which
-keeps f32's accuracy, on tiles staged by ``cp.async``: one body for the
-packed and both flash forwards (``csrc/attention_fwd.cuh``), one for the
-packed, the fused and the split dk/dv backward, beside the split dq's
-(``csrc/attention_bwd.cuh``). The split pair does seven products where the
+All seven attention kernels take each f32 product as three TF32
+tensor-core products (``csrc/tf32_mma.cuh``), which keeps f32's accuracy, on
+tiles staged by ``cp.async``: one body for the packed and both flash
+forwards (``csrc/attention_fwd.cuh``), one for the packed, the fused and the
+split dk/dv backward, beside the split dq's (``csrc/attention_bwd.cuh``).
+
+**bf16 (``mixed_precision``).** The packed pair has bf16-operand entries,
+``packed_attention_fwd_bf16`` and ``packed_attention_bwd_bf16``, the same
+bodies with q, k and v read as bf16 (half the bytes): a product of two bf16
+operands (q k^T) is exact in one TF32 product, one of a bf16 and an f32
+operand (p v, dout v^T, ds q, ds k) takes two, and p^T dout, both f32,
+three. They compute the reference's tested function (its interpret path
+casts a bf16 qkv to f32 before the kernel): the f32 kernel's arithmetic on
+the bf16 values, ``out`` and ``lse`` in f32, and ``dqkv`` rounded to bf16
+(the cast's VJP). The TPU kernel also rounds p to bf16; the port does not.
+The entry is picked by the operands' type: ``flash_mha_packed`` and
+``PackedAttention`` run the bf16 entries for a bfloat16 ``qkv``;
+``flash_self_attention`` (the flash routes, T > 512) casts bf16 q, k and v
+to f32 copies for its f32 kernels, which is the reference's function there
+too (its interpret path pins f32). The split pair does seven products where the
 fused route does five: on the H100 its bound is 1.67 + 1.25 ms at ``[128,
 2048, 64]`` against the fused route's 2.08 (165 TFLOP/s, a third of the
 TF32 peak).
@@ -161,12 +174,46 @@ def packed_attention_reference(
     return out, lse[..., 0].transpose(1, 2).contiguous()
 
 
-def _kernel_fn():
+def _dtype_name(dtype: torch.dtype) -> str:
+    return str(dtype).split(".")[-1]
+
+
+def _packed_fwd(wrapper, symbol: str, dtype: torch.dtype, reference, qkv, lengths,
+                num_heads: int, sm_scale: float):
+    """The body of both forward entries: checks, then one launch of
+    ``symbol`` of ``csrc/packed_attention.cu``, counted on ``wrapper``."""
+    head_dim = _check_packed(qkv, lengths, num_heads)
+    if qkv.device.type == "cpu":
+        return reference(qkv, lengths, num_heads, sm_scale)
+    if qkv.device.type != "cuda":
+        raise ValueError(f"unsupported device {qkv.device}")
+    if qkv.dtype != dtype or lengths.dtype != torch.int32:
+        raise TypeError(f"kernel takes {_dtype_name(dtype)} qkv and int32 lengths, got "
+                        f"{qkv.dtype} and {lengths.dtype}")
+    if not (qkv.is_contiguous() and lengths.is_contiguous()):
+        raise ValueError("qkv and lengths must be contiguous")
+    if head_dim not in KERNEL_HEAD_DIMS:
+        raise ValueError(
+            f"kernel supports head_dim in {KERNEL_HEAD_DIMS}, got {head_dim}"
+        )
+    batch, seq, three_f = qkv.shape
+    out = torch.empty((batch, seq, three_f // 3), device=qkv.device, dtype=torch.float32)
+    lse = torch.empty((batch, seq, num_heads), device=qkv.device, dtype=torch.float32)
+    if batch == 0 or seq == 0:
+        return out, lse
     lib = _build.library("packed_attention")
-    fn = lib.msfa_packed_attention_fwd
+    fn = getattr(lib, symbol)
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    return lib, fn
+    with torch.cuda.device(qkv.device):
+        code = fn(
+            qkv.data_ptr(), lengths.data_ptr(), out.data_ptr(), lse.data_ptr(),
+            batch, seq, num_heads, head_dim, float(sm_scale),
+            torch.cuda.current_stream(qkv.device).cuda_stream,
+        )
+    _build.check(lib, code, wrapper.__name__)
+    wrapper.launches += 1
+    return out, lse
 
 
 def packed_attention_fwd(
@@ -179,36 +226,8 @@ def packed_attention_fwd(
     ``packed_attention_reference``. ``packed_attention_fwd.launches`` counts
     kernel launches.
     """
-    head_dim = _check_packed(qkv, lengths, num_heads)
-    if qkv.device.type == "cpu":
-        return packed_attention_reference(qkv, lengths, num_heads, sm_scale)
-    if qkv.device.type != "cuda":
-        raise ValueError(f"unsupported device {qkv.device}")
-    if qkv.dtype != torch.float32 or lengths.dtype != torch.int32:
-        raise TypeError(
-            f"kernel takes float32 qkv and int32 lengths, got {qkv.dtype} and {lengths.dtype}"
-        )
-    if not (qkv.is_contiguous() and lengths.is_contiguous()):
-        raise ValueError("qkv and lengths must be contiguous")
-    if head_dim not in KERNEL_HEAD_DIMS:
-        raise ValueError(
-            f"kernel supports head_dim in {KERNEL_HEAD_DIMS}, got {head_dim}"
-        )
-    batch, seq, three_f = qkv.shape
-    out = torch.empty((batch, seq, three_f // 3), device=qkv.device, dtype=torch.float32)
-    lse = torch.empty((batch, seq, num_heads), device=qkv.device, dtype=torch.float32)
-    if batch == 0 or seq == 0:
-        return out, lse
-    lib, fn = _kernel_fn()
-    with torch.cuda.device(qkv.device):
-        code = fn(
-            qkv.data_ptr(), lengths.data_ptr(), out.data_ptr(), lse.data_ptr(),
-            batch, seq, num_heads, head_dim, float(sm_scale),
-            torch.cuda.current_stream(qkv.device).cuda_stream,
-        )
-    _build.check(lib, code, "packed_attention_fwd")
-    packed_attention_fwd.launches += 1
-    return out, lse
+    return _packed_fwd(packed_attention_fwd, "msfa_packed_attention_fwd", torch.float32,
+                       packed_attention_reference, qkv, lengths, num_heads, sm_scale)
 
 
 packed_attention_fwd.launches = 0
@@ -253,15 +272,59 @@ def packed_attention_bwd_reference(
     return dqkv.permute(0, 3, 2, 1, 4).reshape(batch, seq, three_f)
 
 
-def _bwd_kernel_fn():
+def _packed_bwd(wrapper, symbol: str, dtype: torch.dtype, reference, qkv, lengths, out, lse,
+                dout, num_heads: int, sm_scale: float):
+    """The body of both backward entries: checks, then one launch of
+    ``symbol`` of ``csrc/packed_attention_bwd.cu``, counted on ``wrapper``;
+    ``dqkv`` in ``qkv``'s type."""
+    head_dim = _check_packed(qkv, lengths, num_heads)
+    batch, seq, three_f = qkv.shape
+    expected = {"out": (batch, seq, three_f // 3), "dout": (batch, seq, three_f // 3),
+                "lse": (batch, seq, num_heads)}
+    tensors = {"out": out, "dout": dout, "lse": lse}
+    for name, shape in expected.items():
+        if tuple(tensors[name].shape) != shape:
+            raise ValueError(f"{name} must have shape {shape}, got {tuple(tensors[name].shape)}")
+        if tensors[name].device != qkv.device:
+            raise ValueError(f"{name} is on {tensors[name].device}, qkv on {qkv.device}")
+    if qkv.device.type == "cpu":
+        return reference(qkv, lengths, out, lse, dout, num_heads, sm_scale)
+    if qkv.device.type != "cuda":
+        raise ValueError(f"unsupported device {qkv.device}")
+    tensors["qkv"] = qkv
+    for name, t in tensors.items():
+        want = dtype if name == "qkv" else torch.float32
+        if t.dtype != want:
+            raise TypeError(f"kernel takes {_dtype_name(want)} {name}, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if lengths.dtype != torch.int32 or not lengths.is_contiguous():
+        raise TypeError(f"kernel takes contiguous int32 lengths, got {lengths.dtype}")
+    if head_dim not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"kernel supports head_dim in {KERNEL_HEAD_DIMS}, got {head_dim}")
+    dqkv = torch.empty_like(qkv)
+    if batch == 0 or seq == 0:
+        return dqkv
     lib = _build.library("packed_attention_bwd")
-    fn = lib.msfa_packed_attention_bwd
+    fn = getattr(lib, symbol)
     fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    scratch = lib.msfa_packed_attention_bwd_scratch
-    scratch.argtypes = [ctypes.c_int] * 4
-    scratch.restype = ctypes.c_longlong
-    return lib, fn, scratch
+    scratch_floats = lib.msfa_packed_attention_bwd_scratch
+    scratch_floats.argtypes = [ctypes.c_int] * 4
+    scratch_floats.restype = ctypes.c_longlong
+    # delta [B, T, H] and the per-key-tile dq partials the kernel sums in order
+    scratch = torch.empty(scratch_floats(batch, seq, num_heads, head_dim), device=qkv.device,
+                          dtype=torch.float32)
+    with torch.cuda.device(qkv.device):
+        code = fn(
+            qkv.data_ptr(), lengths.data_ptr(), out.data_ptr(), lse.data_ptr(),
+            dout.data_ptr(), scratch.data_ptr(), dqkv.data_ptr(),
+            batch, seq, num_heads, head_dim, float(sm_scale),
+            torch.cuda.current_stream(qkv.device).cuda_stream,
+        )
+    _build.check(lib, code, wrapper.__name__)
+    wrapper.launches += 1
+    return dqkv
 
 
 def packed_attention_bwd(
@@ -281,61 +344,83 @@ def packed_attention_bwd(
     ``packed_attention_bwd_reference``. ``packed_attention_bwd.launches``
     counts kernel launches.
     """
-    head_dim = _check_packed(qkv, lengths, num_heads)
-    batch, seq, three_f = qkv.shape
-    expected = {"out": (batch, seq, three_f // 3), "dout": (batch, seq, three_f // 3),
-                "lse": (batch, seq, num_heads)}
-    tensors = {"out": out, "dout": dout, "lse": lse}
-    for name, shape in expected.items():
-        if tuple(tensors[name].shape) != shape:
-            raise ValueError(f"{name} must have shape {shape}, got {tuple(tensors[name].shape)}")
-        if tensors[name].device != qkv.device:
-            raise ValueError(f"{name} is on {tensors[name].device}, qkv on {qkv.device}")
-    if qkv.device.type == "cpu":
-        return packed_attention_bwd_reference(qkv, lengths, out, lse, dout, num_heads, sm_scale)
-    if qkv.device.type != "cuda":
-        raise ValueError(f"unsupported device {qkv.device}")
-    tensors["qkv"] = qkv
-    for name, t in tensors.items():
-        if t.dtype != torch.float32:
-            raise TypeError(f"kernel takes float32 {name}, got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    if lengths.dtype != torch.int32 or not lengths.is_contiguous():
-        raise TypeError(f"kernel takes contiguous int32 lengths, got {lengths.dtype}")
-    if head_dim not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"kernel supports head_dim in {KERNEL_HEAD_DIMS}, got {head_dim}")
-    dqkv = torch.empty_like(qkv)
-    if batch == 0 or seq == 0:
-        return dqkv
-    lib, fn, scratch_floats = _bwd_kernel_fn()
-    # delta [B, T, H] and the per-key-tile dq partials the kernel sums in order
-    scratch = torch.empty(scratch_floats(batch, seq, num_heads, head_dim), device=qkv.device,
-                          dtype=torch.float32)
-    with torch.cuda.device(qkv.device):
-        code = fn(
-            qkv.data_ptr(), lengths.data_ptr(), out.data_ptr(), lse.data_ptr(),
-            dout.data_ptr(), scratch.data_ptr(), dqkv.data_ptr(),
-            batch, seq, num_heads, head_dim, float(sm_scale),
-            torch.cuda.current_stream(qkv.device).cuda_stream,
-        )
-    _build.check(lib, code, "packed_attention_bwd")
-    packed_attention_bwd.launches += 1
-    return dqkv
+    return _packed_bwd(packed_attention_bwd, "msfa_packed_attention_bwd", torch.float32,
+                       packed_attention_bwd_reference, qkv, lengths, out, lse, dout, num_heads,
+                       sm_scale)
 
 
 packed_attention_bwd.launches = 0
 
 
+def packed_attention_bf16_reference(
+    qkv: torch.Tensor, lengths: torch.Tensor, num_heads: int, sm_scale: float
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the bf16 forward entry: the f32 arithmetic of
+    ``packed_attention_reference`` on the bf16 values of ``qkv`` ->
+    ``(out, lse)`` in f32, as the reference's interpret path computes it."""
+    _check_bf16(qkv)
+    return packed_attention_reference(qkv.float(), lengths, num_heads, sm_scale)
+
+
+def packed_attention_bwd_bf16_reference(qkv, lengths, out, lse, dout, num_heads: int,
+                                        sm_scale: float) -> torch.Tensor:
+    """Plain version of the bf16 backward entry: the f32 backward on the bf16
+    values of ``qkv``, ``dqkv`` rounded to bf16 (the VJP of the reference's
+    cast to f32)."""
+    _check_bf16(qkv)
+    return packed_attention_bwd_reference(
+        qkv.float(), lengths, out, lse, dout, num_heads, sm_scale).to(torch.bfloat16)
+
+
+def _check_bf16(qkv: torch.Tensor) -> None:
+    if qkv.dtype != torch.bfloat16:
+        raise TypeError(f"the bf16 entries take bfloat16 qkv, got {qkv.dtype}")
+
+
+def packed_attention_fwd_bf16(
+    qkv: torch.Tensor, lengths: torch.Tensor, num_heads: int, sm_scale: float
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel wrapper, bf16 operands: ``(out [B,T,F], lse [B,T,H])``, both
+    f32, from a bfloat16 packed ``qkv``. CUDA tensors launch the bf16 entry
+    of the packed forward (contiguous, int32 lengths, head_dim in
+    ``KERNEL_HEAD_DIMS``) or raise; CPU tensors take
+    ``packed_attention_bf16_reference``. Counted in
+    ``packed_attention_fwd_bf16.launches``."""
+    return _packed_fwd(packed_attention_fwd_bf16, "msfa_packed_attention_fwd_bf16",
+                       torch.bfloat16, packed_attention_bf16_reference, qkv, lengths, num_heads,
+                       sm_scale)
+
+
+packed_attention_fwd_bf16.launches = 0
+
+
+def packed_attention_bwd_bf16(qkv, lengths, out, lse, dout, num_heads: int,
+                              sm_scale: float) -> torch.Tensor:
+    """Kernel wrapper, bf16 operands: packed ``dqkv [B,T,3F]`` in bfloat16
+    from a bfloat16 ``qkv`` and the forward's f32 ``out`` and ``lse`` and an
+    f32 cotangent ``dout``. CUDA tensors launch the bf16 entry of the packed
+    backward or raise; CPU tensors take
+    ``packed_attention_bwd_bf16_reference``. Counted in
+    ``packed_attention_bwd_bf16.launches``."""
+    return _packed_bwd(packed_attention_bwd_bf16, "msfa_packed_attention_bwd_bf16",
+                       torch.bfloat16, packed_attention_bwd_bf16_reference, qkv, lengths, out,
+                       lse, dout, num_heads, sm_scale)
+
+
+packed_attention_bwd_bf16.launches = 0
+
+
 class PackedAttention(torch.autograd.Function):
     """``out = attention(qkv)`` with the kernel pair as forward and backward
-    (counterpart of the JAX package's custom VJP ``_packed_core``). Saves
-    ``qkv, lengths, out, lse``; returns packed ``dqkv`` and no gradient for
-    the lengths."""
+    (counterpart of the JAX package's custom VJP ``_packed_core``): the f32
+    entries for an f32 ``qkv``, the bf16 entries for a bfloat16 one. Saves
+    ``qkv, lengths, out, lse``; ``out`` is f32 either way; returns packed
+    ``dqkv`` in ``qkv``'s type and no gradient for the lengths."""
 
     @staticmethod
     def forward(ctx, qkv, lengths, num_heads: int, sm_scale: float):
-        out, lse = packed_attention_fwd(qkv, lengths, num_heads, sm_scale)
+        fwd = packed_attention_fwd_bf16 if qkv.dtype == torch.bfloat16 else packed_attention_fwd
+        out, lse = fwd(qkv, lengths, num_heads, sm_scale)
         ctx.save_for_backward(qkv, lengths, out, lse)
         ctx.num_heads, ctx.sm_scale = num_heads, sm_scale
         return out
@@ -343,9 +428,9 @@ class PackedAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         qkv, lengths, out, lse = ctx.saved_tensors
-        dqkv = packed_attention_bwd(
-            qkv, lengths, out, lse, dout.float().contiguous(), ctx.num_heads, ctx.sm_scale
-        )
+        bwd = packed_attention_bwd_bf16 if qkv.dtype == torch.bfloat16 else packed_attention_bwd
+        dqkv = bwd(qkv, lengths, out, lse, dout.float().contiguous(), ctx.num_heads,
+                   ctx.sm_scale)
         return dqkv, None, None, None
 
 
@@ -356,8 +441,10 @@ def flash_mha_packed(
     num_heads: int,
     sm_scale: Optional[float] = None,
 ) -> torch.Tensor:
-    """Attention on the packed qkv layout -> ``[B, T, H*d]``, differentiable
-    through ``PackedAttention`` (the backward kernel gives ``dqkv``).
+    """Attention on the packed qkv layout -> ``[B, T, H*d]`` in f32,
+    differentiable through ``PackedAttention`` (the backward kernel gives
+    ``dqkv``). A bfloat16 ``qkv`` runs the bf16 entries; any other type is
+    cast to f32, as in the reference.
 
     Same contract as the reference's ``flash_mha_packed``: T is padded to a
     multiple of 8 (padded key columns are masked through ``lengths``),
@@ -379,8 +466,9 @@ def flash_mha_packed(
     pad = (-seq_len) % 8
     if pad:
         qkv = torch.nn.functional.pad(qkv, (0, 0, 0, pad))
+    operands = qkv if qkv.dtype == torch.bfloat16 else qkv.float()
     out = PackedAttention.apply(
-        qkv.float().contiguous(), lengths.to(torch.int32).contiguous(), num_heads, float(sm_scale)
+        operands.contiguous(), lengths.to(torch.int32).contiguous(), num_heads, float(sm_scale)
     )
     out = out[:, :seq_len] if pad else out
     if width != head_dim:

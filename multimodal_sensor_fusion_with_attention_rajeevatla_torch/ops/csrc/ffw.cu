@@ -109,7 +109,7 @@ __global__ void __launch_bounds__(DxProduct<D>::kThreads)
 fused_mlp_bwd_dx_kernel(const float* __restrict__ dpre, const float* __restrict__ w1,
                         float* __restrict__ dx, int N, int F) {
   extern __shared__ __align__(16) float smem[];
-  dx_tile<D, false>(dpre, F, w1, dx, N, smem);
+  dx_tile<D, false>(dpre, F, w1, nullptr, dx, N, smem);
 }
 
 // part[split] = A[rows of split]^T B[rows of split] for a 128 x 64 tile of

@@ -1,5 +1,5 @@
 // Fused feed-forward + residual dropout + add + LayerNorm, forward and
-// backward, f32, for Hopper (sm_90a).
+// backward, f32 and bf16 operands, for Hopper (sm_90a).
 //
 // Replaces: multimodal_sensor_fusion_with_attention_rajeevatla_tpu/ops/pallas_mlp.py
 //   _ffw_ln_fwd_kernel and _ffw_ln_bwd_kernel (launched by _ffw_ln_forward /
@@ -48,6 +48,18 @@
 // forward took. Both directions compute the hidden by one kernel with the
 // same arguments, so the backward's hd, and with it every branch, is the
 // forward's bit for bit.
+//
+// bf16 entries (msfa_ffw_ln_fwd_bf16, msfa_ffw_ln_bwd_bf16: mixed_precision).
+// The same kernels at T = bf16, the function of the reference's kernels when
+// x is bf16 (their compute type is x's): x, W1, W2 and dout bf16 and out, dx,
+// dW1, dW2 bf16; b1, b2, gamma, beta and db1, db2, dgamma, dbeta f32. pre
+// sums exact bf16 products in f32; the hidden is rounded to bf16 before W2's
+// product (and kept so in its scratch, half the bytes), dy and dpre before
+// theirs; the residual, the LayerNorm and its backward run in f32, and dr
+// waits in an f32 scratch for dx's product. Every product takes two bf16
+// operands, one TF32 product a k-step where 3xTF32 takes three: the forward's
+// 34.4 GFLOP and the backward's 103 bound at the bf16 tensor-core peak (989
+// TFLOP/s): 0.035 ms and 0.104 ms at the training shape.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -59,37 +71,39 @@ namespace {
 
 using namespace msfa_ffw;
 using namespace msfa_ln;
+using bf16 = __nv_bfloat16;
 
 // hd = relu(x W1 + b1) * fmask * inv_keep for a 128-row x 64-column tile
+template <typename T>
 __global__ void __launch_bounds__(HiddenProduct::kThreads, 2)
-ffw_ln_hidden_kernel(const float* __restrict__ x, const float* __restrict__ w1,
+ffw_ln_hidden_kernel(const T* __restrict__ x, const T* __restrict__ w1,
                      const float* __restrict__ b1, const unsigned char* __restrict__ fmask,
-                     float* __restrict__ hd, int N, int D, int F, float inv_keep) {
+                     T* __restrict__ hd, int N, int D, int F, float inv_keep) {
   extern __shared__ __align__(16) float smem[];
   hidden_tile(x, w1, b1, fmask, hd, N, D, F, inv_keep, smem);
 }
 
 // out = LayerNorm(x + (hd W2 + b2) * rmask * inv_keep) for 64 whole rows
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(LnProduct<D>::kThreads)
-ffw_ln_fwd_kernel(const float* __restrict__ hd, const float* __restrict__ w2,
-                  const float* __restrict__ b2, const float* __restrict__ x,
+ffw_ln_fwd_kernel(const T* __restrict__ hd, const T* __restrict__ w2,
+                  const float* __restrict__ b2, const T* __restrict__ x,
                   const float* __restrict__ gamma, const float* __restrict__ beta,
-                  const unsigned char* __restrict__ rmask, float* __restrict__ out, int N, int F,
+                  const unsigned char* __restrict__ rmask, T* __restrict__ out, int N, int F,
                   int Dv, float inv_keep, float eps) {
   extern __shared__ __align__(16) float smem[];
   ln_fwd_tile<D>(hd, F, w2, b2, x, gamma, beta, rmask, out, N, inv_keep, eps, Dv, smem);
 }
 
 // y = hd W2 + b2 for 64 whole rows, then the LayerNorm backward: dr (into
-// dx), dy, and the block's sums over its rows of dout * xhat | dout | dy
-template <int D>
+// dr_out, f32), dy, and the block's sums over its rows of dout * xhat | dout | dy
+template <int D, typename T>
 __global__ void __launch_bounds__(LnProduct<D>::kThreads)
-ffw_ln_bwd_ln_kernel(const float* __restrict__ hd, const float* __restrict__ w2,
-                     const float* __restrict__ b2, const float* __restrict__ x,
+ffw_ln_bwd_ln_kernel(const T* __restrict__ hd, const T* __restrict__ w2,
+                     const float* __restrict__ b2, const T* __restrict__ x,
                      const float* __restrict__ gamma, const unsigned char* __restrict__ rmask,
-                     const float* __restrict__ dout, float* __restrict__ dr_out,
-                     float* __restrict__ dy_out, float* __restrict__ part, int N, int F,
+                     const T* __restrict__ dout, float* __restrict__ dr_out,
+                     T* __restrict__ dy_out, float* __restrict__ part, int N, int F,
                      int Dv, float inv_keep, float eps) {
   extern __shared__ __align__(16) float smem[];
   ln_bwd_tile<D>(hd, F, w2, b2, x, gamma, rmask, dout, dr_out, dy_out, part, N, inv_keep, eps,
@@ -98,110 +112,119 @@ ffw_ln_bwd_ln_kernel(const float* __restrict__ hd, const float* __restrict__ w2,
 
 // dpre = (hd > 0) * (dy W2^T) * fmask * inv_keep for a 128-row x 64-column
 // tile, and the block's column sums of dpre (db1's partial)
+template <typename T>
 __global__ void __launch_bounds__(DhdProduct::kThreads, 2)
-ffw_ln_bwd_dpre_kernel(const float* __restrict__ dy, const float* __restrict__ w2,
-                       const float* __restrict__ hd, const unsigned char* __restrict__ fmask,
-                       float* __restrict__ dpre, float* __restrict__ part, int N, int D, int F,
+ffw_ln_bwd_dpre_kernel(const T* __restrict__ dy, const T* __restrict__ w2,
+                       const T* __restrict__ hd, const unsigned char* __restrict__ fmask,
+                       T* __restrict__ dpre, float* __restrict__ part, int N, int D, int F,
                        float inv_keep) {
   extern __shared__ __align__(16) float smem[];
   dpre_tile(dy, w2, hd, fmask, dpre, part, N, D, F, inv_keep, smem);
 }
 
-// dx = dr + dpre W1^T for 64 whole rows (dx holds dr on entry)
-template <int D>
+// dx = dr + dpre W1^T for 64 whole rows (dr f32; with f32 dx it is dx itself)
+template <int D, typename T>
 __global__ void __launch_bounds__(DxProduct<D>::kThreads)
-ffw_ln_bwd_dx_kernel(const float* __restrict__ dpre, const float* __restrict__ w1,
-                     float* __restrict__ dx, int N, int F) {
+ffw_ln_bwd_dx_kernel(const T* __restrict__ dpre, const T* __restrict__ w1, const float* dr,
+                     T* dx, int N, int F) {
   extern __shared__ __align__(16) float smem[];
-  dx_tile<D, true>(dpre, F, w1, dx, N, smem);
+  dx_tile<D, true>(dpre, F, w1, dr, dx, N, smem);
 }
 
 // part[split] = A[rows of split]^T B[rows of split] for a 128 x 64 tile of
 // the [M, O] weight gradient (A [N, M], B [N, O] row-major)
+template <typename T>
 __global__ void __launch_bounds__(GradProduct::kThreads, 2)
-ffw_ln_bwd_dw_kernel(const float* __restrict__ A, int M, const float* __restrict__ B, int O,
+ffw_ln_bwd_dw_kernel(const T* __restrict__ A, int M, const T* __restrict__ B, int O,
                      float* __restrict__ part, int N, int rows_per_split) {
   extern __shared__ __align__(16) float smem[];
   grad_tile(A, M, B, O, part, N, rows_per_split, smem);
 }
 
 // out[e] = sum over s of part[s][e], s in order
+template <typename Out>
 __global__ void __launch_bounds__(256)
-ffw_ln_bwd_sum_kernel(const float* __restrict__ part, float* __restrict__ out, int splits,
+ffw_ln_bwd_sum_kernel(const float* __restrict__ part, Out* __restrict__ out, int splits,
                       long width) {
   ordered_sum(part, out, splits, width);
 }
 
-cudaError_t sum_splits(const float* part, float* out, int splits, long width, cudaStream_t s) {
-  ffw_ln_bwd_sum_kernel<<<(unsigned)((width + 255) / 256), 256, 0, s>>>(part, out, splits, width);
+template <typename Out>
+cudaError_t sum_splits(const float* part, Out* out, int splits, long width, cudaStream_t s) {
+  ffw_ln_bwd_sum_kernel<Out><<<(unsigned)((width + 255) / 256), 256, 0, s>>>(part, out, splits,
+                                                                             width);
   return cudaGetLastError();
 }
 
 // the hidden, as both directions take it
-cudaError_t launch_hidden(const float* x, const float* w1, const float* b1,
-                          const unsigned char* fmask, float* hd, int N, int D, int F,
-                          float inv_keep, cudaStream_t s) {
-  const cudaError_t err = allow_smem(ffw_ln_hidden_kernel, HiddenProduct::kSmemFloats);
+template <typename T>
+cudaError_t launch_hidden(const T* x, const T* w1, const float* b1, const unsigned char* fmask,
+                          T* hd, int N, int D, int F, float inv_keep, cudaStream_t s) {
+  using P = HiddenProductOf<T>;
+  const cudaError_t err = allow_smem(ffw_ln_hidden_kernel<T>, P::kSmemFloats);
   if (err != cudaSuccess) return err;
   const dim3 grid(F / kColsF, (N + kRowsF - 1) / kRowsF);
-  ffw_ln_hidden_kernel<<<grid, HiddenProduct::kThreads,
-                         HiddenProduct::kSmemFloats * (int)sizeof(float), s>>>(
+  ffw_ln_hidden_kernel<T><<<grid, P::kThreads, P::kSmemFloats * (int)sizeof(float), s>>>(
       x, w1, b1, fmask, hd, N, D, F, inv_keep);
   return cudaGetLastError();
 }
 
-template <int D>
-int launch_fwd(const float* x, const float* w1, const float* b1, const float* w2,
-               const float* b2, const float* gamma, const float* beta,
-               const unsigned char* fmask, const unsigned char* rmask, float* out, float* hd,
-               int N, int Dv, int F, float inv_keep, float eps, cudaStream_t s) {
-  constexpr int kLnFloats = ln_smem_floats<D>();
-  MSFA_TRY(allow_smem(ffw_ln_fwd_kernel<D>, kLnFloats));
+template <int D, typename T>
+int launch_fwd(const T* x, const T* w1, const float* b1, const T* w2, const float* b2,
+               const float* gamma, const float* beta, const unsigned char* fmask,
+               const unsigned char* rmask, T* out, T* hd, int N, int Dv, int F, float inv_keep,
+               float eps, cudaStream_t s) {
+  constexpr int kLnFloats = ln_smem_floats<D, T>();
+  MSFA_TRY(allow_smem(ffw_ln_fwd_kernel<D, T>, kLnFloats));
   MSFA_TRY(launch_hidden(x, w1, b1, fmask, hd, N, D, F, inv_keep, s));
-  ffw_ln_fwd_kernel<D><<<(N + kRowsD - 1) / kRowsD, LnProduct<D>::kThreads,
-                         kLnFloats * (int)sizeof(float), s>>>(
+  ffw_ln_fwd_kernel<D, T><<<(N + kRowsD - 1) / kRowsD, LnProduct<D>::kThreads,
+                            kLnFloats * (int)sizeof(float), s>>>(
       hd, w2, b2, x, gamma, beta, rmask, out, N, F, Dv, inv_keep, eps);
   MSFA_TRY(cudaGetLastError());
   return 0;
 }
 
-template <int D>
-int launch_bwd(const float* x, const float* w1, const float* b1, const float* w2,
-               const float* b2, const float* gamma, const unsigned char* fmask,
-               const unsigned char* rmask, const float* dout, float* dx, float* dw1,
-               float* db1, float* dw2, float* sums, float* hd, float* dpre, float* dy,
-               float* ln_part, float* db1_part, float* dw_part, int N, int Dv, int F,
-               int splits, float inv_keep, float eps, cudaStream_t s) {
-  constexpr int kLnFloats = ln_smem_floats<D>();
-  MSFA_TRY(allow_smem(ffw_ln_bwd_ln_kernel<D>, kLnFloats));
-  MSFA_TRY(allow_smem(ffw_ln_bwd_dpre_kernel, DhdProduct::kSmemFloats));
-  MSFA_TRY(allow_smem(ffw_ln_bwd_dx_kernel<D>, DxProduct<D>::kSmemFloats));
-  MSFA_TRY(allow_smem(ffw_ln_bwd_dw_kernel, GradProduct::kSmemFloats));
+// dr is f32: dx itself at T = float (dx_tile adds to it in place), its own
+// scratch at T = bf16
+template <int D, typename T>
+int launch_bwd(const T* x, const T* w1, const float* b1, const T* w2, const float* b2,
+               const float* gamma, const unsigned char* fmask, const unsigned char* rmask,
+               const T* dout, T* dx, T* dw1, float* db1, T* dw2, float* sums, T* hd, T* dpre,
+               T* dy, float* dr, float* ln_part, float* db1_part, float* dw_part, int N, int Dv,
+               int F, int splits, float inv_keep, float eps, cudaStream_t s) {
+  using PH = DhdProductOf<T>;
+  using PX = DxProduct<D, T>;
+  using PG = GradProductOf<T>;
+  constexpr int kLnFloats = ln_smem_floats<D, T>();
+  MSFA_TRY(allow_smem(ffw_ln_bwd_ln_kernel<D, T>, kLnFloats));
+  MSFA_TRY(allow_smem(ffw_ln_bwd_dpre_kernel<T>, PH::kSmemFloats));
+  MSFA_TRY(allow_smem(ffw_ln_bwd_dx_kernel<D, T>, PX::kSmemFloats));
+  MSFA_TRY(allow_smem(ffw_ln_bwd_dw_kernel<T>, PG::kSmemFloats));
   const int row_tiles_f = (N + kRowsF - 1) / kRowsF, row_tiles_d = (N + kRowsD - 1) / kRowsD;
   const dim3 grid_f(F / kColsF, row_tiles_f);
   const int fb = (int)sizeof(float);
 
   MSFA_TRY(launch_hidden(x, w1, b1, fmask, hd, N, D, F, inv_keep, s));
-  ffw_ln_bwd_ln_kernel<D><<<row_tiles_d, LnProduct<D>::kThreads, kLnFloats * fb, s>>>(
-      hd, w2, b2, x, gamma, rmask, dout, dx, dy, ln_part, N, F, Dv, inv_keep, eps);
+  ffw_ln_bwd_ln_kernel<D, T><<<row_tiles_d, LnProduct<D>::kThreads, kLnFloats * fb, s>>>(
+      hd, w2, b2, x, gamma, rmask, dout, dr, dy, ln_part, N, F, Dv, inv_keep, eps);
   MSFA_TRY(cudaGetLastError());
-  ffw_ln_bwd_dpre_kernel<<<grid_f, DhdProduct::kThreads, DhdProduct::kSmemFloats * fb, s>>>(
+  ffw_ln_bwd_dpre_kernel<T><<<grid_f, PH::kThreads, PH::kSmemFloats * fb, s>>>(
       dy, w2, hd, fmask, dpre, db1_part, N, D, F, inv_keep);
   MSFA_TRY(cudaGetLastError());
-  ffw_ln_bwd_dx_kernel<D><<<row_tiles_d, DxProduct<D>::kThreads,
-                            DxProduct<D>::kSmemFloats * fb, s>>>(dpre, w1, dx, N, F);
+  ffw_ln_bwd_dx_kernel<D, T><<<row_tiles_d, PX::kThreads, PX::kSmemFloats * fb, s>>>(
+      dpre, w1, dr, dx, N, F);
   MSFA_TRY(cudaGetLastError());
 
   const int per_split = rows_per_split(N, splits);
-  const int dw_bytes = GradProduct::kSmemFloats * fb;
-  ffw_ln_bwd_dw_kernel<<<dim3((F + kGradM - 1) / kGradM, (D + kGradO - 1) / kGradO, splits),
-                         GradProduct::kThreads, dw_bytes, s>>>(hd, F, dy, D, dw_part, N,
-                                                               per_split);  // dW2 = hd^T dy
+  const int dw_bytes = PG::kSmemFloats * fb;
+  ffw_ln_bwd_dw_kernel<T><<<dim3((F + kGradM - 1) / kGradM, (D + kGradO - 1) / kGradO, splits),
+                            PG::kThreads, dw_bytes, s>>>(hd, F, dy, D, dw_part, N,
+                                                         per_split);  // dW2 = hd^T dy
   MSFA_TRY(cudaGetLastError());
   MSFA_TRY(sum_splits(dw_part, dw2, splits, (long)F * D, s));
-  ffw_ln_bwd_dw_kernel<<<dim3((D + kGradM - 1) / kGradM, (F + kGradO - 1) / kGradO, splits),
-                         GradProduct::kThreads, dw_bytes, s>>>(x, D, dpre, F, dw_part, N,
-                                                               per_split);  // dW1 = x^T dpre
+  ffw_ln_bwd_dw_kernel<T><<<dim3((D + kGradM - 1) / kGradM, (F + kGradO - 1) / kGradO, splits),
+                            PG::kThreads, dw_bytes, s>>>(x, D, dpre, F, dw_part, N,
+                                                         per_split);  // dW1 = x^T dpre
   MSFA_TRY(cudaGetLastError());
   MSFA_TRY(sum_splits(dw_part, dw1, splits, (long)D * F, s));
   MSFA_TRY(sum_splits(ln_part, sums, row_tiles_d, 3L * D, s));
@@ -209,19 +232,11 @@ int launch_bwd(const float* x, const float* w1, const float* b1, const float* w2
   return 0;
 }
 
-}  // namespace
-
-extern "C" {
-
-// Widths the kernels are instantiated for (D); the LayerNorm's statistics
-// over the first Dv columns (0 < Dv <= D; x, w1's rows, w2's columns, b2,
-// gamma and beta zero past Dv); F must be a multiple of 64. The wrapper
-// checks before calling. Scratch: hd [N, F], which holds the hidden on return.
-int msfa_ffw_ln_fwd(const float* x, const float* w1, const float* b1, const float* w2,
-                    const float* b2, const float* gamma, const float* beta,
-                    const unsigned char* fmask, const unsigned char* rmask, float* out,
-                    float* hd, int N, int D, int Dv, int F, float inv_keep, float eps,
-                    void* stream) {
+template <typename T>
+int fwd_entry(const T* x, const T* w1, const float* b1, const T* w2, const float* b2,
+              const float* gamma, const float* beta, const unsigned char* fmask,
+              const unsigned char* rmask, T* out, T* hd, int N, int D, int Dv, int F,
+              float inv_keep, float eps, void* stream) {
   if (N <= 0 || F <= 0 || F % kColsF != 0 || Dv <= 0 || Dv > D)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -237,21 +252,18 @@ int msfa_ffw_ln_fwd(const float* x, const float* w1, const float* b1, const floa
 #undef MSFA_FFW_FWD
 }
 
-// sums [3, D] receives dgamma | dbeta | db2; dx is 0 past Dv. Scratch: hd,
-// dpre [N, F], dy [N, D], ln_part [ceil(N/64), 3, D], db1_part [ceil(N/128), F],
-// dw_part [splits, D * F]; hd holds the hidden on return.
-int msfa_ffw_ln_bwd(const float* x, const float* w1, const float* b1, const float* w2,
-                    const float* b2, const float* gamma, const unsigned char* fmask,
-                    const unsigned char* rmask, const float* dout, float* dx, float* dw1,
-                    float* db1, float* dw2, float* sums, float* hd, float* dpre, float* dy,
-                    float* ln_part, float* db1_part, float* dw_part, int N, int D, int Dv,
-                    int F, int splits, float inv_keep, float eps, void* stream) {
+template <typename T>
+int bwd_entry(const T* x, const T* w1, const float* b1, const T* w2, const float* b2,
+              const float* gamma, const unsigned char* fmask, const unsigned char* rmask,
+              const T* dout, T* dx, T* dw1, float* db1, T* dw2, float* sums, T* hd, T* dpre,
+              T* dy, float* dr, float* ln_part, float* db1_part, float* dw_part, int N, int D,
+              int Dv, int F, int splits, float inv_keep, float eps, void* stream) {
   if (N <= 0 || F <= 0 || F % kColsF != 0 || splits <= 0 || Dv <= 0 || Dv > D)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define MSFA_FFW_BWD(W)                                                                  \
-  launch_bwd<W>(x, w1, b1, w2, b2, gamma, fmask, rmask, dout, dx, dw1, db1, dw2, sums,  \
-                hd, dpre, dy, ln_part, db1_part, dw_part, N, Dv, F, splits, inv_keep, eps, s)
+#define MSFA_FFW_BWD(W)                                                                    \
+  launch_bwd<W>(x, w1, b1, w2, b2, gamma, fmask, rmask, dout, dx, dw1, db1, dw2, sums, hd, \
+                dpre, dy, dr, ln_part, db1_part, dw_part, N, Dv, F, splits, inv_keep, eps, s)
   switch (D) {
     case 32: return MSFA_FFW_BWD(32);
     case 64: return MSFA_FFW_BWD(64);
@@ -262,18 +274,17 @@ int msfa_ffw_ln_bwd(const float* x, const float* w1, const float* b1, const floa
 #undef MSFA_FFW_BWD
 }
 
-// Dynamic shared memory per block of the six product kernels (hidden, fwd,
-// ln, dpre, dx, dw) at width D, into bytes[0..5].
-int msfa_ffw_ln_smem_bytes(int D, int* bytes) {
+template <typename T>
+int smem_bytes(int D, int* bytes) {
   const int fb = (int)sizeof(float);
-  bytes[0] = HiddenProduct::kSmemFloats * fb;
-  bytes[3] = DhdProduct::kSmemFloats * fb;
-  bytes[5] = GradProduct::kSmemFloats * fb;
+  bytes[0] = HiddenProductOf<T>::kSmemFloats * fb;
+  bytes[3] = DhdProductOf<T>::kSmemFloats * fb;
+  bytes[5] = GradProductOf<T>::kSmemFloats * fb;
   switch (D) {
 #define MSFA_FFW_SMEM(W)                                  \
   case W:                                                 \
-    bytes[1] = bytes[2] = ln_smem_floats<W>() * fb;       \
-    bytes[4] = DxProduct<W>::kSmemFloats * fb;            \
+    bytes[1] = bytes[2] = ln_smem_floats<W, T>() * fb;    \
+    bytes[4] = DxProduct<W, T>::kSmemFloats * fb;         \
     return 0;
     MSFA_FFW_SMEM(32)
     MSFA_FFW_SMEM(64)
@@ -283,6 +294,66 @@ int msfa_ffw_ln_smem_bytes(int D, int* bytes) {
     default: return (int)cudaErrorInvalidValue;
   }
 }
+
+}  // namespace
+
+extern "C" {
+
+// Widths the kernels are instantiated for (D); the LayerNorm's statistics
+// over the first Dv columns (0 < Dv <= D; x, w1's rows, w2's columns, b2,
+// gamma and beta zero past Dv); F must be a multiple of 64. The wrapper
+// checks before calling. Scratch: hd [N, F], which holds the hidden on return.
+int msfa_ffw_ln_fwd(const float* x, const float* w1, const float* b1, const float* w2,
+                    const float* b2, const float* gamma, const float* beta,
+                    const unsigned char* fmask, const unsigned char* rmask, float* out,
+                    float* hd, int N, int D, int Dv, int F, float inv_keep, float eps,
+                    void* stream) {
+  return fwd_entry(x, w1, b1, w2, b2, gamma, beta, fmask, rmask, out, hd, N, D, Dv, F,
+                   inv_keep, eps, stream);
+}
+
+// The bf16 entry: x, w1, w2, out and the hidden's scratch hd bf16.
+int msfa_ffw_ln_fwd_bf16(const bf16* x, const bf16* w1, const float* b1, const bf16* w2,
+                         const float* b2, const float* gamma, const float* beta,
+                         const unsigned char* fmask, const unsigned char* rmask, bf16* out,
+                         bf16* hd, int N, int D, int Dv, int F, float inv_keep, float eps,
+                         void* stream) {
+  return fwd_entry(x, w1, b1, w2, b2, gamma, beta, fmask, rmask, out, hd, N, D, Dv, F,
+                   inv_keep, eps, stream);
+}
+
+// sums [3, D] receives dgamma | dbeta | db2; dx is 0 past Dv. Scratch: hd,
+// dpre [N, F], dy [N, D], ln_part [ceil(N/64), 3, D], db1_part [ceil(N/128), F],
+// dw_part [splits, D * F]; hd holds the hidden on return.
+int msfa_ffw_ln_bwd(const float* x, const float* w1, const float* b1, const float* w2,
+                    const float* b2, const float* gamma, const unsigned char* fmask,
+                    const unsigned char* rmask, const float* dout, float* dx, float* dw1,
+                    float* db1, float* dw2, float* sums, float* hd, float* dpre, float* dy,
+                    float* ln_part, float* db1_part, float* dw_part, int N, int D, int Dv,
+                    int F, int splits, float inv_keep, float eps, void* stream) {
+  return bwd_entry(x, w1, b1, w2, b2, gamma, fmask, rmask, dout, dx, dw1, db1, dw2, sums, hd,
+                   dpre, dy, dx, ln_part, db1_part, dw_part, N, D, Dv, F, splits, inv_keep,
+                   eps, stream);
+}
+
+// The bf16 entry: x, w1, w2, dout, dx, dw1, dw2 and the scratch hd, dpre, dy
+// bf16; dr [N, D] an f32 scratch.
+int msfa_ffw_ln_bwd_bf16(const bf16* x, const bf16* w1, const float* b1, const bf16* w2,
+                         const float* b2, const float* gamma, const unsigned char* fmask,
+                         const unsigned char* rmask, const bf16* dout, bf16* dx, bf16* dw1,
+                         float* db1, bf16* dw2, float* sums, bf16* hd, bf16* dpre, bf16* dy,
+                         float* dr, float* ln_part, float* db1_part, float* dw_part, int N,
+                         int D, int Dv, int F, int splits, float inv_keep, float eps,
+                         void* stream) {
+  return bwd_entry(x, w1, b1, w2, b2, gamma, fmask, rmask, dout, dx, dw1, db1, dw2, sums, hd,
+                   dpre, dy, dr, ln_part, db1_part, dw_part, N, D, Dv, F, splits, inv_keep,
+                   eps, stream);
+}
+
+// Dynamic shared memory per block of the six product kernels (hidden, fwd,
+// ln, dpre, dx, dw) at width D, into bytes[0..5]; the bf16 entries' beside it.
+int msfa_ffw_ln_smem_bytes(int D, int* bytes) { return smem_bytes<float>(D, bytes); }
+int msfa_ffw_ln_bf16_smem_bytes(int D, int* bytes) { return smem_bytes<bf16>(D, bytes); }
 
 const char* msfa_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -13,6 +13,13 @@
 //                 tile, g = dy (ffw_ln) or dout (ffw), and the block's column
 //                 sums of dpre (db1's partial). hd > 0 is pre > 0 wherever the
 //                 mask keeps the unit; where it drops it, dpre is 0 either way.
+//
+// Both take the activation type T (f32, or bf16 for ffw_ln.cu's bf16 entries):
+// with bf16, x, W1, W2 and g are bf16 operands, hd and dpre are written
+// rounded to bf16 (the products that read them take them so, as the
+// reference's kernel casts them), db1's partial sums the f32 dpre. A
+// positive pre keeps hd > 0 after the rounding (bf16 has f32's exponent
+// range; only a pre below 2^-134 would round to zero).
 
 #pragma once
 
@@ -26,8 +33,12 @@ namespace msfa_ffw {
 namespace tc = msfa_tc;
 
 // [N, F] products over k = D (hidden, dpre): 128 x 64 tiles, 8 warps
-using HiddenProduct = tc::TcProduct<128, 64, 4, 2, false, true>;  // x [n][d] . W1 [d][f]
-using DhdProduct = tc::TcProduct<128, 64, 4, 2, false, false>;    // g [n][d] . (W2 [f][d])^T
+template <typename T = float>  // x [n][d] . W1 [d][f]
+using HiddenProductOf = tc::TcProduct<128, 64, 4, 2, false, true, T, T>;
+template <typename T = float>  // g [n][d] . (W2 [f][d])^T
+using DhdProductOf = tc::TcProduct<128, 64, 4, 2, false, false, T, T>;
+using HiddenProduct = HiddenProductOf<>;
+using DhdProduct = DhdProductOf<>;
 
 constexpr int kRowsF = 128;  // rows of a block in the [N, F] products
 constexpr int kColsF = 64;   // hidden columns of a block in the [N, F] products
@@ -42,17 +53,18 @@ __device__ __forceinline__ float2 keep_scale2(const unsigned char* __restrict__ 
 
 // hd = relu(x W1 + b1) * fmask * inv_keep for the block's tile; blockIdx is
 // (column tile, row tile)
-__device__ __forceinline__ void hidden_tile(const float* __restrict__ x,
-                                            const float* __restrict__ w1,
+template <typename T>
+__device__ __forceinline__ void hidden_tile(const T* __restrict__ x,
+                                            const T* __restrict__ w1,
                                             const float* __restrict__ b1,
                                             const unsigned char* __restrict__ fmask,
-                                            float* __restrict__ hd, int N, int D, int F,
+                                            T* __restrict__ hd, int N, int D, int F,
                                             float inv_keep, float* smem) {
-  using P = HiddenProduct;
+  using P = HiddenProductOf<T>;
   const int f0 = blockIdx.x * kColsF, n0 = blockIdx.y * kRowsF;
-  const P::A a{x + (long)n0 * D, D, N - n0, D};
-  const P::B b{w1 + f0, F, F - f0, D};
-  P::Acc acc;
+  const typename P::A a{x + (long)n0 * D, D, N - n0, D};
+  const typename P::B b{w1 + f0, F, F - f0, D};
+  typename P::Acc acc;
   P::run(a, b, D, smem, acc);
 #pragma unroll
   for (int i = 0; i < P::kMT; ++i)
@@ -66,25 +78,25 @@ __device__ __forceinline__ void hidden_tile(const float* __restrict__ x,
         const long at = (long)n * F + f;
         const float2 fs = keep_scale2(fmask, at, inv_keep);
         const float p0 = acc[i][j][2 * h] + b1[f], p1 = acc[i][j][2 * h + 1] + b1[f + 1];
-        *reinterpret_cast<float2*>(hd + at) =
-            make_float2(fmaxf(p0, 0.f) * fs.x, fmaxf(p1, 0.f) * fs.y);
+        tc::store2(hd + at, fmaxf(p0, 0.f) * fs.x, fmaxf(p1, 0.f) * fs.y);
       }
     }
 }
 
 // dpre = (hd > 0) * (g W2^T) * fmask * inv_keep for the block's tile, and the
 // block's column sums of dpre into part[blockIdx.y][F]
-__device__ __forceinline__ void dpre_tile(const float* __restrict__ g,
-                                          const float* __restrict__ w2,
-                                          const float* __restrict__ hd,
+template <typename T>
+__device__ __forceinline__ void dpre_tile(const T* __restrict__ g,
+                                          const T* __restrict__ w2,
+                                          const T* __restrict__ hd,
                                           const unsigned char* __restrict__ fmask,
-                                          float* __restrict__ dpre, float* __restrict__ part,
+                                          T* __restrict__ dpre, float* __restrict__ part,
                                           int N, int D, int F, float inv_keep, float* smem) {
-  using P = DhdProduct;
+  using P = DhdProductOf<T>;
   const int f0 = blockIdx.x * kColsF, n0 = blockIdx.y * kRowsF;
-  const P::A a{g + (long)n0 * D, D, N - n0, D};
-  const P::B b{w2 + (long)f0 * D, D, F - f0, D};  // (W2^T)(d, f) = W2[f][d]
-  P::Acc acc;
+  const typename P::A a{g + (long)n0 * D, D, N - n0, D};
+  const typename P::B b{w2 + (long)f0 * D, D, F - f0, D};  // (W2^T)(d, f) = W2[f][d]
+  typename P::Acc acc;
   P::run(a, b, D, smem, acc);
   float cs[P::kNT][2];
 #pragma unroll
@@ -99,10 +111,10 @@ __device__ __forceinline__ void dpre_tile(const float* __restrict__ g,
       for (int j = 0; j < P::kNT; ++j) {
         const long at = (long)n * F + f0 + P::col(j, 0);
         const float2 fs = keep_scale2(fmask, at, inv_keep);
-        const float2 h2 = *reinterpret_cast<const float2*>(hd + at);
+        const float2 h2 = tc::load2(hd + at);
         const float d0 = h2.x > 0.f ? acc[i][j][2 * h] * fs.x : 0.f;
         const float d1 = h2.y > 0.f ? acc[i][j][2 * h + 1] * fs.y : 0.f;
-        *reinterpret_cast<float2*>(dpre + at) = make_float2(d0, d1);
+        tc::store2(dpre + at, d0, d1);
         cs[j][0] += d0;
         cs[j][1] += d1;
       }

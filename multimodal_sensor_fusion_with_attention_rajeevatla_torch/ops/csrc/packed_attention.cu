@@ -1,4 +1,5 @@
-// Packed multi-head self-attention forward, f32, for Hopper (sm_90a).
+// Packed multi-head self-attention forward, f32 and bf16 operands, for Hopper
+// (sm_90a).
 //
 // Replaces: multimodal_sensor_fusion_with_attention_rajeevatla_tpu/ops/pallas_attention.py
 //   _packed_fwd_kernel (launched by _packed_forward, reached by flash_mha_packed).
@@ -32,6 +33,17 @@
 // shared round trip, each two 8-key steps of P.V in a fresh accumulator added
 // to O in FP32. Key tiles at or past the row's length are skipped: a length-0
 // row runs no tile and takes the exact-zero branch.
+//
+// bf16 entry (msfa_packed_attention_fwd_bf16, mixed_precision): the same body
+// on a bf16 qkv, out and lse f32, the function the reference computes off the
+// TPU (its interpret path casts a bf16 qkv to f32: the f32 arithmetic on the
+// bf16 values). It reads half the bytes of qkv (50 MB at the serving shape)
+// and takes Q.K^T as one TF32 product (exact on two bf16 operands) and P.V as
+// two (f32 P, bf16 V): 3 of the f32 body's 6 TF32 passes. Its bound: Q.K^T at
+// the bf16 tensor-core peak (989 TFLOP/s), P.V, which has an f32 operand, at
+// the port's f32-class rate (3xTF32, 165 TFLOP/s): 0.0589 ms at the serving
+// shape. The TPU kernel rounds P to bf16 as well; this entry keeps P in f32,
+// as the reference's tested function does.
 
 #include <cuda_runtime.h>
 
@@ -39,9 +51,9 @@
 
 namespace {
 
-template <int D>
+template <int D, typename In>
 __global__ void __launch_bounds__(msfa_tc::kFwdThreads)
-packed_attention_fwd_kernel(const float* __restrict__ qkv, const int* __restrict__ lengths,
+packed_attention_fwd_kernel(const In* __restrict__ qkv, const int* __restrict__ lengths,
                             float* __restrict__ out, float* __restrict__ lse, int T, int H,
                             float sm_scale) {
   extern __shared__ __align__(16) float packed_smem[];
@@ -50,26 +62,40 @@ packed_attention_fwd_kernel(const float* __restrict__ qkv, const int* __restrict
   const int b = blockIdx.z;
   const int F = H * D;
   const long ld = 3L * F;
-  const float* q = qkv + (long)b * T * ld + h * D;
+  const In* q = qkv + (long)b * T * ld + h * D;
   int len = lengths[b];
   len = len < 0 ? 0 : (len > T ? T : len);
-  const msfa_tc::FwdRow row{q,   q + F, q + 2 * F, ld, out + (long)b * T * F + h * D, F,
-                            lse + (long)b * T * H + h, H};
-  msfa_tc::attention_fwd_tile<D>(row, T, len, q0, sm_scale, packed_smem);
+  const msfa_tc::FwdRow<In> row{q,   q + F, q + 2 * F, ld, out + (long)b * T * F + h * D, F,
+                                lse + (long)b * T * H + h, H};
+  msfa_tc::attention_fwd_tile<D, In>(row, T, len, q0, sm_scale, packed_smem);
 }
 
-template <int D>
-int launch(const float* qkv, const int* lengths, float* out, float* lse, int B, int T, int H,
+template <int D, typename In>
+int launch(const In* qkv, const int* lengths, float* out, float* lse, int B, int T, int H,
            float sm_scale, cudaStream_t stream) {
-  const size_t smem = msfa_tc::fwd_smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(packed_attention_fwd_kernel<D>,
+  const size_t smem = msfa_tc::fwd_smem_bytes<D, In>();
+  cudaError_t err = cudaFuncSetAttribute(packed_attention_fwd_kernel<D, In>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   if (H > 65535 || B > 65535) return (int)cudaErrorInvalidValue;
   const dim3 grid((T + msfa_tc::kFwdTileQ - 1) / msfa_tc::kFwdTileQ, H, B);
-  packed_attention_fwd_kernel<D><<<grid, msfa_tc::kFwdThreads, smem, stream>>>(
+  packed_attention_fwd_kernel<D, In><<<grid, msfa_tc::kFwdThreads, smem, stream>>>(
       qkv, lengths, out, lse, T, H, sm_scale);
   return (int)cudaGetLastError();
+}
+
+template <typename In>
+int dispatch(const In* qkv, const int* lengths, float* out, float* lse, int B, int T, int H,
+             int D, float sm_scale, void* stream) {
+  if (B <= 0 || T <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 16: return launch<16>(qkv, lengths, out, lse, B, T, H, sm_scale, s);
+    case 32: return launch<32>(qkv, lengths, out, lse, B, T, H, sm_scale, s);
+    case 64: return launch<64>(qkv, lengths, out, lse, B, T, H, sm_scale, s);
+    case 128: return launch<128>(qkv, lengths, out, lse, B, T, H, sm_scale, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -80,15 +106,14 @@ extern "C" {
 int msfa_packed_attention_fwd(const float* qkv, const int* lengths, float* out,
                               float* lse, int B, int T, int H, int D,
                               float sm_scale, void* stream) {
-  if (B <= 0 || T <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 16: return launch<16>(qkv, lengths, out, lse, B, T, H, sm_scale, s);
-    case 32: return launch<32>(qkv, lengths, out, lse, B, T, H, sm_scale, s);
-    case 64: return launch<64>(qkv, lengths, out, lse, B, T, H, sm_scale, s);
-    case 128: return launch<128>(qkv, lengths, out, lse, B, T, H, sm_scale, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return dispatch(qkv, lengths, out, lse, B, T, H, D, sm_scale, stream);
+}
+
+// The bf16 entry: qkv bf16, out and lse f32.
+int msfa_packed_attention_fwd_bf16(const __nv_bfloat16* qkv, const int* lengths, float* out,
+                                   float* lse, int B, int T, int H, int D, float sm_scale,
+                                   void* stream) {
+  return dispatch(qkv, lengths, out, lse, B, T, H, D, sm_scale, stream);
 }
 
 const char* msfa_cuda_error_string(int code) {

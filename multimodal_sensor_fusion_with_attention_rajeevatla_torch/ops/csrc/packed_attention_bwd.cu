@@ -1,4 +1,5 @@
-// Packed multi-head self-attention backward, f32, for Hopper (sm_90a).
+// Packed multi-head self-attention backward, f32 and bf16 operands, for Hopper
+// (sm_90a).
 //
 // Replaces: multimodal_sensor_fusion_with_attention_rajeevatla_tpu/ops/pallas_attention.py
 //   _packed_bwd_kernel (launched by _packed_backward, the VJP of flash_mha_packed).
@@ -40,6 +41,15 @@
 // No atomics: a run repeats bit for bit. 105 KB of shared memory per block at
 // D = 64, so two blocks fit on an SM. The scratch holds delta [B, T, H] and
 // the partials [B, ceil(T/64), T, F].
+//
+// bf16 entry (msfa_packed_attention_bwd_bf16, mixed_precision): qkv bf16,
+// out, lse and dout f32, dqkv bf16, rounded to nearest even from the f32
+// body's sums (the VJP of the reference's cast of a bf16 qkv to f32). q, k
+// and v are staged as bf16 (89 KB of shared memory at D = 64) and each
+// product drops its bf16 side's lo terms: 11 TF32 passes for the f32 body's
+// 15. Its bound: S^T = K q^T at the bf16 tensor-core peak (989 TFLOP/s), the
+// four products with an f32 operand at the port's f32-class rate (3xTF32,
+// 165 TFLOP/s).
 
 #include <cuda_runtime.h>
 
@@ -68,11 +78,11 @@ __global__ void delta_kernel(const float* __restrict__ out, const float* __restr
   if (i < quads && i % kLanes == 0) delta[i / kLanes] = s;
 }
 
-template <int D>
+template <int D, typename In>
 __global__ void __launch_bounds__(msfa_tc::kBwdThreads)
-bwd_kernel(const float* __restrict__ qkv, const int* __restrict__ lengths,
+bwd_kernel(const In* __restrict__ qkv, const int* __restrict__ lengths,
            const float* __restrict__ lse, const float* __restrict__ delta,
-           const float* __restrict__ dout, float* __restrict__ dqkv,
+           const float* __restrict__ dout, In* __restrict__ dqkv,
            float* __restrict__ dq_part, int T, int H, float sm_scale) {
   extern __shared__ __align__(16) float bwd_smem[];
   const int kt = blockIdx.x;
@@ -81,23 +91,24 @@ bwd_kernel(const float* __restrict__ qkv, const int* __restrict__ lengths,
   const int F = H * D;
   const long ld = 3L * F;
   const long stat = (long)b * T * H + h;
-  const float* q = qkv + (long)b * T * ld + h * D;
-  float* dk = dqkv + (long)b * T * ld + F + h * D;
+  const In* q = qkv + (long)b * T * ld + h * D;
+  In* dk = dqkv + (long)b * T * ld + F + h * D;
   int len = lengths[b];
   len = len < 0 ? 0 : (len > T ? T : len);
-  const msfa_tc::BwdRow row{
+  const msfa_tc::BwdRow<In, In> row{
       q, q + F, q + 2 * F, ld,                                    // q, k, v
       dout + (long)b * T * F + h * D, F,                          // dout
       lse + stat, delta + stat, H,                                // lse, delta
       dk, dk + F, ld,                                             // dk, dv
       dq_part + ((long)b * gridDim.x + kt) * T * F + h * D, F};   // this tile's dq partial
-  msfa_tc::attention_bwd_tile<D>(row, T, len, kt * kTile, sm_scale, bwd_smem);
+  msfa_tc::attention_bwd_tile<D, true, In, In>(row, T, len, kt * kTile, sm_scale, bwd_smem);
 }
 
 // dq[b, t, f] = sm_scale * sum over key tiles kt < ceil(len_b / 64) of
 // dq_part[b, kt, t, f], in order; four floats per thread.
+template <typename Out>
 __global__ void dq_reduce_kernel(const float* __restrict__ dq_part,
-                                 const int* __restrict__ lengths, float* __restrict__ dqkv,
+                                 const int* __restrict__ lengths, Out* __restrict__ dqkv,
                                  int T, int F, int n_kt, float sm_scale, long quads) {
   const long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= quads) return;
@@ -109,9 +120,9 @@ long scratch_floats(int B, int T, int H, int D) {
   return (long)B * T * H + (long)B * n_kt * T * H * D;
 }
 
-template <int D>
-int launch(const float* qkv, const int* lengths, const float* out, const float* lse,
-           const float* dout, float* scratch, float* dqkv, int B, int T, int H,
+template <int D, typename In>
+int launch(const In* qkv, const int* lengths, const float* out, const float* lse,
+           const float* dout, float* scratch, In* dqkv, int B, int T, int H,
            float sm_scale, cudaStream_t stream) {
   const long rows = (long)B * T * H;
   float* delta = scratch;
@@ -122,19 +133,34 @@ int launch(const float* qkv, const int* lengths, const float* out, const float* 
   if (err != cudaSuccess) return (int)err;
 
   const int n_kt = (T + kTile - 1) / kTile;
-  const size_t smem = msfa_tc::BwdLayout<D>::kBytes;
-  err = cudaFuncSetAttribute(bwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  const size_t smem = msfa_tc::BwdLayout<D, In>::kBytes;
+  err = cudaFuncSetAttribute(bwd_kernel<D, In>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
   if (err != cudaSuccess) return (int)err;
   if (H > 65535 || B > 65535) return (int)cudaErrorInvalidValue;
-  bwd_kernel<D><<<dim3(n_kt, H, B), msfa_tc::kBwdThreads, smem, stream>>>(
+  bwd_kernel<D, In><<<dim3(n_kt, H, B), msfa_tc::kBwdThreads, smem, stream>>>(
       qkv, lengths, lse, delta, dout, dqkv, dq_part, T, H, sm_scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
-  dq_reduce_kernel<<<(unsigned)((quads + 255) / 256), 256, 0, stream>>>(
+  dq_reduce_kernel<In><<<(unsigned)((quads + 255) / 256), 256, 0, stream>>>(
       dq_part, lengths, dqkv, T, H * D, n_kt, sm_scale, quads);
   return (int)cudaGetLastError();
+}
+
+template <typename In>
+int dispatch(const In* qkv, const int* lengths, const float* out, const float* lse,
+             const float* dout, float* scratch, In* dqkv, int B, int T, int H, int D,
+             float sm_scale, void* stream) {
+  if (B <= 0 || T <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 16: return launch<16>(qkv, lengths, out, lse, dout, scratch, dqkv, B, T, H, sm_scale, s);
+    case 32: return launch<32>(qkv, lengths, out, lse, dout, scratch, dqkv, B, T, H, sm_scale, s);
+    case 64: return launch<64>(qkv, lengths, out, lse, dout, scratch, dqkv, B, T, H, sm_scale, s);
+    case 128: return launch<128>(qkv, lengths, out, lse, dout, scratch, dqkv, B, T, H, sm_scale, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -152,15 +178,15 @@ int msfa_packed_attention_bwd(const float* qkv, const int* lengths, const float*
                               const float* lse, const float* dout, float* scratch,
                               float* dqkv, int B, int T, int H, int D, float sm_scale,
                               void* stream) {
-  if (B <= 0 || T <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 16: return launch<16>(qkv, lengths, out, lse, dout, scratch, dqkv, B, T, H, sm_scale, s);
-    case 32: return launch<32>(qkv, lengths, out, lse, dout, scratch, dqkv, B, T, H, sm_scale, s);
-    case 64: return launch<64>(qkv, lengths, out, lse, dout, scratch, dqkv, B, T, H, sm_scale, s);
-    case 128: return launch<128>(qkv, lengths, out, lse, dout, scratch, dqkv, B, T, H, sm_scale, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return dispatch(qkv, lengths, out, lse, dout, scratch, dqkv, B, T, H, D, sm_scale, stream);
+}
+
+// The bf16 entry: qkv and dqkv bf16, out, lse and dout f32.
+int msfa_packed_attention_bwd_bf16(const __nv_bfloat16* qkv, const int* lengths,
+                                   const float* out, const float* lse, const float* dout,
+                                   float* scratch, __nv_bfloat16* dqkv, int B, int T, int H,
+                                   int D, float sm_scale, void* stream) {
+  return dispatch(qkv, lengths, out, lse, dout, scratch, dqkv, B, T, H, D, sm_scale, stream);
 }
 
 const char* msfa_cuda_error_string(int code) {

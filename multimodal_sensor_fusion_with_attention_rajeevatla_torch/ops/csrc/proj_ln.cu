@@ -1,5 +1,5 @@
 // Fused out-projection + residual dropout + add + LayerNorm, forward and
-// backward, f32, for Hopper (sm_90a).
+// backward, f32 and bf16 operands, for Hopper (sm_90a).
 //
 // Replaces: multimodal_sensor_fusion_with_attention_rajeevatla_tpu/ops/pallas_mlp.py
 //   _proj_ln_fwd_kernel and _proj_ln_bwd_kernel (launched by _proj_ln_forward /
@@ -37,6 +37,16 @@
 // grid; here every sum across blocks is partials added in a fixed order:
 // deterministic, no atomics. A row past N (the last block's tail) loads
 // zeros, is never written and adds nothing to any sum.
+//
+// bf16 entries (msfa_proj_ln_fwd_bf16, msfa_proj_ln_bwd_bf16: mixed_precision).
+// The same kernels at T = bf16, the function of the reference's kernels when
+// x is bf16: x, a, Wo, dout bf16 and out, dx, da, dWo bf16 (dx = dr rounded,
+// da = dy Wo^T rounded, dy itself rounded before both of its products); bo,
+// gamma, beta and dbo, dgamma, dbeta f32; y, the residual and the LayerNorm
+// in f32. Every product takes two bf16 operands, one TF32 product a k-step.
+// At the training shape bytes bound both directions: the forward moves 29.5
+// MB (0.0088 ms) against 2.15 GFLOP (0.0022 ms at the bf16 peak, 989
+// TFLOP/s), the backward 46.4 MB (0.0138 ms) against 6.44 GFLOP (0.0065 ms).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -45,96 +55,101 @@
 
 namespace {
 
+using bf16 = __nv_bfloat16;
+
 // out = LayerNorm(x + (a Wo + bo) * rmask * inv_keep) for 64 whole rows
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(msfa_ln::LnProduct<D>::kThreads)
-proj_ln_fwd_kernel(const float* __restrict__ x, const float* __restrict__ a,
-                   const float* __restrict__ wo, const float* __restrict__ bo,
-                   const float* __restrict__ gamma, const float* __restrict__ beta,
-                   const unsigned char* __restrict__ rmask, float* __restrict__ out,
-                   int N, int Dv, float inv_keep, float eps) {
+proj_ln_fwd_kernel(const T* __restrict__ x, const T* __restrict__ a, const T* __restrict__ wo,
+                   const float* __restrict__ bo, const float* __restrict__ gamma,
+                   const float* __restrict__ beta, const unsigned char* __restrict__ rmask,
+                   T* __restrict__ out, int N, int Dv, float inv_keep, float eps) {
   extern __shared__ __align__(16) float smem[];
   msfa_ln::ln_fwd_tile<D>(a, D, wo, bo, x, gamma, beta, rmask, out, N, inv_keep, eps, Dv, smem);
 }
 
 // y = a Wo + bo for 64 whole rows, then the LayerNorm backward: dx = dr, dy,
 // and the block's sums over its rows of dout * xhat | dout | dy
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(msfa_ln::LnProduct<D>::kThreads)
-proj_ln_bwd_ln_kernel(const float* __restrict__ a, const float* __restrict__ wo,
-                      const float* __restrict__ bo, const float* __restrict__ x,
+proj_ln_bwd_ln_kernel(const T* __restrict__ a, const T* __restrict__ wo,
+                      const float* __restrict__ bo, const T* __restrict__ x,
                       const float* __restrict__ gamma, const unsigned char* __restrict__ rmask,
-                      const float* __restrict__ dout, float* __restrict__ dx,
-                      float* __restrict__ dy, float* __restrict__ part, int N, int Dv,
-                      float inv_keep, float eps) {
+                      const T* __restrict__ dout, T* __restrict__ dx, T* __restrict__ dy,
+                      float* __restrict__ part, int N, int Dv, float inv_keep, float eps) {
   extern __shared__ __align__(16) float smem[];
   msfa_ln::ln_bwd_tile<D>(a, D, wo, bo, x, gamma, rmask, dout, dx, dy, part, N, inv_keep, eps,
                           Dv, smem);
 }
 
 // da = dy Wo^T for 64 whole rows
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(msfa_ln::DxProduct<D>::kThreads)
-proj_ln_bwd_da_kernel(const float* __restrict__ dy, const float* __restrict__ wo,
-                      float* __restrict__ da, int N) {
+proj_ln_bwd_da_kernel(const T* __restrict__ dy, const T* __restrict__ wo, T* __restrict__ da,
+                      int N) {
   extern __shared__ __align__(16) float smem[];
-  msfa_ln::dx_tile<D, false>(dy, D, wo, da, N, smem);  // (Wo^T)(o, i) = Wo[i][o]
+  msfa_ln::dx_tile<D, false>(dy, D, wo, nullptr, da, N, smem);  // (Wo^T)(o, i) = Wo[i][o]
 }
 
 // part[split] = a[rows of split]^T dy[rows of split] for a 128 x 64 tile of dWo
+template <typename T>
 __global__ void __launch_bounds__(msfa_ln::GradProduct::kThreads, 2)
-proj_ln_bwd_dw_kernel(const float* __restrict__ a, const float* __restrict__ dy,
+proj_ln_bwd_dw_kernel(const T* __restrict__ a, const T* __restrict__ dy,
                       float* __restrict__ part, int N, int D, int rows_per_split) {
   extern __shared__ __align__(16) float smem[];
   msfa_ln::grad_tile(a, D, dy, D, part, N, rows_per_split, smem);
 }
 
 // out[e] = sum over s of part[s][e], s in order
+template <typename Out>
 __global__ void __launch_bounds__(256)
-proj_ln_bwd_sum_kernel(const float* __restrict__ part, float* __restrict__ out, int splits,
+proj_ln_bwd_sum_kernel(const float* __restrict__ part, Out* __restrict__ out, int splits,
                        long width) {
   msfa_ln::ordered_sum(part, out, splits, width);
 }
 
-cudaError_t sum_splits(const float* part, float* out, int splits, long width, cudaStream_t s) {
-  proj_ln_bwd_sum_kernel<<<(unsigned)((width + 255) / 256), 256, 0, s>>>(part, out, splits,
-                                                                          width);
+template <typename Out>
+cudaError_t sum_splits(const float* part, Out* out, int splits, long width, cudaStream_t s) {
+  proj_ln_bwd_sum_kernel<Out><<<(unsigned)((width + 255) / 256), 256, 0, s>>>(part, out, splits,
+                                                                               width);
   return cudaGetLastError();
 }
 
-template <int D>
-int launch_fwd(const float* x, const float* a, const float* wo, const float* bo,
-               const float* gamma, const float* beta, const unsigned char* rmask,
-               float* out, int N, int Dv, float inv_keep, float eps, cudaStream_t s) {
+template <int D, typename T>
+int launch_fwd(const T* x, const T* a, const T* wo, const float* bo, const float* gamma,
+               const float* beta, const unsigned char* rmask, T* out, int N, int Dv,
+               float inv_keep, float eps, cudaStream_t s) {
   using namespace msfa_ln;
-  constexpr int kFloats = ln_smem_floats<D>();
-  MSFA_TRY(allow_smem(proj_ln_fwd_kernel<D>, kFloats));
-  proj_ln_fwd_kernel<D><<<(N + kRowsD - 1) / kRowsD, LnProduct<D>::kThreads,
-                          kFloats * (int)sizeof(float), s>>>(x, a, wo, bo, gamma, beta, rmask,
-                                                             out, N, Dv, inv_keep, eps);
+  constexpr int kFloats = ln_smem_floats<D, T>();
+  MSFA_TRY(allow_smem(proj_ln_fwd_kernel<D, T>, kFloats));
+  proj_ln_fwd_kernel<D, T><<<(N + kRowsD - 1) / kRowsD, LnProduct<D>::kThreads,
+                             kFloats * (int)sizeof(float), s>>>(x, a, wo, bo, gamma, beta, rmask,
+                                                                out, N, Dv, inv_keep, eps);
   return (int)cudaGetLastError();
 }
 
-template <int D>
-int launch_bwd(const float* x, const float* a, const float* wo, const float* bo,
-               const float* gamma, const unsigned char* rmask, const float* dout, float* dx,
-               float* da, float* dwo, float* sums, float* dy, float* ln_part, float* dw_part,
-               int N, int Dv, int splits, float inv_keep, float eps, cudaStream_t s) {
+template <int D, typename T>
+int launch_bwd(const T* x, const T* a, const T* wo, const float* bo, const float* gamma,
+               const unsigned char* rmask, const T* dout, T* dx, T* da, T* dwo, float* sums,
+               T* dy, float* ln_part, float* dw_part, int N, int Dv, int splits, float inv_keep,
+               float eps, cudaStream_t s) {
   using namespace msfa_ln;
-  constexpr int kLnFloats = ln_smem_floats<D>();
-  MSFA_TRY(allow_smem(proj_ln_bwd_ln_kernel<D>, kLnFloats));
-  MSFA_TRY(allow_smem(proj_ln_bwd_da_kernel<D>, DxProduct<D>::kSmemFloats));
-  MSFA_TRY(allow_smem(proj_ln_bwd_dw_kernel, GradProduct::kSmemFloats));
+  using PX = DxProduct<D, T>;
+  using PG = GradProductOf<T>;
+  constexpr int kLnFloats = ln_smem_floats<D, T>();
+  MSFA_TRY(allow_smem(proj_ln_bwd_ln_kernel<D, T>, kLnFloats));
+  MSFA_TRY(allow_smem(proj_ln_bwd_da_kernel<D, T>, PX::kSmemFloats));
+  MSFA_TRY(allow_smem(proj_ln_bwd_dw_kernel<T>, PG::kSmemFloats));
   const int row_tiles = (N + kRowsD - 1) / kRowsD;
   const int fb = (int)sizeof(float);
-  proj_ln_bwd_ln_kernel<D><<<row_tiles, LnProduct<D>::kThreads, kLnFloats * fb, s>>>(
+  proj_ln_bwd_ln_kernel<D, T><<<row_tiles, LnProduct<D>::kThreads, kLnFloats * fb, s>>>(
       a, wo, bo, x, gamma, rmask, dout, dx, dy, ln_part, N, Dv, inv_keep, eps);
   MSFA_TRY(cudaGetLastError());
-  proj_ln_bwd_da_kernel<D><<<row_tiles, DxProduct<D>::kThreads,
-                             DxProduct<D>::kSmemFloats * fb, s>>>(dy, wo, da, N);
+  proj_ln_bwd_da_kernel<D, T><<<row_tiles, PX::kThreads, PX::kSmemFloats * fb, s>>>(
+      dy, wo, da, N);
   MSFA_TRY(cudaGetLastError());
   const dim3 grid((D + kGradM - 1) / kGradM, (D + kGradO - 1) / kGradO, splits);
-  proj_ln_bwd_dw_kernel<<<grid, GradProduct::kThreads, GradProduct::kSmemFloats * fb, s>>>(
+  proj_ln_bwd_dw_kernel<T><<<grid, PG::kThreads, PG::kSmemFloats * fb, s>>>(
       a, dy, dw_part, N, D, rows_per_split(N, splits));
   MSFA_TRY(cudaGetLastError());
   MSFA_TRY(sum_splits(dw_part, dwo, splits, (long)D * D, s));
@@ -142,17 +157,10 @@ int launch_bwd(const float* x, const float* a, const float* wo, const float* bo,
   return 0;
 }
 
-}  // namespace
-
-extern "C" {
-
-// Widths the kernels are instantiated for (D); the LayerNorm's statistics
-// over the first Dv columns (0 < Dv <= D; x, a, wo, bo, gamma and beta zero
-// past Dv). The wrapper checks before calling.
-int msfa_proj_ln_fwd(const float* x, const float* a, const float* wo, const float* bo,
-                     const float* gamma, const float* beta, const unsigned char* rmask,
-                     float* out, int N, int D, int Dv, float inv_keep, float eps,
-                     void* stream) {
+template <typename T>
+int fwd_entry(const T* x, const T* a, const T* wo, const float* bo, const float* gamma,
+              const float* beta, const unsigned char* rmask, T* out, int N, int D, int Dv,
+              float inv_keep, float eps, void* stream) {
   if (N <= 0 || Dv <= 0 || Dv > D) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define MSFA_PROJ_FWD(W) \
@@ -167,13 +175,11 @@ int msfa_proj_ln_fwd(const float* x, const float* a, const float* wo, const floa
 #undef MSFA_PROJ_FWD
 }
 
-// sums [3, D] receives dgamma | dbeta | dbo; dx is 0 past Dv. Scratch: dy [N, D],
-// ln_part [ceil(N/64), 3, D], dw_part [splits, D * D].
-int msfa_proj_ln_bwd(const float* x, const float* a, const float* wo, const float* bo,
-                     const float* gamma, const unsigned char* rmask, const float* dout,
-                     float* dx, float* da, float* dwo, float* sums, float* dy, float* ln_part,
-                     float* dw_part, int N, int D, int Dv, int splits, float inv_keep,
-                     float eps, void* stream) {
+template <typename T>
+int bwd_entry(const T* x, const T* a, const T* wo, const float* bo, const float* gamma,
+              const unsigned char* rmask, const T* dout, T* dx, T* da, T* dwo, float* sums,
+              T* dy, float* ln_part, float* dw_part, int N, int D, int Dv, int splits,
+              float inv_keep, float eps, void* stream) {
   if (N <= 0 || splits <= 0 || Dv <= 0 || Dv > D) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define MSFA_PROJ_BWD(W)                                                                 \
@@ -189,17 +195,16 @@ int msfa_proj_ln_bwd(const float* x, const float* a, const float* wo, const floa
 #undef MSFA_PROJ_BWD
 }
 
-// Dynamic shared memory per block of the backward's three product kernels
-// (ln, da, dw) at width D, into bytes[0..2].
-int msfa_proj_ln_bwd_smem_bytes(int D, int* bytes) {
+template <typename T>
+int bwd_smem_bytes(int D, int* bytes) {
   using namespace msfa_ln;
   const int fb = (int)sizeof(float);
-  bytes[2] = GradProduct::kSmemFloats * fb;
+  bytes[2] = GradProductOf<T>::kSmemFloats * fb;
   switch (D) {
 #define MSFA_PROJ_SMEM(W)                                 \
   case W:                                                 \
-    bytes[0] = ln_smem_floats<W>() * fb;                  \
-    bytes[1] = DxProduct<W>::kSmemFloats * fb;            \
+    bytes[0] = ln_smem_floats<W, T>() * fb;               \
+    bytes[1] = DxProduct<W, T>::kSmemFloats * fb;         \
     return 0;
     MSFA_PROJ_SMEM(32)
     MSFA_PROJ_SMEM(64)
@@ -209,6 +214,54 @@ int msfa_proj_ln_bwd_smem_bytes(int D, int* bytes) {
     default: return (int)cudaErrorInvalidValue;
   }
 }
+
+}  // namespace
+
+extern "C" {
+
+// Widths the kernels are instantiated for (D); the LayerNorm's statistics
+// over the first Dv columns (0 < Dv <= D; x, a, wo, bo, gamma and beta zero
+// past Dv). The wrapper checks before calling.
+int msfa_proj_ln_fwd(const float* x, const float* a, const float* wo, const float* bo,
+                     const float* gamma, const float* beta, const unsigned char* rmask,
+                     float* out, int N, int D, int Dv, float inv_keep, float eps,
+                     void* stream) {
+  return fwd_entry(x, a, wo, bo, gamma, beta, rmask, out, N, D, Dv, inv_keep, eps, stream);
+}
+
+// The bf16 entry: x, a, wo and out bf16.
+int msfa_proj_ln_fwd_bf16(const bf16* x, const bf16* a, const bf16* wo, const float* bo,
+                          const float* gamma, const float* beta, const unsigned char* rmask,
+                          bf16* out, int N, int D, int Dv, float inv_keep, float eps,
+                          void* stream) {
+  return fwd_entry(x, a, wo, bo, gamma, beta, rmask, out, N, D, Dv, inv_keep, eps, stream);
+}
+
+// sums [3, D] receives dgamma | dbeta | dbo; dx is 0 past Dv. Scratch: dy [N, D],
+// ln_part [ceil(N/64), 3, D], dw_part [splits, D * D].
+int msfa_proj_ln_bwd(const float* x, const float* a, const float* wo, const float* bo,
+                     const float* gamma, const unsigned char* rmask, const float* dout,
+                     float* dx, float* da, float* dwo, float* sums, float* dy, float* ln_part,
+                     float* dw_part, int N, int D, int Dv, int splits, float inv_keep,
+                     float eps, void* stream) {
+  return bwd_entry(x, a, wo, bo, gamma, rmask, dout, dx, da, dwo, sums, dy, ln_part, dw_part,
+                   N, D, Dv, splits, inv_keep, eps, stream);
+}
+
+// The bf16 entry: x, a, wo, dout, dx, da, dwo and the scratch dy bf16.
+int msfa_proj_ln_bwd_bf16(const bf16* x, const bf16* a, const bf16* wo, const float* bo,
+                          const float* gamma, const unsigned char* rmask, const bf16* dout,
+                          bf16* dx, bf16* da, bf16* dwo, float* sums, bf16* dy, float* ln_part,
+                          float* dw_part, int N, int D, int Dv, int splits, float inv_keep,
+                          float eps, void* stream) {
+  return bwd_entry(x, a, wo, bo, gamma, rmask, dout, dx, da, dwo, sums, dy, ln_part, dw_part,
+                   N, D, Dv, splits, inv_keep, eps, stream);
+}
+
+// Dynamic shared memory per block of the backward's three product kernels
+// (ln, da, dw) at width D, into bytes[0..2]; the bf16 entry's beside it.
+int msfa_proj_ln_bwd_smem_bytes(int D, int* bytes) { return bwd_smem_bytes<float>(D, bytes); }
+int msfa_proj_ln_bf16_bwd_smem_bytes(int D, int* bytes) { return bwd_smem_bytes<bf16>(D, bytes); }
 
 const char* msfa_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -28,6 +28,16 @@
 // the Dv columns' sums, and the LayerNorm scales them by 1 / Dv (at Dv = D,
 // a power of two, the same bits as the constant). The backward writes dr = 0
 // past Dv, so no padded column carries a cotangent.
+//
+// The activation type T is a template parameter: float, or __nv_bfloat16 for
+// the bf16 entries (mixed_precision). With bf16, x, the products' operands
+// and the outputs are bf16 in device memory: every product takes two bf16
+// operands (one TF32 product a k-step), y, the residual, the LayerNorm and its
+// backward run in f32, out is rounded to bf16, dy is written rounded (both of
+// its products take it so, as the reference's kernel casts it), the sums over
+// rows (dgamma, dbeta, the biases) take the f32 values, and a weight
+// gradient's ordered sum writes it rounded. dr goes out in its own type
+// (dr_out): f32 where dx's product adds to it, bf16 where it is dx.
 
 #pragma once
 
@@ -44,20 +54,22 @@ constexpr int kRowsD = 64;  // rows of a block in the [N, D] products
 constexpr int kGradM = 128, kGradO = 64;  // a weight-gradient block's tile
 
 // [N, D] products over k: 64 whole rows, 2 * D threads
-template <int D>
-using LnProduct = tc::TcProduct<64, D, 2, D / 32, false, true>;  // A [n][k] . B [k][d]
-template <int D>
-using DxProduct = tc::TcProduct<64, D, 2, D / 32, false, false>;  // A [n][k] . (B [d][k])^T
-// the weight gradients over the rows of a split
-using GradProduct = tc::TcProduct<kGradM, kGradO, 4, 2, true, true>;  // (A [n][m])^T . B [n][o]
+template <int D, typename T = float>
+using LnProduct = tc::TcProduct<64, D, 2, D / 32, false, true, T, T>;  // A [n][k] . B [k][d]
+template <int D, typename T = float>
+using DxProduct = tc::TcProduct<64, D, 2, D / 32, false, false, T, T>;  // A [n][k] . (B [d][k])^T
+// the weight gradients over the rows of a split: (A [n][m])^T . B [n][o]
+template <typename T = float>
+using GradProductOf = tc::TcProduct<kGradM, kGradO, 4, 2, true, true, T, T>;
+using GradProduct = GradProductOf<>;
 
 __host__ __device__ constexpr int cmax(int a, int b) { return a > b ? a : b; }
 
-template <int D>
+template <int D, typename T = float>
 constexpr int ln_smem_floats() {
   // the ring, then y [64][D + 4] and the warps' LayerNorm partials [warps][3][D]
-  return cmax(LnProduct<D>::kSmemFloats,
-              kRowsD * (D + tc::kPad) + LnProduct<D>::kThreads / 32 * 3 * D);
+  return cmax(LnProduct<D, T>::kSmemFloats,
+              kRowsD * (D + tc::kPad) + LnProduct<D, T>::kThreads / 32 * 3 * D);
 }
 
 // rows of a weight-gradient split: a whole number of 32-row chunks
@@ -73,10 +85,10 @@ __device__ __forceinline__ float warp_sum(float v) {
 
 // y = A B for the block's 64 rows into Ys [64][D + 4] (the ring's memory);
 // every thread may read Ys when it returns
-template <int D>
-__device__ __forceinline__ void product_rows(const float* __restrict__ A, int K,
-                                             const float* __restrict__ B, int N, float* smem) {
-  using P = LnProduct<D>;
+template <int D, typename T>
+__device__ __forceinline__ void product_rows(const T* __restrict__ A, int K,
+                                             const T* __restrict__ B, int N, float* smem) {
+  using P = LnProduct<D, T>;
   constexpr int kLdY = D + tc::kPad;
   const int n0 = blockIdx.x * kRowsD;
   const typename P::A a{A + (long)n0 * K, K, N - n0, K};
@@ -98,9 +110,9 @@ __device__ __forceinline__ void product_rows(const float* __restrict__ A, int K,
 // r = x + (y + bias) * rmask * inv_keep, mu, inv = 1 / sqrt(var + eps) (flax's
 // fast variance over the Dv valid columns; r is zero past them), and each
 // column's dropout scale rs.
-template <int D>
+template <int D, typename T>
 __device__ __forceinline__ void residual_row(const float* Yrow, const float* __restrict__ bias,
-                                             const float* __restrict__ x,
+                                             const T* __restrict__ x,
                                              const unsigned char* __restrict__ rmask, long n,
                                              float inv_keep, float eps, int Dv,
                                              float (&r)[D / 32], float (&rs)[D / 32], float& mu,
@@ -113,7 +125,7 @@ __device__ __forceinline__ void residual_row(const float* Yrow, const float* __r
     float y = Yrow[c] + bias[c];
     rs[j] = rmask ? (float)rmask[n * D + c] * inv_keep : 1.f;
     if (rmask) y *= rs[j];
-    r[j] = x[n * D + c] + y;
+    r[j] = tc::load1(x + n * D + c) + y;
     s1 += r[j];
     s2 += r[j] * r[j];
   }
@@ -125,17 +137,17 @@ __device__ __forceinline__ void residual_row(const float* Yrow, const float* __r
 
 // out = LayerNorm(x + (A B + bias) * rmask * inv_keep) for the block's 64
 // rows, its statistics over the first Dv columns
-template <int D>
-__device__ __forceinline__ void ln_fwd_tile(const float* __restrict__ A, int K,
-                                            const float* __restrict__ B,
+template <int D, typename T>
+__device__ __forceinline__ void ln_fwd_tile(const T* __restrict__ A, int K,
+                                            const T* __restrict__ B,
                                             const float* __restrict__ bias,
-                                            const float* __restrict__ x,
+                                            const T* __restrict__ x,
                                             const float* __restrict__ gamma,
                                             const float* __restrict__ beta,
                                             const unsigned char* __restrict__ rmask,
-                                            float* __restrict__ out, int N, float inv_keep,
+                                            T* __restrict__ out, int N, float inv_keep,
                                             float eps, int Dv, float* smem) {
-  constexpr int DJ = D / 32, kWarps = LnProduct<D>::kThreads / 32, kLdY = D + tc::kPad;
+  constexpr int DJ = D / 32, kWarps = LnProduct<D, T>::kThreads / 32, kLdY = D + tc::kPad;
   product_rows<D>(A, K, B, N, smem);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int n0 = blockIdx.x * kRowsD;
@@ -147,7 +159,7 @@ __device__ __forceinline__ void ln_fwd_tile(const float* __restrict__ A, int K,
 #pragma unroll
     for (int j = 0; j < DJ; ++j) {
       const int c = lane + 32 * j;
-      out[n * D + c] = (r[j] - mu) * inv * gamma[c] + beta[c];
+      tc::store1(out + n * D + c, (r[j] - mu) * inv * gamma[c] + beta[c]);
     }
   }
 }
@@ -155,19 +167,19 @@ __device__ __forceinline__ void ln_fwd_tile(const float* __restrict__ A, int K,
 // The same product, then the LayerNorm backward: dr (into dr_out; 0 past
 // Dv), dy, and the block's sums over its rows of dout * xhat | dout | dy into
 // part [blocks][3][D]
-template <int D>
-__device__ __forceinline__ void ln_bwd_tile(const float* __restrict__ A, int K,
-                                            const float* __restrict__ B,
+template <int D, typename T, typename R>
+__device__ __forceinline__ void ln_bwd_tile(const T* __restrict__ A, int K,
+                                            const T* __restrict__ B,
                                             const float* __restrict__ bias,
-                                            const float* __restrict__ x,
+                                            const T* __restrict__ x,
                                             const float* __restrict__ gamma,
                                             const unsigned char* __restrict__ rmask,
-                                            const float* __restrict__ dout,
-                                            float* __restrict__ dr_out,
-                                            float* __restrict__ dy_out, float* __restrict__ part,
+                                            const T* __restrict__ dout,
+                                            R* __restrict__ dr_out,
+                                            T* __restrict__ dy_out, float* __restrict__ part,
                                             int N, float inv_keep, float eps, int Dv,
                                             float* smem) {
-  constexpr int DJ = D / 32, kThreads = LnProduct<D>::kThreads, kWarps = kThreads / 32;
+  constexpr int DJ = D / 32, kThreads = LnProduct<D, T>::kThreads, kWarps = kThreads / 32;
   constexpr int kLdY = D + tc::kPad;
   product_rows<D>(A, K, B, N, smem);
   float* Red = smem + kRowsD * kLdY;  // the warps' partials, [warps][3][D]
@@ -186,7 +198,7 @@ __device__ __forceinline__ void ln_bwd_tile(const float* __restrict__ A, int K,
     for (int j = 0; j < DJ; ++j) {
       const int c = lane + 32 * j;
       xh[j] = (r[j] - mu) * inv;
-      g[j] = dout[n * D + c];
+      g[j] = tc::load1(dout + n * D + c);
       gd[j] = g[j] * gamma[c];
       sg += gd[j];
       sgx += gd[j] * xh[j];
@@ -199,8 +211,8 @@ __device__ __forceinline__ void ln_bwd_tile(const float* __restrict__ A, int K,
       const int c = lane + 32 * j;
       const float dr = c < Dv ? (gd[j] - mean_g - xh[j] * mean_gx) * inv : 0.f;
       const float dy = rmask ? dr * rs[j] : dr;
-      dr_out[n * D + c] = dr;
-      dy_out[n * D + c] = dy;
+      tc::store1(dr_out + n * D + c, dr);
+      tc::store1(dy_out + n * D + c, dy);
       pg[j] += g[j] * xh[j];
       pb[j] += g[j];
       po[j] += dy;
@@ -222,12 +234,13 @@ __device__ __forceinline__ void ln_bwd_tile(const float* __restrict__ A, int K,
   }
 }
 
-// out = A B^T (kAdd: out += A B^T) for the block's 64 rows, A [N, K], B [D][K]
-template <int D, bool kAdd>
-__device__ __forceinline__ void dx_tile(const float* __restrict__ A, int K,
-                                        const float* __restrict__ B, float* __restrict__ out,
+// out = A B^T (kAdd: out = base + A B^T, base f32 and possibly out itself)
+// for the block's 64 rows, A [N, K], B [D][K]
+template <int D, bool kAdd, typename T, typename Out>
+__device__ __forceinline__ void dx_tile(const T* __restrict__ A, int K,
+                                        const T* __restrict__ B, const float* base, Out* out,
                                         int N, float* smem) {
-  using P = DxProduct<D>;
+  using P = DxProduct<D, T>;
   const int n0 = blockIdx.x * kRowsD;
   const typename P::A a{A + (long)n0 * K, K, N - n0, K};
   const typename P::B b{B, K, D, K};  // (B^T)(k, d) = B[d][k]
@@ -241,13 +254,13 @@ __device__ __forceinline__ void dx_tile(const float* __restrict__ A, int K,
       if (n >= N) continue;
 #pragma unroll
       for (int j = 0; j < P::kNT; ++j) {
-        float2* p = reinterpret_cast<float2*>(out + (long)n * D + P::col(j, 0));
+        const long at = (long)n * D + P::col(j, 0);
         float2 v = make_float2(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
         if (kAdd) {
-          const float2 was = *p;
+          const float2 was = *reinterpret_cast<const float2*>(base + at);
           v = make_float2(was.x + v.x, was.y + v.y);
         }
-        *p = v;
+        tc::store2(out + at, v.x, v.y);
       }
     }
 }
@@ -255,18 +268,19 @@ __device__ __forceinline__ void dx_tile(const float* __restrict__ A, int K,
 // part[split] = A[rows of split]^T B[rows of split] for the block's 128 x 64
 // tile of the [M, O] weight gradient (A [N, M], B [N, O] row-major); blockIdx
 // is (m tile, o tile, split)
-__device__ __forceinline__ void grad_tile(const float* __restrict__ A, int M,
-                                          const float* __restrict__ B, int O,
+template <typename T>
+__device__ __forceinline__ void grad_tile(const T* __restrict__ A, int M,
+                                          const T* __restrict__ B, int O,
                                           float* __restrict__ part, int N, int rows_per_split,
                                           float* smem) {
-  using P = GradProduct;
+  using P = GradProductOf<T>;
   const int m0 = blockIdx.x * kGradM, o0 = blockIdx.y * kGradO, split = blockIdx.z;
   const int r0 = split * rows_per_split;
   const int rows = max(0, min(N - r0, rows_per_split));
   const long first = rows > 0 ? r0 : 0;  // an empty split reads nothing
-  const P::A a{A + first * M + m0, M, M - m0, rows};
-  const P::B b{B + first * O + o0, O, O - o0, rows};
-  P::Acc acc;
+  const typename P::A a{A + first * M + m0, M, M - m0, rows};
+  const typename P::B b{B + first * O + o0, O, O - o0, rows};
+  typename P::Acc acc;
   P::run(a, b, rows, smem, acc);
   float* out = part + (long)split * M * O;
 #pragma unroll
@@ -285,14 +299,16 @@ __device__ __forceinline__ void grad_tile(const float* __restrict__ A, int M,
     }
 }
 
-// out[e] = sum over s of part[s][e], s in order; one thread per e
+// out[e] = sum over s of part[s][e], s in order; one thread per e (Out: f32,
+// or bf16 rounded to nearest even)
+template <typename Out>
 __device__ __forceinline__ void ordered_sum(const float* __restrict__ part,
-                                            float* __restrict__ out, int splits, long width) {
+                                            Out* __restrict__ out, int splits, long width) {
   const long e = (long)blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= width) return;
   float s = 0.f;
   for (int k = 0; k < splits; ++k) s += part[(long)k * width + e];
-  out[e] = s;
+  tc::store1(out + e, s);
 }
 
 template <class Kernel>

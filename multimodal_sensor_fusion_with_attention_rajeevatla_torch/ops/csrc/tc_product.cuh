@@ -43,31 +43,35 @@ constexpr int kProdStages = 3;  // chunks in the ring
 constexpr int kRowKPad = 8;     // padding of a k-along-the-row tile's rows
 
 // One operand of a block's product: X of its rows or columns (the m or n
-// side) over a 32-deep chunk of k. `base` points at the block's element
-// (x = 0, k = 0); `ld` is the row stride in device memory; x at or past
-// x_valid and k at or past k_valid read as zero (both multiples of 4).
-template <int X, bool kKDown>
+// side) over a 32-deep chunk of k, elements of type E. `base` points at the
+// block's element (x = 0, k = 0); `ld` is the row stride in device memory, in
+// elements; x at or past x_valid and k at or past k_valid read as zero (both
+// multiples of 16 / sizeof(E)).
+template <int X, bool kKDown, typename E = float>
 struct TileOperand {
-  static constexpr int kLd = kKDown ? X + kPad : kProdK + kRowKPad;
-  static constexpr int kFloats = kKDown ? kProdK * kLd : X * kLd;
-  const float* base;
+  static constexpr int kPer = 16 / (int)sizeof(E);  // elements of one 16-byte copy
+  static constexpr int kLd = kKDown ? X + kPadOf<E> : kProdK + kRowKPad;  // in elements
+  static constexpr int kElems = kKDown ? kProdK * kLd : X * kLd;
+  static constexpr int kFloats = kElems * (int)sizeof(E) / 4;  // its room, in floats
+  const E* base;
   long ld;
   int x_valid;
   int k_valid;
 
   // copy the chunk at depth k0 into dst (asynchronously; the caller commits)
-  __device__ __forceinline__ void stage(float* dst, int k0, int tid, int nthreads) const {
-    if constexpr (kKDown) {  // [k][x]: 32 rows of X floats
-      constexpr int kChunks = X / 4;
+  __device__ __forceinline__ void stage(float* dst_f, int k0, int tid, int nthreads) const {
+    E* dst = reinterpret_cast<E*>(dst_f);
+    if constexpr (kKDown) {  // [k][x]: 32 rows of X elements
+      constexpr int kChunks = X / kPer;
       for (int i = tid; i < kProdK * kChunks; i += nthreads) {
-        const int r = i / kChunks, c = (i % kChunks) * 4;
+        const int r = i / kChunks, c = (i % kChunks) * kPer;
         const bool ok = k0 + r < k_valid && c < x_valid;
         cp_async16(dst + r * kLd + c, ok ? base + (long)(k0 + r) * ld + c : base, ok);
       }
-    } else {  // [x][k]: X rows of 32 floats
-      constexpr int kChunks = kProdK / 4;
+    } else {  // [x][k]: X rows of 32 elements
+      constexpr int kChunks = kProdK / kPer;
       for (int i = tid; i < X * kChunks; i += nthreads) {
-        const int r = i / kChunks, c = (i % kChunks) * 4;
+        const int r = i / kChunks, c = (i % kChunks) * kPer;
         const bool ok = r < x_valid && k0 + c < k_valid;
         cp_async16(dst + r * kLd + c, ok ? base + (long)r * ld + k0 + c : base, ok);
       }
@@ -76,36 +80,55 @@ struct TileOperand {
 };
 
 // A fragment (rows m0 .. m0+15, k-step k0) of a staged A chunk.
-template <bool kKDown>
-__device__ __forceinline__ FragA load_a(const float* s, int ld, int m0, int k0, int g, int t) {
+template <bool kKDown, typename E>
+__device__ __forceinline__ FragA load_a(const E* s, int ld, int m0, int k0, int g, int t) {
   if constexpr (kKDown) {
     return load_a_colk(s, ld, m0, k0, g, t);
+  } else if constexpr (kHasLo<E>) {
+    const E* p = s + (m0 + g) * ld + k0 + 2 * t;
+    const float2 u = *reinterpret_cast<const float2*>(p);
+    const float2 w = *reinterpret_cast<const float2*>(p + 8 * ld);
+    return split_a(u.x, w.x, u.y, w.y);
+  } else {  // bf16: one 32-bit word holds k0 + 2t (low half) and k0 + 2t + 1
+    const E* p = s + (m0 + g) * ld + k0 + 2 * t;
+    const uint32_t u = *reinterpret_cast<const uint32_t*>(p);
+    const uint32_t w = *reinterpret_cast<const uint32_t*>(p + 8 * ld);
+    FragA f;
+    f.hi[0] = bf16_lo_half(u), f.hi[1] = bf16_lo_half(w);
+    f.hi[2] = bf16_hi_half(u), f.hi[3] = bf16_hi_half(w);
+    f.lo[0] = f.lo[1] = f.lo[2] = f.lo[3] = 0u;
+    return f;
   }
-  const float* p = s + (m0 + g) * ld + k0 + 2 * t;
-  const float2 u = *reinterpret_cast<const float2*>(p);
-  const float2 w = *reinterpret_cast<const float2*>(p + 8 * ld);
-  return split_a(u.x, w.x, u.y, w.y);
 }
 
 // A B fragment (columns n0 .. n0+7, k-step k0) of a staged B chunk.
-template <bool kKDown>
-__device__ __forceinline__ FragB load_b(const float* s, int ld, int n0, int k0, int g, int t) {
+template <bool kKDown, typename E>
+__device__ __forceinline__ FragB load_b(const E* s, int ld, int n0, int k0, int g, int t) {
   if constexpr (kKDown) {
     return load_b_colk(s, ld, k0, n0, g, t);
+  } else if constexpr (kHasLo<E>) {
+    const float2 u = *reinterpret_cast<const float2*>(s + (n0 + g) * ld + k0 + 2 * t);
+    return split_b(u.x, u.y);
+  } else {
+    const uint32_t u = *reinterpret_cast<const uint32_t*>(s + (n0 + g) * ld + k0 + 2 * t);
+    FragB f;
+    f.hi[0] = bf16_lo_half(u), f.hi[1] = bf16_hi_half(u);
+    f.lo[0] = f.lo[1] = 0u;
+    return f;
   }
-  const float2 u = *reinterpret_cast<const float2*>(s + (n0 + g) * ld + k0 + 2 * t);
-  return split_b(u.x, u.y);
 }
 
 // The block's BM x BN tile over WARPS_M x WARPS_N warps of 32 x 32 each.
-// kAKDown / kBKDown: A stored [k][m] / B stored [k][n] (else [m][k] / [n][k]).
-template <int BM, int BN, int WARPS_M, int WARPS_N, bool kAKDown, bool kBKDown>
+// kAKDown / kBKDown: A stored [k][m] / B stored [k][n] (else [m][k] / [n][k]);
+// EA / EB: the operands' element types.
+template <int BM, int BN, int WARPS_M, int WARPS_N, bool kAKDown, bool kBKDown,
+          typename EA = float, typename EB = float>
 struct TcProduct {
   static_assert(BM == 32 * WARPS_M && BN == 32 * WARPS_N, "warp tiles are 32 x 32");
   static constexpr int kThreads = 32 * WARPS_M * WARPS_N;
   static constexpr int kMT = 2, kNT = 4;  // m16 and n8 accumulators per warp
-  using A = TileOperand<BM, kAKDown>;
-  using B = TileOperand<BN, kBKDown>;
+  using A = TileOperand<BM, kAKDown, EA>;
+  using B = TileOperand<BN, kBKDown, EB>;
   static constexpr int kStageFloats = A::kFloats + B::kFloats;
   static constexpr int kSmemFloats = kProdStages * kStageFloats;
   using Acc = float[kMT][kNT][4];
@@ -151,8 +174,9 @@ struct TcProduct {
         b.stage(slot + A::kFloats, next * kProdK, tid, kThreads);
       }
       cp_async_commit();
-      const float* As = smem + (kc % kProdStages) * kStageFloats;
-      const float* Bs = As + A::kFloats;
+      const EA* As = reinterpret_cast<const EA*>(smem + (kc % kProdStages) * kStageFloats);
+      const EB* Bs = reinterpret_cast<const EB*>(smem + (kc % kProdStages) * kStageFloats +
+                                                 A::kFloats);
       float part[kMT][kNT][4];
 #pragma unroll
       for (int kk = 0; kk < kProdK; kk += 8) {
@@ -165,9 +189,9 @@ struct TcProduct {
 #pragma unroll
           for (int i = 0; i < kMT; ++i) {
             if (kk == 0) {
-              mma3_zero(part[i][j], fa[i], fb);
+              mma_n<kHasLo<EA>, kHasLo<EB>, true>(part[i][j], fa[i], fb);
             } else {
-              mma3(part[i][j], fa[i], fb);
+              mma_n<kHasLo<EA>, kHasLo<EB>>(part[i][j], fa[i], fb);
             }
           }
         }

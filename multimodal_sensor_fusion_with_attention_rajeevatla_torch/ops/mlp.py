@@ -34,6 +34,18 @@ Each pass has a kernel wrapper (``dropout_keep_mask``, ``fused_mlp_fwd``,
 a CPU tensor takes the ``*_reference`` twin (the same arithmetic in plain
 PyTorch; the mask twin is bit-identical to its kernel). Each wrapper counts
 its launches in ``<wrapper>.launches``.
+
+**bf16 (``mixed_precision``).** Both residual-LN pairs have bf16-operand
+entries (``proj_ln_fwd_bf16``, ``proj_ln_bwd_bf16``, ``ffw_ln_fwd_bf16``,
+``ffw_ln_bwd_bf16``, with their ``*_reference`` twins): x, the attention
+output, the weights, the cotangent and the outputs bf16, the biases and the
+LayerNorm's scale and offset f32. They round where the reference's kernels
+round when ``x`` is bf16 (``pallas_mlp.py``'s compute type is ``x.dtype``):
+every product takes two bf16 operands and sums in f32 (the hidden, ``dy``
+and ``dpre`` are rounded to bf16 before the products they feed), the
+residual and the LayerNorm run in f32, the outputs and the weights'
+gradients are rounded to bf16, the biases' and the LayerNorm's gradients
+stay f32. The entries are picked by ``x``'s type.
 """
 
 from __future__ import annotations
@@ -175,9 +187,10 @@ def proj_ln_fwd_reference(x, a, wo, bo, gamma, beta, rmask, inv_keep: float, eps
 
 
 def proj_ln_bwd_reference(x, a, wo, bo, gamma, beta, rmask, dout, inv_keep: float, eps: float,
-                          d_valid: Optional[int] = None):
+                          d_valid: Optional[int] = None, cast=None):
     """Plain version of the projection kernel's backward ->
-    ``(dx, da, dwo, dbo, dgamma, dbeta)``."""
+    ``(dx, da, dwo, dbo, dgamma, dbeta)``. ``cast`` rounds ``dy`` where it
+    enters a product (the bf16 twin's; none in f32)."""
     y = a @ wo + bo
     rscale = _scale(rmask, inv_keep)
     if rscale is not None:
@@ -185,7 +198,37 @@ def proj_ln_bwd_reference(x, a, wo, bo, gamma, beta, rmask, dout, inv_keep: floa
     _out, xhat, inv = _ln_valid(x + y, gamma, beta, eps, d_valid)
     dr, dgamma, dbeta = _ln_backward_valid(dout, xhat, inv, gamma, d_valid)
     dy = dr * rscale if rscale is not None else dr
-    return dr, dy @ wo.t(), a.t() @ dy, dy.sum(0), dgamma, dbeta
+    dyc = dy if cast is None else cast(dy)
+    return dr, dyc @ wo.t(), a.t() @ dyc, dy.sum(0), dgamma, dbeta
+
+
+def _bf16_values(t: torch.Tensor) -> torch.Tensor:
+    """``t`` rounded to bf16 and held in f32: the reference's
+    ``astype(bfloat16)`` before a product whose sum runs in f32."""
+    return t.to(torch.bfloat16).float()
+
+
+def _bf16(*tensors):
+    return tuple(t.to(torch.bfloat16) for t in tensors)
+
+
+def proj_ln_fwd_bf16_reference(x, a, wo, bo, gamma, beta, rmask, inv_keep: float, eps: float,
+                               d_valid: Optional[int] = None):
+    """Plain version of the projection kernel's bf16 entry -> ``out [N, D]``
+    in bf16: the f32 arithmetic on the bf16 values of x, a and wo."""
+    return proj_ln_fwd_reference(x.float(), a.float(), wo.float(), bo, gamma, beta, rmask,
+                                 inv_keep, eps, d_valid).to(torch.bfloat16)
+
+
+def proj_ln_bwd_bf16_reference(x, a, wo, bo, gamma, beta, rmask, dout, inv_keep: float,
+                               eps: float, d_valid: Optional[int] = None):
+    """Plain version of the projection kernel's bf16 backward ->
+    ``(dx, da, dwo, dbo, dgamma, dbeta)``: dy rounded to bf16 before both of
+    its products, dx, da and dwo in bf16, the rest f32."""
+    dx, da, dwo, dbo, dgamma, dbeta = proj_ln_bwd_reference(
+        x.float(), a.float(), wo.float(), bo, gamma, beta, rmask, dout.float(), inv_keep, eps,
+        d_valid, cast=_bf16_values)
+    return (*_bf16(dx, da, dwo), dbo, dgamma, dbeta)
 
 
 def ffw_ln_fwd_reference(x, w1, b1, w2, b2, gamma, beta, fmask, rmask, inv_keep: float,
@@ -213,29 +256,74 @@ def ffw_ln_bwd_reference(x, w1, b1, w2, b2, gamma, beta, fmask, rmask, dout,
 
 
 def _ffw_ln_bwd_plain(x, w1, pre, live, w2, b2, gamma, fmask, rmask, dout, inv_keep: float,
-                      eps: float, d_valid: Optional[int] = None):
+                      eps: float, d_valid: Optional[int] = None, cast=None):
     """The plain FFW backward at the pre-activations ``pre`` [N, d_ff], taking
     the ReLU branch ``live`` (bool [N, d_ff]; ``pre > 0`` for the plain
     forward's own). A backward follows the branches of the forward it
     differentiates, which another forward's arithmetic can round otherwise
-    where ``pre`` lies within rounding of zero."""
+    where ``pre`` lies within rounding of zero. ``cast`` rounds the hidden,
+    ``dy`` and ``dpre`` where they enter a product (the bf16 twin's; none
+    in f32)."""
+    cast = cast or (lambda t: t)
     fscale = _scale(fmask, inv_keep)
     hd = torch.where(live, pre, 0.0)
     if fscale is not None:
         hd = hd * fscale
-    y = hd @ w2 + b2
+    hdc = cast(hd)
+    y = hdc @ w2 + b2
     rscale = _scale(rmask, inv_keep)
     if rscale is not None:
         y = y * rscale
     _out, xhat, inv = _ln_valid(x + y, gamma, torch.zeros_like(gamma), eps, d_valid)
     dr, dgamma, dbeta = _ln_backward_valid(dout, xhat, inv, gamma, d_valid)
     dy = dr * rscale if rscale is not None else dr
-    dhd = dy @ w2.t()
+    dyc = cast(dy)
+    dhd = dyc @ w2.t()
     if fscale is not None:
         dhd = dhd * fscale
     dpre = torch.where(live, dhd, 0.0)
-    dx = dr + dpre @ w1.t()
-    return dx, x.t() @ dpre, dpre.sum(0), hd.t() @ dy, dy.sum(0), dgamma, dbeta
+    dprec = cast(dpre)
+    dx = dr + dprec @ w1.t()
+    return dx, x.t() @ dprec, dpre.sum(0), hdc.t() @ dyc, dy.sum(0), dgamma, dbeta
+
+
+def ffw_ln_fwd_bf16_reference(x, w1, b1, w2, b2, gamma, beta, fmask, rmask, inv_keep: float,
+                              eps: float, d_valid: Optional[int] = None):
+    """Plain version of the FFW kernel's bf16 entry -> ``out [N, D]`` in
+    bf16: the pre-activation from the bf16 values of x and w1 in f32, the
+    hidden rounded to bf16 before its product with w2, the residual and the
+    LayerNorm in f32."""
+    xf = x.float()
+    h = torch.relu(xf @ w1.float() + b1)
+    fscale = _scale(fmask, inv_keep)
+    if fscale is not None:
+        h = h * fscale
+    y = _bf16_values(h) @ w2.float() + b2
+    rscale = _scale(rmask, inv_keep)
+    if rscale is not None:
+        y = y * rscale
+    return _ln_valid(xf + y, gamma, beta, eps, d_valid)[0].to(torch.bfloat16)
+
+
+def ffw_ln_bwd_bf16_reference(x, w1, b1, w2, b2, gamma, beta, fmask, rmask, dout,
+                              inv_keep: float, eps: float, d_valid: Optional[int] = None):
+    """Plain version of the FFW kernel's bf16 backward ->
+    ``(dx, dw1, db1, dw2, db2, dgamma, dbeta)``: dx, dw1 and dw2 in bf16,
+    the rest f32."""
+    xf, w1f = x.float(), w1.float()
+    pre = xf @ w1f + b1
+    return _ffw_ln_bwd_bf16_plain(xf, w1f, pre, pre > 0.0, w2.float(), b2, gamma, fmask, rmask,
+                                  dout.float(), inv_keep, eps, d_valid)
+
+
+def _ffw_ln_bwd_bf16_plain(x, w1, pre, live, w2, b2, gamma, fmask, rmask, dout,
+                           inv_keep: float, eps: float, d_valid: Optional[int] = None):
+    """``_ffw_ln_bwd_plain`` with the bf16 entry's roundings, on f32 tensors
+    of bf16 values, its results in the entry's types."""
+    dx, dw1, db1, dw2, db2, dgamma, dbeta = _ffw_ln_bwd_plain(
+        x, w1, pre, live, w2, b2, gamma, fmask, rmask, dout, inv_keep, eps, d_valid,
+        cast=_bf16_values)
+    return (*_bf16(dx, dw1), db1, dw2.to(torch.bfloat16), db2, dgamma, dbeta)
 
 
 def _keep_thr(keep_prob: float) -> int:
@@ -349,11 +437,14 @@ def _d_valid(d_valid: Optional[int], width: int) -> int:
     return d_valid
 
 
-def _check_kernel_inputs(tensors: dict, width: int) -> None:
+def _check_kernel_inputs(tensors: dict, width: int, bf16=()) -> None:
+    """Raise unless every tensor has the type its entry takes: u8 masks,
+    bfloat16 for the names in ``bf16``, float32 for the rest."""
     for name, t in tensors.items():
         if t is None:
             continue
-        want = torch.uint8 if name.endswith("mask") else torch.float32
+        want = (torch.uint8 if name.endswith("mask")
+                else torch.bfloat16 if name in bf16 else torch.float32)
         if t.dtype != want:
             raise TypeError(f"kernel takes {want} {name}, got {t.dtype}")
         if not t.is_contiguous():
@@ -568,56 +659,85 @@ def _proj_shapes(x, d):
             "beta": (d,), "rmask": (n, d)}
 
 
-def proj_ln_fwd(x, a, wo, bo, gamma, beta, rmask, inv_keep: float, eps: float,
-                d_valid: Optional[int] = None):
-    """Kernel wrapper for the projection half's forward -> ``out [N, D]``;
-    the LayerNorm over the first ``d_valid`` columns (all with None; the
-    inputs zero past them)."""
+# the bf16 entries' bf16 operands (the rest are f32)
+_PROJ_BF16 = ("x", "a", "wo", "dout")
+_FFW_BF16 = ("x", "w1", "w2", "dout")
+
+
+def _sfx(bf16: bool) -> str:
+    return "_bf16" if bf16 else ""
+
+
+def _proj_ln_fwd(wrapper, bf16: bool, x, a, wo, bo, gamma, beta, rmask, inv_keep: float,
+                 eps: float, d_valid: Optional[int]):
+    """The body of both projection forward entries, counted on ``wrapper``."""
     d = x.shape[-1]
     tensors = {"x": x, "a": a, "wo": wo, "bo": bo, "gamma": gamma, "beta": beta,
                "rmask": rmask}
     _check(tensors, _proj_shapes(x, d), x.device)
     d_valid = _d_valid(d_valid, d)
     if x.device.type == "cpu":
-        return proj_ln_fwd_reference(x, a, wo, bo, gamma, beta, rmask, inv_keep, eps, d_valid)
+        reference = proj_ln_fwd_bf16_reference if bf16 else proj_ln_fwd_reference
+        return reference(x, a, wo, bo, gamma, beta, rmask, inv_keep, eps, d_valid)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    _check_kernel_inputs(tensors, d)
+    _check_kernel_inputs(tensors, d, _PROJ_BF16 if bf16 else ())
     n = x.shape[0]
     out = torch.empty_like(x)
     if n == 0:
         return out
-    lib, fn = _fn("proj_ln", "msfa_proj_ln_fwd", 8, 3, 2)
+    lib, fn = _fn("proj_ln", f"msfa_proj_ln_fwd{_sfx(bf16)}", 8, 3, 2)
     with torch.cuda.device(x.device):
         code = fn(x.data_ptr(), a.data_ptr(), wo.data_ptr(), bo.data_ptr(), gamma.data_ptr(),
                   beta.data_ptr(), _ptr(rmask), out.data_ptr(), n, d, d_valid,
                   float(inv_keep), float(eps), _stream(x.device))
-    _build.check(lib, code, "proj_ln_fwd")
-    proj_ln_fwd.launches += 1
+    _build.check(lib, code, wrapper.__name__)
+    wrapper.launches += 1
     return out
+
+
+def proj_ln_fwd(x, a, wo, bo, gamma, beta, rmask, inv_keep: float, eps: float,
+                d_valid: Optional[int] = None):
+    """Kernel wrapper for the projection half's forward -> ``out [N, D]``;
+    the LayerNorm over the first ``d_valid`` columns (all with None; the
+    inputs zero past them)."""
+    return _proj_ln_fwd(proj_ln_fwd, False, x, a, wo, bo, gamma, beta, rmask, inv_keep, eps,
+                        d_valid)
 
 
 proj_ln_fwd.launches = 0
 
 
-def proj_ln_bwd(x, a, wo, bo, gamma, beta, rmask, dout, inv_keep: float, eps: float,
-                d_valid: Optional[int] = None):
-    """Kernel wrapper for the projection half's backward ->
-    ``(dx, da, dwo, dbo, dgamma, dbeta)``."""
+def proj_ln_fwd_bf16(x, a, wo, bo, gamma, beta, rmask, inv_keep: float, eps: float,
+                     d_valid: Optional[int] = None):
+    """Kernel wrapper for the projection half's bf16 entry -> ``out [N, D]``
+    in bfloat16 from bfloat16 x, a and wo (f32 bo, gamma, beta)."""
+    return _proj_ln_fwd(proj_ln_fwd_bf16, True, x, a, wo, bo, gamma, beta, rmask, inv_keep, eps,
+                        d_valid)
+
+
+proj_ln_fwd_bf16.launches = 0
+
+
+def _proj_ln_bwd(wrapper, bf16: bool, x, a, wo, bo, gamma, beta, rmask, dout, inv_keep: float,
+                 eps: float, d_valid: Optional[int]):
+    """The body of both projection backward entries, counted on
+    ``wrapper``: dx, da and dwo in the activations' type (dy too, rounded
+    as both of its products take it), the sums f32."""
     d = x.shape[-1]
     tensors = {"x": x, "a": a, "wo": wo, "bo": bo, "gamma": gamma, "beta": beta,
                "rmask": rmask, "dout": dout}
     _check(tensors, {**_proj_shapes(x, d), "dout": x.shape}, x.device)
     d_valid = _d_valid(d_valid, d)
     if x.device.type == "cpu":
-        return proj_ln_bwd_reference(x, a, wo, bo, gamma, beta, rmask, dout, inv_keep, eps,
-                                     d_valid)
+        reference = proj_ln_bwd_bf16_reference if bf16 else proj_ln_bwd_reference
+        return reference(x, a, wo, bo, gamma, beta, rmask, dout, inv_keep, eps, d_valid)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    _check_kernel_inputs(tensors, d)
+    _check_kernel_inputs(tensors, d, _PROJ_BF16 if bf16 else ())
     n = x.shape[0]
     dx, da = torch.empty_like(x), torch.empty_like(x)
-    dwo = torch.empty((d, d), device=x.device)
+    dwo = torch.empty((d, d), device=x.device, dtype=x.dtype)
     sums = torch.empty((3, d), device=x.device)
     if n == 0:
         dgamma, dbeta, dbo = sums.zero_().unbind(0)
@@ -626,19 +746,39 @@ def proj_ln_bwd(x, a, wo, bo, gamma, beta, rmask, dout, inv_keep: float, eps: fl
     dy = torch.empty_like(x)
     ln_part = torch.empty((math.ceil(n / ROWS_D), 3, d), device=x.device)
     dw_part = torch.empty((splits, d * d), device=x.device)
-    lib, fn = _fn("proj_ln", "msfa_proj_ln_bwd", 14, 4, 2)
+    lib, fn = _fn("proj_ln", f"msfa_proj_ln_bwd{_sfx(bf16)}", 14, 4, 2)
     with torch.cuda.device(x.device):
         code = fn(x.data_ptr(), a.data_ptr(), wo.data_ptr(), bo.data_ptr(), gamma.data_ptr(),
                   _ptr(rmask), dout.data_ptr(), dx.data_ptr(), da.data_ptr(), dwo.data_ptr(),
                   sums.data_ptr(), dy.data_ptr(), ln_part.data_ptr(), dw_part.data_ptr(), n, d,
                   d_valid, splits, float(inv_keep), float(eps), _stream(x.device))
-    _build.check(lib, code, "proj_ln_bwd")
-    proj_ln_bwd.launches += 1
+    _build.check(lib, code, wrapper.__name__)
+    wrapper.launches += 1
     dgamma, dbeta, dbo = sums.unbind(0)
     return dx, da, dwo, dbo, dgamma, dbeta
 
 
+def proj_ln_bwd(x, a, wo, bo, gamma, beta, rmask, dout, inv_keep: float, eps: float,
+                d_valid: Optional[int] = None):
+    """Kernel wrapper for the projection half's backward ->
+    ``(dx, da, dwo, dbo, dgamma, dbeta)``."""
+    return _proj_ln_bwd(proj_ln_bwd, False, x, a, wo, bo, gamma, beta, rmask, dout, inv_keep,
+                        eps, d_valid)
+
+
 proj_ln_bwd.launches = 0
+
+
+def proj_ln_bwd_bf16(x, a, wo, bo, gamma, beta, rmask, dout, inv_keep: float, eps: float,
+                     d_valid: Optional[int] = None):
+    """Kernel wrapper for the projection half's bf16 backward ->
+    ``(dx, da, dwo, dbo, dgamma, dbeta)``, the first three bfloat16, from
+    bfloat16 x, a, wo and cotangent ``dout``."""
+    return _proj_ln_bwd(proj_ln_bwd_bf16, True, x, a, wo, bo, gamma, beta, rmask, dout,
+                        inv_keep, eps, d_valid)
+
+
+proj_ln_bwd_bf16.launches = 0
 
 
 def _ffw_shapes(x, d, f):
@@ -652,22 +792,20 @@ def _check_ffw_width(f: int) -> None:
         raise ValueError(f"kernel takes d_ff a multiple of {FFW_CHUNK}, got {f}")
 
 
-def ffw_ln_fwd(x, w1, b1, w2, b2, gamma, beta, fmask, rmask, inv_keep: float, eps: float,
-               d_valid: Optional[int] = None):
-    """Kernel wrapper for the FFW half's forward -> ``out [N, D]``; the
-    LayerNorm over the first ``d_valid`` columns (all with None; the inputs
-    zero past them)."""
+def _ffw_ln_fwd(wrapper, bf16: bool, x, w1, b1, w2, b2, gamma, beta, fmask, rmask,
+                inv_keep: float, eps: float, d_valid: Optional[int]):
+    """The body of both FFW forward entries."""
     d, f = x.shape[-1], w1.shape[-1]
     tensors = {"x": x, "w1": w1, "b1": b1, "w2": w2, "b2": b2, "gamma": gamma,
                "beta": beta, "fmask": fmask, "rmask": rmask}
     _check(tensors, _ffw_shapes(x, d, f), x.device)
     d_valid = _d_valid(d_valid, d)
     if x.device.type == "cpu":
-        return ffw_ln_fwd_reference(x, w1, b1, w2, b2, gamma, beta, fmask, rmask, inv_keep, eps,
-                                    d_valid)
+        reference = ffw_ln_fwd_bf16_reference if bf16 else ffw_ln_fwd_reference
+        return reference(x, w1, b1, w2, b2, gamma, beta, fmask, rmask, inv_keep, eps, d_valid)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    _check_kernel_inputs(tensors, d)
+    _check_kernel_inputs(tensors, d, _FFW_BF16 if bf16 else ())
     _check_ffw_width(f)
     if x.shape[0] == 0:
         return torch.empty_like(x)
@@ -675,89 +813,137 @@ def ffw_ln_fwd(x, w1, b1, w2, b2, gamma, beta, fmask, rmask, inv_keep: float, ep
                               d_valid)[0]
 
 
-def _ffw_ln_fwd_launch(x, w1, b1, w2, b2, gamma, beta, fmask, rmask, inv_keep: float,
-                       eps: float, d_valid: Optional[int] = None):
-    """``ffw_ln_fwd``'s kernels on checked CUDA inputs with N > 0 ->
-    ``(out, hd)``: the hidden ``relu(x @ w1 + b1) * fmask / keep`` lives in
-    an ``[N, d_ff]`` scratch buffer allocated here (134 MB at N = 16384,
-    d_ff = 2048) between the two launches."""
-    (n, d), f = x.shape, w1.shape[-1]
-    out = torch.empty_like(x)
-    hd = torch.empty((n, f), device=x.device)
-    lib, fn = _fn("ffw_ln", "msfa_ffw_ln_fwd", 11, 4, 2)
-    with torch.cuda.device(x.device):
-        code = fn(x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-                  gamma.data_ptr(), beta.data_ptr(), _ptr(fmask), _ptr(rmask), out.data_ptr(),
-                  hd.data_ptr(), n, d, _d_valid(d_valid, d), f, float(inv_keep), float(eps),
-                  _stream(x.device))
-    _build.check(lib, code, "ffw_ln_fwd")
-    ffw_ln_fwd.launches += 1
-    return out, hd
+def ffw_ln_fwd(x, w1, b1, w2, b2, gamma, beta, fmask, rmask, inv_keep: float, eps: float,
+               d_valid: Optional[int] = None):
+    """Kernel wrapper for the FFW half's forward -> ``out [N, D]``; the
+    LayerNorm over the first ``d_valid`` columns (all with None; the inputs
+    zero past them)."""
+    return _ffw_ln_fwd(ffw_ln_fwd, False, x, w1, b1, w2, b2, gamma, beta, fmask, rmask,
+                       inv_keep, eps, d_valid)
 
 
 ffw_ln_fwd.launches = 0
 
 
-def ffw_ln_bwd(x, w1, b1, w2, b2, gamma, beta, fmask, rmask, dout, inv_keep: float,
-               eps: float, d_valid: Optional[int] = None):
-    """Kernel wrapper for the FFW half's backward ->
-    ``(dx, dw1, db1, dw2, db2, dgamma, dbeta)``."""
+def ffw_ln_fwd_bf16(x, w1, b1, w2, b2, gamma, beta, fmask, rmask, inv_keep: float, eps: float,
+                    d_valid: Optional[int] = None):
+    """Kernel wrapper for the FFW half's bf16 entry -> ``out [N, D]`` in
+    bfloat16 from bfloat16 x, w1 and w2 (f32 biases, gamma, beta)."""
+    return _ffw_ln_fwd(ffw_ln_fwd_bf16, True, x, w1, b1, w2, b2, gamma, beta, fmask, rmask,
+                       inv_keep, eps, d_valid)
+
+
+ffw_ln_fwd_bf16.launches = 0
+
+
+def _ffw_ln_fwd_launch(x, w1, b1, w2, b2, gamma, beta, fmask, rmask, inv_keep: float,
+                       eps: float, d_valid: Optional[int] = None):
+    """The FFW forward entry of ``x``'s type (f32, or bf16: ``ffw_ln_fwd_bf16``)
+    on checked CUDA inputs with N > 0 -> ``(out, hd)``: the hidden
+    ``relu(x @ w1 + b1) * fmask / keep``, in ``x``'s type, lives in an
+    ``[N, d_ff]`` scratch buffer allocated here (134 MB at N = 16384, d_ff =
+    2048, in f32) between the two launches."""
+    (n, d), f = x.shape, w1.shape[-1]
+    bf16 = x.dtype == torch.bfloat16
+    out = torch.empty_like(x)
+    hd = torch.empty((n, f), device=x.device, dtype=x.dtype)
+    lib, fn = _fn("ffw_ln", f"msfa_ffw_ln_fwd{_sfx(bf16)}", 11, 4, 2)
+    with torch.cuda.device(x.device):
+        code = fn(x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
+                  gamma.data_ptr(), beta.data_ptr(), _ptr(fmask), _ptr(rmask), out.data_ptr(),
+                  hd.data_ptr(), n, d, _d_valid(d_valid, d), f, float(inv_keep), float(eps),
+                  _stream(x.device))
+    wrapper = ffw_ln_fwd_bf16 if bf16 else ffw_ln_fwd
+    _build.check(lib, code, wrapper.__name__)
+    wrapper.launches += 1
+    return out, hd
+
+
+def _ffw_ln_bwd(wrapper, bf16: bool, x, w1, b1, w2, b2, gamma, beta, fmask, rmask, dout,
+                inv_keep: float, eps: float, d_valid: Optional[int]):
+    """The body of both FFW backward entries."""
     d, f = x.shape[-1], w1.shape[-1]
     tensors = {"x": x, "w1": w1, "b1": b1, "w2": w2, "b2": b2, "gamma": gamma,
                "beta": beta, "fmask": fmask, "rmask": rmask, "dout": dout}
     _check(tensors, {**_ffw_shapes(x, d, f), "dout": x.shape}, x.device)
     d_valid = _d_valid(d_valid, d)
     if x.device.type == "cpu":
-        return ffw_ln_bwd_reference(x, w1, b1, w2, b2, gamma, beta, fmask, rmask, dout,
-                                    inv_keep, eps, d_valid)
+        reference = ffw_ln_bwd_bf16_reference if bf16 else ffw_ln_bwd_reference
+        return reference(x, w1, b1, w2, b2, gamma, beta, fmask, rmask, dout, inv_keep, eps,
+                         d_valid)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    _check_kernel_inputs(tensors, d)
+    _check_kernel_inputs(tensors, d, _FFW_BF16 if bf16 else ())
     _check_ffw_width(f)
     if x.shape[0] == 0:
         dgamma, dbeta, db2 = torch.zeros((3, d), device=x.device).unbind(0)
-        return (torch.empty_like(x), torch.zeros((d, f), device=x.device),
-                torch.zeros((f,), device=x.device), torch.zeros((f, d), device=x.device), db2,
-                dgamma, dbeta)
+        return (torch.empty_like(x), torch.zeros_like(w1), torch.zeros((f,), device=x.device),
+                torch.zeros_like(w2), db2, dgamma, dbeta)
     return _ffw_ln_bwd_launch(x, w1, b1, w2, b2, gamma, beta, fmask, rmask, dout, inv_keep,
                               eps, d_valid)[0]
 
 
+def ffw_ln_bwd(x, w1, b1, w2, b2, gamma, beta, fmask, rmask, dout, inv_keep: float,
+               eps: float, d_valid: Optional[int] = None):
+    """Kernel wrapper for the FFW half's backward ->
+    ``(dx, dw1, db1, dw2, db2, dgamma, dbeta)``."""
+    return _ffw_ln_bwd(ffw_ln_bwd, False, x, w1, b1, w2, b2, gamma, beta, fmask, rmask, dout,
+                       inv_keep, eps, d_valid)
+
+
+ffw_ln_bwd.launches = 0
+
+
+def ffw_ln_bwd_bf16(x, w1, b1, w2, b2, gamma, beta, fmask, rmask, dout, inv_keep: float,
+                    eps: float, d_valid: Optional[int] = None):
+    """Kernel wrapper for the FFW half's bf16 backward ->
+    ``(dx, dw1, db1, dw2, db2, dgamma, dbeta)``, dx, dw1 and dw2 bfloat16,
+    from bfloat16 x, w1, w2 and cotangent ``dout``."""
+    return _ffw_ln_bwd(ffw_ln_bwd_bf16, True, x, w1, b1, w2, b2, gamma, beta, fmask, rmask,
+                       dout, inv_keep, eps, d_valid)
+
+
+ffw_ln_bwd_bf16.launches = 0
+
+
 def _ffw_ln_bwd_launch(x, w1, b1, w2, b2, gamma, beta, fmask, rmask, dout, inv_keep: float,
                        eps: float, d_valid: Optional[int] = None):
-    """``ffw_ln_bwd``'s kernels on checked CUDA inputs with N > 0 ->
-    ``(grads, hd)``. The kernels keep the recomputed hidden ``hd`` (the
+    """The FFW backward entry of ``x``'s type on checked CUDA inputs with N >
+    0 -> ``(grads, hd)``. The kernels keep the recomputed hidden ``hd`` (the
     forward's kernel, the same bits) and its gradient in two ``[N, d_ff]``
-    scratch buffers allocated here (134 MB each at N = 16384, d_ff = 2048),
-    with dy and the per-block and per-split partials of the sums over rows."""
+    scratch buffers allocated here (134 MB each at N = 16384, d_ff = 2048, in
+    f32), with dy and the per-block and per-split partials of the sums over
+    rows; with bf16 those three in bf16 (each rounded as the products take
+    it), dw1, dw2 and dx bf16, and dr waits for dx's product in f32 scratch
+    (in f32 it waits in dx)."""
     (n, d), f = x.shape, w1.shape[-1]
+    bf16 = x.dtype == torch.bfloat16
+    act = dict(device=x.device, dtype=x.dtype)
     dx = torch.empty_like(x)
-    dw1 = torch.empty((d, f), device=x.device)
+    dw1, dw2 = torch.empty((d, f), **act), torch.empty((f, d), **act)
     db1 = torch.empty((f,), device=x.device)
-    dw2 = torch.empty((f, d), device=x.device)
     sums = torch.empty((3, d), device=x.device)
     splits = _grad_splits(n, _grad_tiles(f, d))
-    hd = torch.empty((n, f), device=x.device)
-    dpre = torch.empty((n, f), device=x.device)
+    hd, dpre = torch.empty((n, f), **act), torch.empty((n, f), **act)
     dy = torch.empty_like(x)
+    dr = (torch.empty((n, d), device=x.device),) if bf16 else ()
     ln_part = torch.empty((math.ceil(n / ROWS_D), 3, d), device=x.device)
     db1_part = torch.empty((math.ceil(n / ROWS_F), f), device=x.device)
     dw_part = torch.empty((splits, d * f), device=x.device)
-    lib, fn = _fn("ffw_ln", "msfa_ffw_ln_bwd", 20, 5, 2)
+    lib, fn = _fn("ffw_ln", f"msfa_ffw_ln_bwd{_sfx(bf16)}", 20 + len(dr), 5, 2)
     with torch.cuda.device(x.device):
         code = fn(x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
                   gamma.data_ptr(), _ptr(fmask), _ptr(rmask), dout.data_ptr(), dx.data_ptr(),
                   dw1.data_ptr(), db1.data_ptr(), dw2.data_ptr(), sums.data_ptr(),
-                  hd.data_ptr(), dpre.data_ptr(), dy.data_ptr(), ln_part.data_ptr(),
-                  db1_part.data_ptr(), dw_part.data_ptr(), n, d, _d_valid(d_valid, d), f,
-                  splits, float(inv_keep), float(eps), _stream(x.device))
-    _build.check(lib, code, "ffw_ln_bwd")
-    ffw_ln_bwd.launches += 1
+                  hd.data_ptr(), dpre.data_ptr(), dy.data_ptr(), *(t.data_ptr() for t in dr),
+                  ln_part.data_ptr(), db1_part.data_ptr(), dw_part.data_ptr(), n, d,
+                  _d_valid(d_valid, d), f, splits, float(inv_keep), float(eps),
+                  _stream(x.device))
+    wrapper = ffw_ln_bwd_bf16 if bf16 else ffw_ln_bwd
+    _build.check(lib, code, wrapper.__name__)
+    wrapper.launches += 1
     dgamma, dbeta, db2 = sums.unbind(0)
     return (dx, dw1, db1, dw2, db2, dgamma, dbeta), hd
-
-
-ffw_ln_bwd.launches = 0
 
 
 # ------------------------------------------------------------ autograd
@@ -765,12 +951,15 @@ ffw_ln_bwd.launches = 0
 
 class FusedProjResidualLN(torch.autograd.Function):
     """``LayerNorm(x + dropout(a @ wo + bo))`` with the kernel pair as forward
-    and backward (the JAX package's custom VJP ``_proj_ln_core``)."""
+    and backward (the JAX package's custom VJP ``_proj_ln_core``): the f32
+    entries for an f32 ``x``, the bf16 entries for a bfloat16 one (x, a and
+    wo bf16, the output and dx, da, dwo too)."""
 
     @staticmethod
     def forward(ctx, x, a, wo, bo, gamma, beta, rmask, inv_keep: float, eps: float,
                 d_valid: int):
-        out = proj_ln_fwd(x, a, wo, bo, gamma, beta, rmask, inv_keep, eps, d_valid)
+        fwd = proj_ln_fwd_bf16 if x.dtype == torch.bfloat16 else proj_ln_fwd
+        out = fwd(x, a, wo, bo, gamma, beta, rmask, inv_keep, eps, d_valid)
         ctx.save_for_backward(x, a, wo, bo, gamma, beta, rmask)
         ctx.inv_keep, ctx.eps, ctx.d_valid = inv_keep, eps, d_valid
         return out
@@ -778,19 +967,23 @@ class FusedProjResidualLN(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         x, a, wo, bo, gamma, beta, rmask = ctx.saved_tensors
-        grads = proj_ln_bwd(x, a, wo, bo, gamma, beta, rmask, dout.float().contiguous(),
-                            ctx.inv_keep, ctx.eps, ctx.d_valid)
+        bwd = proj_ln_bwd_bf16 if x.dtype == torch.bfloat16 else proj_ln_bwd
+        grads = bwd(x, a, wo, bo, gamma, beta, rmask, dout.to(x.dtype).contiguous(),
+                    ctx.inv_keep, ctx.eps, ctx.d_valid)
         return (*grads, None, None, None, None)
 
 
 class FusedMlpResidualLN(torch.autograd.Function):
     """``LayerNorm(x + dropout(ffw(x)))`` with the kernel pair as forward and
-    backward (the JAX package's custom VJP ``_ffw_ln_core``)."""
+    backward (the JAX package's custom VJP ``_ffw_ln_core``): the f32
+    entries for an f32 ``x``, the bf16 entries for a bfloat16 one (x, w1 and
+    w2 bf16, the output and dx, dw1, dw2 too)."""
 
     @staticmethod
     def forward(ctx, x, w1, b1, w2, b2, gamma, beta, fmask, rmask, inv_keep: float,
                 eps: float, d_valid: int):
-        out = ffw_ln_fwd(x, w1, b1, w2, b2, gamma, beta, fmask, rmask, inv_keep, eps, d_valid)
+        fwd = ffw_ln_fwd_bf16 if x.dtype == torch.bfloat16 else ffw_ln_fwd
+        out = fwd(x, w1, b1, w2, b2, gamma, beta, fmask, rmask, inv_keep, eps, d_valid)
         ctx.save_for_backward(x, w1, b1, w2, b2, gamma, beta, fmask, rmask)
         ctx.inv_keep, ctx.eps, ctx.d_valid = inv_keep, eps, d_valid
         return out
@@ -798,8 +991,9 @@ class FusedMlpResidualLN(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         x, w1, b1, w2, b2, gamma, beta, fmask, rmask = ctx.saved_tensors
-        grads = ffw_ln_bwd(x, w1, b1, w2, b2, gamma, beta, fmask, rmask,
-                           dout.float().contiguous(), ctx.inv_keep, ctx.eps, ctx.d_valid)
+        bwd = ffw_ln_bwd_bf16 if x.dtype == torch.bfloat16 else ffw_ln_bwd
+        grads = bwd(x, w1, b1, w2, b2, gamma, beta, fmask, rmask,
+                    dout.to(x.dtype).contiguous(), ctx.inv_keep, ctx.eps, ctx.d_valid)
         return (*grads, None, None, None, None, None)
 
 
@@ -900,17 +1094,19 @@ def fused_proj_residual_ln(
     the signature of the reference's ``fused_proj_residual_ln``. A d the
     kernels are not built for runs at ``kernel_width`` with zero columns past
     it (``mlp_route``: the same function); one above ``KERNEL_WIDTHS``'
-    largest raises on the card."""
+    largest raises on the card. A bfloat16 ``x`` runs the bf16 entries, x,
+    ``attended`` and ``wo`` in bf16 (the output bf16); otherwise all f32."""
     rows, d = x.shape
     width = kernel_width(d) or d
+    dt = x.dtype if x.dtype == torch.bfloat16 else torch.float32
 
-    def cols(t):  # zero columns up to the kernels' width
-        return _pad_cols(t.float(), width).contiguous()
+    def cols(t, dtype=torch.float32):  # zero columns up to the kernels' width
+        return _pad_cols(t.to(dtype), width).contiguous()
 
     out = FusedProjResidualLN.apply(
-        cols(x), cols(attended), cols(cols(wo).t()).t().contiguous(), cols(bo), cols(gamma),
-        cols(beta), _pad_cols(_as_mask(res_mask, rows), width), _inv_keep(keep_prob),
-        float(eps), d,
+        cols(x, dt), cols(attended, dt), cols(cols(wo, dt).t(), dt).t().contiguous(), cols(bo),
+        cols(gamma), cols(beta), _pad_cols(_as_mask(res_mask, rows), width),
+        _inv_keep(keep_prob), float(eps), d,
     )
     return out[:, :d] if width != d else out
 
@@ -934,17 +1130,19 @@ def fused_mlp_residual_ln(
     launches; the backward recomputes it. Widths the kernels are not built
     for run at ``kernel_width`` and ``ffw_width`` with zero columns past them
     (``mlp_route``: the same function); a d_in above ``KERNEL_WIDTHS``'
-    largest raises on the card."""
+    largest raises on the card. A bfloat16 ``x`` runs the bf16 entries, x,
+    w1 and w2 in bf16 (the output bf16); otherwise all f32."""
     rows, d_in = x.shape
     width = kernel_width(d_in) or d_in
-    w1, b1, w2, ffw_mask = _pad_ffw(w1.float(), b1.float(), w2.float(),
+    dt = x.dtype if x.dtype == torch.bfloat16 else torch.float32
+    w1, b1, w2, ffw_mask = _pad_ffw(w1.to(dt), b1.float(), w2.to(dt),
                                     _as_mask(ffw_mask, rows), w1.shape[-1])
 
-    def cols(t):  # zero columns up to the kernels' width
-        return _pad_cols(t.float(), width).contiguous()
+    def cols(t, dtype=torch.float32):  # zero columns up to the kernels' width
+        return _pad_cols(t.to(dtype), width).contiguous()
 
     out = FusedMlpResidualLN.apply(
-        cols(x), cols(w1.t()).t().contiguous(), b1.contiguous(), cols(w2), cols(b2),
+        cols(x, dt), cols(w1.t(), dt).t().contiguous(), b1.contiguous(), cols(w2, dt), cols(b2),
         cols(gamma), cols(beta), ffw_mask, _pad_cols(_as_mask(res_mask, rows), width),
         _inv_keep(keep_prob), float(eps), d_in,
     )

@@ -9,10 +9,13 @@ import torch
 
 def pin_float32() -> None:
     """Keep float32 products and convolutions in full float32 on the card (no
-    TF32: the port is held to the reference in f32), and let cuDNN pick only
-    deterministic convolution algorithms (no atomics), so a seed repeats a
-    run bit for bit. These are process-wide switches of PyTorch."""
+    TF32: the port is held to the reference in f32), sum bf16 products in
+    f32 (cuBLAS may otherwise reduce partial bf16 sums in bf16; the
+    reference rounds a bf16 product once, at its end), and let cuDNN pick
+    only deterministic convolution algorithms (no atomics), so a seed
+    repeats a run bit for bit. These are process-wide switches of PyTorch."""
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cudnn.deterministic = True
     torch.backends.cudnn.benchmark = False

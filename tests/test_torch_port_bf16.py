@@ -1,0 +1,639 @@
+"""PyTorch port under ``mixed_precision`` (the reference's end-to-end bf16),
+held against the JAX package on the CPU at hidden 32, T = 24, four streams,
+seeded numpy inputs and the same weights (converted both ways).
+
+The JAX model runs with its kernels on in interpret mode, eagerly (op by
+op): each bf16 operation then rounds where the program says so. XLA's CPU
+compiler, when it jits the whole serving function, drops some of those
+roundings (a value rounded to bf16 and read back in f32 is fused away), so
+the jitted JAX function differs from its own eager run; the port is held to
+the program as written.
+
+The bf16 twins of the packed attention pair (rows 1-2) and of both
+residual-LN pairs (rows 12-15) against the JAX kernel functions on bf16
+inputs; the product scheme of their CUDA entries (a bf16 operand exact in
+TF32: one TF32 product for two bf16 operands, two for a bf16 and an f32 one)
+emulated on the CPU against the twins; served logits of the four fusion
+heads with one CNN stream; one train-mode loss and every gradient against
+``jax.value_and_grad`` at dropout 0; the types of parameters and logits; the
+routes under bf16 and their refusals; a checkpoint round trip.
+"""
+
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from multimodal_sensor_fusion_with_attention_rajeevatla_tpu.models import encoders as jenc
+from multimodal_sensor_fusion_with_attention_rajeevatla_tpu.models.module import (
+    MultimodalFusionModel as JaxModel,
+)
+from multimodal_sensor_fusion_with_attention_rajeevatla_tpu.ops import pallas_attention as jpa
+from multimodal_sensor_fusion_with_attention_rajeevatla_tpu.ops import pallas_mlp as jmlp
+from multimodal_sensor_fusion_with_attention_rajeevatla_tpu.ops.metrics import (
+    cross_entropy_loss as jax_cross_entropy_loss,
+)
+from multimodal_sensor_fusion_with_attention_rajeevatla_tpu.serving import (
+    make_serving_fn as jax_serving_fn,
+)
+from multimodal_sensor_fusion_with_attention_rajeevatla_tpu.utils.config import (
+    load_config as jax_load_config,
+)
+from multimodal_sensor_fusion_with_attention_rajeevatla_torch.convert import (
+    from_flax_variables,
+    to_flax_tree,
+    to_flax_variables,
+)
+from multimodal_sensor_fusion_with_attention_rajeevatla_torch.models import encoders as tenc
+from multimodal_sensor_fusion_with_attention_rajeevatla_torch.models.module import (
+    MultimodalFusionModel,
+)
+from multimodal_sensor_fusion_with_attention_rajeevatla_torch.ops import attention as ta
+from multimodal_sensor_fusion_with_attention_rajeevatla_torch.ops import mlp as tm
+from multimodal_sensor_fusion_with_attention_rajeevatla_torch.ops.metrics import (
+    cross_entropy_loss,
+)
+from multimodal_sensor_fusion_with_attention_rajeevatla_torch.serving import make_serving_fn
+from multimodal_sensor_fusion_with_attention_rajeevatla_torch.train.checkpoint import (
+    CheckpointManager,
+    load_checkpoint,
+)
+from multimodal_sensor_fusion_with_attention_rajeevatla_torch.utils.config import load_config
+from test_torch_port_zoo import _load_encoder
+from test_torch_port_tf32 import _mm3
+from torch_port_schemes import (
+    CHUNK_K,
+    _ffw_ln_bf16,
+    _mm_n,
+    _proj_ln_bf16,
+    _tf32_cut,
+    _tf32_hi,
+    bf16_ulps_apart,
+    exact_ffw_ln_case,
+    ffw_ln_scheme_hidden,
+)
+
+REPO = Path(__file__).resolve().parent.parent
+NAMES = ("imu_hand", "imu_chest", "imu_ankle", "heart_rate")
+DIMS = (17, 17, 17, 1)
+SMALL = ["model.hidden_dim=32", "model.output_dim=16"]
+KERNELS_ON = ["model.flash_attention=true", "model.fused_mlp=true", "model.fused_mlp_ln=true"]
+BF16 = ["mixed_precision=true"]
+CNN_STREAM = ["model.encoders.imu_chest.encoder_type=cnn"]
+SMOOTHING = 0.05
+BF = torch.bfloat16
+# a twin's f32 output against the JAX kernel's: the same f32 arithmetic on
+# the same bf16 values, the sums in another order
+F32_TOL = dict(rtol=2e-5, atol=2e-5)
+# a bf16 output, max abs error over the largest magnitude: where the two f32
+# sums straddle a rounding boundary the bf16 result differs by one ulp, at
+# most 2^-7 of the largest magnitude
+BF16_TOL = 1e-2
+# the port's bf16 logits against JAX's, norm-wise, as a share of JAX's own
+# bf16-vs-f32 gap on the same weights and inputs
+GAP_SHARE = 0.25
+# one train-mode step at dropout 0: the loss relative; each gradient's max
+# abs error over its largest magnitude, floored at 1e-2 of the largest
+# gradient (the key biases' gradients are zero up to rounding); the whole
+# gradient norm-wise. The forward is JAX's bit for bit; the backward's
+# products and sums round in another order, and a bf16 rounding that breaks
+# the other way moves its element one ulp through every rounded product after
+LOSS_TOL = 1e-5
+GRAD_TOL = 5e-2
+GRAD_NORM_TOL = 1e-2
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Tiny tensors: torch's intra-op pool costs more than it saves beside
+    other test workers. One thread, the pool's size restored after."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def _flat(tree, prefix=()):
+    for key, value in tree.items():
+        if isinstance(value, dict):
+            yield from _flat(value, prefix + (key,))
+        else:
+            yield "/".join(prefix + (key,)), np.asarray(value)
+
+
+def _norm_err(got, want) -> float:
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.linalg.norm(got - want) / np.linalg.norm(want))
+
+
+def _rel(got, want) -> float:
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    scale = np.abs(want).max()
+    diff = np.abs(got - want).max()
+    return float(diff / scale) if scale > 0 else float(diff)
+
+
+def _bf16_np(x):
+    """f32 numpy values rounded to bf16 (the inputs both sides take)."""
+    return torch.from_numpy(np.asarray(x, np.float32)).to(BF).float().numpy()
+
+
+def _batch(seed=20, batch=4):
+    rng = np.random.default_rng(seed)
+    feats = {n: rng.standard_normal((batch, 24, d)).astype(np.float32)
+             for n, d in zip(NAMES, DIMS)}
+    mask = np.ones((batch, 4), np.float32)
+    mask[:, NAMES.index("imu_ankle")] = 0.0
+    mask[2, :] = [0, 0, 0, 1]
+    lengths = np.array([24, 7, 0, 13], np.int32)
+    labels = rng.integers(0, 25, batch).astype(np.int32)
+    weight = np.array([1, 1, 1, 0], np.float32)  # a padded row
+    return feats, mask, lengths, labels, weight
+
+
+# ---- the kernels' twins against the JAX kernel functions --------------------
+
+
+def _packed_case(seed, batch=3, seq=24, heads=4, d=8):
+    rng = np.random.default_rng(seed)
+    qkv = _bf16_np(rng.standard_normal((batch, seq, 3 * heads * d)))
+    lengths = np.array([seq, 9, 0][:batch], np.int32)
+    dout = _bf16_np(rng.standard_normal((batch, seq, heads * d)))  # a bf16 cotangent
+    return qkv, lengths, dout, heads
+
+
+@pytest.mark.parametrize("direction", ["forward", "backward"])
+def test_packed_attention_bf16_twins_match_the_jax_kernels(direction):
+    """Rows 1-2: the reference's packed pair in interpret mode on a bf16 qkv
+    (it casts it to f32: out f32, dqkv the cast's VJP, bf16) against the bf16
+    twins, and against PackedAttention, which runs them."""
+    qkv, lengths, dout, heads = _packed_case(1)
+    jq = jnp.asarray(qkv).astype(jnp.bfloat16)
+    j_fn = lambda x: jpa.flash_mha_packed(  # noqa: E731
+        x, jnp.asarray(lengths), num_heads=heads, interpret=True)
+    j_out, vjp = jax.vjp(j_fn, jq)
+    tq = torch.from_numpy(qkv).to(BF)
+    tl = torch.from_numpy(lengths)
+    scale = (qkv.shape[-1] // 3 // heads) ** -0.5
+    out, lse = ta.packed_attention_bf16_reference(tq, tl, heads, scale)
+    if direction == "forward":
+        assert j_out.dtype == jnp.float32 and out.dtype == torch.float32
+        np.testing.assert_allclose(out.numpy(), np.asarray(j_out), **F32_TOL)
+        return
+    (j_dqkv,) = vjp(jnp.asarray(dout))
+    got = ta.packed_attention_bwd_bf16_reference(tq, tl, out, lse, torch.from_numpy(dout),
+                                                 heads, scale)
+    assert j_dqkv.dtype == jnp.bfloat16 and got.dtype == BF
+    want = np.asarray(j_dqkv.astype(jnp.float32))
+    assert _rel(got.float().numpy(), want) < BF16_TOL
+    # the autograd Function on the bf16 entries (their twins here)
+    leaf = tq.clone().requires_grad_()
+    ta.flash_mha_packed(leaf, tl, num_heads=heads).backward(torch.from_numpy(dout))
+    assert leaf.grad.dtype == BF
+    assert _rel(leaf.grad.float().numpy(), want) < BF16_TOL
+
+
+def _ln_case(family, seed, n=40, d=32, f=128, keep=0.8):
+    rng = np.random.default_rng(seed)
+
+    def w(*shape, s=1.0):
+        return (rng.standard_normal(shape) * s).astype(np.float32)
+
+    rmask = (rng.random((n, d)) < keep).astype(np.uint8)
+    if family == "proj_ln":
+        arrays = [_bf16_np(w(n, d)), _bf16_np(w(n, d)), _bf16_np(w(d, d, s=d**-0.5)),
+                  w(d, s=0.1), 1 + w(d, s=0.1), w(d, s=0.1)]
+        masks = [rmask]
+    else:
+        arrays = [_bf16_np(w(n, d)), _bf16_np(w(d, f, s=d**-0.5)), w(f, s=0.1),
+                  _bf16_np(w(f, d, s=f**-0.5)), w(d, s=0.1), 1 + w(d, s=0.1), w(d, s=0.1)]
+        masks = [(rng.random((n, f)) < keep).astype(np.uint8), rmask]
+    return arrays, masks, _bf16_np(w(n, d)), keep
+
+
+# the bf16 operands of each pair (the rest are f32), as the model passes them
+_BF16_ARGS = {"proj_ln": (0, 1, 2), "ffw_ln": (0, 1, 3)}
+
+
+def _jax_ln(family, arrays, masks, keep):
+    args = [jnp.asarray(a).astype(jnp.bfloat16) if i in _BF16_ARGS[family] else jnp.asarray(a)
+            for i, a in enumerate(arrays)]
+    if family == "proj_ln":
+        return (lambda *p: jmlp.fused_proj_residual_ln(
+            *p, res_mask=jnp.asarray(masks[0]), keep_prob=keep, interpret=True)), args
+    return (lambda *p: jmlp.fused_mlp_residual_ln(
+        *p, ffw_mask=jnp.asarray(masks[0]), res_mask=jnp.asarray(masks[1]), keep_prob=keep,
+        interpret=True)), args
+
+
+def _torch_ln(family, arrays, masks):
+    return [torch.from_numpy(a).to(BF) if i in _BF16_ARGS[family] else torch.from_numpy(a)
+            for i, a in enumerate(arrays)] + [torch.from_numpy(m) for m in masks]
+
+
+@pytest.mark.parametrize("family", ["proj_ln", "ffw_ln"])
+@pytest.mark.parametrize("direction", ["forward", "backward"])
+def test_residual_ln_bf16_twins_match_the_jax_kernels(family, direction):
+    """Rows 12-15: the reference's residual-LN kernels in interpret mode on
+    bf16 x, attention output and weights (their compute type is x's) against
+    the bf16 twins: the output and dx, da, dW in bf16, the rest f32."""
+    arrays, masks, dout, keep = _ln_case(family, 3)
+    fn, jargs = _jax_ln(family, arrays, masks, keep)
+    j_out, vjp = jax.vjp(fn, *jargs)
+    targs = _torch_ln(family, arrays, masks)
+    inv_keep = tm._inv_keep(keep)
+    if direction == "forward":
+        out = getattr(tm, f"{family}_fwd_bf16")(*targs, inv_keep, 1e-6)
+        assert out.dtype == BF and j_out.dtype == jnp.bfloat16
+        assert _rel(out.float().numpy(), np.asarray(j_out.astype(jnp.float32))) < BF16_TOL
+        return
+    j_grads = vjp(jnp.asarray(dout).astype(jnp.bfloat16))
+    grads = getattr(tm, f"{family}_bwd_bf16")(*targs, torch.from_numpy(dout).to(BF), inv_keep,
+                                              1e-6)
+    # the wrapper's order (proj: dx, da, dwo, dbo, dgamma, dbeta; ffw: dx,
+    # dw1, db1, dw2, db2, dgamma, dbeta) is the argument order of both
+    assert len(grads) == len(arrays)
+    # every output within one bf16 rounding of its largest magnitude: the f32
+    # sums (db1 over dpre) take bf16-rounded values too
+    for i, (got, want) in enumerate(zip(grads, j_grads)):
+        bf16 = i in _BF16_ARGS[family]
+        assert got.dtype == (BF if bf16 else torch.float32)
+        assert want.dtype == (jnp.bfloat16 if bf16 else jnp.float32)
+        assert _rel(got.float().numpy(), np.asarray(want.astype(jnp.float32))) < BF16_TOL, i
+
+
+# ---- the CUDA entries' product scheme, emulated -------------------------------
+
+
+def test_bf16_operands_drop_only_zero_terms():
+    """A bf16 value is exact in TF32 (hi alone, lo zero), so dropping its lo
+    terms leaves mma3's sum as it is: one product for two bf16 operands, two
+    for a bf16 and an f32 one, the same bits as three on f32 copies."""
+    rng = np.random.default_rng(5)
+    a = torch.from_numpy(rng.standard_normal((16, 64)).astype(np.float32))
+    b = torch.from_numpy(_bf16_np(rng.standard_normal((64, 8))))
+    ab = torch.from_numpy(_bf16_np(a.numpy()))
+    assert torch.equal(_tf32_hi(b), b) and not torch.any(_tf32_cut(b - _tf32_hi(b)))
+    assert torch.equal(_mm_n(a, b, True, False), _mm3(a, b))
+    assert torch.equal(_mm_n(ab, b, False, False), _mm3(ab, b))
+    # two bf16 operands multiply exactly in f32: the product is the f32 product
+    assert torch.equal(_mm_n(ab, b, False, False), ab @ b)
+
+
+def _packed_fwd_bf16(qkv, lengths, heads, scale, tile=64):
+    """``packed_attention_fwd_bf16``'s arithmetic: s = (q k^T) * scale with
+    q k^T one TF32 product, an online softmax over 64-key tiles, P.V two TF32
+    products in 16-key fresh accumulators added to O in f32."""
+    batch, seq, three_f = qkv.shape
+    d = three_f // 3 // heads
+    x = qkv.float().reshape(batch, seq, 3, heads, d).permute(2, 0, 3, 1, 4)
+    q, k, v = (x[i].reshape(batch * heads, seq, d) for i in range(3))
+    lens = lengths.long().repeat_interleave(heads)[:, None, None]
+    m = torch.full((batch * heads, seq, 1), -torch.inf)
+    l, o = torch.zeros(batch * heads, seq, 1), torch.zeros_like(q)
+    for k0 in range(0, seq, tile):
+        keys = slice(k0, min(k0 + tile, seq))
+        active = k0 < lens
+        s = _mm_n(q, k[:, keys].transpose(1, 2), False, False) * scale
+        s = torch.where(torch.arange(k0, keys.stop)[None, None, :] < lens, s, -torch.inf)
+        m_new = torch.where(active, torch.maximum(m, s.amax(-1, keepdim=True)), m)
+        rescale = torch.where(active, torch.exp(m - m_new), 1.0)
+        p = torch.where(active, torch.exp(s - m_new), 0.0)
+        l, o = l * rescale + p.sum(-1, keepdim=True), o * rescale
+        for c0 in range(0, p.shape[-1], 16):
+            o = o + _mm_n(p[..., c0:c0 + 16], v[:, keys][:, c0:c0 + 16], True, False)
+        m = m_new
+    out = torch.where(l > 0, o / torch.where(l > 0, l, 1.0), 0.0)
+    return out.reshape(batch, heads, seq, d).transpose(1, 2).reshape(batch, seq, heads * d)
+
+
+def _packed_bwd_bf16(qkv, lengths, out, lse, dout, heads, scale):
+    """``packed_attention_bwd_bf16``'s five products with their TF32 passes:
+    S^T = k q^T one, dP^T = v dout^T, dk = dS^T q and dq = dS k two, dv = P^T
+    dout three; dqkv rounded to bf16."""
+    batch, seq, three_f = qkv.shape
+    d = three_f // 3 // heads
+    x = qkv.float().reshape(batch, seq, 3, heads, d)
+    q, k, v = (x[:, :, i].transpose(1, 2) for i in range(3))
+    do = dout.reshape(batch, seq, heads, d).transpose(1, 2)
+    o = out.reshape(batch, seq, heads, d).transpose(1, 2)
+    lse_q = lse.transpose(1, 2)[:, :, None, :]
+    delta = (do * o).sum(-1)[:, :, None, :]
+    key_ok = (torch.arange(seq)[None, :] < lengths.long()[:, None])[:, None, :, None]
+    keep = key_ok & (lse_q > ta.NEG_INF / 2)
+    st = _mm_n(k, q.transpose(-1, -2), False, False) * scale
+    pt = torch.where(keep, torch.exp(st - lse_q.clamp(min=ta.NEG_INF / 2)), 0.0)
+    dst = pt * (_mm_n(v, do.transpose(-1, -2), False, True) - delta)
+    dv = _mm_n(pt, do, True, True)
+    dk = _mm_n(dst, q, True, False) * scale
+    dq = _mm_n(dst.transpose(-1, -2), k, True, False) * scale
+    dqkv = torch.stack([dq, dk, dv], dim=2).permute(0, 3, 2, 1, 4).reshape(batch, seq, three_f)
+    return dqkv.to(BF)
+
+
+@pytest.mark.parametrize("d", [8, 64])
+def test_packed_attention_bf16_scheme_holds_the_twins(d):
+    """The packed pair's bf16 entries, emulated, against their twins: the
+    forward at f32's limit, the backward's bf16 dqkv within one rounding."""
+    qkv, lengths, dout, heads = _packed_case(7, batch=3, seq=72, d=d)
+    tq, tl = torch.from_numpy(qkv).to(BF), torch.from_numpy(np.array([72, 37, 0], np.int32))
+    scale = d**-0.5
+    out, lse = ta.packed_attention_bf16_reference(tq, tl, heads, scale)
+    emu = _packed_fwd_bf16(tq, tl, heads, scale)
+    np.testing.assert_allclose(emu.numpy(), out.numpy(), rtol=1e-5, atol=1e-5)
+    td = torch.from_numpy(dout)
+    got = _packed_bwd_bf16(tq, tl, out, lse, td, heads, scale)
+    want = ta.packed_attention_bwd_bf16_reference(tq, tl, out, lse, td, heads, scale)
+    assert _rel(got.float().numpy(), want.float().numpy()) < BF16_TOL
+
+
+@pytest.mark.parametrize("family", ["proj_ln", "ffw_ln"])
+def test_residual_ln_bf16_scheme_holds_the_twins(family):
+    """Both residual-LN pairs' bf16 entries, emulated (every product of two
+    bf16 operands, one TF32 pass a k-step in 32-deep chunks, the roundings
+    of the reference's kernels), against their twins within one bf16
+    rounding of each output's largest magnitude."""
+    arrays, masks, dout, keep = _ln_case(family, 11, n=200, d=32, f=128)
+    targs = _torch_ln(family, arrays, masks)
+    inv_keep = tm._inv_keep(keep)
+    f32 = [t.float() if t.dtype == BF else t for t in targs]
+    emulate = _proj_ln_bf16 if family == "proj_ln" else _ffw_ln_bf16
+    out, grads = emulate(*f32, torch.from_numpy(dout), inv_keep, 1e-6)
+    want_out = getattr(tm, f"{family}_fwd_bf16_reference")(*targs, inv_keep, 1e-6)
+    assert _rel(out.numpy(), want_out.float().numpy()) < BF16_TOL
+    want = getattr(tm, f"{family}_bwd_bf16_reference")(*targs, torch.from_numpy(dout).to(BF),
+                                                      inv_keep, 1e-6)
+    assert CHUNK_K == 32
+    for i, (got, ref) in enumerate(zip(grads, want)):
+        assert _rel(got.numpy(), ref.float().numpy()) < BF16_TOL, i
+
+
+def test_ffw_ln_bf16_rounding_points_each_move_the_exact_case():
+    """On the inputs the card test holds the FFW bf16 entries to (every sum
+    before a rounding point exact in f32), the twins are the scheme: equal in
+    all but at most 1e-3 of the rounded outputs' entries, each within one
+    bf16 step; leaving out the hidden's, dy's or dpre's rounding moves a
+    quarter or more of the entries of every output it feeds."""
+    args, dout, inv_keep = exact_ffw_ln_case()
+    f32 = [t.float() if t.dtype == BF else t for t in args]
+    out_s, grads_s = _ffw_ln_bf16(*f32, dout.float(), inv_keep, 1e-6)
+    want = [t.to(BF) for t in (out_s, grads_s[0], grads_s[1], grads_s[3])]
+    hidden = ffw_ln_scheme_hidden(args[0], args[1], args[2], args[7], inv_keep)
+    assert torch.equal(hidden.float(), torch.relu(f32[0] @ f32[1] + f32[2]).mul(
+        args[7] * inv_keep).to(BF).float())  # exact before the rounding, in any order
+    twin_out = tm.ffw_ln_fwd_bf16_reference(*args, inv_keep, 1e-6)
+    twin = tm.ffw_ln_bwd_bf16_reference(*args, dout, inv_keep, 1e-6)
+    for a, b in zip((twin_out, twin[0], twin[1], twin[3]), want):
+        apart = bf16_ulps_apart(a, b)
+        assert apart.max() <= 1 and (apart > 0).float().mean() <= 1e-3
+    for skip, moved in (("hidden", (0, 1, 2, 3)), ("dy", (1, 2, 3)), ("dpre", (1, 2))):
+        out_v, grads_v = _ffw_ln_bf16(*f32, dout.float(), inv_keep, 1e-6, skip=(skip,))
+        variant = [t.to(BF) for t in (out_v, grads_v[0], grads_v[1], grads_v[3])]
+        for i in moved:
+            assert (variant[i] != want[i]).float().mean() > 0.25, (skip, i)
+
+
+# ---- the model against JAX ----------------------------------------------------
+
+
+def _configs(fusion, extra=()):
+    base = SMALL + KERNELS_ON + CNN_STREAM + [f"model.fusion_type={fusion}", *extra]
+    return (load_config(REPO / "config" / "base.yaml", base + BF16),
+            jax_load_config(REPO / "config" / "base.yaml", base + BF16),
+            jax_load_config(REPO / "config" / "base.yaml", base))
+
+
+@pytest.mark.parametrize("fusion", ["early", "late", "hybrid", "uncertainty"])
+def test_served_bf16_logits_match_jax(fusion):
+    """The served logits of the mixed_precision model (one CNN stream, the
+    other three transformers) against the JAX package's serving function on
+    the same weights, eager: within a quarter of JAX's own bf16-vs-f32 gap.
+    The hybrid head serves through its f32 kernel on both sides."""
+    tcfg, jcfg, jcfg32 = _configs(fusion)
+    port = MultimodalFusionModel.from_config(tcfg, device="cpu",
+                                             generator=torch.Generator().manual_seed(9))
+    variables = to_flax_variables(port)
+    feats, mask, lengths, _labels, _weight = _batch()
+    jf = {n: jnp.asarray(v) for n, v in feats.items()}
+    jargs = (jf, jnp.asarray(mask), jnp.asarray(lengths))
+    with jax.disable_jit():
+        want = np.asarray(jax_serving_fn(JaxModel.from_config(jcfg), variables,
+                                         interpret=True)(*jargs))
+    want32 = np.asarray(jax_serving_fn(JaxModel.from_config(jcfg32), variables,
+                                       interpret=True)(*jargs))
+    got = make_serving_fn(port, device="cpu")(
+        {n: torch.from_numpy(v) for n, v in feats.items()}, torch.from_numpy(mask),
+        torch.from_numpy(lengths))
+    assert got.dtype == torch.float32 and want.dtype == np.float32
+    err, gap = _norm_err(got.numpy(), want), _norm_err(want, want32)
+    print(f"{fusion}: port vs JAX bf16 {err:.3e}, JAX bf16 vs f32 {gap:.3e}")
+    assert err <= GAP_SHARE * gap
+    if fusion == "hybrid":  # the jitted serving function, for the record: not the program's roundings
+        jitted = np.asarray(jax_serving_fn(JaxModel.from_config(jcfg), variables,
+                                           interpret=True)(*jargs))
+        print(f"{fusion}: JAX bf16 jitted vs eager {_norm_err(jitted, want):.3e}, port vs "
+              f"jitted {_norm_err(got.numpy(), jitted):.3e}")
+
+
+@pytest.fixture(scope="module")
+def jax_train_reference():
+    """(flax variables, loss, grads) of the JAX mixed_precision model in train
+    mode at dropout 0, kernels on (interpret mode), hybrid head; the loss and
+    its gradient jitted, at a fifth of the eager run's time. The jitted loss
+    is the eager one bit for bit; the jitted gradient's backward rounds
+    otherwise than the eager one (XLA fuses some of its bf16 roundings
+    away), by about as much as the port's does: the tolerances hold both."""
+    tcfg = load_config(REPO / "config" / "base.yaml", SMALL + KERNELS_ON + BF16 + ["model.dropout=0"])
+    port = MultimodalFusionModel.from_config(tcfg, device="cpu",
+                                             generator=torch.Generator().manual_seed(4))
+    variables = to_flax_variables(port)
+    jmodel = JaxModel.from_config(jax_load_config(
+        REPO / "config" / "base.yaml", SMALL + KERNELS_ON + BF16 + ["model.dropout=0"]))
+    feats, mask, lengths, labels, weight = _batch()
+    jf = {n: jnp.asarray(v) for n, v in feats.items()}
+
+    def loss_fn(params):
+        logits = jmodel.apply({"params": params}, jf, jnp.asarray(mask), jnp.asarray(lengths),
+                              train=True, rngs={"dropout": jax.random.PRNGKey(0)})
+        assert logits.dtype == jnp.float32
+        return jax_cross_entropy_loss(logits, jnp.asarray(labels), SMOOTHING,
+                                      sample_weight=jnp.asarray(weight))
+
+    loss, grads = jax.jit(jax.value_and_grad(loss_fn))(variables["params"])
+    return variables, float(loss), dict(_flat(grads))
+
+
+def test_train_loss_and_every_gradient_match_jax(jax_train_reference):
+    variables, want_loss, want = jax_train_reference
+    cfg = load_config(REPO / "config" / "base.yaml", SMALL + KERNELS_ON + BF16 + ["model.dropout=0"])
+    model = MultimodalFusionModel.from_config(cfg, device="cpu")
+    model.load_state_dict(from_flax_variables(variables), strict=True)
+    feats, mask, lengths, labels, weight = _batch()
+    logits = model({n: torch.from_numpy(v) for n, v in feats.items()}, torch.from_numpy(mask),
+                   torch.from_numpy(lengths), train=True,
+                   generator=torch.Generator().manual_seed(0))
+    assert logits.dtype == torch.float32
+    loss = cross_entropy_loss(logits, torch.from_numpy(labels), SMOOTHING,
+                              sample_weight=torch.from_numpy(weight))
+    loss.backward()
+    assert loss.item() == pytest.approx(want_loss, rel=LOSS_TOL)
+    grads = {n: p.grad for n, p in model.named_parameters()}
+    assert all(g.dtype == torch.float32 for g in grads.values())
+    got = dict(_flat(to_flax_tree(grads)))
+    assert sorted(got) == sorted(want)  # every parameter has its gradient
+    floor = 1e-2 * max(np.abs(w).max() for w in want.values())
+    errs = {n: np.abs(got[n] - w).max() / max(np.abs(w).max(), floor) for n, w in want.items()}
+    whole = _norm_err(np.concatenate([got[n].ravel() for n in want]),
+                      np.concatenate([w.ravel() for w in want.values()]))
+    worst = max(errs, key=errs.get)
+    print(f"loss {loss.item():.7f} vs {want_loss:.7f}; worst gradient {worst} {errs[worst]:.3e}; "
+          f"the whole gradient norm-wise {whole:.3e}")
+    assert errs[worst] < GRAD_TOL, worst
+    assert whole < GRAD_NORM_TOL
+
+
+# ---- types, routes, refusals, checkpoints ---------------------------------------
+
+
+@pytest.mark.parametrize("preset", [None, "early_fusion", "late_fusion", "hybrid_fusion",
+                                    "uncertainty_fusion"])
+def test_params_are_f32_and_logits_f32(preset):
+    """base.yaml and the four presets of config/fusion_strategies.yaml build
+    under mixed_precision with f32 parameters; the encoders and the head
+    compute in bf16, the logits come back f32."""
+    if preset is None:
+        cfg = load_config(REPO / "config" / "base.yaml", SMALL + BF16)
+    else:
+        cfg = load_config(REPO / "config" / "fusion_strategies.yaml",
+                          [f"preset={preset}", *SMALL, *BF16])
+    model = MultimodalFusionModel.from_config(cfg, device="cpu")
+    assert model.mixed_precision and model.fusion_model.dtype == BF
+    assert all(enc.dtype == BF for enc in model.encoders.values())
+    assert all(p.dtype == torch.float32 for p in model.parameters())
+    feats, mask, lengths, _labels, _weight = _batch()
+    with torch.no_grad():
+        logits = model({n: torch.from_numpy(v) for n, v in feats.items()},
+                       torch.from_numpy(mask), torch.from_numpy(lengths))
+        encoded = model.encode({n: torch.from_numpy(v) for n, v in feats.items()},
+                               torch.from_numpy(lengths))
+    assert logits.dtype == torch.float32 and torch.isfinite(logits).all()
+    # the per-modality LayerNorm promotes the bf16 embeddings to f32, as flax's
+    assert all(e.dtype == torch.float32 for e in encoded.values())
+
+
+def test_a_per_encoder_dtype_is_taken_and_checked():
+    cfg = load_config(REPO / "config" / "base.yaml",
+                      SMALL + ["model.encoders.imu_hand.dtype=bfloat16"])
+    model = MultimodalFusionModel.from_config(cfg, device="cpu")
+    assert model.encoders["imu_hand"].dtype == BF and model.encoders["imu_chest"].dtype is None
+    assert model.fusion_model.dtype is None
+    # under mixed_precision an encoder's own float32 wins over the default
+    cfg = load_config(REPO / "config" / "base.yaml",
+                      SMALL + BF16 + ["model.encoders.imu_hand.dtype=float32"])
+    model = MultimodalFusionModel.from_config(cfg, device="cpu")
+    assert model.encoders["imu_hand"].dtype is None and model.encoders["imu_chest"].dtype == BF
+    cfg = load_config(REPO / "config" / "base.yaml",
+                      SMALL + ["model.encoders.imu_hand.dtype=float16"])
+    with pytest.raises(ValueError, match="dtype"):
+        MultimodalFusionModel.from_config(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("kind", ["frame", "mlp"])
+def test_frame_and_mlp_encoders_in_bf16_match_jax(kind):
+    """FrameEncoder (attention pooling over a masked row) and
+    SimpleMLPEncoder (flax's bf16 Dense and BatchNorm) at dtype bfloat16
+    against the JAX package's on the same weights, eager, in eval and in
+    train mode at dropout 0 (the batch's own statistics): the same bits."""
+    rng = np.random.default_rng(13)
+    if kind == "frame":
+        jmod = jenc.FrameEncoder(hidden_dim=32, output_dim=16, dropout=0.0, dtype=jnp.bfloat16)
+        x = rng.standard_normal((4, 10, 6)).astype(np.float32)
+        mask = (np.arange(10)[None, :] < np.array([10, 3, 0, 7])[:, None]).astype(np.float32)
+        targs, jargs = (torch.from_numpy(x), torch.from_numpy(mask)), (jnp.asarray(x),
+                                                                       jnp.asarray(mask))
+        port = tenc.FrameEncoder(6, 32, 16, dropout=0.0, dtype="bfloat16")
+    else:
+        jmod = jenc.SimpleMLPEncoder(hidden_dim=32, output_dim=16, dropout=0.0,
+                                     dtype=jnp.bfloat16)
+        x = (rng.standard_normal((8, 6)) * 2 + 1).astype(np.float32)
+        targs, jargs = (torch.from_numpy(x),), (jnp.asarray(x),)
+        port = tenc.SimpleMLPEncoder(6, 32, 16, dropout=0.0, dtype="bfloat16")
+    variables = jax.tree_util.tree_map(np.asarray, jmod.init(jax.random.PRNGKey(13), *jargs))
+    _load_encoder(port, variables)
+    for train in (False, True):
+        with torch.no_grad():
+            got = port(*targs, train=train)
+        with jax.disable_jit():
+            want = (jmod.apply(variables, *jargs, train=True, mutable=["batch_stats"])[0]
+                    if train and kind == "mlp" else jmod.apply(variables, *jargs, train=train))
+        assert got.dtype == BF and want.dtype == jnp.bfloat16
+        np.testing.assert_array_equal(got.float().numpy(), np.asarray(want.astype(jnp.float32)))
+
+
+def test_routes_under_bf16_and_their_refusals():
+    # an entry's inputs of another type raise, whatever the entry
+    x = torch.zeros(4, 32)
+    tm._check_kernel_inputs({"x": x, "rmask": torch.zeros(4, 32, dtype=torch.uint8)}, 32)
+    with pytest.raises(TypeError, match="bfloat16"):
+        tm._check_kernel_inputs({"x": x}, 32, tm._PROJ_BF16)
+    with pytest.raises(TypeError, match="float32"):
+        tm._check_kernel_inputs({"x": x.to(BF)}, 32)
+    # the model: the fused_mlp pair in training and the grouped transformer refuse bf16
+    feats, mask, lengths, _labels, _weight = _batch()
+    tf = {n: torch.from_numpy(v) for n, v in feats.items()}
+    route = ["model.fused_mlp=true", "model.fused_mlp_ln=false"]
+    model = MultimodalFusionModel.from_config(
+        load_config(REPO / "config" / "base.yaml", SMALL + BF16 + route), device="cpu")
+    with torch.no_grad():
+        assert model(tf, None, torch.from_numpy(lengths)).dtype == torch.float32  # eval: plain
+    with pytest.raises(NotImplementedError, match="item 7b"):
+        model(tf, None, torch.from_numpy(lengths), train=True,
+              generator=torch.Generator().manual_seed(0))
+    with pytest.raises(NotImplementedError, match="item 7b"):
+        MultimodalFusionModel.from_config(load_config(
+            REPO / "config" / "base.yaml", SMALL + BF16 + ["model.grouped_transformer=true"]),
+            device="cpu")
+
+
+def test_flash_routes_take_f32_copies_of_bf16_operands():
+    """Past the packed route the attention runs the f32 kernels on f32 copies
+    of bf16 q, k, v: the same out as f32 inputs of those values, and the
+    gradients come back in bf16 (the VJP of the cast), as the reference's
+    interpret path does."""
+    rng = np.random.default_rng(17)
+    q, k, v = (torch.from_numpy(_bf16_np(rng.standard_normal((2, 4, 40, 8)))).to(BF)
+               for _ in range(3))
+    lengths = torch.tensor([40, 11], dtype=torch.int32)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = ta.flash_self_attention(*leaves, lengths, block_q=16, block_k=16)
+    want = ta.flash_self_attention(q.float(), k.float(), v.float(), lengths, block_q=16,
+                                   block_k=16)
+    assert out.dtype == torch.float32 and torch.equal(out, want)
+    out.sum().backward()
+    assert all(t.grad.dtype == BF for t in leaves)
+
+
+def test_a_checkpoint_reloads_the_bf16_model_bit_for_bit(tmp_path):
+    cfg = load_config(REPO / "config" / "base.yaml", SMALL + BF16 + CNN_STREAM)
+    model = MultimodalFusionModel.from_config(cfg, device="cpu",
+                                              generator=torch.Generator().manual_seed(3))
+    saved = CheckpointManager(tmp_path, config=cfg, save_top_k=1).save(
+        model.state_dict(), epoch=0, score=1.0)
+    weights, ckpt_cfg, _meta = load_checkpoint(saved)
+    assert bool(ckpt_cfg.mixed_precision)
+    reloaded = MultimodalFusionModel.from_config(ckpt_cfg, device="cpu")
+    reloaded.load_state_dict(weights)
+    assert reloaded.mixed_precision
+    feats, mask, lengths, _labels, _weight = _batch()
+    args = ({n: torch.from_numpy(v) for n, v in feats.items()}, torch.from_numpy(mask),
+            torch.from_numpy(lengths))
+    with torch.no_grad():
+        assert torch.equal(model(*args), reloaded(*args))
+    # the flax tree is f32 either way: the converter needs no dtype
+    tree = to_flax_variables(reloaded)
+    assert all(v.dtype == np.float32 for _n, v in _flat(tree))
+    state = reloaded.state_dict()
+    assert all(torch.equal(v, state[k]) for k, v in from_flax_variables(tree).items())

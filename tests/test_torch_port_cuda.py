@@ -15,6 +15,12 @@ from multimodal_sensor_fusion_with_attention_rajeevatla_torch.ops import fusion 
 from multimodal_sensor_fusion_with_attention_rajeevatla_torch.ops import mlp as tm
 from multimodal_sensor_fusion_with_attention_rajeevatla_torch.ops import rnn as tr
 from multimodal_sensor_fusion_with_attention_rajeevatla_torch.utils.device import pin_float32
+from torch_port_schemes import (
+    _ffw_ln_bf16,
+    bf16_ulps_apart,
+    exact_ffw_ln_case,
+    ffw_ln_scheme_hidden,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -1130,3 +1136,175 @@ def test_cnn_encoders_on_the_card_match_the_cpu_in_float32(card):
             pin_float32()
     print(f"cnn encoders, card vs cpu: f32 {e_f32:.3e}, tf32 convolutions {e_tf32:.3e}")
     assert e_f32 < CNN_CPU_TOL < e_tf32
+
+
+# ---- bf16 (mixed_precision): the bf16-operand entries of rows 1, 2, 12-15 ----
+
+# an output rounded to bf16 may round the other way where the kernel's f32 sum
+# and the twin's straddle a rounding boundary: one bf16 ulp, at most 2^-7 of
+# the largest magnitude, plus the f32 sums' own order
+BF16_TOL = 1e-2
+
+
+def _bf16_qkv(g, batch, seq, heads, hd, card):
+    return torch.randn(batch, seq, 3 * heads * hd, generator=g).to(torch.bfloat16).to(card)
+
+
+@pytest.mark.parametrize("seq,hd", [(512, 64), (72, 16), (72, 32), (40, 128)])
+def test_packed_attention_bf16_entries_match_twins(card, seq, hd):
+    g = torch.Generator().manual_seed(200 + seq + hd)
+    heads = 4
+    qkv = _bf16_qkv(g, 4, seq, heads, hd, card)
+    lengths = torch.tensor([0, seq, 37 % seq, seq - 7], dtype=torch.int32, device=card)
+    before = (ta.packed_attention_fwd_bf16.launches, ta.packed_attention_bwd_bf16.launches,
+              ta.packed_attention_fwd.launches, ta.packed_attention_bwd.launches)
+    out, lse = ta.packed_attention_fwd_bf16(qkv, lengths, heads, hd**-0.5)
+    ref_out, ref_lse = ta.packed_attention_bf16_reference(qkv, lengths, heads, hd**-0.5)
+    # the twin is the f32 arithmetic on the bf16 values: f32's limits
+    torch.testing.assert_close(out, ref_out, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(lse, ref_lse, rtol=1e-5, atol=1e-5)
+    dout = torch.randn(out.shape, generator=g).to(torch.bfloat16).float().to(card)
+    got = ta.packed_attention_bwd_bf16(qkv, lengths, ref_out, ref_lse, dout, heads, hd**-0.5)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16
+    assert (ta.packed_attention_fwd_bf16.launches, ta.packed_attention_bwd_bf16.launches,
+            ta.packed_attention_fwd.launches, ta.packed_attention_bwd.launches) == (
+        before[0] + 1, before[1] + 1, before[2], before[3])
+    want = ta.packed_attention_bwd_bf16_reference(qkv, lengths, ref_out, ref_lse, dout, heads,
+                                                  hd**-0.5)
+    assert _rel_err(got.float(), want.float()) < BF16_TOL
+    assert torch.all(out[0] == 0) and torch.all(got[0] == 0)
+
+
+@pytest.mark.parametrize("seq,hd", [(512, 64), (72, 32)])
+def test_packed_attention_bf16_entries_are_the_f32_entries_on_f32_copies(card, seq, hd):
+    # one function: the f32 kernel's sums on the bf16 values; the backward's
+    # bits equal at every head dim, the forward's where sm_scale is a power of
+    # two (at d = 32 the bf16 entry scales the scores, the f32 one q)
+    g = torch.Generator().manual_seed(300 + seq)
+    heads = 4
+    qkv = _bf16_qkv(g, 4, seq, heads, hd, card)
+    lengths = torch.tensor([5, seq, 37 % seq, seq - 7], dtype=torch.int32, device=card)
+    out, lse = ta.packed_attention_fwd_bf16(qkv, lengths, heads, hd**-0.5)
+    f_out, f_lse = ta.packed_attention_fwd(qkv.float(), lengths, heads, hd**-0.5)
+    dout = torch.randn(out.shape, generator=g).to(torch.bfloat16).float().to(card)
+    got = ta.packed_attention_bwd_bf16(qkv, lengths, f_out, f_lse, dout, heads, hd**-0.5)
+    f_got = ta.packed_attention_bwd(qkv.float(), lengths, f_out, f_lse, dout, heads, hd**-0.5)
+    torch.cuda.synchronize()
+    assert torch.equal(got, f_got.to(torch.bfloat16))
+    if hd == 64:
+        assert torch.equal(out, f_out) and torch.equal(lse, f_lse)
+    else:
+        torch.testing.assert_close(out, f_out, rtol=1e-5, atol=1e-5)
+
+
+def _bf16_ln_args(family, g, n, d, f, keep, card):
+    w, fmask, rmask = _ln_inputs(g, n, d, f, keep, card)
+    bf = torch.bfloat16
+    if family == "proj_ln":
+        return (w(n, d).to(bf), w(n, d).to(bf), w(d, d, scale=d**-0.5).to(bf), w(d, scale=0.1),
+                1 + w(d, scale=0.1), w(d, scale=0.1), rmask), w(n, d).to(bf)
+    return (w(n, d).to(bf), w(d, f, scale=d**-0.5).to(bf), w(f, scale=0.1),
+            w(f, d, scale=f**-0.5).to(bf), w(d, scale=0.1), 1 + w(d, scale=0.1),
+            w(d, scale=0.1), fmask, rmask), w(n, d).to(bf)
+
+
+@pytest.mark.parametrize("family,n,d,keep", [("proj_ln", 1000, 256, 0.8),
+                                             ("proj_ln", 37, 64, None),
+                                             ("ffw_ln", 300, 256, 0.8),
+                                             ("ffw_ln", 100, 64, 0.0)])
+def test_residual_ln_bf16_entries_match_twins(card, family, n, d, keep):
+    g = torch.Generator().manual_seed(400 + n)
+    f = 2048 if d == 256 else 128
+    args, dout = _bf16_ln_args(family, g, n, d, f, keep, card)
+    inv_keep = tm._inv_keep(1.0 if keep is None else keep)
+    fwd, bwd = getattr(tm, f"{family}_fwd_bf16"), getattr(tm, f"{family}_bwd_bf16")
+    before = (fwd.launches, bwd.launches)
+    out = fwd(*args, inv_keep, 1e-6)
+    grads = bwd(*args, dout, inv_keep, 1e-6)
+    torch.cuda.synchronize()
+    assert (fwd.launches, bwd.launches) == (before[0] + 1, before[1] + 1)
+    assert out.dtype == torch.bfloat16
+    want_out = getattr(tm, f"{family}_fwd_bf16_reference")(*args, inv_keep, 1e-6)
+    assert _rel_err(out.float(), want_out.float()) < BF16_TOL
+    if family == "ffw_ln":
+        # on the forward kernel's ReLU branches (a pre within rounding of zero
+        # may take the other one in the twin's f32 product)
+        xf, w1f = args[0].float(), args[1].float()
+        _o, hd = tm._ffw_ln_fwd_launch(*args, inv_keep, 1e-6)
+        pre = xf @ w1f + args[2]
+        kept = torch.ones_like(pre, dtype=torch.bool) if args[7] is None else args[7].bool()
+        live = torch.where(kept & (inv_keep != 0.0), hd.float() > 0, pre > 0)
+        want = tm._ffw_ln_bwd_bf16_plain(xf, w1f, pre, live, args[3].float(), args[4], args[5],
+                                         args[7], args[8], dout.float(), inv_keep, 1e-6)
+    else:
+        want = tm.proj_ln_bwd_bf16_reference(*args, dout, inv_keep, 1e-6)
+    for got, ref in zip(grads, want):
+        assert got.dtype == ref.dtype
+        if keep == 0.0 and not ref.abs().max() > 0:
+            assert torch.all(got == 0)
+        else:
+            assert _rel_err(got.float(), ref.float()) < BF16_TOL
+
+
+# the FFW bf16 entries against their emulated scheme on inputs where each
+# rounding point matters: the hidden is exact before its rounding, so its bits
+# are the scheme's; an output rounded to bf16 may round the other way only
+# where the kernel's f32 LayerNorm and its sums straddle a boundary (rare: a
+# few f32 ulps of 2^8 in each bf16 step), while an entry that left out the
+# hidden's, dy's or dpre's rounding would move a quarter or more of them
+SCHEME_SHARE = 1e-3
+
+
+def test_ffw_ln_bf16_entries_round_where_their_scheme_rounds(card):
+    args, dout, inv_keep = exact_ffw_ln_case()
+    f32 = [t.float() if t.dtype == torch.bfloat16 else t for t in args]
+    out_s, grads_s = _ffw_ln_bf16(*f32, dout.float(), inv_keep, 1e-6)
+    want = [t.to(torch.bfloat16) for t in (out_s, grads_s[0], grads_s[1], grads_s[3])]
+    hidden = ffw_ln_scheme_hidden(args[0], args[1], args[2], args[7], inv_keep)
+    live = hidden.float() > 0
+    lost = (hidden.float() != torch.relu(f32[0] @ f32[1] + f32[2]) * args[7] * inv_keep)[live]
+    assert lost.float().mean() > 0.5  # the hidden's rounding matters here
+    on_card = [t.to(card) for t in args[:7]] + [m.to(card) for m in args[7:]]
+    out, hd_fwd = tm._ffw_ln_fwd_launch(*on_card, inv_keep, 1e-6)
+    grads, hd_bwd = tm._ffw_ln_bwd_launch(*on_card, dout.to(card), inv_keep, 1e-6)
+    torch.cuda.synchronize()
+    assert torch.equal(hd_fwd.cpu(), hidden) and torch.equal(hd_bwd.cpu(), hidden)
+    got = [t.cpu() for t in (out, grads[0], grads[1], grads[3])]
+    for name, a, b in zip(("out", "dx", "dW1", "dW2"), got, want):
+        apart = bf16_ulps_apart(a, b)
+        assert apart.max() <= 1, name
+        assert (apart > 0).float().mean() <= SCHEME_SHARE, name
+    for skip, moved in (("hidden", (0, 1, 2, 3)), ("dy", (1, 2, 3)), ("dpre", (1, 2))):
+        out_v, grads_v = _ffw_ln_bf16(*f32, dout.float(), inv_keep, 1e-6, skip=(skip,))
+        variant = [t.to(torch.bfloat16) for t in (out_v, grads_v[0], grads_v[1], grads_v[3])]
+        for i in moved:
+            assert (variant[i] != want[i]).float().mean() > 0.25, (skip, i)
+
+
+def test_bf16_entries_repeat_bit_for_bit_and_f32_entries_refuse_bf16(card):
+    g = torch.Generator().manual_seed(57)
+    for family in ("proj_ln", "ffw_ln"):
+        args, dout = _bf16_ln_args(family, g, 1000, 256, 2048, 0.8, card)
+        bwd = getattr(tm, f"{family}_bwd_bf16")
+        first, second = bwd(*args, dout, 1.25, 1e-6), bwd(*args, dout, 1.25, 1e-6)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(first, second))
+        with pytest.raises(TypeError, match="float32"):
+            getattr(tm, f"{family}_fwd")(*args, 1.25, 1e-6)
+    qkv = _bf16_qkv(g, 2, 64, 4, 64, card)
+    lengths = torch.full((2,), 64, dtype=torch.int32, device=card)
+    with pytest.raises(TypeError, match="float32"):
+        ta.packed_attention_fwd(qkv, lengths, 4, 0.125)
+    with pytest.raises(TypeError, match="bfloat16"):
+        ta.packed_attention_fwd_bf16(qkv.float(), lengths, 4, 0.125)
+
+
+def test_resolving_the_card_sums_bf16_products_in_f32(card):
+    from multimodal_sensor_fusion_with_attention_rajeevatla_torch.utils.device import (
+        resolve_device,
+    )
+
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = True
+    assert resolve_device(None).type == "cuda"
+    assert not torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction

@@ -248,8 +248,7 @@ def test_port_init_is_seeded_and_flax_shaped():
 
 
 def test_from_config_rejects_unported_options():
-    for override in ("mixed_precision=true", "model.moe_experts=4",
-                     "parallel.pipeline_parallel=2"):
+    for override in ("model.moe_experts=4", "parallel.pipeline_parallel=2"):
         cfg = load_config(REPO / "config" / "base.yaml", SMALL + [override])
         with pytest.raises(NotImplementedError, match="not ported"):
             MultimodalFusionModel.from_config(cfg, device="cpu")

@@ -205,13 +205,18 @@ def test_mc_dropout_runs_through_the_training_kernels_route():
 # ---- keys the port refuses ---------------------------------------------------
 
 
-@pytest.mark.parametrize("key,value,item", [
-    ("moe_experts", 4, "item 8"), ("pipeline_parallel", 2, "item 11"),
-    ("sequence_parallel", True, "item 11"), ("dtype", "bfloat16", "item 7"),
+@pytest.mark.parametrize("key,value,error,match", [
+    ("moe_experts", 4, NotImplementedError, "model.encoders.imu_hand.moe_experts.*item 8"),
+    ("pipeline_parallel", 2, NotImplementedError,
+     "model.encoders.imu_hand.pipeline_parallel.*item 11"),
+    ("sequence_parallel", True, NotImplementedError,
+     "model.encoders.imu_hand.sequence_parallel.*item 11"),
+    # a per-encoder dtype is ported (float32 or bfloat16); any other type fails
+    ("dtype", "float16", ValueError, "Unknown compute dtype 'float16'"),
 ])
-def test_build_encoder_refuses_unported_per_encoder_keys(key, value, item):
+def test_build_encoder_refuses_unported_per_encoder_keys(key, value, error, match):
     base = {"type": "sequence", "encoder_type": "transformer", "hidden_dim": 16, "num_layers": 1}
-    with pytest.raises(NotImplementedError, match=f"model.encoders.imu_hand.{key}.*{item}"):
+    with pytest.raises(error, match=match):
         te.build_encoder("imu_hand", 17, 8, {**base, key: value})
     # the defaults, and the keys that matter only beside the refused ones, build
     quiet = {"moe_experts": 0, "moe_top_k": 2, "moe_capacity_factor": 1.25,

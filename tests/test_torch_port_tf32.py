@@ -44,7 +44,6 @@ against ``grouped_lstm_forward_plain`` and the JAX package's
 """
 
 import contextlib
-import math
 
 import jax
 import jax.numpy as jnp
@@ -67,23 +66,21 @@ from multimodal_sensor_fusion_with_attention_rajeevatla_torch.ops.masked import 
     adaptive_gate_weights,
 )
 from test_torch_port_ops import HEAD_TOL, MASKS
+from torch_port_schemes import (
+    CHUNK_K,
+    _block_sums,
+    _mm_chunked,
+    _split_grad,
+    _tf32_cut,
+    _tf32_hi,
+)
 
 ATTN_TOL = 1e-4  # forward: max abs error
 GRAD_TOL = 1e-4  # backward: max abs error over the largest magnitude
-LOW_BITS = ~0x1FFF  # clears the 13 mantissa bits TF32 does not keep
 TILE = 64  # the kernels' key tile
-CHUNK_K = 32  # the residual-LN kernels' products: depth of one fresh accumulator
 # f32 on both sides, products and sums in another order: the tolerance of the
 # port's residual-LN tests against the JAX package
 JAX_TOL = dict(rtol=2e-5, atol=2e-5)
-
-
-def _tf32_hi(x):
-    return ((x.view(torch.int32) + 0x1000) & LOW_BITS).view(torch.float32)
-
-
-def _tf32_cut(x):
-    return (x.view(torch.int32) & LOW_BITS).view(torch.float32)
 
 
 def _mm3(a, b):
@@ -396,37 +393,6 @@ def test_tiled_forward_route_takes_the_single_route_body():
                   (lse - emulated[1]).abs().max().item())
         print(f"{route} route's plain version vs the 3xTF32 body, T={seq}: max abs err {err:.3e}")
         assert err < ATTN_TOL, route
-
-
-def _mm_chunked(a, b, mm):
-    """a @ b as the residual-LN kernels' products take it: each 32-deep chunk
-    of k in a fresh accumulator, the chunks added in order in f32."""
-    out = torch.zeros(a.shape[0], b.shape[1])
-    for k0 in range(0, a.shape[1], CHUNK_K):
-        out = out + mm(a[:, k0:k0 + CHUNK_K], b[k0:k0 + CHUNK_K])
-    return out
-
-
-def _in_order(parts):
-    total = torch.zeros_like(parts[0])
-    for p in parts:
-        total = total + p
-    return total
-
-
-def _block_sums(x, rows):
-    """Sum over the rows of x as per-block partials added in order."""
-    return _in_order([x[r0:r0 + rows].sum(0) for r0 in range(0, x.shape[0], rows)])
-
-
-def _split_grad(a, b, tiles, mm):
-    """a^T b as the weight-gradient kernel takes it: per split of the rows
-    (whole 32-row chunks, ``_grad_splits`` of them), the splits added in
-    order."""
-    n = a.shape[0]
-    per_split = math.ceil(math.ceil(n / tm._grad_splits(n, tiles)) / CHUNK_K) * CHUNK_K
-    return _in_order([_mm_chunked(a[r0:r0 + per_split].t(), b[r0:r0 + per_split], mm)
-                      for r0 in range(0, n, per_split)])
 
 
 def _scales(fmask, rmask, inv_keep):

@@ -1,0 +1,162 @@
+"""The CUDA entries' product schemes, emulated on the CPU in PyTorch alone
+(no JAX), so that both the CPU tests and the card tests can hold a kernel to
+them: TF32 splits, the residual-LN kernels' 32-deep chunked products and
+split weight gradients, and the bf16 entries of both residual-LN pairs with
+their rounding points."""
+
+import math
+
+import torch
+
+from multimodal_sensor_fusion_with_attention_rajeevatla_torch.ops import mlp as tm
+
+LOW_BITS = ~0x1FFF  # clears the 13 mantissa bits TF32 does not keep
+CHUNK_K = 32  # the residual-LN kernels' products: depth of one fresh accumulator
+BF = torch.bfloat16
+
+
+def _tf32_hi(x):
+    return ((x.view(torch.int32) + 0x1000) & LOW_BITS).view(torch.float32)
+
+
+def _tf32_cut(x):
+    return (x.view(torch.int32) & LOW_BITS).view(torch.float32)
+
+
+def _mm_chunked(a, b, mm):
+    """a @ b as the residual-LN kernels' products take it: each 32-deep chunk
+    of k in a fresh accumulator, the chunks added in order in f32."""
+    out = torch.zeros(a.shape[0], b.shape[1])
+    for k0 in range(0, a.shape[1], CHUNK_K):
+        out = out + mm(a[:, k0:k0 + CHUNK_K], b[k0:k0 + CHUNK_K])
+    return out
+
+
+def _in_order(parts):
+    total = torch.zeros_like(parts[0])
+    for p in parts:
+        total = total + p
+    return total
+
+
+def _block_sums(x, rows):
+    """Sum over the rows of x as per-block partials added in order."""
+    return _in_order([x[r0:r0 + rows].sum(0) for r0 in range(0, x.shape[0], rows)])
+
+
+def _split_grad(a, b, tiles, mm):
+    """a^T b as the weight-gradient kernel takes it: per split of the rows
+    (whole 32-row chunks, ``_grad_splits`` of them), the splits added in
+    order."""
+    n = a.shape[0]
+    per_split = math.ceil(math.ceil(n / tm._grad_splits(n, tiles)) / CHUNK_K) * CHUNK_K
+    return _in_order([_mm_chunked(a[r0:r0 + per_split].t(), b[r0:r0 + per_split], mm)
+                      for r0 in range(0, n, per_split)])
+
+
+def _mm_n(a, b, a_lo, b_lo):
+    """``tf32_mma.cuh``'s ``mma_n``: mma3's terms in its order, without the lo
+    terms of a side that has none (a bf16 operand, exact in TF32)."""
+    ah, bh = _tf32_hi(a), _tf32_hi(b)
+    out = torch.zeros(a.shape[:-1] + b.shape[-1:])
+    if a_lo:
+        out = out + _tf32_cut(a - ah) @ bh
+    if b_lo:
+        out = out + ah @ _tf32_cut(b - bh)
+    return out + ah @ bh
+
+
+def _mm1(a, b):
+    """Two bf16 operands: one TF32 product a k-step, exact, 32-deep chunks
+    in fresh accumulators added in f32 (``tc_product.cuh``)."""
+    return _mm_chunked(a, b, lambda x, y: _mm_n(x, y, False, False))
+
+
+def _rnd(t):
+    return t.to(BF).float()
+
+
+def _proj_ln_bf16(x, a, wo, bo, gamma, beta, rmask, dout, inv_keep, eps):
+    """``proj_ln``'s bf16 entries: y in f32 from one TF32 product a k-step,
+    the residual and LayerNorm in f32, out rounded; backward dy rounded before
+    da = dy Wo^T and dWo (per split of the rows), dx = dr rounded, dbo,
+    dgamma, dbeta f32 from 64-row blocks."""
+    d = x.shape[1]
+    rscale = rmask.float() * inv_keep
+    r = x + (_mm1(a, wo) + bo) * rscale
+    out, xhat, inv = tm.ln_rows(r, gamma, beta, eps)
+    dr, _dg, _db = tm._ln_backward(dout, xhat, inv, gamma)
+    dy = dr * rscale
+    dyb = _rnd(dy)
+    grads = (_rnd(dr), _rnd(_mm1(dyb, wo.t())),
+             _rnd(_split_grad(a, dyb, tm._grad_tiles(d, d), lambda p, q: _mm_n(p, q, False, False))),
+             *(_block_sums(t, tm.ROWS_D) for t in (dy, dout * xhat, dout)))
+    return _rnd(out), grads
+
+
+def _ffw_ln_bf16(x, w1, b1, w2, b2, gamma, beta, fmask, rmask, dout, inv_keep, eps, skip=()):
+    """``ffw_ln``'s bf16 entries: the hidden from one TF32 product a k-step,
+    rounded to bf16; y, the residual and LayerNorm in f32, out rounded;
+    backward dy and dpre rounded before their products, dx, dW1, dW2
+    rounded, db1 (128-row blocks), db2, dgamma, dbeta (64-row blocks) f32.
+    ``skip`` names rounding points ("hidden", "dy", "dpre") left out, with
+    the products they feed taken in f32: what an entry that dropped them
+    would compute."""
+    d, f = w1.shape
+    mm = lambda p, q: _mm_n(p, q, False, False)  # noqa: E731
+    mm_f32 = (lambda p, q: p @ q) if skip else mm  # noqa: E731
+
+    def rnd(t, point):
+        return t if point in skip else _rnd(t)
+
+    fscale, rscale = fmask.float() * inv_keep, rmask.float() * inv_keep
+    hd = rnd(torch.relu(_mm1(x, w1) + b1) * fscale, "hidden")
+    r = x + (_mm_chunked(hd, w2, mm_f32) + b2) * rscale
+    out, xhat, inv = tm.ln_rows(r, gamma, beta, eps)
+    dr, _dg, _db = tm._ln_backward(dout, xhat, inv, gamma)
+    dy = dr * rscale
+    dyb = rnd(dy, "dy")
+    dpre = torch.where(hd > 0, _mm_chunked(dyb, w2.t(), mm_f32) * fscale, 0.0)
+    dpb = rnd(dpre, "dpre")
+    grads = (_rnd(dr + _mm_chunked(dpb, w1.t(), mm_f32)),
+             _rnd(_split_grad(x, dpb, tm._grad_tiles(d, f), mm_f32)),
+             _block_sums(dpre, tm.ROWS_F),
+             _rnd(_split_grad(hd, dyb, tm._grad_tiles(f, d), mm_f32)),
+             *(_block_sums(t, tm.ROWS_D) for t in (dy, dout * xhat, dout)))
+    return _rnd(out), grads
+
+
+def exact_ffw_ln_case(n=256, d=256, f=2048, keep=0.8, seed=5):
+    """Inputs of ``ffw_ln``'s bf16 entries on which rounding the hidden, dy
+    and dpre each matter, while every sum before a rounding point is exact in
+    f32 in any order: x and W1 small integers (x W1 + b1 an integer below
+    2^15, times 1/keep = 1.25 still exact), so the hidden is the same bits
+    whatever the order of the sums, and about three quarters of its live
+    entries lose bits when rounded to bf16; W2 in {-1, 0, 1} * 2^-6, so
+    hidden @ W2 is a multiple of 2^-8 far below 2^16. Returns ``(args,
+    dout, inv_keep)`` on the CPU, ``args`` as the bf16 entries take them."""
+    g = torch.Generator().manual_seed(seed)
+
+    def ints(lo, hi, *shape):
+        return torch.randint(lo, hi + 1, shape, generator=g).float()
+
+    x, w1, b1 = ints(-8, 8, n, d), ints(-8, 8, d, f), ints(-4, 4, f)
+    w2, b2 = ints(-1, 1, f, d) * 2**-6, ints(-4, 4, d)
+    gamma = 1 + 0.1 * torch.randn(d, generator=g)
+    beta = 0.1 * torch.randn(d, generator=g)
+    fmask = (torch.rand(n, f, generator=g) < keep).to(torch.uint8)
+    rmask = (torch.rand(n, d, generator=g) < keep).to(torch.uint8)
+    dout = torch.randn(n, d, generator=g).to(BF)
+    args = (x.to(BF), w1.to(BF), b1, w2.to(BF), b2, gamma, beta, fmask, rmask)
+    return args, dout, tm._inv_keep(keep)
+
+
+def ffw_ln_scheme_hidden(x, w1, b1, fmask, inv_keep):
+    """The bf16 entries' hidden: relu(x W1 + b1) * fmask / keep rounded to
+    bf16, the product one TF32 pass a k-step."""
+    return _rnd(torch.relu(_mm1(x.float(), w1.float()) + b1) * fmask.float() * inv_keep).to(BF)
+
+
+def bf16_ulps_apart(a, b):
+    """Per entry, how many bf16 steps two bf16 tensors of one sign are apart."""
+    return (a.view(torch.int16).int() - b.view(torch.int16).int()).abs()
