@@ -197,7 +197,30 @@ Phases (any failure exits non-zero, and no result line is printed):
    (missing-modality sweep, calibration, MC dropout on the bf16 training
    forward); p50 and device time of a request and a micro-step beside the
    f32 path's of the same run.
-14. Print the kernel table as one JSON line, then the result line
+   The feed-forward pair's bf16 entries (rows 10b-11b) in [kernels] against
+   their twins (N = 32*512; keep 0.8, no mask, keep 0, a ragged N), the
+   forward's hidden the backward's, twice bit for bit, timed beside the twin
+   and the f32 entries on f32 copies; in [bf16] the route
+   ``fused_mlp=true fused_mlp_ln=false``: one micro-step against the plain
+   path, 8 counted micro-steps (4 launches of each entry a micro-step) twice
+   bit for bit, p50 and device time by family; and the grouped transformer
+   in bf16 served and trained against its plain path (the flash kernels on
+   f32 copies of bf16 q, k, v), its launches counted, twice bit for bit.
+14. MoE: ``model.moe_experts=4 model.moe_top_k=2 model.moe_capacity_factor=1.25``
+   over base.yaml: batch-64 requests (4 packed attention forwards and 1 head
+   a request) against the plain path token by token: routing flips printed
+   with their top-k margins, failing on a flip whose margin is above 1e-5,
+   the windows and tokens routed alike at the f32 limits; one micro-step
+   against the plain path, 8 counted micro-steps (4 of rows 1, 2, 14, 15 and
+   4 mask launches each, none of rows 10-13), the same seed twice bit for
+   bit, p50 and device time by family; one epoch of ``fit``, the checkpoint
+   reloaded to bit-identical test logits, ``evaluate_checkpoint`` on it.
+   Remat: ``training.remat=true`` at chunk 512: one micro-step's loss and
+   every gradient and 4 micro-steps' losses bit for bit against the run
+   without it, each forward kernel launched twice, the peak memory of both;
+   at chunk 4096 (batch 32): one micro-step with and without remat and
+   their peak memory, and one on 4 windows against the plain path.
+15. Print the kernel table as one JSON line, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
 The script imports torch and the port only; it needs no network.
@@ -287,7 +310,9 @@ TRAIN_NORM_TOL = 1e-3
 PEAK_BF16_FLOPS = 989e12
 PEAK_2XTF32_FLOPS = PEAK_TF32_FLOPS / 2
 BF16_KERNELS = ("packed_attention_fwd_bf16", "packed_attention_bwd_bf16", "proj_ln_fwd_bf16",
-                "proj_ln_bwd_bf16", "ffw_ln_fwd_bf16", "ffw_ln_bwd_bf16")
+                "proj_ln_bwd_bf16", "ffw_ln_fwd_bf16", "ffw_ln_bwd_bf16", "fused_mlp_fwd_bf16",
+                "fused_mlp_bwd_bf16")
+BF16_PAIR = ("fused_mlp_fwd_bf16", "fused_mlp_bwd_bf16")  # rows 10b-11b: the pair's route
 # a bf16 entry against its twin, max abs error over the largest magnitude: an
 # output rounded to bf16 (2^-8 of unit roundoff) can round the other way where
 # the kernel's f32 sum and the twin's straddle a rounding boundary: one bf16
@@ -476,7 +501,9 @@ def ptxas_report(build):
                 ("proj_ln", "msfa_proj_ln_bf16_bwd_smem_bytes",
                  ("bf16 bwd_ln", "bf16 bwd_da", "bf16 bwd_dw")),
                 ("fused_mlp", "msfa_ffw_smem_bytes",
-                 ("hidden", "fwd", "bwd_dpre", "bwd_dx", "bwd_dw"))):
+                 ("hidden", "fwd", "bwd_dpre", "bwd_dx", "bwd_dw")),
+                ("fused_mlp", "msfa_ffw_bf16_smem_bytes",
+                 ("bf16 hidden", "bf16 fwd", "bf16 bwd_dpre", "bf16 bwd_dx", "bf16 bwd_dw"))):
             sizes = (ctypes.c_int * len(names))()
             if getattr(build.library("ffw" if lib == "fused_mlp" else lib), symbol)(256, sizes):
                 raise RuntimeError(f"{symbol} failed")
@@ -3509,7 +3536,89 @@ def check_bf16_ln(torch, mlp, rows_n):
             print(f"  {name} by kernel: " + ", ".join(
                 f"{k_} {v:.4f} ms" for k_, v in out_rows[name]["ms_by_kernel"].items()),
                 flush=True)
-    return [out_rows[k] for k in BF16_KERNELS[2:]]
+    return [out_rows[k] for k in BF16_KERNELS[2:6]]
+
+
+def check_bf16_fused_mlp(torch, mlp, rows_n):
+    """Rows 10b-11b: the feed-forward pair's bf16 entries against their twins
+    (the backward on the forward kernel's ReLU branches), the forward's
+    hidden the backward's, twice bit for bit, timed beside the twin and the
+    f32 entries on f32 copies; returns two rows."""
+    bf = torch.bfloat16
+    d, f = 256, 2048
+    errs = [0.0, 0.0]
+    timed = None
+    for n, keep in ((rows_n, 0.8), (rows_n, None), (rows_n, 0.0), (rows_n - 25, 0.8)):
+        w, (mask, _rmask) = _ln_case(torch, n, d, f, keep, seed=n + int(10 * (keep or 1)) + 11)
+        args = (w(n, d).to(bf), w(d, f, s=d**-0.5).to(bf), w(f, s=0.1),
+                w(f, d, s=f**-0.5).to(bf), w(d, s=0.1), mask)
+        x, w1, b1, w2, b2, _m = args
+        inv_keep = mlp._inv_keep(1.0 if keep is None else keep)
+        dout = w(n, d).to(bf)
+        out, fwd_hd = mlp._fused_mlp_fwd_launch(*args, inv_keep)
+        grads, bwd_hd = mlp._fused_mlp_bwd_launch(x, w1, b1, w2, mask, dout, inv_keep)
+        torch.cuda.synchronize()
+        if not torch.equal(fwd_hd, bwd_hd):
+            raise AssertionError("fused_mlp bf16: the forward's hidden and the backward's differ")
+        e_fwd = rel_err(out.float(), mlp.fused_mlp_fwd_bf16_reference(*args, inv_keep).float())
+        if keep == 0.0 and not torch.equal(out.float(), b2.to(bf).float().expand_as(out)):
+            raise AssertionError("fused_mlp bf16: keep 0 does not give an exactly zero hidden")
+        xf, w1f = x.float(), w1.float()
+        pre, live, flips = _forward_branches(torch, "fused_mlp bf16", xf, w1f, b1, mask,
+                                             inv_keep, bwd_hd.float())
+        want = mlp._fused_mlp_bwd_bf16_plain(xf, w1f, pre, live, w2.float(), mask, dout.float(),
+                                             inv_keep)
+        e_bwd = max(rel_err(a.float(), b.float()) for a, b in zip(grads, want))
+        own = max(rel_err(a.float(), b.float()) for a, b in zip(
+            grads, mlp.fused_mlp_bwd_bf16_reference(x, w1, b1, w2, mask, dout, inv_keep)))
+        print(f"  fused_mlp bf16 N={n} keep={keep}: rel err fwd={e_fwd:.3e} bwd={e_bwd:.3e} "
+              f"(tol {BF16_TOL}) (forward's hidden = backward's bit for bit; {flips} ReLU "
+              f"branches off the twin's, within rounding of zero; on the twin's own {own:.3e})",
+              flush=True)
+        errs = [max(errs[0], e_fwd), max(errs[1], e_bwd)]
+        if timed is None:
+            timed = (args, dout, inv_keep)
+        del out, fwd_hd, grads, bwd_hd, pre, live, want
+    if max(errs) > BF16_TOL:
+        raise AssertionError(f"fused_mlp bf16 entries disagree with their twins: {errs}")
+    args, dout, inv_keep = timed
+    x, w1, b1, w2, b2, mask = args
+    fwd, bwd = mlp.fused_mlp_fwd_bf16, mlp.fused_mlp_bwd_bf16
+    first, second = bwd(x, w1, b1, w2, mask, dout, inv_keep), bwd(x, w1, b1, w2, mask, dout,
+                                                                  inv_keep)
+    out, again = fwd(*args, inv_keep), fwd(*args, inv_keep)
+    torch.cuda.synchronize()
+    if not (all(torch.equal(a, b) for a, b in zip(first, second)) and torch.equal(out, again)):
+        raise AssertionError("fused_mlp bf16 entries: two runs on the same inputs differ")
+    print(f"  fused_mlp_fwd_bf16 and fused_mlp_bwd_bf16 N={rows_n} keep=0.8: two runs of each "
+          f"equal bit for bit; digests fwd {_digest([out])} bwd {_digest(first)}", flush=True)
+    del first, second, out, again
+    f32_args = tuple(a.float() if a is not None and a.dtype == bf else a for a in args)
+    n = rows_n
+    wbytes = 2.0 * 2 * d * f + 4.0 * (f + d)  # bf16 W1, W2; f32 b1, b2
+    calls = {  # kernel, twin, f32 entry, line, operations, bytes
+        "fwd": (lambda: fwd(*args, inv_keep),
+                lambda: mlp.fused_mlp_fwd_bf16_reference(*args, inv_keep),
+                lambda: mlp.fused_mlp_fwd(*f32_args, inv_keep),
+                341, 4.0 * n * d * f, 2.0 * 2 * n * d + wbytes + n * f),  # x, out | mask
+        "bwd": (lambda: bwd(x, w1, b1, w2, mask, dout, inv_keep),
+                lambda: mlp.fused_mlp_bwd_bf16_reference(x, w1, b1, w2, mask, dout, inv_keep),
+                lambda: mlp.fused_mlp_bwd(f32_args[0], f32_args[1], b1, f32_args[3], mask,
+                                          dout.float(), inv_keep),
+                402, 10.0 * n * d * f, 2.0 * 3 * n * d + 2 * wbytes + n * f),  # x, dout, dx
+    }
+    out_rows = []
+    for kind, (call, call_ref, call_f32, line, flops, nbytes) in calls.items():
+        name = f"fused_mlp_{kind}_bf16"
+        row = _bf16_row(name, "ffw.cu", f"pallas_mlp.py:{line}", errs[0 if kind == "fwd" else 1],
+                        time_ms(call, iters=10), time_ms(call_ref, iters=10),
+                        time_ms(call_f32, iters=10), None, (flops, 0.0, 0.0), nbytes,
+                        kernel=f"{TPU_PKG}/ops/pallas_mlp.py:{195 if kind == 'fwd' else 232}")
+        row["ms_by_kernel"] = kernel_times(torch, call, 5)
+        print(f"  {name} by kernel: " + ", ".join(
+            f"{k_} {v:.4f} ms" for k_, v in row["ms_by_kernel"].items()), flush=True)
+        out_rows.append(row)
+    return out_rows
 
 
 def bf16_step_vs_cpu(torch, split, idx0):
@@ -3585,9 +3694,12 @@ def bf16_phase(torch, kernels, split, batches, train_idx, smi, workdir: Path, f3
     2 and 12-15): served against the bf16 plain path (4 bf16 packed forwards
     and 1 head a request, no f32 attention entry), trained (one micro-step
     against the plain path and one against the CPU, 8 counted micro-steps,
-    the same seed twice bit for bit), fit for FIT_EPOCHS epochs, the
-    checkpoint reloaded bit for bit and evaluated; every time beside the f32
-    path's of this run (``f32_times``). Returns the launches by path."""
+    the same seed twice bit for bit); the same at ``fused_mlp_ln=false``
+    (rows 10b-11b, 4 launches each a micro-step); the grouped transformer in
+    bf16 served and trained against its plain path; fit for FIT_EPOCHS
+    epochs, the checkpoint reloaded bit for bit and evaluated; every time
+    beside the f32 path's of this run (``f32_times``). Returns the launches
+    by path."""
     print("[bf16]", flush=True)
     overrides = ["mixed_precision=true"]
     idx64 = [torch.from_numpy(row).long() for row in batches]
@@ -3629,7 +3741,374 @@ def bf16_phase(torch, kernels, split, batches, train_idx, smi, workdir: Path, f3
           f"on {smi}", flush=True)
     del trainer, step
     torch.cuda.empty_cache()
+
+    # the feed-forward pair's route (rows 10b-11b) in bf16
+    pair = ["mixed_precision=true", "model.fused_mlp=true", "model.fused_mlp_ln=false"]
+    micro_step_vs_plain(torch, split, idx32[0], pair, "bf16 fused_mlp pair", bf16=True)
+    torch.cuda.reset_peak_memory_stats()
+    trainer = _trainer(torch, pair)
+    step, losses, launches = counted_steps(torch, kernels, trainer, split, idx32, TRAIN_STEPS)
+    want = {**dict.fromkeys(kernels, 0), "dropout_keep_mask": TRAIN_STEPS * per_step,
+            **{k: TRAIN_STEPS * per_step for k in ("packed_attention_fwd_bf16",
+                                                   "packed_attention_bwd_bf16", *BF16_PAIR)}}
+    print(f"  bf16 fused_mlp pair: {TRAIN_STEPS} micro-steps; losses "
+          f"{[round(v, 5) for v in losses]}", flush=True)
+    print(f"  launches: {launches} (want {want})", flush=True)
+    if launches != want:
+        raise AssertionError(f"bf16 pair route launch counts {launches} != {want}")
+    out["pair"] = launches
+    _step2, losses2, _l2 = counted_steps(torch, kernels, _trainer(torch, pair), split, idx32,
+                                         TRAIN_STEPS)
+    print(f"  same seed again: losses bit-identical: {losses2 == losses}", flush=True)
+    if losses2 != losses:
+        raise AssertionError(f"bf16 pair: the same seed gave other losses: {losses} then {losses2}")
+    del _step2
+    step_p50(torch, step, split, idx32, len(idx32[0]), "bf16 fused_mlp pair", smi)
+    profile_micro_steps(torch, step, split, idx32, 8)
+    del trainer, step
+    torch.cuda.empty_cache()
+
+    # the grouped transformer in bf16: flash kernels on f32 copies of bf16 q, k, v
+    grouped = ["mixed_precision=true", "model.grouped_transformer=true"]
+    out["grouped_serve"], model, p50 = serve_vs_plain(
+        torch, kernels, grouped, split, idx64, "bf16 G512", smi,
+        {"flash_fwd_single": 1, "fused_hybrid_head": 1}, bf16=True)
+    if model.grouped_tf_encoder.dtype != torch.bfloat16:
+        raise AssertionError("the grouped transformer does not run in bf16")
+    del model
+    micro_step_vs_plain(torch, split, idx32[0], grouped, "bf16 G512", bf16=True)
+    trainer = _trainer(torch, grouped)
+    _step, losses, launches = counted_steps(torch, kernels, trainer, split, idx32, TRAIN_STEPS)
+    want = {**dict.fromkeys(kernels, 0),
+            **{k: TRAIN_STEPS for k in ("flash_fwd_single", "flash_bwd_fused",
+                                        "dropout_keep_mask")}}
+    print(f"  bf16 G512: {TRAIN_STEPS} micro-steps; losses {[round(v, 5) for v in losses]}; "
+          f"launches {launches} (want {want})", flush=True)
+    if launches != want:
+        raise AssertionError(f"bf16 G512 training launch counts {launches} != {want}")
+    out["grouped_train"] = launches
+    _step2, losses2, _l2 = counted_steps(torch, kernels, _trainer(torch, grouped), split, idx32,
+                                         TRAIN_STEPS)
+    print(f"  same seed again: losses bit-identical: {losses2 == losses}", flush=True)
+    if losses2 != losses:
+        raise AssertionError(f"bf16 G512: the same seed gave other losses: {losses} then "
+                             f"{losses2}")
+    del trainer, _step, _step2
+    torch.cuda.empty_cache()
     out["fit"], out["eval"] = fit_and_eval_phase(torch, kernels, smi, workdir, bf16=True)
+    return out
+
+
+MOE = ["model.moe_experts=4", "model.moe_top_k=2", "model.moe_capacity_factor=1.25"]
+MOE_STEPS = 8
+# a routing choice whose top-k margin is below this may flip between the
+# kernel and the plain path: their attention outputs differ by f32 rounding
+# (~1e-6), and so do the router's logits
+MOE_FLIP_MARGIN = 1e-5
+MOE_TOKEN_TOL = 1e-3  # an unflipped token's MoE output, kernel path against plain path
+
+
+def _record_routes(model):
+    """Wrap every MoE layer's ``route`` of ``model`` to keep its last
+    ``(probs, expert, keep)``; returns the list they are appended to, in
+    call order."""
+    seen = []
+    for module in model.modules():
+        if module.__class__.__name__ == "MoEFeedForward":
+            def route(tokens, valid, _route=module.route):
+                out = _route(tokens, valid)
+                seen.append((out[0].detach(), out[2], out[4]))
+                return out
+            module.route = route
+    return seen
+
+
+def routing_flips(torch, got, want, k):
+    """(token, layer) pairs whose chosen experts or kept slots differ between
+    two runs' recorded routes -> (count, the largest top-k margin among them
+    in ``want``'s probabilities, a mask per layer of the unflipped tokens)."""
+    flips, worst, same = 0, 0.0, []
+    for (p_a, e_a, keep_a), (p_b, e_b, keep_b) in zip(got, want):
+        differ = (e_a != e_b).any(-1) | (keep_a != keep_b).any(-1)
+        top = torch.sort(p_b, -1, descending=True).values
+        margin = top[:, k - 1] - top[:, k]
+        if differ.any():
+            flips += int(differ.sum())
+            worst = max(worst, margin[differ].max().item())
+            print(f"    routing flips: {int(differ.sum())} tokens, top-k margins "
+                  f"{[f'{m:.2e}' for m in margin[differ][:8].tolist()]}", flush=True)
+        same.append(~differ)
+    return flips, worst, same
+
+
+def moe_phase(torch, kernels, split, batches, train_idx, test, smi, workdir: Path):
+    """model.moe_experts=4 (top 2, capacity factor 1.25) over base.yaml at
+    full width: served token by token against the plain path (routing flips
+    printed with their margins), trained (one micro-step against the plain
+    path, 8 counted micro-steps, the same seed twice bit for bit), the
+    micro-step's device time by family, one epoch of ``fit``, the checkpoint
+    reloaded bit for bit and ``evaluate_checkpoint`` on it. Returns the
+    launches by path."""
+    from multimodal_sensor_fusion_with_attention_rajeevatla_torch.data.dataset import (
+        create_datasets,
+    )
+    from multimodal_sensor_fusion_with_attention_rajeevatla_torch.evaluate import (
+        dataset_kwargs, evaluate_checkpoint,
+    )
+    from multimodal_sensor_fusion_with_attention_rajeevatla_torch.models.module import (
+        MultimodalFusionModel,
+    )
+    from multimodal_sensor_fusion_with_attention_rajeevatla_torch.serving import make_serving_fn
+
+    print("[moe]", flush=True)
+    out = {}
+    per_step = len(split.modalities)
+    idx64 = [torch.from_numpy(row).long() for row in batches]
+    idx32 = [torch.from_numpy(row).long() for row in train_idx]
+    cfg = load_cfg(MOE)
+    model = MultimodalFusionModel.from_config(
+        cfg, device="cuda", generator=torch.Generator().manual_seed(int(cfg.seed)))
+    plain = MultimodalFusionModel.from_config(load_cfg([*MOE, *PLAIN]), device="cuda")
+    plain.load_state_dict(model.state_dict())
+    moe = model.encoders[split.modalities[0]].layers[0].moe
+    serve = make_serving_fn(model, device="cuda")
+    feats, _labels, lengths = split.gather(idx64[0])
+    short = lengths.clone()
+    short[:3] = torch.tensor([0, 37, 1], dtype=torch.int32, device="cuda")
+    routes_k, routes_p = _record_routes(model), _record_routes(plain)
+    for fn in kernels.values():
+        fn.launches = 0
+    got = serve(feats, None, short)
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    want = {**dict.fromkeys(kernels, 0), "packed_attention_fwd": per_step, "fused_hybrid_head": 1}
+    print(f"  MoE512: {moe.num_experts} experts, top {moe.top_k}, capacity "
+          f"{_moe_capacity(moe, BATCH * int(cfg.dataset.chunk_size))} of a batch-{BATCH} "
+          f"request; launches of one request {launches}", flush=True)
+    if launches != want:
+        raise AssertionError(f"MoE512: serving launch counts {launches} != {want}")
+    out["serve"] = launches
+    with torch.inference_mode():
+        ref = plain(feats, None, short)
+    torch.cuda.synchronize()
+    if got.shape != (BATCH, model.num_classes) or not torch.isfinite(got).all():
+        raise AssertionError(f"MoE512: bad logits {tuple(got.shape)}")
+    flips, worst, same = routing_flips(torch, routes_k, routes_p, moe.top_k)
+    # windows with no flipped token in any layer: their logits, kernel against plain
+    rows = torch.stack([s.reshape(BATCH, -1).all(1) for s in same]).all(0)
+    e_logits = (got[rows] - ref[rows]).abs().max().item() if rows.any() else 0.0
+    print(f"  MoE512 served: {flips} routing flips (largest top-k margin among them "
+          f"{worst:.3e}, tol {MOE_FLIP_MARGIN}); logits of the {int(rows.sum())} windows with no "
+          f"flip max_abs_err {e_logits:.3e} (tol {LOGIT_TOL})", flush=True)
+    if worst > MOE_FLIP_MARGIN or e_logits > LOGIT_TOL:
+        raise AssertionError("MoE512: the kernel path's serving disagrees with the plain path")
+    del routes_k[:], routes_p[:]
+    # token by token: each layer's MoE output on the tokens routed alike
+    outs = {}
+    for name, m in (("kernel", model), ("plain", plain)):
+        layer = m.encoders[split.modalities[0]].layers[0]
+        hook = layer.moe.register_forward_hook(
+            lambda _m, _i, o, name=name: outs.__setitem__(name, o[0].detach()))
+        with torch.inference_mode():
+            m(feats, None, short)
+        hook.remove()
+    _f, _w, same = routing_flips(torch, routes_k[:1], routes_p[:1], moe.top_k)
+    e_tok = (outs["kernel"] - outs["plain"]).reshape(-1, outs["plain"].shape[-1])[
+        same[0]].abs().max().item()
+    print(f"  MoE512 first layer, token by token on the unflipped tokens: max_abs_err "
+          f"{e_tok:.3e} (tol {MOE_TOKEN_TOL})", flush=True)
+    if e_tok > MOE_TOKEN_TOL:
+        raise AssertionError(f"MoE512: unflipped tokens' outputs differ by {e_tok}")
+    del model, plain, serve, outs
+    torch.cuda.empty_cache()
+
+    # one micro-step against the plain path on the same masks, then the counted steps
+    trainer = _trainer(torch, [*MOE, "training.dropout_rng=xla"])
+    plain_tr = _trainer(torch, [*MOE, "training.dropout_rng=xla", *PLAIN],
+                        weights=trainer.model.state_dict())
+    routes = [_record_routes(trainer.model), _record_routes(plain_tr.model)]
+    results = []
+    for tr in (trainer, plain_tr):
+        tr.generator.manual_seed(tr.seed + 1)
+        feats, labels, lengths = split.gather(idx32[0])
+        feats, lengths, mask = tr.augment(feats, lengths, len(split.modalities))
+        results.append(tr.loss_and_grads(feats, labels, mask, lengths,
+                                         torch.ones(labels.shape, device="cuda")))
+    torch.cuda.synchronize()
+    (loss_k, _a, grads_k), (loss_p, _b, grads_p) = results
+    flips, worst, _same = routing_flips(torch, *routes, moe.top_k)
+    e_loss = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
+    floor = 1e-3 * max(g.abs().max().item() for g in grads_p)
+    names = [n for n, _ in trainer.model.named_parameters()]
+    e_grads = {n: (a - b).abs().max().item() / max(b.abs().max().item(), floor)
+               for n, a, b in zip(names, grads_k, grads_p)}
+    whole = (torch.cat([(a - b).flatten() for a, b in zip(grads_k, grads_p)]).norm()
+             / torch.cat([b.flatten() for b in grads_p]).norm()).item()
+    w_name = max(e_grads, key=e_grads.get)
+    print(f"  MoE512: one micro-step kernel vs plain path: loss {loss_k.item():.6f} vs "
+          f"{loss_p.item():.6f} (rel err {e_loss:.3e}), {flips} routing flips (largest margin "
+          f"{worst:.3e}); the whole gradient norm-wise {whole:.3e} (tol {TRAIN_NORM_TOL}); worst "
+          f"gradient {w_name} max-abs rel {e_grads[w_name]:.3e} (tol {TRAIN_TOL} without a flip)",
+          flush=True)
+    if e_loss > TRAIN_NORM_TOL or whole > TRAIN_NORM_TOL or worst > MOE_FLIP_MARGIN \
+            or (not flips and e_grads[w_name] > TRAIN_TOL):
+        raise AssertionError("MoE512: the kernel path's micro-step disagrees with the plain path")
+    del trainer, plain_tr, results, grads_k, grads_p, routes
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    trainer = _trainer(torch, MOE)
+    step, losses, launches = counted_steps(torch, kernels, trainer, split, idx32, MOE_STEPS)
+    want = {**dict.fromkeys(kernels, 0),
+            **{k: MOE_STEPS * per_step for k in ("packed_attention_fwd", "packed_attention_bwd",
+                                                 "proj_ln_fwd", "proj_ln_bwd",
+                                                 "dropout_keep_mask")}}
+    print(f"  MoE512: {MOE_STEPS} micro-steps, {trainer.optimizer.count} updates; losses (with "
+          f"{trainer.moe_aux_weight} x the aux losses) {[round(v, 5) for v in losses]}",
+          flush=True)
+    print(f"  launches: {launches} (want {want})", flush=True)
+    if launches != want:
+        raise AssertionError(f"MoE512 training launch counts {launches} != {want}")
+    out["train"] = launches
+    _s2, losses2, _l2 = counted_steps(torch, kernels, _trainer(torch, MOE), split, idx32,
+                                      MOE_STEPS)
+    print(f"  same seed again: losses bit-identical: {losses2 == losses}", flush=True)
+    if losses2 != losses:
+        raise AssertionError(f"MoE512: the same seed gave other losses: {losses} then {losses2}")
+    del _s2
+    step_p50(torch, step, split, idx32, len(idx32[0]), "MoE512", smi, iters=10)
+    profile_micro_steps(torch, step, split, idx32, 4)
+    del trainer, step
+    torch.cuda.empty_cache()
+
+    # one epoch of fit, the checkpoint reloaded, and evaluate_checkpoint on it
+    trainer = _trainer(torch, [
+        *MOE, "training.max_epochs=1", f"dataset.data_dir={REPO / 'data' / 'pamap2'}",
+        f"dataset.chunk_cache_dir={workdir / 'chunk_cache'}"])
+    train_w, val_w, test_w = create_datasets(**dataset_kwargs(trainer.config))
+    for fn in kernels.values():
+        fn.launches = 0
+    results = trainer.fit(train_w, val_w, test_w, save_dir=workdir / "moe_run",
+                          log_fn=lambda msg: print(f"  {msg}", flush=True))
+    torch.cuda.synchronize()
+    out["fit"] = {name: fn.launches for name, fn in kernels.items()}
+    wall = results["train_wall_seconds"]
+    print(f"  MoE512 fit: 1 epoch in {wall:.2f} s, {train_w.num_windows / wall:.1f} train "
+          f"windows/s on {smi}; test acc {results['test_acc']:.4f}; launches {out['fit']}",
+          flush=True)
+    if not _all_finite(results["history"]) or out["fit"]["packed_attention_bwd"] <= 0:
+        raise AssertionError("MoE512 fit did not train through the kernels to finite losses")
+    checkpoint_round_trip(torch, trainer, test, workdir, "MoE512")
+    best = Path(results["best_model_path"])
+    for fn in kernels.values():
+        fn.launches = 0
+    standard = evaluate_checkpoint(
+        str(best), output_dir=str(workdir / "moe_eval"), analysis_dir=str(workdir / "moe_ana"),
+        missing_modality_test=True, device="cuda", plots=False)
+    torch.cuda.synchronize()
+    out["eval"] = {name: fn.launches for name, fn in kernels.items()}
+    files = {name: json.loads((workdir / "moe_eval" / f"{name}.json").read_text())
+             for name in ("evaluation_results", "uncertainty", "missing_modality")}
+    if not all(_all_finite(f) for f in files.values()) \
+            or standard["test_accuracy"] != results["test_acc"] \
+            or out["eval"]["dropout_keep_mask"] <= 0:
+        raise AssertionError("MoE512: evaluate_checkpoint disagrees with fit or is not finite")
+    print(f"  MoE512 evaluate_checkpoint: test acc {standard['test_accuracy']:.4f}, ECE "
+          f"{standard['ece']:.4f}, MC-dropout mean variance "
+          f"{files['uncertainty']['mc_dropout']['mean_uncertainty']:.6f}; launches {out['eval']}",
+          flush=True)
+    del trainer
+    torch.cuda.empty_cache()
+    return out
+
+
+def _moe_capacity(moe, tokens):
+    from multimodal_sensor_fusion_with_attention_rajeevatla_torch.models.moe import moe_capacity
+
+    return moe_capacity(tokens, moe.num_experts, moe.top_k, moe.capacity_factor)
+
+
+REMAT_STEPS = 4
+REMAT_4096_ROWS = 4  # windows of the chunk-4096 micro-step held to the plain path
+
+
+def remat_phase(torch, kernels, split, train_idx, modalities, stride, seed, smi):
+    """training.remat at chunk 512: one micro-step's loss and every gradient,
+    and REMAT_STEPS counted micro-steps' losses, bit for bit against the same
+    steps without it, each forward kernel launched twice; peak memory of
+    both. At chunk 4096 (batch 32, which no earlier phase trains): one
+    micro-step with remat, its peak memory beside the run without it, and
+    one on REMAT_4096_ROWS windows against the plain path. Returns the
+    launches by path."""
+    print("[remat]", flush=True)
+    out = {}
+    idx32 = [torch.from_numpy(row).long() for row in train_idx]
+    per_step = len(modalities)
+    runs = {}
+    for remat in ("false", "true"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        trainer = _trainer(torch, [f"training.remat={remat}"])
+        trainer.generator.manual_seed(trainer.seed + 1)
+        feats, labels, lengths = split.gather(idx32[0])
+        feats, lengths, mask = trainer.augment(feats, lengths, per_step)
+        for fn in kernels.values():
+            fn.launches = 0
+        loss, _acc, grads = trainer.loss_and_grads(feats, labels, mask, lengths,
+                                                   torch.ones(labels.shape, device="cuda"))
+        torch.cuda.synchronize()
+        one = {name: fn.launches for name, fn in kernels.items()}
+        peak = torch.cuda.max_memory_allocated()
+        grads = [g.clone() for g in grads]
+        del trainer
+        _step, losses, launches = counted_steps(torch, kernels, _trainer(
+            torch, [f"training.remat={remat}"]), split, idx32, REMAT_STEPS)
+        runs[remat] = (loss, grads, one, peak, losses, launches)
+        print(f"  chunk 512 remat={remat}: one micro-step's peak memory {peak / 2**30:.3f} GiB on "
+              f"{smi}; launches {one}", flush=True)
+        del _step
+    (loss_a, grads_a, one_a, peak_a, losses_a, l_a), (loss_b, grads_b, one_b, peak_b, losses_b,
+                                                       l_b) = runs["false"], runs["true"]
+    same = torch.equal(loss_a, loss_b) and all(torch.equal(a, b) for a, b in zip(grads_a, grads_b))
+    doubled = {k: (2 * v if k.endswith("_fwd") or k == "dropout_keep_mask" else v)
+               for k, v in one_a.items()}
+    print(f"  chunk 512: remat's loss and {len(grads_a)} gradients bit-identical: {same}; "
+          f"{REMAT_STEPS} micro-steps' losses bit-identical: {losses_a == losses_b}; forward "
+          f"kernels launched twice: {one_b == doubled} (want {doubled}); peak memory "
+          f"{peak_b / 2**30:.3f} GiB with remat, {peak_a / 2**30:.3f} without", flush=True)
+    if not same or losses_a != losses_b or one_b != doubled \
+            or l_b != {k: (2 * v if k.endswith("_fwd") or k == "dropout_keep_mask" else v)
+                       for k, v in l_a.items()}:
+        raise AssertionError("remat at chunk 512 is not the run without it bit for bit")
+    out["train"] = l_b
+    del runs, grads_a, grads_b
+    torch.cuda.empty_cache()
+
+    # chunk 4096, batch 32: the tiled flash forward and the split backward
+    long = load_split(torch, modalities, 4096, stride)
+    idx = index_batches(torch, long, 32, seed)
+    route = ["dataset.chunk_size=4096"]
+    peaks = {}
+    for remat in ("false", "true"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        trainer = _trainer(torch, [*route, f"training.remat={remat}"])
+        for fn in kernels.values():
+            fn.launches = 0
+        t = time.perf_counter()
+        _s, losses, launches = counted_steps(torch, kernels, trainer, long, idx, 1)
+        wall = time.perf_counter() - t
+        peaks[remat] = torch.cuda.max_memory_allocated()
+        print(f"  chunk 4096 batch 32 remat={remat}: one micro-step, loss {losses[0]:.5f}, "
+              f"{wall * 1e3:.1f} ms with its first launches, peak memory "
+              f"{peaks[remat] / 2**30:.3f} GiB on {smi}; launches {launches}", flush=True)
+        out[f"train4096_remat_{remat}"] = launches
+        del trainer, _s
+    torch.cuda.empty_cache()
+    small = [i[:REMAT_4096_ROWS] for i in idx]
+    micro_step_vs_plain(torch, long, small[0], [*route, "training.remat=true"],
+                        f"chunk 4096 remat, {REMAT_4096_ROWS} windows")
+    del long
+    torch.cuda.empty_cache()
     return out
 
 
@@ -3739,6 +4218,8 @@ def main() -> int:
     rows += check_bf16_ln(torch, mlp, train_rows)
     torch.cuda.empty_cache()
     rows += check_fused_mlp(torch, mlp, train_rows)
+    rows += check_bf16_fused_mlp(torch, mlp, train_rows)
+    torch.cuda.empty_cache()
     rows.append(check_dropout_mask(torch, mlp, train_rows))
     stride = int(cfg.dataset.window_stride)
     real_lengths = {512: train_lengths.repeat(len(modalities))}  # the group's folded batch
@@ -3878,6 +4359,12 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         bf16_launches = bf16_phase(torch, kernels, split, idx_matrix, train_idx, smi, Path(tmp),
                                    f32_times)
+    # ---- 14. the MoE feed-forward, and training.remat -----------------------------
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        moe_launches = moe_phase(torch, kernels, split, idx_matrix, train_idx, test, smi,
+                                 Path(tmp))
+    remat_launches = remat_phase(torch, kernels, split, train_idx, modalities, stride,
+                                 int(cfg.seed), smi)
     rnn_paths = {  # the path each recurrence kernel runs on
         "grouped_lstm_forward": rnn_launches["forward_lstm512"],
         "grouped_lstm_fused": rnn_launches["serve_lstm512"],
@@ -3900,6 +4387,8 @@ def main() -> int:
         name = row["name"]
         if name in ("packed_attention_fwd", "fused_hybrid_head"):
             path = serve_launches
+        elif name in BF16_PAIR:
+            path = bf16_launches["pair"]
         elif name in BF16_KERNELS:
             path = bf16_launches["serve" if name == "packed_attention_fwd_bf16" else "train"]
         elif name in ("fused_mlp_fwd", "fused_mlp_bwd"):
@@ -3921,6 +4410,8 @@ def main() -> int:
         row["fusion_launches"] = {k: v[name] for k, v in fusion_launches.items()}
         row["cnn_launches"] = {k: v[name] for k, v in cnn_launches.items()}
         row["bf16_launches"] = {k: v[name] for k, v in bf16_launches.items()}
+        row["moe_launches"] = {k: v[name] for k, v in moe_launches.items()}
+        row["remat_launches"] = {k: v[name] for k, v in remat_launches.items()}
         if row["launches"] <= 0:
             raise AssertionError(f"kernel {name} was not launched on its main path")
     print(f"[done] {time.perf_counter() - t0:.1f} s", flush=True)

@@ -6,6 +6,7 @@ The flax tree of the reference's ``MultimodalFusionModel.init`` maps as:
     encoders_<m>/layer<i>/<q|k|v|out>_proj        -> encoders.<m>.layers.<i>.<same>
     encoders_<m>/layer<i>/linear1|linear2         -> encoders.<m>.layers.<i>.<same>
     encoders_<m>/layer<i>/norm1|norm2             -> encoders.<m>.layers.<i>.<same>
+    encoders_<m>/layer<i>/moe/<e>                 -> encoders.<m>.layers.<i>.moe.<e>
     encoders_<m>/conv<i>|bn<i>                    -> encoders.<m>.<same> (cnn)
     encoders_<m>/frame_processor|attention|proj_hidden|proj_out -> encoders.<m>.<same>
     encoders_<m>/dense<i>|bn<i>|out               -> encoders.<m>.<same> (mlp)
@@ -20,6 +21,10 @@ The flax tree of the reference's ``MultimodalFusionModel.init`` maps as:
     grouped_transformer_enc/proj_kernel|proj_bias -> grouped_tf_encoder.<same>
     encoders_<m>/rnn/<w>_l<k>                     -> encoders.<m>.rnn.<same>
     grouped_rnn/<w>_l<k>|proj_kernel|proj_bias    -> grouped_rnn_encoder.<same>
+
+(``<e>`` is ``router``, ``moe_w1``, ``moe_b1``, ``moe_w2`` or ``moe_b2`` of an
+MoE layer, kept in the reference's layout: ``[H, E]``, ``[E, H, F]``,
+``[E, F]``, ``[E, F, H]``, ``[E, H]``.)
 
 (``<w>`` is ``weight_ih``, ``weight_hh``, ``bias_ih`` or ``bias_hh`` of an lstm
 or gru encoder; recurrent weights keep the reference's ``[in, gates*H]`` layout,
@@ -116,8 +121,8 @@ def from_flax_variables(variables: Mapping) -> Dict[str, torch.Tensor]:
         if module == [GROUPED_RNN_FLAX]:
             module = [GROUPED_RNN_PORT]
         names = _module_path(tuple(module))
-        if module and module[-1] in ("pairs", "rnn", GROUPED_RNN_PORT):
-            # stacked [P, H, H] / [P, H] and the recurrent tensors kept as they are
+        if module and module[-1] in ("pairs", "rnn", "moe", GROUPED_RNN_PORT):
+            # stacked [P, H, H] / [P, H], the recurrent and the expert tensors kept as they are
             names.append(leaf)
         elif leaf == "kernel":
             if array.ndim not in (2, 3):
@@ -188,8 +193,8 @@ def to_flax_tree(
                 module.append(param)
         elif module == [GROUPED_RNN_PORT]:
             module = [GROUPED_RNN_FLAX]
-        elif module and module[-1] in ("pairs", "rnn"):
-            pass  # stacked [P, H, H] / [P, H] and the recurrent tensors kept as they are
+        elif module and module[-1] in ("pairs", "rnn", "moe"):
+            pass  # stacked [P, H, H] / [P, H], the recurrent and the expert tensors kept as they are
         elif leaf == "weight" and array.ndim in (2, 3):
             leaf, array = "kernel", array.T
         elif leaf == "weight":

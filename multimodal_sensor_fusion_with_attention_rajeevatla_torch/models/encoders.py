@@ -1,7 +1,7 @@
 """Per-modality encoders, port of the JAX package's ``models/encoders.py``.
 
 Ported, in eval and train mode: the transformer branch of ``SequenceEncoder``
-and its post-LN ``TransformerEncoderLayer`` (dense feed-forward), the LSTM /
+and its post-LN ``TransformerEncoderLayer`` (dense or MoE feed-forward), the LSTM /
 GRU branch with ``RNNStack``, the CNN branch with ``MaskedBatchNorm``,
 ``FrameEncoder`` and ``SimpleMLPEncoder``, and every route of
 ``build_encoder``.
@@ -54,8 +54,9 @@ a masked mean pool) and ``SimpleMLPEncoder`` normalise with
 0.1 * batch``, the biased variance, eps 1e-5, f32), kept as buffers so that
 the ``state_dict`` carries them. They move only on a training forward that
 records gradients; a train-mode forward under ``torch.no_grad`` or
-``torch.inference_mode`` (MC dropout) normalises by the batch's statistics
-and leaves them as they were, as the reference discards its
+``torch.inference_mode`` (MC dropout), or inside ``running_stats_frozen``
+(a forward recomputed for its backward), normalises by the batch's
+statistics and leaves them as they were, as the reference discards its
 ``mutable=["batch_stats"]`` update there. The convolutions are plain
 ``conv1d`` (XLA's in the reference, no kernel there either).
 
@@ -80,8 +81,9 @@ its default.
 
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import torch
 from torch import nn
@@ -107,12 +109,12 @@ from ..ops.mlp import (
     mlp_route,
     transformer_ffw,
 )
+from .moe import MoEFeedForward
 
 _SEQUENCE_MODALITIES = {"imu", "audio", "mocap", "accelerometer"}
 # per-encoder keys the reference's build_encoder passes on and the port does
 # not run yet: key -> (is the value a non-default, ROADMAP queue A item)
 _UNPORTED_KEYS = {
-    "moe_experts": (lambda v: int(v or 0) > 0, 8),
     "pipeline_parallel": (lambda v: int(v or 1) > 1, 11),
     "sequence_parallel": (bool, 11),
 }
@@ -209,6 +211,22 @@ class LayerNorm(nn.Module):
         return ln_rows(x.float(), self.weight, self.bias, self.eps)[0].to(out_dtype)
 
 
+_RUNNING_STATS = {"frozen": 0}  # > 0: a recomputed forward runs (running_stats_frozen)
+
+
+@contextlib.contextmanager
+def running_stats_frozen():
+    """Inside, a training forward leaves every ``MaskedBatchNorm``'s running
+    statistics as they are: a forward recomputed for its backward
+    (``training.remat``) has already updated them once, as the reference's
+    functional update counts once."""
+    _RUNNING_STATS["frozen"] += 1
+    try:
+        yield
+    finally:
+        _RUNNING_STATS["frozen"] -= 1
+
+
 class MaskedBatchNorm(nn.Module):
     """BatchNorm over the channel axis ``channel_dim`` (the last by default)
     whose batch statistics weight only the valid positions (``mask``, the
@@ -251,7 +269,7 @@ class MaskedBatchNorm(nn.Module):
                 denom = w.sum().clamp(min=1.0)
                 mean = (xf * w).sum(dim=axes) / denom
                 var = (w * (xf - mean.view(shape)).square()).sum(dim=axes) / denom
-            if torch.is_grad_enabled():
+            if torch.is_grad_enabled() and not _RUNNING_STATS["frozen"]:
                 with torch.no_grad():
                     self.running_mean.mul_(self.momentum).add_((1.0 - self.momentum) * mean)
                     self.running_var.mul_(self.momentum).add_((1.0 - self.momentum) * var)
@@ -260,9 +278,14 @@ class MaskedBatchNorm(nn.Module):
 
 
 class TransformerEncoderLayer(nn.Module):
-    """Post-LN transformer encoder layer (reference ``_TransformerEncoderLayer``,
-    dense non-MoE path), eval and train mode; in bf16 with ``dtype``
-    (module docstring)."""
+    """Post-LN transformer encoder layer (reference ``_TransformerEncoderLayer``),
+    eval and train mode; in bf16 with ``dtype`` (module docstring). With
+    ``moe_experts > 0`` a ``models.moe.MoEFeedForward`` (``moe``) takes the
+    place of ``linear1`` / ``linear2``, which the layer then does not have:
+    its residual dropout, add and norm2 are plain f32, its dropout masks the
+    attention-side and FFW-side residual ones only (two a launch on the
+    kernel source), and its load-balance aux loss goes to ``aux_losses``
+    when the caller passes a list."""
 
     def __init__(
         self,
@@ -275,6 +298,9 @@ class TransformerEncoderLayer(nn.Module):
         use_fused_mlp_ln: bool = False,
         dropout_rng: str = "auto",
         dtype: Optional[torch.dtype] = None,
+        moe_experts: int = 0,
+        moe_top_k: int = 2,
+        moe_capacity_factor: float = 1.25,
     ):
         super().__init__()
         self.dtype = dtype
@@ -292,8 +318,14 @@ class TransformerEncoderLayer(nn.Module):
         self.v_proj = nn.Linear(hidden_dim, hidden_dim)
         self.out_proj = nn.Linear(hidden_dim, hidden_dim)
         self.norm1 = LayerNorm(hidden_dim)
-        self.linear1 = nn.Linear(hidden_dim, dim_feedforward)
-        self.linear2 = nn.Linear(dim_feedforward, hidden_dim)
+        self.dim_feedforward = dim_feedforward
+        self.moe = None
+        if moe_experts > 0:  # the reference creates the dense pair on the dense branch only
+            self.moe = MoEFeedForward(hidden_dim, dim_feedforward, moe_experts, moe_top_k,
+                                      moe_capacity_factor, dropout, dtype)
+        else:
+            self.linear1 = nn.Linear(hidden_dim, dim_feedforward)
+            self.linear2 = nn.Linear(dim_feedforward, hidden_dim)
         self.norm2 = LayerNorm(hidden_dim)
 
     def _attend(self, x, key_padding_mask):
@@ -335,19 +367,13 @@ class TransformerEncoderLayer(nn.Module):
         key_padding_mask: Optional[torch.Tensor] = None,  # [B, T], 1 = valid
         train: bool = False,
         generator: Optional[torch.Generator] = None,
+        aux_losses: Optional[List[torch.Tensor]] = None,
     ) -> torch.Tensor:
         batch, seq_len, hidden = x.shape
         rows = batch * seq_len
         dt = self.dtype
         kernels = self.use_fused_mlp and train and mlp_route(hidden) == "kernel"
         fused = kernels and self.use_fused_mlp_ln
-        if kernels and dt is not None and not self.use_fused_mlp_ln:
-            # before any launch: the reference rounds the hidden to bf16
-            # inside the fused_mlp pair (pallas_mlp.py _fwd_kernel,
-            # _bwd_kernel), so its f32 entries would compute another function
-            raise NotImplementedError(
-                "mixed_precision on the fused_mlp pair (fused_mlp=true, fused_mlp_ln=false) is "
-                "not ported yet (ROADMAP queue A item 7b)")
         keep_prob = 1.0 - self.dropout
         drop = train and self.dropout > 0.0
         source = resolve_dropout_rng(
@@ -359,10 +385,12 @@ class TransformerEncoderLayer(nn.Module):
         attended = self._attend(x, key_padding_mask)
         att_mask = ffw_mask = res_mask = None
         if drop:
-            specs = ((hidden, RNG_P_ATT), (self.linear1.out_features, RNG_P_HIDDEN),
-                     (hidden, RNG_P_RES))
+            specs = [(hidden, RNG_P_ATT), (self.dim_feedforward, RNG_P_HIDDEN),
+                     (hidden, RNG_P_RES)]
+            if self.moe is not None:  # no hidden mask: the experts draw their own
+                del specs[1]
             if source == "kernel":
-                # one two-word seed per layer; the three masks differ by their
+                # one two-word seed per layer; the masks differ by their
                 # purpose and come from one launch
                 seed = kernel_rng_seed(generator, x.device)
                 masks = [m.reshape(batch, seq_len, width) for m, (width, _) in
@@ -370,7 +398,8 @@ class TransformerEncoderLayer(nn.Module):
             else:
                 masks = [keep_mask((batch, seq_len, width), keep_prob, generator, x.device)
                          for width, _ in specs]
-            att_mask, ffw_mask, res_mask = masks
+            att_mask, res_mask = masks[0], masks[-1]
+            ffw_mask = masks[1] if len(masks) == 3 else None
         if fused:
             x = fused_proj_residual_ln(
                 x.reshape(rows, hidden), attended.reshape(rows, hidden),
@@ -382,6 +411,13 @@ class TransformerEncoderLayer(nn.Module):
             if att_mask is not None:
                 y = drop_where(att_mask, y)
             x = self.norm1(x.float() + y).to(x.dtype)
+        if self.moe is not None:
+            ff, aux = self.moe(x, valid_mask=key_padding_mask, train=train, generator=generator)
+            if aux_losses is not None:
+                aux_losses.append(aux)
+            if res_mask is not None:
+                ff = drop_where(res_mask, ff)
+            return self.norm2(x.float() + ff.float()).to(x.dtype)
         if fused:
             return fused_mlp_residual_ln(
                 x.reshape(rows, hidden), self.linear1.weight.t(), self.linear1.bias,
@@ -475,6 +511,9 @@ class SequenceEncoder(nn.Module):
         fused_mlp_ln: bool = False,
         dropout_rng: str = "auto",
         dtype=None,
+        moe_experts: int = 0,
+        moe_top_k: int = 2,
+        moe_capacity_factor: float = 1.25,
     ):
         super().__init__()
         if encoder_type not in ("lstm", "gru", "cnn", "transformer"):
@@ -503,7 +542,9 @@ class SequenceEncoder(nn.Module):
             TransformerEncoderLayer(
                 hidden_dim, nhead, use_flash=flash_attention, dropout=dropout,
                 use_fused_mlp=fused_mlp, use_fused_mlp_ln=fused_mlp_ln,
-                dropout_rng=dropout_rng, dtype=self.dtype,
+                dropout_rng=dropout_rng, dtype=self.dtype, moe_experts=int(moe_experts or 0),
+                moe_top_k=int(moe_top_k or 2),
+                moe_capacity_factor=float(moe_capacity_factor or 1.25),
             )
             for _ in range(num_layers)
         )
@@ -515,6 +556,7 @@ class SequenceEncoder(nn.Module):
         lengths: Optional[torch.Tensor] = None,
         train: bool = False,
         generator: Optional[torch.Generator] = None,
+        aux_losses: Optional[List[torch.Tensor]] = None,
     ) -> torch.Tensor:
         if sequence.dim() != 3:
             raise ValueError(
@@ -549,7 +591,8 @@ class SequenceEncoder(nn.Module):
         x = dense(self.input_projection, sequence, dt)
         valid_mask = lengths_to_mask(lengths, seq_len) if lengths is not None else None
         for layer in self.layers:
-            x = layer(x, key_padding_mask=valid_mask, train=train, generator=generator)
+            x = layer(x, key_padding_mask=valid_mask, train=train, generator=generator,
+                      aux_losses=aux_losses)
         pooled = masked_mean_pool(x, valid_mask, dim=1, min_denom=1.0)
         return dense(self.projection, dropout(pooled, self.dropout, train, generator), dt)
 
@@ -668,7 +711,7 @@ def build_encoder(
         "sequence": (SequenceEncoder, {
             "hidden_dim", "num_layers", "encoder_type", "flash_attention", "dropout",
             "fused_mlp", "fused_mlp_ln", "dropout_rng", "sequence_parallel", "moe_experts",
-            "pipeline_parallel", "dtype"}),
+            "moe_top_k", "moe_capacity_factor", "pipeline_parallel", "dtype"}),
         "mlp": (SimpleMLPEncoder, {"hidden_dim", "num_layers", "dropout", "batch_norm", "dtype"}),
     }[kind]
     for key, (non_default, item) in _UNPORTED_KEYS.items():

@@ -37,6 +37,15 @@ layer's three masks in one launch, ``ops.mlp.dropout_keep_masks``), else
 from ``torch.rand`` on the caller's generator. The grouped encoder does
 not use the fused projection/FFW LayerNorm kernels; the reference does not
 either.
+
+Under ``mixed_precision`` (``dtype`` bfloat16) it keeps the reference's
+roundings one product at a time: the input projection and qkv round their
+product to bf16 and add the bf16 bias (a second rounding), the input
+projection's result going back to f32; the out-projection and both FFW
+products round their product and add the f32 bias in f32; the residual
+stream, the LayerNorms, the pooling and the output projection stay f32. The
+plain attention runs on the bf16 q, k, v (bf16 scores and weights, the
+softmax in f32), the flash route on f32 copies of them.
 """
 
 from __future__ import annotations
@@ -75,6 +84,18 @@ def grouped_dense(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor) -> 
     flat = x.reshape(groups, -1, x.shape[-1])
     out = torch.baddbmm(bias[:, None, :], flat, kernel)
     return out.reshape(*x.shape[:-1], kernel.shape[-1])
+
+
+def grouped_product(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
+    """``[G, ..., in] x [G, in, out] -> [G, ..., out]`` without a bias, in the
+    operands' type (a bf16 product is rounded once, to bf16)."""
+    flat = x.reshape(x.shape[0], -1, x.shape[-1])
+    return torch.bmm(flat, kernel).reshape(*x.shape[:-1], kernel.shape[-1])
+
+
+def _group_bias(bias: torch.Tensor, ndim: int) -> torch.Tensor:
+    """A ``[G, out]`` bias shaped to broadcast over ``[G, ..., out]``."""
+    return bias.reshape(bias.shape[0], *([1] * (ndim - 2)), bias.shape[-1])
 
 
 class GroupedRNNEncoder(nn.Module):
@@ -196,8 +217,10 @@ class GroupedTransformerEncoder(nn.Module):
         dropout: float = 0.1,
         use_flash: bool = False,
         dropout_rng: str = "auto",
+        dtype: Optional[torch.dtype] = None,
     ):
         super().__init__()
+        self.dtype = dtype
         self.num_groups = num_groups
         self.input_dim = input_dim
         self.hidden_dim = hidden_dim
@@ -241,7 +264,24 @@ class GroupedTransformerEncoder(nn.Module):
                 param.zero_()
 
     def _dense(self, name: str, x: torch.Tensor) -> torch.Tensor:
-        return grouped_dense(x, getattr(self, f"{name}_kernel"), getattr(self, f"{name}_bias"))
+        """A layer's dense product: f32 (``dtype`` None), or in bf16 the
+        product of the bf16 input and kernel rounded to bf16, then the f32
+        bias added in f32 (the reference's ``einsum(x.astype(cd),
+        w.astype(cd)).astype(f32) + b``)."""
+        kernel, bias = getattr(self, f"{name}_kernel"), getattr(self, f"{name}_bias")
+        if self.dtype is None:
+            return grouped_dense(x, kernel, bias)
+        return (grouped_product(x.to(self.dtype), kernel.to(self.dtype)).float()
+                + _group_bias(bias, x.dim()))
+
+    def _dense_cd(self, x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+        """The input projection's and qkv's product: f32, or in bf16 the
+        product rounded to bf16, then the bf16 bias added in bf16, a second
+        rounding (``einsum(...) + b.astype(cd)``)."""
+        if self.dtype is None:
+            return grouped_dense(x, kernel, bias)
+        return (grouped_product(x.to(self.dtype), kernel.to(self.dtype))
+                + _group_bias(bias, x.dim()).to(self.dtype))
 
     def _norm(self, name: str, r: torch.Tensor) -> torch.Tensor:
         scale, bias = getattr(self, f"{name}_scale"), getattr(self, f"{name}_bias")
@@ -253,7 +293,7 @@ class GroupedTransformerEncoder(nn.Module):
         # one G-batched [G, H, 3H] product feeds q/k/v for every member
         w_qkv = torch.cat([getattr(self, f"{n}_proj_l{layer}_kernel") for n in "qkv"], dim=2)
         b_qkv = torch.cat([getattr(self, f"{n}_proj_l{layer}_bias") for n in "qkv"], dim=1)
-        qkv = grouped_dense(x, w_qkv, b_qkv).reshape(groups, batch, seq_len, 3, heads, head_dim)
+        qkv = self._dense_cd(x, w_qkv, b_qkv).reshape(groups, batch, seq_len, 3, heads, head_dim)
         if self.use_flash and attention_route(head_dim) == "kernel":
             # fold the group axis into the batch: one launch for the whole group
             q, k, v = (
@@ -261,7 +301,8 @@ class GroupedTransformerEncoder(nn.Module):
                 for i in range(3)
             )
             flat_lengths = lengths.to(torch.int32).repeat(groups) if lengths is not None else None
-            attended = flash_self_attention(q, k, v, flat_lengths)
+            # f32 out either way (bf16 q, k, v: the kernels on f32 copies)
+            attended = flash_self_attention(q, k, v, flat_lengths).to(x.dtype)
             return attended.transpose(1, 2).reshape(groups, batch, seq_len, hidden)
         q, k, v = qkv[:, :, :, 0], qkv[:, :, :, 1], qkv[:, :, :, 2]
         scores = torch.einsum("gbqhd,gbkhd->gbhqk", q, k) * head_dim**-0.5
@@ -308,7 +349,10 @@ class GroupedTransformerEncoder(nn.Module):
             return torch.where(mask.bool(), y / keep_prob, 0.0)
 
         valid_mask = lengths_to_mask(lengths, seq_len) if lengths is not None else None
-        x = self._dense("input_projection", stacked)
+        # in bf16 both roundings, then back to the input's type (the
+        # residual stream stays f32, as the reference's does)
+        x = self._dense_cd(stacked, self.input_projection_kernel,
+                           self.input_projection_bias).to(stacked.dtype)
         for layer in range(self.num_layers):
             attended = self._attend(layer, x, lengths, valid_mask)
             masks = layer_masks()
@@ -323,7 +367,7 @@ class GroupedTransformerEncoder(nn.Module):
             x, valid_mask[None] if valid_mask is not None else None, dim=2, min_denom=1.0
         )  # [G, B, H]
         pooled = dropout(pooled, self.dropout, train, generator)
-        return self._dense("proj", pooled)
+        return grouped_dense(pooled, self.proj_kernel, self.proj_bias)  # f32 under any dtype
 
 
 def groupable_transformer_modalities(

@@ -11,15 +11,18 @@ means off, as in the reference; ``auto`` means on); with
 ``model.grouped_transformer`` one ``GroupedTransformerEncoder`` over the
 same-signature transformer modalities; per-modality encoders for the rest; a
 per-modality LayerNorm (``ln_<m>``, flax defaults), then the fusion head of
-``model.fusion_type`` (early, late, hybrid or uncertainty). ``fuse`` and
+``model.fusion_type`` (early, late, hybrid or uncertainty). With
+``model.moe_experts`` above 0 every transformer layer of the per-modality
+encoders takes the MoE feed-forward (``models/moe.py``); ``forward`` hands
+its aux losses back to a list passed as ``aux_losses``. ``fuse`` and
 ``forward`` return the logits alone: the late and uncertainty heads'
 ``(logits, per_modality_logits)`` is cut to its first item, as the reference
 does.
 With ``mixed_precision`` (the reference's end-to-end bf16) every encoder
 takes ``dtype: bfloat16`` unless its config sets its own, the fusion head
 computes in bf16 and the logits come back in f32; parameters stay f32.
-The recurrent encoders run in f32 as the reference's do off the TPU, and a
-grouped transformer under bf16 is not ported (ROADMAP queue A item 7b).
+The recurrent encoders run in f32 as the reference's do off the TPU; a
+grouped transformer takes the model's compute type, as the reference's does.
 Weights come from ``init_parameters`` (a seeded ``torch.Generator``, the
 reference's initialisers) or from a converted flax checkpoint
 (``convert.from_flax_variables``). ``train=True`` runs the training forward:
@@ -30,7 +33,7 @@ layers take the fused residual-LayerNorm kernels when ``fused_mlp`` and
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Optional
+from typing import Any, Dict, List, Mapping, Optional
 
 import torch
 from torch import nn
@@ -48,6 +51,7 @@ from .encoders import (
     lecun_normal_,
 )
 from .fusion import build_fusion_model
+from .moe import MoEFeedForward
 from .grouped import (
     GroupedRNNEncoder,
     GroupedTransformerEncoder,
@@ -77,7 +81,7 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> nn.Module:
     kernels use fan_in = P * H, as flax computes it for a ``[P, H, H]``
     shape, convolutions in * width), zero biases, unit LayerNorm and
     BatchNorm scales, BatchNorm running statistics 0 and 1, uniform recurrent
-    weights. Walks modules in registration order."""
+    and expert weights. Walks modules in registration order."""
     for module in model.modules():
         if isinstance(module, nn.Linear):
             lecun_normal_(module.weight, module.in_features, generator)
@@ -98,7 +102,8 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> nn.Module:
         elif isinstance(module, LayerNorm):
             module.weight.fill_(1.0)
             module.bias.zero_()
-        elif isinstance(module, (GroupedTransformerEncoder, GroupedRNNEncoder, RNNStack)):
+        elif isinstance(module, (GroupedTransformerEncoder, GroupedRNNEncoder, RNNStack,
+                                 MoEFeedForward)):
             module.init_parameters(generator)
     return model
 
@@ -158,10 +163,6 @@ class MultimodalFusionModel(nn.Module):
         self.grouped_tf_encoder = None
         if grouped_encoders and grouped_transformer:
             tf_names, shared = groupable_transformer_modalities(self.modalities, configs)
-            if tf_names and mixed_precision:
-                raise NotImplementedError(
-                    "model.grouped_transformer under mixed_precision is not ported yet "
-                    "(ROADMAP queue A item 7b)")
             if tf_names:
                 self.grouped_tf_names = tuple(tf_names)
                 self.grouped_tf_encoder = GroupedTransformerEncoder(
@@ -173,6 +174,7 @@ class MultimodalFusionModel(nn.Module):
                     dropout=dropout,
                     use_flash=bool(shared.get("flash_attention", False)),
                     dropout_rng=str(shared.get("dropout_rng") or "auto"),
+                    dtype=compute_dtype,
                 )
         self.encoders = nn.ModuleDict(
             {
@@ -218,8 +220,11 @@ class MultimodalFusionModel(nn.Module):
         lengths: Optional[torch.Tensor] = None,
         train: bool = False,
         generator: Optional[torch.Generator] = None,
+        aux_losses: Optional[List[torch.Tensor]] = None,
     ) -> Dict[str, torch.Tensor]:
-        """Run every available modality through its encoder (+LayerNorm)."""
+        """Run every available modality through its encoder (+LayerNorm).
+        The MoE layers' load-balance aux losses go to ``aux_losses`` when it
+        is a list, in the order the layers run."""
         encoded: Dict[str, torch.Tensor] = {}
         ref_len = next(
             (int(features[n].shape[1]) for n in self.modalities
@@ -267,7 +272,8 @@ class MultimodalFusionModel(nn.Module):
             elif isinstance(encoder, SimpleMLPEncoder):
                 emb = encoder(x, train=train, generator=generator)
             else:
-                emb = encoder(x, lengths=mod_lengths, train=train, generator=generator)
+                emb = encoder(x, lengths=mod_lengths, train=train, generator=generator,
+                              aux_losses=aux_losses)
             if self.layer_norms is not None:
                 emb = self.layer_norms[name](emb)
             encoded[name] = emb
@@ -304,12 +310,16 @@ class MultimodalFusionModel(nn.Module):
         train: bool = False,
         generator: Optional[torch.Generator] = None,
         return_attention: bool = False,
+        aux_losses: Optional[List[torch.Tensor]] = None,
     ):
         """Logits ``[B, C]``. With ``train=True`` every dropout mask comes
         from ``generator`` (on the inputs' device), encoders first, in a
         fixed order, so two runs with equally seeded generators make the
-        same masks whichever compute kernels they take."""
-        encoded = self.encode(features, lengths=lengths, train=train, generator=generator)
+        same masks whichever compute kernels they take. A list passed as
+        ``aux_losses`` receives each MoE layer's load-balance aux loss (the
+        reference's sown ``losses`` collection)."""
+        encoded = self.encode(features, lengths=lengths, train=train, generator=generator,
+                              aux_losses=aux_losses)
         return self.fuse(encoded, mask=mask, train=train, generator=generator,
                          return_attention=return_attention)
 
@@ -328,15 +338,9 @@ class MultimodalFusionModel(nn.Module):
         model_cfg = config.model
         dataset_cfg = config.dataset
         modalities = tuple(dataset_cfg.modalities)
-        unsupported = {
-            "model.moe_experts": int(model_cfg.get("moe_experts", 0) or 0) > 0,
-            "parallel.pipeline_parallel": int(
-                (config.get("parallel", {}) or {}).get("pipeline_parallel", 1) or 1
-            ) > 1,
-        }
-        for key, on in unsupported.items():
-            if on:
-                raise NotImplementedError(f"{key} is not ported yet (see ROADMAP.md)")
+        if int((config.get("parallel", {}) or {}).get("pipeline_parallel", 1) or 1) > 1:
+            raise NotImplementedError(
+                "parallel.pipeline_parallel is not ported yet (see ROADMAP.md)")
         flags = {
             key: _parse_flag(model_cfg.get(key, "auto"), key)
             for key in ("flash_attention", "fused_mlp", "fused_mlp_ln")
@@ -360,6 +364,12 @@ class MultimodalFusionModel(nn.Module):
                 for key, value in flags.items():
                     cfg[key] = _parse_flag(cfg.get(key, value), key)
                 cfg.setdefault("dropout_rng", dropout_rng)
+                # model.moe_experts > 0: the MoE feed-forward in every layer
+                # (such encoders stay ungrouped, as the reference's)
+                cfg.setdefault("moe_experts", int(model_cfg.get("moe_experts", 0) or 0))
+                cfg.setdefault("moe_top_k", int(model_cfg.get("moe_top_k", 2) or 2))
+                cfg.setdefault("moe_capacity_factor",
+                               float(model_cfg.get("moe_capacity_factor", 1.25) or 1.25))
                 # read by the grouping rule only: such encoders stay ungrouped
                 cfg.setdefault("sequence_parallel", bool(
                     (config.get("parallel", {}) or {}).get("sequence_parallel", False)))

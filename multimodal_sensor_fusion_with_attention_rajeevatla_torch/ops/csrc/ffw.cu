@@ -1,4 +1,5 @@
-// Fused feed-forward block, forward and backward, f32, for Hopper (sm_90a).
+// Fused feed-forward block, forward and backward, f32 and bf16 operands, for
+// Hopper (sm_90a).
 //
 // Replaces: multimodal_sensor_fusion_with_attention_rajeevatla_tpu/ops/pallas_mlp.py
 //   _fwd_kernel and _bwd_kernel (launched by _mlp_forward / _mlp_backward,
@@ -44,6 +45,20 @@
 // fixed order: no atomics, and a run repeats bit for bit. Rows past N load
 // zeros, are never written and add nothing; inv_keep = 0 under a mask gives
 // an exactly zero hidden, so out = b2.
+//
+// bf16 entries (msfa_ffw_fwd_bf16, msfa_ffw_bwd_bf16: mixed_precision with
+// fused_mlp on and fused_mlp_ln off). The same kernels at T = bf16, the
+// function of the reference's _fwd_kernel / _bwd_kernel when x is bf16
+// (their compute type is x's): x, W1, W2 and dout bf16; out, dx, dW1, dW2
+// bf16 (the reference returns the weights' gradients in their type); b1, b2
+// and db1 f32. pre sums exact bf16 products in f32; the hidden is rounded to
+// bf16 before W2's product and before dW2's (kept so in its scratch, half
+// the bytes); dpre is rounded to bf16 before both dW1 = x^T dpre and dx =
+// dpre W1^T, and db1 sums the unrounded f32 dpre. Every product takes two
+// bf16 operands, one TF32 product a k-step where 3xTF32 takes three: the
+// forward's 34.4 GFLOP and the backward's 85.9 bound at the bf16
+// tensor-core peak (989 TFLOP/s): 0.035 ms and 0.087 ms at the training
+// shape, against ~52 and ~64 MB of bf16 activations, masks and weights.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -55,22 +70,24 @@ namespace {
 
 using namespace msfa_ffw;
 using namespace msfa_ln;
+using bf16 = __nv_bfloat16;
 
 // hd = relu(x W1 + b1) * mask * inv_keep for a 128-row x 64-column tile
+template <typename T>
 __global__ void __launch_bounds__(HiddenProduct::kThreads, 2)
-fused_mlp_hidden_kernel(const float* __restrict__ x, const float* __restrict__ w1,
+fused_mlp_hidden_kernel(const T* __restrict__ x, const T* __restrict__ w1,
                         const float* __restrict__ b1, const unsigned char* __restrict__ mask,
-                        float* __restrict__ hd, int N, int D, int F, float inv_keep) {
+                        T* __restrict__ hd, int N, int D, int F, float inv_keep) {
   extern __shared__ __align__(16) float smem[];
   hidden_tile(x, w1, b1, mask, hd, N, D, F, inv_keep, smem);
 }
 
 // out = hd W2 + b2 for 64 whole rows
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(LnProduct<D>::kThreads)
-fused_mlp_fwd_kernel(const float* __restrict__ hd, const float* __restrict__ w2,
-                     const float* __restrict__ b2, float* __restrict__ out, int N, int F) {
-  using P = LnProduct<D>;
+fused_mlp_fwd_kernel(const T* __restrict__ hd, const T* __restrict__ w2,
+                     const float* __restrict__ b2, T* __restrict__ out, int N, int F) {
+  using P = LnProduct<D, T>;
   extern __shared__ __align__(16) float smem[];
   const int n0 = blockIdx.x * kRowsD;
   const typename P::A a{hd + (long)n0 * F, F, N - n0, F};
@@ -86,126 +103,129 @@ fused_mlp_fwd_kernel(const float* __restrict__ hd, const float* __restrict__ w2,
 #pragma unroll
       for (int j = 0; j < P::kNT; ++j) {
         const int c = P::col(j, 0);
-        *reinterpret_cast<float2*>(out + (long)n * D + c) =
-            make_float2(acc[i][j][2 * h] + b2[c], acc[i][j][2 * h + 1] + b2[c + 1]);
+        msfa_tc::store2(out + (long)n * D + c, acc[i][j][2 * h] + b2[c],
+                        acc[i][j][2 * h + 1] + b2[c + 1]);
       }
     }
 }
 
 // dpre = (hd > 0) * (dout W2^T) * mask * inv_keep for a 128-row x 64-column
 // tile, and the block's column sums of dpre (db1's partial)
+template <typename T>
 __global__ void __launch_bounds__(DhdProduct::kThreads, 2)
-fused_mlp_bwd_dpre_kernel(const float* __restrict__ dout, const float* __restrict__ w2,
-                          const float* __restrict__ hd, const unsigned char* __restrict__ mask,
-                          float* __restrict__ dpre, float* __restrict__ part, int N, int D, int F,
+fused_mlp_bwd_dpre_kernel(const T* __restrict__ dout, const T* __restrict__ w2,
+                          const T* __restrict__ hd, const unsigned char* __restrict__ mask,
+                          T* __restrict__ dpre, float* __restrict__ part, int N, int D, int F,
                           float inv_keep) {
   extern __shared__ __align__(16) float smem[];
   dpre_tile(dout, w2, hd, mask, dpre, part, N, D, F, inv_keep, smem);
 }
 
 // dx = dpre W1^T for 64 whole rows
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(DxProduct<D>::kThreads)
-fused_mlp_bwd_dx_kernel(const float* __restrict__ dpre, const float* __restrict__ w1,
-                        float* __restrict__ dx, int N, int F) {
+fused_mlp_bwd_dx_kernel(const T* __restrict__ dpre, const T* __restrict__ w1,
+                        T* __restrict__ dx, int N, int F) {
   extern __shared__ __align__(16) float smem[];
   dx_tile<D, false>(dpre, F, w1, nullptr, dx, N, smem);
 }
 
 // part[split] = A[rows of split]^T B[rows of split] for a 128 x 64 tile of
 // the [M, O] weight gradient (A [N, M], B [N, O] row-major)
+template <typename T>
 __global__ void __launch_bounds__(GradProduct::kThreads, 2)
-fused_mlp_bwd_dw_kernel(const float* __restrict__ A, int M, const float* __restrict__ B, int O,
+fused_mlp_bwd_dw_kernel(const T* __restrict__ A, int M, const T* __restrict__ B, int O,
                         float* __restrict__ part, int N, int rows_per_split) {
   extern __shared__ __align__(16) float smem[];
   grad_tile(A, M, B, O, part, N, rows_per_split, smem);
 }
 
-// out[e] = sum over s of part[s][e], s in order
+// out[e] = sum over s of part[s][e], s in order (rounded to bf16 for a bf16 out)
+template <typename Out>
 __global__ void __launch_bounds__(256)
-fused_mlp_bwd_sum_kernel(const float* __restrict__ part, float* __restrict__ out, int splits,
+fused_mlp_bwd_sum_kernel(const float* __restrict__ part, Out* __restrict__ out, int splits,
                          long width) {
   ordered_sum(part, out, splits, width);
 }
 
-cudaError_t sum_splits(const float* part, float* out, int splits, long width, cudaStream_t s) {
-  fused_mlp_bwd_sum_kernel<<<(unsigned)((width + 255) / 256), 256, 0, s>>>(part, out, splits,
-                                                                           width);
+template <typename Out>
+cudaError_t sum_splits(const float* part, Out* out, int splits, long width, cudaStream_t s) {
+  fused_mlp_bwd_sum_kernel<Out><<<(unsigned)((width + 255) / 256), 256, 0, s>>>(
+      part, out, splits, width);
   return cudaGetLastError();
 }
 
 // the hidden, as both directions take it
-cudaError_t launch_hidden(const float* x, const float* w1, const float* b1,
-                          const unsigned char* mask, float* hd, int N, int D, int F,
-                          float inv_keep, cudaStream_t s) {
-  const cudaError_t err = allow_smem(fused_mlp_hidden_kernel, HiddenProduct::kSmemFloats);
+template <typename T>
+cudaError_t launch_hidden(const T* x, const T* w1, const float* b1, const unsigned char* mask,
+                          T* hd, int N, int D, int F, float inv_keep, cudaStream_t s) {
+  using P = HiddenProductOf<T>;
+  const cudaError_t err = allow_smem(fused_mlp_hidden_kernel<T>, P::kSmemFloats);
   if (err != cudaSuccess) return err;
   const dim3 grid(F / kColsF, (N + kRowsF - 1) / kRowsF);
-  fused_mlp_hidden_kernel<<<grid, HiddenProduct::kThreads,
-                            HiddenProduct::kSmemFloats * (int)sizeof(float), s>>>(
+  fused_mlp_hidden_kernel<T><<<grid, P::kThreads, P::kSmemFloats * (int)sizeof(float), s>>>(
       x, w1, b1, mask, hd, N, D, F, inv_keep);
   return cudaGetLastError();
 }
 
-template <int D>
-int launch_fwd(const float* x, const float* w1, const float* b1, const float* w2,
-               const float* b2, const unsigned char* mask, float* out, float* hd, int N, int F,
-               float inv_keep, cudaStream_t s) {
-  using P = LnProduct<D>;
-  MSFA_TRY(allow_smem(fused_mlp_fwd_kernel<D>, P::kSmemFloats));
+template <int D, typename T>
+int launch_fwd(const T* x, const T* w1, const float* b1, const T* w2, const float* b2,
+               const unsigned char* mask, T* out, T* hd, int N, int F, float inv_keep,
+               cudaStream_t s) {
+  using P = LnProduct<D, T>;
+  MSFA_TRY(allow_smem(fused_mlp_fwd_kernel<D, T>, P::kSmemFloats));
   MSFA_TRY(launch_hidden(x, w1, b1, mask, hd, N, D, F, inv_keep, s));
-  fused_mlp_fwd_kernel<D><<<(N + kRowsD - 1) / kRowsD, P::kThreads,
-                            P::kSmemFloats * (int)sizeof(float), s>>>(hd, w2, b2, out, N, F);
+  fused_mlp_fwd_kernel<D, T><<<(N + kRowsD - 1) / kRowsD, P::kThreads,
+                               P::kSmemFloats * (int)sizeof(float), s>>>(hd, w2, b2, out, N, F);
   MSFA_TRY(cudaGetLastError());
   return 0;
 }
 
-template <int D>
-int launch_bwd(const float* x, const float* w1, const float* b1, const float* w2,
-               const unsigned char* mask, const float* dout, float* dx, float* dw1, float* db1,
-               float* dw2, float* hd, float* dpre, float* db1_part, float* dw_part, int N,
-               int F, int splits, float inv_keep, cudaStream_t s) {
-  MSFA_TRY(allow_smem(fused_mlp_bwd_dpre_kernel, DhdProduct::kSmemFloats));
-  MSFA_TRY(allow_smem(fused_mlp_bwd_dx_kernel<D>, DxProduct<D>::kSmemFloats));
-  MSFA_TRY(allow_smem(fused_mlp_bwd_dw_kernel, GradProduct::kSmemFloats));
+template <int D, typename T>
+int launch_bwd(const T* x, const T* w1, const float* b1, const T* w2,
+               const unsigned char* mask, const T* dout, T* dx, T* dw1, float* db1, T* dw2,
+               T* hd, T* dpre, float* db1_part, float* dw_part, int N, int F, int splits,
+               float inv_keep, cudaStream_t s) {
+  using PH = DhdProductOf<T>;
+  using PX = DxProduct<D, T>;
+  using PG = GradProductOf<T>;
+  MSFA_TRY(allow_smem(fused_mlp_bwd_dpre_kernel<T>, PH::kSmemFloats));
+  MSFA_TRY(allow_smem(fused_mlp_bwd_dx_kernel<D, T>, PX::kSmemFloats));
+  MSFA_TRY(allow_smem(fused_mlp_bwd_dw_kernel<T>, PG::kSmemFloats));
   const int row_tiles_f = (N + kRowsF - 1) / kRowsF;
   const int fb = (int)sizeof(float);
 
   MSFA_TRY(launch_hidden(x, w1, b1, mask, hd, N, D, F, inv_keep, s));
-  fused_mlp_bwd_dpre_kernel<<<dim3(F / kColsF, row_tiles_f), DhdProduct::kThreads,
-                              DhdProduct::kSmemFloats * fb, s>>>(dout, w2, hd, mask, dpre,
-                                                                 db1_part, N, D, F, inv_keep);
+  fused_mlp_bwd_dpre_kernel<T><<<dim3(F / kColsF, row_tiles_f), PH::kThreads,
+                                 PH::kSmemFloats * fb, s>>>(dout, w2, hd, mask, dpre, db1_part,
+                                                            N, D, F, inv_keep);
   MSFA_TRY(cudaGetLastError());
-  fused_mlp_bwd_dx_kernel<D><<<(N + kRowsD - 1) / kRowsD, DxProduct<D>::kThreads,
-                               DxProduct<D>::kSmemFloats * fb, s>>>(dpre, w1, dx, N, F);
+  fused_mlp_bwd_dx_kernel<D, T><<<(N + kRowsD - 1) / kRowsD, PX::kThreads,
+                                  PX::kSmemFloats * fb, s>>>(dpre, w1, dx, N, F);
   MSFA_TRY(cudaGetLastError());
 
   const int per_split = rows_per_split(N, splits);
-  const int dw_bytes = GradProduct::kSmemFloats * fb;
-  fused_mlp_bwd_dw_kernel<<<dim3((F + kGradM - 1) / kGradM, (D + kGradO - 1) / kGradO, splits),
-                            GradProduct::kThreads, dw_bytes, s>>>(hd, F, dout, D, dw_part, N,
-                                                                  per_split);  // dW2 = hd^T dout
+  const int dw_bytes = PG::kSmemFloats * fb;
+  fused_mlp_bwd_dw_kernel<T><<<dim3((F + kGradM - 1) / kGradM, (D + kGradO - 1) / kGradO,
+                                    splits),
+                               PG::kThreads, dw_bytes, s>>>(hd, F, dout, D, dw_part, N,
+                                                            per_split);  // dW2 = hd^T dout
   MSFA_TRY(cudaGetLastError());
   MSFA_TRY(sum_splits(dw_part, dw2, splits, (long)F * D, s));
-  fused_mlp_bwd_dw_kernel<<<dim3((D + kGradM - 1) / kGradM, (F + kGradO - 1) / kGradO, splits),
-                            GradProduct::kThreads, dw_bytes, s>>>(x, D, dpre, F, dw_part, N,
-                                                                  per_split);  // dW1 = x^T dpre
+  fused_mlp_bwd_dw_kernel<T><<<dim3((D + kGradM - 1) / kGradM, (F + kGradO - 1) / kGradO,
+                                    splits),
+                               PG::kThreads, dw_bytes, s>>>(x, D, dpre, F, dw_part, N,
+                                                            per_split);  // dW1 = x^T dpre
   MSFA_TRY(cudaGetLastError());
   MSFA_TRY(sum_splits(dw_part, dw1, splits, (long)D * F, s));
   MSFA_TRY(sum_splits(db1_part, db1, row_tiles_f, F, s));
   return 0;
 }
 
-}  // namespace
-
-extern "C" {
-
-// Widths the kernels are instantiated for (D); F must be a multiple of 64.
-// The wrapper checks both before calling. mask may be null (no dropout).
-// Scratch: hd [N, F], which holds the hidden on return.
-int msfa_ffw_fwd(const float* x, const float* w1, const float* b1, const float* w2,
-                 const float* b2, const unsigned char* mask, float* out, float* hd, int N, int D,
-                 int F, float inv_keep, void* stream) {
+template <typename T>
+int fwd_entry(const T* x, const T* w1, const float* b1, const T* w2, const float* b2,
+              const unsigned char* mask, T* out, T* hd, int N, int D, int F, float inv_keep,
+              void* stream) {
   if (N <= 0 || F <= 0 || F % kColsF != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define MSFA_FFW_FWD(W) launch_fwd<W>(x, w1, b1, w2, b2, mask, out, hd, N, F, inv_keep, s)
@@ -219,12 +239,10 @@ int msfa_ffw_fwd(const float* x, const float* w1, const float* b1, const float* 
 #undef MSFA_FFW_FWD
 }
 
-// Scratch: hd, dpre [N, F], db1_part [ceil(N/128), F], dw_part [splits, D * F];
-// hd holds the hidden on return.
-int msfa_ffw_bwd(const float* x, const float* w1, const float* b1, const float* w2,
-                 const unsigned char* mask, const float* dout, float* dx, float* dw1,
-                 float* db1, float* dw2, float* hd, float* dpre, float* db1_part,
-                 float* dw_part, int N, int D, int F, int splits, float inv_keep, void* stream) {
+template <typename T>
+int bwd_entry(const T* x, const T* w1, const float* b1, const T* w2, const unsigned char* mask,
+              const T* dout, T* dx, T* dw1, float* db1, T* dw2, T* hd, T* dpre, float* db1_part,
+              float* dw_part, int N, int D, int F, int splits, float inv_keep, void* stream) {
   if (N <= 0 || F <= 0 || F % kColsF != 0 || splits <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define MSFA_FFW_BWD(W)                                                                      \
@@ -240,18 +258,17 @@ int msfa_ffw_bwd(const float* x, const float* w1, const float* b1, const float* 
 #undef MSFA_FFW_BWD
 }
 
-// Dynamic shared memory per block of the five product kernels (hidden, fwd,
-// dpre, dx, dw) at width D, into bytes[0..4].
-int msfa_ffw_smem_bytes(int D, int* bytes) {
+template <typename T>
+int smem_bytes(int D, int* bytes) {
   const int fb = (int)sizeof(float);
-  bytes[0] = HiddenProduct::kSmemFloats * fb;
-  bytes[2] = DhdProduct::kSmemFloats * fb;
-  bytes[4] = GradProduct::kSmemFloats * fb;
+  bytes[0] = HiddenProductOf<T>::kSmemFloats * fb;
+  bytes[2] = DhdProductOf<T>::kSmemFloats * fb;
+  bytes[4] = GradProductOf<T>::kSmemFloats * fb;
   switch (D) {
 #define MSFA_FFW_SMEM(W)                                  \
   case W:                                                 \
-    bytes[1] = LnProduct<W>::kSmemFloats * fb;            \
-    bytes[3] = DxProduct<W>::kSmemFloats * fb;            \
+    bytes[1] = LnProduct<W, T>::kSmemFloats * fb;         \
+    bytes[3] = DxProduct<W, T>::kSmemFloats * fb;         \
     return 0;
     MSFA_FFW_SMEM(32)
     MSFA_FFW_SMEM(64)
@@ -261,6 +278,52 @@ int msfa_ffw_smem_bytes(int D, int* bytes) {
     default: return (int)cudaErrorInvalidValue;
   }
 }
+
+}  // namespace
+
+extern "C" {
+
+// Widths the kernels are instantiated for (D); F must be a multiple of 64.
+// The wrapper checks both before calling. mask may be null (no dropout).
+// Scratch: hd [N, F], which holds the hidden on return.
+int msfa_ffw_fwd(const float* x, const float* w1, const float* b1, const float* w2,
+                 const float* b2, const unsigned char* mask, float* out, float* hd, int N, int D,
+                 int F, float inv_keep, void* stream) {
+  return fwd_entry(x, w1, b1, w2, b2, mask, out, hd, N, D, F, inv_keep, stream);
+}
+
+// The bf16 entry: x, w1, w2, out and the hidden's scratch hd bf16.
+int msfa_ffw_fwd_bf16(const bf16* x, const bf16* w1, const float* b1, const bf16* w2,
+                      const float* b2, const unsigned char* mask, bf16* out, bf16* hd, int N,
+                      int D, int F, float inv_keep, void* stream) {
+  return fwd_entry(x, w1, b1, w2, b2, mask, out, hd, N, D, F, inv_keep, stream);
+}
+
+// Scratch: hd, dpre [N, F], db1_part [ceil(N/128), F], dw_part [splits, D * F];
+// hd holds the hidden on return.
+int msfa_ffw_bwd(const float* x, const float* w1, const float* b1, const float* w2,
+                 const unsigned char* mask, const float* dout, float* dx, float* dw1,
+                 float* db1, float* dw2, float* hd, float* dpre, float* db1_part,
+                 float* dw_part, int N, int D, int F, int splits, float inv_keep, void* stream) {
+  return bwd_entry(x, w1, b1, w2, mask, dout, dx, dw1, db1, dw2, hd, dpre, db1_part, dw_part,
+                   N, D, F, splits, inv_keep, stream);
+}
+
+// The bf16 entry: x, w1, w2, dout, dx, dw1, dw2 and the scratch hd, dpre bf16;
+// db1 and the partials f32.
+int msfa_ffw_bwd_bf16(const bf16* x, const bf16* w1, const float* b1, const bf16* w2,
+                      const unsigned char* mask, const bf16* dout, bf16* dx, bf16* dw1,
+                      float* db1, bf16* dw2, bf16* hd, bf16* dpre, float* db1_part,
+                      float* dw_part, int N, int D, int F, int splits, float inv_keep,
+                      void* stream) {
+  return bwd_entry(x, w1, b1, w2, mask, dout, dx, dw1, db1, dw2, hd, dpre, db1_part, dw_part,
+                   N, D, F, splits, inv_keep, stream);
+}
+
+// Dynamic shared memory per block of the five product kernels (hidden, fwd,
+// dpre, dx, dw) at width D, into bytes[0..4]; the bf16 entries' beside it.
+int msfa_ffw_smem_bytes(int D, int* bytes) { return smem_bytes<float>(D, bytes); }
+int msfa_ffw_bf16_smem_bytes(int D, int* bytes) { return smem_bytes<bf16>(D, bytes); }
 
 const char* msfa_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

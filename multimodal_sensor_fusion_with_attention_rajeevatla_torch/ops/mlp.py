@@ -35,11 +35,12 @@ a CPU tensor takes the ``*_reference`` twin (the same arithmetic in plain
 PyTorch; the mask twin is bit-identical to its kernel). Each wrapper counts
 its launches in ``<wrapper>.launches``.
 
-**bf16 (``mixed_precision``).** Both residual-LN pairs have bf16-operand
-entries (``proj_ln_fwd_bf16``, ``proj_ln_bwd_bf16``, ``ffw_ln_fwd_bf16``,
-``ffw_ln_bwd_bf16``, with their ``*_reference`` twins): x, the attention
-output, the weights, the cotangent and the outputs bf16, the biases and the
-LayerNorm's scale and offset f32. They round where the reference's kernels
+**bf16 (``mixed_precision``).** Both residual-LN pairs and the
+feed-forward pair have bf16-operand entries (``proj_ln_fwd_bf16``,
+``proj_ln_bwd_bf16``, ``ffw_ln_fwd_bf16``, ``ffw_ln_bwd_bf16``,
+``fused_mlp_fwd_bf16``, ``fused_mlp_bwd_bf16``, with their ``*_reference``
+twins): x, the attention output, the weights, the cotangent and the outputs
+bf16, the biases and the LayerNorm's scale and offset f32. They round where the reference's kernels
 round when ``x`` is bf16 (``pallas_mlp.py``'s compute type is ``x.dtype``):
 every product takes two bf16 operands and sums in f32 (the hidden, ``dy``
 and ``dpre`` are rounded to bf16 before the products they feed), the
@@ -398,10 +399,13 @@ def fused_mlp_bwd_reference(x, w1, b1, w2, mask, dout, inv_keep: float):
     return _fused_mlp_bwd_plain(x, w1, pre, pre > 0.0, w2, mask, dout, inv_keep)
 
 
-def _fused_mlp_bwd_plain(x, w1, pre, live, w2, mask, dout, inv_keep: float):
+def _fused_mlp_bwd_plain(x, w1, pre, live, w2, mask, dout, inv_keep: float, cast=None):
     """The plain feed-forward backward at the pre-activations ``pre``
     [N, d_ff], taking the ReLU branch ``live`` (``pre > 0`` for the plain
-    forward's own; see ``_ffw_ln_bwd_plain``)."""
+    forward's own; see ``_ffw_ln_bwd_plain``). ``cast`` rounds the hidden
+    and ``dpre`` where they enter a product (the bf16 twin's; none in
+    f32)."""
+    cast = cast or (lambda t: t)
     scale = _scale(mask, inv_keep)
     hd = torch.where(live, pre, 0.0)
     if scale is not None:
@@ -410,7 +414,39 @@ def _fused_mlp_bwd_plain(x, w1, pre, live, w2, mask, dout, inv_keep: float):
     if scale is not None:
         dhd = dhd * scale
     dpre = torch.where(live, dhd, 0.0)
-    return dpre @ w1.t(), x.t() @ dpre, dpre.sum(0), hd.t() @ dout
+    dprec = cast(dpre)
+    return dprec @ w1.t(), x.t() @ dprec, dpre.sum(0), cast(hd).t() @ dout
+
+
+def fused_mlp_fwd_bf16_reference(x, w1, b1, w2, b2, mask, inv_keep: float):
+    """Plain version of the feed-forward kernel's bf16 entry -> ``out [N, D]``
+    in bf16: the pre-activation from the bf16 values of x and w1 in f32, the
+    hidden rounded to bf16 before its product with w2, b2 added in f32, the
+    sum rounded."""
+    h = torch.relu(x.float() @ w1.float() + b1)
+    scale = _scale(mask, inv_keep)
+    if scale is not None:
+        h = h * scale
+    return (_bf16_values(h) @ w2.float() + b2).to(torch.bfloat16)
+
+
+def fused_mlp_bwd_bf16_reference(x, w1, b1, w2, mask, dout, inv_keep: float):
+    """Plain version of the feed-forward kernel's bf16 backward ->
+    ``(dx, dw1, db1, dw2)``: the hidden rounded to bf16 before dW2's
+    product, dpre before dW1's and dx's, db1 from the unrounded dpre; dx,
+    dw1 and dw2 in bf16, db1 f32."""
+    xf, w1f = x.float(), w1.float()
+    pre = xf @ w1f + b1
+    return _fused_mlp_bwd_bf16_plain(xf, w1f, pre, pre > 0.0, w2.float(), mask, dout.float(),
+                                     inv_keep)
+
+
+def _fused_mlp_bwd_bf16_plain(x, w1, pre, live, w2, mask, dout, inv_keep: float):
+    """``_fused_mlp_bwd_plain`` with the bf16 entry's roundings, on f32
+    tensors of bf16 values, its results in the entry's types."""
+    dx, dw1, db1, dw2 = _fused_mlp_bwd_plain(x, w1, pre, live, w2, mask, dout, inv_keep,
+                                             cast=_bf16_values)
+    return (*_bf16(dx, dw1), db1, dw2.to(torch.bfloat16))
 
 
 # ------------------------------------------------------------ kernel wrappers
@@ -568,89 +604,130 @@ def _mlp_shapes(x, d, f):
     return {"x": (n, d), "w1": (d, f), "b1": (f,), "w2": (f, d), "b2": (d,), "mask": (n, f)}
 
 
-def fused_mlp_fwd(x, w1, b1, w2, b2, mask, inv_keep: float):
-    """Kernel wrapper for the feed-forward block's forward -> ``out [N, D]``
-    (the kernel takes ``d_out == d_in``)."""
+_MLP_BF16 = ("x", "w1", "w2", "dout")
+
+
+def _fused_mlp_fwd(wrapper, bf16: bool, x, w1, b1, w2, b2, mask, inv_keep: float):
+    """The body of both feed-forward forward entries."""
     d, f = x.shape[-1], w1.shape[-1]
     tensors = {"x": x, "w1": w1, "b1": b1, "w2": w2, "b2": b2, "mask": mask}
     _check(tensors, _mlp_shapes(x, d, f), x.device)
     if x.device.type == "cpu":
-        return fused_mlp_fwd_reference(x, w1, b1, w2, b2, mask, inv_keep)
+        reference = fused_mlp_fwd_bf16_reference if bf16 else fused_mlp_fwd_reference
+        return reference(x, w1, b1, w2, b2, mask, inv_keep)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    _check_kernel_inputs(tensors, d)
+    _check_kernel_inputs(tensors, d, _MLP_BF16 if bf16 else ())
     _check_ffw_width(f)
     if x.shape[0] == 0:
         return torch.empty_like(x)
     return _fused_mlp_fwd_launch(x, w1, b1, w2, b2, mask, inv_keep)[0]
 
 
-def _fused_mlp_fwd_launch(x, w1, b1, w2, b2, mask, inv_keep: float):
-    """``fused_mlp_fwd``'s kernels on checked CUDA inputs with N > 0 ->
-    ``(out, hd)``: the hidden ``relu(x @ w1 + b1) * mask / keep`` lives in an
-    ``[N, d_ff]`` scratch buffer allocated here between the two launches."""
-    (n, d), f = x.shape, w1.shape[-1]
-    out = torch.empty_like(x)
-    hd = torch.empty((n, f), device=x.device)
-    lib, fn = _fn("ffw", "msfa_ffw_fwd", 8, 3, 1)
-    with torch.cuda.device(x.device):
-        code = fn(x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-                  _ptr(mask), out.data_ptr(), hd.data_ptr(), n, d, f, float(inv_keep),
-                  _stream(x.device))
-    _build.check(lib, code, "fused_mlp_fwd")
-    fused_mlp_fwd.launches += 1
-    return out, hd
+def fused_mlp_fwd(x, w1, b1, w2, b2, mask, inv_keep: float):
+    """Kernel wrapper for the feed-forward block's forward -> ``out [N, D]``
+    (the kernel takes ``d_out == d_in``)."""
+    return _fused_mlp_fwd(fused_mlp_fwd, False, x, w1, b1, w2, b2, mask, inv_keep)
 
 
 fused_mlp_fwd.launches = 0
 
 
-def fused_mlp_bwd(x, w1, b1, w2, mask, dout, inv_keep: float):
-    """Kernel wrapper for the feed-forward block's backward ->
-    ``(dx, dw1, db1, dw2)``."""
+def fused_mlp_fwd_bf16(x, w1, b1, w2, b2, mask, inv_keep: float):
+    """Kernel wrapper for the feed-forward block's bf16 entry -> ``out [N, D]``
+    in bfloat16 from bfloat16 x, w1 and w2 (f32 biases)."""
+    return _fused_mlp_fwd(fused_mlp_fwd_bf16, True, x, w1, b1, w2, b2, mask, inv_keep)
+
+
+fused_mlp_fwd_bf16.launches = 0
+
+
+def _fused_mlp_fwd_launch(x, w1, b1, w2, b2, mask, inv_keep: float):
+    """The feed-forward forward entry of ``x``'s type (f32, or bf16:
+    ``fused_mlp_fwd_bf16``) on checked CUDA inputs with N > 0 -> ``(out,
+    hd)``: the hidden ``relu(x @ w1 + b1) * mask / keep``, in ``x``'s type,
+    lives in an ``[N, d_ff]`` scratch buffer allocated here between the two
+    launches."""
+    (n, d), f = x.shape, w1.shape[-1]
+    bf16 = x.dtype == torch.bfloat16
+    out = torch.empty_like(x)
+    hd = torch.empty((n, f), device=x.device, dtype=x.dtype)
+    lib, fn = _fn("ffw", f"msfa_ffw_fwd{_sfx(bf16)}", 8, 3, 1)
+    with torch.cuda.device(x.device):
+        code = fn(x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
+                  _ptr(mask), out.data_ptr(), hd.data_ptr(), n, d, f, float(inv_keep),
+                  _stream(x.device))
+    wrapper = fused_mlp_fwd_bf16 if bf16 else fused_mlp_fwd
+    _build.check(lib, code, wrapper.__name__)
+    wrapper.launches += 1
+    return out, hd
+
+
+def _fused_mlp_bwd(wrapper, bf16: bool, x, w1, b1, w2, mask, dout, inv_keep: float):
+    """The body of both feed-forward backward entries."""
     d, f = x.shape[-1], w1.shape[-1]
     tensors = {"x": x, "w1": w1, "b1": b1, "w2": w2, "mask": mask, "dout": dout}
     _check(tensors, {**_mlp_shapes(x, d, f), "dout": x.shape}, x.device)
     if x.device.type == "cpu":
-        return fused_mlp_bwd_reference(x, w1, b1, w2, mask, dout, inv_keep)
+        reference = fused_mlp_bwd_bf16_reference if bf16 else fused_mlp_bwd_reference
+        return reference(x, w1, b1, w2, mask, dout, inv_keep)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    _check_kernel_inputs(tensors, d)
+    _check_kernel_inputs(tensors, d, _MLP_BF16 if bf16 else ())
     _check_ffw_width(f)
     if x.shape[0] == 0:
-        return (torch.empty_like(x), torch.zeros((d, f), device=x.device),
-                torch.zeros((f,), device=x.device), torch.zeros((f, d), device=x.device))
+        return (torch.empty_like(x), torch.zeros_like(w1), torch.zeros((f,), device=x.device),
+                torch.zeros_like(w2))
     return _fused_mlp_bwd_launch(x, w1, b1, w2, mask, dout, inv_keep)[0]
 
 
+def fused_mlp_bwd(x, w1, b1, w2, mask, dout, inv_keep: float):
+    """Kernel wrapper for the feed-forward block's backward ->
+    ``(dx, dw1, db1, dw2)``."""
+    return _fused_mlp_bwd(fused_mlp_bwd, False, x, w1, b1, w2, mask, dout, inv_keep)
+
+
+fused_mlp_bwd.launches = 0
+
+
+def fused_mlp_bwd_bf16(x, w1, b1, w2, mask, dout, inv_keep: float):
+    """Kernel wrapper for the feed-forward block's bf16 backward ->
+    ``(dx, dw1, db1, dw2)``, dx, dw1 and dw2 bfloat16, from bfloat16 x, w1,
+    w2 and cotangent ``dout``."""
+    return _fused_mlp_bwd(fused_mlp_bwd_bf16, True, x, w1, b1, w2, mask, dout, inv_keep)
+
+
+fused_mlp_bwd_bf16.launches = 0
+
+
 def _fused_mlp_bwd_launch(x, w1, b1, w2, mask, dout, inv_keep: float):
-    """``fused_mlp_bwd``'s kernels on checked CUDA inputs with N > 0 ->
-    ``(grads, hd)``. The kernels keep the recomputed hidden ``hd`` (the
-    forward's kernel, the same bits) and its gradient in two ``[N, d_ff]``
-    scratch buffers allocated here, with the per-block partials of db1 and
-    the per-split partials of the weight gradients, as ``ffw_ln_bwd`` does."""
+    """The feed-forward backward entry of ``x``'s type on checked CUDA inputs
+    with N > 0 -> ``(grads, hd)``. The kernels keep the recomputed hidden
+    ``hd`` (the forward's kernel, the same bits) and its gradient in two
+    ``[N, d_ff]`` scratch buffers allocated here, with the per-block
+    partials of db1 and the per-split partials of the weight gradients, as
+    ``ffw_ln_bwd`` does; with bf16 the two scratch buffers, dx, dw1 and dw2
+    bf16."""
     (n, d), f = x.shape, w1.shape[-1]
+    bf16 = x.dtype == torch.bfloat16
+    act = dict(device=x.device, dtype=x.dtype)
     dx = torch.empty_like(x)
-    dw1 = torch.empty((d, f), device=x.device)
+    dw1, dw2 = torch.empty((d, f), **act), torch.empty((f, d), **act)
     db1 = torch.empty((f,), device=x.device)
-    dw2 = torch.empty((f, d), device=x.device)
     splits = _grad_splits(n, _grad_tiles(f, d))
-    hd = torch.empty((n, f), device=x.device)
-    dpre = torch.empty((n, f), device=x.device)
+    hd, dpre = torch.empty((n, f), **act), torch.empty((n, f), **act)
     db1_part = torch.empty((math.ceil(n / ROWS_F), f), device=x.device)
     dw_part = torch.empty((splits, d * f), device=x.device)
-    lib, fn = _fn("ffw", "msfa_ffw_bwd", 14, 4, 1)
+    lib, fn = _fn("ffw", f"msfa_ffw_bwd{_sfx(bf16)}", 14, 4, 1)
     with torch.cuda.device(x.device):
         code = fn(x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), _ptr(mask),
                   dout.data_ptr(), dx.data_ptr(), dw1.data_ptr(), db1.data_ptr(),
                   dw2.data_ptr(), hd.data_ptr(), dpre.data_ptr(), db1_part.data_ptr(),
                   dw_part.data_ptr(), n, d, f, splits, float(inv_keep), _stream(x.device))
-    _build.check(lib, code, "fused_mlp_bwd")
-    fused_mlp_bwd.launches += 1
+    wrapper = fused_mlp_bwd_bf16 if bf16 else fused_mlp_bwd
+    _build.check(lib, code, wrapper.__name__)
+    wrapper.launches += 1
     return (dx, dw1, db1, dw2), hd
-
-
-fused_mlp_bwd.launches = 0
 
 
 def _proj_shapes(x, d):
@@ -999,11 +1076,14 @@ class FusedMlpResidualLN(torch.autograd.Function):
 
 class FusedMlp(torch.autograd.Function):
     """``dropout(relu(x @ w1 + b1)) @ w2 + b2`` with the kernel pair as
-    forward and backward (the JAX package's custom VJP ``_mlp_core``)."""
+    forward and backward (the JAX package's custom VJP ``_mlp_core``): the
+    f32 entries for an f32 ``x``, the bf16 entries for a bfloat16 one (x, w1
+    and w2 bf16, the output and dx, dw1, dw2 too; db1 and db2 f32)."""
 
     @staticmethod
     def forward(ctx, x, w1, b1, w2, b2, mask, inv_keep: float):
-        out = fused_mlp_fwd(x, w1, b1, w2, b2, mask, inv_keep)
+        fwd = fused_mlp_fwd_bf16 if x.dtype == torch.bfloat16 else fused_mlp_fwd
+        out = fwd(x, w1, b1, w2, b2, mask, inv_keep)
         ctx.save_for_backward(x, w1, b1, w2, mask)
         ctx.inv_keep = inv_keep
         return out
@@ -1011,9 +1091,10 @@ class FusedMlp(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         x, w1, b1, w2, mask = ctx.saved_tensors
-        dout = dout.float().contiguous()
-        dx, dw1, db1, dw2 = fused_mlp_bwd(x, w1, b1, w2, mask, dout, ctx.inv_keep)
-        return dx, dw1, db1, dw2, dout.sum(0), None, None
+        bwd = fused_mlp_bwd_bf16 if x.dtype == torch.bfloat16 else fused_mlp_bwd
+        dout = dout.to(x.dtype).contiguous()
+        dx, dw1, db1, dw2 = bwd(x, w1, b1, w2, mask, dout, ctx.inv_keep)
+        return dx, dw1, db1, dw2, dout.float().sum(0), None, None
 
 
 def _as_mask(mask: Optional[torch.Tensor], rows: int) -> Optional[torch.Tensor]:
@@ -1041,13 +1122,15 @@ def fused_mlp(
     ``h * mask / keep_prob``. Widths the kernels are not built for are padded
     with zeros up to ``kernel_width`` and ``ffw_width`` (``mlp_route``: the
     same function); a d_in above ``KERNEL_WIDTHS``' largest raises on the
-    card."""
+    card. A bfloat16 ``x`` runs the bf16 entries, x, w1 and w2 in bf16 (the
+    output bf16, the biases f32); otherwise all f32."""
     d_in = x.shape[-1]
     width = kernel_width(d_in) or d_in  # d_in padded: zero rows of w1, zero columns of w2
-    w1, b1, w2, mask = _pad_ffw(w1.float(), b1.float(), w2.float(),
+    dt = x.dtype if x.dtype == torch.bfloat16 else torch.float32
+    w1, b1, w2, mask = _pad_ffw(w1.to(dt), b1.float(), w2.to(dt),
                                 _as_mask(keep_mask, x.shape[0]), w1.shape[-1])
     out = FusedMlp.apply(
-        _pad_cols(x.float(), width).contiguous(), _pad_cols(w1.t(), width).t().contiguous(),
+        _pad_cols(x.to(dt), width).contiguous(), _pad_cols(w1.t(), width).t().contiguous(),
         b1.contiguous(), _pad_cols(w2, width).contiguous(),
         _pad_cols(b2.float(), width).contiguous(), mask, _inv_keep(keep_prob),
     )

@@ -25,15 +25,28 @@ optimizer, augmentations, the per-batch step and ``fit``).
   ``resume_from`` restores weights, optimizer and generator from a ``last``
   checkpoint, so a resumed run repeats an uninterrupted one.
 
-The streaming loader path (``dataset.streaming``), the parallel layouts and
-``training.remat`` are not ported (ROADMAP queue A): ``check_layout`` keeps
-the reference's ``ValueError``s for an inconsistent ``parallel`` block and
-an unknown ``training.prng_impl``, and raises ``NotImplementedError`` for
-any layout other than one card.
+A model with MoE layers (``model.moe_experts``) reports their load-balance
+aux losses, and the loss of a micro-step adds ``training.moe_aux_weight``
+times their sum, as the reference's does. ``training.remat`` runs the
+micro-step's whole forward under ``torch.utils.checkpoint`` (non-reentrant),
+the unit the reference wraps in ``jax.checkpoint``: the backward recomputes
+it, with the trainer's generator put back to its state before the forward
+(so the recompute draws the same masks and kernel seeds) and the BatchNorm
+running statistics left as the first forward moved them; the aux losses are
+outputs of the recomputed function. Loss and gradients are those of the run
+without it, bit for bit, and every forward kernel launches twice a
+micro-step.
+
+The streaming loader path (``dataset.streaming``) and the parallel layouts
+are not ported (ROADMAP queue A): ``check_layout`` keeps the reference's
+``ValueError``s for an inconsistent ``parallel`` block and an unknown
+``training.prng_impl``, and raises ``NotImplementedError`` for any layout
+other than one card.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import time
@@ -42,9 +55,11 @@ from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from ..data.dataset import WindowedSplit, padded_index_matrix
 from ..data.device import DeviceSplit
+from ..models.encoders import running_stats_frozen
 from ..models.module import MultimodalFusionModel
 from ..ops.metrics import cross_entropy_loss, weighted_accuracy
 from ..utils.device import resolve_device
@@ -245,8 +260,8 @@ def check_layout(config) -> None:
     """The reference trainer's checks of ``parallel.*`` with its messages,
     then ``NotImplementedError`` for what the port does not run: more than one
     device (``num_devices`` above 1; ``auto`` and null are the one card here)
-    and so every mesh axis and ZeRO (ROADMAP A11), and ``training.remat``
-    (A9). Every default of ``config/base.yaml`` passes.
+    and so every mesh axis and ZeRO (ROADMAP A11). Every default of
+    ``config/base.yaml`` passes.
 
     ``training.prng_impl`` keeps the reference's ``ValueError`` for a value
     other than ``threefry``, ``rbg`` or ``unsafe_rbg``. The three known
@@ -293,8 +308,6 @@ def check_layout(config) -> None:
         keys = ", ".join(f"parallel.{k}={v}" for k, v in layout.items() if v != defaults[k])
         raise NotImplementedError(
             f"{keys} is not ported yet (ROADMAP queue A item 11): the port trains on one card")
-    if bool(config.training.get("remat", False)):
-        raise NotImplementedError("training.remat is not ported yet (ROADMAP queue A item 9)")
 
 
 class Trainer:
@@ -319,6 +332,8 @@ class Trainer:
         self.model = model or MultimodalFusionModel.from_config(config, device=self.device)
         training = config.training
         self.label_smoothing = float(training.get("label_smoothing", 0.0))
+        self.remat = bool(training.get("remat", False))
+        self.moe_aux_weight = float(training.get("moe_aux_weight", 0.01))
         augmentation = training.get("augmentation", {}) or {}
         self.modality_dropout = float(augmentation.get("modality_dropout", 0.0))
         self.gaussian_noise = float(augmentation.get("gaussian_noise", 0.0))
@@ -357,14 +372,50 @@ class Trainer:
             mask = torch.ones((batch, num_mod), device=device)
         return features, lengths, mask
 
+    def _forward(self, names, mask, lengths, *feature_list):
+        """The micro-step's training forward on the features ``names`` ->
+        ``(logits, aux_losses)``: the unit ``training.remat`` recomputes."""
+        aux: List[torch.Tensor] = []
+        features = dict(zip(names, feature_list))
+        logits = self.model(features, mask, lengths, train=True, generator=self.generator,
+                            aux_losses=aux)
+        return logits, aux
+
+    def _remat_contexts(self):
+        """``checkpoint``'s ``context_fn``, called as the forward starts: the
+        forward runs as it is; the recompute runs from the generator's state
+        at that moment (which it restores to its own afterwards) and leaves
+        the BatchNorm running statistics as they are."""
+        start = self.generator.get_state()
+
+        @contextlib.contextmanager
+        def recompute():
+            now = self.generator.get_state()
+            self.generator.set_state(start)
+            try:
+                with running_stats_frozen():
+                    yield
+            finally:
+                self.generator.set_state(now)
+
+        return contextlib.nullcontext(), recompute()
+
     def loss_and_grads(self, features, labels, mask, lengths, weight):
         """Forward in train mode, loss, backward -> ``(loss, acc, grads)``
-        with one gradient per ``model.parameters()`` entry."""
+        with one gradient per ``model.parameters()`` entry. The loss adds
+        ``moe_aux_weight`` times the model's aux losses where it reports any."""
         params = list(self.model.parameters())
         for p in params:
             p.grad = None
-        logits = self.model(features, mask, lengths, train=True, generator=self.generator)
+        args = (tuple(features), mask, lengths, *features.values())
+        if self.remat:
+            logits, aux = torch.utils.checkpoint.checkpoint(
+                self._forward, *args, use_reentrant=False, context_fn=self._remat_contexts)
+        else:
+            logits, aux = self._forward(*args)
         loss = cross_entropy_loss(logits, labels, self.label_smoothing, sample_weight=weight)
+        if aux and self.moe_aux_weight:
+            loss = loss + self.moe_aux_weight * sum(aux)  # in the order the layers ran
         loss.backward()
         acc = weighted_accuracy(logits.detach(), labels, weight)
         return loss.detach(), acc, [p.grad for p in params]

@@ -9,14 +9,18 @@ roundings (a value rounded to bf16 and read back in f32 is fused away), so
 the jitted JAX function differs from its own eager run; the port is held to
 the program as written.
 
-The bf16 twins of the packed attention pair (rows 1-2) and of both
-residual-LN pairs (rows 12-15) against the JAX kernel functions on bf16
-inputs; the product scheme of their CUDA entries (a bf16 operand exact in
-TF32: one TF32 product for two bf16 operands, two for a bf16 and an f32 one)
-emulated on the CPU against the twins; served logits of the four fusion
-heads with one CNN stream; one train-mode loss and every gradient against
-``jax.value_and_grad`` at dropout 0; the types of parameters and logits; the
-routes under bf16 and their refusals; a checkpoint round trip.
+The bf16 twins of the packed attention pair (rows 1-2), of both
+residual-LN pairs (rows 12-15) and of the feed-forward pair (rows 10-11)
+against the JAX kernel functions on bf16 inputs; the product scheme of their
+CUDA entries (a bf16 operand exact in TF32: one TF32 product for two bf16
+operands, two for a bf16 and an f32 one) emulated on the CPU against the
+twins, and on exact-sum inputs each FFW rounding point shown to matter;
+served logits of the four fusion heads with one CNN stream, and of the
+grouped transformer; one train-mode loss and every gradient against
+``jax.value_and_grad`` at dropout 0, on the default kernel route, the
+feed-forward pair's route (``fused_mlp_ln`` off) and the grouped
+transformer; the types of parameters and logits; the routes under bf16; a
+checkpoint round trip.
 """
 
 from pathlib import Path
@@ -67,12 +71,14 @@ from test_torch_port_tf32 import _mm3
 from torch_port_schemes import (
     CHUNK_K,
     _ffw_ln_bf16,
+    _fused_mlp_bf16,
     _mm_n,
     _proj_ln_bf16,
     _tf32_cut,
     _tf32_hi,
     bf16_ulps_apart,
     exact_ffw_ln_case,
+    exact_fused_mlp_case,
     ffw_ln_scheme_hidden,
 )
 
@@ -81,6 +87,8 @@ NAMES = ("imu_hand", "imu_chest", "imu_ankle", "heart_rate")
 DIMS = (17, 17, 17, 1)
 SMALL = ["model.hidden_dim=32", "model.output_dim=16"]
 KERNELS_ON = ["model.flash_attention=true", "model.fused_mlp=true", "model.fused_mlp_ln=true"]
+PAIR_ROUTE = ["model.fused_mlp_ln=false"]  # the feed-forward pair (rows 10-11) in training
+GROUPED = ["model.grouped_transformer=true"]
 BF16 = ["mixed_precision=true"]
 CNN_STREAM = ["model.encoders.imu_chest.encoder_type=cnn"]
 SMOOTHING = 0.05
@@ -396,6 +404,94 @@ def test_ffw_ln_bf16_rounding_points_each_move_the_exact_case():
             assert (variant[i] != want[i]).float().mean() > 0.25, (skip, i)
 
 
+def _mlp_case(seed, n=40, d=32, f=128, keep=0.8):
+    """(x, w1, b1, w2, b2) as bf16 values in f32 (the biases f32), the keep
+    mask and a bf16 cotangent."""
+    arrays, masks, dout, keep = _ln_case("ffw_ln", seed, n=n, d=d, f=f, keep=keep)
+    return arrays[:5], masks[0], dout, keep
+
+
+def _torch_mlp(arrays, mask):
+    return ([torch.from_numpy(a).to(BF) if i in _BF16_ARGS["ffw_ln"] else torch.from_numpy(a)
+             for i, a in enumerate(arrays)] + [torch.from_numpy(mask)])
+
+
+@pytest.mark.parametrize("direction", ["forward", "backward"])
+def test_fused_mlp_bf16_twins_match_the_jax_kernels(direction):
+    """Rows 10-11: the reference's feed-forward pair in interpret mode,
+    eagerly, on bf16 x, w1 and w2 (its compute type is x's: the hidden
+    rounded before W2's and dW2's products, dpre before dW1's and dx's)
+    against the bf16 twins: out, dx, dW1, dW2 bf16, db1 f32."""
+    arrays, mask, dout, keep = _mlp_case(21)
+    jargs = [jnp.asarray(a).astype(jnp.bfloat16) if i in _BF16_ARGS["ffw_ln"] else jnp.asarray(a)
+             for i, a in enumerate(arrays)]
+    fn = lambda *p: jmlp.fused_mlp(*p, jnp.asarray(mask), keep, interpret=True)  # noqa: E731
+    with jax.disable_jit():
+        j_out, vjp = jax.vjp(fn, *jargs)
+        j_grads = vjp(jnp.asarray(dout).astype(jnp.bfloat16))
+    x, w1, b1, w2, b2, tmask = _torch_mlp(arrays, mask)
+    inv_keep = tm._inv_keep(keep)
+    if direction == "forward":
+        out = tm.fused_mlp_fwd_bf16(x, w1, b1, w2, b2, tmask, inv_keep)
+        assert out.dtype == BF and j_out.dtype == jnp.bfloat16
+        # the same roundings on the same values: the same bits
+        np.testing.assert_array_equal(out.float().numpy(), np.asarray(j_out.astype(jnp.float32)))
+        return
+    grads = tm.fused_mlp_bwd_bf16(x, w1, b1, w2, tmask, torch.from_numpy(dout).to(BF), inv_keep)
+    # the wrapper's dx, dw1, db1, dw2 against the reference's cotangents of x, w1, b1, w2
+    for i, (got, want) in enumerate(zip(grads, j_grads[:4])):
+        bf16 = i in _BF16_ARGS["ffw_ln"]
+        assert got.dtype == (BF if bf16 else torch.float32)
+        assert want.dtype == (jnp.bfloat16 if bf16 else jnp.float32)
+        want = np.asarray(want.astype(jnp.float32))
+        if bf16:  # every product on the same rounded operands, each sum exact in f32 here
+            np.testing.assert_array_equal(got.float().numpy(), want)
+        else:  # db1: the same f32 values summed in another order
+            np.testing.assert_allclose(got.numpy(), want, **F32_TOL)
+
+
+def test_fused_mlp_bf16_scheme_holds_the_twins():
+    """The feed-forward pair's bf16 entries, emulated (every product of two
+    bf16 operands, one TF32 pass a k-step in 32-deep chunks, the hidden and
+    dpre rounded), against their twins within one bf16 rounding of each
+    output's largest magnitude."""
+    arrays, mask, dout, keep = _mlp_case(23, n=200)
+    x, w1, b1, w2, b2, tmask = _torch_mlp(arrays, mask)
+    inv_keep = tm._inv_keep(keep)
+    tdout = torch.from_numpy(dout)
+    out, grads = _fused_mlp_bf16(x.float(), w1.float(), b1, w2.float(), b2, tmask, tdout,
+                                 inv_keep)
+    want_out = tm.fused_mlp_fwd_bf16_reference(x, w1, b1, w2, b2, tmask, inv_keep)
+    assert _rel(out.numpy(), want_out.float().numpy()) < BF16_TOL
+    want = tm.fused_mlp_bwd_bf16_reference(x, w1, b1, w2, tmask, tdout.to(BF), inv_keep)
+    for i, (got, ref) in enumerate(zip(grads, want)):
+        assert _rel(got.numpy(), ref.float().numpy()) < BF16_TOL, i
+
+
+def test_fused_mlp_bf16_rounding_points_each_move_the_exact_case():
+    """On the inputs the card test holds the feed-forward bf16 entries to
+    (every sum before a rounding point exact in f32), the twins are the
+    scheme within one bf16 step in at most 1e-3 of the entries; leaving out
+    the forward's rounding of the hidden, the backward's before dW2, or
+    dpre's, moves a quarter or more of the entries of every output it
+    feeds."""
+    args, dout, inv_keep = exact_fused_mlp_case()
+    x, w1, b1, w2, b2, mask = args
+    f32 = [t.float() if t.dtype == BF else t for t in args]
+    out_s, grads_s = _fused_mlp_bf16(*f32, dout.float(), inv_keep)
+    want = [t.to(BF) for t in (out_s, grads_s[0], grads_s[1], grads_s[3])]
+    twin_out = tm.fused_mlp_fwd_bf16_reference(*args, inv_keep)
+    twin = tm.fused_mlp_bwd_bf16_reference(x, w1, b1, w2, mask, dout, inv_keep)
+    for a, b in zip((twin_out, twin[0], twin[1], twin[3]), want):
+        apart = bf16_ulps_apart(a, b)
+        assert apart.max() <= 1 and (apart > 0).float().mean() <= 1e-3
+    for skip, moved in (("hidden", (0,)), ("hd", (3,)), ("dpre", (1, 2))):
+        out_v, grads_v = _fused_mlp_bf16(*f32, dout.float(), inv_keep, skip=(skip,))
+        variant = [t.to(BF) for t in (out_v, grads_v[0], grads_v[1], grads_v[3])]
+        for i in moved:
+            assert (variant[i] != want[i]).float().mean() > 0.25, (skip, i)
+
+
 # ---- the model against JAX ----------------------------------------------------
 
 
@@ -438,20 +534,20 @@ def test_served_bf16_logits_match_jax(fusion):
               f"jitted {_norm_err(got.numpy(), jitted):.3e}")
 
 
-@pytest.fixture(scope="module")
-def jax_train_reference():
+def _jax_train(extra, seed):
     """(flax variables, loss, grads) of the JAX mixed_precision model in train
-    mode at dropout 0, kernels on (interpret mode), hybrid head; the loss and
-    its gradient jitted, at a fifth of the eager run's time. The jitted loss
-    is the eager one bit for bit; the jitted gradient's backward rounds
-    otherwise than the eager one (XLA fuses some of its bf16 roundings
-    away), by about as much as the port's does: the tolerances hold both."""
-    tcfg = load_config(REPO / "config" / "base.yaml", SMALL + KERNELS_ON + BF16 + ["model.dropout=0"])
+    mode at dropout 0, kernels on (interpret mode), hybrid head, with the
+    overrides ``extra``; the loss and its gradient jitted, at a fifth of the
+    eager run's time. The jitted loss is the eager one bit for bit; the
+    jitted gradient's backward rounds otherwise than the eager one (XLA fuses
+    some of its bf16 roundings away), by about as much as the port's does:
+    the tolerances hold both."""
+    overrides = SMALL + KERNELS_ON + BF16 + ["model.dropout=0", *extra]
+    tcfg = load_config(REPO / "config" / "base.yaml", overrides)
     port = MultimodalFusionModel.from_config(tcfg, device="cpu",
-                                             generator=torch.Generator().manual_seed(4))
+                                             generator=torch.Generator().manual_seed(seed))
     variables = to_flax_variables(port)
-    jmodel = JaxModel.from_config(jax_load_config(
-        REPO / "config" / "base.yaml", SMALL + KERNELS_ON + BF16 + ["model.dropout=0"]))
+    jmodel = JaxModel.from_config(jax_load_config(REPO / "config" / "base.yaml", overrides))
     feats, mask, lengths, labels, weight = _batch()
     jf = {n: jnp.asarray(v) for n, v in feats.items()}
 
@@ -466,9 +562,14 @@ def jax_train_reference():
     return variables, float(loss), dict(_flat(grads))
 
 
-def test_train_loss_and_every_gradient_match_jax(jax_train_reference):
-    variables, want_loss, want = jax_train_reference
-    cfg = load_config(REPO / "config" / "base.yaml", SMALL + KERNELS_ON + BF16 + ["model.dropout=0"])
+@pytest.fixture(scope="module")
+def jax_train_reference():
+    return _jax_train([], 4)
+
+
+def _port_train_step_matches(extra, variables, want_loss, want):
+    cfg = load_config(REPO / "config" / "base.yaml",
+                      SMALL + KERNELS_ON + BF16 + ["model.dropout=0", *extra])
     model = MultimodalFusionModel.from_config(cfg, device="cpu")
     model.load_state_dict(from_flax_variables(variables), strict=True)
     feats, mask, lengths, labels, weight = _batch()
@@ -489,10 +590,52 @@ def test_train_loss_and_every_gradient_match_jax(jax_train_reference):
     whole = _norm_err(np.concatenate([got[n].ravel() for n in want]),
                       np.concatenate([w.ravel() for w in want.values()]))
     worst = max(errs, key=errs.get)
-    print(f"loss {loss.item():.7f} vs {want_loss:.7f}; worst gradient {worst} {errs[worst]:.3e}; "
-          f"the whole gradient norm-wise {whole:.3e}")
+    print(f"{extra}: loss {loss.item():.7f} vs {want_loss:.7f}; worst gradient {worst} "
+          f"{errs[worst]:.3e}; the whole gradient norm-wise {whole:.3e}")
     assert errs[worst] < GRAD_TOL, worst
     assert whole < GRAD_NORM_TOL
+    return model
+
+
+def test_train_loss_and_every_gradient_match_jax(jax_train_reference):
+    _port_train_step_matches([], *jax_train_reference)
+
+
+@pytest.mark.parametrize("route", ["fused_mlp_pair", "grouped"])
+def test_bf16_routes_train_like_jax(route):
+    """One train step at dropout 0 on the feed-forward pair's route (its bf16
+    twins in the port, the reference's kernels in interpret mode) and on the
+    grouped transformer, at the default route's limits."""
+    extra = PAIR_ROUTE if route == "fused_mlp_pair" else GROUPED
+    model = _port_train_step_matches(extra, *_jax_train(extra, 6))
+    if route == "grouped":
+        assert model.grouped_tf_encoder.dtype == BF and len(model.grouped_tf_names) == 4
+
+
+def test_grouped_transformer_bf16_serves_like_jax():
+    """The served logits of the grouped transformer under mixed_precision
+    against the JAX package's serving function on the same weights, eager:
+    within a quarter of JAX's own bf16-vs-f32 gap, as the ungrouped heads."""
+    base = SMALL + KERNELS_ON + GROUPED
+    port = MultimodalFusionModel.from_config(
+        load_config(REPO / "config" / "base.yaml", base + BF16), device="cpu",
+        generator=torch.Generator().manual_seed(8))
+    assert port.grouped_tf_encoder.dtype == BF
+    variables = to_flax_variables(port)
+    feats, mask, lengths, _labels, _weight = _batch()
+    jf = {n: jnp.asarray(v) for n, v in feats.items()}
+    jargs = (jf, jnp.asarray(mask), jnp.asarray(lengths))
+    with jax.disable_jit():
+        want = np.asarray(jax_serving_fn(JaxModel.from_config(jax_load_config(
+            REPO / "config" / "base.yaml", base + BF16)), variables, interpret=True)(*jargs))
+    want32 = np.asarray(jax_serving_fn(JaxModel.from_config(jax_load_config(
+        REPO / "config" / "base.yaml", base)), variables, interpret=True)(*jargs))
+    got = make_serving_fn(port, device="cpu")(
+        {n: torch.from_numpy(v) for n, v in feats.items()}, torch.from_numpy(mask),
+        torch.from_numpy(lengths))
+    err, gap = _norm_err(got.numpy(), want), _norm_err(want, want32)
+    print(f"grouped: port vs JAX bf16 {err:.3e}, JAX bf16 vs f32 {gap:.3e}")
+    assert err <= GAP_SHARE * gap
 
 
 # ---- types, routes, refusals, checkpoints ---------------------------------------
@@ -581,21 +724,27 @@ def test_routes_under_bf16_and_their_refusals():
         tm._check_kernel_inputs({"x": x}, 32, tm._PROJ_BF16)
     with pytest.raises(TypeError, match="float32"):
         tm._check_kernel_inputs({"x": x.to(BF)}, 32)
-    # the model: the fused_mlp pair in training and the grouped transformer refuse bf16
+    # the model: the fused_mlp pair trains through its bf16 entries (their
+    # twins here), eval stays plain; the grouped transformer takes bf16
     feats, mask, lengths, _labels, _weight = _batch()
     tf = {n: torch.from_numpy(v) for n, v in feats.items()}
-    route = ["model.fused_mlp=true", "model.fused_mlp_ln=false"]
     model = MultimodalFusionModel.from_config(
-        load_config(REPO / "config" / "base.yaml", SMALL + BF16 + route), device="cpu")
+        load_config(REPO / "config" / "base.yaml", SMALL + BF16 + PAIR_ROUTE), device="cpu")
     with torch.no_grad():
         assert model(tf, None, torch.from_numpy(lengths)).dtype == torch.float32  # eval: plain
-    with pytest.raises(NotImplementedError, match="item 7b"):
-        model(tf, None, torch.from_numpy(lengths), train=True,
-              generator=torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="item 7b"):
-        MultimodalFusionModel.from_config(load_config(
-            REPO / "config" / "base.yaml", SMALL + BF16 + ["model.grouped_transformer=true"]),
-            device="cpu")
+    before = (tm.fused_mlp_fwd_bf16.launches, tm.fused_mlp_bwd_bf16.launches)
+    logits = model(tf, None, torch.from_numpy(lengths), train=True,
+                   generator=torch.Generator().manual_seed(0))
+    logits.sum().backward()
+    assert torch.isfinite(logits).all()
+    assert all(torch.isfinite(p.grad).all() for p in model.parameters() if p.grad is not None)
+    # on the CPU the wrappers take their twins: no launch
+    assert (tm.fused_mlp_fwd_bf16.launches, tm.fused_mlp_bwd_bf16.launches) == before
+    grouped = MultimodalFusionModel.from_config(
+        load_config(REPO / "config" / "base.yaml", SMALL + BF16 + GROUPED), device="cpu")
+    assert grouped.grouped_tf_encoder.dtype == BF and not grouped.encoders
+    with torch.no_grad():
+        assert grouped(tf, None, torch.from_numpy(lengths)).dtype == torch.float32
 
 
 def test_flash_routes_take_f32_copies_of_bf16_operands():

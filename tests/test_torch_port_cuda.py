@@ -17,8 +17,10 @@ from multimodal_sensor_fusion_with_attention_rajeevatla_torch.ops import rnn as 
 from multimodal_sensor_fusion_with_attention_rajeevatla_torch.utils.device import pin_float32
 from torch_port_schemes import (
     _ffw_ln_bf16,
+    _fused_mlp_bf16,
     bf16_ulps_apart,
     exact_ffw_ln_case,
+    exact_fused_mlp_case,
     ffw_ln_scheme_hidden,
 )
 
@@ -1282,6 +1284,79 @@ def test_ffw_ln_bf16_entries_round_where_their_scheme_rounds(card):
             assert (variant[i] != want[i]).float().mean() > 0.25, (skip, i)
 
 
+def _bf16_mlp_args(g, n, d, f, keep, card):
+    w, mask, _rmask = _ln_inputs(g, n, d, f, keep, card)
+    bf = torch.bfloat16
+    return (w(n, d).to(bf), w(d, f, scale=d**-0.5).to(bf), w(f, scale=0.1),
+            w(f, d, scale=f**-0.5).to(bf), w(d, scale=0.1), mask), w(n, d).to(bf)
+
+
+@pytest.mark.parametrize("n,d,f,keep", [(300, 256, 2048, 0.8), (37, 256, 2048, None),
+                                        (100, 64, 128, 0.0), (1000, 32, 64, 0.8)])
+def test_fused_mlp_bf16_entries_match_twins_and_repeat(card, n, d, f, keep):
+    """Rows 10b-11b: the feed-forward pair's bf16 entries against their twins
+    (the backward on the forward kernel's ReLU branches), one launch each,
+    twice bit for bit; the forward's hidden is the backward's."""
+    g = torch.Generator().manual_seed(700 + n)
+    args, dout = _bf16_mlp_args(g, n, d, f, keep, card)
+    x, w1, b1, w2, b2, mask = args
+    inv_keep = tm._inv_keep(1.0 if keep is None else keep)
+    before = (tm.fused_mlp_fwd_bf16.launches, tm.fused_mlp_bwd_bf16.launches)
+    out = tm.fused_mlp_fwd_bf16(*args, inv_keep)
+    grads = tm.fused_mlp_bwd_bf16(x, w1, b1, w2, mask, dout, inv_keep)
+    torch.cuda.synchronize()
+    assert (tm.fused_mlp_fwd_bf16.launches, tm.fused_mlp_bwd_bf16.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert out.dtype == torch.bfloat16
+    assert _rel_err(out.float(), tm.fused_mlp_fwd_bf16_reference(*args, inv_keep).float()) < BF16_TOL
+    _o, hd_fwd = tm._fused_mlp_fwd_launch(*args, inv_keep)
+    again, hd_bwd = tm._fused_mlp_bwd_launch(x, w1, b1, w2, mask, dout, inv_keep)
+    torch.cuda.synchronize()
+    assert torch.equal(hd_fwd, hd_bwd) and torch.equal(_o, out)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+    xf, w1f = x.float(), w1.float()
+    pre = xf @ w1f + b1
+    kept = torch.ones_like(pre, dtype=torch.bool) if mask is None else mask.bool()
+    live = torch.where(kept & (inv_keep != 0.0), hd_fwd.float() > 0, pre > 0)
+    want = tm._fused_mlp_bwd_bf16_plain(xf, w1f, pre, live, w2.float(), mask, dout.float(),
+                                        inv_keep)
+    for got, ref in zip(grads, want):
+        assert got.dtype == ref.dtype
+        if keep == 0.0 and not ref.abs().max() > 0:
+            assert torch.all(got == 0)
+        else:
+            assert _rel_err(got.float(), ref.float()) < BF16_TOL
+
+
+def test_fused_mlp_bf16_entries_round_where_their_scheme_rounds(card):
+    """On exact-sum inputs the feed-forward pair's bf16 entries give the
+    scheme's hidden bit for bit and out, dx, dW1, dW2 within one bf16 step in
+    at most SCHEME_SHARE of the entries, where an entry that left out the
+    forward's or the backward's rounding of the hidden, or dpre's, would
+    move a quarter or more of the entries it feeds."""
+    args, dout, inv_keep = exact_fused_mlp_case()
+    x, w1, b1, w2, b2, mask = args
+    f32 = [t.float() if t.dtype == torch.bfloat16 else t for t in args]
+    out_s, grads_s = _fused_mlp_bf16(*f32, dout.float(), inv_keep)
+    want = [t.to(torch.bfloat16) for t in (out_s, grads_s[0], grads_s[1], grads_s[3])]
+    hidden = ffw_ln_scheme_hidden(x, w1, b1, mask, inv_keep)
+    on_card = [t.to(card) for t in args]
+    out, hd_fwd = tm._fused_mlp_fwd_launch(*on_card, inv_keep)
+    grads, hd_bwd = tm._fused_mlp_bwd_launch(*on_card[:4], on_card[5], dout.to(card), inv_keep)
+    torch.cuda.synchronize()
+    assert torch.equal(hd_fwd.cpu(), hidden) and torch.equal(hd_bwd.cpu(), hidden)
+    got = [t.cpu() for t in (out, grads[0], grads[1], grads[3])]
+    for name, a, b in zip(("out", "dx", "dW1", "dW2"), got, want):
+        apart = bf16_ulps_apart(a, b)
+        assert apart.max() <= 1, name
+        assert (apart > 0).float().mean() <= SCHEME_SHARE, name
+    for skip, moved in (("hidden", (0,)), ("hd", (3,)), ("dpre", (1, 2))):
+        out_v, grads_v = _fused_mlp_bf16(*f32, dout.float(), inv_keep, skip=(skip,))
+        variant = [t.to(torch.bfloat16) for t in (out_v, grads_v[0], grads_v[1], grads_v[3])]
+        for i in moved:
+            assert (variant[i] != want[i]).float().mean() > 0.25, (skip, i)
+
+
 def test_bf16_entries_repeat_bit_for_bit_and_f32_entries_refuse_bf16(card):
     g = torch.Generator().manual_seed(57)
     for family in ("proj_ln", "ffw_ln"):
@@ -1308,3 +1383,87 @@ def test_resolving_the_card_sums_bf16_products_in_f32(card):
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = True
     assert resolve_device(None).type == "cuda"
     assert not torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+
+
+# ---- the MoE layer and training.remat -------------------------------------------
+
+
+def test_moe_layer_kernel_path_matches_plain_path(card):
+    """A transformer layer with the MoE feed-forward (4 experts, top 2) in
+    training at dropout 0: the kernel path (packed attention, the projection
+    residual-LN pair; no FFW kernel) against the same layer with the kernel
+    flags off, output and every gradient at the f32 limits."""
+    from multimodal_sensor_fusion_with_attention_rajeevatla_torch.models.encoders import (
+        TransformerEncoderLayer,
+    )
+
+    g = torch.Generator().manual_seed(31)
+    layers = {}
+    for path, on in (("kernels", True), ("plain", False)):
+        layers[path] = TransformerEncoderLayer(
+            256, 4, use_flash=on, dropout=0.0, use_fused_mlp=on, use_fused_mlp_ln=on,
+            moe_experts=4, moe_top_k=2)
+    layers["kernels"].moe.init_parameters(torch.Generator().manual_seed(5))
+    layers["plain"].load_state_dict(layers["kernels"].state_dict())
+    x = torch.randn(8, 128, 256, generator=g).to(card)
+    dout = torch.randn(8, 128, 256, generator=g).to(card)
+    valid = (torch.arange(128)[None, :] < torch.tensor([128, 1, 37, 0, 127, 64, 128, 9])[:, None])
+    results = {}
+    for path, layer in layers.items():
+        layer.to(card)
+        leaf = x.clone().requires_grad_()
+
+        def step():
+            aux = []
+            out = layer(leaf, key_padding_mask=valid.to(card), train=True, aux_losses=aux)
+            ((out * dout).sum() + aux[0]).backward()
+            return out
+
+        out, launches = _counted(step)
+        results[path] = (out, leaf.grad, [p.grad for p in layer.parameters()], launches)
+    (out_k, dx_k, grads_k, launches), (out_p, dx_p, grads_p, none) = (
+        results["kernels"], results["plain"])
+    assert launches == {"packed_attention_fwd": 1, "packed_attention_bwd": 1, "proj_ln_fwd": 1,
+                        "proj_ln_bwd": 1}
+    assert none == {}
+    assert _rel_err(out_k, out_p) < 1e-4
+    # floored at 1e-3 of the largest gradient: the key-projection biases'
+    # gradients are zero up to rounding (PERF.md section 2)
+    floor = 1e-3 * max(g.abs().max().item() for g in [dx_p, *grads_p])
+    for got, want in zip([dx_k, *grads_k], [dx_p, *grads_p]):
+        assert (got - want).abs().max().item() / max(want.abs().max().item(), floor) \
+            < TRAIN_LAYER_TOL
+
+
+# a layer's gradients, kernel path against plain path: the MoE routing takes
+# the attention's output, whose f32 sums differ in order; the gradients
+# through the router and the gates carry that difference
+TRAIN_LAYER_TOL = 1e-3
+
+
+def test_remat_on_the_card_repeats_bit_for_bit(card):
+    """``training.remat`` on the card at dropout 0.2 (the mask kernel's
+    masks) through the default kernel route: the loss and every gradient of
+    two micro-steps equal the run without it bit for bit, and each forward
+    kernel (the attention forward, both residual-LN forwards, the masks)
+    launches twice a micro-step."""
+    from multimodal_sensor_fusion_with_attention_rajeevatla_torch.train import trainer as tt
+    from multimodal_sensor_fusion_with_attention_rajeevatla_torch.utils.config import load_config
+
+    base = Path(__file__).resolve().parent.parent / "config" / "base.yaml"
+    feats, lengths, labels = _c5_batch(card, batch=8, seq=128)
+    mask = torch.ones((8, 4), device=card)
+    runs = {}
+    for remat in ("false", "true"):
+        cfg = load_config(base, ["model.hidden_dim=256", f"training.remat={remat}"])
+        trainer = tt.Trainer(cfg, device=card)
+        steps = []
+        for _ in range(2):
+            (loss, _acc, grads), launches = _counted(lambda: trainer.loss_and_grads(
+                feats, labels, mask, lengths, torch.ones(8, device=card)))
+            steps.append((loss, [g.clone() for g in grads], launches))
+        runs[remat] = steps
+    for (loss_a, grads_a, l_a), (loss_b, grads_b, l_b) in zip(runs["false"], runs["true"]):
+        assert torch.equal(loss_a, loss_b)
+        assert all(torch.equal(a, b) for a, b in zip(grads_a, grads_b))
+        assert l_b == {k: (2 * v if k.endswith("_fwd") else v) for k, v in l_a.items()}

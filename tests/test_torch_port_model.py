@@ -248,10 +248,25 @@ def test_port_init_is_seeded_and_flax_shaped():
 
 
 def test_from_config_rejects_unported_options():
-    for override in ("model.moe_experts=4", "parallel.pipeline_parallel=2"):
-        cfg = load_config(REPO / "config" / "base.yaml", SMALL + [override])
-        with pytest.raises(NotImplementedError, match="not ported"):
-            MultimodalFusionModel.from_config(cfg, device="cpu")
+    cfg = load_config(REPO / "config" / "base.yaml", SMALL + ["parallel.pipeline_parallel=2"])
+    with pytest.raises(NotImplementedError, match="not ported"):
+        MultimodalFusionModel.from_config(cfg, device="cpu")
+    # ported since: the MoE feed-forward (model.moe_experts), every transformer
+    # layer without the dense pair; a moe_top_k past the experts raises the
+    # reference's ValueError
+    cfg = load_config(REPO / "config" / "base.yaml", SMALL + ["model.moe_experts=4"])
+    moe = MultimodalFusionModel.from_config(cfg, device="cpu")
+    layer = moe.encoders["imu_hand"].layers[0]
+    assert layer.moe.num_experts == 4 and layer.moe.top_k == 2 and not hasattr(layer, "linear1")
+    aux = []
+    with torch.no_grad():
+        assert moe({n: torch.zeros(1, 24, d) for n, d in zip(NAMES, DIMS)},
+                   aux_losses=aux).shape == (1, 25)
+    assert len(aux) == len(NAMES)  # one layer an encoder
+    cfg = load_config(REPO / "config" / "base.yaml",
+                      SMALL + ["model.moe_experts=4", "model.moe_top_k=5"])
+    with pytest.raises(ValueError, match=r"moe_top_k \(5\) must be in \[1, moe_experts=4\]"):
+        MultimodalFusionModel.from_config(cfg, device="cpu")
     # ported since: the grouped transformer encoder and windows past the packed route
     cfg = load_config(REPO / "config" / "base.yaml",
                       SMALL + ["model.grouped_transformer=true", "dataset.chunk_size=1024"])

@@ -206,7 +206,11 @@ def test_mc_dropout_runs_through_the_training_kernels_route():
 
 
 @pytest.mark.parametrize("key,value,error,match", [
-    ("moe_experts", 4, NotImplementedError, "model.encoders.imu_hand.moe_experts.*item 8"),
+    # ported since (the MoE feed-forward): the case keeps its name and now
+    # checks that the key builds, and that a moe_top_k past the experts
+    # raises the reference's ValueError
+    pytest.param("moe_experts", 4, None, None,
+                 id="moe_experts-4-NotImplementedError-model.encoders.imu_hand.moe_experts.*item 8"),
     ("pipeline_parallel", 2, NotImplementedError,
      "model.encoders.imu_hand.pipeline_parallel.*item 11"),
     ("sequence_parallel", True, NotImplementedError,
@@ -216,8 +220,15 @@ def test_mc_dropout_runs_through_the_training_kernels_route():
 ])
 def test_build_encoder_refuses_unported_per_encoder_keys(key, value, error, match):
     base = {"type": "sequence", "encoder_type": "transformer", "hidden_dim": 16, "num_layers": 1}
-    with pytest.raises(error, match=match):
-        te.build_encoder("imu_hand", 17, 8, {**base, key: value})
+    if error is None:
+        enc = te.build_encoder("imu_hand", 17, 8, {**base, key: value, "moe_top_k": 2})
+        layer = enc.layers[0]
+        assert layer.moe.num_experts == value and not hasattr(layer, "linear1")
+        with pytest.raises(ValueError, match=r"moe_top_k \(5\) must be in \[1, moe_experts=4\]"):
+            te.build_encoder("imu_hand", 17, 8, {**base, key: value, "moe_top_k": 5})
+    else:
+        with pytest.raises(error, match=match):
+            te.build_encoder("imu_hand", 17, 8, {**base, key: value})
     # the defaults, and the keys that matter only beside the refused ones, build
     quiet = {"moe_experts": 0, "moe_top_k": 2, "moe_capacity_factor": 1.25,
              "pipeline_parallel": 1, "pipeline_microbatches": 4, "sequence_parallel": False,
@@ -243,7 +254,9 @@ def test_build_encoder_refuses_unported_per_encoder_keys(key, value, error, matc
      "parallel.zero_optimizer=True .*item 11"),
     (["parallel.num_devices=4", "parallel.model_parallel=2", "parallel.sequence_parallel=true"],
      NotImplementedError, "parallel.sequence_parallel=True .*item 11"),
-    (["training.remat=true"], NotImplementedError, "training.remat .*item 9"),
+    # ported since: the case keeps its name and now checks that remat builds
+    pytest.param(["training.remat=true"], None, None,
+                 id="overrides6-NotImplementedError-training.remat .*item 9"),
     (["parallel.sequence_parallel=true"], ValueError,
      "parallel.sequence_parallel requires parallel.model_parallel > 1"),
     (["parallel.num_devices=4", "parallel.model_parallel=2", "parallel.pipeline_parallel=2"],
@@ -257,8 +270,13 @@ def test_build_encoder_refuses_unported_per_encoder_keys(key, value, error, matc
 ])
 def test_trainer_refuses_unported_layouts(overrides, error, match):
     small = ["model.hidden_dim=16", "model.output_dim=8"]
-    with pytest.raises(error, match=match):
-        tt.Trainer(load_config(REPO / "config" / "base.yaml", small + overrides), device="cpu")
+    if error is None:
+        trainer = tt.Trainer(load_config(REPO / "config" / "base.yaml", small + overrides),
+                             device="cpu")
+        assert trainer.remat
+    else:
+        with pytest.raises(error, match=match):
+            tt.Trainer(load_config(REPO / "config" / "base.yaml", small + overrides), device="cpu")
     # one card, by default and by name, trains as before
     for ok in ([], ["parallel.num_devices=auto"], ["parallel.num_devices=null"],
                ["parallel.num_devices=1", "training.remat=false"]):

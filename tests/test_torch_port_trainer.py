@@ -1,7 +1,8 @@
 """PyTorch port, trainer: the schedule, the optimizer (clip + AdamW behind
 gradient accumulation) against optax, the augmentations against the JAX
 ``Trainer``'s on the same random draws, the dropout masks' keep rate, the
-errors for what is not ported, and a few CPU micro-steps end to end."""
+errors for what is not ported, a few CPU micro-steps end to end, and
+``training.remat`` against the same steps without it, bit for bit."""
 
 from pathlib import Path
 from types import SimpleNamespace
@@ -233,3 +234,48 @@ def test_make_train_step_fn_needs_init_state():
     cfg = load_config(REPO / "config" / "base.yaml", SMALL)
     with pytest.raises(RuntimeError, match="init_state"):
         tt.Trainer(cfg, device="cpu").make_train_step_fn()
+
+
+REMAT_ROUTES = {
+    "plain": ["model.flash_attention=false", "model.fused_mlp=false", "model.fused_mlp_ln=false"],
+    "kernels": ["model.flash_attention=true", "model.fused_mlp=true", "model.fused_mlp_ln=true"],
+    "cnn": ["model.encoders.imu_chest.encoder_type=cnn", "model.encoders.imu_ankle.encoder_type=cnn"],
+    "moe": ["model.moe_experts=4"],
+}
+
+
+@pytest.mark.parametrize("route", sorted(REMAT_ROUTES))
+def test_remat_repeats_the_micro_steps_bit_for_bit(route):
+    """Two micro-steps at dropout 0.2 (every augmentation on) with and
+    without ``training.remat``: the losses, every gradient, the BatchNorm
+    running statistics and the generator's state after them bit for bit. The
+    recompute draws the forward's masks again from the generator's state
+    before the forward (plain draws, and the MoE experts' own), custom
+    autograd Functions (the kernels' twins) recompute their saved tensors,
+    the BatchNorm statistics move once a micro-step, and the MoE aux loss is
+    an output of the recomputed function."""
+    split = _split()
+    runs = {}
+    for remat in ("false", "true"):
+        cfg = load_config(REPO / "config" / "base.yaml", SMALL + REMAT_ROUTES[route] + [
+            "model.dropout=0.2", f"training.remat={remat}"])
+        trainer = tt.Trainer(cfg, device="cpu")
+        assert trainer.remat is (remat == "true")
+        init = {k: v.clone() for k, v in trainer.model.named_buffers()}
+        steps = []
+        for i in range(2):
+            features, labels, lengths = split.gather(torch.arange(8) + 8 * i)
+            features, lengths, mask = trainer.augment(features, lengths, len(NAMES))
+            loss, _acc, grads = trainer.loss_and_grads(features, labels, mask, lengths,
+                                                       torch.ones(labels.shape))
+            steps.append((loss, [g.clone() for g in grads]))
+        buffers = dict(trainer.model.named_buffers())
+        if route == "cnn":
+            assert buffers and all(not torch.equal(buffers[k], init[k]) for k in init)
+        runs[remat] = steps, buffers, trainer.generator.get_state()
+    (a_steps, a_buf, a_gen), (b_steps, b_buf, b_gen) = runs["false"], runs["true"]
+    for (loss_a, grads_a), (loss_b, grads_b) in zip(a_steps, b_steps):
+        assert torch.isfinite(loss_a) and torch.equal(loss_a, loss_b)
+        assert all(torch.equal(x, y) for x, y in zip(grads_a, grads_b))
+    assert a_buf.keys() == b_buf.keys() and all(torch.equal(a_buf[k], b_buf[k]) for k in a_buf)
+    assert torch.equal(a_gen, b_gen)

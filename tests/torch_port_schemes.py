@@ -1,8 +1,8 @@
 """The CUDA entries' product schemes, emulated on the CPU in PyTorch alone
 (no JAX), so that both the CPU tests and the card tests can hold a kernel to
 them: TF32 splits, the residual-LN kernels' 32-deep chunked products and
-split weight gradients, and the bf16 entries of both residual-LN pairs with
-their rounding points."""
+split weight gradients, and the bf16 entries of both residual-LN pairs and
+of the feed-forward pair with their rounding points."""
 
 import math
 
@@ -124,6 +124,44 @@ def _ffw_ln_bf16(x, w1, b1, w2, b2, gamma, beta, fmask, rmask, dout, inv_keep, e
              _rnd(_split_grad(hd, dyb, tm._grad_tiles(f, d), mm_f32)),
              *(_block_sums(t, tm.ROWS_D) for t in (dy, dout * xhat, dout)))
     return _rnd(out), grads
+
+
+def _fused_mlp_bf16(x, w1, b1, w2, b2, mask, dout, inv_keep, skip=()):
+    """``fused_mlp``'s bf16 entries: the hidden from one TF32 product a
+    k-step, rounded to bf16 before W2's product (out = hd W2 + b2 in f32,
+    rounded) and before dW2's; backward dpre = (hd > 0) (dout W2^T) mask /
+    keep rounded before dW1's and dx's products, db1 (128-row blocks) from
+    the unrounded dpre; dx, dW1, dW2 rounded. ``skip`` names rounding points
+    ("hidden": the forward's, "hd": the backward's hidden before dW2,
+    "dpre") left out, with the products they feed taken in f32: what an
+    entry that dropped them would compute. Returns ``(out, (dx, dw1, db1,
+    dw2))``."""
+    d, f = w1.shape
+    mm = lambda p, q: _mm_n(p, q, False, False)  # noqa: E731
+    mm_f32 = (lambda p, q: p @ q) if skip else mm  # noqa: E731
+
+    def rnd(t, point):
+        return t if point in skip else _rnd(t)
+
+    scale = mask.float() * inv_keep
+    h = torch.relu(_mm1(x, w1) + b1) * scale
+    out = _mm_chunked(rnd(h, "hidden"), w2, mm_f32) + b2
+    hd = rnd(h, "hd")
+    dpre = torch.where(h > 0, _mm_chunked(dout, w2.t(), mm_f32) * scale, 0.0)
+    dpb = rnd(dpre, "dpre")
+    grads = (_rnd(_mm_chunked(dpb, w1.t(), mm_f32)),
+             _rnd(_split_grad(x, dpb, tm._grad_tiles(d, f), mm_f32)),
+             _block_sums(dpre, tm.ROWS_F),
+             _rnd(_split_grad(hd, dout, tm._grad_tiles(f, d), mm_f32)))
+    return _rnd(out), grads
+
+
+def exact_fused_mlp_case(**kw):
+    """``exact_ffw_ln_case``'s inputs as the feed-forward pair's bf16 entries
+    take them -> ``(args, dout, inv_keep)``, ``args`` = (x, w1, b1, w2, b2,
+    mask)."""
+    args, dout, inv_keep = exact_ffw_ln_case(**kw)
+    return (*args[:5], args[7]), dout, inv_keep
 
 
 def exact_ffw_ln_case(n=256, d=256, f=2048, keep=0.8, seed=5):
