@@ -84,7 +84,24 @@ Phases (any failure exits non-zero, and no result line is printed):
    the in-memory model's test logits bit for bit; ``evaluate_checkpoint`` on
    the best checkpoint (missing-modality sweep, MC dropout, temperature
    scaling) must write the three JSON files with the reference's keys and
-   finite metrics.
+   finite metrics; ``measure_inference_latency`` over a list of test batch
+   tuples with one malformed entry skips exactly that entry, with the
+   reference's warning, and times every other one.
+   Bundle: for the flagship at chunk 512, LSTM512 and ``late`` fusion, a
+   serving bundle (``serving.export_serving_bundle``) written to a temporary
+   directory and loaded back (``load_serving_bundle``, no model code) serves
+   the batch-64 requests of real windows: logits bit-identical to
+   ``make_serving_fn``'s; at run time, through the loaded graph, 4 packed
+   attention forwards and 1 head, 1 fused LSTM recurrence and 1 head, and 4
+   packed attention forwards and no head a request; the graph's ``msfa::``
+   op nodes printed; the bundle's p50 beside ``make_serving_fn``'s.
+   Stream: one epoch of ``Trainer.fit`` at chunk 512 with
+   ``dataset.streaming=true`` against one resident epoch from the same seed:
+   history and every weight bit for bit, the same launches, the train split
+   never put on the card whole; both epochs' seconds and peak memory; the
+   loader's host-to-device copies on its side stream over 12 streamed
+   micro-steps (torch.profiler's trace): ms per step, and the share that
+   overlaps kernels on the compute stream.
    The five ``flash_self_attention`` kernels at the long windows' shapes
    (single-key-block forward at T = 1024 and 2048, B*H = 128; tiled forward
    at T = 4096, B*H = 256; fused backward at T = 1024 and at T = 512, B*H =
@@ -3287,7 +3304,348 @@ def fit_and_eval_phase(torch, kernels, smi, workdir: Path, bf16=False):
     print(f"  latency per sample {standard['inference_ms_mean']:.4f} ms (std "
           f"{standard['inference_ms_std']:.4f}), amortised "
           f"{standard['inference_ms_amortized']:.4f} ms at batch {batch} on {smi}", flush=True)
+    if not bf16:
+        latency_sweep(torch, trainer.model, test_data, batch)
     return launches, eval_launches
+
+
+SWEEP_BATCHES = 4  # well-formed batches of the [eval] latency sweep, beside one malformed
+
+
+def latency_sweep(torch, model, test_data, batch):
+    """``evaluate.measure_inference_latency`` over a list of batch tuples
+    (the loose-iterable route, ``_latency_over_batches``) of which one entry
+    is malformed: exactly that entry is skipped with the reference's
+    warning, and every other one is timed (two clock readings each)."""
+    import contextlib
+    import io
+
+    from multimodal_sensor_fusion_with_attention_rajeevatla_torch import evaluate
+
+    sweep = []
+    for i in range(SWEEP_BATCHES):
+        idx = (torch.arange(batch) + i * batch) % test_data.num_windows
+        feats, labels, lengths = test_data.gather(idx.cuda())
+        sweep.append((feats, labels, torch.ones((batch, len(feats)), device="cuda"), lengths))
+    sweep.insert(2, ("not-a-mapping",))
+
+    class Clock:  # counts the sweep's clock readings
+        calls = 0
+
+        @staticmethod
+        def perf_counter():
+            Clock.calls += 1
+            return time.perf_counter()
+
+    real, evaluate.time = evaluate.time, Clock
+    printed = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(printed):
+            mean, std = evaluate.measure_inference_latency(model, sweep, max_batches=len(sweep),
+                                                           warmup=2)
+    finally:
+        evaluate.time = real
+    warnings = [line.strip() for line in printed.getvalue().splitlines()]
+    timed = Clock.calls // 2
+    print(f"  latency sweep over {len(sweep)} loose batches: {timed} timed, warnings {warnings}; "
+          f"{mean:.4f} ms per sample (std {std:.4f})", flush=True)
+    if warnings != ["Warning: Unable to parse batch for latency measurement, skipping."] \
+            or timed != SWEEP_BATCHES or not mean > 0:
+        raise AssertionError("the latency sweep did not skip exactly the malformed batch")
+
+
+BUNDLE_TIMED = 20  # requests timed on each of make_serving_fn and the bundle, in turns
+BUNDLE_REQUESTS = 3  # requests held bit for bit, with the launches counted
+
+
+def bundle_phase(torch, kernels, modalities, batches, smi, workdir: Path):
+    """For the flagship at chunk 512, LSTM512 and late fusion: a serving
+    bundle exported to ``workdir`` and loaded back in this process
+    (``serving.load_serving_bundle``, onto the card), served the batch-64
+    requests of real windows: logits bit-identical to ``make_serving_fn``'s,
+    the kernels counted at run time through the loaded graph, its ``msfa::``
+    op nodes printed, the p50 and host enqueue time of both timed in turns,
+    the bundle's host time split by part (``bundle_host_parts``). Returns the
+    launches of one request by model."""
+    from multimodal_sensor_fusion_with_attention_rajeevatla_torch.models.module import (
+        MultimodalFusionModel,
+    )
+    from multimodal_sensor_fusion_with_attention_rajeevatla_torch.serving import (
+        export_serving_bundle, load_serving_bundle, make_serving_fn,
+    )
+
+    print("[bundle]", flush=True)
+    cases = (  # label, overrides of base.yaml, launches of one request
+        ("flagship", [], {"packed_attention_fwd": 4, "fused_hybrid_head": 1}),
+        ("lstm512", rnn_overrides(modalities, "lstm"),
+         {"grouped_lstm_fused": 1, "fused_hybrid_head": 1}),
+        ("late", ["model.fusion_type=late"], {"packed_attention_fwd": 4}),
+    )
+    out = {}
+    for label, overrides, per_request in cases:
+        cfg = load_cfg(overrides)
+        model = MultimodalFusionModel.from_config(
+            cfg, device="cuda", generator=torch.Generator().manual_seed(int(cfg.seed)))
+        serve = make_serving_fn(model, device="cuda")
+        dims = {m: int(cfg.model.encoders[m].input_dim) for m in modalities}
+        t = time.perf_counter()
+        export_serving_bundle(model, workdir / label, BATCH, int(cfg.dataset.chunk_size), dims,
+                              device="cuda")
+        t_export = time.perf_counter() - t
+        t = time.perf_counter()
+        fn, meta = load_serving_bundle(workdir / label, device="cuda")
+        t_load = time.perf_counter() - t
+        requests = [(feats, lengths) for feats, _labels, lengths in batches[:BUNDLE_REQUESTS]]
+        want = [serve(feats, None, lengths) for feats, lengths in requests]
+        torch.cuda.synchronize()
+        for k in kernels.values():
+            k.launches = 0
+        got = [fn(feats, None, lengths) for feats, lengths in requests]
+        torch.cuda.synchronize()
+        launches = {name: k.launches for name, k in kernels.items() if k.launches}
+        expect = {name: n * len(requests) for name, n in per_request.items()}
+        same = all(torch.equal(a, b) for a, b in zip(got, want))
+        worst = max((a - b).abs().max().item() for a, b in zip(got, want))
+        print(f"  {label}: exported in {t_export:.1f} s, loaded in {t_load:.1f} s; graph's msfa "
+              f"ops {meta['ops']}; {len(requests)} requests through the loaded bundle launched "
+              f"{launches} (want {expect}); logits bit-identical to make_serving_fn: {same} "
+              f"(max abs diff {worst:.3e})", flush=True)
+        if launches != expect:
+            raise AssertionError(f"{label}: bundle launch counts {launches} != {expect}")
+        if set(meta["ops"]) != set(per_request):
+            raise AssertionError(f"{label}: the graph's ops {meta['ops']} are not {per_request}")
+        if not same or not all(torch.isfinite(a).all() for a in got):
+            raise AssertionError(f"{label}: the bundle's logits differ from make_serving_fn's")
+        lat = {"make_serving_fn": [], "bundle": []}
+        enq = {"make_serving_fn": [], "bundle": []}  # host time until the call returns
+        for i in range(BUNDLE_TIMED + 3):
+            feats, _labels, lengths = batches[i % len(batches)]
+            for name, call in (("make_serving_fn", serve), ("bundle", fn)):
+                t = time.perf_counter()
+                call(feats, None, lengths)
+                returned = time.perf_counter()
+                torch.cuda.synchronize()
+                lat[name].append(time.perf_counter() - t)
+                enq[name].append(returned - t)
+        p50 = {name: sorted(v[3:])[BUNDLE_TIMED // 2] * 1e3 for name, v in lat.items()}
+        p50_enq = {name: sorted(v[3:])[BUNDLE_TIMED // 2] * 1e3 for name, v in enq.items()}
+        print(f"  {label}: serve batch {BATCH} p50 bundle {p50['bundle']:.3f} ms, make_serving_fn "
+              f"{p50['make_serving_fn']:.3f} ms; host enqueue p50 bundle {p50_enq['bundle']:.3f} "
+              f"ms, make_serving_fn {p50_enq['make_serving_fn']:.3f} ms ({BUNDLE_TIMED} requests "
+              f"each, in turns) on {smi}", flush=True)
+        bundle_host_parts(torch, fn, serve, batches[0])
+        for name, call in (("make_serving_fn", serve), ("bundle", fn)):
+            def run(n, call=call):
+                for i in range(n):
+                    feats, _labels, lengths = batches[i % len(batches)]
+                    call(feats, None, lengths)
+                torch.cuda.synchronize()
+
+            print(f"  {label}, {name}:", flush=True)
+            profile(torch, run, 10, "request")
+        out[label] = {name: launches.get(name, 0) // len(requests) for name in kernels}
+        del model, serve, fn
+        torch.cuda.empty_cache()
+    return out
+
+
+BUNDLE_PARTS_TIMED = 40  # rounds of the bundle's host parts, each part timed in turn
+
+
+def bundle_host_parts(torch, fn, serve, request):
+    """Where the loaded bundle's extra host time goes, on one request: the
+    p50 host ms until each part returns, all parts timed in turns (``fn``;
+    its module ``fn.graph`` called on ``fn``'s inputs; the module's
+    pre-hooks, which check its 100-odd inputs against the exported
+    signature; the pytree flattening of its inputs; ``make_serving_fn``),
+    the differences (``fn``'s input coercion, the graph's own body), and the
+    aten ops each path dispatches (a ``TorchDispatchMode`` count)."""
+    import torch.fx._pytree as fx_pytree
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.by_name = {}
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            name = str(func.overloadpacket)
+            self.by_name[name] = self.by_name.get(name, 0) + 1
+            return func(*args, **(kwargs or {}))
+
+    feats, _labels, lengths = request
+    graph = fn.graph
+    hooks = graph._forward_pre_hooks
+    with_kwargs = graph._forward_pre_hooks_with_kwargs
+    with torch.inference_mode():
+        mask = torch.ones((lengths.shape[0], len(feats)), dtype=torch.float32, device="cuda")
+        args = (fn.params, feats, mask, lengths)
+        parts = {
+            "fn": lambda: fn(feats, None, lengths),
+            "graph module": lambda: graph(*args),
+            "pre-hooks": lambda: [h(graph, args, {}) if k in with_kwargs else h(graph, args)
+                                  for k, h in hooks.items()],
+            "flatten": lambda: fx_pytree.tree_flatten_spec((list(args), {}), graph._in_spec),
+            "make_serving_fn": lambda: serve(feats, None, lengths),
+        }
+        times = {name: [] for name in parts}
+        for i in range(BUNDLE_PARTS_TIMED + 3):
+            for name, call in parts.items():
+                t = time.perf_counter()
+                call()
+                times[name].append(time.perf_counter() - t)
+                torch.cuda.synchronize()
+        counts = {}
+        for name in ("make_serving_fn", "fn"):
+            ops = Ops()
+            with ops:
+                parts[name]()
+            counts[name] = ops.by_name
+        torch.cuda.synchronize()
+    ms = {name: sorted(v[3:])[BUNDLE_PARTS_TIMED // 2] * 1e3 for name, v in times.items()}
+    ms["fn wrapper"] = ms["fn"] - ms["graph module"]  # its defaults and coercion
+    ms["graph body"] = ms["graph module"] - ms["pre-hooks"] - ms["flatten"]
+    extra = {k: v - counts["make_serving_fn"].get(k, 0) for k, v in counts["fn"].items()
+             if v != counts["make_serving_fn"].get(k, 0)}
+    print(f"    bundle host p50 ms by part ({BUNDLE_PARTS_TIMED} rounds, in turns): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in ms.items())
+          + f"; aten ops dispatched a request: bundle {sum(counts['fn'].values())}, "
+          f"make_serving_fn {sum(counts['make_serving_fn'].values())}, the bundle's extra "
+          f"{extra}", flush=True)
+
+
+STREAM_PROFILE_STEPS = 12  # streamed micro-steps traced for the copy stream's overlap
+
+
+def _copy_overlap(trace_path: Path) -> dict:
+    """From a chrome trace of streamed micro-steps: the host-to-device copies
+    on streams that run no kernel (the loader's side stream), their device
+    ms, and the share of it during which a kernel ran on another stream."""
+    events = json.loads(trace_path.read_text())["traceEvents"]
+    kernels = [(e["ts"], e["ts"] + e["dur"], e["args"].get("stream")) for e in events
+               if e.get("cat") == "kernel" and "dur" in e]
+    kernel_streams = {stream for _s, _e, stream in kernels}
+    copies = [(e["ts"], e["ts"] + e["dur"], e["args"].get("stream")) for e in events
+              if e.get("cat") == "gpu_memcpy" and "HtoD" in e.get("name", "")
+              and e["args"].get("stream") not in kernel_streams]
+    spans = sorted((s, e) for s, e, _stream in kernels)
+    merged = []
+    for s, e in spans:  # union of the kernels' intervals
+        if merged and s <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], e)
+        else:
+            merged.append([s, e])
+    copy_us = sum(e - s for s, e, _ in copies)
+    overlap_us = sum(max(0.0, min(e, me) - max(s, ms)) for s, e, _ in copies for ms, me in merged)
+    return {"copies": len(copies), "copy_ms": copy_us / 1e3,
+            "overlap": overlap_us / copy_us if copy_us else 0.0,
+            "streams": sorted({stream for _s, _e, stream in copies})}
+
+
+def stream_phase(torch, kernels, smi, workdir: Path):
+    """One epoch of ``fit`` at chunk 512 with ``dataset.streaming=true``
+    against one resident epoch from the same seed: losses and every weight
+    bit for bit, the launches equal, the train split never put on the card
+    whole; each epoch's seconds and peak memory; then the side stream's
+    host-to-device copies over streamed micro-steps (torch.profiler): ms per
+    step and the share that overlaps the step's kernels."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    from multimodal_sensor_fusion_with_attention_rajeevatla_torch.data.dataset import (
+        create_datasets,
+    )
+    from multimodal_sensor_fusion_with_attention_rajeevatla_torch.data.device import DeviceSplit
+    from multimodal_sensor_fusion_with_attention_rajeevatla_torch.evaluate import dataset_kwargs
+
+    print("[stream]", flush=True)
+    common = ["training.max_epochs=1", f"dataset.data_dir={REPO / 'data' / 'pamap2'}",
+              f"dataset.chunk_cache_dir={workdir / 'chunk_cache'}"]
+    train_w, val_w, _test_w = create_datasets(**dataset_kwargs(load_cfg(common)))
+    real = DeviceSplit.from_windows
+    runs = {}
+    for streaming in ("false", "true"):
+        put = []
+        DeviceSplit.from_windows = classmethod(
+            lambda cls, w, device=None: put.append(w.num_windows) or real(w, device))
+        try:
+            trainer = _trainer(torch, [*common, f"dataset.streaming={streaming}"])
+            live = []  # device memory in use as each micro-step starts
+
+            def update(*args, live=live, inner=trainer._update):
+                live.append(torch.cuda.memory_allocated())
+                return inner(*args)
+
+            trainer._update = update
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            for k in kernels.values():
+                k.launches = 0
+            results = trainer.fit(train_w, val_w, None, save_dir=workdir / f"run_{streaming}",
+                                  log_fn=lambda msg: print(f"  streaming={streaming}: {msg}",
+                                                           flush=True))
+            torch.cuda.synchronize()
+        finally:
+            DeviceSplit.from_windows = real
+        del trainer._update
+        runs[streaming] = {
+            "history": results["history"], "put": put,
+            "state": {k: v.detach().cpu() for k, v in trainer.model.state_dict().items()},
+            "seconds": results["train_wall_seconds"],
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "live_gib": (min(live) / 2**30, max(live) / 2**30),
+            "launches": {name: k.launches for name, k in kernels.items() if k.launches}}
+        if streaming == "false":  # the streamed run's memory is its own
+            del trainer
+            torch.cuda.empty_cache()
+    resident, streamed = runs["false"], runs["true"]
+    state_r, state_s = resident["state"], streamed["state"]
+    weights = all(torch.equal(state_s[k], v) for k, v in state_r.items())
+    history = streamed["history"] == resident["history"]
+    whole = train_w.num_windows in streamed["put"]
+    for name in ("false", "true"):
+        run = runs[name]
+        print(f"  streaming={name}: epoch {run['seconds']:.2f} s (train, val, checkpoint), peak "
+              f"memory {run['peak_gib']:.3f} GiB, in use as a micro-step starts "
+              f"{run['live_gib'][0]:.3f}-{run['live_gib'][1]:.3f} GiB, splits put on the card "
+              f"whole {run['put']}, launches {run['launches']} on {smi}", flush=True)
+    print(f"  streamed epoch against resident: history bit-identical {history}, every weight "
+          f"bit-identical {weights} ({len(state_r)} tensors); train split ({train_w.num_windows} "
+          f"windows) put on the card whole by the streamed run: {whole}", flush=True)
+    if not (history and weights) or whole or streamed["launches"] != resident["launches"]:
+        raise AssertionError("the streamed epoch is not the resident epoch bit for bit")
+
+    # the host's share of a streamed step: BatchLoader's numpy batches alone,
+    # then the same batches pinned and copied by the loader (the card fenced)
+    for label, batches in (("BatchLoader (host numpy)", trainer.stream_batches(train_w, 1).loader),
+                           ("StreamingDeviceLoader", trainer.stream_batches(train_w, 1))):
+        t = time.perf_counter()
+        n = sum(1 for _ in batches)
+        torch.cuda.synchronize()
+        print(f"  {label}: {(time.perf_counter() - t) / n * 1e3:.3f} ms a batch over one "
+              f"epoch ({n} batches)", flush=True)
+    step = trainer.make_stream_step_fn()
+    batches = iter(trainer.stream_batches(train_w, 1))
+    for _ in range(3):  # warm
+        step(*next(batches))
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for _ in range(STREAM_PROFILE_STEPS):
+            step(*next(batches))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    trace = workdir / "stream_trace.json"
+    prof.export_chrome_trace(str(trace))
+    copies = _copy_overlap(trace)
+    print(f"  {STREAM_PROFILE_STEPS} streamed micro-steps in {wall * 1e3:.1f} ms: "
+          f"{copies['copies']} host-to-device copies on stream(s) {copies['streams']}, "
+          f"{copies['copy_ms'] / STREAM_PROFILE_STEPS:.4f} ms of copy per step, "
+          f"{copies['overlap']:.3f} of it while a kernel runs on another stream", flush=True)
+    if not copies["copies"]:
+        raise AssertionError("the trace shows no host-to-device copy on a side stream")
+    return {"epoch_s": {k: v["seconds"] for k, v in runs.items()},
+            "peak_gib": {k: v["peak_gib"] for k, v in runs.items()}, **copies}
 
 
 def _bf16_bound(flops, nbytes):
@@ -4331,6 +4689,11 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         fit_launches, eval_launches = fit_and_eval_phase(torch, kernels, smi, Path(tmp))
 
+    # ---- 6b./6c. the serving bundle, and streamed training batches --------------
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        bundle_launches = bundle_phase(torch, kernels, modalities, batches, smi, Path(tmp))
+        stream_phase(torch, kernels, smi, Path(tmp))
+
     # ---- 7. the long windows --------------------------------------------------
     del model, plain_model, serve
     torch.cuda.empty_cache()
@@ -4412,6 +4775,7 @@ def main() -> int:
         row["bf16_launches"] = {k: v[name] for k, v in bf16_launches.items()}
         row["moe_launches"] = {k: v[name] for k, v in moe_launches.items()}
         row["remat_launches"] = {k: v[name] for k, v in remat_launches.items()}
+        row["bundle_launches"] = {k: v[name] for k, v in bundle_launches.items()}
         if row["launches"] <= 0:
             raise AssertionError(f"kernel {name} was not launched on its main path")
     print(f"[done] {time.perf_counter() - t0:.1f} s", flush=True)

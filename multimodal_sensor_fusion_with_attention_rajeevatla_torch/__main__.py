@@ -1,4 +1,5 @@
-"""``python -m multimodal_sensor_fusion_with_attention_rajeevatla_torch train|eval ...``"""
+"""``python -m multimodal_sensor_fusion_with_attention_rajeevatla_torch
+{train|eval|analysis|preprocess} ...``"""
 
 import sys
 

@@ -1,16 +1,21 @@
-"""Entry points of the port (train / eval), with the reference's command
-surface:
+"""Entry points of the port (train / eval / analysis / preprocess), with the
+reference's command surface:
 
     python -m multimodal_sensor_fusion_with_attention_rajeevatla_torch train \
         [--config-name base] [--config-path config] [--device cuda] model.dropout=0.1 ...
     python -m multimodal_sensor_fusion_with_attention_rajeevatla_torch eval \
         --checkpoint runs/<exp>/checkpoints/<name> [--missing_modality_test] [--device cuda]
+    python -m multimodal_sensor_fusion_with_attention_rajeevatla_torch analysis \
+        [--experiment_dir experiments] [--output_dir analysis] [--fusion_file F]
+    python -m multimodal_sensor_fusion_with_attention_rajeevatla_torch preprocess \
+        [--raw-dir data/raw] [--output data] [--import-reference DIR] [--no-csv]
 
 ``train`` takes Hydra-style dotted overrides; ``eval`` the reference's
 argparse flags. Both run on the card unless ``--device cpu`` is given.
-``aggregate_fusion_comparison`` rebuilds ``fusion_comparison.json`` from the
-per-strategy evaluation files. The analysis and preprocess entry points are
-not ported yet (ROADMAP queue A10, A12).
+``analysis`` draws the plots of ``analysis.py`` (needs matplotlib) and
+``preprocess`` runs the raw PAMAP2 ETL of ``data/preprocess.py``; neither
+touches a device. ``aggregate_fusion_comparison`` rebuilds
+``fusion_comparison.json`` from the per-strategy evaluation files.
 """
 
 from __future__ import annotations
@@ -131,6 +136,30 @@ def eval_main(argv: Optional[List[str]] = None) -> dict:
     )
 
 
+def analysis_main(argv: Optional[List[str]] = None) -> None:
+    """Analysis/plots entry point (reference ``src/analysis.py:452-477``)."""
+    parser = argparse.ArgumentParser(description="Generate analysis plots")
+    parser.add_argument("--experiment_dir", type=str, default="experiments")
+    parser.add_argument("--output_dir", type=str, default="analysis")
+    parser.add_argument("--fusion_file", type=str, default=None)
+    args = parser.parse_args(argv)
+
+    from .analysis import generate_all_plots
+
+    generate_all_plots(
+        experiment_dir=args.experiment_dir,
+        output_dir=args.output_dir,
+        fusion_file=args.fusion_file,
+    )
+
+
+def preprocess_main(argv: Optional[List[str]] = None) -> None:
+    """Raw-data ETL entry point (reference ``data/preprocess.py``)."""
+    from .data.preprocess import main as preprocess
+
+    preprocess(argv)
+
+
 def aggregate_fusion_comparison(
     experiments_dir: str | Path = "experiments",
     output_path: Optional[str | Path] = None,
@@ -156,9 +185,11 @@ def main(argv: Optional[List[str]] = None) -> int:
     import sys
 
     argv = list(sys.argv[1:] if argv is None else argv)
-    commands = {"train": train_main, "eval": eval_main}
+    commands = {"train": train_main, "eval": eval_main, "analysis": analysis_main,
+                "preprocess": preprocess_main}
     if not argv or argv[0] not in commands:
-        print(f"usage: python -m {__package__} {{train|eval}} [arguments]", file=sys.stderr)
+        print(f"usage: python -m {__package__} {{{'|'.join(commands)}}} [arguments]",
+              file=sys.stderr)
         return 2
     commands[argv[0]](argv[1:])
     return 0

@@ -2,8 +2,8 @@
 
 The port may not import the JAX package, whose ``data/__init__.py`` pulls in
 JAX, so its numpy pieces are copied here: ``resolve_modality_columns``,
-``WindowedSplit``, the manifest-backed ``MultimodalDataset`` (numpy window
-gather only; the native ``libfastload.so`` gather is not loaded),
+``WindowedSplit``, the manifest-backed ``MultimodalDataset`` (windows cut by
+the native gather of ``data/native.py``, or by numpy without a compiler),
 ``SyntheticMultimodalDataset``, ``BatchLoader``, the normalisations,
 ``create_datasets`` / ``create_dataloaders``, ``simulate_missing_modalities``
 and ``padded_index_matrix``. The same seeds give the same arrays as the
@@ -295,10 +295,26 @@ class MultimodalDataset:
                 raise ValueError("Activity id varies within shard chunk.")
             labels[w] = int(label_values[0])
             lengths[w] = end - start
+
+        from .native import window_gather as native_window_gather
+
+        by_shard: Dict[int, List[int]] = {}
+        for w, (shard_idx, _s, _e) in enumerate(chunks):
+            by_shard.setdefault(shard_idx, []).append(w)
+        for shard_idx, window_ids in by_shard.items():
+            starts = [chunks[w][1] for w in window_ids]
+            ends = [chunks[w][2] for w in window_ids]
             for m, idx in modality_idx.items():
-                features[m][w, : end - start] = _scrub(
-                    shard_datas[shard_idx][start:end][:, idx]
+                gathered = native_window_gather(
+                    shard_datas[shard_idx], starts, ends, window, idx
                 )
+                if gathered is None:  # numpy fallback
+                    for w, s, e in zip(window_ids, starts, ends):
+                        features[m][w, : e - s] = _scrub(
+                            shard_datas[shard_idx][s:e][:, idx]
+                        )
+                else:
+                    features[m][np.asarray(window_ids)] = gathered
 
         shard_ids = np.asarray([c[0] for c in chunks], dtype=np.int32)
         return WindowedSplit(features=features, labels=labels, lengths=lengths,

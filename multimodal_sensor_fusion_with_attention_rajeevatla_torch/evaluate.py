@@ -4,7 +4,9 @@ Port of the JAX package's ``evaluate.py``.
 - ``evaluate_model``: accuracy / macro-F1 / loss / num_samples, optional
   ``(preds, labels, confidences[, logits])`` tuple.
 - ``measure_inference_latency``: per-sample ms mean/std, one batch per timed
-  call, fenced with ``torch.cuda.synchronize`` on the card;
+  call, fenced with ``torch.cuda.synchronize`` on the card, over a split or
+  over any iterable of loose batches (the reference's parse and
+  skip-with-warning rules, ``_latency_over_batches``);
   ``measure_amortized_latency``: the whole split enqueued back to back and
   fenced once.
 - ``evaluate_missing_modalities``: all ``2^M - 1`` modality subsets. Each
@@ -33,6 +35,7 @@ import torch
 from .data.dataset import WindowedSplit, create_datasets, padded_index_matrix
 from .data.device import DeviceSplit
 from .models.module import MultimodalFusionModel
+from .ops._build import KernelError
 from .ops.metrics import cross_entropy_loss, macro_f1
 from .uncertainty import CalibrationMetrics
 from .utils.device import resolve_device
@@ -106,16 +109,121 @@ def evaluate_model(
     return metrics
 
 
+def _parse_latency_batch(batch):
+    """Best-effort parsing of loose batch containers (reference
+    ``src/eval.py:133-165``): a features Mapping, or a Sequence
+    ``(features[, labels[, mask[, lengths...]]])``. Returns ``None`` when the
+    batch is unusable."""
+    from collections.abc import Mapping, Sequence as SeqABC
+
+    if isinstance(batch, Mapping):
+        return dict(batch), None, None, None
+    if isinstance(batch, SeqABC) and len(batch) > 0:
+        first = batch[0]
+        if isinstance(first, Mapping):
+            labels = batch[1] if len(batch) > 1 else None
+            mask = batch[2] if len(batch) > 2 else None
+            lengths = batch[3] if len(batch) > 3 else None
+            return dict(first), labels, mask, lengths
+    return None
+
+
+def _infer_batch_size(labels, features) -> Optional[int]:
+    if hasattr(labels, "shape") and getattr(labels, "shape", ()):
+        return int(labels.shape[0])
+    for tensor in features.values():
+        if hasattr(tensor, "shape") and getattr(tensor, "shape", ()):
+            return int(tensor.shape[0])
+    return None
+
+
+def _latency_over_batches(
+    model: MultimodalFusionModel, batches, max_batches: int = 50, warmup: int = 3
+) -> Tuple[float, float]:
+    """Latency sweep over an arbitrary iterable of batches with the
+    reference's skip-with-warning tolerance (``src/eval.py:185-221``).
+
+    Consumes at most ``max_batches`` batches (the iterable may be a
+    streaming/infinite loader), moves each onto the model's device, and makes
+    ``warmup`` untimed calls per new input signature (feature shapes and
+    types, and the mask / lengths structure), as the reference does where a
+    new signature compiles. Each timed call ends in the device fence.
+    """
+    device = _model_device(model)
+    per_sample_ms: List[float] = []
+    warmed: set = set()  # signatures already warmed up
+    for batch in itertools.islice(batches, max_batches):
+        parsed = _parse_latency_batch(batch)
+        if parsed is None:
+            print("  Warning: Unable to parse batch for latency measurement, skipping.")
+            continue
+        features, labels, mask, lengths = parsed
+        batch_size = _infer_batch_size(labels, features)
+        if not batch_size:
+            print("  Warning: Unable to infer batch size for latency measurement, skipping.")
+            continue
+        if not features:
+            print("  Warning: Empty feature dict encountered during latency measurement, skipping.")
+            continue
+        try:
+            features = {k: torch.as_tensor(v, device=device) for k, v in features.items()}
+        except (TypeError, ValueError, RuntimeError):
+            print("  Warning: Non-tensor feature encountered, skipping batch for latency measurement.")
+            continue
+        if mask is None:
+            # default mask width = the MODEL's modality count (a batch dict
+            # with extra/missing keys fails the model call and is skipped)
+            num_mod = len(getattr(model, "modalities", ())) or max(1, len(features))
+            mask = torch.ones((batch_size, num_mod), dtype=torch.float32, device=device)
+        else:
+            mask = torch.as_tensor(mask, device=device)
+        lengths = torch.as_tensor(lengths, device=device) if lengths is not None else None
+        sig = (
+            tuple(sorted((k, tuple(v.shape), str(v.dtype)) for k, v in features.items())),
+            (tuple(mask.shape), str(mask.dtype)),
+            None if lengths is None else (tuple(lengths.shape), str(lengths.dtype)),
+        )
+        # a model error from the batch (a missing modality, a shape
+        # mismatch, ...) is a skip, not an abort, as in the reference; a
+        # kernel that does not build or launch, or a fault on the device,
+        # is not the batch's and stops the sweep
+        try:
+            if sig not in warmed:
+                for _ in range(max(1, warmup)):
+                    model(features, mask, lengths, train=False)
+                _sync(device)
+                warmed.add(sig)
+            t0 = time.perf_counter()
+            model(features, mask, lengths, train=False)
+            _sync(device)
+        except (KernelError, torch.AcceleratorError):
+            raise
+        except Exception:
+            print("  Warning: Model call failed during latency measurement, skipping batch.")
+            continue
+        per_sample_ms.append((time.perf_counter() - t0) / batch_size * 1000.0)
+    if not per_sample_ms:
+        return 0.0, 0.0
+    arr = np.asarray(per_sample_ms)
+    return float(arr.mean()), float(arr.std(ddof=0))
+
+
 @torch.inference_mode()
 def measure_inference_latency(
     model: MultimodalFusionModel,
-    windows: WindowedSplit | DeviceSplit,
+    windows,
     batch_size: int = 32,
     max_batches: int = 50,
     warmup: int = 3,
 ) -> Tuple[float, float]:
     """Per-sample latency (ms) mean/std of the eval forward, one batch per
-    timed call: host clock around a forward that ends in a device fence."""
+    timed call: host clock around a forward that ends in a device fence.
+
+    ``windows`` is a ``WindowedSplit`` or ``DeviceSplit``, or any iterable of
+    loose batches, which takes the reference's best-effort parse and
+    skip-with-warning rules (``_latency_over_batches``)."""
+    if not isinstance(windows, (WindowedSplit, DeviceSplit)):
+        return _latency_over_batches(model, windows, max_batches=max_batches, warmup=warmup)
     data = _device_split(model, windows)
     device = data.labels.device
     idx_mat, mask = _batches(data, batch_size)

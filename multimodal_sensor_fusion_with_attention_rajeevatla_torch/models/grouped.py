@@ -5,7 +5,8 @@ evaluated as one recurrence over a leading group axis, with
 ``groupable_modalities``. Stacked parameters keep the reference's names and
 layout (``weight_ih_l<k> [G, in, gates*H]`` ...). With ``use_pallas`` and one
 layer, eval is one launch of ``ops.rnn.grouped_lstm_fused`` /
-``grouped_gru_fused`` on the raw stacked input, and training runs the input
+``grouped_gru_fused`` on the raw stacked input (called as the ``msfa::``
+op of ``ops/library.py``), and training runs the input
 projection as one G-batched product whose ``x_proj [T, G, B, gates*H]`` feeds
 ``ops.rnn.grouped_lstm_trainable`` / ``grouped_gru_trainable`` (one forward
 and one backward kernel launch for the group); otherwise the recurrence is the
@@ -65,13 +66,8 @@ from ..ops.mlp import (
     kernel_rng_seed,
     ln_rows,
 )
-from ..ops.rnn import (
-    grouped_gru_fused,
-    grouped_gru_trainable,
-    grouped_lstm_fused,
-    grouped_lstm_trainable,
-    rnn_scan,
-)
+from ..ops import library
+from ..ops.rnn import grouped_gru_trainable, grouped_lstm_trainable, rnn_scan
 from .encoders import dropout, keep_mask, lecun_normal_, resolve_dropout_rng
 
 _DENSE = ("q_proj", "k_proj", "v_proj", "out_proj", "linear1", "linear2")
@@ -177,11 +173,12 @@ class GroupedRNNEncoder(nn.Module):
                 # the whole group, input projection included, in one launch
                 x = stacked.permute(2, 0, 1, 3).contiguous()  # [G,B,T,D] -> [T,G,B,D]
                 w_ih, w_hh, b_ih, b_hh = (w.detach() for w in (w_ih, w_hh, b_ih, b_hh))
+                # the kernels as the registered ops, which an exported graph holds
                 if self.cell_type == "lstm":
                     # the LSTM's gate biases are purely additive
-                    final_state = grouped_lstm_fused(x, w_ih, w_hh, b_ih + b_hh, lens)
+                    final_state = library.grouped_lstm_fused(x, w_ih, w_hh, b_ih + b_hh, lens)
                 else:
-                    final_state = grouped_gru_fused(x, w_ih, w_hh, b_ih, b_hh, lens)
+                    final_state = library.grouped_gru_fused(x, w_ih, w_hh, b_ih, b_hh, lens)
         else:
             layer_input = stacked
             for layer in range(self.num_layers):

@@ -49,6 +49,11 @@ NVCC_FLAGS = [
 ]
 
 _libs: Dict[str, ctypes.CDLL] = {}
+
+
+class KernelError(RuntimeError):
+    """A kernel that could not be built, or whose launch was refused."""
+
 _lock = threading.Lock()
 
 
@@ -60,7 +65,7 @@ def _nvcc() -> str:
     candidate = Path(cuda_home) / "bin" / "nvcc"
     if candidate.exists():
         return str(candidate)
-    raise RuntimeError(
+    raise KernelError(
         "nvcc not found (looked on PATH and under CUDA_HOME); the port's CUDA "
         "kernels are compiled from ops/csrc at first use"
     )
@@ -78,7 +83,7 @@ def _target(name: str) -> Path:
 
 def build_all() -> Dict[str, ctypes.CDLL]:
     """Compile every missing kernel library (all ``nvcc`` runs in parallel)
-    and load all of them. Raises ``RuntimeError`` with the compiler's output
+    and load all of them. Raises ``KernelError`` with the compiler's output
     when a source does not build."""
     with _lock:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -102,7 +107,7 @@ def build_all() -> Dict[str, ctypes.CDLL]:
                 continue
             os.replace(tmp, target)
         if failures:
-            raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failures))
+            raise KernelError("CUDA kernel build failed:\n" + "\n".join(failures))
         for name in SOURCES:
             if name not in _libs:
                 lib = ctypes.CDLL(str(_target(name)))
@@ -121,8 +126,8 @@ def library(name: str) -> ctypes.CDLL:
 
 
 def check(lib: ctypes.CDLL, code: int, what: str) -> None:
-    """Raise when a C entry point reports a CUDA error (refused launch,
+    """Raise ``KernelError`` when a C entry point reports a CUDA error (refused launch,
     bad configuration) — ``torch.cuda.synchronize`` would not report those."""
     if code != 0:
         message = lib.msfa_cuda_error_string(code).decode()
-        raise RuntimeError(f"{what} failed to launch: CUDA error {code} ({message})")
+        raise KernelError(f"{what} failed to launch: CUDA error {code} ({message})")

@@ -443,8 +443,10 @@ def flash_mha_packed(
 ) -> torch.Tensor:
     """Attention on the packed qkv layout -> ``[B, T, H*d]`` in f32,
     differentiable through ``PackedAttention`` (the backward kernel gives
-    ``dqkv``). A bfloat16 ``qkv`` runs the bf16 entries; any other type is
-    cast to f32, as in the reference.
+    ``dqkv``); with no gradient to record it calls the forward as the op
+    ``msfa::packed_attention_fwd`` (``ops/library.py``). A bfloat16 ``qkv``
+    runs the bf16 entries; any other type is cast to f32, as in the
+    reference.
 
     Same contract as the reference's ``flash_mha_packed``: T is padded to a
     multiple of 8 (padded key columns are masked through ``lengths``),
@@ -466,10 +468,16 @@ def flash_mha_packed(
     pad = (-seq_len) % 8
     if pad:
         qkv = torch.nn.functional.pad(qkv, (0, 0, 0, pad))
-    operands = qkv if qkv.dtype == torch.bfloat16 else qkv.float()
-    out = PackedAttention.apply(
-        operands.contiguous(), lengths.to(torch.int32).contiguous(), num_heads, float(sm_scale)
-    )
+    operands = (qkv if qkv.dtype == torch.bfloat16 else qkv.float()).contiguous()
+    lengths = lengths.to(torch.int32).contiguous()
+    from . import library  # registers the msfa:: ops
+
+    if library.recorded(operands):
+        out = PackedAttention.apply(operands, lengths, num_heads, float(sm_scale))
+    else:  # no gradient to record (eval): the registered op, which an exported graph holds
+        op = (library.packed_attention_fwd_bf16 if operands.dtype == torch.bfloat16
+              else library.packed_attention_fwd)
+        out = op(operands, lengths, num_heads, float(sm_scale))[0]
     out = out[:, :seq_len] if pad else out
     if width != head_dim:
         out = out.reshape(batch, seq_len, num_heads, width)[..., :head_dim].reshape(
@@ -836,7 +844,9 @@ def flash_self_attention(
     fused_bwd_max: int = FUSED_BWD_MAX,
 ) -> torch.Tensor:
     """Attention on ``[B, H, T, d]`` -> ``[B, H, T, d]``; the scores never
-    reach device memory. Differentiable through ``FlashAttention``.
+    reach device memory. Differentiable through ``FlashAttention``; with no
+    gradient to record the forward is the op ``msfa::flash_fwd_single`` or
+    ``msfa::flash_fwd_tiled`` (``ops/library.py``).
 
     The reference's wrapper semantics: ``block_q`` and ``block_k`` are clipped
     to T; a T that is not a multiple of both is padded with zeros up to a
@@ -874,8 +884,15 @@ def flash_self_attention(
     width = kernel_head_dim(head_dim) or head_dim  # zero columns up to the kernels' next
     flat = [_pad_head_dim(t.float(), head_dim, width).reshape(batch * heads, padded_len, width)
             .contiguous() for t in (q, k, v)]
-    out = FlashAttention.apply(
-        *flat, lengths.to(torch.int32).contiguous(), heads, float(sm_scale), routes, block_k
-    ).reshape(batch, heads, padded_len, width)
+    lengths = lengths.to(torch.int32).contiguous()
+    from . import library  # registers the msfa:: ops
+
+    if library.recorded(*flat):
+        out = FlashAttention.apply(*flat, lengths, heads, float(sm_scale), routes, block_k)
+    elif routes[0] == "single":  # no gradient to record (eval): the registered ops
+        out = library.flash_fwd_single(*flat, lengths, heads, float(sm_scale))[0]
+    else:
+        out = library.flash_fwd_tiled(*flat, lengths, heads, float(sm_scale), block_k)[0]
+    out = out.reshape(batch, heads, padded_len, width)
     out = out[:, :, :seq_len] if pad else out
     return out[..., :head_dim] if width != head_dim else out

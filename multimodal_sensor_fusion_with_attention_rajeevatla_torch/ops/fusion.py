@@ -232,7 +232,7 @@ def hybrid_fused_inference(
 
     Equals ``HybridFusion.forward`` in eval mode: the per-modality projection
     and ReLU run as plain ops (each modality has its own input width), then
-    the fused head.
+    the fused head as the op ``msfa::fused_hybrid_head`` (``ops/library.py``).
     """
     from ..models.attention import ordered_pairs
 
@@ -243,8 +243,7 @@ def hybrid_fused_inference(
         x = encoded[m] * mask[:, i : i + 1]
         projected.append(torch.relu(torch.nn.functional.linear(x, weight, bias)))
     stacked = torch.stack(projected, dim=0)
-    return fused_hybrid_head(
-        stacked, mask.contiguous(), params.pair_params, params.gate_kernels,
-        params.gate_biases, params.w1, params.b1, params.w2, params.b2,
-        ordered_pairs(modality_names),
-    )
+    from . import library  # registers the msfa:: ops
+
+    return library.fused_hybrid_head(*library.head_op_args(
+        params, stacked, mask.contiguous(), ordered_pairs(modality_names)))

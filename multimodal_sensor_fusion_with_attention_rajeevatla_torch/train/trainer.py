@@ -18,7 +18,10 @@ optimizer, augmentations, the per-batch step and ``fit``).
   label-smoothed loss, backward, optimizer. Every random draw of a step
   comes from one ``torch.Generator`` on the device, in a fixed order.
   ``fit`` trains whole epochs over a device-resident split (a Python loop
-  of micro-steps where the reference compiles a scan), early-stops on the
+  of micro-steps where the reference compiles a scan) or, with
+  ``dataset.streaming``, over batches streamed from the host one ahead of
+  the step (``data.device.StreamingDeviceLoader``; the train split is never
+  put on the card whole), early-stops on the
   label-smoothed val loss with the reference's patience semantics, keeps
   top-k and ``last`` checkpoints (``train/checkpoint.py``), scores the best
   checkpoint on test and writes ``results.json`` with the reference's keys.
@@ -37,11 +40,17 @@ outputs of the recomputed function. Loss and gradients are those of the run
 without it, bit for bit, and every forward kernel launches twice a
 micro-step.
 
-The streaming loader path (``dataset.streaming``) and the parallel layouts
-are not ported (ROADMAP queue A): ``check_layout`` keeps the reference's
-``ValueError``s for an inconsistent ``parallel`` block and an unknown
-``training.prng_impl``, and raises ``NotImplementedError`` for any layout
-other than one card.
+The streamed and the resident epoch take the same shuffle order and draw
+the same numbers from the generator in the same order, so they give the same
+losses and weights bit for bit where no layer mixes the rows of a batch: the
+last batch's padding rows (weight 0) are window 0 in ``BatchLoader``'s batch
+and the epoch order wrapped around in the resident index matrix, which only
+BatchNorm statistics and MoE capacity can see.
+
+The parallel layouts are not ported (ROADMAP queue A): ``check_layout``
+keeps the reference's ``ValueError``s for an inconsistent ``parallel`` block
+and an unknown ``training.prng_impl``, and raises ``NotImplementedError`` for
+any layout other than one card.
 """
 
 from __future__ import annotations
@@ -57,8 +66,8 @@ import numpy as np
 import torch
 import torch.utils.checkpoint
 
-from ..data.dataset import WindowedSplit, padded_index_matrix
-from ..data.device import DeviceSplit
+from ..data.dataset import BatchLoader, WindowedSplit, padded_index_matrix
+from ..data.device import DeviceSplit, StreamingDeviceLoader
 from ..models.encoders import running_stats_frozen
 from ..models.module import MultimodalFusionModel
 from ..ops.metrics import cross_entropy_loss, weighted_accuracy
@@ -432,12 +441,37 @@ class Trainer:
             features, labels, lengths = data.gather(idx)
             if weight is None:
                 weight = torch.ones(labels.shape, device=labels.device)
-            features, lengths, mask = self.augment(features, lengths, len(data.modalities))
-            loss, acc, grads = self.loss_and_grads(features, labels, mask, lengths, weight)
-            self.optimizer.step(grads)
-            return loss, acc
+            return self._update(features, labels, None, lengths, weight)
 
         return step
+
+    def make_stream_step_fn(self):
+        """``step(features, labels, mask, lengths, weight) -> (loss, acc)``:
+        one micro-step on a batch already on the device (a
+        ``StreamingDeviceLoader`` tuple), with the resident step's
+        augmentations and update; the batch's modality mask is multiplied by
+        the step's modality dropout (the reference's streaming step)."""
+        if self.optimizer is None:
+            raise RuntimeError("call init_state(steps_per_epoch) before making the step")
+        return self._update
+
+    def _update(self, features, labels, mask, lengths, weight):
+        """Augment, loss and gradients, optimizer: one micro-step. ``mask``
+        None is the resident step's all-ones modality mask."""
+        num_mod = len(features) if mask is None else mask.shape[1]
+        features, lengths, drop = self.augment(features, lengths, num_mod)
+        mask = drop if mask is None else mask * drop
+        loss, acc, grads = self.loss_and_grads(features, labels, mask, lengths, weight)
+        self.optimizer.step(grads)
+        return loss, acc
+
+    def stream_batches(self, windows: WindowedSplit, epoch: int) -> StreamingDeviceLoader:
+        """Epoch ``epoch``'s train batches streamed to the trainer's device:
+        a shuffled ``BatchLoader`` seeded as the resident epoch's index
+        matrix (``seed + epoch``), so both take the same order."""
+        loader = BatchLoader(windows, self.batch_size, shuffle=True, seed=self.seed)
+        loader.set_epoch(epoch)
+        return StreamingDeviceLoader(loader, device=self.device)
 
     # -- state for a resume ------------------------------------------------
     def train_state(self) -> Dict[str, Any]:
@@ -491,8 +525,7 @@ class Trainer:
         if log_fn is print:  # flush through pipes
             log_fn = lambda msg: print(msg, flush=True)  # noqa: E731
         cfg = self.config
-        if bool(cfg.dataset.get("streaming", False)):
-            raise NotImplementedError("dataset.streaming is not ported yet (see ROADMAP.md)")
+        streaming = bool(cfg.dataset.get("streaming", False))
         max_epochs = int(cfg.training.get("max_epochs", 1))
         patience = int(cfg.training.get("early_stopping_patience", 10))
         exp_cfg = cfg.get("experiment", {}) or {}
@@ -502,12 +535,14 @@ class Trainer:
         save_dir.mkdir(parents=True, exist_ok=True)
 
         batch = self.batch_size
-        train_data = DeviceSplit.from_windows(train_windows, device=self.device)
+        # streaming never puts the train split on the device whole
+        train_data = (None if streaming
+                      else DeviceSplit.from_windows(train_windows, device=self.device))
         val_data = DeviceSplit.from_windows(val_windows, device=self.device)
         n_train = train_windows.num_windows
         steps_per_epoch = (n_train + batch - 1) // batch
         self.init_state(steps_per_epoch)
-        step = self.make_train_step_fn()
+        step = self.make_stream_step_fn() if streaming else self.make_train_step_fn()
         start_epoch = 0
         if resume_from is not None:
             weights, _cfg, meta = load_checkpoint(resume_from)
@@ -545,10 +580,15 @@ class Trainer:
         history = []
         t_start = time.perf_counter()
         for epoch in range(start_epoch, max_epochs):
-            idx_mat, weight_mat = padded_index_matrix(n_train, batch, True, self.seed + epoch)
-            idx_dev = torch.from_numpy(idx_mat).long().to(self.device)
-            weight_dev = torch.from_numpy(weight_mat).to(self.device)
-            stats = [step(train_data, idx, weight) for idx, weight in zip(idx_dev, weight_dev)]
+            if streaming:
+                stats = [step(*b) for b in self.stream_batches(train_windows, epoch)]
+            else:
+                idx_mat, weight_mat = padded_index_matrix(n_train, batch, True,
+                                                          self.seed + epoch)
+                idx_dev = torch.from_numpy(idx_mat).long().to(self.device)
+                weight_dev = torch.from_numpy(weight_mat).to(self.device)
+                stats = [step(train_data, idx, weight)
+                         for idx, weight in zip(idx_dev, weight_dev)]
             if stats:
                 # epoch means stay on the device; one fetch per epoch
                 train_loss, train_acc = torch.stack(

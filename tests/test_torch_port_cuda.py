@@ -1467,3 +1467,100 @@ def test_remat_on_the_card_repeats_bit_for_bit(card):
         assert torch.equal(loss_a, loss_b)
         assert all(torch.equal(a, b) for a, b in zip(grads_a, grads_b))
         assert l_b == {k: (2 * v if k.endswith("_fwd") else v) for k, v in l_a.items()}
+
+
+# case -> (overrides of base.yaml, launches of one request): the bundle's graph
+# launches the kernels make_serving_fn launches
+BUNDLE_CASES = {
+    "flagship": ([], {"packed_attention_fwd": 4, "fused_hybrid_head": 1}),
+    "late": (["model.fusion_type=late"], {"packed_attention_fwd": 4}),
+    "lstm": ([f"model.encoders.{n}.encoder_type=lstm" for n in C5_NAMES],
+             {"grouped_lstm_fused": 1, "fused_hybrid_head": 1}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(BUNDLE_CASES))
+def test_bundle_on_the_card_equals_make_serving_fn_and_launches_the_kernels(card, case,
+                                                                          tmp_path):
+    """base.yaml at full width (hidden 256) exported on the card and loaded
+    back: the loaded graph's logits equal ``make_serving_fn``'s bit for bit,
+    and one request launches the same kernels, counted at run time."""
+    from multimodal_sensor_fusion_with_attention_rajeevatla_torch.serving import (
+        export_serving_bundle,
+        load_serving_bundle,
+        make_serving_fn,
+    )
+
+    overrides, want = BUNDLE_CASES[case]
+    model = _c5_model(card, 256, overrides)
+    feats, lengths, _labels = _c5_batch(card)
+    export_serving_bundle(model, tmp_path, 8, 64, dict(zip(C5_NAMES, C5_DIMS)), device=card)
+    fn, meta = load_serving_bundle(tmp_path, device=card)
+    assert meta["device"] == "cuda" and set(meta["ops"]) == set(want)
+    serve = make_serving_fn(model, device=card)
+    expected, served = _counted_all(lambda: serve(feats, None, lengths))
+    got, launches = _counted_all(lambda: fn(feats, None, lengths))
+    assert served == launches == want
+    assert torch.equal(got, expected) and torch.isfinite(got).all()
+
+
+def test_bundle_exported_on_the_cpu_serves_on_the_card_through_the_kernels(card, tmp_path):
+    """A bundle traced on the CPU and loaded onto the card (its graph moved)
+    launches the kernels and gives ``make_serving_fn``'s logits on the card."""
+    from multimodal_sensor_fusion_with_attention_rajeevatla_torch.serving import (
+        export_serving_bundle,
+        load_serving_bundle,
+        make_serving_fn,
+    )
+
+    model = _c5_model(card, 256)
+    feats, lengths, _labels = _c5_batch(card)
+    export_serving_bundle(model.cpu(), tmp_path, 8, 64, dict(zip(C5_NAMES, C5_DIMS)),
+                          device="cpu")
+    fn, meta = load_serving_bundle(tmp_path, device=card)
+    assert meta["device"] == "cpu"
+    expected, served = _counted_all(lambda: make_serving_fn(model, device=card)(feats, None,
+                                                                                lengths))
+    got, launches = _counted_all(lambda: fn(feats, None, lengths))
+    assert launches == served == BUNDLE_CASES["flagship"][1]
+    assert torch.equal(got, expected)
+
+
+def _counted_all(fn):
+    """``_counted`` over the serving kernels, the recurrences included."""
+    kernels = (ta.packed_attention_fwd, ta.flash_fwd_single, ta.flash_fwd_tiled,
+               tf.fused_hybrid_head, tr.grouped_lstm_fused, tr.grouped_gru_fused)
+    for k in kernels:
+        k.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k.__name__: k.launches for k in kernels if k.launches}
+
+
+def test_streamed_epoch_on_the_card_equals_the_resident_epoch(card, tmp_path):
+    """One epoch of ``Trainer.fit`` on synthetic windows at base.yaml's
+    width (batch 8, the last batch padded, base.yaml's dropout and
+    augmentations on): with ``dataset.streaming=true`` the history and every weight equal
+    the resident epoch's bit for bit."""
+    from multimodal_sensor_fusion_with_attention_rajeevatla_torch.data.dataset import (
+        create_datasets,
+    )
+    from multimodal_sensor_fusion_with_attention_rajeevatla_torch.train import trainer as tt
+    from multimodal_sensor_fusion_with_attention_rajeevatla_torch.utils.config import load_config
+
+    base = Path(__file__).resolve().parent.parent / "config" / "base.yaml"
+    train_w, val_w, _ = create_datasets("synthetic", ".", list(C5_NAMES), num_samples=60,
+                                        num_classes=25, sequence_length=64, modality_dim=17,
+                                        seed=3)
+    for w in (train_w, val_w):  # heart_rate is one feature wide
+        w.features["heart_rate"] = w.features["heart_rate"][..., :1].copy()
+    runs = []
+    for streaming in ("false", "true"):
+        cfg = load_config(base, ["training.max_epochs=1", "dataset.batch_size=8",
+                                 f"dataset.streaming={streaming}"])
+        trainer = tt.Trainer(cfg, device=card)
+        results = trainer.fit(train_w, val_w, save_dir=tmp_path / streaming, log_fn=None)
+        runs.append((results["history"], trainer.model.state_dict()))
+    (hist_r, state_r), (hist_s, state_s) = runs
+    assert hist_s == hist_r
+    assert all(torch.equal(state_s[k], v) for k, v in state_r.items())

@@ -338,18 +338,20 @@ def test_command_surface_parses_like_the_reference():
     assert (path, overrides, device) == (Path("/cfg/exp.yaml"), ["model.dropout=0.1"], "cpu")
     path, overrides, device = tcli._resolve_config_arg([])
     assert path == REPO / "config" / "base.yaml" and overrides == [] and device is None
-    assert tcli.main([]) == 2 and tcli.main(["analysis"]) == 2
+    # train, eval, analysis and preprocess are the commands; anything else is usage
+    assert tcli.main([]) == 2 and tcli.main(["serve"]) == 2
     with pytest.raises(SystemExit):
         tcli.eval_main([])  # --checkpoint is required
 
 
 def test_port_imports_nothing_of_jax():
-    """No module of the port, and not ``chip_smoke.py``, imports jax, flax,
-    optax, orbax or the JAX package."""
+    """No module of the port, not ``chip_smoke.py`` and no ``scripts/*_torch.py``
+    imports jax, flax, optax, orbax or the JAX package."""
     banned = re.compile(
         r"^\s*(?:import|from)\s+(jax|flax|optax|orbax|"
         r"multimodal_sensor_fusion_with_attention_rajeevatla_tpu)\b", re.MULTILINE)
-    sources = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    sources = (sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+               + sorted((REPO / "scripts").glob("*_torch.py")))
     assert len(sources) > 25
     for path in sources:
         found = banned.findall(path.read_text())

@@ -282,9 +282,15 @@ def test_optimizer_state_dict_round_trip_rejects_another_model():
 
 
 def test_fit_rejects_the_streaming_loader(tmp_path):
-    cfg = load_config(_config_file(tmp_path), ["dataset.streaming=true"])
-    with pytest.raises(NotImplementedError, match="streaming"):
-        tt.Trainer(cfg, device="cpu").fit(*_windows(tdata)[:2], save_dir=tmp_path / "run")
+    """``dataset.streaming=true`` is no longer refused: the trainer builds and
+    fits one epoch through the streaming loader on the CPU (its parity with
+    the resident epoch and with JAX: ``test_torch_port_stream.py``)."""
+    cfg = load_config(_config_file(tmp_path, epochs=1), ["dataset.streaming=true"])
+    trainer = tt.Trainer(cfg, device="cpu")
+    results = trainer.fit(*_windows(tdata)[:2], save_dir=tmp_path / "run", log_fn=None)
+    assert len(results["history"]) == 1 and np.isfinite(results["history"][0]["train/loss"])
+    assert trainer.optimizer.count == 2  # five micro-steps at accumulation 2
+    assert (tmp_path / "run" / "checkpoints" / "last").is_dir()
 
 
 # ------------------------------------------------------------ data, copied
