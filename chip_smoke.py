@@ -237,8 +237,32 @@ Phases (any failure exits non-zero, and no result line is printed):
    without it, each forward kernel launched twice, the peak memory of both;
    at chunk 4096 (batch 32): one micro-step with and without remat and
    their peak memory, and one on 4 windows against the plain path.
-15. Print the kernel table as one JSON line, then the result line
-   ``{"ok": true, "device": {...}}`` last.
+15. Parallel: the layouts on ``torch.distributed``. One world of 4
+   processes on the one card (``chip_smoke.py --parallel-child``, joined
+   through ``parallel.coordinator_address``; gloo over CUDA tensors, printed
+   and asserted for every leg), the flagship at full width (base.yaml, chunk
+   512, hidden 256, FFW 2048, seed-42 weights) on real PAMAP2 windows at a
+   global batch of 32, the reference's multichip dry run leg by leg: (a) dcn 2
+   x data 2 with ZeRO; (b) data 2 x model 2 with sequence parallelism and
+   ZeRO; (c) (b) with ``model.moe_experts=4 model.moe_top_k=2``; (d) data 2 x
+   pipe 2, 2 microbatches, every transformer encoder at ``num_layers: 2``
+   (the leg's one cut). Each leg: 8 micro-steps at dropout 0 with the
+   augmentations off against one process on the card from the same weights
+   at the start of each accumulation window (loss within 1e-5 relative; the
+   gathered gradient the optimizer sees at each of the 2 updates within
+   1e-5 norm-wise and each leaf within 1e-4 of its largest entry, floored at
+   1e-3 of all); 4 micro-steps at the config's dropout twice, bit for bit on
+   every rank; the launches of every rank per micro-step (b: the
+   ``fused_mlp`` pair on the F = 1024 shards 4 times, ``ffw_ln`` never; d:
+   the layer kernels once per layer per microbatch on the stage that owns
+   the layer) and its p50 (four processes on one card: no speed of a
+   4-card layout). Then one epoch of ``Trainer.fit`` on (b)'s layout with
+   the train split cut to 4 batches (val and test to 64 windows): rank 0
+   alone writes, and its ``last`` checkpoint loads into one process bit for
+   bit; then a 1-rank world through ``Trainer`` on NCCL (its init, an
+   all-reduce, all-gather, broadcast and barrier).
+16. Print the kernel table as one JSON line (each row's ``parallel_launches``
+   by leg), then the result line ``{"ok": true, "device": {...}}`` last.
 
 The script imports torch and the port only; it needs no network.
 """
@@ -256,7 +280,7 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
 PKG = "multimodal_sensor_fusion_with_attention_rajeevatla_torch"
-TPU_PKG = "multimodal_sensor_fusion_with_attention_rajeevatla_tpu"
+TPU_PKG = "multimodal_sensor_fusion_with_attention_rajeevatla_tpu"  # a label of the "replaces" paths; never imported
 BATCH = 64
 TRAIN_STEPS = 8  # micro-steps on the main path: 2 updates at accumulation 4
 FUSED_MLP_STEPS = 4  # micro-steps at fused_mlp=true, fused_mlp_ln=false
@@ -4470,6 +4494,459 @@ def remat_phase(torch, kernels, split, train_idx, modalities, stride, seed, smi)
     return out
 
 
+# ---- [parallel]: the layouts on torch.distributed, 4 ranks on the one card ------------
+
+PARALLEL_WORLD = 4
+PARALLEL_JOIN = 900  # seconds a world of children may take before it is killed
+PARALLEL_STEPS = 8  # micro-steps a leg: 2 updates at accumulation 4
+PARALLEL_REPEAT_STEPS = 4  # micro-steps of each determinism run
+PARALLEL_FIT_BATCHES = 4  # global batches of the [parallel] fit's cut train split
+PARALLEL_FIT_WINDOWS = 64  # windows of its cut val and test splits
+PARALLEL_NAMES = ("imu_hand", "imu_chest", "imu_ankle", "heart_rate")
+PARALLEL_LEGS = {  # the reference's multichip dry run, leg by leg
+    "a": ["parallel.dcn_slices=2", "parallel.zero_optimizer=true"],
+    "b": ["parallel.model_parallel=2", "parallel.sequence_parallel=true",
+          "parallel.zero_optimizer=true"],
+    "c": ["parallel.model_parallel=2", "parallel.sequence_parallel=true",
+          "parallel.zero_optimizer=true", "model.moe_experts=4", "model.moe_top_k=2"],
+    # the pipeline needs num_layers divisible by its 2 stages: the leg's one cut
+    "d": ["parallel.pipeline_parallel=2", "parallel.microbatches=2"]
+    + [f"model.encoders.{m}.num_layers=2" for m in PARALLEL_NAMES],
+}
+# parity runs: no random draw (dropout and the augmentations off), so that a
+# world and one process compute the same function on the same global batches
+PARALLEL_QUIET = ["model.dropout=0.0", "training.augmentation.temporal_jitter=0.0",
+                  "training.augmentation.gaussian_noise=0.0",
+                  "training.augmentation.modality_dropout=0.0"]
+# f32 on both sides; the world sums the batch in pieces and its collectives
+# add in another order
+PARALLEL_LOSS_TOL = 1e-5  # relative
+PARALLEL_GRAD_TOL = 1e-5  # the whole gradient, norm-wise
+PARALLEL_LEAF_TOL = 1e-4  # each leaf's max abs error over its largest, floored at 1e-3 of all
+# the kernels a layout's micro-step launches (table row -> wrapper name)
+PARALLEL_ROWS = ("packed_attention_fwd", "packed_attention_bwd", "fused_mlp_fwd", "fused_mlp_bwd",
+                 "ffw_ln_fwd", "ffw_ln_bwd", "proj_ln_fwd", "proj_ln_bwd", "dropout_keep_mask",
+                 "fused_hybrid_head")
+
+
+def _parallel_want(leg: str) -> dict:
+    """Launches per rank per parity micro-step (dropout 0: no mask launch).
+    Legs (a)-(c): each of the 4 encoders' one layer; (d): each stage's one
+    layer of each encoder once per microbatch (2)."""
+    want = dict.fromkeys(PARALLEL_ROWS, 0)
+    layer = ["packed_attention_fwd", "packed_attention_bwd", "proj_ln_fwd", "proj_ln_bwd"]
+    if leg == "a":
+        layer += ["ffw_ln_fwd", "ffw_ln_bwd"]
+    if leg == "b":  # the F-slices of the tensor-parallel pair; ffw_ln cannot take a partial sum
+        layer += ["fused_mlp_fwd", "fused_mlp_bwd"]
+    if leg == "d":
+        layer += ["ffw_ln_fwd", "ffw_ln_bwd"]
+    for name in layer:
+        want[name] = 4 * (2 if leg == "d" else 1)
+    return want
+
+
+def _parallel_counters():
+    from multimodal_sensor_fusion_with_attention_rajeevatla_torch.ops import attention as attn
+    from multimodal_sensor_fusion_with_attention_rajeevatla_torch.ops import fusion, mlp
+
+    return {name: getattr(attn if name.startswith("packed") else
+                          fusion if name == "fused_hybrid_head" else mlp, name)
+            for name in PARALLEL_ROWS}
+
+
+def _parallel_split(torch, path: Path, name: str):
+    from multimodal_sensor_fusion_with_attention_rajeevatla_torch.data.dataset import WindowedSplit
+    from multimodal_sensor_fusion_with_attention_rajeevatla_torch.data.device import DeviceSplit
+
+    import numpy as np
+
+    data = dict(np.load(path / f"{name}.npz"))
+    windows = WindowedSplit(
+        features={m: data[f"x_{m}"] for m in PARALLEL_NAMES}, labels=data["labels"],
+        lengths=data["lengths"], modalities=list(PARALLEL_NAMES))
+    return windows, DeviceSplit.from_windows(windows, device="cuda")
+
+
+def _record_updates(trainer, grads, weights):
+    """Keep, at each update, the gradient the optimizer is about to apply
+    (gathered whole on a mesh), then the whole weights it gave."""
+    from multimodal_sensor_fusion_with_attention_rajeevatla_torch.parallel.mesh import (
+        gather_full,
+    )
+
+    opt = trainer.optimizer
+    names = [k for k, _ in trainer.model.named_parameters()]
+    apply = opt.apply
+
+    def recording():
+        grads.append({k: (a if trainer.mesh is None else gather_full(
+            a, trainer.specs[k][1], trainer.mesh)).detach().cpu().clone()
+            for k, a in zip(names, opt.acc)})
+        apply()
+        weights.append({k: v.detach().cpu().clone() for k, v in trainer.state_dict().items()})
+
+    opt.apply = recording
+
+
+def parallel_leg(torch, overrides, split, steps, model=None, windows=None, counters=None):
+    """``steps`` micro-steps of a Trainer at base.yaml + ``overrides`` on the
+    global batches of ``split`` (32 windows each, in order) -> (losses,
+    gradient at each update, weights each accumulation window started from,
+    seconds of each micro-step, launches). ``windows``: weights to start each
+    window from (the world's), so that both sides' gradients are taken at
+    the same weights (a gradient that is zero up to rounding, the key
+    biases', moves Adam's update by up to the learning rate either way)."""
+    from multimodal_sensor_fusion_with_attention_rajeevatla_torch.train.trainer import Trainer
+
+    trainer = Trainer(load_cfg(overrides), model=model, device="cuda")
+    trainer.init_state(steps_per_epoch=2)
+    grads = []
+    weights = [{k: v.detach().cpu().clone() for k, v in trainer.state_dict().items()}]
+    _record_updates(trainer, grads, weights)
+    step = trainer.make_train_step_fn()
+    batch = trainer.batch_size
+    if counters:
+        for fn in counters.values():
+            fn.launches = 0
+    losses, seconds = [], []
+    for i in range(steps):
+        if windows is not None and i % trainer.accum == 0:
+            trainer.load_state_dict(windows[i // trainer.accum])
+        idx = torch.arange(batch) + batch * i
+        t = time.perf_counter()
+        losses.append(step(split, idx)[0])
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t)
+    launches = {k: fn.launches for k, fn in counters.items()} if counters else None
+    return torch.stack(losses).tolist(), grads, weights[:-1], seconds, launches, trainer
+
+
+PARALLEL_PROFILED_STEPS = 2  # micro-steps of each leg's breakdown window
+COMM_OPS = ("all_reduce", "all_gather", "reduce_scatter", "broadcast", "send", "recv")
+
+
+def comm_breakdown(torch, trainer, split) -> dict:
+    """PARALLEL_PROFILED_STEPS more micro-steps of ``trainer`` with every
+    collective of ``parallel.comm`` timed on the host, the card synchronised
+    before and after each (so a collective's time is its own and the
+    kernels queued before it count as compute), and the device time
+    (kernels and copies, torch.profiler's CUDA events) -> ms per micro-step:
+    ``wall``, ``device`` and each op's ms and calls. The synchronisation slows the window: it splits a
+    micro-step, it is not its p50."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    from multimodal_sensor_fusion_with_attention_rajeevatla_torch.parallel import comm
+
+    steps = PARALLEL_PROFILED_STEPS
+    spent = {name: [0.0, 0] for name in COMM_OPS}
+    originals = {name: getattr(comm, name) for name in COMM_OPS}
+
+    def timed(name, fn):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            spent[name][0] += time.perf_counter() - t
+            spent[name][1] += 1
+            return out
+        return run
+
+    step = trainer.make_train_step_fn()
+    batch = trainer.batch_size
+    for name, fn in originals.items():
+        setattr(comm, name, timed(name, fn))
+    try:
+        with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            for i in range(steps):
+                step(split, torch.arange(batch) + batch * i)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+    finally:
+        for name, fn in originals.items():
+            setattr(comm, name, fn)
+    device = sum(e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == DeviceType.CUDA) / 1e3
+    out = {"wall": wall * 1e3 / steps, "device": device / steps}
+    out.update({name: (ms * 1e3 / steps, calls / steps) for name, (ms, calls) in spent.items()
+                if calls})
+    return out
+
+
+def parallel_child(rank: int, world: int, port: int, workdir: Path) -> int:
+    """One rank of a [parallel] world (``chip_smoke.py --parallel-child``):
+    joins through ``parallel.coordinator_address``, runs every leg and the
+    fit, saves what the parent checks."""
+    import torch
+
+    sys.path.insert(0, str(REPO))
+    import torch.distributed as dist
+
+    from multimodal_sensor_fusion_with_attention_rajeevatla_torch.parallel import comm
+
+    coord = [f"parallel.coordinator_address=localhost:{port}",
+             f"parallel.num_processes={world}", f"parallel.process_id={rank}",
+             f"parallel.num_devices={world}"]
+    counters = _parallel_counters()
+    out = {"rank": rank}
+    if world == 1:  # NCCL's own init and collectives through a Trainer
+        _, split = _parallel_split(torch, workdir, "parity")
+        losses, *_rest, trainer = parallel_leg(torch, coord, split, 2)
+        backend = comm.group_backend()
+        x = torch.arange(4.0, device="cuda")
+        dist.all_reduce(x)
+        pieces = [torch.empty_like(x)]
+        dist.all_gather(pieces, x)
+        dist.broadcast(x, 0)
+        dist.barrier()
+        torch.cuda.synchronize()
+        out.update(backend=backend, losses=losses, collectives=pieces[0].tolist())
+        torch.save(out, workdir / "nccl.pt")
+        dist.destroy_process_group()
+        return 0
+    _, split = _parallel_split(torch, workdir, "parity")
+    for leg, extra in PARALLEL_LEGS.items():
+        losses, grads, weights, seconds, launches, trainer = parallel_leg(
+            torch, PARALLEL_QUIET + coord + extra, split, PARALLEL_STEPS, counters=counters)
+        breakdown = comm_breakdown(torch, trainer, split)
+        repeat = [parallel_leg(torch, coord + extra, split, PARALLEL_REPEAT_STEPS,
+                               counters=counters)[0] for _ in range(2)]
+        shard = {k: tuple(v.shape) for k, v in trainer.model.named_parameters()
+                 if k.endswith("layers.0.linear1.weight") or k.endswith("layers.0.moe.moe_w1")
+                 or k.endswith("pipe_layers.linear1.kernel")}
+        out[leg] = {"losses": losses, "seconds": seconds, "launches": launches,
+                    "repeat": repeat, "breakdown": breakdown, "shards": shard, "coords": trainer.mesh.coords(),
+                    "mesh": dict(trainer.mesh.shape), "backend": comm.group_backend()}
+        if rank == 0:
+            out[leg].update(grads=grads, weights=weights)
+        del trainer
+        torch.cuda.empty_cache()
+    # one epoch of fit on leg (b)'s layout, the train split cut to a few batches
+    fit_train, _ = _parallel_split(torch, workdir, "fit_train")
+    fit_val, _ = _parallel_split(torch, workdir, "fit_val")
+    fit_test, _ = _parallel_split(torch, workdir, "fit_test")
+    from multimodal_sensor_fusion_with_attention_rajeevatla_torch.train.trainer import Trainer
+
+    trainer = Trainer(load_cfg(coord + PARALLEL_LEGS["b"] + ["training.max_epochs=1"]),
+                      device="cuda")
+    writes = []  # files this rank writes during the fit
+    save, write_text = torch.save, Path.write_text
+
+    def counted_save(obj, f, *a, **k):
+        writes.append(str(f))
+        return save(obj, f, *a, **k)
+
+    def counted_write(path, *a, **k):
+        writes.append(str(path))
+        return write_text(path, *a, **k)
+
+    torch.save, Path.write_text = counted_save, counted_write
+    try:
+        results = trainer.fit(fit_train, fit_val, fit_test, save_dir=workdir / "fit",
+                              log_fn=lambda msg: print(f"  {msg}", flush=True))
+    finally:
+        torch.save, Path.write_text = save, write_text
+    out["fit"] = {"writes": writes, "best_val_loss": results["best_val_loss"],
+                  "history": results["history"], "test_acc": results["test_acc"]}
+    state = trainer.state_dict()  # gathered: every rank takes part
+    if rank == 0:
+        out["fit"]["state"] = {k: v.detach().cpu().clone() for k, v in state.items()}
+    torch.save(out, workdir / f"rank{rank}.pt")
+    dist.destroy_process_group()
+    return 0
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _spawn_world(world: int, workdir: Path, label: str):
+    """``world`` children of this script, one rank each, joined within
+    PARALLEL_JOIN seconds or killed; a failed or late child fails the phase."""
+    port = _free_port()
+    logs = [open(workdir / f"{label}{r}.log", "w") for r in range(world)]
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--parallel-child",
+                               str(r), str(world), str(port), str(workdir)],
+                              stdout=logs[r], stderr=subprocess.STDOUT, cwd=str(REPO))
+             for r in range(world)]
+    deadline = time.monotonic() + PARALLEL_JOIN
+    try:
+        for proc in procs:
+            proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        late = [p for p in procs if p.poll() is None]
+        for p in late:
+            p.kill()
+        for p in late:
+            p.wait()
+        for f in logs:
+            f.close()
+    for r, proc in enumerate(procs):
+        text = (workdir / f"{label}{r}.log").read_text()
+        print("\n".join(f"  [{label} rank {r}] {line}" for line in text.splitlines()[-6:]
+                        if "Warning" not in line), flush=True)
+        if proc.returncode != 0:
+            raise AssertionError(f"[parallel] {label} rank {r} failed or overran "
+                                 f"{PARALLEL_JOIN} s (rc {proc.returncode}):\n{text[-3000:]}")
+
+
+def _grads_close(got, want, what):
+    """Norm-wise and each leaf's error (PARALLEL_GRAD_TOL, PARALLEL_LEAF_TOL)."""
+    keys = sorted(want)
+    if sorted(got) != keys:
+        raise AssertionError(f"{what}: the world's gradient has other leaves")
+    top = max(want[k].abs().max().item() for k in keys)
+    diff = math.sqrt(sum(((got[k] - want[k]) ** 2).sum().item() for k in keys))
+    norm = math.sqrt(sum((want[k] ** 2).sum().item() for k in keys))
+    leaf = {k: (got[k] - want[k]).abs().max().item() / max(want[k].abs().max().item(), 1e-3 * top)
+            for k in keys}
+    worst = max(leaf, key=leaf.get)
+    print(f"    {what}: gradient norm-wise {diff / norm:.3e} (tol {PARALLEL_GRAD_TOL}), worst "
+          f"leaf {leaf[worst]:.3e} at {worst} (tol {PARALLEL_LEAF_TOL})", flush=True)
+    if diff > PARALLEL_GRAD_TOL * norm or leaf[worst] > PARALLEL_LEAF_TOL:
+        raise AssertionError(f"{what}: the world's gradient disagrees with one process")
+
+
+def parallel_phase(torch, smi, workdir: Path) -> dict:
+    """The layouts on torch.distributed: one world of 4 processes on the one
+    card (gloo over CUDA tensors), legs (a)-(d) of the reference's multichip
+    dry run at full width on real windows against one process on the card,
+    the launches of each rank, determinism, a fit on leg (b)'s layout and its
+    checkpoint reloaded in this process, then a 1-rank NCCL world through a
+    Trainer. Returns the launches per rank per micro-step of each leg."""
+    import numpy as np
+
+    from multimodal_sensor_fusion_with_attention_rajeevatla_torch.data.dataset import (
+        create_datasets, padded_index_matrix,
+    )
+    from multimodal_sensor_fusion_with_attention_rajeevatla_torch.evaluate import dataset_kwargs
+    from multimodal_sensor_fusion_with_attention_rajeevatla_torch.models.module import (
+        MultimodalFusionModel,
+    )
+    from multimodal_sensor_fusion_with_attention_rajeevatla_torch.train.checkpoint import (
+        load_checkpoint,
+    )
+
+    print("[parallel]", flush=True)
+    cfg = load_cfg([f"dataset.data_dir={REPO / 'data' / 'pamap2'}",
+                    f"dataset.chunk_cache_dir={workdir / 'chunk_cache'}"])
+    batch = int(cfg.dataset.batch_size)
+    train_w, val_w, test_w = create_datasets(**dataset_kwargs(cfg))
+    order, _ = padded_index_matrix(train_w.num_windows, batch, shuffle=True, seed=int(cfg.seed))
+    order = order.reshape(-1)
+
+    def cut(windows, idx, name):
+        np.savez(workdir / f"{name}.npz", labels=windows.labels[idx], lengths=windows.lengths[idx],
+                 **{f"x_{m}": windows.features[m][idx] for m in PARALLEL_NAMES})
+
+    cut(train_w, order[:PARALLEL_STEPS * batch], "parity")
+    cut(train_w, order[:PARALLEL_FIT_BATCHES * batch], "fit_train")
+    cut(val_w, np.arange(PARALLEL_FIT_WINDOWS), "fit_val")
+    cut(test_w, np.arange(PARALLEL_FIT_WINDOWS), "fit_test")
+    print(f"  {PARALLEL_WORLD} processes on one card, global batch {batch}, chunk "
+          f"{cfg.dataset.chunk_size}, hidden {cfg.model.hidden_dim}, FFW 2048; parity runs at "
+          f"dropout 0 with the augmentations off; the fit's cut: {PARALLEL_FIT_BATCHES} train "
+          f"batches, {PARALLEL_FIT_WINDOWS} val and {PARALLEL_FIT_WINDOWS} test windows", flush=True)
+    t = time.perf_counter()
+    _spawn_world(PARALLEL_WORLD, workdir, "world")
+    print(f"  world of {PARALLEL_WORLD} done in {time.perf_counter() - t:.1f} s", flush=True)
+    ranks = [torch.load(workdir / f"rank{r}.pt", weights_only=False)
+             for r in range(PARALLEL_WORLD)]
+    _, split = _parallel_split(torch, workdir, "parity")
+    counters = _parallel_counters()
+    per_step = {}
+    for leg, extra in PARALLEL_LEGS.items():
+        got = ranks[0][leg]
+        backends = {r[leg]["backend"] for r in ranks}
+        print(f"  leg ({leg}) {' '.join(extra)}: mesh {got['mesh']}, backend {backends}, "
+              f"shards {got['shards']}", flush=True)
+        if backends != {"gloo"}:
+            raise AssertionError(f"leg ({leg}): 4 ranks on one card must use gloo, got {backends}")
+        model_keys = [k for k in extra if not k.startswith("parallel.")]
+        pipe = [k for k in extra if k.startswith("parallel.pipeline")]
+        model = MultimodalFusionModel.from_config(
+            load_cfg(PARALLEL_QUIET + model_keys + pipe), device="cuda",
+            generator=torch.Generator().manual_seed(int(cfg.seed)))
+        for k, v in model.state_dict().items():
+            if not torch.equal(v.cpu(), got["weights"][0][k]):
+                raise AssertionError(f"leg ({leg}): the world built other weights at {k}")
+        losses, grads, *_ = parallel_leg(torch, PARALLEL_QUIET + model_keys, split,
+                                         PARALLEL_STEPS, model=model, windows=got["weights"])
+        e_loss = max(abs(a - b) / abs(b) for a, b in zip(got["losses"], losses))
+        print(f"    losses {['%.6f' % v for v in got['losses']]}, worst rel err vs one process "
+              f"{e_loss:.3e} (tol {PARALLEL_LOSS_TOL})", flush=True)
+        if e_loss > PARALLEL_LOSS_TOL or len(got["grads"]) != 2:
+            raise AssertionError(f"leg ({leg}): the world's losses disagree with one process")
+        for i, (g, w) in enumerate(zip(got["grads"], grads)):
+            _grads_close(g, w, f"leg ({leg}) update {i}")
+        for r in ranks:
+            if r[leg]["repeat"][0] != r[leg]["repeat"][1]:
+                raise AssertionError(f"leg ({leg}) rank {r['rank']}: the same seed twice gave "
+                                     f"other losses {r[leg]['repeat']}")
+        print(f"    at the config's dropout and augmentations: {PARALLEL_REPEAT_STEPS} "
+              f"micro-steps twice, bit for bit on every rank: "
+              f"{['%.6f' % v for v in ranks[0][leg]['repeat'][0]]}", flush=True)
+        want = _parallel_want(leg)
+        for r in ranks:
+            counts = {k: v / PARALLEL_STEPS for k, v in r[leg]["launches"].items()}
+            if counts != {k: float(v) for k, v in want.items()}:
+                raise AssertionError(f"leg ({leg}) rank {r['rank']}: launches per micro-step "
+                                     f"{counts}, want {want}")
+        per_step[leg] = {k: v / PARALLEL_STEPS for k, v in ranks[0][leg]["launches"].items()}
+        p50 = [sorted(r[leg]["seconds"][2:])[len(r[leg]["seconds"][2:]) // 2] * 1e3
+               for r in ranks]
+        print(f"    launches per rank per micro-step {per_step[leg]} (every rank as want); "
+              f"micro-step p50 by rank {['%.1f ms' % v for v in p50]} on {smi}: 4 processes "
+              f"sharing one card, no speed of a 4-card layout", flush=True)
+        for r in ranks:
+            b = r[leg]["breakdown"]
+            ops = ", ".join(f"{k} {v[0]:.1f} ms / {v[1]:g} calls" for k, v in b.items()
+                            if k in COMM_OPS)
+            print(f"    rank {r['rank']} breakdown ({PARALLEL_PROFILED_STEPS} micro-steps, the "
+                  f"card synchronised around each collective), ms a micro-step: wall "
+                  f"{b['wall']:.1f}, device (kernels and copies) {b['device']:.1f}, collectives "
+                  f"{sum(v[0] for k, v in b.items() if k in COMM_OPS):.1f} ({ops})", flush=True)
+        del model
+        torch.cuda.empty_cache()
+    # the fit: rank 0 alone wrote, and its checkpoint loads into one process
+    fit = [r["fit"] for r in ranks]
+    for r in fit[1:]:
+        if r["writes"]:
+            raise AssertionError(f"a rank other than 0 wrote {r['writes']}")
+        if r["best_val_loss"] != fit[0]["best_val_loss"]:
+            raise AssertionError("the ranks' fit results differ")
+    run = workdir / "fit"
+    results = json.loads((run / "results.json").read_text())
+    weights, ckpt_cfg, _meta = load_checkpoint(run / "checkpoints" / "last")
+    one = MultimodalFusionModel.from_config(ckpt_cfg, device="cuda")
+    one.load_state_dict(weights)
+    for k, v in one.state_dict().items():
+        if not torch.equal(v.cpu(), fit[0]["state"][k]):
+            raise AssertionError(f"the reloaded checkpoint differs from the world's weights at {k}")
+    print(f"  fit on leg (b)'s layout: 1 epoch, history {fit[0]['history']}, test_acc "
+          f"{fit[0]['test_acc']:.4f}; rank 0 wrote {len(fit[0]['writes'])} files "
+          f"(results.json: {results['best_model_path'] != ''}), ranks 1-3 none; the last "
+          f"checkpoint loaded into one process bit for bit", flush=True)
+    t = time.perf_counter()
+    _spawn_world(1, workdir, "nccl")
+    nccl = torch.load(workdir / "nccl.pt", weights_only=False)
+    print(f"  a 1-rank world through Trainer: backend {nccl['backend']}, 2 micro-steps "
+          f"{['%.6f' % v for v in nccl['losses']]}, all_reduce / all_gather / broadcast / "
+          f"barrier {nccl['collectives']} in {time.perf_counter() - t:.1f} s", flush=True)
+    if nccl["backend"] != "nccl" or nccl["collectives"] != [0.0, 1.0, 2.0, 3.0]:
+        raise AssertionError(f"the 1-rank world did not run on NCCL: {nccl}")
+    return per_step
+
+
 def main() -> int:
     import torch
 
@@ -4728,6 +5205,10 @@ def main() -> int:
                                  Path(tmp))
     remat_launches = remat_phase(torch, kernels, split, train_idx, modalities, stride,
                                  int(cfg.seed), smi)
+    # ---- 15. the parallel layouts: a world of 4 processes on the card -----------------
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        parallel_launches = parallel_phase(torch, smi, Path(tmp))
     rnn_paths = {  # the path each recurrence kernel runs on
         "grouped_lstm_forward": rnn_launches["forward_lstm512"],
         "grouped_lstm_fused": rnn_launches["serve_lstm512"],
@@ -4776,6 +5257,8 @@ def main() -> int:
         row["moe_launches"] = {k: v[name] for k, v in moe_launches.items()}
         row["remat_launches"] = {k: v[name] for k, v in remat_launches.items()}
         row["bundle_launches"] = {k: v[name] for k, v in bundle_launches.items()}
+        # per rank per micro-step of each [parallel] leg
+        row["parallel_launches"] = {k: v.get(name, 0.0) for k, v in parallel_launches.items()}
         if row["launches"] <= 0:
             raise AssertionError(f"kernel {name} was not launched on its main path")
     print(f"[done] {time.perf_counter() - t0:.1f} s", flush=True)
@@ -4787,4 +5270,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) > 1 and sys.argv[1] == "--parallel-child":
+        sys.exit(parallel_child(int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]),
+                                Path(sys.argv[5])))
     sys.exit(main())

@@ -1,8 +1,8 @@
 """PyTorch/CUDA port of the multimodal sensor fusion framework for NVIDIA Hopper.
 
-The JAX package ``multimodal_sensor_fusion_with_attention_rajeevatla_tpu`` is
-the reference; this package mirrors its layout module for module and never
-imports it (nor JAX). The kernels the reference wrote in Pallas for the TPU
+The JAX package beside it (this package's name with ``_tpu`` in place of
+``_torch``) is the reference; this package mirrors its layout module for
+module and never imports it (nor JAX). The kernels the reference wrote in Pallas for the TPU
 are hand-written CUDA C++ for ``sm_90a`` here (``ops/csrc``), each with a
 plain PyTorch twin that the CPU takes.
 
@@ -15,7 +15,10 @@ latency, the missing-modality sweep, MC dropout and temperature scaling from
 (``export_serving_bundle`` / ``load_serving_bundle``), ``analysis.py``, the
 raw-data ETL (``data/preprocess.py``) and the ``train`` / ``eval`` /
 ``analysis`` / ``preprocess`` commands of ``python -m <package>``
-(``cli.py``). The parallel layouts are queued in ``ROADMAP.md``.
+(``cli.py``), and the reference's parallel layouts on ``torch.distributed``
+(``parallel/``: data, tensor, sequence, expert and pipeline parallelism, dcn
+slices and ZeRO-1, one process a device), with its attention zoo
+(``models/attention.py``) and ``utils/profiling.py``.
 
 Entry points (``models.module.MultimodalFusionModel.from_config``,
 ``train.trainer.Trainer``, ``evaluate.run_evaluation``,

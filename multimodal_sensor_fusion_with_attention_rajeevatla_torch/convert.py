@@ -20,11 +20,16 @@ The flax tree of the reference's ``MultimodalFusionModel.init`` maps as:
     grouped_transformer_enc/<p>/kernel|bias|scale -> grouped_tf_encoder.<p>_kernel|_bias|_scale
     grouped_transformer_enc/proj_kernel|proj_bias -> grouped_tf_encoder.<same>
     encoders_<m>/rnn/<w>_l<k>                     -> encoders.<m>.rnn.<same>
+    encoders_<m>/pipeline/pipe_layers/<p>/<leaf>  -> encoders.<m>.pipeline.pipe_layers.<p>.<leaf>
     grouped_rnn/<w>_l<k>|proj_kernel|proj_bias    -> grouped_rnn_encoder.<same>
 
 (``<e>`` is ``router``, ``moe_w1``, ``moe_b1``, ``moe_w2`` or ``moe_b2`` of an
 MoE layer, kept in the reference's layout: ``[H, E]``, ``[E, H, F]``,
 ``[E, F]``, ``[E, F, H]``, ``[E, H]``.)
+
+(``<p>/<leaf>`` of a pipelined encoder, ``parallel.pipeline_parallel`` > 1:
+``q_proj`` ... ``linear2`` with ``kernel [L, in, out]`` and ``bias [L, out]``,
+``norm1`` / ``norm2`` with ``scale`` and ``bias [L, H]``, kept as they are.)
 
 (``<w>`` is ``weight_ih``, ``weight_hh``, ``bias_ih`` or ``bias_hh`` of an lstm
 or gru encoder; recurrent weights keep the reference's ``[in, gates*H]`` layout,
@@ -45,7 +50,11 @@ are numpy arrays (``np.asarray`` of the jax arrays); this module needs no JAX.
 (weights or their gradients) as a flax-layout tree of numpy arrays, so that
 two trees compare leaf by leaf; ``to_flax_variables`` gives a model's
 ``params`` and, where it has BatchNorms, its ``batch_stats``.
-``ungroup_state_dict`` unstacks a grouped model's weights (transformer or
+``scatter_state_dict`` and ``gather_state_dict`` cut a whole ``state_dict``
+into one rank's pieces and put the pieces of every rank back together
+(``parallel.mesh.state_shardings``: the tensor-parallel feed-forward's
+columns and rows, the experts, the pipeline's ``pipe_layers`` rows), so a
+checkpoint is always the whole tree. ``ungroup_state_dict`` unstacks a grouped model's weights (transformer or
 recurrent group) into the per-modality encoders of the ungrouped model, which
 computes the same function.
 """
@@ -58,11 +67,14 @@ from typing import Dict, Mapping, Sequence, Union
 import numpy as np
 import torch
 
+from .parallel.mesh import Mesh, gather_full, local_slice, state_shardings
+
 
 GROUPED_FLAX = "grouped_transformer_enc"
 GROUPED_PORT = "grouped_tf_encoder"
 GROUPED_RNN_FLAX = "grouped_rnn"
 GROUPED_RNN_PORT = "grouped_rnn_encoder"
+PIPE = "pipe_layers"
 
 
 def _flatten(tree: Mapping, prefix=()) -> Dict[tuple, np.ndarray]:
@@ -121,6 +133,10 @@ def from_flax_variables(variables: Mapping) -> Dict[str, torch.Tensor]:
         if module == [GROUPED_RNN_FLAX]:
             module = [GROUPED_RNN_PORT]
         names = _module_path(tuple(module))
+        if PIPE in module:
+            # the stacked pipe_layers tree, leaf for leaf, [L, in, out] kernels as they are
+            state[".".join([*names, leaf])] = torch.from_numpy(np.array(array, dtype=np.float32))
+            continue
         if module and module[-1] in ("pairs", "rnn", "moe", GROUPED_RNN_PORT):
             # stacked [P, H, H] / [P, H], the recurrent and the expert tensors kept as they are
             names.append(leaf)
@@ -193,7 +209,7 @@ def to_flax_tree(
                 module.append(param)
         elif module == [GROUPED_RNN_PORT]:
             module = [GROUPED_RNN_FLAX]
-        elif module and module[-1] in ("pairs", "rnn", "moe"):
+        elif module and (module[-1] in ("pairs", "rnn", "moe") or PIPE in module):
             pass  # stacked [P, H, H] / [P, H], the recurrent and the expert tensors kept as they are
         elif leaf == "weight" and array.ndim in (2, 3):
             leaf, array = "kernel", array.T
@@ -271,3 +287,25 @@ def ungroup_state_dict(
                 member.t().contiguous() if leaf == "kernel" else member.clone()
             )
     return out
+
+
+def _param_specs(state: Mapping[str, torch.Tensor], mesh: Mesh) -> Dict[str, tuple]:
+    # a spec depends on the name and the rank of the tensor alone: the same
+    # for a whole tensor and for its piece
+    return {k: spec for k, (spec, _opt) in
+            state_shardings(mesh, {k: tuple(v.shape) for k, v in state.items()}).items()}
+
+
+def scatter_state_dict(state: Mapping[str, torch.Tensor], mesh: Mesh,
+                       rank=None) -> Dict[str, torch.Tensor]:
+    """Rank ``rank``'s pieces (this process's by default) of a whole
+    ``state_dict``; buffers and replicated tensors as they are."""
+    specs = _param_specs(state, mesh)
+    return {k: local_slice(v, specs[k], mesh, rank) for k, v in state.items()}
+
+
+def gather_state_dict(state: Mapping[str, torch.Tensor], mesh: Mesh) -> Dict[str, torch.Tensor]:
+    """The whole ``state_dict`` from every rank's pieces (collective: every
+    rank of the mesh calls it)."""
+    specs = _param_specs(state, mesh)
+    return {k: gather_full(v, specs[k], mesh) for k, v in state.items()}

@@ -74,9 +74,13 @@ of bf16 q, k and v). BatchNorm statistics
 stay f32. ``RNNStack`` and its projection ignore ``dtype``, as the
 reference's ``_RNNStack`` does.
 
-``build_encoder`` raises ``NotImplementedError`` for a per-encoder key of the
-reference that the port does not run (``_UNPORTED_KEYS``) set to anything but
-its default.
+The parallel layouts (``parallel/``): under an active mesh with a ``model``
+axis the layer's feed-forward is tensor-parallel and, with
+``sequence_parallel``, its norm regions hold this rank's chunk of T
+(``TransformerEncoderLayer``); ``pipeline_parallel`` > 1 stacks the layers
+into ``parallel.pipeline.PipelinedTransformerLayers`` (``pipeline``), a GPipe
+pipeline over the mesh's ``pipe`` axis that runs the layers one after the
+other off the mesh.
 """
 
 from __future__ import annotations
@@ -109,15 +113,16 @@ from ..ops.mlp import (
     mlp_route,
     transformer_ffw,
 )
+from ..parallel.mesh import (
+    batch_ranks,
+    model_group,
+    seq_gathered_constraint,
+    seq_sharded_constraint,
+    sum_over_batch,
+)
 from .moe import MoEFeedForward
 
 _SEQUENCE_MODALITIES = {"imu", "audio", "mocap", "accelerometer"}
-# per-encoder keys the reference's build_encoder passes on and the port does
-# not run yet: key -> (is the value a non-default, ROADMAP queue A item)
-_UNPORTED_KEYS = {
-    "pipeline_parallel": (lambda v: int(v or 1) > 1, 11),
-    "sequence_parallel": (bool, 11),
-}
 
 
 def resolve_dtype(value) -> Optional[torch.dtype]:
@@ -142,13 +147,17 @@ def dense(layer: nn.Linear, x: torch.Tensor, dtype: Optional[torch.dtype]) -> to
     return torch.matmul(x.to(dtype), layer.weight.to(dtype).t()) + layer.bias.to(dtype)
 
 
-def product_f32(layer: nn.Linear, x: torch.Tensor, dtype: Optional[torch.dtype]) -> torch.Tensor:
+def product_f32(layer: nn.Linear, x: torch.Tensor, dtype: Optional[torch.dtype],
+                bias: bool = True) -> torch.Tensor:
     """The transformer layer's ``einsum(x.astype(cd), w.astype(cd)).astype(f32)
     + b``: the layer itself in f32 (``dtype`` None); in bf16 the product of
-    the bf16 input and weight rounded to bf16, then the f32 bias added in f32."""
+    the bf16 input and weight rounded to bf16, then the f32 bias added in f32.
+    ``bias=False`` leaves the bias out (a tensor-parallel shard's partial sum)."""
+    b = layer.bias if bias else None
     if dtype is None:
-        return layer(x)
-    return torch.matmul(x.to(dtype), layer.weight.to(dtype).t()).float() + layer.bias
+        return F.linear(x, layer.weight, b)
+    y = torch.matmul(x.to(dtype), layer.weight.to(dtype).t()).float()
+    return y if b is None else y + b
 
 
 def resolve_dropout_rng(value, device_type: str, kernels_on: bool = True) -> str:
@@ -160,7 +169,10 @@ def resolve_dropout_rng(value, device_type: str, kernels_on: bool = True) -> str
     when the tensors are on the card and the layer runs at least one kernel
     path (``flash_attention`` or ``fused_mlp``); on the CPU, or with both
     flags off, they mean plain draws. ``xla`` always means plain draws. The
-    two sources give different masks from the same generator.
+    two sources give different masks from the same generator. Under a
+    parallel layout each (dcn, data) rank's generator is its own
+    (``train.trainer.rank_generator``: a rank-distinct Philox offset on the
+    card), so the masks cannot match the reference's one global draw.
     """
     rng = str(value or "auto").lower()
     if rng not in ("auto", "xla", "kernel"):
@@ -256,6 +268,8 @@ class MaskedBatchNorm(nn.Module):
         shape = [-1 if a == c else 1 for a in range(xf.dim())]  # a [C] vector over x
         if not train:
             mean, var = self.running_mean, self.running_var
+        elif batch_ranks() > 1:
+            mean, var = self._global_stats(xf, mask, c, shape)
         else:
             axes = tuple(a for a in range(xf.dim()) if a != c)
             if mask is None:
@@ -269,12 +283,30 @@ class MaskedBatchNorm(nn.Module):
                 denom = w.sum().clamp(min=1.0)
                 mean = (xf * w).sum(dim=axes) / denom
                 var = (w * (xf - mean.view(shape)).square()).sum(dim=axes) / denom
+        if train:
             if torch.is_grad_enabled() and not _RUNNING_STATS["frozen"]:
                 with torch.no_grad():
                     self.running_mean.mul_(self.momentum).add_((1.0 - self.momentum) * mean)
                     self.running_var.mul_(self.momentum).add_((1.0 - self.momentum) * var)
         y = (xf - mean.view(shape)) * torch.rsqrt(var.view(shape) + self.eps)
         return (y * self.weight.float().view(shape) + self.bias.float().view(shape)).to(x.dtype)
+
+    def _global_stats(self, xf, mask, c: int, shape):
+        """Batch statistics over every (dcn, data) rank's rows, the
+        reference's statistics of the global batch: sums over the ranks,
+        forward and backward (``parallel.mesh.sum_over_batch``)."""
+        axes = tuple(a for a in range(xf.dim()) if a != c)
+        w = torch.ones_like(xf.select(c, 0)) if mask is None else mask.float()
+        w = w.unsqueeze(c)
+        count = sum_over_batch(w.expand_as(xf).sum(dim=axes))
+        denom = count if mask is None else count.clamp(min=1.0)
+        mean = sum_over_batch((xf * w).sum(dim=axes)) / denom
+        if self.fast_variance and mask is None:
+            var = torch.clamp(sum_over_batch((xf * xf).sum(dim=axes)) / denom - mean * mean,
+                              min=0.0)
+        else:
+            var = sum_over_batch((w * (xf - mean.view(shape)).square()).sum(dim=axes)) / denom
+        return mean, var
 
 
 class TransformerEncoderLayer(nn.Module):
@@ -285,7 +317,21 @@ class TransformerEncoderLayer(nn.Module):
     its residual dropout, add and norm2 are plain f32, its dropout masks the
     attention-side and FFW-side residual ones only (two a launch on the
     kernel source), and its load-balance aux loss goes to ``aux_losses``
-    when the caller passes a list."""
+    when the caller passes a list.
+
+    Under an active mesh with a ``model`` axis (``parallel.mesh``) the
+    feed-forward pair is this rank's shard (``linear1`` its rows of F,
+    ``linear2`` its columns) and runs through ``parallel.tp_kernels.tp_fused_mlp``
+    (the ``fused_mlp`` pair, rows 10-11, where the layer's route takes
+    kernels; ``ffw_ln``, rows 12-13, cannot take a partial sum), then the
+    residual dropout, add and norm2. Attention, the projections and the
+    LayerNorms stay replicated, the first half on its route (rows 1-2 and
+    14-15). With ``seq_parallel`` the layer's input and output are this
+    rank's chunk of T: gathered along T before the attention and the
+    feed-forward, the out-projection, residuals and LayerNorms on the chunk,
+    the row-parallel product reduce-scattered back to it. The dropout masks
+    are drawn whole and sliced, so each rank applies the single-device
+    pattern of its data rank."""
 
     def __init__(
         self,
@@ -301,6 +347,7 @@ class TransformerEncoderLayer(nn.Module):
         moe_experts: int = 0,
         moe_top_k: int = 2,
         moe_capacity_factor: float = 1.25,
+        seq_parallel: bool = False,
     ):
         super().__init__()
         self.dtype = dtype
@@ -313,6 +360,7 @@ class TransformerEncoderLayer(nn.Module):
         self.use_fused_mlp = use_fused_mlp
         self.use_fused_mlp_ln = use_fused_mlp_ln
         self.dropout_rng = dropout_rng
+        self.seq_parallel = seq_parallel
         self.q_proj = nn.Linear(hidden_dim, hidden_dim)
         self.k_proj = nn.Linear(hidden_dim, hidden_dim)
         self.v_proj = nn.Linear(hidden_dim, hidden_dim)
@@ -327,120 +375,175 @@ class TransformerEncoderLayer(nn.Module):
             self.linear1 = nn.Linear(hidden_dim, dim_feedforward)
             self.linear2 = nn.Linear(dim_feedforward, hidden_dim)
         self.norm2 = LayerNorm(hidden_dim)
-
-    def _attend(self, x, key_padding_mask):
-        batch, seq_len, _ = x.shape
-        head_dim = self.hidden_dim // self.num_heads
-        # one [H, 3H] projection: q | k | v packed along the minor dim
-        w_qkv = torch.cat([self.q_proj.weight, self.k_proj.weight, self.v_proj.weight], 0)
-        b_qkv = torch.cat([self.q_proj.bias, self.k_proj.bias, self.v_proj.bias], 0)
-        if self.dtype is None:
-            qkv = F.linear(x, w_qkv, b_qkv)  # [B, T, 3H]
-        else:  # the product rounded to bf16, then the bias added in bf16
-            qkv = torch.matmul(x, w_qkv.to(self.dtype).t()) + b_qkv.to(self.dtype)
-        qkv5 = qkv.reshape(batch, seq_len, 3, self.num_heads, head_dim)
-        if self.use_flash and attention_route(head_dim) == "kernel":
-            # suffix padding -> the valid keys are a prefix; mask == lengths
-            lengths = (
-                key_padding_mask.sum(dim=-1).to(torch.int32)
-                if key_padding_mask is not None
-                else None
-            )
-            # f32 out either way (bf16 on the packed route reads bf16 qkv,
-            # the flash routes f32 copies), rounded to the layer's type
-            if packed_route_ok(seq_len, self.num_heads, head_dim):
-                return flash_mha_packed(qkv, lengths, num_heads=self.num_heads).to(x.dtype)
-            q, k, v = (qkv5[:, :, i].transpose(1, 2) for i in range(3))  # [B, H, T, d]
-            attended = flash_self_attention(q, k, v, lengths).to(x.dtype)
-            return attended.transpose(1, 2).reshape(batch, seq_len, self.hidden_dim)
-        q, k, v = qkv5[:, :, 0], qkv5[:, :, 1], qkv5[:, :, 2]
-        scores = torch.einsum("bqhd,bkhd->bhqk", q, k) * head_dim**-0.5
-        mask = key_padding_mask[:, None, None, :] if key_padding_mask is not None else None
-        weights = masked_softmax(scores, mask)
-        return torch.einsum("bhqk,bkhd->bqhd", weights, v).reshape(
-            batch, seq_len, self.hidden_dim
-        )
+        if seq_parallel:
+            # used on each rank's chunk of T: their gradients are partial
+            # sums over 'model' (parallel/mesh.py)
+            for module in (self.out_proj, self.norm1, self.norm2):
+                for param in module.parameters():
+                    param.sequence_parallel = True
+            if self.moe is None:
+                self.linear2.bias.sequence_parallel = True
 
     def forward(
         self,
-        x: torch.Tensor,  # [B, T, H]
-        key_padding_mask: Optional[torch.Tensor] = None,  # [B, T], 1 = valid
+        x: torch.Tensor,  # [B, T, H] (this rank's chunk of T under sequence parallelism)
+        key_padding_mask: Optional[torch.Tensor] = None,  # [B, T], 1 = valid (whole T)
         train: bool = False,
         generator: Optional[torch.Generator] = None,
         aux_losses: Optional[List[torch.Tensor]] = None,
     ) -> torch.Tensor:
-        batch, seq_len, hidden = x.shape
-        rows = batch * seq_len
-        dt = self.dtype
-        kernels = self.use_fused_mlp and train and mlp_route(hidden) == "kernel"
-        fused = kernels and self.use_fused_mlp_ln
-        keep_prob = 1.0 - self.dropout
-        drop = train and self.dropout > 0.0
-        source = resolve_dropout_rng(
-            self.dropout_rng, x.device.type, self.use_flash or self.use_fused_mlp
-        )
-        def drop_where(mask, y):
-            return torch.where(mask.bool(), y / keep_prob, 0.0)
+        return run_layer(self, self, x, key_padding_mask, train, generator, aux_losses)
 
-        attended = self._attend(x, key_padding_mask)
-        att_mask = ffw_mask = res_mask = None
-        if drop:
-            specs = [(hidden, RNG_P_ATT), (self.dim_feedforward, RNG_P_HIDDEN),
-                     (hidden, RNG_P_RES)]
-            if self.moe is not None:  # no hidden mask: the experts draw their own
-                del specs[1]
-            if source == "kernel":
-                # one two-word seed per layer; the masks differ by their
-                # purpose and come from one launch
-                seed = kernel_rng_seed(generator, x.device)
-                masks = [m.reshape(batch, seq_len, width) for m, (width, _) in
-                         zip(dropout_keep_masks(seed, rows, specs, keep_prob), specs)]
-            else:
-                masks = [keep_mask((batch, seq_len, width), keep_prob, generator, x.device)
-                         for width, _ in specs]
-            att_mask, res_mask = masks[0], masks[-1]
-            ffw_mask = masks[1] if len(masks) == 3 else None
-        if fused:
-            x = fused_proj_residual_ln(
-                x.reshape(rows, hidden), attended.reshape(rows, hidden),
-                self.out_proj.weight.t(), self.out_proj.bias, self.norm1.weight,
-                self.norm1.bias, res_mask=att_mask, keep_prob=keep_prob,
-            ).reshape(batch, seq_len, hidden)
-        else:  # in bf16 the product rounded, the bias, dropout and LayerNorm in f32
-            y = product_f32(self.out_proj, attended, dt)
-            if att_mask is not None:
-                y = drop_where(att_mask, y)
-            x = self.norm1(x.float() + y).to(x.dtype)
-        if self.moe is not None:
-            ff, aux = self.moe(x, valid_mask=key_padding_mask, train=train, generator=generator)
-            if aux_losses is not None:
-                aux_losses.append(aux)
-            if res_mask is not None:
-                ff = drop_where(res_mask, ff)
-            return self.norm2(x.float() + ff.float()).to(x.dtype)
-        if fused:
-            return fused_mlp_residual_ln(
-                x.reshape(rows, hidden), self.linear1.weight.t(), self.linear1.bias,
-                self.linear2.weight.t(), self.linear2.bias, self.norm2.weight,
-                self.norm2.bias, ffw_mask=ffw_mask, res_mask=res_mask, keep_prob=keep_prob,
-            ).reshape(batch, seq_len, hidden)
-        if kernels:
-            # fused_mlp without the combined LayerNorm kernel: the
-            # feed-forward kernel pair, then the plain residual half (eval
-            # stays plain, the reference's measured choice)
-            ff = transformer_ffw(
-                x, {"kernel": self.linear1.weight.t(), "bias": self.linear1.bias},
-                {"kernel": self.linear2.weight.t(), "bias": self.linear2.bias},
-                keep_mask=ffw_mask, keep_prob=keep_prob, use_fused=True,
-            )
-        else:  # the reference's XLA branch: in bf16 each product rounded, the output too
-            h = torch.relu(product_f32(self.linear1, x, dt))
-            if ffw_mask is not None:
-                h = drop_where(ffw_mask, h)
-            ff = product_f32(self.linear2, h, dt).to(x.dtype)
+
+def _layer_norm(norm, x: torch.Tensor) -> torch.Tensor:
+    """``LayerNorm.forward`` on any object with ``weight`` and ``bias``."""
+    out_dtype = torch.promote_types(x.dtype, norm.weight.dtype)
+    return ln_rows(x.float(), norm.weight, norm.bias, getattr(norm, "eps", 1e-6))[0].to(out_dtype)
+
+
+def _attend(cfg, p, x, key_padding_mask):
+    batch, seq_len, _ = x.shape
+    head_dim = cfg.hidden_dim // cfg.num_heads
+    # one [H, 3H] projection: q | k | v packed along the minor dim
+    w_qkv = torch.cat([p.q_proj.weight, p.k_proj.weight, p.v_proj.weight], 0)
+    b_qkv = torch.cat([p.q_proj.bias, p.k_proj.bias, p.v_proj.bias], 0)
+    if cfg.dtype is None:
+        qkv = F.linear(x, w_qkv, b_qkv)  # [B, T, 3H]
+    else:  # the product rounded to bf16, then the bias added in bf16
+        qkv = torch.matmul(x, w_qkv.to(cfg.dtype).t()) + b_qkv.to(cfg.dtype)
+    qkv5 = qkv.reshape(batch, seq_len, 3, cfg.num_heads, head_dim)
+    if cfg.use_flash and attention_route(head_dim) == "kernel":
+        # suffix padding -> the valid keys are a prefix; mask == lengths
+        lengths = (
+            key_padding_mask.sum(dim=-1).to(torch.int32)
+            if key_padding_mask is not None
+            else None
+        )
+        # f32 out either way (bf16 on the packed route reads bf16 qkv,
+        # the flash routes f32 copies), rounded to the layer's type
+        if packed_route_ok(seq_len, cfg.num_heads, head_dim):
+            return flash_mha_packed(qkv, lengths, num_heads=cfg.num_heads).to(x.dtype)
+        q, k, v = (qkv5[:, :, i].transpose(1, 2) for i in range(3))  # [B, H, T, d]
+        attended = flash_self_attention(q, k, v, lengths).to(x.dtype)
+        return attended.transpose(1, 2).reshape(batch, seq_len, cfg.hidden_dim)
+    q, k, v = qkv5[:, :, 0], qkv5[:, :, 1], qkv5[:, :, 2]
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, k) * head_dim**-0.5
+    mask = key_padding_mask[:, None, None, :] if key_padding_mask is not None else None
+    weights = masked_softmax(scores, mask)
+    return torch.einsum("bhqk,bkhd->bqhd", weights, v).reshape(
+        batch, seq_len, cfg.hidden_dim
+    )
+
+
+def run_layer(cfg, p, x, key_padding_mask=None, train=False, generator=None, aux_losses=None):
+    """One ``TransformerEncoderLayer`` forward with its settings read from
+    ``cfg`` and its tensors from ``p`` (objects with the layer's attribute
+    names: the layer itself, or one layer's view of a pipeline stage's
+    stacked weights, ``parallel.pipeline``)."""
+    batch, seq_len, hidden = x.shape
+    rows = batch * seq_len
+    dt = cfg.dtype
+    model = model_group()
+    sp = bool(getattr(cfg, "seq_parallel", False)) and model is not None
+    tp = model is not None and p.moe is None  # the dense pair is this rank's shard
+    kernels = cfg.use_fused_mlp and train and mlp_route(hidden) == "kernel"
+    first_fused = kernels and cfg.use_fused_mlp_ln
+    fused = first_fused and not tp  # ffw_ln cannot take the shards' partial sums
+    keep_prob = 1.0 - cfg.dropout
+    drop = train and cfg.dropout > 0.0
+    source = resolve_dropout_rng(
+        cfg.dropout_rng, x.device.type, cfg.use_flash or cfg.use_fused_mlp
+    )
+    def drop_where(mask, y):
+        return torch.where(mask.bool(), y / keep_prob, 0.0)
+
+    x_all = seq_gathered_constraint(x) if sp else x  # [B, T, H] for the attention
+    full_len = x_all.shape[1]
+    attended = _attend(cfg, p, x_all, key_padding_mask)
+    if sp:  # the out-projection, residual and norm1 on this rank's chunk
+        attended = seq_sharded_constraint(attended)
+    att_mask = ffw_mask = res_mask = None
+    if drop:
+        specs = [(hidden, RNG_P_ATT), (cfg.dim_feedforward, RNG_P_HIDDEN),
+                 (hidden, RNG_P_RES)]
+        if p.moe is not None:  # no hidden mask: the experts draw their own
+            del specs[1]
+        if source == "kernel":
+            # one two-word seed per layer; the masks differ by their
+            # purpose and come from one launch
+            seed = kernel_rng_seed(generator, x.device)
+            masks = [m.reshape(batch, full_len, width) for m, (width, _) in
+                     zip(dropout_keep_masks(seed, batch * full_len, specs, keep_prob), specs)]
+        else:
+            masks = [keep_mask((batch, full_len, width), keep_prob, generator, x.device)
+                     for width, _ in specs]
+        att_mask, res_mask = masks[0], masks[-1]
+        ffw_mask = masks[1] if len(masks) == 3 else None
+        if sp:  # whole masks drawn, this rank's chunk of T applied
+            t0 = model[1] * seq_len
+            att_mask, res_mask = (m[:, t0:t0 + seq_len] for m in (att_mask, res_mask))
+    if first_fused:
+        x = fused_proj_residual_ln(
+            x.reshape(rows, hidden), attended.reshape(rows, hidden),
+            p.out_proj.weight.t(), p.out_proj.bias, p.norm1.weight,
+            p.norm1.bias, res_mask=att_mask, keep_prob=keep_prob,
+        ).reshape(batch, seq_len, hidden)
+    else:  # in bf16 the product rounded, the bias, dropout and LayerNorm in f32
+        y = product_f32(p.out_proj, attended, dt)
+        if att_mask is not None:
+            y = drop_where(att_mask, y)
+        x = _layer_norm(p.norm1, x.float() + y).to(x.dtype)
+    if p.moe is not None:
+        ff, aux = p.moe(seq_gathered_constraint(x) if sp else x, valid_mask=key_padding_mask,
+                        train=train, generator=generator)
+        if sp:
+            ff = seq_sharded_constraint(ff)
+        if aux_losses is not None:
+            aux_losses.append(aux)
         if res_mask is not None:
             ff = drop_where(res_mask, ff)
-        return self.norm2(x.float() + ff.float()).to(x.dtype)
+        return _layer_norm(p.norm2, x.float() + ff.float()).to(x.dtype)
+    if fused:
+        return fused_mlp_residual_ln(
+            x.reshape(rows, hidden), p.linear1.weight.t(), p.linear1.bias,
+            p.linear2.weight.t(), p.linear2.bias, p.norm2.weight,
+            p.norm2.bias, ffw_mask=ffw_mask, res_mask=res_mask, keep_prob=keep_prob,
+        ).reshape(batch, seq_len, hidden)
+
+    def plain_ffw(rows, mask, bias=True):
+        # the reference's XLA branch: in bf16 each product rounded
+        h = torch.relu(product_f32(p.linear1, rows, dt))
+        if mask is not None:
+            h = drop_where(mask, h)
+        return product_f32(p.linear2, h, dt, bias=bias)
+
+    if tp:
+        # Megatron's column / row pair over 'model': the fused_mlp kernel
+        # pair on this rank's F-slice where the route takes kernels, else
+        # the plain feed-forward of the slice, without linear2's bias
+        from ..parallel.mesh import current_activation_mesh
+        from ..parallel.tp_kernels import tp_fused_mlp
+
+        ff = tp_fused_mlp(
+            current_activation_mesh(), x, p.linear1.weight.t(), p.linear1.bias,
+            p.linear2.weight.t(), p.linear2.bias, keep_mask=ffw_mask, keep_prob=keep_prob,
+            seq_dim=1 if sp else None, dtype=dt,
+            plain=None if kernels else (lambda rows, mask: plain_ffw(rows, mask, bias=False)),
+        ).to(x.dtype)
+    elif kernels:
+        # fused_mlp without the combined LayerNorm kernel: the
+        # feed-forward kernel pair, then the plain residual half (eval
+        # stays plain, the reference's measured choice)
+        ff = transformer_ffw(
+            x, {"kernel": p.linear1.weight.t(), "bias": p.linear1.bias},
+            {"kernel": p.linear2.weight.t(), "bias": p.linear2.bias},
+            keep_mask=ffw_mask, keep_prob=keep_prob, use_fused=True,
+        )
+    else:  # in bf16 the output rounded too
+        ff = plain_ffw(x, ffw_mask).to(x.dtype)
+    if res_mask is not None:
+        ff = drop_where(res_mask, ff)
+    return _layer_norm(p.norm2, x.float() + ff.float()).to(x.dtype)
 
 
 class RNNStack(nn.Module):
@@ -514,6 +617,9 @@ class SequenceEncoder(nn.Module):
         moe_experts: int = 0,
         moe_top_k: int = 2,
         moe_capacity_factor: float = 1.25,
+        sequence_parallel: bool = False,
+        pipeline_parallel: int = 1,
+        pipeline_microbatches: int = 0,
     ):
         super().__init__()
         if encoder_type not in ("lstm", "gru", "cnn", "transformer"):
@@ -538,16 +644,33 @@ class SequenceEncoder(nn.Module):
             return
         self.input_projection = nn.Linear(input_dim, hidden_dim)
         nhead = 4 if hidden_dim % 4 == 0 else 1
-        self.layers = nn.ModuleList(
-            TransformerEncoderLayer(
-                hidden_dim, nhead, use_flash=flash_attention, dropout=dropout,
-                use_fused_mlp=fused_mlp, use_fused_mlp_ln=fused_mlp_ln,
-                dropout_rng=dropout_rng, dtype=self.dtype, moe_experts=int(moe_experts or 0),
-                moe_top_k=int(moe_top_k or 2),
-                moe_capacity_factor=float(moe_capacity_factor or 1.25),
+        self.sequence_parallel = bool(sequence_parallel)
+        if int(pipeline_parallel or 1) > 1:
+            if int(moe_experts or 0) > 0:
+                raise ValueError("pipeline_parallel does not compose with moe_experts")
+            # GPipe microbatch pipeline over the mesh's "pipe" axis; off-mesh
+            # the same stacked layers run one after the other
+            from ..parallel.pipeline import PipelinedTransformerLayers
+
+            self.pipeline = PipelinedTransformerLayers(
+                hidden_dim, nhead, num_layers, dropout=dropout,
+                pipeline_parallel=int(pipeline_parallel), microbatches=int(
+                    pipeline_microbatches or 0),
+                use_flash=flash_attention, use_fused_mlp=fused_mlp,
+                use_fused_mlp_ln=fused_mlp_ln, dropout_rng=dropout_rng, dtype=self.dtype,
             )
-            for _ in range(num_layers)
-        )
+        else:
+            self.layers = nn.ModuleList(
+                TransformerEncoderLayer(
+                    hidden_dim, nhead, use_flash=flash_attention, dropout=dropout,
+                    use_fused_mlp=fused_mlp, use_fused_mlp_ln=fused_mlp_ln,
+                    dropout_rng=dropout_rng, dtype=self.dtype,
+                    moe_experts=int(moe_experts or 0), moe_top_k=int(moe_top_k or 2),
+                    moe_capacity_factor=float(moe_capacity_factor or 1.25),
+                    seq_parallel=self.sequence_parallel,
+                )
+                for _ in range(num_layers)
+            )
         self.projection = nn.Linear(hidden_dim, output_dim)
 
     def forward(
@@ -590,9 +713,18 @@ class SequenceEncoder(nn.Module):
             return dense(self.projection, dropout(pooled, self.dropout, train, generator), dt)
         x = dense(self.input_projection, sequence, dt)
         valid_mask = lengths_to_mask(lengths, seq_len) if lengths is not None else None
-        for layer in self.layers:
-            x = layer(x, key_padding_mask=valid_mask, train=train, generator=generator,
-                      aux_losses=aux_losses)
+        if hasattr(self, "pipeline"):
+            x = self.pipeline(x, key_padding_mask=valid_mask, train=train, generator=generator)
+        else:
+            # sequence parallelism: the layers take and give this rank's chunk of T
+            sp = self.sequence_parallel and model_group() is not None
+            if sp:
+                x = seq_sharded_constraint(x)
+            for layer in self.layers:
+                x = layer(x, key_padding_mask=valid_mask, train=train, generator=generator,
+                          aux_losses=aux_losses)
+            if sp:
+                x = seq_gathered_constraint(x)
         pooled = masked_mean_pool(x, valid_mask, dim=1, min_denom=1.0)
         return dense(self.projection, dropout(pooled, self.dropout, train, generator), dt)
 
@@ -711,16 +843,12 @@ def build_encoder(
         "sequence": (SequenceEncoder, {
             "hidden_dim", "num_layers", "encoder_type", "flash_attention", "dropout",
             "fused_mlp", "fused_mlp_ln", "dropout_rng", "sequence_parallel", "moe_experts",
-            "moe_top_k", "moe_capacity_factor", "pipeline_parallel", "dtype"}),
+            "moe_top_k", "moe_capacity_factor", "pipeline_parallel", "pipeline_microbatches",
+            "dtype"}),
         "mlp": (SimpleMLPEncoder, {"hidden_dim", "num_layers", "dropout", "batch_norm", "dtype"}),
     }[kind]
-    for key, (non_default, item) in _UNPORTED_KEYS.items():
-        if key in allowed and non_default(config.get(key)):
-            raise NotImplementedError(
-                f"model.encoders.{modality}.{key}={config[key]!r} is not ported yet "
-                f"(ROADMAP queue A item {item})")
     return cls(
         input_dim=input_dim,
         output_dim=output_dim,
-        **{k: v for k, v in config.items() if k in allowed and k not in _UNPORTED_KEYS},
+        **{k: v for k, v in config.items() if k in allowed},
     )

@@ -52,6 +52,7 @@ from .encoders import (
 )
 from .fusion import build_fusion_model
 from .moe import MoEFeedForward
+from ..parallel.pipeline import PipelinedTransformerLayers
 from .grouped import (
     GroupedRNNEncoder,
     GroupedTransformerEncoder,
@@ -103,7 +104,7 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> nn.Module:
             module.weight.fill_(1.0)
             module.bias.zero_()
         elif isinstance(module, (GroupedTransformerEncoder, GroupedRNNEncoder, RNNStack,
-                                 MoEFeedForward)):
+                                 MoEFeedForward, PipelinedTransformerLayers)):
             module.init_parameters(generator)
     return model
 
@@ -338,9 +339,7 @@ class MultimodalFusionModel(nn.Module):
         model_cfg = config.model
         dataset_cfg = config.dataset
         modalities = tuple(dataset_cfg.modalities)
-        if int((config.get("parallel", {}) or {}).get("pipeline_parallel", 1) or 1) > 1:
-            raise NotImplementedError(
-                "parallel.pipeline_parallel is not ported yet (see ROADMAP.md)")
+        par_cfg = config.get("parallel", {}) or {}
         flags = {
             key: _parse_flag(model_cfg.get(key, "auto"), key)
             for key in ("flash_attention", "fused_mlp", "fused_mlp_ln")
@@ -370,9 +369,13 @@ class MultimodalFusionModel(nn.Module):
                 cfg.setdefault("moe_top_k", int(model_cfg.get("moe_top_k", 2) or 2))
                 cfg.setdefault("moe_capacity_factor",
                                float(model_cfg.get("moe_capacity_factor", 1.25) or 1.25))
-                # read by the grouping rule only: such encoders stay ungrouped
-                cfg.setdefault("sequence_parallel", bool(
-                    (config.get("parallel", {}) or {}).get("sequence_parallel", False)))
+                # parallel.sequence_parallel: Megatron sequence parallelism in
+                # the layers (under a mesh with a 'model' axis);
+                # parallel.pipeline_parallel: the layer stack as a GPipe
+                # pipeline over 'pipe'. Such encoders stay ungrouped.
+                cfg.setdefault("sequence_parallel", bool(par_cfg.get("sequence_parallel", False)))
+                cfg.setdefault("pipeline_parallel", int(par_cfg.get("pipeline_parallel", 1) or 1))
+                cfg.setdefault("pipeline_microbatches", int(par_cfg.get("microbatches", 0) or 0))
             enc_cfgs[name] = cfg
         model = cls(
             modalities=modalities,

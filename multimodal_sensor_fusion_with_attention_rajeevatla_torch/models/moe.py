@@ -33,6 +33,14 @@ shape depends on the token count alone and never on the routing.
   the caller decides where it goes, and nothing is kept on the module, so a
   recomputed forward (``training.remat``) cannot count it twice.
 
+Expert parallelism (an active mesh with a ``model`` axis, ``parallel.mesh``):
+routing stays replicated on every model rank; ``moe_w1`` ... ``moe_b2`` are
+this rank's ``E / M`` experts, which run on their rows of the ``[E, C, H]``
+buffer, and one all-gather over ``model`` rebuilds the outputs. E must divide
+by M (the reference's ``ValueError``). Over (dcn, data) ranks the routing,
+the capacity, the drops and the aux loss are those of the global batch, and
+each rank's buffer holds only its own kept tokens (``route``).
+
 Parameter names and layouts are the reference's: ``router [H, E]``,
 ``moe_w1 [E, H, F]``, ``moe_b1 [E, F]``, ``moe_w2 [E, F, H]``,
 ``moe_b2 [E, H]``, each initialised uniform in +-1/sqrt(fan) (H for the
@@ -46,6 +54,28 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 from torch.nn import functional as F
+
+from ..parallel.mesh import (
+    BATCH_AXES,
+    MODEL_AXIS,
+    current_activation_mesh,
+    expert_gathered_constraint,
+    expert_sharded_constraint,
+    gather_batch,
+    reduce_from_batch,
+)
+
+
+def _batch_index() -> int:
+    """This rank's (dcn, data) index on the active mesh (0 without one)."""
+    mesh = current_activation_mesh()
+    return 0 if mesh is None else mesh.index(BATCH_AXES)
+
+
+def _expert_index() -> int:
+    """This rank's index on the active mesh's ``model`` axis (0 without one)."""
+    mesh = current_activation_mesh()
+    return 0 if mesh is None or MODEL_AXIS not in mesh.axis_names else mesh.coords()[MODEL_AXIS]
 
 
 def moe_capacity(num_tokens: int, num_experts: int, top_k: int, capacity_factor: float) -> int:
@@ -92,8 +122,21 @@ class MoEFeedForward(nn.Module):
     def route(self, tokens: torch.Tensor, valid: torch.Tensor):
         """The routing of ``tokens [N, H]`` with ``valid [N]`` (bool) ->
         ``(probs [N, E] f32, gates [N, K] f32, expert [N, K], addr [N, K],
-        keep [N, K], capacity)``: ``addr`` is a (token, slot)'s row of the
-        ``[E * C, H]`` expert buffer, ``E * C`` where it is dropped."""
+        keep [N, K], rows)``: ``addr`` is a (token, slot)'s row of the
+        ``[E * rows, H]`` expert buffer, ``E * rows`` where it is dropped;
+        ``rows`` is the capacity C.
+
+        Under an active mesh with (dcn, data) ranks the tokens are this
+        rank's rows of the global batch, which the reference routes as one:
+        the capacity counts every rank's tokens, and a (token, slot) takes
+        its position after the slot's tokens of the ranks before this one
+        (their per-expert counts, one all-gather), so the drops are the
+        single-device ones. A rank's kept (token, slot)s of an expert come
+        first among its own in that order, so the buffer keeps only this
+        rank's: an expert's take rows ``0 .. kept - 1`` of it, and ``rows``
+        is the most that one expert keeps here (rounded up to 8, at most
+        C; one read of a count on the host). The experts then run on this
+        rank's tokens alone, not on the whole batch's C rows."""
         n_tokens = tokens.shape[0]
         num_e, k_slots = self.num_experts, self.top_k
         probs = torch.softmax(tokens.float() @ self.router, dim=-1)
@@ -102,21 +145,39 @@ class MoEFeedForward(nn.Module):
         gates, expert = gates[:, :k_slots], expert[:, :k_slots]
         gates = gates / gates.sum(dim=-1, keepdim=True).clamp(min=1e-9)
         gates = gates * valid[:, None]
-        cap = moe_capacity(n_tokens, num_e, k_slots, self.capacity_factor)
         live = valid.long()[None, :]
+        # expert-major [E, N] one-hots, so the cumsum runs along the
+        # contiguous token axis (a scan down the tokens of an [N, E] tensor
+        # keeps one thread a column on the card)
+        onehots = [F.one_hot(expert[:, slot], num_e).t().contiguous() * live
+                   for slot in range(k_slots)]
+        counts = torch.stack([o.sum(1) for o in onehots])  # [K, E] on this rank
+        ranks = gather_batch(counts[None])  # [R, K, E], every (dcn, data) rank's
+        me = _batch_index()
+        before = ranks[:me].sum(0)  # the slot's tokens of the ranks before this one
+        totals = ranks.sum(0)
+        cap = moe_capacity(n_tokens * ranks.shape[0], num_e, k_slots, self.capacity_factor)
         base = torch.zeros((num_e, 1), dtype=torch.long, device=tokens.device)
-        addrs, keeps = [], []
-        for slot in range(k_slots):
-            # expert-major [E, N], so the cumsum runs along the contiguous
-            # token axis (a scan down the tokens of an [N, E] tensor keeps
-            # one thread a column on the card)
-            onehot = F.one_hot(expert[:, slot], num_e).t().contiguous() * live
-            pos = ((onehot.cumsum(1) - onehot + base) * onehot).sum(0)
-            base = base + onehot.sum(1, keepdim=True)
+        own = torch.zeros_like(base)  # this rank's earlier slots' tokens
+        poss, owns, keeps = [], [], []
+        for slot, onehot in enumerate(onehots):
+            ahead = onehot.cumsum(1) - onehot
+            pos = ((ahead + base + before[slot][:, None]) * onehot).sum(0)
+            owns.append(((ahead + own) * onehot).sum(0))
+            base = base + totals[slot][:, None]
+            own = own + counts[slot][:, None]
             keep = (pos < cap) & valid
-            addrs.append(torch.where(keep, expert[:, slot] * cap + pos, num_e * cap))
+            poss.append(pos)
             keeps.append(keep)
-        return probs, gates, expert, torch.stack(addrs, 1), torch.stack(keeps, 1), cap
+        keep = torch.stack(keeps, 1)
+        pos, rows = torch.stack(poss, 1), cap
+        if ranks.shape[0] > 1:
+            kept = torch.zeros(num_e, dtype=torch.long, device=tokens.device)
+            kept = kept.index_add(0, expert.reshape(-1), keep.reshape(-1).long())
+            rows = min(cap, max(8, -(-int(kept.max()) // 8) * 8))
+            pos = torch.stack(owns, 1)
+        addr = torch.where(keep, expert * rows + pos, num_e * rows)
+        return probs, gates, expert, addr, keep, rows
 
     def forward(
         self,
@@ -131,31 +192,37 @@ class MoEFeedForward(nn.Module):
         tokens = x.reshape(n_tokens, hidden)
         valid = (valid_mask.reshape(n_tokens) > 0 if valid_mask is not None
                  else torch.ones(n_tokens, dtype=torch.bool, device=x.device))
-        probs, gates, expert, addr, _keep, cap = self.route(tokens, valid)
+        probs, gates, expert, addr, _keep, rows = self.route(tokens, valid)
 
         cdt = self.dtype or x.dtype
         src = tokens.to(cdt)
-        buf = src.new_zeros((num_e * cap + 1, hidden))  # the last row takes the drops
+        buf = src.new_zeros((num_e * rows + 1, hidden))  # the last row takes the drops
         for slot in range(self.top_k):
             buf = buf.index_copy(0, addr[:, slot], src)
-        ebuf = buf[: num_e * cap].reshape(num_e, cap, hidden)
+        # expert parallelism: this rank's E / M experts (their weights are
+        # its shard), the outputs of all gathered back for the combine
+        ebuf = expert_sharded_constraint(buf[: num_e * rows].reshape(num_e, rows, hidden), num_e)
         h = torch.relu(self._product(ebuf, self.moe_w1, self.moe_b1, cdt))
         if train and self.dropout > 0.0:
             keep_prob = 1.0 - self.dropout
-            keep = torch.rand(h.shape, generator=generator, device=h.device) < keep_prob
-            h = torch.where(keep, h / keep_prob, 0.0)
-        out_e = self._product(h, self.moe_w2, self.moe_b2, cdt)
-        flat = torch.cat([out_e.reshape(num_e * cap, hidden), out_e.new_zeros((1, hidden))])
+            # the whole [E, rows, F] mask, this rank's experts' rows of it
+            keep = torch.rand((num_e,) + h.shape[1:], generator=generator,
+                              device=h.device) < keep_prob
+            e0 = _expert_index() * h.shape[0]
+            h = torch.where(keep[e0:e0 + h.shape[0]], h / keep_prob, 0.0)
+        out_e = expert_gathered_constraint(self._product(h, self.moe_w2, self.moe_b2, cdt))
+        flat = torch.cat([out_e.reshape(num_e * rows, hidden), out_e.new_zeros((1, hidden))])
         y = None
         for slot in range(self.top_k):
             picked = gates[:, slot, None] * flat.index_select(0, addr[:, slot]).float()
             y = picked if y is None else y + picked
 
+        # over the global batch: each (dcn, data) rank's sums added up
         validf = valid.float()
-        denom = validf.sum().clamp(min=1.0)
+        denom = reduce_from_batch(validf.sum()).clamp(min=1.0)
         top1 = F.one_hot(expert[:, 0], num_e).float() * validf[:, None]
-        frac_tokens = top1.sum(0) / denom
-        mean_prob = (probs * validf[:, None]).sum(0) / denom
+        frac_tokens = reduce_from_batch(top1.sum(0)) / denom
+        mean_prob = reduce_from_batch((probs * validf[:, None]).sum(0)) / denom
         aux = num_e * (frac_tokens * mean_prob).sum()
         return y.reshape(batch, seq_len, hidden).to(x.dtype), aux
 

@@ -16,9 +16,13 @@ A checkpoint is a directory:
 alone, which is enough for ``MultimodalFusionModel.from_config`` +
 ``load_state_dict``. ``last`` carries what a resumed run needs to repeat an
 uninterrupted one. Storage is ``torch.save`` of plain tensors and numbers,
-read back with ``torch.load(weights_only=True)``. Single process: the
-reference's cross-process barriers belong to the parallel layouts, which are
-not ported.
+read back with ``torch.load(weights_only=True)``. In a ``torch.distributed``
+world rank 0 alone changes the filesystem (``_is_primary``), between two
+barriers (``_sync``), the reference's order: every rank passes the same
+(gathered, whole) state and keeps the same top-k bookkeeping, so
+``best_model_path`` is the same everywhere and the files are there when any
+rank reads them. A checkpoint of an N-rank run loads into one process as it
+is.
 """
 
 from __future__ import annotations
@@ -29,11 +33,26 @@ from pathlib import Path
 from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
+from ..parallel import comm
 from ..utils.config import ConfigNode
 
 _VARIABLES = "variables.pt"
 _TRAIN_STATE = "train_state.pt"
+
+
+def _is_primary() -> bool:
+    """True on the process that owns filesystem changes (rank 0, or the one
+    process)."""
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def _sync(name: str) -> None:
+    """A barrier over the world; no-op in one process. ``name`` says where
+    (the reference's barrier names)."""
+    if dist.is_initialized():
+        comm.barrier(dist.group.WORLD)
 
 
 def _to_cpu(tree: Any) -> Any:
@@ -59,7 +78,9 @@ class CheckpointManager:
         adopt_existing: bool = True,
     ):
         self.directory = Path(directory)
-        self.directory.mkdir(parents=True, exist_ok=True)
+        if _is_primary():
+            self.directory.mkdir(parents=True, exist_ok=True)
+        _sync("checkpoint_dir")
         self.config = config
         self.save_top_k = save_top_k
         self.save_last = save_last
@@ -103,6 +124,8 @@ class CheckpointManager:
             return None
 
     def _write(self, path: Path, variables, meta: Dict[str, Any], train_state=None) -> None:
+        if not _is_primary():
+            return
         if path.exists():
             shutil.rmtree(path)
         path.mkdir(parents=True, exist_ok=True)
@@ -129,6 +152,7 @@ class CheckpointManager:
         if extra_meta:
             meta.update(extra_meta)
         saved_path: Optional[str] = None
+        _sync("checkpoint_save_start")
         # fetched from the device once; the top-k and "last" writes share it
         host_vars = _to_cpu(dict(variables))
         host_state = _to_cpu(train_state) if train_state is not None else None
@@ -147,11 +171,12 @@ class CheckpointManager:
                 while self.save_top_k > 0 and len(self._entries) > self.save_top_k:
                     worst_entry = max(self._entries, key=lambda e: e[0])
                     self._entries.remove(worst_entry)
-                    if worst_entry[1].exists():
+                    if _is_primary() and worst_entry[1].exists():
                         shutil.rmtree(worst_entry[1])
 
         if self.save_last:
             self._write(self.directory / "last", host_vars, meta, host_state)
+        _sync("checkpoint_save_end")
         return saved_path
 
 

@@ -47,10 +47,27 @@ last batch's padding rows (weight 0) are window 0 in ``BatchLoader``'s batch
 and the epoch order wrapped around in the resident index matrix, which only
 BatchNorm statistics and MoE capacity can see.
 
-The parallel layouts are not ported (ROADMAP queue A): ``check_layout``
-keeps the reference's ``ValueError``s for an inconsistent ``parallel`` block
-and an unknown ``training.prng_impl``, and raises ``NotImplementedError`` for
-any layout other than one card.
+The parallel layouts (``parallel/``): with ``parallel.num_devices`` above
+one, each process is one rank of a ``torch.distributed`` world (started from
+``parallel.coordinator_address`` before the model is built,
+``maybe_initialize_distributed``, or by the caller), and the mesh is built on
+first use (``_ensure_mesh``): data, tensor and sequence parallelism over
+``model``, expert parallelism, the GPipe pipeline over ``pipe``, ``dcn``
+slices and ZeRO-1, as the reference's ``parallel.*`` keys say, with its
+``ValueError``s (``check_layout``). Every rank builds the same model from the
+seed and keeps its shard of it (``parallel.mesh.state_shardings``). A step
+takes a global batch and each rank its rows of it; the loss is the mean over
+the global batch; the accumulated gradients are summed over (dcn, data) after
+accumulation (with ZeRO reduce-scattered into each data rank's slice of the
+optimizer state every micro-step, the updated slices all-gathered); the
+gradients of the parameters that sequence parallelism uses on a chunk of T
+are summed over ``model``; the clip's norm is that of the whole gradient.
+Each (dcn, data) rank draws its own dropout masks and augmentations from a
+generator seeded for its index (``rank_generator``: a rank-distinct Philox
+offset on the card, a rank-distinct seed on the CPU), so the masks cannot
+match the reference's one global draw; the model and pipe ranks of one data
+rank draw alike. Rank 0 alone logs and writes ``results.json``; a checkpoint
+holds the gathered state in the one-process format.
 """
 
 from __future__ import annotations
@@ -60,19 +77,36 @@ import json
 import math
 import time
 from pathlib import Path
-from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
+from typing import Any, Callable, Dict, Iterable, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.utils.checkpoint
 
+from ..convert import gather_state_dict, scatter_state_dict
 from ..data.dataset import BatchLoader, WindowedSplit, padded_index_matrix
 from ..data.device import DeviceSplit, StreamingDeviceLoader
 from ..models.encoders import running_stats_frozen
 from ..models.module import MultimodalFusionModel
 from ..ops.metrics import cross_entropy_loss, weighted_accuracy
+from ..parallel import comm
+from ..parallel.mesh import (
+    DATA_AXIS,
+    MODEL_AXIS,
+    Mesh,
+    activation_mesh,
+    gather_full,
+    local_slice,
+    make_mesh,
+    maybe_initialize_distributed,
+    replicas,
+    resolve_num_devices,
+    shard_batch,
+    state_shardings,
+)
 from ..utils.device import resolve_device
-from .checkpoint import CheckpointManager, load_checkpoint, load_train_state
+from .checkpoint import CheckpointManager, _is_primary, load_checkpoint, load_train_state
 
 
 def lr_schedule(
@@ -100,6 +134,94 @@ def lr_schedule(
     return schedule
 
 
+class ShardLayout:
+    """What the optimizer does across ranks for each parameter of a sharded
+    model (``Trainer._ensure_mesh``): the groups it sums over, the parameter
+    and optimizer-state specs of ``parallel.mesh.state_shardings``, the ZeRO
+    dim (where the optimizer state is cut over ``data``) and whether the
+    gradient is a partial sum over ``model`` (``param.sequence_parallel``)."""
+
+    def __init__(self, mesh: Mesh, params: List[torch.Tensor], specs: List[Tuple]):
+        self.mesh = mesh
+        self.batch_group = mesh.group(mesh.batch_axes())
+        self.data_group = mesh.group(DATA_AXIS)
+        self.dcn_group = mesh.group("dcn")
+        self.model_group = mesh.group(MODEL_AXIS)
+        self.specs = specs  # (param spec, optimizer-state spec) per parameter
+        self.partial = [bool(getattr(p, "sequence_parallel", False)) and
+                        self.model_group is not None for p in params]
+        self.zero_dim = []
+        for pspec, ospec in specs:
+            pad = list(pspec) + [None] * (len(ospec) - len(pspec))
+            self.zero_dim.append(next((d for d, (a, b) in enumerate(zip(pad, ospec))
+                                       if b == DATA_AXIS and a != DATA_AXIS), None))
+        self.zero = any(d is not None for d in self.zero_dim)
+        self.data_index = mesh.coords().get(DATA_AXIS, 0)
+        self.n_data = mesh.axis_size(DATA_AXIS)
+        self.replicas = [replicas(ospec, mesh) for _pspec, ospec in specs]
+
+    def piece(self, i: int, t: torch.Tensor) -> torch.Tensor:
+        """This data rank's ZeRO piece of parameter ``i``'s local tensor (a
+        view; the tensor itself where its state is not cut)."""
+        dim = self.zero_dim[i]
+        return t if dim is None else t.chunk(self.n_data, dim)[self.data_index]
+
+    def scatter(self, grads: List[torch.Tensor]) -> List[torch.Tensor]:
+        """A micro-step's gradients summed over (dcn, data), this data rank's
+        ZeRO piece of each: the cut leaves in one reduce-scatter over data
+        (every rank's pieces laid out one after the other) and one
+        all-reduce over dcn, the rest in one all-reduce over (dcn, data)."""
+        out: List[Optional[torch.Tensor]] = [None] * len(grads)
+        cut = [i for i, d in enumerate(self.zero_dim) if d is not None]
+        rest = [i for i, d in enumerate(self.zero_dim) if d is None]
+        if cut:
+            pieces = [[grads[i].chunk(self.n_data, self.zero_dim[i])[r] for i in cut]
+                      for r in range(self.n_data)]
+            flat = torch.cat([t.reshape(-1) for rank in pieces for t in rank])
+            mine = comm.all_reduce(comm.reduce_scatter(flat, 0, self.data_group),
+                                   self.dcn_group)
+            offset = 0
+            for i, like in zip(cut, pieces[self.data_index]):
+                out[i] = mine[offset:offset + like.numel()].view(like.shape)
+                offset += like.numel()
+        kept = [grads[i].clone() for i in rest]
+        _flat_all_reduce(kept, self.batch_group)
+        for i, g in zip(rest, kept):
+            out[i] = g
+        return out
+
+    def finish(self, acc: List[torch.Tensor]) -> None:
+        """The accumulated gradients whole: summed over (dcn, data) where the
+        micro-steps did not already, and over ``model`` where partial."""
+        if not self.zero:
+            _flat_all_reduce(acc, self.batch_group)
+        _flat_all_reduce([a for a, part in zip(acc, self.partial) if part], self.model_group)
+
+    def sq_norm(self, acc: List[torch.Tensor]) -> torch.Tensor:
+        """The squared global norm of the gradient: each piece counted once
+        over the world (its sum divided by the ranks that hold it)."""
+        sq = sum(a.float().square().sum() / r for a, r in zip(acc, self.replicas))
+        return comm.all_reduce(sq, dist.group.WORLD)
+
+    def gather_params(self, params: List[torch.Tensor]) -> None:
+        """Each ZeRO-cut parameter whole again from the data ranks' pieces."""
+        for i, p in enumerate(params):
+            dim = self.zero_dim[i]
+            if dim is not None:
+                p.copy_(comm.all_gather(self.piece(i, p).contiguous(), dim, self.data_group))
+
+
+def _flat_all_reduce(tensors: List[torch.Tensor], group) -> None:
+    """One sum over ``group`` of every tensor (concatenated), in place."""
+    if not tensors or comm.group_size(group) == 1:
+        return
+    flat = comm.all_reduce(torch.cat([t.reshape(-1) for t in tensors]), group)
+    offset = 0
+    for t in tensors:
+        t.copy_(flat[offset:offset + t.numel()].view_as(t))
+        offset += t.numel()
+
+
 class AccumulatedAdamW:
     """Clip + AdamW (or Adam with coupled L2) behind gradient accumulation.
 
@@ -108,6 +230,12 @@ class AccumulatedAdamW:
     with the schedule read at the inner count (before it is incremented),
     applies it to the parameters in place and returns True. State is plain
     tensors on the parameters' device; nothing synchronises with the host.
+
+    With a ``layout`` (a sharded model's ``ShardLayout``) the gradients are
+    this rank's part: summed over (dcn, data) after accumulation, or with
+    ZeRO reduce-scattered every micro-step into this data rank's pieces of
+    ``acc``, ``mu`` and ``nu``, whose update is all-gathered into the
+    parameters; the clip's norm is the whole gradient's.
     """
 
     def __init__(
@@ -121,6 +249,7 @@ class AccumulatedAdamW:
         b1: float = 0.9,
         b2: float = 0.999,
         eps: float = 1e-8,
+        layout: Optional[ShardLayout] = None,
     ):
         self.params: List[torch.Tensor] = list(params)
         self.schedule = schedule
@@ -129,46 +258,68 @@ class AccumulatedAdamW:
         self.accum = max(1, int(accum))
         self.decoupled = decoupled
         self.b1, self.b2, self.eps = b1, b2, eps
-        self.acc = [torch.zeros_like(p) for p in self.params]
-        self.mu = [torch.zeros_like(p) for p in self.params]
-        self.nu = [torch.zeros_like(p) for p in self.params]
+        self.layout = layout
+        self.acc = [torch.zeros_like(self._piece(i, p)) for i, p in enumerate(self.params)]
+        self.mu = [torch.zeros_like(a) for a in self.acc]
+        self.nu = [torch.zeros_like(a) for a in self.acc]
         self.mini_step = 0
         self.count = 0  # inner (applied) updates
+
+    def _piece(self, i: int, t: torch.Tensor) -> torch.Tensor:
+        return t if self.layout is None else self.layout.piece(i, t)
 
     @torch.no_grad()
     def step(self, grads: List[Optional[torch.Tensor]]) -> bool:
         n = self.mini_step
-        for acc, p, g in zip(self.acc, self.params, grads):
-            g = torch.zeros_like(p) if g is None else g
+        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(self.params, grads)]
+        if self.layout is not None and self.layout.zero:
+            grads = self.layout.scatter(grads)
+        for acc, g in zip(self.acc, grads):
             acc.add_((g - acc) / (n + 1))
         self.mini_step += 1
         if self.mini_step < self.accum:
             return False
         self.mini_step = 0
+        if self.layout is not None:
+            self.layout.finish(self.acc)
+        self.apply()
+        return True
+
+    @torch.no_grad()
+    def apply(self) -> None:
+        """The update from ``acc``, the accumulated gradient whole (this
+        rank's pieces of it): clip, Adam, then ``acc`` back to zero."""
+        zero = self.layout is not None and self.layout.zero
         updates = self.acc
         if self.clip_norm > 0:
-            norm = torch.sqrt(sum(u.square().sum() for u in updates))
+            if self.layout is None:
+                norm = torch.sqrt(sum(u.square().sum() for u in updates))
+            else:
+                norm = torch.sqrt(self.layout.sq_norm(updates))
             updates = [torch.where(norm < self.clip_norm, u, (u / norm) * self.clip_norm)
                        for u in updates]
+        pieces = [self._piece(i, p) for i, p in enumerate(self.params)]
         if not self.decoupled and self.weight_decay:
-            updates = [u + self.weight_decay * p for u, p in zip(updates, self.params)]
+            updates = [u + self.weight_decay * p for u, p in zip(updates, pieces)]
         lr = self.schedule(self.count)
         self.count += 1
         c1 = 1.0 - self.b1**self.count
         c2 = 1.0 - self.b2**self.count
-        for p, u, mu, nu in zip(self.params, updates, self.mu, self.nu):
+        for p, u, mu, nu in zip(pieces, updates, self.mu, self.nu):
             mu.mul_(self.b1).add_((1.0 - self.b1) * u)
             nu.mul_(self.b2).add_((1.0 - self.b2) * u * u)
             step = (mu / c1) / (torch.sqrt(nu / c2) + self.eps)
             if self.decoupled and self.weight_decay:
                 step = step + self.weight_decay * p
             p.add_(step * -lr)
+        if zero:
+            self.layout.gather_params(self.params)
         for acc in self.acc:
             acc.zero_()
-        return True
 
     def state_dict(self) -> Dict[str, Any]:
-        """Accumulator, moments and both counters (what a resume needs)."""
+        """Accumulator, moments and both counters (what a resume needs):
+        this rank's pieces (``Trainer.train_state`` gathers them)."""
         return {"acc": list(self.acc), "mu": list(self.mu), "nu": list(self.nu),
                 "mini_step": self.mini_step, "count": self.count}
 
@@ -185,7 +336,8 @@ class AccumulatedAdamW:
 
 
 def build_optimizer(
-    training_cfg, params: Iterable[torch.Tensor], steps_per_epoch: int
+    training_cfg, params: Iterable[torch.Tensor], steps_per_epoch: int,
+    layout: Optional[ShardLayout] = None,
 ) -> Tuple[AccumulatedAdamW, int]:
     """Optimizer from the ``training:`` config block -> ``(optimizer, accum)``."""
     name = str(training_cfg.get("optimizer", "adamw"))
@@ -205,6 +357,7 @@ def build_optimizer(
         clip_norm=float(training_cfg.get("gradient_clip_norm", 0.0) or 0.0),
         accum=accum,
         decoupled=name == "adamw",
+        layout=layout,
     )
     return opt, accum
 
@@ -266,11 +419,11 @@ PRNG_IMPLS = ("threefry", "rbg", "unsafe_rbg")
 
 
 def check_layout(config) -> None:
-    """The reference trainer's checks of ``parallel.*`` with its messages,
-    then ``NotImplementedError`` for what the port does not run: more than one
-    device (``num_devices`` above 1; ``auto`` and null are the one card here)
-    and so every mesh axis and ZeRO (ROADMAP A11). Every default of
-    ``config/base.yaml`` passes.
+    """The reference trainer's checks of ``parallel.*`` with its messages:
+    pipeline with tensor parallelism, sequence parallelism without it, MoE
+    experts that do not divide over ``model``, and (for a number of devices
+    given as a number; ``auto`` is checked with the mesh) a mesh axis or ZeRO
+    on one device. Every default of ``config/base.yaml`` passes.
 
     ``training.prng_impl`` keeps the reference's ``ValueError`` for a value
     other than ``threefry``, ``rbg`` or ``unsafe_rbg``. The three known
@@ -285,14 +438,11 @@ def check_layout(config) -> None:
     par = config.get("parallel", {}) or {}
     model_parallel = int(par.get("model_parallel", 1) or 1)
     pipeline_parallel = int(par.get("pipeline_parallel", 1) or 1)
-    dcn_slices = int(par.get("dcn_slices", 1) or 1)
-    zero_optimizer = bool(par.get("zero_optimizer", False))
-    sequence_parallel = bool(par.get("sequence_parallel", False))
     if pipeline_parallel > 1 and model_parallel > 1:
         raise ValueError(
             "parallel.pipeline_parallel cannot be combined with parallel.model_parallel (the "
             "pipelined stack's shard_map is manual over 'pipe' only)")
-    if sequence_parallel and model_parallel <= 1:
+    if bool(par.get("sequence_parallel", False)) and model_parallel <= 1:
         raise ValueError(
             "parallel.sequence_parallel requires parallel.model_parallel > 1 (it shards "
             "activations across the tensor-parallel group)")
@@ -302,21 +452,41 @@ def check_layout(config) -> None:
             f"model.moe_experts ({moe_experts}) must divide evenly over parallel.model_parallel "
             f"({model_parallel}) for expert parallelism")
     requested = par.get("num_devices", 1)
-    devices = 1 if requested in (None, "auto") else int(requested)
-    layout = {"num_devices": devices, "model_parallel": model_parallel,
-              "dcn_slices": dcn_slices, "pipeline_parallel": pipeline_parallel,
-              "zero_optimizer": zero_optimizer, "sequence_parallel": sequence_parallel}
-    defaults = {"num_devices": 1, "model_parallel": 1, "dcn_slices": 1, "pipeline_parallel": 1,
-                "zero_optimizer": False, "sequence_parallel": False}
-    if devices <= 1:
-        if model_parallel > 1 or dcn_slices > 1 or pipeline_parallel > 1 or zero_optimizer:
-            raise ValueError(
-                "parallel.model_parallel / parallel.dcn_slices / parallel.pipeline_parallel / "
-                "parallel.zero_optimizer require parallel.num_devices > 1")
-    else:
-        keys = ", ".join(f"parallel.{k}={v}" for k, v in layout.items() if v != defaults[k])
-        raise NotImplementedError(
-            f"{keys} is not ported yet (ROADMAP queue A item 11): the port trains on one card")
+    if not (isinstance(requested, str) and requested.lower() == "auto"):
+        _check_one_device(par, resolve_num_devices(requested))
+
+
+def _check_one_device(par, devices: int) -> None:
+    if devices <= 1 and (int(par.get("model_parallel", 1) or 1) > 1
+                         or int(par.get("dcn_slices", 1) or 1) > 1
+                         or int(par.get("pipeline_parallel", 1) or 1) > 1
+                         or bool(par.get("zero_optimizer", False))):
+        raise ValueError(
+            "parallel.model_parallel / parallel.dcn_slices / parallel.pipeline_parallel / "
+            "parallel.zero_optimizer require parallel.num_devices > 1")
+
+
+def rank_generator(device, seed: int, index: int = 0) -> torch.Generator:
+    """The trainer's generator for (dcn, data) rank ``index``: seeded with
+    ``seed``; for index > 0 moved to a rank-distinct Philox offset on the
+    card (``index * 2**40``), or seeded with a rank-distinct seed on the CPU
+    (whose generator has no offset). Index 0 is the one-process generator."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    if index:
+        if g.device.type == "cuda":
+            g.set_offset(index << 40)
+        else:
+            g.manual_seed((seed + index * 0x9E3779B97F4A7C15) & ((1 << 63) - 1))
+    return g
+
+
+def shard_model_(model: torch.nn.Module, mesh: Mesh, specs) -> None:
+    """Keep this rank's piece of every parameter whose spec is sharded."""
+    with torch.no_grad():
+        for name, param in model.named_parameters():
+            spec = specs[name][0]
+            if any(a is not None for a in spec):
+                param.data = local_slice(param.data, spec, mesh).clone()
 
 
 class Trainer:
@@ -338,6 +508,11 @@ class Trainer:
         check_layout(config)
         self.config = config
         self.device = resolve_device(device)
+        # parallel.coordinator_address: join the world before the model is
+        # built; on CUDA the rank's card is then the current device
+        if (maybe_initialize_distributed(config.get("parallel", {}), self.device)
+                and self.device.type == "cuda" and self.device.index is None):
+            self.device = torch.device("cuda", torch.cuda.current_device())
         self.model = model or MultimodalFusionModel.from_config(config, device=self.device)
         training = config.training
         self.label_smoothing = float(training.get("label_smoothing", 0.0))
@@ -349,15 +524,71 @@ class Trainer:
         self.temporal_jitter = float(augmentation.get("temporal_jitter", 0.0))
         self.batch_size = int(config.dataset.get("batch_size", 32))
         self.seed = int(config.get("seed", 42))
-        self.generator = torch.Generator(device=self.device).manual_seed(self.seed)
+        self.generator = rank_generator(self.device, self.seed)
         self.optimizer: Optional[AccumulatedAdamW] = None
         self.accum = 1
+        par = config.get("parallel", {}) or {}
+        self.par = par
+        self.zero_optimizer = bool(par.get("zero_optimizer", False))
+        self.pipeline_microbatches = (int(par.get("microbatches", 0) or 0)
+                                      or int(par.get("pipeline_parallel", 1) or 1))
+        self.mesh: Optional[Mesh] = None
+        self.specs: Dict[str, Tuple] = {}
+
+    # -- mesh ------------------------------------------------------------------
+    def _ensure_mesh(self) -> Optional[Mesh]:
+        """Build the mesh on first use (``parallel.num_devices`` above one):
+        the process groups, this rank's shard of the model and its
+        generator. Collective: every rank of the world calls it."""
+        if self.mesh is not None:
+            return self.mesh
+        par = self.par
+        maybe_initialize_distributed(par, self.device)
+        n = resolve_num_devices(par.get("num_devices", 1))
+        _check_one_device(par, n)
+        if n <= 1:
+            return None
+        mesh = make_mesh(n, model_parallel=int(par.get("model_parallel", 1) or 1),
+                         dcn_slices=int(par.get("dcn_slices", 1) or 1),
+                         pipeline_parallel=int(par.get("pipeline_parallel", 1) or 1))
+        if mesh.size != comm.group_size(dist.group.WORLD):
+            raise ValueError(f"parallel.num_devices={n} but the world has "
+                             f"{comm.group_size(dist.group.WORLD)} processes: one rank a device")
+        mesh.init_groups()
+        shapes = {k: tuple(v.shape) for k, v in self.model.named_parameters()}
+        self.specs = state_shardings(mesh, shapes, zero_optimizer=self.zero_optimizer)
+        shard_model_(self.model, mesh, self.specs)
+        self.generator = rank_generator(self.device, self.seed, mesh.index(mesh.batch_axes()))
+        self.mesh = mesh
+        return mesh
+
+    @property
+    def n_shards(self) -> int:
+        """The (dcn, data) ranks the batch is cut over."""
+        return 1 if self.mesh is None else self.mesh.count(self.mesh.batch_axes())
+
+    def _effective_batch(self, batch_size: Optional[int] = None) -> int:
+        """The batch rounded up so that every (dcn, data) rank gets the same
+        number of rows, and, with the pipeline, a number that its
+        microbatches divide (pad rows get weight 0)."""
+        b = int(batch_size or self.batch_size)
+        n = self.n_shards
+        if self.mesh is not None and "pipe" in self.mesh.axis_names:
+            n *= self.pipeline_microbatches
+        return ((b + n - 1) // n) * n
+
+    def _layout_ctx(self):
+        return activation_mesh(self.mesh) if self.mesh is not None else contextlib.nullcontext()
 
     def init_state(self, steps_per_epoch: int) -> AccumulatedAdamW:
         """Build the optimizer over the model's parameters (the weights are
         the model's own: seeded at construction or loaded)."""
+        mesh = self._ensure_mesh()
+        params = dict(self.model.named_parameters())
+        layout = None if mesh is None else ShardLayout(
+            mesh, list(params.values()), [self.specs[k] for k in params])
         self.optimizer, self.accum = build_optimizer(
-            self.config.training, self.model.parameters(), steps_per_epoch
+            self.config.training, params.values(), steps_per_epoch, layout
         )
         return self.optimizer
 
@@ -423,11 +654,23 @@ class Trainer:
         else:
             logits, aux = self._forward(*args)
         loss = cross_entropy_loss(logits, labels, self.label_smoothing, sample_weight=weight)
-        if aux and self.moe_aux_weight:
-            loss = loss + self.moe_aux_weight * sum(aux)  # in the order the layers ran
-        loss.backward()
         acc = weighted_accuracy(logits.detach(), labels, weight)
-        return loss.detach(), acc, [p.grad for p in params]
+        reported = None
+        if self.mesh is not None:
+            # this rank's part of the global batch's mean: sum(w l) / global sum(w)
+            group = self.mesh.group(self.mesh.batch_axes())
+            w = weight.float().sum().clamp(min=1.0)
+            total = comm.all_reduce(weight.float().sum(), group).clamp(min=1.0)
+            loss = loss * (w / total)
+            acc = comm.all_reduce(acc * (w / total), group)
+            reported = comm.all_reduce(loss.detach().clone(), group)
+        if aux and self.moe_aux_weight:
+            aux_term = self.moe_aux_weight * sum(aux)  # in the order the layers ran
+            loss = loss + aux_term
+            if reported is not None:
+                reported = reported + aux_term.detach()
+        loss.backward()
+        return (loss.detach() if reported is None else reported), acc, [p.grad for p in params]
 
     def make_train_step_fn(self):
         """``step(data, idx, weight=None) -> (loss, acc)``: one micro-step on
@@ -438,9 +681,11 @@ class Trainer:
             raise RuntimeError("call init_state(steps_per_epoch) before making the step")
 
         def step(data: DeviceSplit, idx: torch.Tensor, weight: Optional[torch.Tensor] = None):
-            features, labels, lengths = data.gather(idx)
             if weight is None:
-                weight = torch.ones(labels.shape, device=labels.device)
+                weight = torch.ones(idx.shape, device=self.device)
+            if self.mesh is not None:  # a global batch: this rank's rows of it
+                idx, weight = shard_batch((idx, weight), self.mesh)
+            features, labels, lengths = data.gather(idx)
             return self._update(features, labels, None, lengths, weight)
 
         return step
@@ -450,10 +695,18 @@ class Trainer:
         one micro-step on a batch already on the device (a
         ``StreamingDeviceLoader`` tuple), with the resident step's
         augmentations and update; the batch's modality mask is multiplied by
-        the step's modality dropout (the reference's streaming step)."""
+        the step's modality dropout (the reference's streaming step). On a
+        mesh the batch is global and each rank takes its rows."""
         if self.optimizer is None:
             raise RuntimeError("call init_state(steps_per_epoch) before making the step")
-        return self._update
+        if self.mesh is None:
+            return self._update
+
+        def step(features, labels, mask, lengths, weight):
+            return self._update(*shard_batch((features, labels, mask, lengths, weight),
+                                             self.mesh))
+
+        return step
 
     def _update(self, features, labels, mask, lengths, weight):
         """Augment, loss and gradients, optimizer: one micro-step. ``mask``
@@ -461,7 +714,8 @@ class Trainer:
         num_mod = len(features) if mask is None else mask.shape[1]
         features, lengths, drop = self.augment(features, lengths, num_mod)
         mask = drop if mask is None else mask * drop
-        loss, acc, grads = self.loss_and_grads(features, labels, mask, lengths, weight)
+        with self._layout_ctx():
+            loss, acc, grads = self.loss_and_grads(features, labels, mask, lengths, weight)
         self.optimizer.step(grads)
         return loss, acc
 
@@ -476,13 +730,56 @@ class Trainer:
     # -- state for a resume ------------------------------------------------
     def train_state(self) -> Dict[str, Any]:
         """Optimizer tensors and counters plus the generator state: with the
-        weights, everything the next epoch depends on."""
-        return {"optimizer": self.optimizer.state_dict(),
-                "generator": self.generator.get_state()}
+        weights, everything the next epoch depends on. On a mesh the
+        optimizer's pieces are gathered whole (collective), ``generator`` is
+        rank 0's state and ``generators`` every rank's."""
+        state = {"optimizer": self.optimizer.state_dict(),
+                 "generator": self.generator.get_state()}
+        if self.mesh is None:
+            return state
+        specs = [self.specs[k] for k, _ in self.model.named_parameters()]
+        for name in ("acc", "mu", "nu"):
+            state["optimizer"][name] = [gather_full(t, ospec, self.mesh)
+                                        for t, (_p, ospec) in zip(state["optimizer"][name], specs)]
+        mine = state["generator"].to(self.device)
+        every = comm.all_gather(mine[None], 0, dist.group.WORLD).cpu()
+        # copies, not rows of one storage: set_state reads a state from its
+        # storage's start
+        state["generator"], state["generators"] = every[0].clone(), [g.clone() for g in every]
+        return state
 
     def load_train_state(self, state: Dict[str, Any]) -> None:
-        self.optimizer.load_state_dict(state["optimizer"])
-        self.generator.set_state(state["generator"].cpu())
+        optimizer = state["optimizer"]
+        generator = state["generator"]
+        if self.mesh is not None:  # this rank's pieces of the whole state
+            specs = [self.specs[k] for k, _ in self.model.named_parameters()]
+            optimizer = dict(optimizer)
+            for name in ("acc", "mu", "nu"):
+                optimizer[name] = [
+                    self.optimizer.layout.piece(i, local_slice(t.to(self.device), pspec,
+                                                               self.mesh))
+                    for i, (t, (pspec, _o)) in enumerate(zip(optimizer[name], specs))]
+            rank = dist.get_rank()
+            saved = state.get("generators")
+            if saved is not None and len(saved) == self.mesh.size:
+                generator = saved[rank]
+            else:  # a run of another world: this rank's seed, not its stream
+                generator = rank_generator(self.device, self.seed, self.mesh.index(
+                    self.mesh.batch_axes())).get_state()
+        self.optimizer.load_state_dict(optimizer)
+        self.generator.set_state(generator.cpu().clone())
+
+    def state_dict(self) -> Dict[str, torch.Tensor]:
+        """The model's ``state_dict`` whole: on a mesh every rank's pieces
+        gathered (collective), the one-process checkpoint format."""
+        state = self.model.state_dict()
+        return state if self.mesh is None else gather_state_dict(state, self.mesh)
+
+    def load_state_dict(self, state: Mapping[str, torch.Tensor]) -> None:
+        """Whole weights (a checkpoint) into the model, this rank's pieces
+        on a mesh."""
+        self.model.load_state_dict(
+            state if self.mesh is None else scatter_state_dict(state, self.mesh))
 
     # -- evaluation --------------------------------------------------------
     @torch.inference_mode()
@@ -495,15 +792,25 @@ class Trainer:
         """Full-split forward pass in eval mode -> ``[N, C]`` logits (host
         numpy), with ``model`` or the trainer's own. The last batch is padded
         by wrap-around and cut to ``N``."""
+        sharded = model is None and self.mesh is not None
         model = model or self.model
         n = data.num_windows
-        idx_mat, _ = padded_index_matrix(n, int(batch_size or self.batch_size))
+        batch = self._effective_batch(batch_size) if sharded else int(batch_size or self.batch_size)
+        idx_mat, _ = padded_index_matrix(n, batch)
         idx_dev = torch.from_numpy(idx_mat).long().to(self.device)
         out = []
-        for idx in idx_dev:
-            features, _labels, lengths = data.gather(idx)
-            mask = torch.ones((idx.shape[0], len(data.modalities)), device=self.device)
-            out.append(model(features, mask, lengths, train=False))
+        # the trainer's own model on a mesh: each (dcn, data) rank its rows,
+        # the logits gathered; a whole model passed in runs here alone
+        with self._layout_ctx() if sharded else contextlib.nullcontext():
+            for idx in idx_dev:
+                if sharded:
+                    idx = shard_batch(idx, self.mesh)
+                features, _labels, lengths = data.gather(idx)
+                mask = torch.ones((idx.shape[0], len(data.modalities)), device=self.device)
+                logits = model(features, mask, lengths, train=False)
+                if sharded:
+                    logits = comm.all_gather(logits, 0, self.mesh.group(self.mesh.batch_axes()))
+                out.append(logits)
         if not out:
             return np.zeros((0, model.num_classes), np.float32)
         return torch.cat(out).cpu().numpy()[:n]
@@ -524,6 +831,9 @@ class Trainer:
         ``train_wall_seconds``."""
         if log_fn is print:  # flush through pipes
             log_fn = lambda msg: print(msg, flush=True)  # noqa: E731
+        mesh = self._ensure_mesh()
+        if not _is_primary():  # one log, one event stream and one results.json a run
+            log_fn = None
         cfg = self.config
         streaming = bool(cfg.dataset.get("streaming", False))
         max_epochs = int(cfg.training.get("max_epochs", 1))
@@ -532,9 +842,14 @@ class Trainer:
         save_dir = Path(
             save_dir or Path(exp_cfg.get("save_dir", "runs")) / exp_cfg.get("name", "exp")
         )
-        save_dir.mkdir(parents=True, exist_ok=True)
+        if _is_primary():
+            save_dir.mkdir(parents=True, exist_ok=True)
+        if mesh is not None and log_fn:
+            log_fn(f"mesh {mesh.shape} over {mesh.size} ranks ({self.device.type}, "
+                   f"{comm.group_backend()}); batch over {mesh.batch_axes()}"
+                   + (", ZeRO-1 over 'data'" if self.zero_optimizer else ""))
 
-        batch = self.batch_size
+        batch = self._effective_batch()
         # streaming never puts the train split on the device whole
         train_data = (None if streaming
                       else DeviceSplit.from_windows(train_windows, device=self.device))
@@ -546,7 +861,7 @@ class Trainer:
         start_epoch = 0
         if resume_from is not None:
             weights, _cfg, meta = load_checkpoint(resume_from)
-            self.model.load_state_dict(weights)
+            self.load_state_dict(weights)
             self.load_train_state(load_train_state(resume_from))
             start_epoch = int(meta.get("epoch", -1)) + 1
             if log_fn:
@@ -561,12 +876,13 @@ class Trainer:
             adopt_existing=resume_from is not None,
         )
         writer = None
-        try:
-            from tensorboardX import SummaryWriter
+        if _is_primary():
+            try:
+                from tensorboardX import SummaryWriter
 
-            writer = SummaryWriter(str(save_dir / "logs"))
-        except ImportError:
-            pass
+                writer = SummaryWriter(str(save_dir / "logs"))
+            except ImportError:
+                pass
 
         best_val = float("inf")
         bad_epochs = 0
@@ -614,7 +930,7 @@ class Trainer:
                     f"val/loss={val_loss:.4f} val/acc={val_acc:.4f}"
                 )
 
-            ckpt.save(self.model.state_dict(), epoch, val_loss, train_state=self.train_state())
+            ckpt.save(self.state_dict(), epoch, val_loss, train_state=self.train_state())
             if val_loss < best_val:
                 best_val = val_loss
                 bad_epochs = 0
@@ -635,9 +951,9 @@ class Trainer:
             "config": cfg.to_container(resolve=True),
         }
         if test_windows is not None:
-            best_model = self.model
+            best_model = None  # the trainer's own (its shard on a mesh)
             if ckpt.best_model_path:
-                # rebuilt from the checkpoint directory alone
+                # rebuilt from the checkpoint directory alone, whole on every rank
                 weights, best_cfg, _meta = load_checkpoint(ckpt.best_model_path)
                 best_model = MultimodalFusionModel.from_config(best_cfg or cfg, device=self.device)
                 best_model.load_state_dict(weights)
@@ -650,7 +966,8 @@ class Trainer:
 
         results["history"] = history
         results["train_wall_seconds"] = wall
-        (save_dir / "results.json").write_text(json.dumps(results, indent=2))
+        if _is_primary():
+            (save_dir / "results.json").write_text(json.dumps(results, indent=2))
         if writer is not None:
             writer.close()
         return results

@@ -1399,19 +1399,25 @@ def test_moe_layer_kernel_path_matches_plain_path(card):
 
     g = torch.Generator().manual_seed(31)
     layers = {}
-    for path, on in (("kernels", True), ("plain", False)):
-        layers[path] = TransformerEncoderLayer(
-            256, 4, use_flash=on, dropout=0.0, use_fused_mlp=on, use_fused_mlp_ln=on,
-            moe_experts=4, moe_top_k=2)
+    # the dense weights take PyTorch's default init from the global
+    # generator: seeded here, so they do not depend on the tests run before
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(7)
+        for path, on in (("kernels", True), ("plain", False)):
+            layers[path] = TransformerEncoderLayer(
+                256, 4, use_flash=on, dropout=0.0, use_fused_mlp=on, use_fused_mlp_ln=on,
+                moe_experts=4, moe_top_k=2)
     layers["kernels"].moe.init_parameters(torch.Generator().manual_seed(5))
     layers["plain"].load_state_dict(layers["kernels"].state_dict())
     x = torch.randn(8, 128, 256, generator=g).to(card)
     dout = torch.randn(8, 128, 256, generator=g).to(card)
     valid = (torch.arange(128)[None, :] < torch.tensor([128, 1, 37, 0, 127, 64, 128, 9])[:, None])
-    results = {}
+    results, routed = {}, {}
     for path, layer in layers.items():
         layer.to(card)
         leaf = x.clone().requires_grad_()
+        layer.moe.register_forward_pre_hook(
+            lambda m, args, path=path: routed.__setitem__(path, args[0].detach()))
 
         def step():
             aux = []
@@ -1432,7 +1438,25 @@ def test_moe_layer_kernel_path_matches_plain_path(card):
     floor = 1e-3 * max(g.abs().max().item() for g in [dx_p, *grads_p])
     for got, want in zip([dx_k, *grads_k], [dx_p, *grads_p]):
         assert (got - want).abs().max().item() / max(want.abs().max().item(), floor) \
-            < TRAIN_LAYER_TOL
+            < TRAIN_LAYER_TOL, _routing_report(layers["plain"].moe, routed, valid.to(card))
+
+
+def _routing_report(moe, routed, valid):
+    """What a failure of the MoE layer test needs: the tokens whose top-k
+    experts differ between the two paths' MoE inputs, and the smallest gap
+    between neighbouring probabilities among the top k + 1 of a valid token
+    (a near tie that the paths' rounding can flip)."""
+    live = valid.reshape(-1)
+    top = {}
+    for path, h in routed.items():
+        probs = torch.softmax(h.reshape(-1, h.shape[-1]).float() @ moe.router, dim=-1)
+        top[path] = torch.sort(probs, dim=-1, descending=True, stable=True)
+    sorted_p, experts = top["plain"]
+    k = moe.top_k
+    flips = ((experts[:, :k] != top["kernels"][1][:, :k]).any(1) & live).sum().item()
+    gaps = (sorted_p[:, :k] - sorted_p[:, 1:k + 1])[live]
+    return (f"routing: {flips} valid tokens take other experts on the kernel path; "
+            f"smallest top-{k + 1} gap {gaps.min().item():.3e}")
 
 
 # a layer's gradients, kernel path against plain path: the MoE routing takes
@@ -1564,3 +1588,102 @@ def test_streamed_epoch_on_the_card_equals_the_resident_epoch(card, tmp_path):
     (hist_r, state_r), (hist_s, state_s) = runs
     assert hist_s == hist_r
     assert all(torch.equal(state_s[k], v) for k, v in state_r.items())
+
+
+_TP_WORLD = r"""
+import sys
+import torch
+import torch.distributed as dist
+sys.path.insert(0, {repo!r})
+from multimodal_sensor_fusion_with_attention_rajeevatla_torch.ops import mlp
+from multimodal_sensor_fusion_with_attention_rajeevatla_torch.parallel import comm
+from multimodal_sensor_fusion_with_attention_rajeevatla_torch.parallel.mesh import (
+    activation_mesh, local_slice, make_mesh)
+from multimodal_sensor_fusion_with_attention_rajeevatla_torch.parallel.tp_kernels import (
+    tp_fused_mlp)
+from multimodal_sensor_fusion_with_attention_rajeevatla_torch.utils.device import pin_float32
+
+rank = {rank}
+pin_float32()
+dist.init_process_group("gloo", store=dist.FileStore({store!r}, 2), rank=rank, world_size=2)
+mesh = make_mesh(2, model_parallel=2).init_groups()
+g = torch.Generator().manual_seed(0)
+x = torch.randn(4096, 256, generator=g).cuda().requires_grad_(True)
+w1 = (torch.randn(256, 2048, generator=g) / 16).cuda()
+b1 = (torch.randn(2048, generator=g) / 16).cuda()
+w2 = (torch.randn(2048, 256, generator=g) / 45).cuda()
+b2 = (torch.randn(256, generator=g) / 16).cuda()
+mask = (torch.rand(4096, 2048, generator=g) < 0.8).cuda()
+dout = torch.randn(4096, 256, generator=g).cuda()
+shards = [local_slice(w1, (None, "model"), mesh).clone().requires_grad_(True),
+          local_slice(b1, ("model",), mesh).clone().requires_grad_(True),
+          local_slice(w2, ("model", None), mesh).clone().requires_grad_(True),
+          b2.clone().requires_grad_(True)]
+before = mlp.fused_mlp_fwd.launches, mlp.fused_mlp_bwd.launches
+with activation_mesh(mesh):
+    out = tp_fused_mlp(mesh, x, *shards, keep_mask=mask, keep_prob=0.8)
+(out * dout).sum().backward()
+torch.cuda.synchronize()
+launched = (mlp.fused_mlp_fwd.launches - before[0], mlp.fused_mlp_bwd.launches - before[1])
+# the collectives gloo has no CUDA path for, staged through the host
+y = torch.full((3,), float(rank), device="cuda")
+gathered = comm.all_gather(y, 0, mesh.group("model"))
+scattered = comm.reduce_scatter(torch.arange(4.0, device="cuda"), 0, mesh.group("model"))
+if rank == 0:
+    comm.send(y + 7, 1, tag=5)
+    got = y
+else:
+    got = comm.recv(y, 0, tag=5)
+torch.save({{"out": out.detach().cpu(), "dx": x.grad.cpu(),
+             "grads": [s.grad.cpu() for s in shards], "launched": launched,
+             "gathered": gathered.cpu(), "scattered": scattered.cpu(), "recv": got.cpu(),
+             "backend": comm.group_backend()}}, {out!r})
+dist.destroy_process_group()
+"""
+
+
+def test_tp_fused_mlp_on_two_ranks_of_the_card_matches_fused_mlp(card, tmp_path):
+    """Two gloo ranks on the one card: each runs the fused_mlp pair on its
+    F = 1024 slice; the summed output and the gradients against one
+    fused_mlp over F = 2048 on the same card; gloo's host-staged collectives
+    on CUDA tensors."""
+    import subprocess
+    import sys
+
+    repo = str(Path(__file__).resolve().parent.parent)
+    procs = [subprocess.Popen([sys.executable, "-c", _TP_WORLD.format(
+        repo=repo, rank=r, store=str(tmp_path / "store"), out=str(tmp_path / f"r{r}.pt"))],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT) for r in range(2)]
+    for p in procs:
+        try:
+            log, _ = p.communicate(timeout=300)
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            pytest.fail("the 2-rank world did not finish in 300 s")
+        assert p.returncode == 0, log.decode()[-3000:]
+    ranks = [torch.load(tmp_path / f"r{r}.pt") for r in range(2)]
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(4096, 256, generator=g).to(card).requires_grad_(True)
+    w1 = (torch.randn(256, 2048, generator=g) / 16).to(card).requires_grad_(True)
+    b1 = (torch.randn(2048, generator=g) / 16).to(card).requires_grad_(True)
+    w2 = (torch.randn(2048, 256, generator=g) / 45).to(card).requires_grad_(True)
+    b2 = (torch.randn(256, generator=g) / 16).to(card).requires_grad_(True)
+    mask = (torch.rand(4096, 2048, generator=g) < 0.8).to(card)
+    dout = torch.randn(4096, 256, generator=g).to(card)
+    want = tm.fused_mlp(x, w1, b1, w2, b2, mask, 0.8)
+    (want * dout).sum().backward()
+    for r in ranks:
+        assert r["backend"] == "gloo" and r["launched"] == (1, 1)
+        scale = want.abs().max().item()
+        assert (r["out"] - want.cpu()).abs().max().item() <= 1e-5 * scale
+        assert (r["dx"] - x.grad.cpu()).abs().max().item() <= 1e-4 * x.grad.abs().max().item()
+    got = {"w1": torch.cat([r["grads"][0] for r in ranks], 1),
+           "b1": torch.cat([r["grads"][1] for r in ranks]),
+           "w2": torch.cat([r["grads"][2] for r in ranks]), "b2": ranks[0]["grads"][3]}
+    for name, ref in (("w1", w1), ("b1", b1), ("w2", w2), ("b2", b2)):
+        err = (got[name] - ref.grad.cpu()).abs().max().item() / ref.grad.abs().max().item()
+        assert err <= 1e-4, name
+    assert ranks[0]["gathered"].tolist() == [0.0] * 3 + [1.0] * 3
+    assert [r["scattered"].tolist() for r in ranks] == [[0.0, 2.0], [4.0, 6.0]]
+    assert ranks[1]["recv"].tolist() == [7.0] * 3

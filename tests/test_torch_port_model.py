@@ -248,9 +248,18 @@ def test_port_init_is_seeded_and_flax_shaped():
 
 
 def test_from_config_rejects_unported_options():
+    # ported since: parallel.pipeline_parallel stacks every transformer
+    # encoder's layers into a pipeline, whose layer count must divide over its
+    # stages (the reference's ValueError)
     cfg = load_config(REPO / "config" / "base.yaml", SMALL + ["parallel.pipeline_parallel=2"])
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(ValueError, match=r"num_layers \(1\) must divide evenly"):
         MultimodalFusionModel.from_config(cfg, device="cpu")
+    cfg = load_config(REPO / "config" / "base.yaml", SMALL + [
+        "parallel.pipeline_parallel=2", "parallel.microbatches=4",
+        *[f"model.encoders.{m}.num_layers=2"
+          for m in ("imu_hand", "imu_chest", "imu_ankle", "heart_rate")]])
+    piped = MultimodalFusionModel.from_config(cfg, device="cpu")
+    assert piped.encoders["imu_hand"].pipeline.microbatches == 4
     # ported since: the MoE feed-forward (model.moe_experts), every transformer
     # layer without the dense pair; a moe_top_k past the experts raises the
     # reference's ValueError

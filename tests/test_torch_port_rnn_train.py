@@ -211,21 +211,41 @@ def test_mc_dropout_runs_through_the_training_kernels_route():
     # raises the reference's ValueError
     pytest.param("moe_experts", 4, None, None,
                  id="moe_experts-4-NotImplementedError-model.encoders.imu_hand.moe_experts.*item 8"),
-    ("pipeline_parallel", 2, NotImplementedError,
-     "model.encoders.imu_hand.pipeline_parallel.*item 11"),
-    ("sequence_parallel", True, NotImplementedError,
-     "model.encoders.imu_hand.sequence_parallel.*item 11"),
+    # ported since (the parallel layouts): the cases keep their names and now
+    # check that the keys build (the pipeline's layer count must divide over
+    # its stages, the reference's ValueError)
+    pytest.param("pipeline_parallel", 2, None, None,
+                 id="pipeline_parallel-2-NotImplementedError-"
+                    "model.encoders.imu_hand.pipeline_parallel.*item 11"),
+    pytest.param("sequence_parallel", True, None, None,
+                 id="sequence_parallel-True-NotImplementedError-"
+                    "model.encoders.imu_hand.sequence_parallel.*item 11"),
     # a per-encoder dtype is ported (float32 or bfloat16); any other type fails
     ("dtype", "float16", ValueError, "Unknown compute dtype 'float16'"),
 ])
 def test_build_encoder_refuses_unported_per_encoder_keys(key, value, error, match):
     base = {"type": "sequence", "encoder_type": "transformer", "hidden_dim": 16, "num_layers": 1}
-    if error is None:
+    if error is None and key == "moe_experts":
         enc = te.build_encoder("imu_hand", 17, 8, {**base, key: value, "moe_top_k": 2})
         layer = enc.layers[0]
         assert layer.moe.num_experts == value and not hasattr(layer, "linear1")
         with pytest.raises(ValueError, match=r"moe_top_k \(5\) must be in \[1, moe_experts=4\]"):
             te.build_encoder("imu_hand", 17, 8, {**base, key: value, "moe_top_k": 5})
+    elif key == "pipeline_parallel":
+        with pytest.raises(ValueError, match=r"num_layers \(1\) must divide evenly over "
+                                             r"pipeline_parallel \(2\)"):
+            te.build_encoder("imu_hand", 17, 8, {**base, key: value})
+        enc = te.build_encoder("imu_hand", 17, 8, {**base, key: value, "num_layers": 2,
+                                                   "pipeline_microbatches": 4})
+        assert enc.pipeline.pipeline_parallel == 2 and enc.pipeline.microbatches == 4
+        assert enc.pipeline.pipe_layers["linear1"]["kernel"].shape == (2, 16, 2048)
+        assert not hasattr(enc, "layers")
+    elif key == "sequence_parallel":
+        enc = te.build_encoder("imu_hand", 17, 8, {**base, key: value})
+        assert enc.sequence_parallel and enc.layers[0].seq_parallel
+        # its chunk-of-T parameters are marked for the sum over 'model'
+        assert enc.layers[0].norm2.weight.sequence_parallel
+        assert not hasattr(enc.layers[0].q_proj.weight, "sequence_parallel")
     else:
         with pytest.raises(error, match=match):
             te.build_encoder("imu_hand", 17, 8, {**base, key: value})
@@ -243,17 +263,29 @@ def test_build_encoder_refuses_unported_per_encoder_keys(key, value, error, matc
 
 
 @pytest.mark.parametrize("overrides,error,match", [
-    (["parallel.num_devices=4"], NotImplementedError, "parallel.num_devices=4 .*item 11"),
-    (["parallel.num_devices=4", "parallel.model_parallel=2"], NotImplementedError,
-     "parallel.model_parallel=2 .*item 11"),
-    (["parallel.num_devices=4", "parallel.dcn_slices=2"], NotImplementedError,
-     "parallel.dcn_slices=2 .*item 11"),
-    (["parallel.num_devices=4", "parallel.pipeline_parallel=2"], NotImplementedError,
-     "parallel.pipeline_parallel=2 .*item 11"),
-    (["parallel.num_devices=2", "parallel.zero_optimizer=true"], NotImplementedError,
-     "parallel.zero_optimizer=True .*item 11"),
-    (["parallel.num_devices=4", "parallel.model_parallel=2", "parallel.sequence_parallel=true"],
-     NotImplementedError, "parallel.sequence_parallel=True .*item 11"),
+    # ported since (the parallel layouts): the cases keep their names; the
+    # Trainer builds, and its mesh needs a world of that many processes (the
+    # reference's ValueError for too few devices; tests/test_torch_port_dist.py
+    # runs the layouts in one)
+    pytest.param(["parallel.num_devices=4"], ValueError, "Requested 4 devices but only 1",
+                 id="overrides0-NotImplementedError-parallel.num_devices=4 .*item 11"),
+    pytest.param(["parallel.num_devices=4", "parallel.model_parallel=2"], ValueError,
+                 "Requested 4 devices but only 1",
+                 id="overrides1-NotImplementedError-parallel.model_parallel=2 .*item 11"),
+    pytest.param(["parallel.num_devices=4", "parallel.dcn_slices=2"], ValueError,
+                 "Requested 4 devices but only 1",
+                 id="overrides2-NotImplementedError-parallel.dcn_slices=2 .*item 11"),
+    pytest.param(["parallel.num_devices=4", "parallel.pipeline_parallel=2",
+                  "model.encoders.imu_hand.num_layers=2", "model.encoders.imu_chest.num_layers=2",
+                  "model.encoders.imu_ankle.num_layers=2", "model.encoders.heart_rate.num_layers=2"],
+                 ValueError, "Requested 4 devices but only 1",
+                 id="overrides3-NotImplementedError-parallel.pipeline_parallel=2 .*item 11"),
+    pytest.param(["parallel.num_devices=2", "parallel.zero_optimizer=true"], ValueError,
+                 "Requested 2 devices but only 1",
+                 id="overrides4-NotImplementedError-parallel.zero_optimizer=True .*item 11"),
+    pytest.param(["parallel.num_devices=4", "parallel.model_parallel=2",
+                  "parallel.sequence_parallel=true"], ValueError, "Requested 4 devices but only 1",
+                 id="overrides5-NotImplementedError-parallel.sequence_parallel=True .*item 11"),
     # ported since: the case keeps its name and now checks that remat builds
     pytest.param(["training.remat=true"], None, None,
                  id="overrides6-NotImplementedError-training.remat .*item 9"),
@@ -274,6 +306,11 @@ def test_trainer_refuses_unported_layouts(overrides, error, match):
         trainer = tt.Trainer(load_config(REPO / "config" / "base.yaml", small + overrides),
                              device="cpu")
         assert trainer.remat
+    elif str(match).startswith("Requested"):
+        trainer = tt.Trainer(load_config(REPO / "config" / "base.yaml", small + overrides),
+                             device="cpu")
+        with pytest.raises(error, match=match):
+            trainer.init_state(steps_per_epoch=1)
     else:
         with pytest.raises(error, match=match):
             tt.Trainer(load_config(REPO / "config" / "base.yaml", small + overrides), device="cpu")
