@@ -223,6 +223,10 @@ Phases (any failure exits non-zero, and no result line is printed):
    bit for bit, p50 and device time by family; and the grouped transformer
    in bf16 served and trained against its plain path (the flash kernels on
    f32 copies of bf16 q, k, v), its launches counted, twice bit for bit.
+   Rows 1b and 13b and the bf16 hidden of rows 10b-12b run on ``wgmma``
+   (``wgmma_bf16.cuh``, ``wgmma_ffw.cuh``); each bf16 row in the kernels
+   line names its design, and the bf16 forward is held to the f32 entry at
+   f32's limit.
 14. MoE: ``model.moe_experts=4 model.moe_top_k=2 model.moe_capacity_factor=1.25``
    over base.yaml: batch-64 requests (4 packed attention forwards and 1 head
    a request) against the plain path token by token: routing flips printed
@@ -302,16 +306,19 @@ PEAK_BYTES = 3.35e12
 TENSOR_CORE_KERNELS = {"flash_fwd_single": ("flash_fwd_single_kernel",),
                        "flash_fwd_tiled": ("flash_fwd_tiled_kernel",),
                        "packed_attention_bwd": ("bwd_kernel",),
-                       "packed_attention_fwd": ("packed_attention_fwd_kernel",),
+                       "packed_attention_fwd": ("packed_attention_fwd_kernel",
+                                                "packed_attention_fwd_wg_kernel"),
                        "flash_bwd_fused": ("flash_bwd_fused_kernel",),
                        "flash_bwd_dkv": ("flash_dkv_kernel",),
                        "flash_bwd_dq": ("flash_dq_kernel",),
                        "fused_hybrid_head": ("fusion_head",),
-                       "ffw_ln_fwd": ("ffw_ln_hidden_kernel", "ffw_ln_fwd_kernel"),
+                       "ffw_ln_fwd": ("ffw_ln_hidden_kernel", "ffw_ln_hidden_wg_kernel",
+                                      "ffw_ln_fwd_kernel"),
                        "ffw_ln_bwd": ("ffw_ln_bwd",),
                        "proj_ln_fwd": ("proj_ln_fwd",),
                        "proj_ln_bwd": ("proj_ln_bwd",),
-                       "fused_mlp_fwd": ("fused_mlp_hidden_kernel", "fused_mlp_fwd_kernel"),
+                       "fused_mlp_fwd": ("fused_mlp_hidden_kernel", "fused_mlp_hidden_wg_kernel",
+                                         "fused_mlp_fwd_kernel"),
                        "fused_mlp_bwd": ("fused_mlp_bwd",),
                        "lstm_train_fwd": ("lstm_train_fwd_cluster_kernel",),
                        "lstm_train_bwd": ("lstm_train_bwd_cluster_kernel",),
@@ -592,6 +599,14 @@ def check_attention(torch, attn, real_lengths):
         err = max(err, e_out, e_lse)
     if err > ATTN_TOL:
         raise AssertionError(f"packed attention disagrees with its twin: {err} > {ATTN_TOL}")
+    first = attn.packed_attention_fwd(qkv, real_lengths, heads, scale)
+    second = attn.packed_attention_fwd(qkv, real_lengths, heads, scale)
+    torch.cuda.synchronize()
+    if not (torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])):
+        raise AssertionError("packed attention: two runs on the same inputs differ")
+    print(f"  packed_attention_fwd: two runs equal bit for bit; output digest "
+          f"{_digest(list(first))}", flush=True)
+    del first, second
 
     uniform_ms = time_ms(lambda: attn.packed_attention_fwd(qkv, cases[0][1], heads, scale))
     print(f"  packed_attention ms={uniform_ms:.4f} on the uniform random lengths above", flush=True)
@@ -3682,10 +3697,30 @@ def _bf16_bound(flops, nbytes):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+# each bf16 entry's design, for the kernels line
+BF16_DESIGN = {
+    "packed_attention_fwd_bf16": "wgmma m64n64k16 bf16 (wgmma_bf16.cuh): S = Q K^T from "
+                                 "swizzled shared memory, P split into three bf16 register "
+                                 "terms for P.V, two warpgroups a block",
+    "packed_attention_bwd_bf16": "row 2's 3xTF32 mma.sync body, bf16 operands one TF32 pass",
+    "proj_ln_fwd_bf16": "row 14's 3xTF32-template body, one TF32 pass",
+    "proj_ln_bwd_bf16": "row 15's 3xTF32-template body, one TF32 pass",
+    "ffw_ln_fwd_bf16": "the wgmma hidden (wgmma_ffw.cuh) + row 12's LN-forward product, one "
+                       "TF32 pass",
+    "ffw_ln_bwd_bf16": "six launches on wgmma m64n64k16 bf16 (wgmma_ffw.cuh): the hidden, LN "
+                       "backward, dpre, dx, split weight gradients, ordered sums",
+    "fused_mlp_fwd_bf16": "the wgmma hidden (wgmma_ffw.cuh) + row 10's out product, one TF32 "
+                          "pass",
+    "fused_mlp_bwd_bf16": "the wgmma hidden + row 11's dpre, dx, split weight gradients, one "
+                          "TF32 pass",
+}
+
+
 def _bf16_row(name, source, line, err, ms, plain_ms, f32_ms, library_ms, flops, nbytes, **extra):
     bound_ms, bound_by = _bf16_bound(flops, nbytes)
     row = {"name": name, "route": "cuda", "source": f"{PKG}/ops/csrc/{source}",
-           "replaces": f"{TPU_PKG}/ops/{line}", "max_abs_err": err, "ms": ms,
+           "design": BF16_DESIGN[name], "replaces": f"{TPU_PKG}/ops/{line}",
+           "max_abs_err": err, "ms": ms,
            "plain_ms": plain_ms, "f32_ms": f32_ms, "library_ms": library_ms,
            "bound_ms": bound_ms, "bound_by": bound_by, "bound_share": bound_ms / ms,
            "unit": "bf16 tensor-core products (one TF32 pass for two bf16 operands, two "
@@ -3696,8 +3731,10 @@ def _bf16_row(name, source, line, err, ms, plain_ms, f32_ms, library_ms, flops, 
     print(f"  {name} ms={ms:.4f} plain_ms={plain_ms:.4f} f32 entry ms={f32_ms:.4f} "
           f"library_ms={lib} bound_ms={bound_ms:.4f} ({bound_by}; GFLOP bf16 x bf16 "
           f"{flops[0] / 1e9:.2f}, f32 x bf16 {flops[1] / 1e9:.2f}, f32 x f32 "
-          f"{flops[2] / 1e9:.2f}; {nbytes / 1e6:.1f} MB), share {100 * bound_ms / ms:.1f}%",
-          flush=True)
+          f"{flops[2] / 1e9:.2f}; {nbytes / 1e6:.1f} MB), share {100 * bound_ms / ms:.1f}%"
+          + (f" (bound_ms_2xtf32_pv={extra['bound_ms_2xtf32_pv']:.4f}, share "
+             f"{100 * extra['bound_ms_2xtf32_pv'] / ms:.1f}%)" if "bound_ms_2xtf32_pv" in extra
+             else ""), flush=True)
     return row
 
 
@@ -3719,7 +3756,7 @@ def check_bf16_attention(torch, attn, serve_lengths, train_lengths):
     for d in (16, 32, 128):  # every head dim, padded T = 72 on the tile edges
         cases.append((f"d={d} T=72", qkv_of(7, 72, d),
                       torch.tensor([0, 1, 37, 64, 65, 71, 72], dtype=torch.int32).cuda()))
-    err_f, err_b, same_f, same_b = 0.0, 0.0, True, True
+    err_f, err_b, err_f32, same_b = 0.0, 0.0, 0.0, True
     for name, x, lens in cases:
         d = x.shape[-1] // (3 * heads)
         scale = d**-0.5
@@ -3730,7 +3767,6 @@ def check_bf16_attention(torch, attn, serve_lengths, train_lengths):
         valid = ref_lse > attn.NEG_INF / 2
         e = max((out - ref_out).abs().max().item(), (lse[valid] - ref_lse[valid]).abs().max().item())
         e_f32 = max((out - f_out).abs().max().item(), (lse - f_lse).abs().max().item())
-        bits = torch.equal(out, f_out) and torch.equal(lse, f_lse)
         dout = torch.randn(out.shape, generator=g).to(bf).float().cuda()  # a bf16 cotangent
         got = attn.packed_attention_bwd_bf16(x, lens, ref_out, ref_lse, dout, heads, scale)
         want = attn.packed_attention_bwd_bf16_reference(x, lens, ref_out, ref_lse, dout, heads,
@@ -3741,18 +3777,18 @@ def check_bf16_attention(torch, attn, serve_lengths, train_lengths):
         e_b = rel_err(got.float(), want.float())
         e_bf32 = rel_err(got.float(), f_got.float())
         bits_b = torch.equal(got, f_got)
-        print(f"  packed_attention bf16 {name}: fwd max_abs_err {e:.3e} vs twin (tol {ATTN_TOL}), "
-              f"{e_f32:.3e} vs the f32 entry on f32 copies (bits equal: {bits}); bwd rel err "
-              f"{e_b:.3e} vs twin, {e_bf32:.3e} vs the f32 entry (tol {BF16_TOL}; bits equal: "
-              f"{bits_b})", flush=True)
-        err_f, err_b = max(err_f, e, e_f32), max(err_b, e_b, e_bf32)
-        same_f, same_b = same_f and (bits or d in (32, 128)), same_b and bits_b
-    if err_f > ATTN_TOL or err_b > BF16_TOL:
-        raise AssertionError(f"packed attention bf16 entries: {err_f} > {ATTN_TOL} or "
-                             f"{err_b} > {BF16_TOL}")
-    print(f"  packed_attention bf16 entries = the f32 entries on f32 copies bit for bit: "
-          f"forward at d = 16 and 64 (sm_scale a power of two) {same_f}, backward at every d "
-          f"{same_b}", flush=True)
+        print(f"  packed_attention bf16 {name}: fwd max_abs_err {e:.3e} vs twin, {e_f32:.3e} "
+              f"vs the f32 entry on f32 copies (tol {ATTN_TOL}); bwd rel err {e_b:.3e} vs "
+              f"twin, {e_bf32:.3e} vs the f32 entry (tol {BF16_TOL}; bits equal: {bits_b})",
+              flush=True)
+        err_f, err_f32, err_b = max(err_f, e), max(err_f32, e_f32), max(err_b, e_b, e_bf32)
+        same_b = same_b and bits_b
+    if max(err_f, err_f32) > ATTN_TOL or err_b > BF16_TOL:
+        raise AssertionError(f"packed attention bf16 entries: {err_f}, {err_f32} > {ATTN_TOL} "
+                             f"or {err_b} > {BF16_TOL}")
+    print(f"  packed_attention bf16 forward (wgmma, P in three bf16 terms) vs the f32 entry on "
+          f"f32 copies: max_abs_err {err_f32:.3e} (tol {ATTN_TOL}); backward = the f32 entry "
+          f"bit for bit at every d: {same_b}", flush=True)
     # twice on one input, bit for bit
     x, lens = serve_qkv, serve_lengths
     a, b = (attn.packed_attention_fwd_bf16(x, lens, heads, hd**-0.5) for _ in range(2))
@@ -3777,9 +3813,11 @@ def check_bf16_attention(torch, attn, serve_lengths, train_lengths):
         key_mask = (torch.arange(seq, device="cuda")[None, :] < lens[:, None].long())[
             :, None, None, :]
         keys = float(lens.clamp(0, seq).sum().item())
-        # one product over the valid keys. Forward: Q.K^T bf16 x bf16, P.V f32 x
-        # bf16. Backward: K.Q^T bf16 x bf16; V.dO^T, dS.K and dS^T.Q f32 x bf16;
-        # P^T.dO f32 x f32 (dO is the f32 cotangent)
+        # one product over the valid keys. Forward: Q.K^T bf16 x bf16, and P.V
+        # as the two bf16 x bf16 terms of P that meet f32's 1e-5 limit (the
+        # kernel runs three); bound_ms_2xtf32_pv counts P.V as f32 x bf16, the
+        # old body's two TF32 passes. Backward: K.Q^T bf16 x bf16; V.dO^T, dS.K
+        # and dS^T.Q f32 x bf16; P^T.dO f32 x f32 (dO is the f32 cotangent)
         unit = 2.0 * heads * hd * seq * keys
         xf = x.float()
         if kind == "fwd":
@@ -3791,8 +3829,9 @@ def check_bf16_attention(torch, attn, serve_lengths, train_lengths):
                                               + batch)
             rows.append(_bf16_row("packed_attention_fwd_bf16", "packed_attention.cu",
                                   "pallas_attention.py:793", err_f, ms, plain_ms, f32_ms,
-                                  library_ms, (unit, unit, 0.0), nbytes, body=f"{PKG}/ops/"
-                                  "csrc/attention_fwd.cuh", bits_equal_f32=same_f))
+                                  library_ms, (3 * unit, 0.0, 0.0), nbytes, body=f"{PKG}/ops/"
+                                  "csrc/wgmma_bf16.cuh", max_abs_err_vs_f32=err_f32,
+                                  bound_ms_2xtf32_pv=_bf16_bound((unit, unit, 0.0), nbytes)[0]))
         else:
             ms = time_ms(lambda: attn.packed_attention_bwd_bf16(x, lens, t_out, t_lse, t_dout,
                                                                 heads, scale))

@@ -20,16 +20,8 @@
 // the score accumulators to the P.V operand without leaving registers. Key
 // tiles at or past the length are skipped, so every processed tile holds a
 // valid key and the running max is finite after the first. 68 KB of shared
-// memory at D = 64; registers hold an SM to two blocks.
-//
-// The operand type In is a template parameter: float, or __nv_bfloat16 for
-// the packed forward's bf16 entry (mixed_precision). There K and V tiles are
-// staged as bf16 (half the bytes, 36 KB at D = 64), q is held unscaled
-// (bf16 values, exact in TF32) and s = (q k^T) * sm_scale: q k^T is one TF32
-// product (two bf16 operands), P.V two (P f32, V bf16), each the sum mma3
-// takes on f32 copies of the same values. With sm_scale a power of two (D =
-// 16, 64) the scores are those of the f32 body on f32 copies bit for bit;
-// otherwise they differ by the rounding of one product, ~2^-24 relative.
+// memory at D = 64; registers hold an SM to two blocks. f32 operands only:
+// the packed forward's bf16 entry runs its own tile on wgmma (wgmma_bf16.cuh).
 
 #pragma once
 
@@ -45,19 +37,18 @@ constexpr int kFwdTileK = 64;     // keys per staged tile
 constexpr int kFwdThreads = 128;
 constexpr float kFwdNegInf = -1e30f;
 
-template <int D, typename In = float>
+template <int D>
 constexpr size_t fwd_smem_bytes() {
-  // two stages x (K tile, V tile), each [kFwdTileK][D + kPadOf<In>]
-  return sizeof(In) * 2 * 2 * kFwdTileK * (D + kPadOf<In>);
+  // two stages x (K tile, V tile), each [kFwdTileK][D + kPad]
+  return sizeof(float) * 2 * 2 * kFwdTileK * (D + kPad);
 }
 
 // One (b, h) row's strided views: row t of q, k, v at q/k/v + t * ld_in, of
 // out at out + t * ld_out, its lse at lse + t * ld_lse.
-template <typename In = float>
 struct FwdRow {
-  const In* q;
-  const In* k;
-  const In* v;
+  const float* q;
+  const float* k;
+  const float* v;
   long ld_in;
   float* out;
   long ld_out;
@@ -65,14 +56,12 @@ struct FwdRow {
   long ld_lse;
 };
 
-template <int D, typename In = float>
-__device__ __forceinline__ void attention_fwd_tile(const FwdRow<In>& row, int T, int len,
-                                                   int q0, float sm_scale, float* smem_f) {
+template <int D>
+__device__ __forceinline__ void attention_fwd_tile(const FwdRow& row, int T, int len, int q0,
+                                                   float sm_scale, float* smem) {
   constexpr int kSteps = D / 8;  // k-steps of Q.K^T, output column tiles of P.V
-  constexpr int kLd = D + kPadOf<In>;
-  constexpr int kTileFloats = kFwdTileK * kLd;  // elements of one tile
-  constexpr bool kF32 = kHasLo<In>;  // f32 operands: q scaled, 3xTF32 throughout
-  In* smem = reinterpret_cast<In*>(smem_f);
+  constexpr int kLd = D + kPad;
+  constexpr int kTileFloats = kFwdTileK * kLd;
   const long ld = row.ld_in;
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
@@ -86,20 +75,18 @@ __device__ __forceinline__ void attention_fwd_tile(const FwdRow<In>& row, int T,
     cp_async_commit();
   }
 
-  // this warp's 16 query rows as A fragments (k along the row): f32 q
-  // scaled here, bf16 q as it is (the scale goes on the scores)
+  // this warp's 16 query rows, scaled, as A fragments (k along the row)
   const int row0 = q0 + warp * 16 + g, row1 = row0 + 8;
-  const In* qa = row.q + (long)row0 * ld;
-  const In* qb = qa + 8 * ld;
-  const float q_scale = kF32 ? sm_scale : 1.f;
+  const float* qa = row.q + (long)row0 * ld;
+  const float* qb = qa + 8 * ld;
   float qf[kSteps][4];
 #pragma unroll
   for (int kk = 0; kk < kSteps; ++kk) {
     const int c = 8 * kk + t;
-    qf[kk][0] = row0 < T ? load1(qa + c) * q_scale : 0.f;
-    qf[kk][1] = row1 < T ? load1(qb + c) * q_scale : 0.f;
-    qf[kk][2] = row0 < T ? load1(qa + c + 4) * q_scale : 0.f;
-    qf[kk][3] = row1 < T ? load1(qb + c + 4) * q_scale : 0.f;
+    qf[kk][0] = row0 < T ? qa[c] * sm_scale : 0.f;
+    qf[kk][1] = row1 < T ? qb[c] * sm_scale : 0.f;
+    qf[kk][2] = row0 < T ? qa[c + 4] * sm_scale : 0.f;
+    qf[kk][3] = row1 < T ? qb[c + 4] * sm_scale : 0.f;
   }
 
   // running max and sum of rows g (index 0) and g + 8 (index 1); each lane
@@ -113,12 +100,12 @@ __device__ __forceinline__ void attention_fwd_tile(const FwdRow<In>& row, int T,
     for (int e = 0; e < 4; ++e) o[nd][e] = 0.f;
 
   for (int kt = 0; kt < n_tiles; ++kt) {
-    const In* Ks = smem + (kt & 1) * 2 * kTileFloats;
-    const In* Vs = Ks + kTileFloats;
+    const float* Ks = smem + (kt & 1) * 2 * kTileFloats;
+    const float* Vs = Ks + kTileFloats;
     cp_async_wait<1>();  // in flight: K[kt], V[kt] -> K[kt] has landed
     __syncthreads();     // ... for every thread; and tile kt-1's stage is free
     if (kt + 1 < n_tiles) {
-      In* next = smem + ((kt + 1) & 1) * 2 * kTileFloats;
+      float* next = smem + ((kt + 1) & 1) * 2 * kTileFloats;
       const int k1 = (kt + 1) * kFwdTileK;
       stage_rows<D>(next, row.k + (long)k1 * ld, ld, kFwdTileK, T - k1, row.k, tid, kFwdThreads);
       cp_async_commit();
@@ -137,14 +124,7 @@ __device__ __forceinline__ void attention_fwd_tile(const FwdRow<In>& row, int T,
     for (int kk = 0; kk < kSteps; ++kk) {
       const FragA a = split_a(qf[kk][0], qf[kk][1], qf[kk][2], qf[kk][3]);
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
-        mma_n<kF32, kF32>(s[j], a, load_b_rowk(Ks, kLd, 8 * j, 8 * kk, g, t));
-    }
-    if constexpr (!kF32) {
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[j][e] *= sm_scale;
+      for (int j = 0; j < 8; ++j) mma3(s[j], a, load_b_rowk(Ks, kLd, 8 * j, 8 * kk, g, t));
     }
 
     // online softmax: one rescale per tile; the tile holds a valid key, so the new max is finite
@@ -202,8 +182,8 @@ __device__ __forceinline__ void attention_fwd_tile(const FwdRow<In>& row, int T,
 #pragma unroll
       for (int nd = 0; nd < kSteps; ++nd) {
         float part[4];
-        mma_n<true, kF32, true>(part, a0, load_b_colk(Vs, kLd, 8 * j, 8 * nd, g, t));
-        mma_n<true, kF32>(part, a1, load_b_colk(Vs, kLd, 8 * j + 8, 8 * nd, g, t));
+        mma3_zero(part, a0, load_b_colk(Vs, kLd, 8 * j, 8 * nd, g, t));
+        mma3(part, a1, load_b_colk(Vs, kLd, 8 * j + 8, 8 * nd, g, t));
 #pragma unroll
         for (int e = 0; e < 4; ++e) o[nd][e] += part[e];
       }

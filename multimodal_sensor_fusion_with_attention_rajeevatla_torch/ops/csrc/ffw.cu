@@ -59,12 +59,19 @@
 // forward's 34.4 GFLOP and the backward's 85.9 bound at the bf16
 // tensor-core peak (989 TFLOP/s): 0.035 ms and 0.087 ms at the training
 // shape, against ~52 and ~64 MB of bf16 activations, masks and weights.
+// Their hidden is ffw_ln.cu's bf16 hidden on wgmma (wgmma_ffw.cuh's
+// wg_hidden_tile, launched here as fused_mlp_hidden_wg_kernel: the same
+// bits), the other products the 3xTF32 template's at one TF32 pass. With it
+// the forward went 0.3473 -> 0.2380 ms and the backward 0.9023 -> 0.7996 at
+// the training shape (scripts/attention_kernels_ab.py, an H100 80GB HBM3 at
+// 700 W).
 
 #include <cuda_runtime.h>
 #include <math.h>
 
 #include "ffw_products.cuh"
 #include "residual_ln.cuh"
+#include "wgmma_ffw.cuh"
 
 namespace {
 
@@ -73,13 +80,22 @@ using namespace msfa_ln;
 using bf16 = __nv_bfloat16;
 
 // hd = relu(x W1 + b1) * mask * inv_keep for a 128-row x 64-column tile
-template <typename T>
 __global__ void __launch_bounds__(HiddenProduct::kThreads, 2)
-fused_mlp_hidden_kernel(const T* __restrict__ x, const T* __restrict__ w1,
+fused_mlp_hidden_kernel(const float* __restrict__ x, const float* __restrict__ w1,
                         const float* __restrict__ b1, const unsigned char* __restrict__ mask,
-                        T* __restrict__ hd, int N, int D, int F, float inv_keep) {
+                        float* __restrict__ hd, int N, int D, int F, float inv_keep) {
   extern __shared__ __align__(16) float smem[];
   hidden_tile(x, w1, b1, mask, hd, N, D, F, inv_keep, smem);
+}
+
+// the bf16 hidden on wgmma: wgmma_ffw.cuh's wg_hidden_tile, the body of
+// ffw_ln.cu's bf16 hidden kernel too (the same bits)
+__global__ void __launch_bounds__(msfa_wg::WgFProduct::kThreads, 2)
+fused_mlp_hidden_wg_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
+                           const float* __restrict__ b1, const unsigned char* __restrict__ mask,
+                           bf16* __restrict__ hd, int N, int D, int F, float inv_keep) {
+  extern __shared__ __align__(1024) unsigned char wg_smem[];
+  msfa_wg::wg_hidden_tile(x, w1, b1, mask, hd, N, D, F, inv_keep, msfa_wg::align1024(wg_smem));
 }
 
 // out = hd W2 + b2 for 64 whole rows
@@ -156,14 +172,28 @@ cudaError_t sum_splits(const float* part, Out* out, int splits, long width, cuda
 }
 
 // the hidden, as both directions take it
-template <typename T>
-cudaError_t launch_hidden(const T* x, const T* w1, const float* b1, const unsigned char* mask,
-                          T* hd, int N, int D, int F, float inv_keep, cudaStream_t s) {
-  using P = HiddenProductOf<T>;
-  const cudaError_t err = allow_smem(fused_mlp_hidden_kernel<T>, P::kSmemFloats);
+cudaError_t launch_hidden(const float* x, const float* w1, const float* b1,
+                          const unsigned char* mask, float* hd, int N, int D, int F,
+                          float inv_keep, cudaStream_t s) {
+  using P = HiddenProduct;
+  const cudaError_t err = allow_smem(fused_mlp_hidden_kernel, P::kSmemFloats);
   if (err != cudaSuccess) return err;
   const dim3 grid(F / kColsF, (N + kRowsF - 1) / kRowsF);
-  fused_mlp_hidden_kernel<T><<<grid, P::kThreads, P::kSmemFloats * (int)sizeof(float), s>>>(
+  fused_mlp_hidden_kernel<<<grid, P::kThreads, P::kSmemFloats * (int)sizeof(float), s>>>(
+      x, w1, b1, mask, hd, N, D, F, inv_keep);
+  return cudaGetLastError();
+}
+
+// the bf16 hidden, on wgmma
+cudaError_t launch_hidden(const bf16* x, const bf16* w1, const float* b1,
+                          const unsigned char* mask, bf16* hd, int N, int D, int F,
+                          float inv_keep, cudaStream_t s) {
+  constexpr int kBytes = msfa_wg::hidden_smem_bytes();
+  const cudaError_t err = cudaFuncSetAttribute(
+      fused_mlp_hidden_wg_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((F + msfa_wg::kWgColsF - 1) / msfa_wg::kWgColsF, (N + kRowsF - 1) / kRowsF);
+  fused_mlp_hidden_wg_kernel<<<grid, msfa_wg::WgFProduct::kThreads, kBytes, s>>>(
       x, w1, b1, mask, hd, N, D, F, inv_keep);
   return cudaGetLastError();
 }
@@ -258,10 +288,11 @@ int bwd_entry(const T* x, const T* w1, const float* b1, const T* w2, const unsig
 #undef MSFA_FFW_BWD
 }
 
+// bytes[0] is the hidden's: HiddenProduct's, or the wgmma hidden's for bf16
 template <typename T>
-int smem_bytes(int D, int* bytes) {
+int smem_bytes(int D, int hidden_bytes, int* bytes) {
   const int fb = (int)sizeof(float);
-  bytes[0] = HiddenProductOf<T>::kSmemFloats * fb;
+  bytes[0] = hidden_bytes;
   bytes[2] = DhdProductOf<T>::kSmemFloats * fb;
   bytes[4] = GradProductOf<T>::kSmemFloats * fb;
   switch (D) {
@@ -322,8 +353,12 @@ int msfa_ffw_bwd_bf16(const bf16* x, const bf16* w1, const float* b1, const bf16
 
 // Dynamic shared memory per block of the five product kernels (hidden, fwd,
 // dpre, dx, dw) at width D, into bytes[0..4]; the bf16 entries' beside it.
-int msfa_ffw_smem_bytes(int D, int* bytes) { return smem_bytes<float>(D, bytes); }
-int msfa_ffw_bf16_smem_bytes(int D, int* bytes) { return smem_bytes<bf16>(D, bytes); }
+int msfa_ffw_smem_bytes(int D, int* bytes) {
+  return smem_bytes<float>(D, HiddenProduct::kSmemFloats * (int)sizeof(float), bytes);
+}
+int msfa_ffw_bf16_smem_bytes(int D, int* bytes) {
+  return smem_bytes<bf16>(D, msfa_wg::hidden_smem_bytes(), bytes);
+}
 
 const char* msfa_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -49,23 +49,38 @@
 // same arguments, so the backward's hd, and with it every branch, is the
 // forward's bit for bit.
 //
-// bf16 entries (msfa_ffw_ln_fwd_bf16, msfa_ffw_ln_bwd_bf16: mixed_precision).
-// The same kernels at T = bf16, the function of the reference's kernels when
-// x is bf16 (their compute type is x's): x, W1, W2 and dout bf16 and out, dx,
-// dW1, dW2 bf16; b1, b2, gamma, beta and db1, db2, dgamma, dbeta f32. pre
-// sums exact bf16 products in f32; the hidden is rounded to bf16 before W2's
-// product (and kept so in its scratch, half the bytes), dy and dpre before
-// theirs; the residual, the LayerNorm and its backward run in f32, and dr
-// waits in an f32 scratch for dx's product. Every product takes two bf16
-// operands, one TF32 product a k-step where 3xTF32 takes three: the forward's
-// 34.4 GFLOP and the backward's 103 bound at the bf16 tensor-core peak (989
+// bf16 entries (msfa_ffw_ln_fwd_bf16, msfa_ffw_ln_bwd_bf16: mixed_precision),
+// the function of the reference's kernels when x is bf16 (their compute type
+// is x's): x, W1, W2 and dout bf16 and out, dx, dW1, dW2 bf16; b1, b2,
+// gamma, beta and db1, db2, dgamma, dbeta f32. pre sums exact bf16 products
+// in f32; the hidden is rounded to bf16 before W2's product (and kept so in
+// its scratch, half the bytes), dy and dpre before theirs; the residual, the
+// LayerNorm and its backward run in f32, and dr waits in an f32 scratch for
+// dx's product. Every product takes two bf16 operands: the forward's 34.4
+// GFLOP and the backward's 103 bound at the bf16 tensor-core peak (989
 // TFLOP/s): 0.035 ms and 0.104 ms at the training shape.
+//   Backward and hidden: on wgmma (wgmma_ffw.cuh over wgmma_bf16.cuh's
+//   WgProduct, m64n64k16 bf16 from 128-byte-swizzled shared memory filled by
+//   cp.async, the transposed operands W1^T, W2^T, hd^T, dpre^T read
+//   MN-major). The same six launches: the hidden and dpre (k = D) on 128 x
+//   128 tiles with the whole k in the unit, the mask or hd tile prefetched
+//   beside the product and the output stored through shared memory; the LN
+//   backward and dx (k = d_ff) on 128 whole rows, 64-deep fresh accumulators
+//   added in f32; dW2 = hd^T dy and dW1 = (dpre^T x)^T on 128 x D tiles per
+//   split of the rows (mlp.py _wg_grad_splits), the same fresh chunks; the
+//   ordered sums. It replaced these kernels at T = bf16 (one TF32 mma.sync
+//   pass a k-step on widened bf16 values, tc_product.cuh): the backward
+//   went 1.0895 -> 0.5211 ms and the forward 0.3551 -> 0.2465 at the
+//   training shape (scripts/attention_kernels_ab.py, an H100 80GB HBM3 at
+//   700 W).
+//   Forward's LN product: the 3xTF32 template at one TF32 pass, as before.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
 #include "ffw_products.cuh"
 #include "residual_ln.cuh"
+#include "wgmma_ffw.cuh"
 
 namespace {
 
@@ -73,12 +88,13 @@ using namespace msfa_ffw;
 using namespace msfa_ln;
 using bf16 = __nv_bfloat16;
 
+// The f32 entries' kernels (the bf16 forward's LN product too: ffw_ln_fwd_kernel)
+
 // hd = relu(x W1 + b1) * fmask * inv_keep for a 128-row x 64-column tile
-template <typename T>
 __global__ void __launch_bounds__(HiddenProduct::kThreads, 2)
-ffw_ln_hidden_kernel(const T* __restrict__ x, const T* __restrict__ w1,
+ffw_ln_hidden_kernel(const float* __restrict__ x, const float* __restrict__ w1,
                      const float* __restrict__ b1, const unsigned char* __restrict__ fmask,
-                     T* __restrict__ hd, int N, int D, int F, float inv_keep) {
+                     float* __restrict__ hd, int N, int D, int F, float inv_keep) {
   extern __shared__ __align__(16) float smem[];
   hidden_tile(x, w1, b1, fmask, hd, N, D, F, inv_keep, smem);
 }
@@ -97,13 +113,13 @@ ffw_ln_fwd_kernel(const T* __restrict__ hd, const T* __restrict__ w2,
 
 // y = hd W2 + b2 for 64 whole rows, then the LayerNorm backward: dr (into
 // dr_out, f32), dy, and the block's sums over its rows of dout * xhat | dout | dy
-template <int D, typename T>
+template <int D>
 __global__ void __launch_bounds__(LnProduct<D>::kThreads)
-ffw_ln_bwd_ln_kernel(const T* __restrict__ hd, const T* __restrict__ w2,
-                     const float* __restrict__ b2, const T* __restrict__ x,
+ffw_ln_bwd_ln_kernel(const float* __restrict__ hd, const float* __restrict__ w2,
+                     const float* __restrict__ b2, const float* __restrict__ x,
                      const float* __restrict__ gamma, const unsigned char* __restrict__ rmask,
-                     const T* __restrict__ dout, float* __restrict__ dr_out,
-                     T* __restrict__ dy_out, float* __restrict__ part, int N, int F,
+                     const float* __restrict__ dout, float* __restrict__ dr_out,
+                     float* __restrict__ dy_out, float* __restrict__ part, int N, int F,
                      int Dv, float inv_keep, float eps) {
   extern __shared__ __align__(16) float smem[];
   ln_bwd_tile<D>(hd, F, w2, b2, x, gamma, rmask, dout, dr_out, dy_out, part, N, inv_keep, eps,
@@ -112,30 +128,28 @@ ffw_ln_bwd_ln_kernel(const T* __restrict__ hd, const T* __restrict__ w2,
 
 // dpre = (hd > 0) * (dy W2^T) * fmask * inv_keep for a 128-row x 64-column
 // tile, and the block's column sums of dpre (db1's partial)
-template <typename T>
 __global__ void __launch_bounds__(DhdProduct::kThreads, 2)
-ffw_ln_bwd_dpre_kernel(const T* __restrict__ dy, const T* __restrict__ w2,
-                       const T* __restrict__ hd, const unsigned char* __restrict__ fmask,
-                       T* __restrict__ dpre, float* __restrict__ part, int N, int D, int F,
+ffw_ln_bwd_dpre_kernel(const float* __restrict__ dy, const float* __restrict__ w2,
+                       const float* __restrict__ hd, const unsigned char* __restrict__ fmask,
+                       float* __restrict__ dpre, float* __restrict__ part, int N, int D, int F,
                        float inv_keep) {
   extern __shared__ __align__(16) float smem[];
   dpre_tile(dy, w2, hd, fmask, dpre, part, N, D, F, inv_keep, smem);
 }
 
-// dx = dr + dpre W1^T for 64 whole rows (dr f32; with f32 dx it is dx itself)
-template <int D, typename T>
+// dx = dr + dpre W1^T for 64 whole rows (dr is dx itself)
+template <int D>
 __global__ void __launch_bounds__(DxProduct<D>::kThreads)
-ffw_ln_bwd_dx_kernel(const T* __restrict__ dpre, const T* __restrict__ w1, const float* dr,
-                     T* dx, int N, int F) {
+ffw_ln_bwd_dx_kernel(const float* __restrict__ dpre, const float* __restrict__ w1,
+                     const float* dr, float* dx, int N, int F) {
   extern __shared__ __align__(16) float smem[];
   dx_tile<D, true>(dpre, F, w1, dr, dx, N, smem);
 }
 
 // part[split] = A[rows of split]^T B[rows of split] for a 128 x 64 tile of
 // the [M, O] weight gradient (A [N, M], B [N, O] row-major)
-template <typename T>
 __global__ void __launch_bounds__(GradProduct::kThreads, 2)
-ffw_ln_bwd_dw_kernel(const T* __restrict__ A, int M, const T* __restrict__ B, int O,
+ffw_ln_bwd_dw_kernel(const float* __restrict__ A, int M, const float* __restrict__ B, int O,
                      float* __restrict__ part, int N, int rows_per_split) {
   extern __shared__ __align__(16) float smem[];
   grad_tile(A, M, B, O, part, N, rows_per_split, smem);
@@ -156,15 +170,82 @@ cudaError_t sum_splits(const float* part, Out* out, int splits, long width, cuda
   return cudaGetLastError();
 }
 
+// The bf16 entries' kernels on wgmma (wgmma_ffw.cuh's bodies)
+__global__ void __launch_bounds__(msfa_wg::WgFProduct::kThreads, 2)
+ffw_ln_hidden_wg_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
+                        const float* __restrict__ b1, const unsigned char* __restrict__ fmask,
+                        bf16* __restrict__ hd, int N, int D, int F, float inv_keep) {
+  extern __shared__ __align__(1024) unsigned char wg_smem[];
+  msfa_wg::wg_hidden_tile(x, w1, b1, fmask, hd, N, D, F, inv_keep, msfa_wg::align1024(wg_smem));
+}
+
+template <int D>
+__global__ void __launch_bounds__(msfa_wg::WgLnProduct<D>::kThreads)
+ffw_ln_bwd_ln_wg_kernel(const bf16* __restrict__ hd, const bf16* __restrict__ w2,
+                        const float* __restrict__ b2, const bf16* __restrict__ x,
+                        const float* __restrict__ gamma, const unsigned char* __restrict__ rmask,
+                        const bf16* __restrict__ dout, float* __restrict__ dr_out,
+                        bf16* __restrict__ dy_out, float* __restrict__ part, int N, int F, int Dv,
+                        float inv_keep, float eps) {
+  extern __shared__ __align__(1024) unsigned char wg_smem[];
+  msfa_wg::wg_ln_bwd_tile<D>(hd, F, w2, b2, x, gamma, rmask, dout, dr_out, dy_out, part, N,
+                             inv_keep, eps, Dv, msfa_wg::align1024(wg_smem));
+}
+
+__global__ void __launch_bounds__(msfa_wg::WgDpreProduct::kThreads, 2)
+ffw_ln_bwd_dpre_wg_kernel(const bf16* __restrict__ dy, const bf16* __restrict__ w2,
+                          const bf16* __restrict__ hd, const unsigned char* __restrict__ fmask,
+                          bf16* __restrict__ dpre, float* __restrict__ part, int N, int D, int F,
+                          float inv_keep) {
+  extern __shared__ __align__(1024) unsigned char wg_smem[];
+  msfa_wg::wg_dpre_tile(dy, w2, hd, fmask, dpre, part, N, D, F, inv_keep,
+                        msfa_wg::align1024(wg_smem));
+}
+
+template <int D>
+__global__ void __launch_bounds__(msfa_wg::WgDxProduct<D>::kThreads)
+ffw_ln_bwd_dx_wg_kernel(const bf16* __restrict__ dpre, const bf16* __restrict__ w1,
+                        const float* __restrict__ dr, bf16* __restrict__ dx, int N, int F) {
+  extern __shared__ __align__(1024) unsigned char wg_smem[];
+  msfa_wg::wg_dx_tile<D>(dpre, F, w1, dr, dx, N, msfa_wg::align1024(wg_smem));
+}
+
+template <int D, bool kTransposed>
+__global__ void __launch_bounds__(msfa_wg::WgGradProduct<D>::kThreads)
+ffw_ln_bwd_dw_wg_kernel(const bf16* __restrict__ A, int M, const bf16* __restrict__ B,
+                        float* __restrict__ part, int N, int rows_per_split) {
+  extern __shared__ __align__(1024) unsigned char wg_smem[];
+  msfa_wg::wg_grad_tile<D, kTransposed>(A, M, B, part, N, rows_per_split,
+                                        msfa_wg::align1024(wg_smem));
+}
+
+template <class Kernel>
+cudaError_t allow_bytes(Kernel kernel, int bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
 // the hidden, as both directions take it
-template <typename T>
-cudaError_t launch_hidden(const T* x, const T* w1, const float* b1, const unsigned char* fmask,
-                          T* hd, int N, int D, int F, float inv_keep, cudaStream_t s) {
-  using P = HiddenProductOf<T>;
-  const cudaError_t err = allow_smem(ffw_ln_hidden_kernel<T>, P::kSmemFloats);
+cudaError_t launch_hidden(const float* x, const float* w1, const float* b1,
+                          const unsigned char* fmask, float* hd, int N, int D, int F,
+                          float inv_keep, cudaStream_t s) {
+  using P = HiddenProduct;
+  const cudaError_t err = allow_smem(ffw_ln_hidden_kernel, P::kSmemFloats);
   if (err != cudaSuccess) return err;
   const dim3 grid(F / kColsF, (N + kRowsF - 1) / kRowsF);
-  ffw_ln_hidden_kernel<T><<<grid, P::kThreads, P::kSmemFloats * (int)sizeof(float), s>>>(
+  ffw_ln_hidden_kernel<<<grid, P::kThreads, P::kSmemFloats * (int)sizeof(float), s>>>(
+      x, w1, b1, fmask, hd, N, D, F, inv_keep);
+  return cudaGetLastError();
+}
+
+// the bf16 hidden, on wgmma: both bf16 directions (and ffw.cu's bf16 pair) take it
+cudaError_t launch_hidden(const bf16* x, const bf16* w1, const float* b1,
+                          const unsigned char* fmask, bf16* hd, int N, int D, int F,
+                          float inv_keep, cudaStream_t s) {
+  constexpr int kBytes = msfa_wg::hidden_smem_bytes();
+  const cudaError_t err = allow_bytes(ffw_ln_hidden_wg_kernel, kBytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((F + msfa_wg::kWgColsF - 1) / msfa_wg::kWgColsF, (N + kRowsF - 1) / kRowsF);
+  ffw_ln_hidden_wg_kernel<<<grid, msfa_wg::WgFProduct::kThreads, kBytes, s>>>(
       x, w1, b1, fmask, hd, N, D, F, inv_keep);
   return cudaGetLastError();
 }
@@ -184,47 +265,99 @@ int launch_fwd(const T* x, const T* w1, const float* b1, const T* w2, const floa
   return 0;
 }
 
-// dr is f32: dx itself at T = float (dx_tile adds to it in place), its own
-// scratch at T = bf16
-template <int D, typename T>
-int launch_bwd(const T* x, const T* w1, const float* b1, const T* w2, const float* b2,
-               const float* gamma, const unsigned char* fmask, const unsigned char* rmask,
-               const T* dout, T* dx, T* dw1, float* db1, T* dw2, float* sums, T* hd, T* dpre,
-               T* dy, float* dr, float* ln_part, float* db1_part, float* dw_part, int N, int Dv,
-               int F, int splits, float inv_keep, float eps, cudaStream_t s) {
-  using PH = DhdProductOf<T>;
-  using PX = DxProduct<D, T>;
-  using PG = GradProductOf<T>;
-  constexpr int kLnFloats = ln_smem_floats<D, T>();
-  MSFA_TRY(allow_smem(ffw_ln_bwd_ln_kernel<D, T>, kLnFloats));
-  MSFA_TRY(allow_smem(ffw_ln_bwd_dpre_kernel<T>, PH::kSmemFloats));
-  MSFA_TRY(allow_smem(ffw_ln_bwd_dx_kernel<D, T>, PX::kSmemFloats));
-  MSFA_TRY(allow_smem(ffw_ln_bwd_dw_kernel<T>, PG::kSmemFloats));
+// The f32 backward: dr is dx itself (dx_tile adds to it in place)
+template <int D>
+int launch_bwd(const float* x, const float* w1, const float* b1, const float* w2,
+               const float* b2, const float* gamma, const unsigned char* fmask,
+               const unsigned char* rmask, const float* dout, float* dx, float* dw1, float* db1,
+               float* dw2, float* sums, float* hd, float* dpre, float* dy, float* dr,
+               float* ln_part, float* db1_part, float* dw_part, int N, int Dv, int F, int splits,
+               float inv_keep, float eps, cudaStream_t s) {
+  using PH = DhdProduct;
+  using PX = DxProduct<D>;
+  using PG = GradProduct;
+  constexpr int kLnFloats = ln_smem_floats<D>();
+  MSFA_TRY(allow_smem(ffw_ln_bwd_ln_kernel<D>, kLnFloats));
+  MSFA_TRY(allow_smem(ffw_ln_bwd_dpre_kernel, PH::kSmemFloats));
+  MSFA_TRY(allow_smem(ffw_ln_bwd_dx_kernel<D>, PX::kSmemFloats));
+  MSFA_TRY(allow_smem(ffw_ln_bwd_dw_kernel, PG::kSmemFloats));
   const int row_tiles_f = (N + kRowsF - 1) / kRowsF, row_tiles_d = (N + kRowsD - 1) / kRowsD;
   const dim3 grid_f(F / kColsF, row_tiles_f);
   const int fb = (int)sizeof(float);
 
   MSFA_TRY(launch_hidden(x, w1, b1, fmask, hd, N, D, F, inv_keep, s));
-  ffw_ln_bwd_ln_kernel<D, T><<<row_tiles_d, LnProduct<D>::kThreads, kLnFloats * fb, s>>>(
+  ffw_ln_bwd_ln_kernel<D><<<row_tiles_d, LnProduct<D>::kThreads, kLnFloats * fb, s>>>(
       hd, w2, b2, x, gamma, rmask, dout, dr, dy, ln_part, N, F, Dv, inv_keep, eps);
   MSFA_TRY(cudaGetLastError());
-  ffw_ln_bwd_dpre_kernel<T><<<grid_f, PH::kThreads, PH::kSmemFloats * fb, s>>>(
+  ffw_ln_bwd_dpre_kernel<<<grid_f, PH::kThreads, PH::kSmemFloats * fb, s>>>(
       dy, w2, hd, fmask, dpre, db1_part, N, D, F, inv_keep);
   MSFA_TRY(cudaGetLastError());
-  ffw_ln_bwd_dx_kernel<D, T><<<row_tiles_d, PX::kThreads, PX::kSmemFloats * fb, s>>>(
+  ffw_ln_bwd_dx_kernel<D><<<row_tiles_d, PX::kThreads, PX::kSmemFloats * fb, s>>>(
       dpre, w1, dr, dx, N, F);
   MSFA_TRY(cudaGetLastError());
 
   const int per_split = rows_per_split(N, splits);
   const int dw_bytes = PG::kSmemFloats * fb;
-  ffw_ln_bwd_dw_kernel<T><<<dim3((F + kGradM - 1) / kGradM, (D + kGradO - 1) / kGradO, splits),
-                            PG::kThreads, dw_bytes, s>>>(hd, F, dy, D, dw_part, N,
-                                                         per_split);  // dW2 = hd^T dy
+  ffw_ln_bwd_dw_kernel<<<dim3((F + kGradM - 1) / kGradM, (D + kGradO - 1) / kGradO, splits),
+                         PG::kThreads, dw_bytes, s>>>(hd, F, dy, D, dw_part, N,
+                                                      per_split);  // dW2 = hd^T dy
   MSFA_TRY(cudaGetLastError());
   MSFA_TRY(sum_splits(dw_part, dw2, splits, (long)F * D, s));
-  ffw_ln_bwd_dw_kernel<T><<<dim3((D + kGradM - 1) / kGradM, (F + kGradO - 1) / kGradO, splits),
-                            PG::kThreads, dw_bytes, s>>>(x, D, dpre, F, dw_part, N,
-                                                         per_split);  // dW1 = x^T dpre
+  ffw_ln_bwd_dw_kernel<<<dim3((D + kGradM - 1) / kGradM, (F + kGradO - 1) / kGradO, splits),
+                         PG::kThreads, dw_bytes, s>>>(x, D, dpre, F, dw_part, N,
+                                                      per_split);  // dW1 = x^T dpre
+  MSFA_TRY(cudaGetLastError());
+  MSFA_TRY(sum_splits(dw_part, dw1, splits, (long)D * F, s));
+  MSFA_TRY(sum_splits(ln_part, sums, row_tiles_d, 3L * D, s));
+  MSFA_TRY(sum_splits(db1_part, db1, row_tiles_f, F, s));
+  return 0;
+}
+
+// The bf16 backward: the same six launches on wgmma (wgmma_ffw.cuh); dr is
+// its own f32 scratch, a weight-gradient split a whole number of 64-row chunks
+template <int D>
+int launch_bwd(const bf16* x, const bf16* w1, const float* b1, const bf16* w2, const float* b2,
+               const float* gamma, const unsigned char* fmask, const unsigned char* rmask,
+               const bf16* dout, bf16* dx, bf16* dw1, float* db1, bf16* dw2, float* sums,
+               bf16* hd, bf16* dpre, bf16* dy, float* dr, float* ln_part, float* db1_part,
+               float* dw_part, int N, int Dv, int F, int splits, float inv_keep, float eps,
+               cudaStream_t s) {
+  using msfa_wg::WgDxProduct;
+  using msfa_wg::WgGradProduct;
+  using msfa_wg::WgLnProduct;
+  using msfa_wg::ring_smem_bytes;
+  constexpr int kLnBytes = msfa_wg::ln_bwd_smem_bytes<D>();
+  constexpr int kDpreBytes = msfa_wg::dpre_smem_bytes();
+  constexpr int kDxBytes = ring_smem_bytes<WgDxProduct<D>>();
+  constexpr int kDwBytes = ring_smem_bytes<WgGradProduct<D>>();
+  MSFA_TRY(allow_bytes(ffw_ln_bwd_ln_wg_kernel<D>, kLnBytes));
+  MSFA_TRY(allow_bytes(ffw_ln_bwd_dpre_wg_kernel, kDpreBytes));
+  MSFA_TRY(allow_bytes(ffw_ln_bwd_dx_wg_kernel<D>, kDxBytes));
+  MSFA_TRY(allow_bytes(ffw_ln_bwd_dw_wg_kernel<D, false>, kDwBytes));
+  MSFA_TRY(allow_bytes(ffw_ln_bwd_dw_wg_kernel<D, true>, kDwBytes));
+  const int row_tiles_f = (N + kRowsF - 1) / kRowsF;
+  const int row_tiles_d = (N + msfa_wg::kWgRowsD - 1) / msfa_wg::kWgRowsD;
+
+  MSFA_TRY(launch_hidden(x, w1, b1, fmask, hd, N, D, F, inv_keep, s));
+  ffw_ln_bwd_ln_wg_kernel<D><<<row_tiles_d, WgLnProduct<D>::kThreads, kLnBytes, s>>>(
+      hd, w2, b2, x, gamma, rmask, dout, dr, dy, ln_part, N, F, Dv, inv_keep, eps);
+  MSFA_TRY(cudaGetLastError());
+  const dim3 grid_f((F + msfa_wg::kWgColsF - 1) / msfa_wg::kWgColsF, row_tiles_f);
+  ffw_ln_bwd_dpre_wg_kernel<<<grid_f, msfa_wg::WgDpreProduct::kThreads, kDpreBytes, s>>>(
+      dy, w2, hd, fmask, dpre, db1_part, N, D, F, inv_keep);
+  MSFA_TRY(cudaGetLastError());
+  ffw_ln_bwd_dx_wg_kernel<D><<<row_tiles_d, WgDxProduct<D>::kThreads, kDxBytes, s>>>(
+      dpre, w1, dr, dx, N, F);
+  MSFA_TRY(cudaGetLastError());
+
+  const int per_split = msfa_wg::wg_rows_per_split(N, splits);
+  const dim3 grid_w((F + msfa_wg::kWgGradM - 1) / msfa_wg::kWgGradM, 1, splits);
+  ffw_ln_bwd_dw_wg_kernel<D, false><<<grid_w, WgGradProduct<D>::kThreads, kDwBytes, s>>>(
+      hd, F, dy, dw_part, N, per_split);  // dW2 = hd^T dy
+  MSFA_TRY(cudaGetLastError());
+  MSFA_TRY(sum_splits(dw_part, dw2, splits, (long)F * D, s));
+  ffw_ln_bwd_dw_wg_kernel<D, true><<<grid_w, WgGradProduct<D>::kThreads, kDwBytes, s>>>(
+      dpre, F, x, dw_part, N, per_split);  // dW1 = (dpre^T x)^T
   MSFA_TRY(cudaGetLastError());
   MSFA_TRY(sum_splits(dw_part, dw1, splits, (long)D * F, s));
   MSFA_TRY(sum_splits(ln_part, sums, row_tiles_d, 3L * D, s));
@@ -274,17 +407,40 @@ int bwd_entry(const T* x, const T* w1, const float* b1, const T* w2, const float
 #undef MSFA_FFW_BWD
 }
 
-template <typename T>
+// the f32 entries' six kernels
 int smem_bytes(int D, int* bytes) {
   const int fb = (int)sizeof(float);
-  bytes[0] = HiddenProductOf<T>::kSmemFloats * fb;
-  bytes[3] = DhdProductOf<T>::kSmemFloats * fb;
-  bytes[5] = GradProductOf<T>::kSmemFloats * fb;
+  bytes[0] = HiddenProduct::kSmemFloats * fb;
+  bytes[3] = DhdProduct::kSmemFloats * fb;
+  bytes[5] = GradProduct::kSmemFloats * fb;
   switch (D) {
-#define MSFA_FFW_SMEM(W)                                  \
-  case W:                                                 \
-    bytes[1] = bytes[2] = ln_smem_floats<W, T>() * fb;    \
-    bytes[4] = DxProduct<W, T>::kSmemFloats * fb;         \
+#define MSFA_FFW_SMEM(W)                               \
+  case W:                                              \
+    bytes[1] = bytes[2] = ln_smem_floats<W>() * fb;    \
+    bytes[4] = DxProduct<W>::kSmemFloats * fb;         \
+    return 0;
+    MSFA_FFW_SMEM(32)
+    MSFA_FFW_SMEM(64)
+    MSFA_FFW_SMEM(128)
+    MSFA_FFW_SMEM(256)
+#undef MSFA_FFW_SMEM
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// the bf16 entries' six kernels: the wgmma hidden, the 3xTF32-template
+// forward, the wgmma backward products
+int smem_bytes_wg(int D, int* bytes) {
+  using msfa_wg::ring_smem_bytes;
+  bytes[0] = msfa_wg::hidden_smem_bytes();
+  bytes[3] = msfa_wg::dpre_smem_bytes();
+  switch (D) {
+#define MSFA_FFW_SMEM(W)                                         \
+  case W:                                                        \
+    bytes[1] = ln_smem_floats<W, bf16>() * (int)sizeof(float);   \
+    bytes[2] = msfa_wg::ln_bwd_smem_bytes<W>();                  \
+    bytes[4] = ring_smem_bytes<msfa_wg::WgDxProduct<W>>();       \
+    bytes[5] = ring_smem_bytes<msfa_wg::WgGradProduct<W>>();     \
     return 0;
     MSFA_FFW_SMEM(32)
     MSFA_FFW_SMEM(64)
@@ -352,8 +508,8 @@ int msfa_ffw_ln_bwd_bf16(const bf16* x, const bf16* w1, const float* b1, const b
 
 // Dynamic shared memory per block of the six product kernels (hidden, fwd,
 // ln, dpre, dx, dw) at width D, into bytes[0..5]; the bf16 entries' beside it.
-int msfa_ffw_ln_smem_bytes(int D, int* bytes) { return smem_bytes<float>(D, bytes); }
-int msfa_ffw_ln_bf16_smem_bytes(int D, int* bytes) { return smem_bytes<bf16>(D, bytes); }
+int msfa_ffw_ln_smem_bytes(int D, int* bytes) { return smem_bytes(D, bytes); }
+int msfa_ffw_ln_bf16_smem_bytes(int D, int* bytes) { return smem_bytes_wg(D, bytes); }
 
 const char* msfa_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -14,12 +14,14 @@
 //                 sums of dpre (db1's partial). hd > 0 is pre > 0 wherever the
 //                 mask keeps the unit; where it drops it, dpre is 0 either way.
 //
-// Both take the activation type T (f32, or bf16 for ffw_ln.cu's bf16 entries):
-// with bf16, x, W1, W2 and g are bf16 operands, hd and dpre are written
-// rounded to bf16 (the products that read them take them so, as the
-// reference's kernel casts them), db1's partial sums the f32 dpre. A
-// positive pre keeps hd > 0 after the rounding (bf16 has f32's exponent
-// range; only a pre below 2^-134 would round to zero).
+// hidden_tile takes f32 operands: the bf16 entries' hidden runs on wgmma
+// (wgmma_ffw.cuh's wg_hidden_tile). dpre_tile takes the activation type T
+// (f32, or bf16 for ffw.cu's bf16 backward): with bf16, g and W2 are bf16
+// operands, dpre is written rounded to bf16 (the products that read it take
+// it so, as the reference's kernel casts it) and db1's partial sums the f32
+// dpre; hd is the bf16 hidden, and a positive pre keeps hd > 0 after the
+// rounding (bf16 has f32's exponent range; only a pre below 2^-134 would
+// round to zero).
 
 #pragma once
 
@@ -33,11 +35,9 @@ namespace msfa_ffw {
 namespace tc = msfa_tc;
 
 // [N, F] products over k = D (hidden, dpre): 128 x 64 tiles, 8 warps
-template <typename T = float>  // x [n][d] . W1 [d][f]
-using HiddenProductOf = tc::TcProduct<128, 64, 4, 2, false, true, T, T>;
+using HiddenProduct = tc::TcProduct<128, 64, 4, 2, false, true>;  // x [n][d] . W1 [d][f]
 template <typename T = float>  // g [n][d] . (W2 [f][d])^T
 using DhdProductOf = tc::TcProduct<128, 64, 4, 2, false, false, T, T>;
-using HiddenProduct = HiddenProductOf<>;
 using DhdProduct = DhdProductOf<>;
 
 constexpr int kRowsF = 128;  // rows of a block in the [N, F] products
@@ -53,14 +53,13 @@ __device__ __forceinline__ float2 keep_scale2(const unsigned char* __restrict__ 
 
 // hd = relu(x W1 + b1) * fmask * inv_keep for the block's tile; blockIdx is
 // (column tile, row tile)
-template <typename T>
-__device__ __forceinline__ void hidden_tile(const T* __restrict__ x,
-                                            const T* __restrict__ w1,
+__device__ __forceinline__ void hidden_tile(const float* __restrict__ x,
+                                            const float* __restrict__ w1,
                                             const float* __restrict__ b1,
                                             const unsigned char* __restrict__ fmask,
-                                            T* __restrict__ hd, int N, int D, int F,
+                                            float* __restrict__ hd, int N, int D, int F,
                                             float inv_keep, float* smem) {
-  using P = HiddenProductOf<T>;
+  using P = HiddenProduct;
   const int f0 = blockIdx.x * kColsF, n0 = blockIdx.y * kRowsF;
   const typename P::A a{x + (long)n0 * D, D, N - n0, D};
   const typename P::B b{w1 + f0, F, F - f0, D};

@@ -54,7 +54,7 @@ __device__ __forceinline__ void forward_tile(const float* q, const float* k, con
   const long at = bh * T * D;
   int len = lengths[bh / H];
   len = len < 0 ? 0 : (len > T ? T : len);
-  const msfa_tc::FwdRow<> row{q + at, k + at, v + at, D, out + at, D, lse + bh * T, 1};
+  const msfa_tc::FwdRow row{q + at, k + at, v + at, D, out + at, D, lse + bh * T, 1};
   msfa_tc::attention_fwd_tile<D>(row, T, len, q0, sm_scale, smem);
 }
 

@@ -68,6 +68,9 @@ FFW_CHUNK = 64  # d_ff must be a multiple of the hidden kernel's column tile
 ROWS_F = 128
 ROWS_D = 64
 GRAD_TILE = (128, 64)
+# the bf16 FFW backward's weight gradients on wgmma (csrc/wgmma_ffw.cuh): a
+# block takes 128 of d_ff by the whole d_model, one block an SM
+WG_GRAD_ROWS = 128
 _SMS = 132  # H100 SXM streaming multiprocessors: sizes the row splits of the sums
 # what a mask is for: mixed into the generator's key, so the three masks of a
 # layer differ under one seed
@@ -502,6 +505,13 @@ def _grad_splits(rows: int, tiles: int) -> int:
 def _grad_tiles(i: int, o: int) -> int:
     """Blocks of one split of an ``[i, o]`` weight gradient on the tensor cores."""
     return math.ceil(i / GRAD_TILE[0]) * math.ceil(o / GRAD_TILE[1])
+
+
+def _wg_grad_splits(rows: int, f: int) -> int:
+    """Row splits of the bf16 FFW backward's weight gradients (``ffw_ln``'s
+    bf16 entry, on wgmma): at most the blocks that fill the SMs once (one
+    fits on an SM), at least 256 rows each."""
+    return max(1, min(_SMS // math.ceil(f / WG_GRAD_ROWS), math.ceil(rows / 256)))
 
 
 def _stream(device):
@@ -1000,7 +1010,7 @@ def _ffw_ln_bwd_launch(x, w1, b1, w2, b2, gamma, beta, fmask, rmask, dout, inv_k
     dw1, dw2 = torch.empty((d, f), **act), torch.empty((f, d), **act)
     db1 = torch.empty((f,), device=x.device)
     sums = torch.empty((3, d), device=x.device)
-    splits = _grad_splits(n, _grad_tiles(f, d))
+    splits = _wg_grad_splits(n, f) if bf16 else _grad_splits(n, _grad_tiles(f, d))
     hd, dpre = torch.empty((n, f), **act), torch.empty((n, f), **act)
     dy = torch.empty_like(x)
     dr = (torch.empty((n, d), device=x.device),) if bf16 else ()

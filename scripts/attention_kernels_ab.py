@@ -25,7 +25,9 @@ and 1024, G 4, B 32 and 64, H 256, D 17 on a real PAMAP2 batch's lengths
 (each on the body and tiling its wrapper picks), and the mask generator
 (row 9) at ``[16384, 2048]`` and ``[16384, 256]`` and a layer's three masks
 (one launch where the tree has ``dropout_keep_masks``, else one a mask),
-keep 0.8; inputs from a fixed seed. Then, per tree, the serve p50 of batch-64 requests and their
+keep 0.8; the eight bf16 entries (rows 1b-2b, 10b-15b) at the same shapes
+on bf16 copies, with ``scaled_dot_product_attention`` in bf16 (the key mask,
+every key valid) beside row 1b; inputs from a fixed seed. Then, per tree, the serve p50 of batch-64 requests and their
 device time by kernel family (``chip_smoke.profile``) for the LSTM parity
 model at chunk 512 and 1024 and the GRU model at 512
 (``chip_smoke.rnn_overrides``, seeded weights, real windows). Launches are
@@ -35,8 +37,9 @@ alone, the card kept ahead of the host, L2-warm and L2-cold (a 128 MB write
 before each call).
 ``scaled_dot_product_attention`` (forward, or its backward) is timed beside
 each attention shape. The attention backward kernels' outputs are hashed on
-ragged lengths (0, 1, 37, 64, 65, T - 1, T, T / 2), and the feed-forward,
-residual-LN, head, recurrence and mask kernels' outputs on their timed inputs, so
+ragged lengths (0, 1, 37, 64, 65, T - 1, T, T / 2), the attention forwards',
+the bf16 entries' and the feed-forward, residual-LN, head, recurrence and
+mask kernels' outputs on their timed inputs, so
 that the table also says which kernels give the same bits in every tree. Prints the card's
 name and power limit, one JSON line per tree, then the table of all runs.
 Needs a CUDA card; imports torch and the port only.
@@ -86,10 +89,14 @@ def _warm_cold(times, name, fn, flush) -> None:
 
 
 def _digest(tensors) -> str:
-    """sha256 of the tensors' bytes, in order: equal digests, equal bits."""
+    """sha256 of the tensors' bytes, in order: equal digests, equal bits
+    (a bf16 tensor's read as int16: numpy has no bf16)."""
+    import torch
+
     h = hashlib.sha256()
     for t in tensors:
-        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+        t = t.detach().cpu().contiguous()
+        h.update((t.view(torch.int16) if t.dtype == torch.bfloat16 else t).numpy().tobytes())
     return h.hexdigest()[:16]
 
 
@@ -119,6 +126,8 @@ def _measure(tree: Path) -> dict:
     qkv, lengths, qkv_views = packed(64)
     times["packed_attention_fwd"] = _time_ms(
         torch, lambda: ta.packed_attention_fwd(qkv, lengths, HEADS, scale), 20)
+    bits["packed_attention_fwd"] = _digest(
+        ta.packed_attention_fwd(qkv, lengths, HEADS, scale))
     times["sdpa_fwd_packed"] = _time_ms(torch, lambda: sdpa(*qkv_views), 20)
     qkv, lengths, qkv_views = packed(32)
     dout = torch.randn(32, 512, HEADS * HEAD_DIM, generator=g).cuda()
@@ -146,6 +155,7 @@ def _measure(tree: Path) -> dict:
         args = (q, k, v, lengths, HEADS, lse, delta, dout, scale)
         times[f"flash_fwd_single_{tag}"] = _time_ms(
             torch, lambda: ta.flash_fwd_single(q, k, v, lengths, HEADS, scale), 10)
+        bits[f"flash_fwd_single_{tag}"] = _digest([out, lse])
         times[f"flash_bwd_fused_{tag}"] = _time_ms(torch, lambda: ta.flash_bwd_fused(*args), 5)
         if rows == 128:
             times[f"flash_bwd_dkv_{tag}"] = _time_ms(torch, lambda: ta.flash_bwd_dkv(*args), 5)
@@ -172,6 +182,8 @@ def _measure(tree: Path) -> dict:
         lengths = torch.full((rows // HEADS,), seq, dtype=torch.int32, device="cuda")
         times[f"flash_fwd_tiled_{rows}x{seq}"] = _time_ms(
             torch, lambda: ta.flash_fwd_tiled(q, k, v, lengths, HEADS, scale), 10)
+        bits[f"flash_fwd_tiled_{rows}x{seq}"] = _digest(
+            ta.flash_fwd_tiled(q, k, v, lengths, HEADS, scale))
         if seq == 4096:
             leaves = [t.view(rows // HEADS, HEADS, seq, HEAD_DIM) for t in (q, k, v)]
             times[f"sdpa_fwd_{rows}x{seq}"] = _time_ms(torch, lambda: sdpa(*leaves), 10)
@@ -180,6 +192,9 @@ def _measure(tree: Path) -> dict:
     mlp_times, mlp_bits = _measure_mlp(torch, g, flush)
     times.update(mlp_times)
     bits.update(mlp_bits)
+    bf16_times, bf16_bits = _measure_bf16(torch, g)
+    times.update(bf16_times)
+    bits.update(bf16_bits)
     head_times, head_bits = _measure_head(torch, g, flush)
     times.update(head_times)
     bits.update(head_bits)
@@ -228,6 +243,58 @@ def _measure_mlp(torch, g, flush) -> dict:
         bits[name] = _digest(out if isinstance(out, tuple) else [out])
     times = {name: _time_ms(torch, call, 10) for name, call in calls.items()}
     _warm_cold(times, "proj_ln_fwd", calls["proj_ln_fwd"], flush)
+    return times, bits
+
+
+def _measure_bf16(torch, g) -> dict:
+    """Rows 1b-2b and 10b-15b, the bf16 entries, at ``chip_smoke.py``'s
+    shapes (the packed forward at B 64, the backward at B 32, T 512, H 4, d
+    64, every key valid; the FFW and projection pairs at N = 16,384, d 256,
+    d_ff 2048, keep 0.8), with SDPA in bf16 beside row 1b -> (ms, output
+    digests)."""
+    from multimodal_sensor_fusion_with_attention_rajeevatla_torch.ops import attention as ta
+    from multimodal_sensor_fusion_with_attention_rajeevatla_torch.ops import mlp as tm
+
+    bf, scale = torch.bfloat16, HEAD_DIM**-0.5
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    n, d, f, keep = 16384, 256, 2048, 0.8
+
+    def w(*shape, s=1.0):
+        return (torch.randn(*shape, generator=g) * s).cuda()
+
+    qkv = w(64, 512, 3 * HEADS * HEAD_DIM).to(bf)
+    lengths = torch.full((64,), 512, dtype=torch.int32, device="cuda")
+    view = qkv.view(64, 512, 3, HEADS, HEAD_DIM)
+    q, k, v = (view[:, :, i].transpose(1, 2) for i in range(3))
+    key_mask = torch.ones(64, 1, 1, 512, dtype=torch.bool, device="cuda")
+    tq, tl = qkv[:32].contiguous(), lengths[:32]
+    t_out, t_lse = ta.packed_attention_bf16_reference(tq, tl, HEADS, scale)
+    t_dout = w(32, 512, HEADS * HEAD_DIM).to(bf).float()
+    fmask, rmask = ((torch.rand(n, width, generator=g) < keep).to(torch.uint8).cuda()
+                    for width in (f, d))
+    inv_keep, eps = tm._inv_keep(keep), 1e-6
+    x, dout, a = w(n, d).to(bf), w(n, d).to(bf), w(n, d).to(bf)
+    w1, b1, w2, b2 = w(d, f, s=d**-0.5).to(bf), w(f, s=0.1), w(f, d, s=f**-0.5).to(bf), w(d, s=0.1)
+    ffw = (x, w1, b1, w2, b2, 1 + w(d, s=0.1), w(d, s=0.1), fmask, rmask)
+    proj = (x, a, w(d, d, s=d**-0.5).to(bf), w(d, s=0.1), 1 + w(d, s=0.1), w(d, s=0.1), rmask)
+    calls = {
+        "packed_attention_fwd_bf16": lambda: ta.packed_attention_fwd_bf16(qkv, lengths, HEADS,
+                                                                          scale),
+        "packed_attention_bwd_bf16": lambda: ta.packed_attention_bwd_bf16(
+            tq, tl, t_out, t_lse, t_dout, HEADS, scale),
+        "fused_mlp_fwd_bf16": lambda: tm.fused_mlp_fwd_bf16(x, w1, b1, w2, b2, fmask, inv_keep),
+        "fused_mlp_bwd_bf16": lambda: tm.fused_mlp_bwd_bf16(x, w1, b1, w2, fmask, dout, inv_keep),
+        "ffw_ln_fwd_bf16": lambda: tm.ffw_ln_fwd_bf16(*ffw, inv_keep, eps),
+        "ffw_ln_bwd_bf16": lambda: tm.ffw_ln_bwd_bf16(*ffw, dout, inv_keep, eps),
+        "proj_ln_fwd_bf16": lambda: tm.proj_ln_fwd_bf16(*proj, inv_keep, eps),
+        "proj_ln_bwd_bf16": lambda: tm.proj_ln_bwd_bf16(*proj, dout, inv_keep, eps),
+    }
+    bits = {}
+    for name, call in calls.items():
+        out = call()
+        bits[name] = _digest(out if isinstance(out, tuple) else [out])
+    times = {name: _time_ms(torch, call, 10) for name, call in calls.items()}
+    times["sdpa_fwd_bf16_packed"] = _time_ms(torch, lambda: sdpa(q, k, v, attn_mask=key_mask), 20)
     return times, bits
 
 

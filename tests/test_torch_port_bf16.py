@@ -23,6 +23,7 @@ transformer; the types of parameters and logits; the routes under bf16; a
 checkpoint round trip.
 """
 
+import math
 from pathlib import Path
 
 import jax
@@ -69,7 +70,7 @@ from multimodal_sensor_fusion_with_attention_rajeevatla_torch.utils.config impor
 from test_torch_port_zoo import _load_encoder
 from test_torch_port_tf32 import _mm3
 from torch_port_schemes import (
-    CHUNK_K,
+    WG_CHUNK_K,
     _ffw_ln_bf16,
     _fused_mlp_bf16,
     _mm_n,
@@ -291,29 +292,55 @@ def test_bf16_operands_drop_only_zero_terms():
     assert torch.equal(_mm_n(ab, b, False, False), ab @ b)
 
 
-def _packed_fwd_bf16(qkv, lengths, heads, scale, tile=64):
-    """``packed_attention_fwd_bf16``'s arithmetic: s = (q k^T) * scale with
-    q k^T one TF32 product, an online softmax over 64-key tiles, P.V two TF32
-    products in 16-key fresh accumulators added to O in f32."""
+P_TERMS = 3  # bf16 terms of P in the packed forward's P.V (wgmma_bf16.cuh kPTerms)
+
+
+def _mm_k16(a, b):
+    """Two bf16 operands on wgmma: exact products summed in f32 a k16 step
+    (one instruction), the steps added in order."""
+    out = torch.zeros(a.shape[:-1] + b.shape[-1:])
+    for k0 in range(0, a.shape[-1], 16):
+        out = out + a[..., k0:k0 + 16] @ b[..., k0:k0 + 16, :]
+    return out
+
+
+def _bf16_terms(p, terms):
+    """p as ``terms`` bf16 values, largest first: hi = bf16(p), lo = bf16(p - hi), ..."""
+    out, rest = [], p
+    for _ in range(terms):
+        out.append(rest.to(BF).float())
+        rest = rest - out[-1]
+    return out
+
+
+def _packed_fwd_bf16(qkv, lengths, heads, scale, terms=P_TERMS, tile=64):
+    """``packed_attention_fwd_bf16``'s arithmetic on wgmma: s = q k^T (exact
+    bf16 products summed in f32 a k16 step), an online softmax over 64-key
+    tiles in base 2 on the unscaled scores (p = 2^(s c - m c), c = scale
+    log2 e), P split into ``terms`` bf16 terms, each term's P.V exact
+    products a k16 step, a tile's terms (smallest first) in a fresh
+    accumulator added to O in f32."""
     batch, seq, three_f = qkv.shape
     d = three_f // 3 // heads
     x = qkv.float().reshape(batch, seq, 3, heads, d).permute(2, 0, 3, 1, 4)
     q, k, v = (x[i].reshape(batch * heads, seq, d) for i in range(3))
     lens = lengths.long().repeat_interleave(heads)[:, None, None]
+    c2 = scale * math.log2(math.e)
     m = torch.full((batch * heads, seq, 1), -torch.inf)
     l, o = torch.zeros(batch * heads, seq, 1), torch.zeros_like(q)
     for k0 in range(0, seq, tile):
         keys = slice(k0, min(k0 + tile, seq))
         active = k0 < lens
-        s = _mm_n(q, k[:, keys].transpose(1, 2), False, False) * scale
+        s = _mm_k16(q, k[:, keys].transpose(1, 2))
         s = torch.where(torch.arange(k0, keys.stop)[None, None, :] < lens, s, -torch.inf)
         m_new = torch.where(active, torch.maximum(m, s.amax(-1, keepdim=True)), m)
-        rescale = torch.where(active, torch.exp(m - m_new), 1.0)
-        p = torch.where(active, torch.exp(s - m_new), 0.0)
+        rescale = torch.where(active, torch.exp2(m * c2 - m_new * c2), 1.0)
+        p = torch.where(active, torch.exp2(s * c2 - m_new * c2), 0.0)
         l, o = l * rescale + p.sum(-1, keepdim=True), o * rescale
-        for c0 in range(0, p.shape[-1], 16):
-            o = o + _mm_n(p[..., c0:c0 + 16], v[:, keys][:, c0:c0 + 16], True, False)
-        m = m_new
+        part = torch.zeros_like(o)
+        for term in reversed(_bf16_terms(p, terms)):
+            part = part + _mm_k16(term, v[:, keys])
+        o, m = o + part, m_new
     out = torch.where(l > 0, o / torch.where(l > 0, l, 1.0), 0.0)
     return out.reshape(batch, heads, seq, d).transpose(1, 2).reshape(batch, seq, heads * d)
 
@@ -345,25 +372,48 @@ def _packed_bwd_bf16(qkv, lengths, out, lse, dout, heads, scale):
 @pytest.mark.parametrize("d", [8, 64])
 def test_packed_attention_bf16_scheme_holds_the_twins(d):
     """The packed pair's bf16 entries, emulated, against their twins: the
-    forward at f32's limit, the backward's bf16 dqkv within one rounding."""
+    forward at f32's limit, against the twin and the reference's packed
+    forward in interpret mode; the backward's bf16 dqkv within one
+    rounding."""
     qkv, lengths, dout, heads = _packed_case(7, batch=3, seq=72, d=d)
-    tq, tl = torch.from_numpy(qkv).to(BF), torch.from_numpy(np.array([72, 37, 0], np.int32))
+    lengths = np.array([72, 37, 0], np.int32)
+    tq, tl = torch.from_numpy(qkv).to(BF), torch.from_numpy(lengths)
     scale = d**-0.5
     out, lse = ta.packed_attention_bf16_reference(tq, tl, heads, scale)
     emu = _packed_fwd_bf16(tq, tl, heads, scale)
     np.testing.assert_allclose(emu.numpy(), out.numpy(), rtol=1e-5, atol=1e-5)
+    j_out = jpa.flash_mha_packed(jnp.asarray(qkv).astype(jnp.bfloat16), jnp.asarray(lengths),
+                                 num_heads=heads, interpret=True)
+    np.testing.assert_allclose(emu.numpy(), np.asarray(j_out), rtol=1e-5, atol=1e-5)
     td = torch.from_numpy(dout)
     got = _packed_bwd_bf16(tq, tl, out, lse, td, heads, scale)
     want = ta.packed_attention_bwd_bf16_reference(tq, tl, out, lse, td, heads, scale)
     assert _rel(got.float().numpy(), want.float().numpy()) < BF16_TOL
 
 
+def test_packed_attention_bf16_p_needs_more_than_one_bf16_term():
+    """P rounded to bf16 once (the TPU kernel's MXU operand) misses f32's
+    1e-5 against the twin by two orders; the entry's three bf16 terms meet
+    it (two reach half of it on a 5-key row at T 512)."""
+    qkv, _lengths, _dout, heads = _packed_case(9, batch=3, seq=72, d=64)
+    tq, tl = torch.from_numpy(qkv).to(BF), torch.tensor([72, 37, 5], dtype=torch.int32)
+    out, _lse = ta.packed_attention_bf16_reference(tq, tl, heads, 64**-0.5)
+
+    def err_over_tol(terms):
+        emu = _packed_fwd_bf16(tq, tl, heads, 64**-0.5, terms=terms)
+        return ((emu - out).abs() / (1e-5 + 1e-5 * out.abs())).max().item()
+
+    assert err_over_tol(1) > 10
+    assert err_over_tol(P_TERMS) < 0.25
+
+
 @pytest.mark.parametrize("family", ["proj_ln", "ffw_ln"])
 def test_residual_ln_bf16_scheme_holds_the_twins(family):
     """Both residual-LN pairs' bf16 entries, emulated (every product of two
-    bf16 operands, one TF32 pass a k-step in 32-deep chunks, the roundings
-    of the reference's kernels), against their twins within one bf16
-    rounding of each output's largest magnitude."""
+    bf16 operands: one TF32 pass a k-step in 32-deep chunks, the FFW
+    backward's and the hidden's on wgmma in 64-deep chunks or one sum over
+    k = D; the roundings of the reference's kernels), against their twins
+    within one bf16 rounding of each output's largest magnitude."""
     arrays, masks, dout, keep = _ln_case(family, 11, n=200, d=32, f=128)
     targs = _torch_ln(family, arrays, masks)
     inv_keep = tm._inv_keep(keep)
@@ -374,7 +424,7 @@ def test_residual_ln_bf16_scheme_holds_the_twins(family):
     assert _rel(out.numpy(), want_out.float().numpy()) < BF16_TOL
     want = getattr(tm, f"{family}_bwd_bf16_reference")(*targs, torch.from_numpy(dout).to(BF),
                                                       inv_keep, 1e-6)
-    assert CHUNK_K == 32
+    assert WG_CHUNK_K == 64  # the bf16 FFW backward's wgmma chunks
     for i, (got, ref) in enumerate(zip(grads, want)):
         assert _rel(got.numpy(), ref.float().numpy()) < BF16_TOL, i
 
@@ -452,9 +502,9 @@ def test_fused_mlp_bf16_twins_match_the_jax_kernels(direction):
 
 def test_fused_mlp_bf16_scheme_holds_the_twins():
     """The feed-forward pair's bf16 entries, emulated (every product of two
-    bf16 operands, one TF32 pass a k-step in 32-deep chunks, the hidden and
-    dpre rounded), against their twins within one bf16 rounding of each
-    output's largest magnitude."""
+    bf16 operands, one TF32 pass a k-step in 32-deep chunks, the hidden on
+    wgmma in one sum over k = D; the hidden and dpre rounded), against their
+    twins within one bf16 rounding of each output's largest magnitude."""
     arrays, mask, dout, keep = _mlp_case(23, n=200)
     x, w1, b1, w2, b2, tmask = _torch_mlp(arrays, mask)
     inv_keep = tm._inv_keep(keep)

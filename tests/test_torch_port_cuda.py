@@ -1181,8 +1181,8 @@ def test_packed_attention_bf16_entries_match_twins(card, seq, hd):
 @pytest.mark.parametrize("seq,hd", [(512, 64), (72, 32)])
 def test_packed_attention_bf16_entries_are_the_f32_entries_on_f32_copies(card, seq, hd):
     # one function: the f32 kernel's sums on the bf16 values; the backward's
-    # bits equal at every head dim, the forward's where sm_scale is a power of
-    # two (at d = 32 the bf16 entry scales the scores, the f32 one q)
+    # bits equal at every head dim; the forward runs on wgmma with P split
+    # into bf16 terms, its own sums, within f32's limits of the f32 entry
     g = torch.Generator().manual_seed(300 + seq)
     heads = 4
     qkv = _bf16_qkv(g, 4, seq, heads, hd, card)
@@ -1194,10 +1194,8 @@ def test_packed_attention_bf16_entries_are_the_f32_entries_on_f32_copies(card, s
     f_got = ta.packed_attention_bwd(qkv.float(), lengths, f_out, f_lse, dout, heads, hd**-0.5)
     torch.cuda.synchronize()
     assert torch.equal(got, f_got.to(torch.bfloat16))
-    if hd == 64:
-        assert torch.equal(out, f_out) and torch.equal(lse, f_lse)
-    else:
-        torch.testing.assert_close(out, f_out, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(out, f_out, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(lse, f_lse, rtol=1e-5, atol=1e-5)
 
 
 def _bf16_ln_args(family, g, n, d, f, keep, card):

@@ -2,7 +2,10 @@
 (no JAX), so that both the CPU tests and the card tests can hold a kernel to
 them: TF32 splits, the residual-LN kernels' 32-deep chunked products and
 split weight gradients, and the bf16 entries of both residual-LN pairs and
-of the feed-forward pair with their rounding points."""
+of the feed-forward pair with their rounding points. The bf16 FFW
+backward's products and the bf16 hidden run on wgmma (``wgmma_ffw.cuh``):
+exact bf16 products summed in f32, over k = d_model in one sum, over d_ff
+and the rows in 64-deep chunks."""
 
 import math
 
@@ -12,6 +15,8 @@ from multimodal_sensor_fusion_with_attention_rajeevatla_torch.ops import mlp as 
 
 LOW_BITS = ~0x1FFF  # clears the 13 mantissa bits TF32 does not keep
 CHUNK_K = 32  # the residual-LN kernels' products: depth of one fresh accumulator
+WG_CHUNK_K = 64  # the bf16 wgmma products over d_ff and the rows: the same
+WG_ROWS_D = 128  # rows of a bf16 wgmma [N, D] block (the LN backward's partial sums)
 BF = torch.bfloat16
 
 
@@ -23,13 +28,19 @@ def _tf32_cut(x):
     return (x.view(torch.int32) & LOW_BITS).view(torch.float32)
 
 
-def _mm_chunked(a, b, mm):
-    """a @ b as the residual-LN kernels' products take it: each 32-deep chunk
-    of k in a fresh accumulator, the chunks added in order in f32."""
+def _mm_chunked(a, b, mm, chunk=CHUNK_K):
+    """a @ b as the residual-LN kernels' products take it: each ``chunk``-deep
+    piece of k in a fresh accumulator, the pieces added in order in f32."""
     out = torch.zeros(a.shape[0], b.shape[1])
-    for k0 in range(0, a.shape[1], CHUNK_K):
-        out = out + mm(a[:, k0:k0 + CHUNK_K], b[k0:k0 + CHUNK_K])
+    for k0 in range(0, a.shape[1], chunk):
+        out = out + mm(a[:, k0:k0 + chunk], b[k0:k0 + chunk])
     return out
+
+
+def _mm_wg(a, b):
+    """A bf16 wgmma product over d_ff (``WgProduct`` with fresh chunks):
+    exact products, 64-deep chunks in fresh accumulators added in f32."""
+    return _mm_chunked(a, b, lambda p, q: p @ q, WG_CHUNK_K)
 
 
 def _in_order(parts):
@@ -44,13 +55,14 @@ def _block_sums(x, rows):
     return _in_order([x[r0:r0 + rows].sum(0) for r0 in range(0, x.shape[0], rows)])
 
 
-def _split_grad(a, b, tiles, mm):
+def _split_grad(a, b, tiles, mm, chunk=CHUNK_K, splits=None):
     """a^T b as the weight-gradient kernel takes it: per split of the rows
-    (whole 32-row chunks, ``_grad_splits`` of them), the splits added in
-    order."""
+    (whole ``chunk``-row chunks, ``splits`` of them, by default
+    ``_grad_splits``'), the splits added in order."""
     n = a.shape[0]
-    per_split = math.ceil(math.ceil(n / tm._grad_splits(n, tiles)) / CHUNK_K) * CHUNK_K
-    return _in_order([_mm_chunked(a[r0:r0 + per_split].t(), b[r0:r0 + per_split], mm)
+    splits = tm._grad_splits(n, tiles) if splits is None else splits
+    per_split = math.ceil(math.ceil(n / splits) / chunk) * chunk
+    return _in_order([_mm_chunked(a[r0:r0 + per_split].t(), b[r0:r0 + per_split], mm, chunk)
                       for r0 in range(0, n, per_split)])
 
 
@@ -95,13 +107,17 @@ def _proj_ln_bf16(x, a, wo, bo, gamma, beta, rmask, dout, inv_keep, eps):
 
 
 def _ffw_ln_bf16(x, w1, b1, w2, b2, gamma, beta, fmask, rmask, dout, inv_keep, eps, skip=()):
-    """``ffw_ln``'s bf16 entries: the hidden from one TF32 product a k-step,
-    rounded to bf16; y, the residual and LayerNorm in f32, out rounded;
-    backward dy and dpre rounded before their products, dx, dW1, dW2
-    rounded, db1 (128-row blocks), db2, dgamma, dbeta (64-row blocks) f32.
-    ``skip`` names rounding points ("hidden", "dy", "dpre") left out, with
-    the products they feed taken in f32: what an entry that dropped them
-    would compute."""
+    """``ffw_ln``'s bf16 entries: the hidden on wgmma (the whole k = D in one
+    f32 sum), rounded to bf16; the forward's y from one TF32 product a
+    k-step in 32-deep chunks, the residual and LayerNorm in f32, out rounded;
+    the backward on wgmma (y and dx over d_ff in 64-deep chunks, dpre over D
+    in one sum, the weight gradients per split of whole 64-row chunks,
+    ``_wg_grad_splits`` of them): dy and dpre rounded before their products,
+    dx, dW1, dW2 rounded, db1 (128-row blocks), db2, dgamma, dbeta (128-row
+    blocks) f32. ``skip``
+    names rounding points ("hidden", "dy", "dpre") left out, with the
+    products they feed taken on the unrounded values: what an entry that
+    dropped them would compute."""
     d, f = w1.shape
     mm = lambda p, q: _mm_n(p, q, False, False)  # noqa: E731
     mm_f32 = (lambda p, q: p @ q) if skip else mm  # noqa: E731
@@ -110,25 +126,28 @@ def _ffw_ln_bf16(x, w1, b1, w2, b2, gamma, beta, fmask, rmask, dout, inv_keep, e
         return t if point in skip else _rnd(t)
 
     fscale, rscale = fmask.float() * inv_keep, rmask.float() * inv_keep
-    hd = rnd(torch.relu(_mm1(x, w1) + b1) * fscale, "hidden")
-    r = x + (_mm_chunked(hd, w2, mm_f32) + b2) * rscale
-    out, xhat, inv = tm.ln_rows(r, gamma, beta, eps)
+    hd = rnd(torch.relu(x @ w1 + b1) * fscale, "hidden")
+    out, _xhat, _inv = tm.ln_rows(x + (_mm_chunked(hd, w2, mm_f32) + b2) * rscale, gamma, beta,
+                                  eps)
+    _out, xhat, inv = tm.ln_rows(x + (_mm_wg(hd, w2) + b2) * rscale, gamma, beta, eps)
     dr, _dg, _db = tm._ln_backward(dout, xhat, inv, gamma)
     dy = dr * rscale
     dyb = rnd(dy, "dy")
-    dpre = torch.where(hd > 0, _mm_chunked(dyb, w2.t(), mm_f32) * fscale, 0.0)
+    dpre = torch.where(hd > 0, (dyb @ w2.t()) * fscale, 0.0)
     dpb = rnd(dpre, "dpre")
-    grads = (_rnd(dr + _mm_chunked(dpb, w1.t(), mm_f32)),
-             _rnd(_split_grad(x, dpb, tm._grad_tiles(d, f), mm_f32)),
+    mm_wg = lambda p, q: p @ q  # noqa: E731
+    splits = tm._wg_grad_splits(x.shape[0], f)
+    grads = (_rnd(dr + _mm_wg(dpb, w1.t())),
+             _rnd(_split_grad(x, dpb, None, mm_wg, WG_CHUNK_K, splits)),
              _block_sums(dpre, tm.ROWS_F),
-             _rnd(_split_grad(hd, dyb, tm._grad_tiles(f, d), mm_f32)),
-             *(_block_sums(t, tm.ROWS_D) for t in (dy, dout * xhat, dout)))
+             _rnd(_split_grad(hd, dyb, None, mm_wg, WG_CHUNK_K, splits)),
+             *(_block_sums(t, WG_ROWS_D) for t in (dy, dout * xhat, dout)))
     return _rnd(out), grads
 
 
 def _fused_mlp_bf16(x, w1, b1, w2, b2, mask, dout, inv_keep, skip=()):
-    """``fused_mlp``'s bf16 entries: the hidden from one TF32 product a
-    k-step, rounded to bf16 before W2's product (out = hd W2 + b2 in f32,
+    """``fused_mlp``'s bf16 entries: the hidden on wgmma (the whole k = D in
+    one f32 sum), rounded to bf16 before W2's product (out = hd W2 + b2 in f32,
     rounded) and before dW2's; backward dpre = (hd > 0) (dout W2^T) mask /
     keep rounded before dW1's and dx's products, db1 (128-row blocks) from
     the unrounded dpre; dx, dW1, dW2 rounded. ``skip`` names rounding points
@@ -144,7 +163,7 @@ def _fused_mlp_bf16(x, w1, b1, w2, b2, mask, dout, inv_keep, skip=()):
         return t if point in skip else _rnd(t)
 
     scale = mask.float() * inv_keep
-    h = torch.relu(_mm1(x, w1) + b1) * scale
+    h = torch.relu(x @ w1 + b1) * scale
     out = _mm_chunked(rnd(h, "hidden"), w2, mm_f32) + b2
     hd = rnd(h, "hd")
     dpre = torch.where(h > 0, _mm_chunked(dout, w2.t(), mm_f32) * scale, 0.0)
@@ -191,8 +210,8 @@ def exact_ffw_ln_case(n=256, d=256, f=2048, keep=0.8, seed=5):
 
 def ffw_ln_scheme_hidden(x, w1, b1, fmask, inv_keep):
     """The bf16 entries' hidden: relu(x W1 + b1) * fmask / keep rounded to
-    bf16, the product one TF32 pass a k-step."""
-    return _rnd(torch.relu(_mm1(x.float(), w1.float()) + b1) * fmask.float() * inv_keep).to(BF)
+    bf16, the product exact bf16 products in one f32 sum (wgmma)."""
+    return _rnd(torch.relu(x.float() @ w1.float() + b1) * fmask.float() * inv_keep).to(BF)
 
 
 def bf16_ulps_apart(a, b):
