@@ -41,22 +41,24 @@ forwards (``csrc/attention_fwd.cuh``), one for the packed, the fused and the
 split dk/dv backward, beside the split dq's (``csrc/attention_bwd.cuh``).
 
 **bf16 (``mixed_precision``).** The packed pair has bf16-operand entries,
-``packed_attention_fwd_bf16`` and ``packed_attention_bwd_bf16``, the same
-bodies with q, k and v read as bf16 (half the bytes): a product of two bf16
-operands (q k^T) is exact in one TF32 product, one of a bf16 and an f32
-operand (p v, dout v^T, ds q, ds k) takes two, and p^T dout, both f32,
-three. They compute the reference's tested function (its interpret path
-casts a bf16 qkv to f32 before the kernel): the f32 kernel's arithmetic on
-the bf16 values, ``out`` and ``lse`` in f32, and ``dqkv`` rounded to bf16
-(the cast's VJP). The TPU kernel also rounds p to bf16; the port does not.
-The entry is picked by the operands' type: ``flash_mha_packed`` and
-``PackedAttention`` run the bf16 entries for a bfloat16 ``qkv``;
-``flash_self_attention`` (the flash routes, T > 512) casts bf16 q, k and v
-to f32 copies for its f32 kernels, which is the reference's function there
-too (its interpret path pins f32). The split pair does seven products where the
-fused route does five: on the H100 its bound is 1.67 + 1.25 ms at ``[128,
-2048, 64]`` against the fused route's 2.08 (165 TFLOP/s, a third of the
-TF32 peak).
+``packed_attention_fwd_bf16`` and ``packed_attention_bwd_bf16``, that read
+q, k and v as bf16 (half the bytes) and run every product on Hopper's bf16
+``wgmma`` (``csrc/wgmma_bf16.cuh``, ``csrc/wgmma_attention_bwd.cuh``): a
+product of two bf16 values is exact, and each f32 operand (P, the
+cotangent, dS) is carried as three bf16 terms. They compute the
+reference's tested function (its interpret path casts a bf16 qkv to f32
+before the kernel): the f32 arithmetic on the bf16 values, ``out`` and
+``lse`` in f32, and ``dqkv`` rounded to bf16 once (the cast's VJP). The
+TPU kernel also rounds p to bf16; the port does not. The backward's dq is a
+pass of its own that takes S and dP again, where the f32 entry sums
+per-key-tile partials from device memory. The entry is picked by the
+operands' type: ``flash_mha_packed`` and ``PackedAttention`` run the bf16
+entries for a bfloat16 ``qkv``; ``flash_self_attention`` (the flash routes,
+T > 512) casts bf16 q, k and v to f32 copies for its f32 kernels, which is
+the reference's function there too (its interpret path pins f32). The split
+pair does seven products where the fused route does five: on the H100 its
+bound is 1.67 + 1.25 ms at ``[128, 2048, 64]`` against the fused route's
+2.08 (165 TFLOP/s, a third of the TF32 peak).
 
 Routing is by arguments only. The reference also reads five environment
 variables: ``MSFA_FLASH_PACKED`` (0 turns the packed route off),
@@ -241,6 +243,7 @@ def packed_attention_bwd_reference(
     dout: torch.Tensor,
     num_heads: int,
     sm_scale: float,
+    dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
     """Plain PyTorch version of the backward kernel: packed ``dqkv [B,T,3F]``.
 
@@ -248,16 +251,18 @@ def packed_attention_bwd_reference(
     sm_scale folded into q, ``delta = rowsum(dout * out)`` per head, and
     ``ds = p * (dp - delta)``; dk uses the scaled q, dq is scaled after the
     product. Rows whose ``lse`` is ``NEG_INF`` (no valid key) give zeros.
+    ``dtype`` is the arithmetic's (float64 gives an exact-enough yardstick
+    for the f32 entries' sums).
     """
     head_dim = _check_packed(qkv, lengths, num_heads)
     batch, seq, three_f = qkv.shape
-    x = qkv.float().reshape(batch, seq, 3, num_heads, head_dim)
+    x = qkv.to(dtype).reshape(batch, seq, 3, num_heads, head_dim)
     qs = (x[:, :, 0] * sm_scale).transpose(1, 2)  # [B, H, T, d]
     k = x[:, :, 1].transpose(1, 2)
     v = x[:, :, 2].transpose(1, 2)
-    o = out.float().reshape(batch, seq, num_heads, head_dim).transpose(1, 2)
-    do = dout.float().reshape(batch, seq, num_heads, head_dim).transpose(1, 2)
-    lse_h = lse.float().transpose(1, 2)[..., None]  # [B, H, T, 1]
+    o = out.to(dtype).reshape(batch, seq, num_heads, head_dim).transpose(1, 2)
+    do = dout.to(dtype).reshape(batch, seq, num_heads, head_dim).transpose(1, 2)
+    lse_h = lse.to(dtype).transpose(1, 2)[..., None]  # [B, H, T, 1]
     colmask = (
         torch.arange(seq, device=qkv.device)[None, :] < lengths.to(torch.int64)[:, None]
     )[:, None, None, :]
@@ -273,10 +278,10 @@ def packed_attention_bwd_reference(
 
 
 def _packed_bwd(wrapper, symbol: str, dtype: torch.dtype, reference, qkv, lengths, out, lse,
-                dout, num_heads: int, sm_scale: float):
+                dout, num_heads: int, sm_scale: float, out_dtype: Optional[torch.dtype] = None):
     """The body of both backward entries: checks, then one launch of
     ``symbol`` of ``csrc/packed_attention_bwd.cu``, counted on ``wrapper``;
-    ``dqkv`` in ``qkv``'s type."""
+    ``dqkv`` in ``qkv``'s type, or ``out_dtype``."""
     head_dim = _check_packed(qkv, lengths, num_heads)
     batch, seq, three_f = qkv.shape
     expected = {"out": (batch, seq, three_f // 3), "dout": (batch, seq, three_f // 3),
@@ -302,17 +307,18 @@ def _packed_bwd(wrapper, symbol: str, dtype: torch.dtype, reference, qkv, length
         raise TypeError(f"kernel takes contiguous int32 lengths, got {lengths.dtype}")
     if head_dim not in KERNEL_HEAD_DIMS:
         raise ValueError(f"kernel supports head_dim in {KERNEL_HEAD_DIMS}, got {head_dim}")
-    dqkv = torch.empty_like(qkv)
+    dqkv = torch.empty_like(qkv, dtype=out_dtype or qkv.dtype)
     if batch == 0 or seq == 0:
         return dqkv
     lib = _build.library("packed_attention_bwd")
     fn = getattr(lib, symbol)
     fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    scratch_floats = lib.msfa_packed_attention_bwd_scratch
+    scratch_floats = getattr(lib, symbol + "_scratch")
     scratch_floats.argtypes = [ctypes.c_int] * 4
     scratch_floats.restype = ctypes.c_longlong
-    # delta [B, T, H] and the per-key-tile dq partials the kernel sums in order
+    # f32: delta [B, T, H] and the per-key-tile dq partials the kernel sums in
+    # order; bf16: dout's bf16 planes, delta and the planes' counts
     scratch = torch.empty(scratch_floats(batch, seq, num_heads, head_dim), device=qkv.device,
                           dtype=torch.float32)
     with torch.cuda.device(qkv.device):
@@ -408,6 +414,50 @@ def packed_attention_bwd_bf16(qkv, lengths, out, lse, dout, num_heads: int,
 
 
 packed_attention_bwd_bf16.launches = 0
+
+
+def packed_attention_bwd_bf16_sums(qkv, lengths, out, lse, dout, num_heads: int,
+                                   sm_scale: float) -> torch.Tensor:
+    """The bf16 backward entry's f32 sums before its rounding: ``dqkv`` in
+    float32, from the same kernels on a CUDA tensor (a check of the sums'
+    accuracy; no model path calls it). CPU tensors take the f32 backward on
+    the bf16 values. Counted in ``packed_attention_bwd_bf16_sums.launches``."""
+    def reference(*args):
+        _check_bf16(args[0])
+        return packed_attention_bwd_reference(args[0].float(), *args[1:])
+
+    return _packed_bwd(packed_attention_bwd_bf16_sums, "msfa_packed_attention_bwd_bf16_sums",
+                       torch.bfloat16, reference, qkv, lengths, out, lse, dout, num_heads,
+                       sm_scale, out_dtype=torch.float32)
+
+
+packed_attention_bwd_bf16_sums.launches = 0
+
+# The bf16 backward's accuracy against the f32 entry (its tests and
+# chip_smoke.py): each dqkv entry within one bf16 step of the f32 entry's
+# sums rounded, the step taken at no less than BWD_STEP_FLOOR of the largest
+# magnitude of the call's dq, dk or dv
+BWD_STEP_FLOOR = 2.0**-10
+
+
+def bf16_steps_from(got: torch.Tensor, want: torch.Tensor,
+                    floor: float = BWD_STEP_FLOOR) -> torch.Tensor:
+    """Per entry of a packed ``dqkv [B, T, 3F]`` in bf16, how many bf16 steps
+    it lies from ``want`` (f32 sums) rounded to bf16, the step taken at the
+    entry's magnitude but at no less than ``floor`` of the largest magnitude
+    of the call's dq, dk or dv: a sum that cancels to far below its terms (a
+    row of dS sums to zero; with one valid key dP = delta and dS is rounding
+    noise) lies many steps of its own value from another f32-accurate
+    order's, the f32 entry's own included. An entry is off at half a step or
+    more."""
+    b, t, three_f = want.shape
+    w = want.float().reshape(b, t, 3, three_f // 3)
+    top = w.abs().amax(dim=(0, 1, 3), keepdim=True)
+    mag = torch.maximum(w.abs(), floor * top)
+    step = torch.exp2(torch.floor(torch.log2(torch.where(mag > 0, mag, 1.0))) - 7)
+    diff = (got.float().reshape(w.shape) - w.to(torch.bfloat16).float()).abs()
+    steps = torch.where(mag > 0, diff / step, torch.where(diff > 0, torch.inf, 0.0))
+    return steps.reshape(b, t, three_f)
 
 
 class PackedAttention(torch.autograd.Function):

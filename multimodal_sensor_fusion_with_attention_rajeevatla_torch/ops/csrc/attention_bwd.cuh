@@ -52,15 +52,6 @@
 // blocks' products cover each block's copies; a two-stage ring (105 KB, two
 // blocks) gave the same bits 5-6% slower on the H100. 136 KB at D = 128.
 //
-// attention_bwd_tile's operand type In and output type Out are template
-// parameters: float and float, or __nv_bfloat16 and __nv_bfloat16 for the
-// packed backward's bf16 entry (mixed_precision). There q, k and v are staged
-// as bf16 (dout, lse, delta stay f32) and each product drops the lo terms of
-// its bf16 side (tf32_mma.cuh's mma_n): S^T = K q^T one TF32 product, dP^T =
-// V dout^T, dk += dS^T q and dq_part = dS K two, dv += P^T dout three; dk and
-// dv are written rounded to bf16 (dq_reduce's Out, the same), the VJP of the
-// reference's cast of a bf16 qkv to f32.
-
 #pragma once
 
 #include <cuda_runtime.h>
@@ -74,52 +65,48 @@ constexpr int kBwdTile = 64;      // keys per block, query rows per staged tile
 constexpr int kBwdThreads = 128;  // 4 warps x 16 keys (dk, dv) or 16 queries (dq)
 constexpr float kBwdNegInf = -1e30f;
 
-// Shared layout, in floats (4-byte units): Ks, Vs [kBwdTile][D + kPadOf<In>]
-// of In; then per stage a q slot (q rows of In at stride D + kPadOf<In>, later
-// dS^T in f32 at stride kBwdTile + kPad, so it is sized for the larger), dout
-// [kBwdTile][D + kPad], lse [kBwdTile], delta [kBwdTile], all f32.
-template <int D, typename In = float>
+// Shared layout, in floats: Ks, Vs [kBwdTile][D + kPad]; then per stage a q
+// slot (q rows, later dS^T at stride kBwdTile + kPad, so it is sized for the
+// larger), dout [kBwdTile][D + kPad], lse [kBwdTile], delta [kBwdTile].
+template <int D>
 struct BwdLayout {
-  static constexpr int kLdIn = D + kPadOf<In>;  // elements of a q, k or v row
-  static constexpr int kLd = D + kPad;          // floats of a dout row
+  static constexpr int kLd = D + kPad;  // floats of a q, k, v or dout row
   static constexpr int kLdS = kBwdTile + kPad;
-  static constexpr int kKVIn = kBwdTile * kLdIn * (int)sizeof(In) / 4;  // one K or V tile
+  static constexpr int kKV = kBwdTile * kLd;  // one K or V tile
   static constexpr int kDout = kBwdTile * kLd;
-  static constexpr int kQIn = kBwdTile * kLdIn * (int)sizeof(In) / 4;
-  static constexpr int kQSlot = kQIn > kBwdTile * kLdS ? kQIn : kBwdTile * kLdS;
+  static constexpr int kQSlot = kKV > kBwdTile * kLdS ? kKV : kBwdTile * kLdS;
   static constexpr int kStage = kQSlot + kDout + 2 * kBwdTile;
-  static constexpr size_t kBytes = sizeof(float) * (2 * kKVIn + 2 * kStage);
+  static constexpr size_t kBytes = sizeof(float) * (2 * kKV + 2 * kStage);
 };
 
 // One (b, h) row's strided views: row t of q, k, v at q/k/v + t * ld_in, of
 // dout at dout + t * ld_dout, its lse and delta at lse/delta + t * ld_stat,
 // dk and dv rows at dk/dv + t * ld_dkv, and this key tile's dq partial row
 // at dq_part + t * ld_part.
-template <typename In = float, typename Out = float>
 struct BwdRow {
-  const In* q;
-  const In* k;
-  const In* v;
+  const float* q;
+  const float* k;
+  const float* v;
   long ld_in;
   const float* dout;
   long ld_dout;
   const float* lse;
   const float* delta;
   long ld_stat;
-  Out* dk;
-  Out* dv;
+  float* dk;
+  float* dv;
   long ld_dkv;
   float* dq_part;
   long ld_part;
 };
 
 // One query tile's q, dout, lse, delta into a stage; rows past T are zeros.
-template <int D, typename In, typename Out>
-__device__ __forceinline__ void stage_query_tile(float* stage, const BwdRow<In, Out>& row, int q0,
-                                                 int T, int tid) {
-  using L = BwdLayout<D, In>;
-  stage_rows<D>(reinterpret_cast<In*>(stage), row.q + (long)q0 * row.ld_in, row.ld_in, kBwdTile,
-                T - q0, row.q, tid, kBwdThreads);
+template <int D>
+__device__ __forceinline__ void stage_query_tile(float* stage, const BwdRow& row, int q0, int T,
+                                                 int tid) {
+  using L = BwdLayout<D>;
+  stage_rows<D>(stage, row.q + (long)q0 * row.ld_in, row.ld_in, kBwdTile, T - q0, row.q, tid,
+                kBwdThreads);
   stage_rows<D>(stage + L::kQSlot, row.dout + (long)q0 * row.ld_dout, row.ld_dout, kBwdTile,
                 T - q0, row.dout, tid, kBwdThreads);
   float* Ls = stage + L::kQSlot + L::kDout;
@@ -131,8 +118,8 @@ __device__ __forceinline__ void stage_query_tile(float* stage, const BwdRow<In, 
 }
 
 // The rows of key tile k0; rows past T are zeros.
-template <int D, typename In, typename Out>
-__device__ __forceinline__ void stage_key_tile(In* Ks, In* Vs, const BwdRow<In, Out>& row, int k0,
+template <int D>
+__device__ __forceinline__ void stage_key_tile(float* Ks, float* Vs, const BwdRow& row, int k0,
                                                int T, int tid) {
   stage_rows<D>(Ks, row.k + (long)k0 * row.ld_in, row.ld_in, kBwdTile, T - k0, row.k, tid,
                 kBwdThreads);
@@ -140,16 +127,15 @@ __device__ __forceinline__ void stage_key_tile(In* Ks, In* Vs, const BwdRow<In, 
                 kBwdThreads);
 }
 
-template <int D, bool kWithDq = true, typename In = float, typename Out = float>
-__device__ __forceinline__ void attention_bwd_tile(const BwdRow<In, Out>& row, int T, int len,
-                                                   int k0, float sm_scale, float* smem) {
-  using L = BwdLayout<D, In>;
+template <int D, bool kWithDq = true>
+__device__ __forceinline__ void attention_bwd_tile(const BwdRow& row, int T, int len, int k0,
+                                                   float sm_scale, float* smem) {
+  using L = BwdLayout<D>;
   constexpr int kSteps = D / 8;
-  constexpr int kLd = L::kLd, kLdS = L::kLdS, kLdIn = L::kLdIn;
-  constexpr bool kF32 = kHasLo<In>;  // f32 q, k, v: three TF32 products each
-  In* Ks = reinterpret_cast<In*>(smem);
-  In* Vs = reinterpret_cast<In*>(smem + L::kKVIn);
-  float* stages = smem + 2 * L::kKVIn;
+  constexpr int kLd = L::kLd, kLdS = L::kLdS;
+  float* Ks = smem;
+  float* Vs = smem + L::kKV;
+  float* stages = smem + 2 * L::kKV;
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
@@ -171,7 +157,7 @@ __device__ __forceinline__ void attention_bwd_tile(const BwdRow<In, Out>& row, i
     for (int i = 0; i < n_q; ++i) {
       const int q0 = i * kBwdTile;
       float* Qslot = stages + (i & 1) * L::kStage;
-      const In* Qs = reinterpret_cast<const In*>(Qslot);
+      const float* Qs = Qslot;
       const float* dOs = Qslot + L::kQSlot;
       const float* Ls = dOs + L::kDout;
       const float* Ds = Ls + kBwdTile;
@@ -190,12 +176,12 @@ __device__ __forceinline__ void attention_bwd_tile(const BwdRow<In, Out>& row, i
         for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
 #pragma unroll
       for (int kk = 0; kk < kSteps; ++kk) {
-        const FragA ak = load_a_rowk(Ks, kLdIn, warp * 16, 8 * kk, g, t);
-        const FragA av = load_a_rowk(Vs, kLdIn, warp * 16, 8 * kk, g, t);
+        const FragA ak = load_a_rowk(Ks, kLd, warp * 16, 8 * kk, g, t);
+        const FragA av = load_a_rowk(Vs, kLd, warp * 16, 8 * kk, g, t);
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
-          mma_n<kF32, kF32>(st[j], ak, load_b_rowk(Qs, kLdIn, 8 * j, 8 * kk, g, t));
-          mma_n<kF32, true>(dpt[j], av, load_b_rowk(dOs, kLd, 8 * j, 8 * kk, g, t));
+          mma3(st[j], ak, load_b_rowk(Qs, kLd, 8 * j, 8 * kk, g, t));
+          mma3(dpt[j], av, load_b_rowk(dOs, kLd, 8 * j, 8 * kk, g, t));
         }
       }
 
@@ -237,11 +223,11 @@ __device__ __forceinline__ void attention_bwd_tile(const BwdRow<In, Out>& row, i
         const FragA ad = acc_as_a(dpt[j]);
 #pragma unroll
         for (int nd = 0; nd < kSteps; ++nd) {
-          const FragB b = load_b_colk(Qs, kLdIn, 8 * j, 8 * nd, g, t);
+          const FragB b = load_b_colk(Qs, kLd, 8 * j, 8 * nd, g, t);
           if (j == 0) {
-            mma_n<true, kF32, true>(part[nd], ad, b);
+            mma3_zero(part[nd], ad, b);
           } else {
-            mma_n<true, kF32>(part[nd], ad, b);
+            mma3(part[nd], ad, b);
           }
         }
       }
@@ -267,11 +253,11 @@ __device__ __forceinline__ void attention_bwd_tile(const BwdRow<In, Out>& row, i
           const FragA a = load_a_colk(dSs, kLdS, warp * 16, 8 * kk, g, t);
 #pragma unroll
           for (int nd = 0; nd < kSteps; ++nd) {
-            const FragB b = load_b_colk(Ks, kLdIn, 8 * kk, 8 * nd, g, t);
+            const FragB b = load_b_colk(Ks, kLd, 8 * kk, 8 * nd, g, t);
             if (kk == 0) {
-              mma_n<true, kF32, true>(part[nd], a, b);
+              mma3_zero(part[nd], a, b);
             } else {
-              mma_n<true, kF32>(part[nd], a, b);
+              mma3(part[nd], a, b);
             }
           }
         }
@@ -308,13 +294,13 @@ __device__ __forceinline__ void attention_bwd_tile(const BwdRow<In, Out>& row, i
 template <int D>
 struct DqLayout {
   static constexpr size_t kBytes =
-      sizeof(float) * (BwdLayout<D>::kStage + 2 * BwdLayout<D>::kKVIn);
+      sizeof(float) * (BwdLayout<D>::kStage + 2 * BwdLayout<D>::kKV);
 };
 
 // dq of queries q0 .. q0 + 63 of one (b, h) row with `len` valid keys: the
 // split route's dq, written at dq + t * ld_dq for t < T.
 template <int D>
-__device__ __forceinline__ void attention_dq_tile(const BwdRow<>& row, float* dq, long ld_dq,
+__device__ __forceinline__ void attention_dq_tile(const BwdRow& row, float* dq, long ld_dq,
                                                   int T, int len, int q0, float sm_scale,
                                                   float* smem) {
   using L = BwdLayout<D>;
@@ -325,7 +311,7 @@ __device__ __forceinline__ void attention_dq_tile(const BwdRow<>& row, float* dq
   const float* Ls = dOs + L::kDout;
   const float* Ds = Ls + kBwdTile;
   float* Ks = smem + L::kStage;
-  float* Vs = Ks + L::kKVIn;
+  float* Vs = Ks + L::kKV;
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
@@ -428,11 +414,9 @@ __device__ __forceinline__ void attention_dq_tile(const BwdRow<>& row, float* dq
 // W] view (a group is one batch row b of width W = F on the packed layout, or
 // one row bh of width D): sm_scale * the sum over key tiles kt < ceil(len /
 // 64) of dq_part[group, kt, t, f], in order, where len = lengths[group /
-// len_div]; written at out + (group * T + t) * ld_out + f (Out: f32, or bf16
-// rounded to nearest even).
-template <typename Out>
+// len_div]; written at out + (group * T + t) * ld_out + f.
 __device__ __forceinline__ void dq_reduce(const float* __restrict__ dq_part,
-                                          const int* __restrict__ lengths, Out* __restrict__ out,
+                                          const int* __restrict__ lengths, float* __restrict__ out,
                                           int T, int W, int n_kt, int len_div, long ld_out,
                                           float sm_scale, long quad) {
   const long per_group = (long)T * W;

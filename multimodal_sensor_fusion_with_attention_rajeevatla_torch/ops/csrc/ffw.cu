@@ -47,24 +47,28 @@
 // an exactly zero hidden, so out = b2.
 //
 // bf16 entries (msfa_ffw_fwd_bf16, msfa_ffw_bwd_bf16: mixed_precision with
-// fused_mlp on and fused_mlp_ln off). The same kernels at T = bf16, the
-// function of the reference's _fwd_kernel / _bwd_kernel when x is bf16
-// (their compute type is x's): x, W1, W2 and dout bf16; out, dx, dW1, dW2
-// bf16 (the reference returns the weights' gradients in their type); b1, b2
-// and db1 f32. pre sums exact bf16 products in f32; the hidden is rounded to
-// bf16 before W2's product and before dW2's (kept so in its scratch, half
-// the bytes); dpre is rounded to bf16 before both dW1 = x^T dpre and dx =
-// dpre W1^T, and db1 sums the unrounded f32 dpre. Every product takes two
-// bf16 operands, one TF32 product a k-step where 3xTF32 takes three: the
-// forward's 34.4 GFLOP and the backward's 85.9 bound at the bf16
-// tensor-core peak (989 TFLOP/s): 0.035 ms and 0.087 ms at the training
-// shape, against ~52 and ~64 MB of bf16 activations, masks and weights.
-// Their hidden is ffw_ln.cu's bf16 hidden on wgmma (wgmma_ffw.cuh's
-// wg_hidden_tile, launched here as fused_mlp_hidden_wg_kernel: the same
-// bits), the other products the 3xTF32 template's at one TF32 pass. With it
-// the forward went 0.3473 -> 0.2380 ms and the backward 0.9023 -> 0.7996 at
-// the training shape (scripts/attention_kernels_ab.py, an H100 80GB HBM3 at
-// 700 W).
+// fused_mlp on and fused_mlp_ln off), the function of the reference's
+// _fwd_kernel / _bwd_kernel when x is bf16 (their compute type is x's): x,
+// W1, W2 and dout bf16; out, dx, dW1, dW2 bf16 (the reference returns the
+// weights' gradients in their type); b1, b2 and db1 f32. pre sums exact bf16
+// products in f32; the hidden is rounded to bf16 before W2's product and
+// before dW2's (kept so in its scratch, half the bytes); dpre is rounded to
+// bf16 before both dW1 = x^T dpre and dx = dpre W1^T, and db1 sums the
+// unrounded f32 dpre. Every product takes two bf16 operands: the forward's
+// 34.4 GFLOP and the backward's 85.9 bound at the bf16 tensor-core peak (989
+// TFLOP/s): 0.035 ms and 0.087 ms at the training shape, against ~52 and ~64
+// MB of bf16 activations, masks and weights.
+//   Backward: on wgmma, the bodies of ffw_ln.cu's bf16 backward
+//   (wgmma_ffw.cuh over wgmma_bf16.cuh's WgProduct, m64n64k16 bf16 from
+//   128-byte-swizzled shared memory filled by cp.async) without its LN
+//   product: the hidden (wg_hidden_tile, shared with the forward: the same
+//   bits), dpre with dout in dy's place (wg_dpre_tile, k = D in one sum in
+//   the unit, 128 x 128 tiles), dx = dpre W1^T with no dr (wg_dx_tile<D,
+//   false>, 128 whole rows, 64-deep fresh accumulators added in f32), dW2 =
+//   hd^T dout and dW1 = (dpre^T x)^T per split of whole 64-row chunks
+//   (wg_grad_tile, mlp.py _wg_grad_splits), then the ordered sums.
+//   Forward: the wgmma hidden, then the out product on the 3xTF32 template
+//   at one TF32 pass.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -127,33 +131,59 @@ fused_mlp_fwd_kernel(const T* __restrict__ hd, const T* __restrict__ w2,
 
 // dpre = (hd > 0) * (dout W2^T) * mask * inv_keep for a 128-row x 64-column
 // tile, and the block's column sums of dpre (db1's partial)
-template <typename T>
 __global__ void __launch_bounds__(DhdProduct::kThreads, 2)
-fused_mlp_bwd_dpre_kernel(const T* __restrict__ dout, const T* __restrict__ w2,
-                          const T* __restrict__ hd, const unsigned char* __restrict__ mask,
-                          T* __restrict__ dpre, float* __restrict__ part, int N, int D, int F,
-                          float inv_keep) {
+fused_mlp_bwd_dpre_kernel(const float* __restrict__ dout, const float* __restrict__ w2,
+                          const float* __restrict__ hd, const unsigned char* __restrict__ mask,
+                          float* __restrict__ dpre, float* __restrict__ part, int N, int D,
+                          int F, float inv_keep) {
   extern __shared__ __align__(16) float smem[];
   dpre_tile(dout, w2, hd, mask, dpre, part, N, D, F, inv_keep, smem);
 }
 
 // dx = dpre W1^T for 64 whole rows
-template <int D, typename T>
+template <int D>
 __global__ void __launch_bounds__(DxProduct<D>::kThreads)
-fused_mlp_bwd_dx_kernel(const T* __restrict__ dpre, const T* __restrict__ w1,
-                        T* __restrict__ dx, int N, int F) {
+fused_mlp_bwd_dx_kernel(const float* __restrict__ dpre, const float* __restrict__ w1,
+                        float* __restrict__ dx, int N, int F) {
   extern __shared__ __align__(16) float smem[];
   dx_tile<D, false>(dpre, F, w1, nullptr, dx, N, smem);
 }
 
 // part[split] = A[rows of split]^T B[rows of split] for a 128 x 64 tile of
 // the [M, O] weight gradient (A [N, M], B [N, O] row-major)
-template <typename T>
 __global__ void __launch_bounds__(GradProduct::kThreads, 2)
-fused_mlp_bwd_dw_kernel(const T* __restrict__ A, int M, const T* __restrict__ B, int O,
+fused_mlp_bwd_dw_kernel(const float* __restrict__ A, int M, const float* __restrict__ B, int O,
                         float* __restrict__ part, int N, int rows_per_split) {
   extern __shared__ __align__(16) float smem[];
   grad_tile(A, M, B, O, part, N, rows_per_split, smem);
+}
+
+// The bf16 backward's kernels on wgmma (wgmma_ffw.cuh's bodies)
+__global__ void __launch_bounds__(msfa_wg::WgDpreProduct::kThreads, 2)
+fused_mlp_bwd_dpre_wg_kernel(const bf16* __restrict__ dout, const bf16* __restrict__ w2,
+                             const bf16* __restrict__ hd, const unsigned char* __restrict__ mask,
+                             bf16* __restrict__ dpre, float* __restrict__ part, int N, int D,
+                             int F, float inv_keep) {
+  extern __shared__ __align__(1024) unsigned char wg_smem[];
+  msfa_wg::wg_dpre_tile(dout, w2, hd, mask, dpre, part, N, D, F, inv_keep,
+                        msfa_wg::align1024(wg_smem));
+}
+
+template <int D>
+__global__ void __launch_bounds__(msfa_wg::WgDxProduct<D>::kThreads)
+fused_mlp_bwd_dx_wg_kernel(const bf16* __restrict__ dpre, const bf16* __restrict__ w1,
+                           const float* __restrict__ dr, bf16* __restrict__ dx, int N, int F) {
+  extern __shared__ __align__(1024) unsigned char wg_smem[];  // dr: none (nullptr), not read
+  msfa_wg::wg_dx_tile<D, false>(dpre, F, w1, dr, dx, N, msfa_wg::align1024(wg_smem));
+}
+
+template <int D, bool kTransposed>
+__global__ void __launch_bounds__(msfa_wg::WgGradProduct<D>::kThreads)
+fused_mlp_bwd_dw_wg_kernel(const bf16* __restrict__ A, int M, const bf16* __restrict__ B,
+                           float* __restrict__ part, int N, int rows_per_split) {
+  extern __shared__ __align__(1024) unsigned char wg_smem[];
+  msfa_wg::wg_grad_tile<D, kTransposed>(A, M, B, part, N, rows_per_split,
+                                        msfa_wg::align1024(wg_smem));
 }
 
 // out[e] = sum over s of part[s][e], s in order (rounded to bf16 for a bf16 out)
@@ -211,45 +241,63 @@ int launch_fwd(const T* x, const T* w1, const float* b1, const T* w2, const floa
   return 0;
 }
 
-template <int D, typename T>
-int launch_bwd(const T* x, const T* w1, const float* b1, const T* w2,
-               const unsigned char* mask, const T* dout, T* dx, T* dw1, float* db1, T* dw2,
-               T* hd, T* dpre, float* db1_part, float* dw_part, int N, int F, int splits,
-               float inv_keep, cudaStream_t s) {
-  using PH = DhdProductOf<T>;
-  using PX = DxProduct<D, T>;
-  using PG = GradProductOf<T>;
-  MSFA_TRY(allow_smem(fused_mlp_bwd_dpre_kernel<T>, PH::kSmemFloats));
-  MSFA_TRY(allow_smem(fused_mlp_bwd_dx_kernel<D, T>, PX::kSmemFloats));
-  MSFA_TRY(allow_smem(fused_mlp_bwd_dw_kernel<T>, PG::kSmemFloats));
+// The f32 backward
+template <int D>
+int launch_bwd(const float* x, const float* w1, const float* b1, const float* w2,
+               const unsigned char* mask, const float* dout, float* dx, float* dw1, float* db1,
+               float* dw2, float* hd, float* dpre, float* db1_part, float* dw_part, int N, int F,
+               int splits, float inv_keep, cudaStream_t s) {
+  using PH = DhdProduct;
+  using PX = DxProduct<D>;
+  using PG = GradProduct;
+  MSFA_TRY(allow_smem(fused_mlp_bwd_dpre_kernel, PH::kSmemFloats));
+  MSFA_TRY(allow_smem(fused_mlp_bwd_dx_kernel<D>, PX::kSmemFloats));
+  MSFA_TRY(allow_smem(fused_mlp_bwd_dw_kernel, PG::kSmemFloats));
   const int row_tiles_f = (N + kRowsF - 1) / kRowsF;
   const int fb = (int)sizeof(float);
 
   MSFA_TRY(launch_hidden(x, w1, b1, mask, hd, N, D, F, inv_keep, s));
-  fused_mlp_bwd_dpre_kernel<T><<<dim3(F / kColsF, row_tiles_f), PH::kThreads,
-                                 PH::kSmemFloats * fb, s>>>(dout, w2, hd, mask, dpre, db1_part,
-                                                            N, D, F, inv_keep);
+  fused_mlp_bwd_dpre_kernel<<<dim3(F / kColsF, row_tiles_f), PH::kThreads, PH::kSmemFloats * fb,
+                              s>>>(dout, w2, hd, mask, dpre, db1_part, N, D, F, inv_keep);
   MSFA_TRY(cudaGetLastError());
-  fused_mlp_bwd_dx_kernel<D, T><<<(N + kRowsD - 1) / kRowsD, PX::kThreads,
-                                  PX::kSmemFloats * fb, s>>>(dpre, w1, dx, N, F);
+  fused_mlp_bwd_dx_kernel<D><<<(N + kRowsD - 1) / kRowsD, PX::kThreads, PX::kSmemFloats * fb,
+                               s>>>(dpre, w1, dx, N, F);
   MSFA_TRY(cudaGetLastError());
 
   const int per_split = rows_per_split(N, splits);
   const int dw_bytes = PG::kSmemFloats * fb;
-  fused_mlp_bwd_dw_kernel<T><<<dim3((F + kGradM - 1) / kGradM, (D + kGradO - 1) / kGradO,
-                                    splits),
-                               PG::kThreads, dw_bytes, s>>>(hd, F, dout, D, dw_part, N,
-                                                            per_split);  // dW2 = hd^T dout
+  fused_mlp_bwd_dw_kernel<<<dim3((F + kGradM - 1) / kGradM, (D + kGradO - 1) / kGradO, splits),
+                            PG::kThreads, dw_bytes, s>>>(hd, F, dout, D, dw_part, N,
+                                                         per_split);  // dW2 = hd^T dout
   MSFA_TRY(cudaGetLastError());
   MSFA_TRY(sum_splits(dw_part, dw2, splits, (long)F * D, s));
-  fused_mlp_bwd_dw_kernel<T><<<dim3((D + kGradM - 1) / kGradM, (F + kGradO - 1) / kGradO,
-                                    splits),
-                               PG::kThreads, dw_bytes, s>>>(x, D, dpre, F, dw_part, N,
-                                                            per_split);  // dW1 = x^T dpre
+  fused_mlp_bwd_dw_kernel<<<dim3((D + kGradM - 1) / kGradM, (F + kGradO - 1) / kGradO, splits),
+                            PG::kThreads, dw_bytes, s>>>(x, D, dpre, F, dw_part, N,
+                                                         per_split);  // dW1 = x^T dpre
   MSFA_TRY(cudaGetLastError());
   MSFA_TRY(sum_splits(dw_part, dw1, splits, (long)D * F, s));
   MSFA_TRY(sum_splits(db1_part, db1, row_tiles_f, F, s));
   return 0;
+}
+
+// The bf16 backward on wgmma: the hidden, then wgmma_ffw.cuh's
+// launch_bwd_products (ffw_ln.cu's bf16 backward without its LN product,
+// dout in dy's place and no dr); a weight-gradient split a whole number of
+// 64-row chunks
+template <int D>
+int launch_bwd(const bf16* x, const bf16* w1, const float* b1, const bf16* w2,
+               const unsigned char* mask, const bf16* dout, bf16* dx, bf16* dw1, float* db1,
+               bf16* dw2, bf16* hd, bf16* dpre, float* db1_part, float* dw_part, int N, int F,
+               int splits, float inv_keep, cudaStream_t s) {
+  MSFA_TRY(launch_hidden(x, w1, b1, mask, hd, N, D, F, inv_keep, s));
+  const msfa_wg::WgBwdKernels k{fused_mlp_bwd_dpre_wg_kernel, fused_mlp_bwd_dx_wg_kernel<D>,
+                                fused_mlp_bwd_dw_wg_kernel<D, false>,
+                                fused_mlp_bwd_dw_wg_kernel<D, true>};
+  return msfa_wg::launch_bwd_products<D>(
+      k, x, w1, w2, mask, dout, nullptr, hd, dx, dw1, db1, dw2, dpre, db1_part, dw_part, N, F,
+      splits, inv_keep, s, [s](const float* part, auto* out, int n, long width) {
+        return sum_splits(part, out, n, width, s);
+      });
 }
 
 template <typename T>
@@ -288,18 +336,39 @@ int bwd_entry(const T* x, const T* w1, const float* b1, const T* w2, const unsig
 #undef MSFA_FFW_BWD
 }
 
-// bytes[0] is the hidden's: HiddenProduct's, or the wgmma hidden's for bf16
-template <typename T>
-int smem_bytes(int D, int hidden_bytes, int* bytes) {
+// the f32 entries' five kernels
+int smem_bytes(int D, int* bytes) {
   const int fb = (int)sizeof(float);
-  bytes[0] = hidden_bytes;
-  bytes[2] = DhdProductOf<T>::kSmemFloats * fb;
-  bytes[4] = GradProductOf<T>::kSmemFloats * fb;
+  bytes[0] = HiddenProduct::kSmemFloats * fb;
+  bytes[2] = DhdProduct::kSmemFloats * fb;
+  bytes[4] = GradProduct::kSmemFloats * fb;
   switch (D) {
 #define MSFA_FFW_SMEM(W)                                  \
   case W:                                                 \
-    bytes[1] = LnProduct<W, T>::kSmemFloats * fb;         \
-    bytes[3] = DxProduct<W, T>::kSmemFloats * fb;         \
+    bytes[1] = LnProduct<W>::kSmemFloats * fb;            \
+    bytes[3] = DxProduct<W>::kSmemFloats * fb;            \
+    return 0;
+    MSFA_FFW_SMEM(32)
+    MSFA_FFW_SMEM(64)
+    MSFA_FFW_SMEM(128)
+    MSFA_FFW_SMEM(256)
+#undef MSFA_FFW_SMEM
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// the bf16 entries' five: the wgmma hidden, the 3xTF32-template forward, the
+// wgmma backward products
+int smem_bytes_wg(int D, int* bytes) {
+  using msfa_wg::ring_smem_bytes;
+  bytes[0] = msfa_wg::hidden_smem_bytes();
+  bytes[2] = msfa_wg::dpre_smem_bytes();
+  switch (D) {
+#define MSFA_FFW_SMEM(W)                                         \
+  case W:                                                        \
+    bytes[1] = LnProduct<W, bf16>::kSmemFloats * (int)sizeof(float); \
+    bytes[3] = ring_smem_bytes<msfa_wg::WgDxProduct<W>>();       \
+    bytes[4] = ring_smem_bytes<msfa_wg::WgGradProduct<W>>();     \
     return 0;
     MSFA_FFW_SMEM(32)
     MSFA_FFW_SMEM(64)
@@ -331,7 +400,8 @@ int msfa_ffw_fwd_bf16(const bf16* x, const bf16* w1, const float* b1, const bf16
 }
 
 // Scratch: hd, dpre [N, F], db1_part [ceil(N/128), F], dw_part [splits, D * F];
-// hd holds the hidden on return.
+// hd holds the hidden on return. The bf16 entry's splits are whole 64-row
+// chunks (mlp.py _wg_grad_splits), the f32 entry's _grad_splits.
 int msfa_ffw_bwd(const float* x, const float* w1, const float* b1, const float* w2,
                  const unsigned char* mask, const float* dout, float* dx, float* dw1,
                  float* db1, float* dw2, float* hd, float* dpre, float* db1_part,
@@ -353,12 +423,8 @@ int msfa_ffw_bwd_bf16(const bf16* x, const bf16* w1, const float* b1, const bf16
 
 // Dynamic shared memory per block of the five product kernels (hidden, fwd,
 // dpre, dx, dw) at width D, into bytes[0..4]; the bf16 entries' beside it.
-int msfa_ffw_smem_bytes(int D, int* bytes) {
-  return smem_bytes<float>(D, HiddenProduct::kSmemFloats * (int)sizeof(float), bytes);
-}
-int msfa_ffw_bf16_smem_bytes(int D, int* bytes) {
-  return smem_bytes<bf16>(D, msfa_wg::hidden_smem_bytes(), bytes);
-}
+int msfa_ffw_smem_bytes(int D, int* bytes) { return smem_bytes(D, bytes); }
+int msfa_ffw_bf16_smem_bytes(int D, int* bytes) { return smem_bytes_wg(D, bytes); }
 
 const char* msfa_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -207,7 +207,7 @@ __global__ void __launch_bounds__(msfa_wg::WgDxProduct<D>::kThreads)
 ffw_ln_bwd_dx_wg_kernel(const bf16* __restrict__ dpre, const bf16* __restrict__ w1,
                         const float* __restrict__ dr, bf16* __restrict__ dx, int N, int F) {
   extern __shared__ __align__(1024) unsigned char wg_smem[];
-  msfa_wg::wg_dx_tile<D>(dpre, F, w1, dr, dx, N, msfa_wg::align1024(wg_smem));
+  msfa_wg::wg_dx_tile<D, true>(dpre, F, w1, dr, dx, N, msfa_wg::align1024(wg_smem));
 }
 
 template <int D, bool kTransposed>
@@ -217,11 +217,6 @@ ffw_ln_bwd_dw_wg_kernel(const bf16* __restrict__ A, int M, const bf16* __restric
   extern __shared__ __align__(1024) unsigned char wg_smem[];
   msfa_wg::wg_grad_tile<D, kTransposed>(A, M, B, part, N, rows_per_split,
                                         msfa_wg::align1024(wg_smem));
-}
-
-template <class Kernel>
-cudaError_t allow_bytes(Kernel kernel, int bytes) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
 // the hidden, as both directions take it
@@ -242,7 +237,7 @@ cudaError_t launch_hidden(const bf16* x, const bf16* w1, const float* b1,
                           const unsigned char* fmask, bf16* hd, int N, int D, int F,
                           float inv_keep, cudaStream_t s) {
   constexpr int kBytes = msfa_wg::hidden_smem_bytes();
-  const cudaError_t err = allow_bytes(ffw_ln_hidden_wg_kernel, kBytes);
+  const cudaError_t err = msfa_wg::allow_bytes(ffw_ln_hidden_wg_kernel, kBytes);
   if (err != cudaSuccess) return err;
   const dim3 grid((F + msfa_wg::kWgColsF - 1) / msfa_wg::kWgColsF, (N + kRowsF - 1) / kRowsF);
   ffw_ln_hidden_wg_kernel<<<grid, msfa_wg::WgFProduct::kThreads, kBytes, s>>>(
@@ -313,8 +308,9 @@ int launch_bwd(const float* x, const float* w1, const float* b1, const float* w2
   return 0;
 }
 
-// The bf16 backward: the same six launches on wgmma (wgmma_ffw.cuh); dr is
-// its own f32 scratch, a weight-gradient split a whole number of 64-row chunks
+// The bf16 backward: the same six launches on wgmma (wgmma_ffw.cuh), the LN
+// product, then launch_bwd_products on dy and dr; dr is its own f32 scratch,
+// a weight-gradient split a whole number of 64-row chunks
 template <int D>
 int launch_bwd(const bf16* x, const bf16* w1, const float* b1, const bf16* w2, const float* b2,
                const float* gamma, const unsigned char* fmask, const unsigned char* rmask,
@@ -322,46 +318,26 @@ int launch_bwd(const bf16* x, const bf16* w1, const float* b1, const bf16* w2, c
                bf16* hd, bf16* dpre, bf16* dy, float* dr, float* ln_part, float* db1_part,
                float* dw_part, int N, int Dv, int F, int splits, float inv_keep, float eps,
                cudaStream_t s) {
-  using msfa_wg::WgDxProduct;
-  using msfa_wg::WgGradProduct;
   using msfa_wg::WgLnProduct;
-  using msfa_wg::ring_smem_bytes;
   constexpr int kLnBytes = msfa_wg::ln_bwd_smem_bytes<D>();
-  constexpr int kDpreBytes = msfa_wg::dpre_smem_bytes();
-  constexpr int kDxBytes = ring_smem_bytes<WgDxProduct<D>>();
-  constexpr int kDwBytes = ring_smem_bytes<WgGradProduct<D>>();
-  MSFA_TRY(allow_bytes(ffw_ln_bwd_ln_wg_kernel<D>, kLnBytes));
-  MSFA_TRY(allow_bytes(ffw_ln_bwd_dpre_wg_kernel, kDpreBytes));
-  MSFA_TRY(allow_bytes(ffw_ln_bwd_dx_wg_kernel<D>, kDxBytes));
-  MSFA_TRY(allow_bytes(ffw_ln_bwd_dw_wg_kernel<D, false>, kDwBytes));
-  MSFA_TRY(allow_bytes(ffw_ln_bwd_dw_wg_kernel<D, true>, kDwBytes));
-  const int row_tiles_f = (N + kRowsF - 1) / kRowsF;
+  MSFA_TRY(msfa_wg::allow_bytes(ffw_ln_bwd_ln_wg_kernel<D>, kLnBytes));
   const int row_tiles_d = (N + msfa_wg::kWgRowsD - 1) / msfa_wg::kWgRowsD;
 
   MSFA_TRY(launch_hidden(x, w1, b1, fmask, hd, N, D, F, inv_keep, s));
   ffw_ln_bwd_ln_wg_kernel<D><<<row_tiles_d, WgLnProduct<D>::kThreads, kLnBytes, s>>>(
       hd, w2, b2, x, gamma, rmask, dout, dr, dy, ln_part, N, F, Dv, inv_keep, eps);
   MSFA_TRY(cudaGetLastError());
-  const dim3 grid_f((F + msfa_wg::kWgColsF - 1) / msfa_wg::kWgColsF, row_tiles_f);
-  ffw_ln_bwd_dpre_wg_kernel<<<grid_f, msfa_wg::WgDpreProduct::kThreads, kDpreBytes, s>>>(
-      dy, w2, hd, fmask, dpre, db1_part, N, D, F, inv_keep);
-  MSFA_TRY(cudaGetLastError());
-  ffw_ln_bwd_dx_wg_kernel<D><<<row_tiles_d, WgDxProduct<D>::kThreads, kDxBytes, s>>>(
-      dpre, w1, dr, dx, N, F);
-  MSFA_TRY(cudaGetLastError());
-
-  const int per_split = msfa_wg::wg_rows_per_split(N, splits);
-  const dim3 grid_w((F + msfa_wg::kWgGradM - 1) / msfa_wg::kWgGradM, 1, splits);
-  ffw_ln_bwd_dw_wg_kernel<D, false><<<grid_w, WgGradProduct<D>::kThreads, kDwBytes, s>>>(
-      hd, F, dy, dw_part, N, per_split);  // dW2 = hd^T dy
-  MSFA_TRY(cudaGetLastError());
-  MSFA_TRY(sum_splits(dw_part, dw2, splits, (long)F * D, s));
-  ffw_ln_bwd_dw_wg_kernel<D, true><<<grid_w, WgGradProduct<D>::kThreads, kDwBytes, s>>>(
-      dpre, F, x, dw_part, N, per_split);  // dW1 = (dpre^T x)^T
-  MSFA_TRY(cudaGetLastError());
-  MSFA_TRY(sum_splits(dw_part, dw1, splits, (long)D * F, s));
-  MSFA_TRY(sum_splits(ln_part, sums, row_tiles_d, 3L * D, s));
-  MSFA_TRY(sum_splits(db1_part, db1, row_tiles_f, F, s));
+  const msfa_wg::WgBwdKernels k{ffw_ln_bwd_dpre_wg_kernel, ffw_ln_bwd_dx_wg_kernel<D>,
+                                ffw_ln_bwd_dw_wg_kernel<D, false>,
+                                ffw_ln_bwd_dw_wg_kernel<D, true>};
+  const auto sum = [s](const float* part, auto* out, int n, long width) {
+    return sum_splits(part, out, n, width, s);
+  };
+  const int err = msfa_wg::launch_bwd_products<D>(k, x, w1, w2, fmask, dy, dr, hd, dx, dw1, db1,
+                                                  dw2, dpre, db1_part, dw_part, N, F, splits,
+                                                  inv_keep, s, sum);
+  if (err) return err;
+  MSFA_TRY(sum(ln_part, sums, row_tiles_d, 3L * D));
   return 0;
 }
 

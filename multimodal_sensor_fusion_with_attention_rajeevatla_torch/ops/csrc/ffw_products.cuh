@@ -14,14 +14,8 @@
 //                 sums of dpre (db1's partial). hd > 0 is pre > 0 wherever the
 //                 mask keeps the unit; where it drops it, dpre is 0 either way.
 //
-// hidden_tile takes f32 operands: the bf16 entries' hidden runs on wgmma
-// (wgmma_ffw.cuh's wg_hidden_tile). dpre_tile takes the activation type T
-// (f32, or bf16 for ffw.cu's bf16 backward): with bf16, g and W2 are bf16
-// operands, dpre is written rounded to bf16 (the products that read it take
-// it so, as the reference's kernel casts it) and db1's partial sums the f32
-// dpre; hd is the bf16 hidden, and a positive pre keeps hd > 0 after the
-// rounding (bf16 has f32's exponent range; only a pre below 2^-134 would
-// round to zero).
+// Both take f32 operands: the bf16 entries' products run on wgmma
+// (wgmma_ffw.cuh's wg_hidden_tile and wg_dpre_tile).
 
 #pragma once
 
@@ -36,9 +30,7 @@ namespace tc = msfa_tc;
 
 // [N, F] products over k = D (hidden, dpre): 128 x 64 tiles, 8 warps
 using HiddenProduct = tc::TcProduct<128, 64, 4, 2, false, true>;  // x [n][d] . W1 [d][f]
-template <typename T = float>  // g [n][d] . (W2 [f][d])^T
-using DhdProductOf = tc::TcProduct<128, 64, 4, 2, false, false, T, T>;
-using DhdProduct = DhdProductOf<>;
+using DhdProduct = tc::TcProduct<128, 64, 4, 2, false, false>;  // g [n][d] . (W2 [f][d])^T
 
 constexpr int kRowsF = 128;  // rows of a block in the [N, F] products
 constexpr int kColsF = 64;   // hidden columns of a block in the [N, F] products
@@ -84,14 +76,13 @@ __device__ __forceinline__ void hidden_tile(const float* __restrict__ x,
 
 // dpre = (hd > 0) * (g W2^T) * fmask * inv_keep for the block's tile, and the
 // block's column sums of dpre into part[blockIdx.y][F]
-template <typename T>
-__device__ __forceinline__ void dpre_tile(const T* __restrict__ g,
-                                          const T* __restrict__ w2,
-                                          const T* __restrict__ hd,
+__device__ __forceinline__ void dpre_tile(const float* __restrict__ g,
+                                          const float* __restrict__ w2,
+                                          const float* __restrict__ hd,
                                           const unsigned char* __restrict__ fmask,
-                                          T* __restrict__ dpre, float* __restrict__ part,
+                                          float* __restrict__ dpre, float* __restrict__ part,
                                           int N, int D, int F, float inv_keep, float* smem) {
-  using P = DhdProductOf<T>;
+  using P = DhdProduct;
   const int f0 = blockIdx.x * kColsF, n0 = blockIdx.y * kRowsF;
   const typename P::A a{g + (long)n0 * D, D, N - n0, D};
   const typename P::B b{w2 + (long)f0 * D, D, F - f0, D};  // (W2^T)(d, f) = W2[f][d]

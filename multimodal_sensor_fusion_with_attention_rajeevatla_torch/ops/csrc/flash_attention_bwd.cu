@@ -97,7 +97,7 @@ flash_bwd_fused_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const long bh = blockIdx.x / n_kt;
   const int kt = (int)(blockIdx.x % n_kt);
   const long at = bh * T * D;
-  const msfa_tc::BwdRow<> row{
+  const msfa_tc::BwdRow row{
       q + at, k + at, v + at, D,                       // q, k, v
       dout + at, D,                                    // dout
       lse + bh * T, delta + bh * T, 1,                 // lse, delta
@@ -131,7 +131,7 @@ flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const long bh = blockIdx.x / n_kt;
   const int kt = (int)(blockIdx.x % n_kt);
   const long at = bh * T * D;
-  const msfa_tc::BwdRow<> row{
+  const msfa_tc::BwdRow row{
       q + at, k + at, v + at, D,                       // q, k, v
       dout + at, D,                                    // dout
       lse + bh * T, delta + bh * T, 1,                 // lse, delta
@@ -154,7 +154,7 @@ flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const long bh = blockIdx.x / n_qt;
   const int qt = (int)(blockIdx.x % n_qt);
   const long at = bh * T * D;
-  const msfa_tc::BwdRow<> row{
+  const msfa_tc::BwdRow row{
       q + at, k + at, v + at, D,                       // q, k, v
       dout + at, D,                                    // dout
       lse + bh * T, delta + bh * T, 1,                 // lse, delta

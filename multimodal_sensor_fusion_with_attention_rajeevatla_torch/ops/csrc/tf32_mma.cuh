@@ -246,11 +246,6 @@ __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
 __device__ __forceinline__ void store4(float* p, float4 v) {
   *reinterpret_cast<float4*>(p) = v;
 }
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
-  const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y), hi = __floats2bfloat162_rn(v.z, v.w);
-  *reinterpret_cast<uint2*>(p) = make_uint2(*reinterpret_cast<const uint32_t*>(&lo),
-                                            *reinterpret_cast<const uint32_t*>(&hi));
-}
 __device__ __forceinline__ float load1(const float* p) { return *p; }
 __device__ __forceinline__ float load1(const __nv_bfloat16* p) { return __bfloat162float(*p); }
 __device__ __forceinline__ float2 load2(const float* p) {

@@ -1,20 +1,25 @@
 // The bf16 entries' FFW products on wgmma (wgmma_bf16.cuh's WgProduct), for
 // Hopper (sm_90a): every product of the bf16 FFW residual-LN backward
-// (ffw_ln.cu, msfa_ffw_ln_bwd_bf16) and the bf16 hidden that both bf16 FFW
-// pairs' directions launch (ffw_ln.cu and ffw.cu). Each body is its 3xTF32
+// (ffw_ln.cu, msfa_ffw_ln_bwd_bf16) and of the bf16 feed-forward backward
+// (ffw.cu, msfa_ffw_bwd_bf16: the same bodies with dout in dy's place and no
+// dr), and the bf16 hidden that both bf16 FFW pairs' directions launch
+// (ffw_ln.cu and ffw.cu). Each body is its 3xTF32
 // counterpart's function with its epilogue (ffw_products.cuh's hidden_tile
 // and dpre_tile, residual_ln.cuh's ln_bwd_tile, dx_tile and grad_tile) on a
 // wgmma product; the f32 entries keep those. Each kernel that calls a body
-// below is a thin __global__ of its own source.
+// below is a thin __global__ of its own source; launch_bwd_products (at the
+// end) is both bf16 backwards' launch sequence after the hidden.
 //
 //   wg_hidden_tile   hd = relu(x W1 + b1) * fmask * inv_keep, rounded to
 //                    bf16, for 128 rows x 128 columns (two warpgroups)
 //   wg_ln_bwd_tile   y = hd W2 for 128 whole rows (a warpgroup each 64),
 //                    then the LayerNorm backward: dr (f32), dy (bf16), the
 //                    block's sums of dout * xhat | dout | dy
-//   wg_dpre_tile     dpre = (hd > 0) * (dy W2^T) * fmask * inv_keep, rounded
-//                    to bf16, for 128 x 128, and the block's column sums of dpre
-//   wg_dx_tile       dx = dr + dpre W1^T for 128 whole rows, rounded to bf16
+//   wg_dpre_tile     dpre = (hd > 0) * (g W2^T) * fmask * inv_keep, g = dy
+//                    (ffw_ln) or dout (ffw), rounded to bf16, for 128 x 128,
+//                    and the block's column sums of dpre
+//   wg_dx_tile       dx = dr + dpre W1^T (ffw_ln) or dpre W1^T (ffw) for 128
+//                    whole rows, rounded to bf16
 //   wg_grad_tile     one row split's A^T B for 128 rows of d_ff by the whole
 //                    D of a weight gradient (dW2 = hd^T dy, and dW1 = x^T
 //                    dpre as (dpre^T x)^T, written transposed)
@@ -90,6 +95,12 @@ constexpr int kMaskTileBytes = 128 * kMaskLd, kBf16TileBytes = 128 * kTileLd;
 static_assert(kBf16TileBytes + 8 * kWgColsF * 4 <= WgDpreProduct::kRingBytes, "staging fits");
 constexpr int hidden_smem_bytes() { return WgFProduct::kRingBytes + kMaskTileBytes + kAlignSlack; }
 constexpr int dpre_smem_bytes() { return WgDpreProduct::kRingBytes + kBf16TileBytes + kAlignSlack; }
+
+// let `kernel` take `bytes` of dynamic shared memory (past 48 KB)
+template <class Kernel>
+cudaError_t allow_bytes(Kernel kernel, int bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
 
 // copy rows n0 .. n0 + 127, bytes [0, 16 kPieces) of a row-major matrix (row
 // stride ld_src bytes; rows past `rows`, bytes past `bytes` zero) into
@@ -334,8 +345,9 @@ __device__ __forceinline__ void wg_ln_bwd_tile(const bf16* __restrict__ hd, int 
   }
 }
 
-// dx = dr + dpre W1^T for the block's 128 rows, rounded to bf16 (dr f32)
-template <int D>
+// dx = dr + dpre W1^T for the block's 128 rows, rounded to bf16 (dr f32;
+// without kAddDr, dx = dpre W1^T and dr is not read: the feed-forward pair's)
+template <int D, bool kAddDr>
 __device__ __forceinline__ void wg_dx_tile(const bf16* __restrict__ dpre, int F,
                                            const bf16* __restrict__ w1,
                                            const float* __restrict__ dr, bf16* __restrict__ dx,
@@ -357,9 +369,12 @@ __device__ __forceinline__ void wg_dx_tile(const bf16* __restrict__ dpre, int F,
         const int c = P::col(nb, j, 0);
         if (c >= D) continue;
         const long at = (long)n * D + c;
-        const float2 was = *reinterpret_cast<const float2*>(dr + at);
-        msfa_tc::store2(dx + at, was.x + acc[nb][4 * j + 2 * h],
-                        was.y + acc[nb][4 * j + 2 * h + 1]);
+        float2 v = make_float2(acc[nb][4 * j + 2 * h], acc[nb][4 * j + 2 * h + 1]);
+        if constexpr (kAddDr) {
+          const float2 was = *reinterpret_cast<const float2*>(dr + at);
+          v = make_float2(was.x + v.x, was.y + v.y);
+        }
+        msfa_tc::store2(dx + at, v.x, v.y);
       }
   }
 }
@@ -402,6 +417,63 @@ __device__ __forceinline__ void wg_grad_tile(const bf16* __restrict__ A, int M,
         }
       }
   }
+}
+
+// The kernels a bf16 FFW backward launches after its hidden: each source's
+// own thin __global__ wrappers of the bodies above, so each entry keeps its
+// kernels' names
+struct WgBwdKernels {
+  void (*dpre)(const bf16*, const bf16*, const bf16*, const unsigned char*, bf16*, float*, int,
+               int, int, float);
+  void (*dx)(const bf16*, const bf16*, const float*, bf16*, int, int);
+  void (*dw)(const bf16*, int, const bf16*, float*, int, int);    // A^T B
+  void (*dw_t)(const bf16*, int, const bf16*, float*, int, int);  // (A^T B)^T
+};
+
+// Both bf16 FFW backwards' launches after the hidden hd (and, in ffw_ln.cu,
+// the LN product): dpre on g (ffw_ln's dy, or ffw's dout), dx = dr + dpre
+// W1^T (ffw_ln) or dpre W1^T (ffw, dr unused), dW2 = hd^T g, dW1 = (dpre^T
+// x)^T, then the ordered sums of dW2, dW1 and db1 by `sum(part, out,
+// splits, width)`, the caller's ordered_sum launch
+template <int D, class Sum>
+int launch_bwd_products(const WgBwdKernels& k, const bf16* x, const bf16* w1, const bf16* w2,
+                        const unsigned char* fmask, const bf16* g, const float* dr,
+                        const bf16* hd, bf16* dx, bf16* dw1, float* db1, bf16* dw2, bf16* dpre,
+                        float* db1_part, float* dw_part, int N, int F, int splits,
+                        float inv_keep, cudaStream_t s, Sum sum) {
+  constexpr int kDpreBytes = dpre_smem_bytes();
+  constexpr int kDxBytes = ring_smem_bytes<WgDxProduct<D>>();
+  constexpr int kDwBytes = ring_smem_bytes<WgGradProduct<D>>();
+  const auto dpre_k = k.dpre;
+  const auto dx_k = k.dx;
+  const auto dw_k = k.dw;
+  const auto dw_t_k = k.dw_t;
+  MSFA_TRY(allow_bytes(dpre_k, kDpreBytes));
+  MSFA_TRY(allow_bytes(dx_k, kDxBytes));
+  MSFA_TRY(allow_bytes(dw_k, kDwBytes));
+  MSFA_TRY(allow_bytes(dw_t_k, kDwBytes));
+  const int row_tiles_f = (N + kRowsF - 1) / kRowsF;
+  const int row_tiles_d = (N + kWgRowsD - 1) / kWgRowsD;
+
+  const dim3 grid_f((F + kWgColsF - 1) / kWgColsF, row_tiles_f);
+  dpre_k<<<grid_f, WgDpreProduct::kThreads, kDpreBytes, s>>>(g, w2, hd, fmask, dpre, db1_part,
+                                                              N, D, F, inv_keep);
+  MSFA_TRY(cudaGetLastError());
+  dx_k<<<row_tiles_d, WgDxProduct<D>::kThreads, kDxBytes, s>>>(dpre, w1, dr, dx, N, F);
+  MSFA_TRY(cudaGetLastError());
+
+  const int per_split = wg_rows_per_split(N, splits);
+  const dim3 grid_w((F + kWgGradM - 1) / kWgGradM, 1, splits);
+  dw_k<<<grid_w, WgGradProduct<D>::kThreads, kDwBytes, s>>>(hd, F, g, dw_part, N,
+                                                             per_split);  // dW2 = hd^T g
+  MSFA_TRY(cudaGetLastError());
+  MSFA_TRY(sum(dw_part, dw2, splits, (long)F * D));
+  dw_t_k<<<grid_w, WgGradProduct<D>::kThreads, kDwBytes, s>>>(dpre, F, x, dw_part, N,
+                                                               per_split);  // dW1 = (dpre^T x)^T
+  MSFA_TRY(cudaGetLastError());
+  MSFA_TRY(sum(dw_part, dw1, splits, (long)D * F));
+  MSFA_TRY(sum(db1_part, db1, row_tiles_f, (long)F));
+  return 0;
 }
 
 }  // namespace msfa_wg

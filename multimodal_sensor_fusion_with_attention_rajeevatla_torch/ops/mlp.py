@@ -508,9 +508,9 @@ def _grad_tiles(i: int, o: int) -> int:
 
 
 def _wg_grad_splits(rows: int, f: int) -> int:
-    """Row splits of the bf16 FFW backward's weight gradients (``ffw_ln``'s
-    bf16 entry, on wgmma): at most the blocks that fill the SMs once (one
-    fits on an SM), at least 256 rows each."""
+    """Row splits of the bf16 FFW backwards' weight gradients (``ffw_ln``'s
+    and ``fused_mlp``'s bf16 entries, on wgmma): at most the blocks that fill
+    the SMs once (one fits on an SM), at least 256 rows each."""
     return max(1, min(_SMS // math.ceil(f / WG_GRAD_ROWS), math.ceil(rows / 256)))
 
 
@@ -724,7 +724,7 @@ def _fused_mlp_bwd_launch(x, w1, b1, w2, mask, dout, inv_keep: float):
     dx = torch.empty_like(x)
     dw1, dw2 = torch.empty((d, f), **act), torch.empty((f, d), **act)
     db1 = torch.empty((f,), device=x.device)
-    splits = _grad_splits(n, _grad_tiles(f, d))
+    splits = _wg_grad_splits(n, f) if bf16 else _grad_splits(n, _grad_tiles(f, d))
     hd, dpre = torch.empty((n, f), **act), torch.empty((n, f), **act)
     db1_part = torch.empty((math.ceil(n / ROWS_F), f), device=x.device)
     dw_part = torch.empty((splits, d * f), device=x.device)

@@ -16,7 +16,15 @@ port's ``ops/csrc/wgmma_bf16.cuh`` and times, with CUDA events:
   over the card tests' limit (1e-5 + 1e-5 |twin|), beside the entry and
   ``scaled_dot_product_attention`` in bf16 with the key mask;
 - the main loop alone (``WgProduct``, no epilogue) at the bf16 hidden's
-  shape (x [16384, 256] . W1 [256, 2048]) for other tiles and ring depths.
+  shape (x [16384, 256] . W1 [256, 2048]) for other tiles and ring depths;
+- the packed attention backward's bf16 entry (row 2b, ``wgmma_attention_bwd.cuh``)
+  at B 32, T 512, H 4, d 64 on ragged lengths (1-512) and every key valid,
+  a bf16 cotangent: the design, exp by ``expf``, two bf16 terms of P and
+  dS, and a cost probe with no exp (wrong values).
+  Each variant is ``packed_attention_bwd.cu`` built (one ``nvcc`` each, all
+  at once) beside a copy of the header with its constants or its exp
+  changed; its time, its kernels' times (torch.profiler), and the share of
+  dqkv's entries that differ from the f32 entry's rounded to bf16.
 
 Prints the card's name and power limit first. Needs a CUDA card; imports
 torch and the port only.
@@ -139,6 +147,95 @@ def _write_source(csrc: Path) -> None:
                                      .replace("ATTN_CASES", attn).replace("LOOP_CASES", loops))
 
 
+# row 2b: (label, replacements in wgmma_attention_bwd.cuh)
+_P_BODY = "return ex2(fmaf(s, sm_scale * kLog2e, -lse * kLog2e));"
+BWD = (("design", ()),
+       ("exp by expf", ((_P_BODY, "return expf(s * sm_scale - lse);"),)),
+       ("two terms of P and dS",
+        (("constexpr int kBwdPTerms = 3;", "constexpr int kBwdPTerms = 2;"),
+         ("constexpr int kDsTerms = 3;", "constexpr int kDsTerms = 2;"))),
+       ("no exp (cost probe)", ((_P_BODY, "return s * sm_scale - lse;"),)))
+
+
+def _build_bwd_variants(build) -> list:
+    """One library a row-2b variant: the entry's source beside its header copy."""
+    header = (build.CSRC_DIR / "wgmma_attention_bwd.cuh").read_text()
+    procs = []
+    for i, (_label, edits) in enumerate(BWD):
+        out = OUT / f"bwd_v{i}"
+        out.mkdir(parents=True, exist_ok=True)
+        text = header
+        for old, new in edits:
+            if old not in text:
+                raise RuntimeError(f"wgmma_attention_bwd.cuh no longer holds {old!r}")
+            text = text.replace(old, new)
+        (out / "wgmma_attention_bwd.cuh").write_text(text)
+        (out / "packed_attention_bwd.cu").write_text(
+            (build.CSRC_DIR / "packed_attention_bwd.cu").read_text())
+        procs.append(subprocess.Popen(
+            [build._nvcc(), *build.NVCC_FLAGS, "-I", str(build.CSRC_DIR), "-o",
+             str(out / "lib.so"), str(out / "packed_attention_bwd.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs = []
+    for i, proc in enumerate(procs):
+        output, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"row 2b variant {BWD[i][0]} did not build:\n{output}")
+        lib = ctypes.CDLL(str(OUT / f"bwd_v{i}" / "lib.so"))
+        lib.msfa_packed_attention_bwd_bf16.argtypes = (
+            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p])
+        lib.msfa_packed_attention_bwd_bf16_scratch.argtypes = [ctypes.c_int] * 4
+        lib.msfa_packed_attention_bwd_bf16_scratch.restype = ctypes.c_longlong
+        libs.append(lib)
+    return libs
+
+
+def _bwd_rows(torch, ta, libs, g) -> None:
+    """Row 2b's variants at the training shape, printed one line a length set."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    b, heads, scale = 32, H, D**-0.5
+    qkv = torch.randn(b, T, 3 * heads * D, generator=g).to(torch.bfloat16).cuda()
+    for label, lengths in (("ragged 1-512", torch.randint(1, T + 1, (b,), generator=g,
+                                                          dtype=torch.int32)),
+                           ("every key", torch.full((b,), T, dtype=torch.int32))):
+        lengths = lengths.cuda()
+        out, lse = ta.packed_attention_fwd(qkv.float(), lengths, heads, scale)
+        dout = torch.randn(out.shape, generator=g).to(torch.bfloat16).float().cuda()
+        f32 = ta.packed_attention_bwd(qkv.float(), lengths, out, lse, dout, heads, scale)
+        dqkv = torch.empty_like(qkv)
+        parts = []
+        for (name, _edits), lib in zip(BWD, libs):
+            scratch = torch.empty(lib.msfa_packed_attention_bwd_bf16_scratch(b, T, heads, D),
+                                  device="cuda")
+
+            def call(lib=lib, scratch=scratch):
+                code = lib.msfa_packed_attention_bwd_bf16(
+                    qkv.data_ptr(), lengths.data_ptr(), out.data_ptr(), lse.data_ptr(),
+                    dout.data_ptr(), scratch.data_ptr(), dqkv.data_ptr(), b, T, heads, D,
+                    scale, torch.cuda.current_stream().cuda_stream)
+                if code:
+                    raise RuntimeError(f"row 2b variant {name} refused: {code}")
+
+            ms = _time_ms(torch, call)
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(5):
+                    call()
+                torch.cuda.synchronize()
+            kernels = {}
+            for e in prof.events():
+                if e.device_type == DeviceType.CUDA:
+                    key = e.name.split("<")[0].split("::")[-1]
+                    kernels[key] = kernels.get(key, 0.0) + e.time_range.elapsed_us() / 5e3
+            off = (dqkv != f32.to(torch.bfloat16)).float().mean().item()
+            parts.append(f"{name} {ms:.4f} ms (" + ", ".join(
+                f"{k} {v:.4f}" for k, v in kernels.items()) + f"; {off:.2e} of dqkv differ from "
+                f"the f32 entry's rounded)")
+        print(f"row 2b, {label} ({lengths.sum().item()} of {b * T} keys): " + " | ".join(parts),
+              flush=True)
+
+
 def _time_ms(torch, fn, iters: int = 20) -> float:
     for _ in range(3):
         fn()
@@ -166,6 +263,7 @@ def main() -> int:
                          capture_output=True, text=True, check=True)
     print(smi.stdout.strip(), flush=True)
     OUT.mkdir(parents=True, exist_ok=True)
+    bwd_libs = _build_bwd_variants(_build)
     _write_source(_build.CSRC_DIR)
     build = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(OUT), "-I",
                             str(_build.CSRC_DIR), "-o",
@@ -222,6 +320,7 @@ def main() -> int:
             raise RuntimeError(f"main-loop variant {i} refused")
         parts.append(f"{64 * m}x{c} ({m} wg, {s} stages) {_time_ms(torch, call):.4f}")
     print(f"main loop alone, x [{N}, {K}] . W1 [{K}, {F}], ms: " + " | ".join(parts), flush=True)
+    _bwd_rows(torch, ta, bwd_libs, g)
     return 0
 
 

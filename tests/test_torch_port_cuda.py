@@ -1148,6 +1148,12 @@ def test_cnn_encoders_on_the_card_match_the_cpu_in_float32(card):
 BF16_TOL = 1e-2
 
 
+# the packed backward's bf16 entry against the f32 entry on f32 copies: the
+# share of dqkv's entries that may round to another bf16 value (each within
+# one bf16 step); the CPU emulation of its scheme gives ~2e-4
+BWD_GATE_SHARE = 1e-3
+
+
 def _bf16_qkv(g, batch, seq, heads, hd, card):
     return torch.randn(batch, seq, 3 * heads * hd, generator=g).to(torch.bfloat16).to(card)
 
@@ -1180,9 +1186,13 @@ def test_packed_attention_bf16_entries_match_twins(card, seq, hd):
 
 @pytest.mark.parametrize("seq,hd", [(512, 64), (72, 32)])
 def test_packed_attention_bf16_entries_are_the_f32_entries_on_f32_copies(card, seq, hd):
-    # one function: the f32 kernel's sums on the bf16 values; the backward's
-    # bits equal at every head dim; the forward runs on wgmma with P split
-    # into bf16 terms, its own sums, within f32's limits of the f32 entry
+    # one function: the f32 kernel's sums on the bf16 values. Both bf16
+    # entries run on wgmma with their f32 operands split into bf16 terms,
+    # their own sums: the forward within f32's limits of the f32 entry, the
+    # backward's dqkv within one bf16 step of the f32 entry's rounded
+    # (bf16_steps_from: the step at no less than 2^-10 of the largest
+    # magnitude of the call's dq, dk or dv) in all but BWD_GATE_SHARE of its
+    # entries, where a scheme with one bf16 term an operand moves a quarter
     g = torch.Generator().manual_seed(300 + seq)
     heads = 4
     qkv = _bf16_qkv(g, 4, seq, heads, hd, card)
@@ -1193,7 +1203,9 @@ def test_packed_attention_bf16_entries_are_the_f32_entries_on_f32_copies(card, s
     got = ta.packed_attention_bwd_bf16(qkv, lengths, f_out, f_lse, dout, heads, hd**-0.5)
     f_got = ta.packed_attention_bwd(qkv.float(), lengths, f_out, f_lse, dout, heads, hd**-0.5)
     torch.cuda.synchronize()
-    assert torch.equal(got, f_got.to(torch.bfloat16))
+    assert got.dtype == torch.bfloat16
+    steps = ta.bf16_steps_from(got.cpu(), f_got.cpu())
+    assert steps.max() <= 1 and (steps >= 0.5).float().mean() <= BWD_GATE_SHARE
     torch.testing.assert_close(out, f_out, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(lse, f_lse, rtol=1e-5, atol=1e-5)
 

@@ -2,8 +2,8 @@
 (no JAX), so that both the CPU tests and the card tests can hold a kernel to
 them: TF32 splits, the residual-LN kernels' 32-deep chunked products and
 split weight gradients, and the bf16 entries of both residual-LN pairs and
-of the feed-forward pair with their rounding points. The bf16 FFW
-backward's products and the bf16 hidden run on wgmma (``wgmma_ffw.cuh``):
+of the feed-forward pair with their rounding points. Both bf16 FFW
+backwards' products and the bf16 hidden run on wgmma (``wgmma_ffw.cuh``):
 exact bf16 products summed in f32, over k = d_model in one sum, over d_ff
 and the rows in 64-deep chunks."""
 
@@ -147,17 +147,21 @@ def _ffw_ln_bf16(x, w1, b1, w2, b2, gamma, beta, fmask, rmask, dout, inv_keep, e
 
 def _fused_mlp_bf16(x, w1, b1, w2, b2, mask, dout, inv_keep, skip=()):
     """``fused_mlp``'s bf16 entries: the hidden on wgmma (the whole k = D in
-    one f32 sum), rounded to bf16 before W2's product (out = hd W2 + b2 in f32,
-    rounded) and before dW2's; backward dpre = (hd > 0) (dout W2^T) mask /
-    keep rounded before dW1's and dx's products, db1 (128-row blocks) from
-    the unrounded dpre; dx, dW1, dW2 rounded. ``skip`` names rounding points
-    ("hidden": the forward's, "hd": the backward's hidden before dW2,
-    "dpre") left out, with the products they feed taken in f32: what an
-    entry that dropped them would compute. Returns ``(out, (dx, dw1, db1,
-    dw2))``."""
-    d, f = w1.shape
+    one f32 sum), rounded to bf16 before W2's product (out = hd W2 + b2 from
+    one TF32 product a k-step in 32-deep chunks, rounded) and before dW2's;
+    the backward on wgmma, ``ffw_ln``'s bodies without the LN product (dpre
+    = (hd > 0) (dout W2^T) mask / keep over D in one sum, rounded before
+    dW1's and dx's products; dx over d_ff in 64-deep chunks; the weight
+    gradients per split of whole 64-row chunks, ``_wg_grad_splits`` of
+    them), db1 (128-row blocks) from the unrounded dpre; dx, dW1, dW2
+    rounded. ``skip`` names rounding points ("hidden": the forward's, "hd":
+    the backward's hidden before dW2, "dpre") left out, with the products
+    they feed taken on the unrounded values: what an entry that dropped them
+    would compute. Returns ``(out, (dx, dw1, db1, dw2))``."""
+    f = w1.shape[1]
     mm = lambda p, q: _mm_n(p, q, False, False)  # noqa: E731
     mm_f32 = (lambda p, q: p @ q) if skip else mm  # noqa: E731
+    mm_wg = lambda p, q: p @ q  # noqa: E731
 
     def rnd(t, point):
         return t if point in skip else _rnd(t)
@@ -166,12 +170,13 @@ def _fused_mlp_bf16(x, w1, b1, w2, b2, mask, dout, inv_keep, skip=()):
     h = torch.relu(x @ w1 + b1) * scale
     out = _mm_chunked(rnd(h, "hidden"), w2, mm_f32) + b2
     hd = rnd(h, "hd")
-    dpre = torch.where(h > 0, _mm_chunked(dout, w2.t(), mm_f32) * scale, 0.0)
+    dpre = torch.where(h > 0, (dout @ w2.t()) * scale, 0.0)
     dpb = rnd(dpre, "dpre")
-    grads = (_rnd(_mm_chunked(dpb, w1.t(), mm_f32)),
-             _rnd(_split_grad(x, dpb, tm._grad_tiles(d, f), mm_f32)),
+    splits = tm._wg_grad_splits(x.shape[0], f)
+    grads = (_rnd(_mm_wg(dpb, w1.t())),
+             _rnd(_split_grad(x, dpb, None, mm_wg, WG_CHUNK_K, splits)),
              _block_sums(dpre, tm.ROWS_F),
-             _rnd(_split_grad(hd, dout, tm._grad_tiles(f, d), mm_f32)))
+             _rnd(_split_grad(hd, dout, None, mm_wg, WG_CHUNK_K, splits)))
     return _rnd(out), grads
 
 
