@@ -319,12 +319,12 @@ TENSOR_CORE_KERNELS = {"flash_fwd_single": ("flash_fwd_single_kernel",),
                        "flash_bwd_dq": ("flash_dq_kernel",),
                        "fused_hybrid_head": ("fusion_head",),
                        "ffw_ln_fwd": ("ffw_ln_hidden_kernel", "ffw_ln_hidden_wg_kernel",
-                                      "ffw_ln_fwd_kernel"),
+                                      "ffw_ln_fwd_kernel", "ffw_ln_fwd_wg_kernel"),
                        "ffw_ln_bwd": ("ffw_ln_bwd",),
                        "proj_ln_fwd": ("proj_ln_fwd",),
                        "proj_ln_bwd": ("proj_ln_bwd",),
                        "fused_mlp_fwd": ("fused_mlp_hidden_kernel", "fused_mlp_hidden_wg_kernel",
-                                         "fused_mlp_fwd_kernel"),
+                                         "fused_mlp_fwd_kernel", "fused_mlp_fwd_wg_kernel"),
                        "fused_mlp_bwd": ("fused_mlp_bwd",),
                        "lstm_train_fwd": ("lstm_train_fwd_cluster_kernel",),
                        "lstm_train_bwd": ("lstm_train_bwd_cluster_kernel",),
@@ -2077,22 +2077,33 @@ FAMILIES = (  # profiler kernel-name fragments -> family, first match wins
 
 def kernel_times(torch, call, iters: int) -> dict:
     """Device ms per call of each kernel that ``call`` launches
-    (torch.profiler's CUDA activity), by the kernel's own name."""
+    (torch.profiler's CUDA activity), by the kernel's own name. A trace
+    that holds no device event at all (CUPTI now and then hands back an
+    empty one) is taken again, three tries in all, the later ones with the
+    CPU activity beside the CUDA one as ``profile`` traces; after that the
+    empty result is returned and the caller decides."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
     call()
     torch.cuda.synchronize()
-    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            call()
-        torch.cuda.synchronize()
     times = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            name = e.name.replace("(anonymous namespace)::", "").split("(")[0]
-            name = name.split("<")[0].split("::")[-1].split()[-1]
-            times[name] = times.get(name, 0.0) + e.time_range.elapsed_us() / iters / 1e3
+    for attempt in range(3):
+        activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if attempt else [])
+        with torch_profile(activities=activities) as prof:
+            for _ in range(iters):
+                call()
+            torch.cuda.synchronize()
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                name = e.name.replace("(anonymous namespace)::", "").split("(")[0]
+                name = name.split("<")[0].split("::")[-1].split()[-1]
+                times[name] = times.get(name, 0.0) + e.time_range.elapsed_us() / iters / 1e3
+        if times:
+            break
+        print(f"  kernel_times: trace {attempt + 1} of 3 held no device event",
+              file=sys.stderr, flush=True)
+        time.sleep(1.0)
     return dict(sorted(times.items(), key=lambda kv: -kv[1]))
 
 
@@ -3749,12 +3760,14 @@ BF16_DESIGN = {
                                  "partials in device memory",
     "proj_ln_fwd_bf16": "row 14's 3xTF32-template body, one TF32 pass",
     "proj_ln_bwd_bf16": "row 15's 3xTF32-template body, one TF32 pass",
-    "ffw_ln_fwd_bf16": "the wgmma hidden (wgmma_ffw.cuh) + row 12's LN-forward product, one "
-                       "TF32 pass",
+    "ffw_ln_fwd_bf16": "two launches on wgmma m64n64k16 bf16 (wgmma_ffw.cuh): the hidden, then "
+                       "y = hd W2 on 128 whole rows (row 13b's LN product, one body) with the "
+                       "residual and the LayerNorm as its epilogue",
     "ffw_ln_bwd_bf16": "six launches on wgmma m64n64k16 bf16 (wgmma_ffw.cuh): the hidden, LN "
                        "backward, dpre, dx, split weight gradients, ordered sums",
-    "fused_mlp_fwd_bf16": "the wgmma hidden (wgmma_ffw.cuh) + row 10's out product, one TF32 "
-                          "pass",
+    "fused_mlp_fwd_bf16": "two launches on wgmma m64n64k16 bf16 (wgmma_ffw.cuh): the hidden, "
+                          "then out = hd W2 + b2 on 128 whole rows (row 12b's y product) in "
+                          "16-byte stores",
     "fused_mlp_bwd_bf16": "row 13b's wgmma bodies (wgmma_ffw.cuh) without its LN product: the "
                           "hidden, dpre on dout, dx with no dr, split weight gradients, ordered "
                           "sums",
@@ -3780,6 +3793,63 @@ def _bf16_row(name, source, line, err, ms, plain_ms, f32_ms, library_ms, flops, 
           + "".join(f" ({k}={v:.4f}, share {100 * v / ms:.1f}%)" for k, v in extra.items()
                     if k.startswith("bound_ms_")), flush=True)
     return row
+
+
+def bf16_forward_parts(torch, row, hd, w2, b2):
+    """Rows 10b and 12b, two launches each: their parts' device ms (the
+    hidden, then the hd W2 product with its epilogue) from
+    ``row["ms_by_kernel"]``; the product's own bound; and, a yardstick for
+    the product part alone, cuBLAS's bf16 ``torch.addmm(b2, hd, W2)`` at the
+    same shape, its sums in f32 (``pin_float32``: the card is resolved
+    before [kernels]). No one call computes either whole function."""
+    parts = row["ms_by_kernel"]
+    hidden = [v for k, v in parts.items() if k.endswith("_hidden_wg_kernel")]
+    product = [v for k, v in parts.items() if k.endswith("_fwd_wg_kernel")]
+    if len(hidden) != 1 or len(product) != 1:
+        raise AssertionError(f"{row['name']}: not one wgmma hidden and one wgmma product "
+                             f"kernel: {parts}")
+    (n, f), d = hd.shape, w2.shape[1]
+    b2b = b2.to(torch.bfloat16)
+    row["ms_hidden"], row["ms_product"] = hidden[0], product[0]
+    row["product_addmm_ms"] = time_ms(lambda: torch.addmm(b2b, hd, w2), iters=10)
+    row["product_bound_ms"] = _bf16_bound((2.0 * n * f * d, 0.0, 0.0),
+                                          2.0 * (n * f + f * d + n * d))[0]
+    print(f"  {row['name']} parts: hidden {hidden[0]:.4f} ms, hd W2 product "
+          f"{product[0]:.4f} ms (bound {row['product_bound_ms']:.4f}, share "
+          f"{100 * row['product_bound_ms'] / product[0]:.1f}%); cuBLAS bf16 torch.addmm(b2, hd, "
+          f"W2) {row['product_addmm_ms']:.4f} ms (the product part's yardstick)", flush=True)
+
+
+def ffw_ln_one_y(torch, mlp, n, d=256, f=2048, keep=0.8):
+    """The FFW residual-LN forward and its backward normalise one y (one
+    product body from one hidden kernel's hd), f32 and bf16 entries: with
+    gamma 1, beta 0 and a cotangent whose column c holds a single 1 at row
+    n_c, dgamma[c] is exactly the backward's xhat[n_c, c], and the
+    forward's out[n_c, c] must equal it (the bf16 entry's rounded to bf16:
+    the rounding hides a last bit of y there). Raises otherwise."""
+    for dtype in (torch.float32, torch.bfloat16):
+        w, (fmask, rmask) = _ln_case(torch, n, d, f, keep, seed=n + 61)
+        args = (w(n, d).to(dtype), w(d, f, s=d**-0.5).to(dtype), w(f, s=0.1),
+                w(f, d, s=f**-0.5).to(dtype), w(d, s=0.1), torch.ones(d, device="cuda"),
+                torch.zeros(d, device="cuda"), fmask, rmask)
+        cols = torch.arange(d, device="cuda")
+        rows = (7 + 3 * cols) % n
+        dout = torch.zeros(n, d, device="cuda", dtype=dtype)
+        dout[rows, cols] = 1.0
+        bf16 = dtype == torch.bfloat16
+        fwd = mlp.ffw_ln_fwd_bf16 if bf16 else mlp.ffw_ln_fwd
+        bwd = mlp.ffw_ln_bwd_bf16 if bf16 else mlp.ffw_ln_bwd
+        inv_keep = mlp._inv_keep(keep)
+        out = fwd(*args, inv_keep, 1e-6)
+        dgamma = bwd(*args, dout, inv_keep, 1e-6)[5]
+        torch.cuda.synchronize()
+        off = (out[rows, cols] != dgamma.to(dtype)).sum().item()
+        print(f"  ffw_ln {'bf16' if bf16 else 'f32'} N={n}: the forward's out at (n_c, c) and "
+              f"the backward's dgamma (its xhat there), gamma 1, beta 0: {off} of {d} differ",
+              flush=True)
+        if off:
+            raise AssertionError(f"ffw_ln {dtype}: the forward and the backward normalise "
+                                 f"different y")
 
 
 def _sdpa_backend(names) -> str:
@@ -4117,6 +4187,16 @@ def check_bf16_ln(torch, mlp, rows_n):
             print(f"  {name} by kernel: " + ", ".join(
                 f"{k_} {v:.4f} ms" for k_, v in out_rows[name]["ms_by_kernel"].items()),
                 flush=True)
+            if name == "ffw_ln_fwd_bf16":
+                hd = mlp._ffw_ln_fwd_launch(*args, inv_keep, 1e-6)[1]
+                bf16_forward_parts(torch, out_rows[name], hd, args[3], args[4])
+                del hd
+    from multimodal_sensor_fusion_with_attention_rajeevatla_torch.ops import _build
+
+    out_rows["ffw_ln_fwd_bf16"]["hgmma"] = hgmma_counts(_build, "ffw_ln", ("_wg_kernel",))
+    print("  HGMMA in the SASS of ffw_ln.cu's wgmma kernels: " + ", ".join(
+        f"{k_} {v}" for k_, v in out_rows["ffw_ln_fwd_bf16"]["hgmma"].items()), flush=True)
+    ffw_ln_one_y(torch, mlp, rows_n)
     return [out_rows[k] for k in BF16_KERNELS[2:6]]
 
 
@@ -4198,13 +4278,12 @@ def check_bf16_fused_mlp(torch, mlp, rows_n):
         row["ms_by_kernel"] = kernel_times(torch, call, 5)
         print(f"  {name} by kernel: " + ", ".join(
             f"{k_} {v:.4f} ms" for k_, v in row["ms_by_kernel"].items()), flush=True)
+        if kind == "fwd":
+            bf16_forward_parts(torch, row, mlp._fused_mlp_fwd_launch(*args, inv_keep)[1], w2, b2)
         out_rows.append(row)
     from multimodal_sensor_fusion_with_attention_rajeevatla_torch.ops import _build
 
-    out_rows[1]["hgmma"] = hgmma_counts(_build, "ffw", ("fused_mlp_hidden_wg_kernel",
-                                                        "fused_mlp_bwd_dpre_wg_kernel",
-                                                        "fused_mlp_bwd_dx_wg_kernel",
-                                                        "fused_mlp_bwd_dw_wg_kernel"))
+    out_rows[1]["hgmma"] = hgmma_counts(_build, "ffw", ("_wg_kernel",))
     print("  HGMMA in the SASS of ffw.cu's wgmma kernels: " + ", ".join(
         f"{k_} {v}" for k_, v in out_rows[1]["hgmma"].items()), flush=True)
     return out_rows

@@ -34,6 +34,7 @@
 //             is the forward's bit for bit, and ffw_ln's on the same inputs
 // Forward:
 //   fwd:      out = hd W2 + b2 on 64 whole rows, b2 added to the accumulators
+//             (the bf16 entry's on 128 rows, below)
 // Backward:
 //   dpre:     dpre = (hd > 0) * (dout W2^T) * mask * inv_keep, and per-block
 //             partials of db1 (dpre_tile)
@@ -67,8 +68,10 @@
 //   false>, 128 whole rows, 64-deep fresh accumulators added in f32), dW2 =
 //   hd^T dout and dW1 = (dpre^T x)^T per split of whole 64-row chunks
 //   (wg_grad_tile, mlp.py _wg_grad_splits), then the ordered sums.
-//   Forward: the wgmma hidden, then the out product on the 3xTF32 template
-//   at one TF32 pass.
+//   Forward: the wgmma hidden, then out = hd W2 + b2 on 128 whole rows
+//   (wgmma_ffw.cuh's wg_out_tile: ffw_ln.cu's bf16 y product, wg_y_rows,
+//   64-deep fresh accumulators added in f32, staged in shared memory, then
+//   b2 added and rounded to bf16 in 16-byte stores).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -103,11 +106,11 @@ fused_mlp_hidden_wg_kernel(const bf16* __restrict__ x, const bf16* __restrict__ 
 }
 
 // out = hd W2 + b2 for 64 whole rows
-template <int D, typename T>
+template <int D>
 __global__ void __launch_bounds__(LnProduct<D>::kThreads)
-fused_mlp_fwd_kernel(const T* __restrict__ hd, const T* __restrict__ w2,
-                     const float* __restrict__ b2, T* __restrict__ out, int N, int F) {
-  using P = LnProduct<D, T>;
+fused_mlp_fwd_kernel(const float* __restrict__ hd, const float* __restrict__ w2,
+                     const float* __restrict__ b2, float* __restrict__ out, int N, int F) {
+  using P = LnProduct<D>;
   extern __shared__ __align__(16) float smem[];
   const int n0 = blockIdx.x * kRowsD;
   const typename P::A a{hd + (long)n0 * F, F, N - n0, F};
@@ -127,6 +130,16 @@ fused_mlp_fwd_kernel(const T* __restrict__ hd, const T* __restrict__ w2,
                         acc[i][j][2 * h + 1] + b2[c + 1]);
       }
     }
+}
+
+// out = hd W2 + b2 for 128 whole rows, rounded to bf16 (wgmma_ffw.cuh's
+// wg_out_tile: ffw_ln.cu's bf16 y product)
+template <int D>
+__global__ void __launch_bounds__(msfa_wg::WgLnProduct<D>::kThreads)
+fused_mlp_fwd_wg_kernel(const bf16* __restrict__ hd, const bf16* __restrict__ w2,
+                        const float* __restrict__ b2, bf16* __restrict__ out, int N, int F) {
+  extern __shared__ __align__(1024) unsigned char wg_smem[];
+  msfa_wg::wg_out_tile<D>(hd, F, w2, b2, out, N, msfa_wg::align1024(wg_smem));
 }
 
 // dpre = (hd > 0) * (dout W2^T) * mask * inv_keep for a 128-row x 64-column
@@ -228,15 +241,30 @@ cudaError_t launch_hidden(const bf16* x, const bf16* w1, const float* b1,
   return cudaGetLastError();
 }
 
-template <int D, typename T>
-int launch_fwd(const T* x, const T* w1, const float* b1, const T* w2, const float* b2,
-               const unsigned char* mask, T* out, T* hd, int N, int F, float inv_keep,
-               cudaStream_t s) {
-  using P = LnProduct<D, T>;
-  MSFA_TRY(allow_smem(fused_mlp_fwd_kernel<D, T>, P::kSmemFloats));
+template <int D>
+int launch_fwd(const float* x, const float* w1, const float* b1, const float* w2,
+               const float* b2, const unsigned char* mask, float* out, float* hd, int N, int F,
+               float inv_keep, cudaStream_t s) {
+  using P = LnProduct<D>;
+  MSFA_TRY(allow_smem(fused_mlp_fwd_kernel<D>, P::kSmemFloats));
   MSFA_TRY(launch_hidden(x, w1, b1, mask, hd, N, D, F, inv_keep, s));
-  fused_mlp_fwd_kernel<D, T><<<(N + kRowsD - 1) / kRowsD, P::kThreads,
-                               P::kSmemFloats * (int)sizeof(float), s>>>(hd, w2, b2, out, N, F);
+  fused_mlp_fwd_kernel<D><<<(N + kRowsD - 1) / kRowsD, P::kThreads,
+                            P::kSmemFloats * (int)sizeof(float), s>>>(hd, w2, b2, out, N, F);
+  MSFA_TRY(cudaGetLastError());
+  return 0;
+}
+
+// The bf16 forward: the wgmma hidden, then out = hd W2 + b2 on 128 whole rows
+template <int D>
+int launch_fwd(const bf16* x, const bf16* w1, const float* b1, const bf16* w2, const float* b2,
+               const unsigned char* mask, bf16* out, bf16* hd, int N, int F, float inv_keep,
+               cudaStream_t s) {
+  constexpr int kBytes = msfa_wg::y_rows_smem_bytes<D>();
+  MSFA_TRY(msfa_wg::allow_bytes(fused_mlp_fwd_wg_kernel<D>, kBytes));
+  MSFA_TRY(launch_hidden(x, w1, b1, mask, hd, N, D, F, inv_keep, s));
+  fused_mlp_fwd_wg_kernel<D><<<(N + msfa_wg::kWgRowsD - 1) / msfa_wg::kWgRowsD,
+                               msfa_wg::WgLnProduct<D>::kThreads, kBytes, s>>>(hd, w2, b2, out,
+                                                                               N, F);
   MSFA_TRY(cudaGetLastError());
   return 0;
 }
@@ -357,8 +385,7 @@ int smem_bytes(int D, int* bytes) {
   }
 }
 
-// the bf16 entries' five: the wgmma hidden, the 3xTF32-template forward, the
-// wgmma backward products
+// the bf16 entries' five, all on wgmma
 int smem_bytes_wg(int D, int* bytes) {
   using msfa_wg::ring_smem_bytes;
   bytes[0] = msfa_wg::hidden_smem_bytes();
@@ -366,7 +393,7 @@ int smem_bytes_wg(int D, int* bytes) {
   switch (D) {
 #define MSFA_FFW_SMEM(W)                                         \
   case W:                                                        \
-    bytes[1] = LnProduct<W, bf16>::kSmemFloats * (int)sizeof(float); \
+    bytes[1] = msfa_wg::y_rows_smem_bytes<W>();                  \
     bytes[3] = ring_smem_bytes<msfa_wg::WgDxProduct<W>>();       \
     bytes[4] = ring_smem_bytes<msfa_wg::WgGradProduct<W>>();     \
     return 0;

@@ -33,7 +33,8 @@
 //             body of ffw.cu's hidden kernel too: the same bits)
 // Forward:
 //   fwd:      y = hd W2 + b2 on 64 whole rows; its epilogue is the residual
-//             and the LayerNorm (ln_fwd_tile)
+//             and the LayerNorm (ln_fwd_tile; the bf16 entry's on 128 rows,
+//             below)
 // Backward:
 //   ln:       the same product; its epilogue is the LayerNorm backward: dr
 //             (the start of dx), dy, and per-block partials of dgamma, dbeta
@@ -59,21 +60,24 @@
 // dx's product. Every product takes two bf16 operands: the forward's 34.4
 // GFLOP and the backward's 103 bound at the bf16 tensor-core peak (989
 // TFLOP/s): 0.035 ms and 0.104 ms at the training shape.
-//   Backward and hidden: on wgmma (wgmma_ffw.cuh over wgmma_bf16.cuh's
+//   Both directions on wgmma (wgmma_ffw.cuh over wgmma_bf16.cuh's
 //   WgProduct, m64n64k16 bf16 from 128-byte-swizzled shared memory filled by
 //   cp.async, the transposed operands W1^T, W2^T, hd^T, dpre^T read
-//   MN-major). The same six launches: the hidden and dpre (k = D) on 128 x
-//   128 tiles with the whole k in the unit, the mask or hd tile prefetched
-//   beside the product and the output stored through shared memory; the LN
-//   backward and dx (k = d_ff) on 128 whole rows, 64-deep fresh accumulators
-//   added in f32; dW2 = hd^T dy and dW1 = (dpre^T x)^T on 128 x D tiles per
+//   MN-major). The hidden and dpre (k = D) on 128 x 128 tiles with the whole
+//   k in the unit, the mask or hd tile prefetched beside the product and the
+//   output stored through shared memory; y = hd W2 (k = d_ff) on 128 whole
+//   rows, 64-deep fresh accumulators added in f32, staged in shared memory
+//   (wg_y_rows), then the forward's LayerNorm (wg_ln_fwd_tile) or the LN
+//   backward (wg_ln_bwd_tile): one body, so the backward normalises the
+//   forward's y bit for bit, as the f32 pair's one LnProduct does; dx (k =
+//   d_ff) as y; dW2 = hd^T dy and dW1 = (dpre^T x)^T on 128 x D tiles per
 //   split of the rows (mlp.py _wg_grad_splits), the same fresh chunks; the
-//   ordered sums. It replaced these kernels at T = bf16 (one TF32 mma.sync
-//   pass a k-step on widened bf16 values, tc_product.cuh): the backward
-//   went 1.0895 -> 0.5211 ms and the forward 0.3551 -> 0.2465 at the
-//   training shape (scripts/attention_kernels_ab.py, an H100 80GB HBM3 at
-//   700 W).
-//   Forward's LN product: the 3xTF32 template at one TF32 pass, as before.
+//   ordered sums. They replaced these kernels at T = bf16 (one TF32
+//   mma.sync pass a k-step on widened bf16 values, tc_product.cuh): the
+//   backward went 1.0895 -> 0.5211 ms and the forward, its hidden on wgmma,
+//   0.3551 -> 0.2465 at the training shape (scripts/attention_kernels_ab.py,
+//   an H100 80GB HBM3 at 700 W); the forward's LN product came after
+//   (PERF.md, row 12b).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -88,7 +92,7 @@ using namespace msfa_ffw;
 using namespace msfa_ln;
 using bf16 = __nv_bfloat16;
 
-// The f32 entries' kernels (the bf16 forward's LN product too: ffw_ln_fwd_kernel)
+// The f32 entries' kernels
 
 // hd = relu(x W1 + b1) * fmask * inv_keep for a 128-row x 64-column tile
 __global__ void __launch_bounds__(HiddenProduct::kThreads, 2)
@@ -100,12 +104,12 @@ ffw_ln_hidden_kernel(const float* __restrict__ x, const float* __restrict__ w1,
 }
 
 // out = LayerNorm(x + (hd W2 + b2) * rmask * inv_keep) for 64 whole rows
-template <int D, typename T>
+template <int D>
 __global__ void __launch_bounds__(LnProduct<D>::kThreads)
-ffw_ln_fwd_kernel(const T* __restrict__ hd, const T* __restrict__ w2,
-                  const float* __restrict__ b2, const T* __restrict__ x,
+ffw_ln_fwd_kernel(const float* __restrict__ hd, const float* __restrict__ w2,
+                  const float* __restrict__ b2, const float* __restrict__ x,
                   const float* __restrict__ gamma, const float* __restrict__ beta,
-                  const unsigned char* __restrict__ rmask, T* __restrict__ out, int N, int F,
+                  const unsigned char* __restrict__ rmask, float* __restrict__ out, int N, int F,
                   int Dv, float inv_keep, float eps) {
   extern __shared__ __align__(16) float smem[];
   ln_fwd_tile<D>(hd, F, w2, b2, x, gamma, beta, rmask, out, N, inv_keep, eps, Dv, smem);
@@ -179,6 +183,20 @@ ffw_ln_hidden_wg_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
   msfa_wg::wg_hidden_tile(x, w1, b1, fmask, hd, N, D, F, inv_keep, msfa_wg::align1024(wg_smem));
 }
 
+// out = LayerNorm(x + (hd W2 + b2) * rmask * inv_keep) for 128 whole rows,
+// rounded to bf16 (wg_y_rows, the LN backward's product)
+template <int D>
+__global__ void __launch_bounds__(msfa_wg::WgLnProduct<D>::kThreads)
+ffw_ln_fwd_wg_kernel(const bf16* __restrict__ hd, const bf16* __restrict__ w2,
+                     const float* __restrict__ b2, const bf16* __restrict__ x,
+                     const float* __restrict__ gamma, const float* __restrict__ beta,
+                     const unsigned char* __restrict__ rmask, bf16* __restrict__ out, int N,
+                     int F, int Dv, float inv_keep, float eps) {
+  extern __shared__ __align__(1024) unsigned char wg_smem[];
+  msfa_wg::wg_ln_fwd_tile<D>(hd, F, w2, b2, x, gamma, beta, rmask, out, N, inv_keep, eps, Dv,
+                             msfa_wg::align1024(wg_smem));
+}
+
 template <int D>
 __global__ void __launch_bounds__(msfa_wg::WgLnProduct<D>::kThreads)
 ffw_ln_bwd_ln_wg_kernel(const bf16* __restrict__ hd, const bf16* __restrict__ w2,
@@ -245,16 +263,33 @@ cudaError_t launch_hidden(const bf16* x, const bf16* w1, const float* b1,
   return cudaGetLastError();
 }
 
-template <int D, typename T>
-int launch_fwd(const T* x, const T* w1, const float* b1, const T* w2, const float* b2,
-               const float* gamma, const float* beta, const unsigned char* fmask,
-               const unsigned char* rmask, T* out, T* hd, int N, int Dv, int F, float inv_keep,
-               float eps, cudaStream_t s) {
-  constexpr int kLnFloats = ln_smem_floats<D, T>();
-  MSFA_TRY(allow_smem(ffw_ln_fwd_kernel<D, T>, kLnFloats));
+template <int D>
+int launch_fwd(const float* x, const float* w1, const float* b1, const float* w2,
+               const float* b2, const float* gamma, const float* beta,
+               const unsigned char* fmask, const unsigned char* rmask, float* out, float* hd,
+               int N, int Dv, int F, float inv_keep, float eps, cudaStream_t s) {
+  constexpr int kLnFloats = ln_smem_floats<D>();
+  MSFA_TRY(allow_smem(ffw_ln_fwd_kernel<D>, kLnFloats));
   MSFA_TRY(launch_hidden(x, w1, b1, fmask, hd, N, D, F, inv_keep, s));
-  ffw_ln_fwd_kernel<D, T><<<(N + kRowsD - 1) / kRowsD, LnProduct<D>::kThreads,
-                            kLnFloats * (int)sizeof(float), s>>>(
+  ffw_ln_fwd_kernel<D><<<(N + kRowsD - 1) / kRowsD, LnProduct<D>::kThreads,
+                         kLnFloats * (int)sizeof(float), s>>>(
+      hd, w2, b2, x, gamma, beta, rmask, out, N, F, Dv, inv_keep, eps);
+  MSFA_TRY(cudaGetLastError());
+  return 0;
+}
+
+// The bf16 forward: the wgmma hidden, then y = hd W2 and the LayerNorm on
+// 128 whole rows (the backward's LN product)
+template <int D>
+int launch_fwd(const bf16* x, const bf16* w1, const float* b1, const bf16* w2, const float* b2,
+               const float* gamma, const float* beta, const unsigned char* fmask,
+               const unsigned char* rmask, bf16* out, bf16* hd, int N, int Dv, int F,
+               float inv_keep, float eps, cudaStream_t s) {
+  constexpr int kBytes = msfa_wg::y_rows_smem_bytes<D>();
+  MSFA_TRY(msfa_wg::allow_bytes(ffw_ln_fwd_wg_kernel<D>, kBytes));
+  MSFA_TRY(launch_hidden(x, w1, b1, fmask, hd, N, D, F, inv_keep, s));
+  ffw_ln_fwd_wg_kernel<D><<<(N + msfa_wg::kWgRowsD - 1) / msfa_wg::kWgRowsD,
+                            msfa_wg::WgLnProduct<D>::kThreads, kBytes, s>>>(
       hd, w2, b2, x, gamma, beta, rmask, out, N, F, Dv, inv_keep, eps);
   MSFA_TRY(cudaGetLastError());
   return 0;
@@ -404,8 +439,7 @@ int smem_bytes(int D, int* bytes) {
   }
 }
 
-// the bf16 entries' six kernels: the wgmma hidden, the 3xTF32-template
-// forward, the wgmma backward products
+// the bf16 entries' six kernels, all on wgmma
 int smem_bytes_wg(int D, int* bytes) {
   using msfa_wg::ring_smem_bytes;
   bytes[0] = msfa_wg::hidden_smem_bytes();
@@ -413,7 +447,7 @@ int smem_bytes_wg(int D, int* bytes) {
   switch (D) {
 #define MSFA_FFW_SMEM(W)                                         \
   case W:                                                        \
-    bytes[1] = ln_smem_floats<W, bf16>() * (int)sizeof(float);   \
+    bytes[1] = msfa_wg::y_rows_smem_bytes<W>();                  \
     bytes[2] = msfa_wg::ln_bwd_smem_bytes<W>();                  \
     bytes[4] = ring_smem_bytes<msfa_wg::WgDxProduct<W>>();       \
     bytes[5] = ring_smem_bytes<msfa_wg::WgGradProduct<W>>();     \

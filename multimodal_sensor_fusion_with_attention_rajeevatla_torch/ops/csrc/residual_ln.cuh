@@ -5,7 +5,8 @@
 // from.
 //
 //   ln_fwd_tile   y = A B for 64 whole rows (B [K, D], K = d_ff or D); its
-//                 epilogue is the residual and the LayerNorm:
+//                 epilogue (ln_fwd_rows, also the bf16 FFW forward's on
+//                 wgmma) is the residual and the LayerNorm:
 //                 out = LayerNorm(x + (y + bias) * rmask * inv_keep)
 //                 over the first Dv <= D columns
 //   ln_bwd_tile   the same product, recomputing y and the row statistics; its
@@ -135,6 +136,35 @@ __device__ __forceinline__ void residual_row(const float* Yrow, const float* __r
   inv = 1.f / sqrtf(var + eps);
 }
 
+// The LayerNorm forward's epilogue, a warp per row: out = LayerNorm(x + (y +
+// bias) * rmask * inv_keep) for rows n0 .. n0 + kRows - 1 of a block of
+// kThreads threads, y staged in Ys [kRows][D + 4], its statistics over the
+// first Dv columns (ln_fwd_tile's, and the bf16 entry's wgmma_ffw.cuh
+// wg_ln_fwd_tile's)
+template <int D, int kRows, int kThreads, typename T>
+__device__ __forceinline__ void ln_fwd_rows(const float* Ys, int n0,
+                                            const float* __restrict__ bias,
+                                            const T* __restrict__ x,
+                                            const float* __restrict__ gamma,
+                                            const float* __restrict__ beta,
+                                            const unsigned char* __restrict__ rmask,
+                                            T* __restrict__ out, int N, float inv_keep,
+                                            float eps, int Dv) {
+  constexpr int DJ = D / 32, kWarps = kThreads / 32, kLdY = D + tc::kPad;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int row = warp; row < kRows; row += kWarps) {  // warp-uniform
+    const long n = n0 + row;
+    if (n >= N) break;
+    float r[DJ], rs[DJ], mu, inv;
+    residual_row<D>(Ys + row * kLdY, bias, x, rmask, n, inv_keep, eps, Dv, r, rs, mu, inv);
+#pragma unroll
+    for (int j = 0; j < DJ; ++j) {
+      const int c = lane + 32 * j;
+      tc::store1(out + n * D + c, (r[j] - mu) * inv * gamma[c] + beta[c]);
+    }
+  }
+}
+
 // out = LayerNorm(x + (A B + bias) * rmask * inv_keep) for the block's 64
 // rows, its statistics over the first Dv columns
 template <int D, typename T>
@@ -147,21 +177,9 @@ __device__ __forceinline__ void ln_fwd_tile(const T* __restrict__ A, int K,
                                             const unsigned char* __restrict__ rmask,
                                             T* __restrict__ out, int N, float inv_keep,
                                             float eps, int Dv, float* smem) {
-  constexpr int DJ = D / 32, kWarps = LnProduct<D, T>::kThreads / 32, kLdY = D + tc::kPad;
   product_rows<D>(A, K, B, N, smem);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int n0 = blockIdx.x * kRowsD;
-  for (int row = warp; row < kRowsD; row += kWarps) {  // warp-uniform
-    const long n = n0 + row;
-    if (n >= N) break;
-    float r[DJ], rs[DJ], mu, inv;
-    residual_row<D>(smem + row * kLdY, bias, x, rmask, n, inv_keep, eps, Dv, r, rs, mu, inv);
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) {
-      const int c = lane + 32 * j;
-      tc::store1(out + n * D + c, (r[j] - mu) * inv * gamma[c] + beta[c]);
-    }
-  }
+  ln_fwd_rows<D, kRowsD, LnProduct<D, T>::kThreads>(smem, blockIdx.x * kRowsD, bias, x, gamma,
+                                                    beta, rmask, out, N, inv_keep, eps, Dv);
 }
 
 // The same product, then the LayerNorm backward: dr (into dr_out; 0 past

@@ -1,19 +1,25 @@
 // The bf16 entries' FFW products on wgmma (wgmma_bf16.cuh's WgProduct), for
-// Hopper (sm_90a): every product of the bf16 FFW residual-LN backward
-// (ffw_ln.cu, msfa_ffw_ln_bwd_bf16) and of the bf16 feed-forward backward
-// (ffw.cu, msfa_ffw_bwd_bf16: the same bodies with dout in dy's place and no
-// dr), and the bf16 hidden that both bf16 FFW pairs' directions launch
-// (ffw_ln.cu and ffw.cu). Each body is its 3xTF32
-// counterpart's function with its epilogue (ffw_products.cuh's hidden_tile
-// and dpre_tile, residual_ln.cuh's ln_bwd_tile, dx_tile and grad_tile) on a
-// wgmma product; the f32 entries keep those. Each kernel that calls a body
-// below is a thin __global__ of its own source; launch_bwd_products (at the
-// end) is both bf16 backwards' launch sequence after the hidden.
+// Hopper (sm_90a): every product of both bf16 FFW pairs, the FFW residual-LN
+// pair (ffw_ln.cu, msfa_ffw_ln_fwd_bf16 and msfa_ffw_ln_bwd_bf16) and the
+// feed-forward pair (ffw.cu, msfa_ffw_fwd_bf16 and msfa_ffw_bwd_bf16: the
+// backward the same bodies with dout in dy's place and no dr). Each body is
+// its 3xTF32 counterpart's function with its epilogue (ffw_products.cuh's
+// hidden_tile and dpre_tile, residual_ln.cuh's ln_fwd_rows, ln_bwd_tile,
+// dx_tile and grad_tile) on a wgmma product; the f32 entries keep those.
+// Each kernel that calls a body below is a thin __global__ of its own
+// source; launch_bwd_products (at the end) is both bf16 backwards' launch
+// sequence after the hidden.
 //
 //   wg_hidden_tile   hd = relu(x W1 + b1) * fmask * inv_keep, rounded to
 //                    bf16, for 128 rows x 128 columns (two warpgroups)
-//   wg_ln_bwd_tile   y = hd W2 for 128 whole rows (a warpgroup each 64),
-//                    then the LayerNorm backward: dr (f32), dy (bf16), the
+//   wg_y_rows        y = hd W2 for 128 whole rows (a warpgroup each 64),
+//                    staged in shared memory: the one product of the three
+//                    bodies below, so the LN forward and its backward
+//                    normalise the same y bits
+//   wg_ln_fwd_tile   then the residual and the LayerNorm (ln_fwd_rows), out
+//                    rounded to bf16
+//   wg_out_tile      then out = y + b2, rounded to bf16, 16-byte stores
+//   wg_ln_bwd_tile   then the LayerNorm backward: dr (f32), dy (bf16), the
 //                    block's sums of dout * xhat | dout | dy
 //   wg_dpre_tile     dpre = (hd > 0) * (g W2^T) * fmask * inv_keep, g = dy
 //                    (ffw_ln) or dout (ffw), rounded to bf16, for 128 x 128,
@@ -73,6 +79,11 @@ constexpr int kWgRowsD = 128;              // rows of a block in the [N, D] prod
 static_assert(WgLnProduct<256>::kBM == kWgRowsD && WgDxProduct<32>::kBM == kWgRowsD, "rows");
 static_assert(WgFProduct::kBM == kRowsF && WgDpreProduct::kBM == kRowsF, "db1's row blocks");
 
+template <int D>
+constexpr int y_rows_smem_bytes() {  // the ring, then y [128][D + 4]
+  return msfa_ln::cmax(WgLnProduct<D>::kRingBytes, 4 * kWgRowsD * (D + msfa_tc::kPad)) +
+         kAlignSlack;
+}
 template <int D>
 constexpr int ln_bwd_smem_bytes() {  // the ring, then y [128][D + 4] and the warps' partials
   return msfa_ln::cmax(WgLnProduct<D>::kRingBytes,
@@ -257,6 +268,79 @@ __device__ __forceinline__ void wg_dpre_tile(const bf16* __restrict__ dy,
   }
 }
 
+// y = hd W2 for the block's 128 rows (blockIdx.x) into Ys [128][D + 4] f32,
+// the ring's room (columns past D, D = 32's zero half, not kept); every
+// thread may read Ys when it returns. Rows past N hold zeros.
+template <int D>
+__device__ __forceinline__ float* wg_y_rows(const bf16* __restrict__ hd, int F,
+                                            const bf16* __restrict__ w2, int N,
+                                            unsigned char* smem) {
+  using P = WgLnProduct<D>;
+  constexpr int kLdY = D + msfa_tc::kPad;
+  const int n0 = blockIdx.x * kWgRowsD;
+  const Operand a{hd + (long)n0 * F, F, N - n0, F};
+  const Operand b{w2, D, D, F};  // (k = f, d) at W2[f][d]
+  typename P::Acc acc;
+  P::run(a, b, F, smem, acc);
+  float* Ys = reinterpret_cast<float*>(smem);
+#pragma unroll
+  for (int nb = 0; nb < P::kNB; ++nb)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int c = P::col(nb, j, 0);
+        if (c < D)
+          *reinterpret_cast<float2*>(Ys + P::row(2 * h) * kLdY + c) =
+              make_float2(acc[nb][4 * j + 2 * h], acc[nb][4 * j + 2 * h + 1]);
+      }
+  __syncthreads();
+  return Ys;
+}
+
+// y = hd W2 for the block's 128 rows, then the residual and the LayerNorm
+// (residual_ln.cuh's ln_fwd_rows, ln_fwd_tile's epilogue): out =
+// LayerNorm(x + (y + b2) * rmask * inv_keep) over the first Dv columns,
+// rounded to bf16
+template <int D>
+__device__ __forceinline__ void wg_ln_fwd_tile(const bf16* __restrict__ hd, int F,
+                                               const bf16* __restrict__ w2,
+                                               const float* __restrict__ b2,
+                                               const bf16* __restrict__ x,
+                                               const float* __restrict__ gamma,
+                                               const float* __restrict__ beta,
+                                               const unsigned char* __restrict__ rmask,
+                                               bf16* __restrict__ out, int N, float inv_keep,
+                                               float eps, int Dv, unsigned char* smem) {
+  const float* Ys = wg_y_rows<D>(hd, F, w2, N, smem);
+  msfa_ln::ln_fwd_rows<D, kWgRowsD, WgLnProduct<D>::kThreads>(
+      Ys, blockIdx.x * kWgRowsD, b2, x, gamma, beta, rmask, out, N, inv_keep, eps, Dv);
+}
+
+// y = hd W2 for the block's 128 rows, then out = y + b2 rounded to bf16,
+// eight columns a thread in 16-byte stores, rows past N skipped
+template <int D>
+__device__ __forceinline__ void wg_out_tile(const bf16* __restrict__ hd, int F,
+                                            const bf16* __restrict__ w2,
+                                            const float* __restrict__ b2,
+                                            bf16* __restrict__ out, int N,
+                                            unsigned char* smem) {
+  constexpr int kLdY = D + msfa_tc::kPad, kPieces = D / 8;
+  const float* Ys = wg_y_rows<D>(hd, F, w2, N, smem);
+  const int n0 = blockIdx.x * kWgRowsD;
+  for (int i = threadIdx.x; i < kWgRowsD * kPieces; i += WgLnProduct<D>::kThreads) {
+    const int r = i / kPieces, c = 8 * (i % kPieces);
+    if (n0 + r >= N) break;  // i only grows: every later row is past N too
+    const float4 y0 = *reinterpret_cast<const float4*>(Ys + r * kLdY + c);
+    const float4 y1 = *reinterpret_cast<const float4*>(Ys + r * kLdY + c + 4);
+    *reinterpret_cast<uint4*>(out + (long)(n0 + r) * D + c) =
+        make_uint4(pack_bf16(y0.x + b2[c], y0.y + b2[c + 1]),
+                   pack_bf16(y0.z + b2[c + 2], y0.w + b2[c + 3]),
+                   pack_bf16(y1.x + b2[c + 4], y1.y + b2[c + 5]),
+                   pack_bf16(y1.z + b2[c + 6], y1.w + b2[c + 7]));
+  }
+}
+
 // y = hd W2 for the block's 128 rows, then the LayerNorm backward
 // (residual_ln.cuh's ln_bwd_tile's epilogue): dr (f32; 0 past Dv), dy
 // (bf16), and the block's sums over its rows of dout * xhat | dout | dy into
@@ -276,23 +360,7 @@ __device__ __forceinline__ void wg_ln_bwd_tile(const bf16* __restrict__ hd, int 
   using P = WgLnProduct<D>;
   constexpr int DJ = D / 32, kWarps = P::kThreads / 32, kLdY = D + msfa_tc::kPad;
   const int n0 = blockIdx.x * kWgRowsD;
-  const Operand a{hd + (long)n0 * F, F, N - n0, F};
-  const Operand b{w2, D, D, F};  // (k = f, d) at W2[f][d]
-  typename P::Acc acc;
-  P::run(a, b, F, smem, acc);
-  float* Ys = reinterpret_cast<float*>(smem);  // [128][D + 4]
-#pragma unroll
-  for (int nb = 0; nb < P::kNB; ++nb)
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int c = P::col(nb, j, 0);
-        if (c < D)
-          *reinterpret_cast<float2*>(Ys + P::row(2 * h) * kLdY + c) =
-              make_float2(acc[nb][4 * j + 2 * h], acc[nb][4 * j + 2 * h + 1]);
-      }
-  __syncthreads();
+  float* Ys = wg_y_rows<D>(hd, F, w2, N, smem);
   float* Red = Ys + kWgRowsD * kLdY;  // the warps' partials, [warps][3][D]
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   float pg[DJ], pb[DJ], po[DJ];

@@ -46,7 +46,12 @@ every product takes two bf16 operands and sums in f32 (the hidden, ``dy``
 and ``dpre`` are rounded to bf16 before the products they feed), the
 residual and the LayerNorm run in f32, the outputs and the weights'
 gradients are rounded to bf16, the biases' and the LayerNorm's gradients
-stay f32. The entries are picked by ``x``'s type.
+stay f32. The entries are picked by ``x``'s type. On the card every product
+of both FFW pairs' bf16 entries, forward and backward, runs on Hopper's
+``wgmma`` (``csrc/wgmma_ffw.cuh``; the FFW residual-LN forward and its
+backward take ``y = hd @ w2`` from one body, so the backward normalises the
+forward's y), and the projection pair's at one TF32 ``mma.sync`` pass a
+product (``csrc/tc_product.cuh``).
 """
 
 from __future__ import annotations

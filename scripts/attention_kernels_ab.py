@@ -27,7 +27,9 @@ and 1024, G 4, B 32 and 64, H 256, D 17 on a real PAMAP2 batch's lengths
 (one launch where the tree has ``dropout_keep_masks``, else one a mask),
 keep 0.8; the eight bf16 entries (rows 1b-2b, 10b-15b) at the same shapes
 on bf16 copies, with ``scaled_dot_product_attention`` in bf16 (the key mask,
-every key valid) beside row 1b; inputs from a fixed seed. Then, per tree, the serve p50 of batch-64 requests and their
+every key valid) beside row 1b, rows 10b and 12b also by part (the hidden,
+the hd W2 product; torch.profiler) with cuBLAS's bf16 ``addmm(b2, hd, W2)``
+beside the product; inputs from a fixed seed. Then, per tree, the serve p50 of batch-64 requests and their
 device time by kernel family (``chip_smoke.profile``) for the LSTM parity
 model at chunk 512 and 1024 and the GRU model at 512
 (``chip_smoke.rnn_overrides``, seeded weights, real windows). Launches are
@@ -295,6 +297,19 @@ def _measure_bf16(torch, g) -> dict:
         bits[name] = _digest(out if isinstance(out, tuple) else [out])
     times = {name: _time_ms(torch, call, 10) for name, call in calls.items()}
     times["sdpa_fwd_bf16_packed"] = _time_ms(torch, lambda: sdpa(q, k, v, attn_mask=key_mask), 20)
+    # rows 10b and 12b by part: the hidden's launch and the hd W2 product's
+    # (device ms, torch.profiler); cuBLAS's bf16 addmm(b2, hd, W2), its sums
+    # in f32, the product part's yardstick
+    smoke = _smoke()
+    for name in ("fused_mlp_fwd_bf16", "ffw_ln_fwd_bf16"):
+        for kernel, ms in smoke.kernel_times(torch, calls[name], 5).items():
+            times[f"{name}_{'hidden' if 'hidden' in kernel else 'product'}"] = ms
+    from multimodal_sensor_fusion_with_attention_rajeevatla_torch.utils.device import pin_float32
+
+    pin_float32()
+    hd = tm._ffw_ln_fwd_launch(*ffw, inv_keep, eps)[1]
+    b2b = b2.to(bf)
+    times["addmm_bf16_hd_w2"] = _time_ms(torch, lambda: torch.addmm(b2b, hd, w2), 10)
     return times, bits
 
 

@@ -17,6 +17,11 @@ port's ``ops/csrc/wgmma_bf16.cuh`` and times, with CUDA events:
   ``scaled_dot_product_attention`` in bf16 with the key mask;
 - the main loop alone (``WgProduct``, no epilogue) at the bf16 hidden's
   shape (x [16384, 256] . W1 [256, 2048]) for other tiles and ring depths;
+- the y = hd W2 product alone (``WgLnProduct<256>``'s loop, 64-deep fresh
+  chunks, no epilogue; rows 10b, 12b and 13b) at the training shape (hd
+  [16384, 2048] . W2 [2048, 256]): the design's 128-row blocks (one an SM)
+  against 64-row blocks (two an SM with a two-stage ring), with the blocks
+  an SM that the card's occupancy query gives each;
 - the packed attention backward's bf16 entry (row 2b, ``wgmma_attention_bwd.cuh``)
   at B 32, T 512, H 4, d 64 on ragged lengths (1-512) and every key valid,
   a bf16 cotangent: the design, exp by ``expf``, two bf16 terms of P and
@@ -46,6 +51,8 @@ N, K, F = 16384, 256, 2048
 ATTN = ((2, 3), (1, 3), (2, 2), (1, 2))
 # (warpgroups a block, columns, ring stages)
 LOOPS = ((2, 128, 2), (2, 128, 3), (2, 128, 4), (2, 64, 3), (1, 128, 3), (2, 256, 2))
+# y = hd W2 at D 256: (warpgroups a block, ring stages); the design first
+Y_LOOPS = ((2, 3), (1, 3), (1, 2))
 
 # one attention variant's kernel and launcher, in the namespace of its header copy
 ATTN_VARIANT = r'''
@@ -103,7 +110,36 @@ int run_loop(const bf16* x, const bf16* w1, float* sink, int N, int K, int F) {
   return (int)cudaGetLastError();
 }
 
+template <class P>  // y = hd W2 for P::kBM whole rows, 64-deep fresh chunks
+__global__ void __launch_bounds__(P::kThreads) yrows(const bf16* hd, const bf16* w2, float* sink,
+                                                     int N, int F, int D) {
+  extern __shared__ __align__(1024) unsigned char raw[];
+  const int n0 = blockIdx.x * P::kBM;
+  typename P::Acc acc;
+  P::run(Operand{hd + (long)n0 * F, F, N - n0, F}, Operand{w2, D, D, F}, F, align1024(raw), acc);
+  float s = 0.f;
+  for (int nb = 0; nb < P::kNB; ++nb)
+    for (int i = 0; i < 32; ++i) s += acc[nb][i];
+  if (s == 12345.f) sink[threadIdx.x] = s;
+}
+
+template <class P>
+int run_yrows(const bf16* hd, const bf16* w2, float* sink, int N, int F, int D, int* per_sm) {
+  const int bytes = P::kRingBytes + kAlignSlack;
+  cudaFuncSetAttribute(yrows<P>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, yrows<P>, P::kThreads, bytes);
+  yrows<P><<<(N + P::kBM - 1) / P::kBM, P::kThreads, bytes>>>(hd, w2, sink, N, F, D);
+  return (int)cudaGetLastError();
+}
+
 extern "C" {
+int yrows_variant(int v, const bf16* hd, const bf16* w2, float* sink, int N, int F, int D,
+                  int* per_sm) {
+  switch (v) {
+    Y_CASES
+    default: return -1;
+  }
+}
 int attn_variant(int v, const bf16* qkv, const int* lengths, float* out, float* lse, int B,
                  int T, int H, float sm_scale) {
   switch (v) {
@@ -143,8 +179,12 @@ def _write_source(csrc: Path) -> None:
     loops = "\n    ".join(
         f"case {i}: return run_loop<WgProduct<{m}, {c}, false, true, false, {s}>>(x, w1, sink, "
         f"N, K, F);" for i, (m, c, s) in enumerate(LOOPS))
+    ys = "\n    ".join(
+        f"case {i}: return run_yrows<WgProduct<{m}, 256, false, true, true, {s}, 2>>(hd, w2, "
+        f"sink, N, F, D, per_sm);" for i, (m, s) in enumerate(Y_LOOPS))
     (OUT / "variants.cu").write_text(SOURCE.replace("ATTN_VARIANTS", variants)
-                                     .replace("ATTN_CASES", attn).replace("LOOP_CASES", loops))
+                                     .replace("ATTN_CASES", attn).replace("LOOP_CASES", loops)
+                                     .replace("Y_CASES", ys))
 
 
 # row 2b: (label, replacements in wgmma_attention_bwd.cuh)
@@ -276,6 +316,8 @@ def main() -> int:
     lib.attn_variant.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
         ctypes.c_float]
     lib.loop_variant.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+    lib.yrows_variant.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+                                  + [ctypes.c_void_p])
 
     g = torch.Generator().manual_seed(1)
     scale = D**-0.5
@@ -320,6 +362,22 @@ def main() -> int:
             raise RuntimeError(f"main-loop variant {i} refused")
         parts.append(f"{64 * m}x{c} ({m} wg, {s} stages) {_time_ms(torch, call):.4f}")
     print(f"main loop alone, x [{N}, {K}] . W1 [{K}, {F}], ms: " + " | ".join(parts), flush=True)
+
+    hd = torch.randn(N, F, generator=g).to(torch.bfloat16).cuda()
+    w2 = (torch.randn(F, K, generator=g) * F**-0.5).to(torch.bfloat16).cuda()
+    per_sm = ctypes.c_int(0)
+    parts = []
+    for i, (m, s) in enumerate(Y_LOOPS):
+        def call(i=i):
+            return lib.yrows_variant(i, hd.data_ptr(), w2.data_ptr(), sink.data_ptr(), N, F, K,
+                                     ctypes.byref(per_sm))
+
+        if call():
+            raise RuntimeError(f"y = hd W2 variant {i} refused")
+        parts.append(f"{64 * m} rows ({m} wg, {s} stages, {per_sm.value} an SM) "
+                     f"{_time_ms(torch, call):.4f}")
+    print(f"y = hd W2 alone, hd [{N}, {F}] . W2 [{F}, {K}], 64-deep fresh chunks, ms: "
+          + " | ".join(parts), flush=True)
     _bwd_rows(torch, ta, bwd_libs, g)
     return 0
 

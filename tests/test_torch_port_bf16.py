@@ -12,9 +12,10 @@ the program as written.
 The bf16 twins of the packed attention pair (rows 1-2), of both
 residual-LN pairs (rows 12-15) and of the feed-forward pair (rows 10-11)
 against the JAX kernel functions on bf16 inputs; the product scheme of their
-CUDA entries (a bf16 operand exact in TF32: one TF32 product for two bf16
-operands, two for a bf16 and an f32 one) emulated on the CPU against the
-twins, and on exact-sum inputs each FFW rounding point shown to matter;
+CUDA entries (the packed pair's and both FFW pairs' on wgmma, the
+projection pair's one TF32 product for two bf16 operands, a bf16 operand
+being exact in TF32) emulated on the CPU against the twins, and on
+exact-sum inputs each FFW rounding point shown to matter;
 served logits of the four fusion heads with one CNN stream, and of the
 grouped transformer; one train-mode loss and every gradient against
 ``jax.value_and_grad`` at dropout 0, on the default kernel route, the
@@ -73,6 +74,7 @@ from torch_port_schemes import (
     WG_CHUNK_K,
     _ffw_ln_bf16,
     _fused_mlp_bf16,
+    _mm_chunked,
     _mm_n,
     _proj_ln_bf16,
     _tf32_cut,
@@ -521,9 +523,9 @@ def test_packed_attention_bf16_step_floor_is_what_the_f32_sums_need(cotangent):
 @pytest.mark.parametrize("family", ["proj_ln", "ffw_ln"])
 def test_residual_ln_bf16_scheme_holds_the_twins(family):
     """Both residual-LN pairs' bf16 entries, emulated (every product of two
-    bf16 operands: one TF32 pass a k-step in 32-deep chunks, the FFW
-    backward's and the hidden's on wgmma in 64-deep chunks or one sum over
-    k = D; the roundings of the reference's kernels), against their twins
+    bf16 operands: the projection's one TF32 pass a k-step in 32-deep
+    chunks, every FFW product on wgmma in 64-deep chunks or one sum over k =
+    D; the roundings of the reference's kernels), against their twins
     within one bf16 rounding of each output's largest magnitude."""
     arrays, masks, dout, keep = _ln_case(family, 11, n=200, d=32, f=128)
     targs = _torch_ln(family, arrays, masks)
@@ -535,7 +537,7 @@ def test_residual_ln_bf16_scheme_holds_the_twins(family):
     assert _rel(out.numpy(), want_out.float().numpy()) < BF16_TOL
     want = getattr(tm, f"{family}_bwd_bf16_reference")(*targs, torch.from_numpy(dout).to(BF),
                                                       inv_keep, 1e-6)
-    assert WG_CHUNK_K == 64  # the bf16 FFW backward's wgmma chunks
+    assert WG_CHUNK_K == 64  # the bf16 FFW products' wgmma chunks
     for i, (got, ref) in enumerate(zip(grads, want)):
         assert _rel(got.numpy(), ref.float().numpy()) < BF16_TOL, i
 
@@ -563,6 +565,26 @@ def test_ffw_ln_bf16_rounding_points_each_move_the_exact_case():
         variant = [t.to(BF) for t in (out_v, grads_v[0], grads_v[1], grads_v[3])]
         for i in moved:
             assert (variant[i] != want[i]).float().mean() > 0.25, (skip, i)
+
+
+def test_ffw_ln_bf16_forward_and_backward_take_one_y():
+    """The FFW residual-LN bf16 forward and its backward compute y = hd W2
+    on one wgmma body (``wgmma_ffw.cuh``'s ``wg_y_rows``, 64-deep fresh
+    chunks), so in their scheme the forward's y and the backward's are one
+    tensor bit for bit and the backward normalises with the forward's xhat.
+    The seeded inputs are not exact sums: the forward's former product (one
+    TF32 pass a k-step in 32-deep chunks) gives y other bits on them."""
+    arrays, masks, dout, keep = _ln_case("ffw_ln", 29, n=200, d=64, f=256)
+    targs = _torch_ln("ffw_ln", arrays, masks)
+    f32 = [t.float() if t.dtype == BF else t for t in targs]
+    inv_keep = tm._inv_keep(keep)
+    ys = []
+    _ffw_ln_bf16(*f32, torch.from_numpy(dout), inv_keep, 1e-6, ys=ys)
+    y_fwd, y_bwd = ys
+    assert torch.equal(y_fwd, y_bwd)
+    hd = ffw_ln_scheme_hidden(targs[0], targs[1], targs[2], targs[7], inv_keep).float()
+    one_tf32_pass = _mm_chunked(hd, f32[3], lambda p, q: _mm_n(p, q, False, False))
+    assert not torch.equal(one_tf32_pass, y_fwd)
 
 
 def _mlp_case(seed, n=40, d=32, f=128, keep=0.8):
@@ -612,11 +634,10 @@ def test_fused_mlp_bf16_twins_match_the_jax_kernels(direction):
 
 
 def test_fused_mlp_bf16_scheme_holds_the_twins():
-    """The feed-forward pair's bf16 entries, emulated (the forward's out
-    product one TF32 pass a k-step in 32-deep chunks; the hidden and the
-    backward on wgmma, in one sum over k = D or 64-deep chunks over d_ff and
-    the rows; the hidden and dpre rounded), against their twins within one
-    bf16 rounding of each output's largest magnitude."""
+    """The feed-forward pair's bf16 entries, emulated (every product on
+    wgmma, in one sum over k = D or 64-deep chunks over d_ff and the rows;
+    the hidden and dpre rounded), against their twins within one bf16
+    rounding of each output's largest magnitude."""
     arrays, mask, dout, keep = _mlp_case(23, n=200)
     x, w1, b1, w2, b2, tmask = _torch_mlp(arrays, mask)
     inv_keep = tm._inv_keep(keep)

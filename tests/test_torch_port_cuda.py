@@ -1210,53 +1210,106 @@ def test_packed_attention_bf16_entries_are_the_f32_entries_on_f32_copies(card, s
     torch.testing.assert_close(lse, f_lse, rtol=1e-5, atol=1e-5)
 
 
-def _bf16_ln_args(family, g, n, d, f, keep, card):
+def _bf16_ln_args(family, g, n, d, f, keep, card, dv=None):
+    """A bf16 residual-LN pair's arguments and a cotangent; with ``dv``, the
+    model width dv run at the built width d: zero past dv in every axis of
+    width d (the LayerNorm's scale and offset too)."""
     w, fmask, rmask = _ln_inputs(g, n, d, f, keep, card)
     bf = torch.bfloat16
+    cut = torch.ones(d, device=card)
+    if dv is not None:
+        cut[dv:] = 0.0
+
+    def v(*shape, scale=1.0):
+        t = w(*shape, scale=scale)
+        for axis, size in enumerate(shape):
+            if size == d and dv is not None:
+                t = t * cut.reshape([-1 if i == axis else 1 for i in range(len(shape))])
+        return t.contiguous()
+
     if family == "proj_ln":
-        return (w(n, d).to(bf), w(n, d).to(bf), w(d, d, scale=d**-0.5).to(bf), w(d, scale=0.1),
-                1 + w(d, scale=0.1), w(d, scale=0.1), rmask), w(n, d).to(bf)
-    return (w(n, d).to(bf), w(d, f, scale=d**-0.5).to(bf), w(f, scale=0.1),
-            w(f, d, scale=f**-0.5).to(bf), w(d, scale=0.1), 1 + w(d, scale=0.1),
-            w(d, scale=0.1), fmask, rmask), w(n, d).to(bf)
+        return (v(n, d).to(bf), v(n, d).to(bf), v(d, d, scale=d**-0.5).to(bf), v(d, scale=0.1),
+                (1 + w(d, scale=0.1)) * cut, v(d, scale=0.1), rmask), v(n, d).to(bf)
+    return (v(n, d).to(bf), v(d, f, scale=d**-0.5).to(bf), w(f, scale=0.1),
+            v(f, d, scale=f**-0.5).to(bf), v(d, scale=0.1), (1 + w(d, scale=0.1)) * cut,
+            v(d, scale=0.1), fmask, rmask), v(n, d).to(bf)
 
 
-@pytest.mark.parametrize("family,n,d,keep", [("proj_ln", 1000, 256, 0.8),
-                                             ("proj_ln", 37, 64, None),
-                                             ("ffw_ln", 300, 256, 0.8),
-                                             ("ffw_ln", 100, 64, 0.0)])
-def test_residual_ln_bf16_entries_match_twins(card, family, n, d, keep):
+@pytest.mark.parametrize("family,n,d,keep,dv", [("proj_ln", 1000, 256, 0.8, None),
+                                                ("proj_ln", 37, 64, None, None),
+                                                ("ffw_ln", 300, 256, 0.8, None),
+                                                ("ffw_ln", 100, 64, 0.0, None),
+                                                ("ffw_ln", 333, 32, 0.8, None),
+                                                ("ffw_ln", 257, 128, None, None),
+                                                ("ffw_ln", 301, 256, 0.8, 192)])
+def test_residual_ln_bf16_entries_match_twins(card, family, n, d, keep, dv):
     g = torch.Generator().manual_seed(400 + n)
     f = 2048 if d == 256 else 128
-    args, dout = _bf16_ln_args(family, g, n, d, f, keep, card)
+    args, dout = _bf16_ln_args(family, g, n, d, f, keep, card, dv)
     inv_keep = tm._inv_keep(1.0 if keep is None else keep)
     fwd, bwd = getattr(tm, f"{family}_fwd_bf16"), getattr(tm, f"{family}_bwd_bf16")
     before = (fwd.launches, bwd.launches)
-    out = fwd(*args, inv_keep, 1e-6)
-    grads = bwd(*args, dout, inv_keep, 1e-6)
+    out = fwd(*args, inv_keep, 1e-6, d_valid=dv)
+    grads = bwd(*args, dout, inv_keep, 1e-6, d_valid=dv)
     torch.cuda.synchronize()
     assert (fwd.launches, bwd.launches) == (before[0] + 1, before[1] + 1)
     assert out.dtype == torch.bfloat16
-    want_out = getattr(tm, f"{family}_fwd_bf16_reference")(*args, inv_keep, 1e-6)
+    want_out = getattr(tm, f"{family}_fwd_bf16_reference")(*args, inv_keep, 1e-6, d_valid=dv)
     assert _rel_err(out.float(), want_out.float()) < BF16_TOL
+    if dv is not None:  # nothing written past the model width
+        assert torch.all(out[:, dv:] == 0) and torch.all(grads[0][:, dv:] == 0)
     if family == "ffw_ln":
         # on the forward kernel's ReLU branches (a pre within rounding of zero
         # may take the other one in the twin's f32 product)
         xf, w1f = args[0].float(), args[1].float()
-        _o, hd = tm._ffw_ln_fwd_launch(*args, inv_keep, 1e-6)
+        _o, hd = tm._ffw_ln_fwd_launch(*args, inv_keep, 1e-6, dv)
         pre = xf @ w1f + args[2]
         kept = torch.ones_like(pre, dtype=torch.bool) if args[7] is None else args[7].bool()
         live = torch.where(kept & (inv_keep != 0.0), hd.float() > 0, pre > 0)
         want = tm._ffw_ln_bwd_bf16_plain(xf, w1f, pre, live, args[3].float(), args[4], args[5],
-                                         args[7], args[8], dout.float(), inv_keep, 1e-6)
+                                         args[7], args[8], dout.float(), inv_keep, 1e-6, dv)
     else:
-        want = tm.proj_ln_bwd_bf16_reference(*args, dout, inv_keep, 1e-6)
+        want = tm.proj_ln_bwd_bf16_reference(*args, dout, inv_keep, 1e-6, d_valid=dv)
     for got, ref in zip(grads, want):
         assert got.dtype == ref.dtype
         if keep == 0.0 and not ref.abs().max() > 0:
             assert torch.all(got == 0)
         else:
             assert _rel_err(got.float(), ref.float()) < BF16_TOL
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_ffw_ln_forward_and_backward_normalise_one_y(card, dtype):
+    """The FFW residual-LN forward and its backward compute y = hd W2 on one
+    body from one hidden kernel's hd (the f32 pair's LnProduct, the bf16
+    pair's wgmma_ffw.cuh wg_y_rows), so the backward's xhat is the
+    forward's. With gamma 1, beta 0 and a cotangent whose column c holds a
+    single 1, at row n_c, dgamma[c] is exactly the backward's xhat[n_c, c],
+    and the forward's out[n_c, c] is its own xhat there. Exact for the f32
+    pair; for the bf16 pair weak (out is rounded to bf16, which hides a
+    last-bit difference in y, so a forward on another product would most
+    likely pass too): the CPU scheme test
+    (test_torch_port_bf16.py, test_ffw_ln_bf16_forward_and_backward_take_one_y)
+    and the shared body are what prove the one product."""
+    n, d, f = 1000, 256, 2048
+    g = torch.Generator().manual_seed(61)
+    w, fmask, rmask = _ln_inputs(g, n, d, f, 0.8, card)
+    args = (w(n, d).to(dtype), w(d, f, scale=d**-0.5).to(dtype), w(f, scale=0.1),
+            w(f, d, scale=f**-0.5).to(dtype), w(d, scale=0.1), torch.ones(d, device=card),
+            torch.zeros(d, device=card), fmask, rmask)
+    cols = torch.arange(d, device=card)
+    rows = (7 + 3 * cols) % n  # a distinct row for each column
+    dout = torch.zeros(n, d, device=card, dtype=dtype)
+    dout[rows, cols] = 1.0
+    bf16 = dtype == torch.bfloat16
+    fwd, bwd = ((tm.ffw_ln_fwd_bf16, tm.ffw_ln_bwd_bf16) if bf16
+                else (tm.ffw_ln_fwd, tm.ffw_ln_bwd))
+    inv_keep = tm._inv_keep(0.8)
+    out = fwd(*args, inv_keep, 1e-6)
+    dgamma = bwd(*args, dout, inv_keep, 1e-6)[5]
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and dgamma.dtype == torch.float32
+    assert torch.equal(out[rows, cols], dgamma.to(dtype))
 
 
 # the FFW bf16 entries against their emulated scheme on inputs where each
@@ -1302,7 +1355,8 @@ def _bf16_mlp_args(g, n, d, f, keep, card):
 
 
 @pytest.mark.parametrize("n,d,f,keep", [(300, 256, 2048, 0.8), (37, 256, 2048, None),
-                                        (100, 64, 128, 0.0), (1000, 32, 64, 0.8)])
+                                        (100, 64, 128, 0.0), (1000, 32, 64, 0.8),
+                                        (257, 128, 128, 0.8)])
 def test_fused_mlp_bf16_entries_match_twins_and_repeat(card, n, d, f, keep):
     """Rows 10b-11b: the feed-forward pair's bf16 entries against their twins
     (the backward on the forward kernel's ReLU branches), one launch each,

@@ -2,10 +2,12 @@
 (no JAX), so that both the CPU tests and the card tests can hold a kernel to
 them: TF32 splits, the residual-LN kernels' 32-deep chunked products and
 split weight gradients, and the bf16 entries of both residual-LN pairs and
-of the feed-forward pair with their rounding points. Both bf16 FFW
-backwards' products and the bf16 hidden run on wgmma (``wgmma_ffw.cuh``):
+of the feed-forward pair with their rounding points. Every product of both
+bf16 FFW pairs, forward and backward, runs on wgmma (``wgmma_ffw.cuh``):
 exact bf16 products summed in f32, over k = d_model in one sum, over d_ff
-and the rows in 64-deep chunks."""
+and the rows in 64-deep chunks; the FFW residual-LN forward and its
+backward take y = hd W2 from one body, so the backward normalises the
+forward's y."""
 
 import math
 
@@ -106,30 +108,31 @@ def _proj_ln_bf16(x, a, wo, bo, gamma, beta, rmask, dout, inv_keep, eps):
     return _rnd(out), grads
 
 
-def _ffw_ln_bf16(x, w1, b1, w2, b2, gamma, beta, fmask, rmask, dout, inv_keep, eps, skip=()):
-    """``ffw_ln``'s bf16 entries: the hidden on wgmma (the whole k = D in one
-    f32 sum), rounded to bf16; the forward's y from one TF32 product a
-    k-step in 32-deep chunks, the residual and LayerNorm in f32, out rounded;
-    the backward on wgmma (y and dx over d_ff in 64-deep chunks, dpre over D
-    in one sum, the weight gradients per split of whole 64-row chunks,
-    ``_wg_grad_splits`` of them): dy and dpre rounded before their products,
-    dx, dW1, dW2 rounded, db1 (128-row blocks), db2, dgamma, dbeta (128-row
-    blocks) f32. ``skip``
-    names rounding points ("hidden", "dy", "dpre") left out, with the
-    products they feed taken on the unrounded values: what an entry that
-    dropped them would compute."""
+def _ffw_ln_bf16(x, w1, b1, w2, b2, gamma, beta, fmask, rmask, dout, inv_keep, eps, skip=(),
+                 ys=None):
+    """``ffw_ln``'s bf16 entries, both directions on wgmma: the hidden (the
+    whole k = D in one f32 sum), rounded to bf16; y = hd W2 over d_ff in
+    64-deep chunks, one product for the forward (the residual and LayerNorm
+    in f32, out rounded) and for the backward, which recomputes it; dx over
+    d_ff as y, dpre over D in one sum, the weight gradients per split of
+    whole 64-row chunks (``_wg_grad_splits`` of them): dy and dpre rounded
+    before their products, dx, dW1, dW2 rounded, db1 (128-row blocks), db2,
+    dgamma, dbeta (128-row blocks) f32. ``skip`` names rounding points
+    ("hidden", "dy", "dpre") left out, with the products they feed taken on
+    the unrounded values: what an entry that dropped them would compute.
+    ``ys``, a list, receives the forward's y and the backward's."""
     d, f = w1.shape
-    mm = lambda p, q: _mm_n(p, q, False, False)  # noqa: E731
-    mm_f32 = (lambda p, q: p @ q) if skip else mm  # noqa: E731
 
     def rnd(t, point):
         return t if point in skip else _rnd(t)
 
     fscale, rscale = fmask.float() * inv_keep, rmask.float() * inv_keep
     hd = rnd(torch.relu(x @ w1 + b1) * fscale, "hidden")
-    out, _xhat, _inv = tm.ln_rows(x + (_mm_chunked(hd, w2, mm_f32) + b2) * rscale, gamma, beta,
-                                  eps)
-    _out, xhat, inv = tm.ln_rows(x + (_mm_wg(hd, w2) + b2) * rscale, gamma, beta, eps)
+    y_fwd, y_bwd = _mm_wg(hd, w2), _mm_wg(hd, w2)  # the forward's launch, the backward's
+    if ys is not None:
+        ys.extend((y_fwd, y_bwd))
+    out, _xhat, _inv = tm.ln_rows(x + (y_fwd + b2) * rscale, gamma, beta, eps)
+    _out, xhat, inv = tm.ln_rows(x + (y_bwd + b2) * rscale, gamma, beta, eps)
     dr, _dg, _db = tm._ln_backward(dout, xhat, inv, gamma)
     dy = dr * rscale
     dyb = rnd(dy, "dy")
@@ -146,10 +149,11 @@ def _ffw_ln_bf16(x, w1, b1, w2, b2, gamma, beta, fmask, rmask, dout, inv_keep, e
 
 
 def _fused_mlp_bf16(x, w1, b1, w2, b2, mask, dout, inv_keep, skip=()):
-    """``fused_mlp``'s bf16 entries: the hidden on wgmma (the whole k = D in
-    one f32 sum), rounded to bf16 before W2's product (out = hd W2 + b2 from
-    one TF32 product a k-step in 32-deep chunks, rounded) and before dW2's;
-    the backward on wgmma, ``ffw_ln``'s bodies without the LN product (dpre
+    """``fused_mlp``'s bf16 entries, both directions on wgmma: the hidden
+    (the whole k = D in one f32 sum), rounded to bf16 before W2's product
+    (out = hd W2 + b2, ``ffw_ln``'s y over d_ff in 64-deep chunks, rounded)
+    and before dW2's; the backward ``ffw_ln``'s bodies without the LN
+    product (dpre
     = (hd > 0) (dout W2^T) mask / keep over D in one sum, rounded before
     dW1's and dx's products; dx over d_ff in 64-deep chunks; the weight
     gradients per split of whole 64-row chunks, ``_wg_grad_splits`` of
@@ -159,8 +163,6 @@ def _fused_mlp_bf16(x, w1, b1, w2, b2, mask, dout, inv_keep, skip=()):
     they feed taken on the unrounded values: what an entry that dropped them
     would compute. Returns ``(out, (dx, dw1, db1, dw2))``."""
     f = w1.shape[1]
-    mm = lambda p, q: _mm_n(p, q, False, False)  # noqa: E731
-    mm_f32 = (lambda p, q: p @ q) if skip else mm  # noqa: E731
     mm_wg = lambda p, q: p @ q  # noqa: E731
 
     def rnd(t, point):
@@ -168,7 +170,7 @@ def _fused_mlp_bf16(x, w1, b1, w2, b2, mask, dout, inv_keep, skip=()):
 
     scale = mask.float() * inv_keep
     h = torch.relu(x @ w1 + b1) * scale
-    out = _mm_chunked(rnd(h, "hidden"), w2, mm_f32) + b2
+    out = _mm_wg(rnd(h, "hidden"), w2) + b2
     hd = rnd(h, "hd")
     dpre = torch.where(h > 0, (dout @ w2.t()) * scale, 0.0)
     dpb = rnd(dpre, "dpre")
